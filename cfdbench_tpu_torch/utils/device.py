@@ -1,0 +1,31 @@
+"""Device and numerics helpers."""
+
+from __future__ import annotations
+
+import torch
+
+
+def require_cuda() -> torch.device:
+    """The current CUDA device; raises when there is none."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "a CUDA device is required, but torch.cuda.is_available() "
+            "is False"
+        )
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def default_device() -> torch.device:
+    """The CUDA device when there is one, else the CPU (where the
+    kernels' plain versions run)."""
+    return require_cuda() if torch.cuda.is_available() else torch.device("cpu")
+
+
+def set_f32_numerics() -> None:
+    """Full-precision float32 products everywhere. Parity with the
+    float32 reference (2e-5 on a forward) needs this: TF32 keeps about
+    three decimal digits, and cuDNN uses it for float32 convolutions by
+    default."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")

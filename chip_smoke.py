@@ -1,0 +1,318 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (``cfdbench_tpu_torch``).
+
+Usage, from the root of a checkout, on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+1. Prints the card (name, power limit), the PyTorch, CUDA and nvcc
+   versions, whether Triton imports, and builds both kernels from
+   ``cfdbench_tpu_torch/csrc`` (build time and ptxas report).
+2. Holds each kernel to its plain PyTorch version on the card, in float32
+   with TF32 off, at the flagship shape (B=8, 64x64, 32 channels, 12
+   modes) and at 66x65 (odd W).
+3. Drives the main path through its entry point: a synthetic 64x64
+   cavity tree, a seeded flagship FNO (depth 4, width 32, 12 modes)
+   saved as ``ckpt-0/model.pt``, then
+   ``cfdbench_tpu_torch.cli.main_multistep``. The launch counters must
+   show every FnoBlock (4 x 20) and every head (20) on the kernels, and
+   ``multistep_metrics.json`` 20 finite per-step dicts.
+4. Rolls the same weights out on the same cases through the kernels and
+   through the plain versions; the per-step metrics must agree.
+5. Times, with CUDA events, the 20-step rollout at batch 128 on both
+   paths and each kernel against its plain version at batch 128.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
+It needs a CUDA device and fails without one.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent
+WORK = ROOT / "build" / "chip_smoke"
+SEED = 0
+STEPS = 20
+WIDTH, MODES = 32, 12  # the flagship's, for the kernel phases
+GRID = 64
+# Bounds against the plain versions (float32, different summation order:
+# truncated-DFT sums against cuFFT, FMA chains against cuBLAS).
+BLOCK_ATOL = 1e-4
+HEAD_ATOL = 1e-5
+ROLLOUT_RTOL = 1e-4
+TIMING_BATCH = 128
+
+
+def sh(*cmd) -> str:
+    return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def interleaved_ms(plain, kernel, reps: int):
+    """Warm up, then time in turns plain, kernel, kernel, plain; returns
+    (plain_ms, kernel_ms), each the mean of its two turns."""
+    plain(), kernel()
+    torch.cuda.synchronize()
+    p1, k1, k2, p2 = (time_ms(f, reps) for f in (plain, kernel, kernel, plain))
+    return (p1 + p2) / 2, (k1 + k2) / 2
+
+
+def host_facts():
+    from cfdbench_tpu_torch.ops import _build
+
+    card = sh("nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader").splitlines()[0]
+    print(card)
+    print(f"torch {torch.__version__}, torch.version.cuda {torch.version.cuda}, "
+          f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
+    print("nvcc:", sh(_build.find_nvcc(), "--version").splitlines()[-1])
+    try:
+        import triton
+
+        print(f"triton {triton.__version__} imports")
+    except ImportError as e:
+        print(f"triton does not import: {e}")
+    t0 = time.perf_counter()
+    _build.build_library()
+    _build.load_library()
+    print(f"kernel build + load: {time.perf_counter() - t0:.2f} s")
+    log = _build.BUILD_DIR / "nvcc.log"
+    if log.exists():
+        for line in log.read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print("  ptxas:", line.strip())
+    return card
+
+
+def kernel_inputs(B, H, W, C, gen, device):
+    from cfdbench_tpu_torch.ops.spectral import init_spectral_weights
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(device)
+
+    # Spectral weights at C times their init scale, so the spectral path
+    # is as large as the bypass and an error in it cannot hide.
+    weights = (init_spectral_weights(gen, C, C, MODES, MODES) * C).to(device)
+    mask = torch.ones((B, H, W, 1))
+    mask[:, H // 3: H // 2, W // 4: W // 2] = 0
+    return dict(
+        x=rnd(B, H, W, C), weights=weights, w0=rnd(C, C, scale=C ** -0.5),
+        b0=rnd(C, scale=0.1), w1=rnd(128, C, scale=C ** -0.5),
+        b1=rnd(128, scale=0.1), w2=rnd(2, 128, scale=128 ** -0.5),
+        b2=rnd(2, scale=0.1), mask=mask.to(device),
+    )
+
+
+def check_kernels(device):
+    """Phase 2: each kernel against its plain version; returns the max
+    abs error per kernel over the shapes."""
+    from cfdbench_tpu_torch.ops import fno_kernels as fk
+
+    gen = torch.Generator().manual_seed(SEED)
+    worst = {"fno_block": 0.0, "fno_head": 0.0}
+    for B, H, W in ((8, GRID, GRID), (8, GRID + 2, GRID + 1)):
+        t = kernel_inputs(B, H, W, WIDTH, gen, device)
+        block_args = (t["x"], t["weights"], t["w0"], t["b0"], MODES, MODES)
+        head_args = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"], t["mask"])
+        for name, kern, ref, args, atol in (
+            ("fno_block", fk.fno_block, fk.fno_block_reference, block_args, BLOCK_ATOL),
+            ("fno_head", fk.fno_head, fk.fno_head_reference, head_args, HEAD_ATOL),
+        ):
+            got, want = kern(*args), ref(*args)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise RuntimeError(f"{name} {B}x{H}x{W}: shape {tuple(got.shape)} "
+                                   f"vs {tuple(want.shape)} or non-finite output")
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            print(f"[kernel] {name} B={B} {H}x{W} C={WIDTH}: max abs err {err:.3e} "
+                  f"(bound {atol:.0e}), max rel err {rel:.3e}")
+            if not err <= atol:
+                raise RuntimeError(f"{name} {H}x{W} disagrees with its plain version: "
+                                   f"{err:.3e} > {atol:.0e}")
+            worst[name] = max(worst[name], err)
+    return worst
+
+
+def flagship_model(device):
+    from cfdbench_tpu_torch.models.fno import FLAGSHIP, Fno2d
+
+    return Fno2d(n_case_params=5, **FLAGSHIP,
+                 generator=torch.Generator().manual_seed(SEED), device=device)
+
+
+def plain_rollout(model):
+    from cfdbench_tpu_torch.models.fno import fno2d_reference
+    from cfdbench_tpu_torch.training.rollout import make_rollout_fn
+
+    return make_rollout_fn(lambda f, c, m: fno2d_reference(model, f, c, m), STEPS)
+
+
+def main_path():
+    """Phase 3: the port's main_multistep at the flagship width. Returns
+    the launch counts of that run and the test split's arrays."""
+    from cfdbench_tpu_torch.cli import main_multistep, parse_args, run_dir
+    from cfdbench_tpu_torch.data import generate_all, load_test_cases
+    from cfdbench_tpu_torch.models.fno import FLAGSHIP
+    from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
+    from cfdbench_tpu_torch.training.checkpoints import save_checkpoint
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    data_root, out_root = WORK / "data", WORK / "result"
+    t0 = time.perf_counter()
+    # 30 cases per subset: the seeded 80/10/10 split leaves 9 test cases.
+    generate_all(data_root, cases_per_subset=30, num_frames=STEPS + 1, grid=GRID, seed=SEED)
+    argv = [
+        "--model", "fno", "--data_name", "cavity_prop_bc_geo",
+        "--data_dir", str(data_root), "--output_dir", str(out_root),
+        "--fno_depth", str(FLAGSHIP["num_layers"]),
+        "--fno_hidden_dim", str(FLAGSHIP["hidden_dim"]),
+        "--fno_modes_x", str(FLAGSHIP["modes1"]), "--fno_modes_y", str(FLAGSHIP["modes2"]),
+    ]
+    args = parse_args(argv)
+    save_checkpoint(flagship_model("cpu").state_dict(), run_dir(args) / "ckpt-0",
+                    ep=0, dev_loss=0.0)
+    print(f"[main] synthetic tree + checkpoint: {time.perf_counter() - t0:.2f} s")
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    main_multistep(argv)
+    counts = launch_counts()
+    print(f"[main] main_multistep: {time.perf_counter() - t0:.2f} s, launches {counts}")
+    want = {"fno_block": FLAGSHIP["num_layers"] * STEPS, "fno_head": STEPS}
+    if counts != want:
+        raise RuntimeError(f"main path launches {counts}, expected {want}")
+    metrics = json.loads((run_dir(args) / "multistep_metrics.json").read_text())
+    if len(metrics) != STEPS or not all(
+        set(m) == {"mse", "nmse", "mae"} and all(math.isfinite(v) for v in m.values())
+        for m in metrics
+    ):
+        raise RuntimeError(f"multistep_metrics.json is not {STEPS} finite dicts: {metrics}")
+    print(f"[main] multistep_metrics.json: {STEPS} finite steps, "
+          f"step-1 nmse {metrics[0]['nmse']:.6g}, step-20 nmse {metrics[-1]['nmse']:.6g}")
+    features, case_params = load_test_cases(args, STEPS)
+    return counts, features, torch.from_numpy(case_params)
+
+
+def compare_rollouts(device, features, case_params):
+    """Phase 4: the same weights rolled out through the kernels and
+    through the plain versions give the same per-step metrics."""
+    from cfdbench_tpu_torch.training.rollout import make_rollout_fn, multistep_metrics
+
+    model = flagship_model(device).eval()
+    frame0 = torch.from_numpy(features[:, 0, :, :, :2].copy()).to(device)
+    mask_np = features[:, 0, :, :, 2:3]
+    mask = torch.from_numpy(mask_np.copy()).to(device)
+    cp = case_params.to(device)
+    runs, frames = {}, {}
+    for name, roll in (("kernel", make_rollout_fn(model, STEPS)), ("plain", plain_rollout(model))):
+        frames[name] = roll(frame0, cp, mask)
+        runs[name] = multistep_metrics(frames[name], features, mask_np)
+    # The frames themselves, relative to their largest value: random
+    # weights predict small fields, which the metrics alone barely see.
+    frame_rel = ((frames["kernel"] - frames["plain"]).abs().max()
+                 / frames["plain"].abs().max()).item()
+    print(f"[rollout] kernel vs plain frames after {STEPS} steps: max abs diff / max "
+          f"|frame| {frame_rel:.3e} (bound {ROLLOUT_RTOL:.0e})")
+    if not frame_rel <= ROLLOUT_RTOL:
+        raise RuntimeError(f"rollout frames disagree: {frame_rel:.3e} > {ROLLOUT_RTOL}")
+    worst = 0.0
+    for s, (a, b) in enumerate(zip(runs["kernel"], runs["plain"])):
+        for key in a:
+            rel = abs(a[key] - b[key]) / max(abs(b[key]), 1e-30)
+            worst = max(worst, rel)
+            if not rel <= ROLLOUT_RTOL:
+                raise RuntimeError(f"step {s + 1} {key}: kernel {a[key]!r} vs plain "
+                                   f"{b[key]!r} (rel {rel:.3e} > {ROLLOUT_RTOL})")
+    print(f"[rollout] {features.shape[0]} cases x {STEPS} steps, kernel vs plain metrics: "
+          f"max rel diff {worst:.3e} (bound {ROLLOUT_RTOL:.0e})")
+
+
+def timing(device, card):
+    """Phase 5: rollout frames/s at batch 128 and each kernel against its
+    plain version at batch 128, by CUDA events, in turns."""
+    from cfdbench_tpu_torch.ops import fno_kernels as fk
+    from cfdbench_tpu_torch.training.rollout import make_rollout_fn
+
+    B, H, W = TIMING_BATCH, GRID, GRID
+    gen = torch.Generator().manual_seed(SEED + 1)
+    model = flagship_model(device).eval()
+    frame0 = torch.randn((B, H, W, 2), generator=gen).to(device)
+    cp = torch.randn((B, 5), generator=gen).to(device)
+    mask = torch.ones((B, H, W, 1))
+    mask[:, 20:30, 10:40] = 0
+    mask = mask.to(device)
+    kernel_roll = make_rollout_fn(model, STEPS)
+    plain_roll = plain_rollout(model)
+    plain_ms, kern_ms = interleaved_ms(lambda: plain_roll(frame0, cp, mask),
+                                       lambda: kernel_roll(frame0, cp, mask), reps=3)
+    frames = B * STEPS
+    print(f"[time] [{card}] rollout b{B} x {STEPS} steps: kernel path {kern_ms:.3f} ms "
+          f"= {frames / kern_ms * 1e3:.1f} frames/s; plain path {plain_ms:.3f} ms "
+          f"= {frames / plain_ms * 1e3:.1f} frames/s")
+
+    t = kernel_inputs(B, H, W, WIDTH, gen, device)
+    block_args = (t["x"], t["weights"], t["w0"], t["b0"], MODES, MODES)
+    head_args = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"], t["mask"])
+    times = {}
+    with torch.inference_mode():
+        for name, kern, ref, args in (
+            ("fno_block", fk.fno_block, fk.fno_block_reference, block_args),
+            ("fno_head", fk.fno_head, fk.fno_head_reference, head_args),
+        ):
+            p, k = interleaved_ms(lambda: ref(*args), lambda: kern(*args), reps=20)
+            times[name] = (k, p)
+            print(f"[time] [{card}] {name} B={B} {H}x{W} C={WIDTH}: kernel {k:.4f} ms, "
+                  f"plain {p:.4f} ms ({p / k:.2f}x)")
+    return times
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    from cfdbench_tpu_torch.utils.device import require_cuda, set_f32_numerics
+
+    device = require_cuda()
+    set_f32_numerics()
+    card = host_facts()
+    errors = check_kernels(device)
+    counts, features, case_params = main_path()
+    compare_rollouts(device, features, case_params)
+    times = timing(device, card)
+    replaces = {"fno_block": "cfdbench_tpu/ops/pallas_fno.py:179",
+                "fno_head": "cfdbench_tpu/ops/pallas_fno.py:268"}
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": f"cfdbench_tpu_torch/csrc/{name}.cu",
+         "replaces": replaces[name], "launches": counts[name],
+         "max_abs_err": errors[name], "ms": times[name][0], "plain_ms": times[name][1]}
+        for name in ("fno_block", "fno_head")
+    ]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,16 @@
+#!/usr/bin/env python
+"""Multi-step rollout evaluation with the PyTorch/CUDA port
+(counterpart of ``test_multistep.py``).
+
+Usage:
+    python test_multistep_torch.py --model fno --data_name cavity_prop_bc_geo \
+        --data_dir <root> --output_dir <result root>
+
+It runs on the CUDA device when there is one, else on the CPU through the
+kernels' plain PyTorch versions.
+"""
+
+from cfdbench_tpu_torch.cli import main_multistep
+
+if __name__ == "__main__":
+    main_multistep()
