@@ -1,8 +1,10 @@
 """CLI entry points of the port (counterpart of ``cfdbench_tpu/cli.py``).
 
 Only ``main_multistep`` for ``--model fno`` is ported. It takes the
-JAX package's flags (``cfdbench_tpu.config.Args``) and runs on the CUDA
-device when there is one, else on the CPU, and says which. A flag
+JAX package's flags (the port's copy of them, ``config.Args``) and runs
+on the CUDA card; without one it raises. Only a caller that asks for
+the CPU (``device="cpu"``, as the tests do) runs there, through the
+kernels' plain PyTorch versions. A flag
 whose behaviour the port does not have raises and names the ROADMAP.md
 item that will bring it; none is ignored silently. ``--use_pallas_head``
 changes nothing here: on the card both FNO kernels always run.
@@ -15,20 +17,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from cfdbench_tpu.config import Args
-from cfdbench_tpu.utils.artifacts import (
-    dump_json,
-    get_output_dir,
-    plot_multistep_metrics,
-)
-
+from .config import Args
 from .data import load_test_cases
+from .data.core import dump_json
 from .models import check_model_ported, init_auto_model
 from .ops.fno_kernels import launch_counts
 from .training.checkpoints import load_best_params
 from .training.rollout import make_rollout_fn, multistep_metrics
 from .training.trainer_auto import AutoTask
-from .utils.device import default_device, set_f32_numerics
+from .utils.artifacts import get_output_dir, plot_multistep_metrics
+from .utils.device import require_cuda, set_f32_numerics
 
 INFER_STEPS = 20
 
@@ -84,14 +82,16 @@ def check_supported(args: Args) -> None:
         )
 
 
-def main_multistep(argv=None) -> None:
+def main_multistep(argv=None, device=None) -> None:
     """The FNO branch of ``cfdbench_tpu.cli.main_multistep``: a 20-step
     self-feeding rollout of every test case at once from the best
     checkpoint's ``model.pt``, then masked-u mse/nmse/mae per step,
-    averaged over cases, into ``multistep_metrics.json``."""
+    averaged over cases, into ``multistep_metrics.json``. Runs on the
+    CUDA card unless ``device`` names another; with ``device`` None and
+    no card it raises."""
     args = parse_args(argv)
     check_supported(args)
-    device = default_device()
+    device = require_cuda() if device is None else torch.device(device)
     set_f32_numerics()
     print(args)
     print(f"[multistep] device: {device}")

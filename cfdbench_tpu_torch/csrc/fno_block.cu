@@ -6,354 +6,561 @@
 // element with every intermediate in VMEM.
 //
 // What bounds it on this card: at the flagship shape (B=128, 64x64,
-// 32->32 channels, 12x12 modes) one block is about 33 MFLOP of FP32
-// multiply-adds per batch element (truncated DFTs both ways, per-mode
-// complex mixing, 1x1 bypass): 4.2 GFLOP per call, about 63 us at the
-// card's 67 TFLOP/s FP32 rate. It must read x (67 MB) and write the
-// activation (67 MB), about 40 us at 3.35 TB/s. So it sits near the
-// ridge; a plain PyTorch block moves roughly 1 GB through device memory
-// (full rfft2 spectrum, zero-filled half spectrum, irfft2, bypass, add,
-// GELU as separate passes).
+// 32->32 channels, 12x12 modes) one block is 2.1 G multiply-adds
+// (truncated DFTs both ways 1.41 G, per-mode complex mixing 0.15 G, 1x1
+// bypass 0.54 G): 63 us at the card's 67 TFLOP/s of float32 FMA. It must
+// read x (67 MB) and write the activation (67 MB): 41 us at 3.35 TB/s.
+// The first version of this kernel ran every product as float32 FMAs on
+// the CUDA cores and took 0.39 ms.
 //
-// Design: one (B, H, W, C) image does not fit one block's 227 KB of
-// shared memory (512 KB at the flagship shape), so the TPU kernel's
-// "whole image on chip" becomes three passes that only keep the retained
-// modes (2*m1 x m2 per channel, 74 KB per image) in device memory:
-//   1. dft_forward_kernel: one block per (image, 16-channel tile). It
-//      streams x eight rows at a time through shared memory, does the
-//      column DFT of each row and accumulates the row DFT into the
-//      block's modes, which stay in shared memory until the end.
-//   2. mode_mix_kernel: one block per (retained mode, 16-image tile);
-//      a complex (images x Ci) @ (Ci x Co) product per mode.
-//   3. dft_inverse_kernel: one block per (image, 8-row tile). Inverse
-//      row DFT of the modes into shared memory, then per output row the
-//      inverse column DFT (real part, pocketfft C2R weights), the 1x1
-//      bypass from the same row of x, the bias and exact erf GELU.
-// Shared memory, not FMA, bounds such loops when each FMA needs its own
-// load, so passes 1 and 3 give each thread a register tile (4 modes, 4
-// spectrum rows, or 4 x 4 outputs) fed by float4 loads: 4-8 FMA per load,
-// and the inner loops unroll by 4. Measured on an H100 80GB HBM3 at
-// 700 W at the flagship shape, this took the block from 0.57 to 0.39 ms
-// (the plain version: 0.96 ms); the inverse pass, 0.21 ms of it, stays
-// about 5x above its FMA floor for reasons not yet measured.
-// All sums are FP32 FMAs on the CUDA cores; tensor cores (wgmma) and
-// TMA are later work. The DFT factor tables are
-// cfdbench_tpu_torch/ops/spectral.py::_dft_factors_packed, passed in.
+// Design: every stage but the mixing is a small real GEMM (K from 8 to
+// 64), run on the tensor cores as split TF32 (tf32.cuh): three
+// mma.sync.m16n8k8 products per tile hold float32 accuracy. The DFT tables
+// are split and laid out in fragment order once on the host
+// (ops/fno_kernels.py::_block_tables); x and the intermediates are split
+// in registers. An image (512 KB at the flagship shape) does not fit one
+// block's shared memory, so the retained modes (74 KB per image) and the
+// inverse's row spectra go through device memory between four passes:
+//   1. dft_forward_kernel: one block of 16 warps per (image, 32-channel
+//      tile, mode chunk). It streams x eight rows (64 KB) at a time
+//      through a two-slot cp.async ring, its 16-byte chunks XOR-swizzled
+//      so that fragment loads hit distinct banks without padding: the
+//      W-stage T = x_rows (256 x W) . E2 (W x 2 m2) is one 16-row tile
+//      per warp; T goes to shared memory, and the H-stage xm += E1
+//      (2K x 16) . T (16 x m2 C) accumulates every mode of the block in
+//      registers across the row groups.
+//   2. mode_mix_kernel: per retained mode a complex (images x Ci) @
+//      (Ci x Co) product, float32 FMA on the CUDA cores, four images per
+//      thread: 7 % of the work. As a split-TF32 GEMM per mode it was
+//      slower, held back by gathering each mode's weights (strided by
+//      M1 M2 in device memory).
+//   3. inverse_rows_kernel: the inverse H-stage, z = A (16 x 2K) . ym
+//      (2K x m2 Co) per (image, 8-row tile), real and imaginary rows
+//      together, into device memory (25 MB at the flagship shape, read
+//      back from L2).
+//   4. inverse_cols_kernel: per output row one GEMM folds the inverse
+//      W-stage and the 1x1 bypass together,
+//        out_h = [Br | -Bi | x_h] (W x (2 m2 + Ci)) . [z_r; z_i; w0^T],
+//      with the bias and exact erf GELU applied to the accumulators.
+//      Persistent, three blocks per SM: rows of x and z come in by cp.async
+//      (16-byte copies of contiguous rows) one item ahead of the products.
+// Passes 3 and 4 are separate kernels so that several blocks share an SM:
+// fused into one persistent kernel the inverse was slower, its H-stage's
+// loads exposed at one block per SM. Measured at the flagship shape on an
+// H100 80GB HBM3 at 700 W (scripts/bench_torch_kernels.py): 0.215 ms per
+// call, passes 0.050 / 0.030 / 0.036 / 0.099 ms. No pass reaches the
+// tensor cores' or the memory's rate: the passes are bound by instruction
+// issue and latency (staging, splits, erf), the cols pass most.
+// The mixed DC and Nyquist columns keep pocketfft's C2R semantics through
+// the alpha-weighted B table (ops/spectral.py::_dft_factors). w0 is split
+// per block (1K values) rather than cached on the host: it is the
+// caller's tensor and may change between calls.
 
-#include "launch.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChanTile = 16;   // input channels per block (pass 1)
-constexpr int kRowGroup = 8;    // rows of x staged at a time (pass 1)
-constexpr int kBatchTile = 16;  // images per block (pass 2)
-constexpr int kRowTile = 8;     // output rows per block (pass 3)
-constexpr int kRowPair = 2;     // rows of x staged at a time (pass 3)
+constexpr int kWarps = kThreads / 32;
 
-__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+// Pass 1. These constants are mirrored in ops/fno_kernels.py.
+constexpr int kFwdRows = 8;    // rows of x per group: the H-stage's K is 16 (real and imaginary T)
+constexpr int kFwdChan = 32;   // channels per block: W-stage M = 8 x 32 = one 16-row tile per warp
+constexpr int kFwdModes = 12;  // modes per block: W-stage N = 24 (3 tiles)
+constexpr int kFwdK = 24;      // spectrum rows per block: H-stage M = 48 (3 tiles)
+constexpr int kFwdMT = 3;
+constexpr int kFwdNW = 3;
+constexpr int kFwdThreads = 512;  // 16 warps, one per W-stage row tile
+constexpr int kFwdWarps = kFwdThreads / 32;
+constexpr int kFwdNTW = kFwdModes * kFwdChan / 8 / kFwdWarps;  // H-stage tiles per warp: 3
+constexpr int kFwdSlots = 2;    // x ring: one group in flight while one is multiplied
+constexpr int kFwdE1Slots = 3;  // E1 ring: a slot is refilled only after its H-stage
+constexpr int kFwdE1 = kFwdMT * 2 * 64;  // float4 of E1 fragments per group (3 x 2 tiles)
+// x is staged at 32 floats per (row, w), its 16-byte chunks XOR-swizzled
+// by w % 4 so that a warp's A fragment loads hit 32 distinct banks; T
+// rows (floats) = 8 mod 32 for the same reason.
+constexpr int kTMode = kFwdChan + 4;
+constexpr int kTRow = 456;
+static_assert(kTRow >= kFwdModes * kTMode && kTRow % 32 == 8, "T row stride");
 
-// Pass 1. xm[b, k, m, c, re/im] = sum_h E1[k, h] sum_w E2[m, w] x[b, h, w, c]
-// e1c: (2K, H) = [E1r; E1i]; e2c: (2*m2, 2W) = [[E2r, -E2i], [E2i, E2r]].
-// Shared-memory tables are stored transposed and padded to whole float4s
-// (m2p = roundup(m2, 4), Kp = roundup(K, 4)), so that a thread reads 4
-// modes or 4 rows of the spectrum with one load.
-__global__ void __launch_bounds__(kThreads) dft_forward_kernel(
-    const float* __restrict__ x, const float* __restrict__ e1c,
-    const float* __restrict__ e2c, float* __restrict__ xm, int H, int W,
-    int Ci, int K, int m2) {
-  extern __shared__ float4 smem4[];
-  constexpr int CT = kChanTile;
-  const int tid = threadIdx.x;
-  const int b = blockIdx.x;
-  const int c0 = blockIdx.y * CT;
-  const int ct = min(CT, Ci - c0);
-  const int m2p = round4(m2), Kp = round4(K);
-  float* e1r = reinterpret_cast<float*>(smem4);  // H * Kp, [h][k]
-  float* e1i = e1r + H * Kp;             // H * Kp
-  float* e2r = e1i + H * Kp;             // W * m2p, [w][m]
-  float* e2i = e2r + W * m2p;            // W * m2p
-  float* xs = e2i + W * m2p;             // kRowGroup * W * CT, [row][w][c]
-  float* tr = xs + kRowGroup * W * CT;   // kRowGroup * m2p * CT, [row][m][c]
-  float* ti = tr + kRowGroup * m2p * CT;
-  float* ar = ti + kRowGroup * m2p * CT; // Kp * m2 * CT, [k][m][c]
-  float* ai = ar + Kp * m2 * CT;
+// Pass 2.
+constexpr int kBatchTile = 32;  // images per block
+constexpr int kMixImages = 4;   // images per thread
+constexpr int kMixStride = kBatchTile + 2;  // float2 per input channel: fewer bank conflicts, float4-aligned
 
-  for (int i = tid; i < H * Kp; i += kThreads) {
-    const int h = i / Kp, k = i % Kp;
-    e1r[i] = k < K ? e1c[k * H + h] : 0.f;
-    e1i[i] = k < K ? e1c[(K + k) * H + h] : 0.f;
-  }
-  for (int i = tid; i < W * m2p; i += kThreads) {
-    const int w = i / m2p, m = i % m2p;
-    e2r[i] = m < m2 ? e2c[m * 2 * W + w] : 0.f;
-    e2i[i] = m < m2 ? e2c[(m2 + m) * 2 * W + w] : 0.f;
-  }
-  // Row-DFT items: (4 spectrum rows k, mode m, channel c). Each thread
-  // owns the items tid + j * kThreads in every loop over them below, so
-  // their accumulators need no barrier of their own.
-  const int n_items = (Kp / 4) * m2 * CT;
-  for (int i = tid; i < Kp * m2 * CT; i += kThreads) {
-    ar[i] = 0.f;
-    ai[i] = 0.f;
-  }
-  __syncthreads();
+// Pass 3. kInvRows is mirrored in ops/fno_kernels.py.
+constexpr int kInvRows = 8;  // rows per block: the H-stage's 16 rows are their real and imaginary parts
+constexpr int kInvNT = 3;    // column tiles per warp per pass (6 or 2: slower)
+
+// Pass 4.
+constexpr int kOutRows = 2;  // output rows per block (4 or 8: slower)
+constexpr int kOutNT = 4;    // output-channel tiles per warp task
+
+// Pass 1. xm (B, 2 re/im, K, m2, Ci): xm[b, :, k, m, c] = sum_h E1[k, h] sum_w E2[m, w] x[b, h, w, c].
+// e1f: (n_kc, ceil(H/8), 3, 2, 32 lanes, 8) split A fragments of
+//      [[E1r, -E1i], [E1i, E1r]] per group of 8 rows (columns: T's real
+//      parts of the rows, then its imaginary parts).
+// e2f: (n_mc, ceil(W/8), 3, 32 lanes, 4) split B fragments of [E2r^T | E2i^T].
+__device__ __forceinline__ int x_swizzle(int w, int c) { return c ^ ((w & 3) << 3); }
+
+__global__ void __launch_bounds__(kFwdThreads, 1) dft_forward_kernel(
+    const float* __restrict__ x, const float4* __restrict__ e1f, const float4* __restrict__ e2f,
+    float* __restrict__ xm, int H, int W, int Ci, int K, int m2, int n_mc) {
+  FNO_DYNAMIC_SMEM(float4, smem4);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x, c0 = blockIdx.y * kFwdChan, cn = min(kFwdChan, Ci - c0);
+  const int kc = blockIdx.z / n_mc, mc = blockIdx.z % n_mc;
+  const int k0 = kc * kFwdK, kn = min(kFwdK, K - k0);
+  const int m0 = mc * kFwdModes, mn = min(kFwdModes, m2 - m0);
+  const int n_groups = ceil_div(H, kFwdRows);
+  const int wk = ceil_div(W, 8), wp = wk * 8;
+  const int mt_n = ceil_div(2 * kn, 16), nw_n = ceil_div(2 * mn, 8), nh_n = mn * kFwdChan / 8;
+
+  float4* e2s = smem4;                                            // wk * 3 * 32
+  float4* e1s = e2s + wk * kFwdNW * 32;                           // kFwdE1Slots x kFwdE1
+  float* xs = reinterpret_cast<float*>(e1s + kFwdE1Slots * kFwdE1);  // kFwdSlots x [row][w][32]
+  float* ts = xs + kFwdSlots * kFwdRows * wp * kFwdChan;          // [re/im][row][kTRow]
+  const int xbuf = kFwdRows * wp * kFwdChan;
+
+  const float4* e2b = e2f + (size_t)mc * wk * kFwdNW * 32;
+  for (int i = tid; i < wk * kFwdNW * 32; i += kFwdThreads) e2s[i] = e2b[i];
+
   const float* xb = x + (size_t)b * H * W * Ci;
-  for (int h0 = 0; h0 < H; h0 += kRowGroup) {
-    const int r = min(kRowGroup, H - h0);
-    __syncthreads();  // tables loaded; previous group's readers done
-    for (int i = tid; i < r * W * CT; i += kThreads) {
-      const int c = i % CT, rw = i / CT;  // rw = row_in_group * W + w
-      xs[i] = c < ct ? xb[((size_t)h0 * W + rw) * Ci + c0 + c] : 0.f;
+  const bool vec = Ci % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  // Rows gi*8 .. gi*8+7 of the channel tile and the group's E1 fragments
+  // into their ring slots, zero outside x; always exactly one commit group.
+  auto stage = [&](int gi) {
+    if (gi < n_groups) {
+      float* dst = xs + (gi % kFwdSlots) * xbuf;
+      const float4* e1g = e1f + ((size_t)kc * n_groups + gi) * kFwdE1;
+      float4* e1d = e1s + (gi % kFwdE1Slots) * kFwdE1;
+      for (int i = tid; i < kFwdE1; i += kFwdThreads) cp_async16(e1d + i, e1g + i);
+      if (vec) {
+        constexpr int q_n = kFwdChan / 4;
+        Walk3 ix(tid, kFwdThreads, q_n, wp);
+        for (int i = tid; i < kFwdRows * wp * q_n; i += kFwdThreads, ix.next()) {
+          const int q = ix.i0, w = ix.i1, r = ix.i2, h = gi * kFwdRows + r;
+          float* d = dst + (r * wp + w) * kFwdChan + x_swizzle(w, 4 * q);
+          if (h < H && w < W && 4 * q < cn) {
+            cp_async16(d, xb + ((size_t)h * W + w) * Ci + c0 + 4 * q);
+          } else {
+            *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
+      } else {
+        Walk3 ix(tid, kFwdThreads, kFwdChan, wp);
+        for (int i = tid; i < kFwdRows * wp * kFwdChan; i += kFwdThreads, ix.next()) {
+          const int c = ix.i0, w = ix.i1, r = ix.i2, h = gi * kFwdRows + r;
+          float* d = dst + (r * wp + w) * kFwdChan + x_swizzle(w, c);
+          if (h < H && w < W && c < cn) {
+            cp_async4(d, xb + ((size_t)h * W + w) * Ci + c0 + c);
+          } else {
+            *d = 0.f;
+          }
+        }
+      }
     }
-    __syncthreads();
-    // Column DFT of each staged row, 4 modes per item:
-    // t[rr, m, c] = sum_w E2[m, w] x[rr, w, c]
-    for (int i = tid; i < r * (m2p / 4) * CT; i += kThreads) {
-      const int c = i % CT, mq = (i / CT) % (m2p / 4), rr = i / (CT * (m2p / 4));
-      const float* xr = xs + rr * W * CT + c;
-      const float4* pr = reinterpret_cast<const float4*>(e2r) + mq;
-      const float4* pi = reinterpret_cast<const float4*>(e2i) + mq;
-      float sr[4] = {0.f, 0.f, 0.f, 0.f}, si[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-      for (int w = 0; w < W; ++w) {
-        const float v = xr[w * CT];
-        const float4 er = pr[w * (m2p / 4)], ei = pi[w * (m2p / 4)];
-        sr[0] = fmaf(er.x, v, sr[0]); si[0] = fmaf(ei.x, v, si[0]);
-        sr[1] = fmaf(er.y, v, sr[1]); si[1] = fmaf(ei.y, v, si[1]);
-        sr[2] = fmaf(er.z, v, sr[2]); si[2] = fmaf(ei.z, v, si[2]);
-        sr[3] = fmaf(er.w, v, sr[3]); si[3] = fmaf(ei.w, v, si[3]);
-      }
+    cp_async_commit();
+  };
+
+  float acc[kFwdMT][kFwdNTW][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int t = (rr * m2p + 4 * mq + j) * CT + c;
-        tr[t] = sr[j];
-        ti[t] = si[j];
+  for (int mt = 0; mt < kFwdMT; ++mt)
+#pragma unroll
+    for (int j = 0; j < kFwdNTW; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
+
+  // W-stage tile of this warp: row hh of the group, channels cb .. cb+15.
+  const int hh = warp >> 1, cb = (warp & 1) * 16;
+  stage(0);
+  stage(1);
+  for (int gi = 0; gi < n_groups; ++gi) {
+    cp_async_wait<1>();
+    __syncthreads();  // group gi staged; the previous H-stage is done with T
+
+    // W-stage: T[(row, c), n] = sum_w x[row, w, c] E2p[w, n], n = (re/im, mode);
+    // the small terms in their own accumulators, for independent chains.
+    float accw[kFwdNW][4], accl[kFwdNW][4];
+#pragma unroll
+    for (int nw = 0; nw < kFwdNW; ++nw)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) accw[nw][i] = accl[nw][i] = 0.f;
+    const float* xa = xs + (gi % kFwdSlots) * xbuf + hh * wp * kFwdChan;
+    for (int ks = 0; ks < wk; ++ks) {
+      // a0 (c = cb + g, w = 8 ks + t), a1 (c + 8), a2 (w + 4), a3 (c + 8, w + 4);
+      // w % 4 = t for all four.
+      const float* xw = xa + (ks * 8 + t) * kFwdChan;
+      const int c = x_swizzle(t, cb + g), c8 = x_swizzle(t, cb + g + 8);
+      uint32_t ahi[4], alo[4];
+      split_tf32(xw[c], ahi[0], alo[0]);
+      split_tf32(xw[c8], ahi[1], alo[1]);
+      split_tf32(xw[4 * kFwdChan + c], ahi[2], alo[2]);
+      split_tf32(xw[4 * kFwdChan + c8], ahi[3], alo[3]);
+#pragma unroll
+      for (int nw = 0; nw < kFwdNW; ++nw) {
+        if (nw < nw_n) {
+          uint32_t bhi[2], blo[2];
+          load_b_frag(e2s + (ks * kFwdNW + nw) * 32 + lane, bhi, blo);
+          mma_tf32(accl[nw], alo, bhi);
+          mma_tf32(accl[nw], ahi, blo);
+          mma_tf32(accw[nw], ahi, bhi);
+        }
       }
     }
-    __syncthreads();
-    // Row DFT, 4 spectrum rows per item, accumulated over the staged rows.
-    for (int i = tid; i < n_items; i += kThreads) {
-      const int mc = i % (m2 * CT), kq = i / (m2 * CT);
-      float sr[4], si[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sr[j] = ar[(4 * kq + j) * m2 * CT + mc];
-        si[j] = ai[(4 * kq + j) * m2 * CT + mc];
+    for (int nw = 0; nw < kFwdNW; ++nw) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = nw * 8 + 2 * t + (i & 1), c = cb + g + (i >> 1) * 8;
+        if (nw < nw_n && n < 2 * mn) {
+          const int part = n >= mn ? 1 : 0, m = n - part * mn;
+          ts[(part * kFwdRows + hh) * kTRow + m * kTMode + c] = accw[nw][i] + accl[nw][i];
+        }
       }
-#pragma unroll 4
-      for (int rr = 0; rr < r; ++rr) {
-        const float4 er = reinterpret_cast<const float4*>(e1r + (h0 + rr) * Kp)[kq];
-        const float4 ei = reinterpret_cast<const float4*>(e1i + (h0 + rr) * Kp)[kq];
-        const float e_r[4] = {er.x, er.y, er.z, er.w}, e_i[4] = {ei.x, ei.y, ei.z, ei.w};
-        const int t = rr * m2p * CT + mc;  // mc = m * CT + c
-        const float vr = tr[t], vi = ti[t];
+    }
+    __syncthreads();  // T written; every read of this x slot done
+    stage(gi + 2);
+
+    // H-stage: xm[(re/im, k), (m, c)] += sum_j E1p[., j] T[j, (m, c)]; k-step
+    // ks of j takes T's real (ks = 0) or imaginary (ks = 1) parts of the
+    // group's rows t and t + 4, split as they are read.
+    const float4* e1g = e1s + (gi % kFwdE1Slots) * kFwdE1;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sr[j] += e_r[j] * vr - e_i[j] * vi;
-          si[j] += e_r[j] * vi + e_i[j] * vr;
+    for (int ks = 0; ks < 2; ++ks) {
+      uint32_t bhi[kFwdNTW][2], blo[kFwdNTW][2];
+#pragma unroll
+      for (int j = 0; j < kFwdNTW; ++j) {
+        const int n = (warp + kFwdWarps * j) * 8 + g, m = n / kFwdChan, c = n % kFwdChan;
+        const float* tb = ts + (ks * kFwdRows + t) * kTRow + m * kTMode + c;
+        if (warp + kFwdWarps * j < nh_n) {
+          split_tf32(tb[0], bhi[j][0], blo[j][0]);
+          split_tf32(tb[4 * kTRow], bhi[j][1], blo[j][1]);
         }
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ar[(4 * kq + j) * m2 * CT + mc] = sr[j];
-        ai[(4 * kq + j) * m2 * CT + mc] = si[j];
-      }
-    }
-  }
-  for (int i = tid; i < n_items; i += kThreads) {
-    const int mc = i % (m2 * CT), kq = i / (m2 * CT);
-    const int c = mc % CT, m = mc / CT;
-    if (c >= ct) continue;
+      for (int mt = 0; mt < kFwdMT; ++mt) {
+        if (mt < mt_n) {
+          uint32_t ehi[4], elo[4];
+          load_a_frag(e1g + ((mt * 2 + ks) * 32 + lane) * 2, ehi, elo);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = 4 * kq + j;
-      if (k < K) {
-        const size_t o = ((((size_t)b * K + k) * m2 + m) * Ci + c0 + c) * 2;
-        xm[o] = ar[k * m2 * CT + mc];
-        xm[o + 1] = ai[k * m2 * CT + mc];
-      }
-    }
-  }
-}
-
-// Pass 2. ym[b, k, m, o] = sum_i xm[b, k, m, i] * Wc[corner, i, o, kk, m]
-// (complex). Rows k < m1 are the first corner (frequencies 0..m1-1),
-// rows k >= m1 the second (H-m1..H-1), as in spectral_conv2d_fft.
-// weights: (2 corner, 2 re/im, Ci, Co, M1, M2), sliced to [:m1, :m2].
-__global__ void __launch_bounds__(kThreads) mode_mix_kernel(
-    const float* __restrict__ xm, const float* __restrict__ weights,
-    float* __restrict__ ym, int B, int K, int m1, int m2, int Ci, int Co,
-    int M1, int M2) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x;
-  const int km = blockIdx.x, k = km / m2, m = km % m2;
-  const int corner = k >= m1 ? 1 : 0, kk = k - corner * m1;
-  const int b0 = blockIdx.y * kBatchTile, bt = min(kBatchTile, B - b0);
-  float* wr = smem;                   // Ci * Co, [i][o]
-  float* wi = wr + Ci * Co;           // Ci * Co
-  float* xr = wi + Ci * Co;           // kBatchTile * Ci
-  float* xi = xr + kBatchTile * Ci;   // kBatchTile * Ci
-  const size_t plane = (size_t)Ci * Co * M1 * M2;  // one (corner, re/im)
-  const float* wc = weights + corner * 2 * plane + (size_t)kk * M2 + m;
-  for (int i = tid; i < Ci * Co; i += kThreads) {
-    wr[i] = wc[(size_t)i * M1 * M2];
-    wi[i] = wc[plane + (size_t)i * M1 * M2];
-  }
-  for (int i = tid; i < bt * Ci; i += kThreads) {
-    const int bb = i / Ci, c = i % Ci;
-    const size_t o = (((size_t)(b0 + bb) * K * m2 + km) * Ci + c) * 2;
-    xr[i] = xm[o];
-    xi[i] = xm[o + 1];
-  }
-  __syncthreads();
-  for (int i = tid; i < bt * Co; i += kThreads) {
-    const int bb = i / Co, o = i % Co;
-    float sr = 0.f, si = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < Ci; ++c) {
-      const float a = xr[bb * Ci + c], q = xi[bb * Ci + c];
-      const float p = wr[c * Co + o], s = wi[c * Co + o];
-      sr += a * p - q * s;
-      si += a * s + q * p;
-    }
-    const size_t y = (((size_t)(b0 + bb) * K * m2 + km) * Co + o) * 2;
-    ym[y] = sr;
-    ym[y + 1] = si;
-  }
-}
-
-// Pass 3. z[h, m, o] = sum_k A[h, k] ym[b, k, m, o];
-// out[b, h, w, o] = GELU(Re(sum_m B[w, m] z[h, m, o]) + x[b, h, w, :] . w0[o, :] + b0[o])
-// ac: (2H, 2K) = [[Ar, -Ai], [Ai, Ar]]; bc: (W, 2*m2) = [Br, -Bi].
-// Each output item is a 4 (w) x 4 (o) register tile; the tables it reads
-// are padded to whole float4s (Wp = roundup(W, 4), Cop = roundup(Co, 4)).
-// Padding lanes are never stored, so they need no initialisation.
-__global__ void __launch_bounds__(kThreads) dft_inverse_kernel(
-    const float* __restrict__ x, const float* __restrict__ ym,
-    const float* __restrict__ ac, const float* __restrict__ bc,
-    const float* __restrict__ w0, const float* __restrict__ b0,
-    float* __restrict__ out, int H, int W, int Ci, int Co, int K, int m2) {
-  extern __shared__ float4 smem4[];
-  const int tid = threadIdx.x, b = blockIdx.x;
-  const int h0 = blockIdx.y * kRowTile, ht = min(kRowTile, H - h0);
-  const int Wp = round4(W), Cop = round4(Co);
-  float* a_r = reinterpret_cast<float*>(smem4);  // K * kRowTile, [k][row]
-  float* a_i = a_r + K * kRowTile;
-  float* b_r = a_i + K * kRowTile;       // m2 * Wp, [m][w]
-  float* b_i = b_r + m2 * Wp;
-  float* w0t = b_i + m2 * Wp;            // Ci * Cop, [i][o]
-  float* bias = w0t + Ci * Cop;          // Cop
-  float* z_r = bias + Cop;               // kRowTile * m2 * Cop, [row][m][o]
-  float* z_i = z_r + kRowTile * m2 * Cop;
-  float* xt = z_i + kRowTile * m2 * Cop; // kRowPair * Ci * Wp, [row][i][w]
-
-  for (int i = tid; i < K * kRowTile; i += kThreads) {
-    const int k = i / kRowTile, hh = i % kRowTile;
-    const bool in = hh < ht;
-    a_r[i] = in ? ac[(size_t)(h0 + hh) * 2 * K + k] : 0.f;
-    a_i[i] = in ? ac[(size_t)(H + h0 + hh) * 2 * K + k] : 0.f;
-  }
-  for (int i = tid; i < m2 * Wp; i += kThreads) {
-    const int m = i / Wp, w = i % Wp;
-    b_r[i] = w < W ? bc[(size_t)w * 2 * m2 + m] : 0.f;
-    b_i[i] = w < W ? -bc[(size_t)w * 2 * m2 + m2 + m] : 0.f;
-  }
-  for (int i = tid; i < Ci * Cop; i += kThreads) {
-    const int c = i / Cop, o = i % Cop;
-    w0t[i] = o < Co ? w0[(size_t)o * Ci + c] : 0.f;
-  }
-  for (int i = tid; i < Cop; i += kThreads) bias[i] = i < Co ? b0[i] : 0.f;
-  __syncthreads();
-
-  // Inverse row DFT for the tile's rows; each (m, o) reads ym once.
-  static_assert(kRowTile == 8, "the a-table reads below load 8 rows");
-  const float* yb = ym + (size_t)b * K * m2 * Co * 2;
-  for (int i = tid; i < m2 * Co; i += kThreads) {
-    float zr[kRowTile], zi[kRowTile];
-#pragma unroll
-    for (int hh = 0; hh < kRowTile; ++hh) {
-      zr[hh] = 0.f;
-      zi[hh] = 0.f;
-    }
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) {
-      const size_t y = ((size_t)k * m2 * Co + i) * 2;
-      const float yr = yb[y], yi = yb[y + 1];
-      const float4* pr = reinterpret_cast<const float4*>(a_r + k * kRowTile);
-      const float4* pi = reinterpret_cast<const float4*>(a_i + k * kRowTile);
-      const float4 r0 = pr[0], r1 = pr[1], i0 = pi[0], i1 = pi[1];
-      const float ar8[kRowTile] = {r0.x, r0.y, r0.z, r0.w, r1.x, r1.y, r1.z, r1.w};
-      const float ai8[kRowTile] = {i0.x, i0.y, i0.z, i0.w, i1.x, i1.y, i1.z, i1.w};
-#pragma unroll
-      for (int hh = 0; hh < kRowTile; ++hh) {
-        zr[hh] += ar8[hh] * yr - ai8[hh] * yi;
-        zi[hh] += ar8[hh] * yi + ai8[hh] * yr;
-      }
-    }
-    const int m = i / Co, o = i % Co;
-#pragma unroll
-    for (int hh = 0; hh < kRowTile; ++hh) {
-      z_r[(hh * m2 + m) * Cop + o] = zr[hh];
-      z_i[(hh * m2 + m) * Cop + o] = zi[hh];
-    }
-  }
-
-  const int nwq = Wp / 4, noq = Cop / 4;
-  for (int hp = 0; hp < ht; hp += kRowPair) {
-    const int nr = min(kRowPair, ht - hp);
-    __syncthreads();  // z tile written; previous pair's readers of xt done
-    for (int i = tid; i < nr * Ci * W; i += kThreads) {
-      const int w = i % W, c = (i / W) % Ci, rr = i / (W * Ci);
-      xt[(rr * Ci + c) * Wp + w] = x[(((size_t)b * H + h0 + hp + rr) * W + w) * Ci + c];
-    }
-    __syncthreads();
-    for (int i = tid; i < nr * nwq * noq; i += kThreads) {
-      const int oq = i % noq, wq = (i / noq) % nwq, rr = i / (noq * nwq);
-      const int hh = hp + rr;
-      float spec[4][4] = {}, byp[4][4] = {};
-      const float4* zr4 = reinterpret_cast<const float4*>(z_r + hh * m2 * Cop) + oq;
-      const float4* zi4 = reinterpret_cast<const float4*>(z_i + hh * m2 * Cop) + oq;
-      const float4* br4 = reinterpret_cast<const float4*>(b_r) + wq;
-      const float4* bi4 = reinterpret_cast<const float4*>(b_i) + wq;
-#pragma unroll 4
-      for (int m = 0; m < m2; ++m) {
-        const float4 zr = zr4[m * noq], zi = zi4[m * noq];
-        const float4 br = br4[m * nwq], bi = bi4[m * nwq];
-        const float zra[4] = {zr.x, zr.y, zr.z, zr.w}, zia[4] = {zi.x, zi.y, zi.z, zi.w};
-        const float bra[4] = {br.x, br.y, br.z, br.w}, bia[4] = {bi.x, bi.y, bi.z, bi.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-#pragma unroll
-          for (int v = 0; v < 4; ++v) spec[u][v] += bra[u] * zra[v] - bia[u] * zia[v];
-        }
-      }
-      const float4* xt4 = reinterpret_cast<const float4*>(xt + rr * Ci * Wp) + wq;
-      const float4* w04 = reinterpret_cast<const float4*>(w0t) + oq;
-#pragma unroll 4
-      for (int c = 0; c < Ci; ++c) {
-        const float4 xv = xt4[c * nwq], wv = w04[c * noq];
-        const float xa[4] = {xv.x, xv.y, xv.z, xv.w}, wa[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-#pragma unroll
-          for (int v = 0; v < 4; ++v) byp[u][v] += xa[u] * wa[v];
-        }
-      }
-      float* orow = out + ((size_t)b * H + h0 + hh) * W * Co;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int w = 4 * wq + u;
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          const int o = 4 * oq + v;
-          if (w < W && o < Co) {
-            orow[(size_t)w * Co + o] = gelu_erf(spec[u][v] + (byp[u][v] + bias[o]));
+          for (int j = 0; j < kFwdNTW; ++j) {
+            if (warp + kFwdWarps * j < nh_n) mma_3xtf32(acc[mt][j], ehi, elo, bhi[j], blo[j]);
           }
         }
       }
     }
   }
+  cp_async_wait<0>();
+
+  float* xmb = xm + (size_t)b * 2 * K * m2 * Ci;
+#pragma unroll
+  for (int mt = 0; mt < kFwdMT; ++mt) {
+#pragma unroll
+    for (int j = 0; j < kFwdNTW; ++j) {
+      const int nt = warp + kFwdWarps * j;
+      if (mt < mt_n && nt < nh_n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = mt * 16 + g + (i >> 1) * 8, n = nt * 8 + 2 * t + (i & 1);
+          const int m = m0 + n / kFwdChan, c = c0 + n % kFwdChan;
+          if (r < 2 * kn && c < Ci) {
+            const int part = r >= kn ? 1 : 0, k = k0 + r - part * kn;
+            xmb[(((size_t)part * K + k) * m2 + m) * Ci + c] = acc[mt][j][i];
+          }
+        }
+      }
+    }
+  }
+}
+
+// Pass 2. ym[b, :, k, m, o] = sum_i xm[b, :, k, m, i] * Wc[corner, i, o, kk, m]
+// (complex). Rows k < m1 are the first corner (frequencies 0..m1-1),
+// rows k >= m1 the second (H-m1..H-1), as in spectral_conv2d_fft.
+// weights: (2 corner, 2 re/im, Ci, Co, M1, M2), sliced to [:m1, :m2].
+// One block per (mode, kBatchTile images); a thread computes one output
+// channel of kMixImages images, reading each weight once for all of them.
+// Float32 FMA on the CUDA cores: as a split-TF32 GEMM per mode it was
+// slower (0.037 against 0.030 ms at the flagship shape), held back by
+// gathering the mode's weights, strided by M1 M2 in device memory.
+__global__ void __launch_bounds__(kThreads) mode_mix_kernel(
+    const float* __restrict__ xm, const float* __restrict__ weights,
+    float* __restrict__ ym, int B, int K, int m1, int m2, int Ci, int Co,
+    int M1, int M2) {
+  FNO_DYNAMIC_SMEM(float4, smem4);
+  const int tid = threadIdx.x;
+  const int km = blockIdx.x, k = km / m2, m = km % m2;
+  const int corner = k >= m1 ? 1 : 0, kk = k - corner * m1;
+  const int b0 = blockIdx.y * kBatchTile, bt = min(kBatchTile, B - b0);
+  const size_t xplane = (size_t)K * m2 * Ci, yplane = (size_t)K * m2 * Co;
+  float2* xs = reinterpret_cast<float2*>(smem4);  // [i][kMixStride], (re, im) per image
+  float2* ws = xs + Ci * kMixStride;               // [i][o], (re, im)
+  const size_t plane = (size_t)Ci * Co * M1 * M2;  // one (corner, re/im)
+  const float* wc = weights + corner * 2 * plane + (size_t)kk * M2 + m;
+  for (int i = tid; i < Ci * Co; i += kThreads) {
+    ws[i] = make_float2(wc[(size_t)i * M1 * M2], wc[plane + (size_t)i * M1 * M2]);
+  }
+  for (int i = tid; i < kBatchTile * Ci; i += kThreads) {
+    const int c = i % Ci, bb = i / Ci;
+    const size_t o = (size_t)(b0 + bb) * 2 * xplane + (size_t)km * Ci + c;
+    xs[c * kMixStride + bb] = bb < bt ? make_float2(xm[o], xm[o + xplane]) : make_float2(0.f, 0.f);
+  }
+  __syncthreads();
+  for (int i = tid; i < (kBatchTile / kMixImages) * Co; i += kThreads) {
+    const int o = i % Co, ib = (i / Co) * kMixImages;
+    float sr[kMixImages] = {}, si[kMixImages] = {};
+#pragma unroll 4
+    for (int c = 0; c < Ci; ++c) {
+      const float2 w = ws[c * Co + o];
+      const float4* xv = reinterpret_cast<const float4*>(xs + c * kMixStride + ib);
+#pragma unroll
+      for (int q = 0; q < kMixImages / 2; ++q) {
+        const float4 v = xv[q];  // images ib + 2q and ib + 2q + 1
+        sr[2 * q] += v.x * w.x - v.y * w.y;
+        si[2 * q] += v.x * w.y + v.y * w.x;
+        sr[2 * q + 1] += v.z * w.x - v.w * w.y;
+        si[2 * q + 1] += v.z * w.y + v.w * w.x;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kMixImages; ++q) {
+      if (ib + q < bt) {
+        const size_t y = (size_t)(b0 + ib + q) * 2 * yplane + (size_t)km * Co + o;
+        ym[y] = sr[q];
+        ym[y + yplane] = si[q];
+      }
+    }
+  }
+}
+
+// Pass 3. z[b, h, :, o] = sum_k A[h, k] ym[b, :, k, m, o] (complex): rows
+// 0..m2-1 of z are the real parts of the modes, m2..2m2-1 the imaginary
+// parts. One block per (image, 8-row tile): M = 16 (the tile's real and
+// imaginary rows), K = 2K, N = m2 Co. Small and register-light, so that
+// many blocks share an SM and hide the latency of the ym loads.
+// a1f: (ceil(H/8), ceil(2K/8), 32 lanes, 8) split A fragments of the
+//      tile's rows of [[Ar, -Ai], [Ai, Ar]]: A rows g are the real part of
+//      tile row g, rows g + 8 its imaginary part.
+__global__ void __launch_bounds__(kThreads) inverse_rows_kernel(
+    const float* __restrict__ ym, const float4* __restrict__ a1f, float* __restrict__ z, int H,
+    int Co, int K, int m2) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.x, ht = blockIdx.y, h = ht * kInvRows + g;
+  const int n1 = m2 * Co, nt1_n = ceil_div(n1, 8), k1_n = ceil_div(2 * K, 8);
+  const float* yb = ym + (size_t)b * 2 * K * n1;
+  const float4* a1t = a1f + (size_t)ht * k1_n * 64;
+  for (int base = 0; base < nt1_n; base += kWarps * kInvNT) {
+    float acc[kInvNT][4];
+#pragma unroll
+    for (int j = 0; j < kInvNT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+#pragma unroll 2
+    for (int ks = 0; ks < k1_n; ++ks) {
+      uint32_t ahi[4], alo[4];
+      load_a_frag(a1t + (ks * 32 + lane) * 2, ahi, alo);
+      const int kd0 = ks * 8 + t, kd1 = kd0 + 4;
+      float v[kInvNT][2];
+#pragma unroll
+      for (int j = 0; j < kInvNT; ++j) {
+        const int n = (base + warp + kWarps * j) * 8 + g;
+        v[j][0] = n < n1 && kd0 < 2 * K ? __ldg(yb + (size_t)kd0 * n1 + n) : 0.f;
+        v[j][1] = n < n1 && kd1 < 2 * K ? __ldg(yb + (size_t)kd1 * n1 + n) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kInvNT; ++j) {
+        if (base + warp + kWarps * j < nt1_n) {
+          uint32_t bhi[2], blo[2];
+          split_tf32(v[j][0], bhi[0], blo[0]);
+          split_tf32(v[j][1], bhi[1], blo[1]);
+          mma_3xtf32(acc[j], ahi, alo, bhi, blo);
+        }
+      }
+    }
+    float* zh = z + ((size_t)b * H + h) * 2 * n1;
+#pragma unroll
+    for (int j = 0; j < kInvNT; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = (base + warp + kWarps * j) * 8 + 2 * t + (i & 1);
+        if (h < H && n < n1) zh[(i >> 1) * n1 + n] = acc[j][i];  // (re/im, m, o)
+      }
+    }
+  }
+}
+
+// Pass 4. out[b, h, w, o] = GELU(sum_m Br[w, m] zr - Bi[w, m] zi + x[b, h, w, :] . w0[o, :] + b0[o]):
+// per row one GEMM, [Br | -Bi | x_h] (W x (2 m2 + Ci)) . [z_r; z_i; w0^T],
+// the inverse W-stage and the 1x1 bypass together, with the bias and exact
+// erf GELU applied to the accumulators. Persistent: a block sets up its
+// tables once and walks items of kOutRows rows, whose rows of x and z come
+// in by cp.async (16-byte copies of contiguous rows) one item ahead of the
+// products. A warp task is one row's 16 (w) x 32 (o) tile.
+// bwf: (ceil(W/16), KZ/8, 32 lanes, 8) split A fragments of [Br | -Bi],
+//      KZ = 2 m2 rounded up to 8.
+__global__ void __launch_bounds__(kThreads, 3) inverse_cols_kernel(
+    const float* __restrict__ x, const float* __restrict__ z, const float4* __restrict__ bwf,
+    const float* __restrict__ w0, const float* __restrict__ b0, float* __restrict__ out, int B,
+    int H, int W, int Ci, int Co, int m2) {
+  FNO_DYNAMIC_SMEM(float4, smem4);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int nh = ceil_div(H, kOutRows), n_items = B * nh;
+  const int kz = round_up(2 * m2, 8), kx = round_up(Ci, 8);
+  const int sz = round_up(Co, 16) + 8, sx = kx + 4;  // conflict-free B and A fragment loads
+  const int mtw_n = ceil_div(W, 16), wrows = mtw_n * 16, nto = ceil_div(Co, 8), op = nto * 8;
+  float4* bws = smem4;                                              // mtw_n * kz/8 * 64
+  float4* w0s = bws + mtw_n * (kz / 8) * 64;                        // kx/8 * nto * 32
+  float* bs = reinterpret_cast<float*>(w0s + (kx / 8) * nto * 32);  // op
+  float* bufs = bs + op;  // 2 x (kOutRows x [kz][sz] of z, then kOutRows x [w][sx] of x)
+  const int zrow = kz * sz, xrow = wrows * sx, buf = kOutRows * (zrow + xrow);
+
+  const bool xvec = Ci % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool zvec = Co % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0;
+  // The rows of x and z of `item` into buffer `slot`, zero outside them;
+  // always exactly one commit group.
+  auto stage = [&](int item, int slot) {
+    if (item < n_items) {
+      const int b = item / nh, h0 = (item % nh) * kOutRows, rows = min(kOutRows, H - h0);
+      float* zs = bufs + slot * buf;
+      float* xs = zs + kOutRows * zrow;
+      const float* xb = x + ((size_t)b * H + h0) * W * Ci;
+      if (xvec) {
+        const int q_n = kx / 4;
+        Walk3 ix(tid, kThreads, q_n, wrows);
+        for (int i = tid; i < rows * wrows * q_n; i += kThreads, ix.next()) {
+          const int q = ix.i0, w = ix.i1, r = ix.i2;
+          float* d = xs + r * xrow + w * sx + 4 * q;
+          if (w < W && 4 * q < Ci) {
+            cp_async16(d, xb + ((size_t)r * W + w) * Ci + 4 * q);
+          } else {
+            *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
+      } else {
+        Walk3 ix(tid, kThreads, kx, wrows);
+        for (int i = tid; i < rows * wrows * kx; i += kThreads, ix.next()) {
+          const int c = ix.i0, w = ix.i1, r = ix.i2;
+          float* d = xs + r * xrow + w * sx + c;
+          if (w < W && c < Ci) {
+            cp_async4(d, xb + ((size_t)r * W + w) * Ci + c);
+          } else {
+            *d = 0.f;
+          }
+        }
+      }
+      const float* zb = z + ((size_t)b * H + h0) * 2 * m2 * Co;
+      if (zvec) {
+        const int q_n = op / 4;
+        Walk3 ix(tid, kThreads, q_n, kz);
+        for (int i = tid; i < rows * kz * q_n; i += kThreads, ix.next()) {
+          const int q = ix.i0, kd = ix.i1, r = ix.i2;
+          float* d = zs + r * zrow + kd * sz + 4 * q;
+          if (kd < 2 * m2 && 4 * q < Co) {
+            cp_async16(d, zb + ((size_t)r * 2 * m2 + kd) * Co + 4 * q);
+          } else {
+            *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
+      } else {
+        Walk3 ix(tid, kThreads, op, kz);
+        for (int i = tid; i < rows * kz * op; i += kThreads, ix.next()) {
+          const int o = ix.i0, kd = ix.i1, r = ix.i2;
+          float* d = zs + r * zrow + kd * sz + o;
+          if (kd < 2 * m2 && o < Co) {
+            cp_async4(d, zb + ((size_t)r * 2 * m2 + kd) * Co + o);
+          } else {
+            *d = 0.f;
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  int item = blockIdx.x;
+  stage(item, 0);  // the first item's rows come in under the table set-up
+  for (int i = tid; i < mtw_n * (kz / 8) * 64; i += kThreads) bws[i] = bwf[i];
+  // w0^T as split B fragments: element (i, o) = w0[o, i].
+  for (int i = tid; i < (kx / 8) * nto * 32; i += kThreads) {
+    const int l = i % 32, nt = (i / 32) % nto, ks = i / (32 * nto);
+    const int o = nt * 8 + (l >> 2), c = ks * 8 + (l & 3);
+    const float v0 = o < Co && c < Ci ? w0[(size_t)o * Ci + c] : 0.f;
+    const float v1 = o < Co && c + 4 < Ci ? w0[(size_t)o * Ci + c + 4] : 0.f;
+    uint32_t hi0, lo0, hi1, lo1;
+    split_tf32(v0, hi0, lo0);
+    split_tf32(v1, hi1, lo1);
+    w0s[i] = make_float4(__uint_as_float(hi0), __uint_as_float(hi1), __uint_as_float(lo0),
+                         __uint_as_float(lo1));
+  }
+  for (int i = tid; i < op; i += kThreads) bs[i] = i < Co ? b0[i] : 0.f;
+
+  const bool pairs = Co % 2 == 0;
+  const int tasks = kOutRows * mtw_n * ceil_div(nto, kOutNT);
+  for (int it = 0; item < n_items; ++it, item += gridDim.x) {
+    stage(item + gridDim.x, (it + 1) & 1);
+    cp_async_wait<1>();
+    __syncthreads();  // this item's rows staged (and, the first time, the tables)
+    const int b = item / nh, h0 = (item % nh) * kOutRows, rows = min(kOutRows, H - h0);
+    const float* zs = bufs + (it & 1) * buf;
+    const float* xs = zs + kOutRows * zrow;
+    for (int task = warp; task < tasks; task += kWarps) {
+      const int r = task % kOutRows, mtw = (task / kOutRows) % mtw_n;
+      const int ntb = task / (kOutRows * mtw_n) * kOutNT;
+      if (r >= rows) continue;
+      float acc[kOutNT][4];
+#pragma unroll
+      for (int j = 0; j < kOutNT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+      for (int ks = 0; ks < kz / 8; ++ks) {
+        uint32_t ahi[4], alo[4];
+        load_a_frag(bws + ((mtw * (kz / 8) + ks) * 32 + lane) * 2, ahi, alo);
+        const float* zk = zs + r * zrow + (ks * 8 + t) * sz + ntb * 8 + g;
+#pragma unroll
+        for (int j = 0; j < kOutNT; ++j) {
+          if (ntb + j < nto) {
+            uint32_t bhi[2], blo[2];
+            split_tf32(zk[j * 8], bhi[0], blo[0]);
+            split_tf32(zk[j * 8 + 4 * sz], bhi[1], blo[1]);
+            mma_3xtf32(acc[j], ahi, alo, bhi, blo);
+          }
+        }
+      }
+      for (int ks = 0; ks < kx / 8; ++ks) {
+        uint32_t ahi[4], alo[4];
+        load_a_split(xs + r * xrow + mtw * 16 * sx + ks * 8, sx, 1, g, t, ahi, alo);
+#pragma unroll
+        for (int j = 0; j < kOutNT; ++j) {
+          if (ntb + j < nto) {
+            uint32_t bhi[2], blo[2];
+            load_b_frag(w0s + (ks * nto + ntb + j) * 32 + lane, bhi, blo);
+            mma_3xtf32(acc[j], ahi, alo, bhi, blo);
+          }
+        }
+      }
+      float* orow = out + ((size_t)b * H + h0 + r) * W * Co;
+#pragma unroll
+      for (int j = 0; j < kOutNT; ++j) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int w = mtw * 16 + g + 8 * half, o = (ntb + j) * 8 + 2 * t;
+          if (w < W && o < Co) {
+            const float v0 = gelu_erf(acc[j][2 * half] + bs[o]);
+            const float v1 = gelu_erf(acc[j][2 * half + 1] + bs[o + 1]);
+            float* d = orow + (size_t)w * Co + o;
+            if (pairs) {
+              *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
+            } else {
+              d[0] = v0;
+              if (o + 1 < Co) d[1] = v1;
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // every read of this buffer done before it is refilled
+  }
+  cp_async_wait<0>();
 }
 
 }  // namespace
@@ -365,37 +572,47 @@ const char* fno_error_string(int err) {
 }
 
 // x: (B, H, W, Ci); weights: (2, 2, Ci, Co, M1, M2); w0: (Co, Ci); b0: (Co,)
-// e1c, e2c, ac, bc: _dft_factors_packed(H, W, m1, m2); scratch xm: (B, 2*m1,
-// m2, Ci, 2) and ym: (B, 2*m1, m2, Co, 2); out: (B, H, W, Co). All float32,
-// contiguous, on the current device. Launches on `stream`, does not sync.
+// e1f, e2f, a1f, bwf: ops/fno_kernels.py::_block_tables(H, W, m1, m2);
+// scratch xm: (B, 2, 2*m1, m2, Ci), ym: (B, 2, 2*m1, m2, Co) and z:
+// (B, H, 2, m2, Co); out:
+// (B, H, W, Co). All float32, contiguous, on the current device. Launches
+// on `stream`, does not sync.
 int fno_block_forward(const float* x, const float* weights, const float* w0,
-                      const float* b0, const float* e1c, const float* e2c,
-                      const float* ac, const float* bc, float* xm, float* ym,
-                      float* out, int B, int H, int W, int Ci, int Co, int M1,
+                      const float* b0, const float* e1f, const float* e2f,
+                      const float* a1f, const float* bwf, float* xm, float* ym,
+                      float* z, float* out, int B, int H, int W, int Ci, int Co, int M1,
                       int M2, int m1, int m2, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int K = 2 * m1;
-  const size_t Kp = round4(K), m2p = round4(m2), Wp = round4(W), Cop = round4(Co);
-  const size_t s1 = sizeof(float) *
-      (2 * (size_t)H * Kp + 2 * (size_t)W * m2p + (size_t)kRowGroup * W * kChanTile +
-       2 * (size_t)kRowGroup * m2p * kChanTile + 2 * Kp * m2 * kChanTile);
-  const size_t s2 = sizeof(float) * (2 * (size_t)Ci * Co + 2 * (size_t)kBatchTile * Ci);
-  const size_t s3 = sizeof(float) *
-      (2 * (size_t)K * kRowTile + 2 * (size_t)m2 * Wp + (size_t)Ci * Cop + Cop +
-       2 * (size_t)kRowTile * m2 * Cop + (size_t)kRowPair * Ci * Wp);
+  const int K = 2 * m1, n_kc = ceil_div(K, kFwdK), n_mc = ceil_div(m2, kFwdModes);
+  const size_t wk = ceil_div(W, 8);
+  const size_t s1 = 16 * (wk * kFwdNW * 32 + kFwdE1Slots * kFwdE1) +
+                    sizeof(float) * (kFwdSlots * kFwdRows * wk * 8 * kFwdChan + 2 * kFwdRows * kTRow);
+  const size_t s2 = sizeof(float2) * ((size_t)Ci * Co + (size_t)Ci * kMixStride);
+  const size_t kz = round_up(2 * m2, 8), kx = round_up(Ci, 8), sz = round_up(Co, 16) + 8;
+  const size_t mtw_n = ceil_div(W, 16), nto = ceil_div(Co, 8);
+  const size_t s4 = 32 * mtw_n * (kz / 8) * 32 + 16 * (kx / 8) * nto * 32 +
+                    sizeof(float) * (nto * 8 + 2 * kOutRows * (kz * sz + mtw_n * 16 * (kx + 4)));
   cudaError_t err;
   if ((err = allow_dynamic_smem((const void*)dft_forward_kernel, s1))) return err;
   if ((err = allow_dynamic_smem((const void*)mode_mix_kernel, s2))) return err;
-  if ((err = allow_dynamic_smem((const void*)dft_inverse_kernel, s3))) return err;
+  if ((err = allow_dynamic_smem((const void*)inverse_cols_kernel, s4))) return err;
+  int cols_blocks = 0;
+  if ((err = persistent_blocks(inverse_cols_kernel, kThreads, s4, B * ceil_div(H, kOutRows),
+                               &cols_blocks)))
+    return err;
 
-  dft_forward_kernel<<<dim3(B, (Ci + kChanTile - 1) / kChanTile), kThreads, s1, stream>>>(
-      x, e1c, e2c, xm, H, W, Ci, K, m2);
+  FNO_LAUNCH(dft_forward_kernel, dim3(B, ceil_div(Ci, kFwdChan), n_kc * n_mc), kFwdThreads, s1,
+             stream)(x, reinterpret_cast<const float4*>(e1f), reinterpret_cast<const float4*>(e2f),
+                     xm, H, W, Ci, K, m2, n_mc);
   if ((err = cudaGetLastError())) return err;
-  mode_mix_kernel<<<dim3(K * m2, (B + kBatchTile - 1) / kBatchTile), kThreads, s2, stream>>>(
+  FNO_LAUNCH(mode_mix_kernel, dim3(K * m2, ceil_div(B, kBatchTile)), kThreads, s2, stream)(
       xm, weights, ym, B, K, m1, m2, Ci, Co, M1, M2);
   if ((err = cudaGetLastError())) return err;
-  dft_inverse_kernel<<<dim3(B, (H + kRowTile - 1) / kRowTile), kThreads, s3, stream>>>(
-      x, ym, ac, bc, w0, b0, out, H, W, Ci, Co, K, m2);
+  FNO_LAUNCH(inverse_rows_kernel, dim3(B, ceil_div(H, kInvRows)), kThreads, 0, stream)(
+      ym, reinterpret_cast<const float4*>(a1f), z, H, Co, K, m2);
+  if ((err = cudaGetLastError())) return err;
+  FNO_LAUNCH(inverse_cols_kernel, cols_blocks, kThreads, s4, stream)(
+      x, z, reinterpret_cast<const float4*>(bwf), w0, b0, out, B, H, W, Ci, Co, m2);
   return cudaGetLastError();
 }
 

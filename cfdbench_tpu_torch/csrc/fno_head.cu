@@ -7,117 +7,196 @@
 //
 // What bounds it on this card: at the flagship shape (B=128, 64x64,
 // C=32, 128 hidden, 2 outputs) it reads x (67 MB) and the mask (2 MB) and
-// writes 4 MB, about 22 us at 3.35 TB/s, and does 2.3 G multiply-adds
-// plus 67 M erff: about 70 us of FP32 FMA at 67 TFLOP/s before the erff.
-// So it is bound by the CUDA cores' arithmetic. The plain PyTorch head
-// writes the 268 MB fc1 output, rereads it for GELU, writes it again and
-// rereads it for fc2: over 1 GB of traffic.
+// writes 4 MB, 22 us at 3.35 TB/s, and does 2.3 G multiply-adds plus 67 M
+// erff: 68 us of float32 FMA at 67 TFLOP/s. The first version, one
+// thread per pixel with 32-deep serial FMA chains, took 0.32 ms.
 //
-// Design: one thread per pixel, 128 pixels per block. The weights and
-// biases sit in shared memory (about 17 KB at C=32); every thread walks
-// the hidden units in the same order, so each fc1 row is read as
-// broadcast float4 loads, one per 4 input channels. A thread keeps its
-// pixel's C inputs in registers (the kernel is instantiated for C <= 32,
-// 64 and 128) and its output sums; each hidden activation lives in one
-// register, so the intermediate never leaves the SM. The mask multiplies
-// at the end. The FNO's 2 outputs are a compile-time count: a count
-// checked at run time (up to 8) costs a third of the kernel's time in
-// predicated loads and FMAs (measured on an H100 80GB HBM3 at 700 W:
-// 0.49 against 0.31 ms at B=128, 64x64, C=32), and two pixels per thread
-// did not pay for their registers (0.34 ms).
+// Design: fc1 is a GEMM with M = B*H*W, K = C, N = hidden, run on the
+// tensor cores as split TF32 (tf32.cuh), which holds float32 accuracy. A
+// persistent block walks tiles of 128 pixels (16 KB of x at C = 32,
+// contiguous), staged by cp.async one tile ahead of the products; each
+// warp owns 16 pixels and computes their hidden units 64 at a time in
+// registers. w1 is split once per block into fragment order in shared
+// memory. erf-GELU, fc2 (float32 FMA against w2 in shared memory) and a
+// shuffle reduction over the four lanes that share a pixel run on those
+// registers, so the (B, H, W, 128) intermediate never leaves the SM. The
+// mask multiplies at the end. The FNO's 2 outputs are a compile-time
+// count; any other count up to 8 is checked at run time.
+// Measured at the flagship shape on an H100 80GB HBM3 at 700 W
+// (scripts/bench_torch_kernels.py): 0.169 ms per call. The erf-GELU and
+// fc2 epilogue issues most of the instructions (67 M erff per call); a
+// branch-free erf fit and all 128 hidden units in one pass were slower.
 
-#include "launch.cuh"
+#include "tf32.cuh"
 
 namespace {
 
-constexpr int kHeadThreads = 128;
+constexpr int kHeadThreads = 256;
+constexpr int kHeadWarps = kHeadThreads / 32;
+constexpr int kTile = kHeadWarps * 16;  // pixels per tile: one 16-row tile per warp
+constexpr int kChunk = 8;               // hidden n-tiles (64 units) per accumulator pass
 constexpr int kMaxOut = 8;
 
-// CMAX: largest input width of the instantiation (a multiple of 4).
 // NOUT: the output count when it is fixed at compile time (the FNO's 2),
 // or 0 for any count up to kMaxOut, checked at run time.
-template <int CMAX, int NOUT>
+template <int NOUT>
 __global__ void __launch_bounds__(kHeadThreads) fno_head_kernel(
     const float* __restrict__ x, const float* __restrict__ w1,
     const float* __restrict__ b1, const float* __restrict__ w2,
     const float* __restrict__ b2, const float* __restrict__ mask,
     float* __restrict__ out, long long n, int C, int hidden, int n_out) {
   constexpr int OUTS = NOUT ? NOUT : kMaxOut;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int C4 = (C + 3) & ~3;        // w1 row stride: whole float4s
-  float* w1s = smem;                  // hidden * C4, [j][c], zero-padded
-  float* b1s = w1s + hidden * C4;     // hidden
-  float* w2s = b1s + hidden;          // n_out * hidden, [o][j]
-  float* b2s = w2s + n_out * hidden;  // n_out
-  for (int i = threadIdx.x; i < hidden * C4; i += kHeadThreads) {
-    const int j = i / C4, c = i % C4;
-    w1s[i] = c < C ? w1[j * C + c] : 0.f;
-  }
-  for (int i = threadIdx.x; i < hidden; i += kHeadThreads) b1s[i] = b1[i];
-  for (int i = threadIdx.x; i < n_out * hidden; i += kHeadThreads) w2s[i] = w2[i];
-  for (int i = threadIdx.x; i < n_out; i += kHeadThreads) b2s[i] = b2[i];
-  __syncthreads();
+  FNO_DYNAMIC_SMEM(float4, smem4);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int kc = ceil_div(C, 8), kp = kc * 8, sx = kp + 4;  // sx = 4 mod 8: conflict-free A loads
+  const int nth = ceil_div(hidden, 8), hp = nth * 8;
+  float4* w1s = smem4;                                             // kc * nth * 32
+  float* b1s = reinterpret_cast<float*>(w1s + kc * nth * 32);      // hp
+  float* w2s = b1s + hp;                                           // n_out * hp
+  float* b2s = w2s + n_out * hp;                                   // kMaxOut
+  float* xs = b2s + kMaxOut;                                       // 2 x [pixel][sx]
 
-  const long long p = (long long)blockIdx.x * kHeadThreads + threadIdx.x;
-  if (p >= n) return;
-  const float* xp = x + p * C;
-  float xv[CMAX];
-#pragma unroll
-  for (int c = 0; c < CMAX; ++c) xv[c] = c < C ? xp[c] : 0.f;
-  float acc[OUTS];
-#pragma unroll
-  for (int o = 0; o < OUTS; ++o) acc[o] = 0.f;
-  for (int j = 0; j < hidden; ++j) {
-    const float4* wj = reinterpret_cast<const float4*>(w1s + j * C4);
-    float h = 0.f;
-#pragma unroll
-    for (int c4 = 0; c4 < CMAX / 4; ++c4) {
-      if (4 * c4 < C) {
-        const float4 w = wj[c4];
-        h = fmaf(xv[4 * c4], w.x, h);
-        h = fmaf(xv[4 * c4 + 1], w.y, h);
-        h = fmaf(xv[4 * c4 + 2], w.z, h);
-        h = fmaf(xv[4 * c4 + 3], w.w, h);
+  // w1^T as split B fragments: element (c, j) = w1[j, c].
+  for (int i = tid; i < kc * nth * 32; i += kHeadThreads) {
+    const int l = i % 32, nt = (i / 32) % nth, ks = i / (32 * nth);
+    const int j = nt * 8 + (l >> 2), c = ks * 8 + (l & 3);
+    const float v0 = j < hidden && c < C ? w1[(size_t)j * C + c] : 0.f;
+    const float v1 = j < hidden && c + 4 < C ? w1[(size_t)j * C + c + 4] : 0.f;
+    uint32_t hi0, lo0, hi1, lo1;
+    split_tf32(v0, hi0, lo0);
+    split_tf32(v1, hi1, lo1);
+    w1s[i] = make_float4(__uint_as_float(hi0), __uint_as_float(hi1), __uint_as_float(lo0),
+                         __uint_as_float(lo1));
+  }
+  for (int i = tid; i < hp; i += kHeadThreads) b1s[i] = i < hidden ? b1[i] : 0.f;
+  for (int i = tid; i < n_out * hp; i += kHeadThreads) {
+    const int o = i / hp, j = i % hp;
+    w2s[i] = j < hidden ? w2[(size_t)o * hidden + j] : 0.f;
+  }
+  for (int i = tid; i < kMaxOut; i += kHeadThreads) b2s[i] = i < n_out ? b2[i] : 0.f;
+
+  const bool vec = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  // Pixels tile * kTile .. + kTile into dst, zero outside x.
+  auto stage = [&](long long tile, float* dst) {
+    const long long p0 = tile * kTile;
+    if (vec) {
+      const int q_n = kp / 4;
+      Walk3 ix(tid, kHeadThreads, q_n, kTile);
+      for (int i = tid; i < kTile * q_n; i += kHeadThreads, ix.next()) {
+        const int q = ix.i0, r = ix.i1;
+        float* d = dst + r * sx + 4 * q;
+        if (p0 + r < n && 4 * q < C) {
+          cp_async16(d, x + (p0 + r) * C + 4 * q);
+        } else {
+          *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+    } else {
+      Walk3 ix(tid, kHeadThreads, kp, kTile);
+      for (int i = tid; i < kTile * kp; i += kHeadThreads, ix.next()) {
+        const int c = ix.i0, r = ix.i1;
+        float* d = dst + r * sx + c;
+        if (p0 + r < n && c < C) {
+          cp_async4(d, x + (p0 + r) * C + c);
+        } else {
+          *d = 0.f;
+        }
       }
     }
-    const float g = gelu_erf(h + b1s[j]);
+    cp_async_commit();
+  };
+
+  const long long n_tiles = (n + kTile - 1) / kTile;
+  long long tile = blockIdx.x;
+  if (tile < n_tiles) stage(tile, xs);
+  for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
+    const long long next = tile + gridDim.x;
+    if (next < n_tiles) {
+      stage(next, xs + ((it + 1) & 1) * kTile * sx);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile staged (and, the first time, the weights)
+    const float* xa = xs + (it & 1) * kTile * sx + warp * 16 * sx;
+    // s[o][r]: this lane's part of output o for pixel row g + 8 r.
+    float s[OUTS][2];
+#pragma unroll
+    for (int o = 0; o < OUTS; ++o) s[o][0] = s[o][1] = 0.f;
+    for (int nc = 0; nc < nth; nc += kChunk) {
+      float acc[kChunk][4];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+      for (int ks = 0; ks < kc; ++ks) {
+        uint32_t ahi[4], alo[4];
+        load_a_split(xa + ks * 8, sx, 1, g, t, ahi, alo);
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          if (nc + j < nth) {
+            uint32_t bhi[2], blo[2];
+            load_b_frag(w1s + (ks * nth + nc + j) * 32 + lane, bhi, blo);
+            mma_3xtf32(acc[j], ahi, alo, bhi, blo);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        if (nc + j < nth) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = (nc + j) * 8 + 2 * t + (i & 1);
+            const float hdn = gelu_erf(acc[j][i] + b1s[col]);
+#pragma unroll
+            for (int o = 0; o < OUTS; ++o) {
+              if (NOUT || o < n_out) s[o][i >> 1] = fmaf(hdn, w2s[o * hp + col], s[o][i >> 1]);
+            }
+          }
+        }
+      }
+    }
+    // The four lanes of a group hold disjoint hidden units of the same pixels.
 #pragma unroll
     for (int o = 0; o < OUTS; ++o) {
-      if (NOUT || o < n_out) acc[o] = fmaf(g, w2s[o * hidden + j], acc[o]);
-    }
-  }
-  const float mk = mask[p];
-  float* op = out + p * n_out;
 #pragma unroll
-  for (int o = 0; o < OUTS; ++o) {
-    if (NOUT || o < n_out) op[o] = (acc[o] + b2s[o]) * mk;
+      for (int r = 0; r < 2; ++r) {
+        s[o][r] += __shfl_xor_sync(0xffffffffu, s[o][r], 1);
+        s[o][r] += __shfl_xor_sync(0xffffffffu, s[o][r], 2);
+      }
+    }
+    if (t < 2) {
+      const long long p = tile * kTile + warp * 16 + g + 8 * t;
+      if (p < n) {
+        const float mk = mask[p];
+#pragma unroll
+        for (int o = 0; o < OUTS; ++o) {
+          if (NOUT || o < n_out) out[p * n_out + o] = ((t ? s[o][1] : s[o][0]) + b2s[o]) * mk;
+        }
+      }
+    }
+    __syncthreads();  // every read of this x buffer done before it is refilled
   }
 }
 
-template <int CMAX, int NOUT>
+template <int NOUT>
 int launch_head(const float* x, const float* w1, const float* b1,
                 const float* w2, const float* b2, const float* mask,
                 float* out, long long n, int C, int hidden, int n_out,
                 cudaStream_t stream) {
-  const size_t smem = sizeof(float) *
-      ((size_t)hidden * ((C + 3) & ~3) + hidden + (size_t)n_out * hidden + n_out);
-  cudaError_t err = allow_dynamic_smem((const void*)fno_head_kernel<CMAX, NOUT>, smem);
+  const size_t kc = ceil_div(C, 8), nth = ceil_div(hidden, 8), hp = nth * 8;
+  const size_t smem = 16 * kc * nth * 32 +
+      sizeof(float) * (hp + n_out * hp + kMaxOut + 2 * kTile * (kc * 8 + 4));
+  const void* kernel = (const void*)fno_head_kernel<NOUT>;
+  cudaError_t err = allow_dynamic_smem(kernel, smem);
   if (err) return err;
-  const long long blocks = (n + kHeadThreads - 1) / kHeadThreads;
-  fno_head_kernel<CMAX, NOUT><<<(unsigned)blocks, kHeadThreads, smem, stream>>>(
+  int blocks = 0;
+  if ((err = persistent_blocks(fno_head_kernel<NOUT>, kHeadThreads, smem, (n + kTile - 1) / kTile,
+                               &blocks)))
+    return err;
+  FNO_LAUNCH(fno_head_kernel<NOUT>, (unsigned)blocks, kHeadThreads, smem, stream)(
       x, w1, b1, w2, b2, mask, out, n, C, hidden, n_out);
   return cudaGetLastError();
-}
-
-template <int CMAX>
-int launch_head_outs(const float* x, const float* w1, const float* b1,
-                     const float* w2, const float* b2, const float* mask,
-                     float* out, long long n, int C, int hidden, int n_out,
-                     cudaStream_t stream) {
-  if (n_out == 2)
-    return launch_head<CMAX, 2>(x, w1, b1, w2, b2, mask, out, n, C, hidden, n_out, stream);
-  return launch_head<CMAX, 0>(x, w1, b1, w2, b2, mask, out, n, C, hidden, n_out, stream);
 }
 
 }  // namespace
@@ -126,7 +205,8 @@ extern "C" {
 
 // x: (n, C) pixels; w1: (hidden, C); b1: (hidden,); w2: (n_out, hidden);
 // b2: (n_out,); mask: (n,); out: (n, n_out). All float32, contiguous, on
-// the current device; 1 <= C <= 128 and 1 <= n_out <= 8. Launches on
+// the current device; 1 <= n_out <= 8, and C and hidden small enough for
+// the block's shared memory (C <= 64 at 128 hidden units). Launches on
 // `stream`, does not sync.
 int fno_head_forward(const float* x, const float* w1, const float* b1,
                      const float* w2, const float* b2, const float* mask,
@@ -135,10 +215,9 @@ int fno_head_forward(const float* x, const float* w1, const float* b1,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (n < 1 || C < 1 || hidden < 1 || n_out < 1 || n_out > kMaxOut)
     return cudaErrorInvalidValue;
-  if (C <= 32) return launch_head_outs<32>(x, w1, b1, w2, b2, mask, out, n, C, hidden, n_out, stream);
-  if (C <= 64) return launch_head_outs<64>(x, w1, b1, w2, b2, mask, out, n, C, hidden, n_out, stream);
-  if (C <= 128) return launch_head_outs<128>(x, w1, b1, w2, b2, mask, out, n, C, hidden, n_out, stream);
-  return cudaErrorInvalidValue;
+  if (n_out == 2)
+    return launch_head<2>(x, w1, b1, w2, b2, mask, out, n, C, hidden, n_out, stream);
+  return launch_head<0>(x, w1, b1, w2, b2, mask, out, n, C, hidden, n_out, stream);
 }
 
 }  // extern "C"

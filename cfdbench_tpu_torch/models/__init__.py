@@ -10,7 +10,7 @@ from typing import Tuple
 
 import torch
 
-from cfdbench_tpu.config import Args
+from ..config import Args
 
 from .fno import Fno2d
 

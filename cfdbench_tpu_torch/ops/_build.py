@@ -10,6 +10,11 @@ report (registers, shared memory, spills per kernel) is kept in
 ``nvcc.log`` next to it.
 
 Nothing here runs at import: the first kernel launch builds and loads.
+
+:func:`load_emulation` builds the same sources with the host's C++
+compiler and ``-DFNO_EMULATE`` (``csrc/emulate/emu.h``) into a library
+with the same entry points that runs the kernels on the CPU, thread by
+thread: slow, for checking their indexing at tiny shapes without a card.
 """
 
 from __future__ import annotations
@@ -24,9 +29,14 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cfdbench_tpu_torch"
 LIBRARY = BUILD_DIR / "libcfdbench_fno.so"
+EMULATION = BUILD_DIR / "libcfdbench_fno_emulated.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+EMULATION_FLAGS = (
+    "-x", "c++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+    "-DFNO_EMULATE", "-Wno-unknown-pragmas",
 )
 
 
@@ -44,41 +54,67 @@ def find_nvcc() -> str:
 
 
 def _sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("**/*.cuh")) + sorted(CSRC.glob("**/*.h"))
 
 
-def build_library() -> Path:
-    """Compile ``csrc/*.cu`` into :data:`LIBRARY` unless it is newer
-    than every source and than this file, which holds the flags. Raises
-    with the compiler's output on failure."""
-    cu, cuh = _sources()
-    if LIBRARY.exists() and LIBRARY.stat().st_mtime >= max(
-        p.stat().st_mtime for p in [*cu, *cuh, Path(__file__)]
+def _build(target: Path, compiler: str, flags, log_name: str) -> Path:
+    """Compile ``csrc/*.cu`` into ``target`` unless it is newer than
+    every source and than this file, which holds the flags. Raises with
+    the compiler's output on failure."""
+    cu, headers = _sources()
+    if target.exists() and target.stat().st_mtime >= max(
+        p.stat().st_mtime for p in [*cu, *headers, Path(__file__)]
     ):
-        return LIBRARY
+        return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f"{LIBRARY.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
+    cmd = [compiler, *flags, "-o", str(tmp), *map(str, cu)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(
+    (BUILD_DIR / log_name).write_text(
         " ".join(cmd) + "\n" + proc.stdout + proc.stderr
     )
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
+            f"{compiler} failed with exit code {proc.returncode}:\n{proc.stderr}"
         )
-    os.replace(tmp, LIBRARY)
-    return LIBRARY
+    os.replace(tmp, target)
+    return target
+
+
+def build_library() -> Path:
+    """The kernels for the card, built by ``nvcc`` into :data:`LIBRARY`."""
+    return _build(LIBRARY, find_nvcc(), NVCC_FLAGS, "nvcc.log")
+
+
+def find_host_compiler() -> str:
+    for name in ("g++", "clang++"):
+        path = shutil.which(name)
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler (g++ or clang++) for the kernels' emulation")
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build if needed, load once per process, declare every entry
-    point's argument types (pointers and the stream as ``c_void_p``)."""
-    lib = ctypes.CDLL(str(build_library()))
+    point's argument types."""
+    return _declare(ctypes.CDLL(str(build_library())))
+
+
+@functools.lru_cache(maxsize=None)
+def load_emulation() -> ctypes.CDLL:
+    """The kernels' CPU emulation (see the module docstring): the same
+    entry points, taking host pointers."""
+    return _declare(ctypes.CDLL(str(
+        _build(EMULATION, find_host_compiler(), EMULATION_FLAGS, "emulation.log"))))
+
+
+def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Every entry point's argument types (pointers and the stream as
+    ``c_void_p``)."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fno_block_forward.argtypes = [ptr] * 11 + [i32] * 9 + [ptr]
+    lib.fno_block_forward.argtypes = [ptr] * 12 + [i32] * 9 + [ptr]
     lib.fno_block_forward.restype = i32
     lib.fno_head_forward.argtypes = [ptr] * 7 + [i64, i32, i32, i32, ptr]
     lib.fno_head_forward.restype = i32

@@ -13,21 +13,133 @@ it launches its kernel or raises — there is no fallback. Weights are in
 ``nn.Linear`` layout (``(out, in)``). Each wrapper counts the calls in
 which it launched its kernel in ``<wrapper>.launches``, so a run can
 show that it went through the kernels (:func:`launch_counts`).
+
+Both kernels multiply on the tensor cores in split TF32 (``csrc/tf32.cuh``).
+The block kernel's constant operands — the truncated DFT tables — are
+split into TF32 high and low halves and laid out in ``mma.sync``
+fragment order here, once per grid and mode count (:func:`_block_tables`).
+``_block_call`` and ``_head_call`` take the library to launch, so the
+tests can run them through the kernels' CPU emulation
+(``ops/_build.py::load_emulation``).
 """
 
 from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ._build import check_launch, load_library
-from .spectral import _dft_factors_packed, clamp_modes, spectral_conv2d_fft
+from .spectral import _dft_factors, clamp_modes, spectral_conv2d_fft
 
-# Largest widths the kernels are instantiated for (csrc/fno_head.cu).
-HEAD_MAX_IN = 128
+# Largest widths the head kernel takes (its shared memory, csrc/fno_head.cu).
+HEAD_MAX_IN = 64
 HEAD_MAX_OUT = 8
+# Tiles of csrc/fno_block.cu that the host tables follow.
+FWD_ROWS = 8    # kFwdRows: rows of x per group of the forward pass
+FWD_MODES = 12  # kFwdModes: modes per forward block
+FWD_K = 24      # kFwdK: spectrum rows per forward block
+FWD_MT = 3      # kFwdMT: 16-row tiles of the forward H-stage (2 * FWD_K rows)
+FWD_NW = 3      # kFwdNW: 8-column tiles of the forward W-stage (2 * FWD_MODES columns)
+INV_ROWS = 8    # kInvRows: rows per inverse block
+
+_LANE = np.arange(32)
+_G, _T = _LANE // 4, _LANE % 4
+
+
+def tf32_split(a: np.ndarray):
+    """float32 ``a`` as ``(hi, lo)``: ``hi`` is ``a`` rounded to TF32 (10
+    mantissa bits, nearest, ties away from zero), ``lo = a - hi`` exactly,
+    which the tensor cores read truncated to TF32;
+    ``csrc/tf32.cuh::split_tf32`` on the card."""
+    a = np.ascontiguousarray(a, np.float32)
+    bits = a.view(np.uint32)
+    hi = ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+    return hi, a - hi
+
+
+def _a_fragments(A: np.ndarray) -> np.ndarray:
+    """(..., 16 Mt, 8 Kt) → (..., Mt, Kt, 32 lanes, 8): each lane's A
+    fragment of ``mma.m16n8k8`` (a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3
+    (g+8, t+4)), high halves then low halves."""
+    *lead, M, Kd = A.shape
+    A = A.reshape(*lead, M // 16, 16, Kd // 8, 8).swapaxes(-3, -2)
+    frag = np.stack([A[..., _G, _T], A[..., _G + 8, _T],
+                     A[..., _G, _T + 4], A[..., _G + 8, _T + 4]], -1)
+    return np.concatenate(tf32_split(frag), -1)
+
+
+def _b_fragments(Bm: np.ndarray) -> np.ndarray:
+    """(..., 8 Kt, 8 Nt) → (..., Kt, Nt, 32 lanes, 4): each lane's B
+    fragment (b0 (t, g), b1 (t+4, g)), high halves then low halves."""
+    *lead, Kd, N = Bm.shape
+    Bm = Bm.reshape(*lead, Kd // 8, 8, N // 8, 8).swapaxes(-3, -2)
+    frag = np.stack([Bm[..., _T, _G], Bm[..., _T + 4, _G]], -1)
+    return np.concatenate(tf32_split(frag), -1)
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)
+def _block_matrices(H: int, W: int, m1: int, m2: int):
+    """The real matrices the block kernel multiplies by, zero-padded to
+    its tiles (float64):
+
+    - ``e1`` (n_kc, ceil(H/8), 48, 16): per chunk of ``FWD_K`` spectrum
+      rows and group of 8 rows of x, the forward H-stage's
+      ``[[E1r, -E1i], [E1i, E1r]]``: rows are the chunk's real then
+      imaginary spectrum rows, columns T's real then imaginary parts of
+      the group's rows;
+    - ``e2`` (n_mc, 8 ceil(W/8), 24): per chunk of ``FWD_MODES`` modes,
+      ``[E2r^T | E2i^T]`` (w × (re/im, mode));
+    - ``a1`` (ceil(H/8), 16, 8 ceil(2K/8)): per tile of 8 output rows the
+      inverse H-stage's ``[[Ar, -Ai], [Ai, Ar]]`` rows, real parts in
+      rows 0-7 and imaginary parts in rows 8-15;
+    - ``bw`` (16 ceil(W/16), KZ): ``[Br | -Bi]``, KZ = 2 m2 rounded up to 8.
+    """
+    E1r, E1i, E2r, E2i, Ar, Ai, Br, Bi = (
+        f.astype(np.float64) for f in _dft_factors(H, W, m1, m2))
+    K = 2 * m1
+    n_kc, n_mc, ng = _ceil(K, FWD_K), _ceil(m2, FWD_MODES), _ceil(H, FWD_ROWS)
+    e1r = np.zeros((K, ng * FWD_ROWS))
+    e1i = np.zeros_like(e1r)
+    e1r[:, :H], e1i[:, :H] = E1r, E1i
+    e1 = np.zeros((n_kc, ng, 16 * FWD_MT, 2 * FWD_ROWS))
+    for kc in range(n_kc):
+        k0 = kc * FWD_K
+        kn = min(FWD_K, K - k0)
+        r = e1r[k0:k0 + kn].reshape(kn, ng, FWD_ROWS).transpose(1, 0, 2)
+        i = e1i[k0:k0 + kn].reshape(kn, ng, FWD_ROWS).transpose(1, 0, 2)
+        e1[kc, :, :kn] = np.concatenate([r, -i], -1)
+        e1[kc, :, kn:2 * kn] = np.concatenate([i, r], -1)
+    e2 = np.zeros((n_mc, 8 * _ceil(W, 8), 8 * FWD_NW))
+    for mc in range(n_mc):
+        m0 = mc * FWD_MODES
+        mn = min(FWD_MODES, m2 - m0)
+        e2[mc, :W, :mn] = E2r[m0:m0 + mn].T
+        e2[mc, :W, mn:2 * mn] = E2i[m0:m0 + mn].T
+    Ac = np.block([[Ar, -Ai], [Ai, Ar]])
+    a1 = np.zeros((_ceil(H, INV_ROWS), 16, 8 * _ceil(2 * K, 8)))
+    for ht in range(a1.shape[0]):
+        hs = np.arange(ht * INV_ROWS, min(H, ht * INV_ROWS + INV_ROWS))
+        a1[ht, :len(hs), :2 * K] = Ac[hs]
+        a1[ht, 8:8 + len(hs), :2 * K] = Ac[H + hs]
+    bw = np.zeros((16 * _ceil(W, 16), 8 * _ceil(2 * m2, 8)))
+    bw[:W, :m2], bw[:W, m2:2 * m2] = Br, -Bi
+    return e1, e2, a1, bw
+
+
+@functools.lru_cache(maxsize=None)
+def _block_tables(H: int, W: int, m1: int, m2: int):
+    """:func:`_block_matrices` in float32, split and in fragment order,
+    as ``csrc/fno_block.cu`` reads them: e1f (A), e2f (B), a1f (A), bwf (A)."""
+    e1, e2, a1, bw = (m.astype(np.float32) for m in _block_matrices(H, W, m1, m2))
+    return tuple(np.ascontiguousarray(f) for f in (
+        _a_fragments(e1), _b_fragments(e2), _a_fragments(a1), _a_fragments(bw)))
 
 
 def fno_block_reference(x, weights, w0, b0, modes1: int, modes2: int):
@@ -61,16 +173,50 @@ def _stream(device: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=32)
-def _factor_tensors(H: int, W: int, m1: int, m2: int, device: torch.device):
-    return tuple(
-        torch.from_numpy(f).to(device)
-        for f in _dft_factors_packed(H, W, m1, m2)
+def _table_tensors(H: int, W: int, m1: int, m2: int, device: torch.device):
+    return tuple(torch.from_numpy(f).to(device) for f in _block_tables(H, W, m1, m2))
+
+
+def _block_call(lib, x, weights, w0, b0, modes1, modes2, stream: int):
+    """Allocate the block kernel's scratch and output and launch it
+    through ``lib`` on ``stream``; the arguments are checked."""
+    B, H, W, Ci = x.shape
+    Co = weights.shape[3]
+    m1, m2 = clamp_modes(H, W, modes1, modes2)
+    tables = _table_tensors(H, W, m1, m2, x.device)
+    xm = torch.empty((B, 2, 2 * m1, m2, Ci), device=x.device)
+    ym = torch.empty((B, 2, 2 * m1, m2, Co), device=x.device)
+    z = torch.empty((B, H, 2, m2, Co), device=x.device)
+    out = torch.empty((B, H, W, Co), device=x.device)
+    err = lib.fno_block_forward(
+        x.data_ptr(), weights.data_ptr(), w0.data_ptr(), b0.data_ptr(),
+        *(f.data_ptr() for f in tables),
+        xm.data_ptr(), ym.data_ptr(), z.data_ptr(), out.data_ptr(),
+        B, H, W, Ci, Co, modes1, modes2, m1, m2, stream,
     )
+    check_launch(lib, err, "fno_block")
+    return out
+
+
+def _head_call(lib, x, w1, b1, w2, b2, mask, stream: int):
+    """Allocate the head kernel's output and launch it through ``lib``."""
+    B, H, W, C = x.shape
+    n_out = w2.shape[0]
+    out = torch.empty((B, H, W, n_out), device=x.device)
+    err = lib.fno_head_forward(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        B * H * W, C, w1.shape[0], n_out, stream,
+    )
+    check_launch(lib, err, "fno_head")
+    return out
 
 
 def fno_block(x, weights, w0, b0, modes1: int, modes2: int):
     """x (B, H, W, Cin); weights (2, 2, Cin, Cout, modes1, modes2);
-    w0 (Cout, Cin); b0 (Cout,) → (B, H, W, Cout)."""
+    w0 (Cout, Cin); b0 (Cout,) → (B, H, W, Cout). On the card the
+    kernel's shared memory takes W up to 80 and widths up to 96 at 12x12
+    modes; a larger shape raises the CUDA configuration error."""
     if x.device.type == "cpu":
         return fno_block_reference(x, weights, w0, b0, modes1, modes2)
     _check_cuda_f32(x.device, x=x, weights=weights, w0=w0, b0=b0)
@@ -87,20 +233,9 @@ def fno_block(x, weights, w0, b0, modes1: int, modes2: int):
            f"w0 {tuple(w0.shape)} / b0 {tuple(b0.shape)} do not match "
            f"({Co}, {Ci}) / ({Co},)")
     _check(H >= 2 and W >= 2, f"grid {H}x{W} is too small for a spectral conv")
-    m1, m2 = clamp_modes(H, W, modes1, modes2)
-    factors = _factor_tensors(H, W, m1, m2, x.device)
-    xm = torch.empty((B, 2 * m1, m2, Ci, 2), device=x.device)
-    ym = torch.empty((B, 2 * m1, m2, Co, 2), device=x.device)
-    out = torch.empty((B, H, W, Co), device=x.device)
-    lib = load_library()
     with torch.cuda.device(x.device):
-        err = lib.fno_block_forward(
-            x.data_ptr(), weights.data_ptr(), w0.data_ptr(), b0.data_ptr(),
-            *(f.data_ptr() for f in factors),
-            xm.data_ptr(), ym.data_ptr(), out.data_ptr(),
-            B, H, W, Ci, Co, modes1, modes2, m1, m2, _stream(x.device),
-        )
-    check_launch(lib, err, "fno_block")
+        out = _block_call(load_library(), x, weights, w0, b0, modes1, modes2,
+                          _stream(x.device))
     fno_block.launches += 1
     return out
 
@@ -126,15 +261,8 @@ def fno_head(x, w1, b1, w2, b2, mask):
     _check(C <= HEAD_MAX_IN and n_out <= HEAD_MAX_OUT,
            f"fno_head kernel takes C <= {HEAD_MAX_IN} and out <= "
            f"{HEAD_MAX_OUT}, got C={C}, out={n_out}")
-    out = torch.empty((B, H, W, n_out), device=x.device)
-    lib = load_library()
     with torch.cuda.device(x.device):
-        err = lib.fno_head_forward(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), mask.data_ptr(), out.data_ptr(),
-            B * H * W, C, hidden, n_out, _stream(x.device),
-        )
-    check_launch(lib, err, "fno_head")
+        out = _head_call(load_library(), x, w1, b1, w2, b2, mask, _stream(x.device))
     fno_head.launches += 1
     return out
 

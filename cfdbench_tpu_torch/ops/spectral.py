@@ -8,9 +8,9 @@ zeros elsewhere, irfft2 back. Weights keep the real-pair layout
 ``(corner, re/im, Cin, Cout, modes1, modes2)``, so one checkpoint
 drives both packages.
 
-The DFT factor tables (``_dft_factors``, ``_dft_factors_packed``) are
-numpy, for the CUDA block kernel (``ops/fno_kernels.py``), which
-projects onto the retained modes with them instead of running an FFT.
+The DFT factor tables (``_dft_factors``) are numpy, for the CUDA block
+kernel (``ops/fno_kernels.py``), which projects onto the retained modes
+with them instead of running an FFT.
 The JAX package's DFT-matmul backends and their batch-size crossover
 rule were TPU workarounds and are not ported: here ``torch.fft`` is
 the plain version and the fused kernel is the fast one.
@@ -59,19 +59,6 @@ def _dft_factors(H: int, W: int, m1: int, m2: int):
         f32(E1.real), f32(E1.imag), f32(E2.real), f32(E2.imag),
         f32(A.real), f32(A.imag), f32(B.real), f32(B.imag),
     )
-
-
-@lru_cache(maxsize=None)
-def _dft_factors_packed(H: int, W: int, m1: int, m2: int):
-    """Block-packed real factors, as the fused block kernel reads them:
-    E1c (2K, H) = [E1r; E1i], E2c (2m2, 2W) = [[E2r, -E2i], [E2i, E2r]],
-    Ac (2H, 2K) = [[Ar, -Ai], [Ai, Ar]], Bc (W, 2m2) = [Br, -Bi]."""
-    E1r, E1i, E2r, E2i, Ar, Ai, Br, Bi = _dft_factors(H, W, m1, m2)
-    E1c = np.concatenate([E1r, E1i], axis=0)
-    E2c = np.block([[E2r, -E2i], [E2i, E2r]])
-    Ac = np.block([[Ar, -Ai], [Ai, Ar]])
-    Bc = np.concatenate([Br, -Bi], axis=1)
-    return tuple(np.ascontiguousarray(a) for a in (E1c, E2c, Ac, Bc))
 
 
 def spectral_conv2d_fft(

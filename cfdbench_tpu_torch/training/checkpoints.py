@@ -19,7 +19,7 @@ from typing import Dict, Optional
 
 import torch
 
-from cfdbench_tpu.data.core import dump_json, load_json
+from ..data.core import dump_json, load_json
 
 MODEL_FILE = "model.pt"
 JAX_WEIGHTS = ("model", "backup_model", "model.msgpack")

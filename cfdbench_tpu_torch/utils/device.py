@@ -15,12 +15,6 @@ def require_cuda() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def default_device() -> torch.device:
-    """The CUDA device when there is one, else the CPU (where the
-    kernels' plain versions run)."""
-    return require_cuda() if torch.cuda.is_available() else torch.device("cpu")
-
-
 def set_f32_numerics() -> None:
     """Full-precision float32 products everywhere. Parity with the
     float32 reference (2e-5 on a forward) needs this: TF32 keeps about

@@ -9,8 +9,9 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    versions, whether Triton imports, and builds both kernels from
    ``cfdbench_tpu_torch/csrc`` (build time and ptxas report).
 2. Holds each kernel to its plain PyTorch version on the card, in float32
-   with TF32 off, at the flagship shape (B=8, 64x64, 32 channels, 12
-   modes) and at 66x65 (odd W).
+   with TF32 off, at the flagship widths (B=8, 64x64, 32 channels, 12
+   modes), at 66x65 (odd W), and at the ragged 18x17 with 10 channels
+   (4 modes, 3 head outputs) and 16x16 with 8 channels (modes clamped).
 3. Drives the main path through its entry point: a synthetic 64x64
    cavity tree, a seeded flagship FNO (depth 4, width 32, 12 modes)
    saved as ``ckpt-0/model.pt``, then
@@ -20,7 +21,12 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
 4. Rolls the same weights out on the same cases through the kernels and
    through the plain versions; the per-step metrics must agree.
 5. Times, with CUDA events, the 20-step rollout at batch 128 on both
-   paths and each kernel against its plain version at batch 128.
+   paths and each kernel against its plain version at batch 128, and
+   prints each kernel's bound: the least time the card could take for
+   the same work, the larger of its bytes (each input read once, each
+   output written once) over 3.35 TB/s and its float32 multiply-adds over
+   67 TFLOP/s (an H100 SXM's published rates). No single PyTorch call
+   computes either kernel's function, so neither has a library time.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -51,6 +57,14 @@ BLOCK_ATOL = 1e-4
 HEAD_ATOL = 1e-5
 ROLLOUT_RTOL = 1e-4
 TIMING_BATCH = 128
+# (B, H, W, channels, modes, head outputs) of phase 2.
+CHECK_SHAPES = ((8, GRID, GRID, WIDTH, MODES, 2), (8, GRID + 2, GRID + 1, WIDTH, MODES, 2),
+                (3, 18, 17, 10, 4, 3), (17, 16, 16, 8, MODES, 2))
+# An H100 SXM's published peaks (NVIDIA's data sheet, dense rates): device memory
+# bytes/s and float32 FLOP/s outside the tensor cores. The kernels compute
+# in float32 (split TF32 on the tensor cores holds float32 accuracy).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 
 
 def sh(*cmd) -> str:
@@ -103,7 +117,7 @@ def host_facts():
     return card
 
 
-def kernel_inputs(B, H, W, C, gen, device):
+def kernel_inputs(B, H, W, C, gen, device, modes=MODES, n_out=2):
     from cfdbench_tpu_torch.ops.spectral import init_spectral_weights
 
     def rnd(*shape, scale=1.0):
@@ -111,15 +125,47 @@ def kernel_inputs(B, H, W, C, gen, device):
 
     # Spectral weights at C times their init scale, so the spectral path
     # is as large as the bypass and an error in it cannot hide.
-    weights = (init_spectral_weights(gen, C, C, MODES, MODES) * C).to(device)
+    weights = (init_spectral_weights(gen, C, C, modes, modes) * C).to(device)
     mask = torch.ones((B, H, W, 1))
     mask[:, H // 3: H // 2, W // 4: W // 2] = 0
     return dict(
         x=rnd(B, H, W, C), weights=weights, w0=rnd(C, C, scale=C ** -0.5),
         b0=rnd(C, scale=0.1), w1=rnd(128, C, scale=C ** -0.5),
-        b1=rnd(128, scale=0.1), w2=rnd(2, 128, scale=128 ** -0.5),
-        b2=rnd(2, scale=0.1), mask=mask.to(device),
+        b1=rnd(128, scale=0.1), w2=rnd(n_out, 128, scale=128 ** -0.5),
+        b2=rnd(n_out, scale=0.1), mask=mask.to(device),
     )
+
+
+def block_work(B, H, W, Ci, Co, modes):
+    """(bytes, float32 multiply-adds) of one FnoBlock call: x, the weights
+    and the output once each; the truncated DFTs both ways, the per-mode
+    mixing and the 1x1 bypass, at the clamped mode counts."""
+    from cfdbench_tpu_torch.ops.spectral import clamp_modes
+
+    m1, m2 = clamp_modes(H, W, modes, modes)
+    K = 2 * m1
+    nbytes = 4 * (B * H * W * Ci + 4 * Ci * Co * modes * modes + Co * Ci + Co + B * H * W * Co)
+    fma = (B * H * Ci * 2 * m2 * W + B * m2 * Ci * 2 * K * 2 * H  # forward: rows, then columns
+           + B * K * m2 * 2 * Ci * 2 * Co                         # per-mode complex mixing
+           + B * m2 * Co * 2 * H * 2 * K + B * H * W * Co * 2 * m2  # inverse: columns, then rows
+           + B * H * W * Ci * Co)                                 # 1x1 bypass
+    return nbytes, fma
+
+
+def head_work(B, H, W, C, hidden, n_out):
+    """(bytes, float32 multiply-adds) of one head call: x, the mask, the
+    weights and the output once each; fc1 and fc2 (the erf of GELU is not
+    counted)."""
+    n = B * H * W
+    nbytes = 4 * (n * C + n + hidden * C + hidden + n_out * hidden + n_out + n * n_out)
+    return nbytes, n * (C * hidden + hidden * n_out)
+
+
+def bound(nbytes: int, fma: int):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the FLOPs over the float32 rate."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * fma / F32_FLOP_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def check_kernels(device):
@@ -129,9 +175,9 @@ def check_kernels(device):
 
     gen = torch.Generator().manual_seed(SEED)
     worst = {"fno_block": 0.0, "fno_head": 0.0}
-    for B, H, W in ((8, GRID, GRID), (8, GRID + 2, GRID + 1)):
-        t = kernel_inputs(B, H, W, WIDTH, gen, device)
-        block_args = (t["x"], t["weights"], t["w0"], t["b0"], MODES, MODES)
+    for B, H, W, C, modes, n_out in CHECK_SHAPES:
+        t = kernel_inputs(B, H, W, C, gen, device, modes, n_out)
+        block_args = (t["x"], t["weights"], t["w0"], t["b0"], modes, modes)
         head_args = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"], t["mask"])
         for name, kern, ref, args, atol in (
             ("fno_block", fk.fno_block, fk.fno_block_reference, block_args, BLOCK_ATOL),
@@ -144,7 +190,7 @@ def check_kernels(device):
                                    f"vs {tuple(want.shape)} or non-finite output")
             err = (got - want).abs().max().item()
             rel = err / want.abs().max().item()
-            print(f"[kernel] {name} B={B} {H}x{W} C={WIDTH}: max abs err {err:.3e} "
+            print(f"[kernel] {name} B={B} {H}x{W} C={C} modes={modes}: max abs err {err:.3e} "
                   f"(bound {atol:.0e}), max rel err {rel:.3e}")
             if not err <= atol:
                 raise RuntimeError(f"{name} {H}x{W} disagrees with its plain version: "
@@ -273,6 +319,8 @@ def timing(device, card):
     t = kernel_inputs(B, H, W, WIDTH, gen, device)
     block_args = (t["x"], t["weights"], t["w0"], t["b0"], MODES, MODES)
     head_args = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"], t["mask"])
+    work = {"fno_block": block_work(B, H, W, WIDTH, WIDTH, MODES),
+            "fno_head": head_work(B, H, W, WIDTH, t["w1"].shape[0], t["w2"].shape[0])}
     times = {}
     with torch.inference_mode():
         for name, kern, ref, args in (
@@ -280,9 +328,12 @@ def timing(device, card):
             ("fno_head", fk.fno_head, fk.fno_head_reference, head_args),
         ):
             p, k = interleaved_ms(lambda: ref(*args), lambda: kern(*args), reps=20)
-            times[name] = (k, p)
+            bound_ms, bound_by = bound(*work[name])
+            times[name] = dict(ms=k, plain_ms=p, bound_ms=bound_ms, bound_by=bound_by)
             print(f"[time] [{card}] {name} B={B} {H}x{W} C={WIDTH}: kernel {k:.4f} ms, "
-                  f"plain {p:.4f} ms ({p / k:.2f}x)")
+                  f"plain {p:.4f} ms ({p / k:.2f}x); bound {bound_ms:.4f} ms by {bound_by} "
+                  f"({work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.3f} G multiply-adds), "
+                  f"kernel at {bound_ms / k:.1%} of it; library call: none")
     return times
 
 
@@ -305,7 +356,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"cfdbench_tpu_torch/csrc/{name}.cu",
          "replaces": replaces[name], "launches": counts[name],
-         "max_abs_err": errors[name], "ms": times[name][0], "plain_ms": times[name][1]}
+         "max_abs_err": errors[name], **times[name], "library_ms": None}
         for name in ("fno_block", "fno_head")
     ]}))
     print(json.dumps({"ok": True, "device": {

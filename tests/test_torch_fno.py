@@ -119,7 +119,8 @@ def test_fno2d_reference_matches_golden():
     np.testing.assert_allclose(got.numpy(), data["expected"], atol=ATOL)
 
 
-PORT_SCRIPTS = ("chip_smoke.py", "scripts/profile_torch_rollout.py")
+PORT_SCRIPTS = ("chip_smoke.py", "test_multistep_torch.py",
+                "scripts/profile_torch_rollout.py", "scripts/bench_torch_kernels.py")
 JAX_ROOTS = {"jax", "flax", "optax", "orbax", "cfdbench_tpu"}
 
 
@@ -135,7 +136,8 @@ def import_statements(path: Path):
 
 def test_port_imports_no_jax():
     # The port's scripts import only the port, never the JAX package
-    # itself, and nothing any of them imports loads jax.
+    # itself; and once every module of the port and chip_smoke are
+    # imported, neither jax nor any module of the JAX package is loaded.
     port_imports = []
     for script in PORT_SCRIPTS:
         for node, roots in import_statements(REPO / script):
@@ -143,11 +145,16 @@ def test_port_imports_no_jax():
             if "cfdbench_tpu_torch" in roots:
                 port_imports.append(ast.unparse(node))
     code = "\n".join([
-        "import sys",
-        "import cfdbench_tpu_torch, cfdbench_tpu_torch.cli",
-        "import cfdbench_tpu_torch.models.fno, cfdbench_tpu_torch.ops.fno_kernels",
+        "import importlib, pkgutil, sys",
+        "import cfdbench_tpu_torch, chip_smoke",
+        "mods = [m.name for m in pkgutil.walk_packages(",
+        "    cfdbench_tpu_torch.__path__, 'cfdbench_tpu_torch.')]",
+        "assert 'cfdbench_tpu_torch.data.datasets' in mods, mods",
+        "for m in mods:",
+        "    importlib.import_module(m)",
         *port_imports,
-        "bad = [m for m in ('jax', 'flax', 'optax', 'orbax') if m in sys.modules]",
+        "roots = ('jax', 'flax', 'optax', 'orbax', 'cfdbench_tpu')",
+        "bad = [m for m in sys.modules if m.split('.')[0] in roots]",
         "assert not bad, bad",
     ])
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)

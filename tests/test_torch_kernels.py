@@ -6,21 +6,21 @@ with a card and without JAX it runs on its own:
 
     python -m pytest tests/test_torch_kernels.py -q -m cuda --noconftest
 
-On the CPU it checks the arithmetic the block kernel is built on: its
-packed DFT factor tables, read the way ``csrc/fno_block.cu`` reads them,
-reproduce the plain ``torch.fft`` spectral conv.
+On the CPU it checks the arithmetic the block kernel is built on — the
+matrices its tables hold, run through its four passes in float64, give
+the plain ``torch.fft`` spectral conv; the tables are those matrices
+split and in ``mma.sync`` fragment order — and it runs both kernels
+through their CPU emulation (``ops/_build.py::load_emulation``, built
+with the host's C++ compiler) against the plain versions.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from cfdbench_tpu_torch.ops import _build
 from cfdbench_tpu_torch.ops import fno_kernels as fk
-from cfdbench_tpu_torch.ops.spectral import (
-    _dft_factors_packed,
-    clamp_modes,
-    spectral_conv2d_fft,
-)
+from cfdbench_tpu_torch.ops.spectral import clamp_modes, spectral_conv2d_fft
 
 
 @pytest.fixture()
@@ -44,30 +44,115 @@ def block_inputs(rng, B, H, W, C, modes):
 
 @pytest.mark.parametrize(
     "H,W,modes",
-    [(16, 16, 12), (18, 17, 4), (66, 65, 12)],
+    # clamped modes with the Nyquist column; odd W; the flagship's 12 modes
+    # on the tube grid; and more modes than one block takes (chunked).
+    [(16, 16, 12), (18, 17, 4), (66, 65, 12), (32, 34, 16)],
 )
 def test_packed_dft_tables_reproduce_spectral_conv(rng, H, W, modes):
-    """The three passes of the block kernel, in float64 numpy: forward
-    DFT onto the retained modes with E1c/E2c, per-mode mixing with the
-    corner weights, inverse with Ac/Bc keeping the real part."""
-    x, w, _, _ = block_inputs(rng, 2, H, W, 4, modes)
+    """The block kernel's four passes, in float64 numpy, on the matrices
+    its tables hold: the forward DFT onto the retained modes in row
+    groups and mode / spectrum-row chunks, the per-mode mixing with the
+    corner weights, the inverse column DFT per tile of rows, and the
+    inverse row DFT keeping the real part."""
+    B, C = 2, 4
+    x, w, _, _ = block_inputs(rng, B, H, W, C, modes)
     m1, m2 = clamp_modes(H, W, modes, modes)
     K = 2 * m1
-    E1c, E2c, Ac, Bc = (f.astype(np.float64) for f in _dft_factors_packed(H, W, m1, m2))
-    E1 = E1c[:K] + 1j * E1c[K:]
-    E2 = E2c[:m2, :W] + 1j * E2c[m2:, :W]
-    A = Ac[:H, :K] + 1j * Ac[H:, :K]
-    B = Bc[:, :m2] - 1j * Bc[:, m2:]
-    X = np.einsum("kh,mw,bhwc->bkmc", E1, E2, x)
+    e1, e2, a1, bw = fk._block_matrices(H, W, m1, m2)
+    ng, wp = e1.shape[1], e2.shape[1]
+    xp = np.zeros((B, ng * fk.FWD_ROWS, wp, C))
+    xp[:, :H, :W] = x
+    xm = np.zeros((B, 2, K, m2, C))
+    for mc in range(e2.shape[0]):
+        m0 = mc * fk.FWD_MODES
+        mn = min(fk.FWD_MODES, m2 - m0)
+        T = np.einsum("bhwc,wn->bhnc", xp, e2[mc])
+        for kc in range(e1.shape[0]):
+            k0 = kc * fk.FWD_K
+            kn = min(fk.FWD_K, K - k0)
+            for gi in range(ng):
+                rows = slice(gi * fk.FWD_ROWS, (gi + 1) * fk.FWD_ROWS)
+                tj = np.concatenate([T[:, rows, :mn], T[:, rows, mn:2 * mn]], axis=1)
+                out = np.einsum("rj,bjmc->brmc", e1[kc, gi], tj)
+                xm[:, 0, k0:k0 + kn, m0:m0 + mn] += out[:, :kn]
+                xm[:, 1, k0:k0 + kn, m0:m0 + mn] += out[:, kn:2 * kn]
     corner = np.concatenate(  # (K, m2, Ci, Co): rows k < m1 are corner 0
         [w[c, 0, :, :, :m1, :m2] + 1j * w[c, 1, :, :, :m1, :m2] for c in (0, 1)],
         axis=2,
     ).transpose(2, 3, 0, 1)
-    Y = np.einsum("bkmc,kmco->bkmo", X, corner)
-    Z = np.einsum("hk,bkmo->bhmo", A, Y)
-    got = np.einsum("wm,bhmo->bhwo", B, Z).real
+    Y = np.einsum("bkmc,kmco->bkmo", xm[:, 0] + 1j * xm[:, 1], corner)
+    ym = np.stack([Y.real, Y.imag], 1).reshape(B, 2 * K, m2 * C)
+    z = np.zeros((B, H, 2, m2 * C))
+    for ht in range(a1.shape[0]):
+        hs = np.arange(ht * fk.INV_ROWS, min(H, (ht + 1) * fk.INV_ROWS))
+        zt = np.einsum("rk,bkn->brn", a1[ht, :, :2 * K], ym)
+        z[:, hs, 0], z[:, hs, 1] = zt[:, :len(hs)], zt[:, 8:8 + len(hs)]
+    got = np.einsum("wk,bhko->bhwo", bw[:W, :2 * m2], z.reshape(B, H, 2 * m2, C))
     want = spectral_conv2d_fft(t(x), t(w), modes, modes).numpy()
     np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+def test_block_tables_are_the_matrices_split_in_fragment_order():
+    """Each table, its high and low halves added, is its float32 matrix
+    element for element, read the way csrc/tf32.cuh lays fragments out;
+    the high halves are TF32 (low 13 bits zero)."""
+    g, tt = np.arange(32) // 4, np.arange(32) % 4
+    mats = fk._block_matrices(18, 17, 6, 4)
+    for f, mat, kind in zip(fk._block_tables(18, 17, 6, 4), mats, "ABAA"):
+        mat = mat.astype(np.float32)
+        hi, lo = np.split(f, 2, axis=-1)
+        assert not (hi.view(np.uint32) & 0x1FFF).any()
+        frag = hi + lo
+        back = np.zeros_like(mat)
+        if kind == "A":  # (..., Mt, Kt, 32, 4): a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+            for mt in range(frag.shape[-4]):
+                for kt in range(frag.shape[-3]):
+                    r, c = mt * 16 + g, kt * 8 + tt
+                    for i, (dr, dc) in enumerate(((0, 0), (8, 0), (0, 4), (8, 4))):
+                        back[..., r + dr, c + dc] = frag[..., mt, kt, :, i]
+        else:  # (..., Kt, Nt, 32, 2): b0 (t, g), b1 (t+4, g)
+            for kt in range(frag.shape[-4]):
+                for nt in range(frag.shape[-3]):
+                    back[..., kt * 8 + tt, nt * 8 + g] = frag[..., kt, nt, :, 0]
+                    back[..., kt * 8 + tt + 4, nt * 8 + g] = frag[..., kt, nt, :, 1]
+        np.testing.assert_array_equal(back, mat)
+
+
+def kernel_case(rng, B, H, W, C, modes, n_out, device):
+    """Block and head inputs at one shape, and the plain versions' outputs."""
+    x, w, k0, b0 = block_inputs(rng, B, H, W, C, modes)
+    x, w, w0, b0 = (t(a).to(device) for a in (x, w, k0.T, b0))
+    w1 = t(rng.standard_normal((128, C)) / np.sqrt(C)).to(device)
+    w2 = t(rng.standard_normal((n_out, 128)) / np.sqrt(128)).to(device)
+    b1, b2 = t(np.full(128, 0.1)).to(device), t(np.full(n_out, 0.1)).to(device)
+    mask = torch.ones((B, H, W, 1), device=device)
+    mask[:, : H // 2] = 0
+    block = (x, w, w0, b0, modes, modes)
+    head = (x, w1, b1, w2, b2, mask)
+    return block, head
+
+
+@pytest.mark.parametrize(
+    "B,H,W,C,modes,n_out",
+    [
+        (2, 16, 16, 8, 4, 2),
+        (3, 18, 17, 10, 4, 3),   # ragged channel, mode and row tiles; a run-time output count
+        (3, 16, 16, 8, 12, 2),   # clamped modes with the Nyquist column
+        (1, 66, 65, 32, 12, 2),  # flagship widths, tube/dam grid
+        (40, 8, 8, 8, 4, 2),     # two image tiles of the mixing pass
+    ],
+)
+def test_kernels_match_plain_in_emulation(rng, B, H, W, C, modes, n_out):
+    try:
+        lib = _build.load_emulation()
+    except RuntimeError as e:  # no host C++ compiler
+        pytest.skip(str(e))
+    block, head = kernel_case(rng, B, H, W, C, modes, n_out, "cpu")
+    got = fk._block_call(lib, *block, stream=0)
+    assert torch.isfinite(got).all()
+    assert (got - fk.fno_block_reference(*block)).abs().max().item() <= 1e-4
+    got = fk._head_call(lib, *head, stream=0)
+    assert (got - fk.fno_head_reference(*head)).abs().max().item() <= 1e-5
 
 
 @pytest.fixture()
@@ -91,22 +176,15 @@ def test_kernels_match_plain_on_card(cuda_device, rng, B, H, W, C, modes):
     from cfdbench_tpu_torch.utils.device import set_f32_numerics
 
     set_f32_numerics()
-    x, w, k0, b0 = block_inputs(rng, B, H, W, C, modes)
-    x, w, w0, b0 = (t(a).to(cuda_device) for a in (x, w, k0.T, b0))
+    n_out = 2 if C == 32 else 3  # the FNO's 2 outputs, and a run-time count
+    block, head = kernel_case(rng, B, H, W, C, modes, n_out, cuda_device)
     before = fk.launch_counts()
-    got = fk.fno_block(x, w, w0, b0, modes, modes)
-    want = fk.fno_block_reference(x, w, w0, b0, modes, modes)
+    got = fk.fno_block(*block)
+    want = fk.fno_block_reference(*block)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-4
-
-    n_out = 2 if C == 32 else 3  # the FNO's 2 outputs, and a run-time count
-    w1 = t(rng.standard_normal((128, C)) / np.sqrt(C)).to(cuda_device)
-    w2 = t(rng.standard_normal((n_out, 128)) / np.sqrt(128)).to(cuda_device)
-    b1, b2 = t(np.full(128, 0.1)).to(cuda_device), t(np.full(n_out, 0.1)).to(cuda_device)
-    mask = torch.ones((B, H, W, 1), device=cuda_device)
-    mask[:, : H // 2] = 0
-    got = fk.fno_head(x, w1, b1, w2, b2, mask)
-    want = fk.fno_head_reference(x, w1, b1, w2, b2, mask)
+    got = fk.fno_head(*head)
+    want = fk.fno_head_reference(*head)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-5
     after = fk.launch_counts()

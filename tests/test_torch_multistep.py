@@ -131,7 +131,7 @@ def test_main_multistep_matches_jax_end_to_end(synth_root, tmp_path):
     jax_main_multistep(argv)
     want = json.loads(out.read_text())
     out.unlink()
-    main_multistep(argv)
+    main_multistep(argv, device="cpu")
     got = json.loads(out.read_text())
     assert len(got) == 20 and all(math.isfinite(v) for m in got for v in m.values())
     assert_metrics_close(got, want)
@@ -183,6 +183,19 @@ def test_cli_refuses_unported_flags(tmp_path, flags, error):
                           "--data_dir", str(tmp_path)] + flags
     with pytest.raises(NotImplementedError, match=error):
         main_multistep(argv)
+
+
+def test_main_multistep_needs_a_card_unless_told_cpu(synth_root, tmp_path, monkeypatch):
+    # No silent fallback: with no device given, no card means an error,
+    # before any data is read or anything is written.
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    run_dir, params, argv = write_jax_run(tmp_path, synth_root)
+    ckpt.save_params(params_from_flax(jax.device_get(params)), run_dir / "ckpt-0")
+    with pytest.raises(RuntimeError, match="CUDA device is required"):
+        main_multistep(argv)
+    assert not (run_dir / "multistep_metrics.json").exists()
+    main_multistep(argv, device="cpu")
+    assert len(json.loads((run_dir / "multistep_metrics.json").read_text())) == 20
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
