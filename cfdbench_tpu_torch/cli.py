@@ -21,7 +21,8 @@ from .config import Args
 from .data import load_test_cases
 from .data.core import dump_json
 from .models import check_model_ported, init_auto_model
-from .ops.fno_kernels import launch_counts
+from .models.fno import HEAD_WIDTH
+from .ops.fno_kernels import check_kernel_shapes, launch_counts
 from .training.checkpoints import load_best_params
 from .training.rollout import make_rollout_fn, multistep_metrics
 from .training.trainer_auto import AutoTask
@@ -88,7 +89,8 @@ def main_multistep(argv=None, device=None) -> None:
     checkpoint's ``model.pt``, then masked-u mse/nmse/mae per step,
     averaged over cases, into ``multistep_metrics.json``. Runs on the
     CUDA card unless ``device`` names another; with ``device`` None and
-    no card it raises."""
+    no card it raises. On the card, widths or modes that the kernels
+    cannot take on the data's grid raise before the model is built."""
     args = parse_args(argv)
     check_supported(args)
     device = require_cuda() if device is None else torch.device(device)
@@ -97,6 +99,9 @@ def main_multistep(argv=None, device=None) -> None:
     print(f"[multistep] device: {device}")
 
     features, case_params = load_test_cases(args, INFER_STEPS)
+    if device.type == "cuda":
+        check_kernel_shapes(*features.shape[2:4], args.fno_hidden_dim, args.fno_modes_x,
+                            args.fno_modes_y, HEAD_WIDTH, args.out_chan)
     frame0 = features[:, 0, :, :, :2]
     mask = features[:, 0, :, :, 2:3]
 

@@ -7,8 +7,10 @@
 //
 // What bounds it on this card: at the flagship shape (B=128, 64x64,
 // C=32, 128 hidden, 2 outputs) it reads x (67 MB) and the mask (2 MB) and
-// writes 4 MB, 22 us at 3.35 TB/s, and does 2.3 G multiply-adds plus 67 M
-// erff: 68 us of float32 FMA at 67 TFLOP/s. The first version, one
+// writes 4 MB, 22 us at 3.35 TB/s. fc1's 2.15 G multiply-adds in split
+// TF32, three TF32 products each at the card's 495 TFLOP/s, take 26 us,
+// and fc2's 0.13 G on the CUDA cores 4 us at 67 TFLOP/s: the bound is the
+// operations, 30 us, before the 67 M erff of GELU. The first version, one
 // thread per pixel with 32-deep serial FMA chains, took 0.32 ms.
 //
 // Design: fc1 is a GEMM with M = B*H*W, K = C, N = hidden, run on the
@@ -17,15 +19,18 @@
 // contiguous), staged by cp.async one tile ahead of the products; each
 // warp owns 16 pixels and computes their hidden units 64 at a time in
 // registers. w1 is split once per block into fragment order in shared
-// memory. erf-GELU, fc2 (float32 FMA against w2 in shared memory) and a
-// shuffle reduction over the four lanes that share a pixel run on those
-// registers, so the (B, H, W, 128) intermediate never leaves the SM. The
+// memory; where w1 and two tiles of x do not fit (C above 104 at 128
+// hidden units), x is single-buffered, up to C = 144. erf-GELU, fc2
+// (float32 FMA against w2 in shared memory) and a shuffle reduction over
+// the four lanes that share a pixel run on those registers, so the
+// (B, H, W, 128) intermediate never leaves the SM. The
 // mask multiplies at the end. The FNO's 2 outputs are a compile-time
 // count; any other count up to 8 is checked at run time.
 // Measured at the flagship shape on an H100 80GB HBM3 at 700 W
-// (scripts/bench_torch_kernels.py): 0.169 ms per call. The erf-GELU and
+// (scripts/bench_torch_kernels.py): 0.168 ms per call. The erf-GELU and
 // fc2 epilogue issues most of the instructions (67 M erff per call); a
-// branch-free erf fit and all 128 hidden units in one pass were slower.
+// branch-free erf fit (0.191 ms) and all 128 hidden units in one pass
+// (0.181 ms) were slower.
 
 #include "tf32.cuh"
 
@@ -44,7 +49,7 @@ __global__ void __launch_bounds__(kHeadThreads) fno_head_kernel(
     const float* __restrict__ x, const float* __restrict__ w1,
     const float* __restrict__ b1, const float* __restrict__ w2,
     const float* __restrict__ b2, const float* __restrict__ mask,
-    float* __restrict__ out, long long n, int C, int hidden, int n_out) {
+    float* __restrict__ out, long long n, int C, int hidden, int n_out, int slots) {
   constexpr int OUTS = NOUT ? NOUT : kMaxOut;
   FNO_DYNAMIC_SMEM(float4, smem4);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
@@ -54,7 +59,7 @@ __global__ void __launch_bounds__(kHeadThreads) fno_head_kernel(
   float* b1s = reinterpret_cast<float*>(w1s + kc * nth * 32);      // hp
   float* w2s = b1s + hp;                                           // n_out * hp
   float* b2s = w2s + n_out * hp;                                   // kMaxOut
-  float* xs = b2s + kMaxOut;                                       // 2 x [pixel][sx]
+  float* xs = b2s + kMaxOut;                                       // slots x [pixel][sx]
 
   // w1^T as split B fragments: element (c, j) = w1[j, c].
   for (int i = tid; i < kc * nth * 32; i += kHeadThreads) {
@@ -111,14 +116,14 @@ __global__ void __launch_bounds__(kHeadThreads) fno_head_kernel(
   if (tile < n_tiles) stage(tile, xs);
   for (int it = 0; tile < n_tiles; ++it, tile += gridDim.x) {
     const long long next = tile + gridDim.x;
-    if (next < n_tiles) {
+    if (slots == 2 && next < n_tiles) {
       stage(next, xs + ((it + 1) & 1) * kTile * sx);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();  // tile staged (and, the first time, the weights)
-    const float* xa = xs + (it & 1) * kTile * sx + warp * 16 * sx;
+    const float* xa = xs + (slots == 2 ? it & 1 : 0) * kTile * sx + warp * 16 * sx;
     // s[o][r]: this lane's part of output o for pixel row g + 8 r.
     float s[OUTS][2];
 #pragma unroll
@@ -176,7 +181,15 @@ __global__ void __launch_bounds__(kHeadThreads) fno_head_kernel(
       }
     }
     __syncthreads();  // every read of this x buffer done before it is refilled
+    if (slots == 1 && next < n_tiles) stage(next, xs);
   }
+}
+
+// Shared memory of the head kernel with `slots` tiles of x.
+size_t head_smem(int C, int hidden, int n_out, int slots) {
+  const size_t kc = ceil_div(C, 8), nth = ceil_div(hidden, 8), hp = nth * 8;
+  return 16 * kc * nth * 32 +
+         sizeof(float) * (hp + n_out * hp + kMaxOut + slots * kTile * (kc * 8 + 4));
 }
 
 template <int NOUT>
@@ -184,9 +197,9 @@ int launch_head(const float* x, const float* w1, const float* b1,
                 const float* w2, const float* b2, const float* mask,
                 float* out, long long n, int C, int hidden, int n_out,
                 cudaStream_t stream) {
-  const size_t kc = ceil_div(C, 8), nth = ceil_div(hidden, 8), hp = nth * 8;
-  const size_t smem = 16 * kc * nth * 32 +
-      sizeof(float) * (hp + n_out * hp + kMaxOut + 2 * kTile * (kc * 8 + 4));
+  // x double-buffered where two tiles fit, else one tile staged after the last.
+  const int slots = head_smem(C, hidden, n_out, 2) <= kMaxDynamicSmem ? 2 : 1;
+  const size_t smem = head_smem(C, hidden, n_out, slots);
   const void* kernel = (const void*)fno_head_kernel<NOUT>;
   cudaError_t err = allow_dynamic_smem(kernel, smem);
   if (err) return err;
@@ -195,7 +208,7 @@ int launch_head(const float* x, const float* w1, const float* b1,
                                &blocks)))
     return err;
   FNO_LAUNCH(fno_head_kernel<NOUT>, (unsigned)blocks, kHeadThreads, smem, stream)(
-      x, w1, b1, w2, b2, mask, out, n, C, hidden, n_out);
+      x, w1, b1, w2, b2, mask, out, n, C, hidden, n_out, slots);
   return cudaGetLastError();
 }
 
@@ -203,18 +216,32 @@ int launch_head(const float* x, const float* w1, const float* b1,
 
 extern "C" {
 
+// Null when fno_head_forward takes these widths, else why it does not.
+const char* fno_head_unsupported(int C, int hidden, int n_out) {
+  static thread_local char why[256];
+  if (C < 1 || hidden < 1 || n_out < 1 || n_out > kMaxOut) {
+    snprintf(why, sizeof why, "it takes 1 to %d outputs and positive widths, got C=%d, "
+             "hidden=%d, outputs=%d", kMaxOut, C, hidden, n_out);
+    return why;
+  }
+  const size_t smem = head_smem(C, hidden, n_out, 1);
+  if (smem <= kMaxDynamicSmem) return nullptr;
+  snprintf(why, sizeof why, "fc1's split weights (%d x %d) and a tile of %d pixels of x need "
+           "%zu bytes of shared memory a block, above the card's %zu",
+           hidden, C, kTile, smem, kMaxDynamicSmem);
+  return why;
+}
+
 // x: (n, C) pixels; w1: (hidden, C); b1: (hidden,); w2: (n_out, hidden);
 // b2: (n_out,); mask: (n,); out: (n, n_out). All float32, contiguous, on
-// the current device; 1 <= n_out <= 8, and C and hidden small enough for
-// the block's shared memory (C <= 64 at 128 hidden units). Launches on
-// `stream`, does not sync.
+// the current device; widths that fno_head_unsupported accepts (C up to
+// 144 at 128 hidden units). Launches on `stream`, does not sync.
 int fno_head_forward(const float* x, const float* w1, const float* b1,
                      const float* w2, const float* b2, const float* mask,
                      float* out, long long n, int C, int hidden, int n_out,
                      void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n < 1 || C < 1 || hidden < 1 || n_out < 1 || n_out > kMaxOut)
-    return cudaErrorInvalidValue;
+  if (n < 1 || fno_head_unsupported(C, hidden, n_out)) return cudaErrorInvalidValue;
   if (n_out == 2)
     return launch_head<2>(x, w1, b1, w2, b2, mask, out, n, C, hidden, n_out, stream);
   return launch_head<0>(x, w1, b1, w2, b2, mask, out, n, C, hidden, n_out, stream);

@@ -17,6 +17,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <cstdio>
 
 // Dynamic shared memory one block may use on sm_90 (227 KB).
 constexpr size_t kMaxDynamicSmem = 232448;

@@ -4,14 +4,15 @@
 // nearest with ties away from zero, the low 13 bits zero) and a_lo = a -
 // a_hi, exact in float32. The tensor cores read the top 19 bits of a TF32
 // operand, so a_lo enters truncated, off by at most 2^-10 |a_lo| <= 2^-21
-// |a| (rounding it too costs two instructions per value and a fifth of the
-// forward DFT pass's time on an H100, for no change in the block's error:
-// scripts/bench_torch_kernels.py, variant rounded_lo).
+// |a| (rounding it too cost two instructions per value and a fifth of the
+// forward DFT pass's time on an H100 80GB HBM3, for no change in the
+// block's error).
 // a*b is then a_hi*b_hi + a_hi*b_lo + a_lo*b_hi accumulated in float32;
 // the dropped a_lo*b_lo is about 2^-22 |a*b|. Three mma.sync.m16n8k8 TF32
 // products thus hold float32 accuracy at a third of the tensor cores' TF32
-// rate (about 320 TFLOP/s for mma.sync on an H100 80GB HBM3 at 700 W,
-// scripts/bench_torch_kernels.py), above the 67 TFLOP/s of float32 FMA.
+// rate (495 TFLOP/s dense on an H100 SXM's data sheet; about 320 TFLOP/s
+// for mma.sync on an H100 80GB HBM3 at 700 W, scripts/bench_torch_kernels.py),
+// above the 67 TFLOP/s of float32 FMA.
 //
 // Fragment layout of mma.m16n8k8 with .tf32 operands (lane = 4 g + t):
 //   A (16 x 8, row): a0 (g, t)  a1 (g + 8, t)  a2 (g, t + 4)  a3 (g + 8, t + 4)

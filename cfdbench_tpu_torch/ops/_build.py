@@ -120,6 +120,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fno_head_forward.restype = i32
     lib.fno_error_string.argtypes = [i32]
     lib.fno_error_string.restype = ctypes.c_char_p
+    lib.fno_block_tiles.argtypes = [ctypes.POINTER(i32)]
+    lib.fno_block_tiles.restype = None
+    lib.fno_block_unsupported.argtypes = [i32] * 3
+    lib.fno_block_unsupported.restype = ctypes.c_char_p
+    lib.fno_head_unsupported.argtypes = [i32] * 3
+    lib.fno_head_unsupported.restype = ctypes.c_char_p
     return lib
 
 

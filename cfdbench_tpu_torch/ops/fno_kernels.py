@@ -21,10 +21,16 @@ fragment order here, once per grid and mode count (:func:`_block_tables`).
 ``_block_call`` and ``_head_call`` take the library to launch, so the
 tests can run them through the kernels' CPU emulation
 (``ops/_build.py::load_emulation``).
+
+The kernels' shared memory bounds the shapes they take; the library
+says which it refuses and why (``fno_block_unsupported``,
+``fno_head_unsupported``), and :func:`check_kernel_shapes` raises on
+those before anything launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -34,10 +40,8 @@ import torch.nn.functional as F
 from ._build import check_launch, load_library
 from .spectral import _dft_factors, clamp_modes, spectral_conv2d_fft
 
-# Largest widths the head kernel takes (its shared memory, csrc/fno_head.cu).
-HEAD_MAX_IN = 64
-HEAD_MAX_OUT = 8
-# Tiles of csrc/fno_block.cu that the host tables follow.
+# Tiles of csrc/fno_block.cu that the host tables follow; the library's
+# fno_block_tiles must give the same before a block launches (_check_tiles).
 FWD_ROWS = 8    # kFwdRows: rows of x per group of the forward pass
 FWD_MODES = 12  # kFwdModes: modes per forward block
 FWD_K = 24      # kFwdK: spectrum rows per forward block
@@ -142,6 +146,37 @@ def _block_tables(H: int, W: int, m1: int, m2: int):
         _a_fragments(e1), _b_fragments(e2), _a_fragments(a1), _a_fragments(bw)))
 
 
+@functools.lru_cache(maxsize=None)
+def _check_tiles(lib) -> None:
+    """Raise unless the library's kernel was built for the tiles that
+    :func:`_block_matrices` lays the tables out for."""
+    got = (ctypes.c_int * 6)()
+    lib.fno_block_tiles(got)
+    want = (FWD_ROWS, FWD_MODES, FWD_K, FWD_MT, FWD_NW, INV_ROWS)
+    if tuple(got) != want:
+        raise RuntimeError(f"csrc/fno_block.cu has tiles {tuple(got)} (kFwdRows, kFwdModes, "
+                           f"kFwdK, kFwdMT, kFwdNW, kInvRows); ops/fno_kernels.py lays its "
+                           f"tables out for {want}")
+
+
+def _refuse(why, what: str) -> None:
+    if why:
+        raise ValueError(f"{what}: {why.decode()}; larger shapes are ROADMAP.md B3")
+
+
+def check_kernel_shapes(H: int, W: int, width: int, modes1: int, modes2: int,
+                        hidden: int, n_out: int, lib=None) -> None:
+    """Raise ValueError, naming the limit, if the kernels (``lib``, the
+    card's by default) cannot take an FNO of this width, these modes and
+    this head on an H x W grid."""
+    lib = load_library() if lib is None else lib
+    _, m2 = clamp_modes(H, W, modes1, modes2)
+    _refuse(lib.fno_block_unsupported(W, width, m2),
+            f"fno_block at W={W}, width {width}, {m2} modes along W")
+    _refuse(lib.fno_head_unsupported(width, hidden, n_out),
+            f"fno_head at width {width}, {hidden} hidden units, {n_out} outputs")
+
+
 def fno_block_reference(x, weights, w0, b0, modes1: int, modes2: int):
     """Plain FnoBlock: ``GELU(spectral_conv(x) + x @ w0ᵀ + b0)``."""
     return F.gelu(
@@ -183,6 +218,8 @@ def _block_call(lib, x, weights, w0, b0, modes1, modes2, stream: int):
     B, H, W, Ci = x.shape
     Co = weights.shape[3]
     m1, m2 = clamp_modes(H, W, modes1, modes2)
+    _check_tiles(lib)
+    _refuse(lib.fno_block_unsupported(W, Ci, m2), f"fno_block at x {tuple(x.shape)}")
     tables = _table_tensors(H, W, m1, m2, x.device)
     xm = torch.empty((B, 2, 2 * m1, m2, Ci), device=x.device)
     ym = torch.empty((B, 2, 2 * m1, m2, Co), device=x.device)
@@ -202,6 +239,8 @@ def _head_call(lib, x, w1, b1, w2, b2, mask, stream: int):
     """Allocate the head kernel's output and launch it through ``lib``."""
     B, H, W, C = x.shape
     n_out = w2.shape[0]
+    _refuse(lib.fno_head_unsupported(C, w1.shape[0], n_out),
+            f"fno_head at x {tuple(x.shape)}, w1 {tuple(w1.shape)}")
     out = torch.empty((B, H, W, n_out), device=x.device)
     err = lib.fno_head_forward(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
@@ -214,9 +253,9 @@ def _head_call(lib, x, w1, b1, w2, b2, mask, stream: int):
 
 def fno_block(x, weights, w0, b0, modes1: int, modes2: int):
     """x (B, H, W, Cin); weights (2, 2, Cin, Cout, modes1, modes2);
-    w0 (Cout, Cin); b0 (Cout,) → (B, H, W, Cout). On the card the
-    kernel's shared memory takes W up to 80 and widths up to 96 at 12x12
-    modes; a larger shape raises the CUDA configuration error."""
+    w0 (Cout, Cin); b0 (Cout,) → (B, H, W, Cout). On the card a shape
+    whose rows do not fit the kernel's shared memory raises ValueError
+    (:func:`check_kernel_shapes`)."""
     if x.device.type == "cpu":
         return fno_block_reference(x, weights, w0, b0, modes1, modes2)
     _check_cuda_f32(x.device, x=x, weights=weights, w0=w0, b0=b0)
@@ -258,9 +297,6 @@ def fno_head(x, w1, b1, w2, b2, mask):
     )
     _check(tuple(mask.shape) == (B, H, W, 1),
            f"mask {tuple(mask.shape)} is not ({B}, {H}, {W}, 1)")
-    _check(C <= HEAD_MAX_IN and n_out <= HEAD_MAX_OUT,
-           f"fno_head kernel takes C <= {HEAD_MAX_IN} and out <= "
-           f"{HEAD_MAX_OUT}, got C={C}, out={n_out}")
     with torch.cuda.device(x.device):
         out = _head_call(load_library(), x, w1, b1, w2, b2, mask, _stream(x.device))
     fno_head.launches += 1

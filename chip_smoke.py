@@ -10,8 +10,11 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    ``cfdbench_tpu_torch/csrc`` (build time and ptxas report).
 2. Holds each kernel to its plain PyTorch version on the card, in float32
    with TF32 off, at the flagship widths (B=8, 64x64, 32 channels, 12
-   modes), at 66x65 (odd W), and at the ragged 18x17 with 10 channels
-   (4 modes, 3 head outputs) and 16x16 with 8 channels (modes clamped).
+   modes), at 66x65 (odd W), at the ragged 18x17 with 10 channels
+   (4 modes, 3 head outputs) and 16x16 with 8 channels (modes clamped),
+   and at the kernels' wider tilings: 64x136 (the forward pass in three
+   column chunks) and 66x80 with 128 channels (channel tiles, one row per
+   item of the inverse-columns pass, the head's x single-buffered).
 3. Drives the main path through its entry point: a synthetic 64x64
    cavity tree, a seeded flagship FNO (depth 4, width 32, 12 modes)
    saved as ``ckpt-0/model.pt``, then
@@ -24,8 +27,11 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    paths and each kernel against its plain version at batch 128, and
    prints each kernel's bound: the least time the card could take for
    the same work, the larger of its bytes (each input read once, each
-   output written once) over 3.35 TB/s and its float32 multiply-adds over
-   67 TFLOP/s (an H100 SXM's published rates). No single PyTorch call
+   output written once) over 3.35 TB/s and its operations at the rate of
+   the unit that does them: the products the kernels run in split TF32
+   as three TF32 products each at 495 TFLOP/s, the rest (the block's
+   mode mixing, the head's fc2) as float32 multiply-adds at 67 TFLOP/s
+   (an H100 SXM's published dense rates). No single PyTorch call
    computes either kernel's function, so neither has a library time.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -59,12 +65,15 @@ ROLLOUT_RTOL = 1e-4
 TIMING_BATCH = 128
 # (B, H, W, channels, modes, head outputs) of phase 2.
 CHECK_SHAPES = ((8, GRID, GRID, WIDTH, MODES, 2), (8, GRID + 2, GRID + 1, WIDTH, MODES, 2),
-                (3, 18, 17, 10, 4, 3), (17, 16, 16, 8, MODES, 2))
-# An H100 SXM's published peaks (NVIDIA's data sheet, dense rates): device memory
-# bytes/s and float32 FLOP/s outside the tensor cores. The kernels compute
-# in float32 (split TF32 on the tensor cores holds float32 accuracy).
+                (3, 18, 17, 10, 4, 3), (17, 16, 16, 8, MODES, 2),
+                (4, GRID, 136, WIDTH, MODES, 2), (4, GRID + 2, 80, 128, MODES, 2))
+# An H100 SXM's published peaks (NVIDIA's data sheet, dense rates): device
+# memory bytes/s, TF32 FLOP/s on the tensor cores and float32 FLOP/s outside
+# them. A split-TF32 product (csrc/tf32.cuh) is three TF32 products.
 HBM_BYTES_PER_S = 3.35e12
+TF32_FLOP_PER_S = 495e12
 F32_FLOP_PER_S = 67e12
+SPLIT_TF32_PRODUCTS = 3
 
 
 def sh(*cmd) -> str:
@@ -137,34 +146,37 @@ def kernel_inputs(B, H, W, C, gen, device, modes=MODES, n_out=2):
 
 
 def block_work(B, H, W, Ci, Co, modes):
-    """(bytes, float32 multiply-adds) of one FnoBlock call: x, the weights
-    and the output once each; the truncated DFTs both ways, the per-mode
-    mixing and the 1x1 bypass, at the clamped mode counts."""
+    """(bytes, multiply-adds on the tensor cores, on the CUDA cores) of one
+    FnoBlock call: x, the weights and the output once each; the truncated
+    DFTs both ways and the 1x1 bypass (split TF32), the per-mode mixing
+    (float32 FMA), at the clamped mode counts."""
     from cfdbench_tpu_torch.ops.spectral import clamp_modes
 
     m1, m2 = clamp_modes(H, W, modes, modes)
     K = 2 * m1
     nbytes = 4 * (B * H * W * Ci + 4 * Ci * Co * modes * modes + Co * Ci + Co + B * H * W * Co)
-    fma = (B * H * Ci * 2 * m2 * W + B * m2 * Ci * 2 * K * 2 * H  # forward: rows, then columns
-           + B * K * m2 * 2 * Ci * 2 * Co                         # per-mode complex mixing
-           + B * m2 * Co * 2 * H * 2 * K + B * H * W * Co * 2 * m2  # inverse: columns, then rows
-           + B * H * W * Ci * Co)                                 # 1x1 bypass
-    return nbytes, fma
+    tensor = (B * H * Ci * 2 * m2 * W + B * m2 * Ci * 2 * K * 2 * H    # forward: rows, columns
+              + B * m2 * Co * 2 * H * 2 * K + B * H * W * Co * 2 * m2  # inverse: columns, rows
+              + B * H * W * Ci * Co)                                   # 1x1 bypass
+    return nbytes, tensor, B * K * m2 * 2 * Ci * 2 * Co  # per-mode complex mixing
 
 
 def head_work(B, H, W, C, hidden, n_out):
-    """(bytes, float32 multiply-adds) of one head call: x, the mask, the
-    weights and the output once each; fc1 and fc2 (the erf of GELU is not
-    counted)."""
+    """(bytes, multiply-adds on the tensor cores, on the CUDA cores) of one
+    head call: x, the mask, the weights and the output once each; fc1
+    (split TF32) and fc2 (float32 FMA). The erf of GELU is not counted."""
     n = B * H * W
     nbytes = 4 * (n * C + n + hidden * C + hidden + n_out * hidden + n_out + n * n_out)
-    return nbytes, n * (C * hidden + hidden * n_out)
+    return nbytes, n * C * hidden, n * hidden * n_out
 
 
-def bound(nbytes: int, fma: int):
+def bound(nbytes: int, tensor_fma: int, core_fma: int):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the FLOPs over the float32 rate."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * fma / F32_FLOP_PER_S * 1e3
+    and the operations at their units' rates, split-TF32 products as three
+    TF32 products on the tensor cores plus float32 FMA on the CUDA cores."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = (SPLIT_TF32_PRODUCTS * 2 * tensor_fma / TF32_FLOP_PER_S
+              + 2 * core_fma / F32_FLOP_PER_S) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -330,10 +342,12 @@ def timing(device, card):
             p, k = interleaved_ms(lambda: ref(*args), lambda: kern(*args), reps=20)
             bound_ms, bound_by = bound(*work[name])
             times[name] = dict(ms=k, plain_ms=p, bound_ms=bound_ms, bound_by=bound_by)
+            nbytes, tensor_fma, core_fma = work[name]
             print(f"[time] [{card}] {name} B={B} {H}x{W} C={WIDTH}: kernel {k:.4f} ms, "
                   f"plain {p:.4f} ms ({p / k:.2f}x); bound {bound_ms:.4f} ms by {bound_by} "
-                  f"({work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.3f} G multiply-adds), "
-                  f"kernel at {bound_ms / k:.1%} of it; library call: none")
+                  f"({nbytes / 1e6:.1f} MB; {tensor_fma / 1e9:.3f} G multiply-adds in split "
+                  f"TF32, {core_fma / 1e9:.3f} G in float32 FMA), kernel at "
+                  f"{bound_ms / k:.1%} of it; library call: none")
     return times
 
 

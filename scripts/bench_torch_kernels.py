@@ -1,40 +1,24 @@
 #!/usr/bin/env python3
-"""Time the port's CUDA kernels on a card, as shipped and in variants.
+"""Time the port's CUDA kernels on a card, pass by pass.
 
-Builds ``cfdbench_tpu_torch/csrc`` as it is and in variants made by
-patching its sources, and times each kernel of the FnoBlock (its passes)
-and the head at the flagship shape (B=128, 64x64, 32 channels, 12 modes,
-128 hidden units, 2 outputs) with ``torch.profiler`` over 20 calls, on
-inputs drawn from N(0, 1). Each line gives the variant, its max abs error
-against the plain PyTorch versions and the device time of every kernel
-per call. Variants:
-
-- ``shipped``: the sources as they are;
-- ``erf_fit``: GELU with a branch-free erf (a least-squares polynomial on
-  each side of |x| = 0.921875, within 1.4e-7 of erf) in place of CUDA's
-  ``erff``, which branches there;
-- ``rounded_lo``: the low half of the TF32 split rounded to TF32 as well
-  (``csrc/tf32.cuh::split_tf32``);
-- ``head_one_pass``: the head's 128 hidden units in one accumulator pass
-  (at most 2 blocks per SM) instead of two passes of 64.
-
-Then it measures the card's ``mma.sync.m16n8k8`` TF32 rate with a kernel
-that issues nothing else.
+Builds ``cfdbench_tpu_torch/csrc`` and times each kernel of the FnoBlock
+(its four passes) and the head at the flagship shape (B=128, 64x64, 32
+channels, 12 modes, 128 hidden units, 2 outputs) with ``torch.profiler``
+over 20 calls, on inputs drawn from N(0, 1), after checking both against
+their plain PyTorch versions. Then it measures the card's
+``mma.sync.m16n8k8`` TF32 rate with a kernel that issues nothing else.
 
     python3 scripts/bench_torch_kernels.py
 
-Needs a CUDA card and ``nvcc``; writes its builds under
+Needs a CUDA card and ``nvcc``; writes the rate probe under
 ``build/bench_torch_kernels/``.
 """
 
 from __future__ import annotations
 
-import ctypes
 import re
-import shutil
 import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -49,40 +33,6 @@ from cfdbench_tpu_torch.utils.device import require_cuda, set_f32_numerics  # no
 
 OUT = REPO_ROOT / "build" / "bench_torch_kernels"
 B, H, W, C, MODES, HIDDEN, N_OUT = 128, 64, 64, 32, 12, 128, 2
-ERF_FIT = """__device__ __forceinline__ float erf_fit(float x) {
-  const float t = fabsf(x), s = x * x;
-  float p = -6.008737254887819e-4f;
-  p = fmaf(p, s, 4.997011739760637e-3f);
-  p = fmaf(p, s, -2.6769496500492096e-2f);
-  p = fmaf(p, s, 0.11281904578208923f);
-  p = fmaf(p, s, -0.3761250376701355f);
-  p = fmaf(p, s, 1.1283791065216064f);
-  const float u = fminf(t, 4.f);
-  float q = -1.9928267647628672e-5f;
-  q = fmaf(q, u, 4.713331873062998e-4f);
-  q = fmaf(q, u, -5.057978443801403e-3f);
-  q = fmaf(q, u, 3.304310515522957e-2f);
-  q = fmaf(q, u, -0.15002138912677765f);
-  q = fmaf(q, u, -0.9206931591033936f);
-  q = fmaf(q, u, -1.625340461730957f);
-  q = fmaf(q, u, -7.976570632308722e-4f);
-  return t <= 0.921875f ? x * p : copysignf(1.f - exp2f(q), x);
-}
-
-"""
-GELU = "__device__ __forceinline__ float gelu_erf(float y) {"
-# variant -> [(file in csrc, text, replacement)]
-VARIANTS = {
-    "shipped": [],
-    "erf_fit": [("launch.cuh", GELU, ERF_FIT + "\n" + GELU),
-                ("launch.cuh", "erff(y * 0.70710678118654752f)",
-                 "erf_fit(y * 0.70710678118654752f)")],
-    "rounded_lo": [("tf32.cuh", "  lo = __float_as_uint(x - __uint_as_float(hi));",
-                    "  lo = tf32_bits(x - __uint_as_float(hi));")],
-    "head_one_pass": [("fno_head.cu", "constexpr int kChunk = 8;", "constexpr int kChunk = 16;"),
-                      ("fno_head.cu", "__launch_bounds__(kHeadThreads) fno_head_kernel",
-                       "__launch_bounds__(kHeadThreads, 2) fno_head_kernel")],
-}
 MMA_RATE = r'''
 #include <cstdint>
 #include <cstdio>
@@ -126,25 +76,6 @@ int main() {
 '''
 
 
-def build(name: str):
-    """The variant's library (both kernels), built into its own directory."""
-    d = OUT / name
-    if d.exists():
-        shutil.rmtree(d)
-    shutil.copytree(_build.CSRC, d)
-    for file, text, new in VARIANTS[name]:
-        src = (d / file).read_text()
-        if text not in src:
-            raise RuntimeError(f"variant {name}: {text!r} not found in {file}")
-        (d / file).write_text(src.replace(text, new))
-    lib = d / "lib.so"
-    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), *map(str, sorted(d.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"variant {name}: nvcc failed\n{proc.stderr}")
-    return name, _build._declare(ctypes.CDLL(str(lib)))
-
-
 def kernel_ms(fn) -> dict:
     """Device time per call of every kernel ``fn`` launches, over 20 calls."""
     fn()
@@ -168,8 +99,7 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card)
     OUT.mkdir(parents=True, exist_ok=True)
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
-        libs = dict(pool.map(build, VARIANTS))
+    lib = _build.load_library()
 
     gen = torch.Generator().manual_seed(0)
     x = torch.randn((B, H, W, C), generator=gen).to(device)
@@ -187,15 +117,14 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     print(f"[{card}] B={B} {H}x{W} C={C} modes={MODES}, inputs N(0, 1); ms per call")
     with torch.inference_mode():
-        for name, lib in libs.items():
-            err_block = (fk._block_call(lib, *block, stream) - want_block).abs().max().item()
-            err_head = (fk._head_call(lib, *head, stream) - want_head).abs().max().item()
-            times = kernel_ms(lambda: fk._block_call(lib, *block, stream))
-            times.update(kernel_ms(lambda: fk._head_call(lib, *head, stream)))
-            block_ms = sum(v for k, v in times.items() if not k.startswith("fno_head"))
-            print(f"{name:11s} err block {err_block:.3e} head {err_head:.3e}; block {block_ms:.4f} = "
-                  + " + ".join(f"{k} {v:.4f}" for k, v in times.items() if not k.startswith("fno_head"))
-                  + f"; head {times['fno_head_kernel']:.4f}")
+        err_block = (fk._block_call(lib, *block, stream) - want_block).abs().max().item()
+        err_head = (fk._head_call(lib, *head, stream) - want_head).abs().max().item()
+        times = kernel_ms(lambda: fk._block_call(lib, *block, stream))
+        times.update(kernel_ms(lambda: fk._head_call(lib, *head, stream)))
+    block_ms = sum(v for k, v in times.items() if not k.startswith("fno_head"))
+    print(f"err block {err_block:.3e} head {err_head:.3e}; block {block_ms:.4f} = "
+          + " + ".join(f"{k} {v:.4f}" for k, v in times.items() if not k.startswith("fno_head"))
+          + f"; head {times['fno_head_kernel']:.4f}")
 
     src = OUT / "mma_rate.cu"
     src.write_text(MMA_RATE)

@@ -138,21 +138,63 @@ def kernel_case(rng, B, H, W, C, modes, n_out, device):
         (2, 16, 16, 8, 4, 2),
         (3, 18, 17, 10, 4, 3),   # ragged channel, mode and row tiles; a run-time output count
         (3, 16, 16, 8, 12, 2),   # clamped modes with the Nyquist column
-        (1, 66, 65, 32, 12, 2),  # flagship widths, tube/dam grid
+        (1, 66, 65, 32, 12, 2),  # flagship widths, tube/dam grid: two column chunks
         (40, 8, 8, 8, 4, 2),     # two image tiles of the mixing pass
+        (2, 8, 136, 8, 4, 2),    # three column chunks of the forward pass, E2 streamed
+        # width 128: four channel tiles of the mixing and inverse-columns
+        # passes, one row per item of the latter, the head single-buffered
+        (1, 4, 80, 128, 12, 2),
     ],
 )
 def test_kernels_match_plain_in_emulation(rng, B, H, W, C, modes, n_out):
-    try:
-        lib = _build.load_emulation()
-    except RuntimeError as e:  # no host C++ compiler
-        pytest.skip(str(e))
+    lib = emulation()
     block, head = kernel_case(rng, B, H, W, C, modes, n_out, "cpu")
     got = fk._block_call(lib, *block, stream=0)
     assert torch.isfinite(got).all()
     assert (got - fk.fno_block_reference(*block)).abs().max().item() <= 1e-4
     got = fk._head_call(lib, *head, stream=0)
     assert (got - fk.fno_head_reference(*head)).abs().max().item() <= 1e-5
+
+
+def emulation():
+    try:
+        return _build.load_emulation()
+    except RuntimeError as e:  # no host C++ compiler
+        pytest.skip(str(e))
+
+
+@pytest.mark.parametrize(
+    "H,W,width,modes,hidden,n_out,what",
+    [
+        (64, 512, 32, 12, 128, 2, "fno_block at W=512, width 32,"),  # x rows of pass 4
+        (128, 128, 160, 12, 128, 2, "fno_block at W=128, width 160,"),
+        (256, 256, 32, 32, 128, 2, "fno_block at W=256, width 32, 32 modes"),  # its W-stage table
+        (64, 64, 160, 12, 128, 2, "fno_head at width 160, 128 hidden units"),  # fc1's weights
+        (64, 64, 32, 12, 128, 9, "fno_head at width 32, 128 hidden units, 9 outputs"),
+    ],
+)
+def test_kernel_limits_raise_and_name_themselves(H, W, width, modes, hidden, n_out, what):
+    lib = emulation()
+    with pytest.raises(ValueError, match="ROADMAP.md B3") as e:
+        fk.check_kernel_shapes(H, W, width, modes, modes, hidden, n_out, lib=lib)
+    assert str(e.value).startswith(what)
+
+
+@pytest.mark.parametrize(
+    "H,W,width",
+    # the flagship, the tube/dam grid, up to 144 channels (the head's most) and grids to 256
+    [(64, 64, 32), (66, 65, 144), (64, 64, 128), (128, 128, 128), (256, 256, 64)],
+)
+def test_kernels_take_the_widths_users_run(H, W, width):
+    fk.check_kernel_shapes(H, W, width, 12, 12, 128, 2, lib=emulation())
+
+
+def test_block_wrapper_refuses_a_library_with_other_tiles(monkeypatch):
+    lib = emulation()
+    fk._check_tiles.__wrapped__(lib)
+    monkeypatch.setattr(fk, "FWD_K", 16)
+    with pytest.raises(RuntimeError, match="tables out for"):
+        fk._check_tiles.__wrapped__(lib)
 
 
 @pytest.fixture()
@@ -170,6 +212,8 @@ def cuda_device():
         (4, 66, 65, 32, 12),  # tube/dam grid, odd W
         (3, 18, 17, 10, 4),   # ragged channel, mode and row tiles
         (17, 16, 16, 8, 12),  # clamped modes with the Nyquist column, B > 16
+        (4, 64, 136, 32, 12),  # three column chunks of the forward pass
+        (4, 66, 80, 128, 12),  # width 128: channel tiles, one row per item, head single-buffered
     ],
 )
 def test_kernels_match_plain_on_card(cuda_device, rng, B, H, W, C, modes):

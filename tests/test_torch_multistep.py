@@ -198,6 +198,38 @@ def test_main_multistep_needs_a_card_unless_told_cpu(synth_root, tmp_path, monke
     assert len(json.loads((run_dir / "multistep_metrics.json").read_text())) == 20
 
 
+@pytest.mark.parametrize("flags,error", [
+    (["--fno_hidden_dim", "160"], "fno_head at width 160"),
+    (["--fno_modes_y", "9"], None),  # inside the limits: refused for want of a card only
+])
+def test_main_multistep_on_the_card_refuses_shapes_its_kernels_cannot_take(
+        synth_root, tmp_path, monkeypatch, flags, error):
+    # The kernels' limits, read from their CPU emulation, are checked on
+    # the data's grid before the model is built or anything is written.
+    from cfdbench_tpu_torch import cli
+    from cfdbench_tpu_torch.ops import _build, fno_kernels
+
+    try:
+        lib = _build.load_emulation()
+    except RuntimeError as e:  # no host C++ compiler
+        pytest.skip(str(e))
+
+    class PastTheCheck(Exception):
+        pass
+
+    def build_model(*args, **kwargs):
+        raise PastTheCheck
+
+    monkeypatch.setattr(fno_kernels, "load_library", lambda: lib)
+    monkeypatch.setattr(cli, "init_auto_model", build_model)
+    argv = MODEL_FLAGS + ["--data_name", "cavity_prop_bc_geo", "--data_dir", str(synth_root),
+                          "--output_dir", str(tmp_path)] + flags
+    with pytest.raises(ValueError if error else PastTheCheck,
+                       match=error and error + ".*ROADMAP.md B3"):
+        main_multistep(argv, device="cuda")
+    assert not list(tmp_path.rglob("multistep_metrics.json"))
+
+
 def test_chip_smoke_refuses_without_cuda(tmp_path):
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     # From the checkout, and alone in a directory with nothing else of it.
