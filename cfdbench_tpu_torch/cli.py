@@ -1,13 +1,14 @@
 """CLI entry points of the port (counterpart of ``cfdbench_tpu/cli.py``).
 
-Only ``main_multistep`` for ``--model fno`` is ported. It takes the
-JAX package's flags (the port's copy of them, ``config.Args``) and runs
-on the CUDA card; without one it raises. Only a caller that asks for
-the CPU (``device="cpu"``, as the tests do) runs there, through the
-kernels' plain PyTorch versions. A flag
-whose behaviour the port does not have raises and names the ROADMAP.md
-item that will bring it; none is ignored silently. ``--use_pallas_head``
-changes nothing here: on the card both FNO kernels always run.
+``main_auto`` (train / test) and ``main_multistep`` (rollout) are
+ported for ``--model fno``. They take the JAX package's flags (the
+port's copy of them, ``config.Args``) and run on the CUDA card; without
+one they raise. Only a caller that asks for the CPU (``device="cpu"``,
+as the tests do) runs there, through the kernels' plain PyTorch
+versions. A flag whose behaviour the port does not have raises and
+names the ROADMAP.md item that will bring it; none is ignored silently.
+``--use_pallas_head`` changes nothing here: on the card both FNO
+kernels always run.
 """
 
 from __future__ import annotations
@@ -18,11 +19,13 @@ import numpy as np
 import torch
 
 from .config import Args
-from .data import load_test_cases
+from .data import get_auto_dataset, load_test_cases
 from .data.core import dump_json
+from .metrics import loss_name_to_fn
 from .models import check_model_ported, init_auto_model
 from .models.fno import HEAD_WIDTH
 from .ops.fno_kernels import check_kernel_shapes, launch_counts
+from .training import trainer_auto
 from .training.checkpoints import load_best_params
 from .training.rollout import make_rollout_fn, multistep_metrics
 from .training.trainer_auto import AutoTask
@@ -44,17 +47,9 @@ def run_dir(args: Args) -> Path:
 
 
 def check_supported(args: Args) -> None:
-    """Raise on every flag value whose behaviour the port does not have."""
+    """Raise on every flag value, read by both entry points, whose
+    behaviour the port does not have."""
     check_model_ported(args.model)
-    if args.rollout_dtype == "bfloat16":
-        raise NotImplementedError(
-            "--rollout_dtype bfloat16: the port rolls out in float32 only; "
-            "bf16 storage is ROADMAP.md A6b"
-        )
-    if args.rollout_dtype != "float32":
-        raise ValueError(
-            f"--rollout_dtype {args.rollout_dtype!r}: choose float32 or bfloat16"
-        )
     if args.spectral_backend != "auto":
         raise NotImplementedError(
             f"--spectral_backend {args.spectral_backend}: the DFT-matmul "
@@ -83,6 +78,55 @@ def check_supported(args: Args) -> None:
         )
 
 
+def check_rollout_flags(args: Args) -> None:
+    """``check_supported`` and the flags only ``main_multistep`` reads."""
+    check_supported(args)
+    if args.rollout_dtype == "bfloat16":
+        raise NotImplementedError(
+            "--rollout_dtype bfloat16: the port rolls out in float32 only; "
+            "bf16 storage is ROADMAP.md A6b"
+        )
+    if args.rollout_dtype != "float32":
+        raise ValueError(
+            f"--rollout_dtype {args.rollout_dtype!r}: choose float32 or bfloat16"
+        )
+
+
+def check_training_flags(args: Args) -> None:
+    """``check_supported`` and the flags only ``main_auto`` reads."""
+    check_supported(args)
+    if args.mode not in ("train", "test", "train_test"):
+        raise ValueError(f"--mode {args.mode!r}: choose train, test or train_test")
+    if args.use_mixed_precision:
+        raise NotImplementedError(
+            "--use_mixed_precision: the port trains in float32 only; bf16 "
+            "forwards need bf16 kernel variants (ROADMAP.md A6b)"
+        )
+    if args.opt_state_dtype == "factored":
+        raise NotImplementedError(
+            "--opt_state_dtype factored: adafactor is not ported (ROADMAP.md A18)"
+        )
+    if args.pp_microbatches:
+        raise NotImplementedError(
+            "--pp_microbatches: pipeline parallelism is ROADMAP.md A15"
+        )
+    if args.shard_spatial:
+        raise NotImplementedError(
+            "--shard_spatial: spatial sharding is ROADMAP.md A15"
+        )
+    # The JAX main_auto accepts these two and ignores them (ROADMAP.md C).
+    if args.gradient_accumulation_steps != 1:
+        raise NotImplementedError(
+            f"--gradient_accumulation_steps {args.gradient_accumulation_steps}: "
+            "not ported; the JAX main_auto ignores it (ROADMAP.md C)"
+        )
+    if args.use_gradient_checkpointing:
+        raise NotImplementedError(
+            "--use_gradient_checkpointing: not ported; the JAX main_auto "
+            "ignores it (ROADMAP.md C)"
+        )
+
+
 def main_multistep(argv=None, device=None) -> None:
     """The FNO branch of ``cfdbench_tpu.cli.main_multistep``: a 20-step
     self-feeding rollout of every test case at once from the best
@@ -92,7 +136,7 @@ def main_multistep(argv=None, device=None) -> None:
     no card it raises. On the card, widths or modes that the kernels
     cannot take on the data's grid raise before the model is built."""
     args = parse_args(argv)
-    check_supported(args)
+    check_rollout_flags(args)
     device = require_cuda() if device is None else torch.device(device)
     set_f32_numerics()
     print(args)
@@ -122,12 +166,87 @@ def main_multistep(argv=None, device=None) -> None:
         on_device(case_params),
         on_device(mask),
     )
-    after = launch_counts()
-    print("[multistep] kernel launches: " + ", ".join(
-        f"{name}={after[name] - before[name]}" for name in after
-    ))
+    print_launches("multistep", before)
     metrics = multistep_metrics(preds, features, mask)
     for m in metrics:
         print(m)
     dump_json(metrics, output_dir / "multistep_metrics.json")
     plot_multistep_metrics(metrics, output_dir / "multistep_metrics.pdf")
+
+
+def main_auto(argv=None, device=None) -> None:
+    """The FNO branch of ``cfdbench_tpu.cli.main_auto``
+    (``src/train_auto.py:316-378``): ``--mode train`` trains with Adam
+    and StepLR and writes ``ckpt-{ep}/`` per eval epoch, ``test`` scores
+    the best checkpoint on the test split, ``train_test`` does both.
+    Runs on the CUDA card unless ``device`` names another; with
+    ``device`` None and no card it raises. On the card, widths or modes
+    that the kernels cannot take on the data's grid raise before the
+    model is built."""
+    args = parse_args(argv)
+    check_training_flags(args)
+    device = require_cuda() if device is None else torch.device(device)
+    set_f32_numerics()
+    print("#" * 80)
+    print(args)
+    print("#" * 80)
+    print(f"[auto] device: {device}")
+
+    output_dir = run_dir(args)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    args.save(output_dir / "args.json")
+
+    print("Loading data...")
+    splits = ["train", "dev"] if "train" in args.mode else []
+    if "test" in args.mode:
+        splits.append("test")
+    train_data, dev_data, test_data = get_auto_dataset(
+        data_dir=Path(args.data_dir),
+        data_name=args.data_name,
+        delta_time=args.delta_time,
+        norm_props=bool(args.norm_props),
+        norm_bc=bool(args.norm_bc),
+        load_splits=splits,
+        seed=args.seed,
+        cache_dir=args.cache_dir or None,
+    )
+    ref = train_data if train_data is not None else test_data
+    print(f"# train examples: {len(train_data) if train_data else 0}")
+    print(f"# dev examples: {len(dev_data) if dev_data else 0}")
+    print(f"# test examples: {len(test_data) if test_data else 0}")
+    if device.type == "cuda":
+        check_kernel_shapes(*ref.field_shape, args.fno_hidden_dim, args.fno_modes_x,
+                            args.fno_modes_y, HEAD_WIDTH, args.out_chan)
+    model = init_auto_model(args, n_case_params=ref.n_case_params, device=device)
+    task = AutoTask(model, loss_name_to_fn(args.loss_name))
+
+    if "train" in args.mode:
+        args.save(output_dir / "train_args.json")
+        before = launch_counts()
+        trainer_auto.train(
+            task, train_data=train_data, dev_data=dev_data, output_dir=output_dir,
+            device=device, lr=args.lr, lr_step_size=args.lr_step_size,
+            lr_gamma=args.lr_gamma, num_epochs=args.num_epochs,
+            batch_size=args.batch_size, eval_batch_size=args.eval_batch_size,
+            eval_interval=args.eval_interval, log_interval=args.log_interval,
+            seed=args.seed, measure_time=bool(args.measure_time),
+            plot_examples=bool(args.plot_train_examples), resume=bool(args.resume),
+            opt_state=args.opt_state_dtype,
+        )
+        print_launches("train", before)
+        if args.measure_time:
+            # A micro-benchmark: print ms/step and stop (src/train.py:94-100).
+            return
+    if "test" in args.mode:
+        args.save(output_dir / "test_args.json")
+        model.load_state_dict(load_best_params(output_dir))
+        before = launch_counts()
+        trainer_auto.test(task, test_data, output_dir / "test", device=device,
+                          batch_size=1, plot_interval=10)
+        print_launches("test", before)
+
+
+def print_launches(what: str, before: dict) -> None:
+    after = launch_counts()
+    print(f"[{what}] kernel launches: " + ", ".join(
+        f"{name}={after[name] - before[name]}" for name in after))

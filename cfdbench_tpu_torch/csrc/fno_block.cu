@@ -449,7 +449,8 @@ __global__ void __launch_bounds__(kThreads) inverse_rows_kernel(
 // Pass 4. out[b, h, w, o] = GELU(sum_m Br[w, m] zr - Bi[w, m] zi + x[b, h, w, :] . w0[o, :] + b0[o]):
 // per row one GEMM, [Br | -Bi | x_h] (W x (2 m2 + Ci)) . [z_r; z_i; w0^T],
 // the inverse W-stage and the 1x1 bypass together, with the bias and exact
-// erf GELU applied to the accumulators. Each grid row takes kOutCo output
+// erf GELU applied to the accumulators; `pre`, unless null, receives the
+// pre-activation (the argument of GELU), which the block's backward reads. Each grid row takes kOutCo output
 // channels. Persistent along the grid's columns: a block sets up its
 // tables once and walks items of rows_per_item rows (kOutRows, or 1 where
 // two rows of x do not fit shared memory), whose rows of x and z come in by
@@ -459,8 +460,8 @@ __global__ void __launch_bounds__(kThreads) inverse_rows_kernel(
 //      KZ = 2 m2 rounded up to 8.
 __global__ void __launch_bounds__(kThreads, 3) inverse_cols_kernel(
     const float* __restrict__ x, const float* __restrict__ z, const float4* __restrict__ bwf,
-    const float* __restrict__ w0, const float* __restrict__ b0, float* __restrict__ out, int B,
-    int H, int W, int Ci, int Co, int m2, int rows_per_item) {
+    const float* __restrict__ w0, const float* __restrict__ b0, float* __restrict__ out,
+    float* __restrict__ pre, int B, int H, int W, int Ci, int Co, int m2, int rows_per_item) {
   FNO_DYNAMIC_SMEM(float4, smem4);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int o0 = blockIdx.y * kOutCo, nto = ceil_div(min(kOutCo, Co - o0), 8);
@@ -599,22 +600,26 @@ __global__ void __launch_bounds__(kThreads, 3) inverse_cols_kernel(
           }
         }
       }
-      float* orow = out + ((size_t)b * H + h0 + r) * W * Co;
+      const size_t row = ((size_t)b * H + h0 + r) * W * Co;
+      // Channels o and o + 1 of one position (o + 1 only where it exists).
+      auto put = [&](float* d, float v0, float v1, int o) {
+        if (pairs) {
+          *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
+        } else {
+          d[0] = v0;
+          if (o + 1 < Co) d[1] = v1;
+        }
+      };
 #pragma unroll
       for (int j = 0; j < kOutNT; ++j) {
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int w = mtw * 16 + g + 8 * half, ol = j * 8 + 2 * t, o = o0 + ol;
           if (w < W && o < Co) {
-            const float v0 = gelu_erf(acc[j][2 * half] + bs[ol]);
-            const float v1 = gelu_erf(acc[j][2 * half + 1] + bs[ol + 1]);
-            float* d = orow + (size_t)w * Co + o;
-            if (pairs) {
-              *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
-            } else {
-              d[0] = v0;
-              if (o + 1 < Co) d[1] = v1;
-            }
+            const float p0 = acc[j][2 * half] + bs[ol], p1 = acc[j][2 * half + 1] + bs[ol + 1];
+            const size_t at = row + (size_t)w * Co + o;
+            put(out + at, gelu_erf(p0), gelu_erf(p1), o);
+            if (pre) put(pre + at, p0, p1, o);
           }
         }
       }
@@ -684,13 +689,14 @@ const char* fno_block_unsupported(int W, int Ci, int m2) { return plan_block(W, 
 // x: (B, H, W, Ci); weights: (2, 2, Ci, Co, M1, M2); w0: (Co, Ci); b0: (Co,)
 // e1f, e2f, a1f, bwf: ops/fno_kernels.py::_block_tables(H, W, m1, m2);
 // scratch xm: (B, 2, 2*m1, m2, Ci), ym: (B, 2, 2*m1, m2, Co) and z:
-// (B, H, 2, m2, Co); out:
-// (B, H, W, Co). All float32, contiguous, on the current device. Launches
-// on `stream`, does not sync.
+// (B, H, 2, m2, Co); out and, unless null, pre (the pre-activation):
+// (B, H, W, Co). All float32, contiguous, on the current device. xm holds
+// x's retained modes afterwards (rows 0..m1-1 and H-m1..H-1 of rfft2, real
+// then imaginary parts). Launches on `stream`, does not sync.
 int fno_block_forward(const float* x, const float* weights, const float* w0,
                       const float* b0, const float* e1f, const float* e2f,
                       const float* a1f, const float* bwf, float* xm, float* ym,
-                      float* z, float* out, int B, int H, int W, int Ci, int Co, int M1,
+                      float* z, float* out, float* pre, int B, int H, int W, int Ci, int Co, int M1,
                       int M2, int m1, int m2, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const BlockPlan plan = plan_block(W, Ci, m2);
@@ -728,7 +734,8 @@ int fno_block_forward(const float* x, const float* weights, const float* w0,
   if ((err = cudaGetLastError())) return err;
   const dim3 cols_grid(cols_blocks > n_ot ? cols_blocks / n_ot : 1, n_ot);
   FNO_LAUNCH(inverse_cols_kernel, cols_grid, kThreads, plan.s4, stream)(
-      x, z, reinterpret_cast<const float4*>(bwf), w0, b0, out, B, H, W, Ci, Co, m2, plan.out_rows);
+      x, z, reinterpret_cast<const float4*>(bwf), w0, b0, out, pre, B, H, W, Ci, Co, m2,
+      plan.out_rows);
   return cudaGetLastError();
 }
 

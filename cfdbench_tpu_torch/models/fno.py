@@ -10,7 +10,8 @@ On CUDA tensors every FnoBlock is one call of the fused block kernel and
 the head one call of the fused head kernel (``ops/fno_kernels.py``) —
 what the JAX package's ``fno2d_apply_pallas`` and
 ``fno2d_apply_pallas_head`` did with its two Pallas kernels, here on
-every forward. On CPU tensors both run their plain PyTorch versions.
+every forward, in training too: the kernels' autograd Functions carry
+the gradient. On CPU tensors both run their plain PyTorch versions.
 The lift stays plain ``torch.matmul``.
 """
 
@@ -128,3 +129,16 @@ def fno2d_reference(model: Fno2d, inputs, case_params, mask=None):
                                 blk.modes1, blk.modes2)
     return fno_head_reference(x, model.fc1.weight, model.fc1.bias,
                               model.fc2.weight, model.fc2.bias, mask)
+
+
+class PlainFno2d(nn.Module):
+    """``model`` behind :func:`fno2d_reference`: the same weights, both
+    kernels replaced by their plain versions and differentiated by
+    autograd; the yardstick of the kernel path in training."""
+
+    def __init__(self, model: Fno2d):
+        super().__init__()
+        self.model, self.out_chan = model, model.out_chan
+
+    def forward(self, inputs, case_params, mask=None):
+        return fno2d_reference(self.model, inputs, case_params, mask)

@@ -14,6 +14,17 @@ it launches its kernel or raises — there is no fallback. Weights are in
 which it launched its kernel in ``<wrapper>.launches``, so a run can
 show that it went through the kernels (:func:`launch_counts`).
 
+On the card the kernels run inside ``torch.autograd.Function``s
+(:class:`FnoBlockFn`, :class:`FnoHeadFn`), so a forward under grad
+carries gradients to every input. The TPU kernels are forward-only too
+(the JAX package trains through XLA's gradient of the plain graph), so
+the backwards are PyTorch ops: the block's is its explicit VJP
+(:func:`fno_block_vjp`: ``torch.fft`` for the spectral adjoint, plain
+products for the bypass) from the pre-activation and x's retained modes,
+which the kernel writes under grad; the head's recomputes fc1 and GELU
+from the saved x, as the JAX package's ``remat_head`` does, and
+differentiates them.
+
 Both kernels multiply on the tensor cores in split TF32 (``csrc/tf32.cuh``).
 The block kernel's constant operands — the truncated DFT tables — are
 split into TF32 high and low halves and laid out in ``mma.sync``
@@ -38,7 +49,9 @@ import torch
 import torch.nn.functional as F
 
 from ._build import check_launch, load_library
-from .spectral import _dft_factors, clamp_modes, spectral_conv2d_fft
+from .spectral import (
+    _dft_factors, clamp_modes, retained_modes, spectral_conv2d_fft, spectral_conv2d_vjp,
+)
 
 # Tiles of csrc/fno_block.cu that the host tables follow; the library's
 # fno_block_tiles must give the same before a block launches (_check_tiles).
@@ -184,6 +197,16 @@ def fno_block_reference(x, weights, w0, b0, modes1: int, modes2: int):
     )
 
 
+def fno_block_saved_reference(x, weights, w0, b0, modes1: int, modes2: int):
+    """Plain versions of what the block kernel leaves for the backward:
+    ``(xm, pre)``, x's retained modes (B, 2, 2 m1, m2, Ci; real,
+    imaginary) and the pre-activation (B, H, W, Co)."""
+    m1, m2 = clamp_modes(x.shape[1], x.shape[2], modes1, modes2)
+    xm = retained_modes(x, m1, m2)
+    pre = spectral_conv2d_fft(x, weights, modes1, modes2) + F.linear(x, w0, b0)
+    return torch.stack([xm.real, xm.imag], 1), pre
+
+
 def fno_head_reference(x, w1, b1, w2, b2, mask):
     """Plain head: ``(GELU(x @ w1ᵀ + b1) @ w2ᵀ + b2) * mask``."""
     return F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2) * mask
@@ -212,9 +235,12 @@ def _table_tensors(H: int, W: int, m1: int, m2: int, device: torch.device):
     return tuple(torch.from_numpy(f).to(device) for f in _block_tables(H, W, m1, m2))
 
 
-def _block_call(lib, x, weights, w0, b0, modes1, modes2, stream: int):
+def _block_call(lib, x, weights, w0, b0, modes1, modes2, stream: int, keep: bool = False):
     """Allocate the block kernel's scratch and output and launch it
-    through ``lib`` on ``stream``; the arguments are checked."""
+    through ``lib`` on ``stream``; the arguments are checked. Returns
+    ``(out, xm, pre)``: the output, x's retained modes (B, 2, 2 m1, m2,
+    Ci), which the first pass leaves in its scratch, and, with ``keep``,
+    the pre-activation (B, H, W, Co), else None."""
     B, H, W, Ci = x.shape
     Co = weights.shape[3]
     m1, m2 = clamp_modes(H, W, modes1, modes2)
@@ -225,14 +251,16 @@ def _block_call(lib, x, weights, w0, b0, modes1, modes2, stream: int):
     ym = torch.empty((B, 2, 2 * m1, m2, Co), device=x.device)
     z = torch.empty((B, H, 2, m2, Co), device=x.device)
     out = torch.empty((B, H, W, Co), device=x.device)
+    pre = torch.empty((B, H, W, Co), device=x.device) if keep else None
     err = lib.fno_block_forward(
         x.data_ptr(), weights.data_ptr(), w0.data_ptr(), b0.data_ptr(),
         *(f.data_ptr() for f in tables),
         xm.data_ptr(), ym.data_ptr(), z.data_ptr(), out.data_ptr(),
+        None if pre is None else pre.data_ptr(),
         B, H, W, Ci, Co, modes1, modes2, m1, m2, stream,
     )
     check_launch(lib, err, "fno_block")
-    return out
+    return out, xm, pre
 
 
 def _head_call(lib, x, w1, b1, w2, b2, mask, stream: int):
@@ -251,11 +279,77 @@ def _head_call(lib, x, w1, b1, w2, b2, mask, stream: int):
     return out
 
 
+def fno_block_vjp(grad, x, xm, pre, weights, w0, modes1: int, modes2: int):
+    """``(dx, dweights, dw0, db0)``: the FnoBlock's gradient against
+    ``grad`` from what its kernel's forward leaves — x's retained modes
+    ``xm`` (B, 2, 2 m1, m2, Ci; real, imaginary) and the pre-activation
+    ``pre`` (B, H, W, Co). GELU' of ``pre``, the 1x1 bypass's products, and
+    the spectral adjoint in ``torch.fft`` (``spectral_conv2d_vjp``)."""
+    dy = torch.ops.aten.gelu_backward(grad, pre)
+    dx, dweights = spectral_conv2d_vjp(dy, torch.complex(xm[:, 0], xm[:, 1]), weights,
+                                       x.shape[2], modes1, modes2)
+    flat = dy.reshape(-1, dy.shape[-1])
+    return dx + dy @ w0, dweights, flat.T @ x.reshape(-1, x.shape[-1]), flat.sum(0)
+
+
+class FnoBlockFn(torch.autograd.Function):
+    """The block kernel launched through ``lib`` on ``stream``, with its
+    gradient: ``apply(lib, stream, keep, x, weights, w0, b0, modes1,
+    modes2)``. With ``keep`` (a forward under grad) the kernel also
+    writes the pre-activation, and the Function saves it with x and x's
+    retained modes for :func:`fno_block_vjp`; nothing is recomputed."""
+
+    @staticmethod
+    def forward(ctx, lib, stream, keep, x, weights, w0, b0, modes1, modes2):
+        out, xm, pre = _block_call(lib, x, weights, w0, b0, modes1, modes2, stream, keep)
+        fno_block.launches += 1
+        if keep:
+            ctx.save_for_backward(x, xm, pre, weights, w0)
+            ctx.modes = (modes1, modes2)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        x, xm, pre, weights, w0 = ctx.saved_tensors
+        grads = fno_block_vjp(grad.contiguous(), x, xm, pre, weights, w0, *ctx.modes)
+        needs = ctx.needs_input_grad[3:7]
+        return (None, None, None, *(g if n else None for g, n in zip(grads, needs)), None, None)
+
+
+class FnoHeadFn(torch.autograd.Function):
+    """The head kernel launched through ``lib`` on ``stream``, with the
+    plain version's gradient: ``apply(lib, stream, x, w1, b1, w2, b2,
+    mask)``. Saves x and the weights; the backward recomputes fc1 and
+    GELU (the JAX package's ``remat_head``: the two (B, H, W, 128)
+    intermediates are the model's largest) and backpropagates through
+    fc2 and the mask."""
+
+    @staticmethod
+    def forward(ctx, lib, stream, x, w1, b1, w2, b2, mask):
+        ctx.save_for_backward(x, w1, b1, w2, b2, mask)
+        out = _head_call(lib, x, w1, b1, w2, b2, mask, stream)
+        fno_head.launches += 1
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        needs = ctx.needs_input_grad[2:8]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+            out = fno_head_reference(*inputs)
+        wanted = [t for t, n in zip(inputs, needs) if n]
+        grads = iter(torch.autograd.grad(out, wanted, grad.contiguous()))
+        return (None, None, *(next(grads) if n else None for n in needs))
+
+
 def fno_block(x, weights, w0, b0, modes1: int, modes2: int):
     """x (B, H, W, Cin); weights (2, 2, Cin, Cout, modes1, modes2);
     w0 (Cout, Cin); b0 (Cout,) → (B, H, W, Cout). On the card a shape
     whose rows do not fit the kernel's shared memory raises ValueError
-    (:func:`check_kernel_shapes`)."""
+    (:func:`check_kernel_shapes`); the result is differentiable
+    (:class:`FnoBlockFn`)."""
     if x.device.type == "cpu":
         return fno_block_reference(x, weights, w0, b0, modes1, modes2)
     _check_cuda_f32(x.device, x=x, weights=weights, w0=w0, b0=b0)
@@ -272,16 +366,16 @@ def fno_block(x, weights, w0, b0, modes1: int, modes2: int):
            f"w0 {tuple(w0.shape)} / b0 {tuple(b0.shape)} do not match "
            f"({Co}, {Ci}) / ({Co},)")
     _check(H >= 2 and W >= 2, f"grid {H}x{W} is too small for a spectral conv")
+    keep = torch.is_grad_enabled() and any(t.requires_grad for t in (x, weights, w0, b0))
     with torch.cuda.device(x.device):
-        out = _block_call(load_library(), x, weights, w0, b0, modes1, modes2,
-                          _stream(x.device))
-    fno_block.launches += 1
-    return out
+        return FnoBlockFn.apply(load_library(), _stream(x.device), keep, x, weights, w0, b0,
+                                modes1, modes2)
 
 
 def fno_head(x, w1, b1, w2, b2, mask):
     """x (B, H, W, C); w1 (hidden, C); b1 (hidden,); w2 (out, hidden);
-    b2 (out,); mask (B, H, W, 1) → (B, H, W, out), masked."""
+    b2 (out,); mask (B, H, W, 1) → (B, H, W, out), masked; on the card
+    differentiable (:class:`FnoHeadFn`)."""
     if x.device.type == "cpu":
         return fno_head_reference(x, w1, b1, w2, b2, mask)
     _check_cuda_f32(x.device, x=x, w1=w1, b1=b1, w2=w2, b2=b2, mask=mask)
@@ -298,9 +392,7 @@ def fno_head(x, w1, b1, w2, b2, mask):
     _check(tuple(mask.shape) == (B, H, W, 1),
            f"mask {tuple(mask.shape)} is not ({B}, {H}, {W}, 1)")
     with torch.cuda.device(x.device):
-        out = _head_call(load_library(), x, w1, b1, w2, b2, mask, _stream(x.device))
-    fno_head.launches += 1
-    return out
+        return FnoHeadFn.apply(load_library(), _stream(x.device), x, w1, b1, w2, b2, mask)
 
 
 fno_block.launches = 0

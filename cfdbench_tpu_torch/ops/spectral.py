@@ -10,7 +10,9 @@ drives both packages.
 
 The DFT factor tables (``_dft_factors``) are numpy, for the CUDA block
 kernel (``ops/fno_kernels.py``), which projects onto the retained modes
-with them instead of running an FFT.
+with them instead of running an FFT. :func:`spectral_conv2d_vjp` is the
+conv's gradient written out in ``torch.fft``, from x's retained modes:
+the block's backward on the card.
 The JAX package's DFT-matmul backends and their batch-size crossover
 rule were TPU workarounds and are not ported: here ``torch.fft`` is
 the plain version and the fused kernel is the fast one.
@@ -84,15 +86,69 @@ def spectral_conv2d_fft(
     out_ft[:, H - m1:, :m2] = torch.einsum(
         "bxyi,ioxy->bxyo", x_ft[:, H - m1:, :m2], w_c[1]
     )
-    # irfft2 as its two halves, the C2R half on a spectrum made Hermitian
-    # explicitly: the mixed DC (and even-W Nyquist) column is not, and
-    # pocketfft drops its imaginary part while cuFFT's multi-dimensional
-    # C2R leaves such input undefined. This pins both to pocketfft.
-    z = torch.fft.ifft(out_ft, dim=1)
+    return _c2r(torch.fft.ifft(out_ft, dim=1), W)
+
+
+def _c2r(z: torch.Tensor, W: int) -> torch.Tensor:
+    """irfft along W (dim 2) of a half spectrum, missing columns zero,
+    made Hermitian explicitly first: a mixed DC (and even-W Nyquist)
+    column is not, and pocketfft drops its imaginary part while cuFFT's
+    C2R leaves such input undefined. This pins both to pocketfft."""
     z[:, :, 0].imag.zero_()
-    if W % 2 == 0:
+    if W % 2 == 0 and z.shape[2] > W // 2:
         z[:, :, W // 2].imag.zero_()
     return torch.fft.irfft(z, n=W, dim=2)
+
+
+def _alpha(W: int, m2: int, device) -> torch.Tensor:
+    """(m2,): how often each retained column counts in a real field of
+    width W — 2 for a column that stands in for its dropped conjugate, 1
+    for DC and the even-W Nyquist column."""
+    m = torch.arange(m2, device=device)
+    return torch.where((m == 0) | ((W % 2 == 0) & (m == W // 2)), 1.0, 2.0)
+
+
+def _corner_weights(weights: torch.Tensor, m1: int, m2: int) -> torch.Tensor:
+    """The spectral weights as (2 m1, m2, Cin, Cout) complex, rows in the
+    order of the retained spectrum rows [0, m1) then [H - m1, H)."""
+    Ci, Co = weights.shape[2:4]
+    w = torch.complex(weights[:, 0, :, :, :m1, :m2], weights[:, 1, :, :, :m1, :m2])
+    return w.permute(0, 3, 4, 1, 2).reshape(2 * m1, m2, Ci, Co)
+
+
+def retained_modes(x: torch.Tensor, m1: int, m2: int) -> torch.Tensor:
+    """rfft2 of x (B, H, W, C) on the retained rows [0, m1), [H - m1, H)
+    and columns [0, m2): (B, 2 m1, m2, C) complex — what the block
+    kernel's forward pass leaves in its scratch ``xm`` (real, imaginary)."""
+    H = x.shape[1]
+    x_ft = torch.fft.rfft2(x, dim=(1, 2))
+    return torch.cat([x_ft[:, :m1, :m2], x_ft[:, H - m1:, :m2]], dim=1)
+
+
+def spectral_conv2d_vjp(grad: torch.Tensor, modes: torch.Tensor, weights: torch.Tensor,
+                        W: int, modes1: int, modes2: int):
+    """``(dx, dweights)``: the gradient of :func:`spectral_conv2d_fft` at
+    an x whose :func:`retained_modes` are ``modes`` (X), against ``grad``
+    (B, H, W, Cout). With g = rfft2(grad) / (H W) on the retained modes,
+    the gradient of the mixed modes Y (as d/dRe + i d/dIm) is alpha g,
+    the adjoint of the C2R inverse (alpha: :func:`_alpha`). Then
+    dw = the batch's sum of conj(X) alpha g per mode, and dx = Re of the
+    sum over the retained modes of alpha g conj(w) e^{+i theta}, which is
+    H W times the C2R inverse of g conj(w): the inverse's own alpha
+    cancels the one in the gradient."""
+    B, H, _, _ = grad.shape
+    m1, m2 = clamp_modes(H, W, modes1, modes2)
+    g = torch.fft.fft(torch.fft.rfft(grad, dim=2)[:, :, :m2], dim=1)
+    g = torch.cat([g[:, :m1], g[:, H - m1:]], dim=1) / (H * W)
+    gw = torch.einsum("bkmi,bkmo->kmio", modes.conj(), g * _alpha(W, m2, g.device)[:, None])
+    gx = torch.einsum("bkmo,kmio->bkmi", g, _corner_weights(weights, m1, m2).conj())
+    dweights = torch.zeros_like(weights)
+    gw = gw.reshape(2, m1, m2, *gw.shape[2:]).permute(0, 3, 4, 1, 2)  # (corner, i, o, m1, m2)
+    dweights[:, 0, :, :, :m1, :m2] = gw.real
+    dweights[:, 1, :, :, :m1, :m2] = gw.imag
+    rows = gx.new_zeros((B, H, m2, gx.shape[-1]))
+    rows[:, :m1], rows[:, H - m1:] = gx[:, :m1], gx[:, m1:]
+    return _c2r(torch.fft.ifft(rows, dim=1), W) * (H * W), dweights
 
 
 def init_spectral_weights(

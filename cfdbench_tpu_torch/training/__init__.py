@@ -1,1 +1,1 @@
-"""Rollout, checkpoints and the inference task."""
+"""Optimizer, checkpoints, the autoregressive trainer and the rollout."""

@@ -9,12 +9,14 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    versions, whether Triton imports, and builds both kernels from
    ``cfdbench_tpu_torch/csrc`` (build time and ptxas report).
 2. Holds each kernel to its plain PyTorch version on the card, in float32
-   with TF32 off, at the flagship widths (B=8, 64x64, 32 channels, 12
-   modes), at 66x65 (odd W), at the ragged 18x17 with 10 channels
-   (4 modes, 3 head outputs) and 16x16 with 8 channels (modes clamped),
-   and at the kernels' wider tilings: 64x136 (the forward pass in three
-   column chunks) and 66x80 with 128 channels (channel tiles, one row per
-   item of the inverse-columns pass, the head's x single-buffered).
+   with TF32 off (the block's output, and what it keeps for the backward:
+   the pre-activation and x's retained modes), at the flagship widths
+   (B=8, 64x64, 32 channels, 12 modes), at 66x65 (odd W), at the ragged
+   18x17 with 10 channels (4 modes, 3 head outputs) and 16x16 with 8
+   channels (modes clamped), and at the kernels' wider tilings: 64x136
+   (the forward pass in three column chunks) and 66x80 with 128 channels
+   (channel tiles, one row per item of the inverse-columns pass, the
+   head's x single-buffered).
 3. Drives the main path through its entry point: a synthetic 64x64
    cavity tree, a seeded flagship FNO (depth 4, width 32, 12 modes)
    saved as ``ckpt-0/model.pt``, then
@@ -33,8 +35,21 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    mode mixing, the head's fc2) as float32 multiply-adds at 67 TFLOP/s
    (an H100 SXM's published dense rates). No single PyTorch call
    computes either kernel's function, so neither has a library time.
+6. Trains on the card. (a) The flagship's nmse and every parameter's
+   gradient at B=8 through the kernels' autograd Functions, against
+   autograd through the plain versions. (b) ``cli.main_auto --mode
+   train_test`` on a synthetic 64x64 cavity tree, 2 epochs of a few
+   steps: 4 block and 1 head launches per train-step forward, eval batch
+   and test case, finite ``ckpt-*/scores.json``; then ``main_multistep``
+   rolls out the checkpoint it wrote. (c) The float32 train step at
+   batch 128 (``trainer_auto.train_step``) on the kernel path and the
+   plain path in turns, each split into forward, backward and update,
+   with its peak memory.
 
-The line before the last is the kernels' JSON record; the last line is
+``launches`` in the kernels' record is phase 3's count (main_multistep),
+``launches_by_path`` each main path's own: main_multistep's and
+main_auto's, each read from counters set to 0 just before the run and
+read just after it. The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 It needs a CUDA device and fails without one.
 """
@@ -61,8 +76,17 @@ GRID = 64
 # truncated-DFT sums against cuFFT, FMA chains against cuBLAS).
 BLOCK_ATOL = 1e-4
 HEAD_ATOL = 1e-5
+XM_RTOL = 1e-5  # x's retained modes, sums over the grid: relative to the largest
 ROLLOUT_RTOL = 1e-4
 TIMING_BATCH = 128
+# Phase 6: the train step's loss and gradients through the kernels'
+# autograd Functions against autograd through the plain versions (the
+# forwards differ by the kernels' float32 rounding, about 3e-6).
+GRAD_BATCH = 8
+GRAD_LOSS_RTOL = 1e-5
+GRAD_RTOL = 1e-4  # max abs diff of each gradient tensor over its max |grad|
+TRAIN_EPOCHS = 2
+TRAIN_REPS = 5
 # (B, H, W, channels, modes, head outputs) of phase 2.
 CHECK_SHAPES = ((8, GRID, GRID, WIDTH, MODES, 2), (8, GRID + 2, GRID + 1, WIDTH, MODES, 2),
                 (3, 18, 17, 10, 4, 3), (17, 16, 16, 8, MODES, 2),
@@ -208,7 +232,26 @@ def check_kernels(device):
                 raise RuntimeError(f"{name} {H}x{W} disagrees with its plain version: "
                                    f"{err:.3e} > {atol:.0e}")
             worst[name] = max(worst[name], err)
+        check_saved(block_args)
     return worst
+
+
+def check_saved(block_args):
+    """What the block kernel leaves for the backward under grad — the
+    pre-activation and x's retained modes — against the plain versions."""
+    from cfdbench_tpu_torch.ops import _build, fno_kernels as fk
+
+    x = block_args[0]
+    _, xm, pre = fk._block_call(_build.load_library(), *block_args,
+                                torch.cuda.current_stream().cuda_stream, keep=True)
+    want_xm, want_pre = fk.fno_block_saved_reference(*block_args)
+    err = (pre - want_pre).abs().max().item()
+    rel = ((xm - want_xm).abs().max() / want_xm.abs().max()).item()
+    print(f"[kernel] fno_block B={x.shape[0]} {x.shape[1]}x{x.shape[2]} saved for the backward: "
+          f"pre-activation max abs err {err:.3e} (bound {BLOCK_ATOL:.0e}), retained modes max "
+          f"err / max {rel:.3e} (bound {XM_RTOL:.0e})")
+    if not (err <= BLOCK_ATOL and rel <= XM_RTOL):
+        raise RuntimeError(f"fno_block's saved outputs disagree at {tuple(x.shape)}")
 
 
 def flagship_model(device):
@@ -219,10 +262,10 @@ def flagship_model(device):
 
 
 def plain_rollout(model):
-    from cfdbench_tpu_torch.models.fno import fno2d_reference
+    from cfdbench_tpu_torch.models.fno import PlainFno2d
     from cfdbench_tpu_torch.training.rollout import make_rollout_fn
 
-    return make_rollout_fn(lambda f, c, m: fno2d_reference(model, f, c, m), STEPS)
+    return make_rollout_fn(PlainFno2d(model), STEPS)
 
 
 def main_path():
@@ -351,6 +394,181 @@ def timing(device, card):
     return times
 
 
+def train_inputs(B, gen, device):
+    """A seeded batch for the flagship at 64x64 (mask with a hole)."""
+    mask = torch.ones((B, GRID, GRID, 1))
+    mask[:, 20:30, 10:40] = 0
+    batch = dict(inputs=torch.randn((B, GRID, GRID, 2), generator=gen),
+                 labels=torch.randn((B, GRID, GRID, 2), generator=gen),
+                 case_params=torch.randn((B, 5), generator=gen), mask=mask,
+                 weights=torch.ones(B))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def plain_task(model):
+    from cfdbench_tpu_torch.models.fno import PlainFno2d
+
+    return nmse_task(PlainFno2d(model))
+
+
+def nmse_task(model):
+    from cfdbench_tpu_torch.metrics import loss_name_to_fn
+    from cfdbench_tpu_torch.training.trainer_auto import AutoTask
+
+    return AutoTask(model, loss_name_to_fn("nmse"))
+
+
+def check_gradients(device):
+    """Phase 6a: the loss and every parameter's gradient of the flagship
+    at B=8 through FnoBlockFn/FnoHeadFn, against autograd through the
+    plain versions on the same weights and batch."""
+    model = flagship_model(device)
+    batch = train_inputs(GRAD_BATCH, torch.Generator().manual_seed(SEED + 2), device)
+    runs = {}
+    for name, task in (("kernel", nmse_task(model)), ("plain", plain_task(model))):
+        model.zero_grad(set_to_none=True)
+        loss, _ = task.loss_scores(batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[name] = loss.item(), {k: p.grad for k, p in model.named_parameters()}
+    (loss_k, grads_k), (loss_p, grads_p) = runs["kernel"], runs["plain"]
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"[grad] flagship B={GRAD_BATCH} {GRID}x{GRID}: nmse kernel {loss_k:.9g}, plain "
+          f"{loss_p:.9g}, rel diff {loss_rel:.3e} (bound {GRAD_LOSS_RTOL:.0e})")
+    if not loss_rel <= GRAD_LOSS_RTOL:
+        raise RuntimeError(f"train loss through the kernels disagrees: {loss_rel:.3e}")
+    worst = 0.0
+    for k, want in grads_p.items():
+        got = grads_k[k]
+        if got is None or not torch.isfinite(got).all():
+            raise RuntimeError(f"{k}: no finite gradient through the kernels")
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        print(f"[grad]   {k} {tuple(want.shape)}: max abs diff / max |grad| {rel:.3e}")
+        if not rel <= GRAD_RTOL:
+            raise RuntimeError(f"{k}: gradient disagrees, {rel:.3e} > {GRAD_RTOL:.0e}")
+        worst = max(worst, rel)
+    print(f"[grad] {len(grads_p)} gradients: worst {worst:.3e} (bound {GRAD_RTOL:.0e})")
+
+
+def train_path(grid: int = GRID):
+    """Phase 6b: ``main_auto --mode train_test`` at the flagship width on
+    a synthetic cavity tree, 2 epochs of a few steps; then
+    ``main_multistep`` rolls out the checkpoint it wrote. Returns
+    main_auto's launches."""
+    from cfdbench_tpu_torch.cli import main_auto, main_multistep, parse_args, run_dir
+    from cfdbench_tpu_torch.data import get_auto_dataset
+    from cfdbench_tpu_torch.data.pipeline import num_batches
+    from cfdbench_tpu_torch.data.synthetic import generate_problem
+    from cfdbench_tpu_torch.models.fno import FLAGSHIP
+    from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
+
+    data_root, out_root = WORK / "train_data", WORK / "train_result"
+    generate_problem(data_root, "cavity", cases_per_subset=4, num_frames=6, grid=grid, seed=SEED)
+    argv = [
+        "--model", "fno", "--data_name", "cavity_prop_bc_geo",
+        "--data_dir", str(data_root), "--output_dir", str(out_root),
+        "--fno_depth", str(FLAGSHIP["num_layers"]),
+        "--fno_hidden_dim", str(FLAGSHIP["hidden_dim"]),
+        "--fno_modes_x", str(FLAGSHIP["modes1"]), "--fno_modes_y", str(FLAGSHIP["modes2"]),
+    ]
+    train_flags = ["--mode", "train_test", "--num_epochs", str(TRAIN_EPOCHS),
+                   "--eval_interval", "1", "--batch_size", "16", "--eval_batch_size", "16",
+                   "--log_interval", "1"]
+    args = parse_args(argv + train_flags)
+    train, dev, test = get_auto_dataset(data_root, args.data_name, args.delta_time,
+                                        True, True, seed=args.seed)
+    # Forwards: one per train step; per eval epoch one per dev batch and
+    # one for example.png; one per test case (batch 1).
+    steps = num_batches(len(train), args.batch_size)
+    evals = num_batches(len(dev), args.eval_batch_size) + 1
+    forwards = TRAIN_EPOCHS * (steps + evals) + len(test)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    main_auto(argv + train_flags)
+    counts = launch_counts()
+    print(f"[train] main_auto: {time.perf_counter() - t0:.2f} s, {len(train)} train pairs, "
+          f"{TRAIN_EPOCHS} epochs x {steps} steps, {evals} eval forwards an epoch, "
+          f"{len(test)} test cases; launches {counts}")
+    want = {"fno_block": FLAGSHIP["num_layers"] * forwards, "fno_head": forwards}
+    if counts != want:
+        raise RuntimeError(f"main_auto launches {counts}, expected {want}: "
+                           f"{FLAGSHIP['num_layers']} blocks and 1 head per forward")
+    run = run_dir(args)
+    for ep in range(TRAIN_EPOCHS):
+        scores = json.loads((run / f"ckpt-{ep}" / "scores.json").read_text())
+        if not (math.isfinite(scores["train_loss"]) and math.isfinite(scores["dev_loss"])):
+            raise RuntimeError(f"ckpt-{ep}/scores.json is not finite: {scores}")
+        print(f"[train] ckpt-{ep}/scores.json: {scores}")
+        # The checkpoint a card wrote loads on a machine without one.
+        devices = {str(v.device) for v in torch.load(
+            run / f"ckpt-{ep}" / "model.pt", weights_only=True).values()}
+        if devices != {"cpu"}:
+            raise RuntimeError(f"ckpt-{ep}/model.pt holds tensors on {devices}, not the host")
+    test_scores = json.loads((run / "test" / "scores.json").read_text())["mean"]
+    if not all(math.isfinite(v) for v in test_scores.values()):
+        raise RuntimeError(f"test/scores.json is not finite: {test_scores}")
+    print(f"[train] test/scores.json mean: {test_scores}")
+
+    reset_launch_counts()
+    main_multistep(argv)
+    rollout = launch_counts()
+    want = {"fno_block": FLAGSHIP["num_layers"] * STEPS, "fno_head": STEPS}
+    metrics = json.loads((run / "multistep_metrics.json").read_text())
+    if rollout != want or len(metrics) != STEPS or not all(
+            math.isfinite(v) for m in metrics for v in m.values()):
+        raise RuntimeError(f"main_multistep on the trained checkpoint: launches {rollout} "
+                           f"(expected {want}), metrics {metrics}")
+    print(f"[train] main_multistep on the trained checkpoint: launches {rollout}, "
+          f"step-20 nmse {metrics[-1]['nmse']:.6g}")
+    return counts
+
+
+def train_step_timing(device, card):
+    """Phase 6c: the float32 train step at batch 128 (Adam, forward,
+    backward, update; ``trainer_auto.train_step``) on the kernel path and
+    on the all-plain autograd path, by CUDA events, in turns; then each
+    path's split into forward, backward and update, and its peak memory."""
+    from cfdbench_tpu_torch.training.optim import make_adam
+    from cfdbench_tpu_torch.training.trainer_auto import train_step
+
+    batch = train_inputs(TIMING_BATCH, torch.Generator().manual_seed(SEED + 3), device)
+    paths = {}
+    for name in ("plain", "kernel"):
+        model = flagship_model(device)
+        task = nmse_task(model) if name == "kernel" else plain_task(model)
+        paths[name] = (task, *make_adam(model.parameters(), 1e-4))
+    step = {name: (lambda p=p: train_step(*p, batch)) for name, p in paths.items()}
+    plain_ms, kern_ms = interleaved_ms(step["plain"], step["kernel"], reps=TRAIN_REPS)
+    print(f"[time] [{card}] train step b{TIMING_BATCH} {GRID}x{GRID} f32: kernel path "
+          f"{kern_ms:.3f} ms, plain path {plain_ms:.3f} ms (kernel/plain {kern_ms / plain_ms:.3f})")
+    result = {}
+    for name, (task, opt, sched) in paths.items():
+        marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                 for _ in range(TRAIN_REPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        for ev in marks:  # train_step, with an event between its parts
+            ev[0].record()
+            opt.zero_grad(set_to_none=True)
+            loss, _ = task.loss_scores(batch)
+            ev[1].record()
+            loss.backward()
+            ev[2].record()
+            opt.step()
+            sched.step()
+            ev[3].record()
+        torch.cuda.synchronize()
+        fwd, bwd, upd = (sum(ev[i].elapsed_time(ev[i + 1]) for ev in marks) / TRAIN_REPS
+                         for i in range(3))
+        peak = torch.cuda.max_memory_allocated(device) / 2**20
+        print(f"[time] [{card}] train step b{TIMING_BATCH}, {name} path: forward {fwd:.3f} ms, "
+              f"backward {bwd:.3f} ms, update {upd:.3f} ms; backward "
+              f"{bwd / (fwd + bwd + upd):.1%} of the step; peak memory {peak:.1f} MiB")
+        result[name] = dict(forward_ms=fwd, backward_ms=bwd, update_ms=upd, peak_mib=peak)
+    result.update(kernel_ms=kern_ms, plain_ms=plain_ms)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False",
@@ -365,11 +583,17 @@ def main() -> int:
     counts, features, case_params = main_path()
     compare_rollouts(device, features, case_params)
     times = timing(device, card)
+    check_gradients(device)
+    train_counts = train_path()
+    train_step_timing(device, card)
+    print(f"[main] launches on the main paths: main_multistep {counts}, "
+          f"main_auto {train_counts}")
     replaces = {"fno_block": "cfdbench_tpu/ops/pallas_fno.py:179",
                 "fno_head": "cfdbench_tpu/ops/pallas_fno.py:268"}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"cfdbench_tpu_torch/csrc/{name}.cu",
          "replaces": replaces[name], "launches": counts[name],
+         "launches_by_path": {"main_multistep": counts[name], "main_auto": train_counts[name]},
          "max_abs_err": errors[name], **times[name], "library_ms": None}
         for name in ("fno_block", "fno_head")
     ]}))

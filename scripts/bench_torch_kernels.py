@@ -117,7 +117,7 @@ def main() -> int:
     stream = torch.cuda.current_stream().cuda_stream
     print(f"[{card}] B={B} {H}x{W} C={C} modes={MODES}, inputs N(0, 1); ms per call")
     with torch.inference_mode():
-        err_block = (fk._block_call(lib, *block, stream) - want_block).abs().max().item()
+        err_block = (fk._block_call(lib, *block, stream)[0] - want_block).abs().max().item()
         err_head = (fk._head_call(lib, *head, stream) - want_head).abs().max().item()
         times = kernel_ms(lambda: fk._block_call(lib, *block, stream))
         times.update(kernel_ms(lambda: fk._head_call(lib, *head, stream)))

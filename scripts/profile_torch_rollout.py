@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
-"""Where the port's FNO rollout spends its device time, on a CUDA card.
+"""Where the port's FNO rollout, or its train step, spends its device
+time, on a CUDA card.
 
 Rolls a seeded flagship FNO (depth 4, width 32, 12 modes, 64x64) out
 for 20 steps at a batch of 128 — through the kernels, and through their
 plain PyTorch versions — under ``torch.profiler``, and prints for each
 path: the wall time, the summed device time, the device's idle share of
-the wall time, and the device time of each CUDA kernel by name.
+the wall time, and the device time of each CUDA kernel by name. With
+``--train`` it profiles 5 float32 train steps at batch 128
+(``trainer_auto.train_step``: forward, nmse, backward, Adam) instead,
+and also the device time under each autograd node (nested: a node's
+time includes the kernels it launched, so the lines overlap).
 
-    python3 scripts/profile_torch_rollout.py [--trace DIR]
+    python3 scripts/profile_torch_rollout.py [--train] [--trace DIR]
 
 ``--trace DIR`` also writes each path's Chrome trace there.
 """
@@ -25,37 +30,59 @@ from torch.profiler import ProfilerActivity, profile
 REPO_ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO_ROOT))
 
-from cfdbench_tpu_torch.models.fno import FLAGSHIP, Fno2d, fno2d_reference  # noqa: E402
+from cfdbench_tpu_torch.metrics import loss_name_to_fn  # noqa: E402
+from cfdbench_tpu_torch.models.fno import FLAGSHIP, Fno2d, PlainFno2d  # noqa: E402
+from cfdbench_tpu_torch.training.optim import make_adam  # noqa: E402
 from cfdbench_tpu_torch.training.rollout import make_rollout_fn  # noqa: E402
+from cfdbench_tpu_torch.training.trainer_auto import AutoTask, train_step  # noqa: E402
 from cfdbench_tpu_torch.utils.device import require_cuda, set_f32_numerics  # noqa: E402
 
 STEPS = 20
+TRAIN_STEPS = 5
 BATCH = 128
 
 
-def profile_path(name, roll, inputs, trace_dir):
-    roll(*inputs)  # warm-up: kernel build, allocator, cuFFT plans
+def profile_path(name, run, trace_dir, autograd_nodes=False):
+    run()  # warm-up: kernel build, allocator, cuFFT plans
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        roll(*inputs)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = [e for e in prof.key_averages() if e.device_time_total > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA]
+    averages = prof.key_averages()
+    # Kernels only: a user annotation (Adam's "Optimizer.step") spans
+    # kernels that are counted on their own.
+    events = [e for e in averages if e.device_time_total > 0
+              and e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(e.device_time_total for e in events)
     print(f"[{name}] wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
           f"idle share {1 - busy_us / wall_us:.3f}")
     for e in sorted(events, key=lambda e: -e.device_time_total)[:12]:
         print(f"[{name}]   {e.device_time_total / 1e3:9.3f} ms  {e.count:5d} x  "
               f"{e.device_time_total / busy_us:6.1%}  {e.key[:90]}")
+    if autograd_nodes:
+        nodes = [e for e in averages if e.key.startswith("autograd::engine::evaluate_function")]
+        for e in sorted(nodes, key=lambda e: -e.device_time_total)[:8]:
+            print(f"[{name}]   node {e.device_time_total / 1e3:9.3f} ms  {e.count:5d} x  "
+                  f"{e.key.split(': ', 1)[-1][:70]}")
+        # The host's side: operators by their own CPU time (the profiler
+        # adds its cost to each), and how many the run dispatched.
+        ops = [e for e in averages if e.device_type == torch.autograd.DeviceType.CPU]
+        print(f"[{name}] host: {sum(e.count for e in ops)} operator calls, "
+              f"{sum(e.self_cpu_time_total for e in ops) / 1e3:.3f} ms of self CPU time")
+        for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:8]:
+            print(f"[{name}]   host {e.self_cpu_time_total / 1e3:9.3f} ms  {e.count:5d} x  "
+                  f"{e.key[:70]}")
     if trace_dir:
         Path(trace_dir).mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(Path(trace_dir) / f"rollout_{name}.json"))
+        prof.export_chrome_trace(str(Path(trace_dir) / f"{name}.json"))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--train", action="store_true")
     ap.add_argument("--trace", default="")
     opts = ap.parse_args()
     device = require_cuda()
@@ -63,15 +90,31 @@ def main() -> int:
     gen = torch.Generator().manual_seed(1)
     B = BATCH
     model = Fno2d(n_case_params=5, **FLAGSHIP, generator=torch.Generator().manual_seed(0),
-                  device=device).eval()
+                  device=device)
     mask = torch.ones((B, 64, 64, 1))
     mask[:, 20:30, 10:40] = 0
     inputs = (torch.randn((B, 64, 64, 2), generator=gen).to(device),
               torch.randn((B, 5), generator=gen).to(device), mask.to(device))
-    print(f"{torch.cuda.get_device_name(0)}: rollout b{B} x {STEPS} steps")
-    profile_path("kernel", make_rollout_fn(model, STEPS), inputs, opts.trace)
-    plain = make_rollout_fn(lambda f, c, m: fno2d_reference(model, f, c, m), STEPS)
-    profile_path("plain", plain, inputs, opts.trace)
+    if not opts.train:
+        print(f"{torch.cuda.get_device_name(0)}: rollout b{B} x {STEPS} steps")
+        model.eval()
+        for name, fn in (("kernel", model), ("plain", PlainFno2d(model))):
+            roll = make_rollout_fn(fn, STEPS)
+            profile_path(f"rollout_{name}", lambda: roll(*inputs), opts.trace)
+        return 0
+    print(f"{torch.cuda.get_device_name(0)}: {TRAIN_STEPS} train steps b{B}")
+    batch = dict(inputs=inputs[0], case_params=inputs[1], mask=inputs[2],
+                 labels=torch.randn((B, 64, 64, 2), generator=gen).to(device),
+                 weights=torch.ones(B, device=device))
+    for name, net in (("kernel", model), ("plain", PlainFno2d(model))):
+        task = AutoTask(net, loss_name_to_fn("nmse"))
+        opt, sched = make_adam(model.parameters(), 1e-4)
+
+        def steps():
+            for _ in range(TRAIN_STEPS):
+                train_step(task, opt, sched, batch)
+
+        profile_path(f"train_{name}", steps, opts.trace, autograd_nodes=True)
     return 0
 
 

@@ -119,8 +119,11 @@ def test_fno2d_reference_matches_golden():
     np.testing.assert_allclose(got.numpy(), data["expected"], atol=ATOL)
 
 
-PORT_SCRIPTS = ("chip_smoke.py", "test_multistep_torch.py",
+PORT_SCRIPTS = ("chip_smoke.py", "test_multistep_torch.py", "train_auto_torch.py",
                 "scripts/profile_torch_rollout.py", "scripts/bench_torch_kernels.py")
+# Modules the walk below must find, so that it cannot pass by finding none.
+PORT_MODULES = ("data.datasets", "data.pipeline", "metrics", "training.optim",
+                "training.trainer_auto", "training.checkpoints")
 JAX_ROOTS = {"jax", "flax", "optax", "orbax", "cfdbench_tpu"}
 
 
@@ -149,7 +152,7 @@ def test_port_imports_no_jax():
         "import cfdbench_tpu_torch, chip_smoke",
         "mods = [m.name for m in pkgutil.walk_packages(",
         "    cfdbench_tpu_torch.__path__, 'cfdbench_tpu_torch.')]",
-        "assert 'cfdbench_tpu_torch.data.datasets' in mods, mods",
+        f"assert not {set('cfdbench_tpu_torch.' + m for m in PORT_MODULES)} - set(mods), mods",
         "for m in mods:",
         "    importlib.import_module(m)",
         *port_imports,

@@ -149,11 +149,21 @@ def kernel_case(rng, B, H, W, C, modes, n_out, device):
 def test_kernels_match_plain_in_emulation(rng, B, H, W, C, modes, n_out):
     lib = emulation()
     block, head = kernel_case(rng, B, H, W, C, modes, n_out, "cpu")
-    got = fk._block_call(lib, *block, stream=0)
-    assert torch.isfinite(got).all()
-    assert (got - fk.fno_block_reference(*block)).abs().max().item() <= 1e-4
+    check_block_with_saved(lambda *a, **k: fk._block_call(lib, *a, stream=0, **k), block)
     got = fk._head_call(lib, *head, stream=0)
     assert (got - fk.fno_head_reference(*head)).abs().max().item() <= 1e-5
+
+
+def check_block_with_saved(launch, block):
+    """The block kernel's output, and what it leaves for the backward (the
+    pre-activation and x's retained modes), against the plain versions."""
+    got, xm, pre = launch(*block, keep=True)
+    assert torch.isfinite(got).all()
+    assert (got - fk.fno_block_reference(*block)).abs().max().item() <= 1e-4
+    want_xm, want_pre = fk.fno_block_saved_reference(*block)
+    assert (pre - want_pre).abs().max().item() <= 1e-4
+    # Sums over the whole grid: held relative to the largest mode.
+    assert (xm - want_xm).abs().max().item() <= 1e-5 * want_xm.abs().max().item()
 
 
 def emulation():
@@ -227,12 +237,42 @@ def test_kernels_match_plain_on_card(cuda_device, rng, B, H, W, C, modes):
     want = fk.fno_block_reference(*block)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-4
+    lib, stream = _build.load_library(), torch.cuda.current_stream().cuda_stream
+    check_block_with_saved(lambda *a, **k: fk._block_call(lib, *a, stream, **k), block)
     got = fk.fno_head(*head)
     want = fk.fno_head_reference(*head)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-5
     after = fk.launch_counts()
     assert {k: after[k] - before[k] for k in after} == {"fno_block": 1, "fno_head": 1}
+
+
+@pytest.mark.cuda
+def test_kernel_forward_carries_gradients_on_card(cuda_device, rng):
+    # A forward under grad through both kernels reaches every parameter
+    # with the plain path's gradient (flagship widths, 64x64).
+    from cfdbench_tpu_torch.models.fno import FLAGSHIP, Fno2d, fno2d_reference
+    from cfdbench_tpu_torch.utils.device import set_f32_numerics
+
+    set_f32_numerics()
+    model = Fno2d(n_case_params=5, **FLAGSHIP, generator=torch.Generator().manual_seed(0),
+                  device=cuda_device)
+    inputs = t(rng.standard_normal((2, 64, 64, 2))).to(cuda_device)
+    cp = t(rng.standard_normal((2, 5))).to(cuda_device)
+
+    def grads(forward):
+        model.zero_grad(set_to_none=True)
+        forward(inputs, cp).square().mean().backward()
+        return {k: p.grad for k, p in model.named_parameters()}
+
+    before = fk.launch_counts()
+    got = grads(model)
+    after = fk.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {"fno_block": 4, "fno_head": 1}
+    want = grads(lambda i, c: fno2d_reference(model, i, c))
+    for k, w in want.items():
+        assert got[k] is not None, k
+        assert (got[k] - w).abs().max().item() <= 1e-4 * w.abs().max().item(), k
 
 
 def test_wrappers_refuse_other_devices():

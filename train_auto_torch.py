@@ -1,0 +1,17 @@
+#!/usr/bin/env python
+"""Autoregressive training with the PyTorch/CUDA port (counterpart of
+``train_auto.py``).
+
+Usage:
+    python train_auto_torch.py --model fno --data_name cavity_prop_bc_geo \
+        --data_dir <root> --output_dir <result root> --mode train_test
+
+It runs on the CUDA card and fails without one. To run on the CPU, through
+the kernels' plain PyTorch versions, call
+``cfdbench_tpu_torch.cli.main_auto(argv, device="cpu")``.
+"""
+
+from cfdbench_tpu_torch.cli import main_auto
+
+if __name__ == "__main__":
+    main_auto()
