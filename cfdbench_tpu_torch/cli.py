@@ -1,12 +1,16 @@
 """CLI entry points of the port (counterpart of ``cfdbench_tpu/cli.py``).
 
 ``main_auto`` (train / test) and ``main_multistep`` (rollout) are
-ported for ``--model fno``. They take the JAX package's flags (the
-port's copy of them, ``config.Args``) and run on the CUDA card; without
-one they raise. Only a caller that asks for the CPU (``device="cpu"``,
-as the tests do) runs there, through the kernels' plain PyTorch
-versions. A flag whose behaviour the port does not have raises and
-names the ROADMAP.md item that will bring it; none is ignored silently.
+ported for the autoregressive baselines: ``fno``, ``unet``, ``resnet``,
+``auto_ffn``, ``auto_deeponet``, ``auto_edeeponet`` and
+``auto_deeponet_cnn`` (``main_auto`` only: its rollout raises, as the
+JAX package's does). They take the JAX package's flags (the port's copy
+of them, ``config.Args``) and run on the CUDA card; without one they
+raise. Only a caller that asks for the CPU (``device="cpu"``, as the
+tests do) runs there, through the FNO kernels' plain PyTorch versions;
+the other models' convolutions and products are PyTorch calls on either
+device. A flag whose behaviour the port does not have raises and names
+the ROADMAP.md item that will bring it; none is ignored silently.
 ``--use_pallas_head`` changes nothing here: on the card both FNO
 kernels always run.
 """
@@ -81,6 +85,14 @@ def check_supported(args: Args) -> None:
 def check_rollout_flags(args: Args) -> None:
     """``check_supported`` and the flags only ``main_multistep`` reads."""
     check_supported(args)
+    if args.model == "auto_deeponet_cnn":
+        raise ValueError(
+            "--model auto_deeponet_cnn has no rollout: the point models feed back "
+            "their 1-channel u frame (trainer_auto.AutoTask.feedback_channels), and "
+            "AutoDeepONetCnn's first conv was built on the 2-channel input plus the "
+            "mask and case-parameter planes; the JAX package's main_multistep fails "
+            "on the same mismatch (ROADMAP.md C)"
+        )
     if args.rollout_dtype == "bfloat16":
         raise NotImplementedError(
             "--rollout_dtype bfloat16: the port rolls out in float32 only; "
@@ -127,14 +139,26 @@ def check_training_flags(args: Args) -> None:
         )
 
 
-def main_multistep(argv=None, device=None) -> None:
-    """The FNO branch of ``cfdbench_tpu.cli.main_multistep``: a 20-step
-    self-feeding rollout of every test case at once from the best
-    checkpoint's ``model.pt``, then masked-u mse/nmse/mae per step,
-    averaged over cases, into ``multistep_metrics.json``. Runs on the
-    CUDA card unless ``device`` names another; with ``device`` None and
-    no card it raises. On the card, widths or modes that the kernels
-    cannot take on the data's grid raise before the model is built."""
+def check_fno_kernel_shapes(args: Args, field_shape, device: torch.device) -> None:
+    """On the card, raise if the FNO's kernels cannot take its widths and
+    modes on the data's grid; the other models run no kernel of ours."""
+    if args.model == "fno" and device.type == "cuda":
+        check_kernel_shapes(*field_shape, args.fno_hidden_dim, args.fno_modes_x,
+                            args.fno_modes_y, HEAD_WIDTH, args.out_chan)
+
+
+def main_multistep(argv=None, device=None) -> torch.Tensor:
+    """The autoregressive branch of ``cfdbench_tpu.cli.main_multistep``:
+    a 20-step self-feeding rollout of every test case at once from the
+    best checkpoint's ``model.pt``, then masked-u mse/nmse/mae per step,
+    averaged over cases, into ``multistep_metrics.json``. The ResNet's
+    frames are ``[frame0, pred_1, …, pred_19]`` (``include_initial``, as
+    the JAX package aligns them); the point models feed back u alone.
+    Runs on the CUDA card unless ``device`` names another; with
+    ``device`` None and no card it raises. On the card, FNO widths or
+    modes that its kernels cannot take on the data's grid raise before
+    the model is built. Returns the rolled-out frames,
+    ``(steps, cases, H, W, feedback channels)``, on the device."""
     args = parse_args(argv)
     check_rollout_flags(args)
     device = require_cuda() if device is None else torch.device(device)
@@ -143,14 +167,14 @@ def main_multistep(argv=None, device=None) -> None:
     print(f"[multistep] device: {device}")
 
     features, case_params = load_test_cases(args, INFER_STEPS)
-    if device.type == "cuda":
-        check_kernel_shapes(*features.shape[2:4], args.fno_hidden_dim, args.fno_modes_x,
-                            args.fno_modes_y, HEAD_WIDTH, args.out_chan)
+    field_shape = features.shape[2:4]
+    check_fno_kernel_shapes(args, field_shape, device)
     frame0 = features[:, 0, :, :, :2]
     mask = features[:, 0, :, :, 2:3]
 
     output_dir = run_dir(args)
-    model = init_auto_model(args, n_case_params=case_params.shape[1], device=device)
+    model = init_auto_model(args, n_case_params=case_params.shape[1], field_shape=field_shape,
+                            device=device)
     model.load_state_dict(load_best_params(output_dir))
     task = AutoTask(model.eval())
 
@@ -159,7 +183,8 @@ def main_multistep(argv=None, device=None) -> None:
             np.ascontiguousarray(a, np.float32), device=device
         )
 
-    rollout = make_rollout_fn(task.predict_frame, steps=INFER_STEPS)
+    rollout = make_rollout_fn(task.predict_frame, steps=INFER_STEPS,
+                              include_initial=(args.model == "resnet"))
     before = launch_counts()
     preds = rollout(
         on_device(frame0[..., :task.feedback_channels]),
@@ -172,17 +197,18 @@ def main_multistep(argv=None, device=None) -> None:
         print(m)
     dump_json(metrics, output_dir / "multistep_metrics.json")
     plot_multistep_metrics(metrics, output_dir / "multistep_metrics.pdf")
+    return preds
 
 
 def main_auto(argv=None, device=None) -> None:
-    """The FNO branch of ``cfdbench_tpu.cli.main_auto``
+    """The autoregressive branch of ``cfdbench_tpu.cli.main_auto``
     (``src/train_auto.py:316-378``): ``--mode train`` trains with Adam
     and StepLR and writes ``ckpt-{ep}/`` per eval epoch, ``test`` scores
     the best checkpoint on the test split, ``train_test`` does both.
     Runs on the CUDA card unless ``device`` names another; with
-    ``device`` None and no card it raises. On the card, widths or modes
-    that the kernels cannot take on the data's grid raise before the
-    model is built."""
+    ``device`` None and no card it raises. On the card, FNO widths or
+    modes that its kernels cannot take on the data's grid raise before
+    the model is built."""
     args = parse_args(argv)
     check_training_flags(args)
     device = require_cuda() if device is None else torch.device(device)
@@ -214,10 +240,9 @@ def main_auto(argv=None, device=None) -> None:
     print(f"# train examples: {len(train_data) if train_data else 0}")
     print(f"# dev examples: {len(dev_data) if dev_data else 0}")
     print(f"# test examples: {len(test_data) if test_data else 0}")
-    if device.type == "cuda":
-        check_kernel_shapes(*ref.field_shape, args.fno_hidden_dim, args.fno_modes_x,
-                            args.fno_modes_y, HEAD_WIDTH, args.out_chan)
-    model = init_auto_model(args, n_case_params=ref.n_case_params, device=device)
+    check_fno_kernel_shapes(args, ref.field_shape, device)
+    model = init_auto_model(args, n_case_params=ref.n_case_params, field_shape=ref.field_shape,
+                            device=device)
     task = AutoTask(model, loss_name_to_fn(args.loss_name))
 
     if "train" in args.mode:

@@ -1,7 +1,9 @@
 """Model registry (port of ``cfdbench_tpu/models/__init__.py``).
 
-Only ``fno`` is ported; every other ``--model`` raises and names the
-ROADMAP.md item that will port it.
+The autoregressive baselines are ported: ``fno``, the conv family
+(``unet``, ``resnet``) and the point family (``auto_ffn``,
+``auto_deeponet``, ``auto_edeeponet``, ``auto_deeponet_cnn``). Every
+other ``--model`` raises and names the ROADMAP.md item that will port it.
 """
 
 from __future__ import annotations
@@ -13,17 +15,18 @@ import torch
 from ..config import Args
 
 from .fno import Fno2d
+from .point import AutoDeepONet, AutoDeepONetCnn, AutoEDeepONet, AutoFfn
+from .resnet import ResNet
+from .unet import UNet
 
-__all__ = ["init_auto_model", "get_input_shapes", "Fno2d"]
+__all__ = ["init_auto_model", "get_input_shapes", "Fno2d", "UNet", "ResNet", "AutoFfn",
+           "AutoDeepONet", "AutoEDeepONet", "AutoDeepONetCnn"]
+
+AUTO_MODELS = ("fno", "unet", "resnet", "auto_ffn", "auto_deeponet", "auto_edeeponet",
+               "auto_deeponet_cnn")
 
 _NOT_PORTED = {
     "ffno": "A12",
-    "unet": "A9",
-    "resnet": "A9",
-    "auto_ffn": "A10",
-    "auto_deeponet": "A10",
-    "auto_edeeponet": "A10",
-    "auto_deeponet_cnn": "A10",
     "ffn": "A11",
     "deeponet": "A11",
     "pixel_diffusion": "A13",
@@ -36,14 +39,14 @@ _NOT_PORTED = {
 
 
 def check_model_ported(name: str) -> None:
-    if name == "fno":
+    if name in AUTO_MODELS:
         return
     item = _NOT_PORTED.get(name)
     if item is None:
         raise ValueError(f"Invalid model name: {name}")
     raise NotImplementedError(
         f"--model {name} is not ported to PyTorch yet (ROADMAP.md {item}); "
-        "only fno is"
+        f"the ported models are {', '.join(AUTO_MODELS)}"
     )
 
 
@@ -58,24 +61,46 @@ def get_input_shapes(args: Args) -> Tuple[int, int, int]:
     return n_rows, n_cols, n_case_params
 
 
-def init_auto_model(args: Args, n_case_params: int = None, *,
+def init_auto_model(args: Args, n_case_params: int = None, field_shape=None, *,
                     generator: torch.Generator = None, device=None):
-    """Construct an autoregressive model from args. ``n_case_params``
-    may come from the dataset; it defaults to ``get_input_shapes``.
+    """Construct an autoregressive model from args. ``n_case_params`` and
+    ``field_shape`` (H, W) may come from the dataset; they default to
+    ``get_input_shapes``. The point models' sizes follow the field's.
     Initial weights come from ``generator`` (seeded with ``args.seed``
-    when omitted)."""
+    when omitted), drawn on the CPU, then moved to ``device``."""
     check_model_ported(args.model)
-    p = n_case_params if n_case_params is not None else get_input_shapes(args)[2]
+    n_rows, n_cols, default_p = get_input_shapes(args)
+    if field_shape is not None:
+        n_rows, n_cols = field_shape
+    p = n_case_params if n_case_params is not None else default_p
     if generator is None:
         generator = torch.Generator().manual_seed(args.seed)
-    return Fno2d(
-        in_chan=args.in_chan,
-        out_chan=args.out_chan,
-        n_case_params=p,
-        num_layers=args.fno_depth,
-        hidden_dim=args.fno_hidden_dim,
-        modes1=args.fno_modes_x,
-        modes2=args.fno_modes_y,
-        generator=generator,
-        device=device,
-    )
+    init = dict(generator=generator, device=device)
+    if args.model == "fno":
+        return Fno2d(in_chan=args.in_chan, out_chan=args.out_chan, n_case_params=p,
+                     num_layers=args.fno_depth, hidden_dim=args.fno_hidden_dim,
+                     modes1=args.fno_modes_x, modes2=args.fno_modes_y, **init)
+    if args.model == "unet":
+        return UNet(in_chan=args.in_chan, out_chan=args.out_chan, n_case_params=p,
+                    insert_case_params_at=args.unet_insert_case_params_at,
+                    dim=args.unet_dim, **init)
+    if args.model == "resnet":
+        return ResNet(in_chan=args.in_chan, out_chan=args.out_chan, n_case_params=p,
+                      hidden_chan=args.resnet_hidden_chan, num_blocks=args.resnet_depth,
+                      kernel_size=args.resnet_kernel_size, padding=args.resnet_padding,
+                      **init)
+    if args.model == "auto_ffn":
+        return AutoFfn(input_field_dim=n_rows * n_cols, num_case_params=p,
+                       width=args.autoffn_width, depth=args.autoffn_depth, **init)
+    if args.model == "auto_deeponet":
+        return AutoDeepONet(branch_dim=n_rows * n_cols + p, width=args.deeponet_width,
+                            branch_depth=args.branch_depth, trunk_depth=args.trunk_depth,
+                            act_name=args.act_fn, **init)
+    if args.model == "auto_edeeponet":
+        return AutoEDeepONet(dim_branch1=n_rows * n_cols, dim_branch2=p,
+                             width=args.autoedeeponet_width,
+                             branch_depth=args.autoedeeponet_depth,
+                             trunk_depth=args.autoedeeponet_depth,
+                             act_name=args.autoedeeponet_act_fn, **init)
+    return AutoDeepONetCnn(in_chan=args.in_chan, num_case_params=p,
+                           field_shape=(n_rows, n_cols), **init)

@@ -1,17 +1,19 @@
-"""Shared model pieces (port of ``cfdbench_tpu/models/common.py``, the
-parts the FNO uses). NHWC tensors; ``nn.Linear`` weight layout.
+"""Shared model pieces (port of ``cfdbench_tpu/models/common.py``). NHWC
+tensors; ``nn.Linear`` and ``nn.Conv2d`` weight layouts, so that a
+reference CFDBench ``state_dict`` loads by name.
 
 Not ported: ``dense_thin``, a TPU workaround for the backward of the
-head's fc2; ``gelu_exact``, whose rational erf was a TPU workaround for
-a missing erf lowering — the port uses ``F.gelu``, whose default is the
-true-erf GELU (the two differ by at most 1.5e-7); and
-``broadcast_params_to_channels``, since the FNO's decomposed lift
-never builds the broadcast case-parameter planes.
+FNO head's fc2; ``gelu_exact``, whose rational erf was a TPU workaround
+for a missing erf lowering — the port uses ``F.gelu``, whose default is
+the true-erf GELU (the two differ by at most 1.5e-7); ``norm_act`` and
+``Mlp``'s ``act_norm``/``act_on_output``, which only the non-auto models
+use (ROADMAP.md A11).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
@@ -23,7 +25,8 @@ def torch_kernel_init(weight: torch.Tensor,
     """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) in place — the torch
     Linear/Conv2d default (kaiming_uniform with a=sqrt(5)), drawn from
     ``generator``; fan_in is ``weight.shape[1]`` times the receptive
-    field (torch's ``(out, in, ...)`` layout)."""
+    field (torch's ``(out, in, ...)`` layout; for a transposed conv's
+    ``(in, out, kh, kw)`` that is out·kh·kw, as torch computes it)."""
     fan_in = weight.shape[1] * math.prod(weight.shape[2:])
     bound = fan_in ** -0.5
     return weight.uniform_(-bound, bound, generator=generator)
@@ -49,6 +52,83 @@ class Dense(nn.Module):
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
+
+
+class Conv(nn.Module):
+    """NHWC 2-D convolution with torch-default init drawn from
+    ``generator``; ``weight`` is ``(out, in, k, k)``. With
+    ``replicate_pad`` the border is padded by edge replication (the
+    reference's ``padding_mode="replicate"``), else with zeros."""
+
+    def __init__(self, in_chan: int, out_chan: int, kernel_size: int = 3,
+                 padding: int = 0, replicate_pad: bool = False, *,
+                 generator: torch.Generator):
+        super().__init__()
+        k = kernel_size
+        w = torch.empty((out_chan, in_chan, k, k), dtype=torch.float32)
+        b = torch.empty((out_chan,), dtype=torch.float32)
+        self.weight = nn.Parameter(torch_kernel_init(w, generator))
+        self.bias = nn.Parameter(torch_bias_init(b, in_chan * k * k, generator))
+        self.padding, self.replicate_pad = padding, replicate_pad
+
+    def forward(self, x):
+        x = x.permute(0, 3, 1, 2)  # an NCHW view of the NHWC tensor
+        p = self.padding
+        if self.replicate_pad and p:
+            x = F.pad(x, (p, p, p, p), mode="replicate")
+            p = 0
+        return F.conv2d(x, self.weight, self.bias, padding=p).permute(0, 2, 3, 1)
+
+
+class MaxPool2(nn.Module):
+    """2x2 max pool, stride 2, over the H and W of an NHWC tensor; odd
+    edges are dropped (flax's and torch's VALID pooling)."""
+
+    def forward(self, x):
+        return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
+_ACTS = {
+    "relu": nn.ReLU,
+    "tanh": nn.Tanh,
+    # The reference's "gelu" is torch's F.gelu, the exact erf.
+    "gelu": nn.GELU,
+    "swish": nn.SiLU,
+}
+
+
+def get_act_fn(name: str) -> nn.Module:
+    """Mirror of ``src/models/act_fn.py:5-18``, as a module."""
+    if name not in _ACTS:
+        raise ValueError(f"Unknown activation function: {name}")
+    return _ACTS[name]()
+
+
+class Mlp(nn.Module):
+    """Generic fully connected stack (reference ``Ffn``,
+    ``src/models/ffn.py:12-35``): Linear + act between all dims, the last
+    Linear without act. ``layers`` is the reference's ``Sequential``, a
+    Linear at every even index."""
+
+    def __init__(self, dims: Sequence[int], act_name: str = "relu", *,
+                 generator: torch.Generator):
+        super().__init__()
+        dims = list(dims)
+        layers = []
+        for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
+            if i:
+                layers.append(get_act_fn(act_name))
+            layers.append(Dense(d_in, d_out, generator=generator))
+        self.layers = nn.Sequential(*layers)
+
+    def forward(self, x):
+        return self.layers(x)
+
+
+def broadcast_params_to_channels(case_params, h: int, w: int):
+    """(B, P) → (B, H, W, P) constant channel planes (a broadcast view)."""
+    return case_params[:, None, None, :].expand(case_params.shape[0], h, w,
+                                                case_params.shape[1])
 
 
 def coord_channels(batch: int, h: int, w: int, *, dtype=torch.float32,

@@ -1,13 +1,20 @@
-"""Autoregressive trainer for the FNO (port of
+"""Autoregressive trainer (port of
 ``cfdbench_tpu/training/trainer_auto.py``, the ``train_auto`` engine).
 
-- :class:`AutoTask` couples a field model with its loss: predictions
-  against mask-multiplied labels over all channels, in float32, with the
-  batch's 0/1 sample weights.
+- :class:`AutoTask` couples a model with its loss. Field models (FNO,
+  U-Net, ResNet): masked (B, H, W, C) predictions against mask-multiplied
+  labels over all channels. Point models (the DeepONet family,
+  ``pointwise``): (B, H*W) u predictions against the flattened u labels,
+  unmasked; their rollout feeds back the 1-channel u frame. Losses in
+  float32, with the batch's 0/1 sample weights.
 - :func:`train_step`: forward, loss, backward, Adam update and one
-  schedule step. On the card the forward runs every FnoBlock and the
-  head on their kernels (``ops/fno_kernels.py``), whose autograd
-  Functions carry the gradient.
+  schedule step. On the card the FNO's forward runs every FnoBlock and
+  the head on their kernels (``ops/fno_kernels.py``), whose autograd
+  Functions carry the gradient. A model that draws in training (the
+  ResNet's dropout) gets a generator seeded from ``(seed, global
+  step)``, so a resumed run draws what a straight run draws. BatchNorm's
+  running statistics are buffers of the model: ``state_dict`` carries
+  them into every checkpoint and the ``training_state/`` snapshot.
 - :func:`evaluate` scores each batch and the input-as-prediction
   persistence baseline (``src/train_auto.py:92-97, 132-139``) under
   ``torch.no_grad``; the scores stay on the device until one transfer at
@@ -19,8 +26,6 @@
   ``train_losses.json``/``.png``. Per-step losses stay on the device,
   with one transfer per epoch.
 - :func:`test` writes ``test/preds.npy`` and ``test/scores.json``.
-
-The point models' 1-channel feedback comes with them (ROADMAP.md A10).
 """
 
 from __future__ import annotations
@@ -43,40 +48,68 @@ from .optim import make_adam, step_lr_schedule
 
 
 class AutoTask:
-    """Couples an autoregressive field model with its loss and its
-    rollout contract."""
+    """Couples an autoregressive model with its loss and its rollout
+    contract."""
 
     def __init__(self, model: nn.Module, loss_fn: Optional[LossFn] = None):
         self.model = model
         self.loss_fn = loss_fn
+        self.pointwise = getattr(model, "pointwise", False)
+
+    def forward(self, inputs, case_params, mask, generator=None):
+        """The model's own output: (B, H, W, C) for a field model, (B, H*W)
+        for a point model. ``generator`` goes to a model that draws in
+        training."""
+        if generator is None:
+            return self.model(inputs, case_params, mask)
+        return self.model(inputs, case_params, mask, generator=generator)
+
+    def as_frame(self, out, inputs):
+        """A forward's output as a (B, H, W, C) frame."""
+        if self.pointwise:
+            return out.reshape(*inputs.shape[:3], 1)
+        return out
 
     def predict_frame(self, inputs, case_params, mask):
         """Full-field next-frame prediction."""
-        return self.model(inputs, case_params, mask)
+        return self.as_frame(self.forward(inputs, case_params, mask), inputs)
 
-    def scores(self, preds, batch) -> Dict[str, torch.Tensor]:
-        """The loss dict of ``preds`` against the batch's masked labels, in
+    def scores(self, out, batch) -> Dict[str, torch.Tensor]:
+        """The loss dict of a forward's output against the batch's labels
+        (masked for a field model, the flat u for a point model), in
         float32, weighted by the batch's ``weights``."""
-        labels = batch["labels"] * batch["mask"]
-        return self.loss_fn(preds.float(), labels, sample_weights=batch.get("weights"))
+        if self.pointwise:
+            labels = batch["labels"][..., 0].reshape(out.shape[0], -1)
+        else:
+            labels = batch["labels"] * batch["mask"]
+        return self.loss_fn(out.float(), labels, sample_weights=batch.get("weights"))
 
-    def loss_scores(self, batch):
+    def loss_scores(self, batch, generator=None):
         """``(loss, scores)`` of one forward on ``batch``."""
-        s = self.scores(self.predict_frame(batch["inputs"], batch["case_params"],
-                                           batch["mask"]), batch)
+        s = self.scores(self.forward(batch["inputs"], batch["case_params"], batch["mask"],
+                                     generator), batch)
         return s[self.loss_fn.objective], s
 
     @property
     def feedback_channels(self) -> int:
-        """Channels carried through the rollout."""
+        """Channels carried through the rollout, the model's outputs: the
+        point models feed back their 1-channel u prediction (the
+        reference's quirk)."""
         return self.model.out_chan
 
 
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of global step ``step``'s random draws (dropout
+    masks), a function of ``(seed, step)`` alone."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
 def train_step(task: AutoTask, optimizer: torch.optim.Optimizer, scheduler,
-               batch) -> Dict[str, torch.Tensor]:
+               batch, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
     """One update; returns the batch's scores, detached, on the device."""
     optimizer.zero_grad(set_to_none=True)
-    loss, scores = task.loss_scores(batch)
+    loss, scores = task.loss_scores(batch, generator)
     loss.backward()
     optimizer.step()
     scheduler.step()
@@ -88,10 +121,11 @@ def eval_step(task: AutoTask, batch, with_preds: bool = True):
     """``(scores, input_scores, preds or None)``: one forward, and the
     persistence baseline — input u as the prediction of label u,
     unmasked (``src/train_auto.py:92-97``)."""
-    preds = task.predict_frame(batch["inputs"], batch["case_params"], batch["mask"])
+    out = task.forward(batch["inputs"], batch["case_params"], batch["mask"])
     input_scores = task.loss_fn(batch["inputs"][..., :1], batch["labels"][..., :1],
                                 sample_weights=batch.get("weights"))
-    return task.scores(preds, batch), input_scores, (preds if with_preds else None)
+    preds = task.as_frame(out, batch["inputs"]) if with_preds else None
+    return task.scores(out, batch), input_scores, preds
 
 
 def dataset_arrays(data: AutoDataset) -> Dict[str, np.ndarray]:
@@ -136,7 +170,7 @@ def evaluate(
     if all_preds:
         stacked = torch.stack(all_preds).cpu().numpy()
         preds_host = np.concatenate([p[:nv] for p, nv in zip(stacked, n_valids)])
-    if plot_interval and preds_host is not None:
+    if plot_interval and preds_host is not None and not task.pointwise:
         offsets = np.cumsum([0] + n_valids)
         for step, (inp_u, label_u) in plot_panels.items():
             plot_predictions(inp=inp_u, label=label_u, pred=preds_host[offsets[step], ..., 0],
@@ -225,6 +259,7 @@ def train(
 
     start_time = time.time()
     objective = task.loss_fn.objective
+    draws = getattr(model, "draws_in_training", False)
     for ep in range(start_epoch, num_epochs):
         ep_start = time.time()
         model.train()
@@ -233,7 +268,8 @@ def train(
         ep_losses_dev = []
         rng = np.random.default_rng(seed * 1_000_003 + ep)
         for step, host in enumerate(batches(arrays, batch_size, shuffle=True, rng=rng)):
-            scores = train_step(task, optimizer, scheduler, to_device(host, device))
+            gen = step_generator(seed, global_step, device) if draws else None
+            scores = train_step(task, optimizer, scheduler, to_device(host, device), gen)
             ep_losses_dev.append(scores[objective])
             global_step += 1
             if global_step % log_interval == 0:

@@ -1,95 +1,240 @@
-"""Carry the JAX package's FNO parameters into the port and back.
+"""Carry the JAX package's parameters into the port and back.
 
-The JAX ``Fno2d`` param tree (nested dicts of numpy arrays, as
+A JAX model's variables (nested dicts of numpy arrays, as
 ``model.init``/``load_params`` return them or as ``tests/_golden.py``
-decodes the ``P|…`` keys of ``tests/golden/fno.npz``) maps onto the
-port's ``Fno2d.state_dict()``:
+decodes the ``P|…``/``S|…`` keys of ``tests/golden/*.npz``) map onto the
+port model's ``state_dict()``, whose keys are the reference CFDBench
+torch models' own (the names ``cfdbench_tpu/utils/torch_import.py``
+reads), so the three layouts meet:
 
-- a flax ``Dense`` kernel ``(in, out)`` becomes an ``nn.Linear``
-  weight ``(out, in)``; biases are unchanged;
-- spectral weights keep the real-pair layout
+- a flax ``Dense`` kernel ``(in, out)`` is an ``nn.Linear`` weight
+  ``(out, in)``; biases are unchanged;
+- a flax ``Conv`` kernel ``(kh, kw, I, O)`` is a conv weight
+  ``(O, I, kh, kw)``;
+- a flax ``ConvTranspose`` kernel ``(kh, kw, I, O)`` is a transposed
+  conv weight ``(I, O, kh, kw)`` with both spatial axes flipped (torch
+  computes a true transposed conv, flax a fractionally strided one);
+- a BatchNorm's ``params`` ``{scale, bias}`` are its ``weight``/``bias``
+  and its ``batch_stats`` ``{mean, var}`` its ``running_mean``/
+  ``running_var`` buffers (``num_batches_tracked`` has no flax
+  counterpart: it is set to 0);
+- the FNO's spectral weights keep the real-pair layout
   ``(corner, re/im, in, out, m1, m2)``.
 
-========================================  =========================
-JAX path                                  port key
-========================================  =========================
-``Dense_0/Dense_0/{kernel,bias}``         ``fc0.{weight,bias}``
-``FnoBlock_i/SpectralConv2d_0/weights``   ``blocks.i.weights``
-``FnoBlock_i/Dense_0/Dense_0/…``          ``blocks.i.w0.…``
-``Dense_1/Dense_0/…``                     ``fc1.…``
-``Dense_2/Dense_0/…``                     ``fc2.…``
-========================================  =========================
+The model is recognised from the tree (or the keys): ``FnoBlock_i`` is
+the FNO, ``DoubleConv_0`` the U-Net, ``ResidualBlock_i`` the ResNet,
+``CnnBranch_0`` the AutoDeepONetCnn, three, two or one ``Mlp_i`` the
+AutoEDeepONet, AutoDeepONet or AutoFfn.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import re
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
-_DENSES = {"Dense_0": "fc0", "Dense_1": "fc1", "Dense_2": "fc2"}
+P, S = "params", "batch_stats"
+# (collection, flax path, port key, layout)
+Entry = Tuple[Optional[str], Tuple[str, ...], str, str]
+
+_TO_TORCH = {
+    "=": lambda a: a,
+    "dense": lambda a: a.T,
+    "conv": lambda a: a.transpose(3, 2, 0, 1),
+    "conv_t": lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1),
+}
+_TO_FLAX = {
+    "=": lambda a: a,
+    "dense": lambda a: a.T,
+    "conv": lambda a: a.transpose(2, 3, 1, 0),
+    "conv_t": lambda a: a.transpose(2, 3, 0, 1)[::-1, ::-1],
+}
 
 
-def _dense_to_torch(node, prefix: str, out: dict) -> None:
-    inner = node["Dense_0"]
-    out[f"{prefix}.weight"] = torch.from_numpy(
-        np.ascontiguousarray(np.asarray(inner["kernel"], np.float32).T)
-    )
-    out[f"{prefix}.bias"] = torch.from_numpy(
-        np.array(inner["bias"], np.float32)
-    )
+def _dense(path, key) -> Iterator[Entry]:
+    yield P, path + ("Dense_0", "kernel"), f"{key}.weight", "dense"
+    yield P, path + ("Dense_0", "bias"), f"{key}.bias", "="
 
 
-def params_from_flax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``Fno2d`` params → the port's ``Fno2d`` state dict. Takes the
-    ``params`` collection itself (not ``{"params": …}``)."""
-    if "params" in params:
-        raise ValueError(
-            "pass the 'params' collection, not the variables dict"
-        )
+def _conv(path, key) -> Iterator[Entry]:
+    yield P, path + ("Conv_0", "kernel"), f"{key}.weight", "conv"
+    yield P, path + ("Conv_0", "bias"), f"{key}.bias", "="
+
+
+def _mlp(path, key, n: int) -> Iterator[Entry]:
+    for j in range(n):
+        yield from _dense(path + (f"Dense_{j}",), f"{key}.layers.{2 * j}")
+
+
+def _bn(path, key) -> Iterator[Entry]:
+    yield P, path + ("scale",), f"{key}.weight", "="
+    yield P, path + ("bias",), f"{key}.bias", "="
+    yield S, path + ("mean",), f"{key}.running_mean", "="
+    yield S, path + ("var",), f"{key}.running_var", "="
+    yield None, (), f"{key}.num_batches_tracked", "count"
+
+
+def _double_conv(path, key) -> Iterator[Entry]:
+    yield from _conv(path + ("Conv_0",), f"{key}.conv1.0")
+    yield from _bn(path + ("BatchNorm_0",), f"{key}.conv1.1")
+    yield from _conv(path + ("Conv_1",), f"{key}.conv2.0")
+    yield from _bn(path + ("BatchNorm_1",), f"{key}.conv2.1")
+
+
+def _entries(family: str, shape) -> Iterator[Entry]:
+    """Every leaf of ``family``'s variables with its port key; ``shape``
+    is what varies within the family (block counts, MLP depths)."""
+    if family == "fno":
+        yield from _dense(("Dense_0",), "fc0")
+        for i in range(shape):
+            yield P, (f"FnoBlock_{i}", "SpectralConv2d_0", "weights"), f"blocks.{i}.weights", "="
+            yield from _dense((f"FnoBlock_{i}", "Dense_0"), f"blocks.{i}.w0")
+        yield from _dense(("Dense_1",), "fc1")
+        yield from _dense(("Dense_2",), "fc2")
+    elif family == "unet":
+        yield from _double_conv(("DoubleConv_0",), "in_conv")
+        for i in range(4):
+            yield from _double_conv((f"Down_{i}", "DoubleConv_0"), f"down{i + 1}.maxpool_conv.1")
+        if shape:  # insert_case_params_at="hidden"
+            yield from _dense(("Dense_0",), "case_params_fc")
+        for i in range(4):
+            yield P, (f"Up_{i}", "ConvTranspose_0", "kernel"), f"up{i + 1}.up.weight", "conv_t"
+            yield P, (f"Up_{i}", "ConvTranspose_0", "bias"), f"up{i + 1}.up.bias", "="
+            yield from _double_conv((f"Up_{i}", "DoubleConv_0"), f"up{i + 1}.conv")
+        yield from _conv(("Conv_0",), "out_conv.conv")
+    elif family == "resnet":
+        for i, projected in enumerate(shape):
+            names = ["res_conv"] * projected + ["conv1", "conv2"]
+            for j, name in enumerate(names):
+                yield from _conv((f"ResidualBlock_{i}", f"Conv_{j}"), f"blocks.{i}.{name}")
+    elif family == "auto_deeponet_cnn":
+        n_mid, n_trunk, n_out = shape
+        yield from _conv(("CnnBranch_0", "Conv_0"), "branch_net.in_conv")
+        for j in range(n_mid):
+            yield from _conv(("CnnBranch_0", f"Conv_{j + 1}"), f"branch_net.blocks.{3 * j}")
+        yield from _conv(("CnnBranch_0", f"Conv_{n_mid + 1}"), "branch_net.out_conv")
+        yield from _mlp(("Mlp_0",), "trunk_net", n_trunk)
+        yield from _mlp(("Mlp_1",), "out_ffn", n_out)
+    else:  # the MLP models: one Mlp_i per port name, in order
+        names = _MLP_NAMES[family]
+        for i, (name, n) in enumerate(zip(names, shape)):
+            yield from _mlp((f"Mlp_{i}",), name, n)
+        if family != "auto_ffn":
+            yield P, ("bias",), "bias", "="
+
+
+_MLP_NAMES = {
+    "auto_ffn": ("ffn",),
+    "auto_deeponet": ("branch_net", "trunk_net"),
+    "auto_edeeponet": ("branch1", "branch2", "trunk_net"),
+}
+
+
+def _count(prefix: str, keys) -> int:
+    pat = re.compile(re.escape(prefix) + r"(\d+)")
+    return len({m.group(1) for k in keys if (m := pat.match(k))})
+
+
+def _flax_shape(params) -> Tuple[str, Any]:
+    if "FnoBlock_0" in params:
+        return "fno", _count("FnoBlock_", params)
+    if "DoubleConv_0" in params:
+        return "unet", "Dense_0" in params
+    if "ResidualBlock_0" in params:
+        return "resnet", [len(params[f"ResidualBlock_{i}"]) == 3
+                          for i in range(_count("ResidualBlock_", params))]
+    mlps = [len(params[f"Mlp_{i}"]) for i in range(_count("Mlp_", params))]
+    if "CnnBranch_0" in params:
+        return "auto_deeponet_cnn", (len(params["CnnBranch_0"]) - 2, *mlps)
+    family = {1: "auto_ffn", 2: "auto_deeponet", 3: "auto_edeeponet"}.get(len(mlps))
+    if family is None:
+        raise KeyError(f"not a param tree of a ported model: keys {sorted(params)}")
+    return family, mlps
+
+
+def _port_shape(keys) -> Tuple[str, Any]:
+    keys = set(keys)
+    if "blocks.0.weights" in keys:
+        return "fno", _count("blocks.", (k for k in keys if k.endswith(".weights")))
+    if "in_conv.conv1.0.weight" in keys:
+        return "unet", "case_params_fc.weight" in keys
+    if "blocks.0.conv1.weight" in keys:
+        return "resnet", [f"blocks.{i}.res_conv.weight" in keys
+                          for i in range(_count("blocks.", keys))]
+    if "branch_net.in_conv.weight" in keys:
+        return "auto_deeponet_cnn", (_count("branch_net.blocks.", keys),
+                                     _count("trunk_net.layers.", keys),
+                                     _count("out_ffn.layers.", keys))
+    for family, names in _MLP_NAMES.items():
+        if all(f"{n}.layers.0.weight" in keys for n in names):
+            return family, [_count(f"{n}.layers.", keys) for n in names]
+    raise KeyError(f"not a state dict of a ported model: keys {sorted(keys)}")
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,)
+
+
+def params_from_flax(params: Dict[str, Any],
+                     batch_stats: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
+    """A JAX model's ``params`` collection (not ``{"params": …}``) and,
+    for the U-Net, its ``batch_stats`` → the port model's state dict."""
+    if P in params:
+        raise ValueError("pass the 'params' collection, not the variables dict")
+    family, shape = _flax_shape(params)
+    trees = {P: params, S: batch_stats}
+    if family == "unet" and batch_stats is None:
+        raise ValueError("the U-Net's BatchNorm needs the 'batch_stats' collection too")
     sd: Dict[str, torch.Tensor] = {}
-    for name, prefix in _DENSES.items():
-        _dense_to_torch(params[name], prefix, sd)
-    i = 0
-    while f"FnoBlock_{i}" in params:
-        blk = params[f"FnoBlock_{i}"]
-        sd[f"blocks.{i}.weights"] = torch.from_numpy(
-            np.array(blk["SpectralConv2d_0"]["weights"], np.float32)
-        )
-        _dense_to_torch(blk["Dense_0"], f"blocks.{i}.w0", sd)
-        i += 1
-    known = set(_DENSES) | {f"FnoBlock_{j}" for j in range(i)}
-    extra = sorted(set(params) - known)
-    if i == 0 or extra:
-        raise KeyError(
-            f"not an Fno2d param tree: {i} FnoBlock_i entries, "
-            f"unexpected keys {extra}"
-        )
+    used = {P: set(), S: set()}
+    for coll, path, key, layout in _entries(family, shape):
+        if layout == "count":
+            sd[key] = torch.tensor(0, dtype=torch.long)
+            continue
+        arr = np.asarray(_get(trees[coll], path), np.float32)
+        sd[key] = torch.from_numpy(np.array(_TO_TORCH[layout](arr), order="C"))
+        used[coll].add(path)
+    for coll, tree in trees.items():
+        extra = sorted("/".join(p) for p in _leaves(tree or {}) if p not in used[coll])
+        if extra:
+            raise KeyError(f"{family} {coll}: unexpected entries {extra}")
     return sd
 
 
-def _dense_to_flax(sd, prefix: str) -> dict:
-    return {
-        "Dense_0": {
-            "kernel": np.ascontiguousarray(sd[f"{prefix}.weight"].cpu().numpy().T),
-            "bias": sd[f"{prefix}.bias"].cpu().numpy(),
-        }
-    }
+def _to_flax(sd: Dict[str, torch.Tensor], collection: str) -> Dict[str, Any]:
+    family, shape = _port_shape(sd)
+    out: Dict[str, Any] = {}
+    for coll, path, key, layout in _entries(family, shape):
+        if coll != collection:
+            continue
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        arr = sd[key].detach().cpu().numpy()
+        node[path[-1]] = np.ascontiguousarray(_TO_FLAX[layout](arr))
+    return out
 
 
 def params_to_flax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """Inverse of :func:`params_from_flax`."""
-    params: Dict[str, Any] = {
-        name: _dense_to_flax(sd, prefix) for name, prefix in _DENSES.items()
-    }
-    i = 0
-    while f"blocks.{i}.weights" in sd:
-        params[f"FnoBlock_{i}"] = {
-            "SpectralConv2d_0": {
-                "weights": sd[f"blocks.{i}.weights"].cpu().numpy()
-            },
-            "Dense_0": _dense_to_flax(sd, f"blocks.{i}.w0"),
-        }
-        i += 1
-    return params
+    """Inverse of :func:`params_from_flax`: the ``params`` collection of
+    the port's state dict (or of any dict holding its parameters' keys,
+    such as their gradients)."""
+    return _to_flax(sd, P)
+
+
+def batch_stats_to_flax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The ``batch_stats`` collection of a U-Net's state dict (BatchNorm
+    running means and variances); empty for the other models."""
+    return _to_flax(sd, S)

@@ -87,6 +87,15 @@ GRAD_LOSS_RTOL = 1e-5
 GRAD_RTOL = 1e-4  # max abs diff of each gradient tensor over its max |grad|
 TRAIN_EPOCHS = 2
 TRAIN_REPS = 5
+# Phase 7: the conv and point families at their default widths.
+FAMILIES = ("unet", "resnet", "auto_ffn", "auto_deeponet", "auto_edeeponet",
+            "auto_deeponet_cnn")
+FAMILY_BATCH = 4
+FAMILY_RTOL = 1e-4  # card against CPU forward: max abs diff over max |out|
+# A bias that feeds a train-mode BatchNorm has no gradient in exact
+# arithmetic (the batch mean removes it): on either device its gradient
+# is rounding, held below this share of the model's largest gradient.
+ZERO_GRAD_RTOL = 1e-5
 # (B, H, W, channels, modes, head outputs) of phase 2.
 CHECK_SHAPES = ((8, GRID, GRID, WIDTH, MODES, 2), (8, GRID + 2, GRID + 1, WIDTH, MODES, 2),
                 (3, 18, 17, 10, 4, 3), (17, 16, 16, 8, MODES, 2),
@@ -523,6 +532,38 @@ def train_path(grid: int = GRID):
     return counts
 
 
+def step_split(task, opt, sched, batch, device, generator=None):
+    """``trainer_auto.train_step`` TRAIN_REPS times with an event between
+    its parts: mean forward (with the loss), backward and update ms, and
+    the peak memory of those steps."""
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+             for _ in range(TRAIN_REPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for ev in marks:
+        ev[0].record()
+        opt.zero_grad(set_to_none=True)
+        loss, _ = task.loss_scores(batch, generator)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        opt.step()
+        sched.step()
+        ev[3].record()
+    torch.cuda.synchronize()
+    fwd, bwd, upd = (sum(ev[i].elapsed_time(ev[i + 1]) for ev in marks) / TRAIN_REPS
+                     for i in range(3))
+    return dict(forward_ms=fwd, backward_ms=bwd, update_ms=upd,
+                peak_mib=torch.cuda.max_memory_allocated(device) / 2**20)
+
+
+def split_text(r) -> str:
+    total = r["forward_ms"] + r["backward_ms"] + r["update_ms"]
+    return (f"forward {r['forward_ms']:.3f} ms, backward {r['backward_ms']:.3f} ms, update "
+            f"{r['update_ms']:.3f} ms; backward {r['backward_ms'] / total:.1%} of the step; "
+            f"peak memory {r['peak_mib']:.1f} MiB")
+
+
 def train_step_timing(device, card):
     """Phase 6c: the float32 train step at batch 128 (Adam, forward,
     backward, update; ``trainer_auto.train_step``) on the kernel path and
@@ -543,29 +584,185 @@ def train_step_timing(device, card):
           f"{kern_ms:.3f} ms, plain path {plain_ms:.3f} ms (kernel/plain {kern_ms / plain_ms:.3f})")
     result = {}
     for name, (task, opt, sched) in paths.items():
-        marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
-                 for _ in range(TRAIN_REPS)]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(device)
-        for ev in marks:  # train_step, with an event between its parts
-            ev[0].record()
-            opt.zero_grad(set_to_none=True)
-            loss, _ = task.loss_scores(batch)
-            ev[1].record()
-            loss.backward()
-            ev[2].record()
-            opt.step()
-            sched.step()
-            ev[3].record()
-        torch.cuda.synchronize()
-        fwd, bwd, upd = (sum(ev[i].elapsed_time(ev[i + 1]) for ev in marks) / TRAIN_REPS
-                         for i in range(3))
-        peak = torch.cuda.max_memory_allocated(device) / 2**20
-        print(f"[time] [{card}] train step b{TIMING_BATCH}, {name} path: forward {fwd:.3f} ms, "
-              f"backward {bwd:.3f} ms, update {upd:.3f} ms; backward "
-              f"{bwd / (fwd + bwd + upd):.1%} of the step; peak memory {peak:.1f} MiB")
-        result[name] = dict(forward_ms=fwd, backward_ms=bwd, update_ms=upd, peak_mib=peak)
+        result[name] = step_split(task, opt, sched, batch, device)
+        print(f"[time] [{card}] train step b{TIMING_BATCH}, {name} path: "
+              + split_text(result[name]))
     result.update(kernel_ms=kern_ms, plain_ms=plain_ms)
+    return result
+
+
+def family_argv(name: str, data_root: Path):
+    return ["--model", name, "--data_name", "cavity_prop_bc_geo", "--data_dir", str(data_root),
+            "--output_dir", str(WORK / "family_result")]
+
+
+def finite_scores(run: Path, what: str) -> dict:
+    scores = {f"ckpt-{ep}": json.loads((run / f"ckpt-{ep}" / "scores.json").read_text())
+              for ep in range(TRAIN_EPOCHS)}
+    scores["test"] = json.loads((run / "test" / "scores.json").read_text())["mean"]
+    if not all(math.isfinite(v) for d in scores.values() for v in d.values()
+               if isinstance(v, float)):
+        raise RuntimeError(f"{what}: scores are not finite: {scores}")
+    return scores
+
+
+def family_paths():
+    """Phase 7a: ``main_auto --mode train_test`` and ``main_multistep``
+    for each model of the conv and point families at its default widths,
+    on the phase-6 tree. Returns each model's step-20 nmse."""
+    from cfdbench_tpu_torch.cli import main_auto, main_multistep, parse_args, run_dir
+    from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
+
+    data_root = WORK / "train_data"
+    train_flags = ["--mode", "train_test", "--num_epochs", str(TRAIN_EPOCHS),
+                   "--eval_interval", "1", "--batch_size", "16", "--eval_batch_size", "16",
+                   "--log_interval", "100"]
+    result = {}
+    for name in FAMILIES:
+        argv = family_argv(name, data_root)
+        run = run_dir(parse_args(argv))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        main_auto(argv + train_flags)
+        scores = finite_scores(run, name)
+        t1 = time.perf_counter()
+        if name == "auto_deeponet_cnn":
+            try:
+                main_multistep(argv)
+            except ValueError as e:
+                if "has no rollout" not in str(e):
+                    raise
+                print(f"[family] {name}: main_multistep refuses, as it must: {e}")
+            else:
+                raise RuntimeError(f"main_multistep --model {name} did not refuse")
+            result[name] = None
+        else:
+            frames = main_multistep(argv)
+            channels = 1 if name.startswith("auto_") else 2
+            metrics = json.loads((run / "multistep_metrics.json").read_text())
+            if (frames.shape[0] != STEPS or frames.shape[-1] != channels
+                    or not torch.isfinite(frames).all() or len(metrics) != STEPS
+                    or not all(math.isfinite(v) for m in metrics for v in m.values())):
+                raise RuntimeError(f"{name}: rollout frames {tuple(frames.shape)} (expected "
+                                   f"{STEPS} steps of {channels} channels), metrics {metrics}")
+            result[name] = metrics[-1]["nmse"]
+        counts = launch_counts()
+        if any(counts.values()):
+            raise RuntimeError(f"{name} launched FNO kernels: {counts}")
+        print(f"[family] {name}: main_auto {t1 - t0:.2f} s, dev loss "
+              f"{[scores[f'ckpt-{ep}']['dev_loss'] for ep in range(TRAIN_EPOCHS)]}, test nmse "
+              f"{scores['test']['nmse']:.6g}; main_multistep {time.perf_counter() - t1:.2f} s, "
+              f"step-20 nmse {result[name]}; FNO kernel launches {counts}")
+    return result
+
+
+def family_model(name: str, device, seed: int = SEED):
+    """``name`` at its default widths on 64x64 with 5 case parameters,
+    from a seeded init; the U-Net's running statistics set off their
+    init values, so that its eval forward uses them."""
+    from cfdbench_tpu_torch.config import Args
+    from cfdbench_tpu_torch.models import init_auto_model
+
+    model = init_auto_model(Args(model=name), n_case_params=5, field_shape=(GRID, GRID),
+                            generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for key, buf in model.named_buffers():
+            if key.endswith(("running_mean", "running_var")):
+                buf.uniform_(0.5, 2.0, generator=gen)
+    return model.to(device)
+
+
+def zero_in_exact_arithmetic(key: str) -> bool:
+    """A U-Net bias that runs only into a train-mode BatchNorm: the conv
+    biases of every DoubleConv, and the upsampling's, whose constant the
+    next replicate-padded conv keeps constant (at even grids)."""
+    return key.endswith((".conv1.0.bias", ".conv2.0.bias", ".up.bias"))
+
+
+def family_card_vs_cpu(device):
+    """Phase 7b: eval forwards on the card against the CPU, then the loss
+    and gradients of one train-mode step of the U-Net and Auto-DeepONet."""
+    batch_cpu = train_inputs(FAMILY_BATCH, torch.Generator().manual_seed(SEED + 4), "cpu")
+    batch = {k: v.to(device) for k, v in batch_cpu.items()}
+    args = ("inputs", "case_params", "mask")
+    for name in FAMILIES:
+        models = {"cpu": family_model(name, "cpu").eval(), "card": family_model(name, device).eval()}
+        with torch.no_grad():
+            want = models["cpu"](*(batch_cpu[k] for k in args))
+            got = models["card"](*(batch[k] for k in args)).cpu()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        print(f"[family] {name} eval forward B={FAMILY_BATCH} {GRID}x{GRID}, card vs CPU: max abs "
+              f"diff / max |out| {rel:.3e} (bound {FAMILY_RTOL:.0e})")
+        if not (got.shape == want.shape and rel <= FAMILY_RTOL):
+            raise RuntimeError(f"{name}: card and CPU forwards disagree ({rel:.3e})")
+    for name in ("unet", "auto_deeponet"):
+        runs = {}
+        for where, b in (("cpu", batch_cpu), ("card", batch)):
+            model = family_model(name, "cpu" if where == "cpu" else device).train()
+            loss, _ = nmse_task(model).loss_scores(b)
+            loss.backward()
+            runs[where] = loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()}
+        (loss_c, grads_c), (loss_g, grads_g) = runs["cpu"], runs["card"]
+        loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+        top = max(g.abs().max().item() for g in grads_c.values())
+        worst, zeros = 0.0, 0
+        for k, want in grads_c.items():
+            got = grads_g[k]
+            if not torch.isfinite(got).all():
+                raise RuntimeError(f"{name} {k}: no finite gradient on the card")
+            if name == "unet" and zero_in_exact_arithmetic(k):
+                noise = max(got.abs().max().item(), want.abs().max().item()) / top
+                if not noise <= ZERO_GRAD_RTOL:
+                    raise RuntimeError(f"{name} {k}: gradient {noise:.3e} of the largest, "
+                                       f"where exact arithmetic gives 0")
+                zeros += 1
+                continue
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            if not rel <= GRAD_RTOL:
+                raise RuntimeError(f"{name} {k}: card gradient disagrees, {rel:.3e} > {GRAD_RTOL}")
+            worst = max(worst, rel)
+        print(f"[family] {name} train-mode step B={FAMILY_BATCH}, card vs CPU: nmse rel diff "
+              f"{loss_rel:.3e} (bound {GRAD_LOSS_RTOL:.0e}); {len(grads_c) - zeros} gradients, "
+              f"worst max abs diff / max |grad| {worst:.3e} (bound {GRAD_RTOL:.0e}); {zeros} "
+              f"biases before a BatchNorm at rounding level (bound {ZERO_GRAD_RTOL:.0e})")
+        if not loss_rel <= GRAD_LOSS_RTOL:
+            raise RuntimeError(f"{name}: train loss on the card disagrees ({loss_rel:.3e})")
+
+
+def family_timing(device, card):
+    """Phase 7c: the float32 train step at batch 128 (Adam) with its split
+    and peak memory, and the 20-step batch-128 rollout, for the U-Net and
+    the ResNet, by CUDA events."""
+    from cfdbench_tpu_torch.training.optim import make_adam
+    from cfdbench_tpu_torch.training.rollout import make_rollout_fn
+    from cfdbench_tpu_torch.training.trainer_auto import step_generator, train_step
+
+    batch = train_inputs(TIMING_BATCH, torch.Generator().manual_seed(SEED + 5), device)
+    result = {}
+    for name in ("unet", "resnet"):
+        model = family_model(name, device).train()
+        task = nmse_task(model)
+        opt, sched = make_adam(model.parameters(), 1e-4)
+        # The ResNet's dropout draws from a generator on the card.
+        gen = step_generator(SEED, 0, device) if name == "resnet" else None
+        train_step(task, opt, sched, batch, gen)  # warm-up: cuDNN's choice of algorithms
+        step_ms = time_ms(lambda: train_step(task, opt, sched, batch, gen), TRAIN_REPS)
+        split = step_split(task, opt, sched, batch, device, gen)
+        model.eval()
+        include_initial = name == "resnet"
+        roll = make_rollout_fn(task.predict_frame, STEPS, include_initial=include_initial)
+        args = (batch["inputs"], batch["case_params"], batch["mask"])
+        roll(*args)
+        roll_ms = time_ms(lambda: roll(*args), 3)
+        predicted = TIMING_BATCH * (STEPS - include_initial)
+        fps = predicted / roll_ms * 1e3
+        print(f"[time] [{card}] {name} train step b{TIMING_BATCH} {GRID}x{GRID} f32: "
+              f"{step_ms:.3f} ms; " + split_text(split))
+        print(f"[time] [{card}] {name} rollout b{TIMING_BATCH} x {STEPS} steps: {roll_ms:.3f} ms, "
+              f"{predicted} predicted frames = {fps:.1f} frames/s")
+        result[name] = dict(train_step_ms=step_ms, **split, rollout_ms=roll_ms,
+                            rollout_frames_per_s=fps)
     return result
 
 
@@ -586,6 +783,10 @@ def main() -> int:
     check_gradients(device)
     train_counts = train_path()
     train_step_timing(device, card)
+    family = family_paths()
+    family_card_vs_cpu(device)
+    family_times = family_timing(device, card)
+    print(f"[family] [{card}] " + json.dumps({"step20_nmse": family, "timing": family_times}))
     print(f"[main] launches on the main paths: main_multistep {counts}, "
           f"main_auto {train_counts}")
     replaces = {"fno_block": "cfdbench_tpu/ops/pallas_fno.py:179",

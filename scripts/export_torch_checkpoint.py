@@ -1,12 +1,15 @@
 #!/usr/bin/env python
-"""Carry a trained JAX FNO checkpoint over to the PyTorch port.
+"""Carry a trained JAX checkpoint of an autoregressive model over to the
+PyTorch port.
 
 Loads the best checkpoint of a JAX run (an Orbax ``ckpt-*/model/`` or a
 ``model.msgpack``, the one with the lowest dev loss) with
 ``cfdbench_tpu.training.checkpoints.load_best_params`` and writes
 ``model.pt`` beside it, in the port's state-dict layout
-(``cfdbench_tpu_torch/utils/flax_import.py``). Run it where JAX is
-installed, with the run's own flags:
+(``cfdbench_tpu_torch/utils/flax_import.py``): the parameters and, for
+the U-Net, its BatchNorm running statistics as buffers. Run it where JAX
+is installed, with the run's own flags (the point models' sizes follow
+``--num_rows``/``--num_cols``, the grid they were trained on):
 
     python scripts/export_torch_checkpoint.py --model fno \
         --data_name cavity_prop_bc_geo --output_dir result \
@@ -52,9 +55,10 @@ def main(argv=None) -> Path:
     template = jax.eval_shape(
         lambda: model.init(jax.random.PRNGKey(0), *sample)
     )
-    params = dict(load_best_params(template, run_dir))["params"]
+    variables = jax.device_get(dict(load_best_params(template, run_dir)))
     path = save_params(
-        params_from_flax(jax.device_get(params)), get_best_ckpt(run_dir)
+        params_from_flax(variables["params"], variables.get("batch_stats")),
+        get_best_ckpt(run_dir),
     )
     print(f"wrote {path}")
     return path

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Where the port's FNO rollout, or its train step, spends its device
-time, on a CUDA card.
+"""Where the port's rollout, or its train step, spends its device time,
+on a CUDA card.
 
-Rolls a seeded flagship FNO (depth 4, width 32, 12 modes, 64x64) out
-for 20 steps at a batch of 128 — through the kernels, and through their
-plain PyTorch versions — under ``torch.profiler``, and prints for each
-path: the wall time, the summed device time, the device's idle share of
-the wall time, and the device time of each CUDA kernel by name. With
-``--train`` it profiles 5 float32 train steps at batch 128
+Rolls a seeded model out for 20 steps at a batch of 128 on 64x64 under
+``torch.profiler``, and prints for each path: the wall time, the summed
+device time, the device's idle share of the wall time, and the device
+time of each CUDA kernel by name. ``--model fno`` (the default) is the
+flagship FNO (depth 4, width 32, 12 modes), through the kernels and
+through their plain PyTorch versions; ``--model unet`` or ``resnet`` is
+that model at its default widths (one path: it runs no kernel of ours).
+With ``--train`` it profiles 5 float32 train steps at batch 128
 (``trainer_auto.train_step``: forward, nmse, backward, Adam) instead,
 and also the device time under each autograd node (nested: a node's
 time includes the kernels it launched, so the lines overlap).
 
-    python3 scripts/profile_torch_rollout.py [--train] [--trace DIR]
+    python3 scripts/profile_torch_rollout.py [--model fno|unet|resnet] [--train] [--trace DIR]
 
 ``--trace DIR`` also writes each path's Chrome trace there.
 """
@@ -30,11 +32,17 @@ from torch.profiler import ProfilerActivity, profile
 REPO_ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO_ROOT))
 
+from cfdbench_tpu_torch.config import Args  # noqa: E402
 from cfdbench_tpu_torch.metrics import loss_name_to_fn  # noqa: E402
+from cfdbench_tpu_torch.models import init_auto_model  # noqa: E402
 from cfdbench_tpu_torch.models.fno import FLAGSHIP, Fno2d, PlainFno2d  # noqa: E402
 from cfdbench_tpu_torch.training.optim import make_adam  # noqa: E402
 from cfdbench_tpu_torch.training.rollout import make_rollout_fn  # noqa: E402
-from cfdbench_tpu_torch.training.trainer_auto import AutoTask, train_step  # noqa: E402
+from cfdbench_tpu_torch.training.trainer_auto import (  # noqa: E402
+    AutoTask,
+    step_generator,
+    train_step,
+)
 from cfdbench_tpu_torch.utils.device import require_cuda, set_f32_numerics  # noqa: E402
 
 STEPS = 20
@@ -82,6 +90,7 @@ def profile_path(name, run, trace_dir, autograd_nodes=False):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("fno", "unet", "resnet"), default="fno")
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--trace", default="")
     opts = ap.parse_args()
@@ -89,8 +98,17 @@ def main() -> int:
     set_f32_numerics()
     gen = torch.Generator().manual_seed(1)
     B = BATCH
-    model = Fno2d(n_case_params=5, **FLAGSHIP, generator=torch.Generator().manual_seed(0),
-                  device=device)
+    init = torch.Generator().manual_seed(0)
+    if opts.model == "fno":
+        model = Fno2d(n_case_params=5, **FLAGSHIP, generator=init, device=device)
+        paths = (("kernel", model), ("plain", PlainFno2d(model)))
+    else:
+        model = init_auto_model(Args(model=opts.model), n_case_params=5, field_shape=(64, 64),
+                                generator=init, device=device)
+        paths = ((opts.model, model),)
+    include_initial = opts.model == "resnet"  # its rollout's alignment
+    # The ResNet's dropout draws in training, from a generator on the card.
+    dropout_gen = step_generator(0, 0, device) if opts.model == "resnet" else None
     mask = torch.ones((B, 64, 64, 1))
     mask[:, 20:30, 10:40] = 0
     inputs = (torch.randn((B, 64, 64, 2), generator=gen).to(device),
@@ -98,21 +116,22 @@ def main() -> int:
     if not opts.train:
         print(f"{torch.cuda.get_device_name(0)}: rollout b{B} x {STEPS} steps")
         model.eval()
-        for name, fn in (("kernel", model), ("plain", PlainFno2d(model))):
-            roll = make_rollout_fn(fn, STEPS)
+        for name, fn in paths:
+            roll = make_rollout_fn(fn, STEPS, include_initial=include_initial)
             profile_path(f"rollout_{name}", lambda: roll(*inputs), opts.trace)
         return 0
     print(f"{torch.cuda.get_device_name(0)}: {TRAIN_STEPS} train steps b{B}")
     batch = dict(inputs=inputs[0], case_params=inputs[1], mask=inputs[2],
                  labels=torch.randn((B, 64, 64, 2), generator=gen).to(device),
                  weights=torch.ones(B, device=device))
-    for name, net in (("kernel", model), ("plain", PlainFno2d(model))):
+    model.train()
+    for name, net in paths:
         task = AutoTask(net, loss_name_to_fn("nmse"))
         opt, sched = make_adam(model.parameters(), 1e-4)
 
         def steps():
             for _ in range(TRAIN_STEPS):
-                train_step(task, opt, sched, batch)
+                train_step(task, opt, sched, batch, dropout_gen)
 
         profile_path(f"train_{name}", steps, opts.trace, autograd_nodes=True)
     return 0

@@ -26,6 +26,11 @@ from cfdbench_tpu_torch.utils.flax_import import params_from_flax, params_to_fla
 from tests._golden import trees_from_flat
 from tests.test_torch_kernels import block_inputs, t
 
+# Small shapes on a few shared cores, in several test workers: one
+# thread a worker keeps torch's parallel regions from waiting on each
+# other's descheduled threads.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 GOLDEN = REPO / "tests" / "golden"
 ATOL = 2e-5  # f32 forward parity, the JAX package's own golden bound
@@ -123,7 +128,8 @@ PORT_SCRIPTS = ("chip_smoke.py", "test_multistep_torch.py", "train_auto_torch.py
                 "scripts/profile_torch_rollout.py", "scripts/bench_torch_kernels.py")
 # Modules the walk below must find, so that it cannot pass by finding none.
 PORT_MODULES = ("data.datasets", "data.pipeline", "metrics", "training.optim",
-                "training.trainer_auto", "training.checkpoints")
+                "training.trainer_auto", "training.checkpoints", "models.unet",
+                "models.resnet", "models.point", "utils.flax_import")
 JAX_ROOTS = {"jax", "flax", "optax", "orbax", "cfdbench_tpu"}
 
 

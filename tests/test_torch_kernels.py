@@ -22,6 +22,11 @@ from cfdbench_tpu_torch.ops import _build
 from cfdbench_tpu_torch.ops import fno_kernels as fk
 from cfdbench_tpu_torch.ops.spectral import clamp_modes, spectral_conv2d_fft
 
+# Small shapes on a few shared cores, in several test workers: one
+# thread a worker keeps torch's parallel regions from waiting on each
+# other's descheduled threads.
+torch.set_num_threads(1)
+
 
 @pytest.fixture()
 def rng():

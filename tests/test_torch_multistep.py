@@ -29,6 +29,11 @@ from cfdbench_tpu_torch.training import checkpoints as ckpt
 from cfdbench_tpu_torch.training import rollout
 from cfdbench_tpu_torch.utils.flax_import import params_from_flax
 
+# Small shapes on a few shared cores, in several test workers: one
+# thread a worker keeps torch's parallel regions from waiting on each
+# other's descheduled threads.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 MODEL_FLAGS = [
     "--model", "fno", "--fno_depth", "2", "--fno_hidden_dim", "8",
@@ -156,6 +161,40 @@ def test_export_torch_checkpoint(synth_root, tmp_path):
         torch.testing.assert_close(sd[k], want[k], rtol=0, atol=0)
 
 
+def test_export_torch_checkpoint_carries_batch_stats(synth_root, tmp_path, rng):
+    """A JAX U-Net checkpoint: its BatchNorm statistics become the port's
+    buffers, and the file loads into the port's model."""
+    from cfdbench_tpu.models.unet import UNet as JaxUNet
+    from cfdbench_tpu_torch.config import Args as PortArgs
+    from cfdbench_tpu_torch.models import init_auto_model
+
+    argv = ["--model", "unet", "--unet_dim", "4", "--data_name", "cavity_prop_bc_geo",
+            "--data_dir", str(synth_root), "--output_dir", str(tmp_path), "--mesh_shape", "1"]
+    run_dir = get_output_dir(Args.parse_args(argv), is_auto=True)
+    variables = jax.eval_shape(lambda: JaxUNet(dim=4).init(
+        jax.random.PRNGKey(0), np.zeros((1, 64, 64, 2), np.float32),
+        np.zeros((1, 5), np.float32), np.ones((1, 64, 64, 1), np.float32)))
+    variables = jax.tree.map(
+        lambda a: rng.standard_normal(a.shape).astype(np.float32), variables)
+    jax_save_params(variables, run_dir / "ckpt-0")
+    dump_json(dict(ep=0, train_loss=0.0, dev_loss=0.0, time=0.0),
+              run_dir / "ckpt-0" / "scores.json")
+    spec = importlib.util.spec_from_file_location(
+        "export_torch_checkpoint", REPO / "scripts" / "export_torch_checkpoint.py"
+    )
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    script.main(argv)
+    sd = ckpt.load_best_params(run_dir)
+    want = params_from_flax(variables["params"], variables["batch_stats"])
+    assert sd.keys() == want.keys()
+    assert sum(k.endswith("running_var") for k in sd) == 18  # two BatchNorms a DoubleConv
+    for k in sd:
+        torch.testing.assert_close(sd[k], want[k], rtol=0, atol=0)
+    model = init_auto_model(PortArgs.parse_args(argv), n_case_params=5)
+    model.load_state_dict(sd)
+
+
 def test_save_checkpoint_best_is_lowest_dev_loss(tmp_path):
     w = torch.arange(3.0)
     for ep, dev_loss in ((0, 0.5), (1, 0.2), (2, 0.9)):
@@ -175,7 +214,7 @@ def test_save_checkpoint_best_is_lowest_dev_loss(tmp_path):
         (["--compilation_cache_dir", "cache"], "A17"),
         (["--matmul_precision", "high"], "A17"),
         (["--profile_dir", "trace"], "A7"),
-        (["--model", "unet"], "A9"),
+        (["--model", "ffn"], "A11"),
     ],
 )
 def test_cli_refuses_unported_flags(tmp_path, flags, error):
@@ -183,6 +222,34 @@ def test_cli_refuses_unported_flags(tmp_path, flags, error):
                           "--data_dir", str(tmp_path)] + flags
     with pytest.raises(NotImplementedError, match=error):
         main_multistep(argv)
+
+
+def test_auto_deeponet_cnn_rollout_raises_in_both_packages(synth_root, tmp_path):
+    """The point models feed back 1-channel frames, which AutoDeepONetCnn's
+    first conv, built on 2 + 1 + P channels, cannot take: the JAX
+    main_multistep fails on the kernel's shape, the port refuses by name
+    before reading anything."""
+    from flax.errors import ScopeParamShapeError
+
+    from cfdbench_tpu_torch.config import Args as PortArgs
+    from cfdbench_tpu_torch.models import init_auto_model
+    from cfdbench_tpu_torch.utils.flax_import import params_to_flax
+
+    argv = ["--model", "auto_deeponet_cnn", "--data_name", "cavity_prop_bc_geo",
+            "--data_dir", str(synth_root), "--output_dir", str(tmp_path), "--mesh_shape", "1"]
+    run_dir = get_output_dir(Args.parse_args(argv), is_auto=True)
+    sd = init_auto_model(PortArgs.parse_args(argv), n_case_params=5,
+                         field_shape=(16, 16)).state_dict()
+    jax_save_params({"params": params_to_flax(sd)}, run_dir / "ckpt-0")
+    ckpt.save_params(sd, run_dir / "ckpt-0")
+    dump_json(dict(ep=0, train_loss=0.0, dev_loss=0.0, time=0.0),
+              run_dir / "ckpt-0" / "scores.json")
+    with pytest.raises(ScopeParamShapeError,
+                       match=r"expected .*\(5, 5, 7, 32\).* has shape \(5, 5, 8, 32\)"):
+        jax_main_multistep(argv)
+    with pytest.raises(ValueError, match="auto_deeponet_cnn has no rollout.*ROADMAP.md C"):
+        main_multistep(argv, device="cpu")
+    assert not (run_dir / "multistep_metrics.json").exists()
 
 
 def test_main_multistep_needs_a_card_unless_told_cpu(synth_root, tmp_path, monkeypatch):

@@ -34,6 +34,11 @@ from tests._golden import trees_from_flat
 from tests.test_torch_kernels import block_inputs, emulation, t
 from tests.test_torch_multistep import MODEL_FLAGS, jax_params
 
+# Small shapes on a few shared cores, in several test workers: one
+# thread a worker keeps torch's parallel regions from waiting on each
+# other's descheduled threads.
+torch.set_num_threads(1)
+
 GOLDEN = Path(__file__).resolve().parent / "golden"
 SCORE_ATOL = 1e-7
 LOSS_RTOL = 1e-4  # per-step train losses of the two trainers from the same weights
@@ -474,7 +479,7 @@ def test_saved_state_holds_detached_host_copies(tmp_path):
         (["--gradient_accumulation_steps", "4"], "ROADMAP.md C"),
         (["--use_gradient_checkpointing"], "ROADMAP.md C"),
         (["--spectral_backend", "fft"], "A17"),
-        (["--model", "unet"], "A9"),
+        (["--model", "ffn"], "A11"),
     ],
 )
 def test_main_auto_refuses_unported_flags(tmp_path, flags, error):
@@ -497,6 +502,88 @@ def test_main_auto_needs_a_card_unless_told_cpu(port_tree, tmp_path, monkeypatch
     assert not (run_dir(tmp_path) / "test").exists()
     cli.main_auto(argv + ["--mode", "test"], device="cpu")
     assert "nmse" in json.loads((run_dir(tmp_path) / "test" / "scores.json").read_text())["mean"]
+
+
+# The conv and point families at narrow widths, as flags of both packages.
+FAMILY_FLAGS = {
+    "unet": ["--model", "unet", "--unet_dim", "4"],
+    "resnet": ["--model", "resnet", "--resnet_hidden_chan", "8", "--resnet_depth", "1"],
+    "auto_ffn": ["--model", "auto_ffn", "--autoffn_width", "16", "--autoffn_depth", "2"],
+    "auto_deeponet": ["--model", "auto_deeponet", "--deeponet_width", "16",
+                      "--branch_depth", "2", "--trunk_depth", "2"],
+    "auto_edeeponet": ["--model", "auto_edeeponet", "--autoedeeponet_width", "16",
+                       "--autoedeeponet_depth", "2"],
+    "auto_deeponet_cnn": ["--model", "auto_deeponet_cnn"],
+}
+
+
+def family_argv(model, data_root, epochs, eval_interval=1):
+    return FAMILY_FLAGS[model] + train_argv(data_root, epochs, eval_interval)[len(MODEL_FLAGS):]
+
+
+def family_run(argv) -> Path:
+    from cfdbench_tpu_torch.config import Args
+    from cfdbench_tpu_torch.utils.artifacts import get_output_dir
+
+    return get_output_dir(Args.parse_args(argv), is_auto=True)
+
+
+def test_resnet_resume_continues_as_one_run(port_tree, tmp_path):
+    """The ResNet trains with dropout on, its masks drawn from (seed,
+    global step): one epoch, then --resume for a second, gives a straight
+    two-epoch run's per-step losses and weights bit for bit."""
+    argv = family_argv("resnet", port_tree, 2) + ["--mode", "train",
+                                                  "--plot_train_examples", "0"]
+    straight, resumed = tmp_path / "straight", tmp_path / "resumed"
+    cli.main_auto(argv + ["--output_dir", str(straight)], device="cpu")
+    cli.main_auto(argv + ["--output_dir", str(resumed), "--num_epochs", "1"], device="cpu")
+    cli.main_auto(argv + ["--output_dir", str(resumed), "--resume", "1"], device="cpu")
+    runs = [family_run(argv + ["--output_dir", str(d)]) for d in (straight, resumed)]
+    losses = [json.loads((r / "train_losses.json").read_text()) for r in runs]
+    assert len(losses[0]) > 2 and losses[0] == losses[1]
+    for name in ("ckpt-1/model.pt", "training_state/model.pt"):
+        got, want = (torch.load(r / name, weights_only=True) for r in runs)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("model", list(FAMILY_FLAGS))
+def test_entry_points_need_a_card_for_every_model(port_tree, tmp_path, monkeypatch, model):
+    """No card and no device given: both entry points raise before they
+    read or write anything; auto_deeponet_cnn's rollout raises first, on
+    its own (ROADMAP.md C)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = family_argv(model, port_tree, 1) + ["--output_dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="CUDA device is required"):
+        cli.main_auto(argv)
+    if model == "auto_deeponet_cnn":
+        with pytest.raises(ValueError, match="auto_deeponet_cnn has no rollout"):
+            cli.main_multistep(argv)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA device is required"):
+            cli.main_multistep(argv)
+    assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("model", ["unet", "auto_deeponet"])
+def test_main_auto_on_the_card_checks_kernel_shapes_for_the_fno_only(
+        port_tree, tmp_path, monkeypatch, model):
+    # Only the FNO runs the kernels: for another model the card path goes
+    # straight to building it, without reading the kernels' limits.
+    class Built(Exception):
+        pass
+
+    def build_model(*args, **kwargs):
+        raise Built
+
+    def no_library():
+        raise AssertionError("the kernels' limits were read for a model that runs none")
+
+    monkeypatch.setattr(fk, "load_library", no_library)
+    monkeypatch.setattr(cli, "init_auto_model", build_model)
+    argv = family_argv(model, port_tree, 1) + ["--output_dir", str(tmp_path),
+                                               "--fno_hidden_dim", "160"]
+    with pytest.raises(Built):
+        cli.main_auto(argv, device="cuda")
 
 
 def test_main_auto_on_the_card_refuses_shapes_its_kernels_cannot_take(

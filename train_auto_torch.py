@@ -6,9 +6,10 @@ Usage:
     python train_auto_torch.py --model fno --data_name cavity_prop_bc_geo \
         --data_dir <root> --output_dir <result root> --mode train_test
 
-It runs on the CUDA card and fails without one. To run on the CPU, through
-the kernels' plain PyTorch versions, call
-``cfdbench_tpu_torch.cli.main_auto(argv, device="cpu")``.
+``--model`` is fno, unet, resnet, auto_ffn, auto_deeponet, auto_edeeponet or
+auto_deeponet_cnn. It runs on the CUDA card and fails without one.
+To run on the CPU (the FNO through its kernels' plain PyTorch versions),
+call ``cfdbench_tpu_torch.cli.main_auto(argv, device="cpu")``.
 """
 
 from cfdbench_tpu_torch.cli import main_auto
