@@ -1,10 +1,11 @@
 """Data for the port (counterpart of ``cfdbench_tpu/data``).
 
-The port keeps its own copies of the JAX package's numpy data code —
-case loaders, splits, the synthetic generator, the case-parameter order
-— limited to what the autoregressive slice uses (``core.py``,
-``datasets.py``, ``synthetic.py``), and reads files with ``np.load``.
-``tests/test_torch_host.py`` holds the copies bit-equal to the JAX
+The port keeps its own copies of the JAX package's numpy data code
+(case loaders, splits, the synthetic generator, the case-parameter
+order: ``core.py``, ``datasets.py``, ``synthetic.py``) and reads files
+with ``np.load``. ``get_dataset`` builds the non-autoregressive models'
+frame datasets, ``get_auto_dataset`` the frame pairs of the
+autoregressive ones. ``tests/test_torch_host.py`` holds the copies bit-equal to the JAX
 package's on a seeded synthetic tree. ``load_test_cases`` turns a split
 into the arrays the port's rollout takes.
 
@@ -24,10 +25,11 @@ import numpy as np
 from ..config import Args
 from ..training.rollout import pad_case_features
 from .core import PROBLEMS, collect_case_dirs, params_to_vector, split_cases
-from .datasets import AutoDataset, build_auto_dataset
+from .datasets import AutoDataset, FrameDataset, build_auto_dataset, build_frame_dataset
 from .synthetic import generate_all
 
-__all__ = ["AutoDataset", "generate_all", "get_auto_dataset", "load_test_cases"]
+__all__ = ["AutoDataset", "FrameDataset", "generate_all", "get_auto_dataset", "get_dataset",
+           "load_test_cases"]
 
 SPLITS = ("train", "dev", "test")
 
@@ -37,6 +39,22 @@ def _parse(data_name: str) -> Tuple[str, str]:
     if problem not in PROBLEMS:
         raise ValueError(f"invalid problem: {problem}")
     return problem, data_name[len(problem) + 1:]
+
+
+def get_dataset(
+    data_name: str,
+    data_dir: Path,
+    norm_props: bool,
+    norm_bc: bool,
+    seed: int = 0,
+) -> Tuple[FrameDataset, FrameDataset, FrameDataset]:
+    """Frame datasets (train, dev, test) for the non-autoregressive models."""
+    problem, subsets = _parse(data_name)
+    case_dirs = collect_case_dirs(Path(data_dir) / problem, subsets)
+    return tuple(
+        build_frame_dataset(problem, s, norm_props, norm_bc)
+        for s in split_cases(case_dirs, seed=seed)
+    )
 
 
 def get_auto_dataset(

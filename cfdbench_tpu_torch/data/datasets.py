@@ -1,11 +1,13 @@
-"""Packed frame-pair datasets for the autoregressive models (the port's
-own copy of the auto half of ``cfdbench_tpu/data/datasets.py``).
+"""Packed datasets (the port's own copy of
+``cfdbench_tpu/data/datasets.py``): frame pairs for the autoregressive
+models (``AutoDataset``), frames for the non-autoregressive ones
+(``FrameDataset``).
 
 Dense host arrays instead of the reference's per-pair tensor lists, with
 the reference's semantics: pair slicing, convergence truncation, NaN
 checks and case-param vectorization (``src/dataset/cavity.py:274-331``).
-The non-auto ``FrameDataset`` comes with the non-auto slice (ROADMAP.md
-A11).
+Cases are read one after another with ``np.load``; the JAX package's
+chunk prefetcher, an I/O optimisation, is not copied.
 """
 
 from __future__ import annotations
@@ -56,6 +58,56 @@ class AutoDataset:
     @property
     def n_case_params(self) -> int:
         return self.case_params.shape[1]
+
+
+@dataclass
+class FrameDataset:
+    """Frame-indexed dataset for non-autoregressive models: each example
+    is (case_params, t, frame), t the frame's index within its case
+    (``CavityFlowDataset.__getitem__``, ``cavity.py:199-205``)."""
+
+    frames: np.ndarray        # (N, H, W, 3)
+    frame_t: np.ndarray       # (N,) float32, frame index within its case
+    case_params: np.ndarray   # (N, P), in FRAME_PARAM_KEYS order
+    case_ids: np.ndarray      # (N,) int32
+    case_params_list: List[Dict[str, float]]
+
+    def __len__(self) -> int:
+        return self.frames.shape[0]
+
+    @property
+    def field_shape(self):
+        return self.frames.shape[1:3]
+
+    @property
+    def n_case_params(self) -> int:
+        return self.case_params.shape[1]
+
+    @property
+    def num_points(self) -> int:
+        """Pointwise examples in all (``sample_point_by_point``'s length,
+        ``src/dataset/cavity.py:207-209``)."""
+        h, w = self.field_shape
+        return len(self) * h * w
+
+    def point_examples(self, idxs: np.ndarray):
+        """Vectorised ``sample_point_by_point`` (``cavity.py:180-196``):
+        global point index → (case_params, query (t, x, y), u value).
+        ``idx // (h·w)`` is the frame and the rest is row-major within it:
+        y = pix // w is the ROW, x = pix % w the COLUMN (the reference's
+        convention; x is the fast axis)."""
+        h, w = self.field_shape
+        num_pixels = h * w
+        frame_idx = idxs // num_pixels
+        pix = idxs % num_pixels
+        y = pix // w
+        x = pix % w
+        query = np.stack(
+            [self.frame_t[frame_idx], x.astype(np.float32), y.astype(np.float32)],
+            axis=-1,
+        )
+        values = self.frames[frame_idx, y, x, 0]
+        return self.case_params[frame_idx], query, values
 
 
 # Problems whose auto datasets truncate at convergence. dam loads all
@@ -233,5 +285,51 @@ def _build_auto_arrays(problem, case_dirs, time_step_size,
         case_params=np.concatenate(all_params).astype(np.float32),
         case_ids=np.concatenate(all_case_ids),
         all_features=all_features,
+        case_params_list=params_list,
+    )
+
+
+# Per-problem case-param key order of the frame datasets (the reference
+# classes' ``case_params_keys``, e.g. ``cavity.py:68-74``).
+FRAME_PARAM_KEYS = {
+    "cavity": ["vel_top", "density", "viscosity", "height", "width"],
+    "tube": ["vel_in", "density", "viscosity", "height", "width"],
+    "dam": ["velocity", "density", "viscosity", "height", "width"],
+    "cylinder": [
+        "vel_in", "density", "viscosity", "height", "width",
+        "center_x", "center_y", "radius",
+    ],
+}
+
+
+def build_frame_dataset(
+    problem: str,
+    case_dirs: Sequence[Path],
+    norm_props: bool,
+    norm_bc: bool,
+) -> FrameDataset:
+    if len(case_dirs) == 0:
+        raise ValueError(
+            f"{problem}: split has 0 cases — too few cases for an 80/10/10 "
+            "case-level split; add cases or merge subsets"
+        )
+    keys = FRAME_PARAM_KEYS[problem]
+    frames, frame_t, params_rows, case_ids = [], [], [], []
+    params_list: List[Dict[str, float]] = []
+    for case_id, case_dir in enumerate(case_dirs):
+        case = load_case(problem, Path(case_dir))
+        normalize_case_params(problem, case.params, norm_props, norm_bc)
+        params_list.append(case.params)
+        pvec = np.asarray([case.params[k] for k in keys], dtype=np.float32)
+        T = case.num_frames
+        frames.append(case.features)
+        frame_t.append(np.arange(T, dtype=np.float32))
+        params_rows.append(np.broadcast_to(pvec, (T, pvec.size)))
+        case_ids.append(np.full((T,), case_id, dtype=np.int32))
+    return FrameDataset(
+        frames=np.concatenate(frames).astype(np.float32),
+        frame_t=np.concatenate(frame_t),
+        case_params=np.concatenate(params_rows).astype(np.float32),
+        case_ids=np.concatenate(case_ids),
         case_params_list=params_list,
     )

@@ -1,34 +1,41 @@
 """Model registry (port of ``cfdbench_tpu/models/__init__.py``).
 
-The autoregressive baselines are ported: ``fno``, the conv family
-(``unet``, ``resnet``) and the point family (``auto_ffn``,
-``auto_deeponet``, ``auto_edeeponet``, ``auto_deeponet_cnn``). Every
-other ``--model`` raises and names the ROADMAP.md item that will port it.
+Every model of the JAX package but the generative tier is ported: the
+autoregressive ones (``fno``, ``ffno``, the conv family ``unet`` and
+``resnet``, the point family ``auto_ffn``, ``auto_deeponet``,
+``auto_edeeponet`` and ``auto_deeponet_cnn``), built by
+:func:`init_auto_model` for ``main_auto``, and the non-autoregressive
+``ffn`` and ``deeponet``, built by :func:`init_nonauto_model` for
+``main_train``. ``main_multistep`` rolls out either kind. The generative
+models raise and name ROADMAP.md A13.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ..config import Args
 
+from .ffno import Ffno2d
 from .fno import Fno2d
+from .nonauto import DeepONet, FfnModel
 from .point import AutoDeepONet, AutoDeepONetCnn, AutoEDeepONet, AutoFfn
 from .resnet import ResNet
 from .unet import UNet
 
-__all__ = ["init_auto_model", "get_input_shapes", "Fno2d", "UNet", "ResNet", "AutoFfn",
-           "AutoDeepONet", "AutoEDeepONet", "AutoDeepONetCnn"]
+__all__ = ["init_auto_model", "init_nonauto_model", "get_input_shapes", "Fno2d", "Ffno2d",
+           "UNet", "ResNet", "AutoFfn", "AutoDeepONet", "AutoEDeepONet", "AutoDeepONetCnn",
+           "FfnModel", "DeepONet"]
 
-AUTO_MODELS = ("fno", "unet", "resnet", "auto_ffn", "auto_deeponet", "auto_edeeponet",
+AUTO_MODELS = ("fno", "ffno", "unet", "resnet", "auto_ffn", "auto_deeponet", "auto_edeeponet",
                "auto_deeponet_cnn")
+NONAUTO_MODELS = ("ffn", "deeponet")
+# The entry point that trains each kind, and its root script.
+ENTRY_POINTS = {"auto": "main_auto (train_auto_torch.py)", "nonauto": "main_train (train_torch.py)"}
 
 _NOT_PORTED = {
-    "ffno": "A12",
-    "ffn": "A11",
-    "deeponet": "A11",
     "pixel_diffusion": "A13",
     "latent_diffusion": "A13",
     "latent_diffusion2": "A13",
@@ -38,15 +45,28 @@ _NOT_PORTED = {
 }
 
 
-def check_model_ported(name: str) -> None:
-    if name in AUTO_MODELS:
-        return
+def check_model_ported(name: str, regime: Optional[str] = None) -> None:
+    """Raise unless ``--model name`` is ported, and, when ``regime`` is
+    given, is of that kind: ``"auto"`` for ``main_auto``, ``"nonauto"``
+    for ``main_train``. A model of the other kind raises a ValueError
+    that names the entry point that trains it (the JAX package raises
+    ``Invalid model name`` there)."""
+    kinds = {"auto": AUTO_MODELS, "nonauto": NONAUTO_MODELS}
+    for kind, models in kinds.items():
+        if name in models:
+            if regime is not None and kind != regime:
+                raise ValueError(
+                    f"Invalid model name: {name} is "
+                    f"{'an autoregressive' if kind == 'auto' else 'a non-autoregressive'} "
+                    f"model; train it with {ENTRY_POINTS[kind]}"
+                )
+            return
     item = _NOT_PORTED.get(name)
     if item is None:
         raise ValueError(f"Invalid model name: {name}")
     raise NotImplementedError(
         f"--model {name} is not ported to PyTorch yet (ROADMAP.md {item}); "
-        f"the ported models are {', '.join(AUTO_MODELS)}"
+        f"the ported models are {', '.join(AUTO_MODELS + NONAUTO_MODELS)}"
     )
 
 
@@ -68,7 +88,7 @@ def init_auto_model(args: Args, n_case_params: int = None, field_shape=None, *,
     ``get_input_shapes``. The point models' sizes follow the field's.
     Initial weights come from ``generator`` (seeded with ``args.seed``
     when omitted), drawn on the CPU, then moved to ``device``."""
-    check_model_ported(args.model)
+    check_model_ported(args.model, "auto")
     n_rows, n_cols, default_p = get_input_shapes(args)
     if field_shape is not None:
         n_rows, n_cols = field_shape
@@ -80,6 +100,10 @@ def init_auto_model(args: Args, n_case_params: int = None, field_shape=None, *,
         return Fno2d(in_chan=args.in_chan, out_chan=args.out_chan, n_case_params=p,
                      num_layers=args.fno_depth, hidden_dim=args.fno_hidden_dim,
                      modes1=args.fno_modes_x, modes2=args.fno_modes_y, **init)
+    if args.model == "ffno":
+        return Ffno2d(in_chan=args.in_chan, out_chan=args.out_chan, n_case_params=p,
+                      num_layers=args.fno_depth, hidden_dim=args.fno_hidden_dim,
+                      modes1=args.fno_modes_x, modes2=args.fno_modes_y, **init)
     if args.model == "unet":
         return UNet(in_chan=args.in_chan, out_chan=args.out_chan, n_case_params=p,
                     insert_case_params_at=args.unet_insert_case_params_at,
@@ -104,3 +128,27 @@ def init_auto_model(args: Args, n_case_params: int = None, field_shape=None, *,
                              act_name=args.autoedeeponet_act_fn, **init)
     return AutoDeepONetCnn(in_chan=args.in_chan, num_case_params=p,
                            field_shape=(n_rows, n_cols), **init)
+
+
+def init_nonauto_model(args: Args, n_case_params: int = None, *,
+                       generator: torch.Generator = None, device=None):
+    """Construct a non-autoregressive model from args
+    (``src/train.py:254-292``); ``n_case_params`` defaults to 8 for
+    cylinder, else 5. ``--act_fn``, ``--act_scale_invariant`` and
+    ``--act_on_output`` reach the DeepONet only: the FFN always runs the
+    scale-invariant ReLU, as in the JAX package. Initial weights come
+    from ``generator`` (seeded with ``args.seed`` when omitted), drawn on
+    the CPU, then moved to ``device``."""
+    check_model_ported(args.model, "nonauto")
+    p = n_case_params
+    if p is None:
+        p = 8 if "cylinder" in args.data_name else 5
+    if generator is None:
+        generator = torch.Generator().manual_seed(args.seed)
+    init = dict(generator=generator, device=device)
+    if args.model == "deeponet":
+        return DeepONet(n_case_params=p, width=args.deeponet_width,
+                        branch_depth=args.branch_depth, trunk_depth=args.trunk_depth,
+                        act_name=args.act_fn, act_norm=bool(args.act_scale_invariant),
+                        act_on_output=bool(args.act_on_output), **init)
+    return FfnModel(n_case_params=p, width=args.ffn_width, depth=args.ffn_depth, **init)

@@ -5,9 +5,7 @@ reference CFDBench ``state_dict`` loads by name.
 Not ported: ``dense_thin``, a TPU workaround for the backward of the
 FNO head's fc2; ``gelu_exact``, whose rational erf was a TPU workaround
 for a missing erf lowering — the port uses ``F.gelu``, whose default is
-the true-erf GELU (the two differ by at most 1.5e-7); ``norm_act`` and
-``Mlp``'s ``act_norm``/``act_on_output``, which only the non-auto models
-use (ROADMAP.md A11).
+the true-erf GELU (the two differ by at most 1.5e-7).
 """
 
 from __future__ import annotations
@@ -97,28 +95,55 @@ _ACTS = {
 }
 
 
-def get_act_fn(name: str) -> nn.Module:
-    """Mirror of ``src/models/act_fn.py:5-18``, as a module."""
+def norm_act(act: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Scale-invariant activation (``src/models/act_fn.py:33-47``): each
+    sample (the leading axis) is normalised over all its other axes with
+    the unbiased std, activated, and de-normalised."""
+    dims = tuple(range(1, x.dim()))
+    mean = x.mean(dim=dims, keepdim=True)
+    n = math.prod(x.shape[1:])
+    std = ((x - mean).square().sum(dim=dims, keepdim=True) / max(n - 1, 1)).sqrt()
+    return act((x - mean) / std) * std + mean
+
+
+class NormAct(nn.Module):
+    """:func:`norm_act` of ``act``, as a module without parameters."""
+
+    def __init__(self, act: nn.Module):
+        super().__init__()
+        self.act = act
+
+    def forward(self, x):
+        return norm_act(self.act, x)
+
+
+def get_act_fn(name: str, norm: bool = False) -> nn.Module:
+    """Mirror of ``src/models/act_fn.py:5-18``, as a module; ``norm``
+    wraps it in :class:`NormAct`."""
     if name not in _ACTS:
         raise ValueError(f"Unknown activation function: {name}")
-    return _ACTS[name]()
+    act = _ACTS[name]()
+    return NormAct(act) if norm else act
 
 
 class Mlp(nn.Module):
     """Generic fully connected stack (reference ``Ffn``,
     ``src/models/ffn.py:12-35``): Linear + act between all dims, the last
-    Linear without act. ``layers`` is the reference's ``Sequential``, a
-    Linear at every even index."""
+    Linear without act unless ``act_on_output``. ``layers`` is the
+    reference's ``Sequential``, a Linear at every even index and an
+    activation (without parameters) at every odd one."""
 
-    def __init__(self, dims: Sequence[int], act_name: str = "relu", *,
-                 generator: torch.Generator):
+    def __init__(self, dims: Sequence[int], act_name: str = "relu", act_norm: bool = False,
+                 act_on_output: bool = False, *, generator: torch.Generator):
         super().__init__()
         dims = list(dims)
         layers = []
         for i, (d_in, d_out) in enumerate(zip(dims[:-1], dims[1:])):
             if i:
-                layers.append(get_act_fn(act_name))
+                layers.append(get_act_fn(act_name, act_norm))
             layers.append(Dense(d_in, d_out, generator=generator))
+        if act_on_output:
+            layers.append(get_act_fn(act_name, act_norm))
         self.layers = nn.Sequential(*layers)
 
     def forward(self, x):

@@ -37,6 +37,24 @@ HEAD_WIDTH = 128
 FLAGSHIP = dict(num_layers=4, hidden_dim=32, modes1=12, modes2=12)
 
 
+def lift(fc0: Dense, inputs, case_params, mask):
+    """``fc0`` over [inputs ‖ mask ‖ coords ‖ params] as summed partial
+    products on the weight's column slices: the concatenated input is
+    never built, and the coordinate and case-parameter terms are
+    broadcast, not full-field."""
+    _, H, W, C = inputs.shape
+    k = fc0.weight  # (hidden, C + 3 + P)
+    P = case_params.shape[-1]
+    coords = coord_channels(1, H, W, dtype=inputs.dtype, device=inputs.device)
+    return (
+        inputs @ k[:, :C].T
+        + mask @ k[:, C:C + 1].T
+        + coords @ k[:, C + 1:C + 3].T
+        + (case_params @ k[:, C + 3:C + 3 + P].T)[:, None, None, :]
+        + fc0.bias
+    )
+
+
 class FnoBlock(nn.Module):
     """GELU(spectral conv + 1×1 bypass), one fused kernel on the card.
 
@@ -89,28 +107,10 @@ class Fno2d(nn.Module):
         self.fc2 = Dense(HEAD_WIDTH, out_chan, generator=generator)
         self.to(device)
 
-    def lift(self, inputs, case_params, mask):
-        """fc0 over [inputs ‖ mask ‖ coords ‖ params] as summed partial
-        products on the weight's column slices: the concatenated input is
-        never built, and the coordinate and case-parameter terms are
-        broadcast, not full-field."""
-        _, H, W, C = inputs.shape
-        k = self.fc0.weight  # (hidden, C + 3 + P)
-        P = case_params.shape[-1]
-        coords = coord_channels(1, H, W, dtype=inputs.dtype,
-                                device=inputs.device)
-        return (
-            inputs @ k[:, :C].T
-            + mask @ k[:, C:C + 1].T
-            + coords @ k[:, C + 1:C + 3].T
-            + (case_params @ k[:, C + 3:C + 3 + P].T)[:, None, None, :]
-            + self.fc0.bias
-        )
-
     def forward(self, inputs, case_params, mask=None):
         B, H, W, _ = inputs.shape
         mask = ensure_mask(mask, B, H, W, device=inputs.device)
-        x = self.lift(inputs, case_params, mask)
+        x = lift(self.fc0, inputs, case_params, mask)
         for block in self.blocks:
             x = block(x)
         return fno_head(x, self.fc1.weight, self.fc1.bias, self.fc2.weight,
@@ -123,7 +123,7 @@ def fno2d_reference(model: Fno2d, inputs, case_params, mask=None):
     kernel path is held to on the card."""
     B, H, W, _ = inputs.shape
     mask = ensure_mask(mask, B, H, W, device=inputs.device)
-    x = model.lift(inputs, case_params, mask)
+    x = lift(model.fc0, inputs, case_params, mask)
     for blk in model.blocks:
         x = fno_block_reference(x, blk.weights, blk.w0.weight, blk.w0.bias,
                                 blk.modes1, blk.modes2)

@@ -159,3 +159,36 @@ def init_spectral_weights(
     scale = 1.0 / (in_ch * out_ch)
     w = torch.empty((2, 2, in_ch, out_ch, m1, m2), dtype=torch.float32)
     return w.uniform_(0.0, scale, generator=generator)
+
+
+def spectral_conv1d(
+    x: torch.Tensor,  # (B, H, W, C) float32
+    weights: torch.Tensor,  # (2, C, C, modes): [re/im, in, out, mode]
+    modes: int,
+    axis: int,  # 1 (H) or 2 (W)
+) -> torch.Tensor:
+    """The FFNO's factorised 1-D spectral conv along one spatial axis
+    (``spectral_conv1d_matmul`` of the JAX package): rfft along the axis,
+    the first ``m = min(modes, N // 2)`` modes mixed over channels, irfft
+    back to N points (the other modes zero). Since m <= N // 2, no retained mode is the even-N
+    Nyquist one, and irfft drops the imaginary part of the DC mode as the
+    JAX package's inverse factors do (their DC column is real), so this
+    equals its DFT-matmul form."""
+    if axis not in (1, 2):
+        raise ValueError(f"axis {axis}: choose 1 (H) or 2 (W)")
+    N = x.shape[axis]
+    m = min(modes, N // 2)
+    x_ft = torch.fft.rfft(x, dim=axis)
+    w = torch.complex(weights[0, :, :, :m], weights[1, :, :, :m])  # (in, out, m)
+    if axis == 1:
+        y = torch.einsum("bkwi,iok->bkwo", x_ft[:, :m], w)
+    else:
+        y = torch.einsum("bhki,iok->bhko", x_ft[:, :, :m], w)
+    # irfft zero-pads the m mixed modes to the N // 2 + 1 of the half spectrum.
+    return torch.fft.irfft(y, n=N, dim=axis)
+
+
+def init_spectral_weights_1d(generator: torch.Generator, ch: int, m: int) -> torch.Tensor:
+    """U(0, 1/ch²) per real/imag component, ``(2, ch, ch, m)``."""
+    w = torch.empty((2, ch, ch, m), dtype=torch.float32)
+    return w.uniform_(0.0, 1.0 / (ch * ch), generator=generator)

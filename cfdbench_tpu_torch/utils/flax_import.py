@@ -19,12 +19,17 @@ reads), so the three layouts meet:
   ``running_var`` buffers (``num_batches_tracked`` has no flax
   counterpart: it is set to 0);
 - the FNO's spectral weights keep the real-pair layout
-  ``(corner, re/im, in, out, m1, m2)``.
+  ``(corner, re/im, in, out, m1, m2)``, the FFNO's ``(re/im, in, out,
+  modes)``.
 
 The model is recognised from the tree (or the keys): ``FnoBlock_i`` is
-the FNO, ``DoubleConv_0`` the U-Net, ``ResidualBlock_i`` the ResNet,
+the FNO, ``FfnoBlock_i`` the FFNO, ``DoubleConv_0`` the U-Net,
+``ResidualBlock_i`` the ResNet, ``Dense_0`` beside ``Mlp_0`` the
+non-autoregressive DeepONet (``fc_trunk_t`` and ``fc_trunk_xy``),
 ``CnnBranch_0`` the AutoDeepONetCnn, three, two or one ``Mlp_i`` the
-AutoEDeepONet, AutoDeepONet or AutoFfn.
+AutoEDeepONet, AutoDeepONet or AutoFfn. The non-autoregressive FFN's
+tree and keys are the AutoFfn's (``Mlp_0`` ↔ ``ffn.layers.{2j}``), so it
+maps as that family does.
 """
 
 from __future__ import annotations
@@ -93,6 +98,23 @@ def _entries(family: str, shape) -> Iterator[Entry]:
             yield from _dense((f"FnoBlock_{i}", "Dense_0"), f"blocks.{i}.w0")
         yield from _dense(("Dense_1",), "fc1")
         yield from _dense(("Dense_2",), "fc2")
+    elif family == "ffno":
+        yield from _dense(("Dense_0",), "fc0")
+        for i in range(shape):
+            block = (f"FfnoBlock_{i}",)
+            for w in ("weights_h", "weights_w"):
+                yield P, block + (w,), f"blocks.{i}.{w}", "="
+            yield from _dense(block + ("Dense_0",), f"blocks.{i}.dense0")
+            yield from _dense(block + ("Dense_1",), f"blocks.{i}.dense1")
+        yield from _dense(("Dense_1",), "fc1")
+        yield from _dense(("Dense_2",), "fc2")
+    elif family == "deeponet":
+        n_branch, n_trunk = shape
+        yield from _mlp(("Mlp_0",), "branch_net", n_branch)
+        yield from _dense(("Dense_0",), "fc_trunk_t")
+        yield from _dense(("Dense_1",), "fc_trunk_xy")
+        yield from _mlp(("Mlp_1",), "trunk_net", n_trunk)
+        yield P, ("bias",), "bias", "="
     elif family == "unet":
         yield from _double_conv(("DoubleConv_0",), "in_conv")
         for i in range(4):
@@ -140,11 +162,15 @@ def _count(prefix: str, keys) -> int:
 def _flax_shape(params) -> Tuple[str, Any]:
     if "FnoBlock_0" in params:
         return "fno", _count("FnoBlock_", params)
+    if "FfnoBlock_0" in params:
+        return "ffno", _count("FfnoBlock_", params)
     if "DoubleConv_0" in params:
         return "unet", "Dense_0" in params
     if "ResidualBlock_0" in params:
         return "resnet", [len(params[f"ResidualBlock_{i}"]) == 3
                           for i in range(_count("ResidualBlock_", params))]
+    if "Dense_0" in params and "Mlp_0" in params:
+        return "deeponet", (len(params["Mlp_0"]), len(params["Mlp_1"]))
     mlps = [len(params[f"Mlp_{i}"]) for i in range(_count("Mlp_", params))]
     if "CnnBranch_0" in params:
         return "auto_deeponet_cnn", (len(params["CnnBranch_0"]) - 2, *mlps)
@@ -158,6 +184,10 @@ def _port_shape(keys) -> Tuple[str, Any]:
     keys = set(keys)
     if "blocks.0.weights" in keys:
         return "fno", _count("blocks.", (k for k in keys if k.endswith(".weights")))
+    if "blocks.0.weights_h" in keys:
+        return "ffno", _count("blocks.", (k for k in keys if k.endswith(".weights_h")))
+    if "fc_trunk_t.weight" in keys:
+        return "deeponet", (_count("branch_net.layers.", keys), _count("trunk_net.layers.", keys))
     if "in_conv.conv1.0.weight" in keys:
         return "unet", "case_params_fc.weight" in keys
     if "blocks.0.conv1.weight" in keys:

@@ -45,6 +45,25 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    batch 128 (``trainer_auto.train_step``) on the kernel path and the
    plain path in turns, each split into forward, backward and update,
    with its peak memory.
+7. The conv and point families at their default widths. (a) ``main_auto
+   --mode train_test`` and ``main_multistep`` for the U-Net, ResNet,
+   Auto-FFN, Auto-DeepONet and Auto-EDeepONet on the phase-6 tree (the
+   Auto-DeepONetCNN's rollout must refuse by name): finite scores, 20
+   finite per-step metrics, no FNO kernel launch. (b) Each model's eval
+   forward on the card against the CPU's, and the loss and gradients of a
+   U-Net and an Auto-DeepONet train step. (c) The U-Net's and ResNet's
+   batch-128 train step (split, peak memory) and 20-step rollout.
+8. The non-autoregressive FFN and DeepONet and the FFNO at their default
+   widths. (a) ``main_train --mode train_test`` then ``main_multistep``
+   for the FFN and DeepONet, ``main_auto --mode train_test`` then
+   ``main_multistep`` for the FFNO, on the phase-6 tree: finite
+   ``ckpt-*/scores.json``, ``dev_loss.json`` and ``test/scores.json``, 20
+   finite per-step metrics, no FNO kernel launch. (b) Eval forwards on
+   the card against the CPU's, and the loss and every gradient of a
+   DeepONet and an FFNO train step, at phase 6a's bounds. (c) The FFNO's
+   batch-128 train step (split, peak memory) and 20-step rollout, and the
+   FFN's and DeepONet's batch-128 train step at 1000 points a sample and
+   20-step whole-lattice generation over 128 cases.
 
 ``launches`` in the kernels' record is phase 3's count (main_multistep),
 ``launches_by_path`` each main path's own: main_multistep's and
@@ -56,6 +75,7 @@ It needs a CUDA device and fails without one.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import shutil
@@ -96,6 +116,10 @@ FAMILY_RTOL = 1e-4  # card against CPU forward: max abs diff over max |out|
 # arithmetic (the batch mean removes it): on either device its gradient
 # is rounding, held below this share of the model's largest gradient.
 ZERO_GRAD_RTOL = 1e-5
+# Phase 8: the non-autoregressive FFN and DeepONet, and the FFNO, at their
+# default widths.
+NONAUTO = ("ffn", "deeponet")
+PHASE8 = NONAUTO + ("ffno",)
 # (B, H, W, channels, modes, head outputs) of phase 2.
 CHECK_SHAPES = ((8, GRID, GRID, WIDTH, MODES, 2), (8, GRID + 2, GRID + 1, WIDTH, MODES, 2),
                 (3, 18, 17, 10, 4, 3), (17, 16, 16, 8, MODES, 2),
@@ -532,10 +556,12 @@ def train_path(grid: int = GRID):
     return counts
 
 
-def step_split(task, opt, sched, batch, device, generator=None):
-    """``trainer_auto.train_step`` TRAIN_REPS times with an event between
-    its parts: mean forward (with the loss), backward and update ms, and
-    the peak memory of those steps."""
+def step_split(loss_scores, opt, sched, device):
+    """A train step (``trainer_auto.train_step`` or
+    ``trainer_nonauto.train_step``, whose forward and loss are
+    ``loss_scores()``) TRAIN_REPS times with an event between its parts:
+    mean forward (with the loss), backward and update ms, and the peak
+    memory of those steps."""
     marks = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
              for _ in range(TRAIN_REPS)]
     torch.cuda.synchronize()
@@ -543,7 +569,7 @@ def step_split(task, opt, sched, batch, device, generator=None):
     for ev in marks:
         ev[0].record()
         opt.zero_grad(set_to_none=True)
-        loss, _ = task.loss_scores(batch, generator)
+        loss, _ = loss_scores()
         ev[1].record()
         loss.backward()
         ev[2].record()
@@ -584,7 +610,7 @@ def train_step_timing(device, card):
           f"{kern_ms:.3f} ms, plain path {plain_ms:.3f} ms (kernel/plain {kern_ms / plain_ms:.3f})")
     result = {}
     for name, (task, opt, sched) in paths.items():
-        result[name] = step_split(task, opt, sched, batch, device)
+        result[name] = step_split(lambda: task.loss_scores(batch), opt, sched, device)
         print(f"[time] [{card}] train step b{TIMING_BATCH}, {name} path: "
               + split_text(result[name]))
     result.update(kernel_ms=kern_ms, plain_ms=plain_ms)
@@ -730,39 +756,233 @@ def family_card_vs_cpu(device):
             raise RuntimeError(f"{name}: train loss on the card disagrees ({loss_rel:.3e})")
 
 
-def family_timing(device, card):
-    """Phase 7c: the float32 train step at batch 128 (Adam) with its split
-    and peak memory, and the 20-step batch-128 rollout, for the U-Net and
-    the ResNet, by CUDA events."""
+def auto_model_timing(name: str, batch, device, card) -> dict:
+    """The float32 train step at batch 128 (Adam) with its split and peak
+    memory, and the 20-step batch-128 rollout, of one autoregressive model
+    at its default widths, by CUDA events."""
     from cfdbench_tpu_torch.training.optim import make_adam
     from cfdbench_tpu_torch.training.rollout import make_rollout_fn
     from cfdbench_tpu_torch.training.trainer_auto import step_generator, train_step
 
+    model = family_model(name, device).train()
+    task = nmse_task(model)
+    opt, sched = make_adam(model.parameters(), 1e-4)
+    # The ResNet's dropout draws from a generator on the card.
+    gen = step_generator(SEED, 0, device) if name == "resnet" else None
+    train_step(task, opt, sched, batch, gen)  # warm-up: cuDNN's choice of algorithms
+    step_ms = time_ms(lambda: train_step(task, opt, sched, batch, gen), TRAIN_REPS)
+    split = step_split(lambda: task.loss_scores(batch, gen), opt, sched, device)
+    model.eval()
+    include_initial = name == "resnet"
+    roll = make_rollout_fn(task.predict_frame, STEPS, include_initial=include_initial)
+    args = (batch["inputs"], batch["case_params"], batch["mask"])
+    roll(*args)
+    roll_ms = time_ms(lambda: roll(*args), 3)
+    predicted = TIMING_BATCH * (STEPS - include_initial)
+    fps = predicted / roll_ms * 1e3
+    print(f"[time] [{card}] {name} train step b{TIMING_BATCH} {GRID}x{GRID} f32: "
+          f"{step_ms:.3f} ms; " + split_text(split))
+    print(f"[time] [{card}] {name} rollout b{TIMING_BATCH} x {STEPS} steps: {roll_ms:.3f} ms, "
+          f"{predicted} predicted frames = {fps:.1f} frames/s")
+    return dict(train_step_ms=step_ms, **split, rollout_ms=roll_ms, rollout_frames_per_s=fps)
+
+
+def family_timing(device, card):
+    """Phase 7c: the float32 train step at batch 128 (Adam) with its split
+    and peak memory, and the 20-step batch-128 rollout, for the U-Net and
+    the ResNet, by CUDA events."""
     batch = train_inputs(TIMING_BATCH, torch.Generator().manual_seed(SEED + 5), device)
+    return {name: auto_model_timing(name, batch, device, card) for name in ("unet", "resnet")}
+
+
+def phase8_paths():
+    """Phase 8a: ``main_train --mode train_test`` then ``main_multistep``
+    for the FFN and the DeepONet, ``main_auto --mode train_test`` then
+    ``main_multistep`` for the FFNO, at their default widths on the
+    phase-6 tree: finite checkpoint, dev and test scores, 20 finite
+    per-step metrics, no FNO kernel launch. Returns each step-20 nmse."""
+    from cfdbench_tpu_torch.cli import main_auto, main_multistep, main_train, parse_args, run_dir
+    from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
+
+    train_flags = ["--mode", "train_test", "--num_epochs", str(TRAIN_EPOCHS),
+                   "--eval_interval", "1", "--batch_size", "16", "--eval_batch_size", "16",
+                   "--log_interval", "100"]
     result = {}
-    for name in ("unet", "resnet"):
-        model = family_model(name, device).train()
-        task = nmse_task(model)
-        opt, sched = make_adam(model.parameters(), 1e-4)
-        # The ResNet's dropout draws from a generator on the card.
-        gen = step_generator(SEED, 0, device) if name == "resnet" else None
-        train_step(task, opt, sched, batch, gen)  # warm-up: cuDNN's choice of algorithms
-        step_ms = time_ms(lambda: train_step(task, opt, sched, batch, gen), TRAIN_REPS)
-        split = step_split(task, opt, sched, batch, device, gen)
-        model.eval()
-        include_initial = name == "resnet"
-        roll = make_rollout_fn(task.predict_frame, STEPS, include_initial=include_initial)
-        args = (batch["inputs"], batch["case_params"], batch["mask"])
-        roll(*args)
-        roll_ms = time_ms(lambda: roll(*args), 3)
-        predicted = TIMING_BATCH * (STEPS - include_initial)
-        fps = predicted / roll_ms * 1e3
-        print(f"[time] [{card}] {name} train step b{TIMING_BATCH} {GRID}x{GRID} f32: "
-              f"{step_ms:.3f} ms; " + split_text(split))
-        print(f"[time] [{card}] {name} rollout b{TIMING_BATCH} x {STEPS} steps: {roll_ms:.3f} ms, "
-              f"{predicted} predicted frames = {fps:.1f} frames/s")
-        result[name] = dict(train_step_ms=step_ms, **split, rollout_ms=roll_ms,
-                            rollout_frames_per_s=fps)
+    for name in PHASE8:
+        argv = family_argv(name, WORK / "train_data")
+        run = run_dir(parse_args(argv))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        (main_train if name in NONAUTO else main_auto)(argv + train_flags)
+        scores = finite_scores(run, name)
+        if name in NONAUTO:  # the non-auto trainer's dev scores file
+            dev = [json.loads((run / f"ckpt-{ep}" / "dev_loss.json").read_text())["mean"]
+                   for ep in range(TRAIN_EPOCHS)]
+            if not all(math.isfinite(v) for d in dev for v in d.values()):
+                raise RuntimeError(f"{name}: dev_loss.json is not finite: {dev}")
+        t1 = time.perf_counter()
+        frames = main_multistep(argv)
+        channels = 1 if name in NONAUTO else 2
+        metrics = json.loads((run / "multistep_metrics.json").read_text())
+        if (frames.shape[0] != STEPS or frames.shape[-1] != channels
+                or not torch.isfinite(frames).all() or len(metrics) != STEPS
+                or not all(math.isfinite(v) for m in metrics for v in m.values())):
+            raise RuntimeError(f"{name}: frames {tuple(frames.shape)} (expected {STEPS} steps "
+                               f"of {channels} channels), metrics {metrics}")
+        result[name] = metrics[-1]["nmse"]
+        counts = launch_counts()
+        if any(counts.values()):
+            raise RuntimeError(f"{name} launched FNO kernels: {counts}")
+        print(f"[phase8] {name}: {'main_train' if name in NONAUTO else 'main_auto'} "
+              f"{t1 - t0:.2f} s, dev loss {[scores[f'ckpt-{ep}']['dev_loss'] for ep in range(TRAIN_EPOCHS)]}, "
+              f"test nmse {scores['test']['nmse']:.6g}; main_multistep "
+              f"{time.perf_counter() - t1:.2f} s, step-20 nmse {result[name]}; FNO kernel "
+              f"launches {counts}")
+    return result
+
+
+def phase8_model(name: str, device, seed: int = SEED):
+    """``name`` at its default widths (64x64, 5 case parameters) from a
+    seeded init."""
+    from cfdbench_tpu_torch.config import Args
+    from cfdbench_tpu_torch.models import init_nonauto_model
+
+    if name not in NONAUTO:
+        return family_model(name, device, seed)
+    return init_nonauto_model(Args(model=name), n_case_params=5,
+                              generator=torch.Generator().manual_seed(seed)).to(device)
+
+
+def nonauto_inputs(B, gen, device):
+    """A seeded frame batch: case parameters, frame indices, 64x64 labels."""
+    batch = dict(case_params=torch.randn((B, 5), generator=gen),
+                 t=torch.randint(0, STEPS, (B, 1), generator=gen).float(),
+                 labels=torch.randn((B, GRID, GRID, 3), generator=gen), weights=torch.ones(B))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def phase8_loss(name, model, batch, device):
+    """``(loss, scores)`` of one train-mode forward: the DeepONet's and
+    the FFN's at the trainer's 1000 points of step 0, the FFNO's on the
+    whole field."""
+    from cfdbench_tpu_torch.metrics import loss_name_to_fn
+    from cfdbench_tpu_torch.training.trainer_nonauto import NonAutoTask, draw_query_idxs
+
+    if name in NONAUTO:
+        task = NonAutoTask(model, loss_name_to_fn("nmse"))
+        q = draw_query_idxs(SEED, 0, task.num_label_samples, GRID, GRID, device)
+        return task.loss_scores(batch, q)
+    return nmse_task(model).loss_scores(batch)
+
+
+def phase8_card_vs_cpu(device):
+    """Phase 8b: each model's eval forward on the card against the CPU's
+    (the FFN and DeepONet on the whole 64x64 lattice), then the loss and
+    every gradient of one train step of the DeepONet (its scale-invariant
+    act normalises over the queries) and the FFNO, at phase 6a's bounds."""
+    from cfdbench_tpu_torch.training.trainer_nonauto import NonAutoTask
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    field = train_inputs(FAMILY_BATCH, gen, "cpu")
+    frames = nonauto_inputs(FAMILY_BATCH, gen, "cpu")
+    batches = {}
+    for name in PHASE8:
+        cpu = field if name not in NONAUTO else frames
+        batches[name] = {"cpu": cpu, "card": {k: v.to(device) for k, v in cpu.items()}}
+    for name in PHASE8:
+        outs = {}
+        for where in ("cpu", "card"):
+            model = phase8_model(name, "cpu" if where == "cpu" else device).eval()
+            b = batches[name][where]
+            with torch.no_grad():
+                if name in NONAUTO:
+                    out = NonAutoTask(model).generate_one(b["case_params"], b["t"], GRID, GRID)
+                else:
+                    out = model(b["inputs"], b["case_params"], b["mask"])
+            outs[where] = out.cpu()
+        rel = ((outs["card"] - outs["cpu"]).abs().max() / outs["cpu"].abs().max()).item()
+        print(f"[phase8] {name} eval forward B={FAMILY_BATCH} {GRID}x{GRID}, card vs CPU: max abs "
+              f"diff / max |out| {rel:.3e} (bound {FAMILY_RTOL:.0e})")
+        if not (outs["card"].shape == outs["cpu"].shape and rel <= FAMILY_RTOL):
+            raise RuntimeError(f"{name}: card and CPU forwards disagree ({rel:.3e})")
+    for name in ("deeponet", "ffno"):
+        runs = {}
+        for where in ("cpu", "card"):
+            model = phase8_model(name, "cpu" if where == "cpu" else device).train()
+            loss, _ = phase8_loss(name, model, batches[name][where],
+                                  "cpu" if where == "cpu" else device)
+            loss.backward()
+            runs[where] = loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()}
+        (loss_c, grads_c), (loss_g, grads_g) = runs["cpu"], runs["card"]
+        loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+        worst = 0.0
+        for k, want in grads_c.items():
+            got = grads_g[k]
+            if not torch.isfinite(got).all():
+                raise RuntimeError(f"{name} {k}: no finite gradient on the card")
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            if not rel <= GRAD_RTOL:
+                raise RuntimeError(f"{name} {k}: card gradient disagrees, {rel:.3e} > {GRAD_RTOL}")
+            worst = max(worst, rel)
+        print(f"[phase8] {name} train step B={FAMILY_BATCH}, card vs CPU: nmse rel diff "
+              f"{loss_rel:.3e} (bound {GRAD_LOSS_RTOL:.0e}); {len(grads_c)} gradients, worst max "
+              f"abs diff / max |grad| {worst:.3e} (bound {GRAD_RTOL:.0e})")
+        if not loss_rel <= GRAD_LOSS_RTOL:
+            raise RuntimeError(f"{name}: train loss on the card disagrees ({loss_rel:.3e})")
+
+
+def nonauto_timing(name: str, device, card) -> dict:
+    """The float32 train step at batch 128 (Adam; 1000 points a sample,
+    drawn on the host each step as the trainer draws them) with its
+    split and peak memory, and the 20-step whole-lattice generation over
+    128 cases with its peak memory, by CUDA events."""
+    from cfdbench_tpu_torch.cli import generate_steps
+    from cfdbench_tpu_torch.metrics import loss_name_to_fn
+    from cfdbench_tpu_torch.training.optim import make_adam
+    from cfdbench_tpu_torch.training.trainer_nonauto import (
+        NonAutoTask,
+        draw_query_idxs,
+        train_step,
+    )
+
+    batch = nonauto_inputs(TIMING_BATCH, torch.Generator().manual_seed(SEED + 7), device)
+    model = phase8_model(name, device).train()
+    task = NonAutoTask(model, loss_name_to_fn("nmse"))
+    opt, sched = make_adam(model.parameters(), 1e-4)
+    k = task.num_label_samples
+    steps = itertools.count()
+
+    def step():
+        q = draw_query_idxs(SEED, next(steps), k, GRID, GRID, device)
+        return train_step(task, opt, sched, batch, q)
+
+    step()  # warm-up
+    step_ms = time_ms(step, TRAIN_REPS)
+    q = draw_query_idxs(SEED, 0, k, GRID, GRID, device)
+    split = step_split(lambda: task.loss_scores(batch, q), opt, sched, device)
+    model.eval()
+    cp = batch["case_params"]
+    generate_steps(task, cp, (GRID, GRID), STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    gen_ms = time_ms(lambda: generate_steps(task, cp, (GRID, GRID), STEPS), 3)
+    gen_peak = torch.cuda.max_memory_allocated(device) / 2**20
+    fps = TIMING_BATCH * STEPS / gen_ms * 1e3
+    print(f"[time] [{card}] {name} train step b{TIMING_BATCH} x {k} points f32: {step_ms:.3f} ms; "
+          + split_text(split))
+    print(f"[time] [{card}] {name} generation {TIMING_BATCH} cases x {STEPS} steps x {GRID}x{GRID}: "
+          f"{gen_ms:.3f} ms = {fps:.1f} frames/s; peak memory {gen_peak:.1f} MiB")
+    return dict(train_step_ms=step_ms, **split, generation_ms=gen_ms,
+                generation_frames_per_s=fps, generation_peak_mib=gen_peak)
+
+
+def phase8_timing(device, card):
+    """Phase 8c: the FFNO's train step and rollout as phase 7c times the
+    U-Net's, and the FFN's and DeepONet's train step and generation."""
+    batch = train_inputs(TIMING_BATCH, torch.Generator().manual_seed(SEED + 5), device)
+    result = {"ffno": auto_model_timing("ffno", batch, device, card)}
+    for name in NONAUTO:
+        result[name] = nonauto_timing(name, device, card)
     return result
 
 
@@ -787,6 +1007,10 @@ def main() -> int:
     family_card_vs_cpu(device)
     family_times = family_timing(device, card)
     print(f"[family] [{card}] " + json.dumps({"step20_nmse": family, "timing": family_times}))
+    phase8 = phase8_paths()
+    phase8_card_vs_cpu(device)
+    phase8_times = phase8_timing(device, card)
+    print(f"[phase8] [{card}] " + json.dumps({"step20_nmse": phase8, "timing": phase8_times}))
     print(f"[main] launches on the main paths: main_multistep {counts}, "
           f"main_auto {train_counts}")
     replaces = {"fno_block": "cfdbench_tpu/ops/pallas_fno.py:179",

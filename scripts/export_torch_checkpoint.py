@@ -1,6 +1,8 @@
 #!/usr/bin/env python
-"""Carry a trained JAX checkpoint of an autoregressive model over to the
-PyTorch port.
+"""Carry a trained JAX checkpoint over to the PyTorch port: an
+autoregressive model's run (``auto/...``, ``train_auto.py``) or a
+non-autoregressive one's (``non-auto/...``, ``train.py``: ``--model ffn``
+or ``deeponet``).
 
 Loads the best checkpoint of a JAX run (an Orbax ``ckpt-*/model/`` or a
 ``model.msgpack``, the one with the lowest dev loss) with
@@ -30,13 +32,17 @@ import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
 from cfdbench_tpu.config import Args  # noqa: E402
-from cfdbench_tpu.models import get_input_shapes, init_auto_model  # noqa: E402
+from cfdbench_tpu.models import (  # noqa: E402
+    get_input_shapes,
+    init_auto_model,
+    init_nonauto_model,
+)
 from cfdbench_tpu.training.checkpoints import (  # noqa: E402
     get_best_ckpt,
     load_best_params,
 )
 from cfdbench_tpu.utils.artifacts import get_output_dir  # noqa: E402
-from cfdbench_tpu_torch.models import check_model_ported  # noqa: E402
+from cfdbench_tpu_torch.models import NONAUTO_MODELS, check_model_ported  # noqa: E402
 from cfdbench_tpu_torch.training.checkpoints import save_params  # noqa: E402
 from cfdbench_tpu_torch.utils.flax_import import params_from_flax  # noqa: E402
 
@@ -44,14 +50,20 @@ from cfdbench_tpu_torch.utils.flax_import import params_from_flax  # noqa: E402
 def main(argv=None) -> Path:
     args = Args.parse_args(argv)
     check_model_ported(args.model)
-    run_dir = get_output_dir(args, is_auto=True)
+    is_auto = args.model not in NONAUTO_MODELS
+    run_dir = get_output_dir(args, is_auto=is_auto)
     H, W, P = get_input_shapes(args)
-    model = init_auto_model(args, n_case_params=P)
-    sample = (
-        np.zeros((1, H, W, args.in_chan), np.float32),
-        np.zeros((1, P), np.float32),
-        np.ones((1, H, W, 1), np.float32),
-    )
+    if is_auto:
+        model = init_auto_model(args, n_case_params=P)
+        sample = (
+            np.zeros((1, H, W, args.in_chan), np.float32),
+            np.zeros((1, P), np.float32),
+            np.ones((1, H, W, 1), np.float32),
+        )
+    else:
+        model = init_nonauto_model(args, n_case_params=P)
+        sample = (np.zeros((1, P), np.float32), np.zeros((1, 1), np.float32),
+                  np.zeros((4, 2), np.float32))
     template = jax.eval_shape(
         lambda: model.init(jax.random.PRNGKey(0), *sample)
     )

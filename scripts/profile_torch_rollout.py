@@ -7,14 +7,15 @@ Rolls a seeded model out for 20 steps at a batch of 128 on 64x64 under
 device time, the device's idle share of the wall time, and the device
 time of each CUDA kernel by name. ``--model fno`` (the default) is the
 flagship FNO (depth 4, width 32, 12 modes), through the kernels and
-through their plain PyTorch versions; ``--model unet`` or ``resnet`` is
-that model at its default widths (one path: it runs no kernel of ours).
+through their plain PyTorch versions; ``--model ffno``, ``unet`` or
+``resnet`` is that model at its default widths (one path: it runs no
+kernel of ours).
 With ``--train`` it profiles 5 float32 train steps at batch 128
 (``trainer_auto.train_step``: forward, nmse, backward, Adam) instead,
 and also the device time under each autograd node (nested: a node's
 time includes the kernels it launched, so the lines overlap).
 
-    python3 scripts/profile_torch_rollout.py [--model fno|unet|resnet] [--train] [--trace DIR]
+    python3 scripts/profile_torch_rollout.py [--model fno|ffno|unet|resnet] [--train] [--trace DIR]
 
 ``--trace DIR`` also writes each path's Chrome trace there.
 """
@@ -90,7 +91,7 @@ def profile_path(name, run, trace_dir, autograd_nodes=False):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("fno", "unet", "resnet"), default="fno")
+    ap.add_argument("--model", choices=("fno", "ffno", "unet", "resnet"), default="fno")
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--trace", default="")
     opts = ap.parse_args()

@@ -1,8 +1,9 @@
 """The port's own copies of the JAX package's host code against the
-originals: the flag parser, the result-dir layout, the synthetic case
-generator and the auto datasets (test split, features, case-parameter
-vectors) must agree bit for bit, so that both packages read the same
-cases into the same arrays and write to the same run directory."""
+originals: the flag parser, the result-dir layout of both kinds of run,
+the synthetic case generator, the auto datasets (test split, features,
+case-parameter vectors) and the non-auto frame datasets must agree bit
+for bit, so that both packages read the same cases into the same arrays
+and write to the same run directory."""
 
 import numpy as np
 import pytest
@@ -11,7 +12,7 @@ from cfdbench_tpu import config as jax_config
 from cfdbench_tpu import data as jax_data
 from cfdbench_tpu.data import synthetic as jax_synthetic
 from cfdbench_tpu.utils import artifacts as jax_artifacts
-from cfdbench_tpu_torch import config, data
+from cfdbench_tpu_torch import cli, config, data
 from cfdbench_tpu_torch.data import core, synthetic
 from cfdbench_tpu_torch.utils import artifacts
 
@@ -40,6 +41,23 @@ def test_output_dir_like_jax(argv):
     got = artifacts.get_output_dir(config.Args.parse_args(argv), is_auto=True)
     want = jax_artifacts.get_output_dir(jax_config.Args.parse_args(argv), is_auto=True)
     assert got == want
+
+
+@pytest.mark.parametrize("argv", ARGVS[1:], ids=["flagship", "unet", "deeponet"])
+def test_nonauto_output_dir_like_jax(argv):
+    got = artifacts.get_output_dir(config.Args.parse_args(argv), is_auto=False)
+    want = jax_artifacts.get_output_dir(jax_config.Args.parse_args(argv), is_auto=False)
+    assert got == want and got.parts[1] == "non-auto"
+
+
+@pytest.mark.parametrize("model", ["ffn", "deeponet"])
+def test_nonauto_run_dir_like_jax(model):
+    # The non-auto models' own hparams name their run directory.
+    argv = ["--model", model, "--ffn_width", "24", "--deeponet_width", "12", "--act_fn",
+            "gelu", "--act_scale_invariant", "0", "--act_on_output", "1", "--lr", "3e-4"]
+    got = cli.run_dir(config.Args.parse_args(argv))
+    want = jax_artifacts.get_output_dir(jax_config.Args.parse_args(argv), is_auto=False)
+    assert got == want and got.parts[1] == "non-auto"
 
 
 def test_synthetic_tree_like_jax(tmp_path):
@@ -99,3 +117,28 @@ def test_load_test_cases_like_jax_split(synth_root, tmp_path):
         np.testing.assert_array_equal(case_params, np.stack(
             [jax_data.core.params_to_vector(p) for p in test.case_params_list]))
     assert len(list((tmp_path / "cache").glob("cavity-*.npz"))) == 1
+
+
+@pytest.mark.parametrize("problem", ["cavity", "tube", "dam", "cylinder"])
+def test_frame_dataset_like_jax(synth_root, problem):
+    """The non-auto splits: frames, frame_t, case parameters (in the
+    frame datasets' key order), case ids and the normalised parameter
+    dicts."""
+    kw = dict(data_name=f"{problem}_prop_bc_geo", data_dir=synth_root, norm_props=True,
+              norm_bc=True, seed=0)
+    got, want = data.get_dataset(**kw), jax_data.get_dataset(**kw)
+    for g, w in zip(got, want):
+        for name in ("frames", "frame_t", "case_params", "case_ids"):
+            np.testing.assert_array_equal(getattr(g, name), getattr(w, name))
+            assert getattr(g, name).dtype == getattr(w, name).dtype
+        assert g.case_params_list == w.case_params_list
+        assert g.n_case_params == (8 if problem == "cylinder" else 5)
+
+
+def test_point_examples_like_jax(synth_root, rng):
+    got = data.get_dataset("dam_prop_bc_geo", synth_root, True, True)[0]
+    want = jax_data.get_dataset("dam_prop_bc_geo", synth_root, True, True)[0]
+    idxs = rng.integers(0, got.num_points, 64)
+    assert got.num_points == want.num_points
+    for a, b in zip(got.point_examples(idxs), want.point_examples(idxs)):
+        np.testing.assert_array_equal(a, b)

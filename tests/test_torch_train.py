@@ -25,7 +25,7 @@ from cfdbench_tpu.training import optim as jax_optim
 from cfdbench_tpu_torch import cli, metrics
 from cfdbench_tpu_torch.data import pipeline
 from cfdbench_tpu_torch.models import init_auto_model
-from cfdbench_tpu_torch.models.fno import Fno2d, fno2d_reference
+from cfdbench_tpu_torch.models.fno import Fno2d, fno2d_reference, lift
 from cfdbench_tpu_torch.ops import fno_kernels as fk
 from cfdbench_tpu_torch.ops.spectral import clamp_modes, retained_modes, spectral_conv2d_fft
 from cfdbench_tpu_torch.training import optim
@@ -265,7 +265,7 @@ def test_kernel_functions_carry_the_plain_gradient_in_emulation(rng):
     labels = t(rng.standard_normal((B, H, W, 3)))
 
     def through_kernels():
-        x = model.lift(inputs, cp, mask)
+        x = lift(model.fc0, inputs, cp, mask)
         for blk in model.blocks:
             x = fk.FnoBlockFn.apply(lib, 0, True, x, blk.weights, blk.w0.weight, blk.w0.bias,
                                     blk.modes1, blk.modes2)
@@ -479,7 +479,7 @@ def test_saved_state_holds_detached_host_copies(tmp_path):
         (["--gradient_accumulation_steps", "4"], "ROADMAP.md C"),
         (["--use_gradient_checkpointing"], "ROADMAP.md C"),
         (["--spectral_backend", "fft"], "A17"),
-        (["--model", "ffn"], "A11"),
+        (["--model", "latent_diffusion"], "A13"),
     ],
 )
 def test_main_auto_refuses_unported_flags(tmp_path, flags, error):

@@ -6,8 +6,9 @@ Usage:
     python train_auto_torch.py --model fno --data_name cavity_prop_bc_geo \
         --data_dir <root> --output_dir <result root> --mode train_test
 
-``--model`` is fno, unet, resnet, auto_ffn, auto_deeponet, auto_edeeponet or
-auto_deeponet_cnn. It runs on the CUDA card and fails without one.
+``--model`` is fno, ffno, unet, resnet, auto_ffn, auto_deeponet,
+auto_edeeponet or auto_deeponet_cnn (ffn and deeponet train with
+``train_torch.py``). It runs on the CUDA card and fails without one.
 To run on the CPU (the FNO through its kernels' plain PyTorch versions),
 call ``cfdbench_tpu_torch.cli.main_auto(argv, device="cpu")``.
 """
