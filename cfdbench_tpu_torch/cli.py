@@ -2,12 +2,15 @@
 
 - ``main_auto`` (train / test) trains the autoregressive models: ``fno``,
   ``ffno``, ``unet``, ``resnet``, ``auto_ffn``, ``auto_deeponet``,
-  ``auto_edeeponet`` and ``auto_deeponet_cnn``.
+  ``auto_edeeponet``, ``auto_deeponet_cnn`` and ``pixel_diffusion``.
 - ``main_train`` (train / test) trains the non-autoregressive ``ffn``
   and ``deeponet``.
-- ``main_multistep`` rolls out either kind: a self-feeding rollout for
+- ``main_gencast`` (train / test) trains GenCast.
+- ``main_multistep`` rolls out every kind: a self-feeding rollout for
   the autoregressive models (``auto_deeponet_cnn``'s raises, as the JAX
-  package's does), one whole-lattice generation a step for the others.
+  package's does; pixel diffusion's samples each frame with fresh
+  noise), GenCast's two-frame window, one whole-lattice generation a
+  step for the non-autoregressive ones.
 
 They take the JAX package's flags (the port's copy of them,
 ``config.Args``) and run on the CUDA card; without one they raise. Only
@@ -26,6 +29,7 @@ kernels always run.
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -34,12 +38,26 @@ import torch
 from .config import Args
 from .data import get_auto_dataset, get_dataset, load_test_cases
 from .data.core import dump_json
+from .data.wrapper import (
+    compute_residual_stats,
+    load_residual_stats,
+    save_residual_stats,
+    wrap_gencast,
+)
 from .metrics import loss_name_to_fn
-from .models import NONAUTO_MODELS, check_model_ported, init_auto_model, init_nonauto_model
+from .models import (
+    DIFFUSION_MODELS,
+    NONAUTO_MODELS,
+    check_model_ported,
+    init_auto_model,
+    init_gencast,
+    init_nonauto_model,
+    init_pixel_diffusion,
+)
 from .models.fno import HEAD_WIDTH
 from .ops.fno_kernels import check_kernel_shapes, launch_counts
-from .training import trainer_auto, trainer_nonauto
-from .training.checkpoints import load_best_params
+from .training import trainer_auto, trainer_gencast, trainer_nonauto
+from .training.checkpoints import load_best_params, load_params
 from .training.rollout import make_rollout_fn, multistep_metrics
 from .training.trainer_auto import AutoTask
 from .training.trainer_nonauto import NonAutoTask
@@ -117,8 +135,11 @@ def check_rollout_flags(args: Args) -> None:
 
 def check_training_flags(args: Args, regime: str = "auto") -> None:
     """``check_supported`` and the flags only the trainers read:
-    ``main_auto``'s (``regime="auto"``) or ``main_train``'s
-    (``"nonauto"``), whose model must be of that kind."""
+    ``main_auto``'s (``regime="auto"``), ``main_train``'s (``"nonauto"``)
+    or ``main_gencast``'s (``"gencast"``), whose model must be of that
+    kind. ``--use_gradient_checkpointing`` is taken where the JAX package
+    applies it, by the PUNetG models; ``--gradient_accumulation_steps`` by
+    ``main_gencast`` alone."""
     check_supported(args)
     check_model_ported(args.model, regime)
     if args.mode not in ("train", "test", "train_test"):
@@ -133,28 +154,34 @@ def check_training_flags(args: Args, regime: str = "auto") -> None:
         )
     # Flags the JAX entry point parses and never passes to its trainer
     # (ROADMAP.md C), each with whether this run sets it.
-    ignored = {
-        f"--gradient_accumulation_steps {args.gradient_accumulation_steps}":
-            args.gradient_accumulation_steps != 1,
-        "--use_gradient_checkpointing": args.use_gradient_checkpointing,
-    }
+    ignored = {}
+    if regime != "gencast":
+        ignored[f"--gradient_accumulation_steps {args.gradient_accumulation_steps}"] = (
+            args.gradient_accumulation_steps != 1)
+    if args.model not in DIFFUSION_MODELS:
+        ignored["--use_gradient_checkpointing"] = args.use_gradient_checkpointing
+    if regime in ("auto", "gencast") and args.use_mixed_precision:
+        raise NotImplementedError(
+            "--use_mixed_precision: the port trains in float32 only; bf16 "
+            "forwards need bf16 kernel variants (ROADMAP.md A6b)"
+        )
     if regime == "auto":
-        if args.use_mixed_precision:
-            raise NotImplementedError(
-                "--use_mixed_precision: the port trains in float32 only; bf16 "
-                "forwards need bf16 kernel variants (ROADMAP.md A6b)"
-            )
         if args.opt_state_dtype == "factored":
             raise NotImplementedError(
                 "--opt_state_dtype factored: adafactor is not ported (ROADMAP.md A18)"
             )
-    else:
+    elif regime == "nonauto":
         ignored.update({
             "--use_mixed_precision": args.use_mixed_precision,
             f"--opt_state_dtype {args.opt_state_dtype}": args.opt_state_dtype != "f32",
             f"--cache_dir {args.cache_dir}": bool(args.cache_dir),
         })
-    entry = "main_auto" if regime == "auto" else "main_train"
+    else:
+        ignored.update({
+            f"--opt_state_dtype {args.opt_state_dtype}": args.opt_state_dtype != "f32",
+            "--measure_time": bool(args.measure_time),
+        })
+    entry = {"auto": "main_auto", "nonauto": "main_train", "gencast": "main_gencast"}[regime]
     for flag, is_set in ignored.items():
         if is_set:
             raise NotImplementedError(
@@ -170,6 +197,17 @@ def check_fno_kernel_shapes(args: Args, field_shape, device: torch.device) -> No
                             args.fno_modes_y, HEAD_WIDTH, args.out_chan)
 
 
+def make_auto_task(args: Args, n_case_params: int, field_shape, device):
+    """The task ``main_auto`` trains for ``--model`` (``cfdbench_tpu.cli.make_auto_task``):
+    an :class:`AutoTask` around the model, or the pixel-diffusion task."""
+    loss_fn = loss_name_to_fn(args.loss_name)
+    if args.model == "pixel_diffusion":
+        return init_pixel_diffusion(args, n_case_params, loss_fn, device=device)
+    model = init_auto_model(args, n_case_params=n_case_params, field_shape=field_shape,
+                            device=device)
+    return AutoTask(model, loss_fn)
+
+
 def main_multistep(argv=None, device=None) -> torch.Tensor:
     """``cfdbench_tpu.cli.main_multistep`` (``src/test_multistep.py``):
     20 frames of every test case at once from the best checkpoint's
@@ -179,9 +217,13 @@ def main_multistep(argv=None, device=None) -> torch.Tensor:
     An autoregressive model rolls out, feeding back its own prediction;
     the ResNet's frames are ``[frame0, pred_1, …, pred_19]``
     (``include_initial``, as the JAX package aligns them); the point
-    models feed back u alone. A non-autoregressive model generates each
-    step's frame, ``t = s`` for s in 0..19, in one whole-lattice call
-    over all cases (``test_multistep.py:119-132``), from its
+    models feed back u alone; pixel diffusion samples each frame from
+    fresh noise keyed by ``--seed`` and the step. GenCast rolls out its
+    two-frame window from (frame0, frame0), from ``best_model/`` and
+    ``residual_stats.npz``, its noise keyed by seed 0 as in the JAX
+    package (``cli.py:517-559``). A non-autoregressive model generates
+    each step's frame, ``t = s`` for s in 0..19, in one whole-lattice
+    call over all cases (``test_multistep.py:119-132``), from its
     ``non-auto/`` run.
 
     Runs on the CUDA card unless ``device`` names another; with
@@ -209,18 +251,25 @@ def main_multistep(argv=None, device=None) -> torch.Tensor:
         )
 
     before = launch_counts()
+    P = case_params.shape[1]
     if args.model in NONAUTO_MODELS:
-        model = init_nonauto_model(args, n_case_params=case_params.shape[1], device=device)
+        model = init_nonauto_model(args, n_case_params=P, device=device)
         model.load_state_dict(load_best_params(output_dir))
         preds = generate_steps(NonAutoTask(model.eval()), on_device(case_params),
                                field_shape, INFER_STEPS)
+    elif args.model == "gencast":
+        stats = load_residual_stats(output_dir / "residual_stats.npz")
+        task = init_gencast(args, stats, P, device=device)
+        task.model.load_state_dict(load_params(output_dir / trainer_gencast.BEST_DIR))
+        f0 = on_device(frame0)
+        preds = task.rollout(f0, f0, on_device(case_params), on_device(mask), INFER_STEPS)
     else:
-        model = init_auto_model(args, n_case_params=case_params.shape[1],
-                                field_shape=field_shape, device=device)
-        model.load_state_dict(load_best_params(output_dir))
-        task = AutoTask(model.eval())
+        task = make_auto_task(args, P, field_shape, device)
+        task.model.load_state_dict(load_best_params(output_dir))
+        task.model.eval()
         rollout = make_rollout_fn(task.predict_frame, steps=INFER_STEPS,
-                                  include_initial=(args.model == "resnet"))
+                                  include_initial=(args.model == "resnet"),
+                                  stochastic=task.generative, seed=args.seed)
         preds = rollout(
             on_device(frame0[..., :task.feedback_channels]),
             on_device(case_params),
@@ -256,6 +305,8 @@ def main_auto(argv=None, device=None) -> None:
     (``src/train_auto.py:316-378``): ``--mode train`` trains with Adam
     and StepLR and writes ``ckpt-{ep}/`` per eval epoch, ``test`` scores
     the best checkpoint on the test split, ``train_test`` does both.
+    Pixel diffusion is scored on the frames it generates, its dev
+    evaluation on at most ``--max_eval_batches`` batches.
     Runs on the CUDA card unless ``device`` names another; with
     ``device`` None and no card it raises. On the card, FNO widths or
     modes that its kernels cannot take on the data's grid raise before
@@ -292,9 +343,8 @@ def main_auto(argv=None, device=None) -> None:
     print(f"# dev examples: {len(dev_data) if dev_data else 0}")
     print(f"# test examples: {len(test_data) if test_data else 0}")
     check_fno_kernel_shapes(args, ref.field_shape, device)
-    model = init_auto_model(args, n_case_params=ref.n_case_params, field_shape=ref.field_shape,
-                            device=device)
-    task = AutoTask(model, loss_name_to_fn(args.loss_name))
+    task = make_auto_task(args, ref.n_case_params, ref.field_shape, device)
+    model = task.model
 
     if "train" in args.mode:
         args.save(output_dir / "train_args.json")
@@ -308,6 +358,7 @@ def main_auto(argv=None, device=None) -> None:
             seed=args.seed, measure_time=bool(args.measure_time),
             plot_examples=bool(args.plot_train_examples), resume=bool(args.resume),
             opt_state=args.opt_state_dtype,
+            eval_max_batches=(args.max_eval_batches or None) if task.generative else None,
         )
         print_launches("train", before)
         if args.measure_time:
@@ -375,6 +426,64 @@ def main_train(argv=None, device=None) -> None:
         args.save(output_dir / "test_args.json")
         model.load_state_dict(load_best_params(output_dir))
         trainer_nonauto.test(task, test_data, output_dir / "test", device=device, batch_size=1)
+
+
+def main_gencast(argv=None, device=None) -> None:
+    """``cfdbench_tpu.cli.main_gencast`` (``src/train_gencast.py``): GenCast
+    on (X_{t−2}, X_{t−1}, X_t) triples of the auto dataset, whatever
+    ``--model`` says, into the ``gencast`` run directory. The residual
+    statistics are read from its ``residual_stats.npz``, or computed on
+    the train split and cached there when it is missing (the reference
+    requires the file). ``--mode train`` trains (AdamW, warmup-cosine,
+    ``--gradient_accumulation_steps``, ``--use_gradient_checkpointing``)
+    and resumes whenever a ``training_state/`` is there, as the JAX entry
+    point does; ``test`` generates and scores the test split from
+    ``best_model/``; ``train_test`` does both. Runs on the CUDA card
+    unless ``device`` names another; with ``device`` None and no card it
+    raises."""
+    args = dataclasses.replace(parse_args(argv), model="gencast")
+    check_training_flags(args, "gencast")
+    device = require_cuda() if device is None else torch.device(device)
+    set_f32_numerics()
+    print(args)
+    print(f"[gencast] device: {device}")
+    splits = ["train", "dev"] + (["test"] if "test" in args.mode else [])
+    train_data, dev_data, test_data = get_auto_dataset(
+        data_dir=Path(args.data_dir),
+        data_name=args.data_name,
+        delta_time=args.delta_time,
+        norm_props=bool(args.norm_props),
+        norm_bc=bool(args.norm_bc),
+        load_splits=splits,
+        seed=args.seed,
+        cache_dir=args.cache_dir or None,
+    )
+    gc_train, gc_dev = wrap_gencast(train_data), wrap_gencast(dev_data)
+    print(f"# train triples: {len(gc_train)}, dev: {len(gc_dev)}")
+
+    output_dir = run_dir(args)
+    stats_path = output_dir / "residual_stats.npz"
+    if stats_path.exists():
+        stats = load_residual_stats(stats_path)
+    else:
+        stats = compute_residual_stats(gc_train)
+        save_residual_stats(stats, stats_path)
+        print(f"Residual stats computed and cached at {stats_path}")
+    print(f"residual mean={stats['residual_mean']}, std={stats['residual_std']}")
+    task = init_gencast(args, stats, gc_train.n_case_params, loss_name_to_fn(args.loss_name),
+                        device=device)
+    if "train" in args.mode:
+        trainer_gencast.train_gencast(
+            task, gc_train, gc_dev, output_dir, device=device, num_epochs=args.num_epochs,
+            lr=args.lr, batch_size=args.batch_size, eval_batch_size=args.eval_batch_size,
+            eval_interval=args.eval_interval, log_interval=args.log_interval,
+            weight_decay=args.weight_decay, grad_accum_steps=args.gradient_accumulation_steps,
+            seed=args.seed, max_eval_batches=args.max_eval_batches,
+        )
+    if "test" in args.mode:
+        task.model.load_state_dict(load_params(output_dir / trainer_gencast.BEST_DIR))
+        trainer_gencast.test_gencast(task, wrap_gencast(test_data), output_dir / "test",
+                                     device=device, batch_size=args.eval_batch_size)
 
 
 def print_launches(what: str, before: dict) -> None:

@@ -59,7 +59,7 @@ class Conv(nn.Module):
     reference's ``padding_mode="replicate"``), else with zeros."""
 
     def __init__(self, in_chan: int, out_chan: int, kernel_size: int = 3,
-                 padding: int = 0, replicate_pad: bool = False, *,
+                 padding: int = 0, replicate_pad: bool = False, stride: int = 1, *,
                  generator: torch.Generator):
         super().__init__()
         k = kernel_size
@@ -67,7 +67,7 @@ class Conv(nn.Module):
         b = torch.empty((out_chan,), dtype=torch.float32)
         self.weight = nn.Parameter(torch_kernel_init(w, generator))
         self.bias = nn.Parameter(torch_bias_init(b, in_chan * k * k, generator))
-        self.padding, self.replicate_pad = padding, replicate_pad
+        self.padding, self.replicate_pad, self.stride = padding, replicate_pad, stride
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2)  # an NCHW view of the NHWC tensor
@@ -75,7 +75,36 @@ class Conv(nn.Module):
         if self.replicate_pad and p:
             x = F.pad(x, (p, p, p, p), mode="replicate")
             p = 0
-        return F.conv2d(x, self.weight, self.bias, padding=p).permute(0, 2, 3, 1)
+        return F.conv2d(x, self.weight, self.bias, stride=self.stride,
+                        padding=p).permute(0, 2, 3, 1)
+
+
+def num_groups_for(groups: int, channels: int) -> int:
+    """Largest divisor of ``channels`` that is <= ``groups``: the GroupNorm
+    group count of the PUNetG (and VAE) stacks."""
+    g = min(groups, channels)
+    while channels % g:
+        g -= 1
+    return g
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over the channels of an NHWC tensor: ``F.group_norm`` on
+    its NCHW view. ``weight`` and ``bias`` are flax's ``scale`` and
+    ``bias``. flax computes the variance as E[x²] − E[x]²
+    (``use_fast_variance``), torch in two passes; the PUNetG's forwards
+    and gradients agree with flax's within 2e-5 and 1e-5 of their max
+    (``tests/test_torch_diffusion.py``)."""
+
+    def __init__(self, num_groups: int, channels: int, eps: float = 1e-6):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        return F.group_norm(x.permute(0, 3, 1, 2), self.num_groups, self.weight, self.bias,
+                            self.eps).permute(0, 2, 3, 1)
 
 
 class MaxPool2(nn.Module):

@@ -15,12 +15,15 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
+from ..utils.rng import rollout_key
+
 
 def make_rollout_fn(
     apply_fn: Callable,
     steps: int,
     include_initial: bool = False,
     stochastic: bool = False,
+    seed: int = 0,
 ) -> Callable:
     """Build ``rollout(frame0, case_params, mask) → (steps, B, H, W, C)``.
 
@@ -28,12 +31,18 @@ def make_rollout_fn(
     frame's shape. With ``include_initial`` the frames are
     ``[frame0, pred_1, ..., pred_{steps-1}]`` (the ResNet family's
     alignment), so the last prediction is never computed.
+
+    ``stochastic=True`` calls ``apply_fn(frame, case_params, mask, key)``
+    with prediction i's key ``rollout_key(seed, i, steps)``, fresh noise each step
+    (``utils/rng.py``; the JAX package splits ``PRNGKey(seed)`` into one
+    key per step): the diffusion models, whose prediction is a DDPM
+    sampling run (``src/models/pixel_diffusion.py:139-154``).
     """
-    if stochastic:
-        raise NotImplementedError(
-            "stochastic (diffusion) rollouts are not ported yet "
-            "(ROADMAP.md A13)"
-        )
+
+    def step(carry, case_params, mask, i):
+        if stochastic:
+            return apply_fn(carry, case_params, mask, rollout_key(seed, i, steps))
+        return apply_fn(carry, case_params, mask)
 
     def rollout(frame0, case_params, mask):
         with torch.inference_mode():
@@ -47,7 +56,7 @@ def make_rollout_fn(
                 frames[0] = frame0
                 first = 1
             for s in range(first, steps):
-                frames[s] = apply_fn(carry, case_params, mask)
+                frames[s] = step(carry, case_params, mask, s - first)
                 carry = frames[s]
         return frames
 

@@ -10,15 +10,20 @@
 - :func:`train_step`: forward, loss, backward, Adam update and one
   schedule step. On the card the FNO's forward runs every FnoBlock and
   the head on their kernels (``ops/fno_kernels.py``), whose autograd
-  Functions carry the gradient. A model that draws in training (the
-  ResNet's dropout) gets a generator seeded from ``(seed, global
-  step)``, so a resumed run draws what a straight run draws. BatchNorm's
-  running statistics are buffers of the model: ``state_dict`` carries
-  them into every checkpoint and the ``training_state/`` snapshot.
+  Functions carry the gradient. A task's random draws are a function of
+  ``(seed, global step)`` (``task.step_draws``): a generator for a model
+  that draws in training (the ResNet's dropout), the key of a diffusion
+  task (``models/diffusion.py``), so a resumed run draws what a straight
+  run draws. BatchNorm's running statistics are buffers of the model:
+  ``state_dict`` carries them into every checkpoint and the
+  ``training_state/`` snapshot.
 - :func:`evaluate` scores each batch and the input-as-prediction
   persistence baseline (``src/train_auto.py:92-97, 132-139``) under
   ``torch.no_grad``; the scores stay on the device until one transfer at
-  the end.
+  the end. A generative task (``task.generative``) is scored on the frame
+  it generates, masked, against the masked label, beside the masked
+  persistence baseline (the reference's ``evaluate_ldm``), on at most
+  ``max_eval_batches`` batches.
 - :func:`train` writes the JAX package's artifacts: per eval epoch
   ``ckpt-{ep}/{model.pt, dev_scores.json, train_loss.json,
   scores.json}`` and ``example.png``, the ``training_state/`` snapshot
@@ -43,6 +48,7 @@ from ..data.datasets import AutoDataset
 from ..data.pipeline import batches, num_batches, to_device
 from ..metrics import LossFn
 from ..utils.artifacts import plot_example, plot_loss, plot_predictions
+from ..utils.rng import step_generator
 from . import checkpoints
 from .optim import make_adam, step_lr_schedule
 
@@ -50,6 +56,8 @@ from .optim import make_adam, step_lr_schedule
 class AutoTask:
     """Couples an autoregressive model with its loss and its rollout
     contract."""
+
+    generative = False
 
     def __init__(self, model: nn.Module, loss_fn: Optional[LossFn] = None):
         self.model = model
@@ -97,19 +105,20 @@ class AutoTask:
         reference's quirk)."""
         return self.model.out_chan
 
-
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The generator of global step ``step``'s random draws (dropout
-    masks), a function of ``(seed, step)`` alone."""
-    state = np.random.SeedSequence([seed, step]).generate_state(1)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
+    def step_draws(self, seed: int, step: int, device) -> Optional[torch.Generator]:
+        """What ``loss_scores`` takes for train step ``step``: the step's
+        generator for a model that draws in training, else None."""
+        if getattr(self.model, "draws_in_training", False):
+            return step_generator(seed, step, device)
+        return None
 
 
 def train_step(task: AutoTask, optimizer: torch.optim.Optimizer, scheduler,
-               batch, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-    """One update; returns the batch's scores, detached, on the device."""
+               batch, draws=None) -> Dict[str, torch.Tensor]:
+    """One update; returns the batch's scores, detached, on the device.
+    ``draws`` is the step's ``task.step_draws``."""
     optimizer.zero_grad(set_to_none=True)
-    loss, scores = task.loss_scores(batch, generator)
+    loss, scores = task.loss_scores(batch, draws)
     loss.backward()
     optimizer.step()
     scheduler.step()
@@ -128,6 +137,22 @@ def eval_step(task: AutoTask, batch, with_preds: bool = True):
     return task.scores(out, batch), input_scores, preds
 
 
+@torch.no_grad()
+def gen_eval_step(task, batch):
+    """``(scores, input_scores, frame)`` of a generative task: the frame
+    generated from the fixed evaluation key, masked, against the masked
+    label, and the masked persistence baseline
+    (``src/train_gencast.py:176-180``)."""
+    frame = task.predict_frame(batch["inputs"], batch["case_params"], batch["mask"])
+    oc = frame.shape[-1]
+    w = batch.get("weights")
+    labels = batch["labels"][..., :oc] * batch["mask"]
+    scores = task.loss_fn(frame * batch["mask"], labels, sample_weights=w)
+    input_scores = task.loss_fn(batch["inputs"][..., :oc] * batch["mask"], labels,
+                                sample_weights=w)
+    return scores, input_scores, frame
+
+
 def dataset_arrays(data: AutoDataset) -> Dict[str, np.ndarray]:
     return dict(inputs=data.inputs, labels=data.labels, mask=data.masks,
                 case_params=data.case_params)
@@ -142,9 +167,11 @@ def evaluate(
     batch_size: int = 2,
     plot_interval: Optional[int] = None,
     collect_preds: bool = True,
+    max_eval_batches: Optional[int] = None,
 ) -> Dict[str, Any]:
     """Mirror of ``src/train_auto.py:61-148``: per-batch scores, their
-    means, the predictions if asked for, and the plots."""
+    means, the predictions if asked for, and the plots; at most
+    ``max_eval_batches`` batches when given."""
     keep_preds = collect_preds or bool(plot_interval)
     names = task.loss_fn.get_score_names()
     score_rows = []  # (2, n_names) per batch, on the device: [pred, input baseline]
@@ -152,11 +179,16 @@ def evaluate(
     plot_panels = {}  # step -> (input u, label u) of the batch's first sample
     task.model.eval()
     for step, host in enumerate(batches(dataset_arrays(data), batch_size, shuffle=False)):
+        if max_eval_batches is not None and step >= max_eval_batches:
+            break
         n_valids.append(int(host["weights"].sum()))
         if plot_interval and step % plot_interval == 0:
             plot_panels[step] = (host["inputs"][0, ..., 0].copy(),
                                  host["labels"][0, ..., 0].copy())
-        s, isc, preds = eval_step(task, to_device(host, device), with_preds=keep_preds)
+        if task.generative:
+            s, isc, preds = gen_eval_step(task, to_device(host, device))
+        else:
+            s, isc, preds = eval_step(task, to_device(host, device), with_preds=keep_preds)
         score_rows.append(torch.stack([torch.stack([s[k] for k in names]),
                                        torch.stack([isc[k] for k in names])]))
         if keep_preds:
@@ -219,12 +251,13 @@ def train(
     plot_examples: bool = False,
     resume: bool = False,
     opt_state: str = "f32",
+    eval_max_batches: Optional[int] = None,
 ) -> List[float]:
     """Train ``task.model`` in place; returns the per-step losses.
     ``resume=True`` continues from ``output_dir/training_state`` (the
     weights, the optimizer's moments and step, the schedule's position)
     and ``training_meta.json`` when both are there; every eval epoch
-    writes them."""
+    writes them. ``eval_max_batches`` caps the dev evaluation."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     model = task.model
@@ -259,7 +292,6 @@ def train(
 
     start_time = time.time()
     objective = task.loss_fn.objective
-    draws = getattr(model, "draws_in_training", False)
     for ep in range(start_epoch, num_epochs):
         ep_start = time.time()
         model.train()
@@ -268,8 +300,8 @@ def train(
         ep_losses_dev = []
         rng = np.random.default_rng(seed * 1_000_003 + ep)
         for step, host in enumerate(batches(arrays, batch_size, shuffle=True, rng=rng)):
-            gen = step_generator(seed, global_step, device) if draws else None
-            scores = train_step(task, optimizer, scheduler, to_device(host, device), gen)
+            draws = task.step_draws(seed, global_step, device)
+            scores = train_step(task, optimizer, scheduler, to_device(host, device), draws)
             ep_losses_dev.append(scores[objective])
             global_step += 1
             if global_step % log_interval == 0:
@@ -292,11 +324,14 @@ def train(
             ckpt_dir = output_dir / f"ckpt-{ep}"
             ckpt_dir.mkdir(parents=True, exist_ok=True)
             dev_scores = evaluate(task, dev_data, ckpt_dir, device=device,
-                                  batch_size=eval_batch_size, collect_preds=False)["scores"]
+                                  batch_size=eval_batch_size, collect_preds=False,
+                                  max_eval_batches=eval_max_batches)["scores"]
             if plot_examples:
                 # The train-time example.png (src/train_auto.py:234-250).
                 pb = next(batches(dataset_arrays(dev_data), eval_batch_size, shuffle=False))
-                _, _, pred = eval_step(task, to_device(pb, device))
+                b = to_device(pb, device)
+                with torch.no_grad():
+                    pred = task.predict_frame(b["inputs"], b["case_params"], b["mask"])
                 plot_example(inp=pb["inputs"][0, ..., 0], label=pb["labels"][0, ..., 0],
                              pred=pred[0, ..., 0].cpu().numpy(),
                              out_path=output_dir / "example.png")

@@ -20,10 +20,15 @@ reads), so the three layouts meet:
   counterpart: it is set to 0);
 - the FNO's spectral weights keep the real-pair layout
   ``(corner, re/im, in, out, m1, m2)``, the FFNO's ``(re/im, in, out,
-  modes)``.
+  modes)``;
+- a GroupNorm's ``{scale, bias}`` are its ``weight``/``bias``.
 
-The model is recognised from the tree (or the keys): ``FnoBlock_i`` is
-the FNO, ``FfnoBlock_i`` the FFNO, ``DoubleConv_0`` the U-Net,
+The model is recognised from the tree (or the keys): ``FilmResBlock_i``
+is the PUNetG of pixel diffusion and GenCast (flax's auto-names in call
+order: ``Dense_0``-``Dense_3`` the timestep and case-parameter MLPs,
+``Conv_0`` the conv-in, then the downsampling, upsampling and output
+convs; inside a block ``Conv_0`` is the 1x1 residual conv where the
+widths differ), ``FnoBlock_i`` the FNO, ``FfnoBlock_i`` the FFNO, ``DoubleConv_0`` the U-Net,
 ``ResidualBlock_i`` the ResNet, ``Dense_0`` beside ``Mlp_0`` the
 non-autoregressive DeepONet (``fc_trunk_t`` and ``fc_trunk_xy``),
 ``CnnBranch_0`` the AutoDeepONetCnn, three, two or one ``Mlp_i`` the
@@ -73,9 +78,13 @@ def _mlp(path, key, n: int) -> Iterator[Entry]:
         yield from _dense(path + (f"Dense_{j}",), f"{key}.layers.{2 * j}")
 
 
-def _bn(path, key) -> Iterator[Entry]:
+def _norm(path, key) -> Iterator[Entry]:
     yield P, path + ("scale",), f"{key}.weight", "="
     yield P, path + ("bias",), f"{key}.bias", "="
+
+
+def _bn(path, key) -> Iterator[Entry]:
+    yield from _norm(path, key)
     yield S, path + ("mean",), f"{key}.running_mean", "="
     yield S, path + ("var",), f"{key}.running_var", "="
     yield None, (), f"{key}.num_batches_tracked", "count"
@@ -91,7 +100,24 @@ def _double_conv(path, key) -> Iterator[Entry]:
 def _entries(family: str, shape) -> Iterator[Entry]:
     """Every leaf of ``family``'s variables with its port key; ``shape``
     is what varies within the family (block counts, MLP depths)."""
-    if family == "fno":
+    if family == "punetg":
+        n_down, residual = shape
+        for i, key in enumerate(("t_dense1", "t_dense2", "c_dense1", "c_dense2")):
+            yield from _dense((f"Dense_{i}",), key)
+        convs = ["conv_in"] + [f"downs.{j}" for j in range(n_down)] + [
+            f"ups.{j}" for j in range(n_down)] + ["conv_out"]
+        for i, key in enumerate(convs):
+            yield from _conv((f"Conv_{i}",), key)
+        yield from _norm(("GroupNorm_0",), "norm_out")
+        for i, projected in enumerate(residual):
+            block, key = (f"FilmResBlock_{i}",), f"res_blocks.{i}"
+            names = ["res_conv"] * projected + ["conv1", "conv2"]
+            for j, name in enumerate(names):
+                yield from _conv(block + (f"Conv_{j}",), f"{key}.{name}")
+            yield from _norm(block + ("GroupNorm_0",), f"{key}.norm1")
+            yield from _norm(block + ("GroupNorm_1",), f"{key}.norm2")
+            yield from _dense(block + ("Dense_0",), f"{key}.cond")
+    elif family == "fno":
         yield from _dense(("Dense_0",), "fc0")
         for i in range(shape):
             yield P, (f"FnoBlock_{i}", "SpectralConv2d_0", "weights"), f"blocks.{i}.weights", "="
@@ -160,6 +186,10 @@ def _count(prefix: str, keys) -> int:
 
 
 def _flax_shape(params) -> Tuple[str, Any]:
+    if "FilmResBlock_0" in params:
+        return "punetg", ((_count("Conv_", params) - 2) // 2,
+                          ["Conv_2" in params[f"FilmResBlock_{i}"]
+                           for i in range(_count("FilmResBlock_", params))])
     if "FnoBlock_0" in params:
         return "fno", _count("FnoBlock_", params)
     if "FfnoBlock_0" in params:
@@ -182,6 +212,10 @@ def _flax_shape(params) -> Tuple[str, Any]:
 
 def _port_shape(keys) -> Tuple[str, Any]:
     keys = set(keys)
+    if "res_blocks.0.norm1.weight" in keys:
+        return "punetg", (_count("downs.", keys),
+                          [f"res_blocks.{i}.res_conv.weight" in keys
+                           for i in range(_count("res_blocks.", keys))])
     if "blocks.0.weights" in keys:
         return "fno", _count("blocks.", (k for k in keys if k.endswith(".weights")))
     if "blocks.0.weights_h" in keys:

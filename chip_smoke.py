@@ -64,6 +64,20 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    batch-128 train step (split, peak memory) and 20-step rollout, and the
    FFN's and DeepONet's batch-128 train step at 1000 points a sample and
    20-step whole-lattice generation over 128 cases.
+9. Pixel diffusion and GenCast (PUNetG, base 64, mults 1-2-4, 2 res
+   blocks, 1000 train timesteps, 50 denoising steps). (a) ``main_auto
+   --model pixel_diffusion --mode train_test`` then ``main_multistep``;
+   ``main_gencast --mode train_test --gradient_accumulation_steps 2
+   --use_gradient_checkpointing 1`` then ``main_multistep --model
+   gencast``, on the phase-6 tree: finite checkpoints on the host, dev
+   scores of generated frames (pixel diffusion's ``nmse``, GenCast's
+   ``gen_frame_nmse``), finite test scores, 20 finite frames, no FNO
+   kernel launch. (b) With dropout 0 and the same draws (made on the CPU)
+   on both devices: the PUNetG eval forward, each task's loss and every
+   gradient, and one 50-step DDPM frame, card against CPU, at phase 7b's
+   and 6a's bounds. (c) At batch 8 and 32: each model's float32 train
+   step (split, peak memory, device operations a step), one denoise call,
+   one 50-step DDPM frame and the 20-step rollout in frames/s.
 
 ``launches`` in the kernels' record is phase 3's count (main_multistep),
 ``launches_by_path`` each main path's own: main_multistep's and
@@ -120,6 +134,12 @@ ZERO_GRAD_RTOL = 1e-5
 # default widths.
 NONAUTO = ("ffn", "deeponet")
 PHASE8 = NONAUTO + ("ffno",)
+# Phase 9: pixel diffusion and GenCast at their default widths.
+GENERATIVE = ("pixel_diffusion", "gencast")
+GEN_BATCHES = (8, 32)  # the trainers' default batch, and a larger one
+GEN_CHECK_BATCH = 2
+# Residual statistics for the GenCast task outside main_gencast.
+GEN_STATS = dict(residual_mean=[0.01, -0.02], residual_std=[0.1, 0.2])
 # (B, H, W, channels, modes, head outputs) of phase 2.
 CHECK_SHAPES = ((8, GRID, GRID, WIDTH, MODES, 2), (8, GRID + 2, GRID + 1, WIDTH, MODES, 2),
                 (3, 18, 17, 10, 4, 3), (17, 16, 16, 8, MODES, 2),
@@ -986,6 +1006,254 @@ def phase8_timing(device, card):
     return result
 
 
+def finite(tensors, what: str) -> None:
+    if not all(torch.isfinite(v).all() for v in tensors):
+        raise RuntimeError(f"{what}: not finite")
+
+
+def host_checkpoint(path: Path, what: str) -> None:
+    """A checkpoint the card wrote: finite, and its tensors on the host."""
+    sd = torch.load(path, weights_only=True)
+    if {str(v.device) for v in sd.values()} != {"cpu"}:
+        raise RuntimeError(f"{what}: {path} holds tensors off the host")
+    finite(sd.values(), f"{what}: {path}")
+
+
+def check_frames(frames, metrics, what: str) -> float:
+    """20 finite frames of 2 channels and 20 finite per-step metric dicts;
+    returns the step-20 nmse."""
+    if (frames.shape[0] != STEPS or frames.shape[-1] != 2 or not torch.isfinite(frames).all()
+            or len(metrics) != STEPS
+            or not all(math.isfinite(v) for m in metrics for v in m.values())):
+        raise RuntimeError(f"{what}: frames {tuple(frames.shape)}, metrics {metrics}")
+    return metrics[-1]["nmse"]
+
+
+def phase9_paths():
+    """Phase 9a: pixel diffusion through ``main_auto --mode train_test`` and
+    ``main_multistep``, GenCast through ``main_gencast --mode train_test``
+    (gradient accumulation and checkpointing on) and ``main_multistep``, at
+    their default widths on the phase-6 tree. Returns each model's dev and
+    test nmse of generated frames and step-20 nmse."""
+    from cfdbench_tpu_torch.cli import main_auto, main_gencast, main_multistep, parse_args, run_dir
+    from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
+
+    train_flags = ["--mode", "train_test", "--num_epochs", str(TRAIN_EPOCHS),
+                   "--eval_interval", "1", "--batch_size", "16", "--eval_batch_size", "16",
+                   "--log_interval", "1"]
+    extra = {"pixel_diffusion": [],
+             "gencast": ["--gradient_accumulation_steps", "2", "--use_gradient_checkpointing", "1"]}
+    result = {}
+    for name in GENERATIVE:
+        argv = family_argv(name, WORK / "train_data") + extra[name]
+        run = run_dir(parse_args(argv))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        (main_auto if name == "pixel_diffusion" else main_gencast)(argv + train_flags)
+        t1 = time.perf_counter()
+        dev = [json.loads((run / f"ckpt-{ep}" / "dev_scores.json").read_text())["mean"]
+               for ep in range(TRAIN_EPOCHS)]
+        # Pixel diffusion's dev scores are its generated frames' (beside the
+        # persistence baseline); GenCast's add gen_frame_* to its noise scores.
+        key = "nmse" if name == "pixel_diffusion" else "gen_frame_nmse"
+        if not all(key in d and all(math.isfinite(v) for v in d.values()) for d in dev):
+            raise RuntimeError(f"{name}: dev scores lack a finite {key}: {dev}")
+        if name == "pixel_diffusion":
+            finite_scores(run, name)
+            weights = [run / f"ckpt-{ep}" / "model.pt" for ep in range(TRAIN_EPOCHS)]
+        else:
+            weights = [run / "best_model" / "model.pt"]
+        for path in weights:
+            host_checkpoint(path, name)
+        test = json.loads((run / "test" / "scores.json").read_text())["mean"]
+        if not all(math.isfinite(v) for v in test.values()):
+            raise RuntimeError(f"{name}: test/scores.json is not finite: {test}")
+        frames = main_multistep(argv)
+        metrics = json.loads((run / "multistep_metrics.json").read_text())
+        step20 = check_frames(frames, metrics, name)
+        counts = launch_counts()
+        if any(counts.values()):
+            raise RuntimeError(f"{name} launched FNO kernels: {counts}")
+        result[name] = dict(dev=[d[key] for d in dev], test_nmse=test["nmse"],
+                            test_input_nmse=test["input_nmse"], step20_nmse=step20)
+        print(f"[phase9] {name}: train_test {t1 - t0:.2f} s, dev {key} {result[name]['dev']}, "
+              f"test nmse {test['nmse']:.6g} (persistence {test['input_nmse']:.6g}); "
+              f"main_multistep {time.perf_counter() - t1:.2f} s, step-20 nmse {step20:.6g}; "
+              f"FNO kernel launches {counts}")
+    return result
+
+
+def generative_task(name: str, device, dropout=None, seed: int = SEED):
+    """``name``'s task at its default widths (64x64, 5 case parameters)
+    from a seeded init; ``dropout`` replaces the default rate."""
+    from cfdbench_tpu_torch.config import Args
+    from cfdbench_tpu_torch.metrics import loss_name_to_fn
+    from cfdbench_tpu_torch.models import init_gencast, init_pixel_diffusion
+
+    kw = {} if dropout is None else dict(pixel_diffusion_dropout=dropout)
+    args = Args(model=name, **kw)
+    init = dict(generator=torch.Generator().manual_seed(seed), device=device)
+    if name == "pixel_diffusion":
+        return init_pixel_diffusion(args, 5, loss_name_to_fn("nmse"), **init)
+    return init_gencast(args, GEN_STATS, 5, loss_name_to_fn("nmse"), **init)
+
+
+def generative_batch(B, gen, device):
+    batch = train_inputs(B, gen, "cpu")
+    batch["inputs_prev"] = torch.randn((B, GRID, GRID, 2), generator=gen)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def phase9_card_vs_cpu(device):
+    """Phase 9b: dropout 0 and the noise, timesteps and sampler noise drawn
+    on the CPU for both devices: the PUNetG eval forward, each task's loss
+    and every gradient, and each task's 50-step DDPM frame (pixel
+    diffusion's ``predict_frame``, GenCast's ``generate``), card against
+    CPU."""
+    from cfdbench_tpu_torch.models import diffusion
+    from cfdbench_tpu_torch.ops import diffusion as ops
+    from cfdbench_tpu_torch.utils.rng import train_key
+
+    draw_noise, draw_sampler = diffusion.train_noise_and_t, ops.ddpm_noise
+    diffusion.train_noise_and_t = lambda key, shape, T, dev: tuple(
+        v.to(dev) for v in draw_noise(key, shape, T, "cpu"))
+    ops.ddpm_noise = lambda key, i, shape, dev: draw_sampler(key, i, shape, "cpu").to(dev)
+    try:
+        batch_cpu = generative_batch(FAMILY_BATCH, torch.Generator().manual_seed(SEED + 8), "cpu")
+        batch = {k: v.to(device) for k, v in batch_cpu.items()}
+        steps = torch.randint(0, 1000, (FAMILY_BATCH,), generator=torch.Generator().manual_seed(9))
+        tasks = {name: {"cpu": generative_task(name, "cpu", 0.0),
+                        "card": generative_task(name, device, 0.0)} for name in GENERATIVE}
+        for name in GENERATIVE:
+            x = batch_cpu["labels"] if name == "pixel_diffusion" else torch.cat(
+                [batch_cpu["labels"], batch_cpu["inputs"], batch_cpu["inputs_prev"]], -1)
+            with torch.no_grad():
+                want = tasks[name]["cpu"].model(x, steps, batch_cpu["case_params"])
+                got = tasks[name]["card"].model(x.to(device), steps.to(device),
+                                                batch["case_params"]).cpu()
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            print(f"[phase9] {name} PUNetG eval forward B={FAMILY_BATCH} {GRID}x{GRID}, card vs "
+                  f"CPU: max abs diff / max |out| {rel:.3e} (bound {FAMILY_RTOL:.0e})")
+            if not rel <= FAMILY_RTOL:
+                raise RuntimeError(f"{name}: card and CPU forwards disagree ({rel:.3e})")
+            runs = {}
+            for where, b in (("cpu", batch_cpu), ("card", batch)):
+                task = tasks[name][where]
+                loss, _ = task.loss_scores(b, train_key(SEED, 0))
+                loss.backward()
+                runs[where] = loss.item(), {k: p.grad.cpu()
+                                            for k, p in task.model.named_parameters()}
+            (loss_c, grads_c), (loss_g, grads_g) = runs["cpu"], runs["card"]
+            loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+            worst = 0.0
+            for k, want in grads_c.items():
+                got = grads_g[k]
+                finite([got], f"{name} {k} gradient on the card")
+                rel = ((got - want).abs().max() / want.abs().max()).item()
+                if not rel <= GRAD_RTOL:
+                    raise RuntimeError(f"{name} {k}: card gradient disagrees, {rel:.3e} > "
+                                       f"{GRAD_RTOL}")
+                worst = max(worst, rel)
+            print(f"[phase9] {name} train step B={FAMILY_BATCH}, card vs CPU: nmse rel diff "
+                  f"{loss_rel:.3e} (bound {GRAD_LOSS_RTOL:.0e}); {len(grads_c)} gradients, "
+                  f"worst max abs diff / max |grad| {worst:.3e} (bound {GRAD_RTOL:.0e})")
+            if not loss_rel <= GRAD_LOSS_RTOL:
+                raise RuntimeError(f"{name}: train loss on the card disagrees ({loss_rel:.3e})")
+        frame_calls = {"pixel_diffusion": ("predict_frame", ("inputs", "case_params", "mask")),
+                       "gencast": ("generate", ("inputs", "inputs_prev", "case_params", "mask"))}
+        for name, (method, keys) in frame_calls.items():
+            want = getattr(tasks[name]["cpu"], method)(
+                *(batch_cpu[k][:GEN_CHECK_BATCH] for k in keys))
+            got = getattr(tasks[name]["card"], method)(
+                *(batch[k][:GEN_CHECK_BATCH] for k in keys)).cpu()
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            print(f"[phase9] {name} 50-step DDPM frame ({method}) B={GEN_CHECK_BATCH}, card vs "
+                  f"CPU: max abs diff / max |frame| {rel:.3e} (bound {FAMILY_RTOL:.0e})")
+            if not rel <= FAMILY_RTOL:
+                raise RuntimeError(f"{name}: card and CPU frames disagree ({rel:.3e})")
+    finally:
+        diffusion.train_noise_and_t, ops.ddpm_noise = draw_noise, draw_sampler
+
+
+def device_ops(fn) -> int:
+    """The device operations (kernels, copies, fills) one call of ``fn``
+    launches, from the profiler's CUDA activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def generative_timing(name: str, device, card) -> dict:
+    """At each of GEN_BATCHES: the float32 train step (dropout on; Adam and
+    StepLR for pixel diffusion, GenCast's AdamW chain) with its split, peak
+    memory and device operations, then one denoise call, one 50-step DDPM
+    frame and the 20-step rollout, by CUDA events."""
+    import types
+
+    from cfdbench_tpu_torch.training.optim import make_adam, make_gencast_tx
+    from cfdbench_tpu_torch.utils.rng import train_key
+    from cfdbench_tpu_torch.training.rollout import make_rollout_fn
+
+    result = {}
+    for B in GEN_BATCHES:
+        batch = generative_batch(B, torch.Generator().manual_seed(SEED + 10), device)
+        task = generative_task(name, device)
+        params = task.model.parameters()
+        if name == "pixel_diffusion":
+            opt, sched = make_adam(params, 1e-4)
+        else:
+            opt, sched = make_gencast_tx(params, 1e-4, total_steps=1000), types.SimpleNamespace(
+                step=lambda: None)
+        steps = itertools.count()
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss, _ = task.loss_scores(batch, train_key(SEED, next(steps)))
+            loss.backward()
+            opt.step()
+            sched.step()
+
+        step()  # warm-up: cuDNN's choice of algorithms
+        step_ms = time_ms(step, TRAIN_REPS)
+        split = step_split(lambda: task.loss_scores(batch, train_key(SEED, 0)), opt, sched, device)
+        ops_per_step = device_ops(step)
+        x = batch["labels"] if name == "pixel_diffusion" else torch.cat(
+            [batch["labels"], batch["inputs"], batch["inputs_prev"]], -1)
+        t = torch.full((B,), 500, device=device)
+        cp, mask = batch["case_params"], batch["mask"]
+        with torch.inference_mode():
+            task.model(x, t, cp)
+            denoise_ms = time_ms(lambda: task.model(x, t, cp), 10)
+        if name == "pixel_diffusion":
+            frame = lambda: task.predict_frame(batch["inputs"], cp, mask)  # noqa: E731
+            roll = make_rollout_fn(task.predict_frame, STEPS, stochastic=True, seed=SEED)
+            rollout = lambda: roll(batch["inputs"], cp, mask)  # noqa: E731
+        else:
+            frame = lambda: task.generate(batch["inputs"], batch["inputs_prev"], cp, mask)  # noqa: E731
+            rollout = lambda: task.rollout(batch["inputs"], batch["inputs"], cp, mask, STEPS)  # noqa: E731
+        frame_ms = time_ms(frame, 1)
+        torch.cuda.reset_peak_memory_stats(device)
+        roll_ms = time_ms(rollout, 1)
+        roll_peak = torch.cuda.max_memory_allocated(device) / 2**20
+        fps = B * STEPS / roll_ms * 1e3
+        print(f"[time] [{card}] {name} train step b{B} {GRID}x{GRID} f32: {step_ms:.3f} ms, "
+              f"{ops_per_step} device operations; " + split_text(split))
+        print(f"[time] [{card}] {name} b{B}: denoise call {denoise_ms:.3f} ms, 50-step DDPM frame "
+              f"{frame_ms:.3f} ms ({B / frame_ms * 1e3:.2f} frames/s), rollout {STEPS} steps "
+              f"{roll_ms:.3f} ms = {fps:.2f} frames/s, peak memory {roll_peak:.1f} MiB")
+        result[f"b{B}"] = dict(train_step_ms=step_ms, **split, device_ops_per_step=ops_per_step,
+                               denoise_ms=denoise_ms, frame_ms=frame_ms, rollout_ms=roll_ms,
+                               rollout_frames_per_s=fps, rollout_peak_mib=roll_peak)
+        del task, opt, batch
+        torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False",
@@ -1011,6 +1279,10 @@ def main() -> int:
     phase8_card_vs_cpu(device)
     phase8_times = phase8_timing(device, card)
     print(f"[phase8] [{card}] " + json.dumps({"step20_nmse": phase8, "timing": phase8_times}))
+    phase9 = phase9_paths()
+    phase9_card_vs_cpu(device)
+    phase9_times = {name: generative_timing(name, device, card) for name in GENERATIVE}
+    print(f"[phase9] [{card}] " + json.dumps({"quality": phase9, "timing": phase9_times}))
     print(f"[main] launches on the main paths: main_multistep {counts}, "
           f"main_auto {train_counts}")
     replaces = {"fno_block": "cfdbench_tpu/ops/pallas_fno.py:179",

@@ -14,8 +14,13 @@ With ``--train`` it profiles 5 float32 train steps at batch 128
 (``trainer_auto.train_step``: forward, nmse, backward, Adam) instead,
 and also the device time under each autograd node (nested: a node's
 time includes the kernels it launched, so the lines overlap).
+``--model pixel_diffusion`` or ``gencast`` (default widths) profiles one
+50-step DDPM frame instead of the rollout, and with ``--train`` 5 train
+steps (dropout on; Adam, or GenCast's AdamW chain), at batch 8, the
+trainers' default, unless ``--batch`` says otherwise.
 
-    python3 scripts/profile_torch_rollout.py [--model fno|ffno|unet|resnet] [--train] [--trace DIR]
+    python3 scripts/profile_torch_rollout.py [--model fno|ffno|unet|resnet|pixel_diffusion|gencast]
+        [--train] [--batch B] [--trace DIR]
 
 ``--trace DIR`` also writes each path's Chrome trace there.
 """
@@ -35,15 +40,20 @@ sys.path.insert(0, str(REPO_ROOT))
 
 from cfdbench_tpu_torch.config import Args  # noqa: E402
 from cfdbench_tpu_torch.metrics import loss_name_to_fn  # noqa: E402
-from cfdbench_tpu_torch.models import init_auto_model  # noqa: E402
+from cfdbench_tpu_torch.models import (  # noqa: E402
+    init_auto_model,
+    init_gencast,
+    init_pixel_diffusion,
+)
 from cfdbench_tpu_torch.models.fno import FLAGSHIP, Fno2d, PlainFno2d  # noqa: E402
-from cfdbench_tpu_torch.training.optim import make_adam  # noqa: E402
+from cfdbench_tpu_torch.training.optim import make_adam, make_gencast_tx  # noqa: E402
 from cfdbench_tpu_torch.training.rollout import make_rollout_fn  # noqa: E402
 from cfdbench_tpu_torch.training.trainer_auto import (  # noqa: E402
     AutoTask,
     step_generator,
     train_step,
 )
+from cfdbench_tpu_torch.utils.rng import train_key  # noqa: E402
 from cfdbench_tpu_torch.utils.device import require_cuda, set_f32_numerics  # noqa: E402
 
 STEPS = 20
@@ -89,16 +99,72 @@ def profile_path(name, run, trace_dir, autograd_nodes=False):
         prof.export_chrome_trace(str(Path(trace_dir) / f"{name}.json"))
 
 
+def profile_diffusion(opts, device) -> int:
+    """One 50-step DDPM frame, or 5 train steps, of pixel diffusion or
+    GenCast at their default widths."""
+    B = opts.batch or 8
+    gen = torch.Generator().manual_seed(1)
+    args = Args(model=opts.model)
+    init = dict(generator=torch.Generator().manual_seed(0), device=device)
+    loss_fn = loss_name_to_fn("nmse")
+    if opts.model == "pixel_diffusion":
+        task = init_pixel_diffusion(args, 5, loss_fn, **init)
+    else:
+        stats = dict(residual_mean=[0.0, 0.0], residual_std=[0.1, 0.1])
+        task = init_gencast(args, stats, 5, loss_fn, **init)
+    mask = torch.ones((B, 64, 64, 1))
+    mask[:, 20:30, 10:40] = 0
+    batch = {k: v.to(device) for k, v in dict(
+        inputs=torch.randn((B, 64, 64, 2), generator=gen),
+        inputs_prev=torch.randn((B, 64, 64, 2), generator=gen),
+        labels=torch.randn((B, 64, 64, 2), generator=gen),
+        case_params=torch.randn((B, 5), generator=gen), mask=mask,
+        weights=torch.ones(B)).items()}
+    if not opts.train:
+        print(f"{torch.cuda.get_device_name(0)}: {opts.model} 50-step DDPM frame b{B}")
+        if opts.model == "pixel_diffusion":
+            def frame():
+                task.predict_frame(batch["inputs"], batch["case_params"], batch["mask"])
+        else:
+            def frame():
+                task.generate(batch["inputs"], batch["inputs_prev"], batch["case_params"],
+                              batch["mask"])
+        profile_path(f"frame_{opts.model}", frame, opts.trace, autograd_nodes=True)
+        return 0
+    print(f"{torch.cuda.get_device_name(0)}: {opts.model} {TRAIN_STEPS} train steps b{B}")
+    if opts.model == "pixel_diffusion":
+        opt, sched = make_adam(task.model.parameters(), 1e-4)
+    else:
+        opt, sched = make_gencast_tx(task.model.parameters(), 1e-4, total_steps=1000), None
+    count = iter(range(10 ** 9))
+
+    def steps():
+        for _ in range(TRAIN_STEPS):
+            opt.zero_grad(set_to_none=True)
+            loss, _ = task.loss_scores(batch, train_key(0, next(count)))
+            loss.backward()
+            opt.step()
+            if sched is not None:
+                sched.step()
+
+    profile_path(f"train_{opts.model}", steps, opts.trace, autograd_nodes=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("fno", "ffno", "unet", "resnet"), default="fno")
+    ap.add_argument("--model", choices=("fno", "ffno", "unet", "resnet", "pixel_diffusion",
+                                        "gencast"), default="fno")
     ap.add_argument("--train", action="store_true")
+    ap.add_argument("--batch", type=int, default=0)
     ap.add_argument("--trace", default="")
     opts = ap.parse_args()
     device = require_cuda()
     set_f32_numerics()
+    if opts.model in ("pixel_diffusion", "gencast"):
+        return profile_diffusion(opts, device)
     gen = torch.Generator().manual_seed(1)
-    B = BATCH
+    B = opts.batch or BATCH
     init = torch.Generator().manual_seed(0)
     if opts.model == "fno":
         model = Fno2d(n_case_params=5, **FLAGSHIP, generator=init, device=device)

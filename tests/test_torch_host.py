@@ -142,3 +142,34 @@ def test_point_examples_like_jax(synth_root, rng):
     assert got.num_points == want.num_points
     for a, b in zip(got.point_examples(idxs), want.point_examples(idxs)):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("split", [0, 1])
+def test_gencast_triples_and_residual_stats_like_jax(synth_root, tmp_path, split):
+    """``wrap_gencast``'s (X_{t-2}, X_{t-1}, X_t) triples and the residual
+    statistics, bit for bit, and their npz round trip."""
+    from cfdbench_tpu.data import wrapper as jax_wrapper
+    from cfdbench_tpu_torch.data import wrapper
+
+    got = wrapper.wrap_gencast(auto_datasets(data, synth_root, "cavity_prop_bc_geo")[split])
+    want = jax_wrapper.wrap_gencast(
+        auto_datasets(jax_data, synth_root, "cavity_prop_bc_geo")[split])
+    for name in ("inputs", "inputs_prev", "labels", "masks", "case_params"):
+        np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
+    stats, want_stats = wrapper.compute_residual_stats(got), jax_wrapper.compute_residual_stats(want)
+    assert stats.keys() == want_stats.keys()
+    for k in stats:
+        assert stats[k].dtype == want_stats[k].dtype == np.float32
+        np.testing.assert_array_equal(stats[k], want_stats[k])
+    wrapper.save_residual_stats(stats, tmp_path / "run" / "residual_stats.npz")
+    back = jax_wrapper.load_residual_stats(tmp_path / "run" / "residual_stats.npz")
+    for k in stats:
+        np.testing.assert_array_equal(back[k], stats[k])
+
+
+@pytest.mark.parametrize("model", ["pixel_diffusion", "gencast"])
+def test_diffusion_run_dir_like_jax(model):
+    argv = ["--model", model, "--lr", "3e-4", "--ldm_noise_scheduler_timesteps", "100"]
+    got = cli.run_dir(config.Args.parse_args(argv))
+    want = jax_artifacts.get_output_dir(jax_config.Args.parse_args(argv), is_auto=True)
+    assert got == want and got.parts[-2:] == (model, "lr0.0003_steps100")

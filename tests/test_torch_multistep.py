@@ -214,7 +214,7 @@ def test_save_checkpoint_best_is_lowest_dev_loss(tmp_path):
         (["--compilation_cache_dir", "cache"], "A17"),
         (["--matmul_precision", "high"], "A17"),
         (["--profile_dir", "trace"], "A7"),
-        (["--model", "gencast"], "A13"),
+        (["--model", "latent_diffusion"], "A13"),
     ],
 )
 def test_cli_refuses_unported_flags(tmp_path, flags, error):

@@ -173,7 +173,7 @@ def test_main_train_needs_a_card_unless_told_cpu(port_tree, tmp_path, monkeypatc
     (["--shard_spatial", "1"], "A15"),
     (["--mesh_shape", "2x1"], "A15"),
     (["--profile_dir", "trace"], "A7"),
-    (["--model", "pixel_diffusion"], "A13"),
+    (["--model", "latent_diffusion_lite"], "A13"),
 ])
 def test_main_train_refuses_unported_flags(tmp_path, flags, error):
     argv = train_argv("deeponet", tmp_path / "data", 1) + [
