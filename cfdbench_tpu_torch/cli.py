@@ -2,10 +2,15 @@
 
 - ``main_auto`` (train / test) trains the autoregressive models: ``fno``,
   ``ffno``, ``unet``, ``resnet``, ``auto_ffn``, ``auto_deeponet``,
-  ``auto_edeeponet``, ``auto_deeponet_cnn`` and ``pixel_diffusion``.
+  ``auto_edeeponet``, ``auto_deeponet_cnn``, ``pixel_diffusion`` and the
+  latent diffusion models (``latent_diffusion``, ``latent_diffusion2``,
+  ``latent_diffusion_lite``, ``latent_diffusion2_lite``), these on the
+  frozen VAE at ``--ldm_vae_weights_path``.
+- ``main_vae`` trains that VAE.
 - ``main_train`` (train / test) trains the non-autoregressive ``ffn``
   and ``deeponet``.
 - ``main_gencast`` (train / test) trains GenCast.
+- ``main_uncond`` trains the unconditional DDPM with its EMA.
 - ``main_multistep`` rolls out every kind: a self-feeding rollout for
   the autoregressive models (``auto_deeponet_cnn``'s raises, as the JAX
   package's does; pixel diffusion's samples each frame with fresh
@@ -45,18 +50,22 @@ from .data.wrapper import (
     wrap_gencast,
 )
 from .metrics import loss_name_to_fn
+from .data.vae_data import build_vae_dataset
 from .models import (
     DIFFUSION_MODELS,
+    LATENT_MODELS,
     NONAUTO_MODELS,
     check_model_ported,
     init_auto_model,
     init_gencast,
+    init_latent_diffusion,
     init_nonauto_model,
     init_pixel_diffusion,
+    make_cfd_vae,
 )
 from .models.fno import HEAD_WIDTH
 from .ops.fno_kernels import check_kernel_shapes, launch_counts
-from .training import trainer_auto, trainer_gencast, trainer_nonauto
+from .training import trainer_auto, trainer_gencast, trainer_nonauto, trainer_uncond, trainer_vae
 from .training.checkpoints import load_best_params, load_params
 from .training.rollout import make_rollout_fn, multistep_metrics
 from .training.trainer_auto import AutoTask
@@ -83,6 +92,18 @@ def check_supported(args: Args) -> None:
     """Raise on every flag value, read by every entry point, whose
     behaviour the port does not have."""
     check_model_ported(args.model)
+    check_runtime_flags(args)
+    if args.model in LATENT_MODELS and args.vae_variant != "lite":
+        raise ValueError(
+            f"--vae_variant {args.vae_variant} with --model {args.model}: the latent models "
+            "decode with a lite VAE (cfdbench_tpu/models/diffusion.py:375, 584); the JAX "
+            "package restores other variants' weights into it and fails on their shapes "
+            "(ROADMAP.md C)")
+
+
+def check_runtime_flags(args: Args) -> None:
+    """Raise on the flags that every JAX entry point reads
+    (``_apply_runtime_flags``, ``_mesh``) set to a behaviour the port lacks."""
     if args.spectral_backend != "auto":
         raise NotImplementedError(
             f"--spectral_backend {args.spectral_backend}: the DFT-matmul "
@@ -189,6 +210,51 @@ def check_training_flags(args: Args, regime: str = "auto") -> None:
             )
 
 
+def refuse_ignored(args: Args, names, entry: str) -> None:
+    """Raise on each flag of ``names`` set off its default: the JAX
+    ``entry`` parses it and never reads it (ROADMAP.md C)."""
+    default = Args()
+    for name in names:
+        value = getattr(args, name)
+        if value != getattr(default, name):
+            raise NotImplementedError(
+                f"--{name} {value}: not ported; the JAX {entry} ignores it (ROADMAP.md C)")
+
+
+# Training flags that the JAX main_vae and the unconditional script parse
+# and never read.
+_UNREAD_TRAINING_FLAGS = (
+    "weight_decay", "eval_batch_size", "lr_step_size", "lr_gamma", "loss_name", "log_interval",
+    "eval_interval", "use_mixed_precision", "use_gradient_checkpointing",
+    "gradient_accumulation_steps", "opt_state_dtype", "measure_time", "pp_microbatches",
+    "shard_spatial")
+VAE_MODES = ("train", "train_anneal")
+
+
+def check_vae_flags(args: Args) -> None:
+    """``main_vae``'s flags: ``--mode train`` or ``train_anneal`` (KL
+    annealing exactly when "anneal" is in it, as in the JAX package), and
+    none of the VAE and training flags that the JAX ``main_vae`` never
+    reads."""
+    check_runtime_flags(args)
+    if args.mode not in VAE_MODES:
+        raise ValueError(f"--mode {args.mode!r}: main_vae trains; choose train or train_anneal "
+                         "(the JAX main_vae trains whatever --mode says, ROADMAP.md C)")
+    refuse_ignored(args, ("resolution", "dropout", "embed_dim", "kl_weight")
+                   + _UNREAD_TRAINING_FLAGS, "main_vae")
+
+
+def check_uncond_flags(args: Args) -> None:
+    """The unconditional script's flags: its PUNetG's base width and
+    timesteps, the data, ``--lr``, ``--batch_size``, ``--num_epochs``,
+    ``--seed`` and ``--resume``; none that the JAX script never reads."""
+    check_runtime_flags(args)
+    refuse_ignored(args, ("mode", "pixel_diffusion_channel_mults",
+                          "pixel_diffusion_num_res_blocks", "pixel_diffusion_dropout",
+                          "ldm_num_inference_steps") + _UNREAD_TRAINING_FLAGS,
+                   "train_diffusion_uncond.py")
+
+
 def check_fno_kernel_shapes(args: Args, field_shape, device: torch.device) -> None:
     """On the card, raise if the FNO's kernels cannot take its widths and
     modes on the data's grid; the other models run no kernel of ours."""
@@ -199,10 +265,16 @@ def check_fno_kernel_shapes(args: Args, field_shape, device: torch.device) -> No
 
 def make_auto_task(args: Args, n_case_params: int, field_shape, device):
     """The task ``main_auto`` trains for ``--model`` (``cfdbench_tpu.cli.make_auto_task``):
-    an :class:`AutoTask` around the model, or the pixel-diffusion task."""
+    an :class:`AutoTask` around the model, the pixel-diffusion task, or a
+    latent diffusion task on the VAE at ``--ldm_vae_weights_path`` (a
+    directory that holds only JAX weights raises with the command that
+    converts them)."""
     loss_fn = loss_name_to_fn(args.loss_name)
     if args.model == "pixel_diffusion":
         return init_pixel_diffusion(args, n_case_params, loss_fn, device=device)
+    if args.model in LATENT_MODELS:
+        vae_state = load_params(Path(args.ldm_vae_weights_path))
+        return init_latent_diffusion(args, n_case_params, vae_state, loss_fn, device=device)
     model = init_auto_model(args, n_case_params=n_case_params, field_shape=field_shape,
                             device=device)
     return AutoTask(model, loss_fn)
@@ -305,8 +377,10 @@ def main_auto(argv=None, device=None) -> None:
     (``src/train_auto.py:316-378``): ``--mode train`` trains with Adam
     and StepLR and writes ``ckpt-{ep}/`` per eval epoch, ``test`` scores
     the best checkpoint on the test split, ``train_test`` does both.
-    Pixel diffusion is scored on the frames it generates, its dev
-    evaluation on at most ``--max_eval_batches`` batches.
+    The diffusion models are scored on the frames they generate, their dev
+    evaluation on at most ``--max_eval_batches`` batches; the latent ones
+    decode with the VAE at ``--ldm_vae_weights_path``, which must be a lite
+    VAE (``main_vae``'s output).
     Runs on the CUDA card unless ``device`` names another; with
     ``device`` None and no card it raises. On the card, FNO widths or
     modes that its kernels cannot take on the data's grid raise before
@@ -490,3 +564,80 @@ def print_launches(what: str, before: dict) -> None:
     after = launch_counts()
     print(f"[{what}] kernel launches: " + ", ".join(
         f"{name}={after[name] - before[name]}" for name in after))
+
+
+def main_vae(argv=None, device=None):
+    """``cfdbench_tpu.cli.main_vae`` (``src/train_vae.py:82-276``): the
+    ``--vae_variant`` VAE (``custom``: ``--ch``, ``--ch_mult``,
+    ``--num_res_blocks``, ``--z_channels`` latents; else
+    ``--ldm_latent_dim``) on the 64x64 label frames of the train and dev
+    splits, its best weights to ``--ldm_vae_weights_path``, its history
+    under ``<output_dir>/vae/<data_name>``; ``--mode train_anneal`` anneals
+    the KL weight over ``--vae_kl_annealing_epochs``. Runs on the CUDA card
+    unless ``device`` names another; with ``device`` None and no card it
+    raises. Returns the best weights."""
+    args = parse_args(argv)
+    check_vae_flags(args)
+    device = require_cuda() if device is None else torch.device(device)
+    set_f32_numerics()
+    print(args)
+    print(f"[vae] device: {device}")
+    train_data, dev_data, _ = get_auto_dataset(
+        data_dir=Path(args.data_dir),
+        data_name=args.data_name,
+        delta_time=args.delta_time,
+        norm_props=bool(args.norm_props),
+        norm_bc=bool(args.norm_bc),
+        load_splits=["train", "dev"],
+        seed=args.seed,
+        cache_dir=args.cache_dir or None,
+    )
+    vae_train, vae_dev = build_vae_dataset(train_data), build_vae_dataset(dev_data)
+    print(f"# train frames: {len(vae_train)}, dev frames: {len(vae_dev)}")
+    latent = args.z_channels if args.vae_variant == "custom" else args.ldm_latent_dim
+    vae = make_cfd_vae(args.vae_variant, 2, 2, latent, ch=args.ch, ch_mult=tuple(args.ch_mult),
+                       num_res_blocks=args.num_res_blocks,
+                       generator=torch.Generator().manual_seed(args.seed), device=device)
+    return trainer_vae.train_vae(
+        vae, vae_train, vae_dev, output_dir=Path(args.output_dir) / "vae" / args.data_name,
+        weights_path=Path(args.ldm_vae_weights_path), device=device,
+        num_epochs=args.num_epochs, lr=args.lr, weight_decay=args.vae_weight_decay,
+        batch_size=args.batch_size, kl_weight=args.vae_kl_weight,
+        kl_annealing_epochs=args.vae_kl_annealing_epochs if "anneal" in args.mode else 0,
+        lr_factor=args.lr_scheduler_factor, lr_patience=args.lr_scheduler_patience,
+        early_stopping_patience=args.early_stopping_patience,
+        early_stopping_delta=args.early_stopping_delta, seed=args.seed,
+        resume=bool(args.resume))
+
+
+def main_uncond(argv=None, device=None):
+    """The unconditional DDPM (``train_diffusion_uncond.py``): a
+    PUNetG of ``--pixel_diffusion_base_channels`` over the train split's
+    label frames, ``--ldm_noise_scheduler_timesteps`` steps, with its EMA,
+    into ``<output_dir>/uncond_ddpm/<data_name>``. Runs on the CUDA card
+    unless ``device`` names another; with ``device`` None and no card it
+    raises. Returns what ``train_uncond_ddpm`` returns."""
+    args = parse_args(argv)
+    check_uncond_flags(args)
+    device = require_cuda() if device is None else torch.device(device)
+    set_f32_numerics()
+    print(args)
+    print(f"[uncond] device: {device}")
+    train_data, _, _ = get_auto_dataset(
+        data_dir=Path(args.data_dir),
+        data_name=args.data_name,
+        delta_time=args.delta_time,
+        norm_props=bool(args.norm_props),
+        norm_bc=bool(args.norm_bc),
+        load_splits=["train"],
+        seed=args.seed,
+        cache_dir=args.cache_dir or None,
+    )
+    frames = train_data.labels
+    print(f"# frames: {frames.shape}")
+    return trainer_uncond.train_uncond_ddpm(
+        frames, Path(args.output_dir) / "uncond_ddpm" / args.data_name, device=device,
+        num_epochs=args.num_epochs, lr=args.lr, batch_size=args.batch_size,
+        timesteps=args.ldm_noise_scheduler_timesteps,
+        base_channels=args.pixel_diffusion_base_channels, seed=args.seed,
+        resume=bool(args.resume))

@@ -1,15 +1,16 @@
 """Model registry (port of ``cfdbench_tpu/models/__init__.py``).
 
-Every model of the JAX package but the latent diffusion models is
-ported: the autoregressive ones (``fno``, ``ffno``, the conv family
-``unet`` and ``resnet``, the point family ``auto_ffn``, ``auto_deeponet``,
-``auto_edeeponet`` and ``auto_deeponet_cnn``), built by
-:func:`init_auto_model` for ``main_auto``; pixel diffusion, a task built
-by :func:`init_pixel_diffusion`, also for ``main_auto``; GenCast, built by
-:func:`init_gencast` for ``main_gencast``; and the non-autoregressive
-``ffn`` and ``deeponet``, built by :func:`init_nonauto_model` for
-``main_train``. ``main_multistep`` rolls out every kind. The latent
-diffusion models raise and name ROADMAP.md A13b.
+Every model of the JAX package is ported: the autoregressive ones
+(``fno``, ``ffno``, the conv family ``unet`` and ``resnet``, the point
+family ``auto_ffn``, ``auto_deeponet``, ``auto_edeeponet`` and
+``auto_deeponet_cnn``), built by :func:`init_auto_model` for
+``main_auto``; pixel diffusion and the latent diffusion models, tasks
+built by :func:`init_pixel_diffusion` and :func:`init_latent_diffusion`,
+also for ``main_auto``; GenCast, built by :func:`init_gencast` for
+``main_gencast``; and the non-autoregressive ``ffn`` and ``deeponet``,
+built by :func:`init_nonauto_model` for ``main_train``.
+``main_multistep`` rolls out every kind. The VAE that the latent models
+decode with (``vae.make_cfd_vae``) trains through ``main_vae``.
 """
 
 from __future__ import annotations
@@ -21,21 +22,38 @@ import torch
 from ..config import Args
 from ..metrics import LossFn
 
-from .diffusion import GenCastCfdModel, PixelDiffusionCfdModel
+from .diffusion import (
+    GenCastCfdModel,
+    LatentDiffusionCfdModel,
+    LatentDiffusionCfdModel2,
+    LatentDiffusionCfdModelLite,
+    PixelDiffusionCfdModel,
+)
 from .ffno import Ffno2d
 from .fno import Fno2d
 from .nonauto import DeepONet, FfnModel
 from .point import AutoDeepONet, AutoDeepONetCnn, AutoEDeepONet, AutoFfn
 from .resnet import ResNet
 from .unet import UNet
+from .vae import AutoencoderKL, make_cfd_vae
 
 __all__ = ["init_auto_model", "init_nonauto_model", "get_input_shapes", "Fno2d", "Ffno2d",
            "UNet", "ResNet", "AutoFfn", "AutoDeepONet", "AutoEDeepONet", "AutoDeepONetCnn",
            "FfnModel", "DeepONet", "init_pixel_diffusion", "init_gencast",
-           "PixelDiffusionCfdModel", "GenCastCfdModel"]
+           "PixelDiffusionCfdModel", "GenCastCfdModel", "init_latent_diffusion",
+           "LatentDiffusionCfdModel", "LatentDiffusionCfdModel2", "LatentDiffusionCfdModelLite",
+           "AutoencoderKL", "make_cfd_vae"]
 
+# The latent diffusion models by --model (cfdbench_tpu/cli.py:139-144);
+# latent_diffusion2_lite is an alias of the Lite class.
+LATENT_MODELS = {
+    "latent_diffusion": LatentDiffusionCfdModel,
+    "latent_diffusion2": LatentDiffusionCfdModel2,
+    "latent_diffusion_lite": LatentDiffusionCfdModelLite,
+    "latent_diffusion2_lite": LatentDiffusionCfdModelLite,
+}
 AUTO_MODELS = ("fno", "ffno", "unet", "resnet", "auto_ffn", "auto_deeponet", "auto_edeeponet",
-               "auto_deeponet_cnn", "pixel_diffusion")
+               "auto_deeponet_cnn", "pixel_diffusion", *LATENT_MODELS)
 NONAUTO_MODELS = ("ffn", "deeponet")
 GENCAST_MODELS = ("gencast",)
 # The models whose network is a PUNetG, which take --use_gradient_checkpointing.
@@ -44,16 +62,9 @@ DIFFUSION_MODELS = ("pixel_diffusion", "gencast")
 ENTRY_POINTS = {"auto": "main_auto (train_auto_torch.py)", "nonauto": "main_train (train_torch.py)",
                 "gencast": "main_gencast (train_gencast_torch.py)"}
 
-_NOT_PORTED = {
-    "latent_diffusion": "A13b",
-    "latent_diffusion2": "A13b",
-    "latent_diffusion_lite": "A13b",
-    "latent_diffusion2_lite": "A13b",
-}
-
 
 def check_model_ported(name: str, regime: Optional[str] = None) -> None:
-    """Raise unless ``--model name`` is ported, and, when ``regime`` is
+    """Raise unless ``--model name`` is a model, and, when ``regime`` is
     given, is of that kind: ``"auto"`` for ``main_auto``, ``"nonauto"``
     for ``main_train``, ``"gencast"`` for ``main_gencast``. A model of
     another kind raises a ValueError that names the entry point that
@@ -69,13 +80,7 @@ def check_model_ported(name: str, regime: Optional[str] = None) -> None:
                     f"{ENTRY_POINTS[kind]}"
                 )
             return
-    item = _NOT_PORTED.get(name)
-    if item is None:
-        raise ValueError(f"Invalid model name: {name}")
-    raise NotImplementedError(
-        f"--model {name} is not ported to PyTorch yet (ROADMAP.md {item}); "
-        f"the ported models are {', '.join(AUTO_MODELS + NONAUTO_MODELS + GENCAST_MODELS)}"
-    )
+    raise ValueError(f"Invalid model name: {name}")
 
 
 def get_input_shapes(args: Args) -> Tuple[int, int, int]:
@@ -98,9 +103,9 @@ def init_auto_model(args: Args, n_case_params: int = None, field_shape=None, *,
     when omitted), drawn on the CPU, then moved to ``device``. Pixel
     diffusion is a task, built by :func:`init_pixel_diffusion`."""
     check_model_ported(args.model, "auto")
-    if args.model == "pixel_diffusion":
-        raise ValueError("--model pixel_diffusion is a task with its own sampler: build it "
-                         "with init_pixel_diffusion")
+    if args.model == "pixel_diffusion" or args.model in LATENT_MODELS:
+        raise ValueError(f"--model {args.model} is a task with its own sampler: build it "
+                         "with init_pixel_diffusion or init_latent_diffusion")
     n_rows, n_cols, default_p = get_input_shapes(args)
     if field_shape is not None:
         n_rows, n_cols = field_shape
@@ -206,3 +211,30 @@ def init_gencast(args: Args, stats, n_case_params: int, loss_fn: Optional[LossFn
                                       in_chan=args.in_chan, out_chan=args.out_chan,
                                       n_case_params=n_case_params,
                                       **_diffusion_init(args, generator, device)), args)
+
+
+def init_latent_diffusion(args: Args, n_case_params: int, vae_state: dict,
+                          loss_fn: Optional[LossFn] = None, *,
+                          generator: torch.Generator = None, device=None):
+    """A latent diffusion task from args (``cfdbench_tpu/cli.py:101-161``):
+    the ``--ldm_*`` and ``--unet_*`` flags, on a frozen lite VAE
+    (``--ldm_latent_dim`` latents) holding ``vae_state``, a state dict from
+    ``--ldm_vae_weights_path``, as the JAX task always builds a lite VAE
+    (``diffusion.py:375, 584``; the entry points refuse another
+    ``--vae_variant``, ``cli.check_supported``)."""
+    check_model_ported(args.model, "auto")
+    if generator is None:
+        generator = torch.Generator().manual_seed(args.seed)
+    vae = make_cfd_vae("lite", args.out_chan, args.out_chan, args.ldm_latent_dim,
+                       generator=torch.Generator().manual_seed(0))
+    vae.load_state_dict(vae_state)
+    task = LATENT_MODELS[args.model](
+        loss_fn, vae.to(device), in_chan=args.in_chan, out_chan=args.out_chan,
+        n_case_params=n_case_params, latent_dim=args.ldm_latent_dim,
+        scaling_factor=args.ldm_scaling_factor,
+        noise_scheduler_timesteps=args.ldm_noise_scheduler_timesteps,
+        unet_base_channels=args.unet_base_channels,
+        unet_channel_mult=tuple(args.unet_channel_mult),
+        unet_num_res_blocks=args.unet_num_res_blocks, generator=generator, device=device)
+    task.num_inference_steps = args.ldm_num_inference_steps
+    return task

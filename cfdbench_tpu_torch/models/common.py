@@ -89,8 +89,8 @@ def num_groups_for(groups: int, channels: int) -> int:
 
 
 class GroupNorm(nn.Module):
-    """GroupNorm over the channels of an NHWC tensor: ``F.group_norm`` on
-    its NCHW view. ``weight`` and ``bias`` are flax's ``scale`` and
+    """GroupNorm over the channels of an NHWC tensor: ``torch.group_norm``
+    on its NCHW view. ``weight`` and ``bias`` are flax's ``scale`` and
     ``bias``. flax computes the variance as E[x²] − E[x]²
     (``use_fast_variance``), torch in two passes; the PUNetG's forwards
     and gradients agree with flax's within 2e-5 and 1e-5 of their max
@@ -103,8 +103,17 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        return F.group_norm(x.permute(0, 3, 1, 2), self.num_groups, self.weight, self.bias,
-                            self.eps).permute(0, 2, 3, 1)
+        x = x.permute(0, 3, 1, 2)
+        if x.device.type == "cpu" and not x.requires_grad:
+            # torch's CPU backward of a channels-last group norm whose input
+            # needs no gradient (its weights do) crashes; a contiguous one
+            # does not.
+            x = x.contiguous()
+        # The ATen op, not F.group_norm, whose check refuses a group of one
+        # value in training (a 1x1 field at one channel a group), which flax
+        # normalises to its bias.
+        return torch.group_norm(x, self.num_groups, self.weight, self.bias,
+                                self.eps).permute(0, 2, 3, 1)
 
 
 class MaxPool2(nn.Module):

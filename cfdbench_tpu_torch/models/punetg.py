@@ -18,10 +18,11 @@
 Dropout runs only where the caller passes keep masks, one per
 FilmResBlock in call order (:func:`dropout_keep_masks`): the task draws
 them from the step's key before the forward, so a recomputed forward
-(gradient checkpointing) applies the same masks. The cross-attention
-block of the latent models (``CrossAttnBlock``) is not ported yet
-(ROADMAP.md A13b). Convolutions are cuDNN calls on the card; no TPU
-kernel covers this model.
+(gradient checkpointing) applies the same masks. With
+``cross_attention`` (the latent diffusion models v1 and v2) a
+:class:`CrossAttnBlock` runs between the two middle blocks, its keys and
+values read from a ``context`` sequence. Convolutions are cuDNN calls on
+the card; no TPU kernel covers this model.
 """
 
 from __future__ import annotations
@@ -86,15 +87,50 @@ class FilmResBlock(nn.Module):
         return self.conv2(h) + residual
 
 
+class CrossAttnBlock(nn.Module):
+    """Spatial queries over a conditioning sequence (``punetg.py:83-110``):
+    GroupNorm (eps 1e-6), q from the normalised field, k and v from the
+    ``context`` (B, S, context_dim), all biased linear layers;
+    ``max(1, C // 8)`` heads of ``C // heads`` dims (a head width of 8, the
+    reference's ``attention_head_dim``; the docstring of the JAX
+    ``LatentDiffusionCfdModel2`` says 4 heads, its code does this), then
+    an output layer, added to the input."""
+
+    HEAD_DIM = 8
+
+    def __init__(self, channels: int, context_dim: int, *, generator: torch.Generator):
+        super().__init__()
+        g = dict(generator=generator)
+        self.group_norm = GroupNorm(num_groups_for(32, channels), channels)
+        self.to_q = Dense(channels, channels, **g)
+        self.to_k = Dense(context_dim, channels, **g)
+        self.to_v = Dense(context_dim, channels, **g)
+        self.to_out = Dense(channels, channels, **g)
+        self.heads = max(1, channels // self.HEAD_DIM)
+
+    def forward(self, x, context):
+        B, H, W, C = x.shape
+        nh = self.heads
+        hd = C // nh
+        q = self.to_q(self.group_norm(x).reshape(B, H * W, C)).reshape(B, H * W, nh, hd)
+        k = self.to_k(context).reshape(B, -1, nh, hd)
+        v = self.to_v(context).reshape(B, -1, nh, hd)
+        logits = torch.einsum("bqnd,bknd->bnqk", q, k) / hd ** 0.5
+        out = torch.einsum("bnqk,bknd->bqnd", torch.softmax(logits, dim=-1), v)
+        return x + self.to_out(out.reshape(B, H * W, C)).reshape(B, H, W, C)
+
+
 class PUNetGCFD(nn.Module):
-    """``forward(x, timesteps, case_params, keep_masks=None) → (B, H, W,
-    out_channels)``: x (B, H, W, in_channels), timesteps (B,) integers,
-    case_params (B, n_case_params). Parameters are drawn from
-    ``generator`` on the CPU, then moved to ``device``."""
+    """``forward(x, timesteps, case_params, keep_masks=None, context=None)
+    → (B, H, W, out_channels)``: x (B, H, W, in_channels), timesteps (B,)
+    integers, case_params (B, n_case_params); ``context`` (B, S,
+    ``context_dim``) when built with ``cross_attention``. Parameters are
+    drawn from ``generator`` on the CPU, then moved to ``device``."""
 
     def __init__(self, in_channels: int, out_channels: int, base_channels: int = 64,
                  n_case_params: int = 5, channel_mults: Sequence[int] = (1, 2, 4),
-                 num_res_blocks: int = 2, dropout: float = 0.1, num_groups_norm: int = 32, *,
+                 num_res_blocks: int = 2, dropout: float = 0.1, num_groups_norm: int = 32,
+                 cross_attention: bool = False, context_dim: int = 0, *,
                  generator: torch.Generator, device=None):
         super().__init__()
         g = dict(generator=generator)
@@ -120,8 +156,9 @@ class PUNetGCFD(nn.Module):
             if i != self.levels - 1:
                 downs.append(Conv(cur, cur, 3, padding=1, stride=2, **g))
                 skips.append(cur)
-        for _ in range(2):
-            block(cur, cur, self.levels - 1)
+        block(cur, cur, self.levels - 1)
+        self.cross_attn = CrossAttnBlock(cur, context_dim, **g) if cross_attention else None
+        block(cur, cur, self.levels - 1)
         for i, mult in enumerate(reversed(channel_mults)):
             if i != 0:
                 ups.append(Conv(cur, cur, 3, padding=1, **g))
@@ -144,9 +181,10 @@ class PUNetGCFD(nn.Module):
             sizes.append((-(-h // 2), -(-w // 2)))
         return [(B, *sizes[level], c) for level, c in self._block_outs]
 
-    def forward(self, x, timesteps, case_params, keep_masks: Optional[Sequence] = None):
-        t_emb = self.t_dense2(F.silu(self.t_dense1(timestep_embedding(timesteps,
-                                                                      self.base_channels))))
+    def forward(self, x, timesteps, case_params, keep_masks: Optional[Sequence] = None,
+                context: Optional[torch.Tensor] = None):
+        emb = timestep_embedding(timesteps, self.base_channels).to(self.t_dense1.weight.dtype)
+        t_emb = self.t_dense2(F.silu(self.t_dense1(emb)))
         c_emb = self.c_dense2(F.silu(self.c_dense1(case_params)))
         cond = torch.cat([t_emb, c_emb], dim=-1)
         masks = iter(keep_masks) if keep_masks is not None else itertools.repeat(None)
@@ -161,8 +199,10 @@ class PUNetGCFD(nn.Module):
             if i != self.levels - 1:
                 h = next(downs)(h)
                 skips.append(h)
-        for _ in range(2):
-            h = next(blocks)(h, cond, next(masks))
+        h = next(blocks)(h, cond, next(masks))
+        if self.cross_attn is not None and context is not None:
+            h = self.cross_attn(h, context)
+        h = next(blocks)(h, cond, next(masks))
         for i in range(self.levels):
             if i != 0:
                 # Nearest x2, cropped to the skip's shape: the encoder maps

@@ -24,11 +24,22 @@ reads), so the three layouts meet:
 - a GroupNorm's ``{scale, bias}`` are its ``weight``/``bias``.
 
 The model is recognised from the tree (or the keys): ``FilmResBlock_i``
-is the PUNetG of pixel diffusion and GenCast (flax's auto-names in call
-order: ``Dense_0``-``Dense_3`` the timestep and case-parameter MLPs,
-``Conv_0`` the conv-in, then the downsampling, upsampling and output
-convs; inside a block ``Conv_0`` is the 1x1 residual conv where the
-widths differ), ``FnoBlock_i`` the FNO, ``FfnoBlock_i`` the FFNO, ``DoubleConv_0`` the U-Net,
+is the PUNetG of pixel diffusion, GenCast and the unconditional DDPM
+(flax's auto-names in call order: ``Dense_0``-``Dense_3`` the timestep
+and case-parameter MLPs, ``Conv_0`` the conv-in, then the downsampling,
+upsampling and output convs; inside a block ``Conv_0`` is the 1x1
+residual conv where the widths differ; ``CrossAttnBlock_0``, where there
+is one, its ``GroupNorm_0`` and ``Dense_0``-``Dense_3`` as q, k, v and
+out); a ``unet`` nest the latent diffusion models' networks, beside a
+``context_proj`` (v1) or a ``cond_encoder`` (Lite; ``Conv_0``-``Conv_2``
+and ``GroupNorm_0``-``GroupNorm_2`` in turns, ``Dense_0``-``Dense_1``,
+``Conv_3``, ``GroupNorm_3``, ``Conv_4``); ``encoder`` beside
+``decoder`` the VAE (diffusers' names in the port; in each half flax's
+``Conv_0`` is the conv-in, then the down- or upsampling convs, the last
+``Conv_i`` the conv-out; ``VaeResBlock_i`` in call order, the encoder's
+two mid blocks after its levels, the decoder's before them; inside a
+block ``Conv_0``, ``Conv_1`` the two 3x3 convs and ``Conv_2`` the 1x1
+shortcut), ``FnoBlock_i`` the FNO, ``FfnoBlock_i`` the FFNO, ``DoubleConv_0`` the U-Net,
 ``ResidualBlock_i`` the ResNet, ``Dense_0`` beside ``Mlp_0`` the
 non-autoregressive DeepONet (``fc_trunk_t`` and ``fc_trunk_xy``),
 ``CnnBranch_0`` the AutoDeepONetCnn, three, two or one ``Mlp_i`` the
@@ -97,11 +108,72 @@ def _double_conv(path, key) -> Iterator[Entry]:
     yield from _bn(path + ("BatchNorm_1",), f"{key}.conv2.1")
 
 
+def _prefixed(entries: Iterator[Entry], path, key) -> Iterator[Entry]:
+    for coll, p, k, layout in entries:
+        yield coll, tuple(path) + p, f"{key}.{k}", layout
+
+
+def _attention(path, key, out: str) -> Iterator[Entry]:
+    """GroupNorm_0, then Dense_0-Dense_3 as q, k, v and ``out``."""
+    yield from _norm(path + ("GroupNorm_0",), f"{key}.group_norm")
+    for i, name in enumerate(("to_q", "to_k", "to_v", out)):
+        yield from _dense(path + (f"Dense_{i}",), f"{key}.{name}")
+
+
+def _vae_half(path, key, encoder: bool, levels: int, per_level: int,
+              shortcut) -> Iterator[Entry]:
+    """The VAE's encoder or decoder: flax's ``VaeResBlock_i`` in call
+    order against diffusers' level and mid-block names."""
+    mid = [f"{key}.mid_block.resnets.{j}" for j in range(2)]
+    level_blocks = [f"{key}.{'down' if encoder else 'up'}_blocks.{i}.resnets.{j}"
+                    for i in range(levels) for j in range(per_level)]
+    blocks = level_blocks + mid if encoder else mid + level_blocks
+    for i, (name, projected) in enumerate(zip(blocks, shortcut)):
+        block = path + (f"VaeResBlock_{i}",)
+        yield from _norm(block + ("GroupNorm_0",), f"{name}.norm1")
+        yield from _conv(block + ("Conv_0",), f"{name}.conv1")
+        yield from _norm(block + ("GroupNorm_1",), f"{name}.norm2")
+        yield from _conv(block + ("Conv_1",), f"{name}.conv2")
+        if projected:
+            yield from _conv(block + ("Conv_2",), f"{name}.conv_shortcut")
+    yield from _attention(path + ("AttnBlock_0",), f"{key}.mid_block.attentions.0", "to_out.0")
+    sampler = "down_blocks.{}.downsamplers" if encoder else "up_blocks.{}.upsamplers"
+    convs = [f"{key}.conv_in"] + [f"{key}.{sampler.format(i)}.0.conv"
+                                  for i in range(levels - 1)] + [f"{key}.conv_out"]
+    for i, name in enumerate(convs):
+        yield from _conv(path + (f"Conv_{i}",), name)
+    yield from _norm(path + ("GroupNorm_0",), f"{key}.conv_norm_out")
+
+
 def _entries(family: str, shape) -> Iterator[Entry]:
     """Every leaf of ``family``'s variables with its port key; ``shape``
     is what varies within the family (block counts, MLP depths)."""
-    if family == "punetg":
-        n_down, residual = shape
+    if family == "vae":
+        levels, per_level, enc_shortcut, dec_shortcut = shape
+        yield from _vae_half(("encoder",), "encoder", True, levels, per_level, enc_shortcut)
+        yield from _vae_half(("decoder",), "decoder", False, levels, per_level + 1,
+                             dec_shortcut)
+        yield from _conv(("quant_conv",), "quant_conv")
+        yield from _conv(("post_quant_conv",), "post_quant_conv")
+    elif family == "latent":
+        unet_shape, extra = shape
+        yield from _prefixed(_entries("punetg", unet_shape), ("unet",), "unet")
+        if extra == "context_proj":
+            yield from _dense(("context_proj",), "context_proj")
+        elif extra == "cond_encoder":
+            path, key = ("cond_encoder",), "cond_encoder"
+            for i in range(3):
+                yield from _conv(path + (f"Conv_{i}",), f"{key}.convs.{i}")
+                yield from _norm(path + (f"GroupNorm_{i}",), f"{key}.norms.{i}")
+            yield from _dense(path + ("Dense_0",), f"{key}.param_fc1")
+            yield from _dense(path + ("Dense_1",), f"{key}.param_fc2")
+            yield from _conv(path + ("Conv_3",), f"{key}.conv_mix")
+            yield from _norm(path + ("GroupNorm_3",), f"{key}.norm_mix")
+            yield from _conv(path + ("Conv_4",), f"{key}.conv_out")
+    elif family == "punetg":
+        n_down, residual, cross = shape
+        if cross:
+            yield from _attention(("CrossAttnBlock_0",), "cross_attn", "to_out")
         for i, key in enumerate(("t_dense1", "t_dense2", "c_dense1", "c_dense2")):
             yield from _dense((f"Dense_{i}",), key)
         convs = ["conv_in"] + [f"downs.{j}" for j in range(n_down)] + [
@@ -186,10 +258,20 @@ def _count(prefix: str, keys) -> int:
 
 
 def _flax_shape(params) -> Tuple[str, Any]:
+    if "encoder" in params and "decoder" in params:
+        enc, dec = params["encoder"], params["decoder"]
+        levels = _count("Conv_", enc) - 1
+        return "vae", (levels, (_count("VaeResBlock_", enc) - 2) // levels,
+                       *(["Conv_2" in half[f"VaeResBlock_{i}"]
+                          for i in range(_count("VaeResBlock_", half))] for half in (enc, dec)))
+    if "unet" in params:
+        extra = next((k for k in ("context_proj", "cond_encoder") if k in params), None)
+        return "latent", (_flax_shape(params["unet"])[1], extra)
     if "FilmResBlock_0" in params:
         return "punetg", ((_count("Conv_", params) - 2) // 2,
                           ["Conv_2" in params[f"FilmResBlock_{i}"]
-                           for i in range(_count("FilmResBlock_", params))])
+                           for i in range(_count("FilmResBlock_", params))],
+                          "CrossAttnBlock_0" in params)
     if "FnoBlock_0" in params:
         return "fno", _count("FnoBlock_", params)
     if "FfnoBlock_0" in params:
@@ -212,10 +294,31 @@ def _flax_shape(params) -> Tuple[str, Any]:
 
 def _port_shape(keys) -> Tuple[str, Any]:
     keys = set(keys)
+    if "encoder.conv_in.weight" in keys:
+        levels = _count("encoder.down_blocks.", keys)
+        per_level = _count("encoder.down_blocks.0.resnets.", keys)
+
+        def shortcuts(names):
+            return [f"{n}.conv_shortcut.weight" in keys for n in names]
+
+        def level_blocks(half, n):
+            return [f"{half}_blocks.{i}.resnets.{j}" for i in range(levels) for j in range(n)]
+
+        mid = [f"mid_block.resnets.{j}" for j in range(2)]
+        return "vae", (levels, per_level,
+                       shortcuts([f"encoder.{n}" for n in level_blocks("down", per_level) + mid]),
+                       shortcuts([f"decoder.{n}"
+                                  for n in mid + level_blocks("up", per_level + 1)]))
+    if "unet.conv_in.weight" in keys:
+        extra = next((k for k in ("context_proj", "cond_encoder")
+                      if any(n.startswith(k + ".") for n in keys)), None)
+        unet_keys = [k[len("unet."):] for k in keys if k.startswith("unet.")]
+        return "latent", (_port_shape(unet_keys)[1], extra)
     if "res_blocks.0.norm1.weight" in keys:
         return "punetg", (_count("downs.", keys),
                           [f"res_blocks.{i}.res_conv.weight" in keys
-                           for i in range(_count("res_blocks.", keys))])
+                           for i in range(_count("res_blocks.", keys))],
+                          "cross_attn.to_q.weight" in keys)
     if "blocks.0.weights" in keys:
         return "fno", _count("blocks.", (k for k in keys if k.endswith(".weights")))
     if "blocks.0.weights_h" in keys:

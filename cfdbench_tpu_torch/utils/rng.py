@@ -15,7 +15,17 @@ a test can map it back to JAX's key and inject JAX's own draws:
 - ``rollout_key(seed, step, steps)``: step ``step`` of a stochastic
   rollout of ``steps`` steps, JAX's ``split(PRNGKey(seed), steps)[step]``;
 - ``EVAL_KEY``: evaluation and generation without a key, JAX's
-  ``PRNGKey(0)``.
+  ``PRNGKey(0)``;
+- ``vae_key(seed, step)``: the VAE trainer's posterior sample at train
+  step ``step``, JAX's ``fold_in(PRNGKey(seed + 31337), step)``
+  (``trainer_vae.py:43, 58``);
+- ``latent_keys(key)``: a latent diffusion loss's two keys, ``(noise key,
+  posterior key)``, JAX's ``rng, vkey = split(rng)`` of the loss's key
+  (``diffusion.py:438, 624``): the noise and timesteps come from the first,
+  the frozen VAE's posterior sample from the second;
+- ``uncond_key(seed, step)``: the unconditional DDPM trainer's step,
+  JAX's ``fold_in(PRNGKey(seed + 99), step)``, which it splits in three:
+  noise, timesteps and dropout (``trainer_uncond.py:87, 94-95``).
 
 A draw derived from a key appends a word of its own that is not 0 (the
 dropout masks ``DROPOUT_TAG``; the sampler's noise ``SAMPLER_TAG`` and
@@ -39,6 +49,10 @@ TRAIN_TAG = 0x7472616E  # "tran"
 ROLLOUT_TAG = 0x726F6C6C  # "roll"
 EVAL_TAG = 0x6576616C  # "eval"
 EVAL_KEY: Key = (EVAL_TAG, 0)
+VAE_TAG = 0x7661655F  # "vae_"
+LATENT_NOISE_TAG = 0x6C6E6F69  # "lnoi"
+LATENT_POSTERIOR_TAG = 0x6C706F73  # "lpos"
+UNCOND_TAG = 0x756E636F  # "unco"
 
 
 def train_key(seed: int, step: int) -> Key:
@@ -47,6 +61,18 @@ def train_key(seed: int, step: int) -> Key:
 
 def rollout_key(seed: int, step: int, steps: int) -> Key:
     return (ROLLOUT_TAG, seed, step, steps)
+
+
+def vae_key(seed: int, step: int) -> Key:
+    return (VAE_TAG, seed, step)
+
+
+def latent_keys(key: Key) -> Tuple[Key, Key]:
+    return (LATENT_NOISE_TAG, *key), (LATENT_POSTERIOR_TAG, *key)
+
+
+def uncond_key(seed: int, step: int) -> Key:
+    return (UNCOND_TAG, seed, step)
 
 
 def generator(key: Key, device) -> torch.Generator:

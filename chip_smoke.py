@@ -78,6 +78,26 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    and 6a's bounds. (c) At batch 8 and 32: each model's float32 train
    step (split, peak memory, device operations a step), one denoise call,
    one 50-step DDPM frame and the 20-step rollout in frames/s.
+10. The VAE, the latent diffusion models and the unconditional DDPM at
+   their default widths (lite VAE 32-64-128-256, latent 4; latent UNet
+   base 64, mults 1-2-4, 1 res block; 1000 train timesteps, 50 denoising
+   steps). (a) On the phase-6 tree: ``main_vae --mode train_anneal`` for 2
+   epochs, then ``--resume`` for a third (finite history, ``cur_lr`` in
+   ``training_meta.json``, finite weights on the host); on those weights
+   ``main_auto --mode train_test`` for ``latent_diffusion``,
+   ``latent_diffusion2`` and ``latent_diffusion_lite`` (finite dev and
+   test scores of generated frames) and ``main_multistep`` for
+   ``latent_diffusion2`` (20 finite frames); ``main_uncond`` for 2 epochs
+   (``ema_model/``); no FNO kernel launch. (b) Every draw made on the CPU
+   for both devices: the VAE's forward (its mode) against a float64 run
+   on the CPU, within 1e-5 of max |out|; its train step's loss (rel 1e-5)
+   and gradients (1e-4 of their max), card against CPU; each latent
+   model's loss and gradients at the same bounds and its 50-step decoded
+   frame at B=2 within 1e-4 of max |frame|. A gradient that a float64
+   run on the CPU finds 0 in exact arithmetic is held below 1e-5 of the
+   largest. (c) At batch 8 and 32: the VAE's train step, each latent
+   model's train step, denoise call (ms, device operations) and 50-step
+   frame with its decode (frames/s), and the unconditional DDPM's step.
 
 ``launches`` in the kernels' record is phase 3's count (main_multistep),
 ``launches_by_path`` each main path's own: main_multistep's and
@@ -96,6 +116,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import torch
@@ -140,6 +161,21 @@ GEN_BATCHES = (8, 32)  # the trainers' default batch, and a larger one
 GEN_CHECK_BATCH = 2
 # Residual statistics for the GenCast task outside main_gencast.
 GEN_STATS = dict(residual_mean=[0.01, -0.02], residual_std=[0.1, 0.2])
+# Phase 10: the lite VAE and the latent diffusion models at their default
+# widths (UNet base 64, mults 1-2-4, 1 res block), and the unconditional DDPM.
+LATENT = ("latent_diffusion", "latent_diffusion2", "latent_diffusion_lite")
+# Phase 10b: the lite VAE's float32 forward, on the card and on the CPU,
+# against a float64 run on the CPU, at these seeds of weights and input;
+# and, as the fault the bound must catch, on the card with TF32 on. On an
+# H100 the card's float32 reads 9.4e-6 to 1.4e-5 of max |out| at these
+# seeds, the CPU's 5.0e-6 to 6.8e-6, TF32 3.9e-3 to 5.7e-3: the bound
+# lies twice over the first and 78x under the last.
+VAE_FORWARD_SEEDS = (0, 1, 2, 3)
+VAE_FORWARD_RTOL = 5e-5  # max abs diff over max |out|
+# A gradient below this share of the largest in float64 is 0 in exact
+# arithmetic (a bias that a GroupNorm of one channel a group, or a softmax,
+# cancels): on either device it is rounding.
+EXACT_ZERO = 1e-9
 # (B, H, W, channels, modes, head outputs) of phase 2.
 CHECK_SHAPES = ((8, GRID, GRID, WIDTH, MODES, 2), (8, GRID + 2, GRID + 1, WIDTH, MODES, 2),
                 (3, 18, 17, 10, 4, 3), (17, 16, 16, 8, MODES, 2),
@@ -1175,6 +1211,335 @@ def phase9_card_vs_cpu(device):
         diffusion.train_noise_and_t, ops.ddpm_noise = draw_noise, draw_sampler
 
 
+def phase10_paths():
+    """Phase 10a: ``main_vae --mode train_anneal`` (the lite VAE) for 2
+    epochs, then ``--resume`` for a third; on its weights ``main_auto
+    --mode train_test`` for each latent model and ``main_multistep`` for
+    ``latent_diffusion2``; ``main_uncond`` for 2 epochs; all on the
+    phase-6 tree at default widths. No FNO kernel launches. Returns the
+    latent models' dev and test nmse of generated frames and the rollout's
+    step-20 nmse."""
+    from cfdbench_tpu_torch.cli import main_auto, main_multistep, main_uncond, main_vae, run_dir
+    from cfdbench_tpu_torch.cli import parse_args
+    from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
+
+    data_root, out = WORK / "train_data", WORK / "latent_result"
+    common = ["--data_name", "cavity_prop_bc_geo", "--data_dir", str(data_root),
+              "--output_dir", str(out), "--ldm_vae_weights_path", str(WORK / "vae_weights"),
+              "--batch_size", "16"]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    main_vae(common + ["--mode", "train_anneal", "--num_epochs", "2"])
+    main_vae(common + ["--mode", "train_anneal", "--num_epochs", "3", "--resume", "1"])
+    vae_run = out / "vae" / "cavity_prop_bc_geo"
+    history = json.loads((vae_run / "loss_history.json").read_text())
+    meta = json.loads((vae_run / "training_meta.json").read_text())
+    if (meta["epoch"] != 2 or "cur_lr" not in meta or len(history["val_total"]) != 3
+            or not all(math.isfinite(v) for k in ("train_total", "val_total")
+                       for v in history[k])):
+        raise RuntimeError(f"main_vae: meta {meta}, history {history}")
+    host_checkpoint(WORK / "vae_weights" / "model.pt", "main_vae")
+    print(f"[phase10] main_vae --mode train_anneal, 2 epochs then --resume for a third: "
+          f"{time.perf_counter() - t0:.2f} s, val_total {history['val_total']}, "
+          f"cur_lr {meta['cur_lr']}")
+    train_flags = ["--mode", "train_test", "--num_epochs", str(TRAIN_EPOCHS),
+                   "--eval_interval", "1", "--eval_batch_size", "16", "--log_interval", "1"]
+    result = {}
+    for name in LATENT:
+        argv = ["--model", name] + common
+        run = run_dir(parse_args(argv))
+        t0 = time.perf_counter()
+        main_auto(argv + train_flags)
+        dev = [json.loads((run / f"ckpt-{ep}" / "dev_scores.json").read_text())["mean"]
+               for ep in range(TRAIN_EPOCHS)]
+        if not all(math.isfinite(v) for d in dev for v in d.values()):
+            raise RuntimeError(f"{name}: dev scores are not finite: {dev}")
+        finite_scores(run, name)
+        for ep in range(TRAIN_EPOCHS):
+            host_checkpoint(run / f"ckpt-{ep}" / "model.pt", name)
+        test = json.loads((run / "test" / "scores.json").read_text())["mean"]
+        result[name] = dict(dev=[d["nmse"] for d in dev], test_nmse=test["nmse"],
+                            test_input_nmse=test["input_nmse"])
+        print(f"[phase10] {name}: train_test {time.perf_counter() - t0:.2f} s, dev nmse "
+              f"{result[name]['dev']}, test nmse {test['nmse']:.6g} (persistence "
+              f"{test['input_nmse']:.6g})")
+        if name == "latent_diffusion2":
+            t0 = time.perf_counter()
+            frames = main_multistep(argv)
+            metrics = json.loads((run / "multistep_metrics.json").read_text())
+            result[name]["step20_nmse"] = check_frames(frames, metrics, name)
+            print(f"[phase10] {name}: main_multistep {time.perf_counter() - t0:.2f} s, step-20 "
+                  f"nmse {result[name]['step20_nmse']:.6g}")
+    t0 = time.perf_counter()
+    _, _, losses = main_uncond(common + ["--num_epochs", str(TRAIN_EPOCHS)])
+    uncond_run = out / "uncond_ddpm" / "cavity_prop_bc_geo"
+    host_checkpoint(uncond_run / "ema_model" / "model.pt", "main_uncond")
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"main_uncond: losses {losses}")
+    print(f"[phase10] main_uncond: {TRAIN_EPOCHS} epochs, {len(losses)} steps, "
+          f"{time.perf_counter() - t0:.2f} s, last loss {losses[-1]:.6g}; ema_model/ written")
+    counts = launch_counts()
+    print(f"[phase10] FNO kernel launches on these paths: {counts}")
+    if any(counts.values()):
+        raise RuntimeError(f"the latent and unconditional paths launched FNO kernels: {counts}")
+    return result
+
+
+def latent_task(name: str, device, vae_state, seed: int = SEED):
+    """``name``'s task at its default widths (5 case parameters) on a lite
+    VAE holding ``vae_state``, from a seeded init."""
+    from cfdbench_tpu_torch.config import Args
+    from cfdbench_tpu_torch.metrics import loss_name_to_fn
+    from cfdbench_tpu_torch.models import init_latent_diffusion
+
+    return init_latent_diffusion(Args(model=name), 5, vae_state, loss_name_to_fn("nmse"),
+                                 generator=torch.Generator().manual_seed(seed), device=device)
+
+
+def lite_vae(device, seed: int = SEED):
+    from cfdbench_tpu_torch.models import make_cfd_vae
+
+    return make_cfd_vae("lite", generator=torch.Generator().manual_seed(seed), device=device)
+
+
+def exact_zero_keys(grads64) -> set:
+    """The parameters whose float64 gradient is 0 in exact arithmetic."""
+    top = max(g.abs().max().item() for g in grads64.values())
+    return {k for k, g in grads64.items() if g.abs().max().item() <= EXACT_ZERO * top}
+
+
+def compare_grads(what: str, loss_c: float, loss_g: float, grads_c, grads_g, zero: set) -> None:
+    """The loss within GRAD_LOSS_RTOL, each gradient within GRAD_RTOL of its
+    max, and those in ``zero`` below ZERO_GRAD_RTOL of the largest."""
+    loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+    top = max(g.abs().max().item() for g in grads_c.values())
+    worst = 0.0
+    for k, want in grads_c.items():
+        got = grads_g[k]
+        finite([got], f"{what} {k} gradient on the card")
+        if k in zero:
+            noise = max(got.abs().max().item(), want.abs().max().item()) / top
+            if not noise <= ZERO_GRAD_RTOL:
+                raise RuntimeError(f"{what} {k}: gradient {noise:.3e} of the largest, where "
+                                   "exact arithmetic gives 0")
+            continue
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        if not rel <= GRAD_RTOL:
+            raise RuntimeError(f"{what} {k}: card gradient disagrees, {rel:.3e} > {GRAD_RTOL}")
+        worst = max(worst, rel)
+    print(f"[phase10] {what} train step B={FAMILY_BATCH}, card vs CPU: loss rel diff "
+          f"{loss_rel:.3e} (bound {GRAD_LOSS_RTOL:.0e}); {len(grads_c) - len(zero)} gradients, "
+          f"worst max abs diff / max |grad| {worst:.3e} (bound {GRAD_RTOL:.0e}); {len(zero)} "
+          f"zero in exact arithmetic, at rounding level (bound {ZERO_GRAD_RTOL:.0e})")
+    if not loss_rel <= GRAD_LOSS_RTOL:
+        raise RuntimeError(f"{what}: train loss on the card disagrees ({loss_rel:.3e})")
+
+
+def vae_forward_check(device) -> None:
+    """The lite VAE's forward (its mode) at each of VAE_FORWARD_SEEDS:
+    float32 on the card and on the CPU, each against float64 on the CPU,
+    and the card with TF32 on. The card's float32 readings must lie within
+    VAE_FORWARD_RTOL, and the TF32 reading outside it."""
+    import copy
+
+    from cfdbench_tpu_torch.utils.device import set_f32_numerics
+
+    worst = 0.0
+    for seed in VAE_FORWARD_SEEDS:
+        x = train_inputs(FAMILY_BATCH, torch.Generator().manual_seed(seed + 11), "cpu")["labels"]
+        cpu_vae, card_vae = lite_vae("cpu", seed), lite_vae(device, seed)
+        with torch.no_grad():
+            exact = copy.deepcopy(cpu_vae).double()(x.double())[0]
+            want = cpu_vae(x)[0]
+            got = card_vae(x.to(device))[0].cpu()
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+            try:
+                tf32 = card_vae(x.to(device))[0].cpu()
+            finally:
+                set_f32_numerics()
+        top = exact.abs().max()
+        rel, rel_cpu, rel_f32, rel_tf32 = (
+            ((a - b).abs().max() / top).item()
+            for a, b in ((got, exact), (want, exact), (got, want), (tf32, exact)))
+        print(f"[phase10] lite VAE forward (mode) B={FAMILY_BATCH} {GRID}x{GRID}, seed {seed}, "
+              f"max abs diff / max |out|: card float32 vs CPU float64 {rel:.3e} (bound "
+              f"{VAE_FORWARD_RTOL:.0e}), CPU float32 vs float64 {rel_cpu:.3e}, card vs CPU "
+              f"float32 {rel_f32:.3e}, card TF32 vs CPU float64 {rel_tf32:.3e}")
+        if not rel_tf32 > VAE_FORWARD_RTOL:
+            raise RuntimeError(f"lite VAE: the bound {VAE_FORWARD_RTOL:.0e} does not catch TF32 "
+                               f"({rel_tf32:.3e})")
+        worst = max(worst, rel)
+    if not worst <= VAE_FORWARD_RTOL:
+        raise RuntimeError(f"lite VAE: the card's forward strays from float64 ({worst:.3e})")
+
+
+def phase10_card_vs_cpu(device):
+    """Phase 10b: float32, TF32 off, every draw (the posterior's noise, the
+    noise and timesteps, the sampler's noise) made on the CPU for both
+    devices: the lite VAE's forward (``vae_forward_check``) and its train
+    step's loss and gradients; each latent model's loss and gradients and
+    its 50-step frame at B=2, card against CPU. Which gradients are 0 in
+    exact arithmetic is read from a float64 run on the CPU."""
+    import copy
+
+    from cfdbench_tpu_torch.models import diffusion, vae as vae_mod
+    from cfdbench_tpu_torch.ops import diffusion as ops
+    from cfdbench_tpu_torch.training.trainer_vae import loss_parts
+    from cfdbench_tpu_torch.utils.rng import train_key, vae_key
+
+    draws = diffusion.train_noise_and_t, ops.ddpm_noise, vae_mod.posterior_noise
+    diffusion.train_noise_and_t = lambda key, shape, T, dev: tuple(
+        v.to(dev) for v in draws[0](key, shape, T, "cpu"))
+    ops.ddpm_noise = lambda key, i, shape, dev: draws[1](key, i, shape, "cpu").to(dev)
+    vae_mod.posterior_noise = lambda key, shape, dev: draws[2](key, shape, "cpu").to(dev)
+    try:
+        vae_forward_check(device)
+        batch_cpu = train_inputs(FAMILY_BATCH, torch.Generator().manual_seed(SEED + 11), "cpu")
+        batch = {k: v.to(device) for k, v in batch_cpu.items()}
+        vaes = {"cpu": lite_vae("cpu"), "card": lite_vae(device)}
+        x = batch_cpu["labels"]
+        w = batch_cpu["weights"]
+
+        def vae_grads(model, dtype, dev):
+            parts = loss_parts(model, x.to(dev, dtype), w.to(dev, dtype), 1e-4, vae_key(SEED, 0))
+            parts[0].backward()
+            return parts[0].item(), {k: p.grad.cpu() for k, p in model.named_parameters()}
+
+        zero = exact_zero_keys(vae_grads(copy.deepcopy(vaes["cpu"]).double(), torch.float64,
+                                         "cpu")[1])
+        (loss_c, grads_c), (loss_g, grads_g) = (vae_grads(vaes["cpu"], torch.float32, "cpu"),
+                                                vae_grads(vaes["card"], torch.float32, device))
+        compare_grads("lite VAE", loss_c, loss_g, grads_c, grads_g, zero)
+        vae_state = vaes["cpu"].state_dict()
+        for name in LATENT:
+            tasks = {"cpu": latent_task(name, "cpu", vae_state),
+                     "card": latent_task(name, device, vae_state)}
+
+            def task_grads(task, b):
+                task.model.zero_grad(set_to_none=True)
+                loss, _ = task.loss_scores(b, train_key(SEED, 0))
+                loss.backward()
+                return loss.item(), {k: p.grad.cpu() for k, p in task.model.named_parameters()}
+
+            exact = copy.deepcopy(tasks["cpu"])
+            exact.model.double()
+            exact.vae.double()
+            zero = exact_zero_keys(task_grads(exact, {k: v.double()
+                                                      for k, v in batch_cpu.items()})[1])
+            (loss_c, grads_c), (loss_g, grads_g) = (task_grads(tasks["cpu"], batch_cpu),
+                                                    task_grads(tasks["card"], batch))
+            compare_grads(name, loss_c, loss_g, grads_c, grads_g, zero)
+            args = ("inputs", "case_params", "mask")
+            want = tasks["cpu"].predict_frame(*(batch_cpu[k][:GEN_CHECK_BATCH] for k in args))
+            got = tasks["card"].predict_frame(*(batch[k][:GEN_CHECK_BATCH] for k in args)).cpu()
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            print(f"[phase10] {name} 50-step frame (decoded) B={GEN_CHECK_BATCH}, card vs CPU: "
+                  f"max abs diff / max |frame| {rel:.3e} (bound {FAMILY_RTOL:.0e})")
+            if not rel <= FAMILY_RTOL:
+                raise RuntimeError(f"{name}: card and CPU frames disagree ({rel:.3e})")
+    finally:
+        diffusion.train_noise_and_t, ops.ddpm_noise, vae_mod.posterior_noise = draws
+
+
+def phase10_timing(device, card) -> dict:
+    """Phase 10c, at each of GEN_BATCHES by CUDA events: the lite VAE's
+    train step (Adam; forward, backward, update), each latent model's train
+    step (Adam and StepLR) with its split, peak memory and device
+    operations, one denoise call (and its device operations), the 50-step
+    frame with its decode in frames/s; the unconditional DDPM's step (AdamW
+    and the EMA)."""
+    from cfdbench_tpu_torch.ops.diffusion import make_ddpm_scheduler
+    from cfdbench_tpu_torch.training import trainer_auto, trainer_uncond, trainer_vae
+    from cfdbench_tpu_torch.training.optim import make_adam
+    from cfdbench_tpu_torch.utils.rng import uncond_key, vae_key
+
+    result = {}
+    vae_state = lite_vae("cpu").state_dict()
+    for B in GEN_BATCHES:
+        batch = generative_batch(B, torch.Generator().manual_seed(SEED + 12), device)
+        x, w = batch["labels"], batch["weights"]
+        row = {}
+        vae = lite_vae(device)
+        opt = trainer_vae.make_optimizer(vae, 1e-4, 0.0)
+        steps = itertools.count()
+
+        def vae_step():
+            trainer_vae.train_step(vae, opt, x, w, 1e-4, vae_key(SEED, next(steps)))
+
+        def vae_loss():
+            parts = trainer_vae.loss_parts(vae, x, w, 1e-4, vae_key(SEED, next(steps)))
+            return parts[0], parts
+
+        vae_step()
+        split = step_split(vae_loss, opt, types.SimpleNamespace(step=lambda: None), device)
+        row["vae"] = dict(train_step_ms=time_ms(vae_step, TRAIN_REPS), **split,
+                          device_ops_per_step=device_ops(vae_step))
+        print(f"[time] [{card}] lite VAE train step b{B} {GRID}x{GRID} f32: "
+              f"{row['vae']['train_step_ms']:.3f} ms, {row['vae']['device_ops_per_step']} device "
+              "operations; " + split_text(split))
+        del vae, opt
+        for name in LATENT:
+            task = latent_task(name, device, vae_state)
+            opt, sched = make_adam(task.model.parameters(), 1e-4)
+
+            def step(task=task, opt=opt, sched=sched):
+                trainer_auto.train_step(task, opt, sched, batch,
+                                        task.step_draws(SEED, next(steps), device))
+
+            step()
+            step_ms = time_ms(step, TRAIN_REPS)
+            split = step_split(lambda task=task: task.loss_scores(batch, task.step_draws(
+                SEED, 0, device)), opt, sched, device)
+            ops_step = device_ops(step)
+            cp = batch["case_params"]
+            with torch.inference_mode():
+                cond = task.condition(batch["inputs"], cp)
+                lat = torch.randn(task.vae.latent_shape(batch["inputs"].shape), device=device)
+                t = torch.full((B,), 500, device=device)
+
+                def denoise():
+                    return task.denoise(lat, t, cp, cond)
+
+                denoise()
+                denoise_ms = time_ms(denoise, 10)
+                ops_call = device_ops(denoise)
+            torch.cuda.reset_peak_memory_stats(device)
+            frame_ms = time_ms(lambda: task.predict_frame(batch["inputs"], cp, batch["mask"]), 1)
+            frame_peak = torch.cuda.max_memory_allocated(device) / 2**20
+            row[name] = dict(train_step_ms=step_ms, **split, device_ops_per_step=ops_step,
+                             denoise_ms=denoise_ms, device_ops_per_call=ops_call,
+                             frame_ms=frame_ms, frames_per_s=B / frame_ms * 1e3,
+                             frame_peak_mib=frame_peak)
+            print(f"[time] [{card}] {name} train step b{B} {GRID}x{GRID} f32: {step_ms:.3f} ms, "
+                  f"{ops_step} device operations; " + split_text(split))
+            print(f"[time] [{card}] {name} b{B}: denoise call {denoise_ms:.3f} ms ({ops_call} "
+                  f"device operations), 50-step frame with its decode {frame_ms:.3f} ms = "
+                  f"{B / frame_ms * 1e3:.2f} frames/s, peak memory {frame_peak:.1f} MiB")
+            del task, opt
+        scheduler = make_ddpm_scheduler(1000, device=device)
+        unet = trainer_uncond.make_unet(2, 64, SEED, device)
+        ema = trainer_uncond.make_unet(2, 64, SEED, device).requires_grad_(False)
+        opt = torch.optim.AdamW(unet.parameters(), 1e-4, weight_decay=trainer_uncond.WEIGHT_DECAY)
+
+        def uncond_step():
+            trainer_uncond.train_step(unet, ema, opt, scheduler, x, w,
+                                      uncond_key(SEED, next(steps)))
+
+        uncond_step()
+        torch.cuda.reset_peak_memory_stats(device)
+        uncond_ms = time_ms(uncond_step, TRAIN_REPS)
+        row["uncond"] = dict(train_step_ms=uncond_ms,
+                             peak_mib=torch.cuda.max_memory_allocated(device) / 2**20,
+                             device_ops_per_step=device_ops(uncond_step))
+        print(f"[time] [{card}] unconditional DDPM train step b{B} {GRID}x{GRID} f32 (AdamW + "
+              f"EMA): {uncond_ms:.3f} ms, {row['uncond']['device_ops_per_step']} device "
+              f"operations, peak memory {row['uncond']['peak_mib']:.1f} MiB")
+        result[f"b{B}"] = row
+        del unet, ema, opt, batch, x, w
+        torch.cuda.empty_cache()
+    return result
+
+
 def device_ops(fn) -> int:
     """The device operations (kernels, copies, fills) one call of ``fn``
     launches, from the profiler's CUDA activity."""
@@ -1193,8 +1558,6 @@ def generative_timing(name: str, device, card) -> dict:
     StepLR for pixel diffusion, GenCast's AdamW chain) with its split, peak
     memory and device operations, then one denoise call, one 50-step DDPM
     frame and the 20-step rollout, by CUDA events."""
-    import types
-
     from cfdbench_tpu_torch.training.optim import make_adam, make_gencast_tx
     from cfdbench_tpu_torch.utils.rng import train_key
     from cfdbench_tpu_torch.training.rollout import make_rollout_fn
@@ -1283,6 +1646,10 @@ def main() -> int:
     phase9_card_vs_cpu(device)
     phase9_times = {name: generative_timing(name, device, card) for name in GENERATIVE}
     print(f"[phase9] [{card}] " + json.dumps({"quality": phase9, "timing": phase9_times}))
+    phase10 = phase10_paths()
+    phase10_card_vs_cpu(device)
+    phase10_times = phase10_timing(device, card)
+    print(f"[phase10] [{card}] " + json.dumps({"quality": phase10, "timing": phase10_times}))
     print(f"[main] launches on the main paths: main_multistep {counts}, "
           f"main_auto {train_counts}")
     replaces = {"fno_block": "cfdbench_tpu/ops/pallas_fno.py:179",

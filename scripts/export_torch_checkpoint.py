@@ -2,8 +2,12 @@
 """Carry a trained JAX checkpoint over to the PyTorch port: an
 autoregressive model's run (``auto/...``, ``train_auto.py``, pixel
 diffusion included), a GenCast run (``train_gencast.py``: ``--model
-gencast``) or a non-autoregressive one's (``non-auto/...``, ``train.py``:
-``--model ffn`` or ``deeponet``).
+gencast``), a non-autoregressive one's (``non-auto/...``, ``train.py``:
+``--model ffn`` or ``deeponet``), or a latent diffusion model's
+(``train_ldm.py``: ``--model latent_diffusion*``), whose VAE weights
+directory (``--ldm_vae_weights_path``, ``train_vae.py``'s output, at the
+``--vae_variant`` the VAE trained with) is carried first and whose
+``ckpt-*`` follows when the run has one.
 
 Loads the best checkpoint of a JAX run (an Orbax ``ckpt-*/model/`` or a
 ``model.msgpack``, the one with the lowest dev loss; GenCast's
@@ -37,6 +41,7 @@ from cfdbench_tpu.config import Args  # noqa: E402
 from cfdbench_tpu.data.wrapper import load_residual_stats  # noqa: E402
 from cfdbench_tpu.metrics import loss_name_to_fn  # noqa: E402
 from cfdbench_tpu.models.diffusion import GenCastCfdModel  # noqa: E402
+from cfdbench_tpu.models.vae import make_cfd_vae  # noqa: E402
 from cfdbench_tpu.models import (  # noqa: E402
     get_input_shapes,
     init_auto_model,
@@ -48,7 +53,11 @@ from cfdbench_tpu.training.checkpoints import (  # noqa: E402
     load_params,
 )
 from cfdbench_tpu.utils.artifacts import get_output_dir  # noqa: E402
-from cfdbench_tpu_torch.models import NONAUTO_MODELS, check_model_ported  # noqa: E402
+from cfdbench_tpu_torch.models import (  # noqa: E402
+    LATENT_MODELS,
+    NONAUTO_MODELS,
+    check_model_ported,
+)
 from cfdbench_tpu_torch.training.checkpoints import save_params  # noqa: E402
 from cfdbench_tpu_torch.utils.flax_import import params_from_flax  # noqa: E402
 
@@ -61,6 +70,8 @@ def main(argv=None) -> Path:
     H, W, P = get_input_shapes(args)
     if args.model in ("pixel_diffusion", "gencast"):
         return export_diffusion(args, run_dir, H, W, P)
+    if args.model in LATENT_MODELS:
+        return export_latent(args, run_dir, H, W, P)
     if is_auto:
         model = init_auto_model(args, n_case_params=P)
         sample = (
@@ -111,6 +122,37 @@ def export_diffusion(args: Args, run_dir: Path, H: int, W: int, P: int) -> Path:
         target = run_dir / "best_model"
         params = load_params({"params": template}, target)["params"]
     path = save_params(params_from_flax(jax.device_get(dict(params))), target)
+    print(f"wrote {path}")
+    return path
+
+
+def export_vae(args: Args) -> Path:
+    """The VAE weights at ``--ldm_vae_weights_path``, restored into the
+    ``--vae_variant`` tree that ``main_vae`` trains with those flags."""
+    latent = args.z_channels if args.vae_variant == "custom" else args.ldm_latent_dim
+    vae = make_cfd_vae(args.vae_variant, args.out_chan, args.out_chan, latent, ch=args.ch,
+                       ch_mult=tuple(args.ch_mult), num_res_blocks=args.num_res_blocks)
+    template = jax.eval_shape(lambda: vae.init(
+        jax.random.PRNGKey(0), np.zeros((1, 64, 64, args.out_chan), np.float32), rng=None))
+    target = Path(args.ldm_vae_weights_path)
+    params = load_params(template, target)["params"]
+    path = save_params(params_from_flax(jax.device_get(dict(params))), target)
+    print(f"wrote {path}")
+    return path
+
+
+def export_latent(args: Args, run_dir: Path, H: int, W: int, P: int) -> Path:
+    """The VAE, then the run's best ``ckpt-*`` (its ``context_proj`` or
+    ``cond_encoder`` and ``unet`` nests) when there is one."""
+    path = export_vae(args)
+    if get_best_ckpt(run_dir) is None:
+        return path
+    task = make_auto_task(args, n_case_params=P, field_shape=(H, W))
+    frame = np.zeros((1, H, W, args.in_chan), np.float32)
+    sample = dict(inputs=frame, labels=frame, case_params=np.zeros((1, P), np.float32))
+    template = jax.eval_shape(lambda: task.init_params(jax.random.PRNGKey(0), sample))
+    params = load_best_params(template, run_dir)["params"]
+    path = save_params(params_from_flax(jax.device_get(dict(params))), get_best_ckpt(run_dir))
     print(f"wrote {path}")
     return path
 

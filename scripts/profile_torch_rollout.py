@@ -14,13 +14,16 @@ With ``--train`` it profiles 5 float32 train steps at batch 128
 (``trainer_auto.train_step``: forward, nmse, backward, Adam) instead,
 and also the device time under each autograd node (nested: a node's
 time includes the kernels it launched, so the lines overlap).
-``--model pixel_diffusion`` or ``gencast`` (default widths) profiles one
-50-step DDPM frame instead of the rollout, and with ``--train`` 5 train
-steps (dropout on; Adam, or GenCast's AdamW chain), at batch 8, the
-trainers' default, unless ``--batch`` says otherwise.
+``--model pixel_diffusion``, ``gencast`` or a latent diffusion model
+(default widths; the latent ones on a seeded lite VAE) profiles one 50-step
+DDPM frame (the latent ones' with its decode) instead of the rollout, and
+with ``--train`` 5 train steps (dropout on; Adam, or GenCast's AdamW
+chain), at batch 8, the trainers' default, unless ``--batch`` says
+otherwise.
 
-    python3 scripts/profile_torch_rollout.py [--model fno|ffno|unet|resnet|pixel_diffusion|gencast]
-        [--train] [--batch B] [--trace DIR]
+    python3 scripts/profile_torch_rollout.py [--model fno|ffno|unet|resnet|pixel_diffusion|gencast
+        |latent_diffusion|latent_diffusion2|latent_diffusion_lite] [--train] [--batch B]
+        [--trace DIR]
 
 ``--trace DIR`` also writes each path's Chrome trace there.
 """
@@ -41,9 +44,12 @@ sys.path.insert(0, str(REPO_ROOT))
 from cfdbench_tpu_torch.config import Args  # noqa: E402
 from cfdbench_tpu_torch.metrics import loss_name_to_fn  # noqa: E402
 from cfdbench_tpu_torch.models import (  # noqa: E402
+    LATENT_MODELS,
     init_auto_model,
     init_gencast,
+    init_latent_diffusion,
     init_pixel_diffusion,
+    make_cfd_vae,
 )
 from cfdbench_tpu_torch.models.fno import FLAGSHIP, Fno2d, PlainFno2d  # noqa: E402
 from cfdbench_tpu_torch.training.optim import make_adam, make_gencast_tx  # noqa: E402
@@ -100,8 +106,8 @@ def profile_path(name, run, trace_dir, autograd_nodes=False):
 
 
 def profile_diffusion(opts, device) -> int:
-    """One 50-step DDPM frame, or 5 train steps, of pixel diffusion or
-    GenCast at their default widths."""
+    """One 50-step DDPM frame, or 5 train steps, of pixel diffusion,
+    GenCast or a latent diffusion model at their default widths."""
     B = opts.batch or 8
     gen = torch.Generator().manual_seed(1)
     args = Args(model=opts.model)
@@ -109,6 +115,9 @@ def profile_diffusion(opts, device) -> int:
     loss_fn = loss_name_to_fn("nmse")
     if opts.model == "pixel_diffusion":
         task = init_pixel_diffusion(args, 5, loss_fn, **init)
+    elif opts.model in LATENT_MODELS:
+        vae = make_cfd_vae("lite", generator=torch.Generator().manual_seed(2))
+        task = init_latent_diffusion(args, 5, vae.state_dict(), loss_fn, **init)
     else:
         stats = dict(residual_mean=[0.0, 0.0], residual_std=[0.1, 0.1])
         task = init_gencast(args, stats, 5, loss_fn, **init)
@@ -122,7 +131,7 @@ def profile_diffusion(opts, device) -> int:
         weights=torch.ones(B)).items()}
     if not opts.train:
         print(f"{torch.cuda.get_device_name(0)}: {opts.model} 50-step DDPM frame b{B}")
-        if opts.model == "pixel_diffusion":
+        if opts.model != "gencast":
             def frame():
                 task.predict_frame(batch["inputs"], batch["case_params"], batch["mask"])
         else:
@@ -132,7 +141,7 @@ def profile_diffusion(opts, device) -> int:
         profile_path(f"frame_{opts.model}", frame, opts.trace, autograd_nodes=True)
         return 0
     print(f"{torch.cuda.get_device_name(0)}: {opts.model} {TRAIN_STEPS} train steps b{B}")
-    if opts.model == "pixel_diffusion":
+    if opts.model != "gencast":
         opt, sched = make_adam(task.model.parameters(), 1e-4)
     else:
         opt, sched = make_gencast_tx(task.model.parameters(), 1e-4, total_steps=1000), None
@@ -154,14 +163,14 @@ def profile_diffusion(opts, device) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("fno", "ffno", "unet", "resnet", "pixel_diffusion",
-                                        "gencast"), default="fno")
+                                        "gencast", *LATENT_MODELS), default="fno")
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--batch", type=int, default=0)
     ap.add_argument("--trace", default="")
     opts = ap.parse_args()
     device = require_cuda()
     set_f32_numerics()
-    if opts.model in ("pixel_diffusion", "gencast"):
+    if opts.model in ("pixel_diffusion", "gencast", *LATENT_MODELS):
         return profile_diffusion(opts, device)
     gen = torch.Generator().manual_seed(1)
     B = opts.batch or BATCH

@@ -65,6 +65,13 @@ def jax_key(key):
     if tag == port_rng.TRAIN_TAG:
         seed, step = rest
         return jax.random.fold_in(fast_train_key(seed), step)
+    offsets = {port_rng.VAE_TAG: 31337, port_rng.UNCOND_TAG: 99}
+    if tag in offsets:
+        seed, step = rest
+        return jax.random.fold_in(jax.random.PRNGKey(seed + offsets[tag]), step)
+    halves = {port_rng.LATENT_NOISE_TAG: 0, port_rng.LATENT_POSTERIOR_TAG: 1}
+    if tag in halves:  # rng, vkey = split(rng)
+        return jax.random.split(jax_key(tuple(rest)))[halves[tag]]
     assert tag == port_rng.ROLLOUT_TAG, key
     seed, step, steps = rest
     return jax.random.split(jax.random.PRNGKey(seed), steps)[step]
@@ -109,10 +116,15 @@ class _SowingDropout(nn.Dropout):
 _SowingDropout.__name__ = "Dropout"
 
 
-def jax_dropout_masks(unet: JaxPUNetG, n_case_params: int = 5):
+def jax_dropout_masks(unet: JaxPUNetG, n_case_params: int = 5, dropout_key=None):
     """A replacement for ``punetg.dropout_keep_masks`` that returns the keep
     masks the JAX package's ``loss_scores`` draws for ``unet`` under the
-    key's JAX key (``fold_in(rng, "drop")``), in FilmResBlock order."""
+    key's JAX key (``fold_in(rng, "drop")``; ``dropout_key(key)`` when
+    given), in FilmResBlock order."""
+    if dropout_key is None:
+        def dropout_key(key):
+            return jax.random.fold_in(jax_key(key), 0x64726F70)
+
     cache = {}
 
     def masks(key, shapes, rate, device):
@@ -132,7 +144,7 @@ def jax_dropout_masks(unet: JaxPUNetG, n_case_params: int = 5):
                 return state["intermediates"]
 
             cache[x_shape] = jax.jit(sown)
-        inter = cache[x_shape](jax.random.fold_in(jax_key(key), 0x64726F70))
+        inter = cache[x_shape](dropout_key(key))
         n = len([k for k in inter if k.startswith("FilmResBlock_")])
         got = [np.asarray(inter[f"FilmResBlock_{i}"]["Dropout_0"]["keep"][0]) for i in range(n)]
         assert [m.shape for m in got] == [tuple(s) for s in shapes]
@@ -256,14 +268,25 @@ def named_grads(model):
     return {k: p.grad for k, p in model.named_parameters()}
 
 
-def assert_grads_close(got_sd, want_tree):
-    """Every gradient within GRAD_RTOL of its own max."""
+def assert_grads_close(got_sd, want_tree, exact_sd=None):
+    """Every gradient within GRAD_RTOL of its own max. With ``exact_sd``,
+    the same gradients in float64: a tensor whose gradient is 0 in exact
+    arithmetic (below 1e-9 of the largest there; a bias that a GroupNorm of
+    one channel a group, or a softmax, cancels) is rounding in both
+    packages, and is held to GRAD_RTOL of the model's largest gradient."""
     got = dict(jax.tree_util.tree_leaves_with_path(params_to_flax(got_sd)))
     want = jax.tree_util.tree_leaves_with_path(want_tree)
     assert len(got) == len(want)
+    top = max(np.abs(np.asarray(w)).max() for _, w in want)
+    zero = set()
+    if exact_sd is not None:
+        exact = jax.tree_util.tree_leaves_with_path(params_to_flax(exact_sd))
+        top64 = max(np.abs(e).max() for _, e in exact)
+        zero = {path for path, e in exact if np.abs(e).max() <= 1e-9 * top64}
     for path, w in want:
         w = np.asarray(w)
-        np.testing.assert_allclose(got[path], w, rtol=0, atol=GRAD_RTOL * np.abs(w).max(),
+        scale = top if path in zero else np.abs(w).max()
+        np.testing.assert_allclose(got[path], w, rtol=0, atol=GRAD_RTOL * scale,
                                    err_msg=jax.tree_util.keystr(path))
 
 

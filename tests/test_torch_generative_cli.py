@@ -174,12 +174,15 @@ def test_entry_points_take_the_flags_jax_applies(regime, argv):
     ("main_auto", ["--model", "pixel_diffusion", "--gradient_accumulation_steps", "2"],
      "main_auto ignores it .ROADMAP.md C"),
     ("main_auto", ["--model", "pixel_diffusion", "--use_mixed_precision"], "A6b"),
-    ("main_auto", ["--model", "latent_diffusion2"], "A13b"),
+    # The latent models are ported; these two cases keep their ids.
+    pytest.param("main_auto", ["--model", "latent_diffusion2", "--use_gradient_checkpointing"],
+                 "main_auto ignores it .ROADMAP.md C", id="main_auto-flags2-A13b"),
     ("main_gencast", ["--use_mixed_precision"], "A6b"),
     ("main_gencast", ["--opt_state_dtype", "bf16"], "main_gencast ignores it .ROADMAP.md C"),
     ("main_gencast", ["--measure_time", "1"], "main_gencast ignores it .ROADMAP.md C"),
     ("main_gencast", ["--mesh_shape", "2x1"], "A15"),
-    ("main_multistep", ["--model", "latent_diffusion_lite"], "A13b"),
+    pytest.param("main_multistep", ["--model", "latent_diffusion_lite", "--rollout_dtype",
+                                    "bfloat16"], "A6b", id="main_multistep-flags7-A13b"),
 ])
 def test_generative_entry_points_refuse_unported_flags(tmp_path, entry, flags, error):
     argv = ["--data_dir", str(tmp_path / "data"), "--output_dir", str(tmp_path / "out")] + flags

@@ -173,3 +173,50 @@ def test_diffusion_run_dir_like_jax(model):
     got = cli.run_dir(config.Args.parse_args(argv))
     want = jax_artifacts.get_output_dir(jax_config.Args.parse_args(argv), is_auto=True)
     assert got == want and got.parts[-2:] == (model, "lr0.0003_steps100")
+
+
+@pytest.mark.parametrize("shape", [(3, 16, 16, 2), (3, 66, 65, 2), (2, 64, 64, 2), (2, 17, 70, 2)],
+                         ids=["16x16", "66x65", "64x64", "17x70"])
+def test_vae_resize_like_jax_image_resize(rng, shape):
+    """``jax.image.resize(…, "bilinear")`` to 64x64, antialiased where it
+    shrinks (66x65, and 70 columns), within 1e-6 of the largest value."""
+    import jax
+
+    from cfdbench_tpu_torch.data.vae_data import resize_bilinear
+
+    frames = (2.0 + rng.standard_normal(shape)).astype(np.float32)
+    got = resize_bilinear(frames, (64, 64))
+    want = np.asarray(jax.image.resize(frames, (shape[0], 64, 64, 2), method="bilinear"))
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("problem,grid", [("cavity", 64), ("tube", 16)])
+def test_build_vae_dataset_like_jax(tmp_path, problem, grid):
+    """The VAE's normalised 64x64 label frames: bit for bit where no
+    resize runs (a 64x64 cavity), within 1e-6 where one does (tube's
+    grid + (2, 1), resized up)."""
+    from cfdbench_tpu.data.vae_data import build_vae_dataset as jax_build
+    from cfdbench_tpu_torch.data.vae_data import build_vae_dataset
+
+    synthetic.generate_problem(tmp_path, problem, cases_per_subset=4, num_frames=3, grid=grid,
+                               seed=1)
+    kw = dict(data_name=f"{problem}_prop_bc_geo", delta_time=0.1, norm_props=True,
+              norm_bc=True, seed=0, load_splits=["train"])
+    got = build_vae_dataset(data.get_auto_dataset(tmp_path, **kw)[0]).frames
+    want = jax_build(jax_data.get_auto_dataset(tmp_path, **kw)[0]).frames
+    assert got.dtype == want.dtype == np.float32 and got.shape == want.shape
+    assert got.shape[1:] == (64, 64, 2) and len(got) > 0
+    if grid == 64 and problem == "cavity":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("model", ["latent_diffusion", "latent_diffusion2_lite"])
+def test_latent_run_dir_like_jax(model):
+    argv = ["--model", model, "--lr", "3e-4", "--ldm_latent_dim", "8",
+            "--ldm_noise_scheduler_timesteps", "100"]
+    got = cli.run_dir(config.Args.parse_args(argv))
+    want = jax_artifacts.get_output_dir(jax_config.Args.parse_args(argv), is_auto=True)
+    assert got == want and got.parts[-1] == "lr0.0003_latentdim8_steps100"

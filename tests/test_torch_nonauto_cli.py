@@ -173,7 +173,8 @@ def test_main_train_needs_a_card_unless_told_cpu(port_tree, tmp_path, monkeypatc
     (["--shard_spatial", "1"], "A15"),
     (["--mesh_shape", "2x1"], "A15"),
     (["--profile_dir", "trace"], "A7"),
-    (["--model", "latent_diffusion_lite"], "A13"),
+    # The latent models are ported (main_auto trains them); the case keeps its id.
+    pytest.param(["--matmul_precision", "high"], "A17", id="flags10-A13"),
 ])
 def test_main_train_refuses_unported_flags(tmp_path, flags, error):
     argv = train_argv("deeponet", tmp_path / "data", 1) + [
@@ -186,6 +187,7 @@ def test_main_train_refuses_unported_flags(tmp_path, flags, error):
 @pytest.mark.parametrize("entry,model,names", [
     ("main_auto", "ffn", "main_train"), ("main_auto", "deeponet", "main_train"),
     ("main_train", "fno", "main_auto"), ("main_train", "auto_deeponet", "main_auto"),
+    ("main_train", "latent_diffusion_lite", "main_auto"),
 ])
 def test_entry_points_name_the_one_that_trains_a_model(tmp_path, entry, model, names):
     # The JAX package raises "Invalid model name" here, without a hint.
