@@ -64,6 +64,7 @@ from .models import (
     make_cfd_vae,
 )
 from .models.fno import HEAD_WIDTH
+from .models.point import NO_ROLLOUT
 from .ops.fno_kernels import check_kernel_shapes, launch_counts
 from .training import trainer_auto, trainer_gencast, trainer_nonauto, trainer_uncond, trainer_vae
 from .training.checkpoints import load_best_params, load_params
@@ -136,13 +137,7 @@ def check_rollout_flags(args: Args) -> None:
     """``check_supported`` and the flags only ``main_multistep`` reads."""
     check_supported(args)
     if args.model == "auto_deeponet_cnn":
-        raise ValueError(
-            "--model auto_deeponet_cnn has no rollout: the point models feed back "
-            "their 1-channel u frame (trainer_auto.AutoTask.feedback_channels), and "
-            "AutoDeepONetCnn's first conv was built on the 2-channel input plus the "
-            "mask and case-parameter planes; the JAX package's main_multistep fails "
-            "on the same mismatch (ROADMAP.md C)"
-        )
+        raise ValueError(f"--model {NO_ROLLOUT}")
     if args.rollout_dtype == "bfloat16":
         raise NotImplementedError(
             "--rollout_dtype bfloat16: the port rolls out in float32 only; "

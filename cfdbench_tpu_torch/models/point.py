@@ -171,6 +171,15 @@ def cnn_code_dim(field_shape: Tuple[int, int], depth: int = 4) -> int:
     return 32 * h * w
 
 
+# Why an AutoDeepONetCnn has no rollout: main_multistep and the serving
+# export refuse it with this.
+NO_ROLLOUT = (
+    "auto_deeponet_cnn has no rollout: the point models feed back their 1-channel u "
+    "frame (trainer_auto.AutoTask.feedback_channels), and AutoDeepONetCnn's first conv "
+    "was built on the 2-channel input plus the mask and case-parameter planes; the JAX "
+    "package's main_multistep fails on the same mismatch (ROADMAP.md C)")
+
+
 class AutoDeepONetCnn(nn.Module):
     """CNN branch over [u, v ‖ mask ‖ case-parameter planes]; trunk MLP
     to the branch code's width; elementwise fusion, then an output MLP;
@@ -189,6 +198,7 @@ class AutoDeepONetCnn(nn.Module):
                  act_name: str = "relu", *, generator: torch.Generator, device=None):
         super().__init__()
         D = cnn_code_dim(field_shape)
+        self.in_chan = in_chan
         self.branch_net = CnnBranch(in_chan + 1 + num_case_params, generator=generator)
         self.trunk_net = Mlp([2] + [100] * trunk_depth + [D], act_name, generator=generator)
         self.out_ffn = Mlp([D, D, D, 1], act_name, generator=generator)

@@ -7,16 +7,29 @@ plain PyTorch versions.
 - :func:`fno_head` — fc1 → GELU → fc2 → ×mask, ``csrc/fno_head.cu``;
   port of ``cfdbench_tpu/ops/pallas_fno.py::fused_fno_head``.
 
-A wrapper given CPU tensors returns its plain version
+A wrapper given CPU tensors computes its plain version
 (``fno_block_reference`` / ``fno_head_reference``); given CUDA tensors
 it launches its kernel or raises — there is no fallback. Weights are in
-``nn.Linear`` layout (``(out, in)``). Each wrapper counts the calls in
-which it launched its kernel in ``<wrapper>.launches``, so a run can
-show that it went through the kernels (:func:`launch_counts`).
+``nn.Linear`` layout (``(out, in)``). Each launch from a wrapper's path —
+its operator's CUDA kernel or its autograd Function — adds one to
+``<wrapper>.launches``, so a run can show that it went through the
+kernels (:func:`launch_counts`); ``_block_call``/``_head_call``, which
+the comparisons call directly, count nothing.
 
-On the card the kernels run inside ``torch.autograd.Function``s
-(:class:`FnoBlockFn`, :class:`FnoHeadFn`), so a forward under grad
-carries gradients to every input. The TPU kernels are forward-only too
+Without a gradient to carry, each wrapper calls its registered operator,
+``torch.ops.cfdbench_tpu_torch.fno_block`` / ``fno_head``
+(``torch.library.custom_op``): its CUDA kernel launches the hand-written
+kernel, its CPU kernel is the plain version, and its fake returns the
+output's shape after the argument checks and, for a CUDA tensor, the
+library's shape limits — so ``torch.export`` keeps both kernels in a
+served program as opaque nodes, counts their launches when it runs, and
+refuses a shape the kernels cannot take when the program is exported
+(``utils/export.py``).
+
+Under grad the kernels run inside ``torch.autograd.Function``s
+(:class:`FnoBlockFn`, :class:`FnoHeadFn`) on the card, so a forward
+carries gradients to every input; on the CPU autograd differentiates
+the plain versions. The TPU kernels are forward-only too
 (the JAX package trains through XLA's gradient of the plain graph), so
 the backwards are PyTorch ops: the block's is its explicit VJP
 (:func:`fno_block_vjp`: ``torch.fft`` for the spectral adjoint, plain
@@ -177,17 +190,30 @@ def _refuse(why, what: str) -> None:
         raise ValueError(f"{what}: {why.decode()}; larger shapes are ROADMAP.md B3")
 
 
+def _check_block_shape(lib, W: int, width: int, m2: int) -> None:
+    _refuse(lib.fno_block_unsupported(W, width, m2),
+            f"fno_block at W={W}, width {width}, {m2} modes along W")
+
+
+def _check_head_shape(lib, width: int, hidden: int, n_out: int) -> None:
+    _refuse(lib.fno_head_unsupported(width, hidden, n_out),
+            f"fno_head at width {width}, {hidden} hidden units, {n_out} outputs")
+
+
 def check_kernel_shapes(H: int, W: int, width: int, modes1: int, modes2: int,
                         hidden: int, n_out: int, lib=None) -> None:
     """Raise ValueError, naming the limit, if the kernels (``lib``, the
     card's by default) cannot take an FNO of this width, these modes and
     this head on an H x W grid."""
     lib = load_library() if lib is None else lib
-    _, m2 = clamp_modes(H, W, modes1, modes2)
-    _refuse(lib.fno_block_unsupported(W, width, m2),
-            f"fno_block at W={W}, width {width}, {m2} modes along W")
-    _refuse(lib.fno_head_unsupported(width, hidden, n_out),
-            f"fno_head at width {width}, {hidden} hidden units, {n_out} outputs")
+    _check_block_shape(lib, W, width, clamp_modes(H, W, modes1, modes2)[1])
+    _check_head_shape(lib, width, hidden, n_out)
+
+
+def kernel_library(device: torch.device):
+    """The library whose kernels run on ``device``: the card's for a CUDA
+    device; None for the CPU, where the plain versions take any shape."""
+    return load_library() if device.type == "cuda" else None
 
 
 def fno_block_reference(x, weights, w0, b0, modes1: int, modes2: int):
@@ -344,15 +370,7 @@ class FnoHeadFn(torch.autograd.Function):
         return (None, None, *(next(grads) if n else None for n in needs))
 
 
-def fno_block(x, weights, w0, b0, modes1: int, modes2: int):
-    """x (B, H, W, Cin); weights (2, 2, Cin, Cout, modes1, modes2);
-    w0 (Cout, Cin); b0 (Cout,) → (B, H, W, Cout). On the card a shape
-    whose rows do not fit the kernel's shared memory raises ValueError
-    (:func:`check_kernel_shapes`); the result is differentiable
-    (:class:`FnoBlockFn`)."""
-    if x.device.type == "cpu":
-        return fno_block_reference(x, weights, w0, b0, modes1, modes2)
-    _check_cuda_f32(x.device, x=x, weights=weights, w0=w0, b0=b0)
+def _check_block_args(x, weights, w0, b0, modes1: int, modes2: int) -> None:
     _check(x.dim() == 4 and x.numel() > 0, f"x must be (B, H, W, C), got {tuple(x.shape)}")
     B, H, W, Ci = x.shape
     _check(
@@ -366,19 +384,9 @@ def fno_block(x, weights, w0, b0, modes1: int, modes2: int):
            f"w0 {tuple(w0.shape)} / b0 {tuple(b0.shape)} do not match "
            f"({Co}, {Ci}) / ({Co},)")
     _check(H >= 2 and W >= 2, f"grid {H}x{W} is too small for a spectral conv")
-    keep = torch.is_grad_enabled() and any(t.requires_grad for t in (x, weights, w0, b0))
-    with torch.cuda.device(x.device):
-        return FnoBlockFn.apply(load_library(), _stream(x.device), keep, x, weights, w0, b0,
-                                modes1, modes2)
 
 
-def fno_head(x, w1, b1, w2, b2, mask):
-    """x (B, H, W, C); w1 (hidden, C); b1 (hidden,); w2 (out, hidden);
-    b2 (out,); mask (B, H, W, 1) → (B, H, W, out), masked; on the card
-    differentiable (:class:`FnoHeadFn`)."""
-    if x.device.type == "cpu":
-        return fno_head_reference(x, w1, b1, w2, b2, mask)
-    _check_cuda_f32(x.device, x=x, w1=w1, b1=b1, w2=w2, b2=b2, mask=mask)
+def _check_head_args(x, w1, b1, w2, b2, mask) -> None:
     _check(x.dim() == 4 and x.numel() > 0, f"x must be (B, H, W, C), got {tuple(x.shape)}")
     B, H, W, C = x.shape
     hidden, n_out = w1.shape[0], w2.shape[0]
@@ -391,6 +399,105 @@ def fno_head(x, w1, b1, w2, b2, mask):
     )
     _check(tuple(mask.shape) == (B, H, W, 1),
            f"mask {tuple(mask.shape)} is not ({B}, {H}, {W}, 1)")
+
+
+@torch.library.custom_op("cfdbench_tpu_torch::fno_block", mutates_args=(), device_types="cuda")
+def fno_block_op(x: torch.Tensor, weights: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
+                 modes1: int, modes2: int) -> torch.Tensor:
+    """The block kernel on the current stream of x's card."""
+    _check_cuda_f32(x.device, x=x, weights=weights, w0=w0, b0=b0)
+    _check_block_args(x, weights, w0, b0, modes1, modes2)
+    with torch.cuda.device(x.device):
+        out = _block_call(load_library(), x, weights, w0, b0, modes1, modes2,
+                          _stream(x.device))[0]
+    fno_block.launches += 1
+    return out
+
+
+@fno_block_op.register_kernel("cpu")
+def _(x, weights, w0, b0, modes1, modes2):
+    # Contiguous, as the kernel writes it (the inverse FFT leaves its
+    # channels outermost).
+    return fno_block_reference(x, weights, w0, b0, modes1, modes2).contiguous()
+
+
+@fno_block_op.register_fake
+def _(x, weights, w0, b0, modes1, modes2):
+    _check_block_args(x, weights, w0, b0, modes1, modes2)
+    if x.device.type == "cuda":
+        _check_cuda_f32(x.device, x=x, weights=weights, w0=w0, b0=b0)
+    lib = kernel_library(x.device)
+    if lib is not None:
+        _check_block_shape(lib, x.shape[2], x.shape[3],
+                           clamp_modes(x.shape[1], x.shape[2], modes1, modes2)[1])
+    return x.new_empty((*x.shape[:3], weights.shape[3]))
+
+
+@torch.library.custom_op("cfdbench_tpu_torch::fno_head", mutates_args=(), device_types="cuda")
+def fno_head_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                b2: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The head kernel on the current stream of x's card."""
+    _check_cuda_f32(x.device, x=x, w1=w1, b1=b1, w2=w2, b2=b2, mask=mask)
+    _check_head_args(x, w1, b1, w2, b2, mask)
+    with torch.cuda.device(x.device):
+        out = _head_call(load_library(), x, w1, b1, w2, b2, mask, _stream(x.device))
+    fno_head.launches += 1
+    return out
+
+
+@fno_head_op.register_kernel("cpu")
+def _(x, w1, b1, w2, b2, mask):
+    return fno_head_reference(x, w1, b1, w2, b2, mask)
+
+
+@fno_head_op.register_fake
+def _(x, w1, b1, w2, b2, mask):
+    _check_head_args(x, w1, b1, w2, b2, mask)
+    if x.device.type == "cuda":
+        _check_cuda_f32(x.device, x=x, w1=w1, b1=b1, w2=w2, b2=b2, mask=mask)
+    lib = kernel_library(x.device)
+    if lib is not None:
+        _check_head_shape(lib, x.shape[3], w1.shape[0], w2.shape[0])
+    return x.new_empty((*x.shape[:3], w2.shape[0]))
+
+
+def _wants_grad(x, *tensors) -> bool:
+    """Whether a call must carry a gradient; raises unless x lies on the
+    CPU or a card."""
+    _check(x.device.type in ("cpu", "cuda"),
+           f"kernel wrappers take CPU or CUDA tensors, got {x.device}")
+    return torch.is_grad_enabled() and any(t.requires_grad for t in (x, *tensors))
+
+
+def fno_block(x, weights, w0, b0, modes1: int, modes2: int):
+    """x (B, H, W, Cin); weights (2, 2, Cin, Cout, modes1, modes2);
+    w0 (Cout, Cin); b0 (Cout,) → (B, H, W, Cout). On the card a shape
+    whose rows do not fit the kernel's shared memory raises ValueError
+    (:func:`check_kernel_shapes`); under grad the result is
+    differentiable (:class:`FnoBlockFn`), else it comes from the
+    registered operator (:func:`fno_block_op`)."""
+    if not _wants_grad(x, weights, w0, b0):
+        return fno_block_op(x, weights, w0, b0, modes1, modes2)
+    if x.device.type == "cpu":
+        return fno_block_reference(x, weights, w0, b0, modes1, modes2)
+    _check_cuda_f32(x.device, x=x, weights=weights, w0=w0, b0=b0)
+    _check_block_args(x, weights, w0, b0, modes1, modes2)
+    with torch.cuda.device(x.device):
+        return FnoBlockFn.apply(load_library(), _stream(x.device), True, x, weights, w0, b0,
+                                modes1, modes2)
+
+
+def fno_head(x, w1, b1, w2, b2, mask):
+    """x (B, H, W, C); w1 (hidden, C); b1 (hidden,); w2 (out, hidden);
+    b2 (out,); mask (B, H, W, 1) → (B, H, W, out), masked; under grad
+    on the card differentiable (:class:`FnoHeadFn`), else from the
+    registered operator (:func:`fno_head_op`)."""
+    if not _wants_grad(x, w1, b1, w2, b2, mask):
+        return fno_head_op(x, w1, b1, w2, b2, mask)
+    if x.device.type == "cpu":
+        return fno_head_reference(x, w1, b1, w2, b2, mask)
+    _check_cuda_f32(x.device, x=x, w1=w1, b1=b1, w2=w2, b2=b2, mask=mask)
+    _check_head_args(x, w1, b1, w2, b2, mask)
     with torch.cuda.device(x.device):
         return FnoHeadFn.apply(load_library(), _stream(x.device), x, w1, b1, w2, b2, mask)
 

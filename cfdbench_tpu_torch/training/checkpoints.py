@@ -16,7 +16,10 @@ is missing or unreadable.
 
 A ``ckpt-*`` that holds only the JAX package's weights (an Orbax
 ``model/`` directory or ``model.msgpack``) is refused with the command
-that converts it: ``scripts/export_torch_checkpoint.py``.
+that converts it: ``scripts/export_torch_checkpoint.py``; so is a
+``model.pt`` that the reference CFDBench wrote for an FNO, whose complex
+and 1x1-conv weights the port lays out otherwise:
+``scripts/import_reference_checkpoint_torch.py``.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..data.core import dump_json, load_json
+from ..utils.torch_import import reference_only_keys
 
 MODEL_FILE = "model.pt"
 BACKUP_FILE = "backup_model.pt"
@@ -91,7 +95,14 @@ def get_best_ckpt(output_dir: Path) -> Optional[Path]:
 
 
 def _load(path: Path) -> Any:
-    return torch.load(path, map_location="cpu", weights_only=True)
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    keys = reference_only_keys(obj) if isinstance(obj, dict) else []
+    if keys:
+        raise ValueError(
+            f"{path} is a reference CFDBench checkpoint ({', '.join(keys[:3])}, ...); "
+            f"import it with `python scripts/import_reference_checkpoint_torch.py "
+            f"--torch_ckpt {path}` and the same flags")
+    return obj
 
 
 def load_params(ckpt_dir: Path) -> Any:

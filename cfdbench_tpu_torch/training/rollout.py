@@ -2,8 +2,11 @@
 ``cfdbench_tpu/training/rollout.py``).
 
 All cases roll out together along the batch axis; the rollout is a
-Python loop under ``torch.inference_mode`` that writes each step into a
-preallocated ``(steps, B, H, W, C)`` tensor and feeds it back. The
+Python loop (:func:`unroll`) that feeds each prediction back and stacks
+the frames into a ``(steps, B, H, W, C)`` tensor, without writing into
+any tensor in place, so that ``torch.export`` traces the same loop
+(``utils/export.py``); ``make_rollout_fn`` runs it under
+``torch.inference_mode``. The
 masked-u metrics run on the device in float32; the averages over cases
 are taken on the host in float64, as the JAX package does.
 """
@@ -46,21 +49,23 @@ def make_rollout_fn(
 
     def rollout(frame0, case_params, mask):
         with torch.inference_mode():
-            frames = torch.empty(
-                (steps, *frame0.shape), dtype=frame0.dtype,
-                device=frame0.device,
-            )
-            first = 0
-            carry = frame0
-            if include_initial:
-                frames[0] = frame0
-                first = 1
-            for s in range(first, steps):
-                frames[s] = step(carry, case_params, mask, s - first)
-                carry = frames[s]
-        return frames
+            return unroll(step, frame0, case_params, mask, steps, include_initial)
 
     return rollout
+
+
+def unroll(step: Callable, frame0, case_params, mask, steps: int,
+           include_initial: bool = False) -> torch.Tensor:
+    """The frames of ``steps`` self-fed calls ``step(frame, case_params,
+    mask, i)``, the i-th prediction from the one before it, stacked as
+    ``(steps, B, H, W, C)``; with ``include_initial`` the first frame is
+    ``frame0`` and the last prediction is never computed."""
+    frames = [frame0] if include_initial else []
+    carry = frame0
+    for i in range(steps - len(frames)):
+        carry = step(carry, case_params, mask, i)
+        frames.append(carry)
+    return torch.stack(frames)
 
 
 def _per_step_metrics(preds_u, labels_u, mask):

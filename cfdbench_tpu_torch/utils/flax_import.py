@@ -390,7 +390,9 @@ def _to_flax(sd: Dict[str, torch.Tensor], collection: str) -> Dict[str, Any]:
         for k in path[:-1]:
             node = node.setdefault(k, {})
         arr = sd[key].detach().cpu().numpy()
-        node[path[-1]] = np.ascontiguousarray(_TO_FLAX[layout](arr))
+        # A copy: a view of a CPU tensor would change when the module
+        # trains, and JAX may read a host array after its call returns.
+        node[path[-1]] = np.array(_TO_FLAX[layout](arr), order="C")
     return out
 
 

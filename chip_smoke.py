@@ -99,9 +99,31 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    model's train step, denoise call (ms, device operations) and 50-step
    frame with its decode (frames/s), and the unconditional DDPM's step.
 
+11. Serving (``utils/export.py``, ``scripts/export_model_torch.py``,
+   ``scripts/serve_bench_torch.py``,
+   ``scripts/import_reference_checkpoint_torch.py``). (a) The phase-6 FNO
+   checkpoint through ``export_model_torch.py`` (``serve/predict.pt2`` and
+   ``rollout.pt2`` at the test split's case count); its weights in the
+   reference's layout (complex corner weights, 1x1-conv weights) through
+   ``import_reference_checkpoint_torch.py`` into a fresh result tree,
+   where ``main_multistep`` must give phase 6b's per-step metrics (rel
+   1e-6: a relayout). (b) One served predict call must launch 4 block and
+   1 head kernels, one served rollout 80 and 20, and the graphs hold that
+   many operator nodes and no FFT; the served FNO's predict and rollout
+   frames within 1e-6 of max |out| of the in-process ones; the phase-7
+   U-Net, exported the same way (BatchNorm statistics as buffers), within
+   1e-5 (cuDNN may choose another algorithm); each served rollout's
+   per-step metrics within rel 1e-4 of its ``main_multistep``'s. (c)
+   ``serve_bench_torch.py --selftest`` for the flagship FNO and the U-Net
+   at its default width, batch 128, 64x64, 20 steps: served and in-process
+   ms a call (host wall time to a synchronize, and CUDA-event time),
+   frames/s, the served overhead; the served outputs at (b)'s bounds and
+   the FNO's launches a served call as in (b).
+
 ``launches`` in the kernels' record is phase 3's count (main_multistep),
 ``launches_by_path`` each main path's own: main_multistep's and
-main_auto's, each read from counters set to 0 just before the run and
+main_auto's, and one served predict call's and one served rollout's
+(phase 11b), each read from counters set to 0 just before the run and
 read just after it. The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 It needs a CUDA device and fails without one.
@@ -109,6 +131,7 @@ It needs a CUDA device and fails without one.
 
 from __future__ import annotations
 
+import importlib.util
 import itertools
 import json
 import math
@@ -180,6 +203,14 @@ EXACT_ZERO = 1e-9
 CHECK_SHAPES = ((8, GRID, GRID, WIDTH, MODES, 2), (8, GRID + 2, GRID + 1, WIDTH, MODES, 2),
                 (3, 18, 17, 10, 4, 3), (17, 16, 16, 8, MODES, 2),
                 (4, GRID, 136, WIDTH, MODES, 2), (4, GRID + 2, 80, 128, MODES, 2))
+# Phase 11: serving. The imported reference checkpoint's metrics against
+# the original's (a relayout: equal up to rounding); the served FNO against
+# the in-process forward (the same kernels on the same inputs); the served
+# U-Net (cuDNN may choose another algorithm for the traced convolutions).
+SERVE_IMPORT_RTOL = 1e-6
+SERVE_FNO_RTOL = 1e-6  # max abs diff over max |out|
+SERVE_UNET_RTOL = 1e-5
+SERVE_ITERS = 12
 # An H100 SXM's published peaks (NVIDIA's data sheet, dense rates): device
 # memory bytes/s, TF32 FLOP/s on the tensor cores and float32 FLOP/s outside
 # them. A split-TF32 product (csrc/tf32.cuh) is three TF32 products.
@@ -367,17 +398,11 @@ def main_path():
     from cfdbench_tpu_torch.training.checkpoints import save_checkpoint
 
     shutil.rmtree(WORK, ignore_errors=True)
-    data_root, out_root = WORK / "data", WORK / "result"
+    data_root = WORK / "data"
     t0 = time.perf_counter()
     # 30 cases per subset: the seeded 80/10/10 split leaves 9 test cases.
     generate_all(data_root, cases_per_subset=30, num_frames=STEPS + 1, grid=GRID, seed=SEED)
-    argv = [
-        "--model", "fno", "--data_name", "cavity_prop_bc_geo",
-        "--data_dir", str(data_root), "--output_dir", str(out_root),
-        "--fno_depth", str(FLAGSHIP["num_layers"]),
-        "--fno_hidden_dim", str(FLAGSHIP["hidden_dim"]),
-        "--fno_modes_x", str(FLAGSHIP["modes1"]), "--fno_modes_y", str(FLAGSHIP["modes2"]),
-    ]
+    argv = fno_argv(data_root, WORK / "result")
     args = parse_args(argv)
     save_checkpoint(flagship_model("cpu").state_dict(), run_dir(args) / "ckpt-0",
                     ep=0, dev_loss=0.0)
@@ -551,15 +576,9 @@ def train_path(grid: int = GRID):
     from cfdbench_tpu_torch.models.fno import FLAGSHIP
     from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
 
-    data_root, out_root = WORK / "train_data", WORK / "train_result"
+    data_root = WORK / "train_data"
     generate_problem(data_root, "cavity", cases_per_subset=4, num_frames=6, grid=grid, seed=SEED)
-    argv = [
-        "--model", "fno", "--data_name", "cavity_prop_bc_geo",
-        "--data_dir", str(data_root), "--output_dir", str(out_root),
-        "--fno_depth", str(FLAGSHIP["num_layers"]),
-        "--fno_hidden_dim", str(FLAGSHIP["hidden_dim"]),
-        "--fno_modes_x", str(FLAGSHIP["modes1"]), "--fno_modes_y", str(FLAGSHIP["modes2"]),
-    ]
+    argv = fno_argv(data_root, WORK / "train_result")
     train_flags = ["--mode", "train_test", "--num_epochs", str(TRAIN_EPOCHS),
                    "--eval_interval", "1", "--batch_size", "16", "--eval_batch_size", "16",
                    "--log_interval", "1"]
@@ -1617,6 +1636,192 @@ def generative_timing(name: str, device, card) -> dict:
     return result
 
 
+def load_script(name: str):
+    """``scripts/<name>.py`` as a module (its ``main`` takes argv)."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def fno_argv(data_root: Path, output_dir: Path):
+    """The flagship FNO's flags on a synthetic cavity tree."""
+    from cfdbench_tpu_torch.models.fno import FLAGSHIP
+
+    return ["--model", "fno", "--data_name", "cavity_prop_bc_geo",
+            "--data_dir", str(data_root), "--output_dir", str(output_dir),
+            "--fno_depth", str(FLAGSHIP["num_layers"]),
+            "--fno_hidden_dim", str(FLAGSHIP["hidden_dim"]),
+            "--fno_modes_x", str(FLAGSHIP["modes1"]), "--fno_modes_y", str(FLAGSHIP["modes2"])]
+
+
+def max_rel(got, want) -> float:
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def same_metrics(got, want, rtol: float, what: str) -> float:
+    """Every per-step metric of ``got`` within ``rtol`` of ``want``'s;
+    returns the largest relative difference."""
+    if len(got) != STEPS or len(want) != STEPS:
+        raise RuntimeError(f"{what}: {len(got)} and {len(want)} steps, not {STEPS}")
+    worst = 0.0
+    for s, (a, b) in enumerate(zip(got, want)):
+        for key in b:
+            rel = abs(a[key] - b[key]) / max(abs(b[key]), 1e-30)
+            if not rel <= rtol:
+                raise RuntimeError(f"{what}: step {s + 1} {key} {a[key]!r} vs {b[key]!r} "
+                                   f"(rel {rel:.3e} > {rtol:.0e})")
+            worst = max(worst, rel)
+    return worst
+
+
+def op_nodes(served):
+    """(block nodes, head nodes, FFT nodes) of a served program's graph."""
+    targets = [n.target for n in served.program.graph.nodes if n.op == "call_function"]
+    return (targets.count(torch.ops.cfdbench_tpu_torch.fno_block.default),
+            targets.count(torch.ops.cfdbench_tpu_torch.fno_head.default),
+            sum("fft" in str(x) for x in targets))
+
+
+def reference_import(run: Path) -> None:
+    """Phase 11a: the run's best weights in the reference's layout, through
+    the import script into a fresh tree; ``main_multistep`` there must give
+    the run's own per-step metrics (``multistep_metrics.json``)."""
+    from cfdbench_tpu_torch.cli import main_multistep, parse_args, run_dir
+    from cfdbench_tpu_torch.training.checkpoints import load_best_params
+    from cfdbench_tpu_torch.utils.torch_import import to_reference
+
+    src = WORK / "reference" / "ckpt-0"
+    src.mkdir(parents=True, exist_ok=True)
+    reference = to_reference("fno", load_best_params(run))
+    torch.save(reference, src / "model.pt")
+    argv = fno_argv(WORK / "train_data", WORK / "imported_result")
+    t0 = time.perf_counter()
+    load_script("import_reference_checkpoint_torch").main(["--torch_ckpt", str(src / "model.pt")]
+                                                          + argv)
+    main_multistep(argv)
+    metrics = json.loads((run_dir(parse_args(argv)) / "multistep_metrics.json").read_text())
+    original = json.loads((run / "multistep_metrics.json").read_text())
+    worst = same_metrics(metrics, original, SERVE_IMPORT_RTOL, "imported reference checkpoint")
+    print(f"[serve] reference checkpoint ({', '.join(sorted(reference)[:3])}, ... "
+          f"{len(reference)} tensors) imported and rolled out in {time.perf_counter() - t0:.2f} "
+          f"s: per-step metrics against the original's max rel diff {worst:.3e} (bound "
+          f"{SERVE_IMPORT_RTOL:.0e})")
+
+
+def serve_run(argv, device, rtol: float, what: str) -> dict:
+    """Export a trained run through ``export_model_torch.py`` at the test
+    split's case count, load both artifacts, and hold each served call to
+    the in-process one (predict frame, rollout frames within ``rtol`` of
+    max |out|; the rollout's per-step metrics within ROLLOUT_RTOL of the
+    run's ``main_multistep``). Returns the launches of one served predict
+    call and one served rollout, each from counters set to 0 just before
+    it, and the graphs' operator nodes."""
+    from cfdbench_tpu_torch.cli import make_auto_task, parse_args, run_dir
+    from cfdbench_tpu_torch.data import load_test_cases
+    from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
+    from cfdbench_tpu_torch.training.checkpoints import load_best_params
+    from cfdbench_tpu_torch.training.rollout import make_rollout_fn, multistep_metrics
+    from cfdbench_tpu_torch.utils.export import load_exported
+
+    args = parse_args(argv)
+    features, case_params = load_test_cases(args, STEPS)
+    n, field = features.shape[0], features.shape[2:4]
+    t0 = time.perf_counter()
+    serve = load_script("export_model_torch").main(argv + ["--batch_size", str(n)])
+    export_s = time.perf_counter() - t0
+    task = make_auto_task(args, case_params.shape[1], field, device)
+    task.model.load_state_dict(load_best_params(run_dir(args)))
+    task.model.eval()
+    frame0 = torch.from_numpy(features[:, 0, :, :, :task.feedback_channels].copy()).to(device)
+    mask_np = features[:, 0, :, :, 2:3]
+    call = (frame0, torch.from_numpy(case_params).to(device),
+            torch.from_numpy(mask_np.copy()).to(device))
+    result = {}
+    with torch.inference_mode():
+        live = {"predict": task.predict_frame(*call),
+                "rollout": make_rollout_fn(task.predict_frame, STEPS)(*call)}
+        for kind in ("predict", "rollout"):
+            served = load_exported(serve / f"{kind}.pt2")
+            reset_launch_counts()
+            out = served(*call)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            rel = max_rel(out, live[kind])
+            if out.shape != live[kind].shape or not rel <= rtol:
+                raise RuntimeError(f"{what} served {kind}: {tuple(out.shape)} vs "
+                                   f"{tuple(live[kind].shape)}, {rel:.3e} > {rtol:.0e}")
+            result[kind] = dict(launches=counts, nodes=op_nodes(served), rel=rel, out=out,
+                                bytes=(serve / f"{kind}.pt2").stat().st_size)
+    original = json.loads((run_dir(args) / "multistep_metrics.json").read_text())
+    worst = same_metrics(multistep_metrics(result["rollout"]["out"], features, mask_np), original,
+                         ROLLOUT_RTOL, f"{what} served rollout")
+    print(f"[serve] {what}: export_model_torch.py {export_s:.2f} s for batch {n} "
+          f"(predict.pt2 {result['predict']['bytes']} bytes, rollout.pt2 "
+          f"{result['rollout']['bytes']} bytes); served vs in process, max abs diff / max |out|: "
+          f"predict {result['predict']['rel']:.3e}, rollout {result['rollout']['rel']:.3e} "
+          f"(bound {rtol:.0e}); served rollout's per-step metrics vs main_multistep's max rel "
+          f"diff {worst:.3e} (bound {ROLLOUT_RTOL:.0e}); launches a call: predict "
+          f"{result['predict']['launches']}, rollout {result['rollout']['launches']}; graph "
+          f"nodes (block, head, fft): predict {result['predict']['nodes']}, rollout "
+          f"{result['rollout']['nodes']}")
+    return result
+
+
+def serving(device, card):
+    """Phase 11: the reference import (a), the served FNO and U-Net against
+    in process (b), ``serve_bench_torch.py --selftest`` (c). Returns the
+    launches of one served predict call and one served rollout."""
+    from cfdbench_tpu_torch.cli import parse_args, run_dir
+    from cfdbench_tpu_torch.config import Args
+    from cfdbench_tpu_torch.models.fno import FLAGSHIP
+
+    argv = fno_argv(WORK / "train_data", WORK / "train_result")
+    reference_import(run_dir(parse_args(argv)))
+    fno = serve_run(argv, device, SERVE_FNO_RTOL, "FNO")
+    depth = FLAGSHIP["num_layers"]
+    want = {"predict": ({"fno_block": depth, "fno_head": 1}, (depth, 1, 0)),
+            "rollout": ({"fno_block": depth * STEPS, "fno_head": STEPS}, (depth * STEPS, STEPS, 0))}
+    for kind, (counts, nodes) in want.items():
+        if fno[kind]["launches"] != counts or fno[kind]["nodes"] != nodes:
+            raise RuntimeError(f"served FNO {kind}: launches {fno[kind]['launches']} (expected "
+                               f"{counts}), graph nodes {fno[kind]['nodes']} (expected {nodes})")
+    unet = serve_run(family_argv("unet", WORK / "train_data"), device, SERVE_UNET_RTOL, "U-Net")
+    if any(any(unet[k]["launches"].values()) or any(unet[k]["nodes"]) for k in unet):
+        raise RuntimeError("the served U-Net reached the FNO kernels")
+
+    bench = load_script("serve_bench_torch")
+    timing = {}
+    for model, width in (("fno", FLAGSHIP["hidden_dim"]), ("unet", Args().unet_dim)):
+        out = bench.main(["--selftest", "--model", model, "--batch", str(TIMING_BATCH),
+                          "--grid", str(GRID), "--hidden", str(width), "--depth", str(depth),
+                          "--modes", str(FLAGSHIP["modes1"]), "--steps", str(STEPS),
+                          "--iters", str(SERVE_ITERS)])["selftest"]
+        timing[model] = out
+        for kind in ("predict", "rollout"):
+            r = out[kind]
+            calls = 1 if kind == "predict" else STEPS
+            counts = ({"fno_block": depth * calls, "fno_head": calls} if model == "fno"
+                      else {"fno_block": 0, "fno_head": 0})
+            rtol = SERVE_FNO_RTOL if model == "fno" else SERVE_UNET_RTOL
+            if (r["launches_per_call"] != counts
+                    or not r["max_abs_diff_vs_in_process"] <= rtol * r["max_abs_out"]):
+                raise RuntimeError(f"serve_bench_torch.py --selftest --model {model} {kind}: "
+                                   f"launches {r['launches_per_call']} (expected {counts}), "
+                                   f"served vs in process {r['max_abs_diff_vs_in_process']:.3e}")
+            print(f"[time] [{card}] served {model} {kind} b{TIMING_BATCH} {GRID}x{GRID}"
+                  f"{f' x {STEPS} steps' if kind == 'rollout' else ''}: served "
+                  f"{r['latency_ms_per_call']:.3f} ms a call (device {r['device_ms_per_call']:.3f}"
+                  f" ms), in process {r['in_process_ms_per_call']:.3f} ms (device "
+                  f"{r['in_process_device_ms_per_call']:.3f} ms); {r['frames_per_sec']:.1f} "
+                  f"frames/s served; overhead {r['served_overhead_pct']:+.2f} %; artifact "
+                  f"{r['bytes']} bytes, export {r['export_s']:.2f} s; launches a served call "
+                  f"{r['launches_per_call']}; served vs in process max abs diff "
+                  f"{r['max_abs_diff_vs_in_process']:.3e} (max |out| {r['max_abs_out']:.3e})")
+    print(f"[serve] [{card}] " + json.dumps(timing))
+    return fno["predict"]["launches"], fno["rollout"]["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False",
@@ -1650,14 +1855,18 @@ def main() -> int:
     phase10_card_vs_cpu(device)
     phase10_times = phase10_timing(device, card)
     print(f"[phase10] [{card}] " + json.dumps({"quality": phase10, "timing": phase10_times}))
+    serve_predict, serve_rollout = serving(device, card)
     print(f"[main] launches on the main paths: main_multistep {counts}, "
-          f"main_auto {train_counts}")
+          f"main_auto {train_counts}, one served predict call {serve_predict}, one served "
+          f"rollout {serve_rollout}")
     replaces = {"fno_block": "cfdbench_tpu/ops/pallas_fno.py:179",
                 "fno_head": "cfdbench_tpu/ops/pallas_fno.py:268"}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"cfdbench_tpu_torch/csrc/{name}.cu",
          "replaces": replaces[name], "launches": counts[name],
-         "launches_by_path": {"main_multistep": counts[name], "main_auto": train_counts[name]},
+         "launches_by_path": {"main_multistep": counts[name], "main_auto": train_counts[name],
+                              "serve_predict": serve_predict[name],
+                              "serve_rollout": serve_rollout[name]},
          "max_abs_err": errors[name], **times[name], "library_ms": None}
         for name in ("fno_block", "fno_head")
     ]}))

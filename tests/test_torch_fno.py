@@ -127,14 +127,17 @@ def test_fno2d_reference_matches_golden():
 PORT_SCRIPTS = ("chip_smoke.py", "test_multistep_torch.py", "train_auto_torch.py",
                 "train_torch.py", "train_gencast_torch.py", "train_vae_torch.py",
                 "train_ldm_torch.py", "train_diffusion_uncond_torch.py",
-                "scripts/profile_torch_rollout.py", "scripts/bench_torch_kernels.py")
+                "scripts/profile_torch_rollout.py", "scripts/bench_torch_kernels.py",
+                "scripts/export_model_torch.py", "scripts/serve_bench_torch.py",
+                "scripts/import_reference_checkpoint_torch.py")
 # Modules the walk below must find, so that it cannot pass by finding none.
 PORT_MODULES = ("data.datasets", "data.pipeline", "metrics", "training.optim",
                 "training.trainer_auto", "training.trainer_nonauto", "training.checkpoints",
                 "models.unet", "models.resnet", "models.point", "models.nonauto",
                 "models.ffno", "utils.flax_import", "models.punetg", "models.diffusion",
                 "ops.diffusion", "training.trainer_gencast", "data.wrapper", "utils.rng",
-                "models.vae", "data.vae_data", "training.trainer_vae", "training.trainer_uncond")
+                "models.vae", "data.vae_data", "training.trainer_vae", "training.trainer_uncond",
+                "utils.export", "utils.torch_import")
 JAX_ROOTS = {"jax", "flax", "optax", "orbax", "cfdbench_tpu"}
 
 

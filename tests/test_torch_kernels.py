@@ -286,3 +286,41 @@ def test_wrappers_refuse_other_devices():
         fk.fno_block(x, x, x, x, 2, 2)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         fk.fno_head(x, x, x, x, x, x)
+
+
+@pytest.mark.cuda
+def test_served_fno_launches_both_kernels_on_card(tmp_path, rng, cuda_device):
+    """A small FNO exported and served on the card (``utils/export.py``):
+    the graphs hold one operator node a block and step and one head node a
+    step, a served call launches exactly those kernels, and gives the
+    in-process forward's output."""
+    from cfdbench_tpu_torch.models.fno import Fno2d
+    from cfdbench_tpu_torch.training.trainer_auto import AutoTask
+    from cfdbench_tpu_torch.utils.device import set_f32_numerics
+    from cfdbench_tpu_torch.utils.export import export_predict, export_rollout, load_exported
+
+    set_f32_numerics()
+    B, H, W, steps = 4, 16, 16, 3
+    task = AutoTask(Fno2d(in_chan=2, out_chan=2, n_case_params=5, num_layers=2, modes1=4,
+                          modes2=4, hidden_dim=8, generator=torch.Generator().manual_seed(0),
+                          device=cuda_device).eval())
+    export_predict(task, tmp_path / "p.pt2", B, H, W, 5)
+    export_rollout(task, tmp_path / "r.pt2", B, H, W, 5, steps=steps)
+    args = (t(rng.standard_normal((B, H, W, 2))).to(cuda_device),
+            t(rng.standard_normal((B, 5))).to(cuda_device),
+            torch.ones((B, H, W, 1), device=cuda_device))
+    ops = (torch.ops.cfdbench_tpu_torch.fno_block.default,
+           torch.ops.cfdbench_tpu_torch.fno_head.default)
+    with torch.inference_mode():
+        want = task.predict_frame(*args)
+        for name, calls in (("p", 1), ("r", steps)):
+            served = load_exported(tmp_path / f"{name}.pt2")
+            targets = [n.target for n in served.program.graph.nodes if n.op == "call_function"]
+            assert [targets.count(op) for op in ops] == [2 * calls, calls]
+            assert not [x for x in targets if "fft" in str(x)]
+            fk.reset_launch_counts()
+            got = served(*args)
+            torch.cuda.synchronize()
+            assert fk.launch_counts() == {"fno_block": 2 * calls, "fno_head": calls}
+            first = got if name == "p" else got[0]
+            assert (first - want).abs().max().item() <= 1e-6 * want.abs().max().item()

@@ -134,6 +134,22 @@ def test_weights_round_trip(name):
         np.testing.assert_array_equal(a, b)
 
 
+def test_flax_trees_are_copies_of_the_state_dict():
+    """The trees carried to JAX do not alias the module's tensors: a
+    train-mode forward updates the U-Net's running statistics in place,
+    and JAX may read its host inputs after its call has returned."""
+    params, stats, _ = golden("unet_input")
+    model = port_model("unet_input", (16, 16), params, stats)
+    sd = model.state_dict()
+    flax_params, flax_stats = params_to_flax(sd), batch_stats_to_flax(sd)
+    with torch.no_grad():
+        for v in sd.values():
+            v.add_(1)
+    for got, want in ((flax_params, params), (flax_stats, stats)):
+        for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+            np.testing.assert_array_equal(a, b)
+
+
 def nmse(out, label, mask, pointwise):
     if pointwise:
         label = label[..., :1].reshape(label.shape[0], -1)
