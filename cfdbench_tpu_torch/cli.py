@@ -134,19 +134,31 @@ def check_runtime_flags(args: Args) -> None:
 
 
 def check_rollout_flags(args: Args) -> None:
-    """``check_supported`` and the flags only ``main_multistep`` reads."""
+    """``check_supported`` and the flags only ``main_multistep`` reads.
+    ``--rollout_dtype bfloat16`` is taken for the deterministic
+    autoregressive models; where the JAX ``main_multistep`` prints that it
+    drops it (a diffusion model, the FNO with ``--use_pallas_head 1``) or
+    never reads it (GenCast, the non-autoregressive models), it raises."""
     check_supported(args)
     if args.model == "auto_deeponet_cnn":
         raise ValueError(f"--model {NO_ROLLOUT}")
-    if args.rollout_dtype == "bfloat16":
-        raise NotImplementedError(
-            "--rollout_dtype bfloat16: the port rolls out in float32 only; "
-            "bf16 storage is ROADMAP.md A6b"
-        )
-    if args.rollout_dtype != "float32":
+    if args.rollout_dtype not in ("float32", "bfloat16"):
         raise ValueError(
             f"--rollout_dtype {args.rollout_dtype!r}: choose float32 or bfloat16"
         )
+    if args.rollout_dtype == "bfloat16":
+        dropped = ""
+        if args.model == "pixel_diffusion" or args.model in LATENT_MODELS:
+            dropped = (f"--model {args.model}: the JAX main_multistep prints that a "
+                       "diffusion rollout runs float32 and ignores it")
+        elif args.model == "fno" and args.use_pallas_head:
+            dropped = ("--use_pallas_head 1: the JAX main_multistep prints that its Pallas "
+                       "head runs float32 and ignores it")
+        elif args.model == "gencast" or args.model in NONAUTO_MODELS:
+            dropped = f"--model {args.model}: the JAX main_multistep ignores it"
+        if dropped:
+            raise NotImplementedError(
+                f"--rollout_dtype bfloat16 with {dropped} (ROADMAP.md C)")
 
 
 def check_training_flags(args: Args, regime: str = "auto") -> None:
@@ -155,7 +167,8 @@ def check_training_flags(args: Args, regime: str = "auto") -> None:
     or ``main_gencast``'s (``"gencast"``), whose model must be of that
     kind. ``--use_gradient_checkpointing`` is taken where the JAX package
     applies it, by the PUNetG models; ``--gradient_accumulation_steps`` by
-    ``main_gencast`` alone."""
+    ``main_gencast`` alone; ``--use_mixed_precision`` by ``main_auto`` and
+    ``main_gencast``; ``--opt_state_dtype`` by ``main_auto``."""
     check_supported(args)
     check_model_ported(args.model, regime)
     if args.mode not in ("train", "test", "train_test"):
@@ -176,23 +189,13 @@ def check_training_flags(args: Args, regime: str = "auto") -> None:
             args.gradient_accumulation_steps != 1)
     if args.model not in DIFFUSION_MODELS:
         ignored["--use_gradient_checkpointing"] = args.use_gradient_checkpointing
-    if regime in ("auto", "gencast") and args.use_mixed_precision:
-        raise NotImplementedError(
-            "--use_mixed_precision: the port trains in float32 only; bf16 "
-            "forwards need bf16 kernel variants (ROADMAP.md A6b)"
-        )
-    if regime == "auto":
-        if args.opt_state_dtype == "factored":
-            raise NotImplementedError(
-                "--opt_state_dtype factored: adafactor is not ported (ROADMAP.md A18)"
-            )
-    elif regime == "nonauto":
+    if regime == "nonauto":
         ignored.update({
             "--use_mixed_precision": args.use_mixed_precision,
             f"--opt_state_dtype {args.opt_state_dtype}": args.opt_state_dtype != "f32",
             f"--cache_dir {args.cache_dir}": bool(args.cache_dir),
         })
-    else:
+    elif regime == "gencast":
         ignored.update({
             f"--opt_state_dtype {args.opt_state_dtype}": args.opt_state_dtype != "f32",
             "--measure_time": bool(args.measure_time),
@@ -263,16 +266,25 @@ def make_auto_task(args: Args, n_case_params: int, field_shape, device):
     an :class:`AutoTask` around the model, the pixel-diffusion task, or a
     latent diffusion task on the VAE at ``--ldm_vae_weights_path`` (a
     directory that holds only JAX weights raises with the command that
-    converts them)."""
+    converts them), computing in :func:`compute_dtype` in training."""
     loss_fn = loss_name_to_fn(args.loss_name)
     if args.model == "pixel_diffusion":
-        return init_pixel_diffusion(args, n_case_params, loss_fn, device=device)
-    if args.model in LATENT_MODELS:
+        task = init_pixel_diffusion(args, n_case_params, loss_fn, device=device)
+    elif args.model in LATENT_MODELS:
         vae_state = load_params(Path(args.ldm_vae_weights_path))
-        return init_latent_diffusion(args, n_case_params, vae_state, loss_fn, device=device)
-    model = init_auto_model(args, n_case_params=n_case_params, field_shape=field_shape,
-                            device=device)
-    return AutoTask(model, loss_fn)
+        task = init_latent_diffusion(args, n_case_params, vae_state, loss_fn, device=device)
+    else:
+        model = init_auto_model(args, n_case_params=n_case_params, field_shape=field_shape,
+                                device=device)
+        task = AutoTask(model, loss_fn)
+    task.compute_dtype = compute_dtype(args)
+    return task
+
+
+def compute_dtype(args: Args):
+    """The dtype of the train forward: bfloat16 under ``--use_mixed_precision``
+    (float32 parameters, optimizer, labels, loss and evaluation), else None."""
+    return torch.bfloat16 if args.use_mixed_precision else None
 
 
 def main_multistep(argv=None, device=None) -> torch.Tensor:
@@ -307,7 +319,8 @@ def main_multistep(argv=None, device=None) -> torch.Tensor:
 
     features, case_params = load_test_cases(args, INFER_STEPS)
     field_shape = features.shape[2:4]
-    check_fno_kernel_shapes(args, field_shape, device)
+    if args.rollout_dtype == "float32":  # a bfloat16 rollout runs no kernel
+        check_fno_kernel_shapes(args, field_shape, device)
     frame0 = features[:, 0, :, :, :2]
     mask = features[:, 0, :, :, 2:3]
     output_dir = run_dir(args)
@@ -337,11 +350,16 @@ def main_multistep(argv=None, device=None) -> torch.Tensor:
         rollout = make_rollout_fn(task.predict_frame, steps=INFER_STEPS,
                                   include_initial=(args.model == "resnet"),
                                   stochastic=task.generative, seed=args.seed)
-        preds = rollout(
-            on_device(frame0[..., :task.feedback_channels]),
-            on_device(case_params),
-            on_device(mask),
-        )
+        inputs = [on_device(frame0[..., :task.feedback_channels]), on_device(case_params),
+                  on_device(mask)]
+        if args.rollout_dtype == "bfloat16":
+            # The JAX package's bf16-storage rollout (cli.py:589-617): the
+            # weights, the running statistics and the inputs cast once; the
+            # carried frames stay bfloat16 (rollout.unroll), the metrics below
+            # score them widened to float32. The FNO runs no kernel in it.
+            task.model.to(torch.bfloat16)
+            inputs = [a.to(torch.bfloat16) for a in inputs]
+        preds = rollout(*inputs)
     print_launches("multistep", before)
     metrics = multistep_metrics(preds, features, mask)
     for m in metrics:
@@ -506,7 +524,8 @@ def main_gencast(argv=None, device=None) -> None:
     requires the file). ``--mode train`` trains (AdamW, warmup-cosine,
     ``--gradient_accumulation_steps``, ``--use_gradient_checkpointing``)
     and resumes whenever a ``training_state/`` is there, as the JAX entry
-    point does; ``test`` generates and scores the test split from
+    point does, its train loss in bfloat16 under ``--use_mixed_precision``;
+    ``test`` generates and scores the test split from
     ``best_model/``; ``train_test`` does both. Runs on the CUDA card
     unless ``device`` names another; with ``device`` None and no card it
     raises."""
@@ -541,6 +560,7 @@ def main_gencast(argv=None, device=None) -> None:
     print(f"residual mean={stats['residual_mean']}, std={stats['residual_std']}")
     task = init_gencast(args, stats, gc_train.n_case_params, loss_name_to_fn(args.loss_name),
                         device=device)
+    task.compute_dtype = compute_dtype(args)
     if "train" in args.mode:
         trainer_gencast.train_gencast(
             task, gc_train, gc_dev, output_dir, device=device, num_epochs=args.num_epochs,

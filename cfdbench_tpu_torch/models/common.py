@@ -2,6 +2,15 @@
 tensors; ``nn.Linear`` and ``nn.Conv2d`` weight layouts, so that a
 reference CFDBench ``state_dict`` loads by name.
 
+Under ``--use_mixed_precision`` and a bfloat16 rollout the modules run
+in the JAX package's bfloat16 numerics: a layer computes in the common
+dtype of its input and its weights (:func:`promote`, flax's
+``promote_dtype``), so a bfloat16 input meets bfloat16 weights in
+bfloat16 and a float32 input (the point models' lattice, the PUNetG's
+timestep embedding) lifts the layer to float32; a norm reduces and
+normalises in float32 and returns that common dtype (flax's
+``force_float32_reductions``).
+
 Not ported: ``dense_thin``, a TPU workaround for the backward of the
 FNO head's fc2; ``gelu_exact``, whose rational erf was a TPU workaround
 for a missing erf lowering — the port uses ``F.gelu``, whose default is
@@ -16,6 +25,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops import common_dtype, promote
 
 
 def torch_kernel_init(weight: torch.Tensor,
@@ -49,7 +60,7 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch_bias_init(b, in_features, generator))
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(*promote(x, self.weight, self.bias))
 
 
 class Conv(nn.Module):
@@ -70,13 +81,12 @@ class Conv(nn.Module):
         self.padding, self.replicate_pad, self.stride = padding, replicate_pad, stride
 
     def forward(self, x):
-        x = x.permute(0, 3, 1, 2)  # an NCHW view of the NHWC tensor
+        x, w, b = promote(x.permute(0, 3, 1, 2), self.weight, self.bias)  # an NCHW view
         p = self.padding
         if self.replicate_pad and p:
             x = F.pad(x, (p, p, p, p), mode="replicate")
             p = 0
-        return F.conv2d(x, self.weight, self.bias, stride=self.stride,
-                        padding=p).permute(0, 2, 3, 1)
+        return F.conv2d(x, w, b, stride=self.stride, padding=p).permute(0, 2, 3, 1)
 
 
 def num_groups_for(groups: int, channels: int) -> int:
@@ -94,7 +104,8 @@ class GroupNorm(nn.Module):
     ``bias``. flax computes the variance as E[x²] − E[x]²
     (``use_fast_variance``), torch in two passes; the PUNetG's forwards
     and gradients agree with flax's within 2e-5 and 1e-5 of their max
-    (``tests/test_torch_diffusion.py``)."""
+    (``tests/test_torch_diffusion.py``). It normalises in float32 at
+    least and returns the common dtype of x and its weights (flax's)."""
 
     def __init__(self, num_groups: int, channels: int, eps: float = 1e-6):
         super().__init__()
@@ -103,7 +114,9 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        x = x.permute(0, 3, 1, 2)
+        out = common_dtype(x, self.weight, self.bias)
+        work = torch.promote_types(out, torch.float32)
+        x = x.permute(0, 3, 1, 2).to(work)
         if x.device.type == "cpu" and not x.requires_grad:
             # torch's CPU backward of a channels-last group norm whose input
             # needs no gradient (its weights do) crashes; a contiguous one
@@ -112,8 +125,8 @@ class GroupNorm(nn.Module):
         # The ATen op, not F.group_norm, whose check refuses a group of one
         # value in training (a 1x1 field at one channel a group), which flax
         # normalises to its bias.
-        return torch.group_norm(x, self.num_groups, self.weight, self.bias,
-                                self.eps).permute(0, 2, 3, 1)
+        return torch.group_norm(x, self.num_groups, self.weight.to(work), self.bias.to(work),
+                                self.eps).permute(0, 2, 3, 1).to(out)
 
 
 class MaxPool2(nn.Module):
@@ -188,6 +201,19 @@ class Mlp(nn.Module):
         return self.layers(x)
 
 
+def cast_call(module: nn.Module, dtype, *args, **kwargs):
+    """``module(*args, **kwargs)`` on copies of its parameters cast to
+    ``dtype``, its buffers as they are (a BatchNorm's running statistics
+    stay float32): the JAX package's mixed-precision forward
+    (``trainer_auto.AutoTask._cast``). Autograd through the casts brings
+    the gradients back to the float32 parameters. ``dtype`` None calls
+    the module itself."""
+    if dtype is None:
+        return module(*args, **kwargs)
+    params = {name: p.to(dtype) for name, p in module.named_parameters()}
+    return torch.func.functional_call(module, params, args, kwargs)
+
+
 def broadcast_params_to_channels(case_params, h: int, w: int):
     """(B, P) → (B, H, W, P) constant channel planes (a broadcast view)."""
     return case_params[:, None, None, :].expand(case_params.shape[0], h, w,
@@ -196,9 +222,12 @@ def broadcast_params_to_channels(case_params, h: int, w: int):
 
 def coord_channels(batch: int, h: int, w: int, *, dtype=torch.float32,
                    device=None):
-    """(B, H, W, 2): x = linspace over rows, y = linspace over columns."""
-    gx = torch.linspace(0.0, 1.0, h, dtype=dtype, device=device)
-    gy = torch.linspace(0.0, 1.0, w, dtype=dtype, device=device)
+    """(B, H, W, 2): x = linspace over rows, y = linspace over columns,
+    computed in float32 at least and rounded to ``dtype`` (JAX's bfloat16
+    linspace)."""
+    work = torch.promote_types(dtype, torch.float32)
+    gx = torch.linspace(0.0, 1.0, h, dtype=work, device=device).to(dtype)
+    gy = torch.linspace(0.0, 1.0, w, dtype=work, device=device).to(dtype)
     grid = torch.stack(
         [gx[:, None].expand(h, w), gy[None, :].expand(h, w)], dim=-1
     )

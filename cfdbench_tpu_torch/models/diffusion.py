@@ -41,7 +41,14 @@ key in two (``latent_keys``), as JAX's ``rng, vkey = split(rng)``. With
 backward (``torch.utils.checkpoint``; the JAX package's
 ``jax.checkpoint``), on masks drawn before it.
 
-Not ported: bf16 compute (``--use_mixed_precision``, ROADMAP.md A6b).
+Mixed precision (``--use_mixed_precision``): a task whose
+``compute_dtype`` is ``torch.bfloat16`` runs the train loss's network on
+bfloat16 copies of its float32 parameters (``common.cast_call``) with
+its input and case parameters in bfloat16, and scores the prediction in
+float32; evaluation and generation stay float32. The latent models cast
+their UNet only: the frozen VAE, the v1 ``context_proj`` and the Lite
+``CondEncoder`` run in float32 and their outputs are cast, as in the JAX
+package (``cfdbench_tpu/models/diffusion.py:451-455, 641-644``).
 """
 
 from __future__ import annotations
@@ -64,7 +71,7 @@ from ..utils.rng import (
     rollout_key,
     train_key,
 )
-from .common import Conv, Dense, GroupNorm
+from .common import Conv, Dense, GroupNorm, cast_call
 from .punetg import PUNetGCFD, dropout_keep_masks
 from .vae import AutoencoderKL
 
@@ -76,6 +83,15 @@ def train_noise_and_t(key: Key, shape, num_train_timesteps: int,
     noise = torch.randn(tuple(shape), generator=gen, device=device)
     t = torch.randint(0, num_train_timesteps, (shape[0],), generator=gen, device=device)
     return noise, t
+
+
+def to_dtype(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    return x if dtype is None else x.to(dtype)
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """A prediction as the loss reads it: bfloat16 widened to float32."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 class _DiffusionTask:
@@ -92,10 +108,16 @@ class _DiffusionTask:
         self.scheduler = make_ddpm_scheduler(timesteps, device=next(model.parameters()).device)
         self.num_inference_steps = 50
         self.use_gradient_checkpointing = False
+        self.compute_dtype: Optional[torch.dtype] = None
 
     @property
     def feedback_channels(self) -> int:
         return self.out_chan
+
+    def train_dtype(self, key: Optional[Key]) -> Optional[torch.dtype]:
+        """The dtype the network computes in under ``loss_scores(batch,
+        key)``: ``compute_dtype`` in a train step (a key), else None."""
+        return None if key is None else self.compute_dtype
 
     def step_draws(self, seed: int, step: int, device) -> Key:
         """What ``loss_scores`` takes for train step ``step``: its key."""
@@ -107,10 +129,12 @@ class _DiffusionTask:
             return unet(x, t, case_params)
         masks = (dropout_keep_masks(key, unet.dropout_shapes(x.shape), unet.dropout, x.device)
                  if unet.dropout > 0 else [])
+        dtype = self.train_dtype(key)
+        x, case_params = to_dtype(x, dtype), to_dtype(case_params, dtype)
         if not self.use_gradient_checkpointing:
-            return unet(x, t, case_params, masks or None)
-        return checkpoint(lambda x_, cp_, *m: unet(x_, t, cp_, m or None), x, case_params,
-                          *masks, use_reentrant=False)
+            return cast_call(unet, dtype, x, t, case_params, masks or None)
+        return checkpoint(lambda x_, cp_, *m: cast_call(unet, dtype, x_, t, cp_, m or None),
+                          x, case_params, *masks, use_reentrant=False)
 
     def _noise_scores(self, x0, batch, key: Optional[Key], network_input=lambda noisy: noisy):
         """``(loss, scores)`` of the network's noise prediction on ``x0``
@@ -118,7 +142,7 @@ class _DiffusionTask:
         noise, t = train_noise_and_t(EVAL_KEY if key is None else key, x0.shape,
                                      self.scheduler.num_train_timesteps, x0.device)
         noisy = self.scheduler.add_noise(x0, noise, t)
-        eps = self._eps(network_input(noisy), t, batch["case_params"], key)
+        eps = at_least_f32(self._eps(network_input(noisy), t, batch["case_params"], key))
         scores = self.loss_fn(eps, noise, sample_weights=batch.get("weights"))
         return scores[self.loss_fn.objective], scores
 
@@ -275,9 +299,10 @@ class _LatentTask(_DiffusionTask):
         """What the input frame and the case parameters give the UNet."""
         raise NotImplementedError
 
-    def denoise(self, noisy, t, case_params, cond):
+    def denoise(self, noisy, t, case_params, cond, dtype: Optional[torch.dtype] = None):
         """The UNet's noise prediction on the latents ``noisy`` at
-        timesteps ``t``, given ``cond = condition(inputs, case_params)``."""
+        timesteps ``t``, given ``cond = condition(inputs, case_params)``;
+        with ``dtype``, the UNet's parameters and inputs cast to it."""
         raise NotImplementedError
 
     def loss_scores(self, batch, key: Optional[Key] = None):
@@ -292,7 +317,8 @@ class _LatentTask(_DiffusionTask):
                                      self.scheduler.num_train_timesteps, latents.device)
         noisy = self.scheduler.add_noise(latents, noise, t)
         cp = batch["case_params"]
-        eps = self.denoise(noisy, t, cp, self.condition(batch["inputs"], cp))
+        eps = at_least_f32(self.denoise(noisy, t, cp, self.condition(batch["inputs"], cp),
+                                        self.train_dtype(key)))
         scores = self.loss_fn(eps, noise, sample_weights=batch.get("weights"))
         return scores[self.loss_fn.objective], scores
 
@@ -347,8 +373,9 @@ class LatentDiffusionCfdModel(_LatentTask):
         tokens = self._context_tokens(inputs, case_params)
         return tokens if self._raw_context else self.model.context_proj(tokens)
 
-    def denoise(self, noisy, t, case_params, cond):
-        return self.model.unet(noisy, t, case_params, context=cond)
+    def denoise(self, noisy, t, case_params, cond, dtype=None):
+        return cast_call(self.model.unet, dtype, to_dtype(noisy, dtype), t,
+                         to_dtype(case_params, dtype), context=to_dtype(cond, dtype))
 
 
 class LatentDiffusionCfdModel2(LatentDiffusionCfdModel):
@@ -378,5 +405,6 @@ class LatentDiffusionCfdModelLite(_LatentTask):
     def condition(self, inputs, case_params):
         return self.model.cond_encoder(pad_field(inputs[..., :self.in_chan]), case_params)
 
-    def denoise(self, noisy, t, case_params, cond):
-        return self.model.unet(noisy + cond, t, case_params)
+    def denoise(self, noisy, t, case_params, cond, dtype=None):
+        return cast_call(self.model.unet, dtype, to_dtype(noisy + cond, dtype), t,
+                         to_dtype(case_params, dtype))

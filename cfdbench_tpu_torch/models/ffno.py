@@ -4,9 +4,15 @@ Tran et al., arXiv:2111.13802).
 Each block sums two separable 1-D spectral convs, along H and along W,
 then a two-layer feedforward (width 2C, GELU) inside a residual branch:
 ``x + dense1(GELU(dense0(conv_h(x) + conv_w(x))))``. The lift and the
-head follow the FNO's channel contract: ``fc0`` over [inputs ‖ mask ‖
-coords ‖ case-parameter planes] (the FNO's decomposed lift), and
-fc1(→128) → GELU → fc2(→out) → ×mask. GELU is ``F.gelu``, the true erf.
+head follow the FNO's channel contract: ``fc0`` over the concatenated
+[inputs ‖ mask ‖ coords ‖ case-parameter planes], as the JAX model
+builds it, and fc1(→128) → GELU → fc2(→out) → ×mask. GELU is ``F.gelu``,
+the true erf.
+
+In bfloat16 the model keeps the JAX package's promotion: the 1-D
+spectral conv returns float32 (``ops/spectral.py``), so from the first
+block's feedforward on the model runs in float32 on its bfloat16-rounded
+weights and returns float32 (ROADMAP.md C).
 
 The JAX package runs every op of this model as plain XLA, its head too
 (not the Pallas head), so the port runs ``torch.fft`` and ``F.linear``
@@ -25,8 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.spectral import init_spectral_weights_1d, spectral_conv1d
-from .common import Dense, ensure_mask
-from .fno import HEAD_WIDTH, lift
+from .common import Dense, broadcast_params_to_channels, coord_channels, ensure_mask
+from .fno import HEAD_WIDTH
 
 
 FF_FACTOR = 2  # the feedforward's width over the block's
@@ -71,7 +77,9 @@ class Ffno2d(nn.Module):
     def forward(self, inputs, case_params, mask=None):
         B, H, W, _ = inputs.shape
         mask = ensure_mask(mask, B, H, W, device=inputs.device)
-        x = lift(self.fc0, inputs, case_params, mask)
+        x = self.fc0(torch.cat([
+            inputs, mask, coord_channels(B, H, W, dtype=inputs.dtype, device=inputs.device),
+            broadcast_params_to_channels(case_params, H, W)], dim=-1))
         for block in self.blocks:
             x = block(x)
         return self.fc2(F.gelu(self.fc1(x))) * mask

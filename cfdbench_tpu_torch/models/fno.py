@@ -13,6 +13,12 @@ what the JAX package's ``fno2d_apply_pallas`` and
 every forward, in training too: the kernels' autograd Functions carry
 the gradient. On CPU tensors both run their plain PyTorch versions.
 The lift stays plain ``torch.matmul``.
+
+In bfloat16 (``--use_mixed_precision``'s train forward, the bfloat16
+rollout) the model runs the plain versions on either device, in the JAX
+package's bfloat16 numerics: its Pallas kernels are float32 only and its
+bfloat16 paths never reach them (``cfdbench_tpu/cli.py:580-593``). The
+kernels take float32 only and raise on anything else.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops import promote
 from ..ops.fno_kernels import (
     fno_block,
     fno_block_reference,
@@ -41,16 +48,23 @@ def lift(fc0: Dense, inputs, case_params, mask):
     """``fc0`` over [inputs ‖ mask ‖ coords ‖ params] as summed partial
     products on the weight's column slices: the concatenated input is
     never built, and the coordinate and case-parameter terms are
-    broadcast, not full-field."""
+    broadcast, not full-field. Each product is taken in the common dtype
+    of its operands, as in the JAX package (a float32 mask lifts a
+    bfloat16 model to float32)."""
     _, H, W, C = inputs.shape
     k = fc0.weight  # (hidden, C + 3 + P)
     P = case_params.shape[-1]
     coords = coord_channels(1, H, W, dtype=inputs.dtype, device=inputs.device)
+
+    def mm(a, w):
+        a, w = promote(a, w)
+        return a @ w.T
+
     return (
-        inputs @ k[:, :C].T
-        + mask @ k[:, C:C + 1].T
-        + coords @ k[:, C + 1:C + 3].T
-        + (case_params @ k[:, C + 3:C + 3 + P].T)[:, None, None, :]
+        mm(inputs, k[:, :C])
+        + mm(mask, k[:, C:C + 1])
+        + mm(coords, k[:, C + 1:C + 3])
+        + mm(case_params, k[:, C + 3:C + 3 + P])[:, None, None, :]
         + fc0.bias
     )
 
@@ -80,7 +94,8 @@ class Fno2d(nn.Module):
     """Autoregressive FNO: ``forward(inputs, case_params, mask) → preds``.
 
     inputs (B, H, W, in_chan); case_params (B, P); mask (B, H, W, 1),
-    (B, H, W) or None. Returns (B, H, W, out_chan), masked.
+    (B, H, W) or None. Returns (B, H, W, out_chan), masked. bfloat16
+    inputs take :func:`fno2d_reference`, no kernel.
     Parameters are drawn from ``generator`` on the CPU, then moved to
     ``device``.
     """
@@ -108,6 +123,8 @@ class Fno2d(nn.Module):
         self.to(device)
 
     def forward(self, inputs, case_params, mask=None):
+        if inputs.dtype == torch.bfloat16:
+            return fno2d_reference(self, inputs, case_params, mask)
         B, H, W, _ = inputs.shape
         mask = ensure_mask(mask, B, H, W, device=inputs.device)
         x = lift(self.fc0, inputs, case_params, mask)

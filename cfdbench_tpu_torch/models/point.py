@@ -20,6 +20,11 @@ the weight's column slices (``AutoFfn.forward``), so the
 ``(B, H*W, H*W + P + 2)`` input that the JAX package builds — 67 MB a
 case at 64x64 — never exists.
 
+The query lattice is float32, as the JAX package's is, so under bfloat16
+(``--use_mixed_precision``, the bfloat16 rollout) the trunks, and the
+AutoFfn's whole network, compute in float32 on bfloat16-rounded weights
+and each model returns float32, as the JAX models do.
+
 Submodules carry the reference's ``state_dict`` names (``ffn``,
 ``branch_net``, ``trunk_net``, ``branch1``, ``branch2``, ``bias``,
 ``branch_net.in_conv``/``blocks``/``out_conv``, ``out_ffn``).
@@ -32,6 +37,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from ..ops import promote
 from .common import (
     Conv,
     MaxPool2,
@@ -82,10 +88,11 @@ class AutoFfn(nn.Module):
         if first.weight.shape[1] != n + 2:
             raise ValueError(f"AutoFfn was built for {first.weight.shape[1] - 2} field values "
                              f"and case parameters, got {n}")
-        # The first Dense on [ctx ‖ xy], split on its weight's columns.
+        # The first Dense on [ctx ‖ xy], split on its weight's columns, in
+        # the dtype that the concatenation would have: float32 at least.
         xy = lattice_xy(H, W, device=inputs.device)
-        h = ((ctx @ first.weight[:, :n].T)[:, None, :]
-             + (xy @ first.weight[:, n:].T + first.bias)[None])  # (B, HW, width)
+        ctx, xy, w, b = promote(ctx, xy, first.weight, first.bias)
+        h = (ctx @ w[:, :n].T)[:, None, :] + (xy @ w[:, n:].T + b)[None]  # (B, HW, width)
         return rest(h)[..., 0] + flat
 
 
@@ -112,6 +119,7 @@ class AutoDeepONet(nn.Module):
         flat = flat_u(inputs)
         b = self.branch_net(torch.cat([flat, case_params], dim=1))  # (B, p)
         t = self.trunk_net(trunk_input(H, W, device=inputs.device))  # (HW, p)
+        b, t = promote(b, t)
         return b @ t.T + self.bias + flat
 
 
@@ -140,6 +148,7 @@ class AutoEDeepONet(nn.Module):
         flat = flat_u(inputs)
         fused = self.branch1(flat) * self.branch2(case_params)  # (B, p)
         t = self.trunk_net(trunk_input(H, W, device=inputs.device))
+        fused, t = promote(fused, t)
         return fused @ t.T + self.bias + flat
 
 

@@ -14,6 +14,11 @@
   bookkeeping (the conv-in output and every downsample output are pushed
   too), which the reference's own bookkeeping lacks (SURVEY.md §8).
 - GroupNorms use eps 1e-6 (``common.GroupNorm``).
+- Under bfloat16 weights and input (``--use_mixed_precision``) the
+  timestep embedding stays float32, so the conditioning, every FiLM
+  output and, from the first block's FiLM on, the network compute in
+  float32 on the bfloat16-rounded weights, as the JAX model does; the
+  cross-attention's products take their operands' common dtype.
 
 Dropout runs only where the caller passes keep masks, one per
 FilmResBlock in call order (:func:`dropout_keep_masks`): the task draws
@@ -35,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import promote
 from ..utils.rng import Key, generator as key_generator
 from .common import Conv, Dense, GroupNorm, num_groups_for
 
@@ -115,8 +121,8 @@ class CrossAttnBlock(nn.Module):
         q = self.to_q(self.group_norm(x).reshape(B, H * W, C)).reshape(B, H * W, nh, hd)
         k = self.to_k(context).reshape(B, -1, nh, hd)
         v = self.to_v(context).reshape(B, -1, nh, hd)
-        logits = torch.einsum("bqnd,bknd->bnqk", q, k) / hd ** 0.5
-        out = torch.einsum("bnqk,bknd->bqnd", torch.softmax(logits, dim=-1), v)
+        logits = torch.einsum("bqnd,bknd->bnqk", *promote(q, k)) / hd ** 0.5
+        out = torch.einsum("bnqk,bknd->bqnd", *promote(torch.softmax(logits, dim=-1), v))
         return x + self.to_out(out.reshape(B, H * W, C)).reshape(B, H, W, C)
 
 
@@ -183,7 +189,10 @@ class PUNetGCFD(nn.Module):
 
     def forward(self, x, timesteps, case_params, keep_masks: Optional[Sequence] = None,
                 context: Optional[torch.Tensor] = None):
-        emb = timestep_embedding(timesteps, self.base_channels).to(self.t_dense1.weight.dtype)
+        # float32 (or wider weights' dtype, through the Dense) under
+        # bfloat16 weights too, as in the JAX package, where it lifts the
+        # conditioning, and from the first FiLM on the network, to float32.
+        emb = timestep_embedding(timesteps, self.base_channels)
         t_emb = self.t_dense2(F.silu(self.t_dense1(emb)))
         c_emb = self.c_dense2(F.silu(self.c_dense1(case_params)))
         cond = torch.cat([t_emb, c_emb], dim=-1)

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import common_dtype, promote
 from .common import (
     Conv,
     Dense,
@@ -36,10 +37,19 @@ class BatchNorm(nn.BatchNorm2d):
     ``running_var``. ``nn.BatchNorm2d`` stores the unbiased one, n/(n-1)
     times larger (ROADMAP.md C), so every eval-mode output after training
     would differ. Momentum 0.1 (flax's 0.9), eps 1e-5. The buffers keep
-    ``nn.BatchNorm2d``'s names, so a reference checkpoint loads."""
+    ``nn.BatchNorm2d``'s names, so a reference checkpoint loads.
+
+    As flax's, it returns the common dtype of x and its weights; in
+    training it reduces and normalises in float32 at least, so a bfloat16
+    x (mixed precision) updates the float32 running statistics with
+    float32 batch statistics. In evaluation it computes in the common
+    dtype of x, the statistics and the weights: bfloat16 throughout in the
+    bfloat16 rollout, which casts the statistics too."""
 
     def forward(self, x):
+        out = common_dtype(x, self.weight, self.bias)
         if self.training:
+            x = x.to(torch.promote_types(out, torch.float32))
             mean = x.mean(dim=(0, 1, 2))
             var = torch.clamp((x * x).mean(dim=(0, 1, 2)) - mean * mean, min=0)
             with torch.no_grad():
@@ -49,7 +59,8 @@ class BatchNorm(nn.BatchNorm2d):
                 self.num_batches_tracked += 1
         else:
             mean, var = self.running_mean, self.running_var
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(out)
 
 
 def _conv_bn_relu(in_chan: int, out_chan: int, generator) -> nn.Sequential:
@@ -93,7 +104,7 @@ class ConvTranspose2x2(nn.Module):
         self.bias = nn.Parameter(torch_bias_init(b, out_chan * 4, generator))
 
     def forward(self, x):
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, self.bias, stride=2)
+        y = F.conv_transpose2d(*promote(x.permute(0, 3, 1, 2), self.weight, self.bias), stride=2)
         return y.permute(0, 2, 3, 1)
 
 

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import promote
 from ._build import check_launch, load_library
 from .spectral import (
     _dft_factors, clamp_modes, retained_modes, spectral_conv2d_fft, spectral_conv2d_vjp,
@@ -217,9 +218,11 @@ def kernel_library(device: torch.device):
 
 
 def fno_block_reference(x, weights, w0, b0, modes1: int, modes2: int):
-    """Plain FnoBlock: ``GELU(spectral_conv(x) + x @ w0ᵀ + b0)``."""
+    """Plain FnoBlock: ``GELU(spectral_conv(x) + x @ w0ᵀ + b0)``, in the
+    common dtype of x and the weights (bfloat16 in the JAX package's
+    bfloat16 numerics; the kernels take float32 only)."""
     return F.gelu(
-        spectral_conv2d_fft(x, weights, modes1, modes2) + F.linear(x, w0, b0)
+        spectral_conv2d_fft(x, weights, modes1, modes2) + F.linear(*promote(x, w0, b0))
     )
 
 
@@ -234,8 +237,10 @@ def fno_block_saved_reference(x, weights, w0, b0, modes1: int, modes2: int):
 
 
 def fno_head_reference(x, w1, b1, w2, b2, mask):
-    """Plain head: ``(GELU(x @ w1ᵀ + b1) @ w2ᵀ + b2) * mask``."""
-    return F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2) * mask
+    """Plain head: ``(GELU(x @ w1ᵀ + b1) @ w2ᵀ + b2) * mask``, in the
+    common dtype of its operands."""
+    h = F.gelu(F.linear(*promote(x, w1, b1)))
+    return F.linear(*promote(h, w2, b2)) * mask
 
 
 def _check(cond: bool, msg: str) -> None:

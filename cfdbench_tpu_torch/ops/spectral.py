@@ -13,6 +13,15 @@ kernel (``ops/fno_kernels.py``), which projects onto the retained modes
 with them instead of running an FFT. :func:`spectral_conv2d_vjp` is the
 conv's gradient written out in ``torch.fft``, from x's retained modes:
 the block's backward on the card.
+
+Neither ``torch.fft`` nor cuFFT takes bfloat16, and the JAX package
+never transforms in it: its DFT tables are float32, so a bfloat16 input
+or weight is promoted to float32 in every product. The convs here do the
+same (:func:`fft_dtype`): the 2-D conv rounds its output back to the
+input's dtype, as the JAX one does (``out_dtype = x.dtype``); the 1-D
+conv of the FFNO returns float32, as the JAX one does, which never casts
+back.
+
 The JAX package's DFT-matmul backends and their batch-size crossover
 rule were TPU workarounds and are not ported: here ``torch.fft`` is
 the plain version and the fused kernel is the fast one.
@@ -24,6 +33,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from . import common_dtype
 
 
 def clamp_modes(H: int, W: int, modes1: int, modes2: int):
@@ -63,13 +74,23 @@ def _dft_factors(H: int, W: int, m1: int, m2: int):
     )
 
 
+def fft_dtype(*tensors: torch.Tensor) -> torch.dtype:
+    """The dtype a spectral conv transforms in: the tensors' common dtype,
+    float32 at least."""
+    return torch.promote_types(common_dtype(*tensors), torch.float32)
+
+
 def spectral_conv2d_fft(
-    x: torch.Tensor,  # (B, H, W, Cin) float32
+    x: torch.Tensor,  # (B, H, W, Cin)
     weights: torch.Tensor,  # (2, 2, Cin, Cout, modes1, modes2)
     modes1: int,
     modes2: int,
 ) -> torch.Tensor:
-    """rfft2 → mix the retained corners → irfft2. Returns (B, H, W, Cout)."""
+    """rfft2 → mix the retained corners → irfft2. Returns (B, H, W, Cout)
+    in x's dtype, transformed in :func:`fft_dtype`."""
+    out_dtype = x.dtype
+    work = fft_dtype(x, weights)
+    x, weights = x.to(work), weights.to(work)
     B, H, W, _ = x.shape
     Cout = weights.shape[3]
     wf = W // 2 + 1
@@ -86,7 +107,7 @@ def spectral_conv2d_fft(
     out_ft[:, H - m1:, :m2] = torch.einsum(
         "bxyi,ioxy->bxyo", x_ft[:, H - m1:, :m2], w_c[1]
     )
-    return _c2r(torch.fft.ifft(out_ft, dim=1), W)
+    return _c2r(torch.fft.ifft(out_ft, dim=1), W).to(out_dtype)
 
 
 def _c2r(z: torch.Tensor, W: int) -> torch.Tensor:
@@ -162,7 +183,7 @@ def init_spectral_weights(
 
 
 def spectral_conv1d(
-    x: torch.Tensor,  # (B, H, W, C) float32
+    x: torch.Tensor,  # (B, H, W, C)
     weights: torch.Tensor,  # (2, C, C, modes): [re/im, in, out, mode]
     modes: int,
     axis: int,  # 1 (H) or 2 (W)
@@ -173,9 +194,12 @@ def spectral_conv1d(
     back to N points (the other modes zero). Since m <= N // 2, no retained mode is the even-N
     Nyquist one, and irfft drops the imaginary part of the DC mode as the
     JAX package's inverse factors do (their DC column is real), so this
-    equals its DFT-matmul form."""
+    equals its DFT-matmul form. It transforms and returns
+    :func:`fft_dtype`: float32 for a bfloat16 x or weight."""
     if axis not in (1, 2):
         raise ValueError(f"axis {axis}: choose 1 (H) or 2 (W)")
+    work = fft_dtype(x, weights)
+    x, weights = x.to(work), weights.to(work)
     N = x.shape[axis]
     m = min(modes, N // 2)
     x_ft = torch.fft.rfft(x, dim=axis)

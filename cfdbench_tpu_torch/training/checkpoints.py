@@ -6,8 +6,9 @@ One ``ckpt-{ep}/`` directory per eval epoch holds ``scores.json``
 ``model.pt``, a ``state_dict`` — the upstream CFDBench file name, and
 what ``main_multistep`` reads. The best checkpoint is the one with the
 lowest ``dev_loss``. ``training_state/model.pt`` is the trainer's
-full-state snapshot for ``--resume``: parameters, both Adam moments, the
-step and the schedule's position.
+full-state snapshot for ``--resume``: parameters, the optimizer's state
+(Adam's moments, or Adafactor's step and factored statistics), the step
+and the schedule's position.
 
 Saves are crash-safe: the new file is written beside the old one, the
 old one is kept as ``backup_model.pt``, and only then the new one takes

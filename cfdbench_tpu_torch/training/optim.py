@@ -11,13 +11,17 @@ steps; here ``torch.optim.Adam`` (whose update is ``optax.adam``'s: b1
 ``LambdaLR`` stepped after every optimizer step, so step ``k`` runs at
 ``lr(k)``, the count before the increment, as optax's
 ``scale_by_learning_rate`` reads it.
+
+``--opt_state_dtype factored`` is :class:`Adafactor`, the chain that
+``optax.adafactor(learning_rate=schedule)`` builds, on the same schedule.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, List, Tuple
+from typing import Callable, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -76,6 +80,94 @@ class AdamCompact(torch.optim.Optimizer):
                 state[key] = state[key].to(self.state_dtype)
 
 
+# optax.adafactor's default: a tensor factors when two of its axes are
+# at least this long.
+MIN_DIM_SIZE_TO_FACTOR = 128
+
+
+def factored_dims(shape) -> Optional[Tuple[int, int]]:
+    """``(d1, d0)``: the second largest and the largest axis of ``shape``,
+    over which Adafactor keeps its row and column statistics; None when
+    the tensor has fewer than two axes or its second largest is below
+    ``MIN_DIM_SIZE_TO_FACTOR`` (optax's ``_factored_dims``; equal sizes
+    are ordered as ``np.argsort`` orders them)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < MIN_DIM_SIZE_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(torch.optim.Optimizer):
+    """``optax.adafactor(learning_rate=lr)`` as one optimizer step (the
+    JAX package's ``--opt_state_dtype factored``, without weight decay, as
+    ``main_auto`` passes none), per parameter tensor in the chain's order:
+
+    1. ``scale_by_factored_rms``: with ``t`` the step count before the
+       increment, decay ``1 - (t + 1) ** -0.8``; of ``g² + 1e-30``, a
+       tensor with two axes of at least 128 (:func:`factored_dims`) keeps
+       the running means over its largest axis (``v_row``) and over its
+       second largest (``v_col``) and divides ``g`` by
+       ``sqrt(v_row / mean(v_row) · v_col)``; any other keeps the whole
+       running mean ``v`` and divides by ``sqrt(v)``;
+    2. ``clip_by_block_rms(1)``: the update divided by ``max(1, rms)``;
+    3. ``scale_by_learning_rate``: times the group's ``lr`` (a scheduler
+       sets it, as ``make_adam`` does);
+    4. ``scale_by_param_block_rms``: times ``max(rms(p), 1e-3)``;
+    5. subtracted from the parameter.
+
+    The factored estimate ``v_row_i · v_col_j / mean(v_row)`` is the same
+    whichever of the two axes is called the row, so a torch ``(out, in)``
+    weight gets the update of flax's ``(in, out)`` kernel."""
+
+    DECAY_RATE = 0.8
+    EPS = 1e-30
+    CLIP = 1.0
+    MIN_SCALE = 1e-3
+
+    def __init__(self, params, lr: float):
+        super().__init__(params, dict(lr=lr))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Adafactor.step takes no closure")
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                dims = factored_dims(p.shape)
+                if not state:
+                    state["step"] = 0
+                    if dims is None:
+                        state["v"] = torch.zeros_like(p)
+                    else:
+                        d1, d0 = dims
+                        state["v_row"] = p.new_zeros([n for i, n in enumerate(p.shape) if i != d0])
+                        state["v_col"] = p.new_zeros([n for i, n in enumerate(p.shape) if i != d1])
+                g = p.grad
+                decay = 1.0 - (state["step"] + 1) ** -self.DECAY_RATE
+                g2 = g * g + self.EPS
+                if dims is None:
+                    v = state["v"].mul_(decay).add_(g2, alpha=1.0 - decay)
+                    update = g * v.rsqrt()
+                else:
+                    d1, d0 = dims
+                    v_row = state["v_row"].mul_(decay).add_(g2.mean(d0), alpha=1.0 - decay)
+                    v_col = state["v_col"].mul_(decay).add_(g2.mean(d1), alpha=1.0 - decay)
+                    row_mean = v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+                    update = (g * (v_row / row_mean).rsqrt().unsqueeze(d0)
+                              * v_col.rsqrt().unsqueeze(d1))
+                state["step"] += 1
+                rms = update.square().mean().sqrt()
+                update.div_(torch.clamp(rms / self.CLIP, min=1.0))
+                p_rms = p.square().mean().sqrt()
+                scale = torch.where(p_rms <= self.MIN_SCALE, self.MIN_SCALE, p_rms)
+                p.sub_(update.mul_(group["lr"]).mul_(scale))
+
+
 def make_adam(
     params: Iterable[torch.nn.Parameter],
     lr: float,
@@ -85,18 +177,15 @@ def make_adam(
     opt_state: str = "f32",
 ) -> Tuple[torch.optim.Optimizer, torch.optim.lr_scheduler.LambdaLR]:
     """``(optimizer, scheduler)``: Adam with float32 (``"f32"``) or
-    bfloat16 (``"bf16"``) moments, and the StepLR schedule as a
-    ``LambdaLR`` to step once after every ``optimizer.step()``.
-    ``"factored"`` (optax's adafactor in the JAX package) is not ported."""
+    bfloat16 (``"bf16"``) moments, or :class:`Adafactor` (``"factored"``),
+    and the StepLR schedule as a ``LambdaLR`` to step once after every
+    ``optimizer.step()``."""
     if opt_state == "f32":
         opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     elif opt_state == "bf16":
         opt = AdamCompact(params, lr=lr)
     elif opt_state == "factored":
-        raise NotImplementedError(
-            "--opt_state_dtype factored: adafactor's factored moments are not "
-            "ported (ROADMAP.md A18)"
-        )
+        opt = Adafactor(params, lr=lr)
     else:
         raise ValueError(f"opt_state {opt_state!r}: choose f32 | bf16 | factored")
     schedule = step_lr_schedule(1.0, gamma, lr_step_size, steps_per_epoch)

@@ -59,11 +59,14 @@ def unroll(step: Callable, frame0, case_params, mask, steps: int,
     """The frames of ``steps`` self-fed calls ``step(frame, case_params,
     mask, i)``, the i-th prediction from the one before it, stacked as
     ``(steps, B, H, W, C)``; with ``include_initial`` the first frame is
-    ``frame0`` and the last prediction is never computed."""
+    ``frame0`` and the last prediction is never computed. Each prediction
+    is carried in ``frame0``'s dtype, as the JAX scan carries it: a
+    bfloat16 rollout stays bfloat16 where a model returns float32 (the
+    point models, the FFNO)."""
     frames = [frame0] if include_initial else []
     carry = frame0
     for i in range(steps - len(frames)):
-        carry = step(carry, case_params, mask, i)
+        carry = step(carry, case_params, mask, i).to(frame0.dtype)
         frames.append(carry)
     return torch.stack(frames)
 

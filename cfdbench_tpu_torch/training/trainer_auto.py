@@ -6,7 +6,14 @@
   labels over all channels. Point models (the DeepONet family,
   ``pointwise``): (B, H*W) u predictions against the flattened u labels,
   unmasked; their rollout feeds back the 1-channel u frame. Losses in
-  float32, with the batch's 0/1 sample weights.
+  float32, with the batch's 0/1 sample weights. With ``compute_dtype``
+  ``torch.bfloat16`` (``--use_mixed_precision``) the train forward runs on
+  bfloat16 copies of the float32 parameters, the batch's inputs, case
+  parameters and mask cast to bfloat16 (``models/common.py::cast_call``;
+  a cast copy, not ``torch.autocast``, whose per-op casts and float32
+  reductions are another computation than the JAX package's); the
+  gradients come back to the float32 parameters through the casts, and
+  the optimizer, the labels, the loss and evaluation stay float32.
 - :func:`train_step`: forward, loss, backward, Adam update and one
   schedule step. On the card the FNO's forward runs every FnoBlock and
   the head on their kernels (``ops/fno_kernels.py``), whose autograd
@@ -47,6 +54,7 @@ from ..data.core import dump_json, load_json
 from ..data.datasets import AutoDataset
 from ..data.pipeline import batches, num_batches, to_device
 from ..metrics import LossFn
+from ..models.common import cast_call
 from ..utils.artifacts import plot_example, plot_loss, plot_predictions
 from ..utils.rng import step_generator
 from . import checkpoints
@@ -59,10 +67,12 @@ class AutoTask:
 
     generative = False
 
-    def __init__(self, model: nn.Module, loss_fn: Optional[LossFn] = None):
+    def __init__(self, model: nn.Module, loss_fn: Optional[LossFn] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         self.model = model
         self.loss_fn = loss_fn
         self.pointwise = getattr(model, "pointwise", False)
+        self.compute_dtype = compute_dtype
 
     def forward(self, inputs, case_params, mask, generator=None):
         """The model's own output: (B, H, W, C) for a field model, (B, H*W)
@@ -93,9 +103,16 @@ class AutoTask:
         return self.loss_fn(out.float(), labels, sample_weights=batch.get("weights"))
 
     def loss_scores(self, batch, generator=None):
-        """``(loss, scores)`` of one forward on ``batch``."""
-        s = self.scores(self.forward(batch["inputs"], batch["case_params"], batch["mask"],
-                                     generator), batch)
+        """``(loss, scores)`` of one train forward on ``batch``, in
+        ``compute_dtype`` when one is set."""
+        dt = self.compute_dtype
+        if dt is None:
+            out = self.forward(batch["inputs"], batch["case_params"], batch["mask"], generator)
+        else:
+            kwargs = {} if generator is None else dict(generator=generator)
+            out = cast_call(self.model, dt, batch["inputs"].to(dt), batch["case_params"].to(dt),
+                            batch["mask"].to(dt), **kwargs)
+        s = self.scores(out, batch)
         return s[self.loss_fn.objective], s
 
     @property

@@ -120,11 +120,33 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    frames/s, the served overhead; the served outputs at (b)'s bounds and
    the FNO's launches a served call as in (b).
 
+12. Mixed precision, Adafactor and the bfloat16 rollout. (a) On the
+   phase-6 tree, ``main_auto --use_mixed_precision 1 --mode train_test``
+   for the flagship FNO, the U-Net, the FFNO and pixel diffusion, and
+   ``main_gencast --use_mixed_precision 1``: finite scores; the FNO's
+   bfloat16 train forwards launch no kernel, its float32 evaluation and
+   test forwards 4 blocks and 1 head each, the others none. (b)
+   ``main_auto --opt_state_dtype factored`` for the FNO at width 128 (at 32
+   no tensor factors), one epoch, then ``--resume`` for a second: finite
+   losses and scores, Adafactor's row and column statistics in the saved
+   state. (c) ``main_multistep --rollout_dtype bfloat16`` on the phase-6,
+   7 and 8 checkpoints of the FNO, the U-Net and the FFNO: 20 finite
+   per-step metrics within PHASE12_METRIC_RTOL of each metric's largest in
+   the float32 rollout, no kernel launch; with ``--use_pallas_head 1`` it
+   must refuse. (d) The bfloat16 train step of the FNO and the U-Net at
+   B=8, card against CPU: the loss and the gradients at the bounds below.
+   (e) By CUDA events: the FNO's 20-step b128 rollout, float32 on the
+   kernels against bfloat16 on the plain ops; the float32 and the mixed
+   precision train step (split, peak memory) of the FNO and the U-Net at
+   b128 and of pixel diffusion's PUNetG at b32; Adam's and Adafactor's
+   update of the FNO at width 128.
+
 ``launches`` in the kernels' record is phase 3's count (main_multistep),
 ``launches_by_path`` each main path's own: main_multistep's and
-main_auto's, and one served predict call's and one served rollout's
-(phase 11b), each read from counters set to 0 just before the run and
-read just after it. The line before the last is the kernels' JSON record; the last line is
+main_auto's, one served predict call's and one served rollout's
+(phase 11b), main_auto's with ``--use_mixed_precision`` and
+main_multistep's with ``--rollout_dtype bfloat16`` (phase 12), each read
+from counters set to 0 just before the run and read just after it. The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 It needs a CUDA device and fails without one.
 """
@@ -211,6 +233,27 @@ SERVE_IMPORT_RTOL = 1e-6
 SERVE_FNO_RTOL = 1e-6  # max abs diff over max |out|
 SERVE_UNET_RTOL = 1e-5
 SERVE_ITERS = 12
+# Phase 12: mixed precision, Adafactor, the bfloat16 rollout.
+MP_MODELS = ("fno", "unet", "ffno", "pixel_diffusion")
+BF16_ROLLOUT = ("fno", "unet", "ffno")
+FACTORED_WIDTH = 128  # the FNO's width at which its tensors factor
+# Each per-step metric of the bfloat16 rollout against the float32
+# rollout's, over that metric's largest value across the 20 steps. On an
+# H100 the FNO's read 5.3e-5, the FFNO's 6.6e-5, the U-Net's 8.0e-3.
+PHASE12_METRIC_RTOL = 3e-2
+# The bfloat16 train step, card against CPU: the loss (relative) and the
+# gradients (max abs diff over the largest gradient); for the U-Net those
+# of its output conv, whose gradient no BatchNorm cancels, and all of them
+# at a bound of their own (its BatchNorms leave rounding in the rest:
+# tests/test_torch_mixed_precision.py). On an H100: the losses 1.2e-7
+# (FNO) and 8.5e-5 (U-Net); the FNO's gradients 1.7e-6, the U-Net's
+# output conv's 5.3e-3, all of the U-Net's 2.2e-2.
+MP_CHECK_BATCH = 8
+MP_LOSS_RTOL = 4e-4
+MP_GRAD_RTOL = 2e-2
+MP_UNET_ALL_GRAD_RTOL = 8e-2
+# Phase 12's generative runs sample with fewer denoising steps.
+MP_INFERENCE_STEPS = "10"
 # An H100 SXM's published peaks (NVIDIA's data sheet, dense rates): device
 # memory bytes/s, TF32 FLOP/s on the tensor cores and float32 FLOP/s outside
 # them. A split-TF32 product (csrc/tf32.cuh) is three TF32 products.
@@ -1822,6 +1865,258 @@ def serving(device, card):
     return fno["predict"]["launches"], fno["rollout"]["launches"]
 
 
+def phase12_argv(name: str, output_dir: Path, width: int = WIDTH):
+    """``name``'s flags on the phase-6 tree: the flagship FNO's widths (or
+    ``width``), the others' defaults; the generative models sample with
+    MP_INFERENCE_STEPS denoising steps."""
+    data_root = WORK / "train_data"
+    if name == "fno":  # the last --fno_hidden_dim wins
+        return fno_argv(data_root, output_dir) + ["--fno_hidden_dim", str(width)]
+    argv = ["--model", name, "--data_name", "cavity_prop_bc_geo", "--data_dir", str(data_root),
+            "--output_dir", str(output_dir)]
+    if name in GENERATIVE:
+        argv += ["--ldm_num_inference_steps", MP_INFERENCE_STEPS]
+    return argv
+
+
+def fno_eval_forwards(argv, train_flags) -> int:
+    """The forwards of a ``main_auto --mode train_test`` run of the FNO that
+    are not train steps: per eval epoch one per dev batch and one for
+    example.png, and one per test case."""
+    from cfdbench_tpu_torch.cli import parse_args
+    from cfdbench_tpu_torch.data import get_auto_dataset
+    from cfdbench_tpu_torch.data.pipeline import num_batches
+
+    args = parse_args(argv + train_flags)
+    _, dev, test = get_auto_dataset(WORK / "train_data", args.data_name, args.delta_time,
+                                    True, True, seed=args.seed)
+    return TRAIN_EPOCHS * (num_batches(len(dev), args.eval_batch_size) + 1) + len(test)
+
+
+def phase12_paths():
+    """Phase 12a-c. Returns main_auto's launches under
+    ``--use_mixed_precision`` (the FNO) and main_multistep's under
+    ``--rollout_dtype bfloat16`` (the FNO)."""
+    from cfdbench_tpu_torch.cli import main_auto, main_gencast, main_multistep, parse_args, run_dir
+    from cfdbench_tpu_torch.models.fno import FLAGSHIP
+    from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
+
+    train_flags = ["--mode", "train_test", "--num_epochs", str(TRAIN_EPOCHS),
+                   "--eval_interval", "1", "--batch_size", "16", "--eval_batch_size", "16",
+                   "--log_interval", "100"]
+    mp = ["--use_mixed_precision", "1"]
+    mp_counts = None
+    for name in MP_MODELS:
+        argv = phase12_argv(name, WORK / "mp_result")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        main_auto(argv + train_flags + mp)
+        counts = launch_counts()
+        scores = finite_scores(run_dir(parse_args(argv)), f"{name} --use_mixed_precision")
+        if name == "fno":
+            forwards = fno_eval_forwards(argv, train_flags)
+            want = {"fno_block": FLAGSHIP["num_layers"] * forwards, "fno_head": forwards}
+            mp_counts = counts
+        else:
+            want = {"fno_block": 0, "fno_head": 0}
+        if counts != want:
+            raise RuntimeError(f"{name} --use_mixed_precision launched {counts}, expected {want}"
+                               ": none in the bfloat16 train forwards, 4 blocks and 1 head a "
+                               "float32 eval or test forward of the FNO")
+        print(f"[phase12] {name} main_auto --use_mixed_precision: "
+              f"{time.perf_counter() - t0:.2f} s, dev loss "
+              f"{[scores[f'ckpt-{ep}']['dev_loss'] for ep in range(TRAIN_EPOCHS)]}, test nmse "
+              f"{scores['test']['nmse']:.6g}; launches {counts} (expected {want})")
+    argv = phase12_argv("gencast", WORK / "mp_result")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    main_gencast(argv + train_flags + mp)
+    run = run_dir(parse_args(argv))
+    test = json.loads((run / "test" / "scores.json").read_text())["mean"]
+    if not all(math.isfinite(v) for v in test.values()) or any(launch_counts().values()):
+        raise RuntimeError(f"gencast --use_mixed_precision: test scores {test}, "
+                           f"launches {launch_counts()}")
+    print(f"[phase12] main_gencast --use_mixed_precision: {time.perf_counter() - t0:.2f} s, "
+          f"test gen nmse {test['nmse']:.6g}")
+
+    # (b) Adafactor at width 128, one epoch, then --resume for a second.
+    argv = phase12_argv("fno", WORK / "factored_result", FACTORED_WIDTH)
+    flags = ["--mode", "train", "--eval_interval", "1", "--batch_size", "16",
+             "--eval_batch_size", "16", "--log_interval", "100", "--opt_state_dtype", "factored",
+             "--plot_train_examples", "0"]
+    t0 = time.perf_counter()
+    main_auto(argv + flags + ["--num_epochs", "1"])
+    main_auto(argv + flags + ["--num_epochs", str(TRAIN_EPOCHS), "--resume", "1"])
+    run = run_dir(parse_args(argv))
+    losses = json.loads((run / "train_losses.json").read_text())
+    meta = json.loads((run / "training_meta.json").read_text())
+    state = torch.load(run / "training_state" / "model.pt", weights_only=True)["optimizer"]
+    factored = [s for s in state["state"].values() if "v_row" in s]
+    dev = [json.loads((run / f"ckpt-{ep}" / "scores.json").read_text())["dev_loss"]
+           for ep in range(TRAIN_EPOCHS)]
+    if (meta["epoch"] != TRAIN_EPOCHS - 1 or not losses or not factored
+            or not all(math.isfinite(v) for v in losses + dev)):
+        raise RuntimeError(f"--opt_state_dtype factored: meta {meta}, {len(factored)} factored "
+                           f"tensors, losses {losses}, dev {dev}")
+    print(f"[phase12] fno width {FACTORED_WIDTH} --opt_state_dtype factored, 1 epoch then "
+          f"--resume: {time.perf_counter() - t0:.2f} s, {len(losses)} finite step losses, dev "
+          f"loss {dev}; {len(factored)} of {len(state['state'])} tensors factored")
+
+    # (c) The bfloat16 rollout of the phase-6, 7 and 8 checkpoints.
+    bf16_counts = None
+    for name in BF16_ROLLOUT:
+        argv = (fno_argv(WORK / "train_data", WORK / "train_result") if name == "fno"
+                else family_argv(name, WORK / "train_data"))
+        run = run_dir(parse_args(argv))
+        main_multistep(argv)
+        want = json.loads((run / "multistep_metrics.json").read_text())
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        frames = main_multistep(argv + ["--rollout_dtype", "bfloat16"])
+        counts = launch_counts()
+        got = json.loads((run / "multistep_metrics.json").read_text())
+        worst = 0.0
+        for key in want[0]:
+            top = max(abs(w[key]) for w in want)
+            worst = max(worst, max(abs(g[key] - w[key]) for g, w in zip(got, want)) / top)
+        if (frames.dtype != torch.bfloat16 or len(got) != STEPS or any(counts.values())
+                or not all(math.isfinite(v) for m in got for v in m.values())
+                or not worst <= PHASE12_METRIC_RTOL):
+            raise RuntimeError(f"{name} --rollout_dtype bfloat16: frames {frames.dtype}, "
+                               f"launches {counts}, metrics {got} against float32 {want} "
+                               f"({worst:.3e})")
+        if name == "fno":
+            bf16_counts = counts
+        print(f"[phase12] {name} main_multistep --rollout_dtype bfloat16: "
+              f"{time.perf_counter() - t0:.2f} s, launches {counts}, step-20 nmse "
+              f"{got[-1]['nmse']:.6g} (float32 {want[-1]['nmse']:.6g}); per-step metrics against "
+              f"float32: {worst:.3e} of each one's largest (bound {PHASE12_METRIC_RTOL:.0e})")
+    argv = fno_argv(WORK / "train_data", WORK / "train_result")
+    try:
+        main_multistep(argv + ["--rollout_dtype", "bfloat16", "--use_pallas_head", "1"])
+    except NotImplementedError as e:
+        print(f"[phase12] --rollout_dtype bfloat16 --use_pallas_head 1 refuses, as it must: {e}")
+    else:
+        raise RuntimeError("--rollout_dtype bfloat16 --use_pallas_head 1 did not refuse")
+    return mp_counts, bf16_counts
+
+
+def mp_step(model, batch):
+    """The bfloat16 train step's loss and gradients (on the host) of
+    ``model`` on ``batch``."""
+    from cfdbench_tpu_torch.metrics import loss_name_to_fn
+    from cfdbench_tpu_torch.training.trainer_auto import AutoTask
+
+    task = AutoTask(model.train(), loss_name_to_fn("nmse"), compute_dtype=torch.bfloat16)
+    loss, _ = task.loss_scores(batch)
+    loss.backward()
+    return loss.item(), {k: p.grad.cpu() for k, p in model.named_parameters()}
+
+
+def phase12_card_vs_cpu(device):
+    """Phase 12d: the bfloat16 train step of the flagship FNO and of the
+    U-Net at its default width, B=MP_CHECK_BATCH, card against CPU."""
+    batch_cpu = train_inputs(MP_CHECK_BATCH, torch.Generator().manual_seed(SEED + 12), "cpu")
+    batch = {k: v.to(device) for k, v in batch_cpu.items()}
+    for name in ("fno", "unet"):
+        runs = {}
+        for where, b in (("cpu", batch_cpu), ("card", batch)):
+            dev = "cpu" if where == "cpu" else device
+            model = flagship_model(dev) if name == "fno" else family_model(name, dev)
+            runs[where] = mp_step(model, b)
+        (loss_c, grads_c), (loss_g, grads_g) = runs["cpu"], runs["card"]
+        loss_rel = abs(loss_g - loss_c) / abs(loss_c)
+        keys = list(grads_c) if name == "fno" else ["out_conv.conv.weight", "out_conv.conv.bias"]
+        top = max(grads_c[k].abs().max().item() for k in keys)
+        worst = max((grads_g[k] - grads_c[k]).abs().max().item() for k in keys) / top
+        every = max((grads_g[k] - grads_c[k]).abs().max().item() for k in grads_c) / max(
+            g.abs().max().item() for g in grads_c.values())
+        every_bound = MP_GRAD_RTOL if name == "fno" else MP_UNET_ALL_GRAD_RTOL
+        print(f"[phase12] {name} bfloat16 train step B={MP_CHECK_BATCH} {GRID}x{GRID}, card vs "
+              f"CPU: nmse rel diff {loss_rel:.3e} (bound {MP_LOSS_RTOL:.0e}); {len(keys)} "
+              f"gradients held, max abs diff / largest {worst:.3e} (bound {MP_GRAD_RTOL:.0e}); "
+              f"all {len(grads_c)} gradients: {every:.3e} (bound {every_bound:.0e})")
+        if not (loss_rel <= MP_LOSS_RTOL and worst <= MP_GRAD_RTOL and every <= every_bound
+                and all(torch.isfinite(g).all() for g in grads_g.values())):
+            raise RuntimeError(f"{name}: the bfloat16 train step on the card disagrees with the "
+                               f"CPU's (loss {loss_rel:.3e}, gradients {worst:.3e})")
+
+
+def phase12_timing(device, card) -> dict:
+    """Phase 12e, by CUDA events."""
+    import copy
+
+    from cfdbench_tpu_torch.training.optim import make_adam
+    from cfdbench_tpu_torch.training.rollout import make_rollout_fn
+    from cfdbench_tpu_torch.training.trainer_auto import train_step
+    from cfdbench_tpu_torch.utils.rng import train_key
+
+    result = {}
+    bf16 = torch.bfloat16
+    # The FNO's rollout: float32 on the kernels against bfloat16 plain.
+    B = TIMING_BATCH
+    batch = train_inputs(B, torch.Generator().manual_seed(SEED + 13), device)
+    args = (batch["inputs"], batch["case_params"], batch["mask"])
+    model = flagship_model(device).eval()
+    roll32 = make_rollout_fn(model, STEPS)
+    roll16 = make_rollout_fn(copy.deepcopy(model).to(bf16), STEPS)
+    args16 = tuple(a.to(bf16) for a in args)
+    f32_ms, bf16_ms = interleaved_ms(lambda: roll32(*args), lambda: roll16(*args16), reps=3)
+    result["fno_rollout"] = dict(f32_kernels_ms=f32_ms, bf16_plain_ms=bf16_ms,
+                                 f32_frames_per_s=B * STEPS / f32_ms * 1e3,
+                                 bf16_frames_per_s=B * STEPS / bf16_ms * 1e3)
+    print(f"[time] [{card}] fno rollout b{B} x {STEPS} steps: float32 on the kernels "
+          f"{f32_ms:.3f} ms = {B * STEPS / f32_ms * 1e3:.1f} frames/s; bfloat16 plain "
+          f"{bf16_ms:.3f} ms = {B * STEPS / bf16_ms * 1e3:.1f} frames/s")
+
+    # The train step, float32 against mixed precision.
+    for name, B in (("fno", TIMING_BATCH), ("unet", TIMING_BATCH), ("pixel_diffusion", 32)):
+        if name == "pixel_diffusion":
+            batch = generative_batch(B, torch.Generator().manual_seed(SEED + 14), device)
+            tasks = {"f32": generative_task(name, device), "mixed": generative_task(name, device)}
+            draws = train_key(SEED, 0)
+        else:
+            batch = train_inputs(B, torch.Generator().manual_seed(SEED + 14), device)
+            make = flagship_model if name == "fno" else (lambda d: family_model("unet", d))
+            tasks = {"f32": nmse_task(make(device)), "mixed": nmse_task(make(device))}
+            draws = None
+        tasks["mixed"].compute_dtype = bf16
+        paths = {k: (t, *make_adam(t.model.parameters(), 1e-4)) for k, t in tasks.items()}
+        step = {k: (lambda p=p: train_step(*p, batch, draws)) for k, p in paths.items()}
+        f32_ms, mixed_ms = interleaved_ms(step["f32"], step["mixed"], reps=TRAIN_REPS)
+        entry = dict(f32_ms=f32_ms, mixed_ms=mixed_ms)
+        for k, (task, opt, sched) in paths.items():
+            entry[k] = step_split(lambda t=task: t.loss_scores(batch, draws), opt, sched, device)
+            print(f"[time] [{card}] {name} train step b{B} {GRID}x{GRID}, "
+                  f"{'float32' if k == 'f32' else 'mixed precision'}: "
+                  + split_text(entry[k]))
+        print(f"[time] [{card}] {name} train step b{B}: float32 {f32_ms:.3f} ms, mixed "
+              f"precision {mixed_ms:.3f} ms (mixed/float32 {mixed_ms / f32_ms:.3f})")
+        result[f"{name}_train_b{B}"] = entry
+        del tasks, paths, step, batch
+        torch.cuda.empty_cache()
+
+    # Adam's and Adafactor's update of the FNO at width 128.
+    from cfdbench_tpu_torch.models.fno import FLAGSHIP, Fno2d
+
+    updates, opts = {}, []
+    for opt_state in ("f32", "factored"):
+        model = Fno2d(n_case_params=5, **dict(FLAGSHIP, hidden_dim=FACTORED_WIDTH),
+                      generator=torch.Generator().manual_seed(SEED), device=device)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        for p in model.parameters():
+            p.grad = torch.randn(p.shape, generator=gen, device=device) * 1e-3
+        opt, sched = make_adam(model.parameters(), 1e-4, opt_state=opt_state)
+        opts.append((opt, sched))  # the scheduler's step wrapper holds its optimizer weakly
+        updates[opt_state] = opt.step
+        n = sum(p.numel() for p in model.parameters())
+    adam_ms, ada_ms = interleaved_ms(updates["f32"], updates["factored"], reps=20)
+    result["update_width128"] = dict(adam_ms=adam_ms, adafactor_ms=ada_ms, params=n)
+    print(f"[time] [{card}] fno width {FACTORED_WIDTH} ({n} parameters) update: Adam "
+          f"{adam_ms:.3f} ms, Adafactor {ada_ms:.3f} ms")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False",
@@ -1856,9 +2151,14 @@ def main() -> int:
     phase10_times = phase10_timing(device, card)
     print(f"[phase10] [{card}] " + json.dumps({"quality": phase10, "timing": phase10_times}))
     serve_predict, serve_rollout = serving(device, card)
+    mp_counts, bf16_counts = phase12_paths()
+    phase12_card_vs_cpu(device)
+    phase12_times = phase12_timing(device, card)
+    print(f"[phase12] [{card}] " + json.dumps({"timing": phase12_times}))
     print(f"[main] launches on the main paths: main_multistep {counts}, "
           f"main_auto {train_counts}, one served predict call {serve_predict}, one served "
-          f"rollout {serve_rollout}")
+          f"rollout {serve_rollout}, main_auto --use_mixed_precision {mp_counts}, "
+          f"main_multistep --rollout_dtype bfloat16 {bf16_counts}")
     replaces = {"fno_block": "cfdbench_tpu/ops/pallas_fno.py:179",
                 "fno_head": "cfdbench_tpu/ops/pallas_fno.py:268"}
     print(json.dumps({"kernels": [
@@ -1866,7 +2166,9 @@ def main() -> int:
          "replaces": replaces[name], "launches": counts[name],
          "launches_by_path": {"main_multistep": counts[name], "main_auto": train_counts[name],
                               "serve_predict": serve_predict[name],
-                              "serve_rollout": serve_rollout[name]},
+                              "serve_rollout": serve_rollout[name],
+                              "main_auto_mixed_precision": mp_counts[name],
+                              "main_multistep_bf16": bf16_counts[name]},
          "max_abs_err": errors[name], **times[name], "library_ms": None}
         for name in ("fno_block", "fno_head")
     ]}))

@@ -173,16 +173,20 @@ def test_entry_points_take_the_flags_jax_applies(regime, argv):
 @pytest.mark.parametrize("entry,flags,error", [
     ("main_auto", ["--model", "pixel_diffusion", "--gradient_accumulation_steps", "2"],
      "main_auto ignores it .ROADMAP.md C"),
-    ("main_auto", ["--model", "pixel_diffusion", "--use_mixed_precision"], "A6b"),
-    # The latent models are ported; these two cases keep their ids.
+    # The latent models and --use_mixed_precision are ported
+    # (tests/test_torch_mixed_precision.py); these cases keep their ids.
     pytest.param("main_auto", ["--model", "latent_diffusion2", "--use_gradient_checkpointing"],
                  "main_auto ignores it .ROADMAP.md C", id="main_auto-flags2-A13b"),
-    ("main_gencast", ["--use_mixed_precision"], "A6b"),
-    ("main_gencast", ["--opt_state_dtype", "bf16"], "main_gencast ignores it .ROADMAP.md C"),
-    ("main_gencast", ["--measure_time", "1"], "main_gencast ignores it .ROADMAP.md C"),
-    ("main_gencast", ["--mesh_shape", "2x1"], "A15"),
+    pytest.param("main_gencast", ["--opt_state_dtype", "bf16"],
+                 "main_gencast ignores it .ROADMAP.md C",
+                 id="main_gencast-flags4-main_gencast ignores it .ROADMAP.md C"),
+    pytest.param("main_gencast", ["--measure_time", "1"], "main_gencast ignores it .ROADMAP.md C",
+                 id="main_gencast-flags5-main_gencast ignores it .ROADMAP.md C"),
+    pytest.param("main_gencast", ["--mesh_shape", "2x1"], "A15", id="main_gencast-flags6-A15"),
+    # The JAX main_multistep prints that a diffusion rollout runs float32.
     pytest.param("main_multistep", ["--model", "latent_diffusion_lite", "--rollout_dtype",
-                                    "bfloat16"], "A6b", id="main_multistep-flags7-A13b"),
+                                    "bfloat16"], "with --model latent_diffusion_lite.*ROADMAP.md C",
+                 id="main_multistep-flags7-A13b"),
 ])
 def test_generative_entry_points_refuse_unported_flags(tmp_path, entry, flags, error):
     argv = ["--data_dir", str(tmp_path / "data"), "--output_dir", str(tmp_path / "out")] + flags

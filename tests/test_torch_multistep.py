@@ -208,7 +208,11 @@ def test_save_checkpoint_best_is_lowest_dev_loss(tmp_path):
 @pytest.mark.parametrize(
     "flags,error",
     [
-        (["--rollout_dtype", "bfloat16"], "A6b"),
+        # A bfloat16 rollout is ported; the FNO's with the Pallas head is
+        # refused by name, as the JAX main_multistep drops it (the case
+        # keeps its id).
+        pytest.param(["--rollout_dtype", "bfloat16", "--use_pallas_head", "1"],
+                     "ROADMAP.md C", id="flags0-A6b"),
         (["--spectral_backend", "fft"], "A17"),
         (["--mesh_shape", "2x4"], "A15"),
         (["--compilation_cache_dir", "cache"], "A17"),

@@ -157,11 +157,6 @@ def test_make_adam_matches_optax(rng, opt_state):
         assert all(s["exp_avg_sq"].dtype == torch.bfloat16 for s in opt.state.values())
 
 
-def test_make_adam_refuses_factored():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A18"):
-        optim.make_adam([torch.nn.Parameter(torch.zeros(2))], 1e-3, opt_state="factored")
-
-
 def golden_model():
     data = dict(np.load(GOLDEN / "fno.npz"))
     model = Fno2d(in_chan=2, out_chan=2, n_case_params=5, num_layers=2, modes1=4, modes2=4,
@@ -471,14 +466,17 @@ def test_saved_state_holds_detached_host_copies(tmp_path):
 @pytest.mark.parametrize(
     "flags,error",
     [
-        (["--use_mixed_precision"], "A6b"),
-        (["--opt_state_dtype", "factored"], "A18"),
-        (["--pp_microbatches", "2"], "A15"),
-        (["--shard_spatial", "1"], "A15"),
-        (["--mesh_shape", "2x4"], "A15"),
-        (["--gradient_accumulation_steps", "4"], "ROADMAP.md C"),
-        (["--use_gradient_checkpointing"], "ROADMAP.md C"),
-        (["--spectral_backend", "fft"], "A17"),
+        # --use_mixed_precision and --opt_state_dtype factored are ported
+        # (tests/test_torch_mixed_precision.py, test_torch_adafactor.py);
+        # the other cases keep their ids.
+        pytest.param(["--pp_microbatches", "2"], "A15", id="flags2-A15"),
+        pytest.param(["--shard_spatial", "1"], "A15", id="flags3-A15"),
+        pytest.param(["--mesh_shape", "2x4"], "A15", id="flags4-A15"),
+        pytest.param(["--gradient_accumulation_steps", "4"], "ROADMAP.md C",
+                     id="flags5-ROADMAP.md C"),
+        pytest.param(["--use_gradient_checkpointing"], "ROADMAP.md C",
+                     id="flags6-ROADMAP.md C"),
+        pytest.param(["--spectral_backend", "fft"], "A17", id="flags7-A17"),
         # The latent models are ported; the JAX main_auto never applies
         # remat to them (cli.py:101-160). The case keeps its id.
         pytest.param(["--model", "latent_diffusion", "--use_gradient_checkpointing"],
