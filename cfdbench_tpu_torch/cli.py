@@ -30,6 +30,11 @@ package ignores them: ``--eval_batch_size`` (its evaluation runs
 batches of 64) and ``--plot_train_examples`` (it plots no example).
 ``--use_pallas_head`` changes nothing here: on the card both FNO
 kernels always run.
+
+``main_auto`` and ``main_multistep`` run data-parallel under ``torchrun
+--nproc_per_node N`` with ``--mesh_shape N``, one card a rank
+(``parallel/mesh.py``); the other entry points, and the other axes of a
+mesh, raise and name their ROADMAP.md item (A15b-e).
 """
 
 from __future__ import annotations
@@ -65,14 +70,16 @@ from .models import (
 )
 from .models.fno import HEAD_WIDTH
 from .models.point import NO_ROLLOUT
+from .ops import _build
 from .ops.fno_kernels import check_kernel_shapes, launch_counts
+from .parallel.mesh import data_size, open_mesh, parse_spec
 from .training import trainer_auto, trainer_gencast, trainer_nonauto, trainer_uncond, trainer_vae
 from .training.checkpoints import load_best_params, load_params
 from .training.rollout import make_rollout_fn, multistep_metrics
-from .training.trainer_auto import AutoTask
+from .training.trainer_auto import AutoTask, use_mesh
 from .training.trainer_nonauto import NonAutoTask
 from .utils.artifacts import get_output_dir, plot_multistep_metrics
-from .utils.device import require_cuda, set_f32_numerics
+from .utils.device import entry_device, set_f32_numerics
 
 INFER_STEPS = 20
 
@@ -112,10 +119,10 @@ def check_runtime_flags(args: Args) -> None:
             "A17); the port runs torch.fft on the CPU and the fused kernel "
             "on the card"
         )
-    if args.mesh_shape not in ("auto", "1", "1x1"):
+    if parse_spec(args.mesh_shape)[1] > 1:
         raise NotImplementedError(
-            f"--mesh_shape {args.mesh_shape}: the port runs on one device; "
-            "parallelism is ROADMAP.md A15"
+            f"--mesh_shape {args.mesh_shape}: tensor parallelism over a model axis "
+            "is ROADMAP.md A15c; the port shards the data axis only (--mesh_shape N)"
         )
     if args.compilation_cache_dir:
         raise NotImplementedError(
@@ -133,15 +140,31 @@ def check_runtime_flags(args: Args) -> None:
         )
 
 
+def refuse_data_parallel(args: Args, entry: str) -> None:
+    """Raise when ``--mesh_shape`` asks ``entry``, an entry point without
+    data parallelism, for more than one rank."""
+    if data_size(args.mesh_shape) > 1:
+        raise NotImplementedError(
+            f"--mesh_shape {args.mesh_shape}: data parallelism in {entry} is ROADMAP.md "
+            "A15b; the port runs it in main_auto and main_multistep")
+
+
 def check_rollout_flags(args: Args) -> None:
     """``check_supported`` and the flags only ``main_multistep`` reads.
     ``--rollout_dtype bfloat16`` is taken for the deterministic
     autoregressive models; where the JAX ``main_multistep`` prints that it
     drops it (a diffusion model, the FNO with ``--use_pallas_head 1``) or
-    never reads it (GenCast, the non-autoregressive models), it raises."""
+    never reads it (GenCast, the non-autoregressive models), it raises.
+    A mesh of more than one rank is refused for the non-autoregressive
+    models, whose JAX branch ignores it."""
     check_supported(args)
     if args.model == "auto_deeponet_cnn":
         raise ValueError(f"--model {NO_ROLLOUT}")
+    if args.model in NONAUTO_MODELS and data_size(args.mesh_shape) > 1:
+        raise NotImplementedError(
+            f"--mesh_shape {args.mesh_shape} with --model {args.model}: the JAX "
+            "main_multistep ignores the mesh for the non-autoregressive models (ROADMAP.md "
+            "C); data parallelism (A15a) rolls out the autoregressive models and GenCast")
     if args.rollout_dtype not in ("float32", "bfloat16"):
         raise ValueError(
             f"--rollout_dtype {args.rollout_dtype!r}: choose float32 or bfloat16"
@@ -175,12 +198,14 @@ def check_training_flags(args: Args, regime: str = "auto") -> None:
         raise ValueError(f"--mode {args.mode!r}: choose train, test or train_test")
     if args.pp_microbatches:
         raise NotImplementedError(
-            "--pp_microbatches: pipeline parallelism is ROADMAP.md A15"
+            "--pp_microbatches: pipeline parallelism is ROADMAP.md A15e"
         )
     if args.shard_spatial:
         raise NotImplementedError(
-            "--shard_spatial: spatial sharding is ROADMAP.md A15"
+            "--shard_spatial: spatial sharding is ROADMAP.md A15d"
         )
+    if regime != "auto":
+        refuse_data_parallel(args, {"nonauto": "main_train", "gencast": "main_gencast"}[regime])
     # Flags the JAX entry point parses and never passes to its trainer
     # (ROADMAP.md C), each with whether this run sets it.
     ignored = {}
@@ -235,6 +260,7 @@ def check_vae_flags(args: Args) -> None:
     none of the VAE and training flags that the JAX ``main_vae`` never
     reads."""
     check_runtime_flags(args)
+    refuse_data_parallel(args, "main_vae")
     if args.mode not in VAE_MODES:
         raise ValueError(f"--mode {args.mode!r}: main_vae trains; choose train or train_anneal "
                          "(the JAX main_vae trains whatever --mode says, ROADMAP.md C)")
@@ -247,6 +273,7 @@ def check_uncond_flags(args: Args) -> None:
     timesteps, the data, ``--lr``, ``--batch_size``, ``--num_epochs``,
     ``--seed`` and ``--resume``; none that the JAX script never reads."""
     check_runtime_flags(args)
+    refuse_data_parallel(args, "main_uncond")
     refuse_ignored(args, ("mode", "pixel_diffusion_channel_mults",
                           "pixel_diffusion_num_res_blocks", "pixel_diffusion_dropout",
                           "ldm_num_inference_steps") + _UNREAD_TRAINING_FLAGS,
@@ -259,6 +286,16 @@ def check_fno_kernel_shapes(args: Args, field_shape, device: torch.device) -> No
     if args.model == "fno" and device.type == "cuda":
         check_kernel_shapes(*field_shape, args.fno_hidden_dim, args.fno_modes_x,
                             args.fno_modes_y, HEAD_WIDTH, args.out_chan)
+
+
+def build_kernels_once(args: Args, device: torch.device, mesh) -> None:
+    """Under data parallelism on the card, rank 0 builds the FNO's kernels
+    (``ops/_build.py``) while the other ranks wait, so that they load the
+    library rather than each compile it."""
+    if args.model == "fno" and device.type == "cuda" and mesh.distributed:
+        if mesh.is_main():
+            _build.build_library()
+        mesh.barrier()
 
 
 def make_auto_task(args: Args, n_case_params: int, field_shape, device):
@@ -309,25 +346,49 @@ def main_multistep(argv=None, device=None) -> torch.Tensor:
     ``device`` None and no card it raises. On the card, FNO widths or
     modes that its kernels cannot take on the data's grid raise before
     the model is built. Returns the frames, ``(steps, cases, H, W,
-    channels)``, on the device."""
+    channels)``, on the device.
+
+    Data parallelism (the autoregressive models and GenCast; ``main_auto``
+    says how it is launched): the case axis is padded to a multiple of the
+    rank count by repeating the last case, with weight 0 in the per-step
+    means (``cfdbench_tpu/cli.py:474-516``); each rank rolls its block of
+    cases out on its card, the frames are gathered, and rank 0 writes the
+    metrics. Every rank returns every real case's frames."""
     args = parse_args(argv)
     check_rollout_flags(args)
-    device = require_cuda() if device is None else torch.device(device)
+    device = entry_device(device)
     set_f32_numerics()
+    with open_mesh(args.mesh_shape, device) as mesh:
+        return _run_multistep(args, device, mesh)
+
+
+def _run_multistep(args: Args, device: torch.device, mesh) -> torch.Tensor:
     print(args)
-    print(f"[multistep] device: {device}")
+    print(f"[multistep] device: {device}, {mesh}")
 
     features, case_params = load_test_cases(args, INFER_STEPS)
     field_shape = features.shape[2:4]
     if args.rollout_dtype == "float32":  # a bfloat16 rollout runs no kernel
         check_fno_kernel_shapes(args, field_shape, device)
+        build_kernels_once(args, device, mesh)
+    n_real = features.shape[0]
+    case_weights = None
+    pad = (-n_real) % mesh.size
+    if pad:
+        features = np.concatenate([features, np.repeat(features[-1:], pad, axis=0)])
+        case_params = np.concatenate([case_params, np.repeat(case_params[-1:], pad, axis=0)])
+        case_weights = np.concatenate([np.ones(n_real, np.float32), np.zeros(pad, np.float32)])
+    if mesh.size > 1:
+        print(f"[multistep] sharding {features.shape[0]} cases ({n_real} real) over "
+              f"{mesh.size} data-parallel ranks")
     frame0 = features[:, 0, :, :, :2]
     mask = features[:, 0, :, :, 2:3]
     output_dir = run_dir(args)
 
     def on_device(a):
+        """This rank's block of a case-axis array, on the device."""
         return torch.as_tensor(
-            np.ascontiguousarray(a, np.float32), device=device
+            np.ascontiguousarray(mesh.block(a), np.float32), device=device
         )
 
     before = launch_counts()
@@ -340,11 +401,13 @@ def main_multistep(argv=None, device=None) -> torch.Tensor:
     elif args.model == "gencast":
         stats = load_residual_stats(output_dir / "residual_stats.npz")
         task = init_gencast(args, stats, P, device=device)
+        use_mesh(task, mesh)
         task.model.load_state_dict(load_params(output_dir / trainer_gencast.BEST_DIR))
         f0 = on_device(frame0)
         preds = task.rollout(f0, f0, on_device(case_params), on_device(mask), INFER_STEPS)
     else:
         task = make_auto_task(args, P, field_shape, device)
+        use_mesh(task, mesh)
         task.model.load_state_dict(load_best_params(output_dir))
         task.model.eval()
         rollout = make_rollout_fn(task.predict_frame, steps=INFER_STEPS,
@@ -361,12 +424,16 @@ def main_multistep(argv=None, device=None) -> torch.Tensor:
             inputs = [a.to(torch.bfloat16) for a in inputs]
         preds = rollout(*inputs)
     print_launches("multistep", before)
-    metrics = multistep_metrics(preds, features, mask)
+    if mesh.distributed:  # every rank's cases, in float32 (exact for bfloat16)
+        preds = mesh.gather(preds.transpose(0, 1).float()).transpose(0, 1).to(preds.dtype)
+    metrics = multistep_metrics(preds, features, mask, case_weights=case_weights)
     for m in metrics:
         print(m)
-    dump_json(metrics, output_dir / "multistep_metrics.json")
-    plot_multistep_metrics(metrics, output_dir / "multistep_metrics.pdf")
-    return preds
+    if mesh.is_main():
+        dump_json(metrics, output_dir / "multistep_metrics.json")
+        plot_multistep_metrics(metrics, output_dir / "multistep_metrics.pdf")
+    mesh.barrier()
+    return preds[:, :n_real]
 
 
 def generate_steps(task: NonAutoTask, case_params: torch.Tensor, field_shape,
@@ -385,7 +452,7 @@ def generate_steps(task: NonAutoTask, case_params: torch.Tensor, field_shape,
     return frames
 
 
-def main_auto(argv=None, device=None) -> None:
+def main_auto(argv=None, device=None):
     """The autoregressive branch of ``cfdbench_tpu.cli.main_auto``
     (``src/train_auto.py:316-378``): ``--mode train`` trains with Adam
     and StepLR and writes ``ckpt-{ep}/`` per eval epoch, ``test`` scores
@@ -397,19 +464,34 @@ def main_auto(argv=None, device=None) -> None:
     Runs on the CUDA card unless ``device`` names another; with
     ``device`` None and no card it raises. On the card, FNO widths or
     modes that its kernels cannot take on the data's grid raise before
-    the model is built."""
+    the model is built.
+
+    Data parallelism: under ``torchrun --nproc_per_node N`` with
+    ``--mesh_shape N`` (``Nx1``, or ``auto``) each rank trains on its card,
+    ``cuda:LOCAL_RANK``, in an NCCL group (``parallel/mesh.py``), its
+    block of each global ``--batch_size`` batch; a caller that has
+    initialised a process group runs in it. Rank 0 writes the files.
+
+    Returns the task: its model as training left it, or, after ``test``,
+    with the best checkpoint's weights."""
     args = parse_args(argv)
     check_training_flags(args, "auto")
-    device = require_cuda() if device is None else torch.device(device)
+    device = entry_device(device)
     set_f32_numerics()
+    with open_mesh(args.mesh_shape, device) as mesh:
+        return _run_auto(args, device, mesh)
+
+
+def _run_auto(args: Args, device: torch.device, mesh):
     print("#" * 80)
     print(args)
     print("#" * 80)
-    print(f"[auto] device: {device}")
+    print(f"[auto] device: {device}, {mesh}")
 
     output_dir = run_dir(args)
     output_dir.mkdir(parents=True, exist_ok=True)
-    args.save(output_dir / "args.json")
+    if mesh.is_main():
+        args.save(output_dir / "args.json")
 
     print("Loading data...")
     splits = ["train", "dev"] if "train" in args.mode else []
@@ -430,11 +512,14 @@ def main_auto(argv=None, device=None) -> None:
     print(f"# dev examples: {len(dev_data) if dev_data else 0}")
     print(f"# test examples: {len(test_data) if test_data else 0}")
     check_fno_kernel_shapes(args, ref.field_shape, device)
+    build_kernels_once(args, device, mesh)
     task = make_auto_task(args, ref.n_case_params, ref.field_shape, device)
+    use_mesh(task, mesh)
     model = task.model
 
     if "train" in args.mode:
-        args.save(output_dir / "train_args.json")
+        if mesh.is_main():
+            args.save(output_dir / "train_args.json")
         before = launch_counts()
         trainer_auto.train(
             task, train_data=train_data, dev_data=dev_data, output_dir=output_dir,
@@ -450,14 +535,16 @@ def main_auto(argv=None, device=None) -> None:
         print_launches("train", before)
         if args.measure_time:
             # A micro-benchmark: print ms/step and stop (src/train.py:94-100).
-            return
+            return task
     if "test" in args.mode:
-        args.save(output_dir / "test_args.json")
+        if mesh.is_main():
+            args.save(output_dir / "test_args.json")
         model.load_state_dict(load_best_params(output_dir))
         before = launch_counts()
         trainer_auto.test(task, test_data, output_dir / "test", device=device,
                           batch_size=1, plot_interval=10)
         print_launches("test", before)
+    return task
 
 
 def main_train(argv=None, device=None) -> None:
@@ -472,7 +559,7 @@ def main_train(argv=None, device=None) -> None:
     in the JAX package."""
     args = parse_args(argv)
     check_training_flags(args, "nonauto")
-    device = require_cuda() if device is None else torch.device(device)
+    device = entry_device(device)
     set_f32_numerics()
     print("#" * 80)
     print(args)
@@ -531,7 +618,7 @@ def main_gencast(argv=None, device=None) -> None:
     raises."""
     args = dataclasses.replace(parse_args(argv), model="gencast")
     check_training_flags(args, "gencast")
-    device = require_cuda() if device is None else torch.device(device)
+    device = entry_device(device)
     set_f32_numerics()
     print(args)
     print(f"[gencast] device: {device}")
@@ -593,7 +680,7 @@ def main_vae(argv=None, device=None):
     raises. Returns the best weights."""
     args = parse_args(argv)
     check_vae_flags(args)
-    device = require_cuda() if device is None else torch.device(device)
+    device = entry_device(device)
     set_f32_numerics()
     print(args)
     print(f"[vae] device: {device}")
@@ -634,7 +721,7 @@ def main_uncond(argv=None, device=None):
     raises. Returns what ``train_uncond_ddpm`` returns."""
     args = parse_args(argv)
     check_uncond_flags(args)
-    device = require_cuda() if device is None else torch.device(device)
+    device = entry_device(device)
     set_f32_numerics()
     print(args)
     print(f"[uncond] device: {device}")

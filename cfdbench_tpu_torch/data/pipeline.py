@@ -3,8 +3,11 @@
 Datasets are packed host numpy arrays; each epoch is an index
 permutation sliced into batches of one shape: the last, partial batch is
 padded with zeros and carries 0/1 sample weights, so the metrics stay
-exact (``metrics.py``). The shuffle follows the JAX package's bit for
-bit: the same ``numpy`` generator gives the same batches.
+exact (``metrics.py``); under data parallelism every batch is padded up
+to a multiple of the rank count (``pad_multiple``), and each rank takes
+its block of it (``parallel/mesh.py``). The shuffle follows the JAX
+package's bit for bit: the same ``numpy`` generator gives the same
+batches.
 :func:`to_device` moves a batch to the device through pinned memory
 without making the host wait: the counterpart of the JAX package's
 ``device_prefetch``, whose queue of ``device_put``s a non-blocking copy
@@ -32,9 +35,11 @@ def batches(
     batch_size: int,
     shuffle: bool,
     rng: Optional[np.random.Generator] = None,
+    pad_multiple: int = 1,
 ) -> Iterator[Dict[str, np.ndarray]]:
     """Yield dicts of batched arrays plus a (batch,) ``weights`` array of
-    0/1."""
+    0/1. ``pad_multiple`` rounds the padded batch up to a multiple of it,
+    the data-parallel rank count."""
     n = next(iter(arrays.values())).shape[0]
     for a in arrays.values():
         if a.shape[0] != n:
@@ -42,10 +47,11 @@ def batches(
     idx = np.arange(n)
     if shuffle:
         (rng or np.random.default_rng()).shuffle(idx)
+    target = -(-batch_size // pad_multiple) * pad_multiple
     for start in range(0, n, batch_size):
         take = idx[start: start + batch_size]
-        batch = {k: _pad_to(a[take], batch_size) for k, a in arrays.items()}
-        w = np.zeros((batch_size,), dtype=np.float32)
+        batch = {k: _pad_to(a[take], target) for k, a in arrays.items()}
+        w = np.zeros((target,), dtype=np.float32)
         w[: take.size] = 1.0
         batch["weights"] = w
         yield batch

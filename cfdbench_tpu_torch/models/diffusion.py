@@ -63,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..metrics import LossFn
 from ..ops.diffusion import ddpm_sample, make_ddpm_scheduler
+from ..parallel.mesh import SINGLE
 from ..utils.rng import (
     EVAL_KEY,
     Key,
@@ -99,6 +100,9 @@ class _DiffusionTask:
     # Evaluation generates frames and scores them (masked frame mse/nmse,
     # the reference's evaluate_ldm), not the noise prediction.
     generative = True
+    # The data axis: every draw is made over the global batch and sliced
+    # to this rank's block (trainer_auto.use_mesh).
+    mesh = SINGLE
 
     def __init__(self, model: nn.Module, loss_fn: Optional[LossFn], out_chan: int,
                  timesteps: int):
@@ -127,7 +131,10 @@ class _DiffusionTask:
         unet = self.model
         if key is None:
             return unet(x, t, case_params)
-        masks = (dropout_keep_masks(key, unet.dropout_shapes(x.shape), unet.dropout, x.device)
+        mesh = self.mesh
+        masks = ([mesh.block(m) for m in dropout_keep_masks(
+                     key, unet.dropout_shapes(mesh.global_shape(x.shape)), unet.dropout,
+                     x.device)]
                  if unet.dropout > 0 else [])
         dtype = self.train_dtype(key)
         x, case_params = to_dtype(x, dtype), to_dtype(case_params, dtype)
@@ -139,8 +146,9 @@ class _DiffusionTask:
     def _noise_scores(self, x0, batch, key: Optional[Key], network_input=lambda noisy: noisy):
         """``(loss, scores)`` of the network's noise prediction on ``x0``
         noised at random timesteps."""
-        noise, t = train_noise_and_t(EVAL_KEY if key is None else key, x0.shape,
-                                     self.scheduler.num_train_timesteps, x0.device)
+        noise, t = map(self.mesh.block, train_noise_and_t(
+            EVAL_KEY if key is None else key, self.mesh.global_shape(x0.shape),
+            self.scheduler.num_train_timesteps, x0.device))
         noisy = self.scheduler.add_noise(x0, noise, t)
         eps = at_least_f32(self._eps(network_input(noisy), t, batch["case_params"], key))
         scores = self.loss_fn(eps, noise, sample_weights=batch.get("weights"))
@@ -149,7 +157,7 @@ class _DiffusionTask:
     def _sample(self, denoise, like: torch.Tensor, key: Key) -> torch.Tensor:
         B, H, W = like.shape[:3]
         return ddpm_sample(self.scheduler, denoise, (B, H, W, self.out_chan), key,
-                           self.num_inference_steps, like.device)
+                           self.num_inference_steps, like.device, self.mesh)
 
 
 class PixelDiffusionCfdModel(_DiffusionTask):
@@ -312,9 +320,11 @@ class _LatentTask(_DiffusionTask):
         noise_key, posterior_key = latent_keys(EVAL_KEY if key is None else key)
         with torch.no_grad():
             label = pad_field(batch["labels"][..., :self.out_chan])
-            latents = self.vae.encode(label).sample(posterior_key) * self.scaling_factor
-        noise, t = train_noise_and_t(noise_key, latents.shape,
-                                     self.scheduler.num_train_timesteps, latents.device)
+            latents = (self.vae.encode(label).sample(posterior_key, self.mesh)
+                       * self.scaling_factor)
+        noise, t = map(self.mesh.block, train_noise_and_t(
+            noise_key, self.mesh.global_shape(latents.shape),
+            self.scheduler.num_train_timesteps, latents.device))
         noisy = self.scheduler.add_noise(latents, noise, t)
         cp = batch["case_params"]
         eps = at_least_f32(self.denoise(noisy, t, cp, self.condition(batch["inputs"], cp),
@@ -331,7 +341,8 @@ class _LatentTask(_DiffusionTask):
             lat_shape = self.vae.latent_shape(pad_field(inputs[..., :self.out_chan]).shape)
             latents = ddpm_sample(self.scheduler,
                                   lambda x, t: self.denoise(x, t, case_params, cond),
-                                  lat_shape, key, self.num_inference_steps, inputs.device)
+                                  lat_shape, key, self.num_inference_steps, inputs.device,
+                                  self.mesh)
             frame = self.vae.decode(latents / self.scaling_factor)[:, :H, :W]
         return frame if mask is None else frame * mask
 

@@ -27,20 +27,25 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import SINGLE, DataMesh
 from .common import Conv, broadcast_params_to_channels, ensure_mask
 
 DROPOUT = 0.2
 
 
-def dropout(x, rate: float, generator: torch.Generator):
+def dropout(x, rate: float, generator: torch.Generator, mesh: DataMesh = SINGLE):
     """Zero each element with probability ``rate`` and scale the rest by
     1 / (1 - rate), with the keep mask drawn from ``generator`` (flax's
-    ``nn.Dropout``)."""
-    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    ``nn.Dropout``): over the global batch, of which ``x`` is this rank's
+    block, and sliced."""
+    keep = torch.empty(mesh.global_shape(x.shape), dtype=x.dtype, device=x.device)
+    keep = mesh.block(keep.bernoulli_(1.0 - rate, generator=generator))
     return torch.where(keep.bool(), x / (1.0 - rate), 0.0)
 
 
 class ResidualBlock(nn.Module):
+    mesh = SINGLE  # the data axis its dropout draws over (trainer_auto.use_mesh)
+
     def __init__(self, in_chan: int, out_chan: int, hidden_chan: int = 64,
                  kernel_size: int = 7, padding: int = 3, use_1x1conv: bool = False, *,
                  generator: torch.Generator):
@@ -58,7 +63,7 @@ class ResidualBlock(nn.Module):
             if generator is None:
                 raise ValueError("ResidualBlock draws dropout masks in training: "
                                  "pass a torch.Generator")
-            x = dropout(x, DROPOUT, generator)
+            x = dropout(x, DROPOUT, generator, self.mesh)
         return self.conv2(F.gelu(x)) + residual
 
 

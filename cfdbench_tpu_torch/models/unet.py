@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import common_dtype, promote
+from ..parallel.mesh import SINGLE
 from .common import (
     Conv,
     Dense,
@@ -44,14 +45,26 @@ class BatchNorm(nn.BatchNorm2d):
     x (mixed precision) updates the float32 running statistics with
     float32 batch statistics. In evaluation it computes in the common
     dtype of x, the statistics and the weights: bfloat16 throughout in the
-    bfloat16 rollout, which casts the statistics too."""
+    bfloat16 rollout, which casts the statistics too.
+
+    Under data parallelism (``mesh``, set by ``trainer_auto.use_mesh``) x
+    is this rank's block of the global batch, and training normalises with
+    the global batch's statistics, weight-0 padding rows included, as the
+    JAX package does over its sharded batch: Σx and Σx² are summed over
+    the ranks, differentiably (``nn.SyncBatchNorm``'s job, in
+    flax's numerics)."""
+
+    mesh = SINGLE
 
     def forward(self, x):
         out = common_dtype(x, self.weight, self.bias)
         if self.training:
             x = x.to(torch.promote_types(out, torch.float32))
-            mean = x.mean(dim=(0, 1, 2))
-            var = torch.clamp((x * x).mean(dim=(0, 1, 2)) - mean * mean, min=0)
+            C = x.shape[-1]
+            sums = self.mesh.sum(torch.cat([x.sum(dim=(0, 1, 2)), (x * x).sum(dim=(0, 1, 2))]))
+            count = x.numel() // C * self.mesh.size
+            mean = sums[:C] / count
+            var = torch.clamp(sums[C:] / count - mean * mean, min=0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_((1 - m) * self.running_mean + m * mean)

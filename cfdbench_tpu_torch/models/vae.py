@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import SINGLE, DataMesh
 from ..utils.rng import Key, generator as key_generator
 from .common import Conv, Dense, GroupNorm, num_groups_for
 
@@ -50,8 +51,11 @@ class DiagonalGaussian(NamedTuple):
     def std(self):
         return torch.exp(0.5 * self.logvar)
 
-    def sample(self, key: Key) -> torch.Tensor:
-        return self.mean + self.std * posterior_noise(key, self.mean.shape, self.mean.device)
+    def sample(self, key: Key, mesh: DataMesh = SINGLE) -> torch.Tensor:
+        """A posterior sample; its noise is drawn over the global batch, of
+        which this is ``mesh``'s block, and sliced."""
+        noise = posterior_noise(key, mesh.global_shape(self.mean.shape), self.mean.device)
+        return self.mean + self.std * mesh.block(noise)
 
     def mode(self) -> torch.Tensor:
         return self.mean

@@ -27,6 +27,7 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
+from ..parallel.mesh import SINGLE, DataMesh
 from ..utils.rng import Key, generator
 
 # diffusers' default ``clip_sample_range``: the predicted x0 is clipped to it.
@@ -110,15 +111,23 @@ def ddpm_noise(key: Key, index: int, shape, device) -> torch.Tensor:
 
 
 def ddpm_sample(scheduler: DDPMScheduler, denoise_fn: Callable, shape, key: Key,
-                num_inference_steps: int = 50, device=None) -> torch.Tensor:
+                num_inference_steps: int = 50, device=None,
+                mesh: DataMesh = SINGLE) -> torch.Tensor:
     """The full DDPM sampling loop from x_T: ``num_inference_steps`` calls
     of ``denoise_fn(x_t, t_batch) -> eps``. Every step draws its noise,
-    the last (t = 0) too, as the JAX package does, and adds it for t > 0."""
+    the last (t = 0) too, as the JAX package does, and adds it for t > 0.
+    ``shape`` is ``mesh``'s block of the batch: each draw is made over the
+    global batch and sliced."""
     ts = scheduler.spaced_timesteps(num_inference_steps)
     step_ratio = scheduler.num_train_timesteps // num_inference_steps
+    global_shape = mesh.global_shape(shape)
+
+    def noise(index):
+        return mesh.block(ddpm_noise(key, index, global_shape, device))
+
     with torch.inference_mode():
-        x = ddpm_noise(key, 0, shape, device)
+        x = noise(0)
         for i, t in enumerate(ts.tolist()):
             eps = denoise_fn(x, torch.full((shape[0],), t, dtype=torch.int64, device=device))
-            x = scheduler.step(eps, t, x, t - step_ratio, ddpm_noise(key, i + 1, shape, device))
+            x = scheduler.step(eps, t, x, t - step_ratio, noise(i + 1))
     return x

@@ -1,0 +1,220 @@
+"""The data axis of a run (counterpart of ``cfdbench_tpu/parallel/mesh.py``).
+
+The JAX package builds a ``(data, model)`` mesh of devices, keeps the
+parameters replicated, shards each global batch's leading axis in
+contiguous blocks over ``data`` (``P("data")``) and lets XLA insert the
+reductions. The port runs data parallelism (dp) as one process a rank,
+launched by ``torchrun``, and makes those reductions explicit:
+
+- every rank builds the same global batch, padded to a multiple of the
+  rank count with weight-0 rows, and takes its block of rows
+  (:meth:`DataMesh.block`), rank r the rows ``[r B/N, (r+1) B/N)``;
+- a random draw is made over the global shape from the same key on
+  every rank and then sliced (:meth:`DataMesh.global_shape`, ``block``),
+  so a rank draws what a single device draws for its rows;
+- the loss and every score are over the global batch: each rank sums
+  its partial sums over the group (:meth:`DataMesh.sum`, differentiable)
+  and so computes the same loss as every other rank;
+- after the backward the parameter gradients are averaged over the ranks
+  in one flat all-reduce (:meth:`DataMesh.average_gradients`). The
+  backward of :meth:`DataMesh.sum` sums the upstream gradients of every
+  rank, and every rank holds the same loss, so each rank's gradient is N
+  times its share: their average is the single-device gradient.
+
+Only the data axis is ported. ``--mesh_shape NxM`` with M > 1 (tensor
+parallelism) is ROADMAP.md A15c; the JAX package's ``sharding_rules.py``
+and ``pipeline.py`` have no counterpart here yet (A15c, A15e).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+from typing import Iterator, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+
+def parse_spec(spec: str) -> Tuple[Optional[int], int]:
+    """``(data, model)`` sizes of a ``--mesh_shape``: ``auto`` (data None:
+    every rank of the run), ``N`` or ``NxM``."""
+    try:
+        if spec == "auto":
+            return None, 1
+        if "x" in spec:
+            d, m = (int(s) for s in spec.split("x"))
+        else:
+            d, m = int(spec), 1
+    except ValueError:
+        raise ValueError(f"--mesh_shape {spec!r}: give auto, N or NxM") from None
+    if d < 1 or m < 1:
+        raise ValueError(f"--mesh_shape {spec!r}: sizes must be at least 1")
+    return d, m
+
+
+def _initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def launched_world_size() -> int:
+    """The ranks of this run: the initialised process group's size, else
+    ``WORLD_SIZE`` as ``torchrun`` sets it, else 1."""
+    if _initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def data_size(spec: str) -> int:
+    """The data-axis size a ``--mesh_shape`` asks of this run, without
+    opening a group: ``auto`` is every rank of it."""
+    d, _ = parse_spec(spec)
+    return launched_world_size() if d is None else d
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """All-reduce (SUM) whose backward all-reduces the upstream gradients:
+    the output of every rank depends on the input of every rank."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class DataMesh:
+    """The data axis: ``size`` ranks, this process rank ``rank``, over
+    ``group``. With one rank (no group, or a launcher's group of one)
+    every method is the identity and no collective runs: a run under
+    ``torchrun --nproc_per_node 1`` steps as one process does. With more,
+    every rank must make the same calls in the same order."""
+
+    def __init__(self, size: int = 1, rank: int = 0, group=None):
+        self.size, self.rank, self.group = size, rank, group
+
+    @property
+    def distributed(self) -> bool:
+        """Whether the methods run collectives: more than one rank."""
+        return self.size > 1
+
+    def __repr__(self) -> str:
+        backend = dist.get_backend(self.group) if self.group is not None else None
+        return f"DataMesh(size={self.size}, rank={self.rank}, backend={backend})"
+
+    def is_main(self) -> bool:
+        """Whether this rank writes the run's files: rank 0."""
+        return self.rank == 0
+
+    def barrier(self) -> None:
+        if self.distributed:
+            dist.barrier(group=self.group)
+
+    def global_shape(self, shape) -> Tuple[int, ...]:
+        """The global batch's shape of a block of ``shape``."""
+        shape = tuple(shape)
+        return (shape[0] * self.size,) + shape[1:]
+
+    def block(self, x):
+        """This rank's rows of a global batch: a tensor, a numpy array, or
+        a dict of them. The row count must divide by the size."""
+        if isinstance(x, dict):
+            return {k: self.block(v) for k, v in x.items()}
+        if not self.distributed:
+            return x
+        n = x.shape[0]
+        if n % self.size:
+            raise ValueError(f"{n} rows do not split over {self.size} ranks")
+        b = n // self.size
+        return x[self.rank * b: (self.rank + 1) * b]
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the ranks, differentiably (see the module's
+        docstring for the gradient)."""
+        if not self.distributed:
+            return x
+        return _SumOverRanks.apply(x, self.group)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``'s elementwise maximum over the ranks, without a gradient."""
+        if not self.distributed:
+            return x
+        y = x.detach().clone()
+        dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group)
+        return y
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The global batch of every rank's block ``x``, in rank order, on
+        every rank, without a gradient: each block placed in zeros and the
+        whole summed, an all-reduce, which every backend takes on the card
+        (gloo has no all-gather of CUDA tensors)."""
+        if not self.distributed:
+            return x
+        out = x.new_zeros(self.global_shape(x.shape))
+        self.block(out).copy_(x)
+        dist.all_reduce(out, group=self.group)
+        return out
+
+    def average_gradients(self, params) -> None:
+        """Replace each parameter's gradient by its mean over the ranks, in
+        one all-reduce of the gradients laid end to end. A parameter
+        without a gradient has none on any rank (they run one program)."""
+        if not self.distributed:
+            return
+        grads = [p.grad for p in params if p.grad is not None]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.group)
+        flat.div_(self.size)
+        for g, piece in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(piece.view_as(g))
+
+
+SINGLE = DataMesh()
+
+
+def make_mesh(spec: str = "auto", group=None) -> DataMesh:
+    """The data axis of ``--mesh_shape spec`` over ``group`` (None: one
+    process). ``auto`` takes every rank; ``N`` and ``Nx1`` must equal the
+    group's size. ``NxM`` with M > 1 raises (ROADMAP.md A15c)."""
+    d, m = parse_spec(spec)
+    if m > 1:
+        raise NotImplementedError(
+            f"--mesh_shape {spec}: tensor parallelism over a model axis is "
+            "ROADMAP.md A15c; the port shards the data axis only")
+    world = dist.get_world_size(group) if group is not None else 1
+    if d is not None and d != world:
+        raise ValueError(
+            f"--mesh_shape {spec} asks for {d} data-parallel ranks, but this run has "
+            f"{world}: launch it as `torchrun --nproc_per_node {d} ...` (or pass "
+            "--mesh_shape auto)")
+    rank = dist.get_rank(group) if group is not None else 0
+    return DataMesh(world, rank, group)
+
+
+@contextlib.contextmanager
+def open_mesh(spec: str, device) -> Iterator[DataMesh]:
+    """The data axis an entry point runs on. It uses the process group the
+    caller initialised, if there is one; else, under ``torchrun`` (which
+    sets ``WORLD_SIZE``), it initialises one from the launcher's
+    environment, NCCL for a CUDA ``device`` and gloo for the CPU, and
+    destroys it on exit; else one process runs alone. ``device`` must be
+    the rank's own, set current before (``utils/device.py``)."""
+    created = False
+    if not _initialized() and "WORLD_SIZE" in os.environ:
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+        dist.init_process_group(backend, init_method="env://")
+        created = True
+    try:
+        yield make_mesh(spec, dist.group.WORLD if _initialized() else None)
+    finally:
+        if created:
+            dist.destroy_process_group()

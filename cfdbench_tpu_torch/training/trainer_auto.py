@@ -38,6 +38,13 @@
   ``train_losses.json``/``.png``. Per-step losses stay on the device,
   with one transfer per epoch.
 - :func:`test` writes ``test/preds.npy`` and ``test/scores.json``.
+- Data parallelism (:func:`use_mesh`, ``parallel/mesh.py``): every rank
+  builds the same global batches, padded to a multiple of the rank count
+  with weight-0 rows, and runs its block of rows; the loss and scores are
+  the global batch's (``metrics.py``), the gradients are averaged over the
+  ranks after the backward, the predictions gathered. Rank 0 writes every
+  file and the others wait for it at a barrier; on ``--resume`` every
+  rank loads the snapshot.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from ..data.datasets import AutoDataset
 from ..data.pipeline import batches, num_batches, to_device
 from ..metrics import LossFn
 from ..models.common import cast_call
+from ..parallel.mesh import SINGLE, DataMesh
 from ..utils.artifacts import plot_example, plot_loss, plot_predictions
 from ..utils.rng import step_generator
 from . import checkpoints
@@ -66,6 +74,7 @@ class AutoTask:
     contract."""
 
     generative = False
+    mesh = SINGLE  # the data axis (use_mesh)
 
     def __init__(self, model: nn.Module, loss_fn: Optional[LossFn] = None,
                  compute_dtype: Optional[torch.dtype] = None):
@@ -130,13 +139,29 @@ class AutoTask:
         return None
 
 
+def use_mesh(task, mesh: DataMesh) -> None:
+    """Run ``task`` (an :class:`AutoTask` or a diffusion task) on ``mesh``'s
+    data axis: its scores reduce over the ranks, its draws are made over
+    the global batch, and so are those of its modules that hold a
+    ``mesh`` (BatchNorm's statistics, the ResNet's dropout)."""
+    task.mesh = mesh
+    if task.loss_fn is not None:
+        task.loss_fn.mesh = mesh
+    for module in task.model.modules():
+        if hasattr(module, "mesh"):
+            module.mesh = mesh
+
+
 def train_step(task: AutoTask, optimizer: torch.optim.Optimizer, scheduler,
                batch, draws=None) -> Dict[str, torch.Tensor]:
     """One update; returns the batch's scores, detached, on the device.
-    ``draws`` is the step's ``task.step_draws``."""
+    ``draws`` is the step's ``task.step_draws``. Under data parallelism
+    ``batch`` is this rank's block and the gradients are averaged over the
+    ranks before the update."""
     optimizer.zero_grad(set_to_none=True)
     loss, scores = task.loss_scores(batch, draws)
     loss.backward()
+    task.mesh.average_gradients(task.model.parameters())
     optimizer.step()
     scheduler.step()
     return {k: v.detach() for k, v in scores.items()}
@@ -187,29 +212,32 @@ def evaluate(
     max_eval_batches: Optional[int] = None,
 ) -> Dict[str, Any]:
     """Mirror of ``src/train_auto.py:61-148``: per-batch scores, their
-    means, the predictions if asked for, and the plots; at most
+    means, the predictions if asked for, and the plots (rank 0's); at most
     ``max_eval_batches`` batches when given."""
+    mesh = task.mesh
     keep_preds = collect_preds or bool(plot_interval)
     names = task.loss_fn.get_score_names()
     score_rows = []  # (2, n_names) per batch, on the device: [pred, input baseline]
     all_preds, n_valids = [], []
     plot_panels = {}  # step -> (input u, label u) of the batch's first sample
     task.model.eval()
-    for step, host in enumerate(batches(dataset_arrays(data), batch_size, shuffle=False)):
+    for step, host in enumerate(batches(dataset_arrays(data), batch_size, shuffle=False,
+                                        pad_multiple=mesh.size)):
         if max_eval_batches is not None and step >= max_eval_batches:
             break
         n_valids.append(int(host["weights"].sum()))
         if plot_interval and step % plot_interval == 0:
             plot_panels[step] = (host["inputs"][0, ..., 0].copy(),
                                  host["labels"][0, ..., 0].copy())
+        batch = to_device(mesh.block(host), device)
         if task.generative:
-            s, isc, preds = gen_eval_step(task, to_device(host, device))
+            s, isc, preds = gen_eval_step(task, batch)
         else:
-            s, isc, preds = eval_step(task, to_device(host, device), with_preds=keep_preds)
+            s, isc, preds = eval_step(task, batch, with_preds=keep_preds)
         score_rows.append(torch.stack([torch.stack([s[k] for k in names]),
                                        torch.stack([isc[k] for k in names])]))
         if keep_preds:
-            all_preds.append(preds)
+            all_preds.append(mesh.gather(preds))
     # One device-to-host transfer for every batch's scores.
     mat = (torch.stack(score_rows).cpu().numpy() if score_rows
            else np.zeros((0, 2, len(names))))
@@ -219,7 +247,7 @@ def evaluate(
     if all_preds:
         stacked = torch.stack(all_preds).cpu().numpy()
         preds_host = np.concatenate([p[:nv] for p, nv in zip(stacked, n_valids)])
-    if plot_interval and preds_host is not None and not task.pointwise:
+    if plot_interval and preds_host is not None and not task.pointwise and mesh.is_main():
         offsets = np.cumsum([0] + n_valids)
         for step, (inp_u, label_u) in plot_panels.items():
             plot_predictions(inp=inp_u, label=label_u, pred=preds_host[offsets[step], ..., 0],
@@ -232,7 +260,7 @@ def evaluate(
     result: Dict[str, Any] = dict(scores=dict(mean=avg_scores, all=scores))
     if collect_preds:
         result["preds"] = preds_host
-    if "nmse" in scores:
+    if "nmse" in scores and mesh.is_main():
         plot_loss(scores["nmse"], Path(output_dir) / "loss.png")
     return result
 
@@ -274,10 +302,12 @@ def train(
     ``resume=True`` continues from ``output_dir/training_state`` (the
     weights, the optimizer's moments and step, the schedule's position)
     and ``training_meta.json`` when both are there; every eval epoch
-    writes them. ``eval_max_batches`` caps the dev evaluation."""
+    writes them. ``eval_max_batches`` caps the dev evaluation. Under data
+    parallelism (``task.mesh``) ``batch_size`` and ``eval_batch_size`` are
+    global."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    model = task.model
+    model, mesh = task.model, task.mesh
     steps_per_epoch = num_batches(len(train_data), batch_size)
     optimizer, scheduler = make_adam(model.parameters(), lr, gamma=lr_gamma,
                                      lr_step_size=lr_step_size,
@@ -316,9 +346,11 @@ def train(
         # the host wait for every step.
         ep_losses_dev = []
         rng = np.random.default_rng(seed * 1_000_003 + ep)
-        for step, host in enumerate(batches(arrays, batch_size, shuffle=True, rng=rng)):
+        for step, host in enumerate(batches(arrays, batch_size, shuffle=True, rng=rng,
+                                            pad_multiple=mesh.size)):
             draws = task.step_draws(seed, global_step, device)
-            scores = train_step(task, optimizer, scheduler, to_device(host, device), draws)
+            scores = train_step(task, optimizer, scheduler, to_device(mesh.block(host), device),
+                                draws)
             ep_losses_dev.append(scores[objective])
             global_step += 1
             if global_step % log_interval == 0:
@@ -344,33 +376,40 @@ def train(
                                   batch_size=eval_batch_size, collect_preds=False,
                                   max_eval_batches=eval_max_batches)["scores"]
             if plot_examples:
-                # The train-time example.png (src/train_auto.py:234-250).
-                pb = next(batches(dataset_arrays(dev_data), eval_batch_size, shuffle=False))
-                b = to_device(pb, device)
+                # The train-time example.png (src/train_auto.py:234-250):
+                # the first dev sample, rank 0's first row.
+                pb = next(batches(dataset_arrays(dev_data), eval_batch_size, shuffle=False,
+                                  pad_multiple=mesh.size))
+                b = to_device(mesh.block(pb), device)
                 with torch.no_grad():
                     pred = task.predict_frame(b["inputs"], b["case_params"], b["mask"])
-                plot_example(inp=pb["inputs"][0, ..., 0], label=pb["labels"][0, ..., 0],
-                             pred=pred[0, ..., 0].cpu().numpy(),
-                             out_path=output_dir / "example.png")
-            dump_json(dev_scores, ckpt_dir / "dev_scores.json")
-            dump_json(ep_losses, ckpt_dir / "train_loss.json")
-            dev_key = "nmse" if "nmse" in dev_scores["all"] else objective
-            checkpoints.save_checkpoint(
-                model.state_dict(), ckpt_dir, ep=ep, train_loss=float(np.mean(ep_losses)),
-                dev_loss=float(np.mean(dev_scores["all"][dev_key])),
-                time=time.time() - ep_start)
-            checkpoints.save_training_state(output_dir, model, optimizer, scheduler,
-                                            global_step)
-            # Losses before meta: training_meta.json commits the
-            # snapshot, so a kill between the two writes leaves the
-            # history at or ahead of the commit, never behind it (resume
-            # truncates any overshoot).
-            dump_json(train_losses, output_dir / "train_losses.json")
-            dump_json(dict(epoch=ep, global_step=global_step),
-                      output_dir / "training_meta.json")
+                if mesh.is_main():
+                    plot_example(inp=pb["inputs"][0, ..., 0], label=pb["labels"][0, ..., 0],
+                                 pred=pred[0, ..., 0].cpu().numpy(),
+                                 out_path=output_dir / "example.png")
+            if mesh.is_main():
+                dump_json(dev_scores, ckpt_dir / "dev_scores.json")
+                dump_json(ep_losses, ckpt_dir / "train_loss.json")
+                dev_key = "nmse" if "nmse" in dev_scores["all"] else objective
+                checkpoints.save_checkpoint(
+                    model.state_dict(), ckpt_dir, ep=ep, train_loss=float(np.mean(ep_losses)),
+                    dev_loss=float(np.mean(dev_scores["all"][dev_key])),
+                    time=time.time() - ep_start)
+                checkpoints.save_training_state(output_dir, model, optimizer, scheduler,
+                                                global_step)
+                # Losses before meta: training_meta.json commits the
+                # snapshot, so a kill between the two writes leaves the
+                # history at or ahead of the commit, never behind it
+                # (resume truncates any overshoot).
+                dump_json(train_losses, output_dir / "train_losses.json")
+                dump_json(dict(epoch=ep, global_step=global_step),
+                          output_dir / "training_meta.json")
+            mesh.barrier()
     print("====== Training done ======")
-    dump_json(train_losses, output_dir / "train_losses.json")
-    plot_loss(train_losses, output_dir / "train_losses.png")
+    if mesh.is_main():
+        dump_json(train_losses, output_dir / "train_losses.json")
+        plot_loss(train_losses, output_dir / "train_losses.png")
+    mesh.barrier()
     return train_losses
 
 
@@ -385,11 +424,14 @@ def test(
 ) -> None:
     """Single-step test-set eval; writes ``preds.npy`` and
     ``scores.json`` (the reference writes ``preds.pt``,
-    ``src/train_auto.py:151-178``)."""
+    ``src/train_auto.py:151-178``); under data parallelism rank 0 writes
+    them and the others wait."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     result = evaluate(task, data, output_dir, device=device, batch_size=batch_size,
                       plot_interval=plot_interval)
-    if result.get("preds") is not None:
-        np.save(output_dir / "preds.npy", result["preds"])
-    dump_json(result["scores"], output_dir / "scores.json")
+    if task.mesh.is_main():
+        if result.get("preds") is not None:
+            np.save(output_dir / "preds.npy", result["preds"])
+        dump_json(result["scores"], output_dir / "scores.json")
+    task.mesh.barrier()

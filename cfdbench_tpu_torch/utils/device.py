@@ -9,17 +9,44 @@ of its result (``--measure_time``'s per-step losses).
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
 def require_cuda() -> torch.device:
-    """The current CUDA device; raises when there is none."""
+    """This process's CUDA device, made current: ``cuda:LOCAL_RANK`` under a
+    launcher that sets ``LOCAL_RANK`` (``torchrun``: one card a rank),
+    else the current device. Raises when there is no card, and when
+    ``LOCAL_RANK`` names a card the machine does not have: two ranks never
+    share one silently."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "a CUDA device is required, but torch.cuda.is_available() "
             "is False"
         )
-    return torch.device("cuda", torch.cuda.current_device())
+    local = os.environ.get("LOCAL_RANK")
+    if local is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    index, count = int(local), torch.cuda.device_count()
+    if index >= count:
+        raise RuntimeError(
+            f"LOCAL_RANK {index} but this machine has {count} CUDA device(s): launch at "
+            f"most {count} ranks a node (torchrun --nproc_per_node {count})")
+    torch.cuda.set_device(index)
+    return torch.device("cuda", index)
+
+
+def entry_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card (:func:`require_cuda`)
+    when ``device`` is None, else ``device``; a CUDA one is made current
+    before anything is allocated on it."""
+    if device is None:
+        return require_cuda()
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+    return device
 
 
 def set_f32_numerics() -> None:

@@ -141,12 +141,41 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    b128 and of pixel diffusion's PUNetG at b32; Adam's and Adafactor's
    update of the FNO at width 128.
 
+13. Data parallelism (``parallel/mesh.py``). (a) Phase 6b's
+   ``main_auto`` and its ``main_multistep`` again through the real launcher,
+   ``python -m torch.distributed.run --standalone --nproc_per_node 1
+   train_auto_torch.py ... --mesh_shape 1`` (then
+   ``test_multistep_torch.py``), in subprocesses: an NCCL group of one rank,
+   which runs no collective, whose checkpoints, test scores and per-step
+   metrics must equal phase 6b's within DP_TORCHRUN_RTOL, and whose
+   launches (each rank prints its own) phase 6b's and phase 3's. (b) Two
+   ranks spawned on the one card in a gloo group that they initialise (a
+   file rendezvous), against one process on the card: the flagship FNO's
+   ``main_auto`` at global batch 128 (64 a rank; a full and a padded batch
+   an epoch), its test and its ``main_multistep`` on the one test case
+   (padded to two), losses, scores, per-step metrics and parameters within
+   DP_RTOL; the U-Net's ``main_auto`` for an epoch at DP_UNET_BATCH (its
+   last batch 8 rows and 24 of padding, over which the global BatchNorm
+   normalises), held against a control: one process with the rows of every
+   batch permuted, which parts from one process by rounding alone; pixel
+   diffusion's for two steps (the draws over the global batch), its losses
+   within DP_RTOL; one float64 train step of the U-Net and of pixel
+   diffusion from the same weights on a padded global batch of
+   DP_UNET_BATCH, the scores, the gradients, the parameters and the
+   running statistics within DP_RTOL. Parameters identical on both ranks, each
+   rank's launches those of the one-process run. Two ranks on one card
+   measure correctness, not scaling. (c) The flagship's b128 train step by
+   CUDA events in one process, in an NCCL group of one rank, and in that
+   group with the collectives of several ranks forced.
+
 ``launches`` in the kernels' record is phase 3's count (main_multistep),
 ``launches_by_path`` each main path's own: main_multistep's and
 main_auto's, one served predict call's and one served rollout's
 (phase 11b), main_auto's with ``--use_mixed_precision`` and
-main_multistep's with ``--rollout_dtype bfloat16`` (phase 12), each read
-from counters set to 0 just before the run and read just after it. The line before the last is the kernels' JSON record; the last line is
+main_multistep's with ``--rollout_dtype bfloat16`` (phase 12), and each
+rank's main_auto and main_multistep under data parallelism (phase 13:
+``dp_torchrun_*``, ``dp2_rank{r}_*``), each read from counters set to 0
+just before the run and read just after it. The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 It needs a CUDA device and fails without one.
 """
@@ -158,6 +187,7 @@ import itertools
 import json
 import math
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -254,6 +284,29 @@ MP_GRAD_RTOL = 2e-2
 MP_UNET_ALL_GRAD_RTOL = 8e-2
 # Phase 12's generative runs sample with fewer denoising steps.
 MP_INFERENCE_STEPS = "10"
+# Phase 13: data parallelism. (a) torchrun at world size 1 against the same
+# run without it (the same arithmetic: one rank runs no collective); (b) two
+# ranks on the one card against one process: the losses and per-step
+# metrics (relative), the parameters (of their largest).
+DP_TORCHRUN_RTOL = 1e-6
+DP_RANKS = 2
+DP_BATCH = 128  # the global batch of (b), and of the step timing
+# The U-Net's main_auto at global b32: 200 train pairs give six full batches
+# and a last one of 8 rows padded with 24 weight-0 rows, which the global
+# BatchNorm normalises over. The one-step checks train such a padded batch
+# (DP_STEP_VALID real rows) from the same weights.
+DP_UNET_BATCH = 32
+DP_STEP_VALID = 8
+DP_RTOL = 1e-5
+# Over several steps, the elements of rounding-level gradient that Adam
+# moves by lr either way are read by the next batches: the U-Net's losses
+# and parameters part from one process's. The same run in one process with
+# the rows of every train batch permuted (an exact no-op: the loss and the
+# BatchNorm statistics are sums over the rows) parts from it by rounding
+# alone; two ranks may part by at most DP_DRIFT_FACTOR times as much, plus
+# DP_RTOL.
+DP_DRIFT_FACTOR = 4.0
+DP_TIMING_ROUNDS = 12
 # An H100 SXM's published peaks (NVIDIA's data sheet, dense rates): device
 # memory bytes/s, TF32 FLOP/s on the tensor cores and float32 FLOP/s outside
 # them. A split-TF32 product (csrc/tf32.cuh) is three TF32 products.
@@ -607,11 +660,17 @@ def check_gradients(device):
     print(f"[grad] {len(grads_p)} gradients: worst {worst:.3e} (bound {GRAD_RTOL:.0e})")
 
 
+# Phase 6b's main_auto flags, which phase 13a runs again under torchrun.
+PHASE6_FLAGS = ("--mode", "train_test", "--num_epochs", str(TRAIN_EPOCHS), "--eval_interval",
+                "1", "--batch_size", "16", "--eval_batch_size", "16", "--log_interval", "1")
+
+
 def train_path(grid: int = GRID):
     """Phase 6b: ``main_auto --mode train_test`` at the flagship width on
     a synthetic cavity tree, 2 epochs of a few steps; then
     ``main_multistep`` rolls out the checkpoint it wrote. Returns
-    main_auto's launches."""
+    main_auto's launches and main_multistep's per-step metrics (phase 12c
+    rewrites the file with its bfloat16 rollout's)."""
     from cfdbench_tpu_torch.cli import main_auto, main_multistep, parse_args, run_dir
     from cfdbench_tpu_torch.data import get_auto_dataset
     from cfdbench_tpu_torch.data.pipeline import num_batches
@@ -622,9 +681,7 @@ def train_path(grid: int = GRID):
     data_root = WORK / "train_data"
     generate_problem(data_root, "cavity", cases_per_subset=4, num_frames=6, grid=grid, seed=SEED)
     argv = fno_argv(data_root, WORK / "train_result")
-    train_flags = ["--mode", "train_test", "--num_epochs", str(TRAIN_EPOCHS),
-                   "--eval_interval", "1", "--batch_size", "16", "--eval_batch_size", "16",
-                   "--log_interval", "1"]
+    train_flags = list(PHASE6_FLAGS)
     args = parse_args(argv + train_flags)
     train, dev, test = get_auto_dataset(data_root, args.data_name, args.delta_time,
                                         True, True, seed=args.seed)
@@ -671,7 +728,7 @@ def train_path(grid: int = GRID):
                            f"(expected {want}), metrics {metrics}")
     print(f"[train] main_multistep on the trained checkpoint: launches {rollout}, "
           f"step-20 nmse {metrics[-1]['nmse']:.6g}")
-    return counts
+    return counts, metrics
 
 
 def step_split(loss_scores, opt, sched, device):
@@ -2117,6 +2174,423 @@ def phase12_timing(device, card) -> dict:
     return result
 
 
+def launches_in(output: str, tags) -> dict:
+    """The kernel launches that the entry points printed under ``tags``
+    (``cli.print_launches``: ``[train] kernel launches: fno_block=68,
+    fno_head=17``), summed."""
+    total = {"fno_block": 0, "fno_head": 0}
+    for line in output.splitlines():
+        for tag in tags:
+            if line.startswith(f"[{tag}] kernel launches: "):
+                for item in line.split(": ", 1)[1].split(", "):
+                    name, n = item.split("=")
+                    total[name] += int(n)
+    return total
+
+
+def torchrun(script: str, argv) -> str:
+    """``script`` under ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1``; its standard output. A failure prints the end of
+    both streams and raises."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           "1", script, *argv]
+    run = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True)
+    if run.returncode:
+        print(run.stdout[-4000:], run.stderr[-4000:], sep="\n", file=sys.stderr)
+        raise RuntimeError(f"{' '.join(cmd[:7])} {script} exited {run.returncode}")
+    return run.stdout
+
+
+def state_rel(got: dict, want: dict, what: str) -> float:
+    """The largest of each float tensor's max |got - want| over its max |want|."""
+    if got.keys() != want.keys():
+        raise RuntimeError(f"{what}: keys differ")
+    worst = 0.0
+    for k, w in want.items():
+        if w.is_floating_point() and w.abs().max() > 0:
+            worst = max(worst, max_rel(got[k], w))
+    return worst
+
+
+def metrics_rel(got, want, what: str, rtol: float) -> float:
+    """The largest relative difference of two per-step metric lists (or
+    score dicts); raises above ``rtol``."""
+    pairs = [(g[k], w[k]) for g, w in zip(got, want) for k in w]
+    if len(got) != len(want) or not pairs:
+        raise RuntimeError(f"{what}: {len(got)} entries against {len(want)}")
+    worst = max(abs(g - w) / abs(w) if w else abs(g) for g, w in pairs)
+    print(f"[dp] {what}: max rel diff {worst:.3e} (bound {rtol:.0e})")
+    if not worst <= rtol:
+        raise RuntimeError(f"{what} disagree: {worst:.3e} > {rtol:.0e}")
+    return worst
+
+
+def dp_torchrun(train_counts: dict, train_metrics) -> dict:
+    """Phase 13a: phase 6b's main_auto and its main_multistep again under
+    ``torch.distributed.run --nproc_per_node 1`` with ``--mesh_shape 1``:
+    an NCCL group of one rank, the loss's reductions and the gradient
+    all-reduce run. The checkpoints, test scores and per-step metrics must
+    equal phase 6b's within DP_TORCHRUN_RTOL, the launches phase 6b's and
+    phase 3's. Returns each entry point's launches."""
+    from cfdbench_tpu_torch.cli import parse_args, run_dir
+    from cfdbench_tpu_torch.models.fno import FLAGSHIP
+
+    argv = fno_argv(WORK / "train_data", WORK / "dp_torchrun") + ["--mesh_shape", "1"]
+    t0 = time.perf_counter()
+    out = torchrun("train_auto_torch.py", argv + list(PHASE6_FLAGS))
+    if "backend=nccl" not in out:
+        raise RuntimeError("main_auto under torchrun did not run in an NCCL group")
+    counts = launches_in(out, ("train", "test"))
+    print(f"[dp] torchrun main_auto --mesh_shape 1 (NCCL, one rank): "
+          f"{time.perf_counter() - t0:.2f} s, launches {counts}")
+    if counts != train_counts:
+        raise RuntimeError(f"main_auto under torchrun launches {counts}, phase 6b {train_counts}")
+    got, want = run_dir(parse_args(argv)), WORK / "train_result" / run_dir(
+        parse_args(argv)).relative_to(WORK / "dp_torchrun")
+    for name in [f"ckpt-{ep}/model.pt" for ep in range(TRAIN_EPOCHS)]:
+        rel = state_rel(torch.load(got / name, weights_only=True),
+                        torch.load(want / name, weights_only=True), name)
+        print(f"[dp] torchrun {name} against phase 6b's: max rel diff {rel:.3e}")
+        if not rel <= DP_TORCHRUN_RTOL:
+            raise RuntimeError(f"{name} under torchrun disagrees: {rel:.3e}")
+    metrics_rel([json.loads((got / "test/scores.json").read_text())["mean"]],
+                [json.loads((want / "test/scores.json").read_text())["mean"]],
+                "torchrun test scores against phase 6b's", DP_TORCHRUN_RTOL)
+    t0 = time.perf_counter()
+    out = torchrun("test_multistep_torch.py", argv)
+    rollout = launches_in(out, ("multistep",))
+    print(f"[dp] torchrun main_multistep --mesh_shape 1: {time.perf_counter() - t0:.2f} s, "
+          f"launches {rollout}")
+    if rollout != {"fno_block": FLAGSHIP["num_layers"] * STEPS, "fno_head": STEPS}:
+        raise RuntimeError(f"main_multistep under torchrun launches {rollout}")
+    metrics_rel(json.loads((got / "multistep_metrics.json").read_text()), train_metrics,
+                "torchrun per-step metrics against phase 6b's", DP_TORCHRUN_RTOL)
+    return {"main_auto": counts, "main_multistep": rollout}
+
+
+def dp_jobs(data_root: Path, out: Path, mesh: str):
+    """Phase 13b's runs, ``(name, entry, argv)``: the flagship FNO trains at
+    DP_BATCH (a full and a padded batch an epoch), is tested and rolls its
+    one test case out (padded to DP_RANKS); the U-Net trains an epoch at
+    DP_UNET_BATCH (its last batch padded), pixel diffusion two steps at
+    DP_BATCH; then one train step each of the U-Net and of pixel diffusion
+    (entry ``step``, :func:`dp_step`)."""
+    data = ["--data_name", "cavity_prop_bc_geo", "--data_dir", str(data_root),
+            "--output_dir", str(out), "--mesh_shape", mesh, "--log_interval", "100"]
+    fno = fno_argv(data_root, out) + ["--mesh_shape", mesh]
+    fno_train = fno + ["--num_epochs", str(TRAIN_EPOCHS), "--eval_interval", "1",
+                       "--batch_size", str(DP_BATCH), "--eval_batch_size", str(DP_BATCH),
+                       "--log_interval", "100"]
+    return [
+        ("fno", "main_auto", fno_train + ["--mode", "train"]),
+        ("fno_test", "main_auto", fno_train + ["--mode", "test"]),
+        ("fno_multistep", "main_multistep", fno),
+        ("unet", "main_auto", ["--model", "unet", "--mode", "train", "--num_epochs", "1",
+                               "--eval_interval", "1", "--batch_size", str(DP_UNET_BATCH),
+                               "--eval_batch_size", str(DP_UNET_BATCH)] + data),
+        ("pixel_diffusion", "main_auto", [
+            "--model", "pixel_diffusion", "--mode", "train", "--num_epochs", "1",
+            "--eval_interval", "1", "--batch_size", str(DP_BATCH), "--max_eval_batches", "1",
+            "--ldm_num_inference_steps", MP_INFERENCE_STEPS] + data),
+        ("unet_step", "step", ["--model", "unet"]),
+        ("pixel_diffusion_step", "step", ["--model", "pixel_diffusion"]),
+    ]
+
+
+def dp_step(argv, device) -> dict:
+    """One ``trainer_auto.train_step`` of ``main_auto``'s task for ``argv``
+    (its init from ``--seed``, Adam at its ``--lr``) on this rank's block of
+    a seeded global batch of DP_UNET_BATCH rows, the last of them weight-0
+    padding past DP_STEP_VALID; the step's scores, gradients, parameters and
+    buffers, on the host. In float64: what data parallelism computes (the
+    global BatchNorm statistics over the padding rows, the draws over the
+    global batch, the averaged gradient) stands clear of float32's
+    rounding, which a train-mode BatchNorm turns, in a first convolution's
+    weight gradient, into a sum over 131,072 rows of terms that cancel."""
+    import torch.distributed as dist
+
+    from cfdbench_tpu_torch.cli import make_auto_task, parse_args
+    from cfdbench_tpu_torch.parallel.mesh import make_mesh
+    from cfdbench_tpu_torch.training.optim import make_adam
+    from cfdbench_tpu_torch.training.trainer_auto import train_step, use_mesh
+
+    args = parse_args(argv + ["--data_name", "cavity_prop_bc_geo"])
+    mesh = make_mesh("auto", dist.group.WORLD if dist.is_initialized() else None)
+    task = make_auto_task(args, 5, (GRID, GRID), device)
+    task.model.double()
+    use_mesh(task, mesh)
+    opt, sched = make_adam(task.model.parameters(), args.lr)
+    batch = train_inputs(DP_UNET_BATCH, torch.Generator().manual_seed(SEED + 13), "cpu")
+    for v in batch.values():
+        v[DP_STEP_VALID:] = 0
+    block = {k: v.to(device, torch.float64) for k, v in mesh.block(batch).items()}
+    scores = train_step(task, opt, sched, block, task.step_draws(args.seed, 0, device))
+    model = task.model
+    return dict(scores={k: v.item() for k, v in scores.items()}, lr=args.lr,
+                grads={k: p.grad.cpu() for k, p in model.named_parameters()},
+                state={k: v.detach().cpu() for k, v in model.state_dict().items()},
+                names=[k for k, _ in model.named_parameters()])
+
+
+def dp_run(jobs, device, rank: int = 0) -> dict:
+    """Each job through its entry point on ``device``: the launches it
+    made, and main_auto's trained weights (and their order as parameters),
+    main_multistep's frames, or a step's results, on the host."""
+    from cfdbench_tpu_torch import cli
+    from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
+
+    result = {}
+    for name, entry, argv in jobs:
+        reset_launch_counts()
+        if entry == "step":
+            r = dp_step(argv, device)
+        else:
+            out = getattr(cli, entry)(argv, device=device)
+            r = {}
+            if entry == "main_multistep":
+                r["frames"] = out.cpu()
+            else:
+                r["state"] = {k: v.detach().cpu() for k, v in out.model.state_dict().items()}
+                r["names"] = [k for k, _ in out.model.named_parameters()]
+        r["launches"] = launch_counts()
+        result[name] = r
+        print(f"[dp] rank {rank} {name}: launches {r['launches']}")
+    return result
+
+
+def dp_rank(rank: int, world: int, root: str, jobs, device: str) -> None:
+    """Phase 13b's rank ``rank`` of ``world``, spawned: a gloo group that
+    meets through a file under ``root``, every rank on ``device`` (the one
+    card); its results to ``root/rank{rank}.pt``."""
+    import torch.distributed as dist
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"file://{root}/rendezvous", rank=rank,
+                            world_size=world)
+    try:
+        torch.save(dp_run(jobs, device, rank), f"{root}/rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+class permuted_train_rows:
+    """Within it, ``trainer_auto`` trains on every shuffled batch with its
+    rows permuted (a seeded permutation a batch): the same sums in another
+    order, the control of the U-Net's drift."""
+
+    def __enter__(self):
+        import numpy as np
+
+        from cfdbench_tpu_torch.training import trainer_auto
+
+        self.real = real = trainer_auto.batches
+
+        def batches(arrays, batch_size, shuffle, rng=None, pad_multiple=1):
+            for i, b in enumerate(real(arrays, batch_size, shuffle, rng=rng,
+                                       pad_multiple=pad_multiple)):
+                if shuffle:
+                    p = np.random.default_rng(SEED + i).permutation(len(b["weights"]))
+                    b = {k: v[p] for k, v in b.items()}
+                yield b
+
+        trainer_auto.batches = batches
+
+    def __exit__(self, *exc):
+        from cfdbench_tpu_torch.training import trainer_auto
+
+        trainer_auto.batches = self.real
+
+
+def dp_params(got: dict, want: dict, names, what: str) -> float:
+    """The parameters' max |got - want| over the largest |want|, printed
+    with the count of elements past DP_RTOL of it."""
+    largest = max(want[k].abs().max().item() for k in names)
+    worst, past = 0.0, 0
+    for k in names:
+        d = (got[k] - want[k]).abs()
+        worst = max(worst, d.max().item() / largest)
+        past += int((d > DP_RTOL * largest).sum())
+    n = sum(want[k].numel() for k in names)
+    print(f"[dp] {what}: parameters max diff / largest {worst:.3e}, {past} of {n} elements "
+          f"past {DP_RTOL:.0e}")
+    return worst
+
+
+def dp_step_check(name: str, got: dict, want: dict, what: str) -> None:
+    """One float64 step from the same weights, two ranks against one
+    process, each within DP_RTOL: the scores (relative), every gradient
+    (of the largest), every parameter (of lr, Adam's step), the running
+    statistics (of their largest)."""
+    metrics_rel([got["scores"]], [want["scores"]], f"{what} scores", DP_RTOL)
+    top = max(g.abs().max().item() for g in want["grads"].values())
+    worst = {
+        "gradients, of the largest": max((got["grads"][k] - g).abs().max().item() / top
+                                         for k, g in want["grads"].items()),
+        "parameters, of lr": max((got["state"][k] - want["state"][k]).abs().max().item()
+                                 for k in want["names"]) / want["lr"]}
+    stats = [k for k in want["state"] if k.endswith(("running_mean", "running_var"))]
+    if name.startswith("unet") != bool(stats):
+        raise RuntimeError(f"{what}: running statistics {stats[:2]}")
+    if stats:
+        worst["running statistics, of their largest"] = max(
+            max_rel(got["state"][k], want["state"][k]) for k in stats)
+    for k, v in worst.items():
+        print(f"[dp] {what}: {k} max diff {v:.3e} (bound {DP_RTOL:.0e})")
+        if not v <= DP_RTOL:
+            raise RuntimeError(f"{what}: {k} disagree, {v:.3e}")
+
+
+def losses_rel(got_run: Path, want_run: Path) -> float:
+    """The largest relative difference of two runs' per-step train losses."""
+    got, want = (json.loads((r / "train_losses.json").read_text()) for r in (got_run, want_run))
+    if len(got) != len(want):
+        raise RuntimeError(f"{got_run}: {len(got)} train losses against {len(want)}")
+    return max(abs(g - w) / abs(w) for g, w in zip(got, want))
+
+
+def dp_two_ranks(device) -> dict:
+    """Phase 13b: DP_RANKS ranks on the one card in a gloo group the
+    caller initialises, against one process; returns each rank's launches
+    per path."""
+    import torch.multiprocessing as mp
+
+    from cfdbench_tpu_torch.cli import parse_args, run_dir
+    from cfdbench_tpu_torch.data.synthetic import generate_problem
+
+    data_root = WORK / "dp_data"
+    # 12 cases of 21 frames: 200 train pairs (a full and a padded batch of
+    # DP_BATCH; six full batches and a padded one of DP_UNET_BATCH), and one
+    # test case, which DP_RANKS ranks pad.
+    generate_problem(data_root, "cavity", cases_per_subset=4, num_frames=STEPS + 1, grid=GRID,
+                     seed=SEED)
+    single_jobs = dp_jobs(data_root, WORK / "dp_single", "1")
+    single = dp_run(single_jobs, device)
+    unet_argv = dict((n, a) for n, _, a in single_jobs)["unet"]
+    control_argv = [str(WORK / "dp_control") if a == str(WORK / "dp_single") else a
+                    for a in unet_argv]
+    with permuted_train_rows():
+        control = dp_run([("unet_control", "main_auto", control_argv)], device)["unet_control"]
+    root = WORK / "dp_ranks"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.spawn(dp_rank, args=(DP_RANKS, str(root), dp_jobs(data_root, WORK / "dp_mesh", "2"),
+                            str(device)), nprocs=DP_RANKS, join=True)
+    print(f"[dp] {DP_RANKS} ranks on one card (gloo): {time.perf_counter() - t0:.2f} s, spawn "
+          "included; the ranks share the card, so this measures correctness, not scaling")
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=True) for r in range(DP_RANKS)]
+    for name, entry, argv in dp_jobs(data_root, WORK / "dp_mesh", "2"):
+        want = single[name]
+        what = f"{name}, {DP_RANKS} ranks against one process"
+        for r, result in enumerate(ranks):
+            got = result[name]
+            if got["launches"] != want["launches"]:
+                raise RuntimeError(f"{name} rank {r}: launches {got['launches']}, one process "
+                                   f"{want['launches']}")
+            if name.startswith("fno") and device.type == "cuda" and not all(
+                    got["launches"].values()):
+                raise RuntimeError(f"{name} rank {r}: a kernel never launched")
+        if entry == "main_multistep":
+            for r, result in enumerate(ranks):
+                err = max_rel(result[name]["frames"], want["frames"])
+                print(f"[dp] {name} rank {r}: frames max diff / max {err:.3e}")
+                if not err <= DP_RTOL:
+                    raise RuntimeError(f"{name} rank {r}: frames disagree, {err:.3e}")
+            continue
+        for k, v in ranks[0][name]["state"].items():
+            if not torch.equal(v, ranks[1][name]["state"][k]):
+                raise RuntimeError(f"{name}: rank 1's {k} differs from rank 0's")
+        if entry == "step":
+            dp_step_check(name, ranks[0][name], want, what)
+            continue
+        if name == "fno_test":  # the best checkpoint, loaded: scores below
+            continue
+        mesh_run = run_dir(parse_args(argv))
+        single_run = WORK / "dp_single" / mesh_run.relative_to(WORK / "dp_mesh")
+        loss_rel = losses_rel(mesh_run, single_run)
+        params_rel = dp_params(ranks[0][name]["state"], want["state"], want["names"], what)
+        if name == "unet":
+            control_run = WORK / "dp_control" / mesh_run.relative_to(WORK / "dp_mesh")
+            ctl_loss = losses_rel(control_run, single_run)
+            ctl_params = dp_params(control["state"], want["state"], want["names"],
+                                   "unet, one process with permuted rows against one process")
+            print(f"[dp] {what}: losses max rel diff {loss_rel:.3e}, parameters {params_rel:.3e}"
+                  f" of the largest; the permuted-row control {ctl_loss:.3e}, {ctl_params:.3e} "
+                  f"(bound {DP_DRIFT_FACTOR:g} x the control + {DP_RTOL:.0e})")
+            if not (loss_rel <= DP_DRIFT_FACTOR * ctl_loss + DP_RTOL
+                    and params_rel <= DP_DRIFT_FACTOR * ctl_params + DP_RTOL):
+                raise RuntimeError(f"{what}: parted further than the permuted-row control")
+            continue
+        print(f"[dp] {what}: train losses max rel diff {loss_rel:.3e} (bound {DP_RTOL:.0e})")
+        if not loss_rel <= DP_RTOL:
+            raise RuntimeError(f"{what}: train losses disagree, {loss_rel:.3e}")
+        # The FNO's gradients stay clear of rounding level: its parameters
+        # are held too. Pixel diffusion's PUNetG has biases that a
+        # GroupNorm cancels; its step is held by pixel_diffusion_step.
+        if name == "fno" and not params_rel <= DP_RTOL:
+            raise RuntimeError(f"{what}: parameters disagree, {params_rel:.3e}")
+    mesh_run = run_dir(parse_args(dp_jobs(data_root, WORK / "dp_mesh", "2")[0][2]))
+    single_run = WORK / "dp_single" / mesh_run.relative_to(WORK / "dp_mesh")
+    got, want = (json.loads((r / "test/scores.json").read_text()) for r in (mesh_run, single_run))
+    metrics_rel([got["mean"]], [want["mean"]], "fno test scores", DP_RTOL)
+    metrics_rel(*(json.loads((r / "multistep_metrics.json").read_text())
+                  for r in (mesh_run, single_run)), "fno per-step metrics", DP_RTOL)
+    return {f"dp{DP_RANKS}_rank{r}_{path}": {
+        k: sum(ranks[r][n]["launches"][k] for n in names) for k in ("fno_block", "fno_head")}
+        for r in range(DP_RANKS)
+        for path, names in (("main_auto", ("fno", "fno_test")),
+                            ("main_multistep", ("fno_multistep",)))}
+
+
+def dp_step_timing(device, card) -> dict:
+    """Phase 13c: the flagship's float32 train step at DP_BATCH, by CUDA
+    events, in one process, in an NCCL group of one rank (which runs no
+    collective: the same step), and in that group with the collectives of
+    N > 1 ranks forced (the loss's SUM and MAX, the gradient all-reduce):
+    their cost on one card, not N cards' scaling."""
+    import torch.distributed as dist
+
+    from cfdbench_tpu_torch.parallel.mesh import make_mesh
+    from cfdbench_tpu_torch.training.optim import make_adam
+    from cfdbench_tpu_torch.training.trainer_auto import train_step, use_mesh
+
+    # The profiler's mesh of one rank that runs the collectives; it opens
+    # the NCCL group of one.
+    collectives = load_script("profile_torch_rollout").collectives_mesh()
+    try:
+        meshes = {"one_process": None, "nccl_group": make_mesh("1", dist.group.WORLD),
+                  "collectives": collectives}
+        batch = train_inputs(DP_BATCH, torch.Generator().manual_seed(SEED + 3), device)
+        steps = {}
+        for name, mesh in meshes.items():
+            model = flagship_model(device)
+            task = nmse_task(model)
+            if mesh is not None:
+                use_mesh(task, mesh)
+            p = (task, *make_adam(model.parameters(), 1e-4))
+            steps[name] = lambda p=p: train_step(*p, batch)
+        for f in steps.values():
+            f()
+        torch.cuda.synchronize()
+        # The step is host-bound, and the host's speed wanders between turns:
+        # DP_TIMING_ROUNDS rounds of each variant in a rotating order, and
+        # the median of its rounds.
+        names = list(steps)
+        turns = {name: [] for name in names}
+        for r in range(DP_TIMING_ROUNDS):
+            for name in names[r % 3:] + names[:r % 3]:
+                turns[name].append(time_ms(steps[name], TRAIN_REPS))
+    finally:
+        dist.destroy_process_group()
+    ms = {f"{name}_ms": statistics.median(t) for name, t in turns.items()}
+    print(f"[time] [{card}] train step b{DP_BATCH} {GRID}x{GRID} f32, median of "
+          f"{DP_TIMING_ROUNDS} rounds of {TRAIN_REPS} steps: " + ", ".join(
+              f"{name} {ms[name + '_ms']:.3f} ms ({min(t):.3f}-{max(t):.3f})"
+              for name, t in turns.items()))
+    return ms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False",
@@ -2132,7 +2606,7 @@ def main() -> int:
     compare_rollouts(device, features, case_params)
     times = timing(device, card)
     check_gradients(device)
-    train_counts = train_path()
+    train_counts, train_metrics = train_path()
     train_step_timing(device, card)
     family = family_paths()
     family_card_vs_cpu(device)
@@ -2155,10 +2629,18 @@ def main() -> int:
     phase12_card_vs_cpu(device)
     phase12_times = phase12_timing(device, card)
     print(f"[phase12] [{card}] " + json.dumps({"timing": phase12_times}))
+    t13 = time.perf_counter()
+    dp_counts = {f"dp_torchrun_{k}": v
+                 for k, v in dp_torchrun(train_counts, train_metrics).items()}
+    dp_counts.update(dp_two_ranks(device))
+    dp_times = dp_step_timing(device, card)
+    print(f"[phase13] [{card}] " + json.dumps({"timing": dp_times, "launches": dp_counts,
+                                               "seconds": time.perf_counter() - t13}))
     print(f"[main] launches on the main paths: main_multistep {counts}, "
           f"main_auto {train_counts}, one served predict call {serve_predict}, one served "
           f"rollout {serve_rollout}, main_auto --use_mixed_precision {mp_counts}, "
-          f"main_multistep --rollout_dtype bfloat16 {bf16_counts}")
+          f"main_multistep --rollout_dtype bfloat16 {bf16_counts}, per rank under data "
+          f"parallelism {dp_counts}")
     replaces = {"fno_block": "cfdbench_tpu/ops/pallas_fno.py:179",
                 "fno_head": "cfdbench_tpu/ops/pallas_fno.py:268"}
     print(json.dumps({"kernels": [
@@ -2168,7 +2650,8 @@ def main() -> int:
                               "serve_predict": serve_predict[name],
                               "serve_rollout": serve_rollout[name],
                               "main_auto_mixed_precision": mp_counts[name],
-                              "main_multistep_bf16": bf16_counts[name]},
+                              "main_multistep_bf16": bf16_counts[name],
+                              **{path: c[name] for path, c in dp_counts.items()}},
          "max_abs_err": errors[name], **times[name], "library_ms": None}
         for name in ("fno_block", "fno_head")
     ]}))

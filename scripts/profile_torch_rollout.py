@@ -26,6 +26,10 @@ otherwise.
         [--trace DIR]
 
 ``--trace DIR`` also writes each path's Chrome trace there.
+``--collectives`` (with ``--train``) adds the train step with the
+reductions of data parallelism (``parallel/mesh.py``: the loss's SUM and
+MAX, the gradient all-reduce) forced through an NCCL group of one rank:
+what each step of N > 1 ranks adds on its card, without N cards.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ from cfdbench_tpu_torch.training.trainer_auto import (  # noqa: E402
     AutoTask,
     step_generator,
     train_step,
+    use_mesh,
 )
 from cfdbench_tpu_torch.utils.rng import train_key  # noqa: E402
 from cfdbench_tpu_torch.utils.device import require_cuda, set_f32_numerics  # noqa: E402
@@ -167,6 +172,7 @@ def main() -> int:
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--batch", type=int, default=0)
     ap.add_argument("--trace", default="")
+    ap.add_argument("--collectives", action="store_true")
     opts = ap.parse_args()
     device = require_cuda()
     set_f32_numerics()
@@ -201,8 +207,14 @@ def main() -> int:
                  labels=torch.randn((B, 64, 64, 2), generator=gen).to(device),
                  weights=torch.ones(B, device=device))
     model.train()
+    meshes = {}
+    if opts.collectives:
+        paths += ((f"{paths[0][0]}_collectives", paths[0][1]),)
+        meshes[paths[-1][0]] = collectives_mesh()
     for name, net in paths:
         task = AutoTask(net, loss_name_to_fn("nmse"))
+        if name in meshes:
+            use_mesh(task, meshes[name])
         opt, sched = make_adam(model.parameters(), 1e-4)
 
         def steps():
@@ -210,7 +222,24 @@ def main() -> int:
                 train_step(task, opt, sched, batch, dropout_gen)
 
         profile_path(f"train_{name}", steps, opts.trace, autograd_nodes=True)
+    if meshes:
+        torch.distributed.destroy_process_group()
     return 0
+
+
+def collectives_mesh():
+    """A data axis of one rank, in an NCCL group of one (an in-process
+    store: no file, no port), that runs every collective as N > 1 ranks
+    do."""
+    import torch.distributed as dist
+
+    from cfdbench_tpu_torch.parallel.mesh import DataMesh
+
+    class Collectives(DataMesh):
+        distributed = True
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    return Collectives(1, 0, dist.group.WORLD)
 
 
 if __name__ == "__main__":

@@ -13,6 +13,9 @@ deeponet, which generate each step's frame. It runs on the CUDA card and
 fails without one.
 To run on the CPU (the FNO through its kernels' plain PyTorch versions),
 call ``cfdbench_tpu_torch.cli.main_multistep(argv, device="cpu")``.
+
+Data parallelism over N cards (the autoregressive models and GenCast):
+``torchrun --nproc_per_node N test_multistep_torch.py ... --mesh_shape N``.
 """
 
 from cfdbench_tpu_torch.cli import main_multistep

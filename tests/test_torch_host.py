@@ -3,17 +3,19 @@ originals: the flag parser, the result-dir layout of both kinds of run,
 the synthetic case generator, the auto datasets (test split, features,
 case-parameter vectors) and the non-auto frame datasets must agree bit
 for bit, so that both packages read the same cases into the same arrays
-and write to the same run directory."""
+and write to the same run directory; so must the batches, padded for a
+data-parallel mesh."""
 
 import numpy as np
 import pytest
 
 from cfdbench_tpu import config as jax_config
 from cfdbench_tpu import data as jax_data
+from cfdbench_tpu.data import pipeline as jax_pipeline
 from cfdbench_tpu.data import synthetic as jax_synthetic
 from cfdbench_tpu.utils import artifacts as jax_artifacts
 from cfdbench_tpu_torch import cli, config, data
-from cfdbench_tpu_torch.data import core, synthetic
+from cfdbench_tpu_torch.data import core, pipeline, synthetic
 from cfdbench_tpu_torch.utils import artifacts
 
 ARGVS = [
@@ -220,3 +222,24 @@ def test_latent_run_dir_like_jax(model):
     got = cli.run_dir(config.Args.parse_args(argv))
     want = jax_artifacts.get_output_dir(jax_config.Args.parse_args(argv), is_auto=True)
     assert got == want and got.parts[-1] == "lr0.0003_latentdim8_steps100"
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize("batch_size,pad_multiple", [(4, 2), (3, 2), (5, 4), (6, 3), (4, 8)])
+def test_padded_batches_like_jax(rng, shuffle, batch_size, pad_multiple):
+    """``batches(pad_multiple=)`` (a data-parallel mesh's padding: each
+    batch rounded up to a multiple of the rank count with weight-0 rows),
+    over sizes that do and do not divide the 11 rows and the multiple."""
+    arrays = dict(inputs=rng.standard_normal((11, 3, 2)).astype(np.float32),
+                  case_params=rng.standard_normal((11, 5)).astype(np.float32))
+    got = list(pipeline.batches(arrays, batch_size, shuffle, np.random.default_rng(7),
+                                pad_multiple=pad_multiple))
+    want = list(jax_pipeline.batches(arrays, batch_size, shuffle, np.random.default_rng(7),
+                                     pad_multiple=pad_multiple))
+    assert len(got) == len(want) == pipeline.num_batches(11, batch_size)
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        assert g["weights"].size % pad_multiple == 0 and g["weights"].size >= batch_size
+        for k in w:
+            assert g[k].dtype == w[k].dtype
+            np.testing.assert_array_equal(g[k], w[k])

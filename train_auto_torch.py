@@ -11,6 +11,10 @@ auto_edeeponet, auto_deeponet_cnn or pixel_diffusion (ffn and deeponet
 train with ``train_torch.py``, GenCast with ``train_gencast_torch.py``). It runs on the CUDA card and fails without one.
 To run on the CPU (the FNO through its kernels' plain PyTorch versions),
 call ``cfdbench_tpu_torch.cli.main_auto(argv, device="cpu")``.
+
+Data parallelism over N cards: ``torchrun --nproc_per_node N
+train_auto_torch.py ... --mesh_shape N`` (each rank on ``cuda:LOCAL_RANK``,
+``--batch_size`` global).
 """
 
 from cfdbench_tpu_torch.cli import main_auto
