@@ -31,10 +31,12 @@ batches of 64) and ``--plot_train_examples`` (it plots no example).
 ``--use_pallas_head`` changes nothing here: on the card both FNO
 kernels always run.
 
-``main_auto`` and ``main_multistep`` run data-parallel under ``torchrun
---nproc_per_node N`` with ``--mesh_shape N``, one card a rank
-(``parallel/mesh.py``); the other entry points, and the other axes of a
-mesh, raise and name their ROADMAP.md item (A15b-e).
+Every trainer (``main_auto``, ``main_train``, ``main_gencast``,
+``main_vae``, ``main_uncond``) and ``main_multistep`` run data-parallel
+under ``torchrun --nproc_per_node N`` with ``--mesh_shape N``, one card a
+rank (``parallel/mesh.py``); the non-autoregressive ``main_multistep``
+refuses a mesh, as the JAX one ignores it (ROADMAP.md C), and the other
+axes of a mesh raise and name their ROADMAP.md item (A15c-e).
 """
 
 from __future__ import annotations
@@ -140,15 +142,6 @@ def check_runtime_flags(args: Args) -> None:
         )
 
 
-def refuse_data_parallel(args: Args, entry: str) -> None:
-    """Raise when ``--mesh_shape`` asks ``entry``, an entry point without
-    data parallelism, for more than one rank."""
-    if data_size(args.mesh_shape) > 1:
-        raise NotImplementedError(
-            f"--mesh_shape {args.mesh_shape}: data parallelism in {entry} is ROADMAP.md "
-            "A15b; the port runs it in main_auto and main_multistep")
-
-
 def check_rollout_flags(args: Args) -> None:
     """``check_supported`` and the flags only ``main_multistep`` reads.
     ``--rollout_dtype bfloat16`` is taken for the deterministic
@@ -204,8 +197,6 @@ def check_training_flags(args: Args, regime: str = "auto") -> None:
         raise NotImplementedError(
             "--shard_spatial: spatial sharding is ROADMAP.md A15d"
         )
-    if regime != "auto":
-        refuse_data_parallel(args, {"nonauto": "main_train", "gencast": "main_gencast"}[regime])
     # Flags the JAX entry point parses and never passes to its trainer
     # (ROADMAP.md C), each with whether this run sets it.
     ignored = {}
@@ -260,7 +251,6 @@ def check_vae_flags(args: Args) -> None:
     none of the VAE and training flags that the JAX ``main_vae`` never
     reads."""
     check_runtime_flags(args)
-    refuse_data_parallel(args, "main_vae")
     if args.mode not in VAE_MODES:
         raise ValueError(f"--mode {args.mode!r}: main_vae trains; choose train or train_anneal "
                          "(the JAX main_vae trains whatever --mode says, ROADMAP.md C)")
@@ -273,7 +263,6 @@ def check_uncond_flags(args: Args) -> None:
     timesteps, the data, ``--lr``, ``--batch_size``, ``--num_epochs``,
     ``--seed`` and ``--resume``; none that the JAX script never reads."""
     check_runtime_flags(args)
-    refuse_data_parallel(args, "main_uncond")
     refuse_ignored(args, ("mode", "pixel_diffusion_channel_mults",
                           "pixel_diffusion_num_res_blocks", "pixel_diffusion_dropout",
                           "ldm_num_inference_steps") + _UNREAD_TRAINING_FLAGS,
@@ -547,7 +536,7 @@ def _run_auto(args: Args, device: torch.device, mesh):
     return task
 
 
-def main_train(argv=None, device=None) -> None:
+def main_train(argv=None, device=None) -> NonAutoTask:
     """``cfdbench_tpu.cli.main_train`` (``src/train.py:295-350``) for the
     non-autoregressive ``ffn`` and ``deeponet``: ``--mode train`` trains
     with Adam and StepLR on 1000 sampled lattice points a step and
@@ -556,19 +545,27 @@ def main_train(argv=None, device=None) -> None:
     ``train_test`` does both. Runs on the CUDA card unless ``device``
     names another; with ``device`` None and no card it raises.
     ``--eval_batch_size`` and ``--plot_train_examples`` are ignored, as
-    in the JAX package."""
+    in the JAX package. Data parallelism: as ``main_auto``; every rank
+    draws a step's query points alike. Returns the task, as ``main_auto``
+    does."""
     args = parse_args(argv)
     check_training_flags(args, "nonauto")
     device = entry_device(device)
     set_f32_numerics()
+    with open_mesh(args.mesh_shape, device) as mesh:
+        return _run_train(args, device, mesh)
+
+
+def _run_train(args: Args, device: torch.device, mesh) -> NonAutoTask:
     print("#" * 80)
     print(args)
     print("#" * 80)
-    print(f"[train] device: {device}")
+    print(f"[train] device: {device}, {mesh}")
 
     output_dir = run_dir(args)
     output_dir.mkdir(parents=True, exist_ok=True)
-    args.save(output_dir / "args.json")
+    if mesh.is_main():
+        args.save(output_dir / "args.json")
 
     print("Loading data...")
     train_data, dev_data, test_data = get_dataset(
@@ -583,9 +580,11 @@ def main_train(argv=None, device=None) -> None:
     print(f"# test examples: {len(test_data)}")
     model = init_nonauto_model(args, n_case_params=train_data.n_case_params, device=device)
     task = NonAutoTask(model, loss_name_to_fn(args.loss_name))
+    use_mesh(task, mesh)
 
     if "train" in args.mode:
-        args.save(output_dir / "train_args.json")
+        if mesh.is_main():
+            args.save(output_dir / "train_args.json")
         trainer_nonauto.train(
             task, train_data=train_data, dev_data=dev_data, output_dir=output_dir,
             device=device, lr=args.lr, lr_step_size=args.lr_step_size,
@@ -595,14 +594,16 @@ def main_train(argv=None, device=None) -> None:
             measure_time=bool(args.measure_time), resume=bool(args.resume),
         )
         if args.measure_time:
-            return
+            return task
     if "test" in args.mode:
-        args.save(output_dir / "test_args.json")
+        if mesh.is_main():
+            args.save(output_dir / "test_args.json")
         model.load_state_dict(load_best_params(output_dir))
         trainer_nonauto.test(task, test_data, output_dir / "test", device=device, batch_size=1)
+    return task
 
 
-def main_gencast(argv=None, device=None) -> None:
+def main_gencast(argv=None, device=None):
     """``cfdbench_tpu.cli.main_gencast`` (``src/train_gencast.py``): GenCast
     on (X_{t−2}, X_{t−1}, X_t) triples of the auto dataset, whatever
     ``--model`` says, into the ``gencast`` run directory. The residual
@@ -615,13 +616,21 @@ def main_gencast(argv=None, device=None) -> None:
     ``test`` generates and scores the test split from
     ``best_model/``; ``train_test`` does both. Runs on the CUDA card
     unless ``device`` names another; with ``device`` None and no card it
-    raises."""
+    raises. Data parallelism: as ``main_auto``; rank 0 computes and
+    writes the residual statistics, which the other ranks then read, and
+    the test split is generated a block of rows a rank, its frames
+    gathered. Returns the task."""
     args = dataclasses.replace(parse_args(argv), model="gencast")
     check_training_flags(args, "gencast")
     device = entry_device(device)
     set_f32_numerics()
+    with open_mesh(args.mesh_shape, device) as mesh:
+        return _run_gencast(args, device, mesh)
+
+
+def _run_gencast(args: Args, device: torch.device, mesh):
     print(args)
-    print(f"[gencast] device: {device}")
+    print(f"[gencast] device: {device}, {mesh}")
     splits = ["train", "dev"] + (["test"] if "test" in args.mode else [])
     train_data, dev_data, test_data = get_auto_dataset(
         data_dir=Path(args.data_dir),
@@ -638,16 +647,18 @@ def main_gencast(argv=None, device=None) -> None:
 
     output_dir = run_dir(args)
     stats_path = output_dir / "residual_stats.npz"
-    if stats_path.exists():
-        stats = load_residual_stats(stats_path)
-    else:
-        stats = compute_residual_stats(gc_train)
-        save_residual_stats(stats, stats_path)
+    # Rank 0 writes the file that every rank reads; the barrier keeps the
+    # others from reading it half written.
+    if mesh.is_main() and not stats_path.exists():
+        save_residual_stats(compute_residual_stats(gc_train), stats_path)
         print(f"Residual stats computed and cached at {stats_path}")
+    mesh.barrier()
+    stats = load_residual_stats(stats_path)
     print(f"residual mean={stats['residual_mean']}, std={stats['residual_std']}")
     task = init_gencast(args, stats, gc_train.n_case_params, loss_name_to_fn(args.loss_name),
                         device=device)
     task.compute_dtype = compute_dtype(args)
+    use_mesh(task, mesh)
     if "train" in args.mode:
         trainer_gencast.train_gencast(
             task, gc_train, gc_dev, output_dir, device=device, num_epochs=args.num_epochs,
@@ -660,6 +671,7 @@ def main_gencast(argv=None, device=None) -> None:
         task.model.load_state_dict(load_params(output_dir / trainer_gencast.BEST_DIR))
         trainer_gencast.test_gencast(task, wrap_gencast(test_data), output_dir / "test",
                                      device=device, batch_size=args.eval_batch_size)
+    return task
 
 
 def print_launches(what: str, before: dict) -> None:
@@ -677,13 +689,20 @@ def main_vae(argv=None, device=None):
     under ``<output_dir>/vae/<data_name>``; ``--mode train_anneal`` anneals
     the KL weight over ``--vae_kl_annealing_epochs``. Runs on the CUDA card
     unless ``device`` names another; with ``device`` None and no card it
-    raises. Returns the best weights."""
+    raises. Data parallelism: as ``main_auto``; every rank reads the same
+    dev loss, so cuts its rate and stops on the same epoch. Returns the
+    best weights."""
     args = parse_args(argv)
     check_vae_flags(args)
     device = entry_device(device)
     set_f32_numerics()
+    with open_mesh(args.mesh_shape, device) as mesh:
+        return _run_vae(args, device, mesh)
+
+
+def _run_vae(args: Args, device: torch.device, mesh):
     print(args)
-    print(f"[vae] device: {device}")
+    print(f"[vae] device: {device}, {mesh}")
     train_data, dev_data, _ = get_auto_dataset(
         data_dir=Path(args.data_dir),
         data_name=args.data_name,
@@ -709,7 +728,7 @@ def main_vae(argv=None, device=None):
         lr_factor=args.lr_scheduler_factor, lr_patience=args.lr_scheduler_patience,
         early_stopping_patience=args.early_stopping_patience,
         early_stopping_delta=args.early_stopping_delta, seed=args.seed,
-        resume=bool(args.resume))
+        resume=bool(args.resume), mesh=mesh)
 
 
 def main_uncond(argv=None, device=None):
@@ -718,13 +737,19 @@ def main_uncond(argv=None, device=None):
     label frames, ``--ldm_noise_scheduler_timesteps`` steps, with its EMA,
     into ``<output_dir>/uncond_ddpm/<data_name>``. Runs on the CUDA card
     unless ``device`` names another; with ``device`` None and no card it
-    raises. Returns what ``train_uncond_ddpm`` returns."""
+    raises. Data parallelism: as ``main_auto``; rank 0 samples the EMA's
+    frames. Returns what ``train_uncond_ddpm`` returns."""
     args = parse_args(argv)
     check_uncond_flags(args)
     device = entry_device(device)
     set_f32_numerics()
+    with open_mesh(args.mesh_shape, device) as mesh:
+        return _run_uncond(args, device, mesh)
+
+
+def _run_uncond(args: Args, device: torch.device, mesh):
     print(args)
-    print(f"[uncond] device: {device}")
+    print(f"[uncond] device: {device}, {mesh}")
     train_data, _, _ = get_auto_dataset(
         data_dir=Path(args.data_dir),
         data_name=args.data_name,
@@ -742,4 +767,4 @@ def main_uncond(argv=None, device=None):
         num_epochs=args.num_epochs, lr=args.lr, batch_size=args.batch_size,
         timesteps=args.ldm_noise_scheduler_timesteps,
         base_channels=args.pixel_diffusion_base_channels, seed=args.seed,
-        resume=bool(args.resume))
+        resume=bool(args.resume), mesh=mesh)

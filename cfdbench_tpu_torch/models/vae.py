@@ -227,12 +227,12 @@ class AutoencoderKL(nn.Module):
     def decode(self, z):
         return self.decoder(self.post_quant_conv(z))
 
-    def forward(self, x, key: Key = None):
+    def forward(self, x, key: Key = None, mesh: DataMesh = SINGLE):
         """``(reconstruction, posterior)``: the posterior sampled with
-        ``key`` when one is given, else its mode (diffusers'
-        ``sample_posterior``)."""
+        ``key`` when one is given (``x`` is ``mesh``'s block of the batch),
+        else its mode (diffusers' ``sample_posterior``)."""
         posterior = self.encode(x)
-        z = posterior.mode() if key is None else posterior.sample(key)
+        z = posterior.mode() if key is None else posterior.sample(key, mesh)
         return self.decode(z), posterior
 
     def latent_shape(self, x_shape) -> Tuple[int, int, int, int]:

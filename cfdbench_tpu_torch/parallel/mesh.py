@@ -150,6 +150,16 @@ class DataMesh:
         dist.all_reduce(y, op=dist.ReduceOp.MAX, group=self.group)
         return y
 
+    def weighted_mean(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` over the global batch's rows weighted by ``w``,
+        ``Σ w·x / max(Σ w, 1)``, differentiably and in one reduction:
+        ``x`` (rows, ...) and ``w`` (rows,) are this rank's block, the
+        result has ``x.shape[1:]``. Weight-0 padding rows count for
+        nothing."""
+        wx = (x * w.reshape((-1,) + (1,) * (x.dim() - 1))).sum(0)
+        sums = self.sum(torch.cat([wx.reshape(-1), w.sum().reshape(1)]))
+        return (sums[:-1] / sums[-1].clamp(min=1.0)).reshape(x.shape[1:])
+
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The global batch of every rank's block ``x``, in rank order, on
         every rank, without a gradient: each block placed in zeros and the

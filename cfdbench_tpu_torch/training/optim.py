@@ -19,10 +19,12 @@ steps; here ``torch.optim.Adam`` (whose update is ``optax.adam``'s: b1
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, List, Optional, Tuple
+from typing import Callable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import SINGLE, DataMesh
 
 
 def step_lr_schedule(lr: float, gamma: float, step_size_epochs: int,
@@ -192,11 +194,6 @@ def make_adam(
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, schedule)
 
 
-def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (``optax.global_norm``)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
-
-
 # The JAX GenCast trainer's fixed settings of its optax chain.
 CLIP_NORM = 1.0
 MAX_CONSECUTIVE_ERRORS = 100
@@ -230,7 +227,12 @@ class GenCastAdamW(torch.optim.Optimizer):
 
     The step reads nothing back to the host. The gradients are gathered
     into one flat vector, and the moments and the accumulator are flat
-    vectors too. The norm of that vector decides the skip and the clip:
+    vectors too. Under data parallelism (``mesh``) each rank's vector is
+    averaged over the ranks in one all-reduce before step 1, so that the
+    accumulator, the gate, the clip and AdamW all see the single-device
+    gradient, and a non-finite gradient on one rank skips the update on
+    every rank. :attr:`grad_norm` is the global norm of the last
+    (averaged) micro-batch gradient, a device scalar, for the log. The norm of that vector decides the skip and the clip:
     a gradient whose squared sum overflows float32 counts as non-finite,
     where optax would clip it to 0. A skipped step feeds the moments a
     zero gradient at decay 1 and the parameters a zero update, selected on
@@ -241,10 +243,13 @@ class GenCastAdamW(torch.optim.Optimizer):
     C)."""
 
     def __init__(self, params, lr: float, decay_steps: int, warmup_steps: int = 500,
-                 weight_decay: float = 1e-5, grad_accum_steps: int = 1):
+                 weight_decay: float = 1e-5, grad_accum_steps: int = 1,
+                 mesh: DataMesh = SINGLE):
         super().__init__(params, dict(
             peak_lr=lr, decay_steps=decay_steps, warmup_steps=warmup_steps,
             weight_decay=weight_decay, grad_accum_steps=grad_accum_steps, mini_step=0))
+        self.mesh = mesh
+        self.grad_norm: Optional[torch.Tensor] = None
 
     def _flat_state(self) -> dict:
         group = self.param_groups[0]
@@ -270,6 +275,9 @@ class GenCastAdamW(torch.optim.Optimizer):
         state = self._flat_state()
         flat = torch.cat([p.new_zeros(p.numel()) if p.grad is None else p.grad.reshape(-1)
                           for p in params])
+        if self.mesh.distributed:
+            flat = self.mesh.sum(flat).div_(self.mesh.size)
+        self.grad_norm = torch.linalg.vector_norm(flat)
         k = g["grad_accum_steps"]
         if k > 1:
             acc, n = state["acc"], g["mini_step"]
@@ -279,7 +287,9 @@ class GenCastAdamW(torch.optim.Optimizer):
                 return
             flat = acc.clone()
             acc.mul_(0.0)
-        norm = torch.linalg.vector_norm(flat)
+            norm = torch.linalg.vector_norm(flat)
+        else:
+            norm = self.grad_norm
         finite = torch.isfinite(norm)
         notfinite = state["notfinite_count"]
         notfinite.copy_(torch.where(finite, 0.0, notfinite + 1))
@@ -303,12 +313,12 @@ class GenCastAdamW(torch.optim.Optimizer):
 
 def make_gencast_tx(params: Iterable[torch.nn.Parameter], lr: float, total_steps: int,
                     warmup_steps: int = 500, weight_decay: float = 1e-5,
-                    grad_accum_steps: int = 1) -> GenCastAdamW:
+                    grad_accum_steps: int = 1, mesh: DataMesh = SINGLE) -> GenCastAdamW:
     """The GenCast optimizer for ``total_steps`` micro-batches: its
     schedule counts optimizer steps, ``total_steps // grad_accum_steps``
     (``src/train_gencast.py:288``), and decays over at least
-    ``warmup_steps + 1`` of them."""
+    ``warmup_steps + 1`` of them; its gradients averaged over ``mesh``."""
     opt_steps = max(1, total_steps // max(1, grad_accum_steps))
     return GenCastAdamW(params, lr, decay_steps=max(opt_steps, warmup_steps + 1),
                         warmup_steps=warmup_steps, weight_decay=weight_decay,
-                        grad_accum_steps=grad_accum_steps)
+                        grad_accum_steps=grad_accum_steps, mesh=mesh)

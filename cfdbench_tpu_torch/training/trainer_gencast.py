@@ -18,6 +18,15 @@ Train step ``step``'s draws are keyed ``train_key(seed + 4242, step)``, the JAX
 trainer's ``fold_in(fast_train_key(seed + 4242), step)`` (``utils/rng.py``),
 counted in micro-batches; evaluation draws from the fixed evaluation key.
 Scores stay on the device until one transfer per evaluation.
+
+Data parallelism (``task.mesh``, ``trainer_auto.use_mesh``): every rank
+builds the same global batches, padded to a multiple of the rank count
+with weight-0 rows, and runs its block of rows; the draws are made over
+the global batch and sliced (``models/diffusion.py``), the scores are the
+global batch's, so every rank reads the same dev nmse and keeps the same
+best model; the optimizer averages the gradients over the ranks
+(``optim.GenCastAdamW``). Rank 0 writes every file and the others wait
+for it at a barrier; the test split's frames are gathered.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ from ..data.wrapper import GenCastDataset
 from ..models.diffusion import GenCastCfdModel
 from ..utils.rng import train_key
 from . import checkpoints
-from .optim import global_norm, make_gencast_tx
+from .optim import make_gencast_tx
 
 BEST_DIR = "best_model"
 # The JAX trainer's offset of its training key from the seed.
@@ -99,14 +108,16 @@ def train_gencast(
 ) -> int:
     """Train ``task.model`` in place; returns the number of micro-steps
     taken. A run continues from ``training_state/`` and
-    ``training_meta.json`` when both exist, as the JAX package's does."""
+    ``training_meta.json`` when both exist, as the JAX package's does.
+    Under data parallelism ``batch_size`` and ``eval_batch_size`` are
+    global."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    model = task.model
+    model, mesh = task.model, task.mesh
     steps_per_epoch = num_batches(len(train_data), batch_size)
     opt = make_gencast_tx(model.parameters(), lr, total_steps=steps_per_epoch * num_epochs,
                           warmup_steps=WARMUP_STEPS, weight_decay=weight_decay,
-                          grad_accum_steps=grad_accum_steps)
+                          grad_accum_steps=grad_accum_steps, mesh=mesh)
     arrays = dataset_arrays(train_data)
     names = task.loss_fn.get_score_names()
 
@@ -127,27 +138,27 @@ def train_gencast(
     for ep in range(start_epoch, num_epochs):
         model.train()
         rng = np.random.default_rng(seed * 104729 + ep)
-        for i, host in enumerate(batches(arrays, batch_size, shuffle=True, rng=rng)):
+        for i, host in enumerate(batches(arrays, batch_size, shuffle=True, rng=rng,
+                                         pad_multiple=mesh.size)):
             opt.zero_grad(set_to_none=True)
-            loss, scores = task.loss_scores(to_device(host, device),
+            loss, scores = task.loss_scores(to_device(mesh.block(host), device),
                                             train_key(seed + TRAIN_KEY_OFFSET, step))
             loss.backward()
-            if (i + 1) % log_interval == 0:
-                gnorm = global_norm([p.grad for p in model.parameters()])
             opt.step()
             step += 1
             if (i + 1) % log_interval == 0:
                 print(dict(ep=ep, step=i, mse=f"{float(scores['mse']):.3e}",
-                           grad_norm=f"{float(gnorm):.2f}", time=round(time.time() - start)))
+                           grad_norm=f"{float(opt.grad_norm):.2f}",
+                           time=round(time.time() - start)))
         if (ep + 1) % eval_interval != 0:
             continue
         model.eval()
         rows, frame_rows = [], []
         for i, host in enumerate(batches(dataset_arrays(dev_data), eval_batch_size,
-                                         shuffle=False)):
+                                         shuffle=False, pad_multiple=mesh.size)):
             if max_eval_batches and i >= max_eval_batches:
                 break
-            batch = to_device(host, device)
+            batch = to_device(mesh.block(host), device)
             rows.append(eval_step(task, batch))
             if i < FRAME_EVAL_BATCHES:
                 frame_rows.append(frame_eval_step(task, batch)[0][0])
@@ -166,17 +177,22 @@ def train_gencast(
                 dev_scores["mean"][f"gen_frame_{k}"] = float(fmat[:, j].mean())
             print(f"ep {ep}: generated-frame nmse = "
                   f"{dev_scores['mean'].get('gen_frame_nmse'):.4e} ({len(frame_rows)} batches)")
-        ckpt_dir = output_dir / f"ckpt-{ep}"
-        ckpt_dir.mkdir(parents=True, exist_ok=True)
-        dump_json(dev_scores, ckpt_dir / "dev_scores.json")
         print(f"ep {ep}: dev nmse = {dev_nmse:.4e}")
-        if dev_nmse < best_nmse:
+        # Every rank holds the same dev nmse, so takes the same decision.
+        new_best = dev_nmse < best_nmse
+        if new_best:
             best_nmse = dev_nmse
-            checkpoints.save_params(model.state_dict(), output_dir / BEST_DIR)
-            print("  new best saved")
-        checkpoints.save_params(dict(params=model.state_dict(), optimizer=opt.state_dict(),
-                                     step=step), state_dir)
-        dump_json(dict(epoch=ep, best_nmse=best_nmse, dev_nmse=dev_nmse), meta_path)
+        if mesh.is_main():
+            ckpt_dir = output_dir / f"ckpt-{ep}"
+            ckpt_dir.mkdir(parents=True, exist_ok=True)
+            dump_json(dev_scores, ckpt_dir / "dev_scores.json")
+            if new_best:
+                checkpoints.save_params(model.state_dict(), output_dir / BEST_DIR)
+                print("  new best saved")
+            checkpoints.save_params(dict(params=model.state_dict(), optimizer=opt.state_dict(),
+                                         step=step), state_dir)
+            dump_json(dict(epoch=ep, best_nmse=best_nmse, dev_nmse=dev_nmse), meta_path)
+        mesh.barrier()
     return step
 
 
@@ -184,16 +200,20 @@ def test_gencast(task: GenCastCfdModel, data: GenCastDataset, output_dir: Path, 
                  device: torch.device, batch_size: int = 16) -> dict:
     """Generate and score every next frame of ``data``; writes
     ``scores.json`` and ``preds.npy``, the schema of the other trainers'
-    test mode."""
+    test mode. Under data parallelism each rank generates its block of
+    every batch (the draws made over the global batch), the frames are
+    gathered and rank 0 writes the files."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
+    mesh = task.mesh
     names = task.loss_fn.get_score_names()
     task.model.eval()
     rows, frames, n_valids = [], [], []
-    for host in batches(dataset_arrays(data), batch_size, shuffle=False):
-        row, frame = frame_eval_step(task, to_device(host, device))
+    for host in batches(dataset_arrays(data), batch_size, shuffle=False,
+                        pad_multiple=mesh.size):
+        row, frame = frame_eval_step(task, to_device(mesh.block(host), device))
         rows.append(row)
-        frames.append(frame)
+        frames.append(mesh.gather(frame))
         n_valids.append(int(host["weights"].sum()))
     mat = torch.stack(rows).cpu().numpy() if rows else np.zeros((0, 2, len(names)))
     scores = {"mean": {}, "all": {}}
@@ -201,8 +221,10 @@ def test_gencast(task: GenCastCfdModel, data: GenCastDataset, output_dir: Path, 
         scores["mean"][k] = float(mat[:, 0, j].mean())
         scores["mean"][f"input_{k}"] = float(mat[:, 1, j].mean())
         scores["all"][k] = mat[:, 0, j].tolist()
-    dump_json(scores, output_dir / "scores.json")
-    preds = (np.concatenate([f.cpu().numpy()[:nv] for f, nv in zip(frames, n_valids)])
-             if frames else np.zeros((0,)))
-    np.save(output_dir / "preds.npy", preds)
+    if mesh.is_main():
+        dump_json(scores, output_dir / "scores.json")
+        preds = (np.concatenate([f.cpu().numpy()[:nv] for f, nv in zip(frames, n_valids)])
+                 if frames else np.zeros((0,)))
+        np.save(output_dir / "preds.npy", preds)
+    mesh.barrier()
     return scores

@@ -26,6 +26,16 @@ the reference's ``src/train.py``).
   snapshot and ``training_meta.json`` for ``--resume``, and at the end
   ``train_losses.json``/``.png``.
 - :func:`test` writes ``preds.npy``, prediction plots and ``scores.json``.
+- Data parallelism (``trainer_auto.use_mesh``, ``parallel/mesh.py``):
+  every rank builds the same global batches, padded to a multiple of the
+  rank count with weight-0 rows, and runs its block of rows; a step's
+  query points are one draw shared by every row of the global batch, so
+  every rank draws the same points and none are sliced. The scores are
+  the global batch's (``metrics.py``), the gradients are averaged over
+  the ranks after the backward and the predictions gathered; rank 0
+  writes every file and the others wait for it at a barrier. A call of
+  the model holds whole samples, each with its whole query set: blocking
+  splits rows, never queries.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from ..data.datasets import FrameDataset
 from ..data.pipeline import batches, num_batches, to_device
 from ..metrics import LossFn
 from ..models.point import lattice_xy
+from ..parallel.mesh import SINGLE
 from ..utils.artifacts import plot_loss, plot_predictions
 from . import checkpoints
 from .optim import make_adam, step_lr_schedule
@@ -56,6 +67,7 @@ class NonAutoTask:
     reference's point-sampled loss."""
 
     num_label_samples = NUM_LABEL_SAMPLES
+    mesh = SINGLE  # the data axis (trainer_auto.use_mesh)
 
     def __init__(self, model: nn.Module, loss_fn: Optional[LossFn] = None):
         self.model = model
@@ -64,7 +76,8 @@ class NonAutoTask:
     def loss_scores(self, batch, query_idxs):
         """``(loss, scores)`` at the (k, 2) lattice points ``query_idxs``
         (row, col), against the batch's u labels there."""
-        preds = self.model(batch["case_params"], batch["t"], query_idxs.float())
+        preds = self.model(batch["case_params"], batch["t"],
+                           query_idxs.to(batch["case_params"].dtype))
         labels = batch["labels"][..., 0][:, query_idxs[:, 0], query_idxs[:, 1]]  # (B, k)
         scores = self.loss_fn(preds, labels, sample_weights=batch.get("weights"))
         return scores[self.loss_fn.objective], scores
@@ -100,10 +113,12 @@ def draw_query_idxs(seed: int, step: int, k: int, height: int, width: int,
 def train_step(task: NonAutoTask, optimizer: torch.optim.Optimizer, scheduler, batch,
                query_idxs) -> Dict[str, torch.Tensor]:
     """One update at ``query_idxs``; returns the scores, detached, on the
-    device."""
+    device. Under data parallelism ``batch`` is this rank's block and the
+    gradients are averaged over the ranks before the update."""
     optimizer.zero_grad(set_to_none=True)
     loss, scores = task.loss_scores(batch, query_idxs)
     loss.backward()
+    task.mesh.average_gradients(task.model.parameters())
     optimizer.step()
     scheduler.step()
     return {k: v.detach() for k, v in scores.items()}
@@ -132,16 +147,19 @@ def evaluate(
     collect_preds: bool = False,
 ) -> Dict[str, Any]:
     """Per-batch scores, their means and, if asked for, the predictions
-    (``src/train.py:64-113``); ``loss.png`` of the per-batch nmse."""
+    (``src/train.py:64-113``); ``loss.png`` of the per-batch nmse (rank
+    0's)."""
+    mesh = task.mesh
     names = task.loss_fn.get_score_names()
     score_rows, all_preds, n_valids = [], [], []  # scores stay on the device
     task.model.eval()
-    for host in batches(dataset_arrays(data), batch_size, shuffle=False):
+    for host in batches(dataset_arrays(data), batch_size, shuffle=False,
+                        pad_multiple=mesh.size):
         n_valids.append(int(host["weights"].sum()))
-        s, preds = eval_step(task, to_device(host, device))
+        s, preds = eval_step(task, to_device(mesh.block(host), device))
         score_rows.append(torch.stack([s[k] for k in names]))
         if collect_preds:
-            all_preds.append(preds)
+            all_preds.append(mesh.gather(preds))
     # One device-to-host transfer for every batch's scores.
     mat = (torch.stack(score_rows).cpu().numpy() if score_rows
            else np.zeros((0, len(names))))
@@ -149,7 +167,7 @@ def evaluate(
     avg = {k: float(np.mean(v)) for k, v in scores.items()}
     for k, v in avg.items():
         print(f"{k}: {v}")
-    if "nmse" in scores:
+    if "nmse" in scores and mesh.is_main():
         plot_loss(scores["nmse"], Path(output_dir) / "loss.png")
     result: Dict[str, Any] = dict(scores=dict(mean=avg, all=scores))
     if collect_preds:
@@ -180,10 +198,11 @@ def train(
     """Train ``task.model`` in place; returns the per-step losses.
     ``resume=True`` continues from ``output_dir/training_state`` and
     ``training_meta.json`` when both are there; every eval epoch writes
-    them."""
+    them. Under data parallelism (``task.mesh``) ``batch_size`` is
+    global."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    model = task.model
+    model, mesh = task.model, task.mesh
     H, W = train_data.field_shape
     steps_per_epoch = num_batches(len(train_data), batch_size)
     optimizer, scheduler = make_adam(model.parameters(), lr, gamma=lr_gamma,
@@ -220,9 +239,10 @@ def train(
         model.train()
         ep_losses_dev = []  # on the device: a float() here would wait for every step
         rng = np.random.default_rng(seed * 999_983 + ep)
-        for host in batches(arrays, batch_size, shuffle=True, rng=rng):
+        for host in batches(arrays, batch_size, shuffle=True, rng=rng, pad_multiple=mesh.size):
             query_idxs = draw_query_idxs(seed, global_step, task.num_label_samples, H, W, device)
-            scores = train_step(task, optimizer, scheduler, to_device(host, device), query_idxs)
+            scores = train_step(task, optimizer, scheduler, to_device(mesh.block(host), device),
+                                query_idxs)
             ep_losses_dev.append(scores[objective])
             global_step += 1
             if global_step % log_interval == 0 and not measure_time:
@@ -240,19 +260,23 @@ def train(
             ckpt_dir = output_dir / f"ckpt-{ep}"
             ckpt_dir.mkdir(parents=True, exist_ok=True)
             dev_scores = evaluate(task, dev_data, ckpt_dir, device=device)["scores"]
-            dump_json(dev_scores, ckpt_dir / "dev_loss.json")
-            dump_json(ep_losses, ckpt_dir / "train_loss.json")
-            dev_key = "nmse" if "nmse" in dev_scores["mean"] else objective
-            checkpoints.save_checkpoint(
-                model.state_dict(), ckpt_dir, ep=ep, train_loss=float(np.mean(ep_losses)),
-                dev_loss=float(dev_scores["mean"][dev_key]), time=time.time() - ep_start)
-            checkpoints.save_training_state(output_dir, model, optimizer, scheduler,
-                                            global_step)
-            # Losses before meta: training_meta.json commits the snapshot.
-            dump_json(train_losses, output_dir / "train_losses.json")
-            dump_json(dict(epoch=ep, global_step=global_step), meta_path)
-    dump_json(train_losses, output_dir / "train_losses.json")
-    plot_loss(train_losses, output_dir / "train_losses.png")
+            if mesh.is_main():
+                dump_json(dev_scores, ckpt_dir / "dev_loss.json")
+                dump_json(ep_losses, ckpt_dir / "train_loss.json")
+                dev_key = "nmse" if "nmse" in dev_scores["mean"] else objective
+                checkpoints.save_checkpoint(
+                    model.state_dict(), ckpt_dir, ep=ep, train_loss=float(np.mean(ep_losses)),
+                    dev_loss=float(dev_scores["mean"][dev_key]), time=time.time() - ep_start)
+                checkpoints.save_training_state(output_dir, model, optimizer, scheduler,
+                                                global_step)
+                # Losses before meta: training_meta.json commits the snapshot.
+                dump_json(train_losses, output_dir / "train_losses.json")
+                dump_json(dict(epoch=ep, global_step=global_step), meta_path)
+            mesh.barrier()
+    if mesh.is_main():
+        dump_json(train_losses, output_dir / "train_losses.json")
+        plot_loss(train_losses, output_dir / "train_losses.png")
+    mesh.barrier()
     return train_losses
 
 
@@ -266,15 +290,18 @@ def test(
 ) -> None:
     """Test-split scores of the whole lattice per frame: ``preds.npy``
     (N, H, W, 1), u prediction plots of about five frames under
-    ``images/`` (``src/train.py:76-80``) and ``scores.json``."""
+    ``images/`` (``src/train.py:76-80``) and ``scores.json``; under data
+    parallelism rank 0 writes them and the others wait."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     result = evaluate(task, data, output_dir, device=device, batch_size=batch_size,
                       collect_preds=True)
     preds = result["preds"]
-    if preds is not None:
-        np.save(output_dir / "preds.npy", preds)
-        for i in range(0, preds.shape[0], max(1, preds.shape[0] // 5)):
-            plot_predictions(inp=None, label=data.frames[i, ..., 0], pred=preds[i, ..., 0],
-                             out_dir=output_dir / "images", step=i)
-    dump_json(result["scores"], output_dir / "scores.json")
+    if task.mesh.is_main():
+        if preds is not None:
+            np.save(output_dir / "preds.npy", preds)
+            for i in range(0, preds.shape[0], max(1, preds.shape[0] // 5)):
+                plot_predictions(inp=None, label=data.frames[i, ..., 0], pred=preds[i, ..., 0],
+                                 out_dir=output_dir / "images", step=i)
+        dump_json(result["scores"], output_dir / "scores.json")
+    task.mesh.barrier()

@@ -18,6 +18,14 @@ frames).
   writes ``training_state/`` (weights, EMA, optimizer, step) and
   ``training_meta.json``, from which ``resume`` continues; the run ends
   with ``train_losses.json`` and ``ema_model/``.
+- Data parallelism (``mesh``, ``parallel/mesh.py``): every rank builds the
+  same global batches, padded to a multiple of the rank count with
+  weight-0 rows, and runs its block of rows; the noise, the timesteps and
+  the dropout masks are drawn over the global batch and sliced, the loss
+  is the global batch's weighted mean, and the gradients are averaged over
+  the ranks before the update, so the EMA follows the same update on every
+  rank. Rank 0 samples, writes every file, and the others wait for it at a
+  barrier.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from ..data.pipeline import batches, to_device
 from ..models.diffusion import train_noise_and_t
 from ..models.punetg import PUNetGCFD, dropout_keep_masks
 from ..ops.diffusion import DDPMScheduler, ddpm_sample, make_ddpm_scheduler
+from ..parallel.mesh import SINGLE, DataMesh
 from ..utils.rng import EVAL_KEY, Key, uncond_key
 from . import checkpoints
 
@@ -49,14 +58,19 @@ def make_unet(C: int, base_channels: int, seed: int, device) -> PUNetGCFD:
                      generator=torch.Generator().manual_seed(seed), device=device)
 
 
-def step_loss(unet: PUNetGCFD, scheduler: DDPMScheduler, x, w, key: Key) -> torch.Tensor:
-    """The weighted mean noise mse of one train step (dropout on)."""
-    noise, t = train_noise_and_t(key, x.shape, scheduler.num_train_timesteps, x.device)
+def step_loss(unet: PUNetGCFD, scheduler: DDPMScheduler, x, w, key: Key,
+              mesh: DataMesh = SINGLE) -> torch.Tensor:
+    """The weighted mean noise mse of one train step (dropout on) over the
+    global batch, of which ``x`` and ``w`` are ``mesh``'s block; the draws
+    are made over the global batch and sliced."""
+    shape = mesh.global_shape(x.shape)
+    noise, t = map(mesh.block, train_noise_and_t(key, shape, scheduler.num_train_timesteps,
+                                                 x.device))
     noisy = scheduler.add_noise(x, noise, t)
-    masks = dropout_keep_masks(key, unet.dropout_shapes(x.shape), unet.dropout, x.device)
+    masks = [mesh.block(m) for m in dropout_keep_masks(key, unet.dropout_shapes(shape),
+                                                       unet.dropout, x.device)]
     eps = unet(noisy, t, x.new_zeros((x.shape[0], 1)), masks)
-    per = (eps - noise).square().mean(dim=(1, 2, 3))
-    return (per * w).sum() / w.sum().clamp(min=1.0)
+    return mesh.weighted_mean((eps - noise).square().mean(dim=(1, 2, 3)), w)
 
 
 @torch.no_grad()
@@ -66,12 +80,15 @@ def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor], decay: float
 
 
 def train_step(unet: PUNetGCFD, ema: PUNetGCFD, opt: torch.optim.Optimizer,
-               scheduler: DDPMScheduler, x, w, key: Key) -> torch.Tensor:
+               scheduler: DDPMScheduler, x, w, key: Key,
+               mesh: DataMesh = SINGLE) -> torch.Tensor:
     """One update of ``unet`` and then of its EMA ``ema``; returns the
-    loss, detached, on the device."""
+    loss, detached, on the device. Under data parallelism the gradients
+    are averaged over the ranks before the update."""
     opt.zero_grad(set_to_none=True)
-    loss = step_loss(unet, scheduler, x, w, key)
+    loss = step_loss(unet, scheduler, x, w, key, mesh)
     loss.backward()
+    mesh.average_gradients(unet.parameters())
     opt.step()
     ema_update(list(ema.parameters()), list(unet.parameters()), EMA_DECAY)
     return loss.detach()
@@ -89,9 +106,11 @@ def train_uncond_ddpm(
     base_channels: int = 64,
     seed: int = 0,
     resume: bool = False,
+    mesh: DataMesh = SINGLE,
 ) -> Tuple[PUNetGCFD, PUNetGCFD, List[float]]:
     """Train on ``frames`` (N, H, W, C); returns the network, its EMA (a
-    second network holding the EMA weights) and the per-step losses."""
+    second network holding the EMA weights) and the per-step losses.
+    Under data parallelism (``mesh``) ``batch_size`` is global."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     N, H, W, C = frames.shape
@@ -118,22 +137,27 @@ def train_uncond_ddpm(
         unet.train()
         rows = []
         rng = np.random.default_rng(seed * 65537 + ep)
-        for host in batches(dict(x=frames), batch_size, shuffle=True, rng=rng):
-            batch = to_device(host, device)
+        for host in batches(dict(x=frames), batch_size, shuffle=True, rng=rng,
+                            pad_multiple=mesh.size):
+            batch = to_device(mesh.block(host), device)
             rows.append(train_step(unet, ema, opt, scheduler, batch["x"], batch["weights"],
-                                   uncond_key(seed, step)))
+                                   uncond_key(seed, step), mesh))
             step += 1
         if rows:
             losses += torch.stack(rows).tolist()
         print(f"ep {ep}: loss={np.mean(losses[-10:]):.5f} time={time.time() - start:.0f}s")
-        if (ep + 1) % SAMPLE_EVERY == 0:
-            sample_grid(ema, scheduler, (4, H, W, C), output_dir / f"samples-ep{ep}.png")
-            checkpoints.save_params(ema.state_dict(), output_dir / EMA_DIR)
-        checkpoints.save_params(dict(params=unet.state_dict(), ema_params=ema.state_dict(),
-                                     optimizer=opt.state_dict(), step=step), state_dir)
-        dump_json(dict(epoch=ep, losses=losses), meta_path)
-    dump_json(losses, output_dir / "train_losses.json")
-    checkpoints.save_params(ema.state_dict(), output_dir / EMA_DIR)
+        if mesh.is_main():  # sample_grid runs no collective
+            if (ep + 1) % SAMPLE_EVERY == 0:
+                sample_grid(ema, scheduler, (4, H, W, C), output_dir / f"samples-ep{ep}.png")
+                checkpoints.save_params(ema.state_dict(), output_dir / EMA_DIR)
+            checkpoints.save_params(dict(params=unet.state_dict(), ema_params=ema.state_dict(),
+                                         optimizer=opt.state_dict(), step=step), state_dir)
+            dump_json(dict(epoch=ep, losses=losses), meta_path)
+        mesh.barrier()
+    if mesh.is_main():
+        dump_json(losses, output_dir / "train_losses.json")
+        checkpoints.save_params(ema.state_dict(), output_dir / EMA_DIR)
+    mesh.barrier()
     return unet, ema, losses
 
 

@@ -19,6 +19,14 @@ reference's ``src/train_vae.py`` / ``train_vae_kl_annealing.py``).
   ``global_step``, ``history``), from which ``resume`` continues; the run
   ends with ``loss_history.json``, ``train_loss.png`` and ``val_loss.png``.
 - Per-step losses stay on the device, one transfer per epoch.
+- Data parallelism (``mesh``, ``parallel/mesh.py``): every rank builds
+  the same global batches, padded to a multiple of the rank count with
+  weight-0 rows, and runs its block of rows; the posterior noise is drawn
+  over the global batch and sliced, the weighted means are the global
+  batch's (``DataMesh.weighted_mean``) and the gradients are averaged over
+  the ranks before the update. Every rank so reads the same dev loss, cuts
+  its rate and stops on the same epoch. Rank 0 writes every file and the
+  others wait for it at a barrier.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from ..data.core import dump_json, load_json
 from ..data.pipeline import batches, to_device
 from ..data.vae_data import VaeDataset
 from ..models.vae import AutoencoderKL
+from ..parallel.mesh import SINGLE, DataMesh
 from ..utils.artifacts import plot_loss
 from ..utils.rng import vae_key
 from . import checkpoints
@@ -46,27 +55,27 @@ def host_copy(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
 
 
-def _wmean(per_sample, w):
-    """Mean over the valid (weight-1) samples."""
-    return (per_sample * w).sum() / w.sum().clamp(min=1.0)
-
-
-def loss_parts(vae: AutoencoderKL, frames, w, kl_weight: float, key=None) -> torch.Tensor:
-    """``(3,)``: total, reconstruction and KL loss of one batch; the
-    posterior sampled with ``key``, or its mean when it is None."""
-    recon, posterior = vae(frames, key)
-    recon_loss = _wmean((recon - frames).square().mean(dim=(1, 2, 3)), w)
-    kl_loss = _wmean(posterior.kl(), w)
+def loss_parts(vae: AutoencoderKL, frames, w, kl_weight: float, key=None,
+               mesh: DataMesh = SINGLE) -> torch.Tensor:
+    """``(3,)``: total, reconstruction and KL loss of one batch, each a
+    mean over its valid (weight-1) rows; the posterior sampled with
+    ``key``, or its mean when it is None. ``frames`` and ``w`` are
+    ``mesh``'s block of the batch."""
+    recon, posterior = vae(frames, key, mesh)
+    recon_loss, kl_loss = mesh.weighted_mean(
+        torch.stack([(recon - frames).square().mean(dim=(1, 2, 3)), posterior.kl()], -1), w)
     return torch.stack([recon_loss + kl_weight * kl_loss, recon_loss, kl_loss])
 
 
 def train_step(vae: AutoencoderKL, opt: torch.optim.Optimizer, frames, w, kl_weight: float,
-               key) -> torch.Tensor:
+               key, mesh: DataMesh = SINGLE) -> torch.Tensor:
     """One update on a posterior sample drawn with ``key``; returns the
-    ``(3,)`` loss parts, detached, on the device."""
+    ``(3,)`` loss parts, detached, on the device. Under data parallelism
+    the gradients are averaged over the ranks before the update."""
     opt.zero_grad(set_to_none=True)
-    parts = loss_parts(vae, frames, w, kl_weight, key)
+    parts = loss_parts(vae, frames, w, kl_weight, key, mesh)
     parts[0].backward()
+    mesh.average_gradients(vae.parameters())
     opt.step()
     return parts.detach()
 
@@ -97,9 +106,11 @@ def train_vae(
     early_stopping_delta: float = 1e-5,
     seed: int = 0,
     resume: bool = False,
+    mesh: DataMesh = SINGLE,
 ) -> Dict[str, torch.Tensor]:
     """Train ``vae`` in place; returns the best weights, a state dict on
-    the host."""
+    the host. Under data parallelism (``mesh``) ``batch_size`` is
+    global."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     opt = make_optimizer(vae, lr, weight_decay)
@@ -132,10 +143,11 @@ def train_vae(
         vae.train()
         rows = []
         rng = np.random.default_rng(seed * 7919 + ep)
-        for host in batches(train_arrays, batch_size, shuffle=True, rng=rng):
-            batch = to_device(host, device)
+        for host in batches(train_arrays, batch_size, shuffle=True, rng=rng,
+                            pad_multiple=mesh.size):
+            batch = to_device(mesh.block(host), device)
             rows.append(train_step(vae, opt, batch["frames"], batch["weights"], w,
-                                   vae_key(seed, global_step)))
+                                   vae_key(seed, global_step), mesh))
             global_step += 1
         if rows:
             mat = torch.stack(rows).cpu().numpy()
@@ -144,9 +156,10 @@ def train_vae(
 
         vae.eval()
         with torch.no_grad():
-            rows = [loss_parts(vae, b["frames"], b["weights"], w)
-                    for b in (to_device(h, device)
-                              for h in batches(dev_arrays, batch_size, shuffle=False))]
+            rows = [loss_parts(vae, b["frames"], b["weights"], w, mesh=mesh)
+                    for b in (to_device(mesh.block(h), device)
+                              for h in batches(dev_arrays, batch_size, shuffle=False,
+                                               pad_multiple=mesh.size))]
         val = torch.stack(rows).cpu().numpy() if rows else np.zeros((0, 3))
         val_total = float(np.mean(val[:, 0]))
         for j, k in enumerate(PARTS):
@@ -159,8 +172,9 @@ def train_vae(
         if val_total < best_val - early_stopping_delta:
             best_val, patience, plateau = val_total, 0, 0
             best_params = host_copy(vae.state_dict())
-            checkpoints.save_params(best_params, weights_path)
-            print(f"  new best; weights saved to {weights_path}")
+            if mesh.is_main():
+                checkpoints.save_params(best_params, weights_path)
+                print(f"  new best; weights saved to {weights_path}")
         else:
             patience += 1
             plateau += 1
@@ -170,15 +184,20 @@ def train_vae(
                     group["lr"] = cur_lr
                 plateau = 0
                 print(f"  plateau: lr reduced to {cur_lr:.2e}")
-        checkpoints.save_params(dict(params=vae.state_dict(), optimizer=opt.state_dict(),
-                                     step=global_step), state_dir)
-        dump_json(dict(epoch=ep, best_val=float(best_val), patience=patience, plateau=plateau,
-                       cur_lr=cur_lr, global_step=global_step, history=history), meta_path)
+        if mesh.is_main():
+            checkpoints.save_params(dict(params=vae.state_dict(), optimizer=opt.state_dict(),
+                                         step=global_step), state_dir)
+            dump_json(dict(epoch=ep, best_val=float(best_val), patience=patience,
+                           plateau=plateau, cur_lr=cur_lr, global_step=global_step,
+                           history=history), meta_path)
+        mesh.barrier()
         if patience > early_stopping_patience:
             print("Early stopping.")
             break
 
-    dump_json(history, output_dir / "loss_history.json")
-    plot_loss(history["train_total"], output_dir / "train_loss.png")
-    plot_loss(history["val_total"], output_dir / "val_loss.png")
+    if mesh.is_main():
+        dump_json(history, output_dir / "loss_history.json")
+        plot_loss(history["train_total"], output_dir / "train_loss.png")
+        plot_loss(history["val_total"], output_dir / "val_loss.png")
+    mesh.barrier()
     return best_params

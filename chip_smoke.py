@@ -162,9 +162,23 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    within DP_RTOL; one float64 train step of the U-Net and of pixel
    diffusion from the same weights on a padded global batch of
    DP_UNET_BATCH, the scores, the gradients, the parameters and the
-   running statistics within DP_RTOL. Parameters identical on both ranks, each
-   rank's launches those of the one-process run. Two ranks on one card
-   measure correctness, not scaling. (c) The flagship's b128 train step by
+   running statistics within DP_RTOL. Then the other trainers at their
+   default widths: ``main_train`` (the FFN and the DeepONet at width 100,
+   depth 8) one epoch at DP_BATCH with its dev evaluation and test,
+   ``main_gencast`` (PUNetG base 64) one epoch at DP_UNET_BATCH with
+   ``--gradient_accumulation_steps 2``, its dev and test frames at
+   MP_INFERENCE_STEPS, ``main_vae`` (lite) at DP_UNET_BATCH until its
+   early stop, its rate cut twice on the way (``--lr_scheduler_patience
+   0``), and ``main_uncond`` (PUNetG base 64) one epoch at DP_UNET_BATCH,
+   each last batch padded: every number of their loss and score files
+   within DP_RTOL of one process's, the FFN's and DeepONet's weights too;
+   GenCast's dev nmse and the VAE's dev losses, rate cuts and stopping
+   epoch as each rank printed them, alike on both ranks and in one
+   process; and one float64 step of each from the same weights on a padded
+   global batch with real rows on both ranks, the scores, gradients and
+   parameters within DP_RTOL. Parameters identical on both ranks, each
+   rank's launches those of the one-process run (none for the other
+   trainers). Two ranks on one card measure correctness, not scaling. (c) The flagship's b128 train step by
    CUDA events in one process, in an NCCL group of one rank, and in that
    group with the collectives of several ranks forced.
 
@@ -173,8 +187,9 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
 main_auto's, one served predict call's and one served rollout's
 (phase 11b), main_auto's with ``--use_mixed_precision`` and
 main_multistep's with ``--rollout_dtype bfloat16`` (phase 12), and each
-rank's main_auto and main_multistep under data parallelism (phase 13:
-``dp_torchrun_*``, ``dp2_rank{r}_*``), each read from counters set to 0
+rank's main_auto, main_multistep, main_train, main_gencast, main_vae and
+main_uncond under data parallelism (phase 13: ``dp_torchrun_*``,
+``dp2_rank{r}_*``), each read from counters set to 0
 just before the run and read just after it. The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 It needs a CUDA device and fails without one.
@@ -186,6 +201,7 @@ import importlib.util
 import itertools
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -306,6 +322,18 @@ DP_RTOL = 1e-5
 # alone; two ranks may part by at most DP_DRIFT_FACTOR times as much, plus
 # DP_RTOL.
 DP_DRIFT_FACTOR = 4.0
+# Phase 13b's other trainers, at their default widths on the same tree:
+# main_train (FFN, DeepONet) one epoch at DP_BATCH (a full batch and one of
+# 61 real rows); main_gencast, main_vae and main_uncond at DP_UNET_BATCH
+# (their last batch padded). The VAE's huge --early_stopping_delta makes no
+# epoch after the first a new best: at --lr_scheduler_patience 0 the rate is
+# cut after epochs 1 and 2, and at --early_stopping_patience 1 the run stops
+# after epoch 2, before DP_VAE_EPOCHS.
+DP_TRAINERS = ("main_train", "main_gencast", "main_vae", "main_uncond")
+DP_VAE_EPOCHS = 4
+# Their float64 steps take DP_UNET_BATCH rows of which these are real: rank
+# 0's block is all real rows, rank 1's real rows and padding.
+DP_TRAINER_STEP_VALID = 24
 DP_TIMING_ROUNDS = 12
 # An H100 SXM's published peaks (NVIDIA's data sheet, dense rates): device
 # memory bytes/s, TF32 FLOP/s on the tensor cores and float32 FLOP/s outside
@@ -2274,7 +2302,8 @@ def dp_jobs(data_root: Path, out: Path, mesh: str):
     one test case out (padded to DP_RANKS); the U-Net trains an epoch at
     DP_UNET_BATCH (its last batch padded), pixel diffusion two steps at
     DP_BATCH; then one train step each of the U-Net and of pixel diffusion
-    (entry ``step``, :func:`dp_step`)."""
+    (entry ``step``, :func:`dp_step`); then the other trainers'
+    (:func:`dp_trainer_jobs`)."""
     data = ["--data_name", "cavity_prop_bc_geo", "--data_dir", str(data_root),
             "--output_dir", str(out), "--mesh_shape", mesh, "--log_interval", "100"]
     fno = fno_argv(data_root, out) + ["--mesh_shape", mesh]
@@ -2294,7 +2323,32 @@ def dp_jobs(data_root: Path, out: Path, mesh: str):
             "--ldm_num_inference_steps", MP_INFERENCE_STEPS] + data),
         ("unet_step", "step", ["--model", "unet"]),
         ("pixel_diffusion_step", "step", ["--model", "pixel_diffusion"]),
-    ]
+    ] + dp_trainer_jobs(data_root, out, mesh)
+
+
+def dp_trainer_jobs(data_root: Path, out: Path, mesh: str):
+    """The runs of main_train (FFN and DeepONet, --mode train_test),
+    main_gencast (--mode train_test, --gradient_accumulation_steps 2, the
+    frames at MP_INFERENCE_STEPS), main_vae and main_uncond, one epoch each
+    (the VAE until it stops), at their default widths; then one float64
+    train step of each (entry ``step``)."""
+    data = ["--data_name", "cavity_prop_bc_geo", "--data_dir", str(data_root),
+            "--output_dir", str(out), "--mesh_shape", mesh, "--num_epochs", "1"]
+    train = data + ["--mode", "train_test", "--eval_interval", "1", "--log_interval", "100"]
+    return [
+        ("ffn", "main_train", ["--model", "ffn", "--batch_size", str(DP_BATCH)] + train),
+        ("deeponet", "main_train", ["--model", "deeponet", "--batch_size", str(DP_BATCH)] + train),
+        ("gencast", "main_gencast", [
+            "--model", "gencast", "--batch_size", str(DP_UNET_BATCH), "--eval_batch_size",
+            str(DP_UNET_BATCH), "--gradient_accumulation_steps", "2", "--max_eval_batches", "1",
+            "--ldm_num_inference_steps", MP_INFERENCE_STEPS] + train),
+        ("vae", "main_vae", data + [
+            "--batch_size", str(DP_UNET_BATCH), "--num_epochs", str(DP_VAE_EPOCHS),
+            "--lr_scheduler_patience", "0", "--early_stopping_patience", "1",
+            "--early_stopping_delta", "1e9", "--ldm_vae_weights_path", str(out / "vae_weights")]),
+        ("uncond", "main_uncond", data + ["--batch_size", str(DP_UNET_BATCH)]),
+    ] + [(f"{name}_step", "step", ["--model", name])
+         for name in ("ffn", "deeponet", "gencast", "vae", "uncond")]
 
 
 def dp_step(argv, device) -> dict:
@@ -2316,6 +2370,8 @@ def dp_step(argv, device) -> dict:
 
     args = parse_args(argv + ["--data_name", "cavity_prop_bc_geo"])
     mesh = make_mesh("auto", dist.group.WORLD if dist.is_initialized() else None)
+    if args.model in ("ffn", "deeponet", "gencast", "vae", "uncond"):
+        return dp_trainer_step(args, mesh, device)
     task = make_auto_task(args, 5, (GRID, GRID), device)
     task.model.double()
     use_mesh(task, mesh)
@@ -2332,6 +2388,108 @@ def dp_step(argv, device) -> dict:
                 names=[k for k, _ in model.named_parameters()])
 
 
+def dp_step_batch():
+    """A seeded global batch of DP_UNET_BATCH rows on the host, the rows
+    past DP_TRAINER_STEP_VALID weight-0 padding."""
+    batch = train_inputs(DP_UNET_BATCH, torch.Generator().manual_seed(SEED + 13), "cpu")
+    batch["inputs_prev"] = torch.randn((DP_UNET_BATCH, GRID, GRID, 2),
+                                       generator=torch.Generator().manual_seed(SEED + 14))
+    batch["t"] = torch.arange(DP_UNET_BATCH, dtype=torch.float32)[:, None] % STEPS
+    for v in batch.values():
+        v[DP_TRAINER_STEP_VALID:] = 0
+    return batch
+
+
+def dp_trainer_step(args, mesh, device) -> dict:
+    """:func:`dp_step` for the other trainers, in float64, each its own
+    step from ``--seed``'s init on this rank's block of
+    :func:`dp_step_batch`: main_train's (the step's query points, alike on
+    every rank), GenCast's two steps through its optimizer (which averages
+    the gradients: the gradients returned are the first step's, averaged
+    here as it averages them; the first update runs at the warmup's rate of
+    0, the second at ``--lr``), the VAE's (its
+    posterior noise over the global batch) and the unconditional DDPM's
+    (its noise, timesteps and dropout masks over the global batch)."""
+    from cfdbench_tpu_torch.metrics import loss_name_to_fn
+    from cfdbench_tpu_torch.models import init_gencast, init_nonauto_model, make_cfd_vae
+    from cfdbench_tpu_torch.training import trainer_nonauto, trainer_uncond, trainer_vae
+    from cfdbench_tpu_torch.training.optim import make_adam, make_gencast_tx
+    from cfdbench_tpu_torch.training.trainer_auto import use_mesh
+    from cfdbench_tpu_torch.utils.rng import train_key, uncond_key, vae_key
+
+    host = dp_step_batch()
+    block = {k: v.to(device, torch.float64) for k, v in mesh.block(host).items()}
+    gen = torch.Generator().manual_seed(args.seed)
+    loss_fn = loss_name_to_fn("nmse")
+    if args.model in ("ffn", "deeponet"):
+        net = init_nonauto_model(args, 5, generator=gen, device=device).double()
+        task = trainer_nonauto.NonAutoTask(net, loss_fn)
+        use_mesh(task, mesh)
+        opt, sched = make_adam(net.parameters(), args.lr)
+        block["labels"] = block["labels"][..., :1]
+        q = trainer_nonauto.draw_query_idxs(args.seed, 0, task.num_label_samples, GRID, GRID,
+                                            device)
+        scores = trainer_nonauto.train_step(task, opt, sched, block, q)
+        grads = {k: p.grad.cpu() for k, p in net.named_parameters()}
+    elif args.model == "gencast":
+        task = init_gencast(args, GEN_STATS, 5, loss_fn, generator=gen, device=device)
+        net = task.model.double()
+        use_mesh(task, mesh)
+        # The first update runs at the warmup's rate of 0, the second at lr.
+        opt = make_gencast_tx(net.parameters(), args.lr, total_steps=2, warmup_steps=1,
+                              mesh=mesh)
+        for i in range(2):
+            opt.zero_grad(set_to_none=True)
+            loss, s = task.loss_scores(block, train_key(args.seed, i))
+            loss.backward()
+            if i == 0:
+                scores = s
+                grads = {k: (mesh.sum(p.grad) / mesh.size).cpu()
+                         for k, p in net.named_parameters()}
+            opt.step()
+    elif args.model == "vae":
+        latent = args.z_channels if args.vae_variant == "custom" else args.ldm_latent_dim
+        net = make_cfd_vae(args.vae_variant, 2, 2, latent, ch=args.ch,
+                           ch_mult=tuple(args.ch_mult), num_res_blocks=args.num_res_blocks,
+                           generator=gen, device=device).double()
+        opt = trainer_vae.make_optimizer(net, args.lr, 0.0)
+        parts = trainer_vae.train_step(net, opt, block["labels"], block["weights"], 1e-4,
+                                       vae_key(args.seed, 0), mesh)
+        scores = dict(zip(trainer_vae.PARTS, parts))
+        grads = {k: p.grad.cpu() for k, p in net.named_parameters()}
+    else:
+        net = trainer_uncond.make_unet(2, args.pixel_diffusion_base_channels, args.seed,
+                                       device).double()
+        ema = trainer_uncond.make_unet(2, args.pixel_diffusion_base_channels, args.seed,
+                                       device).double()
+        opt = torch.optim.AdamW(net.parameters(), args.lr, weight_decay=trainer_uncond.WEIGHT_DECAY)
+        sched = trainer_uncond.make_ddpm_scheduler(args.ldm_noise_scheduler_timesteps, device)
+        loss = trainer_uncond.train_step(net, ema, opt, sched, block["labels"], block["weights"],
+                                         uncond_key(args.seed, 0), mesh)
+        scores = dict(loss=loss)
+        grads = {k: p.grad.cpu() for k, p in net.named_parameters()}
+    return dict(scores={k: v.item() for k, v in scores.items()}, lr=args.lr, grads=grads,
+                state={k: v.detach().cpu() for k, v in net.state_dict().items()},
+                names=[k for k, _ in net.named_parameters()])
+
+
+class Tee:
+    """Standard output kept as well as printed."""
+
+    def __init__(self):
+        self.parts, self.out = [], sys.stdout
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
 def dp_run(jobs, device, rank: int = 0) -> dict:
     """Each job through its entry point on ``device``: the launches it
     made, and main_auto's trained weights (and their order as parameters),
@@ -2339,19 +2497,29 @@ def dp_run(jobs, device, rank: int = 0) -> dict:
     from cfdbench_tpu_torch import cli
     from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
 
+    import contextlib
+
     result = {}
     for name, entry, argv in jobs:
         reset_launch_counts()
         if entry == "step":
             r = dp_step(argv, device)
         else:
-            out = getattr(cli, entry)(argv, device=device)
-            r = {}
+            tee = Tee()
+            with contextlib.redirect_stdout(tee):
+                out = getattr(cli, entry)(argv, device=device)
+            r = {"printed": tee.text()}
             if entry == "main_multistep":
                 r["frames"] = out.cpu()
             else:
-                r["state"] = {k: v.detach().cpu() for k, v in out.model.state_dict().items()}
-                r["names"] = [k for k, _ in out.model.named_parameters()]
+                # The trained weights: the task's model's, the DDPM's network's,
+                # or the VAE's best (main_vae returns a state dict).
+                model = (None if entry == "main_vae" else out[0] if entry == "main_uncond"
+                         else out.model)
+                state = out if model is None else model.state_dict()
+                r["state"] = {k: v.detach().cpu() for k, v in state.items()}
+                r["names"] = (list(state) if model is None
+                              else [k for k, _ in model.named_parameters()])
         r["launches"] = launch_counts()
         result[name] = r
         print(f"[dp] rank {rank} {name}: launches {r['launches']}")
@@ -2375,31 +2543,48 @@ def dp_rank(rank: int, world: int, root: str, jobs, device: str) -> None:
 
 
 class permuted_train_rows:
-    """Within it, ``trainer_auto`` trains on every shuffled batch with its
-    rows permuted (a seeded permutation a batch): the same sums in another
-    order, the control of the U-Net's drift."""
+    """Within it, ``trainer_auto`` and ``trainer_vae`` train on every
+    shuffled batch with its rows permuted (a seeded permutation a batch),
+    and the VAE's posterior noise of that batch with them: the same sums in
+    another order, the control of the U-Net's and the VAE's drift."""
 
     def __enter__(self):
         import numpy as np
 
-        from cfdbench_tpu_torch.training import trainer_auto
+        from cfdbench_tpu_torch.models import vae
+        from cfdbench_tpu_torch.training import trainer_auto, trainer_vae
 
-        self.real = real = trainer_auto.batches
+        self.modules = (trainer_auto, trainer_vae)
+        real = trainer_auto.batches
+        self.real_noise = real_noise = vae.posterior_noise
+        rows = {}
 
         def batches(arrays, batch_size, shuffle, rng=None, pad_multiple=1):
             for i, b in enumerate(real(arrays, batch_size, shuffle, rng=rng,
                                        pad_multiple=pad_multiple)):
+                rows.pop("perm", None)
                 if shuffle:
-                    p = np.random.default_rng(SEED + i).permutation(len(b["weights"]))
+                    p = rows["perm"] = np.random.default_rng(SEED + i).permutation(
+                        len(b["weights"]))
                     b = {k: v[p] for k, v in b.items()}
                 yield b
 
-        trainer_auto.batches = batches
+        def posterior_noise(key, shape, device):
+            noise = real_noise(key, shape, device)
+            p = rows.get("perm")  # row i of the batch was row p[i]
+            return noise if p is None else noise[torch.as_tensor(p, device=noise.device)]
+
+        self.real = real
+        for module in self.modules:
+            module.batches = batches
+        vae.posterior_noise = posterior_noise
 
     def __exit__(self, *exc):
-        from cfdbench_tpu_torch.training import trainer_auto
+        from cfdbench_tpu_torch.models import vae
 
-        trainer_auto.batches = self.real
+        for module in self.modules:
+            module.batches = self.real
+        vae.posterior_noise = self.real_noise
 
 
 def dp_params(got: dict, want: dict, names, what: str) -> float:
@@ -2449,6 +2634,98 @@ def losses_rel(got_run: Path, want_run: Path) -> float:
     return max(abs(g - w) / abs(w) for g, w in zip(got, want))
 
 
+def trainer_run(entry: str, argv) -> Path:
+    """The result directory of an entry point's run with ``argv``."""
+    from cfdbench_tpu_torch.cli import parse_args, run_dir
+
+    args = parse_args(argv)
+    if entry == "main_vae":
+        return Path(args.output_dir) / "vae" / args.data_name
+    if entry == "main_uncond":
+        return Path(args.output_dir) / "uncond_ddpm" / args.data_name
+    return run_dir(args)
+
+
+def json_numbers(obj) -> list:
+    """The numbers of a JSON value, in key order."""
+    if isinstance(obj, dict):
+        return [x for k in sorted(obj) for x in json_numbers(obj[k])]
+    if isinstance(obj, list):
+        return [x for v in obj for x in json_numbers(v)]
+    return [obj]
+
+
+def vae_epochs(printed: str):
+    """What a rank printed of each VAE epoch: its number and the dev loss it
+    read, each rate it cut to, and whether it stopped early."""
+    return (re.findall(r"ep (\d+): val_total=(\S+) ", printed),
+            re.findall(r"plateau: lr reduced to (\S+)", printed), "Early stopping." in printed)
+
+
+def dp_trainer_check(name: str, entry: str, argv, ranks, want, control=None) -> None:
+    """Phase 13b's checks of main_train's, main_gencast's, main_vae's and
+    main_uncond's runs on two ranks against one process's (the launches and
+    the equal weights of the ranks are checked with the others): every
+    number of the files that hold the losses and scores within DP_RTOL
+    (relative), or, given the ``control`` run (one process, rows permuted:
+    the VAE's, whose one-channel GroupNorms leave biases whose gradient is
+    rounding, which Adam amplifies over its steps), within DP_DRIFT_FACTOR
+    times the control's distance plus DP_RTOL; GenCast's dev nmse, as each
+    rank printed it, alike; the VAE's dev losses, its rate cuts (at least
+    one) and its early stop, as each rank printed them, alike, and the
+    cuts and the stop those of one process."""
+    files = {"main_train": ["train_losses.json", "ckpt-0/dev_loss.json", "test/scores.json"],
+             "main_gencast": ["ckpt-0/dev_scores.json", "training_meta.json",
+                              "test/scores.json"],
+             "main_vae": ["loss_history.json", "training_meta.json"],
+             "main_uncond": ["train_losses.json"]}[entry]
+    mesh_run = trainer_run(entry, argv)
+    single_run = WORK / "dp_single" / mesh_run.relative_to(WORK / "dp_mesh")
+    what = f"{name}, {DP_RANKS} ranks against one process"
+
+    def rel(run, f):
+        got, ref = (json_numbers(json.loads((r / f).read_text())) for r in (run, single_run))
+        if len(got) != len(ref):
+            raise RuntimeError(f"{what}: {f} holds {len(got)} numbers against {len(ref)}")
+        return len(got), max(abs(g - w) / abs(w) if w else abs(g) for g, w in zip(got, ref))
+
+    for f in files:
+        n, worst = rel(mesh_run, f)
+        bound, against = DP_RTOL, ""
+        if control is not None:
+            ctl = rel(WORK / "dp_control" / mesh_run.relative_to(WORK / "dp_mesh"), f)[1]
+            bound = DP_DRIFT_FACTOR * ctl + DP_RTOL
+            against = f"; the permuted-row control {ctl:.3e}"
+        print(f"[dp] {what}: {f}, {n} numbers, max rel diff {worst:.3e}{against} "
+              f"(bound {bound:.3e})")
+        if not worst <= bound:
+            raise RuntimeError(f"{what}: {f} disagrees, {worst:.3e}")
+    params_rel = dp_params(ranks[0]["state"], want["state"], want["names"], what)
+    # The FFN's and the DeepONet's gradients stay clear of rounding level:
+    # their weights are held, as the FNO's are. The PUNetG's and the VAE's
+    # GroupNorms cancel biases whose gradient is rounding, which Adam turns
+    # into steps of +-lr; their steps are held in float64 (entry "step").
+    if entry == "main_train" and not params_rel <= DP_RTOL:
+        raise RuntimeError(f"{what}: parameters disagree, {params_rel:.3e}")
+    if entry == "main_gencast":
+        lines = [re.findall(r"ep \d+: dev nmse = \S+", r["printed"]) for r in ranks + [want]]
+        if not lines[0] or any(x != lines[0] for x in lines):
+            raise RuntimeError(f"{what}: the ranks printed dev nmse {lines}")
+    if entry == "main_vae":
+        seen = [vae_epochs(r["printed"]) for r in ranks]
+        one = vae_epochs(want["printed"])
+        epochs, cuts, stopped = seen[0]
+        print(f"[dp] {what}: each rank read the dev losses {[v for _, v in epochs]}, cut its "
+              f"rate to {cuts} and stopped after epoch {epochs[-1][0] if epochs else None}; one "
+              f"process {[v for _, v in one[0]]}, {one[1]}")
+        if not (cuts and stopped and all(x == seen[0] for x in seen)):
+            raise RuntimeError(f"{what}: the ranks' epochs differ or never cut and stopped: "
+                               f"{seen}")
+        if [e for e, _ in epochs] != [e for e, _ in one[0]] or cuts != one[1]:
+            raise RuntimeError(f"{what}: the ranks stopped or cut otherwise than one process: "
+                               f"{seen[0]} against {one}")
+
+
 def dp_two_ranks(device) -> dict:
     """Phase 13b: DP_RANKS ranks on the one card in a gloo group the
     caller initialises, against one process; returns each rank's launches
@@ -2466,11 +2743,13 @@ def dp_two_ranks(device) -> dict:
                      seed=SEED)
     single_jobs = dp_jobs(data_root, WORK / "dp_single", "1")
     single = dp_run(single_jobs, device)
-    unet_argv = dict((n, a) for n, _, a in single_jobs)["unet"]
-    control_argv = [str(WORK / "dp_control") if a == str(WORK / "dp_single") else a
-                    for a in unet_argv]
+    argvs = {n: [a.replace(str(WORK / "dp_single"), str(WORK / "dp_control")) for a in argv]
+             for n, _, argv in single_jobs}
     with permuted_train_rows():
-        control = dp_run([("unet_control", "main_auto", control_argv)], device)["unet_control"]
+        ran = dp_run([("unet_control", "main_auto", argvs["unet"]),
+                      ("vae_control", "main_vae", argvs["vae"])], device)
+    controls = {name: ran[f"{name}_control"] for name in ("unet", "vae")}
+    control = controls["unet"]
     root = WORK / "dp_ranks"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
@@ -2491,6 +2770,9 @@ def dp_two_ranks(device) -> dict:
             if name.startswith("fno") and device.type == "cuda" and not all(
                     got["launches"].values()):
                 raise RuntimeError(f"{name} rank {r}: a kernel never launched")
+            if entry in DP_TRAINERS and any(got["launches"].values()):
+                raise RuntimeError(f"{name} rank {r}: launched {got['launches']}; these "
+                                   "trainers run no FNO")
         if entry == "main_multistep":
             for r, result in enumerate(ranks):
                 err = max_rel(result[name]["frames"], want["frames"])
@@ -2505,6 +2787,10 @@ def dp_two_ranks(device) -> dict:
             dp_step_check(name, ranks[0][name], want, what)
             continue
         if name == "fno_test":  # the best checkpoint, loaded: scores below
+            continue
+        if entry in DP_TRAINERS:
+            dp_trainer_check(name, entry, argv, [r[name] for r in ranks], want,
+                             controls.get(name))
             continue
         mesh_run = run_dir(parse_args(argv))
         single_run = WORK / "dp_single" / mesh_run.relative_to(WORK / "dp_mesh")
@@ -2540,7 +2826,9 @@ def dp_two_ranks(device) -> dict:
         k: sum(ranks[r][n]["launches"][k] for n in names) for k in ("fno_block", "fno_head")}
         for r in range(DP_RANKS)
         for path, names in (("main_auto", ("fno", "fno_test")),
-                            ("main_multistep", ("fno_multistep",)))}
+                            ("main_multistep", ("fno_multistep",)),
+                            ("main_train", ("ffn", "deeponet")), ("main_gencast", ("gencast",)),
+                            ("main_vae", ("vae",)), ("main_uncond", ("uncond",)))}
 
 
 def dp_step_timing(device, card) -> dict:

@@ -1,6 +1,6 @@
 """One rank of a data-parallel run of the port, spawned by
-``tests/test_torch_parallel.py`` (and importable without JAX, so that the
-spawned processes stay light).
+``tests/test_torch_parallel.py`` and ``tests/test_torch_parallel_trainers.py``
+(and importable without JAX, so that the spawned processes stay light).
 
 :func:`run` joins a gloo group through a file under the test's temporary
 directory (never a TCP port: several test workers run at once), runs the
@@ -9,6 +9,9 @@ job that the test saved beside it, and saves this rank's results.
 
 from __future__ import annotations
 
+import contextlib
+import io
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -121,12 +124,227 @@ def make_task(model: str, widths: dict, loss_fn=None, compute_dtype=None):
 GENCAST_STATS = ((0.1, -0.2), (0.5, 2.0))
 
 
-def run_cli(calls, init_state):
+class _Tee(io.StringIO):
+    """Keeps what is written and passes it on to ``out``."""
+
+    def __init__(self, out):
+        super().__init__()
+        self.out = out
+
+    def write(self, text):
+        self.out.write(text)
+        return super().write(text)
+
+
+def fixed_draws(draws: dict):
+    """Replacements for the port's draw functions that return the global
+    draws the test made, by key: ``noise_and_t[key] = (noise, t)``,
+    ``masks[key]``, ``posterior[key]``."""
+    def noise_and_t(key, shape, T, device):
+        noise, t = draws["noise_and_t"][key]
+        assert tuple(shape) == noise.shape, (shape, noise.shape)
+        return torch.from_numpy(noise), torch.from_numpy(t)
+
+    def masks(key, shapes, rate, device):
+        got = draws["masks"][key]
+        assert [tuple(s) for s in shapes] == [m.shape for m in got]
+        return [torch.from_numpy(m) for m in got]
+
+    def posterior(key, shape, device):
+        noise = draws["posterior"][key]
+        assert tuple(shape) == noise.shape, (shape, noise.shape)
+        return torch.from_numpy(noise)
+
+    return noise_and_t, masks, posterior
+
+
+@contextlib.contextmanager
+def patched(sites):
+    """Each ``(module, name, value)`` of ``sites`` set within."""
+    originals = [(m, name, getattr(m, name)) for m, name, _ in sites]
+    for m, name, value in sites:
+        setattr(m, name, value)
+    try:
+        yield
+    finally:
+        for m, name, value in originals:
+            setattr(m, name, value)
+
+
+def injected(draws):
+    """The port's draw functions replaced by :func:`fixed_draws` within."""
+    from cfdbench_tpu_torch.models import diffusion, vae
+    from cfdbench_tpu_torch.training import trainer_uncond
+
+    noise_and_t, masks, posterior = fixed_draws(draws or {})
+    return patched([(diffusion, "train_noise_and_t", noise_and_t),
+                    (diffusion, "dropout_keep_masks", masks),
+                    (trainer_uncond, "train_noise_and_t", noise_and_t),
+                    (trainer_uncond, "dropout_keep_masks", masks),
+                    (vae, "posterior_noise", posterior)])
+
+
+def four_groups():
+    """The PUNetG's and the VAE's GroupNorms at four groups while built, as
+    the tests build both packages' (``test_torch_diffusion.four_groups``)."""
+    from cfdbench_tpu_torch.models import punetg, vae
+    from cfdbench_tpu_torch.models.common import num_groups_for
+
+    def four(groups, c):
+        return num_groups_for(4, c)
+
+    return patched([(punetg, "num_groups_for", four), (vae, "num_groups_for", four)])
+
+
+def trainer_net(case: dict):
+    """``(network, what a step takes)`` of a trainer case, its weights from
+    ``case["state"]``: a ``NonAutoTask``, a GenCast task, a VAE, or the
+    unconditional PUNetG."""
+    from cfdbench_tpu_torch.config import Args
+    from cfdbench_tpu_torch.metrics import loss_name_to_fn
+    from cfdbench_tpu_torch.models import init_nonauto_model, make_cfd_vae
+    from cfdbench_tpu_torch.training.trainer_nonauto import NonAutoTask
+
+    model = case["model"]
+    with four_groups():
+        if model in ("ffn", "deeponet"):
+            net = init_nonauto_model(Args.parse_args(case["flags"]), n_case_params=5)
+            task = NonAutoTask(net, loss_name_to_fn("nmse"))
+        elif model == "gencast":
+            task = make_task("gencast", case["widths"], loss_name_to_fn("nmse"))
+            net = task.model
+        elif model == "vae":
+            task = net = make_cfd_vae(**case["widths"], generator=torch.Generator())
+        else:
+            task = net = make_uncond_unet(case)
+    net.load_state_dict(case["state"])
+    return net, task
+
+
+def make_uncond_unet(case: dict):
+    from cfdbench_tpu_torch.training import trainer_uncond
+
+    with four_groups():
+        return trainer_uncond.make_unet(2, case["widths"]["base_channels"], 0, "cpu")
+
+
+def trainer_step(case: dict, mesh):
+    """A trainer's step of ``case`` on ``mesh``'s block of each of its
+    global batches, the draws the test made injected: ``main_train``'s
+    (``trainer_nonauto.train_step`` at the case's query points), GenCast's
+    (micro-steps through ``GenCastAdamW``), the VAE's
+    (``trainer_vae.train_step``) or the unconditional DDPM's
+    (``trainer_uncond.train_step``, its EMA). Returns the first step's
+    scores, network output (gathered) and gradients (averaged over the
+    ranks), and the parameters after the last step."""
+    from cfdbench_tpu_torch.training import trainer_nonauto, trainer_uncond, trainer_vae
+    from cfdbench_tpu_torch.training.optim import make_adam, make_gencast_tx
+    from cfdbench_tpu_torch.training.trainer_auto import use_mesh
+
+    net, task = trainer_net(case)
+    model = case["model"]
+    params = dict(net.named_parameters())
+    outputs, grads, scores = [], [], []
+    hooked = net.decoder if model == "vae" else net  # the VAE's reconstruction
+    hook = hooked.register_forward_hook(lambda m, i, o: outputs.append(o.detach()))
+
+    def averaged_grads():
+        # GenCast's optimizer averages a flat copy; the test reads the average.
+        return {k: mesh.sum(p.grad.clone()) / mesh.size for k, p in params.items()}
+
+    if model in ("ffn", "deeponet", "gencast"):
+        use_mesh(task, mesh)
+    if model in ("ffn", "deeponet"):
+        opt, sched = make_adam(net.parameters(), case["lr"], steps_per_epoch=10)
+    elif model == "gencast":
+        opt = make_gencast_tx(net.parameters(), case["lr"], total_steps=len(case["batches"]),
+                              warmup_steps=1, weight_decay=case["weight_decay"],
+                              grad_accum_steps=case["accum"], mesh=mesh)
+    elif model == "vae":
+        opt = trainer_vae.make_optimizer(net, case["lr"], 0.0)
+    else:
+        opt = torch.optim.AdamW(net.parameters(), case["lr"],
+                                weight_decay=trainer_uncond.WEIGHT_DECAY)
+        ema = make_uncond_unet(case)
+        ema.load_state_dict(case["state"])
+        sched = trainer_uncond.make_ddpm_scheduler(case["widths"]["timesteps"])
+    try:
+        with injected(case.get("draws")):
+            for host, key in zip(case["batches"], case["keys"]):
+                b = {k: torch.from_numpy(v) for k, v in mesh.block(host).items()}
+                if model in ("ffn", "deeponet"):
+                    s = trainer_nonauto.train_step(task, opt, sched, b, torch.from_numpy(key))
+                    s = {k: float(v) for k, v in s.items()}
+                    grads.append({k: p.grad.clone() for k, p in params.items()})
+                elif model == "gencast":
+                    opt.zero_grad(set_to_none=True)
+                    loss, s = task.loss_scores(b, key)
+                    loss.backward()
+                    grads.append(averaged_grads())
+                    opt.step()
+                    s = {k: v.item() for k, v in s.items()}
+                elif model == "vae":
+                    parts = trainer_vae.train_step(net, opt, b["frames"], b["weights"],
+                                                   case["kl_weight"], key, mesh)
+                    s = dict(zip(trainer_vae.PARTS, parts.tolist()))
+                    grads.append({k: p.grad.clone() for k, p in params.items()})
+                else:
+                    loss = trainer_uncond.train_step(net, ema, opt, sched, b["x"], b["weights"],
+                                                     key, mesh)
+                    s = dict(loss=float(loss))
+                    grads.append({k: p.grad.clone() for k, p in params.items()})
+                scores.append(s)
+    finally:
+        hook.remove()
+    result = dict(scores=scores[0], grads=grads[0], output=mesh.gather(outputs[0].float()),
+                  params={k: p.detach().clone() for k, p in params.items()})
+    if model == "uncond":
+        result["ema"] = {k: p.detach().clone() for k, p in ema.named_parameters()}
+    return result
+
+
+def gate(case: dict, mesh):
+    """``GenCastAdamW`` on parameters whose gradients each rank sets to its
+    own (``case["grads"][step][rank]``); the parameters after each step."""
+    from cfdbench_tpu_torch.training.optim import make_gencast_tx
+
+    params = [torch.nn.Parameter(torch.from_numpy(a)) for a in case["start"]]
+    opt = make_gencast_tx(params, case["lr"], mesh=mesh, **case["kw"])
+    history = []
+    for per_rank in case["grads"]:
+        for p, g in zip(params, per_rank[mesh.rank]):
+            p.grad = torch.from_numpy(g)
+        opt.step()
+        history.append([p.detach().clone() for p in params])
+    return history
+
+
+def returned_state(out):
+    """The trained weights an entry point returned: a task's model's, the
+    VAE's best (a state dict), the unconditional DDPM's network's."""
+    if isinstance(out, dict):
+        return out
+    model = out[0] if isinstance(out, tuple) else out.model
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def run_cli(calls, init_state, query_draws=None):
     """``(entry, argv)`` calls of the port's CLI on the CPU, in order; the
     autoregressive model starts from ``init_state`` when given (the JAX
-    trainer's initial weights). Returns main_multistep's frames."""
+    trainer's initial weights), and ``main_train`` takes global step s's
+    query points from ``query_draws[s]`` when given (the JAX trainer's).
+    Returns main_multistep's frames, and each other call's trained weights
+    and printed output."""
     from cfdbench_tpu_torch import cli
     from cfdbench_tpu_torch.models import init_auto_model
+    from cfdbench_tpu_torch.training import trainer_nonauto
+
+    if query_draws is not None:
+        def sample_query_idxs(seed, step, k, height, width):
+            assert query_draws[step].shape == (k, 2)
+            return torch.from_numpy(query_draws[step])
+
+        trainer_nonauto.sample_query_idxs = sample_query_idxs
 
     if init_state is not None:
         def init_from(*args, **kwargs):
@@ -135,12 +353,17 @@ def run_cli(calls, init_state):
             return model
 
         cli.init_auto_model = init_from
-    frames = []
+    frames, states, printed = [], [], []
     for entry, argv in calls:
-        out = getattr(cli, entry)(argv, device="cpu")
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            out = getattr(cli, entry)(argv, device="cpu")
+        printed.append(tee.getvalue())
         if entry == "main_multistep":
             frames.append(out)
-    return dict(frames=frames)
+        else:
+            states.append(returned_state(out))
+    return dict(frames=frames, states=states, printed=printed)
 
 
 def run(rank: int, world: int, root: str) -> None:
@@ -158,8 +381,11 @@ def run(rank: int, world: int, root: str) -> None:
             result = {name: host_step(case, mesh) for name, case in job["cases"].items()}
             result["samples"] = {name: host_sample(case, mesh)
                                  for name, case in job["samples"].items()}
+        elif job["kind"] == "trainer_steps":
+            result = {name: trainer_step(case, mesh) for name, case in job["cases"].items()}
+            result["gate"] = gate(job["gate"], mesh)
         else:
-            result = run_cli(job["calls"], job.get("init_state"))
+            result = run_cli(job["calls"], job.get("init_state"), job.get("query_draws"))
         torch.save(result, root / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()

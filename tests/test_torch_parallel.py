@@ -21,8 +21,9 @@ file under the test's temporary directory (``tests/_torch_dp_worker.py``).
   against the JAX ``main_multistep --mesh_shape 2`` and the port's
   single-process rollout.
 - The refusals: every axis not ported names its ROADMAP.md item, a world
-  size other than ``--mesh_shape`` names ``torchrun``, and no card means an
-  error unless the caller asks for the CPU.
+  size other than ``--mesh_shape`` names ``torchrun`` in each data-parallel
+  entry point, and no card means an error unless the caller asks for the
+  CPU. The other trainers' data parallelism: ``test_torch_parallel_trainers.py``.
 """
 
 import ast
@@ -409,10 +410,6 @@ def small_argv(data_root, flags, model=MODEL_FLAGS):
     ("main_multistep", ["--mesh_shape", "2x2"], "A15c"),
     ("main_auto", ["--shard_spatial", "1"], "A15d"),
     ("main_auto", ["--pp_microbatches", "2"], "A15e"),
-    ("main_train", ["--model", "ffn", "--mesh_shape", "2"], "A15b"),
-    ("main_gencast", ["--mesh_shape", "2"], "A15b"),
-    ("main_vae", ["--mesh_shape", "2", "--mode", "train"], "A15b"),
-    ("main_uncond", ["--mesh_shape", "2", "--mode", "train"], "A15b"),
     ("main_multistep", ["--model", "deeponet", "--mesh_shape", "2"], "ROADMAP.md C"),
 ])
 def test_axes_not_ported_raise_by_name(tmp_path, entry, flags, error):
@@ -422,22 +419,32 @@ def test_axes_not_ported_raise_by_name(tmp_path, entry, flags, error):
     assert not (tmp_path / "out").exists()
 
 
-@pytest.mark.parametrize("entry,mesh_shape", [("main_auto", "2"), ("main_multistep", "4x1")])
+# Each data-parallel entry point, with the flags it needs besides the data's.
+DP_ENTRIES = {"main_auto": [], "main_multistep": [], "main_train": ["--model", "ffn"],
+              "main_gencast": [], "main_vae": ["--mode", "train"],
+              "main_uncond": ["--mode", "train"]}
+
+
+@pytest.mark.parametrize("entry,mesh_shape", [
+    ("main_auto", "2"), ("main_multistep", "4x1"), ("main_train", "2"), ("main_gencast", "3x1"),
+    ("main_vae", "2"), ("main_uncond", "4")])
 def test_world_size_must_match_the_mesh(tmp_path, entry, mesh_shape):
     """One process asked for a mesh of several ranks names the launcher."""
     argv = small_argv(tmp_path / "data", ["--mesh_shape", mesh_shape,
-                                          "--output_dir", str(tmp_path / "out")])
+                                          "--output_dir", str(tmp_path / "out")]
+                      + DP_ENTRIES[entry])
     n = mesh_shape.split("x")[0]
     with pytest.raises(ValueError, match=f"torchrun --nproc_per_node {n}"):
         getattr(cli, entry)(argv, device="cpu")
     assert not (tmp_path / "out").exists()
 
 
-@pytest.mark.parametrize("entry", ["main_auto", "main_multistep"])
+@pytest.mark.parametrize("entry", list(DP_ENTRIES))
 def test_dp_entry_points_need_a_card_unless_told_cpu(tmp_path, monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = small_argv(tmp_path / "data", ["--mesh_shape", "2",
-                                          "--output_dir", str(tmp_path / "out")])
+                                          "--output_dir", str(tmp_path / "out")]
+                      + DP_ENTRIES[entry])
     with pytest.raises(RuntimeError, match="CUDA device is required"):
         getattr(cli, entry)(argv)
 

@@ -11,6 +11,10 @@ It runs on the CUDA card and fails without one. To run on the CPU, call
 ``cfdbench_tpu_torch.cli.main_gencast(argv, device="cpu")``. Roll the
 trained model out with ``python test_multistep_torch.py --model gencast``
 and the same flags.
+
+Data parallelism over N cards: ``torchrun --nproc_per_node N
+train_gencast_torch.py ... --mesh_shape N`` (each rank on ``cuda:LOCAL_RANK``,
+``--batch_size`` global).
 """
 
 from cfdbench_tpu_torch.cli import main_gencast

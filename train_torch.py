@@ -11,6 +11,10 @@ Usage:
 out with ``test_multistep_torch.py`` and the same flags. It runs on the
 CUDA card and fails without one. To run on the CPU, call
 ``cfdbench_tpu_torch.cli.main_train(argv, device="cpu")``.
+
+Data parallelism over N cards: ``torchrun --nproc_per_node N
+train_torch.py ... --mesh_shape N`` (each rank on ``cuda:LOCAL_RANK``,
+``--batch_size`` global).
 """
 
 from cfdbench_tpu_torch.cli import main_train

@@ -6,6 +6,10 @@ Usage:
         --ldm_vae_weights_path weights/vaelite_002 [--mode train_anneal]
 
 Then train a latent diffusion model on it with ``train_ldm_torch.py``.
+
+Data parallelism over N cards: ``torchrun --nproc_per_node N
+train_vae_torch.py ... --mesh_shape N`` (each rank on ``cuda:LOCAL_RANK``,
+``--batch_size`` global).
 """
 
 from cfdbench_tpu_torch.cli import main_vae
