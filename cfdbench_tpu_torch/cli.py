@@ -34,9 +34,14 @@ kernels always run.
 Every trainer (``main_auto``, ``main_train``, ``main_gencast``,
 ``main_vae``, ``main_uncond``) and ``main_multistep`` run data-parallel
 under ``torchrun --nproc_per_node N`` with ``--mesh_shape N``, one card a
-rank (``parallel/mesh.py``); the non-autoregressive ``main_multistep``
-refuses a mesh, as the JAX one ignores it (ROADMAP.md C), and the other
-axes of a mesh raise and name their ROADMAP.md item (A15c-e).
+rank (``parallel/mesh.py``). ``main_auto`` and the autoregressive
+``main_multistep`` also take a model axis, ``--mesh_shape NxM`` under
+``torchrun --nproc_per_node N·M``: tensor parallelism, and in ``main_auto``
+pipeline parallelism of the FNO with ``--pp_microbatches K``
+(``training/trainer_auto.py::split_model``). The other trainers and
+GenCast's rollout refuse a model axis (ROADMAP.md A15c2), the
+non-autoregressive ``main_multistep`` any mesh, as the JAX one ignores it
+(ROADMAP.md C), and ``--shard_spatial`` raises (A15d).
 """
 
 from __future__ import annotations
@@ -121,11 +126,6 @@ def check_runtime_flags(args: Args) -> None:
             "A17); the port runs torch.fft on the CPU and the fused kernel "
             "on the card"
         )
-    if parse_spec(args.mesh_shape)[1] > 1:
-        raise NotImplementedError(
-            f"--mesh_shape {args.mesh_shape}: tensor parallelism over a model axis "
-            "is ROADMAP.md A15c; the port shards the data axis only (--mesh_shape N)"
-        )
     if args.compilation_cache_dir:
         raise NotImplementedError(
             "--compilation_cache_dir: the port has no XLA cache; its kernels "
@@ -142,6 +142,29 @@ def check_runtime_flags(args: Args) -> None:
         )
 
 
+def model_axis(args: Args) -> int:
+    """The model-axis size of ``--mesh_shape``."""
+    return parse_spec(args.mesh_shape)[1]
+
+
+def refuse_model_axis(args: Args, entry: str) -> None:
+    """Raise on a model axis in an entry point that splits no model over one."""
+    if model_axis(args) > 1:
+        raise NotImplementedError(
+            f"--mesh_shape {args.mesh_shape}: tensor parallelism in {entry} is ROADMAP.md "
+            "A15c2; the port splits a model axis in main_auto and the autoregressive "
+            "main_multistep (A15c)")
+
+
+def refuse_bf16_model_axis(args: Args, flag: str) -> None:
+    """Raise on a bfloat16 forward over a model axis: the FNO's split forward
+    and the pipeline run float32."""
+    if model_axis(args) > 1:
+        raise NotImplementedError(
+            f"{flag} with --mesh_shape {args.mesh_shape}: a bfloat16 forward over a model "
+            "axis is ROADMAP.md A15f")
+
+
 def check_rollout_flags(args: Args) -> None:
     """``check_supported`` and the flags only ``main_multistep`` reads.
     ``--rollout_dtype bfloat16`` is taken for the deterministic
@@ -149,11 +172,14 @@ def check_rollout_flags(args: Args) -> None:
     drops it (a diffusion model, the FNO with ``--use_pallas_head 1``) or
     never reads it (GenCast, the non-autoregressive models), it raises.
     A mesh of more than one rank is refused for the non-autoregressive
-    models, whose JAX branch ignores it."""
+    models, whose JAX branch ignores it; a model axis for GenCast
+    (ROADMAP.md A15c2)."""
     check_supported(args)
     if args.model == "auto_deeponet_cnn":
         raise ValueError(f"--model {NO_ROLLOUT}")
-    if args.model in NONAUTO_MODELS and data_size(args.mesh_shape) > 1:
+    if args.model == "gencast":
+        refuse_model_axis(args, "GenCast's main_multistep")
+    if args.model in NONAUTO_MODELS and data_size(args.mesh_shape) * model_axis(args) > 1:
         raise NotImplementedError(
             f"--mesh_shape {args.mesh_shape} with --model {args.model}: the JAX "
             "main_multistep ignores the mesh for the non-autoregressive models (ROADMAP.md "
@@ -175,6 +201,7 @@ def check_rollout_flags(args: Args) -> None:
         if dropped:
             raise NotImplementedError(
                 f"--rollout_dtype bfloat16 with {dropped} (ROADMAP.md C)")
+        refuse_bf16_model_axis(args, "--rollout_dtype bfloat16")
 
 
 def check_training_flags(args: Args, regime: str = "auto") -> None:
@@ -189,14 +216,19 @@ def check_training_flags(args: Args, regime: str = "auto") -> None:
     check_model_ported(args.model, regime)
     if args.mode not in ("train", "test", "train_test"):
         raise ValueError(f"--mode {args.mode!r}: choose train, test or train_test")
-    if args.pp_microbatches:
-        raise NotImplementedError(
-            "--pp_microbatches: pipeline parallelism is ROADMAP.md A15e"
-        )
     if args.shard_spatial:
         raise NotImplementedError(
             "--shard_spatial: spatial sharding is ROADMAP.md A15d"
         )
+    entry = {"auto": "main_auto", "nonauto": "main_train", "gencast": "main_gencast"}[regime]
+    if regime != "auto":
+        refuse_model_axis(args, entry)
+        if args.pp_microbatches:
+            raise NotImplementedError(
+                f"--pp_microbatches in {entry}: pipeline parallelism stages the FNO in "
+                "main_auto (ROADMAP.md A15e)")
+    elif args.use_mixed_precision:
+        refuse_bf16_model_axis(args, "--use_mixed_precision")
     # Flags the JAX entry point parses and never passes to its trainer
     # (ROADMAP.md C), each with whether this run sets it.
     ignored = {}
@@ -216,7 +248,6 @@ def check_training_flags(args: Args, regime: str = "auto") -> None:
             f"--opt_state_dtype {args.opt_state_dtype}": args.opt_state_dtype != "f32",
             "--measure_time": bool(args.measure_time),
         })
-    entry = {"auto": "main_auto", "nonauto": "main_train", "gencast": "main_gencast"}[regime]
     for flag, is_set in ignored.items():
         if is_set:
             raise NotImplementedError(
@@ -251,6 +282,7 @@ def check_vae_flags(args: Args) -> None:
     none of the VAE and training flags that the JAX ``main_vae`` never
     reads."""
     check_runtime_flags(args)
+    refuse_model_axis(args, "main_vae")
     if args.mode not in VAE_MODES:
         raise ValueError(f"--mode {args.mode!r}: main_vae trains; choose train or train_anneal "
                          "(the JAX main_vae trains whatever --mode says, ROADMAP.md C)")
@@ -263,6 +295,7 @@ def check_uncond_flags(args: Args) -> None:
     timesteps, the data, ``--lr``, ``--batch_size``, ``--num_epochs``,
     ``--seed`` and ``--resume``; none that the JAX script never reads."""
     check_runtime_flags(args)
+    refuse_model_axis(args, "main_uncond")
     refuse_ignored(args, ("mode", "pixel_diffusion_channel_mults",
                           "pixel_diffusion_num_res_blocks", "pixel_diffusion_dropout",
                           "ldm_num_inference_steps") + _UNREAD_TRAINING_FLAGS,
@@ -278,10 +311,10 @@ def check_fno_kernel_shapes(args: Args, field_shape, device: torch.device) -> No
 
 
 def build_kernels_once(args: Args, device: torch.device, mesh) -> None:
-    """Under data parallelism on the card, rank 0 builds the FNO's kernels
-    (``ops/_build.py``) while the other ranks wait, so that they load the
-    library rather than each compile it."""
-    if args.model == "fno" and device.type == "cuda" and mesh.distributed:
+    """Under data, tensor or pipeline parallelism on the card, rank 0 builds
+    the FNO's kernels (``ops/_build.py``) while the other ranks wait, so
+    that they load the library rather than each compile it."""
+    if args.model == "fno" and device.type == "cuda" and mesh.world_size > 1:
         if mesh.is_main():
             _build.build_library()
         mesh.barrier()
@@ -342,7 +375,10 @@ def main_multistep(argv=None, device=None) -> torch.Tensor:
     rank count by repeating the last case, with weight 0 in the per-step
     means (``cfdbench_tpu/cli.py:474-516``); each rank rolls its block of
     cases out on its card, the frames are gathered, and rank 0 writes the
-    metrics. Every rank returns every real case's frames."""
+    metrics. Every rank returns every real case's frames. With a model axis
+    (``--mesh_shape NxM``, the autoregressive models) the parameters it
+    rolls out are split over it, as ``main_auto`` splits them for tensor
+    parallelism."""
     args = parse_args(argv)
     check_rollout_flags(args)
     device = entry_device(device)
@@ -399,6 +435,9 @@ def _run_multistep(args: Args, device: torch.device, mesh) -> torch.Tensor:
         use_mesh(task, mesh)
         task.model.load_state_dict(load_best_params(output_dir))
         task.model.eval()
+        trainer_auto.split_model(task)
+        if mesh.model.distributed:
+            print(f"[multistep] tensor-sharding params over {mesh.model.size} model-axis ranks")
         rollout = make_rollout_fn(task.predict_frame, steps=INFER_STEPS,
                                   include_initial=(args.model == "resnet"),
                                   stochastic=task.generative, seed=args.seed)
@@ -460,6 +499,10 @@ def main_auto(argv=None, device=None):
     ``cuda:LOCAL_RANK``, in an NCCL group (``parallel/mesh.py``), its
     block of each global ``--batch_size`` batch; a caller that has
     initialised a process group runs in it. Rank 0 writes the files.
+    ``--mesh_shape NxM`` under ``torchrun --nproc_per_node N·M`` adds a
+    model axis: tensor parallelism, or with ``--pp_microbatches K`` the
+    FNO's GPipe pipeline (``trainer_auto.split_model``); the checkpoints
+    are in the one-process layout.
 
     Returns the task: its model as training left it, or, after ``test``,
     with the best checkpoint's weights."""
@@ -520,6 +563,7 @@ def _run_auto(args: Args, device: torch.device, mesh):
             plot_examples=bool(args.plot_train_examples), resume=bool(args.resume),
             opt_state=args.opt_state_dtype,
             eval_max_batches=(args.max_eval_batches or None) if task.generative else None,
+            pp_microbatches=args.pp_microbatches,
         )
         print_launches("train", before)
         if args.measure_time:

@@ -51,6 +51,8 @@ class Dense(nn.Module):
     """``nn.Linear`` with its default init distributions drawn from an
     explicit generator. ``weight`` is ``(out, in)``."""
 
+    OUT_AXIS = 0  # the weight's output features (parallel/sharding_rules.py)
+
     def __init__(self, in_features: int, out_features: int, *,
                  generator: torch.Generator):
         super().__init__()
@@ -68,6 +70,8 @@ class Conv(nn.Module):
     ``generator``; ``weight`` is ``(out, in, k, k)``. With
     ``replicate_pad`` the border is padded by edge replication (the
     reference's ``padding_mode="replicate"``), else with zeros."""
+
+    OUT_AXIS = 0
 
     def __init__(self, in_chan: int, out_chan: int, kernel_size: int = 3,
                  padding: int = 0, replicate_pad: bool = False, stride: int = 1, *,

@@ -14,6 +14,21 @@ every forward, in training too: the kernels' autograd Functions carry
 the gradient. On CPU tensors both run their plain PyTorch versions.
 The lift stays plain ``torch.matmul``.
 
+Under tensor parallelism (``--mesh_shape NxM``, :attr:`Fno2d.tp` the
+mesh's model axis, set with the parameters sharded by
+``parallel/sharding_rules.py``) a block whose spectral weight holds this
+rank's ``Cout/M`` output channels runs column-parallel: the block kernel on
+that slice (``w0`` and ``b0`` replicated, their rows of it), its outputs
+gathered into the whole for the next block (``parallel/tensor.py``); a
+head whose ``fc1`` holds this rank's ``128/M`` hidden units runs
+row-parallel: the head kernel on them (``b1``'s and ``fc2``'s columns of
+them, ``b2`` on model rank 0 alone), its partial outputs summed over the
+model ranks. GELU is per hidden unit and the mask linear, so the sum is the
+head's output up to the order of fc2's partial sums. The lift runs
+replicated (its weight, and fc2's, gathered at use where the rules split
+them: a wide model). The replicated parameters used in part on a rank
+(:meth:`Fno2d.tp_summed`) get their gradients summed over the model ranks.
+
 In bfloat16 (``--use_mixed_precision``'s train forward, the bfloat16
 rollout) the model runs the plain versions on either device, in the JAX
 package's bfloat16 numerics: its Pallas kernels are float32 only and its
@@ -23,6 +38,7 @@ kernels take float32 only and raise on anything else.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
@@ -36,6 +52,7 @@ from ..ops.fno_kernels import (
     fno_head_reference,
 )
 from ..ops.spectral import init_spectral_weights
+from ..parallel.tensor import GatherShard, copy_to_model, gather_channels, reduce_model
 from .common import Dense, coord_channels, ensure_mask
 
 HEAD_WIDTH = 128
@@ -67,6 +84,11 @@ def lift(fc0: Dense, inputs, case_params, mask):
         + mm(case_params, k[:, C + 3:C + 3 + P])[:, None, None, :]
         + fc0.bias
     )
+
+
+def head(fc1: Dense, fc2: Dense, x, mask):
+    """The head, fc1 → GELU → fc2 → ×mask: one call of the head kernel."""
+    return fno_head(x, fc1.weight, fc1.bias, fc2.weight, fc2.bias, mask)
 
 
 class FnoBlock(nn.Module):
@@ -122,16 +144,73 @@ class Fno2d(nn.Module):
         self.fc2 = Dense(HEAD_WIDTH, out_chan, generator=generator)
         self.to(device)
 
+    tp = None  # the model axis under tensor parallelism
+
     def forward(self, inputs, case_params, mask=None):
         if inputs.dtype == torch.bfloat16:
+            if self.tp is not None:
+                raise NotImplementedError("a bfloat16 forward under tensor parallelism is "
+                                          "ROADMAP.md A15f")
             return fno2d_reference(self, inputs, case_params, mask)
         B, H, W, _ = inputs.shape
         mask = ensure_mask(mask, B, H, W, device=inputs.device)
-        x = lift(self.fc0, inputs, case_params, mask)
+        split_blocks, split_head = self._tp_split()
+        x = lift(self._tp_whole(self.fc0), inputs, case_params, mask)
         for block in self.blocks:
-            x = block(x)
-        return fno_head(x, self.fc1.weight, self.fc1.bias, self.fc2.weight,
-                        self.fc2.bias, mask)
+            x = self._tp_block(block, x) if split_blocks else block(x)
+        fc2 = self._tp_whole(self.fc2)
+        return self._tp_head(x, fc2, mask) if split_head else head(self.fc1, fc2, x, mask)
+
+    def _tp_whole(self, dense):
+        """``dense`` itself, or with its output rows gathered where the
+        rules split them (a wide model)."""
+        if dense.weight.shape[0] == dense.bias.shape[0]:
+            return dense
+        return SimpleNamespace(weight=GatherShard.apply(dense.weight, 0, self.tp), bias=dense.bias)
+
+    def _tp_split(self):
+        """Whether the blocks and the head hold this rank's slice of their
+        spectral weights and fc1 (``sharding_rules.shard_params``)."""
+        if self.tp is None:
+            return False, False
+        blk = self.blocks[0]
+        return (blk.weights.shape[3] != blk.weights.shape[2],  # Cout against Cin
+                self.fc1.weight.shape[0] != self.fc2.weight.shape[1])
+
+    def tp_summed(self):
+        """The replicated parameters that this rank uses in part under
+        tensor parallelism, whose gradients sum over the model ranks."""
+        split_blocks, split_head = self._tp_split()
+        out = []
+        if split_blocks:
+            for b in self.blocks:
+                out += [b.w0.bias] + ([] if self._w0_split(b) else [b.w0.weight])
+        if split_head:
+            fc2_split = self.fc2.weight.shape[0] != self.fc2.bias.shape[0]
+            out += [self.fc1.bias, self.fc2.bias] + ([] if fc2_split else [self.fc2.weight])
+        return out
+
+    @staticmethod
+    def _w0_split(block) -> bool:
+        """Whether ``w0`` holds this rank's rows (a bypass of at least the
+        rules' ``min_size`` elements), as the spectral weight its columns."""
+        return block.w0.weight.shape[0] == block.weights.shape[3]
+
+    def _tp_block(self, block, x):
+        n = block.weights.shape[3]
+        rows = slice(self.tp.rank * n, (self.tp.rank + 1) * n)
+        w0 = block.w0.weight if self._w0_split(block) else block.w0.weight[rows]
+        y = fno_block(copy_to_model(x, self.tp), block.weights, w0, block.w0.bias[rows],
+                      block.modes1, block.modes2)
+        return gather_channels(y, self.tp)
+
+    def _tp_head(self, x, fc2, mask):
+        n = self.fc1.weight.shape[0]
+        cols = slice(self.tp.rank * n, (self.tp.rank + 1) * n)
+        b2 = fc2.bias * float(self.tp.rank == 0)
+        part = fno_head(copy_to_model(x, self.tp), self.fc1.weight, self.fc1.bias[cols],
+                        fc2.weight[:, cols].contiguous(), b2, mask)
+        return reduce_model(part, self.tp)
 
 
 def fno2d_reference(model: Fno2d, inputs, case_params, mask=None):

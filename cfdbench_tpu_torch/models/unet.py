@@ -109,6 +109,8 @@ class ConvTranspose2x2(nn.Module):
     is torch's ``(in, out, 2, 2)``, whose default init takes its fan-in
     from ``out``·4, not ``in``·4 (JAX ``unet.py:63-73``)."""
 
+    OUT_AXIS = 1  # the weight is (in, out, 2, 2)
+
     def __init__(self, in_chan: int, out_chan: int, *, generator: torch.Generator):
         super().__init__()
         w = torch.empty((in_chan, out_chan, 2, 2), dtype=torch.float32)

@@ -21,9 +21,15 @@ launched by ``torchrun``, and makes those reductions explicit:
   rank, and every rank holds the same loss, so each rank's gradient is N
   times its share: their average is the single-device gradient.
 
-Only the data axis is ported. ``--mesh_shape NxM`` with M > 1 (tensor
-parallelism) is ROADMAP.md A15c; the JAX package's ``sharding_rules.py``
-and ``pipeline.py`` have no counterpart here yet (A15c, A15e).
+``--mesh_shape NxM`` lays the ranks out as the JAX package lays its
+devices out, ``reshape(N, M)``: world rank r has data index ``r // M``
+and model index ``r % M``. The ranks of one model index form a data
+group, over which every reduction above runs (model ranks hold the same
+rows: a sum over the world would count them M times); the ranks of one
+data index form a model group (:class:`ModelAxis`), over which tensor
+parallelism (``sharding_rules.py``, ``tensor.py``) and pipeline
+parallelism (``pipeline.py``) exchange. Rank 0 of the world writes the
+run's files; :meth:`DataMesh.barrier` waits for it over the world.
 """
 
 from __future__ import annotations
@@ -90,15 +96,36 @@ class _SumOverRanks(torch.autograd.Function):
         return grad, None
 
 
-class DataMesh:
-    """The data axis: ``size`` ranks, this process rank ``rank``, over
-    ``group``. With one rank (no group, or a launcher's group of one)
-    every method is the identity and no collective runs: a run under
-    ``torchrun --nproc_per_node 1`` steps as one process does. With more,
-    every rank must make the same calls in the same order."""
+class ModelAxis:
+    """The model axis of a mesh: ``size`` ranks that hold the same rows of
+    the batch, this process index ``rank`` among them, over ``group``."""
 
     def __init__(self, size: int = 1, rank: int = 0, group=None):
         self.size, self.rank, self.group = size, rank, group
+
+    @property
+    def distributed(self) -> bool:
+        return self.size > 1
+
+    def __repr__(self) -> str:
+        return f"ModelAxis(size={self.size}, rank={self.rank})"
+
+
+class DataMesh:
+    """The data axis: ``size`` ranks, this process rank ``rank``, over
+    ``group``; ``model`` is the mesh's model axis and ``world`` the group
+    of every rank (``world_size`` of them). With one rank (no group, or a
+    launcher's group of one) every method is the identity and no
+    collective runs: a run under ``torchrun --nproc_per_node 1`` steps as
+    one process does. With more, every rank must make the same calls in
+    the same order."""
+
+    def __init__(self, size: int = 1, rank: int = 0, group=None, model: ModelAxis = None,
+                 world=None):
+        self.size, self.rank, self.group = size, rank, group
+        self.model = ModelAxis() if model is None else model
+        self.world = group if world is None else world
+        self.world_size = size * self.model.size
 
     @property
     def distributed(self) -> bool:
@@ -106,16 +133,18 @@ class DataMesh:
         return self.size > 1
 
     def __repr__(self) -> str:
-        backend = dist.get_backend(self.group) if self.group is not None else None
-        return f"DataMesh(size={self.size}, rank={self.rank}, backend={backend})"
+        backend = dist.get_backend(self.world) if self.world is not None else None
+        model = f", model={self.model.size}" if self.model.distributed else ""
+        return f"DataMesh(size={self.size}, rank={self.rank}{model}, backend={backend})"
 
     def is_main(self) -> bool:
-        """Whether this rank writes the run's files: rank 0."""
-        return self.rank == 0
+        """Whether this rank writes the run's files: rank 0 of the world."""
+        return self.rank == 0 and self.model.rank == 0
 
     def barrier(self) -> None:
-        if self.distributed:
-            dist.barrier(group=self.group)
+        """Every rank of the world waits for the others."""
+        if self.world_size > 1:
+            dist.barrier(group=self.world)
 
     def global_shape(self, shape) -> Tuple[int, ...]:
         """The global batch's shape of a block of ``shape``."""
@@ -187,27 +216,59 @@ class DataMesh:
         for g, piece in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(piece.view_as(g))
 
+    def sum_over_model(self, params, mean: bool = False) -> None:
+        """Replace each parameter's gradient by its sum (``mean``: its mean)
+        over the model ranks, in one all-reduce: the sum for the replicated
+        parameters that a rank uses in part (tensor parallelism) or on one
+        stage (pipeline parallelism), the mean for those that every model
+        rank uses whole, so that kernels whose sums run in no fixed order
+        (cuDNN's weight gradients) leave the replicas equal. A missing
+        gradient counts as zeros."""
+        params = list(params)
+        if not self.model.distributed or not params:
+            return
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        dist.all_reduce(flat, group=self.model.group)
+        if mean:
+            flat.div_(self.model.size)
+        for p, piece in zip(params, flat.split([p.numel() for p in params])):
+            p.grad.copy_(piece.view_as(p))
+
 
 SINGLE = DataMesh()
 
 
 def make_mesh(spec: str = "auto", group=None) -> DataMesh:
-    """The data axis of ``--mesh_shape spec`` over ``group`` (None: one
-    process). ``auto`` takes every rank; ``N`` and ``Nx1`` must equal the
-    group's size. ``NxM`` with M > 1 raises (ROADMAP.md A15c)."""
+    """The mesh of ``--mesh_shape spec`` over ``group`` (None: one
+    process). ``auto`` takes every rank on the data axis; ``N`` and ``NxM``
+    must multiply to the group's size. Every rank creates every data and
+    model group of more than one rank, in the same order."""
     d, m = parse_spec(spec)
-    if m > 1:
-        raise NotImplementedError(
-            f"--mesh_shape {spec}: tensor parallelism over a model axis is "
-            "ROADMAP.md A15c; the port shards the data axis only")
     world = dist.get_world_size(group) if group is not None else 1
-    if d is not None and d != world:
+    if d is None:
+        d = world // m
+    if d * m != world:
         raise ValueError(
-            f"--mesh_shape {spec} asks for {d} data-parallel ranks, but this run has "
-            f"{world}: launch it as `torchrun --nproc_per_node {d} ...` (or pass "
+            f"--mesh_shape {spec} asks for {d * m} ranks ({d} data x {m} model), but this run "
+            f"has {world}: launch it as `torchrun --nproc_per_node {d * m} ...` (or pass "
             "--mesh_shape auto)")
     rank = dist.get_rank(group) if group is not None else 0
-    return DataMesh(world, rank, group)
+    if m == 1:
+        return DataMesh(world, rank, group)
+    ranks = dist.get_process_group_ranks(group)
+    data_groups = [_new_group([ranks[i * m + j] for i in range(d)]) for j in range(m)]
+    model_groups = [_new_group([ranks[i * m + j] for j in range(m)]) for i in range(d)]
+    i, j = divmod(rank, m)
+    return DataMesh(d, i, data_groups[j], ModelAxis(m, j, model_groups[i]), world=group)
+
+
+def _new_group(ranks):
+    """A group of ``ranks`` (None for one rank, which runs no collective);
+    every rank of the world must call it alike."""
+    return dist.new_group(ranks) if len(ranks) > 1 else None
 
 
 @contextlib.contextmanager

@@ -1,0 +1,183 @@
+"""The model-axis operators of tensor parallelism (tp), as autograd
+Functions over a mesh's model axis (``mesh.ModelAxis``: ``size``, ``rank``,
+``group``).
+
+The JAX package shards parameters with ``NamedSharding`` and lets XLA
+insert the collectives (``cfdbench_tpu/parallel/sharding_rules.py``).
+Here they are explicit:
+
+- :func:`gather_channels`: each rank's slice of the last axis, gathered
+  into the whole; the backward takes this rank's slice of the gradient.
+  The column-parallel FNO block's output (``models/fno.py``).
+- :func:`reduce_model`: a sum over the model ranks; the backward passes
+  the gradient through (every rank holds the same loss). The row-parallel
+  head's partial outputs.
+- :func:`copy_to_model`: the identity; the backward sums the gradient over
+  the model ranks, each of which computed only its slice's share. The
+  input of a column- or row-parallel layer.
+- :func:`gather_at_use` installs, on every module that owns a sharded
+  parameter, hooks that gather the parameter's slices into the whole for
+  the module's forward (:class:`GatherShard`: all-gather forward, slice of
+  the gradient backward, no reduction over the model ranks, since every
+  model rank computes the same whole gradient and each owns its slice).
+  Every model but the FNO runs this way under tp: the U-Net, the ResNet,
+  the FFNO, the point models, pixel diffusion and the latent models'
+  UNet. Their parameters and Adam moments are stored 1/M a rank, as in
+  the JAX package, and their compute is replicated over the model ranks.
+
+Transport: every gather is an all-reduce of each rank's slice placed in
+zeros, on every backend. Gloo, which carries two ranks on one card (NCCL
+refuses two ranks on one device), has no all-gather of CUDA tensors but
+all-reduces them through host memory; NCCL all-reduces on the card. With
+one model rank every operator is the identity.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def _slice(x: torch.Tensor, dim: int, axis) -> torch.Tensor:
+    n = x.shape[dim] // axis.size
+    return x.narrow(dim, axis.rank * n, n).contiguous()
+
+
+def all_gather(x: torch.Tensor, dim: int, axis) -> torch.Tensor:
+    """The model ranks' tensors ``x``, concatenated along ``dim`` in rank
+    order, on every rank, without a gradient."""
+    shape = list(x.shape)
+    shape[dim] *= axis.size
+    out = x.new_zeros(shape)
+    out.narrow(dim, axis.rank * x.shape[dim], x.shape[dim]).copy_(x)
+    dist.all_reduce(out, group=axis.group)
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return all_gather(x.contiguous(), dim, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _slice(grad, ctx.dim, ctx.axis), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=axis.group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.axis.group)
+        return grad, None
+
+
+def gather_channels(x: torch.Tensor, axis) -> torch.Tensor:
+    """(..., C/M) on each model rank → (..., C) on every one."""
+    return x if not axis.distributed else _Gather.apply(x, x.dim() - 1, axis)
+
+
+def reduce_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` summed over the model ranks; the gradient passes through."""
+    return x if not axis.distributed else _Reduce.apply(x, axis)
+
+
+def copy_to_model(x: torch.Tensor, axis) -> torch.Tensor:
+    """``x`` itself; its gradient summed over the model ranks."""
+    return x if not axis.distributed else _Copy.apply(x, axis)
+
+
+class GatherShard(torch.autograd.Function):
+    """A parameter's slice on this rank → the whole parameter; the
+    gradient's slice goes back, with no reduction over the model ranks."""
+
+    @staticmethod
+    def forward(ctx, shard, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        return all_gather(shard.detach(), dim, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _slice(grad, ctx.dim, ctx.axis), None, None
+
+
+def gather_at_use(module: torch.nn.Module, shard_axes, axis) -> list:
+    """Hooks on each submodule of ``module`` that owns a parameter named in
+    ``shard_axes`` (its name in ``module`` → the axis it is split on, or
+    None): before the submodule's forward each such parameter is gathered
+    into the whole (:class:`GatherShard`) and set in the submodule's
+    ``__dict__``, where attribute lookup finds it before the parameter,
+    and removed after. The parameter itself stays this rank's slice: what
+    the optimizer updates and ``state_dict`` holds. A cast copy that
+    ``torch.func.functional_call`` puts in the parameter's place is
+    gathered the same way. Returns the hooks' handles."""
+    owners, handles = {}, []
+    for name, dim in shard_axes.items():
+        if dim is not None:
+            path, _, leaf = name.rpartition(".")
+            owners.setdefault(path, []).append((leaf, dim))
+    for path, leaves in owners.items():
+        sub = module.get_submodule(path)
+
+        def gather(mod, args, leaves=leaves):
+            for leaf, dim in leaves:
+                mod.__dict__[leaf] = GatherShard.apply(mod._parameters[leaf], dim, axis)
+
+        def release(mod, args, out, leaves=leaves):
+            for leaf, _ in leaves:
+                mod.__dict__.pop(leaf, None)
+
+        handles += [sub.register_forward_pre_hook(gather), sub.register_forward_hook(release)]
+    return handles
+
+
+class ShardedLayout:
+    """The parameters of ``module`` under tensor parallelism, each whole or
+    this model rank's slice along the axis ``axes`` names (None: whole),
+    and their one-process layout: :meth:`to_std` gathers a named set of
+    tensors laid out as the parameters are (a state dict, an optimizer
+    moment of each) over the model ranks, :meth:`from_std` slices it. With
+    no split axis both are the identity."""
+
+    def __init__(self, module: torch.nn.Module, axes, axis):
+        self.axes, self.axis = dict(axes), axis
+        self.local_names = [n for n, _ in module.named_parameters()]
+        self.std_names = self.local_names
+        self.shapes = {n: tuple(p.shape) for n, p in module.named_parameters()}
+
+    def shard_axis(self, name: str):
+        return self.axes.get(name)
+
+    def whole_shape(self, name: str):
+        shape = list(self.shapes[name])
+        if self.axes.get(name) is not None:
+            shape[self.axes[name]] *= self.axis.size
+        return tuple(shape)
+
+    def to_std(self, local, axes=None):
+        axes = self.axes if axes is None else axes
+        return {n: t if axes.get(n) is None else all_gather(t.contiguous(), axes[n], self.axis)
+                for n, t in local.items()}
+
+    def from_std(self, std, axes=None):
+        axes = self.axes if axes is None else axes
+        return {n: t if axes.get(n) is None else _slice(t, axes[n], self.axis)
+                for n, t in std.items()}

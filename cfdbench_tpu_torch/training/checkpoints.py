@@ -8,7 +8,11 @@ what ``main_multistep`` reads. The best checkpoint is the one with the
 lowest ``dev_loss``. ``training_state/model.pt`` is the trainer's
 full-state snapshot for ``--resume``: parameters, the optimizer's state
 (Adam's moments, or Adafactor's step and factored statistics), the step
-and the schedule's position.
+and the schedule's position. Under tensor or pipeline parallelism a
+rank holds a slice of the model; every rank gathers the one-process layout
+(the ``layout``: ``parallel/tensor.py::ShardedLayout`` or
+``parallel/pipeline.py::PipelineStage``) and rank 0 writes it, so a
+snapshot resumes on any mesh.
 
 Saves are crash-safe: the new file is written beside the old one, the
 old one is kept as ``backup_model.pt``, and only then the new one takes
@@ -34,6 +38,7 @@ import torch
 
 from ..data.core import dump_json, load_json
 from ..utils.torch_import import reference_only_keys
+from .optim import state_shard_axis
 
 MODEL_FILE = "model.pt"
 BACKUP_FILE = "backup_model.pt"
@@ -140,20 +145,81 @@ def load_best_params(output_dir: Path) -> Dict[str, torch.Tensor]:
     return load_params(best)
 
 
+def _is_moment(v) -> bool:
+    return isinstance(v, torch.Tensor) and v.dim() > 0
+
+
+def _convert_state(optimizer, layout, state: Dict[str, dict], names, to_std: bool) -> dict:
+    """Per-parameter optimizer state by name → the other layout's: each
+    tensor entry through ``layout`` along the axis it is split on, the
+    scalars (step counts, alike for every parameter) copied."""
+    out = {n: {} for n in names}
+    keys = sorted({k for st in state.values() for k, v in st.items() if _is_moment(v)})
+    for k in keys:
+        named = {n: st[k] for n, st in state.items() if k in st}
+        axes = {n: None if layout.shard_axis(n) is None else state_shard_axis(
+            optimizer, k, layout.whole_shape(n), layout.shard_axis(n)) for n in named}
+        moved = layout.to_std(named, axes) if to_std else layout.from_std(named, axes)
+        for n, t in moved.items():
+            out[n][k] = t
+    first = next(iter(state.values()), {})
+    for n in names:
+        for k, v in state.get(n, first).items():
+            if not _is_moment(v):  # a copy each: Adam steps its count in place
+                out[n][k] = v.clone() if isinstance(v, torch.Tensor) else v
+    return out
+
+
+def optimizer_to_std(optimizer: torch.optim.Optimizer, layout) -> dict:
+    """The optimizer's ``state_dict`` in the one-process layout (the
+    parameters in the one-process model's order); a collective over the
+    model ranks."""
+    sd = optimizer.state_dict()
+    (group,) = sd["param_groups"]
+    state = {layout.local_names[i]: st for i, st in sd["state"].items()}
+    std = _convert_state(optimizer, layout, state, layout.std_names, True)
+    return dict(state={i: std[n] for i, n in enumerate(layout.std_names) if std[n]},
+                param_groups=[dict(group, params=list(range(len(layout.std_names))))])
+
+
+def optimizer_from_std(sd: dict, optimizer: torch.optim.Optimizer, layout) -> None:
+    """Load a one-process ``state_dict`` (:func:`optimizer_to_std`) into
+    this rank's optimizer."""
+    (group,) = sd["param_groups"]
+    state = {layout.std_names[i]: st for i, st in sd["state"].items()}
+    local = _convert_state(optimizer, layout, state, layout.local_names, False)
+    optimizer.load_state_dict(dict(
+        state={i: local[n] for i, n in enumerate(layout.local_names) if local[n]},
+        param_groups=[dict(group, params=list(range(len(layout.local_names))))]))
+
+
 def save_training_state(output_dir: Path, model: torch.nn.Module,
-                        optimizer: torch.optim.Optimizer, scheduler, step: int) -> Path:
-    """The full state ``--resume`` restores, under ``training_state/``."""
-    return save_params(dict(params=model.state_dict(), optimizer=optimizer.state_dict(),
-                            scheduler=scheduler.state_dict(), step=step),
-                       Path(output_dir) / STATE_DIR)
+                        optimizer: torch.optim.Optimizer, scheduler, step: int,
+                        layout=None, write: bool = True) -> Path:
+    """The full state ``--resume`` restores, under ``training_state/``. With
+    a ``layout`` (``model`` the module the optimizer trains) every rank
+    gathers the one-process layout and only a rank with ``write`` saves."""
+    params, opt = model.state_dict(), optimizer.state_dict()
+    if layout is not None:
+        params, opt = layout.to_std(params), optimizer_to_std(optimizer, layout)
+    path = Path(output_dir) / STATE_DIR
+    if write:
+        save_params(dict(params=params, optimizer=opt, scheduler=scheduler.state_dict(),
+                         step=step), path)
+    return path
 
 
 def load_training_state(output_dir: Path, model: torch.nn.Module,
-                        optimizer: torch.optim.Optimizer, scheduler) -> int:
+                        optimizer: torch.optim.Optimizer, scheduler, layout=None) -> int:
     """Restore what :func:`save_training_state` wrote into ``model``,
-    ``optimizer`` and ``scheduler``; returns the step."""
+    ``optimizer`` and ``scheduler``, this rank's slice of it under a
+    ``layout``; returns the step."""
     state = load_params(Path(output_dir) / STATE_DIR)
-    model.load_state_dict(state["params"])
-    optimizer.load_state_dict(state["optimizer"])
+    if layout is None:
+        model.load_state_dict(state["params"])
+        optimizer.load_state_dict(state["optimizer"])
+    else:
+        model.load_state_dict(layout.from_std(state["params"]))
+        optimizer_from_std(state["optimizer"], optimizer, layout)
     scheduler.load_state_dict(state["scheduler"])
     return state["step"]

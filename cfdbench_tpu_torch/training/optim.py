@@ -14,6 +14,13 @@ steps; here ``torch.optim.Adam`` (whose update is ``optax.adam``'s: b1
 
 ``--opt_state_dtype factored`` is :class:`Adafactor`, the chain that
 ``optax.adafactor(learning_rate=schedule)`` builds, on the same schedule.
+
+Under tensor parallelism a parameter may be this rank's slice of a tensor
+split over the model axis: Adam is elementwise and runs on the slice as it
+is; Adafactor's means and block RMS are over the whole tensor, so it
+reduces them over the model ranks (:class:`Adafactor`'s ``shards``).
+:func:`state_shard_axis` says along which axis each tensor of a
+parameter's state is split, for the one-process layout on disk.
 """
 
 from __future__ import annotations
@@ -121,15 +128,38 @@ class Adafactor(torch.optim.Optimizer):
 
     The factored estimate ``v_row_i · v_col_j / mean(v_row)`` is the same
     whichever of the two axes is called the row, so a torch ``(out, in)``
-    weight gets the update of flax's ``(in, out)`` kernel."""
+    weight gets the update of flax's ``(in, out)`` kernel.
+
+    ``shards`` maps a parameter that holds this model rank's slice of a
+    tensor split along an axis to that axis; ``axis`` is the mesh's model
+    axis. Such a tensor factors by its whole shape, and its means over the
+    split axis, its row mean and both RMS are summed over the model ranks
+    (what the JAX package's sharded adafactor computes)."""
 
     DECAY_RATE = 0.8
     EPS = 1e-30
     CLIP = 1.0
     MIN_SCALE = 1e-3
 
-    def __init__(self, params, lr: float):
+    def __init__(self, params, lr: float, shards=None, axis=None):
         super().__init__(params, dict(lr=lr))
+        self.shards, self.axis = shards or {}, axis
+
+    def _mean(self, t: torch.Tensor, dim: int, split: Optional[int], keepdim: bool = False):
+        """``t``'s mean over ``dim``, the whole tensor's where ``t`` is split
+        along ``dim`` (``split``) over the model ranks."""
+        if split != dim:
+            return t.mean(dim, keepdim=keepdim)
+        total = t.sum(dim, keepdim=keepdim)
+        torch.distributed.all_reduce(total, group=self.axis.group)
+        return total / (t.shape[dim] * self.axis.size)
+
+    def _rms(self, t: torch.Tensor, split: Optional[int]) -> torch.Tensor:
+        if split is None:
+            return t.square().mean().sqrt()
+        total = t.square().sum()
+        torch.distributed.all_reduce(total, group=self.axis.group)
+        return (total / (t.numel() * self.axis.size)).sqrt()
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -140,7 +170,8 @@ class Adafactor(torch.optim.Optimizer):
                 if p.grad is None:
                     continue
                 state = self.state[p]
-                dims = factored_dims(p.shape)
+                split = self.shards.get(p)
+                dims = factored_dims(whole_shape(p.shape, split, self.axis))
                 if not state:
                     state["step"] = 0
                     if dims is None:
@@ -157,17 +188,51 @@ class Adafactor(torch.optim.Optimizer):
                     update = g * v.rsqrt()
                 else:
                     d1, d0 = dims
-                    v_row = state["v_row"].mul_(decay).add_(g2.mean(d0), alpha=1.0 - decay)
-                    v_col = state["v_col"].mul_(decay).add_(g2.mean(d1), alpha=1.0 - decay)
-                    row_mean = v_row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)
+                    v_row = state["v_row"].mul_(decay).add_(self._mean(g2, d0, split),
+                                                            alpha=1.0 - decay)
+                    v_col = state["v_col"].mul_(decay).add_(self._mean(g2, d1, split),
+                                                            alpha=1.0 - decay)
+                    row_split = _without(split, d0)
+                    row_mean = self._mean(v_row, d1 - 1 if d1 > d0 else d1, row_split,
+                                          keepdim=True)
                     update = (g * (v_row / row_mean).rsqrt().unsqueeze(d0)
                               * v_col.rsqrt().unsqueeze(d1))
                 state["step"] += 1
-                rms = update.square().mean().sqrt()
+                rms = self._rms(update, split)
                 update.div_(torch.clamp(rms / self.CLIP, min=1.0))
-                p_rms = p.square().mean().sqrt()
+                p_rms = self._rms(p, split)
                 scale = torch.where(p_rms <= self.MIN_SCALE, self.MIN_SCALE, p_rms)
                 p.sub_(update.mul_(group["lr"]).mul_(scale))
+
+
+def whole_shape(shape, split: Optional[int], axis) -> Tuple[int, ...]:
+    """The whole tensor's shape of a slice of ``shape`` split along
+    ``split`` over ``axis``'s ranks."""
+    shape = list(shape)
+    if split is not None:
+        shape[split] *= axis.size
+    return tuple(shape)
+
+
+def _without(split: Optional[int], removed: int) -> Optional[int]:
+    """Where a split axis lands once axis ``removed`` is reduced away (None
+    if it was that axis)."""
+    if split is None or split == removed:
+        return None
+    return split - (split > removed)
+
+
+def state_shard_axis(optimizer, key: str, shape, split: Optional[int]) -> Optional[int]:
+    """The axis along which ``key`` of the state of a parameter (whole
+    shape ``shape``) split along ``split`` is split; None for a state
+    entry every rank holds whole (a step count, or Adafactor's statistic
+    over the split axis)."""
+    if split is None or key == "step":
+        return None
+    if isinstance(optimizer, Adafactor) and key in ("v_row", "v_col"):
+        d1, d0 = factored_dims(shape)
+        return _without(split, d0 if key == "v_row" else d1)
+    return split
 
 
 def make_adam(
@@ -177,17 +242,20 @@ def make_adam(
     lr_step_size: int = 1,
     steps_per_epoch: int = 1,
     opt_state: str = "f32",
+    shards=None,
+    axis=None,
 ) -> Tuple[torch.optim.Optimizer, torch.optim.lr_scheduler.LambdaLR]:
     """``(optimizer, scheduler)``: Adam with float32 (``"f32"``) or
-    bfloat16 (``"bf16"``) moments, or :class:`Adafactor` (``"factored"``),
-    and the StepLR schedule as a ``LambdaLR`` to step once after every
+    bfloat16 (``"bf16"``) moments, or :class:`Adafactor` (``"factored"``,
+    given the ``shards`` of tensor parallelism over ``axis``), and the
+    StepLR schedule as a ``LambdaLR`` to step once after every
     ``optimizer.step()``."""
     if opt_state == "f32":
         opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     elif opt_state == "bf16":
         opt = AdamCompact(params, lr=lr)
     elif opt_state == "factored":
-        opt = Adafactor(params, lr=lr)
+        opt = Adafactor(params, lr=lr, shards=shards, axis=axis)
     else:
         raise ValueError(f"opt_state {opt_state!r}: choose f32 | bf16 | factored")
     schedule = step_lr_schedule(1.0, gamma, lr_step_size, steps_per_epoch)

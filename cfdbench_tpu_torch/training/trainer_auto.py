@@ -45,6 +45,21 @@
   ranks after the backward, the predictions gathered. Rank 0 writes every
   file and the others wait for it at a barrier; on ``--resume`` every
   rank loads the snapshot.
+- Tensor and pipeline parallelism over the mesh's model axis
+  (:func:`split_model`, for the length of :func:`train`, as the JAX
+  trainer shards or packs its parameters after init and returns the
+  one-process tree): tp splits the parameters by the JAX rules
+  (``parallel/sharding_rules.py``; the FNO runs column- and row-parallel,
+  ``models/fno.py``, every other model gathers at use,
+  ``parallel/tensor.py``); pp (``--pp_microbatches``, the FNO alone)
+  stages its blocks over the model ranks (``parallel/pipeline.py``), the
+  global batch padded to a multiple of data ranks times microbatches.
+  After the backward the replicated parameters that a rank uses in part
+  (or, under pp, on one stage) have their gradients summed over the model
+  ranks, then every gradient is averaged over the data ranks. Evaluation,
+  the checkpoints and the ``training_state/`` snapshot are in the
+  one-process layout, gathered over the model ranks, so a run resumes on
+  any mesh.
 """
 
 from __future__ import annotations
@@ -61,8 +76,12 @@ from ..data.core import dump_json, load_json
 from ..data.datasets import AutoDataset
 from ..data.pipeline import batches, num_batches, to_device
 from ..metrics import LossFn
+from ..models import fno
 from ..models.common import cast_call
 from ..parallel.mesh import SINGLE, DataMesh
+from ..parallel.pipeline import PipelineStage
+from ..parallel.sharding_rules import MIN_SIZE, shard_params
+from ..parallel.tensor import ShardedLayout, all_gather, gather_at_use
 from ..utils.artifacts import plot_example, plot_loss, plot_predictions
 from ..utils.rng import step_generator
 from . import checkpoints
@@ -152,16 +171,106 @@ def use_mesh(task, mesh: DataMesh) -> None:
             module.mesh = mesh
 
 
+class ModelSplit:
+    """``task.model`` laid over the mesh's model axis for training
+    (:func:`split_model`): ``trained``, the module the optimizer trains
+    (the model, or under pp this rank's :class:`PipelineStage`);
+    ``layout``, its one-process layout; ``summed``, the parameters whose
+    gradients sum over the model ranks, ``averaged`` those whose gradients
+    average over them; ``pipeline``, the stage or None."""
+
+    def __init__(self, trained, layout, summed=(), averaged=(), pipeline=None, hooks=()):
+        self.trained, self.layout = trained, layout
+        self.summed, self.averaged = list(summed), list(averaged)
+        self.pipeline, self.hooks = pipeline, list(hooks)
+
+
+def split_model(task, pp_microbatches: int = 0, min_size: int = MIN_SIZE) -> None:
+    """Lay ``task.model`` over ``task.mesh``'s model axis (none: nothing to
+    do). Under pp (``pp_microbatches``) the FNO's blocks are staged; else
+    each parameter that the JAX rules split keeps this rank's slice, the
+    FNO running column- and row-parallel, any other model gathering its
+    slices at use; the whole parameters that every rank uses whole have
+    their gradients averaged over the model ranks."""
+    axis, model = task.mesh.model, task.model
+    if pp_microbatches and not axis.distributed:
+        raise ValueError(
+            f"--pp_microbatches {pp_microbatches} requires a mesh with a model axis > 1; pass "
+            "--mesh_shape NxM with M > 1, or drop --pp_microbatches")
+    if pp_microbatches and not isinstance(model, fno.Fno2d):
+        raise ValueError("--pp_microbatches supports --model fno (the staged-depth model); got "
+                         f"{type(model).__name__}")
+    if not axis.distributed:
+        return
+    if pp_microbatches:
+        stage = PipelineStage(model, axis, pp_microbatches, lift=fno.lift, head=fno.head)
+        print(f"pp: {axis.size} stages x {pp_microbatches} microbatches "
+              f"(+{task.mesh.size}-way dp)")
+        stage.release(model)
+        task.split = ModelSplit(stage, stage, stage.summed, pipeline=stage)
+        return
+    axes = shard_params(model, axis, min_size)
+    hooks = []
+    if isinstance(model, fno.Fno2d):
+        model.tp = axis
+        summed = model.tp_summed()
+    else:
+        hooks, summed = gather_at_use(model, axes, axis), ()
+    in_part = {id(p) for p in summed}
+    averaged = [p for n, p in model.named_parameters()
+                if axes[n] is None and id(p) not in in_part]
+    task.split = ModelSplit(model, ShardedLayout(model, axes, axis), summed, averaged,
+                            hooks=hooks)
+
+
+def join_model(task) -> None:
+    """Undo :func:`split_model`: ``task.model`` whole on every rank again
+    (a collective over the model ranks)."""
+    split = getattr(task, "split", None)
+    if split is None:
+        return
+    if split.pipeline is not None:
+        split.pipeline.fill(task.model)
+    else:
+        params = dict(task.model.named_parameters())
+        for name, dim in split.layout.axes.items():
+            if dim is not None:
+                params[name].data = all_gather(params[name].data, dim, task.mesh.model)
+        for hook in split.hooks:
+            hook.remove()
+        task.model.tp = None
+    task.split = None
+
+
+def trained_module(task) -> nn.Module:
+    split = getattr(task, "split", None)
+    return task.model if split is None else split.trained
+
+
 def train_step(task: AutoTask, optimizer: torch.optim.Optimizer, scheduler,
                batch, draws=None) -> Dict[str, torch.Tensor]:
     """One update; returns the batch's scores, detached, on the device.
     ``draws`` is the step's ``task.step_draws``. Under data parallelism
     ``batch`` is this rank's block and the gradients are averaged over the
-    ranks before the update."""
+    ranks before the update; under a :class:`ModelSplit` the gradients of
+    its ``summed`` parameters are first summed over the model ranks, and
+    under pp the step is the pipeline's GPipe schedule."""
     optimizer.zero_grad(set_to_none=True)
-    loss, scores = task.loss_scores(batch, draws)
-    loss.backward()
-    task.mesh.average_gradients(task.model.parameters())
+    split = getattr(task, "split", None)
+    if split is not None and split.pipeline is not None:
+        def loss_of(preds):
+            s = task.scores(preds, batch)
+            return s[task.loss_fn.objective], s
+
+        _, scores = split.pipeline.forward_backward(batch["inputs"], batch["case_params"],
+                                                    batch["mask"], loss_of)
+    else:
+        loss, scores = task.loss_scores(batch, draws)
+        loss.backward()
+    if split is not None:
+        task.mesh.sum_over_model(split.summed)
+        task.mesh.sum_over_model(split.averaged, mean=True)
+    task.mesh.average_gradients(trained_module(task).parameters())
     optimizer.step()
     scheduler.step()
     return {k: v.detach() for k, v in scores.items()}
@@ -297,6 +406,7 @@ def train(
     resume: bool = False,
     opt_state: str = "f32",
     eval_max_batches: Optional[int] = None,
+    pp_microbatches: int = 0,
 ) -> List[float]:
     """Train ``task.model`` in place; returns the per-step losses.
     ``resume=True`` continues from ``output_dir/training_state`` (the
@@ -304,14 +414,31 @@ def train(
     and ``training_meta.json`` when both are there; every eval epoch
     writes them. ``eval_max_batches`` caps the dev evaluation. Under data
     parallelism (``task.mesh``) ``batch_size`` and ``eval_batch_size`` are
-    global."""
+    global; with a model axis the model is split for the run
+    (:func:`split_model`, ``pp_microbatches`` for pp) and whole again when
+    it returns."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     model, mesh = task.model, task.mesh
+    if pp_microbatches and opt_state == "factored":
+        raise ValueError(
+            "--opt_state_dtype factored is not supported with pipeline parallelism: adafactor "
+            "keeps per-tensor statistics, which over the packed (stages, per, ...) stage leaves "
+            "would diverge from the single-device update; use f32 or bf16")
+    n_params = sum(p.numel() for p in model.parameters())
+    split_model(task, pp_microbatches)
+    split = getattr(task, "split", None)
+    trained = trained_module(task)
+    layout = None if split is None else split.layout
+    shards = {}
+    if split is not None and split.pipeline is None:
+        params = dict(model.named_parameters())
+        shards = {params[n]: d for n, d in layout.axes.items() if d is not None}
     steps_per_epoch = num_batches(len(train_data), batch_size)
-    optimizer, scheduler = make_adam(model.parameters(), lr, gamma=lr_gamma,
+    optimizer, scheduler = make_adam(trained.parameters(), lr, gamma=lr_gamma,
                                      lr_step_size=lr_step_size,
-                                     steps_per_epoch=steps_per_epoch, opt_state=opt_state)
+                                     steps_per_epoch=steps_per_epoch, opt_state=opt_state,
+                                     shards=shards, axis=mesh.model)
     # For the log only; the optimizer's rate comes from the same rule.
     lr_schedule = step_lr_schedule(lr, lr_gamma, lr_step_size, steps_per_epoch)
     arrays = dataset_arrays(train_data)
@@ -320,7 +447,8 @@ def train(
     meta_path = output_dir / "training_meta.json"
     if resume and meta_path.exists() and (output_dir / checkpoints.STATE_DIR).exists():
         meta = load_json(meta_path)
-        global_step = checkpoints.load_training_state(output_dir, model, optimizer, scheduler)
+        global_step = checkpoints.load_training_state(output_dir, trained, optimizer, scheduler,
+                                                      layout)
         start_epoch = meta["epoch"] + 1
         # The loss history is saved beside the state. Truncate it to the
         # committed epoch: a finished run's final dump holds epochs past
@@ -330,7 +458,10 @@ def train(
         train_losses = train_losses[: start_epoch * steps_per_epoch]
         print(f"Resumed from epoch {meta['epoch']}")
 
-    print(f"Model has {sum(p.numel() for p in model.parameters())} parameters")
+    on_rank = sum(p.numel() for p in trained.parameters())
+    print(f"Model has {n_params} parameters"
+          + (f" ({on_rank} on this rank)" if split is not None else ""))
+    pad_multiple = mesh.size * max(1, pp_microbatches)
     print("====== Training ======")
     print(f"# batch: {batch_size}")
     print(f"# examples: {len(train_data)}")
@@ -347,7 +478,7 @@ def train(
         ep_losses_dev = []
         rng = np.random.default_rng(seed * 1_000_003 + ep)
         for step, host in enumerate(batches(arrays, batch_size, shuffle=True, rng=rng,
-                                            pad_multiple=mesh.size)):
+                                            pad_multiple=pad_multiple)):
             draws = task.step_draws(seed, global_step, device)
             scores = train_step(task, optimizer, scheduler, to_device(mesh.block(host), device),
                                 draws)
@@ -366,12 +497,15 @@ def train(
             _print_memory(device)
             print("Time usage:")
             print(time.time() - ep_start)
+            join_model(task)
             return ep_losses
 
         train_losses += ep_losses
         if (ep + 1) % eval_interval == 0:
             ckpt_dir = output_dir / f"ckpt-{ep}"
             ckpt_dir.mkdir(parents=True, exist_ok=True)
+            if split is not None and split.pipeline is not None:
+                split.pipeline.fill(model)  # evaluated in the one-process layout, as JAX unpacks
             dev_scores = evaluate(task, dev_data, ckpt_dir, device=device,
                                   batch_size=eval_batch_size, collect_preds=False,
                                   max_eval_batches=eval_max_batches)["scores"]
@@ -387,16 +521,23 @@ def train(
                     plot_example(inp=pb["inputs"][0, ..., 0], label=pb["labels"][0, ..., 0],
                                  pred=pred[0, ..., 0].cpu().numpy(),
                                  out_path=output_dir / "example.png")
+            # The one-process layout: gathered over the model ranks under tp,
+            # the blocks just filled from their stages under pp.
+            weights = model.state_dict()
+            if split is not None and split.pipeline is None:
+                weights = layout.to_std(weights)
+            checkpoints.save_training_state(output_dir, trained, optimizer, scheduler,
+                                            global_step, layout, write=mesh.is_main())
+            if split is not None and split.pipeline is not None:
+                split.pipeline.release(model)
             if mesh.is_main():
                 dump_json(dev_scores, ckpt_dir / "dev_scores.json")
                 dump_json(ep_losses, ckpt_dir / "train_loss.json")
                 dev_key = "nmse" if "nmse" in dev_scores["all"] else objective
                 checkpoints.save_checkpoint(
-                    model.state_dict(), ckpt_dir, ep=ep, train_loss=float(np.mean(ep_losses)),
+                    weights, ckpt_dir, ep=ep, train_loss=float(np.mean(ep_losses)),
                     dev_loss=float(np.mean(dev_scores["all"][dev_key])),
                     time=time.time() - ep_start)
-                checkpoints.save_training_state(output_dir, model, optimizer, scheduler,
-                                                global_step)
                 # Losses before meta: training_meta.json commits the
                 # snapshot, so a kill between the two writes leaves the
                 # history at or ahead of the commit, never behind it
@@ -406,6 +547,7 @@ def train(
                           output_dir / "training_meta.json")
             mesh.barrier()
     print("====== Training done ======")
+    join_model(task)
     if mesh.is_main():
         dump_json(train_losses, output_dir / "train_losses.json")
         plot_loss(train_losses, output_dir / "train_losses.png")

@@ -182,6 +182,28 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    CUDA events in one process, in an NCCL group of one rank, and in that
    group with the collectives of several ranks forced.
 
+14. Tensor and pipeline parallelism over a model axis of two ranks
+   (``parallel/sharding_rules.py``, ``tensor.py``, ``pipeline.py``). (a)
+   Phase 2's check at the shapes a model rank gives each kernel at the
+   flagship, B=128: the block at 16 and 8 of its 32 output channels (the
+   column-parallel block), the head at 64 and 32 of its 128 hidden units
+   (the row-parallel head; ``b2`` on the first rank, zeros on the others),
+   each against its plain version at phase 2's bounds and timed against
+   it as phase 5 times them, beside its bound. (b) Two ranks on the one
+   card in a gloo group, ``--mesh_shape 1x2``, against phase 13b's runs in
+   one process on its tree: the flagship's ``main_auto`` at DP_BATCH
+   (tensor parallel: the spectral weights and fc1 split) and its
+   ``main_multistep``; the same ``main_auto`` with ``--pp_microbatches
+   PP_MICRO`` (two stages of two blocks); the U-Net's epoch at
+   DP_UNET_BATCH (its split convolutions gathered at use), bounded by
+   phase 13b's permuted-row control. Losses, per-step metrics and frames
+   within DP_RTOL, the FNO's weights within DP_RTOL of their largest; each
+   rank's launches: one process's under tp, and under pp the stage's
+   blocks for each microbatch and the head on the last stage only, the
+   evaluations' forwards on every rank. (c) Each rank's parameter and
+   Adam-state bytes of the flagship under tp and under pp against one
+   process's.
+
 ``launches`` in the kernels' record is phase 3's count (main_multistep),
 ``launches_by_path`` each main path's own: main_multistep's and
 main_auto's, one served predict call's and one served rollout's
@@ -189,9 +211,12 @@ main_auto's, one served predict call's and one served rollout's
 main_multistep's with ``--rollout_dtype bfloat16`` (phase 12), and each
 rank's main_auto, main_multistep, main_train, main_gencast, main_vae and
 main_uncond under data parallelism (phase 13: ``dp_torchrun_*``,
-``dp2_rank{r}_*``), each read from counters set to 0
-just before the run and read just after it. The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
+``dp2_rank{r}_*``), and each rank's main_auto and main_multistep under
+tensor parallelism and main_auto under pipeline parallelism (phase 14:
+``tp2_rank{r}_*``, ``pp2_rank{r}_main_auto``), each read from counters set
+to 0 just before the run and read just after it; ``at_rank_shapes`` the
+kernel's phase 14a records. The line before the last is the kernels' JSON
+record; the last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 It needs a CUDA device and fails without one.
 """
 
@@ -335,6 +360,14 @@ DP_VAE_EPOCHS = 4
 # 0's block is all real rows, rank 1's real rows and padding.
 DP_TRAINER_STEP_VALID = 24
 DP_TIMING_ROUNDS = 12
+# Phase 14: a model axis of two ranks; the pipeline's microbatches; the
+# shapes a model rank gives the kernels at the flagship (the block's output
+# channels, the head's hidden units) under a model axis of 2 and of 4.
+TP_MESH = "1x2"
+TP_RANKS = 2
+PP_MICRO = 2
+RANK_BLOCK_COUT = (16, 8)
+RANK_HEAD_HIDDEN = (64, 32)
 # An H100 SXM's published peaks (NVIDIA's data sheet, dense rates): device
 # memory bytes/s, TF32 FLOP/s on the tensor cores and float32 FLOP/s outside
 # them. A split-TF32 product (csrc/tf32.cuh) is three TF32 products.
@@ -2501,9 +2534,12 @@ def dp_run(jobs, device, rank: int = 0) -> dict:
 
     result = {}
     for name, entry, argv in jobs:
+        t0 = time.perf_counter()
         reset_launch_counts()
         if entry == "step":
             r = dp_step(argv, device)
+        elif entry == "bytes":
+            r = split_bytes(argv, device)
         else:
             tee = Tee()
             with contextlib.redirect_stdout(tee):
@@ -2522,7 +2558,8 @@ def dp_run(jobs, device, rank: int = 0) -> dict:
                               else [k for k, _ in model.named_parameters()])
         r["launches"] = launch_counts()
         result[name] = r
-        print(f"[dp] rank {rank} {name}: launches {r['launches']}")
+        print(f"[dp] rank {rank} {name}: launches {r['launches']}, "
+              f"{time.perf_counter() - t0:.2f} s")
     return result
 
 
@@ -2530,8 +2567,12 @@ def dp_rank(rank: int, world: int, root: str, jobs, device: str) -> None:
     """Phase 13b's rank ``rank`` of ``world``, spawned: a gloo group that
     meets through a file under ``root``, every rank on ``device`` (the one
     card); its results to ``root/rank{rank}.pt``."""
+    import os
+
     import torch.distributed as dist
 
+    # The ranks share the host's cores: each takes its share of them.
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     if torch.device(device).type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group("gloo", init_method=f"file://{root}/rendezvous", rank=rank,
@@ -2822,13 +2863,14 @@ def dp_two_ranks(device) -> dict:
     metrics_rel([got["mean"]], [want["mean"]], "fno test scores", DP_RTOL)
     metrics_rel(*(json.loads((r / "multistep_metrics.json").read_text())
                   for r in (mesh_run, single_run)), "fno per-step metrics", DP_RTOL)
-    return {f"dp{DP_RANKS}_rank{r}_{path}": {
+    counts = {f"dp{DP_RANKS}_rank{r}_{path}": {
         k: sum(ranks[r][n]["launches"][k] for n in names) for k in ("fno_block", "fno_head")}
         for r in range(DP_RANKS)
         for path, names in (("main_auto", ("fno", "fno_test")),
                             ("main_multistep", ("fno_multistep",)),
                             ("main_train", ("ffn", "deeponet")), ("main_gencast", ("gencast",)),
                             ("main_vae", ("vae",)), ("main_uncond", ("uncond",)))}
+    return counts, data_root, single, controls["unet"]
 
 
 def dp_step_timing(device, card) -> dict:
@@ -2879,6 +2921,199 @@ def dp_step_timing(device, card) -> dict:
     return ms
 
 
+def rank_kernels(device, card) -> dict:
+    """Phase 14a: each kernel at the shapes a model rank gives it at the
+    flagship, B=128: the column-parallel block at RANK_BLOCK_COUT of 32
+    output channels, the row-parallel head at RANK_HEAD_HIDDEN of 128
+    hidden units (``b2`` on the first rank only). Each against its plain
+    version at phase 2's bounds (the block's saved tensors too), timed
+    against it as phase 5 times them; returns per kernel a record a shape."""
+    from cfdbench_tpu_torch.ops import fno_kernels as fk
+    from cfdbench_tpu_torch.ops.spectral import init_spectral_weights
+
+    B, H, W, C = TIMING_BATCH, GRID, GRID, WIDTH
+    gen = torch.Generator().manual_seed(SEED + 14)
+    x = torch.randn((B, H, W, C), generator=gen).to(device)
+    mask = torch.ones((B, H, W, 1))
+    mask[:, 20:30, 10:40] = 0
+    mask = mask.to(device)
+    cases = []
+    for co in RANK_BLOCK_COUT:
+        args = (x, (init_spectral_weights(gen, C, co, MODES, MODES) * C).to(device),
+                (torch.randn((co, C), generator=gen) * C ** -0.5).to(device),
+                (torch.randn((co,), generator=gen) * 0.1).to(device), MODES, MODES)
+        cases.append(("fno_block", f"Cout={co}", args, BLOCK_ATOL,
+                      block_work(B, H, W, C, co, MODES)))
+    for i, hidden in enumerate(RANK_HEAD_HIDDEN):
+        b2 = torch.full((2,), 0.1) if i == 0 else torch.zeros(2)
+        args = (x, (torch.randn((hidden, C), generator=gen) * C ** -0.5).to(device),
+                (torch.randn((hidden,), generator=gen) * 0.1).to(device),
+                (torch.randn((2, hidden), generator=gen) * 128 ** -0.5).to(device),
+                b2.to(device), mask)
+        cases.append(("fno_head", f"hidden={hidden}, b2 {'set' if i == 0 else 'zeros'}", args,
+                      HEAD_ATOL, head_work(B, H, W, C, hidden, 2)))
+    out = {"fno_block": [], "fno_head": []}
+    plain = {"fno_block": fk.fno_block_reference, "fno_head": fk.fno_head_reference}
+    kernel = {"fno_block": fk.fno_block, "fno_head": fk.fno_head}
+    with torch.inference_mode():
+        for name, shape, args, atol, work in cases:
+            got, want = kernel[name](*args), plain[name](*args)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            if got.shape != want.shape or not torch.isfinite(got).all() or not err <= atol:
+                raise RuntimeError(f"{name} at a rank's shape {shape}: max abs err {err:.3e} "
+                                   f"(bound {atol:.0e}), shape {tuple(got.shape)}")
+            if name == "fno_block":
+                check_saved(args)
+            p, k = interleaved_ms(lambda: plain[name](*args), lambda: kernel[name](*args),
+                                  reps=20)
+            bound_ms, bound_by = bound(*work)
+            out[name].append(dict(shape=shape, max_abs_err=err, ms=k, plain_ms=p,
+                                  bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / k))
+            print(f"[tp] [{card}] {name} B={B} {H}x{W} C={C} {shape}: max abs err {err:.3e} "
+                  f"(bound {atol:.0e}); kernel {k:.4f} ms, plain {p:.4f} ms ({p / k:.2f}x); "
+                  f"bound {bound_ms:.4f} ms by {bound_by}, kernel at {bound_ms / k:.1%} of it")
+    return out
+
+
+def tp_jobs(data_root: Path, out: Path):
+    """Phase 14b's runs on TP_MESH: phase 13b's flagship main_auto (tp) and
+    main_multistep, the same main_auto with --pp_microbatches PP_MICRO
+    into ``out``'s sibling ``_pp`` directory, the U-Net's epoch, and the
+    bytes of each layout (entry ``bytes``)."""
+    jobs = {n: (n, e, a) for n, e, a in dp_jobs(data_root, out, TP_MESH)}
+    pp = [a.replace(str(out), f"{out}_pp") for a in jobs["fno"][2]]
+    return [jobs["fno"], jobs["fno_multistep"],
+            ("fno_pp", "main_auto", pp + ["--pp_microbatches", str(PP_MICRO)]), jobs["unet"],
+            ("bytes_tp", "bytes", ["--mesh_shape", TP_MESH]),
+            ("bytes_pp", "bytes", ["--mesh_shape", TP_MESH, "--pp_microbatches", str(PP_MICRO)])]
+
+
+def split_bytes(argv, device) -> dict:
+    """The flagship's parameter and Adam-state bytes on this rank after one
+    train step at GRAD_BATCH, its model laid over ``--mesh_shape``'s model
+    axis as main_auto lays it (``--pp_microbatches``: staged)."""
+    import torch.distributed as dist
+
+    from cfdbench_tpu_torch.cli import make_auto_task, parse_args
+    from cfdbench_tpu_torch.parallel.mesh import make_mesh
+    from cfdbench_tpu_torch.training.optim import make_adam
+    from cfdbench_tpu_torch.training.trainer_auto import (
+        split_model, train_step, trained_module, use_mesh)
+
+    args = parse_args(fno_argv(WORK / "dp_data", WORK / "bytes") + argv)
+    mesh = make_mesh(args.mesh_shape, dist.group.WORLD if dist.is_initialized() else None)
+    task = make_auto_task(args, 5, (GRID, GRID), device)
+    use_mesh(task, mesh)
+    split_model(task, args.pp_microbatches)
+    trained = trained_module(task)
+    opt, sched = make_adam(trained.parameters(), args.lr)
+    batch = train_inputs(GRAD_BATCH * max(1, args.pp_microbatches),
+                         torch.Generator().manual_seed(SEED + 15), device)
+    train_step(task, opt, sched, mesh.block(batch))
+    return dict(param_bytes=sum(p.numel() * p.element_size() for p in trained.parameters()),
+                adam_bytes=sum(t.numel() * t.element_size() for st in opt.state.values()
+                               for t in st.values() if torch.is_tensor(t) and t.dim() > 0))
+
+
+def model_axis_ranks(device, data_root: Path, single: dict, unet_control: dict):
+    """Phase 14b-c: TP_RANKS ranks on the one card in a gloo group, the
+    jobs of :func:`tp_jobs`, against phase 13b's runs in one process (and
+    its U-Net control); returns each rank's launches per path and the
+    bytes of each layout against one process's."""
+    import torch.multiprocessing as mp
+
+    from cfdbench_tpu_torch.cli import parse_args, run_dir
+    from cfdbench_tpu_torch.models.fno import FLAGSHIP
+
+    out = WORK / "tp_mesh"
+    jobs = tp_jobs(data_root, out)
+    root = WORK / "tp_ranks"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.spawn(dp_rank, args=(TP_RANKS, str(root), jobs, str(device)), nprocs=TP_RANKS, join=True)
+    print(f"[tp] {TP_RANKS} ranks on one card (gloo), --mesh_shape {TP_MESH}: "
+          f"{time.perf_counter() - t0:.2f} s, spawn included")
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=True) for r in range(TP_RANKS)]
+    argv = {n: a for n, _, a in jobs}
+
+    def single_run(name):
+        mesh_run = run_dir(parse_args(argv[name]))
+        base = f"{out}_pp" if name == "fno_pp" else str(out)
+        return mesh_run, WORK / "dp_single" / mesh_run.relative_to(base)
+
+    # The one-process launches of phase 13b's train run: its train steps
+    # and its evaluations' forwards (each one head launch).
+    printed = single["fno"]["printed"]
+    steps = int(re.search(r"# step: (\d+)", printed).group(1)) * TRAIN_EPOCHS
+    evals = single["fno"]["launches"]["fno_head"] - steps
+    L, S = FLAGSHIP["num_layers"], TP_RANKS
+    for name in ("fno", "fno_multistep", "fno_pp", "unet"):
+        want = single["fno" if name == "fno_pp" else name]
+        what = f"{name}, {TP_MESH} against one process"
+        for r, result in enumerate(ranks):
+            got = result[name]["launches"]
+            expect = want["launches"]
+            if name == "fno_pp" and device.type == "cuda":
+                expect = {"fno_block": steps * (L // S) * PP_MICRO + evals * L,
+                          "fno_head": (steps * PP_MICRO if r == S - 1 else 0) + evals}
+            if got != expect:
+                raise RuntimeError(f"{what}: rank {r} launched {got}, expected {expect}")
+            if name.startswith("fno") and device.type == "cuda" and not all(got.values()):
+                raise RuntimeError(f"{what}: rank {r}: a kernel never launched")
+        if name == "fno_multistep":
+            for r, result in enumerate(ranks):
+                err = max_rel(result[name]["frames"], want["frames"])
+                print(f"[tp] {what}: rank {r} frames max diff / max {err:.3e}")
+                if not err <= DP_RTOL:
+                    raise RuntimeError(f"{what}: rank {r}'s frames disagree, {err:.3e}")
+            mesh_run, one_run = single_run("fno")
+            metrics_rel(*(json.loads((r / "multistep_metrics.json").read_text())
+                          for r in (mesh_run, one_run)), f"{what}: per-step metrics", DP_RTOL)
+            continue
+        for k, v in ranks[0][name]["state"].items():
+            if not torch.equal(v, ranks[1][name]["state"][k]):
+                raise RuntimeError(f"{what}: rank 1's {k} differs from rank 0's")
+        mesh_run, one_run = single_run(name)
+        loss_rel = losses_rel(mesh_run, one_run)
+        params_rel = dp_params(ranks[0][name]["state"], want["state"], want["names"], what)
+        if name == "unet":
+            control_run = WORK / "dp_control" / mesh_run.relative_to(out)
+            ctl_loss = losses_rel(control_run, one_run)
+            ctl_params = dp_params(unet_control["state"], want["state"], want["names"],
+                                   "unet, one process with permuted rows against one process")
+            print(f"[tp] {what}: losses max rel diff {loss_rel:.3e}, parameters {params_rel:.3e}"
+                  f" of the largest; the permuted-row control {ctl_loss:.3e}, {ctl_params:.3e} "
+                  f"(bound {DP_DRIFT_FACTOR:g} x the control + {DP_RTOL:.0e})")
+            if not (loss_rel <= DP_DRIFT_FACTOR * ctl_loss + DP_RTOL
+                    and params_rel <= DP_DRIFT_FACTOR * ctl_params + DP_RTOL):
+                raise RuntimeError(f"{what}: parted further than the permuted-row control")
+            continue
+        print(f"[tp] {what}: train losses max rel diff {loss_rel:.3e}, parameters "
+              f"{params_rel:.3e} of the largest (bound {DP_RTOL:.0e} each)")
+        if not (loss_rel <= DP_RTOL and params_rel <= DP_RTOL):
+            raise RuntimeError(f"{what}: losses or parameters disagree")
+    one = split_bytes(["--mesh_shape", "1"], device)
+    sizes = {"one_process": one}
+    for layout in ("tp", "pp"):
+        for r, result in enumerate(ranks):
+            got = {k: result[f"bytes_{layout}"][k] for k in ("param_bytes", "adam_bytes")}
+            sizes[f"{layout}_rank{r}"] = got
+            print(f"[tp] {layout} rank {r}: parameters {got['param_bytes']} B, Adam state "
+                  f"{got['adam_bytes']} B; one process {one['param_bytes']} B, "
+                  f"{one['adam_bytes']} B")
+            if not (got["param_bytes"] < one["param_bytes"]
+                    and got["adam_bytes"] == 2 * got["param_bytes"]):
+                raise RuntimeError(f"{layout} rank {r} holds {got}, one process {one}")
+    counts = {}
+    for r in range(TP_RANKS):
+        counts[f"tp{TP_RANKS}_rank{r}_main_auto"] = ranks[r]["fno"]["launches"]
+        counts[f"tp{TP_RANKS}_rank{r}_main_multistep"] = ranks[r]["fno_multistep"]["launches"]
+        counts[f"pp{TP_RANKS}_rank{r}_main_auto"] = ranks[r]["fno_pp"]["launches"]
+    return counts, sizes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False",
@@ -2920,15 +3155,23 @@ def main() -> int:
     t13 = time.perf_counter()
     dp_counts = {f"dp_torchrun_{k}": v
                  for k, v in dp_torchrun(train_counts, train_metrics).items()}
-    dp_counts.update(dp_two_ranks(device))
+    two_ranks, dp_data, dp_single, unet_control = dp_two_ranks(device)
+    dp_counts.update(two_ranks)
     dp_times = dp_step_timing(device, card)
     print(f"[phase13] [{card}] " + json.dumps({"timing": dp_times, "launches": dp_counts,
                                                "seconds": time.perf_counter() - t13}))
+    t14 = time.perf_counter()
+    rank_times = rank_kernels(device, card)
+    mp_counts_14, mp_bytes = model_axis_ranks(device, dp_data, dp_single, unet_control)
+    dp_counts.update(mp_counts_14)
+    print(f"[phase14] [{card}] " + json.dumps({"kernels_at_rank_shapes": rank_times,
+                                               "bytes": mp_bytes, "launches": mp_counts_14,
+                                               "seconds": time.perf_counter() - t14}))
     print(f"[main] launches on the main paths: main_multistep {counts}, "
           f"main_auto {train_counts}, one served predict call {serve_predict}, one served "
           f"rollout {serve_rollout}, main_auto --use_mixed_precision {mp_counts}, "
-          f"main_multistep --rollout_dtype bfloat16 {bf16_counts}, per rank under data "
-          f"parallelism {dp_counts}")
+          f"main_multistep --rollout_dtype bfloat16 {bf16_counts}, per rank under data, "
+          f"tensor and pipeline parallelism {dp_counts}")
     replaces = {"fno_block": "cfdbench_tpu/ops/pallas_fno.py:179",
                 "fno_head": "cfdbench_tpu/ops/pallas_fno.py:268"}
     print(json.dumps({"kernels": [
@@ -2940,7 +3183,8 @@ def main() -> int:
                               "main_auto_mixed_precision": mp_counts[name],
                               "main_multistep_bf16": bf16_counts[name],
                               **{path: c[name] for path, c in dp_counts.items()}},
-         "max_abs_err": errors[name], **times[name], "library_ms": None}
+         "max_abs_err": max([errors[name]] + [t["max_abs_err"] for t in rank_times[name]]),
+         **times[name], "library_ms": None, "at_rank_shapes": rank_times[name]}
         for name in ("fno_block", "fno_head")
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,13 @@
-"""One rank of a data-parallel run of the port, spawned by
-``tests/test_torch_parallel.py`` and ``tests/test_torch_parallel_trainers.py``
-(and importable without JAX, so that the spawned processes stay light).
+"""One rank of a data-, tensor- or pipeline-parallel run of the port,
+spawned by ``tests/test_torch_parallel.py``,
+``tests/test_torch_parallel_trainers.py``, ``tests/test_torch_tp.py`` and
+``tests/test_torch_pp.py`` (and importable without JAX, so that the
+spawned processes stay light).
 
 :func:`run` joins a gloo group through a file under the test's temporary
 directory (never a TCP port: several test workers run at once), runs the
-job that the test saved beside it, and saves this rank's results.
+job that the test saved beside it on the job's ``--mesh_shape`` (all
+ranks on the data axis by default), and saves this rank's results.
 """
 
 from __future__ import annotations
@@ -63,6 +66,62 @@ def host_step(case: dict, mesh):
                 grads={k: p.grad.clone() for k, p in task.model.named_parameters()},
                 buffers={k: b.clone() for k, b in task.model.named_buffers()},
                 output=mesh.gather(outputs[0].float()))
+
+
+def split_step(case: dict, mesh):
+    """``case["steps"]`` ``trainer_auto.train_step``s of ``case`` with its
+    model split over ``mesh``'s model axis (``split_model``: tp, or pp with
+    ``case["pp"]`` microbatches) on ``mesh``'s block of its global batch.
+    Returns each step's scores, the first step's predictions (gathered over
+    the data ranks) and gradients (in the one-process layout), the
+    parameters after the last step (the model joined whole again), and this
+    rank's parameter and optimizer-state bytes against the whole model's."""
+    from cfdbench_tpu_torch.training.optim import make_adam
+    from cfdbench_tpu_torch.training.trainer_auto import (
+        join_model, split_model, train_step, trained_module, use_mesh)
+
+    task = build_task(case)
+    use_mesh(task, mesh)
+    whole = sum(p.numel() for p in task.model.parameters())
+    split_model(task, case.get("pp", 0), case.get("min_size", 4096))
+    trained = trained_module(task)
+    split = task.split
+    shards = {}
+    if split is not None and split.pipeline is None:
+        params = dict(task.model.named_parameters())
+        shards = {params[n]: d for n, d in split.layout.axes.items() if d is not None}
+    opt, sched = make_adam(trained.parameters(), case["lr"], steps_per_epoch=10,
+                           opt_state=case.get("opt_state", "f32"), shards=shards,
+                           axis=mesh.model)
+    preds, scores, grads = [], [], None
+    real_scores = task.scores
+
+    def scores_of(out, batch):
+        preds.append(out.detach().clone())
+        return real_scores(out, batch)
+
+    task.scores = scores_of
+    if case.get("perturb"):
+        # Each model rank's gradient of each whole parameter off by its own
+        # rank-dependent rounding, as a kernel whose sums run in no fixed
+        # order leaves it on the card.
+        whole = [p for n, p in task.model.named_parameters()
+                 if split.layout.axes.get(n) is None]
+        for p in whole:
+            p.register_hook(lambda g: g + 1e-9 * (1 + mesh.model.rank))
+    batch = {k: torch.from_numpy(v) for k, v in mesh.block(case["batch"]).items()}
+    for _ in range(case.get("steps", 1)):
+        scores.append({k: float(v) for k, v in train_step(task, opt, sched, batch).items()})
+        if grads is None:
+            named = {n: p.grad for n, p in trained.named_parameters()}
+            grads = named if split is None else split.layout.to_std(named)
+    local = sum(p.numel() for p in trained.parameters())
+    opt_bytes = sum(t.numel() * t.element_size() for st in opt.state.values()
+                    for t in st.values() if torch.is_tensor(t) and t.dim() > 0)
+    join_model(task)
+    return dict(scores=scores, preds=mesh.gather(preds[0]), grads=grads,
+                params={k: p.detach().clone() for k, p in task.model.named_parameters()},
+                local_params=local, whole_params=whole, opt_bytes=opt_bytes)
 
 
 def host_sample(case: dict, mesh):
@@ -376,8 +435,10 @@ def run(rank: int, world: int, root: str) -> None:
                             rank=rank, world_size=world)
     try:
         job = torch.load(root / "job.pt", weights_only=False)
-        mesh = make_mesh(str(world), dist.group.WORLD)
-        if job["kind"] == "steps":
+        mesh = make_mesh(job.get("mesh", str(world)), dist.group.WORLD)
+        if job["kind"] == "split_steps":
+            result = {name: split_step(case, mesh) for name, case in job["cases"].items()}
+        elif job["kind"] == "steps":
             result = {name: host_step(case, mesh) for name, case in job["cases"].items()}
             result["samples"] = {name: host_sample(case, mesh)
                                  for name, case in job["samples"].items()}

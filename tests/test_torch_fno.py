@@ -137,7 +137,8 @@ PORT_MODULES = ("data.datasets", "data.pipeline", "metrics", "training.optim",
                 "models.ffno", "utils.flax_import", "models.punetg", "models.diffusion",
                 "ops.diffusion", "training.trainer_gencast", "data.wrapper", "utils.rng",
                 "models.vae", "data.vae_data", "training.trainer_vae", "training.trainer_uncond",
-                "utils.export", "utils.torch_import", "parallel.mesh")
+                "utils.export", "utils.torch_import", "parallel.mesh", "parallel.sharding_rules",
+                "parallel.tensor", "parallel.pipeline")
 JAX_ROOTS = {"jax", "flax", "optax", "orbax", "cfdbench_tpu"}
 
 

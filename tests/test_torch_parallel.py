@@ -23,7 +23,8 @@ file under the test's temporary directory (``tests/_torch_dp_worker.py``).
 - The refusals: every axis not ported names its ROADMAP.md item, a world
   size other than ``--mesh_shape`` names ``torchrun`` in each data-parallel
   entry point, and no card means an error unless the caller asks for the
-  CPU. The other trainers' data parallelism: ``test_torch_parallel_trainers.py``.
+  CPU. The other trainers' data parallelism: ``test_torch_parallel_trainers.py``;
+  the model axis: ``test_torch_tp.py``, ``test_torch_pp.py``.
 """
 
 import ast
@@ -406,10 +407,16 @@ def small_argv(data_root, flags, model=MODEL_FLAGS):
 
 
 @pytest.mark.parametrize("entry,flags,error", [
-    ("main_auto", ["--mesh_shape", "2x2"], "A15c"),
-    ("main_multistep", ["--mesh_shape", "2x2"], "A15c"),
+    # main_auto and the autoregressive main_multistep split a model axis
+    # (tests/test_torch_tp.py, test_torch_pp.py); the trainers and rollouts
+    # that do not still name their item. The cases keep their ids.
+    pytest.param("main_train", ["--model", "ffn", "--mesh_shape", "2x2"], "A15c",
+                 id="main_auto-flags0-A15c"),
+    pytest.param("main_multistep", ["--model", "gencast", "--mesh_shape", "2x2"], "A15c",
+                 id="main_multistep-flags1-A15c"),
     ("main_auto", ["--shard_spatial", "1"], "A15d"),
-    ("main_auto", ["--pp_microbatches", "2"], "A15e"),
+    pytest.param("main_train", ["--model", "ffn", "--pp_microbatches", "2"], "A15e",
+                 id="main_auto-flags3-A15e"),
     ("main_multistep", ["--model", "deeponet", "--mesh_shape", "2"], "ROADMAP.md C"),
 ])
 def test_axes_not_ported_raise_by_name(tmp_path, entry, flags, error):
