@@ -34,14 +34,17 @@ kernels always run.
 Every trainer (``main_auto``, ``main_train``, ``main_gencast``,
 ``main_vae``, ``main_uncond``) and ``main_multistep`` run data-parallel
 under ``torchrun --nproc_per_node N`` with ``--mesh_shape N``, one card a
-rank (``parallel/mesh.py``). ``main_auto`` and the autoregressive
-``main_multistep`` also take a model axis, ``--mesh_shape NxM`` under
-``torchrun --nproc_per_node N·M``: tensor parallelism, and in ``main_auto``
-pipeline parallelism of the FNO with ``--pp_microbatches K``
-(``training/trainer_auto.py::split_model``). The other trainers and
-GenCast's rollout refuse a model axis (ROADMAP.md A15c2), the
-non-autoregressive ``main_multistep`` any mesh, as the JAX one ignores it
-(ROADMAP.md C), and ``--shard_spatial`` raises (A15d).
+rank (``parallel/mesh.py``). Each also takes a model axis,
+``--mesh_shape NxM`` under ``torchrun --nproc_per_node N·M``, in float32
+and in bfloat16 (``--use_mixed_precision``, ``--rollout_dtype
+bfloat16``): tensor parallelism in ``main_auto``, ``main_gencast``,
+``main_vae``, ``main_uncond`` and the autoregressive and GenCast
+``main_multistep`` (``training/trainer_auto.py::split_model``,
+``split_module``), pipeline parallelism of the FNO in ``main_auto`` with
+``--pp_microbatches K``, and in ``main_train`` a replicated model axis, as
+the JAX trainer keeps it. The non-autoregressive ``main_multistep`` refuses
+any mesh, as the JAX one ignores it (ROADMAP.md C), ``--pp_microbatches``
+is refused outside ``main_auto``, and ``--shard_spatial`` raises (A15d).
 """
 
 from __future__ import annotations
@@ -147,24 +150,6 @@ def model_axis(args: Args) -> int:
     return parse_spec(args.mesh_shape)[1]
 
 
-def refuse_model_axis(args: Args, entry: str) -> None:
-    """Raise on a model axis in an entry point that splits no model over one."""
-    if model_axis(args) > 1:
-        raise NotImplementedError(
-            f"--mesh_shape {args.mesh_shape}: tensor parallelism in {entry} is ROADMAP.md "
-            "A15c2; the port splits a model axis in main_auto and the autoregressive "
-            "main_multistep (A15c)")
-
-
-def refuse_bf16_model_axis(args: Args, flag: str) -> None:
-    """Raise on a bfloat16 forward over a model axis: the FNO's split forward
-    and the pipeline run float32."""
-    if model_axis(args) > 1:
-        raise NotImplementedError(
-            f"{flag} with --mesh_shape {args.mesh_shape}: a bfloat16 forward over a model "
-            "axis is ROADMAP.md A15f")
-
-
 def check_rollout_flags(args: Args) -> None:
     """``check_supported`` and the flags only ``main_multistep`` reads.
     ``--rollout_dtype bfloat16`` is taken for the deterministic
@@ -172,13 +157,10 @@ def check_rollout_flags(args: Args) -> None:
     drops it (a diffusion model, the FNO with ``--use_pallas_head 1``) or
     never reads it (GenCast, the non-autoregressive models), it raises.
     A mesh of more than one rank is refused for the non-autoregressive
-    models, whose JAX branch ignores it; a model axis for GenCast
-    (ROADMAP.md A15c2)."""
+    models, whose JAX branch ignores it (ROADMAP.md C)."""
     check_supported(args)
     if args.model == "auto_deeponet_cnn":
         raise ValueError(f"--model {NO_ROLLOUT}")
-    if args.model == "gencast":
-        refuse_model_axis(args, "GenCast's main_multistep")
     if args.model in NONAUTO_MODELS and data_size(args.mesh_shape) * model_axis(args) > 1:
         raise NotImplementedError(
             f"--mesh_shape {args.mesh_shape} with --model {args.model}: the JAX "
@@ -201,7 +183,6 @@ def check_rollout_flags(args: Args) -> None:
         if dropped:
             raise NotImplementedError(
                 f"--rollout_dtype bfloat16 with {dropped} (ROADMAP.md C)")
-        refuse_bf16_model_axis(args, "--rollout_dtype bfloat16")
 
 
 def check_training_flags(args: Args, regime: str = "auto") -> None:
@@ -221,14 +202,10 @@ def check_training_flags(args: Args, regime: str = "auto") -> None:
             "--shard_spatial: spatial sharding is ROADMAP.md A15d"
         )
     entry = {"auto": "main_auto", "nonauto": "main_train", "gencast": "main_gencast"}[regime]
-    if regime != "auto":
-        refuse_model_axis(args, entry)
-        if args.pp_microbatches:
-            raise NotImplementedError(
-                f"--pp_microbatches in {entry}: pipeline parallelism stages the FNO in "
-                "main_auto (ROADMAP.md A15e)")
-    elif args.use_mixed_precision:
-        refuse_bf16_model_axis(args, "--use_mixed_precision")
+    if regime != "auto" and args.pp_microbatches:
+        raise NotImplementedError(
+            f"--pp_microbatches in {entry}: pipeline parallelism stages the FNO in "
+            "main_auto (ROADMAP.md A15e)")
     # Flags the JAX entry point parses and never passes to its trainer
     # (ROADMAP.md C), each with whether this run sets it.
     ignored = {}
@@ -282,7 +259,6 @@ def check_vae_flags(args: Args) -> None:
     none of the VAE and training flags that the JAX ``main_vae`` never
     reads."""
     check_runtime_flags(args)
-    refuse_model_axis(args, "main_vae")
     if args.mode not in VAE_MODES:
         raise ValueError(f"--mode {args.mode!r}: main_vae trains; choose train or train_anneal "
                          "(the JAX main_vae trains whatever --mode says, ROADMAP.md C)")
@@ -295,7 +271,6 @@ def check_uncond_flags(args: Args) -> None:
     timesteps, the data, ``--lr``, ``--batch_size``, ``--num_epochs``,
     ``--seed`` and ``--resume``; none that the JAX script never reads."""
     check_runtime_flags(args)
-    refuse_model_axis(args, "main_uncond")
     refuse_ignored(args, ("mode", "pixel_diffusion_channel_mults",
                           "pixel_diffusion_num_res_blocks", "pixel_diffusion_dropout",
                           "ldm_num_inference_steps") + _UNREAD_TRAINING_FLAGS,
@@ -376,9 +351,10 @@ def main_multistep(argv=None, device=None) -> torch.Tensor:
     means (``cfdbench_tpu/cli.py:474-516``); each rank rolls its block of
     cases out on its card, the frames are gathered, and rank 0 writes the
     metrics. Every rank returns every real case's frames. With a model axis
-    (``--mesh_shape NxM``, the autoregressive models) the parameters it
-    rolls out are split over it, as ``main_auto`` splits them for tensor
-    parallelism."""
+    (``--mesh_shape NxM``, the autoregressive models and GenCast) the
+    parameters it rolls out are split over it, as ``main_auto`` and
+    ``main_gencast`` split them for tensor parallelism, in float32 or
+    bfloat16."""
     args = parse_args(argv)
     check_rollout_flags(args)
     device = entry_device(device)
@@ -428,6 +404,8 @@ def _run_multistep(args: Args, device: torch.device, mesh) -> torch.Tensor:
         task = init_gencast(args, stats, P, device=device)
         use_mesh(task, mesh)
         task.model.load_state_dict(load_params(output_dir / trainer_gencast.BEST_DIR))
+        if trainer_auto.split_module(task.model, mesh) is not None:
+            print(f"[multistep] tensor-sharding params over {mesh.model.size} model-axis ranks")
         f0 = on_device(frame0)
         preds = task.rollout(f0, f0, on_device(case_params), on_device(mask), INFER_STEPS)
     else:
@@ -590,8 +568,10 @@ def main_train(argv=None, device=None) -> NonAutoTask:
     names another; with ``device`` None and no card it raises.
     ``--eval_batch_size`` and ``--plot_train_examples`` are ignored, as
     in the JAX package. Data parallelism: as ``main_auto``; every rank
-    draws a step's query points alike. Returns the task, as ``main_auto``
-    does."""
+    draws a step's query points alike. ``--mesh_shape NxM`` keeps a
+    replicated model axis, as the JAX trainer does: the M model ranks of a
+    data rank train the same rows on the whole model. Returns the task, as
+    ``main_auto`` does."""
     args = parse_args(argv)
     check_training_flags(args, "nonauto")
     device = entry_device(device)
@@ -663,7 +643,9 @@ def main_gencast(argv=None, device=None):
     raises. Data parallelism: as ``main_auto``; rank 0 computes and
     writes the residual statistics, which the other ranks then read, and
     the test split is generated a block of rows a rank, its frames
-    gathered. Returns the task."""
+    gathered. ``--mesh_shape NxM`` splits the PUNetG over the model axis
+    (tensor parallelism; ``trainer_gencast``), its checkpoints in the
+    one-process layout. Returns the task."""
     args = dataclasses.replace(parse_args(argv), model="gencast")
     check_training_flags(args, "gencast")
     device = entry_device(device)
@@ -734,8 +716,10 @@ def main_vae(argv=None, device=None):
     the KL weight over ``--vae_kl_annealing_epochs``. Runs on the CUDA card
     unless ``device`` names another; with ``device`` None and no card it
     raises. Data parallelism: as ``main_auto``; every rank reads the same
-    dev loss, so cuts its rate and stops on the same epoch. Returns the
-    best weights."""
+    dev loss, so cuts its rate and stops on the same epoch.
+    ``--mesh_shape NxM`` splits the VAE over the model axis (tensor
+    parallelism; ``trainer_vae``). Returns the best weights, in the
+    one-process layout."""
     args = parse_args(argv)
     check_vae_flags(args)
     device = entry_device(device)
@@ -782,7 +766,9 @@ def main_uncond(argv=None, device=None):
     into ``<output_dir>/uncond_ddpm/<data_name>``. Runs on the CUDA card
     unless ``device`` names another; with ``device`` None and no card it
     raises. Data parallelism: as ``main_auto``; rank 0 samples the EMA's
-    frames. Returns what ``train_uncond_ddpm`` returns."""
+    frames. ``--mesh_shape NxM`` splits the PUNetG and its EMA over the
+    model axis (tensor parallelism; ``trainer_uncond``). Returns what
+    ``train_uncond_ddpm`` returns."""
     args = parse_args(argv)
     check_uncond_flags(args)
     device = entry_device(device)

@@ -59,7 +59,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ..metrics import LossFn
 from ..ops.diffusion import ddpm_sample, make_ddpm_scheduler
@@ -140,8 +140,13 @@ class _DiffusionTask:
         x, case_params = to_dtype(x, dtype), to_dtype(case_params, dtype)
         if not self.use_gradient_checkpointing:
             return cast_call(unet, dtype, x, t, case_params, masks or None)
-        return checkpoint(lambda x_, cp_, *m: cast_call(unet, dtype, x_, t, cp_, m or None),
-                          x, case_params, *masks, use_reentrant=False)
+        # Under a model axis the recompute runs the whole forward, so every
+        # gather hook runs, before and after its module, as in the forward
+        # and alike on every model rank (early stopping would leave the
+        # last modules' gathered weights in place).
+        with set_checkpoint_early_stop(not self.mesh.model.distributed):
+            return checkpoint(lambda x_, cp_, *m: cast_call(unet, dtype, x_, t, cp_, m or None),
+                              x, case_params, *masks, use_reentrant=False)
 
     def _noise_scores(self, x0, batch, key: Optional[Key], network_input=lambda noisy: noisy):
         """``(loss, scores)`` of the network's noise prediction on ``x0``

@@ -33,7 +33,10 @@ In bfloat16 (``--use_mixed_precision``'s train forward, the bfloat16
 rollout) the model runs the plain versions on either device, in the JAX
 package's bfloat16 numerics: its Pallas kernels are float32 only and its
 bfloat16 paths never reach them (``cfdbench_tpu/cli.py:580-593``). The
-kernels take float32 only and raise on anything else.
+kernels take float32 only and raise on anything else. Under tensor or
+pipeline parallelism a bfloat16 forward runs the same split blocks and
+head as the float32 one, each on the plain version of its kernel at the
+rank's slice.
 """
 
 from __future__ import annotations
@@ -86,9 +89,22 @@ def lift(fc0: Dense, inputs, case_params, mask):
     )
 
 
+def block_call(x, weights, w0, b0, modes1: int, modes2: int):
+    """One FnoBlock: the block kernel, or its plain version on a bfloat16
+    input (the kernels take float32 only)."""
+    fn = fno_block_reference if x.dtype == torch.bfloat16 else fno_block
+    return fn(x, weights, w0, b0, modes1, modes2)
+
+
+def head_call(x, w1, b1, w2, b2, mask):
+    """The head: the head kernel, or its plain version on a bfloat16 input."""
+    fn = fno_head_reference if x.dtype == torch.bfloat16 else fno_head
+    return fn(x, w1, b1, w2, b2, mask)
+
+
 def head(fc1: Dense, fc2: Dense, x, mask):
     """The head, fc1 → GELU → fc2 → ×mask: one call of the head kernel."""
-    return fno_head(x, fc1.weight, fc1.bias, fc2.weight, fc2.bias, mask)
+    return head_call(x, fc1.weight, fc1.bias, fc2.weight, fc2.bias, mask)
 
 
 class FnoBlock(nn.Module):
@@ -108,16 +124,17 @@ class FnoBlock(nn.Module):
         self.w0 = Dense(channels, channels, generator=generator)
 
     def forward(self, x):
-        return fno_block(x, self.weights, self.w0.weight, self.w0.bias,
-                         self.modes1, self.modes2)
+        return block_call(x, self.weights, self.w0.weight, self.w0.bias,
+                          self.modes1, self.modes2)
 
 
 class Fno2d(nn.Module):
     """Autoregressive FNO: ``forward(inputs, case_params, mask) → preds``.
 
     inputs (B, H, W, in_chan); case_params (B, P); mask (B, H, W, 1),
-    (B, H, W) or None. Returns (B, H, W, out_chan), masked. bfloat16
-    inputs take :func:`fno2d_reference`, no kernel.
+    (B, H, W) or None. Returns (B, H, W, out_chan), masked. A bfloat16
+    input runs the plain versions of both kernels (:func:`block_call`,
+    :func:`head_call`), whole or split: no kernel.
     Parameters are drawn from ``generator`` on the CPU, then moved to
     ``device``.
     """
@@ -147,26 +164,27 @@ class Fno2d(nn.Module):
     tp = None  # the model axis under tensor parallelism
 
     def forward(self, inputs, case_params, mask=None):
-        if inputs.dtype == torch.bfloat16:
-            if self.tp is not None:
-                raise NotImplementedError("a bfloat16 forward under tensor parallelism is "
-                                          "ROADMAP.md A15f")
-            return fno2d_reference(self, inputs, case_params, mask)
         B, H, W, _ = inputs.shape
         mask = ensure_mask(mask, B, H, W, device=inputs.device)
         split_blocks, split_head = self._tp_split()
         x = lift(self._tp_whole(self.fc0), inputs, case_params, mask)
         for block in self.blocks:
             x = self._tp_block(block, x) if split_blocks else block(x)
-        fc2 = self._tp_whole(self.fc2)
+        fc2 = self._tp_whole(self.fc2, used_in_part=split_head)
         return self._tp_head(x, fc2, mask) if split_head else head(self.fc1, fc2, x, mask)
 
-    def _tp_whole(self, dense):
+    def _tp_whole(self, dense, used_in_part: bool = False):
         """``dense`` itself, or with its output rows gathered where the
-        rules split them (a wide model)."""
+        rules split them (a wide model). ``used_in_part``: each rank uses
+        only its columns of the gathered weight (the row-parallel head's
+        fc2), so its gradient is summed over the model ranks before each
+        rank takes its rows."""
         if dense.weight.shape[0] == dense.bias.shape[0]:
             return dense
-        return SimpleNamespace(weight=GatherShard.apply(dense.weight, 0, self.tp), bias=dense.bias)
+        weight = GatherShard.apply(dense.weight, 0, self.tp)
+        if used_in_part:
+            weight = copy_to_model(weight, self.tp)
+        return SimpleNamespace(weight=weight, bias=dense.bias)
 
     def _tp_split(self):
         """Whether the blocks and the head hold this rank's slice of their
@@ -200,16 +218,16 @@ class Fno2d(nn.Module):
         n = block.weights.shape[3]
         rows = slice(self.tp.rank * n, (self.tp.rank + 1) * n)
         w0 = block.w0.weight if self._w0_split(block) else block.w0.weight[rows]
-        y = fno_block(copy_to_model(x, self.tp), block.weights, w0, block.w0.bias[rows],
-                      block.modes1, block.modes2)
+        y = block_call(copy_to_model(x, self.tp), block.weights, w0, block.w0.bias[rows],
+                       block.modes1, block.modes2)
         return gather_channels(y, self.tp)
 
     def _tp_head(self, x, fc2, mask):
         n = self.fc1.weight.shape[0]
         cols = slice(self.tp.rank * n, (self.tp.rank + 1) * n)
         b2 = fc2.bias * float(self.tp.rank == 0)
-        part = fno_head(copy_to_model(x, self.tp), self.fc1.weight, self.fc1.bias[cols],
-                        fc2.weight[:, cols].contiguous(), b2, mask)
+        part = head_call(copy_to_model(x, self.tp), self.fc1.weight, self.fc1.bias[cols],
+                         fc2.weight[:, cols].contiguous(), b2, mask)
         return reduce_model(part, self.tp)
 
 

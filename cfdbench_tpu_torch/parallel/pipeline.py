@@ -20,6 +20,12 @@ model rank is one stage and the schedule is explicit:
   (the loss's, on the last stage; the next stage's input gradient, sent at
   reverse tick u+1, on the others), accumulating its parameters' gradients.
 
+With a compute dtype (``--use_mixed_precision``) a step runs its stage on
+bfloat16 copies of the stage's float32 parameters, cast once a step
+(``models/common.py::cast_call``'s cast), the blocks and the head on their
+plain versions; the gradients come back through the casts to the float32
+parameters.
+
 Parameters: each stage holds its own blocks (and the optimizer their
 moments); the lift and the head are replicated, computed on one stage
 only, and their gradients must be summed over the model ranks
@@ -183,7 +189,7 @@ class PipelineStage(nn.Module):
 
     # --- the GPipe schedule ------------------------------------------------
 
-    def _run(self, x, inputs, case_params, mask, i: int, mb: int):
+    def forward(self, x, inputs, case_params, mask, i: int, mb: int):
         """Microbatch ``i`` through this stage: the lift on stage 0 (``x``
         None), the blocks, the head on the last stage."""
         rows = slice(i * mb, (i + 1) * mb)
@@ -196,17 +202,27 @@ class PipelineStage(nn.Module):
         return x
 
     def forward_backward(self, inputs, case_params, mask,
-                         loss_of: Callable[[torch.Tensor], tuple]):
+                         loss_of: Callable[[torch.Tensor], tuple],
+                         dtype: Optional[torch.dtype] = None):
         """One GPipe step on this rank's rows: ``(loss, scores)`` of
         ``loss_of(preds)`` on the predictions (the same on every stage),
         and every parameter's gradient accumulated (lift and head on their
-        stage only, zero elsewhere). The rows must split into
-        ``n_micro`` microbatches."""
+        stage only, zero elsewhere). With ``dtype`` the stage runs on copies
+        of its parameters cast to it, the inputs cast too. The rows must
+        split into ``n_micro`` microbatches."""
         B, H, W = inputs.shape[:3]
         K, S, s = self.n_micro, self.S, self.s
         if B % K:
             raise ValueError(f"{B} rows do not split into {K} microbatches")
         mb = B // K
+        run = self
+        if dtype is not None:
+            inputs, case_params, mask = (a.to(dtype) for a in (inputs, case_params, mask))
+            with torch.enable_grad():
+                cast = {n: p.to(dtype) for n, p in self.named_parameters()}
+
+            def run(*args):
+                return torch.func.functional_call(self, cast, args)
         act = inputs.new_zeros((mb, H, W, self.width))
         saved = {}
         recv = None
@@ -217,7 +233,7 @@ class PipelineStage(nn.Module):
             if 0 <= i < K:
                 with torch.enable_grad():
                     leaf = None if s == 0 else recv.detach().requires_grad_()
-                    out = self._run(leaf, inputs, case_params, mask, i, mb)
+                    out = run(leaf, inputs, case_params, mask, i, mb)
                 saved[i] = (leaf, out)
                 if s == S - 1:
                     outs.append(out.detach())

@@ -20,10 +20,14 @@ Here they are explicit:
   the module's forward (:class:`GatherShard`: all-gather forward, slice of
   the gradient backward, no reduction over the model ranks, since every
   model rank computes the same whole gradient and each owns its slice).
-  Every model but the FNO runs this way under tp: the U-Net, the ResNet,
-  the FFNO, the point models, pixel diffusion and the latent models'
-  UNet. Their parameters and Adam moments are stored 1/M a rank, as in
-  the JAX package, and their compute is replicated over the model ranks.
+  Every model but the FNO runs this way under tp: in ``main_auto`` and
+  the autoregressive rollout the U-Net, the ResNet, the FFNO, the point
+  models, pixel diffusion and the latent models' UNet; GenCast's PUNetG in
+  ``main_gencast`` and its rollout, the VAE in ``main_vae``, and the
+  unconditional DDPM's PUNetG and its EMA copy in ``main_uncond``
+  (``training/trainer_auto.py::split_module``). Their parameters and
+  optimizer moments are stored 1/M a rank, as in the JAX package, and
+  their compute is replicated over the model ranks.
 
 Transport: every gather is an all-reduce of each rank's slice placed in
 zeros, on every backend. Gloo, which carries two ranks on one card (NCCL
@@ -154,8 +158,10 @@ class ShardedLayout:
     this model rank's slice along the axis ``axes`` names (None: whole),
     and their one-process layout: :meth:`to_std` gathers a named set of
     tensors laid out as the parameters are (a state dict, an optimizer
-    moment of each) over the model ranks, :meth:`from_std` slices it. With
-    no split axis both are the identity."""
+    moment of each) over the model ranks, :meth:`from_std` slices it;
+    :meth:`flat_to_std` and :meth:`flat_from_std` do the same for one
+    vector of every parameter laid end to end in their order (GenCast's
+    flat optimizer state). With no split axis all four are the identity."""
 
     def __init__(self, module: torch.nn.Module, axes, axis):
         self.axes, self.axis = dict(axes), axis
@@ -181,3 +187,19 @@ class ShardedLayout:
         axes = self.axes if axes is None else axes
         return {n: t if axes.get(n) is None else _slice(t, axes[n], self.axis)
                 for n, t in std.items()}
+
+    def flat_to_std(self, flat: torch.Tensor) -> torch.Tensor:
+        """A vector of this rank's parameters laid end to end → the
+        one-process model's vector: each parameter's piece gathered over the
+        model ranks, the whole ones laid end to end in the one-process
+        order (a collective over the model ranks)."""
+        pieces = flat.split([torch.Size(self.shapes[n]).numel() for n in self.local_names])
+        std = self.to_std({n: t.view(self.shapes[n]) for n, t in zip(self.local_names, pieces)})
+        return torch.cat([std[n].reshape(-1) for n in self.std_names])
+
+    def flat_from_std(self, flat: torch.Tensor) -> torch.Tensor:
+        """Inverse of :meth:`flat_to_std`, without a collective."""
+        pieces = flat.split([torch.Size(self.whole_shape(n)).numel() for n in self.std_names])
+        local = self.from_std({n: t.view(self.whole_shape(n))
+                               for n, t in zip(self.std_names, pieces)})
+        return torch.cat([local[n].reshape(-1) for n in self.local_names])

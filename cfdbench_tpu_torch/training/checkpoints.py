@@ -170,11 +170,25 @@ def _convert_state(optimizer, layout, state: Dict[str, dict], names, to_std: boo
     return out
 
 
+def _convert_flat(sd: dict, keys, convert) -> dict:
+    """``sd`` with its ``keys`` entries (vectors of the parameters laid end
+    to end) through ``convert``."""
+    return dict(sd, state={i: {k: convert(v) if k in keys else v for k, v in st.items()}
+                           for i, st in sd["state"].items()})
+
+
 def optimizer_to_std(optimizer: torch.optim.Optimizer, layout) -> dict:
     """The optimizer's ``state_dict`` in the one-process layout (the
     parameters in the one-process model's order); a collective over the
-    model ranks."""
+    model ranks. With no ``layout``, the ``state_dict`` itself. An
+    optimizer whose state holds flat vectors of all its parameters
+    (``FLAT``, ``optim.GenCastAdamW``) has them through
+    ``layout.flat_to_std``."""
     sd = optimizer.state_dict()
+    if layout is None:
+        return sd
+    if hasattr(optimizer, "FLAT"):
+        return _convert_flat(sd, optimizer.FLAT, layout.flat_to_std)
     (group,) = sd["param_groups"]
     state = {layout.local_names[i]: st for i, st in sd["state"].items()}
     std = _convert_state(optimizer, layout, state, layout.std_names, True)
@@ -184,7 +198,13 @@ def optimizer_to_std(optimizer: torch.optim.Optimizer, layout) -> dict:
 
 def optimizer_from_std(sd: dict, optimizer: torch.optim.Optimizer, layout) -> None:
     """Load a one-process ``state_dict`` (:func:`optimizer_to_std`) into
-    this rank's optimizer."""
+    this rank's optimizer (with no ``layout``, as it is)."""
+    if layout is None:
+        optimizer.load_state_dict(sd)
+        return
+    if hasattr(optimizer, "FLAT"):
+        optimizer.load_state_dict(_convert_flat(sd, optimizer.FLAT, layout.flat_from_std))
+        return
     (group,) = sd["param_groups"]
     state = {layout.std_names[i]: st for i, st in sd["state"].items()}
     local = _convert_state(optimizer, layout, state, layout.local_names, False)

@@ -308,16 +308,48 @@ class GenCastAdamW(torch.optim.Optimizer):
     parameter's state, so ``state_dict`` carries them. As in optax, the
     accumulator is cleared by multiplying it by 0 after each k-th call,
     so a micro-batch with a non-finite gradient stays in it (ROADMAP.md
-    C)."""
+    C).
+
+    Under tensor parallelism (``split``, the model's
+    ``trainer_auto.ModelSplit``) a rank's vectors hold the slices of the
+    split parameters and the whole replicated ones, whose gradients are
+    first averaged over the model ranks. The global norm is then the whole
+    tree's, alike on every rank, in one all-reduce of a scalar over the
+    model ranks: each rank's squares weighted 1 on its slices and 1/M on the
+    replicated elements, which every model rank holds alike, summed over
+    the M ranks. So a skip or a clip happens on every rank or on none.
+    ``checkpoints.optimizer_to_std`` and ``optimizer_from_std`` carry the
+    flat vectors (``FLAT``) in the one-process layout
+    (``ShardedLayout.flat_to_std``)."""
+
+    FLAT = ("mu", "nu", "acc")  # the state vectors laid out as the parameters
 
     def __init__(self, params, lr: float, decay_steps: int, warmup_steps: int = 500,
                  weight_decay: float = 1e-5, grad_accum_steps: int = 1,
-                 mesh: DataMesh = SINGLE):
+                 mesh: DataMesh = SINGLE, split=None):
         super().__init__(params, dict(
             peak_lr=lr, decay_steps=decay_steps, warmup_steps=warmup_steps,
             weight_decay=weight_decay, grad_accum_steps=grad_accum_steps, mini_step=0))
-        self.mesh = mesh
+        self.mesh, self.split = mesh, split
         self.grad_norm: Optional[torch.Tensor] = None
+        self._norm_weights: Optional[torch.Tensor] = None
+        if split is not None:
+            params = self.param_groups[0]["params"]
+            first = params[0]
+            axes = [split.layout.shard_axis(n) for n in split.layout.local_names]
+            if len(axes) != len(params):
+                raise ValueError(f"{len(params)} parameters against a layout of {len(axes)}")
+            self._norm_weights = torch.cat([
+                first.new_full((p.numel(),), 1.0 if a is not None else 1.0 / mesh.model.size)
+                for p, a in zip(params, axes)])
+
+    def _norm(self, flat: torch.Tensor) -> torch.Tensor:
+        """The global norm of the tree whose local vector is ``flat``."""
+        if self._norm_weights is None:
+            return torch.linalg.vector_norm(flat)
+        sq = torch.dot(flat.square(), self._norm_weights)
+        torch.distributed.all_reduce(sq, group=self.mesh.model.group)
+        return sq.sqrt()
 
     def _flat_state(self) -> dict:
         group = self.param_groups[0]
@@ -341,11 +373,13 @@ class GenCastAdamW(torch.optim.Optimizer):
         g = self.param_groups[0]
         params = g["params"]
         state = self._flat_state()
+        if self.split is not None:
+            self.mesh.sum_over_model(self.split.averaged, mean=True)
         flat = torch.cat([p.new_zeros(p.numel()) if p.grad is None else p.grad.reshape(-1)
                           for p in params])
         if self.mesh.distributed:
             flat = self.mesh.sum(flat).div_(self.mesh.size)
-        self.grad_norm = torch.linalg.vector_norm(flat)
+        self.grad_norm = self._norm(flat)
         k = g["grad_accum_steps"]
         if k > 1:
             acc, n = state["acc"], g["mini_step"]
@@ -355,7 +389,7 @@ class GenCastAdamW(torch.optim.Optimizer):
                 return
             flat = acc.clone()
             acc.mul_(0.0)
-            norm = torch.linalg.vector_norm(flat)
+            norm = self._norm(flat)
         else:
             norm = self.grad_norm
         finite = torch.isfinite(norm)
@@ -381,12 +415,14 @@ class GenCastAdamW(torch.optim.Optimizer):
 
 def make_gencast_tx(params: Iterable[torch.nn.Parameter], lr: float, total_steps: int,
                     warmup_steps: int = 500, weight_decay: float = 1e-5,
-                    grad_accum_steps: int = 1, mesh: DataMesh = SINGLE) -> GenCastAdamW:
+                    grad_accum_steps: int = 1, mesh: DataMesh = SINGLE,
+                    split=None) -> GenCastAdamW:
     """The GenCast optimizer for ``total_steps`` micro-batches: its
     schedule counts optimizer steps, ``total_steps // grad_accum_steps``
     (``src/train_gencast.py:288``), and decays over at least
-    ``warmup_steps + 1`` of them; its gradients averaged over ``mesh``."""
+    ``warmup_steps + 1`` of them; its gradients averaged over ``mesh``, its
+    parameters laid over the model axis as ``split`` lays them."""
     opt_steps = max(1, total_steps // max(1, grad_accum_steps))
     return GenCastAdamW(params, lr, decay_steps=max(opt_steps, warmup_steps + 1),
                         warmup_steps=warmup_steps, weight_decay=weight_decay,
-                        grad_accum_steps=grad_accum_steps, mesh=mesh)
+                        grad_accum_steps=grad_accum_steps, mesh=mesh, split=split)

@@ -56,10 +56,14 @@
   global batch padded to a multiple of data ranks times microbatches.
   After the backward the replicated parameters that a rank uses in part
   (or, under pp, on one stage) have their gradients summed over the model
-  ranks, then every gradient is averaged over the data ranks. Evaluation,
-  the checkpoints and the ``training_state/`` snapshot are in the
-  one-process layout, gathered over the model ranks, so a run resumes on
-  any mesh.
+  ranks, then every gradient is averaged over the data ranks
+  (:func:`reduce_gradients`). Evaluation, the checkpoints and the
+  ``training_state/`` snapshot are in the one-process layout, gathered
+  over the model ranks, so a run resumes on any mesh. A bfloat16 train
+  forward (``compute_dtype``) runs the same split: the FNO's split blocks
+  and head on their plain versions, a stage on bfloat16 copies of its
+  parameters. :func:`split_module` is the gather-at-use split on its own,
+  which the GenCast, VAE and DDPM trainers use.
 """
 
 from __future__ import annotations
@@ -80,7 +84,8 @@ from ..models import fno
 from ..models.common import cast_call
 from ..parallel.mesh import SINGLE, DataMesh
 from ..parallel.pipeline import PipelineStage
-from ..parallel.sharding_rules import MIN_SIZE, shard_params
+from ..parallel import sharding_rules
+from ..parallel.sharding_rules import shard_params
 from ..parallel.tensor import ShardedLayout, all_gather, gather_at_use
 from ..utils.artifacts import plot_example, plot_loss, plot_predictions
 from ..utils.rng import step_generator
@@ -185,13 +190,64 @@ class ModelSplit:
         self.pipeline, self.hooks = pipeline, list(hooks)
 
 
-def split_model(task, pp_microbatches: int = 0, min_size: int = MIN_SIZE) -> None:
+def split_module(module: nn.Module, mesh: DataMesh) -> Optional[ModelSplit]:
+    """Lay ``module`` over ``mesh``'s model axis by gathering at use: each
+    parameter that the JAX rules split (at ``sharding_rules.MIN_SIZE``,
+    read at the call) keeps this rank's slice, and
+    hooks gather the slices into the whole for each forward
+    (``parallel/tensor.py::gather_at_use``); the whole parameters, which
+    every model rank uses whole, have their gradients averaged over the
+    model ranks (:func:`reduce_gradients`). None without a model axis.
+    :func:`join_split` undoes it."""
+    axis = mesh.model
+    if not axis.distributed:
+        return None
+    axes = shard_params(module, axis, sharding_rules.MIN_SIZE)
+    averaged = [p for n, p in module.named_parameters() if axes[n] is None]
+    return ModelSplit(module, ShardedLayout(module, axes, axis), averaged=averaged,
+                      hooks=gather_at_use(module, axes, axis))
+
+
+def join_split(module: nn.Module, split: Optional[ModelSplit]) -> None:
+    """``module`` whole on every rank again after a tensor-parallel
+    :class:`ModelSplit` (a collective over the model ranks), its hooks
+    removed."""
+    if split is None:
+        return
+    params = dict(module.named_parameters())
+    for name, dim in split.layout.axes.items():
+        if dim is not None:
+            params[name].data = all_gather(params[name].data, dim, split.layout.axis)
+    for hook in split.hooks:
+        hook.remove()
+
+
+def whole_state(module: nn.Module, split: Optional[ModelSplit]) -> Dict[str, torch.Tensor]:
+    """``module``'s state dict in the one-process layout: gathered over the
+    model ranks under a tensor-parallel :class:`ModelSplit` (a collective),
+    else the state dict itself."""
+    sd = module.state_dict()
+    return sd if split is None else split.layout.to_std(sd)
+
+
+def reduce_gradients(mesh: DataMesh, split: Optional[ModelSplit], params) -> None:
+    """After the backward: under a :class:`ModelSplit` the gradients of its
+    ``summed`` parameters summed over the model ranks and those of its
+    ``averaged`` ones averaged over them; then every gradient of
+    ``params`` averaged over the data ranks."""
+    if split is not None:
+        mesh.sum_over_model(split.summed)
+        mesh.sum_over_model(split.averaged, mean=True)
+    mesh.average_gradients(params)
+
+
+def split_model(task, pp_microbatches: int = 0) -> None:
     """Lay ``task.model`` over ``task.mesh``'s model axis (none: nothing to
     do). Under pp (``pp_microbatches``) the FNO's blocks are staged; else
     each parameter that the JAX rules split keeps this rank's slice, the
     FNO running column- and row-parallel, any other model gathering its
-    slices at use; the whole parameters that every rank uses whole have
-    their gradients averaged over the model ranks."""
+    slices at use (:func:`split_module`); the whole parameters that every
+    rank uses whole have their gradients averaged over the model ranks."""
     axis, model = task.mesh.model, task.model
     if pp_microbatches and not axis.distributed:
         raise ValueError(
@@ -209,18 +265,16 @@ def split_model(task, pp_microbatches: int = 0, min_size: int = MIN_SIZE) -> Non
         stage.release(model)
         task.split = ModelSplit(stage, stage, stage.summed, pipeline=stage)
         return
-    axes = shard_params(model, axis, min_size)
-    hooks = []
-    if isinstance(model, fno.Fno2d):
-        model.tp = axis
-        summed = model.tp_summed()
-    else:
-        hooks, summed = gather_at_use(model, axes, axis), ()
+    if not isinstance(model, fno.Fno2d):
+        task.split = split_module(model, task.mesh)
+        return
+    axes = shard_params(model, axis, sharding_rules.MIN_SIZE)
+    model.tp = axis
+    summed = model.tp_summed()
     in_part = {id(p) for p in summed}
     averaged = [p for n, p in model.named_parameters()
                 if axes[n] is None and id(p) not in in_part]
-    task.split = ModelSplit(model, ShardedLayout(model, axes, axis), summed, averaged,
-                            hooks=hooks)
+    task.split = ModelSplit(model, ShardedLayout(model, axes, axis), summed, averaged)
 
 
 def join_model(task) -> None:
@@ -232,12 +286,7 @@ def join_model(task) -> None:
     if split.pipeline is not None:
         split.pipeline.fill(task.model)
     else:
-        params = dict(task.model.named_parameters())
-        for name, dim in split.layout.axes.items():
-            if dim is not None:
-                params[name].data = all_gather(params[name].data, dim, task.mesh.model)
-        for hook in split.hooks:
-            hook.remove()
+        join_split(task.model, split)
         task.model.tp = None
     task.split = None
 
@@ -263,14 +312,11 @@ def train_step(task: AutoTask, optimizer: torch.optim.Optimizer, scheduler,
             return s[task.loss_fn.objective], s
 
         _, scores = split.pipeline.forward_backward(batch["inputs"], batch["case_params"],
-                                                    batch["mask"], loss_of)
+                                                    batch["mask"], loss_of, task.compute_dtype)
     else:
         loss, scores = task.loss_scores(batch, draws)
         loss.backward()
-    if split is not None:
-        task.mesh.sum_over_model(split.summed)
-        task.mesh.sum_over_model(split.averaged, mean=True)
-    task.mesh.average_gradients(trained_module(task).parameters())
+    reduce_gradients(task.mesh, split, trained_module(task).parameters())
     optimizer.step()
     scheduler.step()
     return {k: v.detach() for k, v in scores.items()}

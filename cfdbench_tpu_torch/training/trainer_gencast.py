@@ -27,6 +27,14 @@ global batch's, so every rank reads the same dev nmse and keeps the same
 best model; the optimizer averages the gradients over the ranks
 (``optim.GenCastAdamW``). Rank 0 writes every file and the others wait
 for it at a barrier; the test split's frames are gathered.
+
+Tensor parallelism (``--mesh_shape NxM``): for the length of
+:func:`train_gencast` and of :func:`test_gencast` the PUNetG is split over
+the model axis by the JAX rules and gathers its slices at use
+(``trainer_auto.split_module``); ``GenCastAdamW`` keeps its flat vectors
+over a rank's slices and reads the whole tree's norm. ``best_model/`` and
+``training_state/`` hold the one-process layout, gathered on every rank
+before rank 0 writes, so a run resumes on any mesh.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from ..models.diffusion import GenCastCfdModel
 from ..utils.rng import train_key
 from . import checkpoints
 from .optim import make_gencast_tx
+from .trainer_auto import join_split, split_module, whole_state
 
 BEST_DIR = "best_model"
 # The JAX trainer's offset of its training key from the seed.
@@ -114,10 +123,13 @@ def train_gencast(
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     model, mesh = task.model, task.mesh
+    n_params = sum(p.numel() for p in model.parameters())
+    split = split_module(model, mesh)
+    layout = None if split is None else split.layout
     steps_per_epoch = num_batches(len(train_data), batch_size)
     opt = make_gencast_tx(model.parameters(), lr, total_steps=steps_per_epoch * num_epochs,
                           warmup_steps=WARMUP_STEPS, weight_decay=weight_decay,
-                          grad_accum_steps=grad_accum_steps, mesh=mesh)
+                          grad_accum_steps=grad_accum_steps, mesh=mesh, split=split)
     arrays = dataset_arrays(train_data)
     names = task.loss_fn.get_score_names()
 
@@ -127,13 +139,16 @@ def train_gencast(
     if meta_path.exists() and state_dir.exists():
         meta = load_json(meta_path)
         state = checkpoints.load_params(state_dir)
-        model.load_state_dict(state["params"])
-        opt.load_state_dict(state["optimizer"])
+        model.load_state_dict(state["params"] if split is None
+                              else layout.from_std(state["params"]))
+        checkpoints.optimizer_from_std(state["optimizer"], opt, layout)
         step = state["step"]
         start_epoch, best_nmse = meta["epoch"] + 1, meta["best_nmse"]
         print(f"Resumed from epoch {meta['epoch']} (best {best_nmse:.4e})")
 
-    print(f"GenCast model has {sum(p.numel() for p in model.parameters())} parameters")
+    on_rank = sum(p.numel() for p in model.parameters())
+    print(f"GenCast model has {n_params} parameters"
+          + (f" ({on_rank} on this rank)" if split is not None else ""))
     start = time.time()
     for ep in range(start_epoch, num_epochs):
         model.train()
@@ -182,17 +197,20 @@ def train_gencast(
         new_best = dev_nmse < best_nmse
         if new_best:
             best_nmse = dev_nmse
+        # Every rank gathers; rank 0 writes.
+        weights, opt_state = whole_state(model, split), checkpoints.optimizer_to_std(opt, layout)
         if mesh.is_main():
             ckpt_dir = output_dir / f"ckpt-{ep}"
             ckpt_dir.mkdir(parents=True, exist_ok=True)
             dump_json(dev_scores, ckpt_dir / "dev_scores.json")
             if new_best:
-                checkpoints.save_params(model.state_dict(), output_dir / BEST_DIR)
+                checkpoints.save_params(weights, output_dir / BEST_DIR)
                 print("  new best saved")
-            checkpoints.save_params(dict(params=model.state_dict(), optimizer=opt.state_dict(),
-                                         step=step), state_dir)
+            checkpoints.save_params(dict(params=weights, optimizer=opt_state, step=step),
+                                    state_dir)
             dump_json(dict(epoch=ep, best_nmse=best_nmse, dev_nmse=dev_nmse), meta_path)
         mesh.barrier()
+    join_split(model, split)
     return step
 
 
@@ -202,12 +220,14 @@ def test_gencast(task: GenCastCfdModel, data: GenCastDataset, output_dir: Path, 
     ``scores.json`` and ``preds.npy``, the schema of the other trainers'
     test mode. Under data parallelism each rank generates its block of
     every batch (the draws made over the global batch), the frames are
-    gathered and rank 0 writes the files."""
+    gathered and rank 0 writes the files. With a model axis the PUNetG is
+    split for the length of the call."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     mesh = task.mesh
     names = task.loss_fn.get_score_names()
     task.model.eval()
+    split = split_module(task.model, mesh)
     rows, frames, n_valids = [], [], []
     for host in batches(dataset_arrays(data), batch_size, shuffle=False,
                         pad_multiple=mesh.size):
@@ -226,5 +246,6 @@ def test_gencast(task: GenCastCfdModel, data: GenCastDataset, output_dir: Path, 
         preds = (np.concatenate([f.cpu().numpy()[:nv] for f, nv in zip(frames, n_valids)])
                  if frames else np.zeros((0,)))
         np.save(output_dir / "preds.npy", preds)
+    join_split(task.model, split)
     mesh.barrier()
     return scores

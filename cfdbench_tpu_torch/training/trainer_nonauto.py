@@ -36,6 +36,12 @@ the reference's ``src/train.py``).
   writes every file and the others wait for it at a barrier. A call of
   the model holds whole samples, each with its whole query set: blocking
   splits rows, never queries.
+- A model axis (``--mesh_shape NxM``), as the JAX trainer keeps it: the
+  rows go over the N data ranks, the M model ranks of a data rank compute
+  the same block with the whole model, and nothing is split. The
+  gradients are averaged over the data ranks, then over the model ranks,
+  so that kernels whose sums run in no fixed order leave the replicas
+  equal; the checkpoints are the state dict.
 """
 
 from __future__ import annotations
@@ -114,11 +120,13 @@ def train_step(task: NonAutoTask, optimizer: torch.optim.Optimizer, scheduler, b
                query_idxs) -> Dict[str, torch.Tensor]:
     """One update at ``query_idxs``; returns the scores, detached, on the
     device. Under data parallelism ``batch`` is this rank's block and the
-    gradients are averaged over the ranks before the update."""
+    gradients are averaged over the data ranks before the update, then
+    over the model ranks, which hold the model whole."""
     optimizer.zero_grad(set_to_none=True)
     loss, scores = task.loss_scores(batch, query_idxs)
     loss.backward()
     task.mesh.average_gradients(task.model.parameters())
+    task.mesh.sum_over_model(task.model.parameters(), mean=True)
     optimizer.step()
     scheduler.step()
     return {k: v.detach() for k, v in scores.items()}

@@ -26,13 +26,22 @@ frames).
   the ranks before the update, so the EMA follows the same update on every
   rank. Rank 0 samples, writes every file, and the others wait for it at a
   barrier.
+- Tensor parallelism (``--mesh_shape NxM``): for the length of
+  :func:`train_uncond_ddpm` the PUNetG and its EMA copy are split over the
+  model axis by the JAX rules and gather their slices at use
+  (``trainer_auto.split_module``); AdamW and the EMA update act on each
+  rank's slices. Every forward of a split network is a collective over the
+  model ranks, so every model rank of data rank 0 samples the EMA's
+  frames, and rank 0 plots them. ``ema_model/`` and ``training_state/``
+  are gathered into the one-process layout on every rank before rank 0
+  writes them, so a run resumes on any mesh.
 """
 
 from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +54,8 @@ from ..ops.diffusion import DDPMScheduler, ddpm_sample, make_ddpm_scheduler
 from ..parallel.mesh import SINGLE, DataMesh
 from ..utils.rng import EVAL_KEY, Key, uncond_key
 from . import checkpoints
+from .trainer_auto import (ModelSplit, join_split, reduce_gradients, split_module,
+                           whole_state)
 
 # optax.adamw's default weight decay.
 WEIGHT_DECAY = 1e-4
@@ -81,14 +92,16 @@ def ema_update(ema: List[torch.Tensor], params: List[torch.Tensor], decay: float
 
 def train_step(unet: PUNetGCFD, ema: PUNetGCFD, opt: torch.optim.Optimizer,
                scheduler: DDPMScheduler, x, w, key: Key,
-               mesh: DataMesh = SINGLE) -> torch.Tensor:
+               mesh: DataMesh = SINGLE, split: Optional[ModelSplit] = None) -> torch.Tensor:
     """One update of ``unet`` and then of its EMA ``ema``; returns the
     loss, detached, on the device. Under data parallelism the gradients
-    are averaged over the ranks before the update."""
+    are averaged over the ranks before the update, and under tensor
+    parallelism (``split``) first reduced over the model ranks
+    (``trainer_auto.reduce_gradients``)."""
     opt.zero_grad(set_to_none=True)
     loss = step_loss(unet, scheduler, x, w, key, mesh)
     loss.backward()
-    mesh.average_gradients(unet.parameters())
+    reduce_gradients(mesh, split, unet.parameters())
     opt.step()
     ema_update(list(ema.parameters()), list(unet.parameters()), EMA_DECAY)
     return loss.detach()
@@ -110,7 +123,9 @@ def train_uncond_ddpm(
 ) -> Tuple[PUNetGCFD, PUNetGCFD, List[float]]:
     """Train on ``frames`` (N, H, W, C); returns the network, its EMA (a
     second network holding the EMA weights) and the per-step losses.
-    Under data parallelism (``mesh``) ``batch_size`` is global."""
+    Under data parallelism (``mesh``) ``batch_size`` is global; with a
+    model axis both networks are split for the run and whole again when it
+    returns."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     N, H, W, C = frames.shape
@@ -118,6 +133,8 @@ def train_uncond_ddpm(
     unet = make_unet(C, base_channels, seed, device)
     ema = make_unet(C, base_channels, seed, device).eval().requires_grad_(False)
     ema.load_state_dict(unet.state_dict())
+    split, ema_split = split_module(unet, mesh), split_module(ema, mesh)
+    layout = None if split is None else split.layout
     opt = torch.optim.AdamW(unet.parameters(), lr, weight_decay=WEIGHT_DECAY)
 
     losses: List[float] = []
@@ -127,9 +144,11 @@ def train_uncond_ddpm(
     if resume and meta_path.exists() and state_dir.exists():
         meta = load_json(meta_path)
         state = checkpoints.load_params(state_dir)
-        unet.load_state_dict(state["params"])
-        ema.load_state_dict(state["ema_params"])
-        opt.load_state_dict(state["optimizer"])
+        unet.load_state_dict(state["params"] if layout is None
+                             else layout.from_std(state["params"]))
+        ema.load_state_dict(state["ema_params"] if layout is None
+                            else layout.from_std(state["ema_params"]))
+        checkpoints.optimizer_from_std(state["optimizer"], opt, layout)
         step, start_epoch, losses = state["step"], meta["epoch"] + 1, meta["losses"]
         print(f"Resumed from epoch {meta['epoch']}")
 
@@ -141,19 +160,27 @@ def train_uncond_ddpm(
                             pad_multiple=mesh.size):
             batch = to_device(mesh.block(host), device)
             rows.append(train_step(unet, ema, opt, scheduler, batch["x"], batch["weights"],
-                                   uncond_key(seed, step), mesh))
+                                   uncond_key(seed, step), mesh, split))
             step += 1
         if rows:
             losses += torch.stack(rows).tolist()
         print(f"ep {ep}: loss={np.mean(losses[-10:]):.5f} time={time.time() - start:.0f}s")
-        if mesh.is_main():  # sample_grid runs no collective
+        if (ep + 1) % SAMPLE_EVERY == 0 and mesh.rank == 0:
+            # Rank 0 and, under tp, the model ranks whose gathers its forwards need.
+            sample_grid(ema, scheduler, (4, H, W, C),
+                        output_dir / f"samples-ep{ep}.png" if mesh.is_main() else None)
+        # The one-process layout, gathered on every rank.
+        params, ema_params = whole_state(unet, split), whole_state(ema, ema_split)
+        opt_state = checkpoints.optimizer_to_std(opt, layout)
+        if mesh.is_main():
             if (ep + 1) % SAMPLE_EVERY == 0:
-                sample_grid(ema, scheduler, (4, H, W, C), output_dir / f"samples-ep{ep}.png")
-                checkpoints.save_params(ema.state_dict(), output_dir / EMA_DIR)
-            checkpoints.save_params(dict(params=unet.state_dict(), ema_params=ema.state_dict(),
-                                         optimizer=opt.state_dict(), step=step), state_dir)
+                checkpoints.save_params(ema_params, output_dir / EMA_DIR)
+            checkpoints.save_params(dict(params=params, ema_params=ema_params,
+                                         optimizer=opt_state, step=step), state_dir)
             dump_json(dict(epoch=ep, losses=losses), meta_path)
         mesh.barrier()
+    join_split(unet, split)
+    join_split(ema, ema_split)
     if mesh.is_main():
         dump_json(losses, output_dir / "train_losses.json")
         checkpoints.save_params(ema.state_dict(), output_dir / EMA_DIR)
@@ -164,12 +191,15 @@ def train_uncond_ddpm(
 def sample_grid(unet: PUNetGCFD, scheduler: DDPMScheduler, shape, out_path,
                 num_inference_steps: int = 50) -> torch.Tensor:
     """``shape[0]`` frames sampled from ``unet`` with the evaluation key,
-    the first channel of each plotted side by side to ``out_path``."""
+    the first channel of each plotted side by side to ``out_path`` (None:
+    no plot)."""
     def denoise(x, t):
         return unet(x, t, x.new_zeros((x.shape[0], 1)))
 
     device = next(unet.parameters()).device
     samples = ddpm_sample(scheduler, denoise, shape, EVAL_KEY, num_inference_steps, device)
+    if out_path is None:
+        return samples
     import matplotlib
 
     matplotlib.use("Agg")

@@ -27,13 +27,20 @@ reference's ``src/train_vae.py`` / ``train_vae_kl_annealing.py``).
   the ranks before the update. Every rank so reads the same dev loss, cuts
   its rate and stops on the same epoch. Rank 0 writes every file and the
   others wait for it at a barrier.
+- Tensor parallelism (``--mesh_shape NxM``): for the length of
+  :func:`train_vae` the VAE is split over the model axis by the JAX rules
+  and gathers its slices at use (``trainer_auto.split_module``); Adam acts
+  on each rank's slices. The best weights and ``training_state/`` are
+  gathered into the one-process layout on every rank before rank 0 writes
+  them, so the weights load into a latent model in one process and a run
+  resumes on any mesh.
 """
 
 from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -46,6 +53,8 @@ from ..parallel.mesh import SINGLE, DataMesh
 from ..utils.artifacts import plot_loss
 from ..utils.rng import vae_key
 from . import checkpoints
+from .trainer_auto import (ModelSplit, join_split, reduce_gradients, split_module,
+                           whole_state)
 
 PARTS = ("total", "recon", "kl")
 
@@ -68,14 +77,17 @@ def loss_parts(vae: AutoencoderKL, frames, w, kl_weight: float, key=None,
 
 
 def train_step(vae: AutoencoderKL, opt: torch.optim.Optimizer, frames, w, kl_weight: float,
-               key, mesh: DataMesh = SINGLE) -> torch.Tensor:
+               key, mesh: DataMesh = SINGLE, split: Optional[ModelSplit] = None
+               ) -> torch.Tensor:
     """One update on a posterior sample drawn with ``key``; returns the
     ``(3,)`` loss parts, detached, on the device. Under data parallelism
-    the gradients are averaged over the ranks before the update."""
+    the gradients are averaged over the ranks before the update, and
+    under tensor parallelism (``split``) first reduced over the model
+    ranks (``trainer_auto.reduce_gradients``)."""
     opt.zero_grad(set_to_none=True)
     parts = loss_parts(vae, frames, w, kl_weight, key, mesh)
     parts[0].backward()
-    mesh.average_gradients(vae.parameters())
+    reduce_gradients(mesh, split, vae.parameters())
     opt.step()
     return parts.detach()
 
@@ -109,17 +121,22 @@ def train_vae(
     mesh: DataMesh = SINGLE,
 ) -> Dict[str, torch.Tensor]:
     """Train ``vae`` in place; returns the best weights, a state dict on
-    the host. Under data parallelism (``mesh``) ``batch_size`` is
-    global."""
+    the host in the one-process layout. Under data parallelism (``mesh``)
+    ``batch_size`` is global; with a model axis the VAE is split for the
+    run and whole again when it returns."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
+    n_params = sum(p.numel() for p in vae.parameters())
+    split = split_module(vae, mesh)
+    layout = None if split is None else split.layout
     opt = make_optimizer(vae, lr, weight_decay)
-    print(f"VAE has {sum(p.numel() for p in vae.parameters())} parameters")
+    print(f"VAE has {n_params} parameters" + (
+        f" ({sum(p.numel() for p in vae.parameters())} on this rank)" if split else ""))
 
-    history = {f"{split}_{k}": [] for split in ("train", "val") for k in PARTS}
+    history = {f"{part}_{k}": [] for part in ("train", "val") for k in PARTS}
     history["val_steps"] = []
     best_val, patience, plateau, cur_lr = np.inf, 0, 0, lr
-    best_params = host_copy(vae.state_dict())
+    best_params = host_copy(whole_state(vae, split))
     start, global_step, start_epoch = time.time(), 0, 0
 
     meta_path = output_dir / "training_meta.json"
@@ -127,8 +144,9 @@ def train_vae(
     if resume and meta_path.exists() and state_dir.exists():
         meta = load_json(meta_path)
         state = checkpoints.load_params(state_dir)
-        vae.load_state_dict(state["params"])
-        opt.load_state_dict(state["optimizer"])
+        vae.load_state_dict(state["params"] if layout is None
+                            else layout.from_std(state["params"]))
+        checkpoints.optimizer_from_std(state["optimizer"], opt, layout)
         start_epoch = meta["epoch"] + 1
         best_val, patience, plateau = meta["best_val"], meta["patience"], meta["plateau"]
         cur_lr, global_step, history = meta["cur_lr"], meta["global_step"], meta["history"]
@@ -147,7 +165,7 @@ def train_vae(
                             pad_multiple=mesh.size):
             batch = to_device(mesh.block(host), device)
             rows.append(train_step(vae, opt, batch["frames"], batch["weights"], w,
-                                   vae_key(seed, global_step), mesh))
+                                   vae_key(seed, global_step), mesh, split))
             global_step += 1
         if rows:
             mat = torch.stack(rows).cpu().numpy()
@@ -171,7 +189,7 @@ def train_vae(
 
         if val_total < best_val - early_stopping_delta:
             best_val, patience, plateau = val_total, 0, 0
-            best_params = host_copy(vae.state_dict())
+            best_params = host_copy(whole_state(vae, split))
             if mesh.is_main():
                 checkpoints.save_params(best_params, weights_path)
                 print(f"  new best; weights saved to {weights_path}")
@@ -184,8 +202,10 @@ def train_vae(
                     group["lr"] = cur_lr
                 plateau = 0
                 print(f"  plateau: lr reduced to {cur_lr:.2e}")
+        params = whole_state(vae, split)  # on every rank
+        opt_state = checkpoints.optimizer_to_std(opt, layout)
         if mesh.is_main():
-            checkpoints.save_params(dict(params=vae.state_dict(), optimizer=opt.state_dict(),
+            checkpoints.save_params(dict(params=params, optimizer=opt_state,
                                          step=global_step), state_dir)
             dump_json(dict(epoch=ep, best_val=float(best_val), patience=patience,
                            plateau=plateau, cur_lr=cur_lr, global_step=global_step,
@@ -195,6 +215,7 @@ def train_vae(
             print("Early stopping.")
             break
 
+    join_split(vae, split)
     if mesh.is_main():
         dump_json(history, output_dir / "loss_history.json")
         plot_loss(history["train_total"], output_dir / "train_loss.png")

@@ -157,9 +157,11 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    DP_RTOL; the U-Net's ``main_auto`` for an epoch at DP_UNET_BATCH (its
    last batch 8 rows and 24 of padding, over which the global BatchNorm
    normalises), held against a control: one process with the rows of every
-   batch permuted, which parts from one process by rounding alone; pixel
-   diffusion's for two steps (the draws over the global batch), its losses
-   within DP_RTOL; one float64 train step of the U-Net and of pixel
+   batch (and the batch's draws) permuted, which parts from one process by
+   rounding alone (CONTROLS: the U-Net, the VAE, GenCast and the DDPM);
+   pixel diffusion's for two steps (the draws over the global batch), its
+   losses within DP_RTOL and its first step's float32 gradients within
+   DP_RTOL of the largest; one float64 train step of the U-Net and of pixel
    diffusion from the same weights on a padded global batch of
    DP_UNET_BATCH, the scores, the gradients, the parameters and the
    running statistics within DP_RTOL. Then the other trainers at their
@@ -200,9 +202,34 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    within DP_RTOL, the FNO's weights within DP_RTOL of their largest; each
    rank's launches: one process's under tp, and under pp the stage's
    blocks for each microbatch and the head on the last stage only, the
-   evaluations' forwards on every rank. (c) Each rank's parameter and
-   Adam-state bytes of the flagship under tp and under pp against one
-   process's.
+   evaluations' forwards on every rank. Then the other entry points on
+   the model axis, each against one process: phase 13b's ``main_train``
+   (FFN, DeepONet: a replicated model axis), ``main_gencast``,
+   ``main_vae`` and ``main_uncond`` runs (their networks split and
+   gathered at use), held as phase 13b holds them and, the PUNetG's and
+   the VAE's, their files and parameters within DP_DRIFT_FACTOR times
+   their permuted-row control's distance plus DP_RTOL, and their first
+   float64 step (scores, gradients of the largest, parameters) within
+   DP_RTOL; GenCast's ``main_multistep`` of phase 13b's checkpoint, frames
+   and metrics within DP_RTOL; the flagship's ``main_auto
+   --use_mixed_precision`` under tp and under pp (losses and dev scores
+   within TP_BF16_RTOL of one process's mixed-precision run) and its
+   ``main_multistep --rollout_dtype bfloat16`` under tp (bfloat16 frames
+   within TP_BF16_FRAME_RTOL of their max, metrics TP_BF16_RTOL): each
+   rank's launches one process's, none on the other trainers' paths and
+   the bfloat16 rollout's, and in the mixed-precision runs only those of
+   the float32 evaluation (train steps in bfloat16 run the plain
+   versions). These runs, phase 13b's and their one-process references
+   take PyTorch's deterministic algorithms, so that a run parts from one
+   process by what its layout changes alone. Then phase 13b's U-Net,
+   GenCast and FFN runs again at ``1x2`` on the default algorithms, which
+   users' runs take (DEFAULT_ALGORITHM_RUNS): each rank's weights equal to
+   the others', bit for bit, which the model ranks' gradient averages keep
+   when cuDNN sums each rank's weight gradients in another order; their
+   distance from one process printed. (c) Each rank's
+   parameter and optimizer-state bytes of the flagship under tp and under
+   pp, and of GenCast's PUNetG, the VAE and the DDPM (and its EMA) under
+   tp, against one process's.
 
 ``launches`` in the kernels' record is phase 3's count (main_multistep),
 ``launches_by_path`` each main path's own: main_multistep's and
@@ -211,9 +238,12 @@ main_auto's, one served predict call's and one served rollout's
 main_multistep's with ``--rollout_dtype bfloat16`` (phase 12), and each
 rank's main_auto, main_multistep, main_train, main_gencast, main_vae and
 main_uncond under data parallelism (phase 13: ``dp_torchrun_*``,
-``dp2_rank{r}_*``), and each rank's main_auto and main_multistep under
-tensor parallelism and main_auto under pipeline parallelism (phase 14:
-``tp2_rank{r}_*``, ``pp2_rank{r}_main_auto``), each read from counters set
+``dp2_rank{r}_*``), and each rank's main_auto, main_multistep, main_train,
+main_gencast, main_vae, main_uncond, GenCast's main_multistep, main_auto
+with --use_mixed_precision and main_multistep with --rollout_dtype
+bfloat16 under tensor parallelism and main_auto in both precisions under
+pipeline parallelism (phase 14: ``tp2_rank{r}_*``, ``pp2_rank{r}_*``),
+each read from counters set
 to 0 just before the run and read just after it; ``at_rank_shapes`` the
 kernel's phase 14a records. The line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -356,6 +386,11 @@ DP_DRIFT_FACTOR = 4.0
 # after epoch 2, before DP_VAE_EPOCHS.
 DP_TRAINERS = ("main_train", "main_gencast", "main_vae", "main_uncond")
 DP_VAE_EPOCHS = 4
+# The runs whose drift from one process is Adam amplifying rounding-level
+# gradients (biases that a BatchNorm or a GroupNorm cancels), each run again
+# in one process with the rows of every train batch permuted: the control.
+CONTROLS = (("unet", "main_auto"), ("vae", "main_vae"), ("gencast", "main_gencast"),
+            ("uncond", "main_uncond"))
 # Their float64 steps take DP_UNET_BATCH rows of which these are real: rank
 # 0's block is all real rows, rank 1's real rows and padding.
 DP_TRAINER_STEP_VALID = 24
@@ -368,6 +403,28 @@ TP_RANKS = 2
 PP_MICRO = 2
 RANK_BLOCK_COUT = (16, 8)
 RANK_HEAD_HIDDEN = (64, 32)
+# Phase 14b's other trainers, whose network tp splits and gathers at use.
+SPLIT_TRAINERS = ("gencast", "vae", "uncond")
+# Phase 14b's runs on the default algorithms, as users' runs take them: phase
+# 13b's U-Net (main_auto), GenCast (main_gencast) and FFN (main_train) runs,
+# trained only, at TP_MESH. There each model rank may sum a gradient in
+# another order (cuDNN's weight gradients), so their replicas of the unsplit
+# parameters stay equal only because each trainer averages those gradients
+# over the model ranks (trainer_auto.reduce_gradients, GenCastAdamW,
+# trainer_nonauto.train_step): they are held to that, bit for bit. Their
+# distance from the deterministic one-process run is printed, not held: on
+# these algorithms it differs from run to run.
+DEFAULT_ALGORITHM_RUNS = ("unet", "gencast", "ffn")
+# The bfloat16 runs over the model axis (the FNO's mixed-precision main_auto
+# under tp and pp, its bfloat16 rollout under tp) against the same run in one
+# process: the losses, dev scores and per-step metrics (relative), the frames
+# (of their max). The row-parallel head sums partial outputs rounded to
+# bfloat16, and a rank's products on half the channels may take another
+# cuBLAS kernel: a bfloat16 ulp is 7.8e-3. On the CPU the step's loss parted
+# 2.4e-6, the rollout's frames 7.4e-3 of their max and its metrics 5.3e-5
+# (tests/test_torch_tp_vae_bf16.py).
+TP_BF16_RTOL = 1e-3
+TP_BF16_FRAME_RTOL = 3e-2
 # An H100 SXM's published peaks (NVIDIA's data sheet, dense rates): device
 # memory bytes/s, TF32 FLOP/s on the tensor cores and float32 FLOP/s outside
 # them. A split-TF32 product (csrc/tf32.cuh) is three TF32 products.
@@ -2356,6 +2413,7 @@ def dp_jobs(data_root: Path, out: Path, mesh: str):
             "--ldm_num_inference_steps", MP_INFERENCE_STEPS] + data),
         ("unet_step", "step", ["--model", "unet"]),
         ("pixel_diffusion_step", "step", ["--model", "pixel_diffusion"]),
+        ("pixel_diffusion_step32", "step32", ["--model", "pixel_diffusion"]),
     ] + dp_trainer_jobs(data_root, out, mesh)
 
 
@@ -2384,16 +2442,18 @@ def dp_trainer_jobs(data_root: Path, out: Path, mesh: str):
          for name in ("ffn", "deeponet", "gencast", "vae", "uncond")]
 
 
-def dp_step(argv, device) -> dict:
+def dp_step(argv, device, dtype=torch.float64) -> dict:
     """One ``trainer_auto.train_step`` of ``main_auto``'s task for ``argv``
     (its init from ``--seed``, Adam at its ``--lr``) on this rank's block of
     a seeded global batch of DP_UNET_BATCH rows, the last of them weight-0
     padding past DP_STEP_VALID; the step's scores, gradients, parameters and
-    buffers, on the host. In float64: what data parallelism computes (the
-    global BatchNorm statistics over the padding rows, the draws over the
-    global batch, the averaged gradient) stands clear of float32's
-    rounding, which a train-mode BatchNorm turns, in a first convolution's
-    weight gradient, into a sum over 131,072 rows of terms that cancel."""
+    buffers, on the host. In float64 unless ``dtype`` says otherwise: what
+    data parallelism computes (the global BatchNorm statistics over the
+    padding rows, the draws over the global batch, the averaged gradient)
+    stands clear of float32's rounding, which a train-mode BatchNorm turns,
+    in a first convolution's weight gradient, into a sum over 131,072 rows
+    of terms that cancel. A float32 step (``step32``) is the first step of
+    the run itself, whose gradients pixel diffusion's run is held by."""
     import torch.distributed as dist
 
     from cfdbench_tpu_torch.cli import make_auto_task, parse_args
@@ -2402,17 +2462,17 @@ def dp_step(argv, device) -> dict:
     from cfdbench_tpu_torch.training.trainer_auto import train_step, use_mesh
 
     args = parse_args(argv + ["--data_name", "cavity_prop_bc_geo"])
-    mesh = make_mesh("auto", dist.group.WORLD if dist.is_initialized() else None)
+    mesh = make_mesh(args.mesh_shape, dist.group.WORLD if dist.is_initialized() else None)
     if args.model in ("ffn", "deeponet", "gencast", "vae", "uncond"):
         return dp_trainer_step(args, mesh, device)
     task = make_auto_task(args, 5, (GRID, GRID), device)
-    task.model.double()
+    task.model.to(dtype)
     use_mesh(task, mesh)
     opt, sched = make_adam(task.model.parameters(), args.lr)
     batch = train_inputs(DP_UNET_BATCH, torch.Generator().manual_seed(SEED + 13), "cpu")
     for v in batch.values():
         v[DP_STEP_VALID:] = 0
-    block = {k: v.to(device, torch.float64) for k, v in mesh.block(batch).items()}
+    block = {k: v.to(device, dtype) for k, v in mesh.block(batch).items()}
     scores = train_step(task, opt, sched, block, task.step_draws(args.seed, 0, device))
     model = task.model
     return dict(scores={k: v.item() for k, v in scores.items()}, lr=args.lr,
@@ -2433,7 +2493,7 @@ def dp_step_batch():
     return batch
 
 
-def dp_trainer_step(args, mesh, device) -> dict:
+def dp_trainer_step(args, mesh, device, dtype=torch.float64) -> dict:
     """:func:`dp_step` for the other trainers, in float64, each its own
     step from ``--seed``'s init on this rank's block of
     :func:`dp_step_batch`: main_train's (the step's query points, alike on
@@ -2442,20 +2502,25 @@ def dp_trainer_step(args, mesh, device) -> dict:
     here as it averages them; the first update runs at the warmup's rate of
     0, the second at ``--lr``), the VAE's (its
     posterior noise over the global batch) and the unconditional DDPM's
-    (its noise, timesteps and dropout masks over the global batch)."""
+    (its noise, timesteps and dropout masks over the global batch). With a
+    model axis the PUNetG, the VAE and the EMA are split as their trainers
+    split them; the gradients and parameters come back in the one-process
+    layout, beside this rank's parameter and optimizer-state bytes (and
+    the EMA's). ``dtype``: the step's (float64 unless asked).""" 
     from cfdbench_tpu_torch.metrics import loss_name_to_fn
     from cfdbench_tpu_torch.models import init_gencast, init_nonauto_model, make_cfd_vae
     from cfdbench_tpu_torch.training import trainer_nonauto, trainer_uncond, trainer_vae
     from cfdbench_tpu_torch.training.optim import make_adam, make_gencast_tx
-    from cfdbench_tpu_torch.training.trainer_auto import use_mesh
+    from cfdbench_tpu_torch.training.trainer_auto import split_module, use_mesh
     from cfdbench_tpu_torch.utils.rng import train_key, uncond_key, vae_key
 
     host = dp_step_batch()
-    block = {k: v.to(device, torch.float64) for k, v in mesh.block(host).items()}
+    block = {k: v.to(device, dtype) for k, v in mesh.block(host).items()}
     gen = torch.Generator().manual_seed(args.seed)
     loss_fn = loss_name_to_fn("nmse")
+    split = None
     if args.model in ("ffn", "deeponet"):
-        net = init_nonauto_model(args, 5, generator=gen, device=device).double()
+        net = init_nonauto_model(args, 5, generator=gen, device=device).to(dtype)
         task = trainer_nonauto.NonAutoTask(net, loss_fn)
         use_mesh(task, mesh)
         opt, sched = make_adam(net.parameters(), args.lr)
@@ -2466,43 +2531,55 @@ def dp_trainer_step(args, mesh, device) -> dict:
         grads = {k: p.grad.cpu() for k, p in net.named_parameters()}
     elif args.model == "gencast":
         task = init_gencast(args, GEN_STATS, 5, loss_fn, generator=gen, device=device)
-        net = task.model.double()
+        net = task.model.to(dtype)
         use_mesh(task, mesh)
+        split = split_module(net, mesh)
         # The first update runs at the warmup's rate of 0, the second at lr.
         opt = make_gencast_tx(net.parameters(), args.lr, total_steps=2, warmup_steps=1,
-                              mesh=mesh)
+                              mesh=mesh, split=split)
         for i in range(2):
             opt.zero_grad(set_to_none=True)
             loss, s = task.loss_scores(block, train_key(args.seed, i))
             loss.backward()
             if i == 0:
                 scores = s
-                grads = {k: (mesh.sum(p.grad) / mesh.size).cpu()
-                         for k, p in net.named_parameters()}
+                grads = {k: mesh.sum(p.grad) / mesh.size for k, p in net.named_parameters()}
             opt.step()
     elif args.model == "vae":
         latent = args.z_channels if args.vae_variant == "custom" else args.ldm_latent_dim
         net = make_cfd_vae(args.vae_variant, 2, 2, latent, ch=args.ch,
                            ch_mult=tuple(args.ch_mult), num_res_blocks=args.num_res_blocks,
-                           generator=gen, device=device).double()
+                           generator=gen, device=device).to(dtype)
+        split = split_module(net, mesh)
         opt = trainer_vae.make_optimizer(net, args.lr, 0.0)
         parts = trainer_vae.train_step(net, opt, block["labels"], block["weights"], 1e-4,
-                                       vae_key(args.seed, 0), mesh)
+                                       vae_key(args.seed, 0), mesh, split)
         scores = dict(zip(trainer_vae.PARTS, parts))
-        grads = {k: p.grad.cpu() for k, p in net.named_parameters()}
+        grads = {k: p.grad for k, p in net.named_parameters()}
     else:
         net = trainer_uncond.make_unet(2, args.pixel_diffusion_base_channels, args.seed,
-                                       device).double()
+                                       device).to(dtype)
         ema = trainer_uncond.make_unet(2, args.pixel_diffusion_base_channels, args.seed,
-                                       device).double()
+                                       device).to(dtype)
+        split = split_module(net, mesh)
+        split_module(ema, mesh)
         opt = torch.optim.AdamW(net.parameters(), args.lr, weight_decay=trainer_uncond.WEIGHT_DECAY)
         sched = trainer_uncond.make_ddpm_scheduler(args.ldm_noise_scheduler_timesteps, device)
         loss = trainer_uncond.train_step(net, ema, opt, sched, block["labels"], block["weights"],
-                                         uncond_key(args.seed, 0), mesh)
+                                         uncond_key(args.seed, 0), mesh, split)
         scores = dict(loss=loss)
-        grads = {k: p.grad.cpu() for k, p in net.named_parameters()}
-    return dict(scores={k: v.item() for k, v in scores.items()}, lr=args.lr, grads=grads,
-                state={k: v.detach().cpu() for k, v in net.state_dict().items()},
+        grads = {k: p.grad for k, p in net.named_parameters()}
+    sizes = dict(param_bytes=sum(p.numel() * p.element_size() for p in net.parameters()),
+                 opt_bytes=sum(t.numel() * t.element_size() for st in opt.state.values()
+                               for t in st.values() if torch.is_tensor(t) and t.dim() > 0))
+    if args.model == "uncond":
+        sizes["ema_bytes"] = sum(p.numel() * p.element_size() for p in ema.parameters())
+    state = {k: v.detach() for k, v in net.state_dict().items()}
+    if split is not None:  # the one-process layout
+        grads, state = split.layout.to_std(grads), split.layout.to_std(state)
+    return dict(scores={k: v.item() for k, v in scores.items()}, lr=args.lr, **sizes,
+                grads={k: g.cpu() for k, g in grads.items()},
+                state={k: v.cpu() for k, v in state.items()},
                 names=[k for k, _ in net.named_parameters()])
 
 
@@ -2523,50 +2600,70 @@ class Tee:
         return "".join(self.parts)
 
 
-def dp_run(jobs, device, rank: int = 0) -> dict:
+def dp_run(jobs, device, rank: int = 0, deterministic: bool = True) -> dict:
     """Each job through its entry point on ``device``: the launches it
     made, and main_auto's trained weights (and their order as parameters),
-    main_multistep's frames, or a step's results, on the host."""
+    main_multistep's frames, or a step's results, on the host. With
+    ``deterministic``, for the runs held against one process, PyTorch runs
+    its deterministic algorithms meanwhile (warning where an op has none):
+    the others sum in no fixed order, which Adam amplifies over an epoch
+    into a drift that differs from run to run (on an H100 two one-process
+    U-Net epochs parted by 4.7e-3 in their losses with only cuDNN's
+    algorithms deterministic, by 0 with every algorithm), so that a run and
+    its one-process reference would part by as much as two one-process runs
+    do; there they part by what the run's layout changes alone. Without
+    it the jobs run on the default algorithms, as users' runs do."""
     from cfdbench_tpu_torch import cli
     from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
 
     import contextlib
 
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    torch.backends.cudnn.deterministic = deterministic
     result = {}
-    for name, entry, argv in jobs:
-        t0 = time.perf_counter()
-        reset_launch_counts()
-        if entry == "step":
-            r = dp_step(argv, device)
-        elif entry == "bytes":
-            r = split_bytes(argv, device)
-        else:
-            tee = Tee()
-            with contextlib.redirect_stdout(tee):
-                out = getattr(cli, entry)(argv, device=device)
-            r = {"printed": tee.text()}
-            if entry == "main_multistep":
-                r["frames"] = out.cpu()
+    try:
+        for name, entry, argv in jobs:
+            t0 = time.perf_counter()
+            reset_launch_counts()
+            if entry in ("step", "step32"):
+                r = dp_step(argv, device, torch.float64 if entry == "step" else torch.float32)
+            elif entry == "bytes":
+                r = split_bytes(argv, device)
             else:
-                # The trained weights: the task's model's, the DDPM's network's,
-                # or the VAE's best (main_vae returns a state dict).
-                model = (None if entry == "main_vae" else out[0] if entry == "main_uncond"
-                         else out.model)
-                state = out if model is None else model.state_dict()
-                r["state"] = {k: v.detach().cpu() for k, v in state.items()}
-                r["names"] = (list(state) if model is None
-                              else [k for k, _ in model.named_parameters()])
-        r["launches"] = launch_counts()
-        result[name] = r
-        print(f"[dp] rank {rank} {name}: launches {r['launches']}, "
-              f"{time.perf_counter() - t0:.2f} s")
+                tee = Tee()
+                with contextlib.redirect_stdout(tee):
+                    out = getattr(cli, entry)(argv, device=device)
+                r = {"printed": tee.text()}
+                if entry == "main_multistep":
+                    r["frames"] = out.cpu()
+                else:
+                    # The trained weights: the task's model's, the DDPM's network's,
+                    # or the VAE's best (main_vae returns a state dict).
+                    model = (None if entry == "main_vae" else out[0] if entry == "main_uncond"
+                             else out.model)
+                    state = out if model is None else model.state_dict()
+                    r["state"] = {k: v.detach().cpu() for k, v in state.items()}
+                    r["names"] = (list(state) if model is None
+                                  else [k for k, _ in model.named_parameters()])
+            r["launches"] = launch_counts()
+            result[name] = r
+            print(f"[dp] rank {rank} {name}: launches {r['launches']}, "
+                  f"{time.perf_counter() - t0:.2f} s")
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic = saved[2]
     return result
 
 
-def dp_rank(rank: int, world: int, root: str, jobs, device: str) -> None:
-    """Phase 13b's rank ``rank`` of ``world``, spawned: a gloo group that
-    meets through a file under ``root``, every rank on ``device`` (the one
-    card); its results to ``root/rank{rank}.pt``."""
+def dp_rank(rank: int, world: int, root: str, jobs, device: str, default_jobs=()) -> None:
+    """Phase 13b's or 14b's rank ``rank`` of ``world``, spawned: a gloo
+    group that meets through a file under ``root``, every rank on
+    ``device`` (the one card); ``jobs`` on the deterministic algorithms,
+    then ``default_jobs`` on the default ones; its results to
+    ``root/rank{rank}.pt``."""
     import os
 
     import torch.distributed as dist
@@ -2578,27 +2675,29 @@ def dp_rank(rank: int, world: int, root: str, jobs, device: str) -> None:
     dist.init_process_group("gloo", init_method=f"file://{root}/rendezvous", rank=rank,
                             world_size=world)
     try:
-        torch.save(dp_run(jobs, device, rank), f"{root}/rank{rank}.pt")
+        result = dp_run(jobs, device, rank)
+        result.update(dp_run(default_jobs, device, rank, deterministic=False))
+        torch.save(result, f"{root}/rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
 class permuted_train_rows:
-    """Within it, ``trainer_auto`` and ``trainer_vae`` train on every
-    shuffled batch with its rows permuted (a seeded permutation a batch),
-    and the VAE's posterior noise of that batch with them: the same sums in
-    another order, the control of the U-Net's and the VAE's drift."""
+    """Within it, the trainers train on every shuffled batch with its rows
+    permuted (a seeded permutation a batch), and the draws of that batch
+    with them (the VAE's posterior noise; the diffusion models' noise,
+    timesteps and dropout masks): the same sums in another order, the
+    control of the runs whose drift is Adam amplifying rounding."""
 
     def __enter__(self):
         import numpy as np
 
-        from cfdbench_tpu_torch.models import vae
-        from cfdbench_tpu_torch.training import trainer_auto, trainer_vae
+        from cfdbench_tpu_torch.models import diffusion, vae
+        from cfdbench_tpu_torch.training import (
+            trainer_auto, trainer_gencast, trainer_uncond, trainer_vae)
 
-        self.modules = (trainer_auto, trainer_vae)
-        real = trainer_auto.batches
-        self.real_noise = real_noise = vae.posterior_noise
         rows = {}
+        real = trainer_auto.batches
 
         def batches(arrays, batch_size, shuffle, rng=None, pad_multiple=1):
             for i, b in enumerate(real(arrays, batch_size, shuffle, rng=rng,
@@ -2610,22 +2709,32 @@ class permuted_train_rows:
                     b = {k: v[p] for k, v in b.items()}
                 yield b
 
-        def posterior_noise(key, shape, device):
-            noise = real_noise(key, shape, device)
-            p = rows.get("perm")  # row i of the batch was row p[i]
-            return noise if p is None else noise[torch.as_tensor(p, device=noise.device)]
+        def permuted(t):  # row i of the batch was row p[i]
+            p = rows.get("perm")
+            return t if p is None else t[torch.as_tensor(p, device=t.device)]
 
-        self.real = real
-        for module in self.modules:
-            module.batches = batches
-        vae.posterior_noise = posterior_noise
+        def posterior_noise(key, shape, device, real=vae.posterior_noise):
+            return permuted(real(key, shape, device))
+
+        def noise_and_t(key, shape, T, device, real=diffusion.train_noise_and_t):
+            return tuple(permuted(x) for x in real(key, shape, T, device))
+
+        def masks(key, shapes, rate, device, real=diffusion.dropout_keep_masks):
+            return [permuted(m) for m in real(key, shapes, rate, device)]
+
+        self.sites = [(m, "batches", batches)
+                      for m in (trainer_auto, trainer_vae, trainer_gencast, trainer_uncond)]
+        self.sites += [(vae, "posterior_noise", posterior_noise)]
+        self.sites += [(m, name, f) for m in (diffusion, trainer_uncond)
+                       for name, f in (("train_noise_and_t", noise_and_t),
+                                       ("dropout_keep_masks", masks))]
+        self.saved = [(m, name, getattr(m, name)) for m, name, _ in self.sites]
+        for m, name, f in self.sites:
+            setattr(m, name, f)
 
     def __exit__(self, *exc):
-        from cfdbench_tpu_torch.models import vae
-
-        for module in self.modules:
-            module.batches = self.real
-        vae.posterior_noise = self.real_noise
+        for m, name, f in self.saved:
+            setattr(m, name, f)
 
 
 def dp_params(got: dict, want: dict, names, what: str) -> float:
@@ -2667,6 +2776,20 @@ def dp_step_check(name: str, got: dict, want: dict, what: str) -> None:
             raise RuntimeError(f"{what}: {k} disagree, {v:.3e}")
 
 
+def dp_grad_check(got: dict, want: dict, what: str) -> None:
+    """A float32 step from the same weights, two ranks against one process:
+    the scores (relative) and every gradient (of the largest) within
+    DP_RTOL. Its parameters are not held: Adam's first step moves an
+    element of rounding-level gradient by lr either way."""
+    metrics_rel([got["scores"]], [want["scores"]], f"{what} scores", DP_RTOL)
+    top = max(g.abs().max().item() for g in want["grads"].values())
+    worst = max((got["grads"][k] - g).abs().max().item() / top for k, g in want["grads"].items())
+    print(f"[dp] {what}: float32 gradients, of the largest, max diff {worst:.3e} "
+          f"(bound {DP_RTOL:.0e})")
+    if not worst <= DP_RTOL:
+        raise RuntimeError(f"{what}: float32 gradients disagree, {worst:.3e}")
+
+
 def losses_rel(got_run: Path, want_run: Path) -> float:
     """The largest relative difference of two runs' per-step train losses."""
     got, want = (json.loads((r / "train_losses.json").read_text()) for r in (got_run, want_run))
@@ -2703,26 +2826,30 @@ def vae_epochs(printed: str):
             re.findall(r"plateau: lr reduced to (\S+)", printed), "Early stopping." in printed)
 
 
-def dp_trainer_check(name: str, entry: str, argv, ranks, want, control=None) -> None:
-    """Phase 13b's checks of main_train's, main_gencast's, main_vae's and
-    main_uncond's runs on two ranks against one process's (the launches and
-    the equal weights of the ranks are checked with the others): every
-    number of the files that hold the losses and scores within DP_RTOL
-    (relative), or, given the ``control`` run (one process, rows permuted:
-    the VAE's, whose one-channel GroupNorms leave biases whose gradient is
+def dp_trainer_check(name: str, entry: str, argv, ranks, want, control=None,
+                     mesh_root: Path = None, what: str = None, hold_params: bool = False
+                     ) -> None:
+    """Phase 13b's and 14b's checks of main_train's, main_gencast's,
+    main_vae's and main_uncond's runs on two ranks (under ``mesh_root``,
+    phase 13b's ``dp_mesh`` by default) against one process's (the
+    launches and the equal weights of the ranks are checked with the
+    others): every number of the files that hold the losses and scores
+    within DP_RTOL (relative), or, given the ``control`` run (one process,
+    rows permuted: a network whose GroupNorms leave biases whose gradient is
     rounding, which Adam amplifies over its steps), within DP_DRIFT_FACTOR
-    times the control's distance plus DP_RTOL; GenCast's dev nmse, as each
-    rank printed it, alike; the VAE's dev losses, its rate cuts (at least
-    one) and its early stop, as each rank printed them, alike, and the
-    cuts and the stop those of one process."""
+    times the control's distance plus DP_RTOL, and so the parameters
+    with ``hold_params``; GenCast's dev nmse, as each rank printed it, alike; the VAE's dev
+    losses, its rate cuts (at least one) and its early stop, as each rank
+    printed them, alike, and the cuts and the stop those of one process."""
     files = {"main_train": ["train_losses.json", "ckpt-0/dev_loss.json", "test/scores.json"],
              "main_gencast": ["ckpt-0/dev_scores.json", "training_meta.json",
                               "test/scores.json"],
              "main_vae": ["loss_history.json", "training_meta.json"],
              "main_uncond": ["train_losses.json"]}[entry]
+    mesh_root = WORK / "dp_mesh" if mesh_root is None else mesh_root
     mesh_run = trainer_run(entry, argv)
-    single_run = WORK / "dp_single" / mesh_run.relative_to(WORK / "dp_mesh")
-    what = f"{name}, {DP_RANKS} ranks against one process"
+    single_run = WORK / "dp_single" / mesh_run.relative_to(mesh_root)
+    what = what or f"{name}, {DP_RANKS} ranks against one process"
 
     def rel(run, f):
         got, ref = (json_numbers(json.loads((r / f).read_text())) for r in (run, single_run))
@@ -2734,7 +2861,7 @@ def dp_trainer_check(name: str, entry: str, argv, ranks, want, control=None) -> 
         n, worst = rel(mesh_run, f)
         bound, against = DP_RTOL, ""
         if control is not None:
-            ctl = rel(WORK / "dp_control" / mesh_run.relative_to(WORK / "dp_mesh"), f)[1]
+            ctl = rel(WORK / "dp_control" / mesh_run.relative_to(mesh_root), f)[1]
             bound = DP_DRIFT_FACTOR * ctl + DP_RTOL
             against = f"; the permuted-row control {ctl:.3e}"
         print(f"[dp] {what}: {f}, {n} numbers, max rel diff {worst:.3e}{against} "
@@ -2748,6 +2875,12 @@ def dp_trainer_check(name: str, entry: str, argv, ranks, want, control=None) -> 
     # into steps of +-lr; their steps are held in float64 (entry "step").
     if entry == "main_train" and not params_rel <= DP_RTOL:
         raise RuntimeError(f"{what}: parameters disagree, {params_rel:.3e}")
+    if hold_params:
+        ctl = dp_params(control["state"], want["state"], want["names"],
+                        f"{name}, one process with permuted rows against one process")
+        if not params_rel <= DP_DRIFT_FACTOR * ctl + DP_RTOL:
+            raise RuntimeError(f"{what}: parameters parted further than the permuted-row "
+                               f"control, {params_rel:.3e} against {ctl:.3e}")
     if entry == "main_gencast":
         lines = [re.findall(r"ep \d+: dev nmse = \S+", r["printed"]) for r in ranks + [want]]
         if not lines[0] or any(x != lines[0] for x in lines):
@@ -2787,9 +2920,9 @@ def dp_two_ranks(device) -> dict:
     argvs = {n: [a.replace(str(WORK / "dp_single"), str(WORK / "dp_control")) for a in argv]
              for n, _, argv in single_jobs}
     with permuted_train_rows():
-        ran = dp_run([("unet_control", "main_auto", argvs["unet"]),
-                      ("vae_control", "main_vae", argvs["vae"])], device)
-    controls = {name: ran[f"{name}_control"] for name in ("unet", "vae")}
+        ran = dp_run([(f"{name}_control", entry, argvs[name]) for name, entry in CONTROLS],
+                     device)
+    controls = {name: ran[f"{name}_control"] for name, _ in CONTROLS}
     control = controls["unet"]
     root = WORK / "dp_ranks"
     shutil.rmtree(root, ignore_errors=True)
@@ -2827,11 +2960,14 @@ def dp_two_ranks(device) -> dict:
         if entry == "step":
             dp_step_check(name, ranks[0][name], want, what)
             continue
+        if entry == "step32":
+            dp_grad_check(ranks[0][name], want, what)
+            continue
         if name == "fno_test":  # the best checkpoint, loaded: scores below
             continue
         if entry in DP_TRAINERS:
             dp_trainer_check(name, entry, argv, [r[name] for r in ranks], want,
-                             controls.get(name))
+                             controls["vae"] if name == "vae" else None)
             continue
         mesh_run = run_dir(parse_args(argv))
         single_run = WORK / "dp_single" / mesh_run.relative_to(WORK / "dp_mesh")
@@ -2854,7 +2990,9 @@ def dp_two_ranks(device) -> dict:
             raise RuntimeError(f"{what}: train losses disagree, {loss_rel:.3e}")
         # The FNO's gradients stay clear of rounding level: its parameters
         # are held too. Pixel diffusion's PUNetG has biases that a
-        # GroupNorm cancels; its step is held by pixel_diffusion_step.
+        # GroupNorm cancels, whose rounding Adam amplifies: its run is held
+        # by its first step's gradients (pixel_diffusion_step32, float32)
+        # and its step in float64 (pixel_diffusion_step).
         if name == "fno" and not params_rel <= DP_RTOL:
             raise RuntimeError(f"{what}: parameters disagree, {params_rel:.3e}")
     mesh_run = run_dir(parse_args(dp_jobs(data_root, WORK / "dp_mesh", "2")[0][2]))
@@ -2870,7 +3008,7 @@ def dp_two_ranks(device) -> dict:
                             ("main_multistep", ("fno_multistep",)),
                             ("main_train", ("ffn", "deeponet")), ("main_gencast", ("gencast",)),
                             ("main_vae", ("vae",)), ("main_uncond", ("uncond",)))}
-    return counts, data_root, single, controls["unet"]
+    return counts, data_root, single, controls
 
 
 def dp_step_timing(device, card) -> dict:
@@ -2978,21 +3116,84 @@ def rank_kernels(device, card) -> dict:
 
 def tp_jobs(data_root: Path, out: Path):
     """Phase 14b's runs on TP_MESH: phase 13b's flagship main_auto (tp) and
-    main_multistep, the same main_auto with --pp_microbatches PP_MICRO
-    into ``out``'s sibling ``_pp`` directory, the U-Net's epoch, and the
-    bytes of each layout (entry ``bytes``)."""
+    main_multistep, the same main_auto with --pp_microbatches PP_MICRO into
+    ``out``'s sibling ``_pp`` directory, the U-Net's epoch, phase 13b's
+    main_train (FFN, DeepONet), main_gencast, main_vae and main_uncond runs
+    and the float64 steps of the last three; GenCast's main_multistep of
+    phase 13b's one-process checkpoint; the flagship's main_auto with
+    --use_mixed_precision under tp (``_mp``) and pp (``_mp_pp``) and its
+    bfloat16 main_multistep (in ``tp_bf16``, a copy of phase 13b's
+    one-process run); and the bytes of each layout (entry ``bytes``)."""
     jobs = {n: (n, e, a) for n, e, a in dp_jobs(data_root, out, TP_MESH)}
-    pp = [a.replace(str(out), f"{out}_pp") for a in jobs["fno"][2]]
-    return [jobs["fno"], jobs["fno_multistep"],
-            ("fno_pp", "main_auto", pp + ["--pp_microbatches", str(PP_MICRO)]), jobs["unet"],
-            ("bytes_tp", "bytes", ["--mesh_shape", TP_MESH]),
-            ("bytes_pp", "bytes", ["--mesh_shape", TP_MESH, "--pp_microbatches", str(PP_MICRO)])]
+    fno = jobs["fno"][2]
+    pp = ["--pp_microbatches", str(PP_MICRO)]
+    mp = ["--use_mixed_precision", "1"]
+    gencast = {n: a for n, _, a in dp_trainer_jobs(data_root, WORK / "dp_single", TP_MESH)}["gencast"]
+    bf16 = [a.replace(str(out), str(WORK / "tp_bf16")) for a in jobs["fno_multistep"][2]]
+    return [jobs[n] for n in ("fno", "fno_multistep")] + [
+        ("fno_pp", "main_auto", [a.replace(str(out), f"{out}_pp") for a in fno] + pp),
+        jobs["unet"], jobs["ffn"], jobs["deeponet"],
+        *(jobs[n] for n in SPLIT_TRAINERS),
+        ("gencast_multistep", "main_multistep", gencast),
+        ("fno_mp", "main_auto", [a.replace(str(out), f"{out}_mp") for a in fno] + mp),
+        ("fno_mp_pp", "main_auto", [a.replace(str(out), f"{out}_mp_pp") for a in fno] + mp + pp),
+        ("fno_bf16_multistep", "main_multistep", bf16 + ["--rollout_dtype", "bfloat16"]),
+    ] + [(f"{n}_step", "step", ["--model", n, "--mesh_shape", TP_MESH]) for n in SPLIT_TRAINERS
+         ] + [("bytes_tp", "bytes", ["--mesh_shape", TP_MESH]),
+              ("bytes_pp", "bytes", ["--mesh_shape", TP_MESH] + pp)
+              ] + [(f"bytes_{n}", "bytes", ["--model", n, "--mesh_shape", TP_MESH])
+                   for n in SPLIT_TRAINERS]
+
+
+def tp_default_jobs(data_root: Path):
+    """Phase 14b's runs on the default algorithms, ``(name, entry, argv)``
+    with ``name`` ``<run>_default`` for each of DEFAULT_ALGORITHM_RUNS:
+    phase 13b's run at TP_MESH into ``tp_default``, ``--mode train``."""
+    jobs = {n: (e, a) for n, e, a in dp_jobs(data_root, WORK / "tp_default", TP_MESH)}
+    return [(f"{n}_default", jobs[n][0], ["train" if x == "train_test" else x
+                                          for x in jobs[n][1]])
+            for n in DEFAULT_ALGORITHM_RUNS]
+
+
+def replicas_check(ranks, jobs, single=None) -> None:
+    """Phase 14b's runs on the default algorithms (:func:`tp_default_jobs`):
+    every rank's weights and buffers equal to rank 0's, bit for bit, and
+    finite, and no launch of the FNO's kernels; with ``single`` (phase
+    13b's deterministic one-process results) the distance of the losses
+    and parameters from them, printed."""
+    for name, entry, argv in jobs:
+        what = f"{name}, {TP_MESH}"
+        state = ranks[0][name]["state"]
+        for r, result in enumerate(ranks):
+            got = result[name]
+            if any(got["launches"].values()):
+                raise RuntimeError(f"{what}: rank {r} launched {got['launches']}")
+            for k, v in state.items():
+                if not torch.equal(got["state"][k], v):
+                    d = (got["state"][k] - v).abs().max().item()
+                    raise RuntimeError(f"{what}: rank {r}'s {k} parted from rank 0's by {d:.3e}: "
+                                       "a replica parted")
+                if v.is_floating_point() and not torch.isfinite(v).all():
+                    raise RuntimeError(f"{what}: {k} is not finite")
+        print(f"[tp] {what}: {len(ranks)} ranks' {len(state)} tensors equal, bit for bit")
+        if single is None:
+            continue
+        want = single[name[:-len("_default")]]
+        mesh_run = trainer_run(entry, argv)
+        one_run = WORK / "dp_single" / mesh_run.relative_to(WORK / "tp_default")
+        losses = (f"losses max rel diff {losses_rel(mesh_run, one_run):.3e}, "
+                  if (one_run / "train_losses.json").exists() else "")
+        params = dp_params(state, want["state"], want["names"], what)
+        print(f"[tp] {what}: against the deterministic one process (not held): {losses}"
+              f"parameters {params:.3e} of the largest")
 
 
 def split_bytes(argv, device) -> dict:
     """The flagship's parameter and Adam-state bytes on this rank after one
     train step at GRAD_BATCH, its model laid over ``--mesh_shape``'s model
-    axis as main_auto lays it (``--pp_microbatches``: staged)."""
+    axis as main_auto lays it (``--pp_microbatches``: staged); or, for
+    ``--model gencast``, ``vae`` or ``uncond``, those of one float32 step of
+    :func:`dp_trainer_step`, the network split as its trainer splits it."""
     import torch.distributed as dist
 
     from cfdbench_tpu_torch.cli import make_auto_task, parse_args
@@ -3003,6 +3204,9 @@ def split_bytes(argv, device) -> dict:
 
     args = parse_args(fno_argv(WORK / "dp_data", WORK / "bytes") + argv)
     mesh = make_mesh(args.mesh_shape, dist.group.WORLD if dist.is_initialized() else None)
+    if args.model in SPLIT_TRAINERS:
+        step = dp_trainer_step(args, mesh, device, torch.float32)
+        return {k: v for k, v in step.items() if k.endswith("_bytes")}
     task = make_auto_task(args, 5, (GRID, GRID), device)
     use_mesh(task, mesh)
     split_model(task, args.pp_microbatches)
@@ -3012,15 +3216,55 @@ def split_bytes(argv, device) -> dict:
                          torch.Generator().manual_seed(SEED + 15), device)
     train_step(task, opt, sched, mesh.block(batch))
     return dict(param_bytes=sum(p.numel() * p.element_size() for p in trained.parameters()),
-                adam_bytes=sum(t.numel() * t.element_size() for st in opt.state.values()
+                opt_bytes=sum(t.numel() * t.element_size() for st in opt.state.values()
                                for t in st.values() if torch.is_tensor(t) and t.dim() > 0))
 
 
-def model_axis_ranks(device, data_root: Path, single: dict, unet_control: dict):
+def tp_references(device, jobs, out: Path):
+    """The one-process runs that phase 13b has not made, made before the
+    ranks write over any file they read: GenCast's main_multistep of phase
+    13b's checkpoint, the flagship's main_auto with --use_mixed_precision
+    (into ``tp_mp_single``), and its bfloat16 main_multistep (of a copy of
+    phase 13b's run, in ``tp_bf16``). Returns dp_run's results, each
+    rollout's per-step metrics beside its frames."""
+    from cfdbench_tpu_torch.cli import parse_args, run_dir
+
+    argv = {n: a for n, _, a in jobs}
+    one = {n: ["1" if x == TP_MESH else x for x in argv[n]]
+           for n in ("gencast_multistep", "fno_mp", "fno_bf16_multistep")}
+    one["fno_mp"] = [x.replace(f"{out}_mp", str(WORK / "tp_mp_single")) for x in one["fno_mp"]]
+    src = run_dir(parse_args(argv["fno_multistep"]))
+    copy = run_dir(parse_args(argv["fno_bf16_multistep"]))
+    shutil.rmtree(copy, ignore_errors=True)
+    shutil.copytree(WORK / "dp_single" / src.relative_to(out), copy)
+    ran = dp_run([(n, "main_auto" if n == "fno_mp" else "main_multistep", a)
+                  for n, a in one.items()], device)
+    for n in ("gencast_multistep", "fno_bf16_multistep"):
+        path = run_dir(parse_args(one[n])) / "multistep_metrics.json"
+        ran[n]["metrics"] = json.loads(path.read_text())
+    return ran
+
+
+def tp_bf16_check(name: str, mesh_run: Path, one_run: Path, what: str) -> None:
+    """A mixed-precision main_auto on the model axis against one process's:
+    the per-step losses and each epoch's dev scores within TP_BF16_RTOL."""
+    worst = losses_rel(mesh_run, one_run)
+    for ckpt_dir in sorted(one_run.glob("ckpt-*")):
+        got, want = (json.loads((r / ckpt_dir.name / "dev_scores.json").read_text())["mean"]
+                     for r in (mesh_run, one_run))
+        worst = max(worst, max(abs(got[k] - w) / abs(w) for k, w in want.items() if w))
+    print(f"[tp] {what}: losses and dev scores max rel diff {worst:.3e} "
+          f"(bound {TP_BF16_RTOL:.0e})")
+    if not worst <= TP_BF16_RTOL:
+        raise RuntimeError(f"{what}: losses or dev scores disagree, {worst:.3e}")
+
+
+def model_axis_ranks(device, data_root: Path, single: dict, controls: dict):
     """Phase 14b-c: TP_RANKS ranks on the one card in a gloo group, the
     jobs of :func:`tp_jobs`, against phase 13b's runs in one process (and
-    its U-Net control); returns each rank's launches per path and the
-    bytes of each layout against one process's."""
+    its permuted-row controls) and :func:`tp_references`; returns each
+    rank's launches per path and the bytes of each layout against one
+    process's."""
     import torch.multiprocessing as mp
 
     from cfdbench_tpu_torch.cli import parse_args, run_dir
@@ -3028,15 +3272,19 @@ def model_axis_ranks(device, data_root: Path, single: dict, unet_control: dict):
 
     out = WORK / "tp_mesh"
     jobs = tp_jobs(data_root, out)
+    default_jobs = tp_default_jobs(data_root)
+    refs = tp_references(device, jobs, out)
     root = WORK / "tp_ranks"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
     t0 = time.perf_counter()
-    mp.spawn(dp_rank, args=(TP_RANKS, str(root), jobs, str(device)), nprocs=TP_RANKS, join=True)
+    mp.spawn(dp_rank, args=(TP_RANKS, str(root), jobs, str(device), default_jobs),
+             nprocs=TP_RANKS, join=True)
     print(f"[tp] {TP_RANKS} ranks on one card (gloo), --mesh_shape {TP_MESH}: "
           f"{time.perf_counter() - t0:.2f} s, spawn included")
     ranks = [torch.load(root / f"rank{r}.pt", weights_only=True) for r in range(TP_RANKS)]
     argv = {n: a for n, _, a in jobs}
+    entries = {n: e for n, e, _ in jobs}
 
     def single_run(name):
         mesh_run = run_dir(parse_args(argv[name]))
@@ -3049,39 +3297,76 @@ def model_axis_ranks(device, data_root: Path, single: dict, unet_control: dict):
     steps = int(re.search(r"# step: (\d+)", printed).group(1)) * TRAIN_EPOCHS
     evals = single["fno"]["launches"]["fno_head"] - steps
     L, S = FLAGSHIP["num_layers"], TP_RANKS
-    for name in ("fno", "fno_multistep", "fno_pp", "unet"):
-        want = single["fno" if name == "fno_pp" else name]
+    kernels = ("fno_block", "fno_head")
+    for name, entry in entries.items():
+        if entry == "bytes":
+            continue
         what = f"{name}, {TP_MESH} against one process"
+        ref = {"fno_pp": "fno", "fno_mp_pp": "fno_mp"}.get(name, name)
+        want = single[ref] if ref in single else refs[ref]
         for r, result in enumerate(ranks):
             got = result[name]["launches"]
+            # One process's launches, which are 0 on the paths of the other
+            # trainers and of the bfloat16 forwards; a mixed-precision run's
+            # float32 evaluation launches the kernels (under pp on every
+            # rank, the model filled whole), its train steps none.
             expect = want["launches"]
             if name == "fno_pp" and device.type == "cuda":
                 expect = {"fno_block": steps * (L // S) * PP_MICRO + evals * L,
                           "fno_head": (steps * PP_MICRO if r == S - 1 else 0) + evals}
             if got != expect:
                 raise RuntimeError(f"{what}: rank {r} launched {got}, expected {expect}")
-            if name.startswith("fno") and device.type == "cuda" and not all(got.values()):
+            if name in ("fno", "fno_multistep", "fno_pp") and device.type == "cuda" and not all(
+                    got.values()):
                 raise RuntimeError(f"{what}: rank {r}: a kernel never launched")
-        if name == "fno_multistep":
+        if entry == "main_multistep":
+            bf16 = name == "fno_bf16_multistep"
+            frame_tol, metric_tol = (TP_BF16_FRAME_RTOL, TP_BF16_RTOL) if bf16 else (DP_RTOL,
+                                                                                     DP_RTOL)
             for r, result in enumerate(ranks):
-                err = max_rel(result[name]["frames"], want["frames"])
-                print(f"[tp] {what}: rank {r} frames max diff / max {err:.3e}")
-                if not err <= DP_RTOL:
+                got = result[name]["frames"]
+                if bf16 and got.dtype != torch.bfloat16:
+                    raise RuntimeError(f"{what}: rank {r}'s frames are {got.dtype}")
+                err = max_rel(got.float(), want["frames"].float())
+                print(f"[tp] {what}: rank {r} frames max diff / max {err:.3e} "
+                      f"(bound {frame_tol:.0e})")
+                if not err <= frame_tol:
                     raise RuntimeError(f"{what}: rank {r}'s frames disagree, {err:.3e}")
-            mesh_run, one_run = single_run("fno")
-            metrics_rel(*(json.loads((r / "multistep_metrics.json").read_text())
-                          for r in (mesh_run, one_run)), f"{what}: per-step metrics", DP_RTOL)
+            mesh_metrics = json.loads((run_dir(parse_args(argv[name])) /
+                                       "multistep_metrics.json").read_text())
+            if name == "fno_multistep":
+                mesh_run, one_run = single_run("fno")
+                want_metrics = json.loads((one_run / "multistep_metrics.json").read_text())
+            else:
+                want_metrics = want["metrics"]
+            metrics_rel(mesh_metrics, want_metrics, f"{what}: per-step metrics", metric_tol)
             continue
         for k, v in ranks[0][name]["state"].items():
             if not torch.equal(v, ranks[1][name]["state"][k]):
                 raise RuntimeError(f"{what}: rank 1's {k} differs from rank 0's")
+        if entry == "step":
+            dp_step_check(name, ranks[0][name], want, what)
+            continue
+        if entry in DP_TRAINERS:
+            dp_trainer_check(name, entry, argv[name], [r[name] for r in ranks], want,
+                             controls.get(name), mesh_root=out, what=what,
+                             hold_params=name in controls)
+            continue
+        if name.startswith("fno_mp"):
+            mesh_run = run_dir(parse_args(argv[name]))
+            tp_bf16_check(name, mesh_run, WORK / "tp_mp_single" / mesh_run.relative_to(
+                f"{out}_{name[4:]}"), what)
+            print(f"[tp] {what}: parameters "
+                  f"{dp_params(ranks[0][name]['state'], want['state'], want['names'], what):.3e}"
+                  " of the largest (not held: bfloat16)")
+            continue
         mesh_run, one_run = single_run(name)
         loss_rel = losses_rel(mesh_run, one_run)
         params_rel = dp_params(ranks[0][name]["state"], want["state"], want["names"], what)
         if name == "unet":
             control_run = WORK / "dp_control" / mesh_run.relative_to(out)
             ctl_loss = losses_rel(control_run, one_run)
-            ctl_params = dp_params(unet_control["state"], want["state"], want["names"],
+            ctl_params = dp_params(controls["unet"]["state"], want["state"], want["names"],
                                    "unet, one process with permuted rows against one process")
             print(f"[tp] {what}: losses max rel diff {loss_rel:.3e}, parameters {params_rel:.3e}"
                   f" of the largest; the permuted-row control {ctl_loss:.3e}, {ctl_params:.3e} "
@@ -3094,23 +3379,34 @@ def model_axis_ranks(device, data_root: Path, single: dict, unet_control: dict):
               f"{params_rel:.3e} of the largest (bound {DP_RTOL:.0e} each)")
         if not (loss_rel <= DP_RTOL and params_rel <= DP_RTOL):
             raise RuntimeError(f"{what}: losses or parameters disagree")
-    one = split_bytes(["--mesh_shape", "1"], device)
-    sizes = {"one_process": one}
-    for layout in ("tp", "pp"):
+    replicas_check(ranks, default_jobs, single)
+    sizes = {"one_process": split_bytes(["--mesh_shape", "1"], device)}
+    for n in SPLIT_TRAINERS:
+        sizes[f"{n}_one_process"] = split_bytes(["--model", n, "--mesh_shape", "1"], device)
+    for layout in ("tp", "pp") + SPLIT_TRAINERS:
+        one = sizes["one_process" if layout in ("tp", "pp") else f"{layout}_one_process"]
         for r, result in enumerate(ranks):
-            got = {k: result[f"bytes_{layout}"][k] for k in ("param_bytes", "adam_bytes")}
+            got = result[f"bytes_{layout}"]
             sizes[f"{layout}_rank{r}"] = got
-            print(f"[tp] {layout} rank {r}: parameters {got['param_bytes']} B, Adam state "
-                  f"{got['adam_bytes']} B; one process {one['param_bytes']} B, "
-                  f"{one['adam_bytes']} B")
+            print(f"[tp] {layout} rank {r}: " + ", ".join(
+                f"{k} {got[k]} B (one process {one[k]} B)" for k in one))
             if not (got["param_bytes"] < one["param_bytes"]
-                    and got["adam_bytes"] == 2 * got["param_bytes"]):
+                    and got["opt_bytes"] == 2 * got["param_bytes"]
+                    and got.get("ema_bytes", got["param_bytes"]) == got["param_bytes"]):
                 raise RuntimeError(f"{layout} rank {r} holds {got}, one process {one}")
     counts = {}
+    paths = (("tp", "main_auto", ("fno",)), ("tp", "main_multistep", ("fno_multistep",)),
+             ("pp", "main_auto", ("fno_pp",)), ("tp", "main_train", ("ffn", "deeponet")),
+             ("tp", "main_gencast", ("gencast",)), ("tp", "main_vae", ("vae",)),
+             ("tp", "main_uncond", ("uncond",)),
+             ("tp", "main_multistep_gencast", ("gencast_multistep",)),
+             ("tp", "main_auto_mixed_precision", ("fno_mp",)),
+             ("pp", "main_auto_mixed_precision", ("fno_mp_pp",)),
+             ("tp", "main_multistep_bf16", ("fno_bf16_multistep",)))
     for r in range(TP_RANKS):
-        counts[f"tp{TP_RANKS}_rank{r}_main_auto"] = ranks[r]["fno"]["launches"]
-        counts[f"tp{TP_RANKS}_rank{r}_main_multistep"] = ranks[r]["fno_multistep"]["launches"]
-        counts[f"pp{TP_RANKS}_rank{r}_main_auto"] = ranks[r]["fno_pp"]["launches"]
+        for kind, path, names in paths:
+            counts[f"{kind}{TP_RANKS}_rank{r}_{path}"] = {
+                k: sum(ranks[r][n]["launches"][k] for n in names) for k in kernels}
     return counts, sizes
 
 
@@ -3155,14 +3451,14 @@ def main() -> int:
     t13 = time.perf_counter()
     dp_counts = {f"dp_torchrun_{k}": v
                  for k, v in dp_torchrun(train_counts, train_metrics).items()}
-    two_ranks, dp_data, dp_single, unet_control = dp_two_ranks(device)
+    two_ranks, dp_data, dp_single, controls = dp_two_ranks(device)
     dp_counts.update(two_ranks)
     dp_times = dp_step_timing(device, card)
     print(f"[phase13] [{card}] " + json.dumps({"timing": dp_times, "launches": dp_counts,
                                                "seconds": time.perf_counter() - t13}))
     t14 = time.perf_counter()
     rank_times = rank_kernels(device, card)
-    mp_counts_14, mp_bytes = model_axis_ranks(device, dp_data, dp_single, unet_control)
+    mp_counts_14, mp_bytes = model_axis_ranks(device, dp_data, dp_single, controls)
     dp_counts.update(mp_counts_14)
     print(f"[phase14] [{card}] " + json.dumps({"kernels_at_rank_shapes": rank_times,
                                                "bytes": mp_bytes, "launches": mp_counts_14,

@@ -1,8 +1,9 @@
 """One rank of a data-, tensor- or pipeline-parallel run of the port,
 spawned by ``tests/test_torch_parallel.py``,
-``tests/test_torch_parallel_trainers.py``, ``tests/test_torch_tp.py`` and
-``tests/test_torch_pp.py`` (and importable without JAX, so that the
-spawned processes stay light).
+``tests/test_torch_parallel_trainers.py``, ``tests/test_torch_tp.py``,
+``tests/test_torch_pp.py``, ``tests/test_torch_tp_trainers.py`` and
+``tests/test_torch_tp_trainers_cli.py`` (and importable without JAX, so
+that the spawned processes stay light).
 
 :func:`run` joins a gloo group through a file under the test's temporary
 directory (never a TCP port: several test workers run at once), runs the
@@ -83,9 +84,10 @@ def split_step(case: dict, mesh):
     task = build_task(case)
     use_mesh(task, mesh)
     whole = sum(p.numel() for p in task.model.parameters())
-    split_model(task, case.get("pp", 0), case.get("min_size", 4096))
+    with rules_at(case):
+        split_model(task, case.get("pp", 0))
     trained = trained_module(task)
-    split = task.split
+    split = getattr(task, "split", None)
     shards = {}
     if split is not None and split.pipeline is None:
         params = dict(task.model.named_parameters())
@@ -230,6 +232,16 @@ def patched(sites):
             setattr(m, name, value)
 
 
+def rules_at(case: dict):
+    """The sharding rules' threshold (``sharding_rules.MIN_SIZE``) at the
+    case's ``min_size`` within, so that narrow test models split; the
+    rules' own without one."""
+    from cfdbench_tpu_torch.parallel import sharding_rules
+
+    return patched([(sharding_rules, "MIN_SIZE",
+                     case.get("min_size", sharding_rules.MIN_SIZE))])
+
+
 def injected(draws):
     """The port's draw functions replaced by :func:`fixed_draws` within."""
     from cfdbench_tpu_torch.models import diffusion, vae
@@ -293,23 +305,47 @@ def trainer_step(case: dict, mesh):
     (``trainer_nonauto.train_step`` at the case's query points), GenCast's
     (micro-steps through ``GenCastAdamW``), the VAE's
     (``trainer_vae.train_step``) or the unconditional DDPM's
-    (``trainer_uncond.train_step``, its EMA). Returns the first step's
-    scores, network output (gathered) and gradients (averaged over the
-    ranks), and the parameters after the last step."""
-    from cfdbench_tpu_torch.training import trainer_nonauto, trainer_uncond, trainer_vae
+    (``trainer_uncond.train_step``, its EMA). With a model axis the
+    PUNetG, the VAE and the EMA are split as their trainers split them
+    (``trainer_auto.split_module`` at the case's ``min_size``; the FFN and
+    the DeepONet stay whole, replicated). Returns the first step's scores,
+    network output (gathered) and gradients (averaged over the ranks), the
+    parameters after the last step, all in the one-process layout; each
+    micro-step's GenCast norm; this rank's parameter and optimizer-state
+    elements against the whole model's. With ``case["perturb"]`` each model
+    rank's gradients of the whole parameters are off by its own rounding,
+    and the optimizer's state comes back too (``moments``, one-process
+    layout)."""
+    from cfdbench_tpu_torch.training import (
+        checkpoints, trainer_nonauto, trainer_uncond, trainer_vae)
     from cfdbench_tpu_torch.training.optim import make_adam, make_gencast_tx
-    from cfdbench_tpu_torch.training.trainer_auto import use_mesh
+    from cfdbench_tpu_torch.training.trainer_auto import split_module, use_mesh
 
     net, task = trainer_net(case)
     model = case["model"]
+    whole = sum(p.numel() for p in net.parameters())
+    split = ema = ema_split = None
+    if model not in ("ffn", "deeponet"):
+        with rules_at(case):
+            split = split_module(net, mesh)
     params = dict(net.named_parameters())
-    outputs, grads, scores = [], [], []
+    if case.get("perturb"):
+        # Each model rank's gradient of each whole parameter off by its own
+        # rank-dependent rounding (a few float32 ulps), as a kernel whose
+        # sums run in no fixed order leaves it on the card.
+        for n, p in params.items():
+            if split is None or split.layout.axes.get(n) is None:
+                p.register_hook(lambda g: g * (1 + 2.0 ** -20 * (1 + mesh.model.rank)))
+    outputs, grads, scores, norms = [], [], [], []
     hooked = net.decoder if model == "vae" else net  # the VAE's reconstruction
     hook = hooked.register_forward_hook(lambda m, i, o: outputs.append(o.detach()))
 
+    def std(named):
+        return named if split is None else split.layout.to_std(named)
+
     def averaged_grads():
         # GenCast's optimizer averages a flat copy; the test reads the average.
-        return {k: mesh.sum(p.grad.clone()) / mesh.size for k, p in params.items()}
+        return std({k: mesh.sum(p.grad.clone()) / mesh.size for k, p in params.items()})
 
     if model in ("ffn", "deeponet", "gencast"):
         use_mesh(task, mesh)
@@ -318,7 +354,7 @@ def trainer_step(case: dict, mesh):
     elif model == "gencast":
         opt = make_gencast_tx(net.parameters(), case["lr"], total_steps=len(case["batches"]),
                               warmup_steps=1, weight_decay=case["weight_decay"],
-                              grad_accum_steps=case["accum"], mesh=mesh)
+                              grad_accum_steps=case["accum"], mesh=mesh, split=split)
     elif model == "vae":
         opt = trainer_vae.make_optimizer(net, case["lr"], 0.0)
     else:
@@ -326,6 +362,8 @@ def trainer_step(case: dict, mesh):
                                 weight_decay=trainer_uncond.WEIGHT_DECAY)
         ema = make_uncond_unet(case)
         ema.load_state_dict(case["state"])
+        with rules_at(case):
+            ema_split = split_module(ema, mesh)
         sched = trainer_uncond.make_ddpm_scheduler(case["widths"]["timesteps"])
     try:
         with injected(case.get("draws")):
@@ -341,24 +379,33 @@ def trainer_step(case: dict, mesh):
                     loss.backward()
                     grads.append(averaged_grads())
                     opt.step()
+                    norms.append(float(opt.grad_norm))
                     s = {k: v.item() for k, v in s.items()}
                 elif model == "vae":
                     parts = trainer_vae.train_step(net, opt, b["frames"], b["weights"],
-                                                   case["kl_weight"], key, mesh)
+                                                   case["kl_weight"], key, mesh, split)
                     s = dict(zip(trainer_vae.PARTS, parts.tolist()))
-                    grads.append({k: p.grad.clone() for k, p in params.items()})
+                    grads.append(std({k: p.grad.clone() for k, p in params.items()}))
                 else:
                     loss = trainer_uncond.train_step(net, ema, opt, sched, b["x"], b["weights"],
-                                                     key, mesh)
+                                                     key, mesh, split)
                     s = dict(loss=float(loss))
-                    grads.append({k: p.grad.clone() for k, p in params.items()})
+                    grads.append(std({k: p.grad.clone() for k, p in params.items()}))
                 scores.append(s)
     finally:
         hook.remove()
+    opt_elems = sum(t.numel() for st in opt.state.values() for k, t in st.items()
+                    if torch.is_tensor(t) and t.dim() > 0 and k != "acc")
     result = dict(scores=scores[0], grads=grads[0], output=mesh.gather(outputs[0].float()),
-                  params={k: p.detach().clone() for k, p in params.items()})
+                  params=std({k: p.detach().clone() for k, p in params.items()}), norms=norms,
+                  local_params=sum(p.numel() for p in net.parameters()), whole_params=whole,
+                  opt_elems=opt_elems)
+    if case.get("perturb"):
+        result["moments"] = checkpoints.optimizer_to_std(
+            opt, None if split is None else split.layout)["state"]
     if model == "uncond":
-        result["ema"] = {k: p.detach().clone() for k, p in ema.named_parameters()}
+        named = {k: p.detach().clone() for k, p in ema.named_parameters()}
+        result["ema"] = named if ema_split is None else ema_split.layout.to_std(named)
     return result
 
 
@@ -376,6 +423,39 @@ def gate(case: dict, mesh):
         opt.step()
         history.append([p.detach().clone() for p in params])
     return history
+
+
+def tp_gate(case: dict, mesh):
+    """``GenCastAdamW`` on a stack of ``Dense`` layers split over
+    ``mesh``'s model axis (``split_module`` at the case's ``min_size``):
+    each step every rank sets, of the step's whole gradients
+    (``case["grads"][step]``, alike on every data rank), its slice of each
+    split parameter and the whole of the others. Returns the whole
+    parameters after each step, each step's global norm and the
+    optimizer's state in the one-process layout."""
+    from cfdbench_tpu_torch.models.common import Dense
+    from cfdbench_tpu_torch.training import checkpoints
+    from cfdbench_tpu_torch.training.optim import make_gencast_tx
+    from cfdbench_tpu_torch.training.trainer_auto import split_module
+
+    net = torch.nn.Sequential(*(Dense(i, o, generator=torch.Generator().manual_seed(0))
+                                for i, o in case["dims"]))
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in case["start"].items()})
+    with rules_at(case):
+        split = split_module(net, mesh)
+    opt = make_gencast_tx(net.parameters(), case["lr"], mesh=mesh, split=split, **case["kw"])
+    history, norms = [], []
+    for step_grads in case["grads"]:
+        whole = {k: torch.from_numpy(v) for k, v in step_grads.items()}
+        local = whole if split is None else split.layout.from_std(whole)
+        for k, p in net.named_parameters():
+            p.grad = local[k].clone()
+        opt.step()
+        norms.append(opt.grad_norm.item())
+        named = {k: p.detach().clone() for k, p in net.named_parameters()}
+        history.append(named if split is None else split.layout.to_std(named))
+    std = checkpoints.optimizer_to_std(opt, None if split is None else split.layout)
+    return dict(history=history, norms=norms, opt_state=std["state"][0])
 
 
 def returned_state(out):
@@ -444,8 +524,18 @@ def run(rank: int, world: int, root: str) -> None:
                                  for name, case in job["samples"].items()}
         elif job["kind"] == "trainer_steps":
             result = {name: trainer_step(case, mesh) for name, case in job["cases"].items()}
-            result["gate"] = gate(job["gate"], mesh)
+            if "gate" in job:
+                result["gate"] = gate(job["gate"], mesh)
+            if "tp_gate" in job:
+                result["tp_gate"] = tp_gate(job["tp_gate"], mesh)
         else:
+            # Module constants the test sets, each (module, name, value): the
+            # sharding rules' threshold for narrow test models, the DDPM's
+            # sampling interval.
+            import importlib
+
+            for module, name, value in job.get("constants", ()):
+                setattr(importlib.import_module(module), name, value)
             result = run_cli(job["calls"], job.get("init_state"), job.get("query_draws"))
         torch.save(result, root / f"rank{rank}.pt")
     finally:

@@ -182,9 +182,11 @@ def test_entry_points_take_the_flags_jax_applies(regime, argv):
                  id="main_gencast-flags4-main_gencast ignores it .ROADMAP.md C"),
     pytest.param("main_gencast", ["--measure_time", "1"], "main_gencast ignores it .ROADMAP.md C",
                  id="main_gencast-flags5-main_gencast ignores it .ROADMAP.md C"),
-    # A data axis is ported (tests/test_torch_parallel_trainers.py); a model axis
-    # is not. The case keeps its id.
-    pytest.param("main_gencast", ["--mesh_shape", "2x2"], "A15c", id="main_gencast-flags6-A15"),
+    # A data and a model axis are ported (tests/test_torch_parallel_trainers.py,
+    # tests/test_torch_tp_trainers*.py); pipeline parallelism stages the FNO in
+    # main_auto alone. The case keeps its id.
+    pytest.param("main_gencast", ["--mesh_shape", "2x2", "--pp_microbatches", "2"], "A15e",
+                 id="main_gencast-flags6-A15"),
     # The JAX main_multistep prints that a diffusion rollout runs float32.
     pytest.param("main_multistep", ["--model", "latent_diffusion_lite", "--rollout_dtype",
                                     "bfloat16"], "with --model latent_diffusion_lite.*ROADMAP.md C",

@@ -214,9 +214,11 @@ def test_save_checkpoint_best_is_lowest_dev_loss(tmp_path):
         pytest.param(["--rollout_dtype", "bfloat16", "--use_pallas_head", "1"],
                      "ROADMAP.md C", id="flags0-A6b"),
         (["--spectral_backend", "fft"], "A17"),
-        # The autoregressive rollout splits a model axis (tests/test_torch_tp.py);
-        # GenCast's does not. The case keeps its id.
-        pytest.param(["--model", "gencast", "--mesh_shape", "2x4"], "A15", id="flags2-A15"),
+        # The autoregressive and GenCast rollouts split a model axis
+        # (tests/test_torch_tp.py, tests/test_torch_tp_trainers_cli.py); the
+        # non-autoregressive one refuses any mesh. The case keeps its id.
+        pytest.param(["--model", "ffn", "--mesh_shape", "2x4"], "ROADMAP.md C",
+                     id="flags2-A15"),
         (["--compilation_cache_dir", "cache"], "A17"),
         (["--matmul_precision", "high"], "A17"),
         (["--profile_dir", "trace"], "A7"),

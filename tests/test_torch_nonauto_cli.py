@@ -171,9 +171,10 @@ def test_main_train_needs_a_card_unless_told_cpu(port_tree, tmp_path, monkeypatc
     (["--cache_dir", "cache"], "main_train ignores it .ROADMAP.md C"),
     (["--pp_microbatches", "2"], "A15"),
     (["--shard_spatial", "1"], "A15"),
-    # A data axis is ported (tests/test_torch_parallel_trainers.py); a model
-    # axis is not. The case keeps its id.
-    pytest.param(["--mesh_shape", "2x2"], "A15c", id="flags8-A15"),
+    # A data axis and a replicated model axis are ported
+    # (tests/test_torch_parallel_trainers.py, tests/test_torch_tp_trainers_cli.py);
+    # pipeline parallelism over that axis is not. The case keeps its id.
+    pytest.param(["--mesh_shape", "2x2", "--pp_microbatches", "2"], "A15e", id="flags8-A15"),
     (["--profile_dir", "trace"], "A7"),
     # The latent models are ported (main_auto trains them); the case keeps its id.
     pytest.param(["--matmul_precision", "high"], "A17", id="flags10-A13"),

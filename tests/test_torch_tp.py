@@ -11,14 +11,18 @@ one device from the same weights (the port's flax loader).
 - One Adam step of the small FNO (depth 4, width 8, 4 modes, 16x16, B=8;
   the rules' ``min_size`` 1024 as JAX's tests take it, so that the
   spectral weights and fc1 split) at ``1x2`` and ``2x2``: loss rel 1e-5,
-  parameters 1e-5; each rank holds its slices. The U-Net's loss and
+  parameters 1e-5; each rank holds its slices; the same with fc2 split
+  too (``min_size`` 256), whose gathered weight each rank's row-parallel
+  head uses in part. The U-Net's loss and
   gradients (its parameters gathered at use). Adafactor at width 128 under
   ``1x2`` against JAX's factored update.
 - ``main_multistep --mesh_shape 1x2`` against one process, rel 1e-4;
   ``--resume`` across meshes (``1x2`` → one process → ``1x2``), the
   checkpoints in the one-process layout.
-- The refusals: a model axis in the four other trainers and in GenCast's
-  rollout (ROADMAP.md A15c2), a mesh that does not fill the world.
+- The refusals: what a model axis in each other entry point is still
+  refused with (pipeline parallelism outside ``main_auto``, a flag the
+  JAX entry point ignores, the non-autoregressive rollout's mesh), a mesh
+  that does not fill the world.
 - Both CUDA kernels at the shapes a model rank gives them (the block's
   ``Cout`` 16 and 8 of 32 channels, the head's 64 and 32 of 128 hidden
   units with a partial ``b2``), through their CPU emulation, against their
@@ -175,6 +179,9 @@ def tp_cases():
         # Width 128: the spectral weights, w0 and fc1 factor and split (the
         # JAX rules' own min_size).
         "adafactor": dict(model="fno", widths=WIDE_WIDTHS, opt_state="factored"),
+        # fc2 split too (its 128x2 kernel at min_size 256): each rank's
+        # row-parallel head uses its columns of the gathered fc2.
+        "fno_fc2": dict(model="fno", widths=FNO_WIDTHS, min_size=256),
     }
     for case in cases.values():
         model = worker.make_task(case["model"], case["widths"]).model
@@ -192,7 +199,7 @@ def tp_steps(tmp_path_factory):
     ranks = {"1x2": worker.spawn(dict(kind="split_steps", mesh="1x2", cases=cases),
                                  root / "1x2"),
              "2x2": worker.spawn(dict(kind="split_steps", mesh="2x2",
-                                      cases={k: cases[k] for k in ("fno", "unet")}),
+                                      cases={k: cases[k] for k in ("fno", "unet", "fno_fc2")}),
                                  root / "2x2", world=4)}
     return cases, ranks, {name: jax_step(case) for name, case in cases.items()
                           if not case.get("perturb")}
@@ -226,6 +233,18 @@ def test_fno_tp_step_matches_jax(tp_steps, mesh):
         assert got["local_params"] == got["whole_params"] - split_elems + split_elems // M
         assert got["opt_bytes"] == 2 * 4 * got["local_params"]
         assert got["preds"].shape == (8, 16, 16, 2)
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+def test_fno_tp_step_with_a_split_fc2_matches_jax(tp_steps, mesh):
+    """fc2 split over the model ranks as well (a head of many outputs): its
+    gathered weight's gradient, of which each rank's row-parallel head
+    computes its columns' part, summed over the model ranks before each
+    rank keeps its rows. One Adam step against JAX's."""
+    _, ranks, jax_results = tp_steps
+    for r, result in enumerate(ranks[mesh]):
+        assert_step(result["fno_fc2"], jax_results["fno_fc2"], (mesh, r))
+        assert result["fno_fc2"]["local_params"] < result["fno"]["local_params"]
 
 
 @pytest.mark.parametrize("mesh", ["1x2", "2x2"])
@@ -333,13 +352,23 @@ def test_resume_across_meshes(mesh_runs, first):
 
 # --- refusals -------------------------------------------------------------------
 
-@pytest.mark.parametrize("entry,flags", [
-    ("main_train", ["--model", "ffn"]), ("main_gencast", []), ("main_vae", ["--mode", "train"]),
-    ("main_uncond", []), ("main_multistep", ["--model", "gencast"])])
-def test_model_axis_refused_by_name(tmp_path, entry, flags):
+# Each entry point takes a model axis (tests/test_torch_tp_trainers*.py,
+# tests/test_torch_tp_vae_bf16.py); each case, keeping its id, now pins what
+# one is still refused with there: the one table of these refusals.
+@pytest.mark.parametrize("entry,flags,error", [
+    pytest.param("main_train", ["--model", "ffn", "--pp_microbatches", "2"], "A15e",
+                 id="main_train-flags0"),
+    pytest.param("main_gencast", ["--pp_microbatches", "2"], "A15e", id="main_gencast-flags1"),
+    pytest.param("main_vae", ["--mode", "train", "--shard_spatial", "1"], "main_vae ignores it",
+                 id="main_vae-flags2"),
+    pytest.param("main_uncond", ["--shard_spatial", "1"], "train_diffusion_uncond.py ignores it",
+                 id="main_uncond-flags3"),
+    pytest.param("main_multistep", ["--model", "deeponet"], "ignores the mesh",
+                 id="main_multistep-flags4")])
+def test_model_axis_refused_by_name(tmp_path, entry, flags, error):
     argv = ["--data_dir", str(tmp_path / "data"), "--output_dir", str(tmp_path / "out"),
             "--mesh_shape", "1x2"] + flags
-    with pytest.raises(NotImplementedError, match="A15c2"):
+    with pytest.raises(NotImplementedError, match=error):
         getattr(cli, entry)(argv, device="cpu")
     assert not (tmp_path / "out").exists()
 

@@ -469,13 +469,13 @@ def test_saved_state_holds_detached_host_copies(tmp_path):
         # --use_mixed_precision and --opt_state_dtype factored are ported
         # (tests/test_torch_mixed_precision.py, test_torch_adafactor.py);
         # the other cases keep their ids.
-        # A model axis and --pp_microbatches are ported (tests/test_torch_tp.py,
-        # test_torch_pp.py); spatial sharding and a bfloat16 forward over a
-        # model axis are not. The cases keep their ids.
+        # A model axis, --pp_microbatches and a bfloat16 forward over a model
+        # axis are ported (tests/test_torch_tp.py, test_torch_pp.py,
+        # test_torch_tp_vae_bf16.py), and the case that pinned the last went
+        # with its refusal; spatial sharding is not. The cases keep their ids.
         pytest.param(["--pp_microbatches", "2", "--shard_spatial", "1"], "A15",
                      id="flags2-A15"),
         pytest.param(["--shard_spatial", "1"], "A15", id="flags3-A15"),
-        pytest.param(["--mesh_shape", "2x4", "--use_mixed_precision"], "A15", id="flags4-A15"),
         pytest.param(["--gradient_accumulation_steps", "4"], "ROADMAP.md C",
                      id="flags5-ROADMAP.md C"),
         pytest.param(["--use_gradient_checkpointing"], "ROADMAP.md C",
