@@ -6,6 +6,9 @@ DDPM scheduler and a loss, behind the interface the trainers drive
 (``training/trainer_auto.py``): ``loss_scores(batch, key)`` (the
 noise-prediction scores), ``predict_frame`` (a frame by full DDPM
 sampling), ``feedback_channels``, ``step_draws`` and ``generative``.
+``predict_frame(..., noise=)`` takes the sampler's noise, of
+``noise_shape(frame_shape)``, in place of the draws from its key: the
+serving export makes it an input of the program (``utils/export.py``).
 
 - :class:`PixelDiffusionCfdModel` (``src/models/pixel_diffusion.py``):
   DDPM on the target frame. The reference's quirk stays: the frame never
@@ -33,9 +36,10 @@ None is evaluation, drawn from ``EVAL_KEY`` without dropout, as the JAX package
 uses ``PRNGKey(0)`` when ``rng`` is None. The noise and timesteps come
 from :func:`train_noise_and_t`, the dropout masks from
 ``punetg.dropout_keep_masks``, the sampler's noise from
-``ops.diffusion.ddpm_noise``, a latent model's posterior sample from
-``vae.posterior_noise``: module-level functions, so a test can put JAX's
-draws in their place (``utils/rng.py``). A latent model's loss splits its
+``ops.diffusion.ddpm_noise`` (stacked by ``sampler_noise``), a latent
+model's posterior sample from ``vae.posterior_noise``: module-level
+functions, so a test can put JAX's draws in their place
+(``utils/rng.py``). A latent model's loss splits its
 key in two (``latent_keys``), as JAX's ``rng, vkey = split(rng)``. With
 ``use_gradient_checkpointing`` the network's forward is recomputed in the
 backward (``torch.utils.checkpoint``; the JAX package's
@@ -159,10 +163,23 @@ class _DiffusionTask:
         scores = self.loss_fn(eps, noise, sample_weights=batch.get("weights"))
         return scores[self.loss_fn.objective], scores
 
-    def _sample(self, denoise, like: torch.Tensor, key: Key) -> torch.Tensor:
-        B, H, W = like.shape[:3]
-        return ddpm_sample(self.scheduler, denoise, (B, H, W, self.out_chan), key,
-                           self.num_inference_steps, like.device, self.mesh)
+    def sample_shape(self, frame_shape) -> Tuple[int, ...]:
+        """The shape the sampler draws for a frame of ``frame_shape``."""
+        B, H, W = frame_shape[:3]
+        return B, H, W, self.out_chan
+
+    def noise_shape(self, frame_shape) -> Tuple[int, ...]:
+        """``(num_inference_steps + 1, *sample_shape)``: the sampler's noise
+        for a frame of ``frame_shape`` (``ops.diffusion.ddpm_sample``)."""
+        return (self.num_inference_steps + 1, *self.sample_shape(frame_shape))
+
+    def _sample(self, denoise, like: torch.Tensor, key: Key, operands, noise=None) -> torch.Tensor:
+        """``ddpm_sample`` of ``denoise(x, t, *operands)`` (which reads no
+        tensor but ``self.model``'s and ``operands``) for a frame like
+        ``like``."""
+        return ddpm_sample(self.scheduler, denoise, self.sample_shape(like.shape), key,
+                           self.num_inference_steps, like.device, self.mesh, noise, operands,
+                           self.model)
 
 
 class PixelDiffusionCfdModel(_DiffusionTask):
@@ -177,10 +194,11 @@ class PixelDiffusionCfdModel(_DiffusionTask):
     def loss_scores(self, batch, key: Optional[Key] = None):
         return self._noise_scores(batch["labels"][..., :self.out_chan], batch, key)
 
-    def predict_frame(self, inputs, case_params, mask, key: Key = EVAL_KEY):
-        """The next frame by full DDPM sampling from noise (it never reads
-        ``inputs`` but for its shape), masked."""
-        frame = self._sample(lambda x, t: self.model(x, t, case_params), inputs, key)
+    def predict_frame(self, inputs, case_params, mask, key: Key = EVAL_KEY, noise=None):
+        """The next frame by full DDPM sampling from noise (``noise``, else
+        drawn from ``key``; it never reads ``inputs`` but for its shape),
+        masked."""
+        frame = self._sample(self.model, inputs, key, (case_params,), noise)
         return frame if mask is None else frame * mask
 
 
@@ -214,10 +232,11 @@ class GenCastCfdModel(_DiffusionTask):
     def generate(self, inputs, inputs_prev, case_params, mask, key: Key = EVAL_KEY):
         """X_t from X_{t−1} (``inputs``) and X_{t−2}: the denoised residual,
         de-normalised, added to X_{t−1}, masked."""
-        def denoise(x, t):
+        def denoise(x, t, inputs, inputs_prev, case_params):
             return self.model(torch.cat([x, inputs, inputs_prev], dim=-1), t, case_params)
 
-        residual = self._sample(denoise, inputs, key) * self.residual_std + self.residual_mean
+        residual = (self._sample(denoise, inputs, key, (inputs, inputs_prev, case_params))
+                    * self.residual_std + self.residual_mean)
         nxt = inputs + residual
         return nxt if mask is None else nxt * mask
 
@@ -337,17 +356,20 @@ class _LatentTask(_DiffusionTask):
         scores = self.loss_fn(eps, noise, sample_weights=batch.get("weights"))
         return scores[self.loss_fn.objective], scores
 
-    def predict_frame(self, inputs, case_params, mask, key: Key = EVAL_KEY):
-        """The next frame: latents by full DDPM sampling, decoded
-        ÷ ``scaling_factor``, cropped to the grid, masked."""
+    def sample_shape(self, frame_shape) -> Tuple[int, ...]:
+        """The latents of the frame's grid padded to multiples of
+        ``VAE_FACTOR``."""
+        B, H, W = frame_shape[:3]
+        return self.vae.latent_shape((B, H + (-H) % VAE_FACTOR, W + (-W) % VAE_FACTOR))
+
+    def predict_frame(self, inputs, case_params, mask, key: Key = EVAL_KEY, noise=None):
+        """The next frame: latents by full DDPM sampling (from ``noise``,
+        else drawn from ``key``), decoded ÷ ``scaling_factor``, cropped to
+        the grid, masked."""
         H, W = inputs.shape[1:3]
-        with torch.inference_mode():
+        with torch.no_grad():
             cond = self.condition(inputs, case_params)
-            lat_shape = self.vae.latent_shape(pad_field(inputs[..., :self.out_chan]).shape)
-            latents = ddpm_sample(self.scheduler,
-                                  lambda x, t: self.denoise(x, t, case_params, cond),
-                                  lat_shape, key, self.num_inference_steps, inputs.device,
-                                  self.mesh)
+            latents = self._sample(self.denoise, inputs, key, (case_params, cond), noise)
             frame = self.vae.decode(latents / self.scaling_factor)[:, :H, :W]
         return frame if mask is None else frame * mask
 

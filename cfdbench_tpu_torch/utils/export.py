@@ -13,6 +13,23 @@ a ``torch.export`` program (port of ``cfdbench_tpu/utils/export.py``).
   ResNet too.
 - :func:`load_exported` — the artifact as a callable.
 
+The diffusion models (``pixel_diffusion`` and the latent models) serve
+their DDPM sampler inside the program as one loop operator
+(``torch.ops.higher_order.scan``, ``ops.diffusion.scan_loop``): the
+graph holds the denoise step once, whatever the number of inference
+steps, and the export raises rather than unroll it. The sampler's noise
+is the program's fourth input, ``(S + 1, *sample)`` for a predict and
+``(steps, S + 1, *sample)`` for a rollout (``task.noise_shape``), since
+``torch.export`` does not trace the keyed ``torch.Generator`` draws
+(``utils/rng.py``). The artifact records its sampler (``SAMPLER_RECORD``);
+served without noise it draws on its device what the in-process call
+draws: a predict from ``EVAL_KEY``, rollout step i from ``rollout_key(0,
+i, steps)``, fresh noise each step as ``main_multistep`` draws it (the
+JAX artifact's rollout repeats its ``PRNGKey(0)`` draws every step,
+ROADMAP.md C). A latent model's frozen VAE rides in the artifact beside
+its networks. GenCast, which has no ``predict_frame`` in either package,
+and a task on a mesh are refused by name.
+
 The program is traced with the model in eval mode (the U-Net's BatchNorm
 reads its running statistics, which ride along as buffers) under
 ``torch.no_grad`` and written with ``torch.export.save`` to a ``.pt2``
@@ -28,13 +45,12 @@ checkpoint.
 
 An artifact runs on the device it was exported for, which it records;
 loading it for another device, or calling it on tensors that lie
-elsewhere, raises. Nothing is moved. The diffusion models are refused:
-their noise comes from keyed ``torch.Generator`` draws (``utils/rng.py``),
-which ``torch.export`` does not trace (ROADMAP.md A14b).
+elsewhere, raises. Nothing is moved.
 """
 
 from __future__ import annotations
 
+import json
 import zipfile
 from pathlib import Path
 
@@ -42,27 +58,53 @@ import torch
 from torch import nn
 
 from ..ops import fno_kernels  # noqa: F401  (registers the kernels' operators)
+from ..ops.diffusion import sampler_noise, scan_loop
+from ..parallel.mesh import SINGLE
 from ..training.rollout import unroll
 from .device import require_cuda
+from .rng import EVAL_KEY, rollout_key
 
 DEVICE_RECORD = "device"  # the artifact's extra file that names its device
+# A sampler artifact's extra file: its inference steps, its noise input's
+# shape and kind ("predict" or "rollout").
+SAMPLER_RECORD = "sampler"
 
 
 class _Served(nn.Module):
     """``task.predict_frame`` or, with ``steps``, its self-fed rollout, as
-    a module whose parameters and buffers are the model's."""
+    a module whose parameters and buffers are the model's (and a latent
+    model's frozen VAE); a diffusion model's takes its sampler's noise,
+    step i of a rollout its slice."""
 
     def __init__(self, task, steps=None):
         super().__init__()
         self.model = task.model
+        if getattr(task, "generative", False):
+            self.scheduler = task.scheduler  # its buffers: the sampler's step tables
+            task.scheduler.step_tables(task.num_inference_steps,
+                                       next(task.model.parameters()).device)
+        if getattr(task, "vae", None) is not None:
+            self.vae = task.vae
         self.predict = task.predict_frame
         self.steps = steps
 
-    def forward(self, frame, case_params, mask):
+    def forward(self, frame, case_params, mask, noise=None):
+        if noise is None:
+            if self.steps is None:
+                return self.predict(frame, case_params, mask)
+            return unroll(lambda f, c, m, i: self.predict(f, c, m), frame, case_params, mask,
+                          self.steps)
         if self.steps is None:
-            return self.predict(frame, case_params, mask)
-        return unroll(lambda f, c, m, i: self.predict(f, c, m), frame, case_params, mask,
-                      self.steps)
+            return self.predict(frame, case_params, mask, noise=noise)
+
+        # A sampler's rollout is a loop over the frames, step i taking its
+        # slice of the noise, whose body holds the sampler's loop: one trace
+        # of the step, however many frames.
+        def step(f, noise_i, c, m):
+            f = self.predict(f, c, m, noise=noise_i).to(frame.dtype).contiguous()
+            return f, f.clone()
+
+        return scan_loop(step, frame, (noise,), self, (case_params, mask))[1]
 
 
 def _device(device) -> torch.device:
@@ -75,13 +117,36 @@ def _device(device) -> torch.device:
     return device
 
 
+def graph_stats(program) -> dict:
+    """``nodes``: the nodes of a program's graph and of the graphs its
+    loop operators hold; ``loops``: its loop operators (``scan``) at each
+    depth, ``[1]`` for a sampler, ``[1, 1]`` for a sampler's rollout (a
+    loop over the frames that holds the sampler's), ``[]`` for the rest."""
+    stats = dict(nodes=0, loops=[])
+
+    def walk(module, depth):
+        for node in module.graph.nodes:
+            stats["nodes"] += 1
+            if node.op == "call_function" and node.target is torch.ops.higher_order.scan:
+                stats["loops"] += [0] * (depth + 1 - len(stats["loops"]))
+                stats["loops"][depth] += 1
+                walk(getattr(module, node.args[0].target), depth + 1)
+
+    walk(program.graph_module, 0)
+    return stats
+
+
 def _export(task, path: Path, batch: int, height: int, width: int, n_case_params: int,
             channels: int, steps, device) -> int:
-    if getattr(task, "generative", False):
-        raise NotImplementedError(
-            f"{type(task).__name__}: a diffusion model's export is not ported; its noise "
-            "comes from keyed torch.Generator draws, which torch.export does not trace "
-            "(ROADMAP.md A14b)")
+    if not hasattr(task, "predict_frame"):
+        raise ValueError(f"{type(task).__name__} has no predict_frame (GenCast generates from "
+                         "two frames), so it has no export, in the JAX package either "
+                         "(ROADMAP.md C)")
+    ranks = getattr(task, "mesh", SINGLE).world_size
+    if ranks > 1:
+        raise ValueError(f"{type(task).__name__} runs on a mesh of {ranks} ranks: an exported "
+                         "program is one device's, as the JAX package declares its trace "
+                         "single-device; export a task without use_mesh")
     device = _device(device)
     model = task.model
     elsewhere = {str(t.device) for t in [*model.parameters(), *model.buffers()]} - {str(device)}
@@ -92,16 +157,39 @@ def _export(task, path: Path, batch: int, height: int, width: int, n_case_params
     args = (torch.zeros((*shape, channels), device=device),
             torch.zeros((batch, n_case_params), device=device),
             torch.ones((*shape, 1), device=device))
+    extra = {DEVICE_RECORD: str(device)}
+    sampler = getattr(task, "generative", False)
+    if sampler:
+        noise_shape = task.noise_shape(args[0].shape)
+        if steps is not None:
+            noise_shape = (steps, *noise_shape)
+        args += (torch.zeros(noise_shape, device=device),)
+        extra[SAMPLER_RECORD] = json.dumps(dict(
+            kind="predict" if steps is None else "rollout", steps=task.num_inference_steps,
+            noise_shape=noise_shape))
     was_training = model.training
     model.eval()
     try:
         with torch.no_grad():
             program = torch.export.export(_Served(task, steps), args, strict=False)
+    except Exception as e:
+        if not sampler:
+            raise
+        raise RuntimeError(f"{type(task).__name__}: the export of its DDPM sampler as one loop "
+                           f"operator (torch.ops.higher_order.scan) failed on torch "
+                           f"{torch.__version__}, as the cause says; the sampler is never "
+                           "unrolled instead") from e
     finally:
         model.train(was_training)
+    loops = graph_stats(program)["loops"]
+    want = ([1] if steps is None else [1, 1]) if sampler else []
+    if loops != want:
+        raise RuntimeError(f"{type(task).__name__}: the exported graph holds loop operators "
+                           f"{loops} by depth, not {want}")
+    program.example_inputs = None  # zeros of the inputs' shapes: no part of the artifact
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.export.save(program, path, extra_files={DEVICE_RECORD: str(device)})
+    torch.export.save(program, path, extra_files=extra)
     return path.stat().st_size
 
 
@@ -130,41 +218,73 @@ def export_rollout(task, path: Path, batch: int, height: int, width: int,
                    steps, device)
 
 
-def artifact_device(path: Path) -> torch.device:
-    """The device an artifact was exported for, read without loading it."""
+def _extra_file(path: Path, name: str):
+    """An extra file of an artifact, read without loading it; None when
+    it has none of that name."""
     with zipfile.ZipFile(path) as archive:
         # torch.export.save keeps extra files under extra/ (extra_files/ in
         # older releases).
         names = [n for n in archive.namelist()
-                 if n.split("/")[-2:] in (["extra", DEVICE_RECORD], ["extra_files", DEVICE_RECORD])]
-        if not names:
-            raise ValueError(f"{path} records no device: it was not written by "
-                             "export_predict or export_rollout")
-        return torch.device(archive.read(names[0]).decode())
+                 if n.split("/")[-2:] in (["extra", name], ["extra_files", name])]
+        return archive.read(names[0]).decode() if names else None
+
+
+def artifact_device(path: Path) -> torch.device:
+    """The device an artifact was exported for, read without loading it."""
+    device = _extra_file(path, DEVICE_RECORD)
+    if device is None:
+        raise ValueError(f"{path} records no device: it was not written by "
+                         "export_predict or export_rollout")
+    return torch.device(device)
 
 
 class ServedProgram:
-    """A loaded artifact: ``served(frame, case_params, mask)`` runs it.
-    ``program`` is the ``ExportedProgram`` (its graph, its inputs'
-    shapes), ``device`` the device it runs on."""
+    """A loaded artifact: ``served(frame, case_params, mask)`` runs it, a
+    sampler artifact's with ``noise=`` too. ``program`` is the
+    ``ExportedProgram`` (its graph, its inputs' shapes), ``device`` the
+    device it runs on, ``sampler`` a sampler artifact's record (None for
+    the others)."""
 
-    def __init__(self, program, device: torch.device):
-        self.program, self.device = program, device
+    def __init__(self, program, device: torch.device, sampler=None):
+        self.program, self.device, self.sampler = program, device, sampler
         self.module = program.module()
 
     @property
     def input_shapes(self):
-        """The shapes of ``(frame, case_params, mask)``."""
+        """The shapes of ``(frame, case_params, mask)``, and of a sampler
+        artifact's noise."""
         user = set(self.program.graph_signature.user_inputs)
         return [tuple(n.meta["val"].shape) for n in self.program.graph.nodes
                 if n.op == "placeholder" and n.name in user]
 
-    def __call__(self, frame, case_params, mask):
-        for name, t in (("frame", frame), ("case_params", case_params), ("mask", mask)):
+    def draw_noise(self) -> torch.Tensor:
+        """The noise the in-process call draws: a predict's from
+        ``EVAL_KEY``, rollout step i's from ``rollout_key(0, i, steps)``."""
+        s = self.sampler
+        if s["kind"] == "predict":
+            return sampler_noise(EVAL_KEY, s["steps"], s["noise_shape"][1:], self.device)
+        steps, _, *shape = s["noise_shape"]
+        return torch.stack([sampler_noise(rollout_key(0, i, steps), s["steps"], shape,
+                                          self.device) for i in range(steps)])
+
+    def __call__(self, frame, case_params, mask, noise=None):
+        if self.sampler is None:
+            if noise is not None:
+                raise ValueError("this artifact has no sampler: it takes no noise")
+            args = (frame, case_params, mask)
+        else:
+            want = tuple(self.sampler["noise_shape"])
+            if noise is None:
+                noise = self.draw_noise()
+            elif tuple(noise.shape) != want:
+                raise ValueError(f"noise is {tuple(noise.shape)}; the artifact's sampler takes "
+                                 f"{want}")
+            args = (frame, case_params, mask, noise)
+        for name, t in zip(("frame", "case_params", "mask", "noise"), args):
             if t.device != self.device:
                 raise ValueError(f"{name} is on {t.device}; the artifact runs on {self.device}, "
                                  "where it was exported")
-        return self.module(frame, case_params, mask)
+        return self.module(*args)
 
 
 def load_exported(path: Path, device=None) -> ServedProgram:
@@ -179,4 +299,6 @@ def load_exported(path: Path, device=None) -> ServedProgram:
                              f"not on {want}")
     if exported_for.type == "cuda":
         require_cuda()
-    return ServedProgram(torch.export.load(path), exported_for)
+    sampler = _extra_file(path, SAMPLER_RECORD)
+    return ServedProgram(torch.export.load(path), exported_for,
+                         None if sampler is None else json.loads(sampler))

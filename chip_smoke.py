@@ -118,7 +118,17 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    at its default width, batch 128, 64x64, 20 steps: served and in-process
    ms a call (host wall time to a synchronize, and CUDA-event time),
    frames/s, the served overhead; the served outputs at (b)'s bounds and
-   the FNO's launches a served call as in (b).
+   the FNO's launches a served call as in (b). (d) ``serve_bench_torch.py
+   --selftest`` for pixel diffusion and latent_diffusion2 at their default
+   widths (50 denoising steps; the latent model on a seeded lite VAE),
+   64x64: predict at b8 and b32, the 20-step rollout at b8. Each served
+   call without noise (it draws what the in-process call draws) within
+   1e-5 of max |frame| of the in-process one; the predict's graph holds
+   the sampler as one loop operator, the rollout's one loop over the
+   frames that holds it; no FNO kernel. Printed: export seconds, artifact
+   and weights bytes, graph nodes, served and in-process ms a call (host
+   wall time to a synchronize, and CUDA-event time) on noise drawn before
+   the call, frames/s, and the noise draw's ms apart.
 
 12. Mixed precision, Adafactor and the bfloat16 rollout. (a) On the
    phase-6 tree, ``main_auto --use_mixed_precision 1 --mode train_test``
@@ -234,7 +244,8 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
 ``launches`` in the kernels' record is phase 3's count (main_multistep),
 ``launches_by_path`` each main path's own: main_multistep's and
 main_auto's, one served predict call's and one served rollout's
-(phase 11b), main_auto's with ``--use_mixed_precision`` and
+(phase 11b), each served diffusion path's (phase 11d:
+``serve_<model>_<kind>_b<B>``, 0), main_auto's with ``--use_mixed_precision`` and
 main_multistep's with ``--rollout_dtype bfloat16`` (phase 12), and each
 rank's main_auto, main_multistep, main_train, main_gencast, main_vae and
 main_uncond under data parallelism (phase 13: ``dp_torchrun_*``,
@@ -334,6 +345,13 @@ SERVE_IMPORT_RTOL = 1e-6
 SERVE_FNO_RTOL = 1e-6  # max abs diff over max |out|
 SERVE_UNET_RTOL = 1e-5
 SERVE_ITERS = 12
+# Phase 11d: the served diffusion models at their default widths, predict at
+# GEN_BATCHES (SERVE_DIFFUSION_ITERS timed calls after a warm-up) and the
+# 20-step rollout at the first (one call each way, timed, no warm-up: the
+# predict at that batch warmed its shapes); served against in process at
+# SERVE_UNET_RTOL.
+SERVE_DIFFUSION = ("pixel_diffusion", "latent_diffusion2")
+SERVE_DIFFUSION_ITERS = 2
 # Phase 12: mixed precision, Adafactor, the bfloat16 rollout.
 MP_MODELS = ("fno", "unet", "ffno", "pixel_diffusion")
 BF16_ROLLOUT = ("fno", "unet", "ffno")
@@ -2040,6 +2058,50 @@ def serving(device, card):
     return fno["predict"]["launches"], fno["rollout"]["launches"]
 
 
+def serving_diffusion(card):
+    """Phase 11d: ``serve_bench_torch.py --selftest`` for each of
+    SERVE_DIFFUSION at its default widths: each served call within
+    SERVE_UNET_RTOL of max |frame| of the in-process one, the sampler one
+    loop operator in the predict's graph and one inside the rollout's
+    loop over the frames, no FNO kernel launched. Returns each path's
+    launches a served call (0) and the timings."""
+    bench = load_script("serve_bench_torch")
+    launches, timing = {}, {}
+    runs = [(B, "predict", SERVE_DIFFUSION_ITERS, 1) for B in GEN_BATCHES]
+    runs.append((GEN_BATCHES[0], "rollout", 1, 0))
+    for model in SERVE_DIFFUSION:
+        for B, kind, iters, warmup in runs:
+            r = bench.main(["--selftest", "--model", model, "--batch", str(B), "--grid", str(GRID),
+                            "--steps", str(STEPS), "--only", kind, "--iters", str(iters),
+                            "--warmup", str(warmup)])["selftest"][kind]
+            path = f"serve_{model}_{kind}_b{B}"
+            launches[path], timing[path] = r["launches_per_call"], r
+            loops = [1] if kind == "predict" else [1, 1]
+            frames = (B,) if kind == "predict" else (STEPS, B)
+            if (any(r["launches_per_call"].values()) or r["loops"] != loops
+                    or tuple(r["out_shape"][:-3]) != frames
+                    or not r["max_abs_diff_vs_in_process"] <= SERVE_UNET_RTOL * r["max_abs_out"]):
+                raise RuntimeError(f"served {model} {kind} b{B}: launches "
+                                   f"{r['launches_per_call']}, loops {r['loops']} (expected "
+                                   f"{loops}), out {r['out_shape']}, served vs in process "
+                                   f"{r['max_abs_diff_vs_in_process']:.3e} (max |out| "
+                                   f"{r['max_abs_out']:.3e}, bound {SERVE_UNET_RTOL:.0e})")
+            print(f"[time] [{card}] served {model} {kind} b{B} {GRID}x{GRID}"
+                  f"{f' x {STEPS} steps' if kind == 'rollout' else ''}, 50 denoising steps: "
+                  f"export {r['export_s']:.2f} s, artifact {r['bytes']} bytes (weights "
+                  f"{r['weights_bytes']} bytes), graph {r['nodes']} nodes, loops by depth "
+                  f"{r['loops']}; served {r['latency_ms_per_call']:.3f} ms a call (device "
+                  f"{r['device_ms_per_call']:.3f} ms), in process {r['in_process_ms_per_call']:.3f}"
+                  f" ms (device {r['in_process_device_ms_per_call']:.3f} ms); "
+                  f"{r['frames_per_sec']:.2f} frames/s served; noise draw "
+                  f"{r['noise_draw_ms']:.3f} ms (device {r['noise_draw_device_ms']:.3f} ms); "
+                  f"served vs in process max abs diff {r['max_abs_diff_vs_in_process']:.3e} "
+                  f"(max |out| {r['max_abs_out']:.3e}, bound {SERVE_UNET_RTOL:.0e}); FNO "
+                  f"launches a served call {r['launches_per_call']}")
+    print(f"[serve] [{card}] diffusion " + json.dumps(timing))
+    return launches
+
+
 def phase12_argv(name: str, output_dir: Path, width: int = WIDTH):
     """``name``'s flags on the phase-6 tree: the flagship FNO's widths (or
     ``width``), the others' defaults; the generative models sample with
@@ -3444,6 +3506,9 @@ def main() -> int:
     phase10_times = phase10_timing(device, card)
     print(f"[phase10] [{card}] " + json.dumps({"quality": phase10, "timing": phase10_times}))
     serve_predict, serve_rollout = serving(device, card)
+    t11d = time.perf_counter()
+    serve_diffusion = serving_diffusion(card)
+    print(f"[phase11d] [{card}] {time.perf_counter() - t11d:.1f} s")
     mp_counts, bf16_counts = phase12_paths()
     phase12_card_vs_cpu(device)
     phase12_times = phase12_timing(device, card)
@@ -3465,7 +3530,8 @@ def main() -> int:
                                                "seconds": time.perf_counter() - t14}))
     print(f"[main] launches on the main paths: main_multistep {counts}, "
           f"main_auto {train_counts}, one served predict call {serve_predict}, one served "
-          f"rollout {serve_rollout}, main_auto --use_mixed_precision {mp_counts}, "
+          f"rollout {serve_rollout}, served diffusion {serve_diffusion}, "
+          f"main_auto --use_mixed_precision {mp_counts}, "
           f"main_multistep --rollout_dtype bfloat16 {bf16_counts}, per rank under data, "
           f"tensor and pipeline parallelism {dp_counts}")
     replaces = {"fno_block": "cfdbench_tpu/ops/pallas_fno.py:179",
@@ -3476,6 +3542,7 @@ def main() -> int:
          "launches_by_path": {"main_multistep": counts[name], "main_auto": train_counts[name],
                               "serve_predict": serve_predict[name],
                               "serve_rollout": serve_rollout[name],
+                              **{path: c[name] for path, c in serve_diffusion.items()},
                               "main_auto_mixed_precision": mp_counts[name],
                               "main_multistep_bf16": bf16_counts[name],
                               **{path: c[name] for path, c in dp_counts.items()}},

@@ -13,6 +13,16 @@ on the device they were exported on: the card, unless ``--device cpu``.
 An ``auto_deeponet_cnn`` run gets no ``rollout.pt2``: the model has no
 rollout (ROADMAP.md C).
 
+A diffusion run (``pixel_diffusion``, ``latent_diffusion``,
+``latent_diffusion2``, ``latent_diffusion_lite``) exports its DDPM
+sampler, ``--ldm_num_inference_steps`` or the pixel model's 50 steps, as
+one loop inside each artifact; a latent run's frozen VAE, read from
+``--ldm_vae_weights_path`` as ``main_auto`` reads it, rides along. Its
+artifacts take the sampler's noise as a fourth input, and draw it
+themselves when called without it, as ``main_multistep`` does at
+``--seed 0`` (``utils/export.py``). GenCast, trained by ``main_gencast``,
+has no ``predict_frame`` and no export, as in the JAX package.
+
 Usage mirrors the trainers:
     python scripts/export_model_torch.py --model fno \\
         --data_name cavity_prop_bc_geo --data_dir <root> \\
@@ -51,6 +61,10 @@ def main(argv=None) -> Path:
     ns, rest = pre.parse_known_args(argv)
     args = Args.parse_args(rest)
     check_supported(args)
+    if args.model == "gencast":
+        raise ValueError("--model gencast: GenCast generates from two frames and has no "
+                         "predict_frame, so it has no export, in the JAX package either "
+                         "(ROADMAP.md C)")
     device = require_cuda() if ns.device is None else torch.device(ns.device)
     set_f32_numerics()
     _, _, test_data = get_auto_dataset(

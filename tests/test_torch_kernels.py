@@ -324,3 +324,48 @@ def test_served_fno_launches_both_kernels_on_card(tmp_path, rng, cuda_device):
             assert fk.launch_counts() == {"fno_block": 2 * calls, "fno_head": calls}
             first = got if name == "p" else got[0]
             assert (first - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_served_pixel_diffusion_on_card(tmp_path, rng, cuda_device):
+    """Pixel diffusion (PUNetG base 8, 3 denoising steps) exported for the
+    card and served there without noise: its frame and 2-step rollout
+    within 1e-5 of max |out| of the in-process ones (cuDNN may choose
+    another algorithm for a traced convolution), the sampler one loop
+    operator, no FNO kernel launched; the artifact refuses the CPU."""
+    from cfdbench_tpu_torch.config import Args
+    from cfdbench_tpu_torch.models import init_pixel_diffusion
+    from cfdbench_tpu_torch.training.rollout import make_rollout_fn
+    from cfdbench_tpu_torch.utils.device import set_f32_numerics
+    from cfdbench_tpu_torch.utils.export import (
+        export_predict, export_rollout, graph_stats, load_exported,
+    )
+
+    set_f32_numerics()
+    B, H, W, steps = 2, 16, 16, 2
+    args = Args.parse_args(["--model", "pixel_diffusion", "--pixel_diffusion_base_channels", "8",
+                            "--pixel_diffusion_channel_mults", "1", "2",
+                            "--pixel_diffusion_num_res_blocks", "1"])
+    task = init_pixel_diffusion(args, 5, generator=torch.Generator().manual_seed(0),
+                                device=cuda_device)
+    task.num_inference_steps = 3
+    task.model.eval()
+    export_predict(task, tmp_path / "p.pt2", B, H, W, 5)
+    export_rollout(task, tmp_path / "r.pt2", B, H, W, 5, steps=steps)
+    with pytest.raises(ValueError, match="runs there only"):
+        load_exported(tmp_path / "p.pt2", device="cpu")
+    inputs = (t(rng.standard_normal((B, H, W, 2))).to(cuda_device),
+              t(rng.standard_normal((B, 5))).to(cuda_device),
+              torch.ones((B, H, W, 1), device=cuda_device))
+    with torch.inference_mode():
+        for name, loops, live in (
+                ("p", [1], task.predict_frame),
+                ("r", [1, 1], make_rollout_fn(task.predict_frame, steps, stochastic=True))):
+            served = load_exported(tmp_path / f"{name}.pt2")
+            assert graph_stats(served.program)["loops"] == loops
+            fk.reset_launch_counts()
+            got = served(*inputs)
+            torch.cuda.synchronize()
+            assert fk.launch_counts() == {"fno_block": 0, "fno_head": 0}
+            want = live(*inputs)
+            assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()

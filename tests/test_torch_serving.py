@@ -26,7 +26,7 @@ from cfdbench_tpu.models import init_auto_model as jax_init_auto_model
 from cfdbench_tpu.training.trainer_auto import AutoTask as JaxAutoTask
 from cfdbench_tpu.utils import export as jax_export
 from cfdbench_tpu_torch.config import Args
-from cfdbench_tpu_torch.models import init_auto_model, init_pixel_diffusion
+from cfdbench_tpu_torch.models import init_auto_model
 from cfdbench_tpu_torch.ops import _build
 from cfdbench_tpu_torch.ops import fno_kernels as fk
 from cfdbench_tpu_torch.training.trainer_auto import AutoTask
@@ -171,15 +171,6 @@ def test_export_refuses_a_shape_the_kernels_cannot_take(tmp_path, monkeypatch, g
         export_predict(task, tmp_path / "refused.pt2", 1, *grid, P, device="cpu")
     assert str(e.value).startswith(what)
     assert not (tmp_path / "refused.pt2").exists()
-
-
-def test_diffusion_export_is_refused_by_name(tmp_path):
-    args = Args.parse_args(["--model", "pixel_diffusion", "--pixel_diffusion_base_channels", "8",
-                            "--pixel_diffusion_channel_mults", "1", "2",
-                            "--pixel_diffusion_num_res_blocks", "1"])
-    task = init_pixel_diffusion(args, P, device="cpu")
-    with pytest.raises(NotImplementedError, match="A14b"):
-        export_predict(task, tmp_path / "p.pt2", B, H, W, P, device="cpu")
 
 
 def test_auto_deeponet_cnn_serves_predict_and_refuses_its_rollout(tmp_path, rng):
