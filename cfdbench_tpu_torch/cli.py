@@ -43,8 +43,15 @@ bfloat16``): tensor parallelism in ``main_auto``, ``main_gencast``,
 ``split_module``), pipeline parallelism of the FNO in ``main_auto`` with
 ``--pp_microbatches K``, and in ``main_train`` a replicated model axis, as
 the JAX trainer keeps it. The non-autoregressive ``main_multistep`` refuses
-any mesh, as the JAX one ignores it (ROADMAP.md C), ``--pp_microbatches``
-is refused outside ``main_auto``, and ``--shard_spatial`` raises (A15d).
+any mesh, as the JAX one ignores it (ROADMAP.md C), and ``--pp_microbatches``
+is refused outside ``main_auto``. ``main_auto`` takes ``--shard_spatial 1``
+for the FNO, the FFNO, the U-Net and the ResNet: over the model axis each
+rank trains and evaluates on its H/M grid rows
+(``parallel/spatial.py``, ``training/trainer_auto.py``), its test mode
+on whole rows, as the JAX ``main_auto`` runs it; the other models, and
+``--shard_spatial`` with ``--pp_microbatches`` or
+``--use_mixed_precision``, raise (A15d2). ``main_train`` and
+``main_gencast`` refuse it, as the JAX ones ignore it (ROADMAP.md C).
 """
 
 from __future__ import annotations
@@ -92,6 +99,8 @@ from .utils.artifacts import get_output_dir, plot_multistep_metrics
 from .utils.device import entry_device, set_f32_numerics
 
 INFER_STEPS = 20
+# The models main_auto runs on a rank's grid rows under --shard_spatial 1.
+SPATIAL_MODELS = ("fno", "ffno", "unet", "resnet")
 
 
 def parse_args(argv=None) -> Args:
@@ -192,16 +201,25 @@ def check_training_flags(args: Args, regime: str = "auto") -> None:
     kind. ``--use_gradient_checkpointing`` is taken where the JAX package
     applies it, by the PUNetG models; ``--gradient_accumulation_steps`` by
     ``main_gencast`` alone; ``--use_mixed_precision`` by ``main_auto`` and
-    ``main_gencast``; ``--opt_state_dtype`` by ``main_auto``."""
+    ``main_gencast``; ``--opt_state_dtype`` by ``main_auto``;
+    ``--shard_spatial 1`` by ``main_auto`` for :data:`SPATIAL_MODELS`."""
     check_supported(args)
     check_model_ported(args.model, regime)
     if args.mode not in ("train", "test", "train_test"):
         raise ValueError(f"--mode {args.mode!r}: choose train, test or train_test")
-    if args.shard_spatial:
-        raise NotImplementedError(
-            "--shard_spatial: spatial sharding is ROADMAP.md A15d"
-        )
     entry = {"auto": "main_auto", "nonauto": "main_train", "gencast": "main_gencast"}[regime]
+    if regime == "auto" and args.shard_spatial:
+        refused = ""
+        if args.model not in SPATIAL_MODELS:
+            refused = (f"--model {args.model}: spatial sharding runs "
+                       f"{', '.join(SPATIAL_MODELS)}; the others need GroupNorm sums and "
+                       "attention over all rows")
+        elif args.pp_microbatches:
+            refused = "--pp_microbatches: pipeline stages on a rank's rows"
+        elif args.use_mixed_precision:
+            refused = "--use_mixed_precision: a bfloat16 forward on a rank's rows"
+        if refused:
+            raise NotImplementedError(f"--shard_spatial 1 with {refused} (ROADMAP.md A15d2)")
     if regime != "auto" and args.pp_microbatches:
         raise NotImplementedError(
             f"--pp_microbatches in {entry}: pipeline parallelism stages the FNO in "
@@ -209,6 +227,8 @@ def check_training_flags(args: Args, regime: str = "auto") -> None:
     # Flags the JAX entry point parses and never passes to its trainer
     # (ROADMAP.md C), each with whether this run sets it.
     ignored = {}
+    if regime != "auto":
+        ignored["--shard_spatial"] = bool(args.shard_spatial)
     if regime != "gencast":
         ignored[f"--gradient_accumulation_steps {args.gradient_accumulation_steps}"] = (
             args.gradient_accumulation_steps != 1)
@@ -479,8 +499,10 @@ def main_auto(argv=None, device=None):
     initialised a process group runs in it. Rank 0 writes the files.
     ``--mesh_shape NxM`` under ``torchrun --nproc_per_node N·M`` adds a
     model axis: tensor parallelism, or with ``--pp_microbatches K`` the
-    FNO's GPipe pipeline (``trainer_auto.split_model``); the checkpoints
-    are in the one-process layout.
+    FNO's GPipe pipeline (``trainer_auto.split_model``), or with
+    ``--shard_spatial 1`` spatial sharding, each model rank on its rows of
+    the grid in training and the dev evaluation; the checkpoints are in
+    the one-process layout.
 
     Returns the task: its model as training left it, or, after ``test``,
     with the best checkpoint's weights."""
@@ -541,7 +563,7 @@ def _run_auto(args: Args, device: torch.device, mesh):
             plot_examples=bool(args.plot_train_examples), resume=bool(args.resume),
             opt_state=args.opt_state_dtype,
             eval_max_batches=(args.max_eval_batches or None) if task.generative else None,
-            pp_microbatches=args.pp_microbatches,
+            pp_microbatches=args.pp_microbatches, spatial=bool(args.shard_spatial),
         )
         print_launches("train", before)
         if args.measure_time:

@@ -56,6 +56,12 @@
 // No pass reaches the tensor cores' or the memory's rate: the passes are
 // bound by instruction issue and latency (staging, splits, erf), the cols
 // pass most.
+// Under spatial sharding a rank runs pass 1 on its rows, the ranks' partial
+// spectra are summed, and it runs passes 2-4 for its rows: the host
+// (ops/fno_kernels.py::_block_call) launches pass 1 (fno_block_spectrum) and
+// passes 2-4 (fno_block_finish) apart, the sum between them. A rank's
+// tables hold the DFT's columns (pass 1) and rows (pass 3) of its rows;
+// both passes mask the rows past its count in their 8-row tiles.
 // Shapes: passes 1-3 take any; pass 4 holds whole rows of x and the
 // W-stage table in shared memory, which bounds W x Ci and W x m2 (at 12
 // modes: 256 channels at W = 64, 128 at W = 128, 64 at W = 256; the head
@@ -681,40 +687,32 @@ void fno_block_tiles(int* tiles) {
   for (int i = 0; i < 6; ++i) tiles[i] = t[i];
 }
 
-// Null when fno_block_forward takes a grid W wide with Ci input channels
-// and m2 retained modes along W, else why it does not (H, Co and the
-// modes along H are not limited).
+// Null when fno_block_spectrum and fno_block_finish take a grid W wide
+// with Ci input channels and m2 retained modes along W, else why they do
+// not (H, Co and the modes along H are not limited).
 const char* fno_block_unsupported(int W, int Ci, int m2) { return plan_block(W, Ci, m2).why; }
 
-// x: (B, H, W, Ci); weights: (2, 2, Ci, Co, M1, M2); w0: (Co, Ci); b0: (Co,)
-// e1f, e2f, a1f, bwf: ops/fno_kernels.py::_block_tables(H, W, m1, m2);
-// scratch xm: (B, 2, 2*m1, m2, Ci), ym: (B, 2, 2*m1, m2, Co) and z:
-// (B, H, 2, m2, Co); out and, unless null, pre (the pre-activation):
-// (B, H, W, Co). All float32, contiguous, on the current device. xm holds
-// x's retained modes afterwards (rows 0..m1-1 and H-m1..H-1 of rfft2, real
-// then imaginary parts). Launches on `stream`, does not sync.
-int fno_block_forward(const float* x, const float* weights, const float* w0,
-                      const float* b0, const float* e1f, const float* e2f,
-                      const float* a1f, const float* bwf, float* xm, float* ym,
-                      float* z, float* out, float* pre, int B, int H, int W, int Ci, int Co, int M1,
-                      int M2, int m1, int m2, void* stream_ptr) {
+// The block runs in two calls around its retained spectrum, so that under
+// spatial sharding (a rank holding rows r0 .. r0+H-1 of a taller grid) the
+// ranks' partial spectra can be summed between them: pass 1 is a sum over
+// rows. Without a split the host calls one after the other.
+//
+// fno_block_spectrum, pass 1: xm (B, 2, 2*m1, m2, Ci) = x's retained modes,
+// rows 0..m1-1 and H-m1..H-1 of rfft2 (of the global grid's rows), real
+// then imaginary parts, summed over the H rows of x (B, H, W, Ci) that
+// this call holds. e1f, e2f: ops/fno_kernels.py::_block_tables for those
+// rows.
+int fno_block_spectrum(const float* x, const float* e1f, const float* e2f, float* xm, int B,
+                       int H, int W, int Ci, int m1, int m2, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const BlockPlan plan = plan_block(W, Ci, m2);
   if (plan.why) return cudaErrorInvalidValue;
   const int K = 2 * m1, n_kc = ceil_div(K, kFwdK), n_mc = ceil_div(m2, kFwdModes);
-  const int n_ot = ceil_div(Co, kOutCo), n_items = B * ceil_div(H, plan.out_rows);
   cudaError_t err;
   const bool stream_w = ceil_div(W, 8) > kFwdWK;
   const void* forward = stream_w ? (const void*)dft_forward_kernel<true>
                                  : (const void*)dft_forward_kernel<false>;
   if ((err = allow_dynamic_smem(forward, plan.s1))) return err;
-  if ((err = allow_dynamic_smem((const void*)mode_mix_kernel, plan.s2))) return err;
-  if ((err = allow_dynamic_smem((const void*)inverse_cols_kernel, plan.s4))) return err;
-  int cols_blocks = 0;  // all output-channel tiles together
-  if ((err = persistent_blocks(inverse_cols_kernel, kThreads, plan.s4, (long long)n_items * n_ot,
-                               &cols_blocks)))
-    return err;
-
   const dim3 forward_grid(B, ceil_div(Ci, kFwdChan), n_kc * n_mc);
   const float4* e1q = reinterpret_cast<const float4*>(e1f);
   const float4* e2q = reinterpret_cast<const float4*>(e2f);
@@ -725,7 +723,32 @@ int fno_block_forward(const float* x, const float* weights, const float* w0,
     FNO_LAUNCH(dft_forward_kernel<false>, forward_grid, kFwdThreads, plan.s1, stream)(
         x, e1q, e2q, xm, H, W, Ci, K, m2, n_mc);
   }
-  if ((err = cudaGetLastError())) return err;
+  return cudaGetLastError();
+}
+
+// fno_block_finish, passes 2-4 on the whole retained spectrum xm, for the H
+// rows of x (B, H, W, Ci) that this call holds: weights (2, 2, Ci, Co, M1,
+// M2); w0 (Co, Ci); b0 (Co,); a1f, bwf: ops/fno_kernels.py::_block_tables
+// for those rows; scratch ym (B, 2, 2*m1, m2, Co) and z (B, H, 2, m2, Co);
+// out and, unless null, pre (the pre-activation): (B, H, W, Co). All
+// float32, contiguous, on the current device. Launches on `stream`, does
+// not sync.
+int fno_block_finish(const float* x, const float* xm, const float* weights, const float* w0,
+                     const float* b0, const float* a1f, const float* bwf, float* ym, float* z,
+                     float* out, float* pre, int B, int H, int W, int Ci, int Co, int M1, int M2,
+                     int m1, int m2, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const BlockPlan plan = plan_block(W, Ci, m2);
+  if (plan.why) return cudaErrorInvalidValue;
+  const int K = 2 * m1;
+  const int n_ot = ceil_div(Co, kOutCo), n_items = B * ceil_div(H, plan.out_rows);
+  cudaError_t err;
+  if ((err = allow_dynamic_smem((const void*)mode_mix_kernel, plan.s2))) return err;
+  if ((err = allow_dynamic_smem((const void*)inverse_cols_kernel, plan.s4))) return err;
+  int cols_blocks = 0;  // all output-channel tiles together
+  if ((err = persistent_blocks(inverse_cols_kernel, kThreads, plan.s4, (long long)n_items * n_ot,
+                               &cols_blocks)))
+    return err;
   FNO_LAUNCH(mode_mix_kernel, dim3(K * m2, ceil_div(B, kBatchTile), ceil_div(Co, kMixCo)),
              kThreads, plan.s2, stream)(xm, weights, ym, B, K, m1, m2, Ci, Co, M1, M2);
   if ((err = cudaGetLastError())) return err;

@@ -12,7 +12,8 @@ batches.
 without making the host wait: the counterpart of the JAX package's
 ``device_prefetch``, whose queue of ``device_put``s a non-blocking copy
 makes unneeded (the host queues the next batch while the device still
-works on the last step).
+works on the last step). Under spatial sharding each rank then takes its
+grid rows of every field (:func:`field_rows`).
 """
 
 from __future__ import annotations
@@ -55,6 +56,26 @@ def batches(
         w[: take.size] = 1.0
         batch["weights"] = w
         yield batch
+
+
+def field_rows(batch: Dict[str, np.ndarray], axis) -> Dict[str, np.ndarray]:
+    """This model rank's grid rows of every (B, H, W, C) leaf of a batch
+    (``inputs``, ``labels``, ``mask``), as the JAX package's
+    ``batch_sharding_spatial`` places them over ``axis`` (a
+    ``parallel.mesh.ModelAxis``); ``case_params`` and ``weights`` stay
+    whole. Rows are never padded: H must divide by the axis's size. The
+    batch itself without an axis of more than one rank."""
+    if axis is None or not axis.distributed:
+        return batch
+    out = {}
+    for k, a in batch.items():
+        if a.ndim == 4:
+            if a.shape[1] % axis.size:
+                raise ValueError(f"{k}: {a.shape[1]} rows do not split over {axis.size} ranks")
+            h = a.shape[1] // axis.size
+            a = a[:, axis.rank * h: (axis.rank + 1) * h]
+        out[k] = a
+    return out
 
 
 def num_batches(n: int, batch_size: int) -> int:

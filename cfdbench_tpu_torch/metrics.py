@@ -16,7 +16,9 @@ Under data parallelism (``mesh``, ``parallel/mesh.py``) each rank holds a
 block of the batch: its weighted sums and element count are summed over
 the ranks and ``max|label|`` is their maximum, so every rank computes the
 scores of the global batch, as the JAX package does inside one program
-over the sharded batch.
+over the sharded batch. Under spatial sharding ``mesh`` is the mesh's
+``cells`` (``parallel/mesh.py``): a rank holds a block of grid rows of a
+block of the batch, and the sums and the maximum run over every rank.
 """
 
 from __future__ import annotations

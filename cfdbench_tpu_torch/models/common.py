@@ -11,6 +11,12 @@ timestep embedding) lifts the layer to float32; a norm reduces and
 normalises in float32 and returns that common dtype (flax's
 ``force_float32_reductions``).
 
+Under spatial sharding (``--shard_spatial 1``; ``sp``, the model axis
+over which the grid rows split, set by ``trainer_auto.split_model``) a
+:class:`Conv` takes its rows above and below from the neighbouring ranks
+(``parallel/spatial.py::halo``), :class:`MaxPool2` pools a rank's rows,
+and :func:`coord_channels` gives a rank's rows of the global coordinates.
+
 Not ported: ``dense_thin``, a TPU workaround for the backward of the
 FNO head's fc2; ``gelu_exact``, whose rational erf was a TPU workaround
 for a missing erf lowering — the port uses ``F.gelu``, whose default is
@@ -27,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import common_dtype, promote
+from ..parallel.spatial import active, halo, row_span
 
 
 def torch_kernel_init(weight: torch.Tensor,
@@ -69,9 +76,13 @@ class Conv(nn.Module):
     """NHWC 2-D convolution with torch-default init drawn from
     ``generator``; ``weight`` is ``(out, in, k, k)``. With
     ``replicate_pad`` the border is padded by edge replication (the
-    reference's ``padding_mode="replicate"``), else with zeros."""
+    reference's ``padding_mode="replicate"``), else with zeros. Under
+    spatial sharding (``sp``) x is a rank's rows: a "same" convolution
+    (stride 1, 2 ``padding`` = k - 1) takes ``padding`` rows from each
+    neighbouring rank, the grid's own border padded as without it."""
 
     OUT_AXIS = 0
+    sp = None  # the model axis the grid rows split over (trainer_auto.split_model)
 
     def __init__(self, in_chan: int, out_chan: int, kernel_size: int = 3,
                  padding: int = 0, replicate_pad: bool = False, stride: int = 1, *,
@@ -85,12 +96,25 @@ class Conv(nn.Module):
         self.padding, self.replicate_pad, self.stride = padding, replicate_pad, stride
 
     def forward(self, x):
-        x, w, b = promote(x.permute(0, 3, 1, 2), self.weight, self.bias)  # an NCHW view
         p = self.padding
+        if active(self.sp) and self.weight.shape[-1] > 1:
+            return self._rows_forward(x)
+        x, w, b = promote(x.permute(0, 3, 1, 2), self.weight, self.bias)  # an NCHW view
         if self.replicate_pad and p:
             x = F.pad(x, (p, p, p, p), mode="replicate")
             p = 0
         return F.conv2d(x, w, b, stride=self.stride, padding=p).permute(0, 2, 3, 1)
+
+    def _rows_forward(self, x):
+        p, k = self.padding, self.weight.shape[-1]
+        if self.stride != 1 or 2 * p != k - 1:
+            raise ValueError(f"--shard_spatial 1: a {k}x{k} convolution at stride {self.stride}, "
+                             f"padding {p} does not keep a rank's rows (ROADMAP.md A15d2)")
+        x = halo(x, p, self.sp, self.replicate_pad)
+        x, w, b = promote(x.permute(0, 3, 1, 2), self.weight, self.bias)
+        if self.replicate_pad:
+            return F.conv2d(F.pad(x, (p, p, 0, 0), mode="replicate"), w, b).permute(0, 2, 3, 1)
+        return F.conv2d(x, w, b, padding=(0, p)).permute(0, 2, 3, 1)
 
 
 def num_groups_for(groups: int, channels: int) -> int:
@@ -135,9 +159,16 @@ class GroupNorm(nn.Module):
 
 class MaxPool2(nn.Module):
     """2x2 max pool, stride 2, over the H and W of an NHWC tensor; odd
-    edges are dropped (flax's and torch's VALID pooling)."""
+    edges are dropped (flax's and torch's VALID pooling). Under spatial
+    sharding (``sp``) it pools a rank's rows, which must be even: a window
+    would otherwise cross ranks."""
+
+    sp = None
 
     def forward(self, x):
+        if active(self.sp) and x.shape[1] % 2:
+            raise ValueError(f"--shard_spatial 1: MaxPool2 on a rank's {x.shape[1]} rows, an odd "
+                             "count: a pooling window would cross ranks")
         return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
 
 
@@ -225,12 +256,14 @@ def broadcast_params_to_channels(case_params, h: int, w: int):
 
 
 def coord_channels(batch: int, h: int, w: int, *, dtype=torch.float32,
-                   device=None):
+                   device=None, rows=None):
     """(B, H, W, 2): x = linspace over rows, y = linspace over columns,
     computed in float32 at least and rounded to ``dtype`` (JAX's bfloat16
-    linspace)."""
+    linspace). With ``rows`` (spatial sharding) the ``h`` rows are a
+    rank's of the global grid, and x its rows of the global linspace."""
     work = torch.promote_types(dtype, torch.float32)
-    gx = torch.linspace(0.0, 1.0, h, dtype=work, device=device).to(dtype)
+    r0, H = row_span(h, rows)
+    gx = torch.linspace(0.0, 1.0, H, dtype=work, device=device)[r0:r0 + h].to(dtype)
     gy = torch.linspace(0.0, 1.0, w, dtype=work, device=device).to(dtype)
     grid = torch.stack(
         [gx[:, None].expand(h, w), gy[None, :].expand(h, w)], dim=-1

@@ -18,6 +18,12 @@ The JAX package runs every op of this model as plain XLA, its head too
 (not the Pallas head), so the port runs ``torch.fft`` and ``F.linear``
 calls on either device and launches no kernel of its own.
 
+Under spatial sharding (``--shard_spatial 1``, ``sp`` the model axis over
+which the grid rows split) a rank runs the model on its rows: the lift
+on its rows of the global coordinates, the row-axis conv as a sum of
+the ranks' partial modes (``ops/spectral.py::spectral_conv1d``), the
+W-axis conv, the feedforward and the head on its rows.
+
 No reference torch model exists; the ``state_dict`` keys follow the
 flax modules: ``fc0`` (``Dense_0``), ``blocks.{i}.weights_h``/
 ``weights_w``/``dense0``/``dense1`` (``FfnoBlock_i``'s params and its
@@ -48,8 +54,10 @@ class FfnoBlock(nn.Module):
         self.dense0 = Dense(channels, FF_FACTOR * channels, generator=generator)
         self.dense1 = Dense(FF_FACTOR * channels, channels, generator=generator)
 
+    sp = None  # the model axis the grid rows split over
+
     def forward(self, x):
-        y = (spectral_conv1d(x, self.weights_h, self.modes1, axis=1)
+        y = (spectral_conv1d(x, self.weights_h, self.modes1, axis=1, rows=self.sp)
              + spectral_conv1d(x, self.weights_w, self.modes2, axis=2))
         return x + self.dense1(F.gelu(self.dense0(y)))
 
@@ -74,11 +82,14 @@ class Ffno2d(nn.Module):
         self.fc2 = Dense(HEAD_WIDTH, out_chan, generator=generator)
         self.to(device)
 
+    sp = None  # the model axis the grid rows split over
+
     def forward(self, inputs, case_params, mask=None):
         B, H, W, _ = inputs.shape
         mask = ensure_mask(mask, B, H, W, device=inputs.device)
+        coords = coord_channels(B, H, W, dtype=inputs.dtype, device=inputs.device, rows=self.sp)
         x = self.fc0(torch.cat([
-            inputs, mask, coord_channels(B, H, W, dtype=inputs.dtype, device=inputs.device),
+            inputs, mask, coords,
             broadcast_params_to_channels(case_params, H, W)], dim=-1))
         for block in self.blocks:
             x = block(x)

@@ -29,6 +29,15 @@ replicated (its weight, and fc2's, gathered at use where the rules split
 them: a wide model). The replicated parameters used in part on a rank
 (:meth:`Fno2d.tp_summed`) get their gradients summed over the model ranks.
 
+Under spatial sharding (``--shard_spatial 1``, :attr:`Fno2d.sp` the
+model axis over which the grid rows split) a rank runs the model on its
+rows: the lift on its rows of the global coordinates, each block's
+kernel split around the sum of its retained spectrum over the model
+ranks (``ops/fno_kernels.py``), the head kernel on its rows. Its
+parameters, split by the same rules as under tp, are gathered whole at
+use (``parallel/tensor.py::gather_at_use``); the column- and
+row-parallel paths are not used.
+
 In bfloat16 (``--use_mixed_precision``'s train forward, the bfloat16
 rollout) the model runs the plain versions on either device, in the JAX
 package's bfloat16 numerics: its Pallas kernels are float32 only and its
@@ -64,17 +73,18 @@ HEAD_WIDTH = 128
 FLAGSHIP = dict(num_layers=4, hidden_dim=32, modes1=12, modes2=12)
 
 
-def lift(fc0: Dense, inputs, case_params, mask):
+def lift(fc0: Dense, inputs, case_params, mask, rows=None):
     """``fc0`` over [inputs ‖ mask ‖ coords ‖ params] as summed partial
     products on the weight's column slices: the concatenated input is
     never built, and the coordinate and case-parameter terms are
     broadcast, not full-field. Each product is taken in the common dtype
     of its operands, as in the JAX package (a float32 mask lifts a
-    bfloat16 model to float32)."""
+    bfloat16 model to float32). With ``rows`` (spatial sharding) the
+    inputs are a rank's rows, and so are the coordinates."""
     _, H, W, C = inputs.shape
     k = fc0.weight  # (hidden, C + 3 + P)
     P = case_params.shape[-1]
-    coords = coord_channels(1, H, W, dtype=inputs.dtype, device=inputs.device)
+    coords = coord_channels(1, H, W, dtype=inputs.dtype, device=inputs.device, rows=rows)
 
     def mm(a, w):
         a, w = promote(a, w)
@@ -89,11 +99,11 @@ def lift(fc0: Dense, inputs, case_params, mask):
     )
 
 
-def block_call(x, weights, w0, b0, modes1: int, modes2: int):
+def block_call(x, weights, w0, b0, modes1: int, modes2: int, rows=None):
     """One FnoBlock: the block kernel, or its plain version on a bfloat16
-    input (the kernels take float32 only)."""
+    input (the kernels take float32 only); ``rows``: ``fno_block``'s."""
     fn = fno_block_reference if x.dtype == torch.bfloat16 else fno_block
-    return fn(x, weights, w0, b0, modes1, modes2)
+    return fn(x, weights, w0, b0, modes1, modes2, rows)
 
 
 def head_call(x, w1, b1, w2, b2, mask):
@@ -123,9 +133,11 @@ class FnoBlock(nn.Module):
         ))
         self.w0 = Dense(channels, channels, generator=generator)
 
+    sp = None  # the model axis the grid rows split over
+
     def forward(self, x):
         return block_call(x, self.weights, self.w0.weight, self.w0.bias,
-                          self.modes1, self.modes2)
+                          self.modes1, self.modes2, self.sp)
 
 
 class Fno2d(nn.Module):
@@ -162,12 +174,13 @@ class Fno2d(nn.Module):
         self.to(device)
 
     tp = None  # the model axis under tensor parallelism
+    sp = None  # the model axis the grid rows split over under spatial sharding
 
     def forward(self, inputs, case_params, mask=None):
         B, H, W, _ = inputs.shape
         mask = ensure_mask(mask, B, H, W, device=inputs.device)
         split_blocks, split_head = self._tp_split()
-        x = lift(self._tp_whole(self.fc0), inputs, case_params, mask)
+        x = lift(self._tp_whole(self.fc0), inputs, case_params, mask, self.sp)
         for block in self.blocks:
             x = self._tp_block(block, x) if split_blocks else block(x)
         fc2 = self._tp_whole(self.fc2, used_in_part=split_head)

@@ -19,6 +19,13 @@ Dropout runs in training only, and its masks come from the
 straight run draws. The bits are not JAX's: no test can match the JAX
 package's masks, only their rate and scale, and parity in training is
 checked with dropout off in both packages.
+
+Under spatial sharding (``--shard_spatial 1``, ``sp`` the model axis over
+which the grid rows split) a rank runs the network on its rows: the
+replicate-padded convolutions take a halo of ``padding`` rows from each
+neighbouring rank (``models/common.py::Conv``), so a rank must hold at
+least that many rows (:meth:`ResNet.check_sp_rows`), and the dropout
+masks are drawn over the global (B, H, W, C) and sliced.
 """
 
 from __future__ import annotations
@@ -28,23 +35,28 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.mesh import SINGLE, DataMesh
+from ..parallel.spatial import row_span, take_rows
 from .common import Conv, broadcast_params_to_channels, ensure_mask
 
 DROPOUT = 0.2
 
 
-def dropout(x, rate: float, generator: torch.Generator, mesh: DataMesh = SINGLE):
+def dropout(x, rate: float, generator: torch.Generator, mesh: DataMesh = SINGLE, rows=None):
     """Zero each element with probability ``rate`` and scale the rest by
     1 / (1 - rate), with the keep mask drawn from ``generator`` (flax's
     ``nn.Dropout``): over the global batch, of which ``x`` is this rank's
-    block, and sliced."""
-    keep = torch.empty(mesh.global_shape(x.shape), dtype=x.dtype, device=x.device)
-    keep = mesh.block(keep.bernoulli_(1.0 - rate, generator=generator))
+    block, and sliced; under spatial sharding (``rows``) over the global
+    grid too, of which ``x`` holds the rank's rows."""
+    shape = list(mesh.global_shape(x.shape))
+    shape[1] = row_span(x.shape[1], rows)[1]
+    keep = torch.empty(shape, dtype=x.dtype, device=x.device)
+    keep = take_rows(mesh.block(keep.bernoulli_(1.0 - rate, generator=generator)), rows)
     return torch.where(keep.bool(), x / (1.0 - rate), 0.0)
 
 
 class ResidualBlock(nn.Module):
     mesh = SINGLE  # the data axis its dropout draws over (trainer_auto.use_mesh)
+    sp = None  # the model axis the grid rows split over
 
     def __init__(self, in_chan: int, out_chan: int, hidden_chan: int = 64,
                  kernel_size: int = 7, padding: int = 3, use_1x1conv: bool = False, *,
@@ -63,7 +75,7 @@ class ResidualBlock(nn.Module):
             if generator is None:
                 raise ValueError("ResidualBlock draws dropout masks in training: "
                                  "pass a torch.Generator")
-            x = dropout(x, DROPOUT, generator, self.mesh)
+            x = dropout(x, DROPOUT, generator, self.mesh, self.sp)
         return self.conv2(F.gelu(x)) + residual
 
 
@@ -76,6 +88,13 @@ class ResNet(nn.Module):
 
     pointwise = False
     draws_in_training = True
+
+    def check_sp_rows(self, h: int) -> None:
+        """Raise unless a rank's ``h`` rows cover the convolutions' halo."""
+        pad = self.blocks[0].conv1.padding
+        if h < pad:
+            raise ValueError(f"--shard_spatial 1 with --model resnet: a rank's {h} rows are "
+                             f"fewer than the {pad} rows of a convolution's halo")
 
     def __init__(self, in_chan: int = 2, out_chan: int = 2, n_case_params: int = 5,
                  hidden_chan: int = 32, num_blocks: int = 4, kernel_size: int = 7,

@@ -10,6 +10,15 @@ the mask. Submodules carry the reference's ``state_dict`` names
 (``in_conv``, ``down{i}.maxpool_conv.1``, ``up{i}.up``, ``up{i}.conv``,
 ``case_params_fc``, ``out_conv.conv``). Convolutions and products are
 cuDNN / cuBLAS calls on the card (no TPU kernel covers them).
+
+Under spatial sharding (``--shard_spatial 1``, ``sp`` the model axis over
+which the grid rows split) a rank runs the network on its rows: the 3x3
+convolutions take a halo of one row from each neighbouring rank
+(``models/common.py::Conv``), BatchNorm sums over every rank of the world
+(its ``mesh`` is the mesh's ``cells``), the pools and transposed convs
+keep to the rank's rows. Four poolings halve the rows four times, so a
+rank's rows must be a multiple of 2^4 (:meth:`UNet.check_sp_rows`):
+elsewhere a window, or ``Up``'s pad of an odd size, would cross ranks.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ from torch import nn
 
 from ..ops import common_dtype, promote
 from ..parallel.mesh import SINGLE
+from ..parallel.spatial import active
 from .common import (
     Conv,
     Dense,
@@ -52,7 +62,9 @@ class BatchNorm(nn.BatchNorm2d):
     the global batch's statistics, weight-0 padding rows included, as the
     JAX package does over its sharded batch: Σx and Σx² are summed over
     the ranks, differentiably (``nn.SyncBatchNorm``'s job, in
-    flax's numerics)."""
+    flax's numerics). Under spatial sharding ``mesh`` is the mesh's
+    ``cells``: a rank's block of rows of its block of the batch, the sums
+    and the count over every rank of the world."""
 
     mesh = SINGLE
 
@@ -158,6 +170,17 @@ class UNet(nn.Module):
     ``generator`` on the CPU, then moved to ``device``."""
 
     pointwise = False
+    sp = None  # the model axis the grid rows split over
+    SP_ROW_MULTIPLE = 2 ** 4  # four 2x2 poolings
+
+    @classmethod
+    def check_sp_rows(cls, h: int) -> None:
+        """Raise unless a rank's ``h`` rows pool and upsample within the rank."""
+        if h % cls.SP_ROW_MULTIPLE:
+            raise ValueError(
+                f"--shard_spatial 1 with --model unet: a rank's {h} rows are not a multiple of "
+                f"2^4 = {cls.SP_ROW_MULTIPLE}, so a pooling window or Up's pad of an odd size "
+                "would cross ranks (the JAX package's XLA does that exchange; ROADMAP.md C)")
 
     def __init__(self, in_chan: int = 2, out_chan: int = 2, n_case_params: int = 5,
                  insert_case_params_at: str = "input", dim: int = 12, *,
@@ -186,6 +209,8 @@ class UNet(nn.Module):
 
     def forward(self, inputs, case_params, mask=None):
         B, H, W, _ = inputs.shape
+        if active(self.sp):
+            self.check_sp_rows(H)
         residual = inputs[..., :self.out_chan]
         mask = ensure_mask(mask, B, H, W, device=inputs.device)
         parts = [inputs, mask]

@@ -114,8 +114,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Every entry point's argument types (pointers and the stream as
     ``c_void_p``)."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fno_block_forward.argtypes = [ptr] * 13 + [i32] * 9 + [ptr]
-    lib.fno_block_forward.restype = i32
+    lib.fno_block_spectrum.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+    lib.fno_block_spectrum.restype = i32
+    lib.fno_block_finish.argtypes = [ptr] * 11 + [i32] * 9 + [ptr]
+    lib.fno_block_finish.restype = i32
     lib.fno_head_forward.argtypes = [ptr] * 7 + [i64, i32, i32, i32, ptr]
     lib.fno_head_forward.restype = i32
     lib.fno_error_string.argtypes = [i32]

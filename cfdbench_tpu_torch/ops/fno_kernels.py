@@ -46,6 +46,17 @@ fragment order here, once per grid and mode count (:func:`_block_tables`).
 tests can run them through the kernels' CPU emulation
 (``ops/_build.py::load_emulation``).
 
+Under spatial sharding (``rows``: the model axis over which x's grid rows
+are split, ``parallel/spatial.py``) the block runs on a rank's rows. Its
+first pass, the projection onto the retained modes, is a sum over rows:
+the host launches it (``fno_block_spectrum``), sums the ranks' partial
+spectra over the model group, and launches the other three passes
+(``fno_block_finish``) for the rank's rows, whose tables hold the DFT's
+columns and rows for them (:func:`_block_matrices`). The two halves count
+as one ``fno_block`` launch. The backward keeps the same split
+(:func:`fno_block_vjp`). The head is per pixel and runs on the rank's
+rows unchanged.
+
 The kernels' shared memory bounds the shapes they take; the library
 says which it refuses and why (``fno_block_unsupported``,
 ``fno_head_unsupported``), and :func:`check_kernel_shapes` raises on
@@ -61,6 +72,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.spatial import active, row_span, row_sum_
 from . import promote
 from ._build import check_launch, load_library
 from .spectral import (
@@ -116,29 +128,31 @@ def _ceil(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _block_matrices(H: int, W: int, m1: int, m2: int):
-    """The real matrices the block kernel multiplies by, zero-padded to
+def _block_matrices(H: int, W: int, m1: int, m2: int, r0: int = 0, h: int = None):
+    """The real matrices the block kernel multiplies by, for the rows
+    ``[r0, r0 + h)`` (all H by default) of an H x W grid, zero-padded to
     its tiles (float64):
 
-    - ``e1`` (n_kc, ceil(H/8), 48, 16): per chunk of ``FWD_K`` spectrum
+    - ``e1`` (n_kc, ceil(h/8), 48, 16): per chunk of ``FWD_K`` spectrum
       rows and group of 8 rows of x, the forward H-stage's
       ``[[E1r, -E1i], [E1i, E1r]]``: rows are the chunk's real then
       imaginary spectrum rows, columns T's real then imaginary parts of
-      the group's rows;
+      the group's rows (E1's columns r0 .. r0 + h - 1);
     - ``e2`` (n_mc, 8 ceil(W/8), 24): per chunk of ``FWD_MODES`` modes,
       ``[E2r^T | E2i^T]`` (w × (re/im, mode));
-    - ``a1`` (ceil(H/8), 16, 8 ceil(2K/8)): per tile of 8 output rows the
-      inverse H-stage's ``[[Ar, -Ai], [Ai, Ar]]`` rows, real parts in
-      rows 0-7 and imaginary parts in rows 8-15;
+    - ``a1`` (ceil(h/8), 16, 8 ceil(2K/8)): per tile of 8 output rows the
+      inverse H-stage's ``[[Ar, -Ai], [Ai, Ar]]`` rows (A's rows r0 ..
+      r0 + h - 1), real parts in rows 0-7 and imaginary parts in rows 8-15;
     - ``bw`` (16 ceil(W/16), KZ): ``[Br | -Bi]``, KZ = 2 m2 rounded up to 8.
     """
+    h = H - r0 if h is None else h
     E1r, E1i, E2r, E2i, Ar, Ai, Br, Bi = (
         f.astype(np.float64) for f in _dft_factors(H, W, m1, m2))
     K = 2 * m1
-    n_kc, n_mc, ng = _ceil(K, FWD_K), _ceil(m2, FWD_MODES), _ceil(H, FWD_ROWS)
+    n_kc, n_mc, ng = _ceil(K, FWD_K), _ceil(m2, FWD_MODES), _ceil(h, FWD_ROWS)
     e1r = np.zeros((K, ng * FWD_ROWS))
     e1i = np.zeros_like(e1r)
-    e1r[:, :H], e1i[:, :H] = E1r, E1i
+    e1r[:, :h], e1i[:, :h] = E1r[:, r0:r0 + h], E1i[:, r0:r0 + h]
     e1 = np.zeros((n_kc, ng, 16 * FWD_MT, 2 * FWD_ROWS))
     for kc in range(n_kc):
         k0 = kc * FWD_K
@@ -154,9 +168,9 @@ def _block_matrices(H: int, W: int, m1: int, m2: int):
         e2[mc, :W, :mn] = E2r[m0:m0 + mn].T
         e2[mc, :W, mn:2 * mn] = E2i[m0:m0 + mn].T
     Ac = np.block([[Ar, -Ai], [Ai, Ar]])
-    a1 = np.zeros((_ceil(H, INV_ROWS), 16, 8 * _ceil(2 * K, 8)))
+    a1 = np.zeros((_ceil(h, INV_ROWS), 16, 8 * _ceil(2 * K, 8)))
     for ht in range(a1.shape[0]):
-        hs = np.arange(ht * INV_ROWS, min(H, ht * INV_ROWS + INV_ROWS))
+        hs = r0 + np.arange(ht * INV_ROWS, min(h, ht * INV_ROWS + INV_ROWS))
         a1[ht, :len(hs), :2 * K] = Ac[hs]
         a1[ht, 8:8 + len(hs), :2 * K] = Ac[H + hs]
     bw = np.zeros((16 * _ceil(W, 16), 8 * _ceil(2 * m2, 8)))
@@ -165,10 +179,10 @@ def _block_matrices(H: int, W: int, m1: int, m2: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _block_tables(H: int, W: int, m1: int, m2: int):
+def _block_tables(H: int, W: int, m1: int, m2: int, r0: int = 0, h: int = None):
     """:func:`_block_matrices` in float32, split and in fragment order,
     as ``csrc/fno_block.cu`` reads them: e1f (A), e2f (B), a1f (A), bwf (A)."""
-    e1, e2, a1, bw = (m.astype(np.float32) for m in _block_matrices(H, W, m1, m2))
+    e1, e2, a1, bw = (m.astype(np.float32) for m in _block_matrices(H, W, m1, m2, r0, h))
     return tuple(np.ascontiguousarray(f) for f in (
         _a_fragments(e1), _b_fragments(e2), _a_fragments(a1), _a_fragments(bw)))
 
@@ -217,12 +231,14 @@ def kernel_library(device: torch.device):
     return load_library() if device.type == "cuda" else None
 
 
-def fno_block_reference(x, weights, w0, b0, modes1: int, modes2: int):
+def fno_block_reference(x, weights, w0, b0, modes1: int, modes2: int, rows=None):
     """Plain FnoBlock: ``GELU(spectral_conv(x) + x @ w0ᵀ + b0)``, in the
     common dtype of x and the weights (bfloat16 in the JAX package's
-    bfloat16 numerics; the kernels take float32 only)."""
+    bfloat16 numerics; the kernels take float32 only); with ``rows``, on a
+    rank's rows of the grid (``spectral_conv2d_fft``)."""
     return F.gelu(
-        spectral_conv2d_fft(x, weights, modes1, modes2) + F.linear(*promote(x, w0, b0))
+        spectral_conv2d_fft(x, weights, modes1, modes2, rows)
+        + F.linear(*promote(x, w0, b0))
     )
 
 
@@ -262,35 +278,70 @@ def _stream(device: torch.device) -> int:
 
 
 @functools.lru_cache(maxsize=32)
-def _table_tensors(H: int, W: int, m1: int, m2: int, device: torch.device):
-    return tuple(torch.from_numpy(f).to(device) for f in _block_tables(H, W, m1, m2))
+def _table_tensors(H: int, W: int, m1: int, m2: int, r0: int, h: int, device: torch.device):
+    return tuple(torch.from_numpy(f).to(device) for f in _block_tables(H, W, m1, m2, r0, h))
 
 
-def _block_call(lib, x, weights, w0, b0, modes1, modes2, stream: int, keep: bool = False):
+def _block_plan(lib, x, modes1, modes2, span):
+    """``(m1, m2, tables)`` of a block launch on x's rows, which are
+    the rows ``[r0, r0 + h)`` of an H-row grid (``span`` (r0, H); the
+    whole grid when None); the library's tiles and shape limits checked."""
+    B, h, W, Ci = x.shape
+    r0, H = (0, h) if span is None else span
+    m1, m2 = clamp_modes(H, W, modes1, modes2)
+    _check_tiles(lib)
+    _refuse(lib.fno_block_unsupported(W, Ci, m2), f"fno_block at x {tuple(x.shape)}")
+    return m1, m2, _table_tensors(H, W, m1, m2, r0, h, x.device)
+
+
+def _block_spectrum(lib, x, modes1, modes2, stream: int, span=None):
+    """The block kernel's first pass on x's rows (``span``:
+    :func:`_block_plan`): their share of the retained modes, (B, 2, 2 m1,
+    m2, Ci), real then imaginary parts."""
+    B, h, W, Ci = x.shape
+    m1, m2, tables = _block_plan(lib, x, modes1, modes2, span)
+    xm = torch.empty((B, 2, 2 * m1, m2, Ci), device=x.device)
+    err = lib.fno_block_spectrum(x.data_ptr(), tables[0].data_ptr(), tables[1].data_ptr(),
+                                 xm.data_ptr(), B, h, W, Ci, m1, m2, stream)
+    check_launch(lib, err, "fno_block (spectrum)")
+    return xm
+
+
+def _block_finish(lib, x, xm, weights, w0, b0, modes1, modes2, stream: int,
+                  keep: bool = False, span=None):
+    """The block kernel's passes 2-4 for x's rows from the whole retained
+    spectrum ``xm``: ``(out, pre)``, the output and, with ``keep``, the
+    pre-activation (B, h, W, Co), else None."""
+    B, h, W, Ci = x.shape
+    Co = weights.shape[3]
+    m1, m2, tables = _block_plan(lib, x, modes1, modes2, span)
+    ym = torch.empty((B, 2, 2 * m1, m2, Co), device=x.device)
+    z = torch.empty((B, h, 2, m2, Co), device=x.device)
+    out = torch.empty((B, h, W, Co), device=x.device)
+    pre = torch.empty((B, h, W, Co), device=x.device) if keep else None
+    err = lib.fno_block_finish(
+        x.data_ptr(), xm.data_ptr(), weights.data_ptr(), w0.data_ptr(), b0.data_ptr(),
+        tables[2].data_ptr(), tables[3].data_ptr(), ym.data_ptr(), z.data_ptr(), out.data_ptr(),
+        None if pre is None else pre.data_ptr(),
+        B, h, W, Ci, Co, modes1, modes2, m1, m2, stream,
+    )
+    check_launch(lib, err, "fno_block")
+    return out, pre
+
+
+def _block_call(lib, x, weights, w0, b0, modes1, modes2, stream: int, keep: bool = False,
+                rows=None):
     """Allocate the block kernel's scratch and output and launch it
     through ``lib`` on ``stream``; the arguments are checked. Returns
     ``(out, xm, pre)``: the output, x's retained modes (B, 2, 2 m1, m2,
     Ci), which the first pass leaves in its scratch, and, with ``keep``,
-    the pre-activation (B, H, W, Co), else None."""
-    B, H, W, Ci = x.shape
-    Co = weights.shape[3]
-    m1, m2 = clamp_modes(H, W, modes1, modes2)
-    _check_tiles(lib)
-    _refuse(lib.fno_block_unsupported(W, Ci, m2), f"fno_block at x {tuple(x.shape)}")
-    tables = _table_tensors(H, W, m1, m2, x.device)
-    xm = torch.empty((B, 2, 2 * m1, m2, Ci), device=x.device)
-    ym = torch.empty((B, 2, 2 * m1, m2, Co), device=x.device)
-    z = torch.empty((B, H, 2, m2, Co), device=x.device)
-    out = torch.empty((B, H, W, Co), device=x.device)
-    pre = torch.empty((B, H, W, Co), device=x.device) if keep else None
-    err = lib.fno_block_forward(
-        x.data_ptr(), weights.data_ptr(), w0.data_ptr(), b0.data_ptr(),
-        *(f.data_ptr() for f in tables),
-        xm.data_ptr(), ym.data_ptr(), z.data_ptr(), out.data_ptr(),
-        None if pre is None else pre.data_ptr(),
-        B, H, W, Ci, Co, modes1, modes2, m1, m2, stream,
-    )
-    check_launch(lib, err, "fno_block")
+    the pre-activation (B, H, W, Co), else None. With ``rows`` (spatial
+    sharding) x is this rank's rows: the first pass's partial modes are
+    summed over the model ranks before the other passes run for its rows,
+    and ``xm`` is the sum."""
+    span = row_span(x.shape[1], rows) if active(rows) else None
+    xm = row_sum_(_block_spectrum(lib, x, modes1, modes2, stream, span), rows)
+    out, pre = _block_finish(lib, x, xm, weights, w0, b0, modes1, modes2, stream, keep, span)
     return out, xm, pre
 
 
@@ -310,15 +361,19 @@ def _head_call(lib, x, w1, b1, w2, b2, mask, stream: int):
     return out
 
 
-def fno_block_vjp(grad, x, xm, pre, weights, w0, modes1: int, modes2: int):
+def fno_block_vjp(grad, x, xm, pre, weights, w0, modes1: int, modes2: int, rows=None):
     """``(dx, dweights, dw0, db0)``: the FnoBlock's gradient against
     ``grad`` from what its kernel's forward leaves — x's retained modes
     ``xm`` (B, 2, 2 m1, m2, Ci; real, imaginary) and the pre-activation
     ``pre`` (B, H, W, Co). GELU' of ``pre``, the 1x1 bypass's products, and
-    the spectral adjoint in ``torch.fft`` (``spectral_conv2d_vjp``)."""
+    the spectral adjoint in ``torch.fft`` (``spectral_conv2d_vjp``). With
+    ``rows`` (spatial sharding; ``xm`` the summed modes) the weights'
+    gradients are this rank's partials, of its rows, and the gradient of
+    the retained modes is summed over the model ranks before it reaches
+    the rank's rows of x."""
     dy = torch.ops.aten.gelu_backward(grad, pre)
     dx, dweights = spectral_conv2d_vjp(dy, torch.complex(xm[:, 0], xm[:, 1]), weights,
-                                       x.shape[2], modes1, modes2)
+                                       x.shape[2], modes1, modes2, rows)
     flat = dy.reshape(-1, dy.shape[-1])
     return dx + dy @ w0, dweights, flat.T @ x.reshape(-1, x.shape[-1]), flat.sum(0)
 
@@ -326,26 +381,29 @@ def fno_block_vjp(grad, x, xm, pre, weights, w0, modes1: int, modes2: int):
 class FnoBlockFn(torch.autograd.Function):
     """The block kernel launched through ``lib`` on ``stream``, with its
     gradient: ``apply(lib, stream, keep, x, weights, w0, b0, modes1,
-    modes2)``. With ``keep`` (a forward under grad) the kernel also
+    modes2, rows)``. With ``keep`` (a forward under grad) the kernel also
     writes the pre-activation, and the Function saves it with x and x's
-    retained modes for :func:`fno_block_vjp`; nothing is recomputed."""
+    retained modes (under spatial sharding, ``rows``, the summed ones) for
+    :func:`fno_block_vjp`; nothing is recomputed."""
 
     @staticmethod
-    def forward(ctx, lib, stream, keep, x, weights, w0, b0, modes1, modes2):
-        out, xm, pre = _block_call(lib, x, weights, w0, b0, modes1, modes2, stream, keep)
+    def forward(ctx, lib, stream, keep, x, weights, w0, b0, modes1, modes2, rows=None):
+        out, xm, pre = _block_call(lib, x, weights, w0, b0, modes1, modes2, stream, keep, rows)
         fno_block.launches += 1
         if keep:
             ctx.save_for_backward(x, xm, pre, weights, w0)
-            ctx.modes = (modes1, modes2)
+            ctx.modes, ctx.rows = (modes1, modes2), rows
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
         x, xm, pre, weights, w0 = ctx.saved_tensors
-        grads = fno_block_vjp(grad.contiguous(), x, xm, pre, weights, w0, *ctx.modes)
+        grads = fno_block_vjp(grad.contiguous(), x, xm, pre, weights, w0, *ctx.modes,
+                              rows=ctx.rows)
         needs = ctx.needs_input_grad[3:7]
-        return (None, None, None, *(g if n else None for g, n in zip(grads, needs)), None, None)
+        return (None, None, None, *(g if n else None for g, n in zip(grads, needs)),
+                None, None, None)
 
 
 class FnoHeadFn(torch.autograd.Function):
@@ -474,22 +532,27 @@ def _wants_grad(x, *tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in (x, *tensors))
 
 
-def fno_block(x, weights, w0, b0, modes1: int, modes2: int):
+def fno_block(x, weights, w0, b0, modes1: int, modes2: int, rows=None):
     """x (B, H, W, Cin); weights (2, 2, Cin, Cout, modes1, modes2);
     w0 (Cout, Cin); b0 (Cout,) → (B, H, W, Cout). On the card a shape
     whose rows do not fit the kernel's shared memory raises ValueError
     (:func:`check_kernel_shapes`); under grad the result is
     differentiable (:class:`FnoBlockFn`), else it comes from the
-    registered operator (:func:`fno_block_op`)."""
-    if not _wants_grad(x, weights, w0, b0):
+    registered operator (:func:`fno_block_op`). With ``rows``, a model
+    axis of more than one rank (spatial sharding), x is this rank's rows
+    of the grid and the block runs split around the sum of its spectrum
+    over the ranks (:func:`_block_call`), on the CPU its plain version."""
+    rows = rows if active(rows) else None
+    wants_grad = _wants_grad(x, weights, w0, b0)
+    if not wants_grad and rows is None:
         return fno_block_op(x, weights, w0, b0, modes1, modes2)
     if x.device.type == "cpu":
-        return fno_block_reference(x, weights, w0, b0, modes1, modes2)
+        return fno_block_reference(x, weights, w0, b0, modes1, modes2, rows)
     _check_cuda_f32(x.device, x=x, weights=weights, w0=w0, b0=b0)
     _check_block_args(x, weights, w0, b0, modes1, modes2)
     with torch.cuda.device(x.device):
-        return FnoBlockFn.apply(load_library(), _stream(x.device), True, x, weights, w0, b0,
-                                modes1, modes2)
+        return FnoBlockFn.apply(load_library(), _stream(x.device), wants_grad, x, weights, w0,
+                                b0, modes1, modes2, rows)
 
 
 def fno_head(x, w1, b1, w2, b2, mask):

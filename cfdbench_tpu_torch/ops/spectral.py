@@ -25,6 +25,14 @@ back.
 The JAX package's DFT-matmul backends and their batch-size crossover
 rule were TPU workarounds and are not ported: here ``torch.fft`` is
 the plain version and the fused kernel is the fast one.
+
+Under spatial sharding (``rows``, a model axis over which x's grid rows
+are split: ``parallel/spatial.py``) the transforms along W stay
+``torch.fft`` on the rank's rows, and those along H become products with
+the truncated DFT's columns for the rank's rows (:func:`_row_factors`,
+over the global H): the rank's partial spectrum is summed over the model
+ranks (``spatial.row_sum``), mixed, and the inverse computed for the
+rank's rows alone. The modes are clamped to the global grid.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..parallel.spatial import active, row_span, row_sum, row_sum_
 from . import common_dtype
 
 
@@ -74,6 +83,34 @@ def _dft_factors(H: int, W: int, m1: int, m2: int):
     )
 
 
+@lru_cache(maxsize=None)
+def _row_factors(H: int, m1: int, r0: int, h: int, lead: bool):
+    """The truncated H-DFT between the rows ``[r0, r0 + h)`` of an H-row grid
+    and its retained spectrum rows, complex128: ``(E, A)``, the forward
+    E[k, r] = exp(-2πi·K[k]·(r0 + r)/H) and the inverse A[r, k] =
+    exp(+2πi·K[k]·(r0 + r)/H)/H. K is the FNO's two corners, [0..m1-1,
+    H-m1..H-1]; with ``lead`` the first ``m1`` rows alone (the FFNO's row
+    modes), the inverse then doubled for every mode but DC, which stands
+    in for its dropped conjugate (irfft's C2R; no retained mode is the
+    Nyquist one)."""
+    k = np.arange(m1) if lead else np.concatenate([np.arange(m1), np.arange(H - m1, H)])
+    r = np.arange(r0, r0 + h)
+    E = np.exp(-2j * np.pi * np.outer(k, r) / H)
+    A = np.exp(2j * np.pi * np.outer(r, k) / H) / H
+    if lead:
+        A = A * np.where(k == 0, 1.0, 2.0)
+    return E, A
+
+
+def _row_tables(h: int, axis, m1: int, lead: bool, work: torch.dtype, device):
+    """:func:`_row_factors` of this rank's rows as complex tensors of the
+    working precision ``work``."""
+    r0, H = row_span(h, axis)
+    ctype = torch.complex128 if work == torch.float64 else torch.complex64
+    return tuple(torch.from_numpy(f).to(device=device, dtype=ctype)
+                 for f in _row_factors(H, m1, r0, h, lead))
+
+
 def fft_dtype(*tensors: torch.Tensor) -> torch.dtype:
     """The dtype a spectral conv transforms in: the tensors' common dtype,
     float32 at least."""
@@ -85,12 +122,16 @@ def spectral_conv2d_fft(
     weights: torch.Tensor,  # (2, 2, Cin, Cout, modes1, modes2)
     modes1: int,
     modes2: int,
+    rows=None,
 ) -> torch.Tensor:
     """rfft2 → mix the retained corners → irfft2. Returns (B, H, W, Cout)
-    in x's dtype, transformed in :func:`fft_dtype`."""
+    in x's dtype, transformed in :func:`fft_dtype`. With ``rows`` x is this
+    rank's rows of the grid (see the module's docstring)."""
     out_dtype = x.dtype
     work = fft_dtype(x, weights)
     x, weights = x.to(work), weights.to(work)
+    if active(rows):
+        return _spectral_conv2d_rows(x, weights, modes1, modes2, rows).to(out_dtype)
     B, H, W, _ = x.shape
     Cout = weights.shape[3]
     wf = W // 2 + 1
@@ -108,6 +149,20 @@ def spectral_conv2d_fft(
         "bxyi,ioxy->bxyo", x_ft[:, H - m1:, :m2], w_c[1]
     )
     return _c2r(torch.fft.ifft(out_ft, dim=1), W).to(out_dtype)
+
+
+def _spectral_conv2d_rows(x, weights, modes1: int, modes2: int, axis) -> torch.Tensor:
+    """:func:`spectral_conv2d_fft` on a rank's rows: rfft along W, the
+    rank's share of the retained spectrum (its rows against E's columns),
+    summed over the model ranks, mixed, and the inverse H-DFT and C2R
+    for its rows."""
+    B, h, W, _ = x.shape
+    H = row_span(h, axis)[1]
+    m1, m2 = clamp_modes(H, W, modes1, modes2)
+    E, A = _row_tables(h, axis, m1, False, x.dtype, x.device)
+    xm = row_sum(torch.einsum("kr,brmi->bkmi", E, torch.fft.rfft(x, dim=2)[:, :, :m2]), axis)
+    ym = torch.einsum("bkmi,kmio->bkmo", xm, _corner_weights(weights, m1, m2))
+    return _c2r(torch.einsum("rk,bkmo->brmo", A, ym), W)
 
 
 def _c2r(z: torch.Tensor, W: int) -> torch.Tensor:
@@ -147,7 +202,7 @@ def retained_modes(x: torch.Tensor, m1: int, m2: int) -> torch.Tensor:
 
 
 def spectral_conv2d_vjp(grad: torch.Tensor, modes: torch.Tensor, weights: torch.Tensor,
-                        W: int, modes1: int, modes2: int):
+                        W: int, modes1: int, modes2: int, rows=None):
     """``(dx, dweights)``: the gradient of :func:`spectral_conv2d_fft` at
     an x whose :func:`retained_modes` are ``modes`` (X), against ``grad``
     (B, H, W, Cout). With g = rfft2(grad) / (H W) on the retained modes,
@@ -156,20 +211,34 @@ def spectral_conv2d_vjp(grad: torch.Tensor, modes: torch.Tensor, weights: torch.
     dw = the batch's sum of conj(X) alpha g per mode, and dx = Re of the
     sum over the retained modes of alpha g conj(w) e^{+i theta}, which is
     H W times the C2R inverse of g conj(w): the inverse's own alpha
-    cancels the one in the gradient."""
-    B, H, _, _ = grad.shape
+    cancels the one in the gradient.
+
+    With ``rows`` (spatial sharding) ``grad`` is this rank's rows, ``modes``
+    the whole grid's: g and dweights are this rank's partials, and the
+    gradient of the retained modes is summed over the model ranks before
+    its inverse for the rank's rows."""
+    B, h, _, _ = grad.shape
+    H = row_span(h, rows)[1]
     m1, m2 = clamp_modes(H, W, modes1, modes2)
-    g = torch.fft.fft(torch.fft.rfft(grad, dim=2)[:, :, :m2], dim=1)
-    g = torch.cat([g[:, :m1], g[:, H - m1:]], dim=1) / (H * W)
+    gr = torch.fft.rfft(grad, dim=2)[:, :, :m2]
+    if active(rows):
+        E, A = _row_tables(h, rows, m1, False, grad.dtype, grad.device)
+        g = torch.einsum("kr,brmo->bkmo", E, gr) / (H * W)
+    else:
+        g = torch.fft.fft(gr, dim=1)
+        g = torch.cat([g[:, :m1], g[:, H - m1:]], dim=1) / (H * W)
     gw = torch.einsum("bkmi,bkmo->kmio", modes.conj(), g * _alpha(W, m2, g.device)[:, None])
     gx = torch.einsum("bkmo,kmio->bkmi", g, _corner_weights(weights, m1, m2).conj())
     dweights = torch.zeros_like(weights)
     gw = gw.reshape(2, m1, m2, *gw.shape[2:]).permute(0, 3, 4, 1, 2)  # (corner, i, o, m1, m2)
     dweights[:, 0, :, :, :m1, :m2] = gw.real
     dweights[:, 1, :, :, :m1, :m2] = gw.imag
-    rows = gx.new_zeros((B, H, m2, gx.shape[-1]))
-    rows[:, :m1], rows[:, H - m1:] = gx[:, :m1], gx[:, m1:]
-    return _c2r(torch.fft.ifft(rows, dim=1), W) * (H * W), dweights
+    if active(rows):
+        gx = row_sum_(gx.contiguous(), rows)
+        return _c2r(torch.einsum("rk,bkmi->brmi", A, gx), W) * (H * W), dweights
+    full = gx.new_zeros((B, H, m2, gx.shape[-1]))
+    full[:, :m1], full[:, H - m1:] = gx[:, :m1], gx[:, m1:]
+    return _c2r(torch.fft.ifft(full, dim=1), W) * (H * W), dweights
 
 
 def init_spectral_weights(
@@ -187,6 +256,7 @@ def spectral_conv1d(
     weights: torch.Tensor,  # (2, C, C, modes): [re/im, in, out, mode]
     modes: int,
     axis: int,  # 1 (H) or 2 (W)
+    rows=None,
 ) -> torch.Tensor:
     """The FFNO's factorised 1-D spectral conv along one spatial axis
     (``spectral_conv1d_matmul`` of the JAX package): rfft along the axis,
@@ -195,11 +265,21 @@ def spectral_conv1d(
     Nyquist one, and irfft drops the imaginary part of the DC mode as the
     JAX package's inverse factors do (their DC column is real), so this
     equals its DFT-matmul form. It transforms and returns
-    :func:`fft_dtype`: float32 for a bfloat16 x or weight."""
+    :func:`fft_dtype`: float32 for a bfloat16 x or weight. With ``rows``
+    (spatial sharding) x is this rank's rows: along H its modes are the
+    rank's partial sums over the DFT's columns for its rows, summed over
+    the model ranks, and the inverse is taken for its rows alone."""
     if axis not in (1, 2):
         raise ValueError(f"axis {axis}: choose 1 (H) or 2 (W)")
     work = fft_dtype(x, weights)
     x, weights = x.to(work), weights.to(work)
+    if axis == 1 and active(rows):
+        h = x.shape[1]
+        m = min(modes, row_span(h, rows)[1] // 2)
+        E, A = _row_tables(h, rows, m, True, work, x.device)
+        w = torch.complex(weights[0, :, :, :m], weights[1, :, :, :m])
+        xk = row_sum(torch.einsum("kr,brwi->bkwi", E, x.to(E.dtype)), rows)
+        return torch.einsum("rk,bkwo->brwo", A, torch.einsum("bkwi,iok->bkwo", xk, w)).real
     N = x.shape[axis]
     m = min(modes, N // 2)
     x_ft = torch.fft.rfft(x, dim=axis)

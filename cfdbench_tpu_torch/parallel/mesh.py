@@ -30,6 +30,12 @@ data index form a model group (:class:`ModelAxis`), over which tensor
 parallelism (``sharding_rules.py``, ``tensor.py``) and pipeline
 parallelism (``pipeline.py``) exchange. Rank 0 of the world writes the
 run's files; :meth:`DataMesh.barrier` waits for it over the world.
+
+Under spatial sharding (``--shard_spatial 1``, ``spatial.py``) the model
+ranks of a data rank hold the same batch rows but each its block of the
+grid rows, as the JAX package's ``P(data, model)`` places a field: a
+field's sums (the loss's, BatchNorm's) then run over every rank of the
+world, :meth:`DataMesh.cells`.
 """
 
 from __future__ import annotations
@@ -107,6 +113,14 @@ class ModelAxis:
     def distributed(self) -> bool:
         return self.size > 1
 
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the model ranks, differentiably: the backward
+        sums the upstream gradients over them too (spatial sharding's row
+        sums, ``spatial.py``)."""
+        if not self.distributed:
+            return x
+        return _SumOverRanks.apply(x, self.group)
+
     def __repr__(self) -> str:
         return f"ModelAxis(size={self.size}, rank={self.rank})"
 
@@ -140,6 +154,31 @@ class DataMesh:
     def is_main(self) -> bool:
         """Whether this rank writes the run's files: rank 0 of the world."""
         return self.rank == 0 and self.model.rank == 0
+
+    def rows(self, H: int) -> Tuple[int, int]:
+        """``(r0, h)``: the grid rows ``[r0, r0 + h)`` of an H-row grid that
+        this model rank holds under spatial sharding, as ``P(data, model)``
+        places them. Rows are never padded: H must divide by the model
+        axis's size M, else ValueError names H, M and the flag (the JAX
+        package's ``device_put`` refuses such a grid too)."""
+        M = self.model.size
+        if H % M:
+            raise ValueError(f"--shard_spatial 1: a grid of H={H} rows does not split over a "
+                             f"model axis of M={M} ranks (H must divide by M; rows are never "
+                             "padded)")
+        h = H // M
+        return self.model.rank * h, h
+
+    def cells(self) -> "DataMesh":
+        """The mesh whose ranks each hold one block of a field under spatial
+        sharding, a block of batch rows by a block of grid rows: every rank
+        of the world, world rank ``rank * M + model rank``. Its sums and
+        maxima run over the world; so its :meth:`sum` of per-rank partial
+        sums is the whole field's (the loss's and BatchNorm's sums)."""
+        if self.world_size == 1:
+            return self
+        return DataMesh(self.world_size, self.rank * self.model.size + self.model.rank,
+                        self.world)
 
     def barrier(self) -> None:
         """Every rank of the world waits for the others."""

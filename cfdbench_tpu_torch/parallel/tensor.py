@@ -27,7 +27,11 @@ Here they are explicit:
   unconditional DDPM's PUNetG and its EMA copy in ``main_uncond``
   (``training/trainer_auto.py::split_module``). Their parameters and
   optimizer moments are stored 1/M a rank, as in the JAX package, and
-  their compute is replicated over the model ranks.
+  their compute is replicated over the model ranks. Under spatial
+  sharding (``spatial.py``) every model runs this way, the hooks on the
+  model itself, and the gradient of a gathered parameter is the partial
+  of the rank's rows: the backward averages it over the model ranks
+  before taking the slice, a reduce-scatter (``spatial``).
 
 Transport: every gather is an all-reduce of each rank's slice placed in
 zeros, on every backend. Gloo, which carries two ranks on one card (NCCL
@@ -111,44 +115,62 @@ def copy_to_model(x: torch.Tensor, axis) -> torch.Tensor:
 
 class GatherShard(torch.autograd.Function):
     """A parameter's slice on this rank → the whole parameter; the
-    gradient's slice goes back, with no reduction over the model ranks."""
+    gradient's slice goes back, with no reduction over the model ranks
+    (tp: every model rank computes the same whole gradient), or with
+    ``rows`` (sp: each rank's is the partial of its rows) its mean over
+    them first."""
 
     @staticmethod
-    def forward(ctx, shard, dim, axis):
-        ctx.dim, ctx.axis = dim, axis
+    def forward(ctx, shard, dim, axis, rows=False):
+        ctx.dim, ctx.axis, ctx.rows = dim, axis, rows
         return all_gather(shard.detach(), dim, axis)
 
     @staticmethod
     def backward(ctx, grad):
-        return _slice(grad, ctx.dim, ctx.axis), None, None
+        if ctx.rows:
+            grad = grad.contiguous().clone()
+            dist.all_reduce(grad, group=ctx.axis.group)
+            grad.div_(ctx.axis.size)
+        return _slice(grad, ctx.dim, ctx.axis), None, None, None
 
 
-def gather_at_use(module: torch.nn.Module, shard_axes, axis) -> list:
+def gather_at_use(module: torch.nn.Module, shard_axes, axis, spatial: bool = False) -> list:
     """Hooks on each submodule of ``module`` that owns a parameter named in
     ``shard_axes`` (its name in ``module`` → the axis it is split on, or
     None): before the submodule's forward each such parameter is gathered
     into the whole (:class:`GatherShard`) and set in the submodule's
     ``__dict__``, where attribute lookup finds it before the parameter,
-    and removed after. The parameter itself stays this rank's slice: what
-    the optimizer updates and ``state_dict`` holds. A cast copy that
-    ``torch.func.functional_call`` puts in the parameter's place is
-    gathered the same way. Returns the hooks' handles."""
+    and removed after. With ``spatial`` the hooks are on ``module`` itself
+    and gather every split parameter for its whole forward (the FNO reads
+    its submodules' weights without calling them), each gradient averaged
+    over the model ranks (:class:`GatherShard`'s ``rows``). The parameter
+    itself stays this
+    rank's slice: what the optimizer updates and ``state_dict`` holds. A
+    cast copy that ``torch.func.functional_call`` puts in the parameter's
+    place is gathered the same way. Returns the hooks' handles."""
     owners, handles = {}, []
     for name, dim in shard_axes.items():
         if dim is not None:
             path, _, leaf = name.rpartition(".")
             owners.setdefault(path, []).append((leaf, dim))
-    for path, leaves in owners.items():
-        sub = module.get_submodule(path)
+    groups = {"": [(module.get_submodule(path), leaf, dim) for path, leaves in owners.items()
+                   for leaf, dim in leaves]} if spatial else {
+        path: [(module.get_submodule(path), leaf, dim) for leaf, dim in leaves]
+        for path, leaves in owners.items()}
+    for path, leaves in groups.items():
+        if not leaves:
+            continue
 
         def gather(mod, args, leaves=leaves):
-            for leaf, dim in leaves:
-                mod.__dict__[leaf] = GatherShard.apply(mod._parameters[leaf], dim, axis)
+            for owner, leaf, dim in leaves:
+                owner.__dict__[leaf] = GatherShard.apply(owner._parameters[leaf], dim, axis,
+                                                         spatial)
 
         def release(mod, args, out, leaves=leaves):
-            for leaf, _ in leaves:
-                mod.__dict__.pop(leaf, None)
+            for owner, leaf, _ in leaves:
+                owner.__dict__.pop(leaf, None)
 
+        sub = module.get_submodule(path)
         handles += [sub.register_forward_pre_hook(gather), sub.register_forward_hook(release)]
     return handles
 

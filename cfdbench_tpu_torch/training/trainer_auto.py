@@ -78,14 +78,18 @@ from torch import nn
 
 from ..data.core import dump_json, load_json
 from ..data.datasets import AutoDataset
-from ..data.pipeline import batches, num_batches, to_device
+from ..data.pipeline import batches, field_rows, num_batches, to_device
 from ..metrics import LossFn
 from ..models import fno
 from ..models.common import cast_call
+from ..models.ffno import Ffno2d
+from ..models.resnet import ResNet
+from ..models.unet import BatchNorm, UNet
 from ..parallel.mesh import SINGLE, DataMesh
 from ..parallel.pipeline import PipelineStage
 from ..parallel import sharding_rules
 from ..parallel.sharding_rules import shard_params
+from ..parallel.spatial import gather_rows
 from ..parallel.tensor import ShardedLayout, all_gather, gather_at_use
 from ..utils.artifacts import plot_example, plot_loss, plot_predictions
 from ..utils.rng import step_generator
@@ -99,6 +103,7 @@ class AutoTask:
 
     generative = False
     mesh = SINGLE  # the data axis (use_mesh)
+    rows = None  # the model axis the grid rows split over (use_spatial)
 
     def __init__(self, model: nn.Module, loss_fn: Optional[LossFn] = None,
                  compute_dtype: Optional[torch.dtype] = None):
@@ -176,6 +181,40 @@ def use_mesh(task, mesh: DataMesh) -> None:
             module.mesh = mesh
 
 
+# The models that run on a rank's grid rows (--shard_spatial 1); the others
+# are ROADMAP.md A15d2.
+SPATIAL_MODELS = (fno.Fno2d, Ffno2d, UNet, ResNet)
+
+
+def use_spatial(task, axis) -> None:
+    """Run ``task`` on its rank's grid rows over ``axis`` (a model axis;
+    spatial sharding), or with None on whole rows again: the batches' and
+    the modules' rows (``sp``), and the loss's and BatchNorm's sums over
+    every rank of the world (``DataMesh.cells``) or the data axis."""
+    task.rows = axis
+    field = task.mesh if axis is None else task.mesh.cells()
+    task.loss_fn.mesh = field
+    for module in task.model.modules():
+        if hasattr(module, "sp"):
+            module.sp = axis
+        if isinstance(module, BatchNorm):
+            module.mesh = field
+
+
+def check_spatial(model, mesh: DataMesh, field_shape) -> None:
+    """Raise, naming the limit, unless ``model`` can run on a rank's rows of
+    a grid of ``field_shape`` over ``mesh``'s model axis: a model that
+    :data:`SPATIAL_MODELS` holds, rows that divide over the axis, and the
+    model's own limit (``check_sp_rows``)."""
+    if not isinstance(model, SPATIAL_MODELS):
+        raise NotImplementedError(
+            f"--shard_spatial 1 with {type(model).__name__}: spatial sharding runs the FNO, "
+            "the FFNO, the U-Net and the ResNet (ROADMAP.md A15d2)")
+    _, h = mesh.rows(field_shape[0])
+    if mesh.model.distributed and hasattr(model, "check_sp_rows"):
+        model.check_sp_rows(h)
+
+
 class ModelSplit:
     """``task.model`` laid over the mesh's model axis for training
     (:func:`split_model`): ``trained``, the module the optimizer trains
@@ -190,14 +229,18 @@ class ModelSplit:
         self.pipeline, self.hooks = pipeline, list(hooks)
 
 
-def split_module(module: nn.Module, mesh: DataMesh) -> Optional[ModelSplit]:
+def split_module(module: nn.Module, mesh: DataMesh, spatial: bool = False
+                 ) -> Optional[ModelSplit]:
     """Lay ``module`` over ``mesh``'s model axis by gathering at use: each
     parameter that the JAX rules split (at ``sharding_rules.MIN_SIZE``,
     read at the call) keeps this rank's slice, and
     hooks gather the slices into the whole for each forward
     (``parallel/tensor.py::gather_at_use``); the whole parameters, which
     every model rank uses whole, have their gradients averaged over the
-    model ranks (:func:`reduce_gradients`). None without a model axis.
+    model ranks (:func:`reduce_gradients`). With ``spatial`` the hooks
+    gather every split parameter for the model's whole forward and average
+    its gradient over the model ranks before taking the slice (each rank's
+    is the partial of its rows). None without a model axis.
     :func:`join_split` undoes it."""
     axis = mesh.model
     if not axis.distributed:
@@ -205,7 +248,7 @@ def split_module(module: nn.Module, mesh: DataMesh) -> Optional[ModelSplit]:
     axes = shard_params(module, axis, sharding_rules.MIN_SIZE)
     averaged = [p for n, p in module.named_parameters() if axes[n] is None]
     return ModelSplit(module, ShardedLayout(module, axes, axis), averaged=averaged,
-                      hooks=gather_at_use(module, axes, axis))
+                      hooks=gather_at_use(module, axes, axis, spatial))
 
 
 def join_split(module: nn.Module, split: Optional[ModelSplit]) -> None:
@@ -241,14 +284,24 @@ def reduce_gradients(mesh: DataMesh, split: Optional[ModelSplit], params) -> Non
     mesh.average_gradients(params)
 
 
-def split_model(task, pp_microbatches: int = 0) -> None:
+def split_model(task, pp_microbatches: int = 0, spatial: bool = False) -> None:
     """Lay ``task.model`` over ``task.mesh``'s model axis (none: nothing to
     do). Under pp (``pp_microbatches``) the FNO's blocks are staged; else
     each parameter that the JAX rules split keeps this rank's slice, the
     FNO running column- and row-parallel, any other model gathering its
     slices at use (:func:`split_module`); the whole parameters that every
-    rank uses whole have their gradients averaged over the model ranks."""
+    rank uses whole have their gradients averaged over the model ranks.
+    With ``spatial`` every model gathers at use and runs on its rank's
+    grid rows (:func:`use_spatial`)."""
     axis, model = task.mesh.model, task.model
+    if spatial and pp_microbatches:
+        raise NotImplementedError(
+            "--pp_microbatches with --shard_spatial 1: pipeline stages on a rank's grid rows "
+            "are ROADMAP.md A15d2")
+    if spatial and axis.distributed:
+        task.split = split_module(model, task.mesh, spatial=True)
+        use_spatial(task, axis)
+        return
     if pp_microbatches and not axis.distributed:
         raise ValueError(
             f"--pp_microbatches {pp_microbatches} requires a mesh with a model axis > 1; pass "
@@ -283,6 +336,8 @@ def join_model(task) -> None:
     split = getattr(task, "split", None)
     if split is None:
         return
+    if getattr(task, "rows", None) is not None:
+        use_spatial(task, None)
     if split.pipeline is not None:
         split.pipeline.fill(task.model)
     else:
@@ -369,7 +424,7 @@ def evaluate(
     """Mirror of ``src/train_auto.py:61-148``: per-batch scores, their
     means, the predictions if asked for, and the plots (rank 0's); at most
     ``max_eval_batches`` batches when given."""
-    mesh = task.mesh
+    mesh, rows = task.mesh, getattr(task, "rows", None)
     keep_preds = collect_preds or bool(plot_interval)
     names = task.loss_fn.get_score_names()
     score_rows = []  # (2, n_names) per batch, on the device: [pred, input baseline]
@@ -384,7 +439,7 @@ def evaluate(
         if plot_interval and step % plot_interval == 0:
             plot_panels[step] = (host["inputs"][0, ..., 0].copy(),
                                  host["labels"][0, ..., 0].copy())
-        batch = to_device(mesh.block(host), device)
+        batch = to_device(field_rows(mesh.block(host), rows), device)
         if task.generative:
             s, isc, preds = gen_eval_step(task, batch)
         else:
@@ -392,7 +447,7 @@ def evaluate(
         score_rows.append(torch.stack([torch.stack([s[k] for k in names]),
                                        torch.stack([isc[k] for k in names])]))
         if keep_preds:
-            all_preds.append(mesh.gather(preds))
+            all_preds.append(mesh.gather(gather_rows(preds, rows)))
     # One device-to-host transfer for every batch's scores.
     mat = (torch.stack(score_rows).cpu().numpy() if score_rows
            else np.zeros((0, 2, len(names))))
@@ -453,6 +508,7 @@ def train(
     opt_state: str = "f32",
     eval_max_batches: Optional[int] = None,
     pp_microbatches: int = 0,
+    spatial: bool = False,
 ) -> List[float]:
     """Train ``task.model`` in place; returns the per-step losses.
     ``resume=True`` continues from ``output_dir/training_state`` (the
@@ -461,8 +517,8 @@ def train(
     writes them. ``eval_max_batches`` caps the dev evaluation. Under data
     parallelism (``task.mesh``) ``batch_size`` and ``eval_batch_size`` are
     global; with a model axis the model is split for the run
-    (:func:`split_model`, ``pp_microbatches`` for pp) and whole again when
-    it returns."""
+    (:func:`split_model`, ``pp_microbatches`` for pp; ``spatial``: each
+    model rank on its grid rows) and whole again when it returns."""
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
     model, mesh = task.model, task.mesh
@@ -472,8 +528,10 @@ def train(
             "keeps per-tensor statistics, which over the packed (stages, per, ...) stage leaves "
             "would diverge from the single-device update; use f32 or bf16")
     n_params = sum(p.numel() for p in model.parameters())
-    split_model(task, pp_microbatches)
-    split = getattr(task, "split", None)
+    if spatial:
+        check_spatial(model, mesh, train_data.field_shape)
+    split_model(task, pp_microbatches, spatial)
+    split, rows = getattr(task, "split", None), getattr(task, "rows", None)
     trained = trained_module(task)
     layout = None if split is None else split.layout
     shards = {}
@@ -526,8 +584,8 @@ def train(
         for step, host in enumerate(batches(arrays, batch_size, shuffle=True, rng=rng,
                                             pad_multiple=pad_multiple)):
             draws = task.step_draws(seed, global_step, device)
-            scores = train_step(task, optimizer, scheduler, to_device(mesh.block(host), device),
-                                draws)
+            batch = to_device(field_rows(mesh.block(host), rows), device)
+            scores = train_step(task, optimizer, scheduler, batch, draws)
             ep_losses_dev.append(scores[objective])
             global_step += 1
             if global_step % log_interval == 0:
@@ -560,9 +618,10 @@ def train(
                 # the first dev sample, rank 0's first row.
                 pb = next(batches(dataset_arrays(dev_data), eval_batch_size, shuffle=False,
                                   pad_multiple=mesh.size))
-                b = to_device(mesh.block(pb), device)
+                b = to_device(field_rows(mesh.block(pb), rows), device)
                 with torch.no_grad():
-                    pred = task.predict_frame(b["inputs"], b["case_params"], b["mask"])
+                    pred = gather_rows(task.predict_frame(b["inputs"], b["case_params"],
+                                                          b["mask"]), rows)
                 if mesh.is_main():
                     plot_example(inp=pb["inputs"][0, ..., 0], label=pb["labels"][0, ..., 0],
                                  pred=pred[0, ..., 0].cpu().numpy(),

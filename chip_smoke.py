@@ -241,6 +241,22 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    pp, and of GenCast's PUNetG, the VAE and the DDPM (and its EMA) under
    tp, against one process's.
 
+15. Spatial sharding (``--shard_spatial 1``: ``parallel/spatial.py``). (a)
+   The block kernel at the rows a model rank holds (SP_KERNEL_CASES,
+   B=128, the flagship's width and modes): its first pass on each rank's
+   rows, the partial spectra summed, its other passes on each rank's rows,
+   against the plain whole block at phase 2's bounds; each half timed on
+   one rank's rows beside its bound, and the bytes of spectrum the ranks
+   sum; the head kernel at the same rows. (b) ``main_auto --mesh_shape
+   1x2 --shard_spatial 1`` on two gloo ranks sharing the card, under
+   deterministic algorithms: phase 13b's flagship run and U-Net epoch, an
+   epoch each of the FFNO and the ResNet, against one process (the
+   U-Net's within DP_DRIFT_FACTOR times phase 13b's permuted-row control
+   plus DP_RTOL, the others' losses, dev scores and weights within
+   DP_RTOL), each rank's launches one process's; the flagship again on
+   ``2x2``, four ranks; each rank's peak memory of a DP_BATCH flagship
+   step against one process's.
+
 ``launches`` in the kernels' record is phase 3's count (main_multistep),
 ``launches_by_path`` each main path's own: main_multistep's and
 main_auto's, one served predict call's and one served rollout's
@@ -254,9 +270,12 @@ main_gencast, main_vae, main_uncond, GenCast's main_multistep, main_auto
 with --use_mixed_precision and main_multistep with --rollout_dtype
 bfloat16 under tensor parallelism and main_auto in both precisions under
 pipeline parallelism (phase 14: ``tp2_rank{r}_*``, ``pp2_rank{r}_*``),
+and each rank's main_auto under spatial sharding (phase 15:
+``sp1x2_rank{r}_main_auto_sp``, ``sp2x2_rank{r}_main_auto_sp``),
 each read from counters set
 to 0 just before the run and read just after it; ``at_rank_shapes`` the
-kernel's phase 14a records. The line before the last is the kernels' JSON
+kernel's phase 14a records, ``at_rank_rows`` its phase 15a records. The
+line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 It needs a CUDA device and fails without one.
 """
@@ -443,6 +462,13 @@ DEFAULT_ALGORITHM_RUNS = ("unet", "gencast", "ffn")
 # (tests/test_torch_tp_vae_bf16.py).
 TP_BF16_RTOL = 1e-3
 TP_BF16_FRAME_RTOL = 3e-2
+# Phase 15: spatial sharding. (a) The block kernel split around its
+# spectrum's row sum at the rows a model rank holds, (H, W, ranks): 32 and 16
+# of the flagship's 64 rows, 128 of 256 rows at W = 256. (b) main_auto
+# --shard_spatial 1 on each mesh, SP_RANKS[mesh] gloo ranks on the one card.
+SP_KERNEL_CASES = ((GRID, GRID, 2), (GRID, GRID, 4), (256, 256, 2))
+SP_MESHES = ("1x2", "2x2")
+SP_RANKS = {"1x2": 2, "2x2": 4}
 # An H100 SXM's published peaks (NVIDIA's data sheet, dense rates): device
 # memory bytes/s, TF32 FLOP/s on the tensor cores and float32 FLOP/s outside
 # them. A split-TF32 product (csrc/tf32.cuh) is three TF32 products.
@@ -465,6 +491,13 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def warm_ms(fn, reps: int) -> float:
+    """:func:`time_ms` after one call (which builds a grid's DFT tables)."""
+    fn()
+    torch.cuda.synchronize()
+    return time_ms(fn, reps)
 
 
 def interleaved_ms(plain, kernel, reps: int):
@@ -2519,9 +2552,11 @@ def dp_step(argv, device, dtype=torch.float64) -> dict:
     import torch.distributed as dist
 
     from cfdbench_tpu_torch.cli import make_auto_task, parse_args
+    from cfdbench_tpu_torch.data.pipeline import field_rows
     from cfdbench_tpu_torch.parallel.mesh import make_mesh
     from cfdbench_tpu_torch.training.optim import make_adam
-    from cfdbench_tpu_torch.training.trainer_auto import train_step, use_mesh
+    from cfdbench_tpu_torch.training.trainer_auto import (
+        join_model, split_model, train_step, use_mesh)
 
     args = parse_args(argv + ["--data_name", "cavity_prop_bc_geo"])
     mesh = make_mesh(args.mesh_shape, dist.group.WORLD if dist.is_initialized() else None)
@@ -2530,15 +2565,22 @@ def dp_step(argv, device, dtype=torch.float64) -> dict:
     task = make_auto_task(args, 5, (GRID, GRID), device)
     task.model.to(dtype)
     use_mesh(task, mesh)
+    if args.shard_spatial:  # phase 15
+        split_model(task, 0, True)
+    split = getattr(task, "split", None)
     opt, sched = make_adam(task.model.parameters(), args.lr)
     batch = train_inputs(DP_UNET_BATCH, torch.Generator().manual_seed(SEED + 13), "cpu")
     for v in batch.values():
         v[DP_STEP_VALID:] = 0
-    block = {k: v.to(device, dtype) for k, v in mesh.block(batch).items()}
+    block = {k: v.to(device, dtype).contiguous()
+             for k, v in field_rows(mesh.block(batch), getattr(task, "rows", None)).items()}
     scores = train_step(task, opt, sched, block, task.step_draws(args.seed, 0, device))
     model = task.model
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    grads = grads if split is None else split.layout.to_std(grads)
+    join_model(task)
     return dict(scores={k: v.item() for k, v in scores.items()}, lr=args.lr,
-                grads={k: p.grad.cpu() for k, p in model.named_parameters()},
+                grads={k: g.cpu() for k, g in grads.items()},
                 state={k: v.detach().cpu() for k, v in model.state_dict().items()},
                 names=[k for k, _ in model.named_parameters()])
 
@@ -2694,6 +2736,8 @@ def dp_run(jobs, device, rank: int = 0, deterministic: bool = True) -> dict:
                 r = dp_step(argv, device, torch.float64 if entry == "step" else torch.float32)
             elif entry == "bytes":
                 r = split_bytes(argv, device)
+            elif entry == "memory":
+                r = sp_memory(argv, device)
             else:
                 tee = Tee()
                 with contextlib.redirect_stdout(tee):
@@ -3471,6 +3515,251 @@ def model_axis_ranks(device, data_root: Path, single: dict, controls: dict):
                 k: sum(ranks[r][n]["launches"][k] for n in names) for k in kernels}
     return counts, sizes
 
+def split_block_work(B, h, W, Ci, Co, m1, m2):
+    """(bytes, multiply-adds on the tensor cores, on the CUDA cores) of each
+    half of the block kernel on a rank's ``h`` rows: pass 1 (the rows'
+    partial spectrum: x's rows read, the spectrum written) and passes 2-4
+    (the summed spectrum, the weights and x's rows read, the output
+    written), at the global grid's clamped modes ``m1``, ``m2``."""
+    K = 2 * m1
+    spectrum = B * K * m2 * 2 * Ci
+    first = (4 * (B * h * W * Ci + spectrum),
+             B * h * Ci * 2 * m2 * W + B * m2 * Ci * 2 * K * 2 * h, 0)
+    rest = (4 * (spectrum + B * h * W * Ci + 4 * Ci * Co * m1 * m2 + Co * Ci + Co
+                 + B * h * W * Co),
+            B * m2 * Co * 2 * h * 2 * K + B * h * W * Co * 2 * m2 + B * h * W * Ci * Co,
+            B * K * m2 * 2 * Ci * 2 * Co)
+    return first, rest
+
+
+def sp_kernels(device, card) -> dict:
+    """Phase 15a: the block kernel split around its spectrum's row sum, at
+    the rows a model rank holds under spatial sharding (SP_KERNEL_CASES,
+    B=TIMING_BATCH, the flagship's width and modes): pass 1 on each rank's
+    rows, the partial spectra summed, passes 2-4 on each rank's rows,
+    against the plain whole block at phase 2's bounds (the summed spectrum
+    and the pre-activation too); each half timed on one rank's rows beside
+    its bound, the plain whole block timed, and the bytes of the spectrum
+    that the ranks sum. The head kernel at the same rows against its plain
+    version. Returns per kernel a record a shape."""
+    from cfdbench_tpu_torch.ops import _build, fno_kernels as fk
+    from cfdbench_tpu_torch.ops.spectral import clamp_modes, init_spectral_weights
+
+    lib, stream = _build.load_library(), torch.cuda.current_stream().cuda_stream
+    out = {"fno_block": [], "fno_head": []}
+    B, C = TIMING_BATCH, WIDTH
+    for H, W, M in SP_KERNEL_CASES:
+        gen = torch.Generator().manual_seed(SEED + 15)
+        h = H // M
+        x = torch.randn((B, H, W, C), generator=gen).to(device)
+        weights = (init_spectral_weights(gen, C, C, MODES, MODES) * C).to(device)
+        w0 = (torch.randn((C, C), generator=gen) * C ** -0.5).to(device)
+        b0 = (torch.randn((C,), generator=gen) * 0.1).to(device)
+        block = (x, weights, w0, b0, MODES, MODES)
+        rows = [x[:, j * h:(j + 1) * h].contiguous() for j in range(M)]
+        with torch.inference_mode():
+            xm = sum(fk._block_spectrum(lib, r, MODES, MODES, stream, (j * h, H))
+                     for j, r in enumerate(rows))
+            halves = [fk._block_finish(lib, r, xm, weights, w0, b0, MODES, MODES, stream, True,
+                                       (j * h, H)) for j, r in enumerate(rows)]
+            got = torch.cat([o for o, _ in halves], 1)
+            pre = torch.cat([p for _, p in halves], 1)
+            want = fk.fno_block_reference(*block)
+            want_xm, want_pre = fk.fno_block_saved_reference(*block)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            pre_err = (pre - want_pre).abs().max().item()
+            xm_rel = ((xm - want_xm).abs().max() / want_xm.abs().max()).item()
+            shape = f"{h} of {H} rows ({M} ranks), W={W}"
+            if not (torch.isfinite(got).all() and err <= BLOCK_ATOL and pre_err <= BLOCK_ATOL
+                    and xm_rel <= XM_RTOL):
+                raise RuntimeError(f"fno_block split at {shape}: max abs err {err:.3e}, "
+                                   f"pre-activation {pre_err:.3e}, spectrum {xm_rel:.3e}")
+            r0 = rows[0]
+            plain_ms = warm_ms(lambda: fk.fno_block_reference(*block), 10)
+            first_ms = warm_ms(lambda: fk._block_spectrum(lib, r0, MODES, MODES, stream, (0, H)),
+                               20)
+            rest_ms = warm_ms(lambda: fk._block_finish(lib, r0, xm, weights, w0, b0, MODES,
+                                                       MODES, stream, False, (0, H)), 20)
+            whole_ms = warm_ms(lambda: fk.fno_block(*block), 20)
+        m1, m2 = clamp_modes(H, W, MODES, MODES)
+        first, rest = split_block_work(B, h, W, C, C, m1, m2)
+        (b1, by1), (b2, by2) = bound(*first), bound(*rest)
+        sum_bytes = 4 * B * 2 * 2 * m1 * m2 * C
+        out["fno_block"].append(dict(
+            shape=shape, max_abs_err=err, pre_err=pre_err, spectrum_rel_err=xm_rel,
+            ms=first_ms + rest_ms, pass1_ms=first_ms, passes2_4_ms=rest_ms, plain_whole_ms=plain_ms,
+            whole_ms=whole_ms, bound_ms=b1 + b2, pass1_bound_ms=b1, pass1_bound_by=by1,
+            passes2_4_bound_ms=b2, passes2_4_bound_by=by2, row_sum_bytes=sum_bytes))
+        print(f"[sp] [{card}] fno_block B={B} {shape}: max abs err {err:.3e}, pre-activation "
+              f"{pre_err:.3e} (bound {BLOCK_ATOL:.0e}), summed spectrum {xm_rel:.3e} of its max "
+              f"(bound {XM_RTOL:.0e}); one rank's pass 1 {first_ms:.4f} ms (bound {b1:.4f} ms by "
+              f"{by1}), passes 2-4 {rest_ms:.4f} ms (bound {b2:.4f} ms by {by2}); the whole "
+              f"block {whole_ms:.4f} ms, its plain version {plain_ms:.4f} ms; the ranks sum "
+              f"{sum_bytes} bytes of spectrum")
+        mask = torch.ones((B, h, W, 1))
+        mask[:, : h // 3] = 0
+        head = (r0, (torch.randn((128, C), generator=gen) * C ** -0.5).to(device),
+                (torch.randn((128,), generator=gen) * 0.1).to(device),
+                (torch.randn((2, 128), generator=gen) * 128 ** -0.5).to(device),
+                (torch.randn((2,), generator=gen) * 0.1).to(device), mask.to(device))
+        with torch.inference_mode():
+            herr = (fk.fno_head(*head) - fk.fno_head_reference(*head)).abs().max().item()
+            if not herr <= HEAD_ATOL:
+                raise RuntimeError(f"fno_head at a rank's {shape}: max abs err {herr:.3e}")
+            p, k = interleaved_ms(lambda: fk.fno_head_reference(*head),
+                                  lambda: fk.fno_head(*head), reps=20)
+        hb, hby = bound(*head_work(B, h, W, C, 128, 2))
+        out["fno_head"].append(dict(shape=shape, max_abs_err=herr, ms=k, plain_ms=p,
+                                    bound_ms=hb, bound_by=hby))
+        print(f"[sp] [{card}] fno_head B={B} {shape}: max abs err {herr:.3e} (bound "
+              f"{HEAD_ATOL:.0e}); kernel {k:.4f} ms, plain {p:.4f} ms; bound {hb:.4f} ms by {hby}")
+    return out
+
+
+def sp_jobs(data_root: Path, out: Path, mesh: str):
+    """Phase 15b's runs under ``--shard_spatial 1`` on ``mesh`` (with
+    ``mesh`` "1" the one-process references): phase 13b's flagship
+    main_auto (DP_BATCH, TRAIN_EPOCHS) and U-Net epoch, an epoch each of
+    the FFNO and the ResNet at their default widths at DP_UNET_BATCH, and
+    the U-Net's float64 step of phase 13b (entry ``step``), and each rank's
+    peak device memory of one flagship step at DP_BATCH (entry
+    ``memory``)."""
+    jobs = {n: (n, e, a) for n, e, a in dp_jobs(data_root, out, mesh)}
+    sp = ["--shard_spatial", "1"] if mesh != "1" else []
+    unet = jobs["unet"][2]
+    family = [("ffno", "main_auto", [x if x != "unet" else "ffno" for x in unet]),
+              ("resnet", "main_auto", [x if x != "unet" else "resnet" for x in unet])]
+    return [(n, e, a + sp) for n, e, a in [jobs["fno"], jobs["unet"]] + family] + [
+        ("unet_step", "step", ["--model", "unet", "--mesh_shape", mesh] + sp),
+        ("memory", "memory", ["--mesh_shape", mesh] + sp)]
+
+
+def sp_memory(argv, device) -> dict:
+    """This rank's peak device memory over one flagship train step at
+    DP_BATCH (global) on ``--mesh_shape`` (``--shard_spatial 1``: its rows
+    of its block), and what the step added to what was allocated before it
+    (the activations and the gradients)."""
+    import torch.distributed as dist
+
+    from cfdbench_tpu_torch.cli import make_auto_task, parse_args
+    from cfdbench_tpu_torch.data.pipeline import field_rows
+    from cfdbench_tpu_torch.parallel.mesh import make_mesh
+    from cfdbench_tpu_torch.training.optim import make_adam
+    from cfdbench_tpu_torch.training.trainer_auto import (
+        join_model, split_model, train_step, trained_module, use_mesh)
+
+    args = parse_args(fno_argv(WORK / "dp_data", WORK / "memory") + argv)
+    mesh = make_mesh(args.mesh_shape, dist.group.WORLD if dist.is_initialized() else None)
+    task = make_auto_task(args, 5, (GRID, GRID), device)
+    use_mesh(task, mesh)
+    split_model(task, 0, bool(args.shard_spatial))
+    opt, sched = make_adam(trained_module(task).parameters(), args.lr)
+    gen = torch.Generator().manual_seed(SEED + 16)
+    batch = field_rows(mesh.block(train_inputs(DP_BATCH, gen, device)),
+                       getattr(task, "rows", None))
+    batch = {k: v.contiguous() for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    before = torch.cuda.memory_allocated(device)
+    train_step(task, opt, sched, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(device)
+    join_model(task)
+    return dict(peak_bytes=peak, step_bytes=peak - before)
+
+
+def spatial_ranks(device, card, data_root: Path, single: dict, controls: dict) -> dict:
+    """Phase 15b: ``main_auto --shard_spatial 1`` on SP_MESHES, SP_RANKS[mesh]
+    gloo ranks sharing the one card, PyTorch's deterministic algorithms on:
+    the flagship FNO at DP_BATCH on every mesh (phase 13b's run), the U-Net
+    (phase 13b's epoch and float64 step), the FFNO and the ResNet on the
+    first, against one process: the FNO's, the FFNO's and the ResNet's
+    losses, dev scores and weights within DP_RTOL (the ResNet's dropout
+    masks drawn over the global grid), the U-Net's step within DP_RTOL
+    (``dp_step_check``) and its epoch within DP_DRIFT_FACTOR times phase
+    13b's permuted-row control plus DP_RTOL; each rank's launches of both
+    kernels one process's (none on the other models); each rank's peak
+    memory of one flagship step against one process's. Returns each rank's
+    launches on the FNO's path and the memory records."""
+    import torch.multiprocessing as mp
+
+    from cfdbench_tpu_torch.cli import parse_args, run_dir
+
+    refs = dp_run([j for j in sp_jobs(data_root, WORK / "sp_single", "1")
+                   if j[0] in ("ffno", "resnet", "memory")], device)
+    want = {n: single[n] for n in ("fno", "unet", "unet_step")} | refs
+    counts, memory = {}, {"one_process": refs["memory"]}
+    for mesh in SP_MESHES:
+        world = SP_RANKS[mesh]
+        out = WORK / f"sp_{mesh}"
+        jobs = sp_jobs(data_root, out, mesh)
+        if mesh != SP_MESHES[0]:
+            jobs = [j for j in jobs if j[0] in ("fno", "memory")]
+        root = WORK / f"sp_ranks_{mesh}"
+        shutil.rmtree(root, ignore_errors=True)
+        root.mkdir(parents=True)
+        t0 = time.perf_counter()
+        mp.spawn(dp_rank, args=(world, str(root), jobs, str(device)), nprocs=world, join=True)
+        print(f"[sp] {world} ranks on one card (gloo), --mesh_shape {mesh} --shard_spatial 1: "
+              f"{time.perf_counter() - t0:.2f} s, spawn included")
+        ranks = [torch.load(root / f"rank{r}.pt", weights_only=True) for r in range(world)]
+        for name, entry, argv in jobs:
+            what = f"{name}, {mesh} --shard_spatial 1 against one process"
+            if entry == "memory":
+                for r, result in enumerate(ranks):
+                    got = result[name]
+                    memory[f"{mesh}_rank{r}"] = {k: got[k] for k in ("peak_bytes", "step_bytes")}
+                    print(f"[sp] [{card}] {what}: rank {r} peak {got['peak_bytes']} B, the step "
+                          f"{got['step_bytes']} B (one process {want[name]['peak_bytes']} B, "
+                          f"{want[name]['step_bytes']} B: "
+                          f"{got['step_bytes'] / want[name]['step_bytes']:.3f} of it)")
+                continue
+            if entry == "step":
+                dp_step_check(name, ranks[0][name], want[name], what)
+                continue
+            for r, result in enumerate(ranks):
+                got = result[name]["launches"]
+                if got != want[name]["launches"]:
+                    raise RuntimeError(f"{what}: rank {r} launched {got}, one process "
+                                       f"{want[name]['launches']}")
+                if name == "fno" and device.type == "cuda" and not all(got.values()):
+                    raise RuntimeError(f"{what}: rank {r}: a kernel never launched")
+                for k, v in ranks[0][name]["state"].items():
+                    if not torch.equal(v, result[name]["state"][k]):
+                        raise RuntimeError(f"{what}: rank {r}'s {k} differs from rank 0's")
+            mesh_run = run_dir(parse_args(argv))
+            base = WORK / ("dp_single" if name in ("fno", "unet") else "sp_single")
+            one_run = base / mesh_run.relative_to(out)
+            loss_rel = losses_rel(mesh_run, one_run)
+            params_rel = dp_params(ranks[0][name]["state"], want[name]["state"],
+                                   want[name]["names"], what)
+            dev = 0.0
+            for ckpt_dir in sorted(one_run.glob("ckpt-*")):
+                g, w = (json.loads((r / ckpt_dir.name / "dev_scores.json").read_text())["mean"]
+                        for r in (mesh_run, one_run))
+                dev = max([dev] + [abs(g[k] - v) / abs(v) for k, v in w.items() if v])
+            if name == "unet":
+                control_run = WORK / "dp_control" / mesh_run.relative_to(out)
+                ctl_loss = losses_rel(control_run, one_run)
+                ctl_params = dp_params(controls["unet"]["state"], want[name]["state"],
+                                       want[name]["names"], "unet control")
+                print(f"[sp] {what}: losses max rel diff {loss_rel:.3e}, parameters "
+                      f"{params_rel:.3e} of the largest, dev scores {dev:.3e}; the permuted-row "
+                      f"control {ctl_loss:.3e}, {ctl_params:.3e} (bound {DP_DRIFT_FACTOR:g} x the "
+                      f"control + {DP_RTOL:.0e})")
+                if not (loss_rel <= DP_DRIFT_FACTOR * ctl_loss + DP_RTOL
+                        and params_rel <= DP_DRIFT_FACTOR * ctl_params + DP_RTOL):
+                    raise RuntimeError(f"{what}: parted further than the permuted-row control")
+                continue
+            print(f"[sp] {what}: losses max rel diff {loss_rel:.3e}, dev scores {dev:.3e}, "
+                  f"parameters {params_rel:.3e} of the largest (bound {DP_RTOL:.0e} each)")
+            if not (loss_rel <= DP_RTOL and dev <= DP_RTOL and params_rel <= DP_RTOL):
+                raise RuntimeError(f"{what}: losses, dev scores or parameters disagree")
+        for r in range(world):
+            counts[f"sp{mesh}_rank{r}_main_auto_sp"] = ranks[r]["fno"]["launches"]
+    return counts, memory
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -3528,12 +3817,19 @@ def main() -> int:
     print(f"[phase14] [{card}] " + json.dumps({"kernels_at_rank_shapes": rank_times,
                                                "bytes": mp_bytes, "launches": mp_counts_14,
                                                "seconds": time.perf_counter() - t14}))
+    t15 = time.perf_counter()
+    sp_times = sp_kernels(device, card)
+    sp_counts, sp_mem = spatial_ranks(device, card, dp_data, dp_single, controls)
+    dp_counts.update(sp_counts)
+    print(f"[phase15] [{card}] " + json.dumps({"kernels_at_rank_rows": sp_times,
+                                               "memory": sp_mem, "launches": sp_counts,
+                                               "seconds": time.perf_counter() - t15}))
     print(f"[main] launches on the main paths: main_multistep {counts}, "
           f"main_auto {train_counts}, one served predict call {serve_predict}, one served "
           f"rollout {serve_rollout}, served diffusion {serve_diffusion}, "
           f"main_auto --use_mixed_precision {mp_counts}, "
           f"main_multistep --rollout_dtype bfloat16 {bf16_counts}, per rank under data, "
-          f"tensor and pipeline parallelism {dp_counts}")
+          f"tensor, pipeline and spatial parallelism {dp_counts}")
     replaces = {"fno_block": "cfdbench_tpu/ops/pallas_fno.py:179",
                 "fno_head": "cfdbench_tpu/ops/pallas_fno.py:268"}
     print(json.dumps({"kernels": [
@@ -3546,8 +3842,10 @@ def main() -> int:
                               "main_auto_mixed_precision": mp_counts[name],
                               "main_multistep_bf16": bf16_counts[name],
                               **{path: c[name] for path, c in dp_counts.items()}},
-         "max_abs_err": max([errors[name]] + [t["max_abs_err"] for t in rank_times[name]]),
-         **times[name], "library_ms": None, "at_rank_shapes": rank_times[name]}
+         "max_abs_err": max([errors[name]] + [t["max_abs_err"]
+                                              for t in rank_times[name] + sp_times[name]]),
+         **times[name], "library_ms": None, "at_rank_shapes": rank_times[name],
+         "at_rank_rows": sp_times[name]}
         for name in ("fno_block", "fno_head")
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """One rank of a data-, tensor- or pipeline-parallel run of the port,
 spawned by ``tests/test_torch_parallel.py``,
 ``tests/test_torch_parallel_trainers.py``, ``tests/test_torch_tp.py``,
-``tests/test_torch_pp.py``, ``tests/test_torch_tp_trainers.py`` and
-``tests/test_torch_tp_trainers_cli.py`` (and importable without JAX, so
-that the spawned processes stay light).
+``tests/test_torch_pp.py``, ``tests/test_torch_tp_trainers.py``,
+``tests/test_torch_tp_trainers_cli.py``, ``tests/test_torch_sp.py`` and
+``tests/test_torch_sp_models.py`` (and importable without JAX, so that
+the spawned processes stay light).
 
 :func:`run` joins a gloo group through a file under the test's temporary
 directory (never a TCP port: several test workers run at once), runs the
@@ -71,12 +72,18 @@ def host_step(case: dict, mesh):
 
 def split_step(case: dict, mesh):
     """``case["steps"]`` ``trainer_auto.train_step``s of ``case`` with its
-    model split over ``mesh``'s model axis (``split_model``: tp, or pp with
-    ``case["pp"]`` microbatches) on ``mesh``'s block of its global batch.
-    Returns each step's scores, the first step's predictions (gathered over
-    the data ranks) and gradients (in the one-process layout), the
-    parameters after the last step (the model joined whole again), and this
-    rank's parameter and optimizer-state bytes against the whole model's."""
+    model split over ``mesh``'s model axis (``split_model``: tp, pp with
+    ``case["pp"]`` microbatches, or with ``case["spatial"]`` spatial
+    sharding, each model rank on its grid rows) on ``mesh``'s block of its
+    global batch. Returns each step's scores, the first step's predictions
+    (gathered over the data ranks and the rows) and gradients (in the
+    one-process layout), the parameters and buffers after the last step
+    (the model joined whole again), and this rank's parameter and
+    optimizer-state bytes against the whole model's. ``case["dropout"]``
+    sets the ResNet's dropout rate."""
+    from cfdbench_tpu_torch.data.pipeline import field_rows
+    from cfdbench_tpu_torch.models import resnet
+    from cfdbench_tpu_torch.parallel.spatial import gather_rows
     from cfdbench_tpu_torch.training.optim import make_adam
     from cfdbench_tpu_torch.training.trainer_auto import (
         join_model, split_model, train_step, trained_module, use_mesh)
@@ -85,7 +92,8 @@ def split_step(case: dict, mesh):
     use_mesh(task, mesh)
     whole = sum(p.numel() for p in task.model.parameters())
     with rules_at(case):
-        split_model(task, case.get("pp", 0))
+        split_model(task, case.get("pp", 0), case.get("spatial", False))
+    rows = task.rows
     trained = trained_module(task)
     split = getattr(task, "split", None)
     shards = {}
@@ -111,19 +119,73 @@ def split_step(case: dict, mesh):
                  if split.layout.axes.get(n) is None]
         for p in whole:
             p.register_hook(lambda g: g + 1e-9 * (1 + mesh.model.rank))
-    batch = {k: torch.from_numpy(v) for k, v in mesh.block(case["batch"]).items()}
-    for _ in range(case.get("steps", 1)):
-        scores.append({k: float(v) for k, v in train_step(task, opt, sched, batch).items()})
-        if grads is None:
-            named = {n: p.grad for n, p in trained.named_parameters()}
-            grads = named if split is None else split.layout.to_std(named)
+    batch = {k: torch.from_numpy(v)
+             for k, v in field_rows(mesh.block(case["batch"]), rows).items()}
+    with patched([(resnet, "DROPOUT", case.get("dropout", resnet.DROPOUT))]):
+        for step in range(case.get("steps", 1)):
+            draws = task.step_draws(0, step, "cpu")
+            scores.append({k: float(v)
+                           for k, v in train_step(task, opt, sched, batch, draws).items()})
+            if grads is None:
+                named = {n: p.grad for n, p in trained.named_parameters()}
+                grads = named if split is None else split.layout.to_std(named)
     local = sum(p.numel() for p in trained.parameters())
     opt_bytes = sum(t.numel() * t.element_size() for st in opt.state.values()
                     for t in st.values() if torch.is_tensor(t) and t.dim() > 0)
+    preds = mesh.gather(gather_rows(preds[0], rows))
     join_model(task)
-    return dict(scores=scores, preds=mesh.gather(preds[0]), grads=grads,
+    return dict(scores=scores, preds=preds, grads=grads,
                 params={k: p.detach().clone() for k, p in task.model.named_parameters()},
+                buffers={k: b.clone() for k, b in task.model.named_buffers()},
                 local_params=local, whole_params=whole, opt_bytes=opt_bytes)
+
+
+def spatial_ops(job: dict, mesh):
+    """``parallel/spatial.py``'s exchanges on this model rank's rows of the
+    job's global tensors, each forward and backward: :func:`halo` for each
+    of ``job["halos"]`` ((k, replicate), upstream gradient
+    ``job["halo_grads"][i][model rank]``), the real and the complex
+    :func:`row_sum` of the rows' partial sums (upstream gradients
+    ``job["sum_grads"][model rank]``) and :func:`gather_rows`; the block
+    kernel's backward (``fno_block_vjp``) on the rank's rows of
+    ``job["vjp"]``; then a ``split_step`` of each of ``job["cases"]``."""
+    from cfdbench_tpu_torch.parallel import spatial
+
+    axis = mesh.model
+    x_whole = torch.from_numpy(job["x"])
+    out = {"halos": [], "steps": {}}
+
+    def rows():
+        return spatial.take_rows(x_whole, axis).clone().requires_grad_(True)
+
+    for i, (k, replicate) in enumerate(job["halos"]):
+        x = rows()
+        y = spatial.halo(x, k, axis, replicate)
+        y.backward(torch.from_numpy(job["halo_grads"][i][axis.rank]))
+        out["halos"].append((y.detach(), x.grad))
+    x = rows()
+    c = spatial.take_rows(torch.from_numpy(job["c"]), axis)
+    real = spatial.row_sum((x * c).sum(1), axis)
+    cplx = spatial.row_sum(torch.complex((x * c).sum(1), (x * x).sum(1)), axis)
+    g = [torch.from_numpy(a) for a in job["sum_grads"][axis.rank]]
+    ((real * g[0]).sum() + (cplx.real * g[1] + cplx.imag * g[2]).sum()).backward()
+    out["sums"] = (real.detach(), cplx.detach(), x.grad)
+    out["gathered"] = spatial.gather_rows(spatial.take_rows(x_whole, axis), axis)
+    if "vjp" in job:
+        from cfdbench_tpu_torch.ops import fno_kernels as fk
+
+        v = {k: torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+             for k, a in job["vjp"].items()}
+        xm, pre = fk.fno_block_saved_reference(v["x"], v["weights"], v["w0"], v["b0"],
+                                               v["modes"], v["modes"])
+        out["vjp"] = fk.fno_block_vjp(
+            spatial.take_rows(v["grad"], axis).contiguous(),
+            spatial.take_rows(v["x"], axis).contiguous(), xm,
+            spatial.take_rows(pre, axis).contiguous(), v["weights"], v["w0"], v["modes"],
+            v["modes"], rows=axis)
+    for name, case in job.get("cases", {}).items():
+        out["steps"][name] = split_step(case, mesh)
+    return out
 
 
 def host_sample(case: dict, mesh):
@@ -161,6 +223,7 @@ def build_task(case: dict):
 def make_task(model: str, widths: dict, loss_fn=None, compute_dtype=None):
     """A task of ``model`` at ``widths``, initialised from fixed seeds."""
     from cfdbench_tpu_torch.models import diffusion, make_cfd_vae
+    from cfdbench_tpu_torch.models.ffno import Ffno2d
     from cfdbench_tpu_torch.models.fno import Fno2d
     from cfdbench_tpu_torch.models.resnet import ResNet
     from cfdbench_tpu_torch.models.unet import UNet
@@ -176,7 +239,7 @@ def make_task(model: str, widths: dict, loss_fn=None, compute_dtype=None):
     if model == "latent":
         vae = make_cfd_vae("lite", generator=torch.Generator().manual_seed(5))
         return diffusion.LatentDiffusionCfdModel2(loss_fn, vae, generator=gen, **widths)
-    cls = {"fno": Fno2d, "unet": UNet, "resnet": ResNet}[model]
+    cls = {"fno": Fno2d, "ffno": Ffno2d, "unet": UNet, "resnet": ResNet}[model]
     return AutoTask(cls(in_chan=2, out_chan=2, n_case_params=5, generator=gen, **widths),
                     loss_fn, compute_dtype=compute_dtype)
 
@@ -518,6 +581,8 @@ def run(rank: int, world: int, root: str) -> None:
         mesh = make_mesh(job.get("mesh", str(world)), dist.group.WORLD)
         if job["kind"] == "split_steps":
             result = {name: split_step(case, mesh) for name, case in job["cases"].items()}
+        elif job["kind"] == "spatial_ops":
+            result = spatial_ops(job, mesh)
         elif job["kind"] == "steps":
             result = {name: host_step(case, mesh) for name, case in job["cases"].items()}
             result["samples"] = {name: host_sample(case, mesh)

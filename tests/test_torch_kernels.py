@@ -11,7 +11,9 @@ matrices its tables hold, run through its four passes in float64, give
 the plain ``torch.fft`` spectral conv; the tables are those matrices
 split and in ``mma.sync`` fragment order — and it runs both kernels
 through their CPU emulation (``ops/_build.py::load_emulation``, built
-with the host's C++ compiler) against the plain versions.
+with the host's C++ compiler) against the plain versions, the block also
+split around the sum of its spectrum over the rows that spatial sharding's
+ranks hold.
 """
 
 import numpy as np
@@ -20,7 +22,8 @@ import torch
 
 from cfdbench_tpu_torch.ops import _build
 from cfdbench_tpu_torch.ops import fno_kernels as fk
-from cfdbench_tpu_torch.ops.spectral import clamp_modes, spectral_conv2d_fft
+from cfdbench_tpu_torch.ops.spectral import (
+    clamp_modes, init_spectral_weights, spectral_conv2d_fft)
 
 # Small shapes on a few shared cores, in several test workers: one
 # thread a worker keeps torch's parallel regions from waiting on each
@@ -176,6 +179,56 @@ def emulation():
         return _build.load_emulation()
     except RuntimeError as e:  # no host C++ compiler
         pytest.skip(str(e))
+
+
+def split_block(lib, stream, x, w, w0, b0, modes, M):
+    """The block kernel split over M ranks' rows of x, as spatial sharding
+    runs it (``fno_kernels._block_call`` with ``rows``): pass 1 on each
+    rank's rows, the partial spectra summed, passes 2-4 on each rank's
+    rows."""
+    H = x.shape[1]
+    h = H // M
+    rows = [x[:, j * h:(j + 1) * h].contiguous() for j in range(M)]
+    xm = sum(fk._block_spectrum(lib, r, modes, modes, stream, (j * h, H))
+             for j, r in enumerate(rows))
+    outs = [fk._block_finish(lib, r, xm, w, w0, b0, modes, modes, stream, True, (j * h, H))
+            for j, r in enumerate(rows)]
+    return torch.cat([o for o, _ in outs], 1), xm, torch.cat([p for _, p in outs], 1)
+
+
+def check_split_block(lib, stream, B, H, W, C, M, device, modes=12):
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((B, H, W, C), generator=gen).to(device)
+    w = (init_spectral_weights(gen, C, C, modes, modes) * C).to(device)
+    w0 = (torch.randn((C, C), generator=gen) / C ** 0.5).to(device)
+    b0 = (torch.randn((C,), generator=gen) * 0.1).to(device)
+    block = (x, w, w0, b0, modes, modes)
+    out, xm, pre = split_block(lib, stream, x, w, w0, b0, modes, M)
+    want_xm, want_pre = fk.fno_block_saved_reference(*block)
+    assert torch.isfinite(out).all()
+    assert (out - fk.fno_block_reference(*block)).abs().max().item() <= 1e-4
+    assert (pre - want_pre).abs().max().item() <= 1e-4
+    assert (xm - want_xm).abs().max().item() <= 1e-5 * want_xm.abs().max().item()
+
+
+# The flagship's 32 channels; 64 rows over 2 and 4 ranks at 4 modes, and 66
+# over 2 (33 rows a rank: the 8-row tiles masked past them) at the
+# flagship's 12 modes. The emulation runs a host thread per CUDA thread (the
+# mixing pass a block per retained mode): narrow grids and few modes keep
+# it quick; the card's twin runs all three at 64 columns and 12 modes.
+@pytest.mark.parametrize("H,W,M,modes", [(64, 20, 2, 4), (64, 20, 4, 4), (66, 20, 2, 12)])
+def test_split_block_kernel_matches_the_whole_in_emulation(H, W, M, modes):
+    check_split_block(emulation(), 0, 1, H, W, 32, M, "cpu", modes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,M", [(64, 64, 2), (64, 64, 4), (66, 65, 2)])
+def test_split_block_kernel_matches_the_whole_on_card(cuda_device, H, W, M):
+    from cfdbench_tpu_torch.utils.device import set_f32_numerics
+
+    set_f32_numerics()
+    check_split_block(_build.load_library(), torch.cuda.current_stream().cuda_stream, 4, H, W,
+                      32, M, cuda_device)
 
 
 @pytest.mark.parametrize(

@@ -170,7 +170,9 @@ def test_main_train_needs_a_card_unless_told_cpu(port_tree, tmp_path, monkeypatc
     (["--use_gradient_checkpointing"], "main_train ignores it .ROADMAP.md C"),
     (["--cache_dir", "cache"], "main_train ignores it .ROADMAP.md C"),
     (["--pp_microbatches", "2"], "A15"),
-    (["--shard_spatial", "1"], "A15"),
+    # main_auto takes --shard_spatial 1 (tests/test_torch_sp.py); the JAX
+    # main_train never reads it. The case keeps its id.
+    pytest.param(["--shard_spatial", "1"], "main_train ignores it .ROADMAP.md C", id="flags7-A15"),
     # A data axis and a replicated model axis are ported
     # (tests/test_torch_parallel_trainers.py, tests/test_torch_tp_trainers_cli.py);
     # pipeline parallelism over that axis is not. The case keeps its id.
