@@ -45,13 +45,14 @@ bfloat16``): tensor parallelism in ``main_auto``, ``main_gencast``,
 the JAX trainer keeps it. The non-autoregressive ``main_multistep`` refuses
 any mesh, as the JAX one ignores it (ROADMAP.md C), and ``--pp_microbatches``
 is refused outside ``main_auto``. ``main_auto`` takes ``--shard_spatial 1``
-for the FNO, the FFNO, the U-Net and the ResNet: over the model axis each
-rank trains and evaluates on its H/M grid rows
-(``parallel/spatial.py``, ``training/trainer_auto.py``), its test mode
-on whole rows, as the JAX ``main_auto`` runs it; the other models, and
-``--shard_spatial`` with ``--pp_microbatches`` or
-``--use_mixed_precision``, raise (A15d2). ``main_train`` and
-``main_gencast`` refuse it, as the JAX ones ignore it (ROADMAP.md C).
+for every model but the latent diffusion models (A15d3), in float32 and
+under ``--use_mixed_precision``: over the model axis each rank trains and
+evaluates on its H/M grid rows (``parallel/spatial.py``,
+``training/trainer_auto.py``), its test mode on whole rows, as the JAX
+``main_auto`` runs it; with ``--pp_microbatches`` every pipeline stage runs
+whole rows, as the JAX pipeline takes its batch, so the step is pp's.
+``main_train`` and ``main_gencast`` refuse it, as the JAX ones ignore it
+(ROADMAP.md C).
 """
 
 from __future__ import annotations
@@ -99,8 +100,6 @@ from .utils.artifacts import get_output_dir, plot_multistep_metrics
 from .utils.device import entry_device, set_f32_numerics
 
 INFER_STEPS = 20
-# The models main_auto runs on a rank's grid rows under --shard_spatial 1.
-SPATIAL_MODELS = ("fno", "ffno", "unet", "resnet")
 
 
 def parse_args(argv=None) -> Args:
@@ -202,24 +201,17 @@ def check_training_flags(args: Args, regime: str = "auto") -> None:
     applies it, by the PUNetG models; ``--gradient_accumulation_steps`` by
     ``main_gencast`` alone; ``--use_mixed_precision`` by ``main_auto`` and
     ``main_gencast``; ``--opt_state_dtype`` by ``main_auto``;
-    ``--shard_spatial 1`` by ``main_auto`` for :data:`SPATIAL_MODELS`."""
+    ``--shard_spatial 1`` by ``main_auto`` for all but the latent models."""
     check_supported(args)
     check_model_ported(args.model, regime)
     if args.mode not in ("train", "test", "train_test"):
         raise ValueError(f"--mode {args.mode!r}: choose train, test or train_test")
     entry = {"auto": "main_auto", "nonauto": "main_train", "gencast": "main_gencast"}[regime]
-    if regime == "auto" and args.shard_spatial:
-        refused = ""
-        if args.model not in SPATIAL_MODELS:
-            refused = (f"--model {args.model}: spatial sharding runs "
-                       f"{', '.join(SPATIAL_MODELS)}; the others need GroupNorm sums and "
-                       "attention over all rows")
-        elif args.pp_microbatches:
-            refused = "--pp_microbatches: pipeline stages on a rank's rows"
-        elif args.use_mixed_precision:
-            refused = "--use_mixed_precision: a bfloat16 forward on a rank's rows"
-        if refused:
-            raise NotImplementedError(f"--shard_spatial 1 with {refused} (ROADMAP.md A15d2)")
+    if regime == "auto" and args.shard_spatial and args.model in LATENT_MODELS:
+        raise NotImplementedError(
+            f"--shard_spatial 1 with --model {args.model}: a latent model on a rank's rows needs "
+            "the frozen VAE on them, cross-attention over row-split tokens and pad_field's "
+            "uneven last rank (ROADMAP.md A15d3)")
     if regime != "auto" and args.pp_microbatches:
         raise NotImplementedError(
             f"--pp_microbatches in {entry}: pipeline parallelism stages the FNO in "

@@ -13,9 +13,12 @@ normalises in float32 and returns that common dtype (flax's
 
 Under spatial sharding (``--shard_spatial 1``; ``sp``, the model axis
 over which the grid rows split, set by ``trainer_auto.split_model``) a
-:class:`Conv` takes its rows above and below from the neighbouring ranks
-(``parallel/spatial.py::halo``), :class:`MaxPool2` pools a rank's rows,
-and :func:`coord_channels` gives a rank's rows of the global coordinates.
+:class:`Conv` takes its rows above and below from the ranks that hold them
+(``parallel/spatial.py::halo``), at stride 1 or 2, on the even split or on
+the split (``Rows``) that its caller passes; :class:`MaxPool2` pools a
+rank's whole row pairs; :class:`GroupNorm` sums each sample's statistics
+over the model ranks; and :func:`coord_channels` gives a rank's rows of the
+global coordinates.
 
 Not ported: ``dense_thin``, a TPU workaround for the backward of the
 FNO head's fc2; ``gelu_exact``, whose rational erf was a TPU workaround
@@ -26,14 +29,14 @@ the true-erf GELU (the two differ by at most 1.5e-7).
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops import common_dtype, promote
-from ..parallel.spatial import active, halo, row_span
+from ..parallel.spatial import Rows, active, halo, row_span, row_sum, rows_of
 
 
 def torch_kernel_init(weight: torch.Tensor,
@@ -77,9 +80,13 @@ class Conv(nn.Module):
     ``generator``; ``weight`` is ``(out, in, k, k)``. With
     ``replicate_pad`` the border is padded by edge replication (the
     reference's ``padding_mode="replicate"``), else with zeros. Under
-    spatial sharding (``sp``) x is a rank's rows: a "same" convolution
-    (stride 1, 2 ``padding`` = k - 1) takes ``padding`` rows from each
-    neighbouring rank, the grid's own border padded as without it."""
+    spatial sharding (``sp``) x is a rank's rows, of the even split or of
+    ``rows`` (``parallel/spatial.py::Rows``): a convolution with 2
+    ``padding`` = k - 1 takes ``padding`` rows from the ranks above and
+    below, the grid's own border padded as without it; at stride 2 it
+    takes the rows of a split whose ranks hold whole row pairs
+    (:meth:`Rows.paired`), and its output rows are that split halved
+    (rounded up)."""
 
     OUT_AXIS = 0
     sp = None  # the model axis the grid rows split over (trainer_auto.split_model)
@@ -95,26 +102,30 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch_bias_init(b, in_chan * k * k, generator))
         self.padding, self.replicate_pad, self.stride = padding, replicate_pad, stride
 
-    def forward(self, x):
+    def forward(self, x, rows: Optional[Rows] = None):
         p = self.padding
         if active(self.sp) and self.weight.shape[-1] > 1:
-            return self._rows_forward(x)
+            return self._rows_forward(x, rows_of(x, self.sp, rows))
         x, w, b = promote(x.permute(0, 3, 1, 2), self.weight, self.bias)  # an NCHW view
         if self.replicate_pad and p:
             x = F.pad(x, (p, p, p, p), mode="replicate")
             p = 0
         return F.conv2d(x, w, b, stride=self.stride, padding=p).permute(0, 2, 3, 1)
 
-    def _rows_forward(self, x):
-        p, k = self.padding, self.weight.shape[-1]
-        if self.stride != 1 or 2 * p != k - 1:
-            raise ValueError(f"--shard_spatial 1: a {k}x{k} convolution at stride {self.stride}, "
-                             f"padding {p} does not keep a rank's rows (ROADMAP.md A15d2)")
-        x = halo(x, p, self.sp, self.replicate_pad)
+    def _rows_forward(self, x, rows: Rows):
+        p, k, s = self.padding, self.weight.shape[-1], self.stride
+        if s not in (1, 2) or 2 * p != k - 1:
+            raise ValueError(f"--shard_spatial 1: a {k}x{k} convolution at stride {s}, "
+                             f"padding {p} on a rank's rows (ROADMAP.md A15d3)")
+        if s == 2 and not rows.paired():
+            raise ValueError(f"--shard_spatial 1: a stride-2 convolution on the rows {rows}, "
+                             "whose ranks do not hold whole row pairs (Rows.pairs)")
+        x = halo(x, p, self.sp, self.replicate_pad, rows=rows)
         x, w, b = promote(x.permute(0, 3, 1, 2), self.weight, self.bias)
         if self.replicate_pad:
-            return F.conv2d(F.pad(x, (p, p, 0, 0), mode="replicate"), w, b).permute(0, 2, 3, 1)
-        return F.conv2d(x, w, b, padding=(0, p)).permute(0, 2, 3, 1)
+            return F.conv2d(F.pad(x, (p, p, 0, 0), mode="replicate"), w, b,
+                            stride=s).permute(0, 2, 3, 1)
+        return F.conv2d(x, w, b, stride=s, padding=(0, p)).permute(0, 2, 3, 1)
 
 
 def num_groups_for(groups: int, channels: int) -> int:
@@ -133,7 +144,12 @@ class GroupNorm(nn.Module):
     (``use_fast_variance``), torch in two passes; the PUNetG's forwards
     and gradients agree with flax's within 2e-5 and 1e-5 of their max
     (``tests/test_torch_diffusion.py``). It normalises in float32 at
-    least and returns the common dtype of x and its weights (flax's)."""
+    least and returns the common dtype of x and its weights (flax's).
+    Under spatial sharding (``sp``) x is a rank's rows: each sample's group
+    means, and then the squared deviations from them, are summed over the
+    model ranks, with the element counts (two passes, as torch's)."""
+
+    sp = None  # the model axis the grid rows split over
 
     def __init__(self, num_groups: int, channels: int, eps: float = 1e-6):
         super().__init__()
@@ -144,6 +160,8 @@ class GroupNorm(nn.Module):
     def forward(self, x):
         out = common_dtype(x, self.weight, self.bias)
         work = torch.promote_types(out, torch.float32)
+        if active(self.sp):
+            return self._rows_forward(x.to(work), work).to(out)
         x = x.permute(0, 3, 1, 2).to(work)
         if x.device.type == "cpu" and not x.requires_grad:
             # torch's CPU backward of a channels-last group norm whose input
@@ -156,19 +174,34 @@ class GroupNorm(nn.Module):
         return torch.group_norm(x, self.num_groups, self.weight.to(work), self.bias.to(work),
                                 self.eps).permute(0, 2, 3, 1).to(out)
 
+    def _rows_forward(self, x, work):
+        B, h, W, C = x.shape
+        G = self.num_groups
+        xg = x.reshape(B, h, W, G, C // G)
+        dims = (1, 2, 4)
+        sums = row_sum(torch.cat([xg.sum(dims), xg.new_full((B, 1), h * W * (C // G))], 1),
+                       self.sp)
+        count = sums[:, G:]
+        d = xg - (sums[:, :G] / count)[:, None, None, :, None]
+        var = row_sum(d.square().sum(dims), self.sp) / count
+        y = (d * torch.rsqrt(var + self.eps)[:, None, None, :, None]).reshape(B, h, W, C)
+        return y * self.weight.to(work) + self.bias.to(work)
+
 
 class MaxPool2(nn.Module):
     """2x2 max pool, stride 2, over the H and W of an NHWC tensor; odd
     edges are dropped (flax's and torch's VALID pooling). Under spatial
-    sharding (``sp``) it pools a rank's rows, which must be even: a window
-    would otherwise cross ranks."""
+    sharding (``sp``) it pools a rank's rows of the even split or of
+    ``rows``, whose ranks must hold whole row pairs (:meth:`Rows.paired`;
+    a window would otherwise cross ranks): its output rows are that split
+    halved."""
 
     sp = None
 
-    def forward(self, x):
-        if active(self.sp) and x.shape[1] % 2:
+    def forward(self, x, rows: Optional[Rows] = None):
+        if active(self.sp) and not rows_of(x, self.sp, rows).paired():
             raise ValueError(f"--shard_spatial 1: MaxPool2 on a rank's {x.shape[1]} rows, an odd "
-                             "count: a pooling window would cross ranks")
+                             "count: a pooling window would cross ranks (Rows.pairs)")
         return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
 
 

@@ -68,6 +68,7 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 from ..metrics import LossFn
 from ..ops.diffusion import ddpm_sample, make_ddpm_scheduler
 from ..parallel.mesh import SINGLE
+from ..parallel.spatial import row_span, take_rows
 from ..utils.rng import (
     EVAL_KEY,
     Key,
@@ -107,6 +108,9 @@ class _DiffusionTask:
     # The data axis: every draw is made over the global batch and sliced
     # to this rank's block (trainer_auto.use_mesh).
     mesh = SINGLE
+    # The model axis the grid rows split over (trainer_auto.use_spatial):
+    # every draw is made over the global grid too and sliced to the rows.
+    rows = None
 
     def __init__(self, model: nn.Module, loss_fn: Optional[LossFn], out_chan: int,
                  timesteps: int):
@@ -131,13 +135,22 @@ class _DiffusionTask:
         """What ``loss_scores`` takes for train step ``step``: its key."""
         return train_key(seed, step)
 
+    def global_shape(self, shape) -> Tuple[int, ...]:
+        """The global shape of a field of which this rank holds ``shape``:
+        its block of the batch and, under spatial sharding, its rows."""
+        shape = list(self.mesh.global_shape(shape))
+        shape[1] = row_span(shape[1], self.rows)[1]
+        return tuple(shape)
+
     def _eps(self, x, t, case_params, key: Optional[Key]):
         unet = self.model
         if key is None:
             return unet(x, t, case_params)
         mesh = self.mesh
+        # Over the global batch and grid: the network takes each mask's rows
+        # at its level (punetg.py).
         masks = ([mesh.block(m) for m in dropout_keep_masks(
-                     key, unet.dropout_shapes(mesh.global_shape(x.shape)), unet.dropout,
+                     key, unet.dropout_shapes(self.global_shape(x.shape)), unet.dropout,
                      x.device)]
                  if unet.dropout > 0 else [])
         dtype = self.train_dtype(key)
@@ -156,8 +169,9 @@ class _DiffusionTask:
         """``(loss, scores)`` of the network's noise prediction on ``x0``
         noised at random timesteps."""
         noise, t = map(self.mesh.block, train_noise_and_t(
-            EVAL_KEY if key is None else key, self.mesh.global_shape(x0.shape),
+            EVAL_KEY if key is None else key, self.global_shape(x0.shape),
             self.scheduler.num_train_timesteps, x0.device))
+        noise = take_rows(noise, self.rows)
         noisy = self.scheduler.add_noise(x0, noise, t)
         eps = at_least_f32(self._eps(network_input(noisy), t, batch["case_params"], key))
         scores = self.loss_fn(eps, noise, sample_weights=batch.get("weights"))
@@ -179,7 +193,7 @@ class _DiffusionTask:
         ``like``."""
         return ddpm_sample(self.scheduler, denoise, self.sample_shape(like.shape), key,
                            self.num_inference_steps, like.device, self.mesh, noise, operands,
-                           self.model)
+                           self.model, self.rows)
 
 
 class PixelDiffusionCfdModel(_DiffusionTask):

@@ -25,6 +25,17 @@ The query lattice is float32, as the JAX package's is, so under bfloat16
 AutoFfn's whole network, compute in float32 on bfloat16-rounded weights
 and each model returns float32, as the JAX models do.
 
+Under spatial sharding (``--shard_spatial 1``, ``sp`` the model axis over
+which the grid rows split) a rank holds its rows of the field and scores
+the queries of its rows: its lattice starts at its first global row, a
+product over the whole flattened field (the AutoFfn's first layer on the
+field, the DeepONet branches' first ``Dense``) is the sum over the model
+ranks of each rank's rows against their columns of the weight
+(:func:`field_dense`), and the CNN branch runs on the rank's rows, its
+channel-major code gathered from every rank, differentiably
+(``parallel/spatial.py::all_rows``). The loss's sums run over every rank
+of the world, as a field model's do.
+
 Submodules carry the reference's ``state_dict`` names (``ffn``,
 ``branch_net``, ``trunk_net``, ``branch1``, ``branch2``, ``bias``,
 ``branch_net.in_conv``/``blocks``/``out_conv``, ``out_ffn``).
@@ -38,6 +49,7 @@ import torch
 from torch import nn
 
 from ..ops import promote
+from ..parallel.spatial import Rows, active, all_rows, row_span, row_sum, to_pairs
 from .common import (
     Conv,
     MaxPool2,
@@ -48,20 +60,49 @@ from .common import (
 )
 
 
-def lattice_xy(H: int, W: int, *, device=None) -> torch.Tensor:
-    """(H*W, 2) row-major (row, col) query coordinates, float32."""
-    rows = torch.arange(H, dtype=torch.float32, device=device).repeat_interleave(W)
+def lattice_xy(H: int, W: int, *, device=None, r0: int = 0) -> torch.Tensor:
+    """(H*W, 2) row-major (row, col) query coordinates, float32, of the
+    ``H`` rows from global row ``r0`` on."""
+    rows = torch.arange(r0, r0 + H, dtype=torch.float32, device=device).repeat_interleave(W)
     cols = torch.arange(W, dtype=torch.float32, device=device).repeat(H)
     return torch.stack([rows, cols], dim=-1)
 
 
-def trunk_input(H: int, W: int, *, device=None) -> torch.Tensor:
-    return (lattice_xy(H, W, device=device) - 50.0) / 100.0
+def trunk_input(H: int, W: int, *, device=None, r0: int = 0) -> torch.Tensor:
+    return (lattice_xy(H, W, device=device, r0=r0) - 50.0) / 100.0
 
 
 def flat_u(inputs) -> torch.Tensor:
     """The u channel of (B, H, W, C) inputs as (B, H*W)."""
     return inputs[..., 0].reshape(inputs.shape[0], -1)
+
+
+def field_product(w, flat, extra, axis) -> torch.Tensor:
+    """[the whole flattened field ‖ ``extra``] @ the leading columns of
+    ``w`` transposed, of which ``flat`` (B, h·W) is this rank's rows under
+    spatial sharding over ``axis``: the rank's columns of ``w`` against its
+    rows, summed over the model ranks, plus ``extra``'s (None: none)."""
+    n = flat.shape[1]
+    r0, N = row_span(n, axis)
+    y = row_sum(flat @ w[:, r0:r0 + n].T, axis)
+    return y if extra is None else y + extra @ w[:, N:N + extra.shape[1]].T
+
+
+def field_dense(dense, flat, extra, axis) -> torch.Tensor:
+    """``dense`` over [the whole flattened field ‖ ``extra``]
+    (:func:`field_product`)."""
+    if extra is None:
+        flat, w, b = promote(flat, dense.weight, dense.bias)
+    else:
+        flat, extra, w, b = promote(flat, extra, dense.weight, dense.bias)
+    return field_product(w, flat, extra, axis) + b
+
+
+def mlp_on_field(mlp, flat, extra, axis):
+    """``mlp`` (:class:`Mlp`) on [the flattened field ‖ ``extra``]: its first
+    layer by :func:`field_dense`."""
+    layers = mlp.layers
+    return layers[1:](field_dense(layers[0], flat, extra, axis))
 
 
 class AutoFfn(nn.Module):
@@ -70,6 +111,7 @@ class AutoFfn(nn.Module):
 
     pointwise = True
     out_chan = 1
+    sp = None  # the model axis the grid rows split over
 
     def __init__(self, input_field_dim: int, num_case_params: int, width: int = 200,
                  depth: int = 8, act_name: str = "relu", *, generator: torch.Generator,
@@ -82,17 +124,18 @@ class AutoFfn(nn.Module):
     def forward(self, inputs, case_params, mask=None):
         B, H, W = inputs.shape[:3]
         flat = flat_u(inputs)
-        ctx = torch.cat([flat, case_params], dim=1)  # (B, HW + P)
         first, rest = self.ffn.layers[0], self.ffn.layers[1:]
-        n = ctx.shape[1]
+        r0, grid = row_span(H, self.sp)
+        n = grid * W + case_params.shape[1]
         if first.weight.shape[1] != n + 2:
             raise ValueError(f"AutoFfn was built for {first.weight.shape[1] - 2} field values "
                              f"and case parameters, got {n}")
         # The first Dense on [ctx ‖ xy], split on its weight's columns, in
         # the dtype that the concatenation would have: float32 at least.
-        xy = lattice_xy(H, W, device=inputs.device)
-        ctx, xy, w, b = promote(ctx, xy, first.weight, first.bias)
-        h = (ctx @ w[:, :n].T)[:, None, :] + (xy @ w[:, n:].T + b)[None]  # (B, HW, width)
+        xy = lattice_xy(H, W, device=inputs.device, r0=r0)
+        flat_, cp, xy, w, b = promote(flat, case_params, xy, first.weight, first.bias)
+        ctx = field_product(w, flat_, cp, self.sp)  # (B, width)
+        h = ctx[:, None, :] + (xy @ w[:, n:].T + b)[None]  # (B, HW, width)
         return rest(h)[..., 0] + flat
 
 
@@ -103,6 +146,7 @@ class AutoDeepONet(nn.Module):
 
     pointwise = True
     out_chan = 1
+    sp = None  # the model axis the grid rows split over
 
     def __init__(self, branch_dim: int, width: int = 100, branch_depth: int = 4,
                  trunk_depth: int = 4, act_name: str = "relu", *,
@@ -117,8 +161,9 @@ class AutoDeepONet(nn.Module):
     def forward(self, inputs, case_params, mask=None):
         H, W = inputs.shape[1:3]
         flat = flat_u(inputs)
-        b = self.branch_net(torch.cat([flat, case_params], dim=1))  # (B, p)
-        t = self.trunk_net(trunk_input(H, W, device=inputs.device))  # (HW, p)
+        b = mlp_on_field(self.branch_net, flat, case_params, self.sp)  # (B, p)
+        r0 = row_span(H, self.sp)[0]
+        t = self.trunk_net(trunk_input(H, W, device=inputs.device, r0=r0))  # (HW, p)
         b, t = promote(b, t)
         return b @ t.T + self.bias + flat
 
@@ -130,6 +175,7 @@ class AutoEDeepONet(nn.Module):
 
     pointwise = True
     out_chan = 1
+    sp = None  # the model axis the grid rows split over
 
     def __init__(self, dim_branch1: int, dim_branch2: int, width: int = 100,
                  branch_depth: int = 4, trunk_depth: int = 4, act_name: str = "relu", *,
@@ -146,8 +192,9 @@ class AutoEDeepONet(nn.Module):
     def forward(self, inputs, case_params, mask=None):
         H, W = inputs.shape[1:3]
         flat = flat_u(inputs)
-        fused = self.branch1(flat) * self.branch2(case_params)  # (B, p)
-        t = self.trunk_net(trunk_input(H, W, device=inputs.device))
+        fused = mlp_on_field(self.branch1, flat, None, self.sp) * self.branch2(case_params)
+        r0 = row_span(H, self.sp)[0]
+        t = self.trunk_net(trunk_input(H, W, device=inputs.device, r0=r0))
         fused, t = promote(fused, t)
         return fused @ t.T + self.bias + flat
 
@@ -156,7 +203,10 @@ class CnnBranch(nn.Module):
     """conv5x5, ``depth`` x [conv5x5 → maxpool2 → relu], conv5x5, zero
     padding, 32 channels throughout (``auto_deeponet_cnn.py:13-39``);
     ``blocks`` holds a conv at every third slot, as the reference's
-    ``Sequential`` does."""
+    ``Sequential`` does. Under spatial sharding (``rows``, x's split) each
+    pooling reads a split whose ranks hold whole row pairs
+    (``parallel/spatial.py::Rows.pairs``); :meth:`forward` returns the
+    code's split with it."""
 
     def __init__(self, in_chan: int, depth: int = 4, *, generator: torch.Generator):
         super().__init__()
@@ -168,8 +218,16 @@ class CnnBranch(nn.Module):
         self.blocks = nn.Sequential(*blocks)
         self.out_conv = Conv(32, 32, 5, padding=2, generator=generator)
 
-    def forward(self, x):
-        return self.out_conv(self.blocks(self.in_conv(x)))
+    def forward(self, x, rows: Rows = None):
+        """``(code, its split)``; the split None without one."""
+        x = self.in_conv(x, rows)
+        blocks = self.blocks
+        for i in range(0, len(blocks), 3):
+            conv, pool, act = blocks[i:i + 3]
+            x, rows = to_pairs(conv(x, rows), rows)
+            x = act(pool(x, rows))
+            rows = None if rows is None else rows.halved(ceil=False)
+        return self.out_conv(x, rows), rows
 
 
 def cnn_code_dim(field_shape: Tuple[int, int], depth: int = 4) -> int:
@@ -201,6 +259,13 @@ class AutoDeepONetCnn(nn.Module):
 
     pointwise = True
     out_chan = 1
+    sp = None  # the model axis the grid rows split over
+
+    @staticmethod
+    def check_sp_rows(H: int, axis) -> None:
+        """Raise unless every rank keeps a row at every pooling of an H-row
+        grid split over ``axis`` (the splits of :class:`CnnBranch`)."""
+        Rows.even(H, axis).halvings(4, ceil=False)
 
     def __init__(self, in_chan: int = 2, num_case_params: int = 5,
                  field_shape: Tuple[int, int] = (64, 64), trunk_depth: int = 4,
@@ -225,6 +290,9 @@ class AutoDeepONetCnn(nn.Module):
         if x.shape[-1] != want:
             raise ValueError(f"AutoDeepONetCnn's first conv takes {want} channels, got "
                              f"{x.shape[-1]}")
-        code = self.branch_net(x).permute(0, 3, 1, 2).reshape(B, -1)  # (B, D)
-        t = self.trunk_net(trunk_input(H, W, device=inputs.device))  # (HW, D)
+        rows = Rows.of(H, self.sp) if active(self.sp) else None
+        code, rows = self.branch_net(x, rows)
+        code = all_rows(code, rows).permute(0, 3, 1, 2).reshape(B, -1)  # (B, D)
+        r0 = row_span(H, self.sp)[0]
+        t = self.trunk_net(trunk_input(H, W, device=inputs.device, r0=r0))  # (HW, D)
         return self.out_ffn(code[:, None, :] * t[None])[..., 0] + flat

@@ -28,6 +28,17 @@ them from the step's key before the forward, so a recomputed forward
 :class:`CrossAttnBlock` runs between the two middle blocks, its keys and
 values read from a ``context`` sequence. Convolutions are cuDNN calls on
 the card; no TPU kernel covers this model.
+
+Under spatial sharding (``--shard_spatial 1``, ``sp`` the model axis over
+which the grid rows split; the model without cross-attention, pixel
+diffusion's) a rank runs the network on its rows: the 3x3 convolutions
+take a halo of a row from the neighbouring ranks, the GroupNorms sum each
+sample's statistics over the model ranks (``models/common.py``). Each
+level tracks its split (``parallel/spatial.py::Rows``): a stride-2 ``down``
+reads its level's rows resharded so that each rank holds whole row pairs,
+and its output split is that one halved, rounded up; the nearest repeat of
+the decoder, cropped to the skip's rows, is resharded to the skip's split.
+The keep masks, drawn for the global grid, are sliced to each level's rows.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import promote
+from ..parallel.spatial import Rows, active, reshard, to_pairs
 from ..utils.rng import Key, generator as key_generator
 from .common import Conv, Dense, GroupNorm, num_groups_for
 
@@ -82,15 +94,15 @@ class FilmResBlock(nn.Module):
         self.conv2 = Conv(out_chan, out_chan, 3, padding=1, **g)
         self.dropout = dropout
 
-    def forward(self, x, cond_emb, keep: Optional[torch.Tensor] = None):
+    def forward(self, x, cond_emb, keep: Optional[torch.Tensor] = None, rows=None):
         residual = x if self.res_conv is None else self.res_conv(x)
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(F.silu(self.norm1(x)), rows)
         scale, shift = self.cond(F.silu(cond_emb))[:, None, None, :].chunk(2, dim=-1)
         h = F.silu(self.norm2(h) * (1 + scale) + shift)
         if keep is not None:
             # flax's Dropout: kept values scaled by 1 / (1 - rate).
             h = torch.where(keep, h / (1.0 - self.dropout), 0.0)
-        return self.conv2(h) + residual
+        return self.conv2(h, rows) + residual
 
 
 class CrossAttnBlock(nn.Module):
@@ -131,7 +143,16 @@ class PUNetGCFD(nn.Module):
     → (B, H, W, out_channels)``: x (B, H, W, in_channels), timesteps (B,)
     integers, case_params (B, n_case_params); ``context`` (B, S,
     ``context_dim``) when built with ``cross_attention``. Parameters are
-    drawn from ``generator`` on the CPU, then moved to ``device``."""
+    drawn from ``generator`` on the CPU, then moved to ``device``. Under
+    spatial sharding x is a rank's rows of the even split, and each keep
+    mask covers its level's global rows."""
+
+    sp = None  # the model axis the grid rows split over
+
+    def check_sp_rows(self, H: int, axis) -> None:
+        """Raise unless every rank keeps a row at every level of an H-row
+        grid split over ``axis`` (:meth:`_level_splits`)."""
+        self._level_splits(Rows.even(H, axis))
 
     def __init__(self, in_channels: int, out_channels: int, base_channels: int = 64,
                  n_case_params: int = 5, channel_mults: Sequence[int] = (1, 2, 4),
@@ -198,29 +219,55 @@ class PUNetGCFD(nn.Module):
         cond = torch.cat([t_emb, c_emb], dim=-1)
         masks = iter(keep_masks) if keep_masks is not None else itertools.repeat(None)
         blocks, downs, ups = iter(self.res_blocks), iter(self.downs), iter(self.ups)
+        base = rows = Rows.of(x.shape[1], self.sp) if active(self.sp) else None
 
-        h = self.conv_in(x)
+        def block(h):
+            keep = next(masks)
+            if keep is not None and rows is not None:
+                keep = keep.narrow(1, rows.r0, rows.h)
+            return next(blocks)(h, cond, keep, rows)
+
+        h = self.conv_in(x, rows)
         skips = [h]
         for i in range(self.levels):
             for _ in range(self.num_res_blocks):
-                h = next(blocks)(h, cond, next(masks))
+                h = block(h)
                 skips.append(h)
             if i != self.levels - 1:
-                h = next(downs)(h)
+                h, rows = to_pairs(h, rows)
+                h = next(downs)(h, rows)
+                rows = None if rows is None else rows.halved(ceil=True)
                 skips.append(h)
-        h = next(blocks)(h, cond, next(masks))
+        h = block(h)
         if self.cross_attn is not None and context is not None:
+            if rows is not None:
+                raise NotImplementedError("--shard_spatial 1: cross-attention on a rank's rows "
+                                          "is ROADMAP.md A15d3")
             h = self.cross_attn(h, context)
-        h = next(blocks)(h, cond, next(masks))
+        h = block(h)
+        splits = self._level_splits(base)
         for i in range(self.levels):
             if i != 0:
                 # Nearest x2, cropped to the skip's shape: the encoder maps
                 # an odd W to ceil(W/2), so the repeat overshoots by one.
                 B, H, W, C = h.shape
                 sh, sw = skips[-1].shape[1:3]
+                skip_rows = splits[self.levels - 1 - i]
+                if rows is not None:
+                    up = rows.doubled(skip_rows.H)
+                    sh = up.h
                 h = h[:, :, None, :, None, :].expand(B, H, 2, W, 2, C).reshape(
                     B, 2 * H, 2 * W, C)[:, :sh, :sw]
-                h = next(ups)(h)
+                if rows is not None:
+                    h, rows = reshard(h, up, skip_rows), skip_rows
+                h = next(ups)(h, rows)
             for _ in range(self.num_res_blocks + 1):
-                h = next(blocks)(torch.cat([h, skips.pop()], dim=-1), cond, next(masks))
-        return self.conv_out(F.silu(self.norm_out(h)))
+                h = block(torch.cat([h, skips.pop()], dim=-1))
+        return self.conv_out(F.silu(self.norm_out(h)), rows)
+
+    def _level_splits(self, rows):
+        """Each level's split under spatial sharding (None without): the
+        even split, then each stride-2 ``down``'s output split."""
+        if rows is None:
+            return [None] * self.levels
+        return rows.halvings(self.levels - 1, ceil=True)

@@ -22,10 +22,10 @@ checked with dropout off in both packages.
 
 Under spatial sharding (``--shard_spatial 1``, ``sp`` the model axis over
 which the grid rows split) a rank runs the network on its rows: the
-replicate-padded convolutions take a halo of ``padding`` rows from each
-neighbouring rank (``models/common.py::Conv``), so a rank must hold at
-least that many rows (:meth:`ResNet.check_sp_rows`), and the dropout
-masks are drawn over the global (B, H, W, C) and sliced.
+replicate-padded convolutions take a halo of ``padding`` rows from the
+ranks above and below (``models/common.py::Conv``), from as many ranks as
+hold them where a rank holds fewer rows than that, and the dropout masks
+are drawn over the global (B, H, W, C) and sliced.
 """
 
 from __future__ import annotations
@@ -88,13 +88,6 @@ class ResNet(nn.Module):
 
     pointwise = False
     draws_in_training = True
-
-    def check_sp_rows(self, h: int) -> None:
-        """Raise unless a rank's ``h`` rows cover the convolutions' halo."""
-        pad = self.blocks[0].conv1.padding
-        if h < pad:
-            raise ValueError(f"--shard_spatial 1 with --model resnet: a rank's {h} rows are "
-                             f"fewer than the {pad} rows of a convolution's halo")
 
     def __init__(self, in_chan: int = 2, out_chan: int = 2, n_case_params: int = 5,
                  hidden_chan: int = 32, num_blocks: int = 4, kernel_size: int = 7,

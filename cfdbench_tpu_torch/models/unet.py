@@ -12,13 +12,17 @@ the mask. Submodules carry the reference's ``state_dict`` names
 cuDNN / cuBLAS calls on the card (no TPU kernel covers them).
 
 Under spatial sharding (``--shard_spatial 1``, ``sp`` the model axis over
-which the grid rows split) a rank runs the network on its rows: the 3x3
-convolutions take a halo of one row from each neighbouring rank
+which the grid rows split) a rank runs the network on its rows, at any
+row count that divides over the model axis, as JAX's XLA runs it: the
+3x3 convolutions take a halo of one row from the neighbouring ranks
 (``models/common.py::Conv``), BatchNorm sums over every rank of the world
-(its ``mesh`` is the mesh's ``cells``), the pools and transposed convs
-keep to the rank's rows. Four poolings halve the rows four times, so a
-rank's rows must be a multiple of 2^4 (:meth:`UNet.check_sp_rows`):
-elsewhere a window, or ``Up``'s pad of an odd size, would cross ranks.
+(its ``mesh`` is the mesh's ``cells``, the element counts summed too). Each
+level's output is resharded so that every rank holds whole row pairs
+(``parallel/spatial.py::Rows.pairs``): the pooling windows stay within a
+rank, the level's skip keeps that split, and ``Up``'s transposed conv and
+its pad (the odd row at the grid's bottom, on the last rank) give the
+skip's split back, or are resharded to it. The output is resharded to
+the even split the batch came in.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from torch import nn
 
 from ..ops import common_dtype, promote
 from ..parallel.mesh import SINGLE
-from ..parallel.spatial import active
+from ..parallel.spatial import Rows, active, reshard, to_pairs
 from .common import (
     Conv,
     Dense,
@@ -64,7 +68,8 @@ class BatchNorm(nn.BatchNorm2d):
     the ranks, differentiably (``nn.SyncBatchNorm``'s job, in
     flax's numerics). Under spatial sharding ``mesh`` is the mesh's
     ``cells``: a rank's block of rows of its block of the batch, the sums
-    and the count over every rank of the world."""
+    and the count over every rank of the world (the counts summed with
+    the sums: a level's ranks may hold unequal rows)."""
 
     mesh = SINGLE
 
@@ -73,10 +78,11 @@ class BatchNorm(nn.BatchNorm2d):
         if self.training:
             x = x.to(torch.promote_types(out, torch.float32))
             C = x.shape[-1]
-            sums = self.mesh.sum(torch.cat([x.sum(dim=(0, 1, 2)), (x * x).sum(dim=(0, 1, 2))]))
-            count = x.numel() // C * self.mesh.size
+            sums = self.mesh.sum(torch.cat([x.sum(dim=(0, 1, 2)), (x * x).sum(dim=(0, 1, 2)),
+                                            x.new_full((1,), x.numel() // C)]))
+            count = sums[-1]
             mean = sums[:C] / count
-            var = torch.clamp(sums[C:] / count - mean * mean, min=0)
+            var = torch.clamp(sums[C:2 * C] / count - mean * mean, min=0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
@@ -102,8 +108,10 @@ class DoubleConv(nn.Module):
         self.conv1 = _conv_bn_relu(in_chan, out_chan, generator)
         self.conv2 = _conv_bn_relu(out_chan, out_chan, generator)
 
-    def forward(self, x):
-        return self.conv2(self.conv1(x))
+    def forward(self, x, rows=None):
+        for conv, norm, act in (self.conv1, self.conv2):
+            x = act(norm(conv(x, rows)))
+        return x
 
 
 class Down(nn.Module):
@@ -112,8 +120,11 @@ class Down(nn.Module):
         self.maxpool_conv = nn.Sequential(
             MaxPool2(), DoubleConv(in_chan, out_chan, generator=generator))
 
-    def forward(self, x):
-        return self.maxpool_conv(x)
+    def forward(self, x, rows=None):
+        """``rows``: x's split, whose ranks hold whole row pairs; the output
+        is on that split halved."""
+        pool, conv = self.maxpool_conv
+        return conv(pool(x, rows), None if rows is None else rows.halved(ceil=False))
 
 
 class ConvTranspose2x2(nn.Module):
@@ -145,13 +156,24 @@ class Up(nn.Module):
         self.up = ConvTranspose2x2(in_chan, in_chan // 2, generator=generator)
         self.conv = DoubleConv(in_chan, out_chan, generator=generator)
 
-    def forward(self, x1, x2):
+    def forward(self, x1, x2, rows=None, skip_rows=None):
+        """``rows`` and ``skip_rows``: the splits of x1 and of the skip x2
+        under spatial sharding, else None."""
         x1 = self.up(x1)
-        dh = x2.shape[1] - x1.shape[1]
         dw = x2.shape[2] - x1.shape[2]
-        if dh or dw:
-            x1 = F.pad(x1, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
-        return self.conv(torch.cat([x2, x1], dim=-1))
+        if rows is None:
+            dh = x2.shape[1] - x1.shape[1]
+            if dh or dw:
+                x1 = F.pad(x1, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
+        else:
+            # The skip's rows are 2 h or 2 h + 1 (a pool drops an odd row):
+            # the pad is (0, 1) rows, the last rank's.
+            up = rows.doubled(skip_rows.H)
+            dh = up.h - x1.shape[1]
+            if dh or dw:
+                x1 = F.pad(x1, (0, 0, dw // 2, dw - dw // 2, 0, dh))
+            x1 = reshard(x1, up, skip_rows)
+        return self.conv(torch.cat([x2, x1], dim=-1), skip_rows)
 
 
 class OutConv(nn.Module):
@@ -171,16 +193,12 @@ class UNet(nn.Module):
 
     pointwise = False
     sp = None  # the model axis the grid rows split over
-    SP_ROW_MULTIPLE = 2 ** 4  # four 2x2 poolings
 
-    @classmethod
-    def check_sp_rows(cls, h: int) -> None:
-        """Raise unless a rank's ``h`` rows pool and upsample within the rank."""
-        if h % cls.SP_ROW_MULTIPLE:
-            raise ValueError(
-                f"--shard_spatial 1 with --model unet: a rank's {h} rows are not a multiple of "
-                f"2^4 = {cls.SP_ROW_MULTIPLE}, so a pooling window or Up's pad of an odd size "
-                "would cross ranks (the JAX package's XLA does that exchange; ROADMAP.md C)")
+    @staticmethod
+    def check_sp_rows(H: int, axis) -> None:
+        """Raise unless every rank keeps a row at every level of an H-row
+        grid split over ``axis`` (the splits of :meth:`forward`)."""
+        Rows.even(H, axis).halvings(4, ceil=False)
 
     def __init__(self, in_chan: int = 2, out_chan: int = 2, n_case_params: int = 5,
                  insert_case_params_at: str = "input", dim: int = 12, *,
@@ -209,22 +227,25 @@ class UNet(nn.Module):
 
     def forward(self, inputs, case_params, mask=None):
         B, H, W, _ = inputs.shape
-        if active(self.sp):
-            self.check_sp_rows(H)
         residual = inputs[..., :self.out_chan]
         mask = ensure_mask(mask, B, H, W, device=inputs.device)
         parts = [inputs, mask]
         if self.insert_case_params_at == "input":
             parts.append(broadcast_params_to_channels(case_params, H, W))
-        x1 = self.in_conv(torch.cat(parts, dim=-1))
-        x2 = self.down1(x1)
-        x3 = self.down2(x2)
-        x4 = self.down3(x3)
-        x5 = self.down4(x4)
+        base = Rows.of(H, self.sp) if active(self.sp) else None
+        x1, r1 = to_pairs(self.in_conv(torch.cat(parts, dim=-1), base), base)
+        x2, r2 = to_pairs(*self._down(self.down1, x1, r1))
+        x3, r3 = to_pairs(*self._down(self.down2, x2, r2))
+        x4, r4 = to_pairs(*self._down(self.down3, x3, r3))
+        x5, r5 = self._down(self.down4, x4, r4)
         if self.insert_case_params_at == "hidden":
             x5 = x5 + self.case_params_fc(case_params)[:, None, None, :]
-        x = self.up1(x5, x4)
-        x = self.up2(x, x3)
-        x = self.up3(x, x2)
-        x = self.up4(x, x1)
-        return (self.out_conv(x) + residual) * mask
+        x = self.up1(x5, x4, r5, r4)
+        x = self.up2(x, x3, r4, r3)
+        x = self.up3(x, x2, r3, r2)
+        x = self.up4(x, x1, r2, r1)
+        return (reshard(self.out_conv(x), r1, base) + residual) * mask
+
+    @staticmethod
+    def _down(down, x, rows):
+        return down(x, rows), None if rows is None else rows.halved(ceil=False)

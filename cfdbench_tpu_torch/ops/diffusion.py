@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import SINGLE, DataMesh
+from ..parallel.spatial import row_span, take_rows
 from ..utils.rng import Key, generator
 
 # diffusers' default ``clip_sample_range``: the predicted x0 is clipped to it.
@@ -145,12 +146,15 @@ def ddpm_noise(key: Key, index: int, shape, device) -> torch.Tensor:
     return torch.randn(tuple(shape), generator=gen, device=device)
 
 
-def sampler_noise(key: Key, steps: int, shape, device, mesh: DataMesh = SINGLE) -> torch.Tensor:
+def sampler_noise(key: Key, steps: int, shape, device, mesh: DataMesh = SINGLE,
+                  rows=None) -> torch.Tensor:
     """``(steps + 1, *shape)``: draws 0..steps of the sampling run keyed
     ``key`` (:func:`ddpm_noise`), each made over ``mesh``'s global batch
-    and sliced to its block (``shape``)."""
-    global_shape = mesh.global_shape(shape)
-    return torch.stack([mesh.block(ddpm_noise(key, i, global_shape, device))
+    and, under spatial sharding over ``rows`` (a model axis), the global
+    grid, and sliced to its block (``shape``)."""
+    global_shape = list(mesh.global_shape(shape))
+    global_shape[1] = row_span(shape[1], rows)[1]
+    return torch.stack([take_rows(mesh.block(ddpm_noise(key, i, global_shape, device)), rows)
                         for i in range(steps + 1)])
 
 
@@ -187,18 +191,19 @@ def sampler_step(denoise_fn: Callable, x, step, operands=()):
 
 def ddpm_sample(scheduler: DDPMScheduler, denoise_fn: Callable, shape, key: Key,
                 num_inference_steps: int = 50, device=None, mesh: DataMesh = SINGLE,
-                noise=None, operands=(), module: nn.Module = None) -> torch.Tensor:
+                noise=None, operands=(), module: nn.Module = None, rows=None) -> torch.Tensor:
     """The full DDPM sampling loop from x_T: ``num_inference_steps`` calls
     of ``denoise_fn(x_t, t_batch, *operands) -> eps``, without gradients.
     ``noise`` is ``(num_inference_steps + 1, *shape)``: x_T, then each
     step's noise, the last (t = 0) too, which is not added, as in the JAX
     package; when None, :func:`sampler_noise` draws it from ``key``.
-    ``shape`` is ``mesh``'s block of the batch. Under ``torch.export`` the
+    ``shape`` is ``mesh``'s block of the batch (and under spatial sharding
+    over ``rows`` its rows of the grid). Under ``torch.export`` the
     steps run as one scan operator, and ``denoise_fn`` may read no tensor
     but those of ``module`` (its network) and ``operands``."""
     want = (num_inference_steps + 1, *shape)
     if noise is None:
-        noise = sampler_noise(key, num_inference_steps, shape, device, mesh)
+        noise = sampler_noise(key, num_inference_steps, shape, device, mesh, rows)
     elif tuple(noise.shape) != want:
         raise ValueError(f"the sampler's noise is {tuple(noise.shape)}; it takes {want}")
     steps = (*scheduler.step_tables(num_inference_steps, noise.device), noise[1:])

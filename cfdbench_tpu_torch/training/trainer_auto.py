@@ -83,6 +83,8 @@ from ..metrics import LossFn
 from ..models import fno
 from ..models.common import cast_call
 from ..models.ffno import Ffno2d
+from ..models.point import AutoDeepONet, AutoDeepONetCnn, AutoEDeepONet, AutoFfn
+from ..models.punetg import PUNetGCFD
 from ..models.resnet import ResNet
 from ..models.unet import BatchNorm, UNet
 from ..parallel.mesh import SINGLE, DataMesh
@@ -181,16 +183,18 @@ def use_mesh(task, mesh: DataMesh) -> None:
             module.mesh = mesh
 
 
-# The models that run on a rank's grid rows (--shard_spatial 1); the others
-# are ROADMAP.md A15d2.
-SPATIAL_MODELS = (fno.Fno2d, Ffno2d, UNet, ResNet)
+# The models that run on a rank's grid rows (--shard_spatial 1); the latent
+# diffusion models' denoiser is ROADMAP.md A15d3.
+SPATIAL_MODELS = (fno.Fno2d, Ffno2d, UNet, ResNet, AutoFfn, AutoDeepONet, AutoEDeepONet,
+                  AutoDeepONetCnn, PUNetGCFD)
 
 
 def use_spatial(task, axis) -> None:
     """Run ``task`` on its rank's grid rows over ``axis`` (a model axis;
     spatial sharding), or with None on whole rows again: the batches' and
-    the modules' rows (``sp``), and the loss's and BatchNorm's sums over
-    every rank of the world (``DataMesh.cells``) or the data axis."""
+    the modules' rows (``sp``), the draws of a diffusion task, and the
+    loss's and BatchNorm's sums over every rank of the world
+    (``DataMesh.cells``) or the data axis."""
     task.rows = axis
     field = task.mesh if axis is None else task.mesh.cells()
     task.loss_fn.mesh = field
@@ -204,15 +208,16 @@ def use_spatial(task, axis) -> None:
 def check_spatial(model, mesh: DataMesh, field_shape) -> None:
     """Raise, naming the limit, unless ``model`` can run on a rank's rows of
     a grid of ``field_shape`` over ``mesh``'s model axis: a model that
-    :data:`SPATIAL_MODELS` holds, rows that divide over the axis, and the
-    model's own limit (``check_sp_rows``)."""
+    :data:`SPATIAL_MODELS` holds, rows that divide over the axis, and every
+    rank keeping a row at every level of a model that halves the grid
+    (``check_sp_rows``)."""
     if not isinstance(model, SPATIAL_MODELS):
         raise NotImplementedError(
-            f"--shard_spatial 1 with {type(model).__name__}: spatial sharding runs the FNO, "
-            "the FFNO, the U-Net and the ResNet (ROADMAP.md A15d2)")
-    _, h = mesh.rows(field_shape[0])
+            f"--shard_spatial 1 with {type(model).__name__}: the latent diffusion models on a "
+            "rank's rows are ROADMAP.md A15d3")
+    mesh.rows(field_shape[0])
     if mesh.model.distributed and hasattr(model, "check_sp_rows"):
-        model.check_sp_rows(h)
+        model.check_sp_rows(field_shape[0], mesh.model)
 
 
 class ModelSplit:
@@ -292,13 +297,11 @@ def split_model(task, pp_microbatches: int = 0, spatial: bool = False) -> None:
     slices at use (:func:`split_module`); the whole parameters that every
     rank uses whole have their gradients averaged over the model ranks.
     With ``spatial`` every model gathers at use and runs on its rank's
-    grid rows (:func:`use_spatial`)."""
+    grid rows (:func:`use_spatial`), except under pp: the JAX pipeline takes
+    the batch as ``P(data)``, so every stage runs whole rows and the step is
+    pp's alone."""
     axis, model = task.mesh.model, task.model
-    if spatial and pp_microbatches:
-        raise NotImplementedError(
-            "--pp_microbatches with --shard_spatial 1: pipeline stages on a rank's grid rows "
-            "are ROADMAP.md A15d2")
-    if spatial and axis.distributed:
+    if spatial and axis.distributed and not pp_microbatches:
         task.split = split_module(model, task.mesh, spatial=True)
         use_spatial(task, axis)
         return

@@ -121,7 +121,8 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    the FNO's launches a served call as in (b). (d) ``serve_bench_torch.py
    --selftest`` for pixel diffusion and latent_diffusion2 at their default
    widths (50 denoising steps; the latent model on a seeded lite VAE),
-   64x64: predict at b8 and b32, the 20-step rollout at b8. Each served
+   64x64: predict at b8 and b32, a rollout of SERVE_DIFFUSION_ROLLOUT_STEPS
+   frames at b8. Each served
    call without noise (it draws what the in-process call draws) within
    1e-5 of max |frame| of the in-process one; the predict's graph holds
    the sampler as one loop operator, the rollout's one loop over the
@@ -221,7 +222,8 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    their permuted-row control's distance plus DP_RTOL, and their first
    float64 step (scores, gradients of the largest, parameters) within
    DP_RTOL; GenCast's ``main_multistep`` of phase 13b's checkpoint, frames
-   and metrics within DP_RTOL; the flagship's ``main_auto
+   and metrics within DP_RTOL (each frame sampled in
+   TP_GENCAST_INFERENCE_STEPS denoising steps); the flagship's ``main_auto
    --use_mixed_precision`` under tp and under pp (losses and dev scores
    within TP_BF16_RTOL of one process's mixed-precision run) and its
    ``main_multistep --rollout_dtype bfloat16`` under tp (bfloat16 frames
@@ -255,7 +257,24 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    plus DP_RTOL, the others' losses, dev scores and weights within
    DP_RTOL), each rank's launches one process's; the flagship again on
    ``2x2``, four ranks; each rank's peak memory of a DP_BATCH flagship
-   step against one process's.
+   step against one process's. (c) The rest of ``main_auto --shard_spatial
+   1`` at ``1x2`` (:func:`spatial_rest`), each run against one process
+   within (b)'s gates: the flagship with ``--use_mixed_precision`` (losses
+   and dev scores within TP_BF16_RTOL; both kernels on every rank in its
+   float32 evaluation) and with ``--pp_microbatches`` (every stage on whole
+   rows, as JAX's pipeline takes its batch: the step is pp's; its kernels
+   on the stages), the U-Net on a TUBE_GRID tree (33 rows a rank), the
+   point models SP_POINT_MODELS and pixel diffusion at SP_PIXEL_BATCH at
+   default widths, their epochs against the largest of their permuted-row
+   controls (SP_CONTROL_SEEDS) and the float64 steps of each of them
+   within DP_RTOL; each rank's peak memory of a b128 U-Net step on
+   TUBE_GRID and a b8 pixel diffusion step, as a fraction of one
+   process's, with what fills it (the rank's parameters, gradients and
+   Adam state, and a second step's peak over them), and the phase's
+   seconds, on its ``[phase15c]`` line.
+
+Every phase's seconds are printed on a line of their own (``[seconds]``),
+and the whole script's.
 
 ``launches`` in the kernels' record is phase 3's count (main_multistep),
 ``launches_by_path`` each main path's own: main_multistep's and
@@ -271,7 +290,8 @@ with --use_mixed_precision and main_multistep with --rollout_dtype
 bfloat16 under tensor parallelism and main_auto in both precisions under
 pipeline parallelism (phase 14: ``tp2_rank{r}_*``, ``pp2_rank{r}_*``),
 and each rank's main_auto under spatial sharding (phase 15:
-``sp1x2_rank{r}_main_auto_sp``, ``sp2x2_rank{r}_main_auto_sp``),
+``sp1x2_rank{r}_main_auto_sp``, ``sp2x2_rank{r}_main_auto_sp``; phase 15c:
+``sp1x2_rank{r}_main_auto_sp_<run>`` for each of its runs),
 each read from counters set
 to 0 just before the run and read just after it; ``at_rank_shapes`` the
 kernel's phase 14a records, ``at_rank_rows`` its phase 15a records. The
@@ -371,6 +391,7 @@ SERVE_ITERS = 12
 # SERVE_UNET_RTOL.
 SERVE_DIFFUSION = ("pixel_diffusion", "latent_diffusion2")
 SERVE_DIFFUSION_ITERS = 2
+SERVE_DIFFUSION_ROLLOUT_STEPS = 4  # the served rollout's frames (each 50 denoising steps)
 # Phase 12: mixed precision, Adafactor, the bfloat16 rollout.
 MP_MODELS = ("fno", "unet", "ffno", "pixel_diffusion")
 BF16_ROLLOUT = ("fno", "unet", "ffno")
@@ -440,6 +461,9 @@ TP_RANKS = 2
 PP_MICRO = 2
 RANK_BLOCK_COUT = (16, 8)
 RANK_HEAD_HIDDEN = (64, 32)
+# Phase 14b's GenCast rollout (20 frames) samples each frame with fewer
+# denoising steps: each step gathers the split PUNetG over the ranks.
+TP_GENCAST_INFERENCE_STEPS = "2"
 # Phase 14b's other trainers, whose network tp splits and gathers at use.
 SPLIT_TRAINERS = ("gencast", "vae", "uncond")
 # Phase 14b's runs on the default algorithms, as users' runs take them: phase
@@ -469,6 +493,26 @@ TP_BF16_FRAME_RTOL = 3e-2
 SP_KERNEL_CASES = ((GRID, GRID, 2), (GRID, GRID, 4), (256, 256, 2))
 SP_MESHES = ("1x2", "2x2")
 SP_RANKS = {"1x2": 2, "2x2": 4}
+# Phase 15c: the rest of main_auto under --shard_spatial 1 on SP_MESHES[0]:
+# the flagship with --use_mixed_precision and with --pp_microbatches
+# PP_MICRO, the U-Net on a TUBE_GRID tree (33 rows a rank, which its
+# poolings reshard), two point models and pixel diffusion (SP_PIXEL_BATCH),
+# at default widths; and each rank's peak memory of one step of the U-Net
+# and of pixel diffusion (model flags, grid, global batch).
+TUBE_GRID = (66, 65)  # the tube and dam problems' grid
+SP_POINT_MODELS = ("auto_ffn", "auto_deeponet_cnn")
+# Phase 15c's runs whose epoch is held against permuted-row controls, one a
+# seed: gradients of rounding level (the biases that the U-Net's BatchNorms
+# and the PUNetG's GroupNorms cancel; the point models' weights into units
+# whose gradient sums cancel) turn into Adam steps of either sign. A control
+# is one draw of the drift that rounding alone leaves, so the bound takes the
+# largest of a few. On an H100 the U-Net's three controls read 6.1e-4 to
+# 7.1e-3 in their losses.
+SP_CONTROLLED = ("unet66",) + SP_POINT_MODELS + ("pixel_diffusion",)
+SP_CONTROL_SEEDS = (SEED, SEED + 1000, SEED + 2000)
+SP_PIXEL_BATCH = 8
+SP_MEMORY = {"memory_unet66": (["--model", "unet"], TUBE_GRID, 128),
+             "memory_pixel": (["--model", "pixel_diffusion"], (GRID, GRID), SP_PIXEL_BATCH)}
 # An H100 SXM's published peaks (NVIDIA's data sheet, dense rates): device
 # memory bytes/s, TF32 FLOP/s on the tensor cores and float32 FLOP/s outside
 # them. A split-TF32 product (csrc/tf32.cuh) is three TF32 products.
@@ -480,6 +524,24 @@ SPLIT_TF32_PRODUCTS = 3
 
 def sh(*cmd) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
+
+
+class PhaseClock:
+    """Each phase's seconds, printed on a line of its own as it ends, and
+    the whole script's, from the clock's start (``card`` names the card
+    once it is known)."""
+
+    def __init__(self):
+        self.card = ""
+        self.start = self.last = time.perf_counter()
+
+    def done(self, phase: str) -> None:
+        now = time.perf_counter()
+        print(f"[seconds] [{self.card}] phase {phase}: {now - self.last:.1f} s")
+        self.last = now
+
+    def total(self) -> None:
+        print(f"[seconds] [{self.card}] all phases: {time.perf_counter() - self.start:.1f} s")
 
 
 def time_ms(fn, reps: int) -> float:
@@ -773,12 +835,14 @@ def timing(device, card):
     return times
 
 
-def train_inputs(B, gen, device):
-    """A seeded batch for the flagship at 64x64 (mask with a hole)."""
-    mask = torch.ones((B, GRID, GRID, 1))
+def train_inputs(B, gen, device, grid=(GRID, GRID)):
+    """A seeded batch for the flagship at 64x64, or on ``grid`` (mask with
+    a hole)."""
+    H, W = grid
+    mask = torch.ones((B, H, W, 1))
     mask[:, 20:30, 10:40] = 0
-    batch = dict(inputs=torch.randn((B, GRID, GRID, 2), generator=gen),
-                 labels=torch.randn((B, GRID, GRID, 2), generator=gen),
+    batch = dict(inputs=torch.randn((B, H, W, 2), generator=gen),
+                 labels=torch.randn((B, H, W, 2), generator=gen),
                  case_params=torch.randn((B, 5), generator=gen), mask=mask,
                  weights=torch.ones(B))
     return {k: v.to(device) for k, v in batch.items()}
@@ -2105,12 +2169,12 @@ def serving_diffusion(card):
     for model in SERVE_DIFFUSION:
         for B, kind, iters, warmup in runs:
             r = bench.main(["--selftest", "--model", model, "--batch", str(B), "--grid", str(GRID),
-                            "--steps", str(STEPS), "--only", kind, "--iters", str(iters),
-                            "--warmup", str(warmup)])["selftest"][kind]
+                            "--steps", str(SERVE_DIFFUSION_ROLLOUT_STEPS), "--only", kind,
+                            "--iters", str(iters), "--warmup", str(warmup)])["selftest"][kind]
             path = f"serve_{model}_{kind}_b{B}"
             launches[path], timing[path] = r["launches_per_call"], r
             loops = [1] if kind == "predict" else [1, 1]
-            frames = (B,) if kind == "predict" else (STEPS, B)
+            frames = (B,) if kind == "predict" else (SERVE_DIFFUSION_ROLLOUT_STEPS, B)
             if (any(r["launches_per_call"].values()) or r["loops"] != loops
                     or tuple(r["out_shape"][:-3]) != frames
                     or not r["max_abs_diff_vs_in_process"] <= SERVE_UNET_RTOL * r["max_abs_out"]):
@@ -2120,7 +2184,8 @@ def serving_diffusion(card):
                                    f"{r['max_abs_diff_vs_in_process']:.3e} (max |out| "
                                    f"{r['max_abs_out']:.3e}, bound {SERVE_UNET_RTOL:.0e})")
             print(f"[time] [{card}] served {model} {kind} b{B} {GRID}x{GRID}"
-                  f"{f' x {STEPS} steps' if kind == 'rollout' else ''}, 50 denoising steps: "
+                  f"{f' x {SERVE_DIFFUSION_ROLLOUT_STEPS} steps' if kind == 'rollout' else ''}, "
+                  "50 denoising steps: "
                   f"export {r['export_s']:.2f} s, artifact {r['bytes']} bytes (weights "
                   f"{r['weights_bytes']} bytes), graph {r['nodes']} nodes, loops by depth "
                   f"{r['loops']}; served {r['latency_ms_per_call']:.3f} ms a call (device "
@@ -2537,7 +2602,7 @@ def dp_trainer_jobs(data_root: Path, out: Path, mesh: str):
          for name in ("ffn", "deeponet", "gencast", "vae", "uncond")]
 
 
-def dp_step(argv, device, dtype=torch.float64) -> dict:
+def dp_step(argv, device, dtype=torch.float64, grid=(GRID, GRID)) -> dict:
     """One ``trainer_auto.train_step`` of ``main_auto``'s task for ``argv``
     (its init from ``--seed``, Adam at its ``--lr``) on this rank's block of
     a seeded global batch of DP_UNET_BATCH rows, the last of them weight-0
@@ -2548,7 +2613,8 @@ def dp_step(argv, device, dtype=torch.float64) -> dict:
     stands clear of float32's rounding, which a train-mode BatchNorm turns,
     in a first convolution's weight gradient, into a sum over 131,072 rows
     of terms that cancel. A float32 step (``step32``) is the first step of
-    the run itself, whose gradients pixel diffusion's run is held by."""
+    the run itself, whose gradients pixel diffusion's run is held by. The
+    batch is on ``grid`` (``step_tube``: TUBE_GRID)."""
     import torch.distributed as dist
 
     from cfdbench_tpu_torch.cli import make_auto_task, parse_args
@@ -2562,14 +2628,14 @@ def dp_step(argv, device, dtype=torch.float64) -> dict:
     mesh = make_mesh(args.mesh_shape, dist.group.WORLD if dist.is_initialized() else None)
     if args.model in ("ffn", "deeponet", "gencast", "vae", "uncond"):
         return dp_trainer_step(args, mesh, device)
-    task = make_auto_task(args, 5, (GRID, GRID), device)
+    task = make_auto_task(args, 5, grid, device)
     task.model.to(dtype)
     use_mesh(task, mesh)
     if args.shard_spatial:  # phase 15
         split_model(task, 0, True)
     split = getattr(task, "split", None)
     opt, sched = make_adam(task.model.parameters(), args.lr)
-    batch = train_inputs(DP_UNET_BATCH, torch.Generator().manual_seed(SEED + 13), "cpu")
+    batch = train_inputs(DP_UNET_BATCH, torch.Generator().manual_seed(SEED + 13), "cpu", grid)
     for v in batch.values():
         v[DP_STEP_VALID:] = 0
     block = {k: v.to(device, dtype).contiguous()
@@ -2732,12 +2798,16 @@ def dp_run(jobs, device, rank: int = 0, deterministic: bool = True) -> dict:
         for name, entry, argv in jobs:
             t0 = time.perf_counter()
             reset_launch_counts()
-            if entry in ("step", "step32"):
-                r = dp_step(argv, device, torch.float64 if entry == "step" else torch.float32)
+            if entry in ("step", "step32", "step_tube"):
+                r = dp_step(argv, device, torch.float32 if entry == "step32" else torch.float64,
+                            TUBE_GRID if entry == "step_tube" else (GRID, GRID))
             elif entry == "bytes":
                 r = split_bytes(argv, device)
             elif entry == "memory":
                 r = sp_memory(argv, device)
+            elif entry in SP_MEMORY:
+                flags, grid, batch = SP_MEMORY[entry]
+                r = sp_memory(flags + argv, device, grid, batch)
             else:
                 tee = Tee()
                 with contextlib.redirect_stdout(tee):
@@ -2793,7 +2863,11 @@ class permuted_train_rows:
     permuted (a seeded permutation a batch), and the draws of that batch
     with them (the VAE's posterior noise; the diffusion models' noise,
     timesteps and dropout masks): the same sums in another order, the
-    control of the runs whose drift is Adam amplifying rounding."""
+    control of the runs whose drift is Adam amplifying rounding. ``seed``
+    picks the permutations."""
+
+    def __init__(self, seed: int = SEED):
+        self.seed = seed
 
     def __enter__(self):
         import numpy as np
@@ -2810,7 +2884,7 @@ class permuted_train_rows:
                                        pad_multiple=pad_multiple)):
                 rows.pop("perm", None)
                 if shuffle:
-                    p = rows["perm"] = np.random.default_rng(SEED + i).permutation(
+                    p = rows["perm"] = np.random.default_rng(self.seed + i).permutation(
                         len(b["weights"]))
                     b = {k: v[p] for k, v in b.items()}
                 yield b
@@ -3240,7 +3314,8 @@ def tp_jobs(data_root: Path, out: Path):
         ("fno_pp", "main_auto", [a.replace(str(out), f"{out}_pp") for a in fno] + pp),
         jobs["unet"], jobs["ffn"], jobs["deeponet"],
         *(jobs[n] for n in SPLIT_TRAINERS),
-        ("gencast_multistep", "main_multistep", gencast),
+        ("gencast_multistep", "main_multistep",
+         gencast + ["--ldm_num_inference_steps", TP_GENCAST_INFERENCE_STEPS]),
         ("fno_mp", "main_auto", [a.replace(str(out), f"{out}_mp") for a in fno] + mp),
         ("fno_mp_pp", "main_auto", [a.replace(str(out), f"{out}_mp_pp") for a in fno] + mp + pp),
         ("fno_bf16_multistep", "main_multistep", bf16 + ["--rollout_dtype", "bfloat16"]),
@@ -3635,11 +3710,15 @@ def sp_jobs(data_root: Path, out: Path, mesh: str):
         ("memory", "memory", ["--mesh_shape", mesh] + sp)]
 
 
-def sp_memory(argv, device) -> dict:
-    """This rank's peak device memory over one flagship train step at
-    DP_BATCH (global) on ``--mesh_shape`` (``--shard_spatial 1``: its rows
-    of its block), and what the step added to what was allocated before it
-    (the activations and the gradients)."""
+def sp_memory(argv, device, grid=(GRID, GRID), global_batch: int = DP_BATCH) -> dict:
+    """This rank's peak device memory over one train step of the flagship
+    (or of the model ``argv`` names) at DP_BATCH (or ``global_batch``) on
+    ``grid`` and ``--mesh_shape`` (``--shard_spatial 1``: its rows of its
+    block), and what the step added to what was allocated before it (the
+    activations, the gradients and Adam's state). Then what fills it: the
+    bytes of this rank's parameters, of their gradients and of Adam's
+    state after the step, and the peak that a second step adds to what was
+    allocated before it, Adam's state in place (``step2_bytes``)."""
     import torch.distributed as dist
 
     from cfdbench_tpu_torch.cli import make_auto_task, parse_args
@@ -3651,22 +3730,33 @@ def sp_memory(argv, device) -> dict:
 
     args = parse_args(fno_argv(WORK / "dp_data", WORK / "memory") + argv)
     mesh = make_mesh(args.mesh_shape, dist.group.WORLD if dist.is_initialized() else None)
-    task = make_auto_task(args, 5, (GRID, GRID), device)
+    task = make_auto_task(args, 5, grid, device)
     use_mesh(task, mesh)
     split_model(task, 0, bool(args.shard_spatial))
     opt, sched = make_adam(trained_module(task).parameters(), args.lr)
     gen = torch.Generator().manual_seed(SEED + 16)
-    batch = field_rows(mesh.block(train_inputs(DP_BATCH, gen, device)),
+    batch = field_rows(mesh.block(train_inputs(global_batch, gen, device, grid)),
                        getattr(task, "rows", None))
     batch = {k: v.contiguous() for k, v in batch.items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     before = torch.cuda.memory_allocated(device)
-    train_step(task, opt, sched, batch)
+    train_step(task, opt, sched, batch, task.step_draws(SEED, 0, device))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(device)
+    params = list(trained_module(task).parameters())
+    parts = {"param_bytes": params,
+             "grad_bytes": [p.grad for p in params if p.grad is not None],
+             "adam_bytes": [v for st in opt.state.values() for v in st.values()
+                            if torch.is_tensor(v)]}
+    parts = {k: sum(t.numel() * t.element_size() for t in ts) for k, ts in parts.items()}
+    torch.cuda.reset_peak_memory_stats(device)
+    before2 = torch.cuda.memory_allocated(device)
+    train_step(task, opt, sched, batch, task.step_draws(SEED, 1, device))
+    torch.cuda.synchronize()
+    step2 = torch.cuda.max_memory_allocated(device) - before2
     join_model(task)
-    return dict(peak_bytes=peak, step_bytes=peak - before)
+    return dict(peak_bytes=peak, step_bytes=peak - before, step2_bytes=step2, **parts)
 
 
 def spatial_ranks(device, card, data_root: Path, single: dict, controls: dict) -> dict:
@@ -3761,6 +3851,190 @@ def spatial_ranks(device, card, data_root: Path, single: dict, controls: dict) -
     return counts, memory
 
 
+def tube_grid_tree(root: Path) -> Path:
+    """Phase 13's 12-case tree of STEPS + 1 frames on TUBE_GRID: the
+    generator's square tree of 66 rows, each frame cropped to 65 columns."""
+    import numpy as np
+
+    from cfdbench_tpu_torch.data.synthetic import generate_problem
+
+    H, W = TUBE_GRID
+    generate_problem(root, "cavity", cases_per_subset=4, num_frames=STEPS + 1, grid=H,
+                     seed=SEED)
+    for f in root.rglob("*.npy"):
+        np.save(f, np.load(f)[..., :W])
+    return root
+
+
+def sp_rest_jobs(data_root: Path, tube_root: Path, out: Path, mesh: str):
+    """Phase 15c's runs on ``mesh`` (``--shard_spatial 1`` unless ``mesh`` is
+    "1", the one-process references): phase 13b's flagship main_auto with
+    --use_mixed_precision (``fno_mp``, into ``out``'s sibling ``_mp``) and
+    with --pp_microbatches PP_MICRO (``fno_pp``; its reference is phase
+    13b's run), an epoch of the U-Net on the TUBE_GRID tree at DP_UNET_BATCH,
+    of each of SP_POINT_MODELS at DP_UNET_BATCH and of pixel diffusion at
+    SP_PIXEL_BATCH, at default widths; a float64 step of the U-Net on
+    TUBE_GRID, of each of SP_POINT_MODELS and of pixel diffusion
+    (:func:`dp_step`); then the memory records of SP_MEMORY."""
+    sp = ["--shard_spatial", "1"] if mesh != "1" else []
+    fno = {n: a for n, _, a in dp_jobs(data_root, out, mesh)}["fno"]
+    data = ["--data_name", "cavity_prop_bc_geo", "--data_dir", str(data_root),
+            "--output_dir", str(out), "--mesh_shape", mesh, "--log_interval", "100",
+            "--mode", "train", "--num_epochs", "1", "--eval_interval", "1"]
+    batch = ["--batch_size", str(DP_UNET_BATCH), "--eval_batch_size", str(DP_UNET_BATCH)]
+    tube = [str(tube_root) if a == str(data_root) else a for a in data]
+    jobs = [("fno_mp", "main_auto",
+             [a.replace(str(out), f"{out}_mp") for a in fno] + ["--use_mixed_precision", "1"]),
+            ("fno_pp", "main_auto", fno + ["--pp_microbatches", str(PP_MICRO)]),
+            ("unet66", "main_auto", ["--model", "unet"] + batch + tube)]
+    jobs += [(name, "main_auto", ["--model", name] + batch + data) for name in SP_POINT_MODELS]
+    jobs.append(("pixel_diffusion", "main_auto", [
+        "--model", "pixel_diffusion", "--batch_size", str(SP_PIXEL_BATCH),
+        "--max_eval_batches", "1", "--ldm_num_inference_steps", MP_INFERENCE_STEPS] + data))
+    jobs += [("unet66_step", "step_tube", ["--model", "unet", "--mesh_shape", mesh])]
+    jobs += [(f"{name}_step", "step", ["--model", name, "--mesh_shape", mesh])
+             for name in SP_POINT_MODELS + ("pixel_diffusion",)]
+    jobs += [(name, name, ["--mesh_shape", mesh]) for name in SP_MEMORY]
+    jobs = [(n, e, a + sp) for n, e, a in jobs]
+    if mesh == "1":  # phase 13b ran the one-process fno_pp: main_auto alone
+        jobs = [j for j in jobs if j[0] != "fno_pp"]
+    return jobs
+
+
+def spatial_rest(device, card, data_root: Path, single: dict) -> dict:
+    """Phase 15c: :func:`sp_rest_jobs` on SP_MESHES[0], its ranks sharing the
+    one card in a gloo group, deterministic algorithms on, against one
+    process: the mixed-precision flagship's losses and dev scores within
+    TP_BF16_RTOL; the pipelined flagship's losses, dev scores and weights
+    within DP_RTOL; the other runs (SP_CONTROLLED, whose rounding-level
+    gradients Adam amplifies) by their losses and weights within
+    DP_DRIFT_FACTOR times the largest of their permuted-row controls plus
+    DP_RTOL, and each of them by its float64 step within DP_RTOL too
+    (``dp_step_check``), as phase 15b holds the U-Net.
+    Both kernels launch on every rank
+    in the flagship's float32 evaluation and on the pipeline's stages, none
+    on the other models; each rank's peak memory of a step, against one
+    process's. Returns each rank's launches by path and the memory records."""
+    import torch.multiprocessing as mp
+
+    from cfdbench_tpu_torch.cli import parse_args, run_dir
+
+    mesh, world = SP_MESHES[0], SP_RANKS[SP_MESHES[0]]
+    tube_root = tube_grid_tree(WORK / "tube_data")
+    out = WORK / "sp_rest"
+    one_jobs = sp_rest_jobs(data_root, tube_root, WORK / "sp_rest_single", "1")
+    want = dp_run(one_jobs, device) | {"fno_pp": single["fno"]}
+    controls = {}  # (name, seed) -> the control's run directory's root and result
+    for seed in SP_CONTROL_SEEDS:
+        with permuted_train_rows(seed):
+            for name in SP_CONTROLLED:
+                argv = next(a for n, _, a in one_jobs if n == name)
+                root = WORK / f"sp_rest_control{seed}"
+                controls[name, seed] = root, dp_run([(name, "main_auto", [
+                    a.replace(str(WORK / "sp_rest_single"), str(root)) for a in argv])],
+                    device)[name]
+    jobs = sp_rest_jobs(data_root, tube_root, out, mesh)
+    root = WORK / "sp_rest_ranks"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.spawn(dp_rank, args=(world, str(root), jobs, str(device)), nprocs=world, join=True)
+    print(f"[sp] {world} ranks on one card (gloo), --mesh_shape {mesh} --shard_spatial 1, "
+          f"the rest of main_auto: {time.perf_counter() - t0:.2f} s, spawn included")
+    ranks = [torch.load(root / f"rank{r}.pt", weights_only=True) for r in range(world)]
+    counts, memory, failures = {}, {}, []
+    for name, entry, argv in jobs:
+        what = f"{name}, {mesh} --shard_spatial 1 against one process"
+        if entry in SP_MEMORY:
+            one = want[name]
+            memory[name] = {"one_process_peak_bytes": one["peak_bytes"], **{
+                f"rank{r}_peak_fraction": res[name]["peak_bytes"] / one["peak_bytes"]
+                for r, res in enumerate(ranks)}}
+            for r, res in enumerate(ranks):
+                got = res[name]
+                print(f"[sp] [{card}] {what}: rank {r} peak {got['peak_bytes']} B "
+                      f"({got['peak_bytes'] / one['peak_bytes']:.3f} of one process's "
+                      f"{one['peak_bytes']} B), the step {got['step_bytes']} B "
+                      f"({got['step_bytes'] / one['step_bytes']:.3f} of {one['step_bytes']} B); "
+                      + ", ".join(f"{k} {got[k]} B ({got[k] / one[k]:.3f})" for k in (
+                          "param_bytes", "grad_bytes", "adam_bytes", "step2_bytes")))
+            continue
+        if entry in ("step", "step_tube"):
+            try:
+                dp_step_check(name, ranks[0][name], want[name], what)
+            except RuntimeError as e:
+                failures.append(str(e))
+            continue
+        launches = [res[name]["launches"] for res in ranks]
+        fno = name.startswith("fno")
+        for r, got in enumerate(launches):
+            if not fno and any(got.values()):
+                raise RuntimeError(f"{what}: rank {r} launched {got}; this model runs no FNO")
+            if fno and device.type == "cuda" and not got["fno_block"]:
+                raise RuntimeError(f"{what}: rank {r} never launched the block kernel")
+            if name == "fno_mp" and device.type == "cuda" and not got["fno_head"]:
+                raise RuntimeError(f"{what}: rank {r} never launched the head kernel")
+            for k, v in ranks[0][name]["state"].items():
+                if not torch.equal(v, ranks[r][name]["state"][k]):
+                    raise RuntimeError(f"{what}: rank {r}'s {k} differs from rank 0's")
+        if fno and device.type == "cuda" and not any(g["fno_head"] for g in launches):
+            raise RuntimeError(f"{what}: no rank launched the head kernel")
+        mesh_run = run_dir(parse_args(argv))
+        if name == "fno_mp":
+            try:
+                tp_bf16_check(name, mesh_run,
+                              WORK / "sp_rest_single_mp" / mesh_run.relative_to(f"{out}_mp"),
+                              what)
+            except RuntimeError as e:
+                failures.append(str(e))
+        else:
+            base = WORK / ("dp_single" if name == "fno_pp" else "sp_rest_single")
+            one_run = base / mesh_run.relative_to(out)
+            loss_rel, dev = losses_rel(mesh_run, one_run), dev_rel(mesh_run, one_run)
+            params_rel = dp_params(ranks[0][name]["state"], want[name]["state"],
+                                   want[name]["names"], what)
+            if name in SP_CONTROLLED:  # dev scores printed, as phase 15b prints the U-Net's
+                ctl_loss = ctl_params = 0.0
+                for seed in SP_CONTROL_SEEDS:
+                    root, ctl = controls[name, seed]
+                    control_run = root / mesh_run.relative_to(out)
+                    loss_c = losses_rel(control_run, one_run)
+                    params_c = dp_params(ctl["state"], want[name]["state"], want[name]["names"],
+                                         f"{name} control, seed {seed}")
+                    print(f"[sp] {name}: the permuted-row control of seed {seed} against one "
+                          f"process: losses {loss_c:.3e}, parameters {params_c:.3e}, dev scores "
+                          f"{dev_rel(control_run, one_run):.3e}")
+                    ctl_loss, ctl_params = max(ctl_loss, loss_c), max(ctl_params, params_c)
+                print(f"[sp] {what}: losses max rel diff {loss_rel:.3e}, parameters "
+                      f"{params_rel:.3e} of the largest, dev scores {dev:.3e}; the controls' "
+                      f"largest {ctl_loss:.3e}, {ctl_params:.3e} (bound {DP_DRIFT_FACTOR:g} x "
+                      f"that + {DP_RTOL:.0e})")
+                if not (loss_rel <= DP_DRIFT_FACTOR * ctl_loss + DP_RTOL
+                        and params_rel <= DP_DRIFT_FACTOR * ctl_params + DP_RTOL):
+                    failures.append(f"{what}: parted further than the permuted-row controls")
+            else:
+                print(f"[sp] {what}: losses max rel diff {loss_rel:.3e}, dev scores {dev:.3e}, "
+                      f"parameters {params_rel:.3e} of the largest (bound {DP_RTOL:.0e} each)")
+                if not (loss_rel <= DP_RTOL and dev <= DP_RTOL and params_rel <= DP_RTOL):
+                    failures.append(f"{what}: losses, dev scores or parameters disagree")
+        for r, got in enumerate(launches):
+            counts[f"sp{mesh}_rank{r}_main_auto_sp_{name}"] = got
+        print(f"[sp] {what}: launches by rank {launches}")
+    if failures:  # every comparison printed first
+        raise RuntimeError("; ".join(failures))
+    return counts, memory
+
+
+def dev_rel(got_run: Path, want_run: Path) -> float:
+    """The largest relative difference of two runs' dev scores."""
+    worst = 0.0
+    for ckpt_dir in sorted(want_run.glob("ckpt-*")):
+        g, w = (json.loads((r / ckpt_dir.name / "dev_scores.json").read_text())["mean"]
+                for r in (got_run, want_run))
+        worst = max([worst] + [abs(g[k] - v) / abs(v) for k, v in w.items() if v])
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False",
@@ -3768,62 +4042,85 @@ def main() -> int:
         return 1
     from cfdbench_tpu_torch.utils.device import require_cuda, set_f32_numerics
 
+    phase = PhaseClock()
     device = require_cuda()
     set_f32_numerics()
-    card = host_facts()
+    card = phase.card = host_facts()
     errors = check_kernels(device)
+    phase.done("1-2 (card, kernels built and checked)")
     counts, features, case_params = main_path()
     compare_rollouts(device, features, case_params)
     times = timing(device, card)
+    phase.done("3-5 (main_multistep, rollouts, timing)")
     check_gradients(device)
     train_counts, train_metrics = train_path()
     train_step_timing(device, card)
+    phase.done("6 (main_auto)")
     family = family_paths()
     family_card_vs_cpu(device)
     family_times = family_timing(device, card)
     print(f"[family] [{card}] " + json.dumps({"step20_nmse": family, "timing": family_times}))
+    phase.done("7 (conv and point families)")
     phase8 = phase8_paths()
     phase8_card_vs_cpu(device)
     phase8_times = phase8_timing(device, card)
     print(f"[phase8] [{card}] " + json.dumps({"step20_nmse": phase8, "timing": phase8_times}))
+    phase.done("8 (FFN, DeepONet, FFNO)")
     phase9 = phase9_paths()
     phase9_card_vs_cpu(device)
     phase9_times = {name: generative_timing(name, device, card) for name in GENERATIVE}
     print(f"[phase9] [{card}] " + json.dumps({"quality": phase9, "timing": phase9_times}))
+    phase.done("9 (pixel diffusion, GenCast)")
     phase10 = phase10_paths()
     phase10_card_vs_cpu(device)
     phase10_times = phase10_timing(device, card)
     print(f"[phase10] [{card}] " + json.dumps({"quality": phase10, "timing": phase10_times}))
+    phase.done("10 (VAE, latent models, DDPM)")
     serve_predict, serve_rollout = serving(device, card)
-    t11d = time.perf_counter()
+    phase.done("11a-c (serving)")
     serve_diffusion = serving_diffusion(card)
-    print(f"[phase11d] [{card}] {time.perf_counter() - t11d:.1f} s")
+    phase.done("11d (serving the diffusion models)")
     mp_counts, bf16_counts = phase12_paths()
     phase12_card_vs_cpu(device)
     phase12_times = phase12_timing(device, card)
     print(f"[phase12] [{card}] " + json.dumps({"timing": phase12_times}))
+    phase.done("12 (bfloat16, Adafactor)")
     t13 = time.perf_counter()
     dp_counts = {f"dp_torchrun_{k}": v
                  for k, v in dp_torchrun(train_counts, train_metrics).items()}
+    phase.done("13a (torchrun)")
     two_ranks, dp_data, dp_single, controls = dp_two_ranks(device)
     dp_counts.update(two_ranks)
+    phase.done("13b (two ranks)")
     dp_times = dp_step_timing(device, card)
     print(f"[phase13] [{card}] " + json.dumps({"timing": dp_times, "launches": dp_counts,
                                                "seconds": time.perf_counter() - t13}))
+    phase.done("13c (collectives timed)")
     t14 = time.perf_counter()
     rank_times = rank_kernels(device, card)
+    phase.done("14a (kernels at a rank's shapes)")
     mp_counts_14, mp_bytes = model_axis_ranks(device, dp_data, dp_single, controls)
     dp_counts.update(mp_counts_14)
     print(f"[phase14] [{card}] " + json.dumps({"kernels_at_rank_shapes": rank_times,
                                                "bytes": mp_bytes, "launches": mp_counts_14,
                                                "seconds": time.perf_counter() - t14}))
+    phase.done("14b-c (model axis)")
     t15 = time.perf_counter()
     sp_times = sp_kernels(device, card)
+    phase.done("15a (kernels at a rank's rows)")
     sp_counts, sp_mem = spatial_ranks(device, card, dp_data, dp_single, controls)
     dp_counts.update(sp_counts)
     print(f"[phase15] [{card}] " + json.dumps({"kernels_at_rank_rows": sp_times,
                                                "memory": sp_mem, "launches": sp_counts,
                                                "seconds": time.perf_counter() - t15}))
+    phase.done("15b (spatial sharding)")
+    t15c = time.perf_counter()
+    rest_counts, rest_memory = spatial_rest(device, card, dp_data, dp_single)
+    dp_counts.update(rest_counts)
+    print(f"[phase15c] [{card}] " + json.dumps({"launches": rest_counts, "memory": rest_memory,
+                                                "seconds": time.perf_counter() - t15c}))
+    phase.done("15c (the rest of spatial sharding)")
+    phase.total()
     print(f"[main] launches on the main paths: main_multistep {counts}, "
           f"main_auto {train_counts}, one served predict call {serve_predict}, one served "
           f"rollout {serve_rollout}, served diffusion {serve_diffusion}, "

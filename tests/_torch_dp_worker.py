@@ -80,7 +80,9 @@ def split_step(case: dict, mesh):
     one-process layout), the parameters and buffers after the last step
     (the model joined whole again), and this rank's parameter and
     optimizer-state bytes against the whole model's. ``case["dropout"]``
-    sets the ResNet's dropout rate."""
+    sets the ResNet's dropout rate; ``case["draws"]`` are a diffusion task's
+    global draws (:func:`fixed_draws`), whose train forward's noise
+    prediction is the step's "predictions"."""
     from cfdbench_tpu_torch.data.pipeline import field_rows
     from cfdbench_tpu_torch.models import resnet
     from cfdbench_tpu_torch.parallel.spatial import gather_rows
@@ -104,13 +106,17 @@ def split_step(case: dict, mesh):
                            opt_state=case.get("opt_state", "f32"), shards=shards,
                            axis=mesh.model)
     preds, scores, grads = [], [], None
-    real_scores = task.scores
+    hook = None
+    if getattr(task, "generative", False):  # a diffusion task's noise prediction
+        hook = task.model.register_forward_hook(lambda m, i, o: preds.append(o.detach().clone()))
+    else:
+        real_scores = task.scores
 
-    def scores_of(out, batch):
-        preds.append(out.detach().clone())
-        return real_scores(out, batch)
+        def scores_of(out, batch):
+            preds.append(out.detach().clone())
+            return real_scores(out, batch)
 
-    task.scores = scores_of
+        task.scores = scores_of
     if case.get("perturb"):
         # Each model rank's gradient of each whole parameter off by its own
         # rank-dependent rounding, as a kernel whose sums run in no fixed
@@ -121,7 +127,8 @@ def split_step(case: dict, mesh):
             p.register_hook(lambda g: g + 1e-9 * (1 + mesh.model.rank))
     batch = {k: torch.from_numpy(v)
              for k, v in field_rows(mesh.block(case["batch"]), rows).items()}
-    with patched([(resnet, "DROPOUT", case.get("dropout", resnet.DROPOUT))]):
+    draws = injected(case["draws"]) if "draws" in case else contextlib.nullcontext()
+    with patched([(resnet, "DROPOUT", case.get("dropout", resnet.DROPOUT))]), draws:
         for step in range(case.get("steps", 1)):
             draws = task.step_draws(0, step, "cpu")
             scores.append({k: float(v)
@@ -129,6 +136,8 @@ def split_step(case: dict, mesh):
             if grads is None:
                 named = {n: p.grad for n, p in trained.named_parameters()}
                 grads = named if split is None else split.layout.to_std(named)
+    if hook is not None:
+        hook.remove()
     local = sum(p.numel() for p in trained.parameters())
     opt_bytes = sum(t.numel() * t.element_size() for st in opt.state.values()
                     for t in st.values() if torch.is_tensor(t) and t.dim() > 0)
@@ -222,7 +231,7 @@ def build_task(case: dict):
 
 def make_task(model: str, widths: dict, loss_fn=None, compute_dtype=None):
     """A task of ``model`` at ``widths``, initialised from fixed seeds."""
-    from cfdbench_tpu_torch.models import diffusion, make_cfd_vae
+    from cfdbench_tpu_torch.models import diffusion, make_cfd_vae, point
     from cfdbench_tpu_torch.models.ffno import Ffno2d
     from cfdbench_tpu_torch.models.fno import Fno2d
     from cfdbench_tpu_torch.models.resnet import ResNet
@@ -231,7 +240,9 @@ def make_task(model: str, widths: dict, loss_fn=None, compute_dtype=None):
 
     gen = torch.Generator().manual_seed(0)
     if model == "pixel":
-        return diffusion.PixelDiffusionCfdModel(loss_fn, 2, 5, generator=gen, **widths)
+        task = diffusion.PixelDiffusionCfdModel(loss_fn, 2, 5, generator=gen, **widths)
+        task.compute_dtype = compute_dtype
+        return task
     if model == "gencast":
         return diffusion.GenCastCfdModel(loss_fn, np.array(GENCAST_STATS[0], np.float32),
                                          np.array(GENCAST_STATS[1], np.float32),
@@ -239,9 +250,16 @@ def make_task(model: str, widths: dict, loss_fn=None, compute_dtype=None):
     if model == "latent":
         vae = make_cfd_vae("lite", generator=torch.Generator().manual_seed(5))
         return diffusion.LatentDiffusionCfdModel2(loss_fn, vae, generator=gen, **widths)
+    if model in POINT_MODELS:  # widths: the model's own arguments
+        net = getattr(point, POINT_MODELS[model])(generator=gen, **widths)
+        return AutoTask(net, loss_fn, compute_dtype=compute_dtype)
     cls = {"fno": Fno2d, "ffno": Ffno2d, "unet": UNet, "resnet": ResNet}[model]
     return AutoTask(cls(in_chan=2, out_chan=2, n_case_params=5, generator=gen, **widths),
                     loss_fn, compute_dtype=compute_dtype)
+
+
+POINT_MODELS = {"auto_ffn": "AutoFfn", "auto_deeponet": "AutoDeepONet",
+                "auto_edeeponet": "AutoEDeepONet", "auto_deeponet_cnn": "AutoDeepONetCnn"}
 
 
 # GenCast's residual mean and standard deviation, per channel.

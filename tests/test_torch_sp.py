@@ -16,8 +16,8 @@
   losses (rel 1e-5) and the weights (1e-5 of the largest); ``--resume``
   across the layouts both ways; ``--shard_spatial 1`` on one process.
 - The refusals: rows that do not split (next to JAX's own), the U-Net's
-  rows that do not pool, the ResNet's rows fewer than its halo, and the
-  flags and models left for ROADMAP.md A15d2 and C.
+  levels that would leave a rank without a row, a pooling across ranks,
+  and the models and flags left for ROADMAP.md A15d3 and C.
 """
 
 import json
@@ -291,15 +291,18 @@ def test_rows_that_do_not_split_are_refused_as_jax_refuses_them():
     check_spatial(model, axis_mesh(2), (66, 65))
 
 
-@pytest.mark.parametrize("H,M,ok", [(16, 2, False), (48, 2, False), (32, 2, True), (64, 4, True)])
+@pytest.mark.parametrize("H,M,ok", [(16, 2, False), (32, 4, False), (32, 2, True), (64, 4, True)])
 def test_unet_rows_that_do_not_pool_are_refused(H, M, ok):
-    """The U-Net's four poolings need a rank's rows to be a multiple of
-    2^4; its MaxPool2 refuses a rank's odd row count by name."""
+    """The U-Net's levels keep a row on every rank: its four poolings, each
+    on rows resharded to whole pairs, leave a rank none of the bottleneck's
+    rows at 16 rows over 2 ranks or 32 over 4 (a level of 1 row a rank); any
+    other row count that divides runs (``tests/test_torch_sp_unet.py``). Its
+    MaxPool2 refuses a split whose ranks do not hold whole row pairs."""
     model = worker.make_task("unet", dict(dim=4)).model
     if ok:
         check_spatial(model, axis_mesh(M), (H, H))
     else:
-        with pytest.raises(ValueError, match=r"not a multiple of 2\^4"):
+        with pytest.raises(ValueError, match=r"leave a rank of .* without a row"):
             check_spatial(model, axis_mesh(M), (H, H))
 
 
@@ -310,24 +313,17 @@ def test_maxpool_refuses_an_odd_row_count_under_sp():
         pool(torch.zeros((1, 5, 4, 1)))
 
 
-def test_resnet_rows_fewer_than_its_halo_are_refused():
-    model = worker.make_task("resnet", dict(hidden_chan=8, num_blocks=1)).model
-    with pytest.raises(ValueError, match="fewer than the 3 rows"):
-        check_spatial(model, axis_mesh(8), (16, 16))
-    check_spatial(model, axis_mesh(4), (16, 16))
-
-
 @pytest.mark.parametrize("entry,flags,error", [
-    ("main_auto", ["--model", "auto_ffn"], "--model auto_ffn: .*ROADMAP.md A15d2"),
-    *[("main_auto", ["--model", m], "ROADMAP.md A15d2")
-      for m in ("auto_deeponet", "auto_edeeponet", "auto_deeponet_cnn", "pixel_diffusion",
-                "latent_diffusion", "latent_diffusion2", "latent_diffusion_lite",
-                "latent_diffusion2_lite")],
-    ("main_auto", ["--mesh_shape", "1x2", "--pp_microbatches", "2"],
-     "--pp_microbatches: .*ROADMAP.md A15d2"),
-    ("main_auto", ["--use_mixed_precision", "1"], "--use_mixed_precision: .*ROADMAP.md A15d2"),
-    ("main_train", ["--model", "ffn"], "the JAX main_train ignores it .ROADMAP.md C"),
-    ("main_gencast", [], "the JAX main_gencast ignores it .ROADMAP.md C"),
+    # Every other model, --pp_microbatches and --use_mixed_precision are
+    # taken (tests/test_torch_sp_*.py); the cases left keep their ids.
+    *[pytest.param("main_auto", ["--model", m], "ROADMAP.md A15d3",
+                   id=f"main_auto-flags{i}-ROADMAP.md A15d2")
+      for i, m in enumerate(("latent_diffusion", "latent_diffusion2", "latent_diffusion_lite",
+                             "latent_diffusion2_lite"), start=5)],
+    pytest.param("main_train", ["--model", "ffn"], "the JAX main_train ignores it .ROADMAP.md C",
+                 id="main_train-flags11-the JAX main_train ignores it .ROADMAP.md C"),
+    pytest.param("main_gencast", [], "the JAX main_gencast ignores it .ROADMAP.md C",
+                 id="main_gencast-flags12-the JAX main_gencast ignores it .ROADMAP.md C"),
 ])
 def test_shard_spatial_refused_by_name(tmp_path, entry, flags, error):
     argv = train_argv(tmp_path / "data", 1) + ["--output_dir", str(tmp_path / "out"),

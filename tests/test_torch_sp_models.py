@@ -13,13 +13,14 @@ forced CPU devices, and JAX's step on one device.
   (1e-5) too. The ResNet is held to JAX with its dropout off (a rate of 0,
   and JAX's forward without dropout): torch cannot draw JAX's masks.
 - The U-Net in float32 is rounding-bound: its BatchNorms normalise the
-  2x2 bottleneck over 16 values a channel, and the port's one-process step
+  2x2 bottleneck over 16 values a channel, so the float32 rounding of the
+  batch statistics is amplified by 1/std, and the port's one-process step
   itself parts from JAX's by 1.2e-4 in its forward and 4.4e-5 of the
-  largest in its gradients (its float32 gradients part from its own
-  float64 ones by 1e-5). Its split step is held to JAX within the larger
-  of the gates above and twice the one-process step's own distance (the
-  control), and the same step in float64 holds the split to one process
-  within 1e-12.
+  largest in its gradients; in float64 the two part by 2.6e-13 and 6.2e-14
+  (``tests/test_torch_unet_f64.py``), so the gap is rounding. Its split step
+  is held to JAX within the larger of the gates above and twice the
+  one-process step's own distance (the control), and the same step in
+  float64 holds the split to one process within 1e-12.
 - Against the port's one process: the step's parameters after Adam
   (1e-5; the U-Net's in float64), and the ResNet with its dropout on, its
   masks drawn over the global grid and sliced (``models/resnet.py``).
@@ -58,9 +59,10 @@ PARAM_ATOL = 1e-5
 STATS_ATOL = 1e-5
 LR = 1e-3
 MIN_SIZE = 1024
-# Each model's widths and its square grid: the U-Net pools four times, so a
-# rank's rows are a multiple of 16 (32 rows over two ranks); the ResNet's
-# 7x7 convolutions take a halo of 3 rows.
+# Each model's widths and its square grid: the U-Net pools four times, each
+# rank keeping a row of its bottleneck at 32 rows over two ranks (other row
+# counts: tests/test_torch_sp_unet.py); the ResNet's 7x7 convolutions take a
+# halo of 3 rows.
 MODELS = {
     "fno": (dict(num_layers=2, hidden_dim=8, modes1=4, modes2=4), 16),
     "ffno": (dict(num_layers=2, hidden_dim=8, modes1=4, modes2=4), 16),
