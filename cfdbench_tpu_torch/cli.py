@@ -44,9 +44,9 @@ bfloat16``): tensor parallelism in ``main_auto``, ``main_gencast``,
 ``--pp_microbatches K``, and in ``main_train`` a replicated model axis, as
 the JAX trainer keeps it. The non-autoregressive ``main_multistep`` refuses
 any mesh, as the JAX one ignores it (ROADMAP.md C), and ``--pp_microbatches``
-is refused outside ``main_auto``. ``main_auto`` takes ``--shard_spatial 1``
-for every model but the latent diffusion models (A15d3), in float32 and
-under ``--use_mixed_precision``: over the model axis each rank trains and
+is refused outside ``main_auto`` and for a latent model. ``main_auto`` takes
+``--shard_spatial 1`` for every model, in float32 and under
+``--use_mixed_precision``: over the model axis each rank trains and
 evaluates on its H/M grid rows (``parallel/spatial.py``,
 ``training/trainer_auto.py``), its test mode on whole rows, as the JAX
 ``main_auto`` runs it; with ``--pp_microbatches`` every pipeline stage runs
@@ -201,17 +201,17 @@ def check_training_flags(args: Args, regime: str = "auto") -> None:
     applies it, by the PUNetG models; ``--gradient_accumulation_steps`` by
     ``main_gencast`` alone; ``--use_mixed_precision`` by ``main_auto`` and
     ``main_gencast``; ``--opt_state_dtype`` by ``main_auto``;
-    ``--shard_spatial 1`` by ``main_auto`` for all but the latent models."""
+    ``--shard_spatial 1`` by ``main_auto``; ``--pp_microbatches`` by
+    ``main_auto`` for the FNO alone, refused by name for a latent model."""
     check_supported(args)
     check_model_ported(args.model, regime)
     if args.mode not in ("train", "test", "train_test"):
         raise ValueError(f"--mode {args.mode!r}: choose train, test or train_test")
     entry = {"auto": "main_auto", "nonauto": "main_train", "gencast": "main_gencast"}[regime]
-    if regime == "auto" and args.shard_spatial and args.model in LATENT_MODELS:
+    if regime == "auto" and args.pp_microbatches and args.model in LATENT_MODELS:
         raise NotImplementedError(
-            f"--shard_spatial 1 with --model {args.model}: a latent model on a rank's rows needs "
-            "the frozen VAE on them, cross-attention over row-split tokens and pad_field's "
-            "uneven last rank (ROADMAP.md A15d3)")
+            f"--pp_microbatches with --model {args.model}: pipeline parallelism stages the FNO "
+            "alone (ROADMAP.md A15e)")
     if regime != "auto" and args.pp_microbatches:
         raise NotImplementedError(
             f"--pp_microbatches in {entry}: pipeline parallelism stages the FNO in "

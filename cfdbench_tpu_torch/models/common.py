@@ -116,7 +116,9 @@ class Conv(nn.Module):
         p, k, s = self.padding, self.weight.shape[-1], self.stride
         if s not in (1, 2) or 2 * p != k - 1:
             raise ValueError(f"--shard_spatial 1: a {k}x{k} convolution at stride {s}, "
-                             f"padding {p} on a rank's rows (ROADMAP.md A15d3)")
+                             f"padding {p} on a rank's rows: the port splits those whose 2 "
+                             "padding is k - 1 (ROADMAP.md C; the VAE's stride-2 one of padding "
+                             "0 is models/vae.py::downsample)")
         if s == 2 and not rows.paired():
             raise ValueError(f"--shard_spatial 1: a stride-2 convolution on the rows {rows}, "
                              "whose ranks do not hold whole row pairs (Rows.pairs)")
@@ -145,9 +147,12 @@ class GroupNorm(nn.Module):
     and gradients agree with flax's within 2e-5 and 1e-5 of their max
     (``tests/test_torch_diffusion.py``). It normalises in float32 at
     least and returns the common dtype of x and its weights (flax's).
-    Under spatial sharding (``sp``) x is a rank's rows: each sample's group
-    means, and then the squared deviations from them, are summed over the
-    model ranks, with the element counts (two passes, as torch's)."""
+    Under spatial sharding (``sp``) x is a rank's rows: each rank takes its
+    rows' group means and squared deviations from them (two passes, as
+    torch's), and one sum over the model ranks, in float64, combines them
+    (Chan et al.'s parallel variance: Σ n_i μ_i and Σ (M2_i + n_i μ_i²),
+    whose difference's cancellation, at the scale of the ranks' means,
+    float64 absorbs)."""
 
     sp = None  # the model axis the grid rows split over
 
@@ -178,12 +183,16 @@ class GroupNorm(nn.Module):
         B, h, W, C = x.shape
         G = self.num_groups
         xg = x.reshape(B, h, W, G, C // G)
-        dims = (1, 2, 4)
-        sums = row_sum(torch.cat([xg.sum(dims), xg.new_full((B, 1), h * W * (C // G))], 1),
-                       self.sp)
-        count = sums[:, G:]
-        d = xg - (sums[:, :G] / count)[:, None, None, :, None]
-        var = row_sum(d.square().sum(dims), self.sp) / count
+        dims, n = (1, 2, 4), h * W * (C // G)
+        mean = xg.mean(dims)
+        m2 = (xg - mean[:, None, None, :, None]).square().sum(dims)
+        wide = mean.to(torch.float64)
+        count, s1, s2 = row_sum(torch.stack([torch.full_like(wide, n), n * wide,
+                                             m2.to(torch.float64) + n * wide.square()]),
+                                self.sp)
+        mu = s1 / count
+        var = (s2 / count - mu.square()).to(work)
+        d = xg - mu.to(work)[:, None, None, :, None]
         y = (d * torch.rsqrt(var + self.eps)[:, None, None, :, None]).reshape(B, h, W, C)
         return y * self.weight.to(work) + self.bias.to(work)
 

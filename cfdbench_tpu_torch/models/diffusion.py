@@ -57,6 +57,7 @@ package (``cfdbench_tpu/models/diffusion.py:451-455, 641-644``).
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional, Tuple
 
 import numpy as np
@@ -68,7 +69,7 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 from ..metrics import LossFn
 from ..ops.diffusion import ddpm_sample, make_ddpm_scheduler
 from ..parallel.mesh import SINGLE
-from ..parallel.spatial import row_span, take_rows
+from ..parallel.spatial import Rows, active, all_rows, reshard, row_span, take_rows, to_pairs
 from ..utils.rng import (
     EVAL_KEY,
     Key,
@@ -135,11 +136,12 @@ class _DiffusionTask:
         """What ``loss_scores`` takes for train step ``step``: its key."""
         return train_key(seed, step)
 
-    def global_shape(self, shape) -> Tuple[int, ...]:
+    def global_shape(self, shape, rows: Optional[Rows] = None) -> Tuple[int, ...]:
         """The global shape of a field of which this rank holds ``shape``:
-        its block of the batch and, under spatial sharding, its rows."""
+        its block of the batch and, under spatial sharding, its rows (of the
+        even split, or of ``rows``)."""
         shape = list(self.mesh.global_shape(shape))
-        shape[1] = row_span(shape[1], self.rows)[1]
+        shape[1] = row_span(shape[1], self.rows if rows is None else rows)[1]
         return tuple(shape)
 
     def _eps(self, x, t, case_params, key: Optional[Key]):
@@ -182,6 +184,12 @@ class _DiffusionTask:
         B, H, W = frame_shape[:3]
         return B, H, W, self.out_chan
 
+    def sample_rows(self, frame_shape):
+        """The split of the sampler's draws for a frame of ``frame_shape``
+        (a rank's rows under spatial sharding): the model axis, whose even
+        split it is."""
+        return self.rows
+
     def noise_shape(self, frame_shape) -> Tuple[int, ...]:
         """``(num_inference_steps + 1, *sample_shape)``: the sampler's noise
         for a frame of ``frame_shape`` (``ops.diffusion.ddpm_sample``)."""
@@ -193,7 +201,7 @@ class _DiffusionTask:
         ``like``."""
         return ddpm_sample(self.scheduler, denoise, self.sample_shape(like.shape), key,
                            self.num_inference_steps, like.device, self.mesh, noise, operands,
-                           self.model, self.rows)
+                           self.model, self.sample_rows(like.shape))
 
 
 class PixelDiffusionCfdModel(_DiffusionTask):
@@ -270,19 +278,33 @@ class GenCastCfdModel(_DiffusionTask):
 
 # --- latent diffusion ------------------------------------------------------
 
-# The frozen VAE's downsampling factor: fields are zero-padded to a
-# multiple of it, so that its floor chain and the CondEncoder's ceil chain
-# agree (tube's and dam's 66x65 fields), and the decode is cropped back.
-VAE_FACTOR = 8
+# The frozen VAE's downsampling factor, 2 ** its downsamples: fields are
+# zero-padded to a multiple of it, so that its floor chain and the
+# CondEncoder's ceil chain agree (tube's and dam's 66x65 fields), and the
+# decode is cropped back.
+VAE_DOWNSAMPLES = 3
+VAE_FACTOR = 2 ** VAE_DOWNSAMPLES
 # LatentDiffusionCfdModel's context width (the JAX class's default, which
 # its entry point keeps).
 CONTEXT_DIM = 64
 
 
-def pad_field(x: torch.Tensor) -> torch.Tensor:
+def padded_rows(rows: Optional[Rows]) -> Optional[Rows]:
+    """The split of a grid split as ``rows`` once :func:`pad_field` has
+    padded it: the last rank gains the pad rows (66 rows at ``1x2``,
+    ``(0, 33, 66)``, become ``(0, 33, 72)``). None without a split."""
+    if rows is None:
+        return None
+    return Rows(rows.axis, rows.bounds[:-1] + (rows.H + (-rows.H) % VAE_FACTOR,))
+
+
+def pad_field(x: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
     """``x`` (B, H, W, C) zero-padded at the bottom and right to multiples
-    of ``VAE_FACTOR``."""
-    ph, pw = (-x.shape[1]) % VAE_FACTOR, (-x.shape[2]) % VAE_FACTOR
+    of ``VAE_FACTOR``. Under ``rows`` (spatial sharding) x is a rank's rows:
+    the columns are padded on every rank, the bottom rows on the last rank
+    alone (:func:`padded_rows` is the split of the result)."""
+    ph = (-x.shape[1]) % VAE_FACTOR if rows is None else padded_rows(rows).h - rows.h
+    pw = (-x.shape[2]) % VAE_FACTOR
     return F.pad(x, (0, 0, 0, pw, 0, ph)) if ph or pw else x
 
 
@@ -305,20 +327,33 @@ class CondEncoder(nn.Module):
         self.norm_mix = GroupNorm(8, 128)
         self.conv_out = Conv(128, latent_dim, 3, padding=1, **g)
 
-    def forward(self, inputs, case_params):
+    def forward(self, inputs, case_params, rows: Optional[Rows] = None):
+        """Under ``rows`` (spatial sharding) ``inputs`` is a rank's rows of
+        the padded grid, and each stride-2 conv reads its level resharded to
+        whole row pairs; the output's split is :meth:`out_rows`."""
         h = inputs
         for conv, norm in zip(self.convs, self.norms):
-            h = norm(F.silu(conv(h)))
+            h, rows = to_pairs(h, rows)
+            h = norm(F.silu(conv(h, rows)))
+            rows = None if rows is None else rows.halved(ceil=True)
         p = F.silu(self.param_fc2(F.silu(self.param_fc1(case_params))))
         B, hh, ww, _ = h.shape
         h = torch.cat([h, p[:, None, None, :].expand(B, hh, ww, p.shape[-1])], dim=-1)
-        return self.conv_out(self.norm_mix(F.silu(self.conv_mix(h))))
+        return self.conv_out(self.norm_mix(F.silu(self.conv_mix(h, rows))), rows)
+
+    def out_rows(self, rows: Rows) -> Rows:
+        """The output's split for an input split ``rows``."""
+        return rows.halvings(len(self.convs), ceil=True)[-1]
 
 
 class LatentDenoiser(nn.Module):
     """A latent model's trainable networks: ``unet`` and, by version,
     ``context_proj`` (v1) or ``cond_encoder`` (Lite); the JAX checkpoint's
     ``params`` tree holds the same nests."""
+
+    # The parts the task calls, each for its whole forward: under spatial
+    # sharding the gather-at-use hooks sit on them (parallel/tensor.py).
+    PARTS = ("unet", "context_proj", "cond_encoder")
 
     def __init__(self, unet: PUNetGCFD, context_proj: Optional[Dense] = None,
                  cond_encoder: Optional[CondEncoder] = None):
@@ -328,6 +363,18 @@ class LatentDenoiser(nn.Module):
             self.context_proj = context_proj
         if cond_encoder is not None:
             self.cond_encoder = cond_encoder
+
+    def check_sp_rows(self, H: int, axis) -> None:
+        """Raise, naming the limit, unless every rank keeps a row at every
+        level of the latents of an H-row grid split over ``axis``: the padded
+        grid through the frozen VAE's ``VAE_DOWNSAMPLES`` downsamples, then
+        the UNet's (``PUNetGCFD.check_sp_rows``)."""
+        try:
+            latent = padded_rows(Rows.even(H, axis)).halvings(VAE_DOWNSAMPLES, ceil=False)[-1]
+            self.unet._level_splits(latent)
+        except ValueError as e:
+            raise ValueError(f"--shard_spatial 1: the latents of a {H}-row grid over {axis.size} "
+                             f"model ranks: {e} (a limit of the port, ROADMAP.md C)") from None
 
 
 class _LatentTask(_DiffusionTask):
@@ -342,49 +389,81 @@ class _LatentTask(_DiffusionTask):
         self.scaling_factor = scaling_factor
 
     def condition(self, inputs, case_params):
-        """What the input frame and the case parameters give the UNet."""
+        """What the input frame and the case parameters give the UNet; under
+        spatial sharding ``inputs`` is a rank's rows."""
         raise NotImplementedError
 
-    def denoise(self, noisy, t, case_params, cond, dtype: Optional[torch.dtype] = None):
+    def denoise(self, noisy, t, case_params, cond, dtype: Optional[torch.dtype] = None,
+                rows: Optional[Rows] = None):
         """The UNet's noise prediction on the latents ``noisy`` at
         timesteps ``t``, given ``cond = condition(inputs, case_params)``;
-        with ``dtype``, the UNet's parameters and inputs cast to it."""
+        with ``dtype``, the UNet's parameters and inputs cast to it; under
+        spatial sharding ``noisy`` is a rank's rows of the split ``rows``."""
         raise NotImplementedError
+
+    def field_rows(self, h: int) -> Optional[Rows]:
+        """The even split of a grid of which this rank holds ``h`` rows
+        under spatial sharding (the batch's), else None."""
+        return Rows.of(h, self.rows) if active(self.rows) else None
+
+    def latent_rows(self, h: int) -> Optional[Rows]:
+        """The latents' split for a field of which this rank holds ``h``
+        rows of the even split: the padded grid's (:func:`padded_rows`)
+        through the VAE's downsamples. None without spatial sharding."""
+        return self.vae.latent_rows(padded_rows(self.field_rows(h)))
 
     def loss_scores(self, batch, key: Optional[Key] = None):
         """``(loss, scores)`` of the UNet's noise prediction on the frozen
         VAE's latents of the padded label (a posterior sample, no gradient),
-        noised at random timesteps."""
+        noised at random timesteps; every draw over the global batch and
+        latent grid, sliced."""
         noise_key, posterior_key = latent_keys(EVAL_KEY if key is None else key)
+        label = batch["labels"][..., :self.out_chan]
+        rows = self.field_rows(label.shape[1])
+        lrows = self.latent_rows(label.shape[1])
         with torch.no_grad():
-            label = pad_field(batch["labels"][..., :self.out_chan])
-            latents = (self.vae.encode(label).sample(posterior_key, self.mesh)
-                       * self.scaling_factor)
+            latents = (self.vae.encode(pad_field(label, rows), padded_rows(rows))
+                       .sample(posterior_key, self.mesh, lrows) * self.scaling_factor)
         noise, t = map(self.mesh.block, train_noise_and_t(
-            noise_key, self.mesh.global_shape(latents.shape),
+            noise_key, self.global_shape(latents.shape, lrows),
             self.scheduler.num_train_timesteps, latents.device))
+        noise = take_rows(noise, lrows)
         noisy = self.scheduler.add_noise(latents, noise, t)
         cp = batch["case_params"]
         eps = at_least_f32(self.denoise(noisy, t, cp, self.condition(batch["inputs"], cp),
-                                        self.train_dtype(key)))
+                                        self.train_dtype(key), lrows))
         scores = self.loss_fn(eps, noise, sample_weights=batch.get("weights"))
         return scores[self.loss_fn.objective], scores
 
     def sample_shape(self, frame_shape) -> Tuple[int, ...]:
         """The latents of the frame's grid padded to multiples of
-        ``VAE_FACTOR``."""
+        ``VAE_FACTOR`` (under spatial sharding, the rank's rows of them)."""
         B, H, W = frame_shape[:3]
-        return self.vae.latent_shape((B, H + (-H) % VAE_FACTOR, W + (-W) % VAE_FACTOR))
+        shape = self.vae.latent_shape((B, H + (-H) % VAE_FACTOR, W + (-W) % VAE_FACTOR))
+        lrows = self.latent_rows(H)
+        return shape if lrows is None else (B, lrows.h, *shape[2:])
+
+    def sample_rows(self, frame_shape):
+        return self.latent_rows(frame_shape[1])
 
     def predict_frame(self, inputs, case_params, mask, key: Key = EVAL_KEY, noise=None):
         """The next frame: latents by full DDPM sampling (from ``noise``,
         else drawn from ``key``), decoded ÷ ``scaling_factor``, cropped to
-        the grid, masked."""
-        H, W = inputs.shape[1:3]
+        the grid, masked. Under spatial sharding the decode's split, its
+        pad rows dropped on the last rank, is resharded to the batch's."""
+        h, W = inputs.shape[1:3]
+        rows, lrows = self.field_rows(h), self.latent_rows(h)
         with torch.no_grad():
             cond = self.condition(inputs, case_params)
-            latents = self._sample(self.denoise, inputs, key, (case_params, cond), noise)
-            frame = self.vae.decode(latents / self.scaling_factor)[:, :H, :W]
+            latents = self._sample(partial(self.denoise, rows=lrows), inputs, key,
+                                   (case_params, cond), noise)
+            frame = self.vae.decode(latents / self.scaling_factor, lrows)[:, :, :W]
+            if rows is None:
+                frame = frame[:, :h]
+            else:
+                decoded = self.vae.decoded_rows(lrows)
+                cropped = Rows(rows.axis, decoded.bounds[:-1] + (rows.H,))
+                frame = reshard(frame[:, :cropped.h], cropped, rows)
         return frame if mask is None else frame * mask
 
 
@@ -422,12 +501,20 @@ class LatentDiffusionCfdModel(_LatentTask):
         return torch.cat([inputs[..., :self.in_chan], cp], dim=-1).reshape(B, H * W, -1)
 
     def condition(self, inputs, case_params):
+        """The context: the tokens of the rank's rows (projected, v1), and
+        under spatial sharding every rank's, gathered differentiably (the
+        cross-attention's keys and values read the whole grid's)."""
         tokens = self._context_tokens(inputs, case_params)
-        return tokens if self._raw_context else self.model.context_proj(tokens)
+        ctx = tokens if self._raw_context else self.model.context_proj(tokens)
+        rows = self.field_rows(inputs.shape[1])
+        if rows is None:
+            return ctx
+        B, h, W = inputs.shape[:3]
+        return all_rows(ctx.reshape(B, h, W, -1), rows).reshape(B, rows.H * W, -1)
 
-    def denoise(self, noisy, t, case_params, cond, dtype=None):
+    def denoise(self, noisy, t, case_params, cond, dtype=None, rows=None):
         return cast_call(self.model.unet, dtype, to_dtype(noisy, dtype), t,
-                         to_dtype(case_params, dtype), context=to_dtype(cond, dtype))
+                         to_dtype(case_params, dtype), context=to_dtype(cond, dtype), rows=rows)
 
 
 class LatentDiffusionCfdModel2(LatentDiffusionCfdModel):
@@ -455,8 +542,16 @@ class LatentDiffusionCfdModelLite(_LatentTask):
                          out_chan, scaling_factor, noise_scheduler_timesteps)
 
     def condition(self, inputs, case_params):
-        return self.model.cond_encoder(pad_field(inputs[..., :self.in_chan]), case_params)
+        """The CondEncoder of the padded input, under spatial sharding on
+        the rank's rows; its output split must be the latents'
+        (``denoise`` adds the two)."""
+        field = self.field_rows(inputs.shape[1])
+        rows, enc = padded_rows(field), self.model.cond_encoder
+        if rows is not None and enc.out_rows(rows) != self.vae.latent_rows(rows):
+            raise ValueError(f"--shard_spatial 1: the CondEncoder's rows {enc.out_rows(rows)} "
+                             f"are not the latents' {self.vae.latent_rows(rows)}")
+        return enc(pad_field(inputs[..., :self.in_chan], field), case_params, rows)
 
-    def denoise(self, noisy, t, case_params, cond, dtype=None):
+    def denoise(self, noisy, t, case_params, cond, dtype=None, rows=None):
         return cast_call(self.model.unet, dtype, to_dtype(noisy + cond, dtype), t,
-                         to_dtype(case_params, dtype))
+                         to_dtype(case_params, dtype), rows=rows)

@@ -30,8 +30,9 @@ values read from a ``context`` sequence. Convolutions are cuDNN calls on
 the card; no TPU kernel covers this model.
 
 Under spatial sharding (``--shard_spatial 1``, ``sp`` the model axis over
-which the grid rows split; the model without cross-attention, pixel
-diffusion's) a rank runs the network on its rows: the 3x3 convolutions
+which the grid rows split; pixel diffusion's network, and the latent
+models', on the split of their latents that the caller passes) a rank runs
+the network on its rows: the 3x3 convolutions
 take a halo of a row from the neighbouring ranks, the GroupNorms sum each
 sample's statistics over the model ranks (``models/common.py``). Each
 level tracks its split (``parallel/spatial.py::Rows``): a stride-2 ``down``
@@ -39,6 +40,9 @@ reads its level's rows resharded so that each rank holds whole row pairs,
 and its output split is that one halved, rounded up; the nearest repeat of
 the decoder, cropped to the skip's rows, is resharded to the skip's split.
 The keep masks, drawn for the global grid, are sliced to each level's rows.
+The cross-attention's queries are the rank's rows of the mid level; its
+keys and values are read from the ``context`` that the caller passes,
+every rank's tokens (``models/diffusion.py`` gathers them).
 """
 
 from __future__ import annotations
@@ -144,14 +148,15 @@ class PUNetGCFD(nn.Module):
     integers, case_params (B, n_case_params); ``context`` (B, S,
     ``context_dim``) when built with ``cross_attention``. Parameters are
     drawn from ``generator`` on the CPU, then moved to ``device``. Under
-    spatial sharding x is a rank's rows of the even split, and each keep
-    mask covers its level's global rows."""
+    spatial sharding x is a rank's rows of the even split, or of ``rows``
+    where given (``parallel/spatial.py::Rows``), and each keep mask covers
+    its level's global rows."""
 
     sp = None  # the model axis the grid rows split over
 
     def check_sp_rows(self, H: int, axis) -> None:
         """Raise unless every rank keeps a row at every level of an H-row
-        grid split over ``axis`` (:meth:`_level_splits`)."""
+        grid split evenly over ``axis`` (:meth:`_level_splits`)."""
         self._level_splits(Rows.even(H, axis))
 
     def __init__(self, in_channels: int, out_channels: int, base_channels: int = 64,
@@ -209,7 +214,7 @@ class PUNetGCFD(nn.Module):
         return [(B, *sizes[level], c) for level, c in self._block_outs]
 
     def forward(self, x, timesteps, case_params, keep_masks: Optional[Sequence] = None,
-                context: Optional[torch.Tensor] = None):
+                context: Optional[torch.Tensor] = None, rows: Optional[Rows] = None):
         # float32 (or wider weights' dtype, through the Dense) under
         # bfloat16 weights too, as in the JAX package, where it lifts the
         # conditioning, and from the first FiLM on the network, to float32.
@@ -219,7 +224,9 @@ class PUNetGCFD(nn.Module):
         cond = torch.cat([t_emb, c_emb], dim=-1)
         masks = iter(keep_masks) if keep_masks is not None else itertools.repeat(None)
         blocks, downs, ups = iter(self.res_blocks), iter(self.downs), iter(self.ups)
-        base = rows = Rows.of(x.shape[1], self.sp) if active(self.sp) else None
+        if rows is None and active(self.sp):
+            rows = Rows.of(x.shape[1], self.sp)
+        base = rows
 
         def block(h):
             keep = next(masks)
@@ -240,9 +247,6 @@ class PUNetGCFD(nn.Module):
                 skips.append(h)
         h = block(h)
         if self.cross_attn is not None and context is not None:
-            if rows is not None:
-                raise NotImplementedError("--shard_spatial 1: cross-attention on a rank's rows "
-                                          "is ROADMAP.md A15d3")
             h = self.cross_attn(h, context)
         h = block(h)
         splits = self._level_splits(base)
@@ -267,7 +271,7 @@ class PUNetGCFD(nn.Module):
 
     def _level_splits(self, rows):
         """Each level's split under spatial sharding (None without): the
-        even split, then each stride-2 ``down``'s output split."""
+        input's split, then each stride-2 ``down``'s output split."""
         if rows is None:
             return [None] * self.levels
         return rows.halvings(self.levels - 1, ceil=True)

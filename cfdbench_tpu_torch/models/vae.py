@@ -21,17 +21,32 @@ dict reads like the reference's.
   stride-2 3x3 conv with padding 0 (diffusers' ``Downsample2D``), so H →
   floor(H/2). :class:`Decoder`: ``layers_per_block + 1`` blocks a level,
   then a nearest 2x repeat and a conv.
+
+Under spatial sharding (``--shard_spatial 1`` on a latent diffusion model,
+which runs the frozen VAE under ``no_grad``) ``encode`` and ``decode`` take
+``rows``, the split (``parallel/spatial.py::Rows``) of the grid whose rows
+x holds, and every rank makes the same exchanges in the same order: the
+3x3 convolutions take a halo, the GroupNorms sum over the model ranks
+(``models/common.py``); a downsample reshards its level to whole row pairs
+and takes one row from the rank below (zeros at the grid's bottom), its
+output split that one halved, rounded down (:meth:`AutoencoderKL.latent_rows`);
+the decoder's repeat doubles its split (:meth:`AutoencoderKL.decoded_rows`);
+the attention takes q from the rank's rows and k and v from every rank's;
+``DiagonalGaussian.sample`` draws its noise over the global latent grid and
+takes the rank's rows.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import promote
 from ..parallel.mesh import SINGLE, DataMesh
+from ..parallel.spatial import Rows, all_rows, halo, take_rows, to_pairs
 from ..utils.rng import Key, generator as key_generator
 from .common import Conv, Dense, GroupNorm, num_groups_for
 
@@ -51,11 +66,16 @@ class DiagonalGaussian(NamedTuple):
     def std(self):
         return torch.exp(0.5 * self.logvar)
 
-    def sample(self, key: Key, mesh: DataMesh = SINGLE) -> torch.Tensor:
+    def sample(self, key: Key, mesh: DataMesh = SINGLE, rows: Optional[Rows] = None
+               ) -> torch.Tensor:
         """A posterior sample; its noise is drawn over the global batch, of
-        which this is ``mesh``'s block, and sliced."""
-        noise = posterior_noise(key, mesh.global_shape(self.mean.shape), self.mean.device)
-        return self.mean + self.std * mesh.block(noise)
+        which this is ``mesh``'s block, and over the global grid, of which
+        this is the rank's rows under ``rows``, and sliced."""
+        shape = list(mesh.global_shape(self.mean.shape))
+        if rows is not None:
+            shape[1] = rows.H
+        noise = posterior_noise(key, shape, self.mean.device)
+        return self.mean + self.std * take_rows(mesh.block(noise), rows)
 
     def mode(self) -> torch.Tensor:
         return self.mean
@@ -81,9 +101,9 @@ class VaeResBlock(nn.Module):
         self.conv2 = Conv(out_chan, out_chan, 3, padding=1, **g)
         self.conv_shortcut = Conv(in_chan, out_chan, 1, **g) if in_chan != out_chan else None
 
-    def forward(self, x):
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+    def forward(self, x, rows: Optional[Rows] = None):
+        h = self.conv1(F.silu(self.norm1(x)), rows)
+        h = self.conv2(F.silu(self.norm2(h)), rows)
         return (x if self.conv_shortcut is None else self.conv_shortcut(x)) + h
 
 
@@ -98,10 +118,15 @@ class AttnBlock(nn.Module):
         self.to_q, self.to_k, self.to_v = (Dense(channels, channels, **g) for _ in range(3))
         self.to_out = nn.ModuleList([Dense(channels, channels, **g)])
 
-    def forward(self, x):
+    def forward(self, x, rows: Optional[Rows] = None):
+        """Under ``rows`` x is a rank's rows: its queries meet the keys and
+        values of every rank's rows, gathered."""
         B, H, W, C = x.shape
         h = self.group_norm(x).reshape(B, H * W, C)
         q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
+        if rows is not None:
+            kv = all_rows(torch.cat([k, v], -1).reshape(B, H, W, 2 * C), rows)
+            k, v = kv.reshape(B, -1, 2 * C).split(C, dim=-1)
         attn = torch.softmax(q @ k.transpose(1, 2) / C ** 0.5, dim=-1)
         return x + self.to_out[0](attn @ v).reshape(B, H, W, C)
 
@@ -115,8 +140,8 @@ class MidBlock(nn.Module):
         self.resnets = nn.ModuleList([VaeResBlock(channels, channels, **g) for _ in range(2)])
         self.attentions = nn.ModuleList([AttnBlock(channels, **g)])
 
-    def forward(self, h):
-        return self.resnets[1](self.attentions[0](self.resnets[0](h)))
+    def forward(self, h, rows: Optional[Rows] = None):
+        return self.resnets[1](self.attentions[0](self.resnets[0](h, rows), rows), rows)
 
 
 class _Sampler(nn.Module):
@@ -126,6 +151,20 @@ class _Sampler(nn.Module):
         super().__init__()
         self.conv = Conv(channels, channels, 3, padding=padding, stride=stride,
                          generator=generator)
+
+
+def downsample(conv: Conv, h, rows: Optional[Rows] = None):
+    """``(out, split)``: ``h`` padded right and bottom by one, then ``conv``
+    at stride 2 with padding 0. Under ``rows`` (a rank's rows) the level is
+    resharded to whole row pairs and the rank takes one row from the rank
+    below (zeros at the grid's bottom), the column padded on every rank;
+    the output split is that one halved, rounded down (None without)."""
+    if rows is None:
+        return conv(F.pad(h, (0, 0, 0, 1, 0, 1))), None
+    h, rows = to_pairs(h, rows)
+    h = F.pad(halo(h, 1, conv.sp, rows=rows, above=0), (0, 0, 0, 1))
+    x, w, b = promote(h.permute(0, 3, 1, 2), conv.weight, conv.bias)
+    return F.conv2d(x, w, b, stride=2).permute(0, 2, 3, 1), rows.halved(ceil=False)
 
 
 class _Level(nn.Module):
@@ -159,16 +198,15 @@ class Encoder(nn.Module):
         self.conv_norm_out = _gn(prev)
         self.conv_out = Conv(prev, 2 * latent_channels, 3, padding=1, **g)
 
-    def forward(self, x):
-        h = self.conv_in(x)
+    def forward(self, x, rows: Optional[Rows] = None):
+        h = self.conv_in(x, rows)
         for level in self.down_blocks:
             for block in level.resnets:
-                h = block(h)
+                h = block(h, rows)
             if hasattr(level, "downsamplers"):
-                # Pad right and bottom by one, then stride 2 with padding 0.
-                h = level.downsamplers[0].conv(F.pad(h, (0, 0, 0, 1, 0, 1)))
-        h = self.mid_block(h)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+                h, rows = downsample(level.downsamplers[0].conv, h, rows)
+        h = self.mid_block(h, rows)
+        return self.conv_out(F.silu(self.conv_norm_out(h)), rows)
 
 
 class Decoder(nn.Module):
@@ -188,16 +226,17 @@ class Decoder(nn.Module):
         self.conv_norm_out = _gn(prev)
         self.conv_out = Conv(prev, out_chan, 3, padding=1, **g)
 
-    def forward(self, z):
-        h = self.mid_block(self.conv_in(z))
+    def forward(self, z, rows: Optional[Rows] = None):
+        h = self.mid_block(self.conv_in(z, rows), rows)
         for level in self.up_blocks:
             for block in level.resnets:
-                h = block(h)
+                h = block(h, rows)
             if hasattr(level, "upsamplers"):
                 B, H, W, C = h.shape
                 h = h[:, :, None, :, None, :].expand(B, H, 2, W, 2, C).reshape(B, 2 * H, 2 * W, C)
-                h = level.upsamplers[0].conv(h)
-        return self.conv_out(F.silu(self.conv_norm_out(h)))
+                rows = None if rows is None else rows.doubled(2 * rows.H)
+                h = level.upsamplers[0].conv(h, rows)
+        return self.conv_out(F.silu(self.conv_norm_out(h)), rows)
 
 
 class AutoencoderKL(nn.Module):
@@ -220,12 +259,17 @@ class AutoencoderKL(nn.Module):
         self.post_quant_conv = Conv(latent_channels, latent_channels, 1, **g)
         self.to(device)
 
-    def encode(self, x) -> DiagonalGaussian:
-        mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=-1)
+    def encode(self, x, rows: Optional[Rows] = None) -> DiagonalGaussian:
+        """The posterior over the latents; under ``rows`` (spatial
+        sharding) x is a rank's rows and the latents are its rows of
+        :meth:`latent_rows`."""
+        mean, logvar = self.quant_conv(self.encoder(x, rows)).chunk(2, dim=-1)
         return DiagonalGaussian(mean, logvar.clamp(*LOGVAR_RANGE))
 
-    def decode(self, z):
-        return self.decoder(self.post_quant_conv(z))
+    def decode(self, z, rows: Optional[Rows] = None):
+        """The reconstruction; under ``rows`` z is a rank's rows of the
+        latents and the output its rows of :meth:`decoded_rows`."""
+        return self.decoder(self.post_quant_conv(z), rows)
 
     def forward(self, x, key: Key = None, mesh: DataMesh = SINGLE):
         """``(reconstruction, posterior)``: the posterior sampled with
@@ -242,6 +286,21 @@ class AutoencoderKL(nn.Module):
         for _ in range(len(self.block_out_channels) - 1):
             H, W = H // 2, W // 2
         return B, H, W, self.latent_channels
+
+    def latent_rows(self, rows: Optional[Rows]) -> Optional[Rows]:
+        """The latents' split for an input split ``rows``: each downsample's
+        level resharded to whole row pairs, then halved, rounded down
+        (raises where a level would leave a rank without a row)."""
+        if rows is None:
+            return None
+        return rows.halvings(len(self.block_out_channels) - 1, ceil=False)[-1]
+
+    def decoded_rows(self, rows: Optional[Rows]) -> Optional[Rows]:
+        """The reconstruction's split for a latent split ``rows``: each
+        upsample doubles it."""
+        for _ in range(len(self.block_out_channels) - 1):
+            rows = None if rows is None else rows.doubled(2 * rows.H)
+        return rows
 
 
 VARIANTS = {

@@ -57,7 +57,10 @@ def active(axis) -> bool:
 
 def row_span(h: int, axis):
     """``(r0, H)``: the first global row of a rank that holds ``h`` rows of
-    the even split, and the grid's height (``(0, h)`` without a split)."""
+    the even split over ``axis``, or of ``axis`` itself where it is a
+    :class:`Rows`, and the grid's height (``(0, h)`` without a split)."""
+    if isinstance(axis, Rows):
+        return axis.r0, axis.H
     if not active(axis):
         return 0, h
     rows = Rows.of(h, axis)
@@ -155,7 +158,10 @@ def rows_of(x: torch.Tensor, axis, rows: Optional[Rows] = None, dim: int = 1) ->
 
 
 def take_rows(x: torch.Tensor, axis, dim: int = 1) -> torch.Tensor:
-    """This rank's rows of a whole field (along ``dim``), of the even split."""
+    """This rank's rows of a whole field (along ``dim``): of the even split
+    over ``axis``, or of ``axis`` itself where it is a :class:`Rows`."""
+    if isinstance(axis, Rows):
+        return x.narrow(dim, axis.r0, axis.h)
     if not active(axis):
         return x
     rows = Rows.even(x.shape[dim], axis)
@@ -241,19 +247,22 @@ def _with(shape, dim: int, n: int):
 
 
 def halo(x: torch.Tensor, k: int, axis, replicate: bool = False, dim: int = 1,
-         rows: Optional[Rows] = None) -> torch.Tensor:
-    """x with ``k`` rows more on each side along ``dim``: the rows that the
-    ranks above and below hold (however many ranks that takes, under the
-    even split or ``rows``), and beyond the grid's top and bottom zeros or,
-    with ``replicate``, copies of the edge row (``F.pad``'s ``replicate``)."""
-    if k == 0 or not active(axis):
+         rows: Optional[Rows] = None, above: Optional[int] = None) -> torch.Tensor:
+    """x with ``k`` rows more on each side along ``dim`` (``above`` rows on
+    top where given, as 0 for a stride-2 convolution padded at the bottom
+    alone): the rows that the ranks above and below hold (however many
+    ranks that takes, under the even split or ``rows``), and beyond the
+    grid's top and bottom zeros or, with ``replicate``, copies of the edge
+    row (``F.pad``'s ``replicate``)."""
+    above = k if above is None else above
+    if not (k or above) or not active(axis):
         return x
     rows = rows_of(x, axis, rows, dim)
     b, H = rows.bounds, rows.H
-    wants = [(max(0, b[j] - k), min(H, b[j + 1] + k)) for j in range(axis.size)]
+    wants = [(max(0, b[j] - above), min(H, b[j + 1] + k)) for j in range(axis.size)]
     y = _fetch(x, rows, wants, dim)
     lo, hi = wants[axis.rank]
-    top, bottom = k - (rows.r0 - lo), k - (hi - rows.r0 - rows.h)
+    top, bottom = above - (rows.r0 - lo), k - (hi - rows.r0 - rows.h)
     if not top and not bottom:
         return y
     parts = [y]

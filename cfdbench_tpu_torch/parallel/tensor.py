@@ -29,9 +29,11 @@ Here they are explicit:
   optimizer moments are stored 1/M a rank, as in the JAX package, and
   their compute is replicated over the model ranks. Under spatial
   sharding (``spatial.py``) every model runs this way, the hooks on the
-  model itself, and the gradient of a gathered parameter is the partial
-  of the rank's rows: the backward averages it over the model ranks
-  before taking the slice, a reduce-scatter (``spatial``).
+  model itself (or on each part a latent model's task calls), all its
+  split parameters gathered in one exchange (:class:`GatherShards`), and
+  the gradient of a gathered parameter is the partial of the rank's rows:
+  the backward averages it over the model ranks before taking the slice,
+  a reduce-scatter.
 
 Transport: every gather is an all-reduce of each rank's slice placed in
 zeros, on every backend. Gloo, which carries two ranks on one card (NCCL
@@ -116,22 +118,51 @@ def copy_to_model(x: torch.Tensor, axis) -> torch.Tensor:
 class GatherShard(torch.autograd.Function):
     """A parameter's slice on this rank → the whole parameter; the
     gradient's slice goes back, with no reduction over the model ranks
-    (tp: every model rank computes the same whole gradient), or with
-    ``rows`` (sp: each rank's is the partial of its rows) its mean over
-    them first."""
+    (tp: every model rank computes the same whole gradient)."""
 
     @staticmethod
-    def forward(ctx, shard, dim, axis, rows=False):
-        ctx.dim, ctx.axis, ctx.rows = dim, axis, rows
+    def forward(ctx, shard, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
         return all_gather(shard.detach(), dim, axis)
 
     @staticmethod
     def backward(ctx, grad):
-        if ctx.rows:
-            grad = grad.contiguous().clone()
-            dist.all_reduce(grad, group=ctx.axis.group)
-            grad.div_(ctx.axis.size)
-        return _slice(grad, ctx.dim, ctx.axis), None, None, None
+        return _slice(grad, ctx.dim, ctx.axis), None, None
+
+
+class GatherShards(torch.autograd.Function):
+    """Several parameters' slices (``dims[i]`` the axis of ``shards[i]``,
+    all of one dtype) → the whole parameters, in one all-reduce of their
+    whole shapes laid end to end; backward, one all-reduce of their
+    gradients, each averaged over the model ranks (sp: each rank's is the
+    partial of its rows) before its slice goes back."""
+
+    @staticmethod
+    def forward(ctx, dims, axis, *shards):
+        ctx.dims, ctx.axis = dims, axis
+        wholes = []
+        for shard, dim in zip(shards, dims):
+            shape = list(shard.shape)
+            shape[dim] *= axis.size
+            wholes.append(shape)
+        ctx.wholes = wholes
+        flat = shards[0].new_zeros(sum(torch.Size(w).numel() for w in wholes))
+        outs = [piece.view(w) for piece, w in zip(flat.split([torch.Size(w).numel() for w in wholes]),
+                                                  wholes)]
+        for out, shard, dim in zip(outs, shards, dims):
+            out.narrow(dim, axis.rank * shard.shape[dim], shard.shape[dim]).copy_(shard)
+        dist.all_reduce(flat, group=axis.group)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # Grads of unused outputs come as zeros (materialized).
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=ctx.axis.group)
+        flat.div_(ctx.axis.size)
+        pieces = flat.split([torch.Size(w).numel() for w in ctx.wholes])
+        return (None, None, *[_slice(p.view(w), d, ctx.axis)
+                              for p, w, d in zip(pieces, ctx.wholes, ctx.dims)])
 
 
 def gather_at_use(module: torch.nn.Module, shard_axes, axis, spatial: bool = False) -> list:
@@ -142,29 +173,49 @@ def gather_at_use(module: torch.nn.Module, shard_axes, axis, spatial: bool = Fal
     ``__dict__``, where attribute lookup finds it before the parameter,
     and removed after. With ``spatial`` the hooks are on ``module`` itself
     and gather every split parameter for its whole forward (the FNO reads
-    its submodules' weights without calling them), each gradient averaged
-    over the model ranks (:class:`GatherShard`'s ``rows``). The parameter
-    itself stays this
-    rank's slice: what the optimizer updates and ``state_dict`` holds. A
+    its submodules' weights without calling them) in one exchange, each
+    gradient averaged over the model ranks (:class:`GatherShards`). The
+    parameter itself stays this rank's slice: what the optimizer updates
+    and ``state_dict`` holds. A
     cast copy that ``torch.func.functional_call`` puts in the parameter's
-    place is gathered the same way. Returns the hooks' handles."""
+    place is gathered the same way. A module that is never called itself
+    names in ``PARTS`` the submodules that are, each for its whole forward
+    (a latent diffusion model's UNet and conditioning): with ``spatial``
+    the hooks sit on each of those. Returns the hooks' handles."""
     owners, handles = {}, []
     for name, dim in shard_axes.items():
         if dim is not None:
             path, _, leaf = name.rpartition(".")
             owners.setdefault(path, []).append((leaf, dim))
-    groups = {"": [(module.get_submodule(path), leaf, dim) for path, leaves in owners.items()
-                   for leaf, dim in leaves]} if spatial else {
-        path: [(module.get_submodule(path), leaf, dim) for leaf, dim in leaves]
-        for path, leaves in owners.items()}
+
+    def group(path):
+        if not spatial:
+            return path
+        return next((part for part in getattr(module, "PARTS", ())
+                     if path == part or path.startswith(part + ".")), "")
+
+    groups = {}
+    for path, leaves in owners.items():
+        groups.setdefault(group(path), []).extend(
+            (module.get_submodule(path), leaf, dim) for leaf, dim in leaves)
     for path, leaves in groups.items():
         if not leaves:
             continue
 
         def gather(mod, args, leaves=leaves):
+            if not spatial:
+                for owner, leaf, dim in leaves:
+                    owner.__dict__[leaf] = GatherShard.apply(owner._parameters[leaf], dim, axis)
+                return
+            by_dtype = {}  # one exchange for each dtype of the slices (a cast copy's)
             for owner, leaf, dim in leaves:
-                owner.__dict__[leaf] = GatherShard.apply(owner._parameters[leaf], dim, axis,
-                                                         spatial)
+                shard = owner._parameters[leaf]
+                by_dtype.setdefault(shard.dtype, []).append((owner, leaf, dim, shard))
+            for group in by_dtype.values():
+                wholes = GatherShards.apply(tuple(d for _, _, d, _ in group), axis,
+                                            *[shard for *_, shard in group])
+                for (owner, leaf, _, _), whole in zip(group, wholes):
+                    owner.__dict__[leaf] = whole
 
         def release(mod, args, out, leaves=leaves):
             for owner, leaf, _ in leaves:

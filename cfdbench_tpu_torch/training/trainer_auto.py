@@ -82,6 +82,7 @@ from ..data.pipeline import batches, field_rows, num_batches, to_device
 from ..metrics import LossFn
 from ..models import fno
 from ..models.common import cast_call
+from ..models.diffusion import LatentDenoiser
 from ..models.ffno import Ffno2d
 from ..models.point import AutoDeepONet, AutoDeepONetCnn, AutoEDeepONet, AutoFfn
 from ..models.punetg import PUNetGCFD
@@ -183,22 +184,23 @@ def use_mesh(task, mesh: DataMesh) -> None:
             module.mesh = mesh
 
 
-# The models that run on a rank's grid rows (--shard_spatial 1); the latent
-# diffusion models' denoiser is ROADMAP.md A15d3.
+# The models that run on a rank's grid rows (--shard_spatial 1): every
+# model of main_auto.
 SPATIAL_MODELS = (fno.Fno2d, Ffno2d, UNet, ResNet, AutoFfn, AutoDeepONet, AutoEDeepONet,
-                  AutoDeepONetCnn, PUNetGCFD)
+                  AutoDeepONetCnn, PUNetGCFD, LatentDenoiser)
 
 
 def use_spatial(task, axis) -> None:
     """Run ``task`` on its rank's grid rows over ``axis`` (a model axis;
     spatial sharding), or with None on whole rows again: the batches' and
-    the modules' rows (``sp``), the draws of a diffusion task, and the
-    loss's and BatchNorm's sums over every rank of the world
-    (``DataMesh.cells``) or the data axis."""
+    the modules' rows (``sp``, a latent model's frozen VAE's too), the
+    draws of a diffusion task, and the loss's and BatchNorm's sums over
+    every rank of the world (``DataMesh.cells``) or the data axis."""
     task.rows = axis
     field = task.mesh if axis is None else task.mesh.cells()
     task.loss_fn.mesh = field
-    for module in task.model.modules():
+    vae = getattr(task, "vae", None)
+    for module in [*task.model.modules(), *(() if vae is None else vae.modules())]:
         if hasattr(module, "sp"):
             module.sp = axis
         if isinstance(module, BatchNorm):
@@ -210,11 +212,10 @@ def check_spatial(model, mesh: DataMesh, field_shape) -> None:
     a grid of ``field_shape`` over ``mesh``'s model axis: a model that
     :data:`SPATIAL_MODELS` holds, rows that divide over the axis, and every
     rank keeping a row at every level of a model that halves the grid
-    (``check_sp_rows``)."""
+    (``check_sp_rows``; a latent model's latents)."""
     if not isinstance(model, SPATIAL_MODELS):
         raise NotImplementedError(
-            f"--shard_spatial 1 with {type(model).__name__}: the latent diffusion models on a "
-            "rank's rows are ROADMAP.md A15d3")
+            f"--shard_spatial 1 with {type(model).__name__}: not a model of main_auto")
     mesh.rows(field_shape[0])
     if mesh.model.distributed and hasattr(model, "check_sp_rows"):
         model.check_sp_rows(field_shape[0], mesh.model)

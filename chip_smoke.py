@@ -77,7 +77,7 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    gradient, and one 50-step DDPM frame, card against CPU, at phase 7b's
    and 6a's bounds. (c) At batch 8 and 32: each model's float32 train
    step (split, peak memory, device operations a step), one denoise call,
-   one 50-step DDPM frame and the 20-step rollout in frames/s.
+   one 50-step DDPM frame and a GEN_ROLLOUT_STEPS-step rollout in frames/s.
 10. The VAE, the latent diffusion models and the unconditional DDPM at
    their default widths (lite VAE 32-64-128-256, latent 4; latent UNet
    base 64, mults 1-2-4, 1 res block; 1000 train timesteps, 50 denoising
@@ -264,14 +264,17 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    float32 evaluation) and with ``--pp_microbatches`` (every stage on whole
    rows, as JAX's pipeline takes its batch: the step is pp's; its kernels
    on the stages), the U-Net on a TUBE_GRID tree (33 rows a rank), the
-   point models SP_POINT_MODELS and pixel diffusion at SP_PIXEL_BATCH at
-   default widths, their epochs against the largest of their permuted-row
-   controls (SP_CONTROL_SEEDS) and the float64 steps of each of them
-   within DP_RTOL; each rank's peak memory of a b128 U-Net step on
-   TUBE_GRID and a b8 pixel diffusion step, as a fraction of one
-   process's, with what fills it (the rank's parameters, gradients and
-   Adam state, and a second step's peak over them), and the phase's
-   seconds, on its ``[phase15c]`` line.
+   point models SP_POINT_MODELS, pixel diffusion and the three latent
+   models (on phase 10's VAE; Lite on the TUBE_GRID tree too, padded to
+   72 rows on the last rank) at SP_PIXEL_BATCH at default widths, their
+   epochs against the largest of their permuted-row controls
+   (SP_CONTROL_SEEDS) and the float64 steps of each of them within
+   DP_RTOL, no kernel launch on any rank; each rank's peak memory of a
+   b128 U-Net step on TUBE_GRID and a b8 pixel diffusion and
+   latent_diffusion2 step, as a fraction of one process's, with what fills
+   it (the rank's parameters, gradients and Adam state, and a second
+   step's peak over them), and the phase's seconds, on its ``[phase15c]``
+   line.
 
 Every phase's seconds are printed on a line of their own (``[seconds]``),
 and the whole script's.
@@ -354,6 +357,10 @@ PHASE8 = NONAUTO + ("ffno",)
 # Phase 9: pixel diffusion and GenCast at their default widths.
 GENERATIVE = ("pixel_diffusion", "gencast")
 GEN_BATCHES = (8, 32)  # the trainers' default batch, and a larger one
+# The timed rollout of phase 9c: its frames/s is a frame's (each step one
+# full DDPM sampling), so it runs 5 of the STEPS frames (20 took 83 s of
+# the script's time on an H100).
+GEN_ROLLOUT_STEPS = 5
 GEN_CHECK_BATCH = 2
 # Residual statistics for the GenCast task outside main_gencast.
 GEN_STATS = dict(residual_mean=[0.01, -0.02], residual_std=[0.1, 0.2])
@@ -496,11 +503,15 @@ SP_RANKS = {"1x2": 2, "2x2": 4}
 # Phase 15c: the rest of main_auto under --shard_spatial 1 on SP_MESHES[0]:
 # the flagship with --use_mixed_precision and with --pp_microbatches
 # PP_MICRO, the U-Net on a TUBE_GRID tree (33 rows a rank, which its
-# poolings reshard), two point models and pixel diffusion (SP_PIXEL_BATCH),
-# at default widths; and each rank's peak memory of one step of the U-Net
-# and of pixel diffusion (model flags, grid, global batch).
+# poolings reshard), two point models, pixel diffusion and the latent models
+# (SP_PIXEL_BATCH; on phase 10's lite VAE, whose latents of a 64-row grid
+# split 4 and 4 rows, and Lite on TUBE_GRID too: padded to 72 rows, the
+# last rank holds 39 and the latents split 4 and 5), at default widths; and
+# each rank's peak memory of one step of the U-Net, of pixel diffusion and
+# of latent_diffusion2 (model flags, grid, global batch).
 TUBE_GRID = (66, 65)  # the tube and dam problems' grid
 SP_POINT_MODELS = ("auto_ffn", "auto_deeponet_cnn")
+SP_LATENT = {name: name for name in LATENT} | {"latent_diffusion_lite66": "latent_diffusion_lite"}
 # Phase 15c's runs whose epoch is held against permuted-row controls, one a
 # seed: gradients of rounding level (the biases that the U-Net's BatchNorms
 # and the PUNetG's GroupNorms cancel; the point models' weights into units
@@ -508,11 +519,19 @@ SP_POINT_MODELS = ("auto_ffn", "auto_deeponet_cnn")
 # is one draw of the drift that rounding alone leaves, so the bound takes the
 # largest of a few. On an H100 the U-Net's three controls read 6.1e-4 to
 # 7.1e-3 in their losses.
-SP_CONTROLLED = ("unet66",) + SP_POINT_MODELS + ("pixel_diffusion",)
+SP_CONTROLLED = ("unet66",) + SP_POINT_MODELS + ("pixel_diffusion",) + tuple(SP_LATENT)
 SP_CONTROL_SEEDS = (SEED, SEED + 1000, SEED + 2000)
+# The latent runs' controls add the float64 run's drift (float64_run): a
+# permuted-row control reorders only the batch's sums, and in a GroupNorm
+# network (the PUNetG on 8x8 latents, the VAE, the CondEncoder) no
+# per-sample sum, while sp reorders every spatial sum; so its draws fell
+# short of sp's drift, which the float64 run's matches (PERF.md §6).
+SP_LATENT_CONTROL = "float64"
 SP_PIXEL_BATCH = 8
 SP_MEMORY = {"memory_unet66": (["--model", "unet"], TUBE_GRID, 128),
-             "memory_pixel": (["--model", "pixel_diffusion"], (GRID, GRID), SP_PIXEL_BATCH)}
+             "memory_pixel": (["--model", "pixel_diffusion"], (GRID, GRID), SP_PIXEL_BATCH),
+             "memory_latent": (["--model", "latent_diffusion2", "--ldm_vae_weights_path",
+                                str(WORK / "vae_weights")], (GRID, GRID), SP_PIXEL_BATCH)}
 # An H100 SXM's published peaks (NVIDIA's data sheet, dense rates): device
 # memory bytes/s, TF32 FLOP/s on the tensor cores and float32 FLOP/s outside
 # them. A split-TF32 product (csrc/tf32.cuh) is three TF32 products.
@@ -1909,7 +1928,7 @@ def generative_timing(name: str, device, card) -> dict:
     """At each of GEN_BATCHES: the float32 train step (dropout on; Adam and
     StepLR for pixel diffusion, GenCast's AdamW chain) with its split, peak
     memory and device operations, then one denoise call, one 50-step DDPM
-    frame and the 20-step rollout, by CUDA events."""
+    frame and the GEN_ROLLOUT_STEPS-step rollout, by CUDA events."""
     from cfdbench_tpu_torch.training.optim import make_adam, make_gencast_tx
     from cfdbench_tpu_torch.utils.rng import train_key
     from cfdbench_tpu_torch.training.rollout import make_rollout_fn
@@ -1946,20 +1965,23 @@ def generative_timing(name: str, device, card) -> dict:
             denoise_ms = time_ms(lambda: task.model(x, t, cp), 10)
         if name == "pixel_diffusion":
             frame = lambda: task.predict_frame(batch["inputs"], cp, mask)  # noqa: E731
-            roll = make_rollout_fn(task.predict_frame, STEPS, stochastic=True, seed=SEED)
+            roll = make_rollout_fn(task.predict_frame, GEN_ROLLOUT_STEPS, stochastic=True,
+                                   seed=SEED)
             rollout = lambda: roll(batch["inputs"], cp, mask)  # noqa: E731
         else:
             frame = lambda: task.generate(batch["inputs"], batch["inputs_prev"], cp, mask)  # noqa: E731
-            rollout = lambda: task.rollout(batch["inputs"], batch["inputs"], cp, mask, STEPS)  # noqa: E731
+            rollout = lambda: task.rollout(batch["inputs"], batch["inputs"], cp, mask,  # noqa: E731
+                                           GEN_ROLLOUT_STEPS)
         frame_ms = time_ms(frame, 1)
         torch.cuda.reset_peak_memory_stats(device)
         roll_ms = time_ms(rollout, 1)
         roll_peak = torch.cuda.max_memory_allocated(device) / 2**20
-        fps = B * STEPS / roll_ms * 1e3
+        fps = B * GEN_ROLLOUT_STEPS / roll_ms * 1e3
         print(f"[time] [{card}] {name} train step b{B} {GRID}x{GRID} f32: {step_ms:.3f} ms, "
               f"{ops_per_step} device operations; " + split_text(split))
         print(f"[time] [{card}] {name} b{B}: denoise call {denoise_ms:.3f} ms, 50-step DDPM frame "
-              f"{frame_ms:.3f} ms ({B / frame_ms * 1e3:.2f} frames/s), rollout {STEPS} steps "
+              f"{frame_ms:.3f} ms ({B / frame_ms * 1e3:.2f} frames/s), rollout "
+              f"{GEN_ROLLOUT_STEPS} steps "
               f"{roll_ms:.3f} ms = {fps:.2f} frames/s, peak memory {roll_peak:.1f} MiB")
         result[f"b{B}"] = dict(train_step_ms=step_ms, **split, device_ops_per_step=ops_per_step,
                                denoise_ms=denoise_ms, frame_ms=frame_ms, rollout_ms=roll_ms,
@@ -2630,6 +2652,8 @@ def dp_step(argv, device, dtype=torch.float64, grid=(GRID, GRID)) -> dict:
         return dp_trainer_step(args, mesh, device)
     task = make_auto_task(args, 5, grid, device)
     task.model.to(dtype)
+    if hasattr(task, "vae"):  # a latent model's frozen VAE
+        task.vae.to(dtype)
     use_mesh(task, mesh)
     if args.shard_spatial:  # phase 15
         split_model(task, 0, True)
@@ -2911,6 +2935,42 @@ class permuted_train_rows:
         self.saved = [(m, name, getattr(m, name)) for m, name, _ in self.sites]
         for m, name, f in self.sites:
             setattr(m, name, f)
+
+    def __exit__(self, *exc):
+        for m, name, f in self.saved:
+            setattr(m, name, f)
+
+
+class float64_run:
+    """Within it, ``main_auto`` builds its task in float64 (the network and
+    a latent model's frozen VAE) and trains and evaluates on float64
+    batches: the same run, its draws, batches and steps alike, with
+    float32's rounding all but gone. Against the float32 run it is the
+    drift that float32's rounding alone leaves: a control of the latent
+    runs (SP_LATENT_CONTROL), whose GroupNorm networks a permuted-row
+    control leaves every per-sample sum of, so that it reorders only the
+    weight gradients' sums over the batch."""
+
+    def __enter__(self):
+        from cfdbench_tpu_torch import cli
+        from cfdbench_tpu_torch.training import trainer_auto
+
+        real_task, real_to_device = cli.make_auto_task, trainer_auto.to_device
+
+        def make_auto_task(*args, **kwargs):
+            task = real_task(*args, **kwargs)
+            task.model.double()
+            if hasattr(task, "vae"):
+                task.vae.double()
+            return task
+
+        def to_device(batch, device):
+            return {k: v.double() if v.is_floating_point() else v
+                    for k, v in real_to_device(batch, device).items()}
+
+        self.saved = [(cli, "make_auto_task", real_task),
+                      (trainer_auto, "to_device", real_to_device)]
+        cli.make_auto_task, trainer_auto.to_device = make_auto_task, to_device
 
     def __exit__(self, *exc):
         for m, name, f in self.saved:
@@ -3872,10 +3932,12 @@ def sp_rest_jobs(data_root: Path, tube_root: Path, out: Path, mesh: str):
     --use_mixed_precision (``fno_mp``, into ``out``'s sibling ``_mp``) and
     with --pp_microbatches PP_MICRO (``fno_pp``; its reference is phase
     13b's run), an epoch of the U-Net on the TUBE_GRID tree at DP_UNET_BATCH,
-    of each of SP_POINT_MODELS at DP_UNET_BATCH and of pixel diffusion at
-    SP_PIXEL_BATCH, at default widths; a float64 step of the U-Net on
-    TUBE_GRID, of each of SP_POINT_MODELS and of pixel diffusion
-    (:func:`dp_step`); then the memory records of SP_MEMORY."""
+    of each of SP_POINT_MODELS at DP_UNET_BATCH and of pixel diffusion and
+    each of SP_LATENT (on phase 10's VAE; ``latent_diffusion_lite66`` on the
+    TUBE_GRID tree) at SP_PIXEL_BATCH, at default widths; a float64 step of
+    the U-Net on TUBE_GRID, of each of SP_POINT_MODELS, of pixel diffusion
+    and of each of SP_LATENT (:func:`dp_step`); then the memory records of
+    SP_MEMORY."""
     sp = ["--shard_spatial", "1"] if mesh != "1" else []
     fno = {n: a for n, _, a in dp_jobs(data_root, out, mesh)}["fno"]
     data = ["--data_name", "cavity_prop_bc_geo", "--data_dir", str(data_root),
@@ -3888,12 +3950,20 @@ def sp_rest_jobs(data_root: Path, tube_root: Path, out: Path, mesh: str):
             ("fno_pp", "main_auto", fno + ["--pp_microbatches", str(PP_MICRO)]),
             ("unet66", "main_auto", ["--model", "unet"] + batch + tube)]
     jobs += [(name, "main_auto", ["--model", name] + batch + data) for name in SP_POINT_MODELS]
-    jobs.append(("pixel_diffusion", "main_auto", [
-        "--model", "pixel_diffusion", "--batch_size", str(SP_PIXEL_BATCH),
-        "--max_eval_batches", "1", "--ldm_num_inference_steps", MP_INFERENCE_STEPS] + data))
+    generative = ["--batch_size", str(SP_PIXEL_BATCH), "--max_eval_batches", "1",
+                  "--ldm_num_inference_steps", MP_INFERENCE_STEPS]
+    vae = ["--ldm_vae_weights_path", str(WORK / "vae_weights")]
+    jobs.append(("pixel_diffusion", "main_auto", ["--model", "pixel_diffusion"] + generative
+                 + data))
+    # Lite on TUBE_GRID writes under out/66: its run directory is Lite's.
+    tube66 = [str(out / "66") if a == str(out) else a for a in tube]
+    jobs += [(run, "main_auto", ["--model", name] + vae + generative
+              + (tube66 if run.endswith("66") else data)) for run, name in SP_LATENT.items()]
     jobs += [("unet66_step", "step_tube", ["--model", "unet", "--mesh_shape", mesh])]
     jobs += [(f"{name}_step", "step", ["--model", name, "--mesh_shape", mesh])
              for name in SP_POINT_MODELS + ("pixel_diffusion",)]
+    jobs += [(f"{run}_step", "step_tube" if run.endswith("66") else "step",
+              ["--model", name, "--mesh_shape", mesh] + vae) for run, name in SP_LATENT.items()]
     jobs += [(name, name, ["--mesh_shape", mesh]) for name in SP_MEMORY]
     jobs = [(n, e, a + sp) for n, e, a in jobs]
     if mesh == "1":  # phase 13b ran the one-process fno_pp: main_auto alone
@@ -3925,9 +3995,10 @@ def spatial_rest(device, card, data_root: Path, single: dict) -> dict:
     one_jobs = sp_rest_jobs(data_root, tube_root, WORK / "sp_rest_single", "1")
     want = dp_run(one_jobs, device) | {"fno_pp": single["fno"]}
     controls = {}  # (name, seed) -> the control's run directory's root and result
-    for seed in SP_CONTROL_SEEDS:
-        with permuted_train_rows(seed):
-            for name in SP_CONTROLLED:
+    for seed in SP_CONTROL_SEEDS + (SP_LATENT_CONTROL,):
+        names = SP_CONTROLLED if seed != SP_LATENT_CONTROL else tuple(SP_LATENT)
+        with permuted_train_rows(seed) if seed != SP_LATENT_CONTROL else float64_run():
+            for name in names:
                 argv = next(a for n, _, a in one_jobs if n == name)
                 root = WORK / f"sp_rest_control{seed}"
                 controls[name, seed] = root, dp_run([(name, "main_auto", [
@@ -3995,14 +4066,17 @@ def spatial_rest(device, card, data_root: Path, single: dict) -> dict:
                                    want[name]["names"], what)
             if name in SP_CONTROLLED:  # dev scores printed, as phase 15b prints the U-Net's
                 ctl_loss = ctl_params = 0.0
-                for seed in SP_CONTROL_SEEDS:
+                for seed in SP_CONTROL_SEEDS + ((SP_LATENT_CONTROL,) if name in SP_LATENT
+                                                else ()):
                     root, ctl = controls[name, seed]
                     control_run = root / mesh_run.relative_to(out)
                     loss_c = losses_rel(control_run, one_run)
                     params_c = dp_params(ctl["state"], want[name]["state"], want[name]["names"],
                                          f"{name} control, seed {seed}")
-                    print(f"[sp] {name}: the permuted-row control of seed {seed} against one "
-                          f"process: losses {loss_c:.3e}, parameters {params_c:.3e}, dev scores "
+                    kind = ("the float64 run" if seed == SP_LATENT_CONTROL
+                            else f"the permuted-row control of seed {seed}")
+                    print(f"[sp] {name}: {kind} against one process: losses {loss_c:.3e}, "
+                          f"parameters {params_c:.3e}, dev scores "
                           f"{dev_rel(control_run, one_run):.3e}")
                     ctl_loss, ctl_params = max(ctl_loss, loss_c), max(ctl_params, params_c)
                 print(f"[sp] {what}: losses max rel diff {loss_rel:.3e}, parameters "

@@ -2,9 +2,9 @@
 spawned by ``tests/test_torch_parallel.py``,
 ``tests/test_torch_parallel_trainers.py``, ``tests/test_torch_tp.py``,
 ``tests/test_torch_pp.py``, ``tests/test_torch_tp_trainers.py``,
-``tests/test_torch_tp_trainers_cli.py``, ``tests/test_torch_sp.py`` and
-``tests/test_torch_sp_models.py`` (and importable without JAX, so that
-the spawned processes stay light).
+``tests/test_torch_tp_trainers_cli.py``, ``tests/test_torch_sp.py``,
+``tests/test_torch_sp_models.py`` and ``tests/test_torch_sp_latent.py``
+(and importable without JAX, so that the spawned processes stay light).
 
 :func:`run` joins a gloo group through a file under the test's temporary
 directory (never a TCP port: several test workers run at once), runs the
@@ -82,10 +82,11 @@ def split_step(case: dict, mesh):
     optimizer-state bytes against the whole model's. ``case["dropout"]``
     sets the ResNet's dropout rate; ``case["draws"]`` are a diffusion task's
     global draws (:func:`fixed_draws`), whose train forward's noise
-    prediction is the step's "predictions"."""
+    prediction is the step's "predictions" (a latent model's on its
+    latents' split, gathered)."""
     from cfdbench_tpu_torch.data.pipeline import field_rows
     from cfdbench_tpu_torch.models import resnet
-    from cfdbench_tpu_torch.parallel.spatial import gather_rows
+    from cfdbench_tpu_torch.parallel.spatial import all_rows, gather_rows
     from cfdbench_tpu_torch.training.optim import make_adam
     from cfdbench_tpu_torch.training.trainer_auto import (
         join_model, split_model, train_step, trained_module, use_mesh)
@@ -108,7 +109,8 @@ def split_step(case: dict, mesh):
     preds, scores, grads = [], [], None
     hook = None
     if getattr(task, "generative", False):  # a diffusion task's noise prediction
-        hook = task.model.register_forward_hook(lambda m, i, o: preds.append(o.detach().clone()))
+        net = getattr(task.model, "unet", task.model)
+        hook = net.register_forward_hook(lambda m, i, o: preds.append(o.detach().clone()))
     else:
         real_scores = task.scores
 
@@ -141,7 +143,10 @@ def split_step(case: dict, mesh):
     local = sum(p.numel() for p in trained.parameters())
     opt_bytes = sum(t.numel() * t.element_size() for st in opt.state.values()
                     for t in st.values() if torch.is_tensor(t) and t.dim() > 0)
-    preds = mesh.gather(gather_rows(preds[0], rows))
+    latent = getattr(task, "latent_rows", lambda h: None)(batch["labels"].shape[1])
+    with torch.no_grad():
+        preds = mesh.gather(gather_rows(preds[0], rows) if latent is None
+                            else all_rows(preds[0], latent))
     join_model(task)
     return dict(scores=scores, preds=preds, grads=grads,
                 params={k: p.detach().clone() for k, p in task.model.named_parameters()},
@@ -197,6 +202,65 @@ def spatial_ops(job: dict, mesh):
     return out
 
 
+def latent_rows_job(job: dict, mesh):
+    """A latent model's pieces on this model rank's rows, each gathered:
+    the frozen VAE's ``encode`` (mean, log-variance) of each of
+    ``job["vae"]``'s fields and its ``decode`` of the case's global latents
+    (``vae_rows``); a ``split_step`` of each of ``job["cases"]``; the frame
+    that ``predict_frame`` generates for each of ``job["samples"]``."""
+    return dict(vae={name: vae_rows(case, mesh) for name, case in job.get("vae", {}).items()},
+                steps={name: split_step(case, mesh) for name, case in job.get("cases", {}).items()},
+                frames={name: spatial_sample(case, mesh)
+                        for name, case in job.get("samples", {}).items()})
+
+
+def vae_rows(case: dict, mesh):
+    """``(mean, logvar, decoded)``: the lite VAE (``make_task``'s) on this
+    model rank's rows of ``case["x"]`` (padded as a latent model pads it)
+    and of the latents ``case["z"]``, gathered over the rows and the data
+    ranks."""
+    from cfdbench_tpu_torch.models import diffusion, make_cfd_vae
+    from cfdbench_tpu_torch.parallel.spatial import Rows, active, all_rows, take_rows
+
+    vae = make_cfd_vae("lite", generator=torch.Generator().manual_seed(5))
+    axis = mesh.model
+    for m in vae.modules():
+        if hasattr(m, "sp"):
+            m.sp = axis
+    x, z = (mesh.block(torch.from_numpy(case[k])) for k in ("x", "z"))
+    rows = Rows.even(x.shape[1], axis) if active(axis) else None
+    padded = diffusion.padded_rows(rows)
+    latent = vae.latent_rows(padded)
+    with torch.no_grad():
+        post = vae.encode(diffusion.pad_field(take_rows(x, rows), rows), padded)
+        out = vae.decode(take_rows(z, latent), latent)
+        return tuple(mesh.gather(all_rows(a, r)) for a, r in (
+            (post.mean, latent), (post.logvar, latent), (out, vae.decoded_rows(latent))))
+
+
+def spatial_sample(case: dict, mesh):
+    """A diffusion task's frame from the evaluation key on this rank's rows
+    of its block of the global batch, the model split as ``main_auto``
+    splits it (``split_model(spatial=True)``; whole without a model axis),
+    the case's draws injected; gathered over the rows and the ranks."""
+    from cfdbench_tpu_torch.data.pipeline import field_rows
+    from cfdbench_tpu_torch.parallel.spatial import gather_rows
+    from cfdbench_tpu_torch.training.trainer_auto import join_model, split_model, use_mesh
+
+    task = build_task(case)
+    use_mesh(task, mesh)
+    with rules_at(case):
+        split_model(task, 0, spatial=True)
+    task.model.eval()
+    task.num_inference_steps = case["inference_steps"]
+    b = {k: torch.from_numpy(v) for k, v in field_rows(mesh.block(case["batch"]), task.rows).items()}
+    with injected(case.get("draws")), torch.no_grad():
+        frame = task.predict_frame(b["inputs"], b["case_params"], b["mask"])
+        frame = mesh.gather(gather_rows(frame, task.rows))
+    join_model(task)
+    return frame
+
+
 def host_sample(case: dict, mesh):
     """A diffusion task's frames on ``mesh``'s block of its global batch, as
     ``main_multistep`` generates them (the sampler's draws over the global
@@ -216,11 +280,14 @@ def host_sample(case: dict, mesh):
 
 
 def build_task(case: dict):
-    """The case's task, its weights from ``case["state"]``."""
+    """The case's task, its weights from ``case["state"]``; with
+    ``case["four_groups"]`` its PUNetG's GroupNorms at four groups."""
     from cfdbench_tpu_torch.metrics import loss_name_to_fn
 
-    task = make_task(case["model"], case["widths"], loss_name_to_fn("nmse"),
-                     case.get("compute_dtype"))
+    groups = four_groups(vae=False) if case.get("four_groups") else contextlib.nullcontext()
+    with groups:
+        task = make_task(case["model"], case["widths"], loss_name_to_fn("nmse"),
+                         case.get("compute_dtype"))
     task.model.load_state_dict(case["state"])
     if "dtype" in case:
         task.model.to(case["dtype"])
@@ -247,9 +314,11 @@ def make_task(model: str, widths: dict, loss_fn=None, compute_dtype=None):
         return diffusion.GenCastCfdModel(loss_fn, np.array(GENCAST_STATS[0], np.float32),
                                          np.array(GENCAST_STATS[1], np.float32),
                                          generator=gen, **widths)
-    if model == "latent":
+    if model in LATENT_MODELS:
         vae = make_cfd_vae("lite", generator=torch.Generator().manual_seed(5))
-        return diffusion.LatentDiffusionCfdModel2(loss_fn, vae, generator=gen, **widths)
+        task = getattr(diffusion, LATENT_MODELS[model])(loss_fn, vae, generator=gen, **widths)
+        task.compute_dtype = compute_dtype
+        return task
     if model in POINT_MODELS:  # widths: the model's own arguments
         net = getattr(point, POINT_MODELS[model])(generator=gen, **widths)
         return AutoTask(net, loss_fn, compute_dtype=compute_dtype)
@@ -258,6 +327,9 @@ def make_task(model: str, widths: dict, loss_fn=None, compute_dtype=None):
                     loss_fn, compute_dtype=compute_dtype)
 
 
+# "latent" is v2, the model of the data-parallel tests.
+LATENT_MODELS = {"latent": "LatentDiffusionCfdModel2", "latent_v1": "LatentDiffusionCfdModel",
+                 "latent_lite": "LatentDiffusionCfdModelLite"}
 POINT_MODELS = {"auto_ffn": "AutoFfn", "auto_deeponet": "AutoDeepONet",
                 "auto_edeeponet": "AutoEDeepONet", "auto_deeponet_cnn": "AutoDeepONetCnn"}
 
@@ -281,7 +353,7 @@ class _Tee(io.StringIO):
 def fixed_draws(draws: dict):
     """Replacements for the port's draw functions that return the global
     draws the test made, by key: ``noise_and_t[key] = (noise, t)``,
-    ``masks[key]``, ``posterior[key]``."""
+    ``masks[key]``, ``posterior[key]``, ``sampler[(key, index)]``."""
     def noise_and_t(key, shape, T, device):
         noise, t = draws["noise_and_t"][key]
         assert tuple(shape) == noise.shape, (shape, noise.shape)
@@ -297,7 +369,12 @@ def fixed_draws(draws: dict):
         assert tuple(shape) == noise.shape, (shape, noise.shape)
         return torch.from_numpy(noise)
 
-    return noise_and_t, masks, posterior
+    def sampler(key, index, shape, device):
+        noise = draws["sampler"][(key, index)]
+        assert tuple(shape) == noise.shape, (shape, noise.shape)
+        return torch.from_numpy(noise)
+
+    return noise_and_t, masks, posterior, sampler
 
 
 @contextlib.contextmanager
@@ -326,26 +403,35 @@ def rules_at(case: dict):
 def injected(draws):
     """The port's draw functions replaced by :func:`fixed_draws` within."""
     from cfdbench_tpu_torch.models import diffusion, vae
+    from cfdbench_tpu_torch.ops import diffusion as ops_diffusion
     from cfdbench_tpu_torch.training import trainer_uncond
 
-    noise_and_t, masks, posterior = fixed_draws(draws or {})
-    return patched([(diffusion, "train_noise_and_t", noise_and_t),
+    draws = draws or {}
+    noise_and_t, masks, posterior, sampler = fixed_draws(draws)
+    return patched([(ops_diffusion, "ddpm_noise", sampler if "sampler" in draws
+                     else ops_diffusion.ddpm_noise),
+                    (diffusion, "train_noise_and_t", noise_and_t),
                     (diffusion, "dropout_keep_masks", masks),
                     (trainer_uncond, "train_noise_and_t", noise_and_t),
                     (trainer_uncond, "dropout_keep_masks", masks),
                     (vae, "posterior_noise", posterior)])
 
 
-def four_groups():
-    """The PUNetG's and the VAE's GroupNorms at four groups while built, as
-    the tests build both packages' (``test_torch_diffusion.four_groups``)."""
-    from cfdbench_tpu_torch.models import punetg, vae
+def four_groups_for(groups: int, channels: int) -> int:
+    """``num_groups_for`` at four groups, whatever ``groups`` asks."""
     from cfdbench_tpu_torch.models.common import num_groups_for
 
-    def four(groups, c):
-        return num_groups_for(4, c)
+    return num_groups_for(4, channels)
 
-    return patched([(punetg, "num_groups_for", four), (vae, "num_groups_for", four)])
+
+def four_groups(vae: bool = True):
+    """The PUNetG's and (``vae``) the VAE's GroupNorms at four groups while
+    built, as the tests build both packages'
+    (``test_torch_diffusion.four_groups``)."""
+    from cfdbench_tpu_torch.models import punetg, vae as vae_module
+
+    return patched([(punetg, "num_groups_for", four_groups_for)]
+                   + ([(vae_module, "num_groups_for", four_groups_for)] if vae else []))
 
 
 def trainer_net(case: dict):
@@ -601,6 +687,8 @@ def run(rank: int, world: int, root: str) -> None:
             result = {name: split_step(case, mesh) for name, case in job["cases"].items()}
         elif job["kind"] == "spatial_ops":
             result = spatial_ops(job, mesh)
+        elif job["kind"] == "latent_rows":
+            result = latent_rows_job(job, mesh)
         elif job["kind"] == "steps":
             result = {name: host_step(case, mesh) for name, case in job["cases"].items()}
             result["samples"] = {name: host_sample(case, mesh)
@@ -614,7 +702,7 @@ def run(rank: int, world: int, root: str) -> None:
         else:
             # Module constants the test sets, each (module, name, value): the
             # sharding rules' threshold for narrow test models, the DDPM's
-            # sampling interval.
+            # sampling interval, the PUNetG's group count (four_groups_for).
             import importlib
 
             for module, name, value in job.get("constants", ()):
@@ -627,12 +715,24 @@ def run(rank: int, world: int, root: str) -> None:
 
 def spawn(job: dict, root: Path, world: int = 2):
     """Run ``job`` on ``world`` spawned ranks; returns each rank's results."""
+    return start(job, root, world)()
+
+
+def start(job: dict, root: Path, world: int = 2):
+    """Start ``job`` on ``world`` spawned ranks; returns a function that
+    waits for them and returns each rank's results."""
     import torch.multiprocessing as mp
 
     root.mkdir(parents=True, exist_ok=True)
     torch.save(job, root / "job.pt")
-    mp.spawn(run, args=(world, str(root)), nprocs=world, join=True)
-    return [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(world)]
+    ranks = mp.spawn(run, args=(world, str(root)), nprocs=world, join=False)
+
+    def results():
+        while not ranks.join():
+            pass
+        return [torch.load(root / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+    return results
 
 
 def global_batch(rng: np.random.Generator, B: int, H: int = 16, W: int = 16,

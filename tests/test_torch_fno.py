@@ -131,7 +131,8 @@ PORT_SCRIPTS = ("chip_smoke.py", "test_multistep_torch.py", "train_auto_torch.py
                 "scripts/export_model_torch.py", "scripts/serve_bench_torch.py",
                 "scripts/import_reference_checkpoint_torch.py",
                 "scripts/determinism_check_torch.py", "scripts/replicas_check_torch.py",
-                "scripts/sp_gate_check_torch.py", "scripts/sp_memory_check_torch.py")
+                "scripts/sp_gate_check_torch.py", "scripts/sp_memory_check_torch.py",
+                "scripts/sp_latent_check_torch.py")
 # Modules the walk below must find, so that it cannot pass by finding none.
 PORT_MODULES = ("data.datasets", "data.pipeline", "metrics", "training.optim",
                 "training.trainer_auto", "training.trainer_nonauto", "training.checkpoints",

@@ -410,14 +410,15 @@ def small_argv(data_root, flags, model=MODEL_FLAGS):
     # Every trainer and the autoregressive and GenCast rollouts take a model
     # axis (tests/test_torch_tp*.py, test_torch_pp.py); what a model axis is
     # still refused with names its item. The cases keep their ids. main_auto
-    # takes --shard_spatial 1 for all but the latent models
-    # (tests/test_torch_sp*.py): its case pins a model left for A15d3, and
-    # main_train refuses the flag as the JAX one ignores it.
+    # takes --shard_spatial 1 for every model (tests/test_torch_sp*.py): its
+    # case pins what a latent model is still refused with (pipeline stages,
+    # A15e), and main_train refuses the flag as the JAX one ignores it.
     pytest.param("main_train", ["--model", "ffn", "--mesh_shape", "2x2", "--shard_spatial", "1"],
                  "ROADMAP.md C", id="main_auto-flags0-A15c"),
     pytest.param("main_multistep", ["--model", "ffn", "--mesh_shape", "2x2"], "ROADMAP.md C",
                  id="main_multistep-flags1-A15c"),
-    pytest.param("main_auto", ["--model", "latent_diffusion2", "--shard_spatial", "1"], "A15d3",
+    pytest.param("main_auto", ["--model", "latent_diffusion2", "--mesh_shape", "1x2",
+                               "--shard_spatial", "1", "--pp_microbatches", "2"], "A15e",
                  id="main_auto-flags2-A15d"),
     pytest.param("main_train", ["--model", "ffn", "--pp_microbatches", "2"], "A15e",
                  id="main_auto-flags3-A15e"),

@@ -17,7 +17,7 @@
   across the layouts both ways; ``--shard_spatial 1`` on one process.
 - The refusals: rows that do not split (next to JAX's own), the U-Net's
   levels that would leave a rank without a row, a pooling across ranks,
-  and the models and flags left for ROADMAP.md A15d3 and C.
+  and the flags left for ROADMAP.md A15e and C.
 """
 
 import json
@@ -314,9 +314,11 @@ def test_maxpool_refuses_an_odd_row_count_under_sp():
 
 
 @pytest.mark.parametrize("entry,flags,error", [
-    # Every other model, --pp_microbatches and --use_mixed_precision are
-    # taken (tests/test_torch_sp_*.py); the cases left keep their ids.
-    *[pytest.param("main_auto", ["--model", m], "ROADMAP.md A15d3",
+    # Every model, --pp_microbatches and --use_mixed_precision are taken
+    # (tests/test_torch_sp_*.py, the latent models in test_torch_sp_latent.py);
+    # the cases that pinned the latent models keep their ids and pin what a
+    # latent model is still refused with: pipeline stages (the FNO alone).
+    *[pytest.param("main_auto", ["--model", m, "--pp_microbatches", "2"], "ROADMAP.md A15e",
                    id=f"main_auto-flags{i}-ROADMAP.md A15d2")
       for i, m in enumerate(("latent_diffusion", "latent_diffusion2", "latent_diffusion_lite",
                              "latent_diffusion2_lite"), start=5)],

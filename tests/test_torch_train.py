@@ -472,15 +472,15 @@ def test_saved_state_holds_detached_host_copies(tmp_path):
         # A model axis, --pp_microbatches and a bfloat16 forward over a model
         # axis are ported (tests/test_torch_tp.py, test_torch_pp.py,
         # test_torch_tp_vae_bf16.py), and the case that pinned the last went
-        # with its refusal. Spatial sharding is ported for all but the latent
-        # models, with --pp_microbatches and --use_mixed_precision too
+        # with its refusal. Spatial sharding is ported for every model, with
+        # --pp_microbatches and --use_mixed_precision too
         # (tests/test_torch_sp*.py; on one process it is plain data
         # parallelism, test_shard_spatial_on_one_process_is_plain): these
-        # cases pin what it is still refused with (A15d3). The cases keep
-        # their ids.
+        # cases pin what a latent model is still refused with, pipeline
+        # stages (A15e). The cases keep their ids.
         pytest.param(["--model", "latent_diffusion", "--pp_microbatches", "2",
                       "--shard_spatial", "1"], "A15", id="flags2-A15"),
-        pytest.param(["--model", "latent_diffusion2_lite", "--shard_spatial", "1",
+        pytest.param(["--model", "latent_diffusion2_lite", "--pp_microbatches", "2",
                       "--use_mixed_precision", "1"], "A15", id="flags3-A15"),
         pytest.param(["--gradient_accumulation_steps", "4"], "ROADMAP.md C",
                      id="flags5-ROADMAP.md C"),
