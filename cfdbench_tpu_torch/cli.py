@@ -98,6 +98,7 @@ from .training.trainer_auto import AutoTask, use_mesh
 from .training.trainer_nonauto import NonAutoTask
 from .utils.artifacts import get_output_dir, plot_multistep_metrics
 from .utils.device import entry_device, set_f32_numerics
+from .utils.profiling import profile_trace
 
 INFER_STEPS = 20
 
@@ -129,7 +130,9 @@ def check_supported(args: Args) -> None:
 
 def check_runtime_flags(args: Args) -> None:
     """Raise on the flags that every JAX entry point reads
-    (``_apply_runtime_flags``, ``_mesh``) set to a behaviour the port lacks."""
+    (``_apply_runtime_flags``, ``_mesh``) set to a behaviour the port lacks.
+    ``--profile_dir`` is taken: each entry point runs inside
+    :func:`~.utils.profiling.profile_trace`."""
     if args.spectral_backend != "auto":
         raise NotImplementedError(
             f"--spectral_backend {args.spectral_backend}: the DFT-matmul "
@@ -146,10 +149,6 @@ def check_runtime_flags(args: Args) -> None:
         raise NotImplementedError(
             f"--matmul_precision {args.matmul_precision}: the port always "
             "multiplies in full float32 (ROADMAP.md A17)"
-        )
-    if args.profile_dir:
-        raise NotImplementedError(
-            "--profile_dir: the port's tracing is ROADMAP.md A7"
         )
 
 
@@ -371,7 +370,7 @@ def main_multistep(argv=None, device=None) -> torch.Tensor:
     check_rollout_flags(args)
     device = entry_device(device)
     set_f32_numerics()
-    with open_mesh(args.mesh_shape, device) as mesh:
+    with open_mesh(args.mesh_shape, device) as mesh, profile_trace(args.profile_dir, device):
         return _run_multistep(args, device, mesh)
 
 
@@ -502,7 +501,7 @@ def main_auto(argv=None, device=None):
     check_training_flags(args, "auto")
     device = entry_device(device)
     set_f32_numerics()
-    with open_mesh(args.mesh_shape, device) as mesh:
+    with open_mesh(args.mesh_shape, device) as mesh, profile_trace(args.profile_dir, device):
         return _run_auto(args, device, mesh)
 
 
@@ -590,7 +589,7 @@ def main_train(argv=None, device=None) -> NonAutoTask:
     check_training_flags(args, "nonauto")
     device = entry_device(device)
     set_f32_numerics()
-    with open_mesh(args.mesh_shape, device) as mesh:
+    with open_mesh(args.mesh_shape, device) as mesh, profile_trace(args.profile_dir, device):
         return _run_train(args, device, mesh)
 
 
@@ -664,7 +663,7 @@ def main_gencast(argv=None, device=None):
     check_training_flags(args, "gencast")
     device = entry_device(device)
     set_f32_numerics()
-    with open_mesh(args.mesh_shape, device) as mesh:
+    with open_mesh(args.mesh_shape, device) as mesh, profile_trace(args.profile_dir, device):
         return _run_gencast(args, device, mesh)
 
 
@@ -738,7 +737,7 @@ def main_vae(argv=None, device=None):
     check_vae_flags(args)
     device = entry_device(device)
     set_f32_numerics()
-    with open_mesh(args.mesh_shape, device) as mesh:
+    with open_mesh(args.mesh_shape, device) as mesh, profile_trace(args.profile_dir, device):
         return _run_vae(args, device, mesh)
 
 
@@ -787,7 +786,7 @@ def main_uncond(argv=None, device=None):
     check_uncond_flags(args)
     device = entry_device(device)
     set_f32_numerics()
-    with open_mesh(args.mesh_shape, device) as mesh:
+    with open_mesh(args.mesh_shape, device) as mesh, profile_trace(args.profile_dir, device):
         return _run_uncond(args, device, mesh)
 
 

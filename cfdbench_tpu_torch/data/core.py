@@ -45,6 +45,22 @@ BC_KEY = {
     "cylinder": "vel_in",
 }
 
+# case.json keys each problem's loader + normalization consume (the
+# load_case_* functions below), which scripts/check_dataset_torch.py
+# requires of every case it checks.
+REQUIRED_CASE_KEYS = {
+    "cavity": {"vel_top", "density", "viscosity"},
+    "tube": {"vel_in", "density", "viscosity"},
+    "dam": {
+        "velocity", "density", "viscosity", "height", "width",
+        "barrier_width", "barrier_height", "dx", "dy",
+    },
+    "cylinder": {
+        "vel_in", "density", "viscosity",
+        "x_min", "x_max", "y_min", "y_max", "radius",
+    },
+}
+
 # Per-frame time delta in the raw data (``data_delta_time`` class attrs).
 DATA_DELTA_TIME = {
     "cavity": 0.1,

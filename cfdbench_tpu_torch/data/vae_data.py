@@ -60,8 +60,12 @@ def resize_bilinear(frames: np.ndarray, size) -> np.ndarray:
     return out.astype(np.float32)
 
 
-def build_vae_dataset(base: AutoDataset) -> VaeDataset:
+def build_vae_dataset(base: AutoDataset, normalize: bool = True) -> VaeDataset:
+    """The label frames at 64x64, normalised unless ``normalize`` is False
+    (``scripts/get_stats_torch.py`` reads them raw)."""
     frames = base.labels  # (N, H, W, 2)
     if frames.shape[1:3] != (VAE_SIZE, VAE_SIZE):
         frames = resize_bilinear(frames, (VAE_SIZE, VAE_SIZE))
-    return VaeDataset(frames=((frames - VAE_MEAN) / VAE_STD).astype(np.float32))
+    if normalize:
+        frames = (frames - VAE_MEAN) / VAE_STD
+    return VaeDataset(frames=frames.astype(np.float32))

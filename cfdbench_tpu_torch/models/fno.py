@@ -38,6 +38,18 @@ parameters, split by the same rules as under tp, are gathered whole at
 use (``parallel/tensor.py::gather_at_use``); the column- and
 row-parallel paths are not used.
 
+With ``padding=p`` (the JAX model's domain padding; no entry point of
+either package sets it, so a user reaches it through the library) the
+lifted field, bias included, gains ``p`` zero rows at the bottom and ``p``
+zero columns at the right; every block runs on the (H+p, W+p) grid, its
+modes clamped to that grid, and the field is cropped back to (H, W) before
+the head, as ``cfdbench_tpu/models/fno.py:147-153`` does. The crop is a
+strided view, and the head kernel reads a dense field, so the head takes a
+contiguous copy of it. Tensor parallelism holds a padded model as it holds
+the unpadded one; pipeline parallelism refuses it, as the JAX pipeline
+asserts (``cfdbench_tpu/parallel/pipeline.py:192``), and so does spatial
+sharding (``training/trainer_auto.py::split_model``; ROADMAP.md C).
+
 In bfloat16 (``--use_mixed_precision``'s train forward, the bfloat16
 rollout) the model runs the plain versions on either device, in the JAX
 package's bfloat16 numerics: its Pallas kernels are float32 only and its
@@ -54,6 +66,7 @@ from types import SimpleNamespace
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops import promote
@@ -97,6 +110,18 @@ def lift(fc0: Dense, inputs, case_params, mask, rows=None):
         + mm(case_params, k[:, C + 3:C + 3 + P])[:, None, None, :]
         + fc0.bias
     )
+
+
+def pad(x, padding: Optional[int]):
+    """``padding`` zero rows at the bottom and zero columns at the right of
+    the lifted field (B, H, W, C); x itself for None."""
+    return x if padding is None else F.pad(x, (0, 0, 0, padding, 0, padding))
+
+
+def crop(x, padding: Optional[int]):
+    """The field without :func:`pad`'s rows and columns, contiguous, as the
+    head kernel reads it."""
+    return x if padding is None else x[:, :-padding, :-padding].contiguous()
 
 
 def block_call(x, weights, w0, b0, modes1: int, modes2: int, rows=None):
@@ -146,7 +171,8 @@ class Fno2d(nn.Module):
     inputs (B, H, W, in_chan); case_params (B, P); mask (B, H, W, 1),
     (B, H, W) or None. Returns (B, H, W, out_chan), masked. A bfloat16
     input runs the plain versions of both kernels (:func:`block_call`,
-    :func:`head_call`), whole or split: no kernel.
+    :func:`head_call`), whole or split: no kernel. ``padding``: the blocks
+    run on the grid padded by that many rows and columns (:func:`pad`).
     Parameters are drawn from ``generator`` on the CPU, then moved to
     ``device``.
     """
@@ -157,12 +183,10 @@ class Fno2d(nn.Module):
                  padding: Optional[int] = None, *,
                  generator: torch.Generator, device=None):
         super().__init__()
-        if padding is not None:
-            raise NotImplementedError(
-                "Fno2d padding is not ported (no CLI path sets it); "
-                "see ROADMAP.md A8"
-            )
-        self.out_chan = out_chan
+        if padding is not None and padding < 1:
+            # The JAX model crops ``x[:, :-0]``, an empty field, at 0.
+            raise ValueError(f"padding {padding}: pad by at least 1, or pass None")
+        self.out_chan, self.padding = out_chan, padding
         self.fc0 = Dense(in_chan + 3 + n_case_params, hidden_dim,
                          generator=generator)
         self.blocks = nn.ModuleList(
@@ -180,9 +204,11 @@ class Fno2d(nn.Module):
         B, H, W, _ = inputs.shape
         mask = ensure_mask(mask, B, H, W, device=inputs.device)
         split_blocks, split_head = self._tp_split()
-        x = lift(self._tp_whole(self.fc0), inputs, case_params, mask, self.sp)
+        x = pad(lift(self._tp_whole(self.fc0), inputs, case_params, mask, self.sp),
+                self.padding)
         for block in self.blocks:
             x = self._tp_block(block, x) if split_blocks else block(x)
+        x = crop(x, self.padding)
         fc2 = self._tp_whole(self.fc2, used_in_part=split_head)
         return self._tp_head(x, fc2, mask) if split_head else head(self.fc1, fc2, x, mask)
 
@@ -250,10 +276,11 @@ def fno2d_reference(model: Fno2d, inputs, case_params, mask=None):
     kernel path is held to on the card."""
     B, H, W, _ = inputs.shape
     mask = ensure_mask(mask, B, H, W, device=inputs.device)
-    x = lift(model.fc0, inputs, case_params, mask)
+    x = pad(lift(model.fc0, inputs, case_params, mask), model.padding)
     for blk in model.blocks:
         x = fno_block_reference(x, blk.weights, blk.w0.weight, blk.w0.bias,
                                 blk.modes1, blk.modes2)
+    x = crop(x, model.padding)
     return fno_head_reference(x, model.fc1.weight, model.fc1.bias,
                               model.fc2.weight, model.fc2.bias, mask)
 

@@ -123,6 +123,11 @@ class PipelineStage(nn.Module):
 
     def __init__(self, model: nn.Module, axis, n_micro: int, lift: Callable, head: Callable):
         super().__init__()
+        if getattr(model, "padding", None) is not None:
+            raise NotImplementedError(
+                f"pipeline parallelism of an Fno2d with padding {model.padding}: the stages "
+                "run the unpadded grid, as the JAX pipeline asserts "
+                "(cfdbench_tpu/parallel/pipeline.py:192; ROADMAP.md C)")
         self.S, self.s, self.axis, self.n_micro = axis.size, axis.rank, axis, n_micro
         L = len(model.blocks)
         self.per = _check(L, self.S)

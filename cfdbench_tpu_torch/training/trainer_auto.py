@@ -303,6 +303,10 @@ def split_model(task, pp_microbatches: int = 0, spatial: bool = False) -> None:
     pp's alone."""
     axis, model = task.mesh.model, task.model
     if spatial and axis.distributed and not pp_microbatches:
+        if getattr(model, "padding", None) is not None:
+            raise NotImplementedError(
+                f"--shard_spatial 1 with an Fno2d of padding {model.padding}: the padded grid "
+                "is not split over the ranks' rows in the port (ROADMAP.md C)")
         task.split = split_module(model, task.mesh, spatial=True)
         use_spatial(task, axis)
         return

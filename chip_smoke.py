@@ -263,7 +263,8 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    and dev scores within TP_BF16_RTOL; both kernels on every rank in its
    float32 evaluation) and with ``--pp_microbatches`` (every stage on whole
    rows, as JAX's pipeline takes its batch: the step is pp's; its kernels
-   on the stages), the U-Net on a TUBE_GRID tree (33 rows a rank), the
+   on the stages), and on trees of SP_REST_FRAMES frames a case the U-Net
+   on TUBE_GRID (33 rows a rank), the
    point models SP_POINT_MODELS, pixel diffusion and the three latent
    models (on phase 10's VAE; Lite on the TUBE_GRID tree too, padded to
    72 rows on the last rank) at SP_PIXEL_BATCH at default widths, their
@@ -275,6 +276,26 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    it (the rank's parameters, gradients and Adam state, and a second
    step's peak over them), and the phase's seconds, on its ``[phase15c]``
    line.
+16. The last modules of the JAX package. (a) ``Fno2d(padding=PAD)``, the
+   flagship padded by 9 (the pad of the FNO authors' 2-D Darcy script): the
+   block kernel at B=128 on the padded 73x73 grid (odd W above 64: pass
+   1's streamed route; 73 rows against 8-row groups) against its plain
+   version at phase 2's bounds, what it keeps for the backward, and timed
+   against it as phase 5 times them, beside its bound; the head kernel on
+   the cropped field and the crop's contiguous copy, timed; the padded
+   flagship's forward (B=8) on the card against the CPU's plain forward
+   (rel ROLLOUT_RTOL) and one float32 train step card against CPU (loss
+   GRAD_LOSS_RTOL, every gradient GRAD_RTOL of its largest); a 20-step
+   b128 rollout through the kernels (80 block and 20 head launches) and
+   its frames/s beside the plain path's. (b) ``main_multistep
+   --profile_dir`` on phase 3's checkpoint, twice in this process: each
+   run phase 3's launches and a ``torch.profiler`` trace of its own that
+   holds each of the block's four CUDA kernels 80 times and the head's 20
+   times by name. (c)
+   ``scripts/vae_diagnostics_torch.py`` on phase 10's VAE and the phase-6
+   tree: its summary and arrays written (``diagnostics.json``,
+   ``diagnostics.npz``; the machine has no matplotlib for its plots), all
+   finite.
 
 Every phase's seconds are printed on a line of their own (``[seconds]``),
 and the whole script's.
@@ -294,10 +315,13 @@ bfloat16 under tensor parallelism and main_auto in both precisions under
 pipeline parallelism (phase 14: ``tp2_rank{r}_*``, ``pp2_rank{r}_*``),
 and each rank's main_auto under spatial sharding (phase 15:
 ``sp1x2_rank{r}_main_auto_sp``, ``sp2x2_rank{r}_main_auto_sp``; phase 15c:
-``sp1x2_rank{r}_main_auto_sp_<run>`` for each of its runs),
+``sp1x2_rank{r}_main_auto_sp_<run>`` for each of its runs), and the
+padded flagship's 20-step rollout and main_multistep under --profile_dir
+(phase 16: ``padded_rollout``, ``main_multistep_profiled``),
 each read from counters set
 to 0 just before the run and read just after it; ``at_rank_shapes`` the
-kernel's phase 14a records, ``at_rank_rows`` its phase 15a records. The
+kernel's phase 14a records, ``at_rank_rows`` its phase 15a records,
+``at_padded_grid`` its phase 16a record. The
 line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 It needs a CUDA device and fails without one.
@@ -510,6 +534,9 @@ SP_RANKS = {"1x2": 2, "2x2": 4}
 # each rank's peak memory of one step of the U-Net, of pixel diffusion and
 # of latent_diffusion2 (model flags, grid, global batch).
 TUBE_GRID = (66, 65)  # the tube and dam problems' grid
+# The frames of a case in the trees of phase 15c's runs other than the
+# flagship's: half of phase 13b's steps an epoch (100 train pairs).
+SP_REST_FRAMES = STEPS // 2 + 1
 SP_POINT_MODELS = ("auto_ffn", "auto_deeponet_cnn")
 SP_LATENT = {name: name for name in LATENT} | {"latent_diffusion_lite66": "latent_diffusion_lite"}
 # Phase 15c's runs whose epoch is held against permuted-row controls, one a
@@ -535,6 +562,16 @@ SP_MEMORY = {"memory_unet66": (["--model", "unet"], TUBE_GRID, 128),
 # An H100 SXM's published peaks (NVIDIA's data sheet, dense rates): device
 # memory bytes/s, TF32 FLOP/s on the tensor cores and float32 FLOP/s outside
 # them. A split-TF32 product (csrc/tf32.cuh) is three TF32 products.
+# Phase 16: the flagship's domain padding, and the CUDA kernels a block
+# call launches (csrc/fno_block.cu, one each) and a head call's.
+PAD = 9
+PROFILE_DIR = WORK / "profile"  # phase 16b's main_multistep traces
+BLOCK_CUDA_KERNELS = ("dft_forward_kernel", "mode_mix_kernel", "inverse_rows_kernel",
+                      "inverse_cols_kernel")
+HEAD_CUDA_KERNELS = ("fno_head_kernel",)
+# What vae_diagnostics_torch.py writes without matplotlib, which the card's
+# machine lacks (its plots are written beside them where it is installed).
+DIAGNOSTIC_FILES = ("diagnostics.json", "diagnostics.npz")
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOP_PER_S = 495e12
 F32_FLOP_PER_S = 67e12
@@ -3911,28 +3948,33 @@ def spatial_ranks(device, card, data_root: Path, single: dict, controls: dict) -
     return counts, memory
 
 
-def tube_grid_tree(root: Path) -> Path:
-    """Phase 13's 12-case tree of STEPS + 1 frames on TUBE_GRID: the
-    generator's square tree of 66 rows, each frame cropped to 65 columns."""
+def sp_rest_trees(root: Path):
+    """Phase 15c's 12-case cavity trees of SP_REST_FRAMES frames: on the
+    flagship's grid, and on TUBE_GRID (the generator's square tree of 66
+    rows, each frame cropped to 65 columns)."""
     import numpy as np
 
     from cfdbench_tpu_torch.data.synthetic import generate_problem
 
+    square, tube = root / "data", root / "tube_data"
     H, W = TUBE_GRID
-    generate_problem(root, "cavity", cases_per_subset=4, num_frames=STEPS + 1, grid=H,
-                     seed=SEED)
-    for f in root.rglob("*.npy"):
+    for tree, grid in ((square, GRID), (tube, H)):
+        generate_problem(tree, "cavity", cases_per_subset=4, num_frames=SP_REST_FRAMES,
+                         grid=grid, seed=SEED)
+    for f in tube.rglob("*.npy"):
         np.save(f, np.load(f)[..., :W])
-    return root
+    return square, tube
 
 
-def sp_rest_jobs(data_root: Path, tube_root: Path, out: Path, mesh: str):
+def sp_rest_jobs(data_root: Path, rest_root: Path, tube_root: Path, out: Path, mesh: str):
     """Phase 15c's runs on ``mesh`` (``--shard_spatial 1`` unless ``mesh`` is
     "1", the one-process references): phase 13b's flagship main_auto with
     --use_mixed_precision (``fno_mp``, into ``out``'s sibling ``_mp``) and
     with --pp_microbatches PP_MICRO (``fno_pp``; its reference is phase
-    13b's run), an epoch of the U-Net on the TUBE_GRID tree at DP_UNET_BATCH,
-    of each of SP_POINT_MODELS at DP_UNET_BATCH and of pixel diffusion and
+    13b's run), on phase 13b's tree ``data_root``; on :func:`sp_rest_trees`
+    (``rest_root``, ``tube_root``) an epoch of the U-Net on the TUBE_GRID
+    tree at DP_UNET_BATCH, of each of SP_POINT_MODELS at DP_UNET_BATCH and
+    of pixel diffusion and
     each of SP_LATENT (on phase 10's VAE; ``latent_diffusion_lite66`` on the
     TUBE_GRID tree) at SP_PIXEL_BATCH, at default widths; a float64 step of
     the U-Net on TUBE_GRID, of each of SP_POINT_MODELS, of pixel diffusion
@@ -3940,11 +3982,11 @@ def sp_rest_jobs(data_root: Path, tube_root: Path, out: Path, mesh: str):
     SP_MEMORY."""
     sp = ["--shard_spatial", "1"] if mesh != "1" else []
     fno = {n: a for n, _, a in dp_jobs(data_root, out, mesh)}["fno"]
-    data = ["--data_name", "cavity_prop_bc_geo", "--data_dir", str(data_root),
+    data = ["--data_name", "cavity_prop_bc_geo", "--data_dir", str(rest_root),
             "--output_dir", str(out), "--mesh_shape", mesh, "--log_interval", "100",
             "--mode", "train", "--num_epochs", "1", "--eval_interval", "1"]
     batch = ["--batch_size", str(DP_UNET_BATCH), "--eval_batch_size", str(DP_UNET_BATCH)]
-    tube = [str(tube_root) if a == str(data_root) else a for a in data]
+    tube = [str(tube_root) if a == str(rest_root) else a for a in data]
     jobs = [("fno_mp", "main_auto",
              [a.replace(str(out), f"{out}_mp") for a in fno] + ["--use_mixed_precision", "1"]),
             ("fno_pp", "main_auto", fno + ["--pp_microbatches", str(PP_MICRO)]),
@@ -3990,9 +4032,9 @@ def spatial_rest(device, card, data_root: Path, single: dict) -> dict:
     from cfdbench_tpu_torch.cli import parse_args, run_dir
 
     mesh, world = SP_MESHES[0], SP_RANKS[SP_MESHES[0]]
-    tube_root = tube_grid_tree(WORK / "tube_data")
+    rest_root, tube_root = sp_rest_trees(WORK / "sp_rest_trees")
     out = WORK / "sp_rest"
-    one_jobs = sp_rest_jobs(data_root, tube_root, WORK / "sp_rest_single", "1")
+    one_jobs = sp_rest_jobs(data_root, rest_root, tube_root, WORK / "sp_rest_single", "1")
     want = dp_run(one_jobs, device) | {"fno_pp": single["fno"]}
     controls = {}  # (name, seed) -> the control's run directory's root and result
     for seed in SP_CONTROL_SEEDS + (SP_LATENT_CONTROL,):
@@ -4004,7 +4046,7 @@ def spatial_rest(device, card, data_root: Path, single: dict) -> dict:
                 controls[name, seed] = root, dp_run([(name, "main_auto", [
                     a.replace(str(WORK / "sp_rest_single"), str(root)) for a in argv])],
                     device)[name]
-    jobs = sp_rest_jobs(data_root, tube_root, out, mesh)
+    jobs = sp_rest_jobs(data_root, rest_root, tube_root, out, mesh)
     root = WORK / "sp_rest_ranks"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
@@ -4097,6 +4139,183 @@ def spatial_rest(device, card, data_root: Path, single: dict) -> dict:
     if failures:  # every comparison printed first
         raise RuntimeError("; ".join(failures))
     return counts, memory
+
+
+def padded_flagship(device):
+    from cfdbench_tpu_torch.models.fno import FLAGSHIP, Fno2d
+
+    return Fno2d(n_case_params=5, **FLAGSHIP, padding=PAD,
+                 generator=torch.Generator().manual_seed(SEED), device=device)
+
+
+def padded_kernels(device, card):
+    """Phase 16a, the kernels: the block at B=128 on the padded grid against
+    its plain version and timed beside its bound; the head on the cropped
+    field, and the crop's contiguous copy, timed. Returns the block's
+    record and the head's error."""
+    from cfdbench_tpu_torch.models.fno import crop
+    from cfdbench_tpu_torch.ops import fno_kernels as fk
+
+    B, H, W = TIMING_BATCH, GRID + PAD, GRID + PAD
+    t = kernel_inputs(B, H, W, WIDTH, torch.Generator().manual_seed(SEED + 16), device)
+    block_args = (t["x"], t["weights"], t["w0"], t["b0"], MODES, MODES)
+    with torch.inference_mode():
+        got, want = fk.fno_block(*block_args), fk.fno_block_reference(*block_args)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        print(f"[padded] fno_block B={B} {H}x{W} C={WIDTH} modes={MODES}: max abs err "
+              f"{err:.3e} (bound {BLOCK_ATOL:.0e}), max rel err "
+              f"{err / want.abs().max().item():.3e}")
+        if not (torch.isfinite(got).all() and err <= BLOCK_ATOL):
+            raise RuntimeError(f"fno_block at {H}x{W} disagrees with its plain version: {err:.3e}")
+        check_saved(block_args)
+        p, k = interleaved_ms(lambda: fk.fno_block_reference(*block_args),
+                              lambda: fk.fno_block(*block_args), reps=20)
+        bound_ms, bound_by = bound(*block_work(B, H, W, WIDTH, WIDTH, MODES))
+        print(f"[time] [{card}] fno_block B={B} {H}x{W} C={WIDTH} (the flagship padded by "
+              f"{PAD}): kernel {k:.4f} ms, plain {p:.4f} ms ({p / k:.2f}x); bound "
+              f"{bound_ms:.4f} ms by {bound_by}, kernel at {bound_ms / k:.1%} of it")
+        cropped = crop(got, PAD)
+        mask = t["mask"][:, :GRID, :GRID].contiguous()
+        head_args = (cropped, t["w1"], t["b1"], t["w2"], t["b2"], mask)
+        head_err = (fk.fno_head(*head_args) - fk.fno_head_reference(*head_args)).abs().max().item()
+        print(f"[padded] fno_head on the cropped {GRID}x{GRID} field: max abs err "
+              f"{head_err:.3e} (bound {HEAD_ATOL:.0e})")
+        if not head_err <= HEAD_ATOL:
+            raise RuntimeError(f"fno_head on the cropped field disagrees: {head_err:.3e}")
+        crop_ms = warm_ms(lambda: crop(got, PAD), reps=20)
+        crop_bytes = 2 * 4 * B * GRID * GRID * WIDTH
+        print(f"[time] [{card}] the crop's contiguous copy B={B} {H}x{W} -> {GRID}x{GRID} "
+              f"C={WIDTH}: {crop_ms:.4f} ms, bound {crop_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
+              f"by bytes ({crop_bytes / 1e6:.1f} MB)")
+    return dict(grid=[H, W], max_abs_err=err, ms=k, plain_ms=p, bound_ms=bound_ms,
+                bound_by=bound_by, crop_ms=crop_ms), head_err
+
+
+def padded_paths(device, card):
+    """Phase 16a, the padded flagship: its forward and a train step on the
+    card against the CPU's plain path; a 20-step b128 rollout through the
+    kernels, its launches, and its frames/s beside the plain path's.
+    Returns the rollout's launches and frames/s."""
+    from cfdbench_tpu_torch.models.fno import PlainFno2d
+    from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
+    from cfdbench_tpu_torch.training.rollout import make_rollout_fn
+
+    model, cpu_model = padded_flagship(device), padded_flagship("cpu")
+    batch = train_inputs(GRAD_BATCH, torch.Generator().manual_seed(SEED + 17), "cpu")
+    args = [batch[k] for k in ("inputs", "case_params", "mask")]
+    with torch.inference_mode():
+        got = model(*(a.to(device) for a in args)).cpu()
+        want = cpu_model(*args)
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"[padded] flagship padded by {PAD}, forward B={GRAD_BATCH}: card against CPU max abs "
+          f"diff / max |out| {rel:.3e} (bound {ROLLOUT_RTOL:.0e})")
+    if not rel <= ROLLOUT_RTOL:
+        raise RuntimeError(f"the padded flagship's forward disagrees card against CPU: {rel:.3e}")
+    runs = {}
+    for name, m, dev in (("card", model, device), ("cpu", cpu_model, torch.device("cpu"))):
+        m.zero_grad(set_to_none=True)
+        loss, _ = nmse_task(m).loss_scores({k: v.to(dev) for k, v in batch.items()})
+        loss.backward()
+        runs[name] = loss.item(), {k: p.grad.cpu() for k, p in m.named_parameters()}
+    (loss_k, grads_k), (loss_c, grads_c) = runs["card"], runs["cpu"]
+    loss_rel = abs(loss_k - loss_c) / abs(loss_c)
+    worst = max(((grads_k[k] - g).abs().max() / g.abs().max()).item()
+                for k, g in grads_c.items())
+    print(f"[padded] train step B={GRAD_BATCH}: nmse card {loss_k:.9g}, CPU {loss_c:.9g}, rel "
+          f"{loss_rel:.3e} (bound {GRAD_LOSS_RTOL:.0e}); gradients worst {worst:.3e} of their "
+          f"largest (bound {GRAD_RTOL:.0e})")
+    if not (loss_rel <= GRAD_LOSS_RTOL and worst <= GRAD_RTOL):
+        raise RuntimeError("the padded flagship's train step disagrees card against CPU")
+
+    B = TIMING_BATCH
+    gen = torch.Generator().manual_seed(SEED + 18)
+    frame0 = torch.randn((B, GRID, GRID, 2), generator=gen).to(device)
+    cp = torch.randn((B, 5), generator=gen).to(device)
+    mask = torch.ones((B, GRID, GRID, 1), device=device)
+    model.eval()
+    kernel_roll = make_rollout_fn(model, STEPS)
+    plain_roll = make_rollout_fn(PlainFno2d(model), STEPS)
+    with torch.inference_mode():
+        reset_launch_counts()
+        frames = kernel_roll(frame0, cp, mask)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {"fno_block": len(model.blocks) * STEPS, "fno_head": STEPS}
+        if counts != want or not torch.isfinite(frames).all():
+            raise RuntimeError(f"padded rollout: launches {counts} (expected {want}), or "
+                               "non-finite frames")
+        plain_ms, kern_ms = interleaved_ms(lambda: plain_roll(frame0, cp, mask),
+                                           lambda: kernel_roll(frame0, cp, mask), reps=3)
+    fps = B * STEPS / kern_ms * 1e3
+    print(f"[time] [{card}] padded flagship rollout b{B} x {STEPS} steps: launches {counts}; "
+          f"kernel path {kern_ms:.3f} ms = {fps:.1f} frames/s; plain path {plain_ms:.3f} ms = "
+          f"{B * STEPS / plain_ms * 1e3:.1f} frames/s")
+    return counts, dict(frames_per_s=fps, kernel_ms=kern_ms, plain_ms=plain_ms)
+
+
+def trace_kernel_counts(path: Path) -> dict:
+    """Each of the FNO's CUDA kernels: how many launches a Chrome trace holds."""
+    names = [e.get("name", "") for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") == "kernel"]
+    return {k: sum(k in n for n in names) for k in BLOCK_CUDA_KERNELS + HEAD_CUDA_KERNELS}
+
+
+def profiled_multistep(want_counts: dict) -> dict:
+    """Phase 16b: ``main_multistep --profile_dir`` on phase 3's checkpoint,
+    twice in this process. Each run launches phase 3's ``want_counts`` and
+    writes a trace of its own, which holds each of the block's four CUDA
+    kernels and the head's as often as they launched. Returns the first
+    run's launches."""
+    from cfdbench_tpu_torch.cli import main_multistep
+    from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
+
+    want = {**{k: want_counts["fno_block"] for k in BLOCK_CUDA_KERNELS},
+            **{k: want_counts["fno_head"] for k in HEAD_CUDA_KERNELS}}
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    counts = []
+    for _ in range(2):
+        reset_launch_counts()
+        main_multistep(fno_argv(WORK / "data", WORK / "result") + ["--profile_dir",
+                                                                   str(PROFILE_DIR)])
+        counts.append(launch_counts())
+    files = sorted(PROFILE_DIR.iterdir())
+    in_trace = [trace_kernel_counts(f) for f in files]
+    print(f"[profile] main_multistep --profile_dir, twice in this process: launches {counts}, "
+          f"traces {[f.name for f in files]} "
+          f"({sum(f.stat().st_size for f in files) / 1e6:.1f} MB), CUDA kernels in them "
+          f"{in_trace}")
+    if counts != [want_counts] * 2 or in_trace != [want] * 2:
+        raise RuntimeError(f"main_multistep --profile_dir: launches {counts}, traces "
+                           f"{in_trace}; expected {want_counts} and {want} in each of two")
+    return counts[0]
+
+
+def vae_diagnostics(device):
+    """Phase 16c: ``scripts/vae_diagnostics_torch.py`` on phase 10's VAE."""
+    import numpy as np
+
+    spec = importlib.util.spec_from_file_location(
+        "vae_diagnostics_torch", ROOT / "scripts" / "vae_diagnostics_torch.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    out = WORK / "vae_diagnostics"
+    t0 = time.perf_counter()
+    summary = script.main(["--data_name", "cavity_prop_bc_geo", "--data_dir",
+                           str(WORK / "train_data"), "--ldm_vae_weights_path",
+                           str(WORK / "vae_weights"), "--output_dir", str(out),
+                           "--device", str(device)])
+    stats = summary["per_dim_kl"] + [summary["latent_mean"], summary["latent_std"]]
+    missing = [n for n in DIAGNOSTIC_FILES if not (out / n).exists()]
+    with np.load(out / "diagnostics.npz") as arrays:
+        stats += [float(np.abs(a).max()) for a in arrays.values()]
+    print(f"[vae_diag] scripts/vae_diagnostics_torch.py on phase 10's VAE: "
+          f"{time.perf_counter() - t0:.2f} s, per-dimension KL {summary['per_dim_kl']}, latent "
+          f"mean {summary['latent_mean']:.6g}, std {summary['latent_std']:.6g}, embedding "
+          f"{summary['embedding_method']}")
+    if missing or not all(math.isfinite(v) for v in stats):
+        raise RuntimeError(f"vae_diagnostics_torch.py: files missing {missing} or statistics "
+                           f"not finite {summary}")
 
 
 def dev_rel(got_run: Path, want_run: Path) -> float:
@@ -4194,13 +4413,23 @@ def main() -> int:
     print(f"[phase15c] [{card}] " + json.dumps({"launches": rest_counts, "memory": rest_memory,
                                                 "seconds": time.perf_counter() - t15c}))
     phase.done("15c (the rest of spatial sharding)")
+    t16 = time.perf_counter()
+    padded, padded_head_err = padded_kernels(device, card)
+    padded_counts, padded_times = padded_paths(device, card)
+    profiled_counts = profiled_multistep(counts)
+    vae_diagnostics(device)
+    print(f"[phase16] [{card}] " + json.dumps({"block_at_padded_grid": padded,
+                                               "padded_rollout": padded_times,
+                                               "seconds": time.perf_counter() - t16}))
+    phase.done("16 (padded FNO, --profile_dir, VAE diagnostics)")
     phase.total()
     print(f"[main] launches on the main paths: main_multistep {counts}, "
           f"main_auto {train_counts}, one served predict call {serve_predict}, one served "
           f"rollout {serve_rollout}, served diffusion {serve_diffusion}, "
           f"main_auto --use_mixed_precision {mp_counts}, "
           f"main_multistep --rollout_dtype bfloat16 {bf16_counts}, per rank under data, "
-          f"tensor, pipeline and spatial parallelism {dp_counts}")
+          f"tensor, pipeline and spatial parallelism {dp_counts}, the padded flagship's "
+          f"rollout {padded_counts}, main_multistep --profile_dir {profiled_counts}")
     replaces = {"fno_block": "cfdbench_tpu/ops/pallas_fno.py:179",
                 "fno_head": "cfdbench_tpu/ops/pallas_fno.py:268"}
     print(json.dumps({"kernels": [
@@ -4212,11 +4441,15 @@ def main() -> int:
                               **{path: c[name] for path, c in serve_diffusion.items()},
                               "main_auto_mixed_precision": mp_counts[name],
                               "main_multistep_bf16": bf16_counts[name],
-                              **{path: c[name] for path, c in dp_counts.items()}},
-         "max_abs_err": max([errors[name]] + [t["max_abs_err"]
-                                              for t in rank_times[name] + sp_times[name]]),
+                              **{path: c[name] for path, c in dp_counts.items()},
+                              "padded_rollout": padded_counts[name],
+                              "main_multistep_profiled": profiled_counts[name]},
+         "max_abs_err": max([errors[name], padded["max_abs_err"] if name == "fno_block"
+                             else padded_head_err]
+                            + [t["max_abs_err"] for t in rank_times[name] + sp_times[name]]),
          **times[name], "library_ms": None, "at_rank_shapes": rank_times[name],
-         "at_rank_rows": sp_times[name]}
+         "at_rank_rows": sp_times[name],
+         **({"at_padded_grid": padded} if name == "fno_block" else {})}
         for name in ("fno_block", "fno_head")
     ]}))
     print(json.dumps({"ok": True, "device": {

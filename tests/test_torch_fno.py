@@ -132,7 +132,9 @@ PORT_SCRIPTS = ("chip_smoke.py", "test_multistep_torch.py", "train_auto_torch.py
                 "scripts/import_reference_checkpoint_torch.py",
                 "scripts/determinism_check_torch.py", "scripts/replicas_check_torch.py",
                 "scripts/sp_gate_check_torch.py", "scripts/sp_memory_check_torch.py",
-                "scripts/sp_latent_check_torch.py")
+                "scripts/sp_latent_check_torch.py", "scripts/check_dataset_torch.py",
+                "scripts/locate_cylinder_torch.py", "scripts/plot_mask_overlay_torch.py",
+                "scripts/get_stats_torch.py", "scripts/vae_diagnostics_torch.py")
 # Modules the walk below must find, so that it cannot pass by finding none.
 PORT_MODULES = ("data.datasets", "data.pipeline", "metrics", "training.optim",
                 "training.trainer_auto", "training.trainer_nonauto", "training.checkpoints",
@@ -141,7 +143,8 @@ PORT_MODULES = ("data.datasets", "data.pipeline", "metrics", "training.optim",
                 "ops.diffusion", "training.trainer_gencast", "data.wrapper", "utils.rng",
                 "models.vae", "data.vae_data", "training.trainer_vae", "training.trainer_uncond",
                 "utils.export", "utils.torch_import", "parallel.mesh", "parallel.sharding_rules",
-                "parallel.tensor", "parallel.pipeline")
+                "parallel.tensor", "parallel.pipeline", "data.karman", "data.compat",
+                "generation.fluent", "generation.icem", "utils.profiling")
 JAX_ROOTS = {"jax", "flax", "optax", "orbax", "cfdbench_tpu"}
 
 

@@ -4,18 +4,29 @@ the synthetic case generator, the auto datasets (test split, features,
 case-parameter vectors) and the non-auto frame datasets must agree bit
 for bit, so that both packages read the same cases into the same arrays
 and write to the same run directory; so must the batches, padded for a
-data-parallel mesh."""
+data-parallel mesh, the legacy Kármán loader, a reference ``*.pt`` cache
+read as an ``AutoDataset``, and the Fluent and ICEM generators' output."""
+
+import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from cfdbench_tpu import config as jax_config
 from cfdbench_tpu import data as jax_data
 from cfdbench_tpu.data import pipeline as jax_pipeline
 from cfdbench_tpu.data import synthetic as jax_synthetic
+from cfdbench_tpu.data.compat import auto_dataset_from_reference_cache as jax_from_cache
+from cfdbench_tpu.data.karman import build_karman_dataset as jax_build_karman
+from cfdbench_tpu.generation import fluent as jax_fluent
+from cfdbench_tpu.generation import icem as jax_icem
 from cfdbench_tpu.utils import artifacts as jax_artifacts
 from cfdbench_tpu_torch import cli, config, data
 from cfdbench_tpu_torch.data import core, pipeline, synthetic
+from cfdbench_tpu_torch.data.compat import auto_dataset_from_reference_cache
+from cfdbench_tpu_torch.data.karman import build_karman_dataset, load_karman_data
+from cfdbench_tpu_torch.generation import fluent, icem
 from cfdbench_tpu_torch.utils import artifacts
 
 ARGVS = [
@@ -243,3 +254,101 @@ def test_padded_batches_like_jax(rng, shuffle, batch_size, pad_multiple):
         for k in w:
             assert g[k].dtype == w[k].dtype
             np.testing.assert_array_equal(g[k], w[k])
+
+
+def assert_same(got, want):
+    """Equal structures of arrays, bit for bit, and of everything else."""
+    if dataclasses.is_dataclass(want):
+        assert type(got).__name__ == type(want).__name__
+        got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+    if isinstance(want, dict):
+        assert got.keys() == want.keys()
+        for k in want:
+            assert_same(got[k], want[k])
+    elif isinstance(want, (list, tuple)):
+        assert type(got) is type(want) and len(got) == len(want)
+        for g, w in zip(got, want):
+            assert_same(g, w)
+    elif isinstance(want, np.ndarray):
+        assert isinstance(got, np.ndarray) and got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert type(got) is type(want) and got == want
+
+
+def test_karman_loader_like_jax(tmp_path):
+    """The legacy Kármán dataset (``src/dataset/base.py:10-87``) on the
+    files of ``tests/test_data.py::test_karman_legacy_loader``."""
+    from cfdbench_tpu.data.karman import load_karman_data as jax_load_karman
+
+    rng = np.random.default_rng(7)
+    T, H, W = 25, 6, 8
+    np.save(tmp_path / "u.npy", rng.standard_normal((T, H, W)))
+    np.save(tmp_path / "v.npy", rng.standard_normal((T, H, W)))
+    np.save(tmp_path / "mask.npy", rng.integers(0, 2, (H, W)).astype(np.float64))
+    assert_same(load_karman_data(tmp_path), jax_load_karman(tmp_path))
+    for step in (1, 10):
+        got = build_karman_dataset(tmp_path, time_step_size=step)
+        assert_same(got, jax_build_karman(tmp_path, time_step_size=step))
+        assert len(got) == T - step
+
+
+def test_reference_cache_like_jax(synth_root, tmp_path):
+    """A cache written as the reference writes it (``cylinder.py:477-541``;
+    ``tests/test_data.py::test_reference_pt_cache_roundtrip``'s layout),
+    read by both packages, and equal to the dataset built from the tree."""
+    from cfdbench_tpu_torch.data.core import collect_case_dirs
+    from cfdbench_tpu_torch.data.datasets import build_auto_dataset
+
+    ds = build_auto_dataset("cylinder", collect_case_dirs(synth_root / "cylinder", "prop"),
+                            norm_props=True, norm_bc=True, delta_time=0.002)
+    d = tmp_path / "cache" / "train"
+    d.mkdir(parents=True)
+    nchw = lambda a: torch.tensor(a.transpose(0, 3, 1, 2))  # noqa: E731
+    torch.save(nchw(np.concatenate([ds.inputs, ds.masks], -1)), d / "inputs.pt")
+    torch.save(nchw(np.concatenate([ds.labels, ds.masks], -1)), d / "labels.pt")
+    torch.save(list(map(int, ds.case_ids)), d / "case_ids.pt")
+    torch.save(ds.case_params_list, d / "case_params.pt")
+    torch.save([f.transpose(0, 3, 1, 2) for f in ds.all_features], d / "all_features.pt")
+
+    got = auto_dataset_from_reference_cache(d)
+    assert_same(got, jax_from_cache(d))
+    for k in ("inputs", "labels", "masks", "case_ids", "case_params"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(ds, k), err_msg=k)
+    for a, b in zip(got.all_features, ds.all_features):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("case", [
+    "expand_template", "cavity_sweep", "step_sweep", "build_cases", "icem_mesh_params",
+    "expand_rpl"])
+def test_generators_like_jax(case):
+    """The six cases of ``tests/test_generation.py``, each on both
+    packages' generators, and the rest of their sweeps and grids."""
+    def run(fl, ic):
+        if case == "expand_template":
+            return fl.expand_template(
+                "read {mesh}\nset rho {density}\nsave {save_path}/{case_name}\n {unknown}",
+                dict(mesh="m.msh", density=1.5, save_path="/x", case_name="c.h5"))
+        if case == "cavity_sweep":
+            return fl.cavity_sweep(), fl.laminar_sweep()
+        if case == "step_sweep":
+            return fl.step_sweep(), sorted(fl.SWEEPS), fl.TEMPLATE_KEYS
+        if case == "build_cases":
+            return [fl.build_cases(p, "/m/case{case}.msh", "/out", count=c, start=s)
+                    for p, c, s in (("cavity", 3, 0), ("tube", None, 0), ("dam", 5, 168))]
+        if case == "icem_mesh_params":
+            return [ic.mesh_params(h, w) for h, w in ic.barrier_grid()], ic.barrier_grid()
+        return [ic.expand_rpl("point {point7}\nnx {nodes_x1} ny {nodes_y2}\nname {project_name}",
+                              h, w, f"proj{i}") for i, (h, w) in enumerate(ic.barrier_grid())]
+
+    assert_same(run(fluent, icem), run(jax_fluent, jax_icem))
+
+
+def test_write_case_journals_like_jax(tmp_path):
+    template = tmp_path / "t.scm"
+    template.write_text("read {mesh}\n  set {velocity}\nsave {save_path}\n")
+    cases = fluent.build_cases("step", "/m/case{case}.msh", "/out", count=4)
+    assert fluent.write_case_journals(template, tmp_path / "a.jou", cases) == 4
+    assert jax_fluent.write_case_journals(template, tmp_path / "b.jou", cases) == 4
+    assert (tmp_path / "a.jou").read_text() == (tmp_path / "b.jou").read_text()

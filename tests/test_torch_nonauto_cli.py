@@ -177,7 +177,10 @@ def test_main_train_needs_a_card_unless_told_cpu(port_tree, tmp_path, monkeypatc
     # (tests/test_torch_parallel_trainers.py, tests/test_torch_tp_trainers_cli.py);
     # pipeline parallelism over that axis is not. The case keeps its id.
     pytest.param(["--mesh_shape", "2x2", "--pp_microbatches", "2"], "A15e", id="flags8-A15"),
-    (["--profile_dir", "trace"], "A7"),
+    # --profile_dir is ported (tests/test_torch_profile.py): beside it a flag
+    # the port lacks is refused before any trace starts. The case keeps its id.
+    pytest.param(["--profile_dir", "trace", "--spectral_backend", "fft"], "A17",
+                 id="flags9-A7"),
     # The latent models are ported (main_auto trains them); the case keeps its id.
     pytest.param(["--matmul_precision", "high"], "A17", id="flags10-A13"),
 ])
