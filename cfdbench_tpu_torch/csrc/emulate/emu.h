@@ -1,8 +1,8 @@
 // CPU emulation of the CUDA the kernels in csrc/ use, for checking their
 // indexing, staging and fragment layouts on a machine without a card.
 //
-// Each block of a launch runs as blockDim host threads (std::thread),
-// one block after the other; __syncthreads is a barrier over the block,
+// A launch runs as blockDim host threads (std::thread), which walk its
+// blocks one after the other; __syncthreads is a barrier over the block,
 // and the warp-wide operations (mma.sync, __shfl_xor_sync) are barriers
 // over the 32 threads of a warp that exchange their registers through a
 // per-warp scratch area. mma.sync multiplies the TF32 operands exactly
@@ -118,28 +118,32 @@ struct Launch {
     grid_dim = grid;
     block_dim = threads;
     const int n = threads.x;  // the kernels here use 1-D blocks of whole warps
-    for (unsigned bz = 0; bz < grid.z; ++bz)
-      for (unsigned by = 0; by < grid.y; ++by)
-        for (unsigned bx = 0; bx < grid.x; ++bx) {
-          Block blk;
-          blk.bar = std::make_unique<std::barrier<>>(n);
-          for (int w = 0; w < n / 32; ++w) {
-            blk.warp_bar.push_back(std::make_unique<std::barrier<>>(32));
-          }
-          blk.scratch.resize(n / 32);
-          blk.smem.resize((smem + 15) / 16);
-          std::memset(blk.smem.data(), 0xff, blk.smem.size() * sizeof(float4));
-          std::vector<std::thread> pool;
-          for (int i = 0; i < n; ++i) {
-            pool.emplace_back([&, i] {
-              block = &blk;
+    Block blk;
+    blk.bar = std::make_unique<std::barrier<>>(n);
+    for (int w = 0; w < n / 32; ++w) {
+      blk.warp_bar.push_back(std::make_unique<std::barrier<>>(32));
+    }
+    blk.scratch.resize(n / 32);
+    blk.smem.resize((smem + 15) / 16);
+    // One host thread per CUDA thread for the whole launch, which walks the
+    // blocks in order; shared memory is refilled with NaN bytes between them.
+    std::vector<std::thread> pool;
+    for (int i = 0; i < n; ++i) {
+      pool.emplace_back([&, i] {
+        block = &blk;
+        thread_idx = dim3(i);
+        for (unsigned bz = 0; bz < grid.z; ++bz)
+          for (unsigned by = 0; by < grid.y; ++by)
+            for (unsigned bx = 0; bx < grid.x; ++bx) {
+              if (i == 0) std::memset(blk.smem.data(), 0xff, blk.smem.size() * sizeof(float4));
+              blk.bar->arrive_and_wait();
               block_idx = dim3(bx, by, bz);
-              thread_idx = dim3(i);
               kernel(args...);
-            });
-          }
-          for (auto& th : pool) th.join();
-        }
+              blk.bar->arrive_and_wait();
+            }
+      });
+    }
+    for (auto& th : pool) th.join();
   }
 };
 

@@ -47,7 +47,13 @@
 //      with the bias and exact erf GELU applied to the accumulators, 32
 //      output channels per grid row. Persistent, three blocks per SM: rows
 //      of x and z come in by cp.async (16-byte copies of contiguous rows)
-//      one item ahead of the products.
+//      one item ahead of the products, the tables resident. Where the
+//      tables and two whole rows of x and z do not fit a block (W x Ci or
+//      W x m2 large: width 256 at W = 64, W = 512 at any width, 32 modes at
+//      W = 256), inverse_cols_tiled_kernel runs the same GEMM on items of
+//      two rows by 64 columns with its K in chunks of 64 through a two-slot
+//      cp.async ring: the columns' [Br | -Bi] fragments with z's rows, then
+//      the rows' x with w0 (raw, split as read), two blocks per SM.
 // Passes 3 and 4 are separate kernels so that several blocks share an SM:
 // fused into one persistent kernel the inverse was slower, its H-stage's
 // loads exposed at one block per SM. Measured at the flagship shape on an
@@ -62,12 +68,12 @@
 // passes 2-4 (fno_block_finish) apart, the sum between them. A rank's
 // tables hold the DFT's columns (pass 1) and rows (pass 3) of its rows;
 // both passes mask the rows past its count in their 8-row tiles.
-// Shapes: passes 1-3 take any; pass 4 holds whole rows of x and the
-// W-stage table in shared memory, which bounds W x Ci and W x m2 (at 12
-// modes: 256 channels at W = 64, 128 at W = 128, 64 at W = 256; the head
-// takes up to 144).
-// fno_block_unsupported names the limit a shape passes, and the host
-// refuses it before launching.
+// Shapes: every pass takes any positive size. Pass 1 streams x's columns
+// 64 at a time above W = 64 and chunks the modes (12) and spectrum rows
+// (24) over blocks; pass 2's staging is constant; pass 3 walks any K and
+// m2 Co; pass 4 tiles as above. Offsets into x, the spectra and the output
+// are 64-bit. fno_block_unsupported refuses only sizes that are not
+// positive, and the host refuses those before launching.
 // The mixed DC and Nyquist columns keep pocketfft's C2R semantics through
 // the alpha-weighted B table (ops/spectral.py::_dft_factors). w0 is split
 // per block (1K values) rather than cached on the host: it is the
@@ -117,6 +123,19 @@ constexpr int kOutRows = 2;  // output rows per item (4 or 8: slower)
 constexpr int kOutNT = 4;    // output-channel tiles per warp task
 constexpr int kOutCo = kOutNT * 8;  // output channels per grid row
 constexpr int kOutSz = kOutCo + 8;  // z row stride, 8 mod 32: conflict-free B fragment loads
+// Pass 4 tiled, where its tables and whole rows do not fit a block: an item
+// is kOutRows rows by kOutCols columns, one 16-column tile per warp, and
+// the K of [2 m2 | Ci] comes kOutKS k-steps at a time. A ring slot holds
+// either a chunk of [Br | -Bi] (fragments) with the rows' z, or the rows'
+// x with w0 (both raw, kOutXs floats a row: 4 mod 8, conflict-free).
+constexpr int kOutCols = 64;
+constexpr int kOutMT = kOutCols / 16;
+constexpr int kOutKS = 8;
+constexpr int kOutXs = kOutKS * 8 + 4;
+constexpr int kOutZSlot = kOutMT * kOutKS * 64 * 4 + kOutRows * kOutKS * 8 * kOutSz;
+constexpr int kOutXSlot = (kOutRows * kOutCols + kOutCo) * kOutXs;
+constexpr int kOutSlot = kOutZSlot > kOutXSlot ? kOutZSlot : kOutXSlot;  // floats
+static_assert(kOutRows * kOutMT == kWarps, "a warp an item's (row, 16-column tile)");
 
 // Pass 1. xm (B, 2 re/im, K, m2, Ci): xm[b, :, k, m, c] = sum_h E1[k, h] sum_w E2[m, w] x[b, h, w, c].
 // e1f: (n_kc, ceil(H/8), 3, 2, 32 lanes, 8) split A fragments of
@@ -452,26 +471,58 @@ __global__ void __launch_bounds__(kThreads) inverse_rows_kernel(
   }
 }
 
+// Pass 4's epilogue for one warp task: the bias and exact erf GELU on the
+// accumulators of 16 columns (from w_base) by kOutCo channels (from o0) of
+// one output row (offset `row`), into out and, unless null, pre.
+__device__ __forceinline__ void cols_epilogue(const float (&acc)[kOutNT][4], const float* bs,
+                                              float* __restrict__ out, float* __restrict__ pre,
+                                              size_t row, int w_base, int W, int o0, int Co,
+                                              int g, int t) {
+  const bool pairs = Co % 2 == 0;
+  // Channels o and o + 1 of one position (o + 1 only where it exists).
+  auto put = [&](float* d, float v0, float v1, int o) {
+    if (pairs) {
+      *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
+    } else {
+      d[0] = v0;
+      if (o + 1 < Co) d[1] = v1;
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < kOutNT; ++j) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int w = w_base + g + 8 * half, ol = j * 8 + 2 * t, o = o0 + ol;
+      if (w < W && o < Co) {
+        const float p0 = acc[j][2 * half] + bs[ol], p1 = acc[j][2 * half + 1] + bs[ol + 1];
+        const size_t at = row + (size_t)w * Co + o;
+        put(out + at, gelu_erf(p0), gelu_erf(p1), o);
+        if (pre) put(pre + at, p0, p1, o);
+      }
+    }
+  }
+}
+
 // Pass 4. out[b, h, w, o] = GELU(sum_m Br[w, m] zr - Bi[w, m] zi + x[b, h, w, :] . w0[o, :] + b0[o]):
 // per row one GEMM, [Br | -Bi | x_h] (W x (2 m2 + Ci)) . [z_r; z_i; w0^T],
 // the inverse W-stage and the 1x1 bypass together, with the bias and exact
 // erf GELU applied to the accumulators; `pre`, unless null, receives the
 // pre-activation (the argument of GELU), which the block's backward reads. Each grid row takes kOutCo output
 // channels. Persistent along the grid's columns: a block sets up its
-// tables once and walks items of rows_per_item rows (kOutRows, or 1 where
-// two rows of x do not fit shared memory), whose rows of x and z come in by
-// cp.async (16-byte copies of contiguous rows) one item ahead of the
-// products. A warp task is one row's 16 (w) x kOutCo (o) tile.
+// tables once and walks items of kOutRows rows, whose rows of x and z come
+// in by cp.async (16-byte copies of contiguous rows) one item ahead of the
+// products. A warp task is one row's 16 (w) x kOutCo (o) tile. Where the
+// tables and two rows do not fit a block, inverse_cols_tiled_kernel runs.
 // bwf: (ceil(W/16), KZ/8, 32 lanes, 8) split A fragments of [Br | -Bi],
-//      KZ = 2 m2 rounded up to 8.
+//      KZ = 2 m2 rounded up to 8: a 16-column tile's are contiguous.
 __global__ void __launch_bounds__(kThreads, 3) inverse_cols_kernel(
     const float* __restrict__ x, const float* __restrict__ z, const float4* __restrict__ bwf,
     const float* __restrict__ w0, const float* __restrict__ b0, float* __restrict__ out,
-    float* __restrict__ pre, int B, int H, int W, int Ci, int Co, int m2, int rows_per_item) {
+    float* __restrict__ pre, int B, int H, int W, int Ci, int Co, int m2) {
   FNO_DYNAMIC_SMEM(float4, smem4);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int o0 = blockIdx.y * kOutCo, nto = ceil_div(min(kOutCo, Co - o0), 8);
-  const int nh = ceil_div(H, rows_per_item), n_items = B * nh;
+  const int nh = ceil_div(H, kOutRows), n_items = B * nh;
   const int kz = round_up(2 * m2, 8), kx = round_up(Ci, 8);
   const int sx = kx + 4;  // conflict-free A fragment loads (and kOutSz for B)
   const int mtw_n = ceil_div(W, 16), wrows = mtw_n * 16;
@@ -479,7 +530,7 @@ __global__ void __launch_bounds__(kThreads, 3) inverse_cols_kernel(
   float4* w0s = bws + mtw_n * (kz / 8) * 64;                           // kx/8 * kOutNT * 32
   float* bs = reinterpret_cast<float*>(w0s + (kx / 8) * kOutNT * 32);  // kOutCo
   float* bufs = bs + kOutCo;  // 2 x (rows x [kz][kOutSz] of z, then rows x [w][sx] of x)
-  const int zrow = kz * kOutSz, xrow = wrows * sx, buf = rows_per_item * (zrow + xrow);
+  const int zrow = kz * kOutSz, xrow = wrows * sx, buf = kOutRows * (zrow + xrow);
 
   const bool xvec = Ci % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const bool zvec = Co % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0;
@@ -487,10 +538,10 @@ __global__ void __launch_bounds__(kThreads, 3) inverse_cols_kernel(
   // `slot`, zero outside them; always exactly one commit group.
   auto stage = [&](int item, int slot) {
     if (item < n_items) {
-      const int b = item / nh, h0 = (item % nh) * rows_per_item;
-      const int rows = min(rows_per_item, H - h0);
+      const int b = item / nh, h0 = (item % nh) * kOutRows;
+      const int rows = min(kOutRows, H - h0);
       float* zs = bufs + slot * buf;
-      float* xs = zs + rows_per_item * zrow;
+      float* xs = zs + kOutRows * zrow;
       const float* xb = x + ((size_t)b * H + h0) * W * Ci;
       if (xvec) {
         const int q_n = kx / 4;
@@ -562,18 +613,17 @@ __global__ void __launch_bounds__(kThreads, 3) inverse_cols_kernel(
   }
   for (int i = tid; i < kOutCo; i += kThreads) bs[i] = o0 + i < Co ? b0[o0 + i] : 0.f;
 
-  const bool pairs = Co % 2 == 0;
-  const int tasks = rows_per_item * mtw_n;
+  const int tasks = kOutRows * mtw_n;
   for (int it = 0; item < n_items; ++it, item += gridDim.x) {
     stage(item + gridDim.x, (it + 1) & 1);
     cp_async_wait<1>();
     __syncthreads();  // this item's rows staged (and, the first time, the tables)
-    const int b = item / nh, h0 = (item % nh) * rows_per_item;
-    const int rows = min(rows_per_item, H - h0);
+    const int b = item / nh, h0 = (item % nh) * kOutRows;
+    const int rows = min(kOutRows, H - h0);
     const float* zs = bufs + (it & 1) * buf;
-    const float* xs = zs + rows_per_item * zrow;
+    const float* xs = zs + kOutRows * zrow;
     for (int task = warp; task < tasks; task += kWarps) {
-      const int r = task % rows_per_item, mtw = task / rows_per_item;
+      const int r = task % kOutRows, mtw = task / kOutRows;
       if (r >= rows) continue;
       float acc[kOutNT][4];
 #pragma unroll
@@ -606,68 +656,240 @@ __global__ void __launch_bounds__(kThreads, 3) inverse_cols_kernel(
           }
         }
       }
-      const size_t row = ((size_t)b * H + h0 + r) * W * Co;
-      // Channels o and o + 1 of one position (o + 1 only where it exists).
-      auto put = [&](float* d, float v0, float v1, int o) {
-        if (pairs) {
-          *reinterpret_cast<float2*>(d) = make_float2(v0, v1);
-        } else {
-          d[0] = v0;
-          if (o + 1 < Co) d[1] = v1;
-        }
-      };
-#pragma unroll
-      for (int j = 0; j < kOutNT; ++j) {
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int w = mtw * 16 + g + 8 * half, ol = j * 8 + 2 * t, o = o0 + ol;
-          if (w < W && o < Co) {
-            const float p0 = acc[j][2 * half] + bs[ol], p1 = acc[j][2 * half + 1] + bs[ol + 1];
-            const size_t at = row + (size_t)w * Co + o;
-            put(out + at, gelu_erf(p0), gelu_erf(p1), o);
-            if (pre) put(pre + at, p0, p1, o);
-          }
-        }
-      }
+      cols_epilogue(acc, bs, out, pre, ((size_t)b * H + h0 + r) * W * Co, mtw * 16, W, o0, Co,
+                    g, t);
     }
     __syncthreads();  // every read of this buffer done before it is refilled
   }
   cp_async_wait<0>();
 }
 
-// Shared memory of each pass at one shape, and the rows per item of pass
-// 4; `why` names what does not fit a block, or is null.
+// Pass 4 at any shape: the same GEMM per item of kOutRows rows by kOutCols
+// columns, its K [2 m2 | Ci] in chunks of kOutKS k-steps through a two-slot
+// cp.async ring, so that neither a whole row of x nor the whole [Br | -Bi]
+// table is resident. A unit of the ring is (item, chunk): the first
+// ceil(KZ / 8 kOutKS) chunks stage the item's 16-column tiles' fragments of
+// [Br | -Bi] (rows of bwf, as the resident kernel reads them) and the
+// chunk's rows of z; the rest stage the chunk's channels of the rows' x and
+// of w0 raw, split as they are read. Warp w owns row w % kOutRows and
+// 16-column tile w / kOutRows of the item; its accumulators stay in
+// registers across the item's chunks.
+__global__ void __launch_bounds__(kThreads, 2) inverse_cols_tiled_kernel(
+    const float* __restrict__ x, const float* __restrict__ z, const float4* __restrict__ bwf,
+    const float* __restrict__ w0, const float* __restrict__ b0, float* __restrict__ out,
+    float* __restrict__ pre, int B, int H, int W, int Ci, int Co, int m2) {
+  FNO_DYNAMIC_SMEM(float4, smem4);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int o0 = blockIdx.y * kOutCo, nto = ceil_div(min(kOutCo, Co - o0), 8);
+  const int nh = ceil_div(H, kOutRows), n_ct = ceil_div(W, kOutCols), mtw_n = ceil_div(W, 16);
+  const int kzs = round_up(2 * m2, 8) / 8, kxs = ceil_div(Ci, 8);
+  const int n_zc = ceil_div(kzs, kOutKS), n_chunks = n_zc + ceil_div(kxs, kOutKS);
+  const long long n_items = (long long)B * nh * n_ct;
+  const long long my_items =
+      blockIdx.x < n_items ? (n_items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const long long n_units = my_items * n_chunks;
+  float* bs = reinterpret_cast<float*>(smem4);  // kOutCo
+  float* slots = bs + kOutCo;                   // 2 x kOutSlot
+  for (int i = tid; i < kOutCo; i += kThreads) bs[i] = o0 + i < Co ? b0[o0 + i] : 0.f;
+
+  const bool xvec = Ci % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(w0) % 16 == 0;
+  const bool zvec = Co % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0;
+  // Item i of this block: (image b, row pair hp, column tile ct).
+  struct Item {
+    int b, h0, rows, ct;
+  };
+  auto item_of = [&](long long u) {
+    const long long item = blockIdx.x + u / n_chunks * gridDim.x;
+    Item it;
+    it.ct = (int)(item % n_ct);
+    const long long bh = item / n_ct;
+    it.b = (int)(bh / nh);
+    it.h0 = (int)(bh % nh) * kOutRows;
+    it.rows = min(kOutRows, H - it.h0);
+    return it;
+  };
+  // Unit u into slot u % 2, zero where a read one falls outside x, z or w0;
+  // always exactly one commit group.
+  auto stage = [&](long long u) {
+    if (u < n_units) {
+      const Item it = item_of(u);
+      const int ch = (int)(u % n_chunks);
+      float* s = slots + (u & 1) * kOutSlot;
+      if (ch < n_zc) {
+        const int ks0 = ch * kOutKS, ks_n = min(kOutKS, kzs - ks0);
+        float4* bwd = reinterpret_cast<float4*>(s);  // [mt][ks][64]
+        for (int i = tid; i < kOutMT * kOutKS * 64; i += kThreads) {
+          const int l = i % 64, ks = i / 64 % kOutKS, mt = i / (64 * kOutKS);
+          const int mtw = it.ct * kOutMT + mt;
+          if (mtw < mtw_n && ks < ks_n)
+            cp_async16(bwd + i, bwf + ((size_t)mtw * kzs + ks0 + ks) * 64 + l);
+        }
+        float* zs = s + kOutMT * kOutKS * 64 * 4;  // [r][kd][kOutSz]
+        const float* zb = z + ((size_t)it.b * H + it.h0) * 2 * m2 * Co + o0;
+        const int kd_n = ks_n * 8, kd0 = ks0 * 8;
+        if (zvec) {
+          constexpr int q_n = kOutCo / 4;
+          Walk3 ix(tid, kThreads, q_n, kd_n);
+          for (int i = tid; i < it.rows * kd_n * q_n; i += kThreads, ix.next()) {
+            const int q = ix.i0, kd = ix.i1, r = ix.i2;
+            float* d = zs + (r * kOutKS * 8 + kd) * kOutSz + 4 * q;
+            if (kd0 + kd < 2 * m2 && o0 + 4 * q < Co) {
+              cp_async16(d, zb + ((size_t)r * 2 * m2 + kd0 + kd) * Co + 4 * q);
+            } else {
+              *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+          }
+        } else {
+          Walk3 ix(tid, kThreads, kOutCo, kd_n);
+          for (int i = tid; i < it.rows * kd_n * kOutCo; i += kThreads, ix.next()) {
+            const int o = ix.i0, kd = ix.i1, r = ix.i2;
+            float* d = zs + (r * kOutKS * 8 + kd) * kOutSz + o;
+            if (kd0 + kd < 2 * m2 && o0 + o < Co) {
+              cp_async4(d, zb + ((size_t)r * 2 * m2 + kd0 + kd) * Co + o);
+            } else {
+              *d = 0.f;
+            }
+          }
+        }
+      } else {
+        // kOutRows x kOutCols rows of x, then kOutCo rows of w0: [row][kOutXs].
+        const int c0 = (ch - n_zc) * kOutKS * 8, w0c = it.ct * kOutCols;
+        const int n_rows = kOutRows * kOutCols + kOutCo;
+        const float* xb = x + ((size_t)it.b * H + it.h0) * W * Ci;
+        // Source of staged row rr at channel c, or null where it is zero.
+        auto src = [&](int rr, int c) -> const float* {
+          if (c >= Ci) return nullptr;
+          if (rr >= kOutRows * kOutCols) {
+            const int o = o0 + rr - kOutRows * kOutCols;
+            return o < Co ? w0 + (size_t)o * Ci + c : nullptr;
+          }
+          const int r = rr / kOutCols, w = w0c + rr % kOutCols;
+          return r < it.rows && w < W ? xb + ((size_t)r * W + w) * Ci + c : nullptr;
+        };
+        if (xvec) {
+          constexpr int q_n = kOutKS * 2;
+          Walk3 ix(tid, kThreads, q_n, n_rows);
+          for (int i = tid; i < n_rows * q_n; i += kThreads, ix.next()) {
+            float* d = s + ix.i1 * kOutXs + 4 * ix.i0;
+            const float* p = src(ix.i1, c0 + 4 * ix.i0);
+            if (p) {
+              cp_async16(d, p);
+            } else {
+              *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+            }
+          }
+        } else {
+          constexpr int c_n = kOutKS * 8;
+          Walk3 ix(tid, kThreads, c_n, n_rows);
+          for (int i = tid; i < n_rows * c_n; i += kThreads, ix.next()) {
+            float* d = s + ix.i1 * kOutXs + ix.i0;
+            const float* p = src(ix.i1, c0 + ix.i0);
+            if (p) {
+              cp_async4(d, p);
+            } else {
+              *d = 0.f;
+            }
+          }
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int r = warp % kOutRows, mt = warp / kOutRows;
+  float acc[kOutNT][4];
+  stage(0);
+  stage(1);
+  for (long long u = 0; u < n_units; ++u) {
+    const Item it = item_of(u);
+    const int ch = (int)(u % n_chunks);
+    cp_async_wait<1>();
+    __syncthreads();  // unit u staged (and, the first time, the bias)
+    if (ch == 0) {
+#pragma unroll
+      for (int j = 0; j < kOutNT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+    }
+    const float* s = slots + (u & 1) * kOutSlot;
+    if (r < it.rows && it.ct * kOutMT + mt < mtw_n) {
+      if (ch < n_zc) {
+        const int ks_n = min(kOutKS, kzs - ch * kOutKS);
+        const float4* bwd = reinterpret_cast<const float4*>(s) + mt * kOutKS * 64;
+        const float* zs = s + kOutMT * kOutKS * 64 * 4 + r * kOutKS * 8 * kOutSz;
+        for (int ks = 0; ks < ks_n; ++ks) {
+          uint32_t ahi[4], alo[4];
+          load_a_frag(bwd + ks * 64 + 2 * lane, ahi, alo);
+          const float* zk = zs + (ks * 8 + t) * kOutSz + g;
+#pragma unroll
+          for (int j = 0; j < kOutNT; ++j) {
+            if (j < nto) {
+              uint32_t bhi[2], blo[2];
+              split_tf32(zk[j * 8], bhi[0], blo[0]);
+              split_tf32(zk[j * 8 + 4 * kOutSz], bhi[1], blo[1]);
+              mma_3xtf32(acc[j], ahi, alo, bhi, blo);
+            }
+          }
+        }
+      } else {
+        const int ks_n = min(kOutKS, kxs - (ch - n_zc) * kOutKS);
+        const float* xa = s + (r * kOutCols + mt * 16) * kOutXs;
+        const float* wb = s + kOutRows * kOutCols * kOutXs;
+        for (int ks = 0; ks < ks_n; ++ks) {
+          uint32_t ahi[4], alo[4];
+          load_a_split(xa + ks * 8, kOutXs, 1, g, t, ahi, alo);
+#pragma unroll
+          for (int j = 0; j < kOutNT; ++j) {
+            if (j < nto) {
+              // b0 (k = t, n = g) is w0[o0 + 8 j + g, c0 + 8 ks + t]; b1 four channels on.
+              const float* wv = wb + (j * 8 + g) * kOutXs + ks * 8 + t;
+              uint32_t bhi[2], blo[2];
+              split_tf32(wv[0], bhi[0], blo[0]);
+              split_tf32(wv[4], bhi[1], blo[1]);
+              mma_3xtf32(acc[j], ahi, alo, bhi, blo);
+            }
+          }
+        }
+      }
+      if (ch == n_chunks - 1) {
+        cols_epilogue(acc, bs, out, pre, ((size_t)it.b * H + it.h0 + r) * W * Co,
+                      it.ct * kOutCols + mt * 16, W, o0, Co, g, t);
+      }
+    }
+    __syncthreads();  // every read of this slot done before it is refilled
+    stage(u + 2);
+  }
+  cp_async_wait<0>();
+}
+
+// Shared memory of each pass at one shape, and whether pass 4 runs tiled;
+// `why` names a size that is not positive, or is null.
 struct BlockPlan {
   size_t s1, s2, s4;
-  int out_rows;
+  bool tiled;
   const char* why;
 };
 
 BlockPlan plan_block(int W, int Ci, int m2) {
-  static thread_local char why[320];
+  static thread_local char why[160];
   BlockPlan p{};
+  if (W < 1 || Ci < 1 || m2 < 1) {
+    snprintf(why, sizeof why, "it takes positive sizes, got W=%d, Ci=%d, %d modes along W", W,
+             Ci, m2);
+    p.why = why;
+    return p;
+  }
   const size_t wk = ceil_div(W, 8), wck = wk < kFwdWK ? wk : kFwdWK;
   const size_t e2 = (wk <= kFwdWK ? wk : kFwdSlots * kFwdWK) * kFwdNW * 32;  // resident or streamed
   p.s1 = 16 * (e2 + kFwdE1Slots * kFwdE1) +
          sizeof(float) * (kFwdSlots * kFwdRows * wck * 8 * kFwdChan + 2 * kFwdRows * kTRow);
   p.s2 = sizeof(float2) * kMixCi * (kMixStride + kMixCo);
   const size_t kz = round_up(2 * m2, 8), kx = round_up(Ci, 8), mtw_n = ceil_div(W, 16);
-  for (p.out_rows = kOutRows; p.out_rows >= 1; --p.out_rows) {
-    p.s4 = 16 * (mtw_n * (kz / 8) * 64 + (kx / 8) * kOutNT * 32) +
-           sizeof(float) * (kOutCo + 2 * p.out_rows * (kz * kOutSz + mtw_n * 16 * (kx + 4)));
-    if (p.s4 <= kMaxDynamicSmem || p.out_rows == 1) break;
-  }
-  p.why = nullptr;
-  if (p.s1 > kMaxDynamicSmem || p.s2 > kMaxDynamicSmem) {
-    p.why = "the forward or mixing pass does not fit a block's shared memory";
-  } else if (p.s4 > kMaxDynamicSmem) {
-    snprintf(why, sizeof why,
-             "the inverse-columns pass stages a row of x (W=%d by %d channels), the DFT "
-             "table of the W-stage and a row of its spectrum (%d retained modes along W): "
-             "%zu bytes of shared memory a block, above the card's %zu",
-             W, Ci, m2, p.s4, kMaxDynamicSmem);
-    p.why = why;
-  }
+  p.s4 = 16 * (mtw_n * (kz / 8) * 64 + (kx / 8) * kOutNT * 32) +
+         sizeof(float) * (kOutCo + 2 * kOutRows * (kz * kOutSz + mtw_n * 16 * (kx + 4)));
+  p.tiled = p.s4 > kMaxDynamicSmem;
+  if (p.tiled) p.s4 = sizeof(float) * (kOutCo + 2 * kOutSlot);
   return p;
 }
 
@@ -688,8 +910,8 @@ void fno_block_tiles(int* tiles) {
 }
 
 // Null when fno_block_spectrum and fno_block_finish take a grid W wide
-// with Ci input channels and m2 retained modes along W, else why they do
-// not (H, Co and the modes along H are not limited).
+// with Ci input channels and m2 retained modes along W (every positive
+// size), else why they do not.
 const char* fno_block_unsupported(int W, int Ci, int m2) { return plan_block(W, Ci, m2).why; }
 
 // The block runs in two calls around its retained spectrum, so that under
@@ -741,14 +963,14 @@ int fno_block_finish(const float* x, const float* xm, const float* weights, cons
   const BlockPlan plan = plan_block(W, Ci, m2);
   if (plan.why) return cudaErrorInvalidValue;
   const int K = 2 * m1;
-  const int n_ot = ceil_div(Co, kOutCo), n_items = B * ceil_div(H, plan.out_rows);
+  const int nh = ceil_div(H, kOutRows), n_ot = ceil_div(Co, kOutCo);
+  const long long n_items = (long long)B * nh * (plan.tiled ? ceil_div(W, kOutCols) : 1);
+  const auto cols = plan.tiled ? inverse_cols_tiled_kernel : inverse_cols_kernel;
   cudaError_t err;
   if ((err = allow_dynamic_smem((const void*)mode_mix_kernel, plan.s2))) return err;
-  if ((err = allow_dynamic_smem((const void*)inverse_cols_kernel, plan.s4))) return err;
+  if ((err = allow_dynamic_smem((const void*)cols, plan.s4))) return err;
   int cols_blocks = 0;  // all output-channel tiles together
-  if ((err = persistent_blocks(inverse_cols_kernel, kThreads, plan.s4, (long long)n_items * n_ot,
-                               &cols_blocks)))
-    return err;
+  if ((err = persistent_blocks(cols, kThreads, plan.s4, n_items * n_ot, &cols_blocks))) return err;
   FNO_LAUNCH(mode_mix_kernel, dim3(K * m2, ceil_div(B, kBatchTile), ceil_div(Co, kMixCo)),
              kThreads, plan.s2, stream)(xm, weights, ym, B, K, m1, m2, Ci, Co, M1, M2);
   if ((err = cudaGetLastError())) return err;
@@ -756,9 +978,8 @@ int fno_block_finish(const float* x, const float* xm, const float* weights, cons
       ym, reinterpret_cast<const float4*>(a1f), z, H, Co, K, m2);
   if ((err = cudaGetLastError())) return err;
   const dim3 cols_grid(cols_blocks > n_ot ? cols_blocks / n_ot : 1, n_ot);
-  FNO_LAUNCH(inverse_cols_kernel, cols_grid, kThreads, plan.s4, stream)(
-      x, z, reinterpret_cast<const float4*>(bwf), w0, b0, out, pre, B, H, W, Ci, Co, m2,
-      plan.out_rows);
+  FNO_LAUNCH(cols, cols_grid, kThreads, plan.s4, stream)(
+      x, z, reinterpret_cast<const float4*>(bwf), w0, b0, out, pre, B, H, W, Ci, Co, m2);
   return cudaGetLastError();
 }
 

@@ -21,9 +21,9 @@ Without a gradient to carry, each wrapper calls its registered operator,
 (``torch.library.custom_op``): its CUDA kernel launches the hand-written
 kernel, its CPU kernel is the plain version, and its fake returns the
 output's shape after the argument checks and, for a CUDA tensor, the
-library's shape limits — so ``torch.export`` keeps both kernels in a
+library's shape check — so ``torch.export`` keeps both kernels in a
 served program as opaque nodes, counts their launches when it runs, and
-refuses a shape the kernels cannot take when the program is exported
+refuses a shape the kernels refuse when the program is exported
 (``utils/export.py``).
 
 Under grad the kernels run inside ``torch.autograd.Function``s
@@ -57,10 +57,13 @@ as one ``fno_block`` launch. The backward keeps the same split
 (:func:`fno_block_vjp`). The head is per pixel and runs on the rank's
 rows unchanged.
 
-The kernels' shared memory bounds the shapes they take; the library
-says which it refuses and why (``fno_block_unsupported``,
-``fno_head_unsupported``), and :func:`check_kernel_shapes` raises on
-those before anything launches.
+The kernels take every positive size: where their tables and whole rows
+do not fit a block's shared memory, the block's inverse-columns pass runs
+tiled over the columns and its K, and the head streams fc1 over the
+channels (``csrc/*.cu``). The library says what it refuses and why
+(``fno_block_unsupported``, ``fno_head_unsupported``: a size that is not
+positive), and :func:`check_kernel_shapes` raises on that before
+anything launches.
 """
 
 from __future__ import annotations
@@ -143,7 +146,10 @@ def _block_matrices(H: int, W: int, m1: int, m2: int, r0: int = 0, h: int = None
     - ``a1`` (ceil(h/8), 16, 8 ceil(2K/8)): per tile of 8 output rows the
       inverse H-stage's ``[[Ar, -Ai], [Ai, Ar]]`` rows (A's rows r0 ..
       r0 + h - 1), real parts in rows 0-7 and imaginary parts in rows 8-15;
-    - ``bw`` (16 ceil(W/16), KZ): ``[Br | -Bi]``, KZ = 2 m2 rounded up to 8.
+    - ``bw`` (16 ceil(W/16), KZ): ``[Br | -Bi]``, KZ = 2 m2 rounded up to 8;
+      in fragment order its 16-row tiles lead, so the inverse-columns
+      pass finds a 64-column tile's fragments, and a chunk of its K in
+      each, at fixed strides, resident or tiled.
     """
     h = H - r0 if h is None else h
     E1r, E1i, E2r, E2i, Ar, Ai, Br, Bi = (
@@ -202,7 +208,7 @@ def _check_tiles(lib) -> None:
 
 def _refuse(why, what: str) -> None:
     if why:
-        raise ValueError(f"{what}: {why.decode()}; larger shapes are ROADMAP.md B3")
+        raise ValueError(f"{what}: {why.decode()}")
 
 
 def _check_block_shape(lib, W: int, width: int, m2: int) -> None:
@@ -217,9 +223,9 @@ def _check_head_shape(lib, width: int, hidden: int, n_out: int) -> None:
 
 def check_kernel_shapes(H: int, W: int, width: int, modes1: int, modes2: int,
                         hidden: int, n_out: int, lib=None) -> None:
-    """Raise ValueError, naming the limit, if the kernels (``lib``, the
+    """Raise ValueError, naming the size, if the kernels (``lib``, the
     card's by default) cannot take an FNO of this width, these modes and
-    this head on an H x W grid."""
+    this head on an H x W grid: only a size that is not positive."""
     lib = load_library() if lib is None else lib
     _check_block_shape(lib, W, width, clamp_modes(H, W, modes1, modes2)[1])
     _check_head_shape(lib, width, hidden, n_out)
@@ -534,9 +540,7 @@ def _wants_grad(x, *tensors) -> bool:
 
 def fno_block(x, weights, w0, b0, modes1: int, modes2: int, rows=None):
     """x (B, H, W, Cin); weights (2, 2, Cin, Cout, modes1, modes2);
-    w0 (Cout, Cin); b0 (Cout,) → (B, H, W, Cout). On the card a shape
-    whose rows do not fit the kernel's shared memory raises ValueError
-    (:func:`check_kernel_shapes`); under grad the result is
+    w0 (Cout, Cin); b0 (Cout,) → (B, H, W, Cout). Under grad the result is
     differentiable (:class:`FnoBlockFn`), else it comes from the
     registered operator (:func:`fno_block_op`). With ``rows``, a model
     axis of more than one rank (spatial sharding), x is this rank's rows

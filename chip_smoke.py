@@ -99,26 +99,22 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    model's train step, denoise call (ms, device operations) and 50-step
    frame with its decode (frames/s), and the unconditional DDPM's step.
 
-11. Serving (``utils/export.py``, ``scripts/export_model_torch.py``,
-   ``scripts/serve_bench_torch.py``,
+11. Serving (``utils/export.py``, ``scripts/serve_bench_torch.py``,
    ``scripts/import_reference_checkpoint_torch.py``). (a) The phase-6 FNO
-   checkpoint through ``export_model_torch.py`` (``serve/predict.pt2`` and
-   ``rollout.pt2`` at the test split's case count); its weights in the
-   reference's layout (complex corner weights, 1x1-conv weights) through
-   ``import_reference_checkpoint_torch.py`` into a fresh result tree,
-   where ``main_multistep`` must give phase 6b's per-step metrics (rel
-   1e-6: a relayout). (b) One served predict call must launch 4 block and
-   1 head kernels, one served rollout 80 and 20, and the graphs hold that
-   many operator nodes and no FFT; the served FNO's predict and rollout
-   frames within 1e-6 of max |out| of the in-process ones; the phase-7
-   U-Net, exported the same way (BatchNorm statistics as buffers), within
-   1e-5 (cuDNN may choose another algorithm); each served rollout's
-   per-step metrics within rel 1e-4 of its ``main_multistep``'s. (c)
+   checkpoint's weights in the reference's layout (complex corner weights,
+   1x1-conv weights) through ``import_reference_checkpoint_torch.py`` into
+   a fresh result tree, where ``main_multistep`` must give phase 6b's
+   per-step metrics (rel 1e-6: a relayout). (b) Cut to keep the script in
+   its time limit: ``scripts/export_model_torch.py`` on a trained FNO
+   checkpoint runs in the CPU tests (``tests/test_torch_serving.py``). (c)
    ``serve_bench_torch.py --selftest`` for the flagship FNO and the U-Net
    at its default width, batch 128, 64x64, 20 steps: served and in-process
    ms a call (host wall time to a synchronize, and CUDA-event time),
-   frames/s, the served overhead; the served outputs at (b)'s bounds and
-   the FNO's launches a served call as in (b). (d) ``serve_bench_torch.py
+   frames/s, the served overhead; the served outputs within 1e-6 (FNO) and
+   1e-5 (U-Net: cuDNN may choose another algorithm for a traced
+   convolution) of max |out| of the in-process ones; one served FNO
+   predict call must launch 4 block and 1 head kernels, one served rollout
+   80 and 20, the U-Net none. (d) ``serve_bench_torch.py
    --selftest`` for pixel diffusion and latent_diffusion2 at their default
    widths (50 denoising steps; the latent model on a seeded lite VAE),
    64x64: predict at b8 and b32, a rollout of SERVE_DIFFUSION_ROLLOUT_STEPS
@@ -296,6 +292,21 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    tree: its summary and arrays written (``diagnostics.json``,
    ``diagnostics.npz``; the machine has no matplotlib for its plots), all
    finite.
+17. The FNO past the kernels' old shared-memory limits (the inverse-columns
+   pass tiled over columns and its K, the head's fc1 streamed over the
+   channels). (a) Each kernel against its plain version at phase 2's
+   bounds (the block's saved outputs too) and timed against it as phase 5
+   times them, beside its bound, at WIDE_KERNEL_CASES: both at B=128, 64x64,
+   width 256 (the JAX package's widest), and at B=8 on a 512x512 grid at
+   width 32; the block at B=8, 256x256, 32 modes; the head with 9 outputs;
+   and the block split at 256 of 512 rows (as 15a). (b) ``main_auto --mode
+   train_test`` then ``main_multistep`` at ``--fno_hidden_dim 256`` on the
+   phase-6 tree: launches 68 and 17, then 80 and 20, as the flagship's;
+   the width-256 FNO's forward and one train step on the card against the
+   CPU's plain path at phase 16a's bounds; its 20-step b128 rollout through
+   the kernels (launches, frames/s beside the plain path's). (c) The same
+   two entry points at width 32 on a synthetic 512x512 cavity tree. The
+   phase's seconds on its ``[phase17]`` line.
 
 Every phase's seconds are printed on a line of their own (``[seconds]``),
 and the whole script's.
@@ -303,7 +314,7 @@ and the whole script's.
 ``launches`` in the kernels' record is phase 3's count (main_multistep),
 ``launches_by_path`` each main path's own: main_multistep's and
 main_auto's, one served predict call's and one served rollout's
-(phase 11b), each served diffusion path's (phase 11d:
+(phase 11c), each served diffusion path's (phase 11d:
 ``serve_<model>_<kind>_b<B>``, 0), main_auto's with ``--use_mixed_precision`` and
 main_multistep's with ``--rollout_dtype bfloat16`` (phase 12), and each
 rank's main_auto, main_multistep, main_train, main_gencast, main_vae and
@@ -317,11 +328,15 @@ and each rank's main_auto under spatial sharding (phase 15:
 ``sp1x2_rank{r}_main_auto_sp``, ``sp2x2_rank{r}_main_auto_sp``; phase 15c:
 ``sp1x2_rank{r}_main_auto_sp_<run>`` for each of its runs), and the
 padded flagship's 20-step rollout and main_multistep under --profile_dir
-(phase 16: ``padded_rollout``, ``main_multistep_profiled``),
+(phase 16: ``padded_rollout``, ``main_multistep_profiled``), and main_auto
+and main_multistep at width 256 and on a 512x512 grid and the width-256
+rollout (phase 17: ``main_auto_h256``, ``main_multistep_h256``,
+``rollout_h256``, ``main_auto_512``, ``main_multistep_512``),
 each read from counters set
 to 0 just before the run and read just after it; ``at_rank_shapes`` the
 kernel's phase 14a records, ``at_rank_rows`` its phase 15a records,
-``at_padded_grid`` its phase 16a record. The
+``at_padded_grid`` its phase 16a record, ``at_wide_shapes`` its phase 17a
+records. The
 line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 It needs a CUDA device and fails without one.
@@ -535,8 +550,9 @@ SP_RANKS = {"1x2": 2, "2x2": 4}
 # of latent_diffusion2 (model flags, grid, global batch).
 TUBE_GRID = (66, 65)  # the tube and dam problems' grid
 # The frames of a case in the trees of phase 15c's runs other than the
-# flagship's: half of phase 13b's steps an epoch (100 train pairs).
-SP_REST_FRAMES = STEPS // 2 + 1
+# flagship's: a quarter of phase 13b's steps an epoch (50 train pairs; a
+# full and a padded batch of the U-Net's and the point models').
+SP_REST_FRAMES = STEPS // 4 + 1
 SP_POINT_MODELS = ("auto_ffn", "auto_deeponet_cnn")
 SP_LATENT = {name: name for name in LATENT} | {"latent_diffusion_lite66": "latent_diffusion_lite"}
 # Phase 15c's runs whose epoch is held against permuted-row controls, one a
@@ -569,6 +585,18 @@ PROFILE_DIR = WORK / "profile"  # phase 16b's main_multistep traces
 BLOCK_CUDA_KERNELS = ("dft_forward_kernel", "mode_mix_kernel", "inverse_rows_kernel",
                       "inverse_cols_kernel")
 HEAD_CUDA_KERNELS = ("fno_head_kernel",)
+# Phase 17: the FNO past the kernels' old shared-memory limits. WIDE is the
+# widest width of the JAX package's own sweep (bench.py) and the one
+# --opt_state_dtype exists for; WIDE_GRID a grid 512 wide.
+WIDE, WIDE_GRID = 256, 512
+# (label, kernels, B, H, W, channels, modes, head outputs) of phase 17a.
+WIDE_KERNEL_CASES = (
+    ("width 256", ("fno_block", "fno_head"), TIMING_BATCH, GRID, GRID, WIDE, MODES, 2),
+    ("512x512", ("fno_block", "fno_head"), 8, WIDE_GRID, WIDE_GRID, WIDTH, MODES, 2),
+    ("32 modes", ("fno_block",), 8, 256, 256, WIDTH, 32, 2),
+    ("9 outputs", ("fno_head",), TIMING_BATCH, GRID, GRID, WIDTH, MODES, 9),
+)
+WIDE_SPLIT = (8, WIDE_GRID, WIDE_GRID, 2)  # (B, H, W, ranks): 256 of 512 rows
 # What vae_diagnostics_torch.py writes without matplotlib, which the card's
 # machine lacks (its plots are written beside them where it is installed).
 DIAGNOSTIC_FILES = ("diagnostics.json", "diagnostics.npz")
@@ -757,10 +785,11 @@ def check_saved(block_args):
         raise RuntimeError(f"fno_block's saved outputs disagree at {tuple(x.shape)}")
 
 
-def flagship_model(device):
+def flagship_model(device, **changes):
+    """The seeded flagship FNO, with ``changes`` to its widths or padding."""
     from cfdbench_tpu_torch.models.fno import FLAGSHIP, Fno2d
 
-    return Fno2d(n_case_params=5, **FLAGSHIP,
+    return Fno2d(n_case_params=5, **{**FLAGSHIP, **changes},
                  generator=torch.Generator().manual_seed(SEED), device=device)
 
 
@@ -954,12 +983,14 @@ PHASE6_FLAGS = ("--mode", "train_test", "--num_epochs", str(TRAIN_EPOCHS), "--ev
                 "1", "--batch_size", "16", "--eval_batch_size", "16", "--log_interval", "1")
 
 
-def train_path(grid: int = GRID):
+def train_path(grid: int = GRID, tree: str = "train_data", result: str = "train_result",
+               flags=()):
     """Phase 6b: ``main_auto --mode train_test`` at the flagship width on
-    a synthetic cavity tree, 2 epochs of a few steps; then
-    ``main_multistep`` rolls out the checkpoint it wrote. Returns
-    main_auto's launches and main_multistep's per-step metrics (phase 12c
-    rewrites the file with its bfloat16 rollout's)."""
+    a synthetic cavity tree (``WORK / tree``, made unless it is there), 2
+    epochs of a few steps; then ``main_multistep`` rolls out the checkpoint
+    it wrote. ``flags`` follow the flagship's (phase 17: another width).
+    Returns main_auto's launches, main_multistep's per-step metrics (phase
+    12c rewrites the file with its bfloat16 rollout's) and its launches."""
     from cfdbench_tpu_torch.cli import main_auto, main_multistep, parse_args, run_dir
     from cfdbench_tpu_torch.data import get_auto_dataset
     from cfdbench_tpu_torch.data.pipeline import num_batches
@@ -967,9 +998,11 @@ def train_path(grid: int = GRID):
     from cfdbench_tpu_torch.models.fno import FLAGSHIP
     from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
 
-    data_root = WORK / "train_data"
-    generate_problem(data_root, "cavity", cases_per_subset=4, num_frames=6, grid=grid, seed=SEED)
-    argv = fno_argv(data_root, WORK / "train_result")
+    data_root = WORK / tree
+    if not data_root.exists():
+        generate_problem(data_root, "cavity", cases_per_subset=4, num_frames=6, grid=grid,
+                         seed=SEED)
+    argv = fno_argv(data_root, WORK / result) + list(flags)
     train_flags = list(PHASE6_FLAGS)
     args = parse_args(argv + train_flags)
     train, dev, test = get_auto_dataset(data_root, args.data_name, args.delta_time,
@@ -983,8 +1016,8 @@ def train_path(grid: int = GRID):
     t0 = time.perf_counter()
     main_auto(argv + train_flags)
     counts = launch_counts()
-    print(f"[train] main_auto: {time.perf_counter() - t0:.2f} s, {len(train)} train pairs, "
-          f"{TRAIN_EPOCHS} epochs x {steps} steps, {evals} eval forwards an epoch, "
+    print(f"[train] {result} main_auto: {time.perf_counter() - t0:.2f} s, {len(train)} train "
+          f"pairs, {TRAIN_EPOCHS} epochs x {steps} steps, {evals} eval forwards an epoch, "
           f"{len(test)} test cases; launches {counts}")
     want = {"fno_block": FLAGSHIP["num_layers"] * forwards, "fno_head": forwards}
     if counts != want:
@@ -1015,9 +1048,9 @@ def train_path(grid: int = GRID):
             math.isfinite(v) for m in metrics for v in m.values()):
         raise RuntimeError(f"main_multistep on the trained checkpoint: launches {rollout} "
                            f"(expected {want}), metrics {metrics}")
-    print(f"[train] main_multistep on the trained checkpoint: launches {rollout}, "
+    print(f"[train] {result} main_multistep on the trained checkpoint: launches {rollout}, "
           f"step-20 nmse {metrics[-1]['nmse']:.6g}")
-    return counts, metrics
+    return counts, metrics, rollout
 
 
 def step_split(loss_scores, opt, sched, device):
@@ -2067,14 +2100,6 @@ def same_metrics(got, want, rtol: float, what: str) -> float:
     return worst
 
 
-def op_nodes(served):
-    """(block nodes, head nodes, FFT nodes) of a served program's graph."""
-    targets = [n.target for n in served.program.graph.nodes if n.op == "call_function"]
-    return (targets.count(torch.ops.cfdbench_tpu_torch.fno_block.default),
-            targets.count(torch.ops.cfdbench_tpu_torch.fno_head.default),
-            sum("fft" in str(x) for x in targets))
-
-
 def reference_import(run: Path) -> None:
     """Phase 11a: the run's best weights in the reference's layout, through
     the import script into a fresh tree; ``main_multistep`` there must give
@@ -2101,87 +2126,17 @@ def reference_import(run: Path) -> None:
           f"{SERVE_IMPORT_RTOL:.0e})")
 
 
-def serve_run(argv, device, rtol: float, what: str) -> dict:
-    """Export a trained run through ``export_model_torch.py`` at the test
-    split's case count, load both artifacts, and hold each served call to
-    the in-process one (predict frame, rollout frames within ``rtol`` of
-    max |out|; the rollout's per-step metrics within ROLLOUT_RTOL of the
-    run's ``main_multistep``). Returns the launches of one served predict
-    call and one served rollout, each from counters set to 0 just before
-    it, and the graphs' operator nodes."""
-    from cfdbench_tpu_torch.cli import make_auto_task, parse_args, run_dir
-    from cfdbench_tpu_torch.data import load_test_cases
-    from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
-    from cfdbench_tpu_torch.training.checkpoints import load_best_params
-    from cfdbench_tpu_torch.training.rollout import make_rollout_fn, multistep_metrics
-    from cfdbench_tpu_torch.utils.export import load_exported
-
-    args = parse_args(argv)
-    features, case_params = load_test_cases(args, STEPS)
-    n, field = features.shape[0], features.shape[2:4]
-    t0 = time.perf_counter()
-    serve = load_script("export_model_torch").main(argv + ["--batch_size", str(n)])
-    export_s = time.perf_counter() - t0
-    task = make_auto_task(args, case_params.shape[1], field, device)
-    task.model.load_state_dict(load_best_params(run_dir(args)))
-    task.model.eval()
-    frame0 = torch.from_numpy(features[:, 0, :, :, :task.feedback_channels].copy()).to(device)
-    mask_np = features[:, 0, :, :, 2:3]
-    call = (frame0, torch.from_numpy(case_params).to(device),
-            torch.from_numpy(mask_np.copy()).to(device))
-    result = {}
-    with torch.inference_mode():
-        live = {"predict": task.predict_frame(*call),
-                "rollout": make_rollout_fn(task.predict_frame, STEPS)(*call)}
-        for kind in ("predict", "rollout"):
-            served = load_exported(serve / f"{kind}.pt2")
-            reset_launch_counts()
-            out = served(*call)
-            torch.cuda.synchronize()
-            counts = launch_counts()
-            rel = max_rel(out, live[kind])
-            if out.shape != live[kind].shape or not rel <= rtol:
-                raise RuntimeError(f"{what} served {kind}: {tuple(out.shape)} vs "
-                                   f"{tuple(live[kind].shape)}, {rel:.3e} > {rtol:.0e}")
-            result[kind] = dict(launches=counts, nodes=op_nodes(served), rel=rel, out=out,
-                                bytes=(serve / f"{kind}.pt2").stat().st_size)
-    original = json.loads((run_dir(args) / "multistep_metrics.json").read_text())
-    worst = same_metrics(multistep_metrics(result["rollout"]["out"], features, mask_np), original,
-                         ROLLOUT_RTOL, f"{what} served rollout")
-    print(f"[serve] {what}: export_model_torch.py {export_s:.2f} s for batch {n} "
-          f"(predict.pt2 {result['predict']['bytes']} bytes, rollout.pt2 "
-          f"{result['rollout']['bytes']} bytes); served vs in process, max abs diff / max |out|: "
-          f"predict {result['predict']['rel']:.3e}, rollout {result['rollout']['rel']:.3e} "
-          f"(bound {rtol:.0e}); served rollout's per-step metrics vs main_multistep's max rel "
-          f"diff {worst:.3e} (bound {ROLLOUT_RTOL:.0e}); launches a call: predict "
-          f"{result['predict']['launches']}, rollout {result['rollout']['launches']}; graph "
-          f"nodes (block, head, fft): predict {result['predict']['nodes']}, rollout "
-          f"{result['rollout']['nodes']}")
-    return result
-
-
 def serving(device, card):
-    """Phase 11: the reference import (a), the served FNO and U-Net against
-    in process (b), ``serve_bench_torch.py --selftest`` (c). Returns the
-    launches of one served predict call and one served rollout."""
+    """Phase 11: the reference import (a), ``serve_bench_torch.py
+    --selftest`` for the FNO and the U-Net (c). Returns the launches of one
+    served predict call and one served rollout of the FNO."""
     from cfdbench_tpu_torch.cli import parse_args, run_dir
     from cfdbench_tpu_torch.config import Args
     from cfdbench_tpu_torch.models.fno import FLAGSHIP
 
     argv = fno_argv(WORK / "train_data", WORK / "train_result")
     reference_import(run_dir(parse_args(argv)))
-    fno = serve_run(argv, device, SERVE_FNO_RTOL, "FNO")
     depth = FLAGSHIP["num_layers"]
-    want = {"predict": ({"fno_block": depth, "fno_head": 1}, (depth, 1, 0)),
-            "rollout": ({"fno_block": depth * STEPS, "fno_head": STEPS}, (depth * STEPS, STEPS, 0))}
-    for kind, (counts, nodes) in want.items():
-        if fno[kind]["launches"] != counts or fno[kind]["nodes"] != nodes:
-            raise RuntimeError(f"served FNO {kind}: launches {fno[kind]['launches']} (expected "
-                               f"{counts}), graph nodes {fno[kind]['nodes']} (expected {nodes})")
-    unet = serve_run(family_argv("unet", WORK / "train_data"), device, SERVE_UNET_RTOL, "U-Net")
-    if any(any(unet[k]["launches"].values()) or any(unet[k]["nodes"]) for k in unet):
-        raise RuntimeError("the served U-Net reached the FNO kernels")
-
     bench = load_script("serve_bench_torch")
     timing = {}
     for model, width in (("fno", FLAGSHIP["hidden_dim"]), ("unet", Args().unet_dim)):
@@ -2211,7 +2166,8 @@ def serving(device, card):
                   f"{r['launches_per_call']}; served vs in process max abs diff "
                   f"{r['max_abs_diff_vs_in_process']:.3e} (max |out| {r['max_abs_out']:.3e})")
     print(f"[serve] [{card}] " + json.dumps(timing))
-    return fno["predict"]["launches"], fno["rollout"]["launches"]
+    return (timing["fno"]["predict"]["launches_per_call"],
+            timing["fno"]["rollout"]["launches_per_call"])
 
 
 def serving_diffusion(card):
@@ -3704,71 +3660,83 @@ def split_block_work(B, h, W, Ci, Co, m1, m2):
     return first, rest
 
 
-def sp_kernels(device, card) -> dict:
-    """Phase 15a: the block kernel split around its spectrum's row sum, at
-    the rows a model rank holds under spatial sharding (SP_KERNEL_CASES,
-    B=TIMING_BATCH, the flagship's width and modes): pass 1 on each rank's
-    rows, the partial spectra summed, passes 2-4 on each rank's rows,
-    against the plain whole block at phase 2's bounds (the summed spectrum
-    and the pre-activation too); each half timed on one rank's rows beside
-    its bound, the plain whole block timed, and the bytes of the spectrum
-    that the ranks sum. The head kernel at the same rows against its plain
-    version. Returns per kernel a record a shape."""
-    from cfdbench_tpu_torch.ops import _build, fno_kernels as fk
+def split_block(lib, stream, device, card, B, H, W, M):
+    """The block kernel split around its spectrum's row sum at M ranks'
+    rows of an H x W grid (B images, the flagship's width and modes): pass
+    1 on each rank's rows, the partial spectra summed, passes 2-4 on each
+    rank's rows, against the plain whole block at phase 2's bounds (the
+    summed spectrum and the pre-activation too); each half timed on one
+    rank's rows beside its bound, the plain whole block timed, and the bytes
+    of the spectrum that the ranks sum. Returns the record, the first
+    rank's rows of x and the generator that drew the inputs."""
+    from cfdbench_tpu_torch.ops import fno_kernels as fk
     from cfdbench_tpu_torch.ops.spectral import clamp_modes, init_spectral_weights
+
+    C = WIDTH
+    gen = torch.Generator().manual_seed(SEED + 15)
+    h = H // M
+    x = torch.randn((B, H, W, C), generator=gen).to(device)
+    weights = (init_spectral_weights(gen, C, C, MODES, MODES) * C).to(device)
+    w0 = (torch.randn((C, C), generator=gen) * C ** -0.5).to(device)
+    b0 = (torch.randn((C,), generator=gen) * 0.1).to(device)
+    block = (x, weights, w0, b0, MODES, MODES)
+    rows = [x[:, j * h:(j + 1) * h].contiguous() for j in range(M)]
+    with torch.inference_mode():
+        xm = sum(fk._block_spectrum(lib, r, MODES, MODES, stream, (j * h, H))
+                 for j, r in enumerate(rows))
+        halves = [fk._block_finish(lib, r, xm, weights, w0, b0, MODES, MODES, stream, True,
+                                   (j * h, H)) for j, r in enumerate(rows)]
+        got = torch.cat([o for o, _ in halves], 1)
+        pre = torch.cat([p for _, p in halves], 1)
+        want = fk.fno_block_reference(*block)
+        want_xm, want_pre = fk.fno_block_saved_reference(*block)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        pre_err = (pre - want_pre).abs().max().item()
+        xm_rel = ((xm - want_xm).abs().max() / want_xm.abs().max()).item()
+        shape = f"{h} of {H} rows ({M} ranks), W={W}"
+        if not (torch.isfinite(got).all() and err <= BLOCK_ATOL and pre_err <= BLOCK_ATOL
+                and xm_rel <= XM_RTOL):
+            raise RuntimeError(f"fno_block split at {shape}: max abs err {err:.3e}, "
+                               f"pre-activation {pre_err:.3e}, spectrum {xm_rel:.3e}")
+        r0 = rows[0]
+        plain_ms = warm_ms(lambda: fk.fno_block_reference(*block), 10)
+        first_ms = warm_ms(lambda: fk._block_spectrum(lib, r0, MODES, MODES, stream, (0, H)),
+                           20)
+        rest_ms = warm_ms(lambda: fk._block_finish(lib, r0, xm, weights, w0, b0, MODES,
+                                                   MODES, stream, False, (0, H)), 20)
+        whole_ms = warm_ms(lambda: fk.fno_block(*block), 20)
+    m1, m2 = clamp_modes(H, W, MODES, MODES)
+    first, rest = split_block_work(B, h, W, C, C, m1, m2)
+    (b1, by1), (b2, by2) = bound(*first), bound(*rest)
+    sum_bytes = 4 * B * 2 * 2 * m1 * m2 * C
+    print(f"[sp] [{card}] fno_block B={B} {shape}: max abs err {err:.3e}, pre-activation "
+          f"{pre_err:.3e} (bound {BLOCK_ATOL:.0e}), summed spectrum {xm_rel:.3e} of its max "
+          f"(bound {XM_RTOL:.0e}); one rank's pass 1 {first_ms:.4f} ms (bound {b1:.4f} ms by "
+          f"{by1}), passes 2-4 {rest_ms:.4f} ms (bound {b2:.4f} ms by {by2}); the whole "
+          f"block {whole_ms:.4f} ms, its plain version {plain_ms:.4f} ms; the ranks sum "
+          f"{sum_bytes} bytes of spectrum")
+    return dict(
+        shape=shape, max_abs_err=err, pre_err=pre_err, spectrum_rel_err=xm_rel,
+        ms=first_ms + rest_ms, pass1_ms=first_ms, passes2_4_ms=rest_ms, plain_whole_ms=plain_ms,
+        whole_ms=whole_ms, bound_ms=b1 + b2, pass1_bound_ms=b1, pass1_bound_by=by1,
+        passes2_4_bound_ms=b2, passes2_4_bound_by=by2, row_sum_bytes=sum_bytes), r0, gen
+
+
+def sp_kernels(device, card) -> dict:
+    """Phase 15a: :func:`split_block` at the rows a model rank holds under
+    spatial sharding (SP_KERNEL_CASES, B=TIMING_BATCH); the head kernel at
+    the same rows against its plain version. Returns per kernel a record a
+    shape."""
+    from cfdbench_tpu_torch.ops import _build, fno_kernels as fk
 
     lib, stream = _build.load_library(), torch.cuda.current_stream().cuda_stream
     out = {"fno_block": [], "fno_head": []}
     B, C = TIMING_BATCH, WIDTH
     for H, W, M in SP_KERNEL_CASES:
-        gen = torch.Generator().manual_seed(SEED + 15)
-        h = H // M
-        x = torch.randn((B, H, W, C), generator=gen).to(device)
-        weights = (init_spectral_weights(gen, C, C, MODES, MODES) * C).to(device)
-        w0 = (torch.randn((C, C), generator=gen) * C ** -0.5).to(device)
-        b0 = (torch.randn((C,), generator=gen) * 0.1).to(device)
-        block = (x, weights, w0, b0, MODES, MODES)
-        rows = [x[:, j * h:(j + 1) * h].contiguous() for j in range(M)]
-        with torch.inference_mode():
-            xm = sum(fk._block_spectrum(lib, r, MODES, MODES, stream, (j * h, H))
-                     for j, r in enumerate(rows))
-            halves = [fk._block_finish(lib, r, xm, weights, w0, b0, MODES, MODES, stream, True,
-                                       (j * h, H)) for j, r in enumerate(rows)]
-            got = torch.cat([o for o, _ in halves], 1)
-            pre = torch.cat([p for _, p in halves], 1)
-            want = fk.fno_block_reference(*block)
-            want_xm, want_pre = fk.fno_block_saved_reference(*block)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            pre_err = (pre - want_pre).abs().max().item()
-            xm_rel = ((xm - want_xm).abs().max() / want_xm.abs().max()).item()
-            shape = f"{h} of {H} rows ({M} ranks), W={W}"
-            if not (torch.isfinite(got).all() and err <= BLOCK_ATOL and pre_err <= BLOCK_ATOL
-                    and xm_rel <= XM_RTOL):
-                raise RuntimeError(f"fno_block split at {shape}: max abs err {err:.3e}, "
-                                   f"pre-activation {pre_err:.3e}, spectrum {xm_rel:.3e}")
-            r0 = rows[0]
-            plain_ms = warm_ms(lambda: fk.fno_block_reference(*block), 10)
-            first_ms = warm_ms(lambda: fk._block_spectrum(lib, r0, MODES, MODES, stream, (0, H)),
-                               20)
-            rest_ms = warm_ms(lambda: fk._block_finish(lib, r0, xm, weights, w0, b0, MODES,
-                                                       MODES, stream, False, (0, H)), 20)
-            whole_ms = warm_ms(lambda: fk.fno_block(*block), 20)
-        m1, m2 = clamp_modes(H, W, MODES, MODES)
-        first, rest = split_block_work(B, h, W, C, C, m1, m2)
-        (b1, by1), (b2, by2) = bound(*first), bound(*rest)
-        sum_bytes = 4 * B * 2 * 2 * m1 * m2 * C
-        out["fno_block"].append(dict(
-            shape=shape, max_abs_err=err, pre_err=pre_err, spectrum_rel_err=xm_rel,
-            ms=first_ms + rest_ms, pass1_ms=first_ms, passes2_4_ms=rest_ms, plain_whole_ms=plain_ms,
-            whole_ms=whole_ms, bound_ms=b1 + b2, pass1_bound_ms=b1, pass1_bound_by=by1,
-            passes2_4_bound_ms=b2, passes2_4_bound_by=by2, row_sum_bytes=sum_bytes))
-        print(f"[sp] [{card}] fno_block B={B} {shape}: max abs err {err:.3e}, pre-activation "
-              f"{pre_err:.3e} (bound {BLOCK_ATOL:.0e}), summed spectrum {xm_rel:.3e} of its max "
-              f"(bound {XM_RTOL:.0e}); one rank's pass 1 {first_ms:.4f} ms (bound {b1:.4f} ms by "
-              f"{by1}), passes 2-4 {rest_ms:.4f} ms (bound {b2:.4f} ms by {by2}); the whole "
-              f"block {whole_ms:.4f} ms, its plain version {plain_ms:.4f} ms; the ranks sum "
-              f"{sum_bytes} bytes of spectrum")
+        record, r0, gen = split_block(lib, stream, device, card, B, H, W, M)
+        out["fno_block"].append(record)
+        shape, h = record["shape"], H // M
         mask = torch.ones((B, h, W, 1))
         mask[:, : h // 3] = 0
         head = (r0, (torch.randn((128, C), generator=gen) * C ** -0.5).to(device),
@@ -4141,13 +4109,6 @@ def spatial_rest(device, card, data_root: Path, single: dict) -> dict:
     return counts, memory
 
 
-def padded_flagship(device):
-    from cfdbench_tpu_torch.models.fno import FLAGSHIP, Fno2d
-
-    return Fno2d(n_case_params=5, **FLAGSHIP, padding=PAD,
-                 generator=torch.Generator().manual_seed(SEED), device=device)
-
-
 def padded_kernels(device, card):
     """Phase 16a, the kernels: the block at B=128 on the padded grid against
     its plain version and timed beside its bound; the head on the cropped
@@ -4192,26 +4153,22 @@ def padded_kernels(device, card):
                 bound_by=bound_by, crop_ms=crop_ms), head_err
 
 
-def padded_paths(device, card):
-    """Phase 16a, the padded flagship: its forward and a train step on the
-    card against the CPU's plain path; a 20-step b128 rollout through the
-    kernels, its launches, and its frames/s beside the plain path's.
-    Returns the rollout's launches and frames/s."""
-    from cfdbench_tpu_torch.models.fno import PlainFno2d
-    from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
-    from cfdbench_tpu_torch.training.rollout import make_rollout_fn
-
-    model, cpu_model = padded_flagship(device), padded_flagship("cpu")
-    batch = train_inputs(GRAD_BATCH, torch.Generator().manual_seed(SEED + 17), "cpu")
+def card_against_cpu(model, cpu_model, what: str, seed: int) -> None:
+    """``model``'s forward (B=GRAD_BATCH) on the card against ``cpu_model``'s
+    (the same weights; the CPU's plain path), rel ROLLOUT_RTOL, and one
+    float32 train step card against CPU: loss GRAD_LOSS_RTOL, every
+    gradient GRAD_RTOL of its largest."""
+    device = next(model.parameters()).device
+    batch = train_inputs(GRAD_BATCH, torch.Generator().manual_seed(seed), "cpu")
     args = [batch[k] for k in ("inputs", "case_params", "mask")]
     with torch.inference_mode():
         got = model(*(a.to(device) for a in args)).cpu()
         want = cpu_model(*args)
     rel = ((got - want).abs().max() / want.abs().max()).item()
-    print(f"[padded] flagship padded by {PAD}, forward B={GRAD_BATCH}: card against CPU max abs "
-          f"diff / max |out| {rel:.3e} (bound {ROLLOUT_RTOL:.0e})")
+    print(f"[card-cpu] {what}, forward B={GRAD_BATCH}: card against CPU max abs diff / max "
+          f"|out| {rel:.3e} (bound {ROLLOUT_RTOL:.0e})")
     if not rel <= ROLLOUT_RTOL:
-        raise RuntimeError(f"the padded flagship's forward disagrees card against CPU: {rel:.3e}")
+        raise RuntimeError(f"{what}: the forward disagrees card against CPU: {rel:.3e}")
     runs = {}
     for name, m, dev in (("card", model, device), ("cpu", cpu_model, torch.device("cpu"))):
         m.zero_grad(set_to_none=True)
@@ -4222,14 +4179,24 @@ def padded_paths(device, card):
     loss_rel = abs(loss_k - loss_c) / abs(loss_c)
     worst = max(((grads_k[k] - g).abs().max() / g.abs().max()).item()
                 for k, g in grads_c.items())
-    print(f"[padded] train step B={GRAD_BATCH}: nmse card {loss_k:.9g}, CPU {loss_c:.9g}, rel "
-          f"{loss_rel:.3e} (bound {GRAD_LOSS_RTOL:.0e}); gradients worst {worst:.3e} of their "
-          f"largest (bound {GRAD_RTOL:.0e})")
+    print(f"[card-cpu] {what}, train step B={GRAD_BATCH}: nmse card {loss_k:.9g}, CPU "
+          f"{loss_c:.9g}, rel {loss_rel:.3e} (bound {GRAD_LOSS_RTOL:.0e}); gradients worst "
+          f"{worst:.3e} of their largest (bound {GRAD_RTOL:.0e})")
     if not (loss_rel <= GRAD_LOSS_RTOL and worst <= GRAD_RTOL):
-        raise RuntimeError("the padded flagship's train step disagrees card against CPU")
+        raise RuntimeError(f"{what}: the train step disagrees card against CPU")
 
+
+def rollout_timing(model, what: str, card, seed: int):
+    """A 20-step b128 rollout of ``model`` on GRID through the kernels, its
+    launches (counters set to 0 just before it) and its frames/s beside the
+    plain path's, by CUDA events in turns. Returns the launches and times."""
+    from cfdbench_tpu_torch.models.fno import PlainFno2d
+    from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
+    from cfdbench_tpu_torch.training.rollout import make_rollout_fn
+
+    device = next(model.parameters()).device
     B = TIMING_BATCH
-    gen = torch.Generator().manual_seed(SEED + 18)
+    gen = torch.Generator().manual_seed(seed)
     frame0 = torch.randn((B, GRID, GRID, 2), generator=gen).to(device)
     cp = torch.randn((B, 5), generator=gen).to(device)
     mask = torch.ones((B, GRID, GRID, 1), device=device)
@@ -4243,15 +4210,26 @@ def padded_paths(device, card):
         counts = launch_counts()
         want = {"fno_block": len(model.blocks) * STEPS, "fno_head": STEPS}
         if counts != want or not torch.isfinite(frames).all():
-            raise RuntimeError(f"padded rollout: launches {counts} (expected {want}), or "
+            raise RuntimeError(f"{what} rollout: launches {counts} (expected {want}), or "
                                "non-finite frames")
         plain_ms, kern_ms = interleaved_ms(lambda: plain_roll(frame0, cp, mask),
                                            lambda: kernel_roll(frame0, cp, mask), reps=3)
     fps = B * STEPS / kern_ms * 1e3
-    print(f"[time] [{card}] padded flagship rollout b{B} x {STEPS} steps: launches {counts}; "
+    print(f"[time] [{card}] {what} rollout b{B} x {STEPS} steps: launches {counts}; "
           f"kernel path {kern_ms:.3f} ms = {fps:.1f} frames/s; plain path {plain_ms:.3f} ms = "
           f"{B * STEPS / plain_ms * 1e3:.1f} frames/s")
     return counts, dict(frames_per_s=fps, kernel_ms=kern_ms, plain_ms=plain_ms)
+
+
+def padded_paths(device, card):
+    """Phase 16a, the padded flagship: its forward and a train step on the
+    card against the CPU's plain path; a 20-step b128 rollout through the
+    kernels, its launches, and its frames/s beside the plain path's.
+    Returns the rollout's launches and frames/s."""
+    model = flagship_model(device, padding=PAD)
+    card_against_cpu(model, flagship_model("cpu", padding=PAD), f"flagship padded by {PAD}",
+                     SEED + 17)
+    return rollout_timing(model, "padded flagship", card, SEED + 18)
 
 
 def trace_kernel_counts(path: Path) -> dict:
@@ -4318,6 +4296,74 @@ def vae_diagnostics(device):
                            f"not finite {summary}")
 
 
+def wide_kernels(device, card) -> list:
+    """Phase 17a: each kernel at WIDE_KERNEL_CASES against its plain
+    version at phase 2's bounds (the block's saved outputs too), timed
+    against it in turns beside its bound; the block split at WIDE_SPLIT
+    (:func:`split_block`). Returns a record a kernel and shape."""
+    from cfdbench_tpu_torch.ops import _build, fno_kernels as fk
+
+    out = []
+    for what, names, B, H, W, C, modes, n_out in WIDE_KERNEL_CASES:
+        t = kernel_inputs(B, H, W, C, torch.Generator().manual_seed(SEED + 19), device, modes,
+                          n_out)
+        runs = {"fno_block": (fk.fno_block, fk.fno_block_reference, BLOCK_ATOL,
+                              (t["x"], t["weights"], t["w0"], t["b0"], modes, modes),
+                              block_work(B, H, W, C, C, modes)),
+                "fno_head": (fk.fno_head, fk.fno_head_reference, HEAD_ATOL,
+                             (t["x"], t["w1"], t["b1"], t["w2"], t["b2"], t["mask"]),
+                             head_work(B, H, W, C, t["w1"].shape[0], n_out))}
+        for name in names:
+            kern, ref, atol, args, work = runs[name]
+            shape = f"{what}: B={B} {H}x{W} C={C} modes={modes} outputs={n_out}"
+            with torch.inference_mode():
+                got, want = kern(*args), ref(*args)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                print(f"[wide] {name} {shape}: max abs err {err:.3e} (bound {atol:.0e}), max "
+                      f"rel err {err / want.abs().max().item():.3e}")
+                if not (got.shape == want.shape and torch.isfinite(got).all() and err <= atol):
+                    raise RuntimeError(f"{name} at {shape} disagrees with its plain version: "
+                                       f"{err:.3e}")
+                del got, want
+                if name == "fno_block":
+                    check_saved(args)
+                p, k = interleaved_ms(lambda: ref(*args), lambda: kern(*args), reps=10)
+            bound_ms, bound_by = bound(*work)
+            print(f"[time] [{card}] {name} {shape}: kernel {k:.4f} ms, plain {p:.4f} ms "
+                  f"({p / k:.2f}x); bound {bound_ms:.4f} ms by {bound_by}, kernel at "
+                  f"{bound_ms / k:.1%} of it")
+            out.append(dict(name=name, shape=shape, max_abs_err=err, ms=k, plain_ms=p,
+                            bound_ms=bound_ms, bound_by=bound_by))
+        del t
+    record, _, _ = split_block(_build.load_library(), torch.cuda.current_stream().cuda_stream,
+                               device, card, *WIDE_SPLIT)
+    out.append(dict(name="fno_block", **record))
+    return out
+
+
+def wide_paths(device, card):
+    """Phase 17b-c: ``main_auto --mode train_test`` then ``main_multistep``
+    (:func:`train_path`) at ``--fno_hidden_dim WIDE`` on phase 6's tree and
+    at the flagship's width on a synthetic WIDE_GRID x WIDE_GRID tree, each
+    with the launches of the flagship's depth on its forwards; at WIDE a
+    forward and a train step card against the CPU's plain path and a
+    20-step b128 rollout's frames/s. Returns each path's launches and the
+    rollout's times."""
+    counts = {}
+    flags = ["--fno_hidden_dim", str(WIDE)]
+    counts["main_auto_h256"], _, counts["main_multistep_h256"] = train_path(
+        result="wide_result", flags=flags)
+    model = flagship_model(device, hidden_dim=WIDE)
+    card_against_cpu(model, flagship_model("cpu", hidden_dim=WIDE), f"flagship at width {WIDE}",
+                     SEED + 20)
+    counts["rollout_h256"], times = rollout_timing(model, f"width {WIDE}", card, SEED + 21)
+    del model
+    counts["main_auto_512"], _, counts["main_multistep_512"] = train_path(
+        WIDE_GRID, tree="wide_grid_data", result="wide_grid_result")
+    return counts, times
+
+
 def dev_rel(got_run: Path, want_run: Path) -> float:
     """The largest relative difference of two runs' dev scores."""
     worst = 0.0
@@ -4346,7 +4392,7 @@ def main() -> int:
     times = timing(device, card)
     phase.done("3-5 (main_multistep, rollouts, timing)")
     check_gradients(device)
-    train_counts, train_metrics = train_path()
+    train_counts, train_metrics, _ = train_path()
     train_step_timing(device, card)
     phase.done("6 (main_auto)")
     family = family_paths()
@@ -4422,6 +4468,13 @@ def main() -> int:
                                                "padded_rollout": padded_times,
                                                "seconds": time.perf_counter() - t16}))
     phase.done("16 (padded FNO, --profile_dir, VAE diagnostics)")
+    t17 = time.perf_counter()
+    wide = wide_kernels(device, card)
+    wide_counts, wide_times = wide_paths(device, card)
+    print(f"[phase17] [{card}] " + json.dumps({"kernels": wide, "launches": wide_counts,
+                                               "rollout_h256": wide_times,
+                                               "seconds": time.perf_counter() - t17}))
+    phase.done("17 (width 256, a 512x512 grid, 32 modes, 9 outputs)")
     phase.total()
     print(f"[main] launches on the main paths: main_multistep {counts}, "
           f"main_auto {train_counts}, one served predict call {serve_predict}, one served "
@@ -4429,7 +4482,8 @@ def main() -> int:
           f"main_auto --use_mixed_precision {mp_counts}, "
           f"main_multistep --rollout_dtype bfloat16 {bf16_counts}, per rank under data, "
           f"tensor, pipeline and spatial parallelism {dp_counts}, the padded flagship's "
-          f"rollout {padded_counts}, main_multistep --profile_dir {profiled_counts}")
+          f"rollout {padded_counts}, main_multistep --profile_dir {profiled_counts}, at width "
+          f"{WIDE} and on a {WIDE_GRID}x{WIDE_GRID} grid {wide_counts}")
     replaces = {"fno_block": "cfdbench_tpu/ops/pallas_fno.py:179",
                 "fno_head": "cfdbench_tpu/ops/pallas_fno.py:268"}
     print(json.dumps({"kernels": [
@@ -4443,12 +4497,15 @@ def main() -> int:
                               "main_multistep_bf16": bf16_counts[name],
                               **{path: c[name] for path, c in dp_counts.items()},
                               "padded_rollout": padded_counts[name],
-                              "main_multistep_profiled": profiled_counts[name]},
+                              "main_multistep_profiled": profiled_counts[name],
+                              **{path: c[name] for path, c in wide_counts.items()}},
          "max_abs_err": max([errors[name], padded["max_abs_err"] if name == "fno_block"
                              else padded_head_err]
-                            + [t["max_abs_err"] for t in rank_times[name] + sp_times[name]]),
+                            + [t["max_abs_err"] for t in rank_times[name] + sp_times[name]]
+                            + [t["max_abs_err"] for t in wide if t["name"] == name]),
          **times[name], "library_ms": None, "at_rank_shapes": rank_times[name],
          "at_rank_rows": sp_times[name],
+         "at_wide_shapes": [t for t in wide if t["name"] == name],
          **({"at_padded_grid": padded} if name == "fno_block" else {})}
         for name in ("fno_block", "fno_head")
     ]}))

@@ -211,13 +211,15 @@ def test_block_kernel_at_the_flagship_padded_grid_in_emulation(rng):
 
 
 def test_kernel_shapes_read_the_padded_grid_for_the_block():
-    """The blocks run on the (H+p, W+p) grid: 440 columns at width 32 fit
-    the block kernel's shared memory, 449 (440 padded by 9) do not, so a
-    padded model's grid is checked at its padded size."""
+    """The blocks run on the (H+p, W+p) grid, which the kernels take at any
+    size: 440 columns at width 32 and 449 (440 padded by 9), whose
+    inverse-columns pass runs tiled; a padded grid is checked at its padded
+    size, so a refusal (a width of 0) names the padded W."""
     lib = emulation()
     fk.check_kernel_shapes(64, 440, 32, 12, 12, 128, 2, lib=lib)
-    with pytest.raises(ValueError, match="fno_block at W=449, width 32"):
-        fk.check_kernel_shapes(64 + 9, 440 + 9, 32, 12, 12, 128, 2, lib=lib)
+    fk.check_kernel_shapes(64 + 9, 440 + 9, 32, 12, 12, 128, 2, lib=lib)
+    with pytest.raises(ValueError, match="fno_block at W=449, width 0"):
+        fk.check_kernel_shapes(64 + 9, 440 + 9, 0, 12, 12, 128, 2, lib=lib)
 
 
 @pytest.fixture(scope="module")

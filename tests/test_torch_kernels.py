@@ -150,8 +150,19 @@ def kernel_case(rng, B, H, W, C, modes, n_out, device):
         (40, 8, 8, 8, 4, 2),     # two image tiles of the mixing pass
         (2, 8, 136, 8, 4, 2),    # three column chunks of the forward pass, E2 streamed
         # width 128: four channel tiles of the mixing and inverse-columns
-        # passes, one row per item of the latter, the head single-buffered
+        # passes, the latter tiled (two channel chunks), the head streamed
         (1, 4, 80, 128, 12, 2),
+        (1, 16, 16, 160, 2, 2),  # width 160: the head streamed, a ragged channel chunk
+        (1, 8, 64, 256, 2, 2),   # width 256: the inverse-columns pass tiled at W = 64
+        # 32 modes along W = 256: the inverse-rows pass's m2 Co, a tiled
+        # inverse-columns pass
+        (1, 4, 256, 8, 32, 2),
+        # odd W past one 64-column tile, odd rows, 198 channels (4-byte
+        # copies, a ragged output-channel tile) and a run-time output count
+        (1, 5, 73, 198, 3, 3),
+        # an 8x512 grid: eight column tiles, [Br | -Bi] in two K chunks (36
+        # modes), 9 outputs in two head launches
+        (1, 8, 512, 12, 36, 9),
     ],
 )
 def test_kernels_match_plain_in_emulation(rng, B, H, W, C, modes, n_out):
@@ -213,10 +224,12 @@ def check_split_block(lib, stream, B, H, W, C, M, device, modes=12):
 
 # The flagship's 32 channels; 64 rows over 2 and 4 ranks at 4 modes, and 66
 # over 2 (33 rows a rank: the 8-row tiles masked past them) at the
-# flagship's 12 modes. The emulation runs a host thread per CUDA thread (the
+# flagship's 12 modes; 4 of 8 rows of a 512-wide grid (pass 1 streamed,
+# pass 4 tiled). The emulation runs a host thread per CUDA thread (the
 # mixing pass a block per retained mode): narrow grids and few modes keep
-# it quick; the card's twin runs all three at 64 columns and 12 modes.
-@pytest.mark.parametrize("H,W,M,modes", [(64, 20, 2, 4), (64, 20, 4, 4), (66, 20, 2, 12)])
+# it quick; the card's twin runs the first three at 64 columns and 12 modes.
+@pytest.mark.parametrize("H,W,M,modes",
+                         [(64, 20, 2, 4), (64, 20, 4, 4), (66, 20, 2, 12), (8, 512, 2, 4)])
 def test_split_block_kernel_matches_the_whole_in_emulation(H, W, M, modes):
     check_split_block(emulation(), 0, 1, H, W, 32, M, "cpu", modes)
 
@@ -234,27 +247,40 @@ def test_split_block_kernel_matches_the_whole_on_card(cuda_device, H, W, M):
 @pytest.mark.parametrize(
     "H,W,width,modes,hidden,n_out,what",
     [
-        (64, 512, 32, 12, 128, 2, "fno_block at W=512, width 32,"),  # x rows of pass 4
-        (128, 128, 160, 12, 128, 2, "fno_block at W=128, width 160,"),
-        (256, 256, 32, 32, 128, 2, "fno_block at W=256, width 32, 32 modes"),  # its W-stage table
-        (64, 64, 160, 12, 128, 2, "fno_head at width 160, 128 hidden units"),  # fc1's weights
-        (64, 64, 32, 12, 128, 9, "fno_head at width 32, 128 hidden units, 9 outputs"),
+        (64, 64, 0, 12, 128, 2, "fno_block at W=64, width 0,"),
+        (64, 64, 32, 0, 128, 2, "fno_block at W=64, width 32, 0 modes along W"),
+        (0, 0, 32, 12, 128, 2, "fno_block at W=0,"),
+        (64, 64, 32, 12, 0, 2, "fno_head at width 32, 0 hidden units"),
+        (64, 64, 32, 12, 128, 0, "fno_head at width 32, 128 hidden units, 0 outputs"),
     ],
 )
 def test_kernel_limits_raise_and_name_themselves(H, W, width, modes, hidden, n_out, what):
+    # Only a size that is not positive: no FNO has such a shape.
     lib = emulation()
-    with pytest.raises(ValueError, match="ROADMAP.md B3") as e:
+    with pytest.raises(ValueError, match="positive") as e:
         fk.check_kernel_shapes(H, W, width, modes, modes, hidden, n_out, lib=lib)
     assert str(e.value).startswith(what)
 
 
 @pytest.mark.parametrize(
-    "H,W,width",
-    # the flagship, the tube/dam grid, up to 144 channels (the head's most) and grids to 256
-    [(64, 64, 32), (66, 65, 144), (64, 64, 128), (128, 128, 128), (256, 256, 64)],
+    "H,W,width,modes,n_out",
+    [
+        # the flagship, the tube/dam grid, grids to 256, and widths to 128
+        (64, 64, 32, 12, 2), (66, 65, 144, 12, 2), (64, 64, 128, 12, 2), (128, 128, 128, 12, 2),
+        (256, 256, 64, 12, 2),
+        # past the kernels' shared memory before the inverse-columns pass
+        # tiled and the head streamed: a 512-wide grid at widths 32 and 256,
+        # widths 160 and 256 (the JAX package's widest), 32 modes at
+        # W = 256, 9 outputs
+        (64, 512, 32, 12, 2), (512, 512, 256, 12, 2), (128, 128, 160, 12, 2),
+        (64, 64, 160, 12, 2), (64, 64, 256, 12, 2), (256, 256, 32, 32, 2), (64, 64, 32, 12, 9),
+    ],
 )
-def test_kernels_take_the_widths_users_run(H, W, width):
-    fk.check_kernel_shapes(H, W, width, 12, 12, 128, 2, lib=emulation())
+def test_kernels_take_the_widths_users_run(H, W, width, modes, n_out):
+    lib = emulation()
+    fk.check_kernel_shapes(H, W, width, modes, modes, 128, n_out, lib=lib)
+    assert lib.fno_block_unsupported(W, width, modes) is None
+    assert lib.fno_head_unsupported(width, 128, n_out) is None
 
 
 def test_block_wrapper_refuses_a_library_with_other_tiles(monkeypatch):
@@ -281,7 +307,11 @@ def cuda_device():
         (3, 18, 17, 10, 4),   # ragged channel, mode and row tiles
         (17, 16, 16, 8, 12),  # clamped modes with the Nyquist column, B > 16
         (4, 64, 136, 32, 12),  # three column chunks of the forward pass
-        (4, 66, 80, 128, 12),  # width 128: channel tiles, one row per item, head single-buffered
+        (4, 66, 80, 128, 12),  # width 128: channel tiles, the cols pass tiled, the head streamed
+        (2, 64, 64, 256, 12),  # width 256: the cols pass tiled at W = 64
+        (2, 8, 512, 32, 12),   # a 512-wide grid
+        (2, 16, 256, 32, 32),  # 32 modes along W = 256
+        (2, 9, 73, 198, 3),    # odd W and rows, 4-byte copies, ragged tiles
     ],
 )
 def test_kernels_match_plain_on_card(cuda_device, rng, B, H, W, C, modes):

@@ -281,8 +281,9 @@ def test_main_multistep_needs_a_card_unless_told_cpu(synth_root, tmp_path, monke
 
 
 @pytest.mark.parametrize("flags,error", [
-    (["--fno_hidden_dim", "160"], "fno_head at width 160"),
-    (["--fno_modes_y", "9"], None),  # inside the limits: refused for want of a card only
+    (["--fno_hidden_dim", "160"], None),  # past the kernels' old shared-memory limits
+    (["--fno_modes_y", "9"], None),
+    (["--fno_hidden_dim", "0"], "fno_block at W=16, width 0"),  # no FNO has it
 ])
 def test_main_multistep_on_the_card_refuses_shapes_its_kernels_cannot_take(
         synth_root, tmp_path, monkeypatch, flags, error):
@@ -307,7 +308,7 @@ def test_main_multistep_on_the_card_refuses_shapes_its_kernels_cannot_take(
     argv = MODEL_FLAGS + ["--data_name", "cavity_prop_bc_geo", "--data_dir", str(synth_root),
                           "--output_dir", str(tmp_path)] + flags
     with pytest.raises(ValueError if error else PastTheCheck,
-                       match=error and error + ".*ROADMAP.md B3"):
+                       match=error and error + ".*positive"):
         main_multistep(argv, device="cuda")
     assert not list(tmp_path.rglob("multistep_metrics.json"))
 

@@ -148,14 +148,17 @@ def test_operators_pass_opcheck(rng, op):
 
 
 @pytest.mark.parametrize("grid,hidden,modes,what", [
-    ((2, 512), 32, 12, "fno_block at W=512"),  # the inverse-columns pass's rows of x
-    ((16, 16), 160, 4, "fno_head at width 160"),  # fc1's weights in shared memory
+    ((2, 512), 32, 12, None),  # a row of x past the resident inverse-columns pass: tiled
+    ((16, 16), 160, 4, None),  # fc1's weights past shared memory: streamed
+    ((16, 16), 32, 0, "fno_block at W=16, width 32, 0 modes along W"),  # no FNO has it
 ])
 def test_export_refuses_a_shape_the_kernels_cannot_take(tmp_path, monkeypatch, grid, hidden,
                                                         modes, what):
     """With the kernels' CPU emulation as the CPU's library, the operators'
-    fakes refuse a shape past the kernels' limits when the program is
-    exported, naming it; with the plain versions the CPU takes it."""
+    fakes ask it for the shape when the program is exported: they take the
+    shapes past the kernels' old shared-memory limits and refuse, naming
+    it, only a size that is not positive; with the plain versions the CPU
+    takes it."""
     try:
         lib = _build.load_emulation()
     except RuntimeError as e:  # no host C++ compiler
@@ -167,7 +170,11 @@ def test_export_refuses_a_shape_the_kernels_cannot_take(tmp_path, monkeypatch, g
     task = AutoTask(model)
     export_predict(task, tmp_path / "plain.pt2", 1, *grid, P, device="cpu")
     monkeypatch.setattr(fk, "kernel_library", lambda device: lib)
-    with pytest.raises(ValueError, match="ROADMAP.md B3") as e:
+    if what is None:
+        export_predict(task, tmp_path / "taken.pt2", 1, *grid, P, device="cpu")
+        assert (tmp_path / "taken.pt2").exists()
+        return
+    with pytest.raises(ValueError, match="takes positive sizes") as e:
         export_predict(task, tmp_path / "refused.pt2", 1, *grid, P, device="cpu")
     assert str(e.value).startswith(what)
     assert not (tmp_path / "refused.pt2").exists()

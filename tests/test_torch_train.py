@@ -597,16 +597,25 @@ def test_main_auto_on_the_card_checks_kernel_shapes_for_the_fno_only(
         cli.main_auto(argv, device="cuda")
 
 
+@pytest.mark.parametrize("width,error", [
+    ("160", None),  # past the kernels' old shared-memory limits: checked, then built
+    ("0", "fno_block at W=16, width 0"),  # no FNO has it
+])
 def test_main_auto_on_the_card_refuses_shapes_its_kernels_cannot_take(
-        port_tree, tmp_path, monkeypatch):
+        port_tree, tmp_path, monkeypatch, width, error):
     # The kernels' limits (read from their CPU emulation) are checked on
     # the data's grid before the model is built or trained.
+    class Built(Exception):
+        pass
+
     def build_model(*args, **kwargs):
-        raise AssertionError("the model was built before the shape check")
+        if error:
+            raise AssertionError("the model was built before the shape check")
+        raise Built
 
     monkeypatch.setattr(fk, "load_library", emulation)
     monkeypatch.setattr(cli, "init_auto_model", build_model)
-    argv = train_argv(port_tree, 1) + ["--output_dir", str(tmp_path), "--fno_hidden_dim", "160"]
-    with pytest.raises(ValueError, match="fno_head at width 160.*ROADMAP.md B3"):
+    argv = train_argv(port_tree, 1) + ["--output_dir", str(tmp_path), "--fno_hidden_dim", width]
+    with pytest.raises(ValueError if error else Built, match=error and error + ".*positive"):
         cli.main_auto(argv, device="cuda")
     assert not list(tmp_path.rglob("ckpt-*"))
