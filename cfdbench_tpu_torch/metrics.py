@@ -64,7 +64,10 @@ def score_dict(
         # nonzero labels keep the reference's unguarded division. The
         # inner where keeps the gradient of the guarded branch finite
         # (0 * inf would be NaN).
-        absmax = mesh.max((labels.abs() if w is None else w * labels.abs()).max())
+        local = labels.abs() if w is None else w * labels.abs()
+        # A rank that holds no row (a latent grid that leaves it none under
+        # spatial sharding) adds no maximum.
+        absmax = mesh.max(local.max() if local.numel() else local.new_zeros(()))
         valid = absmax > 0
         result["nmse"] = torch.where(valid, mse / torch.where(valid, lab2, 1.0), 0.0)
         result["nmae"] = torch.where(valid, mae / torch.where(valid, lab1, 1.0), 0.0)

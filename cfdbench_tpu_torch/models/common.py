@@ -18,7 +18,10 @@ over which the grid rows split, set by ``trainer_auto.split_model``) a
 the split (``Rows``) that its caller passes; :class:`MaxPool2` pools a
 rank's whole row pairs; :class:`GroupNorm` sums each sample's statistics
 over the model ranks; and :func:`coord_channels` gives a rank's rows of the
-global coordinates.
+global coordinates. A level of a model that halves the grid may leave a
+rank without a row: there each of these returns the rank's empty output
+and still takes part in the level's exchanges and sums, and its
+parameters' gradients are zeros (:func:`conv_rows`).
 
 Not ported: ``dense_thin``, a TPU workaround for the backward of the
 FNO head's fc2; ``gelu_exact``, whose rational erf was a TPU workaround
@@ -75,6 +78,20 @@ class Dense(nn.Module):
         return F.linear(*promote(x, self.weight, self.bias))
 
 
+def conv_rows(x, w, b, stride: int = 1, padding=0, empty: bool = False):
+    """``F.conv2d`` of the NCHW ``x``; with ``empty`` (a rank that holds no
+    row of its level under spatial sharding: ``x`` is its halo alone, or
+    nothing, shorter than the kernel) ``x`` zero-padded at the bottom to the
+    kernel's height and none of the output kept, so that the convolution
+    stays in the graph and its backward hands ``x`` (the halo's exchange)
+    and the weights zeros, as every rank's backward must enter the same
+    sums."""
+    if not empty:
+        return F.conv2d(x, w, b, stride=stride, padding=padding)
+    x = F.pad(x, (0, 0, 0, max(0, w.shape[2] - x.shape[2])))
+    return F.conv2d(x, w, b, stride=stride, padding=padding)[:, :, :0]
+
+
 class Conv(nn.Module):
     """NHWC 2-D convolution with torch-default init drawn from
     ``generator``; ``weight`` is ``(out, in, k, k)``. With
@@ -110,7 +127,8 @@ class Conv(nn.Module):
         if self.replicate_pad and p:
             x = F.pad(x, (p, p, p, p), mode="replicate")
             p = 0
-        return F.conv2d(x, w, b, stride=self.stride, padding=p).permute(0, 2, 3, 1)
+        # No row: a 1x1 convolution on a rank that holds none of its level.
+        return conv_rows(x, w, b, self.stride, p, empty=not x.shape[2]).permute(0, 2, 3, 1)
 
     def _rows_forward(self, x, rows: Rows):
         p, k, s = self.padding, self.weight.shape[-1], self.stride
@@ -125,9 +143,8 @@ class Conv(nn.Module):
         x = halo(x, p, self.sp, self.replicate_pad, rows=rows)
         x, w, b = promote(x.permute(0, 3, 1, 2), self.weight, self.bias)
         if self.replicate_pad:
-            return F.conv2d(F.pad(x, (p, p, 0, 0), mode="replicate"), w, b,
-                            stride=s).permute(0, 2, 3, 1)
-        return F.conv2d(x, w, b, stride=s, padding=(0, p)).permute(0, 2, 3, 1)
+            x, p = F.pad(x, (p, p, 0, 0), mode="replicate"), 0
+        return conv_rows(x, w, b, s, (0, p), empty=not rows.h).permute(0, 2, 3, 1)
 
 
 def num_groups_for(groups: int, channels: int) -> int:
@@ -184,7 +201,8 @@ class GroupNorm(nn.Module):
         G = self.num_groups
         xg = x.reshape(B, h, W, G, C // G)
         dims, n = (1, 2, 4), h * W * (C // G)
-        mean = xg.mean(dims)
+        # A rank without rows adds zero sums and a zero count.
+        mean = xg.mean(dims) if n else xg.sum(dims)
         m2 = (xg - mean[:, None, None, :, None]).square().sum(dims)
         wide = mean.to(torch.float64)
         count, s1, s2 = row_sum(torch.stack([torch.full_like(wide, n), n * wide,
@@ -203,7 +221,7 @@ class MaxPool2(nn.Module):
     sharding (``sp``) it pools a rank's rows of the even split or of
     ``rows``, whose ranks must hold whole row pairs (:meth:`Rows.paired`;
     a window would otherwise cross ranks): its output rows are that split
-    halved."""
+    halved, none on a rank that holds none."""
 
     sp = None
 
@@ -211,6 +229,8 @@ class MaxPool2(nn.Module):
         if active(self.sp) and not rows_of(x, self.sp, rows).paired():
             raise ValueError(f"--shard_spatial 1: MaxPool2 on a rank's {x.shape[1]} rows, an odd "
                              "count: a pooling window would cross ranks (Rows.pairs)")
+        if not x.shape[1]:
+            return x[:, :, :x.shape[2] // 2]
         return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
 
 

@@ -295,7 +295,7 @@ def padded_rows(rows: Optional[Rows]) -> Optional[Rows]:
     ``(0, 33, 66)``, become ``(0, 33, 72)``). None without a split."""
     if rows is None:
         return None
-    return Rows(rows.axis, rows.bounds[:-1] + (rows.H + (-rows.H) % VAE_FACTOR,))
+    return rows.resized(rows.H + (-rows.H) % VAE_FACTOR)
 
 
 def pad_field(x: torch.Tensor, rows: Optional[Rows] = None) -> torch.Tensor:
@@ -363,18 +363,6 @@ class LatentDenoiser(nn.Module):
             self.context_proj = context_proj
         if cond_encoder is not None:
             self.cond_encoder = cond_encoder
-
-    def check_sp_rows(self, H: int, axis) -> None:
-        """Raise, naming the limit, unless every rank keeps a row at every
-        level of the latents of an H-row grid split over ``axis``: the padded
-        grid through the frozen VAE's ``VAE_DOWNSAMPLES`` downsamples, then
-        the UNet's (``PUNetGCFD.check_sp_rows``)."""
-        try:
-            latent = padded_rows(Rows.even(H, axis)).halvings(VAE_DOWNSAMPLES, ceil=False)[-1]
-            self.unet._level_splits(latent)
-        except ValueError as e:
-            raise ValueError(f"--shard_spatial 1: the latents of a {H}-row grid over {axis.size} "
-                             f"model ranks: {e} (a limit of the port, ROADMAP.md C)") from None
 
 
 class _LatentTask(_DiffusionTask):
@@ -461,8 +449,7 @@ class _LatentTask(_DiffusionTask):
             if rows is None:
                 frame = frame[:, :h]
             else:
-                decoded = self.vae.decoded_rows(lrows)
-                cropped = Rows(rows.axis, decoded.bounds[:-1] + (rows.H,))
+                cropped = self.vae.decoded_rows(lrows).resized(rows.H)
                 frame = reshard(frame[:, :cropped.h], cropped, rows)
         return frame if mask is None else frame * mask
 

@@ -33,7 +33,11 @@ Under spatial sharding (``--shard_spatial 1``, :attr:`Fno2d.sp` the
 model axis over which the grid rows split) a rank runs the model on its
 rows: the lift on its rows of the global coordinates, each block's
 kernel split around the sum of its retained spectrum over the model
-ranks (``ops/fno_kernels.py``), the head kernel on its rows. Its
+ranks (``ops/fno_kernels.py``), the head kernel on its rows. A padded
+model pads every rank's columns and the last rank's rows
+(:func:`padded_rows`: 64 rows padded by 9 at ``1x2`` split 32 and 41 of
+73), its blocks run on that uneven split, and the crop drops those columns
+and rows again. Its
 parameters, split by the same rules as under tp, are gathered whole at
 use (``parallel/tensor.py::gather_at_use``); the column- and
 row-parallel paths are not used.
@@ -45,10 +49,9 @@ zero columns at the right; every block runs on the (H+p, W+p) grid, its
 modes clamped to that grid, and the field is cropped back to (H, W) before
 the head, as ``cfdbench_tpu/models/fno.py:147-153`` does. The crop is a
 strided view, and the head kernel reads a dense field, so the head takes a
-contiguous copy of it. Tensor parallelism holds a padded model as it holds
-the unpadded one; pipeline parallelism refuses it, as the JAX pipeline
-asserts (``cfdbench_tpu/parallel/pipeline.py:192``), and so does spatial
-sharding (``training/trainer_auto.py::split_model``; ROADMAP.md C).
+contiguous copy of it. Tensor parallelism and spatial sharding hold a
+padded model as they hold the unpadded one; pipeline parallelism refuses
+it, as the JAX pipeline asserts (``cfdbench_tpu/parallel/pipeline.py:192``).
 
 In bfloat16 (``--use_mixed_precision``'s train forward, the bfloat16
 rollout) the model runs the plain versions on either device, in the JAX
@@ -77,6 +80,7 @@ from ..ops.fno_kernels import (
     fno_head_reference,
 )
 from ..ops.spectral import init_spectral_weights
+from ..parallel.spatial import Rows, active
 from ..parallel.tensor import GatherShard, copy_to_model, gather_channels, reduce_model
 from .common import Dense, coord_channels, ensure_mask
 
@@ -112,16 +116,34 @@ def lift(fc0: Dense, inputs, case_params, mask, rows=None):
     )
 
 
-def pad(x, padding: Optional[int]):
+def padded_rows(h: int, padding: Optional[int], axis):
+    """Under spatial sharding over ``axis``, the split of the grid that
+    :func:`pad` pads, of which this rank holds ``h`` rows of the even split:
+    the last rank gains the pad rows (``Rows.resized``, the rule of
+    ``models/diffusion.py::padded_rows`` too). ``axis`` itself without
+    padding or without a split."""
+    if padding is None or not active(axis):
+        return axis
+    rows = Rows.of(h, axis)
+    return rows.resized(rows.H + padding)
+
+
+def pad(x, padding: Optional[int], rows=None):
     """``padding`` zero rows at the bottom and zero columns at the right of
-    the lifted field (B, H, W, C); x itself for None."""
-    return x if padding is None else F.pad(x, (0, 0, 0, padding, 0, padding))
+    the lifted field (B, H, W, C); x itself for None. With ``rows``
+    (:func:`padded_rows`) x is a rank's rows: the columns are padded on
+    every rank, the rows on the last alone."""
+    if padding is None:
+        return x
+    ph = padding if rows is None else rows.h - x.shape[1]
+    return F.pad(x, (0, 0, 0, padding, 0, ph))
 
 
-def crop(x, padding: Optional[int]):
-    """The field without :func:`pad`'s rows and columns, contiguous, as the
+def crop(x, padding: Optional[int], h: int):
+    """The field's first ``h`` rows (the rows before :func:`pad`, a rank's
+    under spatial sharding) without the pad's columns, contiguous, as the
     head kernel reads it."""
-    return x if padding is None else x[:, :-padding, :-padding].contiguous()
+    return x if padding is None else x[:, :h, :-padding].contiguous()
 
 
 def block_call(x, weights, w0, b0, modes1: int, modes2: int, rows=None):
@@ -160,9 +182,11 @@ class FnoBlock(nn.Module):
 
     sp = None  # the model axis the grid rows split over
 
-    def forward(self, x):
+    def forward(self, x, rows=None):
+        """``rows``: x's split under spatial sharding where it is not the
+        even one (a padded grid's, :func:`padded_rows`)."""
         return block_call(x, self.weights, self.w0.weight, self.w0.bias,
-                          self.modes1, self.modes2, self.sp)
+                          self.modes1, self.modes2, self.sp if rows is None else rows)
 
 
 class Fno2d(nn.Module):
@@ -204,11 +228,12 @@ class Fno2d(nn.Module):
         B, H, W, _ = inputs.shape
         mask = ensure_mask(mask, B, H, W, device=inputs.device)
         split_blocks, split_head = self._tp_split()
+        rows = padded_rows(H, self.padding, self.sp)
         x = pad(lift(self._tp_whole(self.fc0), inputs, case_params, mask, self.sp),
-                self.padding)
+                self.padding, rows)
         for block in self.blocks:
-            x = self._tp_block(block, x) if split_blocks else block(x)
-        x = crop(x, self.padding)
+            x = self._tp_block(block, x) if split_blocks else block(x, rows)
+        x = crop(x, self.padding, H)
         fc2 = self._tp_whole(self.fc2, used_in_part=split_head)
         return self._tp_head(x, fc2, mask) if split_head else head(self.fc1, fc2, x, mask)
 
@@ -280,7 +305,7 @@ def fno2d_reference(model: Fno2d, inputs, case_params, mask=None):
     for blk in model.blocks:
         x = fno_block_reference(x, blk.weights, blk.w0.weight, blk.w0.bias,
                                 blk.modes1, blk.modes2)
-    x = crop(x, model.padding)
+    x = crop(x, model.padding, H)
     return fno_head_reference(x, model.fc1.weight, model.fc1.bias,
                               model.fc2.weight, model.fc2.bias, mask)
 

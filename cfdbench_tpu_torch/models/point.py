@@ -205,8 +205,9 @@ class CnnBranch(nn.Module):
     ``blocks`` holds a conv at every third slot, as the reference's
     ``Sequential`` does. Under spatial sharding (``rows``, x's split) each
     pooling reads a split whose ranks hold whole row pairs
-    (``parallel/spatial.py::Rows.pairs``); :meth:`forward` returns the
-    code's split with it."""
+    (``parallel/spatial.py::Rows.pairs``; a deep one may leave a rank
+    without a row, 16 rows over 2 ranks); :meth:`forward` returns the code's
+    split with it."""
 
     def __init__(self, in_chan: int, depth: int = 4, *, generator: torch.Generator):
         super().__init__()
@@ -260,12 +261,6 @@ class AutoDeepONetCnn(nn.Module):
     pointwise = True
     out_chan = 1
     sp = None  # the model axis the grid rows split over
-
-    @staticmethod
-    def check_sp_rows(H: int, axis) -> None:
-        """Raise unless every rank keeps a row at every pooling of an H-row
-        grid split over ``axis`` (the splits of :class:`CnnBranch`)."""
-        Rows.even(H, axis).halvings(4, ceil=False)
 
     def __init__(self, in_chan: int = 2, num_case_params: int = 5,
                  field_shape: Tuple[int, int] = (64, 64), trunk_depth: int = 4,

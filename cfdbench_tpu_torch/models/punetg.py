@@ -40,6 +40,8 @@ reads its level's rows resharded so that each rank holds whole row pairs,
 and its output split is that one halved, rounded up; the nearest repeat of
 the decoder, cropped to the skip's rows, is resharded to the skip's split.
 The keep masks, drawn for the global grid, are sliced to each level's rows.
+A deep level may leave a rank without a row (latents of 4 rows over 4
+ranks): it runs the level on its empty rows, in its exchanges and sums.
 The cross-attention's queries are the rank's rows of the mid level; its
 keys and values are read from the ``context`` that the caller passes,
 every rank's tokens (``models/diffusion.py`` gathers them).
@@ -153,11 +155,6 @@ class PUNetGCFD(nn.Module):
     its level's global rows."""
 
     sp = None  # the model axis the grid rows split over
-
-    def check_sp_rows(self, H: int, axis) -> None:
-        """Raise unless every rank keeps a row at every level of an H-row
-        grid split evenly over ``axis`` (:meth:`_level_splits`)."""
-        self._level_splits(Rows.even(H, axis))
 
     def __init__(self, in_channels: int, out_channels: int, base_channels: int = 64,
                  n_case_params: int = 5, channel_mults: Sequence[int] = (1, 2, 4),

@@ -22,7 +22,11 @@ level's output is resharded so that every rank holds whole row pairs
 rank, the level's skip keeps that split, and ``Up``'s transposed conv and
 its pad (the odd row at the grid's bottom, on the last rank) give the
 skip's split back, or are resharded to it. The output is resharded to
-the even split the batch came in.
+the even split the batch came in. A deep level may leave a rank without a
+row (16 rows over 2 ranks: the bottleneck's one row on the first), as
+XLA's partitioner computes it too: that rank's convolutions, pooling and
+transposed conv return its empty output and it still enters the level's
+halos, BatchNorm sums and reshards (``models/common.py::conv_rows``).
 """
 
 from __future__ import annotations
@@ -142,8 +146,10 @@ class ConvTranspose2x2(nn.Module):
         self.bias = nn.Parameter(torch_bias_init(b, out_chan * 4, generator))
 
     def forward(self, x):
-        y = F.conv_transpose2d(*promote(x.permute(0, 3, 1, 2), self.weight, self.bias), stride=2)
-        return y.permute(0, 2, 3, 1)
+        x, w, b = promote(x.permute(0, 3, 1, 2), self.weight, self.bias)
+        empty = not x.shape[2]  # a rank without rows: as common.conv_rows
+        y = F.conv_transpose2d(F.pad(x, (0, 0, 0, 1)) if empty else x, w, b, stride=2)
+        return (y[:, :, :0] if empty else y).permute(0, 2, 3, 1)
 
 
 class Up(nn.Module):
@@ -193,12 +199,6 @@ class UNet(nn.Module):
 
     pointwise = False
     sp = None  # the model axis the grid rows split over
-
-    @staticmethod
-    def check_sp_rows(H: int, axis) -> None:
-        """Raise unless every rank keeps a row at every level of an H-row
-        grid split over ``axis`` (the splits of :meth:`forward`)."""
-        Rows.even(H, axis).halvings(4, ceil=False)
 
     def __init__(self, in_chan: int = 2, out_chan: int = 2, n_case_params: int = 5,
                  insert_case_params_at: str = "input", dim: int = 12, *,

@@ -31,7 +31,8 @@ x holds, and every rank makes the same exchanges in the same order: the
 and takes one row from the rank below (zeros at the grid's bottom), its
 output split that one halved, rounded down (:meth:`AutoencoderKL.latent_rows`);
 the decoder's repeat doubles its split (:meth:`AutoencoderKL.decoded_rows`);
-the attention takes q from the rank's rows and k and v from every rank's;
+the attention takes q from the rank's rows and k and v from every rank's
+(a rank without a row at a level has no query there);
 ``DiagonalGaussian.sample`` draws its noise over the global latent grid and
 takes the rank's rows.
 """
@@ -48,7 +49,7 @@ from ..ops import promote
 from ..parallel.mesh import SINGLE, DataMesh
 from ..parallel.spatial import Rows, all_rows, halo, take_rows, to_pairs
 from ..utils.rng import Key, generator as key_generator
-from .common import Conv, Dense, GroupNorm, num_groups_for
+from .common import Conv, Dense, GroupNorm, conv_rows, num_groups_for
 
 LOGVAR_RANGE = (-30.0, 20.0)
 
@@ -164,7 +165,8 @@ def downsample(conv: Conv, h, rows: Optional[Rows] = None):
     h, rows = to_pairs(h, rows)
     h = F.pad(halo(h, 1, conv.sp, rows=rows, above=0), (0, 0, 0, 1))
     x, w, b = promote(h.permute(0, 3, 1, 2), conv.weight, conv.bias)
-    return F.conv2d(x, w, b, stride=2).permute(0, 2, 3, 1), rows.halved(ceil=False)
+    return (conv_rows(x, w, b, 2, empty=not rows.h).permute(0, 2, 3, 1),
+            rows.halved(ceil=False))
 
 
 class _Level(nn.Module):
@@ -289,8 +291,7 @@ class AutoencoderKL(nn.Module):
 
     def latent_rows(self, rows: Optional[Rows]) -> Optional[Rows]:
         """The latents' split for an input split ``rows``: each downsample's
-        level resharded to whole row pairs, then halved, rounded down
-        (raises where a level would leave a rank without a row)."""
+        level resharded to whole row pairs, then halved, rounded down."""
         if rows is None:
             return None
         return rows.halvings(len(self.block_out_channels) - 1, ceil=False)[-1]

@@ -8,10 +8,14 @@ The port makes them explicit. Model rank j of M holds the rows
 ``[j h, (j + 1) h)`` of a grid of ``H = M h`` rows (:func:`row_span`), the
 split that the batches arrive in. A model whose poolings or stride-2
 convolutions halve the grid tracks, level by level, which rows each rank
-holds (:class:`Rows`: spans that may be uneven) and moves rows between
-two such splits (:func:`reshard`), so that a rank holds whole pooling
-windows and whole stride-2 pairs (:meth:`Rows.pairs`). The exchanges are
-differentiable, over the model group (``axis``: a ``mesh.ModelAxis``):
+holds (:class:`Rows`: spans that may be uneven, or empty where a level
+has fewer row pairs than there are ranks) and moves rows between two such
+splits (:func:`reshard`), so that a rank holds whole pooling windows and
+whole stride-2 pairs (:meth:`Rows.pairs`). A rank without a row at a level
+takes part in that level's exchanges all the same, with empty slots
+(``models/common.py`` convolves nothing there). The exchanges are
+differentiable, over the model group (``axis``: a ``mesh.ModelAxis``, or a
+:class:`Rows` over one):
 
 - :func:`halo`: a convolution's ``k`` rows above and below the rank's
   rows, from however many ranks hold them; at the grid's true top and
@@ -50,8 +54,15 @@ import torch
 import torch.distributed as dist
 
 
+def model_axis(axis):
+    """The model axis of ``axis``: itself, or the axis of a :class:`Rows`."""
+    return axis.axis if isinstance(axis, Rows) else axis
+
+
 def active(axis) -> bool:
-    """Whether ``axis`` splits rows: a model axis of more than one rank."""
+    """Whether ``axis`` splits rows: a model axis of more than one rank, or
+    a :class:`Rows` over one."""
+    axis = model_axis(axis)
     return axis is not None and axis.distributed
 
 
@@ -69,15 +80,15 @@ def row_span(h: int, axis):
 
 class Rows:
     """A split of an ``H``-row grid over a model axis: rank j holds the rows
-    ``[bounds[j], bounds[j + 1])``, ``bounds[0] = 0`` and ``bounds[-1] = H``.
-    Every rank builds the same splits, so each knows every rank's rows."""
+    ``[bounds[j], bounds[j + 1])``, ``bounds[0] = 0`` and ``bounds[-1] = H``;
+    a rank may hold none (equal bounds). Every rank builds the same splits,
+    so each knows every rank's rows."""
 
     def __init__(self, axis, bounds: Sequence[int]):
         self.axis, self.bounds = axis, tuple(int(b) for b in bounds)
-        if any(b1 <= b0 for b0, b1 in zip(self.bounds, self.bounds[1:])):
-            raise ValueError(f"--shard_spatial 1: the rows {self.bounds} leave a rank of "
-                             f"{self.axis.size} without a row; use fewer model ranks or a "
-                             "taller grid")
+        if any(b1 < b0 for b0, b1 in zip(self.bounds, self.bounds[1:])):
+            raise ValueError(f"the rows {self.bounds} of a split over {self.axis.size} ranks "
+                             "fall")
 
     @classmethod
     def even(cls, H: int, axis) -> "Rows":
@@ -115,12 +126,20 @@ class Rows:
     def pairs(self) -> "Rows":
         """The nearest split in which every rank but the last holds whole row
         pairs: each inner bound rounded down to an even row (up where that
-        would leave a rank empty)."""
+        would leave a rank empty, unless that passes the grid's bottom: there
+        the rank goes empty)."""
         bounds = list(self.bounds)
         for j in range(1, len(bounds) - 1):
             b = bounds[j] - bounds[j] % 2
-            bounds[j] = b if b > bounds[j - 1] else b + 2
+            bounds[j] = b if b > bounds[j - 1] or b + 2 > self.H else b + 2
         return Rows(self.axis, bounds)
+
+    def resized(self, H: int) -> "Rows":
+        """This split with the last rank's rows padded or cropped at the
+        grid's bottom to ``H`` rows: a field zero-padded at the bottom
+        (``models/fno.py::pad``, ``models/diffusion.py::pad_field``) or
+        cropped back."""
+        return Rows(self.axis, self.bounds[:-1] + (H,))
 
     def halved(self, ceil: bool) -> "Rows":
         """The split of a 2x pool (``ceil`` False: an odd last row dropped)
@@ -135,8 +154,8 @@ class Rows:
 
     def halvings(self, n: int, ceil: bool) -> List["Rows"]:
         """This split and those of ``n`` halvings after it, each of a split
-        resharded to :meth:`pairs` (a model's levels); raises where a level
-        would leave a rank without a row."""
+        resharded to :meth:`pairs` (a model's levels; a deep one may leave a
+        rank without a row)."""
         levels = [self]
         for _ in range(n):
             levels.append(levels[-1].pairs().halved(ceil))
@@ -153,8 +172,12 @@ def to_pairs(x: torch.Tensor, rows: Optional[Rows]):
 
 
 def rows_of(x: torch.Tensor, axis, rows: Optional[Rows] = None, dim: int = 1) -> Rows:
-    """``rows``, or the even split of which ``x`` holds this rank's rows."""
-    return rows if rows is not None else Rows.of(x.shape[dim], axis)
+    """``rows``, or ``axis`` where it is a :class:`Rows`, or the even split of
+    which ``x`` holds this rank's rows (a level that may leave a rank
+    without a row passes its split: an empty rank cannot infer it)."""
+    if rows is not None:
+        return rows
+    return axis if isinstance(axis, Rows) else Rows.of(x.shape[dim], axis)
 
 
 def take_rows(x: torch.Tensor, axis, dim: int = 1) -> torch.Tensor:
@@ -232,7 +255,9 @@ def _fetch(x: torch.Tensor, rows: Rows, wants: List[Tuple[int, int]], dim: int) 
         if n > at:
             pieces.append(x.new_zeros(_with(x.shape, dim, n - at)))
         buf = rows.axis.sum(torch.cat(pieces, dim).contiguous())
-    out = [(x if from_x else buf).narrow(dim, s, k) for from_x, s, k in parts]
+    # A rank that wants no row gets none of x (an empty output all the same).
+    out = [(x if from_x else buf).narrow(dim, s, k) for from_x, s, k in parts] or [
+        x.narrow(dim, 0, 0)]
     if buf is not None and all(from_x for from_x, _, _ in parts):
         # No row of the buffer here, but its backward (the all-reduce of its
         # gradient) runs on every rank, so the output reads none of it.
@@ -258,10 +283,10 @@ def halo(x: torch.Tensor, k: int, axis, replicate: bool = False, dim: int = 1,
     if not (k or above) or not active(axis):
         return x
     rows = rows_of(x, axis, rows, dim)
-    b, H = rows.bounds, rows.H
-    wants = [(max(0, b[j] - above), min(H, b[j + 1] + k)) for j in range(axis.size)]
+    b, H, M = rows.bounds, rows.H, rows.axis.size
+    wants = [(max(0, b[j] - above), min(H, b[j + 1] + k)) for j in range(M)]
     y = _fetch(x, rows, wants, dim)
-    lo, hi = wants[axis.rank]
+    lo, hi = wants[rows.axis.rank]
     top, bottom = above - (rows.r0 - lo), k - (hi - rows.r0 - rows.h)
     if not top and not bottom:
         return y
@@ -305,14 +330,15 @@ def row_sum(x: torch.Tensor, axis) -> torch.Tensor:
         return x
     if x.is_complex():
         return torch.view_as_complex(row_sum(torch.view_as_real(x), axis))
-    return axis.sum(x.contiguous())
+    return model_axis(axis).sum(x.contiguous())
 
 
 def row_sum_(x: torch.Tensor, axis) -> torch.Tensor:
     """``x`` (real, or complex) summed over the model ranks in place, outside
     autograd (a kernel's scratch, a gradient in a backward)."""
     if active(axis):
-        dist.all_reduce(torch.view_as_real(x) if x.is_complex() else x, group=axis.group)
+        dist.all_reduce(torch.view_as_real(x) if x.is_complex() else x,
+                        group=model_axis(axis).group)
     return x
 
 

@@ -210,15 +210,13 @@ def use_spatial(task, axis) -> None:
 def check_spatial(model, mesh: DataMesh, field_shape) -> None:
     """Raise, naming the limit, unless ``model`` can run on a rank's rows of
     a grid of ``field_shape`` over ``mesh``'s model axis: a model that
-    :data:`SPATIAL_MODELS` holds, rows that divide over the axis, and every
-    rank keeping a row at every level of a model that halves the grid
-    (``check_sp_rows``; a latent model's latents)."""
+    :data:`SPATIAL_MODELS` holds, and rows that divide over the axis. A
+    deeper level of a model that halves the grid may leave a rank without
+    a row (``parallel/spatial.py::Rows``)."""
     if not isinstance(model, SPATIAL_MODELS):
         raise NotImplementedError(
             f"--shard_spatial 1 with {type(model).__name__}: not a model of main_auto")
     mesh.rows(field_shape[0])
-    if mesh.model.distributed and hasattr(model, "check_sp_rows"):
-        model.check_sp_rows(field_shape[0], mesh.model)
 
 
 class ModelSplit:
@@ -303,10 +301,6 @@ def split_model(task, pp_microbatches: int = 0, spatial: bool = False) -> None:
     pp's alone."""
     axis, model = task.mesh.model, task.model
     if spatial and axis.distributed and not pp_microbatches:
-        if getattr(model, "padding", None) is not None:
-            raise NotImplementedError(
-                f"--shard_spatial 1 with an Fno2d of padding {model.padding}: the padded grid "
-                "is not split over the ranks' rows in the port (ROADMAP.md C)")
         task.split = split_module(model, task.mesh, spatial=True)
         use_spatial(task, axis)
         return

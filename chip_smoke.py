@@ -251,9 +251,9 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    epoch each of the FFNO and the ResNet, against one process (the
    U-Net's within DP_DRIFT_FACTOR times phase 13b's permuted-row control
    plus DP_RTOL, the others' losses, dev scores and weights within
-   DP_RTOL), each rank's launches one process's; the flagship again on
-   ``2x2``, four ranks; each rank's peak memory of a DP_BATCH flagship
-   step against one process's. (c) The rest of ``main_auto --shard_spatial
+   DP_RTOL), each rank's launches one process's (the flagship again on
+   ``2x2``, four ranks, runs in (d)'s spawn); each rank's peak memory of a
+   DP_BATCH flagship step against one process's. (c) The rest of ``main_auto --shard_spatial
    1`` at ``1x2`` (:func:`spatial_rest`), each run against one process
    within (b)'s gates: the flagship with ``--use_mixed_precision`` (losses
    and dev scores within TP_BF16_RTOL; both kernels on every rank in its
@@ -271,7 +271,22 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    latent_diffusion2 step, as a fraction of one process's, with what fills
    it (the rank's parameters, gradients and Adam state, and a second
    step's peak over them), and the phase's seconds, on its ``[phase15c]``
-   line.
+   line. (d) What spatial sharding refused until it ran: (i) the block
+   kernel split at the rows of the flagship padded by PAD at ``1x2``
+   (``Rows(0, 32, 73)``, W = 73, B=128; the field's pad zero) against the
+   plain whole padded block at phase 2's bounds, each rank's halves timed
+   beside their bounds; the head on each rank's cropped rows against its
+   plain version, the last rank's timed; (ii) (b)'s flagship main_auto with
+   ``padding=PAD`` (no flag sets it: :class:`padded_fno`) at ``1x2`` and
+   ``2x2`` within (b)'s gates, each rank's launches one process's; (iii)
+   on SP_EMPTY_MESH, four ranks, where a level leaves a rank without a
+   row: (c)'s latent_diffusion2 epoch and float64 step at default widths
+   on its 64x64 tree, against (c)'s one process and controls, and the
+   U-Net's epoch and float64 step on a SP_EMPTY_GRID tree against its own
+   one process and permuted-row controls, within (c)'s gates, no kernel
+   launch on any rank; each rank's peak memory of a b8 latent_diffusion2
+   step at ``1x4``. (ii) on ``2x2`` and (iii) share one spawn; the phase's
+   seconds on its ``[phase15d]`` line.
 16. The last modules of the JAX package. (a) ``Fno2d(padding=PAD)``, the
    flagship padded by 9 (the pad of the FNO authors' 2-D Darcy script): the
    block kernel at B=128 on the padded 73x73 grid (odd W above 64: pass
@@ -326,7 +341,8 @@ bfloat16 under tensor parallelism and main_auto in both precisions under
 pipeline parallelism (phase 14: ``tp2_rank{r}_*``, ``pp2_rank{r}_*``),
 and each rank's main_auto under spatial sharding (phase 15:
 ``sp1x2_rank{r}_main_auto_sp``, ``sp2x2_rank{r}_main_auto_sp``; phase 15c:
-``sp1x2_rank{r}_main_auto_sp_<run>`` for each of its runs), and the
+``sp1x2_rank{r}_main_auto_sp_<run>`` for each of its runs; phase 15d:
+``sp{mesh}_rank{r}_main_auto_sp_padded``, ``sp1x4_rank{r}_main_auto_sp_<run>``), and the
 padded flagship's 20-step rollout and main_multistep under --profile_dir
 (phase 16: ``padded_rollout``, ``main_multistep_profiled``), and main_auto
 and main_multistep at width 256 and on a 512x512 grid and the width-256
@@ -334,7 +350,7 @@ rollout (phase 17: ``main_auto_h256``, ``main_multistep_h256``,
 ``rollout_h256``, ``main_auto_512``, ``main_multistep_512``),
 each read from counters set
 to 0 just before the run and read just after it; ``at_rank_shapes`` the
-kernel's phase 14a records, ``at_rank_rows`` its phase 15a records,
+kernel's phase 14a records, ``at_rank_rows`` its phase 15a and 15d(i) records,
 ``at_padded_grid`` its phase 16a record, ``at_wide_shapes`` its phase 17a
 records. The
 line before the last is the kernels' JSON
@@ -397,9 +413,9 @@ PHASE8 = NONAUTO + ("ffno",)
 GENERATIVE = ("pixel_diffusion", "gencast")
 GEN_BATCHES = (8, 32)  # the trainers' default batch, and a larger one
 # The timed rollout of phase 9c: its frames/s is a frame's (each step one
-# full DDPM sampling), so it runs 5 of the STEPS frames (20 took 83 s of
-# the script's time on an H100).
-GEN_ROLLOUT_STEPS = 5
+# full DDPM sampling), so it runs 2 of the STEPS frames (20 took 83 s of
+# the script's time on an H100, 5 about 20 s).
+GEN_ROLLOUT_STEPS = 2
 GEN_CHECK_BATCH = 2
 # Residual statistics for the GenCast task outside main_gencast.
 GEN_STATS = dict(residual_mean=[0.01, -0.02], residual_std=[0.1, 0.2])
@@ -437,7 +453,7 @@ SERVE_ITERS = 12
 # SERVE_UNET_RTOL.
 SERVE_DIFFUSION = ("pixel_diffusion", "latent_diffusion2")
 SERVE_DIFFUSION_ITERS = 2
-SERVE_DIFFUSION_ROLLOUT_STEPS = 4  # the served rollout's frames (each 50 denoising steps)
+SERVE_DIFFUSION_ROLLOUT_STEPS = 2  # the served rollout's frames (each 50 denoising steps)
 # Phase 12: mixed precision, Adafactor, the bfloat16 rollout.
 MP_MODELS = ("fno", "unet", "ffno", "pixel_diffusion")
 BF16_ROLLOUT = ("fno", "unet", "ffno")
@@ -575,6 +591,18 @@ SP_MEMORY = {"memory_unet66": (["--model", "unet"], TUBE_GRID, 128),
              "memory_pixel": (["--model", "pixel_diffusion"], (GRID, GRID), SP_PIXEL_BATCH),
              "memory_latent": (["--model", "latent_diffusion2", "--ldm_vae_weights_path",
                                 str(WORK / "vae_weights")], (GRID, GRID), SP_PIXEL_BATCH)}
+# Phase 15d: spatial sharding without its last refusals. (a) The block kernel
+# split at the rows of the flagship padded by PAD over SP_MESHES[0] (the last
+# rank holds the pad rows: Rows(0, 32, 73)), the head on each rank's crop;
+# (b) phase 15b's flagship main_auto padded by PAD on both SP_MESHES; (c) on
+# SP_EMPTY_MESH, where a level leaves a rank without a row, phase 15c's
+# latent_diffusion2 at default widths on its 64x64 tree (8 latent rows,
+# none on two ranks at the UNet's third level) and the U-Net on a
+# SP_EMPTY_GRID tree (none on two ranks at its bottleneck), with
+# SP_MESHES[1]'s runs in one spawn of four ranks.
+SP_EMPTY_MESH = "1x4"
+SP_EMPTY_GRID = (32, 32)
+SP_EMPTY_CONTROLLED = ("unet_empty",)
 # An H100 SXM's published peaks (NVIDIA's data sheet, dense rates): device
 # memory bytes/s, TF32 FLOP/s on the tensor cores and float32 FLOP/s outside
 # them. A split-TF32 product (csrc/tf32.cuh) is three TF32 products.
@@ -2815,9 +2843,11 @@ def dp_run(jobs, device, rank: int = 0, deterministic: bool = True) -> dict:
         for name, entry, argv in jobs:
             t0 = time.perf_counter()
             reset_launch_counts()
-            if entry in ("step", "step32", "step_tube"):
+            if entry in ("step", "step32", "step_tube", "step_empty"):
+                grid = {"step_tube": TUBE_GRID, "step_empty": SP_EMPTY_GRID}.get(entry,
+                                                                                  (GRID, GRID))
                 r = dp_step(argv, device, torch.float32 if entry == "step32" else torch.float64,
-                            TUBE_GRID if entry == "step_tube" else (GRID, GRID))
+                            grid)
             elif entry == "bytes":
                 r = split_bytes(argv, device)
             elif entry == "memory":
@@ -2827,8 +2857,10 @@ def dp_run(jobs, device, rank: int = 0, deterministic: bool = True) -> dict:
                 r = sp_memory(flags + argv, device, grid, batch)
             else:
                 tee = Tee()
-                with contextlib.redirect_stdout(tee):
-                    out = getattr(cli, entry)(argv, device=device)
+                padded = entry == "main_auto_padded"
+                with contextlib.redirect_stdout(tee), (
+                        padded_fno() if padded else contextlib.nullcontext()):
+                    out = getattr(cli, "main_auto" if padded else entry)(argv, device=device)
                 r = {"printed": tee.text()}
                 if entry == "main_multistep":
                     r["frames"] = out.cpu()
@@ -2968,6 +3000,29 @@ class float64_run:
     def __exit__(self, *exc):
         for m, name, f in self.saved:
             setattr(m, name, f)
+
+
+class padded_fno:
+    """Within it, ``main_auto`` builds its FNO with ``padding=PAD`` (no flag
+    of either package sets it): phase 15d's padded flagship, trained as the
+    flagship is."""
+
+    def __enter__(self):
+        from cfdbench_tpu_torch import cli
+
+        real = self.real = cli.make_auto_task
+
+        def make_auto_task(*args, **kwargs):
+            task = real(*args, **kwargs)
+            task.model.padding = PAD
+            return task
+
+        cli.make_auto_task = make_auto_task
+
+    def __exit__(self, *exc):
+        from cfdbench_tpu_torch import cli
+
+        cli.make_auto_task = self.real
 
 
 def dp_params(got: dict, want: dict, names, what: str) -> float:
@@ -3660,32 +3715,40 @@ def split_block_work(B, h, W, Ci, Co, m1, m2):
     return first, rest
 
 
-def split_block(lib, stream, device, card, B, H, W, M):
+def split_block(lib, stream, device, card, B, H, W, M, bounds=None, pad=0):
     """The block kernel split around its spectrum's row sum at M ranks'
-    rows of an H x W grid (B images, the flagship's width and modes): pass
-    1 on each rank's rows, the partial spectra summed, passes 2-4 on each
-    rank's rows, against the plain whole block at phase 2's bounds (the
-    summed spectrum and the pre-activation too); each half timed on one
-    rank's rows beside its bound, the plain whole block timed, and the bytes
-    of the spectrum that the ranks sum. Returns the record, the first
-    rank's rows of x and the generator that drew the inputs."""
+    rows of an H x W grid (B images, the flagship's width and modes; the
+    even split, or the rows ``bounds``; with ``pad`` the field's last
+    ``pad`` rows and columns zero, as a padded FNO's): pass 1 on each
+    rank's rows, the partial spectra summed, passes 2-4 on each rank's
+    rows, against the plain whole block at phase 2's bounds (the summed
+    spectrum and the pre-activation too); each half timed on the first
+    rank's rows (with ``bounds``, on each rank's) beside its bound, the
+    plain whole block timed, and the bytes of the spectrum that the ranks
+    sum. Returns the record, each rank's rows of the output and the
+    generator that drew the inputs."""
     from cfdbench_tpu_torch.ops import fno_kernels as fk
     from cfdbench_tpu_torch.ops.spectral import clamp_modes, init_spectral_weights
 
     C = WIDTH
     gen = torch.Generator().manual_seed(SEED + 15)
-    h = H // M
-    x = torch.randn((B, H, W, C), generator=gen).to(device)
+    even = bounds is None
+    bounds = [j * H // M for j in range(M + 1)] if even else list(bounds)
+    x = torch.randn((B, H, W, C), generator=gen)
+    if pad:
+        x[:, H - pad:], x[:, :, W - pad:] = 0, 0
+    x = x.to(device)
     weights = (init_spectral_weights(gen, C, C, MODES, MODES) * C).to(device)
     w0 = (torch.randn((C, C), generator=gen) * C ** -0.5).to(device)
     b0 = (torch.randn((C,), generator=gen) * 0.1).to(device)
     block = (x, weights, w0, b0, MODES, MODES)
-    rows = [x[:, j * h:(j + 1) * h].contiguous() for j in range(M)]
+    spans = list(zip(bounds, bounds[1:]))
+    rows = [x[:, a:b].contiguous() for a, b in spans]
     with torch.inference_mode():
-        xm = sum(fk._block_spectrum(lib, r, MODES, MODES, stream, (j * h, H))
-                 for j, r in enumerate(rows))
+        xm = sum(fk._block_spectrum(lib, r, MODES, MODES, stream, (a, H))
+                 for r, (a, _) in zip(rows, spans))
         halves = [fk._block_finish(lib, r, xm, weights, w0, b0, MODES, MODES, stream, True,
-                                   (j * h, H)) for j, r in enumerate(rows)]
+                                   (a, H)) for r, (a, _) in zip(rows, spans)]
         got = torch.cat([o for o, _ in halves], 1)
         pre = torch.cat([p for _, p in halves], 1)
         want = fk.fno_block_reference(*block)
@@ -3694,33 +3757,45 @@ def split_block(lib, stream, device, card, B, H, W, M):
         err = (got - want).abs().max().item()
         pre_err = (pre - want_pre).abs().max().item()
         xm_rel = ((xm - want_xm).abs().max() / want_xm.abs().max()).item()
-        shape = f"{h} of {H} rows ({M} ranks), W={W}"
+        shape = (f"{bounds[1]} of {H} rows ({M} ranks), W={W}" if even
+                 else f"the rows {tuple(bounds)} ({M} ranks), W={W}")
         if not (torch.isfinite(got).all() and err <= BLOCK_ATOL and pre_err <= BLOCK_ATOL
                 and xm_rel <= XM_RTOL):
             raise RuntimeError(f"fno_block split at {shape}: max abs err {err:.3e}, "
                                f"pre-activation {pre_err:.3e}, spectrum {xm_rel:.3e}")
-        r0 = rows[0]
         plain_ms = warm_ms(lambda: fk.fno_block_reference(*block), 10)
-        first_ms = warm_ms(lambda: fk._block_spectrum(lib, r0, MODES, MODES, stream, (0, H)),
-                           20)
-        rest_ms = warm_ms(lambda: fk._block_finish(lib, r0, xm, weights, w0, b0, MODES,
-                                                   MODES, stream, False, (0, H)), 20)
+        timed = []
+        for r, (a, b) in list(zip(rows, spans))[:1 if even else M]:
+            first_ms = warm_ms(lambda: fk._block_spectrum(lib, r, MODES, MODES, stream, (a, H)),
+                               20)
+            rest_ms = warm_ms(lambda: fk._block_finish(lib, r, xm, weights, w0, b0, MODES,
+                                                       MODES, stream, False, (a, H)), 20)
+            timed.append((b - a, first_ms, rest_ms))
         whole_ms = warm_ms(lambda: fk.fno_block(*block), 20)
     m1, m2 = clamp_modes(H, W, MODES, MODES)
-    first, rest = split_block_work(B, h, W, C, C, m1, m2)
-    (b1, by1), (b2, by2) = bound(*first), bound(*rest)
+    ranks = []
+    for h, first_ms, rest_ms in timed:
+        first, rest = split_block_work(B, h, W, C, C, m1, m2)
+        (b1, by1), (b2, by2) = bound(*first), bound(*rest)
+        ranks.append(dict(rows=h, ms=first_ms + rest_ms, pass1_ms=first_ms,
+                          passes2_4_ms=rest_ms, bound_ms=b1 + b2, pass1_bound_ms=b1,
+                          pass1_bound_by=by1, passes2_4_bound_ms=b2, passes2_4_bound_by=by2))
     sum_bytes = 4 * B * 2 * 2 * m1 * m2 * C
     print(f"[sp] [{card}] fno_block B={B} {shape}: max abs err {err:.3e}, pre-activation "
           f"{pre_err:.3e} (bound {BLOCK_ATOL:.0e}), summed spectrum {xm_rel:.3e} of its max "
-          f"(bound {XM_RTOL:.0e}); one rank's pass 1 {first_ms:.4f} ms (bound {b1:.4f} ms by "
-          f"{by1}), passes 2-4 {rest_ms:.4f} ms (bound {b2:.4f} ms by {by2}); the whole "
-          f"block {whole_ms:.4f} ms, its plain version {plain_ms:.4f} ms; the ranks sum "
-          f"{sum_bytes} bytes of spectrum")
-    return dict(
-        shape=shape, max_abs_err=err, pre_err=pre_err, spectrum_rel_err=xm_rel,
-        ms=first_ms + rest_ms, pass1_ms=first_ms, passes2_4_ms=rest_ms, plain_whole_ms=plain_ms,
-        whole_ms=whole_ms, bound_ms=b1 + b2, pass1_bound_ms=b1, pass1_bound_by=by1,
-        passes2_4_bound_ms=b2, passes2_4_bound_by=by2, row_sum_bytes=sum_bytes), r0, gen
+          f"(bound {XM_RTOL:.0e}); " + "; ".join(
+              f"a rank's {t['rows']} rows: pass 1 {t['pass1_ms']:.4f} ms (bound "
+              f"{t['pass1_bound_ms']:.4f} ms by {t['pass1_bound_by']}), passes 2-4 "
+              f"{t['passes2_4_ms']:.4f} ms (bound {t['passes2_4_bound_ms']:.4f} ms by "
+              f"{t['passes2_4_bound_by']})" for t in ranks)
+          + f"; the whole block {whole_ms:.4f} ms, its plain version {plain_ms:.4f} ms; the "
+          f"ranks sum {sum_bytes} bytes of spectrum")
+    first = {k: v for k, v in ranks[0].items() if k != "rows"}
+    record = dict(shape=shape, max_abs_err=err, pre_err=pre_err, spectrum_rel_err=xm_rel,
+                  **first, plain_whole_ms=plain_ms, whole_ms=whole_ms, row_sum_bytes=sum_bytes)
+    if not even:
+        record["ranks"] = ranks
+    return record, [o for o, _ in halves], gen
 
 
 def sp_kernels(device, card) -> dict:
@@ -3734,12 +3809,12 @@ def sp_kernels(device, card) -> dict:
     out = {"fno_block": [], "fno_head": []}
     B, C = TIMING_BATCH, WIDTH
     for H, W, M in SP_KERNEL_CASES:
-        record, r0, gen = split_block(lib, stream, device, card, B, H, W, M)
+        record, outs, gen = split_block(lib, stream, device, card, B, H, W, M)
         out["fno_block"].append(record)
         shape, h = record["shape"], H // M
         mask = torch.ones((B, h, W, 1))
         mask[:, : h // 3] = 0
-        head = (r0, (torch.randn((128, C), generator=gen) * C ** -0.5).to(device),
+        head = (outs[0], (torch.randn((128, C), generator=gen) * C ** -0.5).to(device),
                 (torch.randn((128,), generator=gen) * 0.1).to(device),
                 (torch.randn((2, 128), generator=gen) * 128 ** -0.5).to(device),
                 (torch.randn((2,), generator=gen) * 0.1).to(device), mask.to(device))
@@ -3762,17 +3837,20 @@ def sp_jobs(data_root: Path, out: Path, mesh: str):
     ``mesh`` "1" the one-process references): phase 13b's flagship
     main_auto (DP_BATCH, TRAIN_EPOCHS) and U-Net epoch, an epoch each of
     the FFNO and the ResNet at their default widths at DP_UNET_BATCH, and
-    the U-Net's float64 step of phase 13b (entry ``step``), and each rank's
+    the U-Net's float64 step of phase 13b (entry ``step``), each rank's
     peak device memory of one flagship step at DP_BATCH (entry
-    ``memory``)."""
+    ``memory``), and phase 15d's flagship padded by PAD, main_auto's run as
+    the flagship's (entry ``main_auto_padded``, into ``out/padded``)."""
     jobs = {n: (n, e, a) for n, e, a in dp_jobs(data_root, out, mesh)}
     sp = ["--shard_spatial", "1"] if mesh != "1" else []
     unet = jobs["unet"][2]
     family = [("ffno", "main_auto", [x if x != "unet" else "ffno" for x in unet]),
               ("resnet", "main_auto", [x if x != "unet" else "resnet" for x in unet])]
+    padded = [str(out / "padded") if x == str(out) else x for x in jobs["fno"][2]]
     return [(n, e, a + sp) for n, e, a in [jobs["fno"], jobs["unet"]] + family] + [
         ("unet_step", "step", ["--model", "unet", "--mesh_shape", mesh] + sp),
-        ("memory", "memory", ["--mesh_shape", mesh] + sp)]
+        ("memory", "memory", ["--mesh_shape", mesh] + sp),
+        ("fno_padded", "main_auto_padded", padded + sp)]
 
 
 def sp_memory(argv, device, grid=(GRID, GRID), global_batch: int = DP_BATCH) -> dict:
@@ -3824,114 +3902,125 @@ def sp_memory(argv, device, grid=(GRID, GRID), global_batch: int = DP_BATCH) -> 
     return dict(peak_bytes=peak, step_bytes=peak - before, step2_bytes=step2, **parts)
 
 
-def spatial_ranks(device, card, data_root: Path, single: dict, controls: dict) -> dict:
-    """Phase 15b: ``main_auto --shard_spatial 1`` on SP_MESHES, SP_RANKS[mesh]
-    gloo ranks sharing the one card, PyTorch's deterministic algorithms on:
-    the flagship FNO at DP_BATCH on every mesh (phase 13b's run), the U-Net
-    (phase 13b's epoch and float64 step), the FFNO and the ResNet on the
-    first, against one process: the FNO's, the FFNO's and the ResNet's
-    losses, dev scores and weights within DP_RTOL (the ResNet's dropout
-    masks drawn over the global grid), the U-Net's step within DP_RTOL
-    (``dp_step_check``) and its epoch within DP_DRIFT_FACTOR times phase
-    13b's permuted-row control plus DP_RTOL; each rank's launches of both
-    kernels one process's (none on the other models); each rank's peak
-    memory of one flagship step against one process's. Returns each rank's
-    launches on the FNO's path and the memory records."""
+def sp_spawn(tag: str, world: int, jobs, device, what: str):
+    """``jobs`` on ``world`` gloo ranks sharing the one card (:func:`dp_rank`,
+    deterministic algorithms on), their group meeting under ``WORK/tag``;
+    each rank's results."""
     import torch.multiprocessing as mp
 
+    root = WORK / tag
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    mp.spawn(dp_rank, args=(world, str(root), jobs, str(device)), nprocs=world, join=True)
+    print(f"[sp] {world} ranks on one card (gloo), {what}: {time.perf_counter() - t0:.2f} s, "
+          "spawn included")
+    return [torch.load(root / f"rank{r}.pt", weights_only=True) for r in range(world)]
+
+
+def spatial_ranks(device, card, data_root: Path, single: dict, controls: dict):
+    """Phase 15b: ``main_auto --shard_spatial 1`` on SP_MESHES[0]
+    (:func:`check_sp_ranks`; SP_MESHES[1] runs in phase 15d's spawn). Returns
+    each rank's launches on the FNO's paths, the memory records and the
+    one-process references."""
+    refs = dp_run([j for j in sp_jobs(data_root, WORK / "sp_single", "1")
+                   if j[0] in ("ffno", "resnet", "memory", "fno_padded")], device)
+    want = {n: single[n] for n in ("fno", "unet", "unet_step")} | refs
+    mesh = SP_MESHES[0]
+    jobs = sp_jobs(data_root, WORK / f"sp_{mesh}", mesh)
+    ranks = sp_spawn(f"sp_ranks_{mesh}", SP_RANKS[mesh], jobs, device,
+                     f"--mesh_shape {mesh} --shard_spatial 1")
+    counts, memory = check_sp_ranks(mesh, jobs, ranks, want, controls, card, device)
+    return counts, {"one_process": refs["memory"]} | memory, want
+
+
+def check_sp_ranks(mesh: str, jobs, ranks, want: dict, controls: dict, card, device):
+    """Phase 15b's checks of :func:`sp_jobs` on ``mesh``, SP_RANKS[mesh] gloo
+    ranks sharing the one card: the flagship FNO at DP_BATCH (phase 13b's
+    run) and the flagship padded by PAD, the U-Net (phase 13b's epoch and
+    float64 step), the FFNO and the ResNet, against one process (``want``):
+    the FNO's, the padded FNO's, the FFNO's and the ResNet's losses, dev
+    scores and weights within DP_RTOL (the ResNet's dropout masks drawn over
+    the global grid), the U-Net's step within DP_RTOL (``dp_step_check``)
+    and its epoch within DP_DRIFT_FACTOR times phase 13b's permuted-row
+    control plus DP_RTOL; each rank's launches of both kernels one
+    process's (none on the other models); each rank's peak memory of one
+    flagship step against one process's. Returns each rank's launches on
+    the FNO's paths and the memory records."""
     from cfdbench_tpu_torch.cli import parse_args, run_dir
 
-    refs = dp_run([j for j in sp_jobs(data_root, WORK / "sp_single", "1")
-                   if j[0] in ("ffno", "resnet", "memory")], device)
-    want = {n: single[n] for n in ("fno", "unet", "unet_step")} | refs
-    counts, memory = {}, {"one_process": refs["memory"]}
-    for mesh in SP_MESHES:
-        world = SP_RANKS[mesh]
-        out = WORK / f"sp_{mesh}"
-        jobs = sp_jobs(data_root, out, mesh)
-        if mesh != SP_MESHES[0]:
-            jobs = [j for j in jobs if j[0] in ("fno", "memory")]
-        root = WORK / f"sp_ranks_{mesh}"
-        shutil.rmtree(root, ignore_errors=True)
-        root.mkdir(parents=True)
-        t0 = time.perf_counter()
-        mp.spawn(dp_rank, args=(world, str(root), jobs, str(device)), nprocs=world, join=True)
-        print(f"[sp] {world} ranks on one card (gloo), --mesh_shape {mesh} --shard_spatial 1: "
-              f"{time.perf_counter() - t0:.2f} s, spawn included")
-        ranks = [torch.load(root / f"rank{r}.pt", weights_only=True) for r in range(world)]
-        for name, entry, argv in jobs:
-            what = f"{name}, {mesh} --shard_spatial 1 against one process"
-            if entry == "memory":
-                for r, result in enumerate(ranks):
-                    got = result[name]
-                    memory[f"{mesh}_rank{r}"] = {k: got[k] for k in ("peak_bytes", "step_bytes")}
-                    print(f"[sp] [{card}] {what}: rank {r} peak {got['peak_bytes']} B, the step "
-                          f"{got['step_bytes']} B (one process {want[name]['peak_bytes']} B, "
-                          f"{want[name]['step_bytes']} B: "
-                          f"{got['step_bytes'] / want[name]['step_bytes']:.3f} of it)")
-                continue
-            if entry == "step":
-                dp_step_check(name, ranks[0][name], want[name], what)
-                continue
+    counts, memory = {}, {}
+    out = WORK / f"sp_{mesh}"
+    for name, entry, argv in jobs:
+        what = f"{name}, {mesh} --shard_spatial 1 against one process"
+        if entry == "memory":
             for r, result in enumerate(ranks):
-                got = result[name]["launches"]
-                if got != want[name]["launches"]:
-                    raise RuntimeError(f"{what}: rank {r} launched {got}, one process "
-                                       f"{want[name]['launches']}")
-                if name == "fno" and device.type == "cuda" and not all(got.values()):
-                    raise RuntimeError(f"{what}: rank {r}: a kernel never launched")
-                for k, v in ranks[0][name]["state"].items():
-                    if not torch.equal(v, result[name]["state"][k]):
-                        raise RuntimeError(f"{what}: rank {r}'s {k} differs from rank 0's")
-            mesh_run = run_dir(parse_args(argv))
-            base = WORK / ("dp_single" if name in ("fno", "unet") else "sp_single")
-            one_run = base / mesh_run.relative_to(out)
-            loss_rel = losses_rel(mesh_run, one_run)
-            params_rel = dp_params(ranks[0][name]["state"], want[name]["state"],
-                                   want[name]["names"], what)
-            dev = 0.0
-            for ckpt_dir in sorted(one_run.glob("ckpt-*")):
-                g, w = (json.loads((r / ckpt_dir.name / "dev_scores.json").read_text())["mean"]
-                        for r in (mesh_run, one_run))
-                dev = max([dev] + [abs(g[k] - v) / abs(v) for k, v in w.items() if v])
-            if name == "unet":
-                control_run = WORK / "dp_control" / mesh_run.relative_to(out)
-                ctl_loss = losses_rel(control_run, one_run)
-                ctl_params = dp_params(controls["unet"]["state"], want[name]["state"],
-                                       want[name]["names"], "unet control")
-                print(f"[sp] {what}: losses max rel diff {loss_rel:.3e}, parameters "
-                      f"{params_rel:.3e} of the largest, dev scores {dev:.3e}; the permuted-row "
-                      f"control {ctl_loss:.3e}, {ctl_params:.3e} (bound {DP_DRIFT_FACTOR:g} x the "
-                      f"control + {DP_RTOL:.0e})")
-                if not (loss_rel <= DP_DRIFT_FACTOR * ctl_loss + DP_RTOL
-                        and params_rel <= DP_DRIFT_FACTOR * ctl_params + DP_RTOL):
-                    raise RuntimeError(f"{what}: parted further than the permuted-row control")
-                continue
-            print(f"[sp] {what}: losses max rel diff {loss_rel:.3e}, dev scores {dev:.3e}, "
-                  f"parameters {params_rel:.3e} of the largest (bound {DP_RTOL:.0e} each)")
-            if not (loss_rel <= DP_RTOL and dev <= DP_RTOL and params_rel <= DP_RTOL):
-                raise RuntimeError(f"{what}: losses, dev scores or parameters disagree")
-        for r in range(world):
-            counts[f"sp{mesh}_rank{r}_main_auto_sp"] = ranks[r]["fno"]["launches"]
+                got = result[name]
+                memory[f"{mesh}_rank{r}"] = {k: got[k] for k in ("peak_bytes", "step_bytes")}
+                print(f"[sp] [{card}] {what}: rank {r} peak {got['peak_bytes']} B, the step "
+                      f"{got['step_bytes']} B (one process {want[name]['peak_bytes']} B, "
+                      f"{want[name]['step_bytes']} B: "
+                      f"{got['step_bytes'] / want[name]['step_bytes']:.3f} of it)")
+            continue
+        if entry == "step":
+            dp_step_check(name, ranks[0][name], want[name], what)
+            continue
+        for r, result in enumerate(ranks):
+            got = result[name]["launches"]
+            if got != want[name]["launches"]:
+                raise RuntimeError(f"{what}: rank {r} launched {got}, one process "
+                                   f"{want[name]['launches']}")
+            if name.startswith("fno") and device.type == "cuda" and not all(got.values()):
+                raise RuntimeError(f"{what}: rank {r}: a kernel never launched")
+            for k, v in ranks[0][name]["state"].items():
+                if not torch.equal(v, result[name]["state"][k]):
+                    raise RuntimeError(f"{what}: rank {r}'s {k} differs from rank 0's")
+        mesh_run = run_dir(parse_args(argv))
+        base = WORK / ("dp_single" if name in ("fno", "unet") else "sp_single")
+        one_run = base / mesh_run.relative_to(out)
+        loss_rel = losses_rel(mesh_run, one_run)
+        params_rel = dp_params(ranks[0][name]["state"], want[name]["state"],
+                               want[name]["names"], what)
+        dev = dev_rel(mesh_run, one_run)
+        if name == "unet":
+            control_run = WORK / "dp_control" / mesh_run.relative_to(out)
+            ctl_loss = losses_rel(control_run, one_run)
+            ctl_params = dp_params(controls["unet"]["state"], want[name]["state"],
+                                   want[name]["names"], "unet control")
+            print(f"[sp] {what}: losses max rel diff {loss_rel:.3e}, parameters "
+                  f"{params_rel:.3e} of the largest, dev scores {dev:.3e}; the permuted-row "
+                  f"control {ctl_loss:.3e}, {ctl_params:.3e} (bound {DP_DRIFT_FACTOR:g} x the "
+                  f"control + {DP_RTOL:.0e})")
+            if not (loss_rel <= DP_DRIFT_FACTOR * ctl_loss + DP_RTOL
+                    and params_rel <= DP_DRIFT_FACTOR * ctl_params + DP_RTOL):
+                raise RuntimeError(f"{what}: parted further than the permuted-row control")
+            continue
+        print(f"[sp] {what}: losses max rel diff {loss_rel:.3e}, dev scores {dev:.3e}, "
+              f"parameters {params_rel:.3e} of the largest (bound {DP_RTOL:.0e} each)")
+        if not (loss_rel <= DP_RTOL and dev <= DP_RTOL and params_rel <= DP_RTOL):
+            raise RuntimeError(f"{what}: losses, dev scores or parameters disagree")
+    for r in range(len(ranks)):
+        for name, path in (("fno", "main_auto_sp"), ("fno_padded", "main_auto_sp_padded")):
+            counts[f"sp{mesh}_rank{r}_{path}"] = ranks[r][name]["launches"]
     return counts, memory
 
 
 def sp_rest_trees(root: Path):
     """Phase 15c's 12-case cavity trees of SP_REST_FRAMES frames: on the
-    flagship's grid, and on TUBE_GRID (the generator's square tree of 66
-    rows, each frame cropped to 65 columns)."""
+    flagship's grid, on TUBE_GRID (the generator's square tree of 66 rows,
+    each frame cropped to 65 columns), and phase 15d's on SP_EMPTY_GRID."""
     import numpy as np
 
     from cfdbench_tpu_torch.data.synthetic import generate_problem
 
-    square, tube = root / "data", root / "tube_data"
+    square, tube, empty = root / "data", root / "tube_data", root / "empty_data"
     H, W = TUBE_GRID
-    for tree, grid in ((square, GRID), (tube, H)):
+    for tree, grid in ((square, GRID), (tube, H), (empty, SP_EMPTY_GRID[0])):
         generate_problem(tree, "cavity", cases_per_subset=4, num_frames=SP_REST_FRAMES,
                          grid=grid, seed=SEED)
     for f in tube.rglob("*.npy"):
         np.save(f, np.load(f)[..., :W])
-    return square, tube
+    return square, tube, empty
 
 
 def sp_rest_jobs(data_root: Path, rest_root: Path, tube_root: Path, out: Path, mesh: str):
@@ -3981,48 +4070,62 @@ def sp_rest_jobs(data_root: Path, rest_root: Path, tube_root: Path, out: Path, m
     return jobs
 
 
-def spatial_rest(device, card, data_root: Path, single: dict) -> dict:
+def spatial_rest(device, card, data_root: Path, single: dict):
     """Phase 15c: :func:`sp_rest_jobs` on SP_MESHES[0], its ranks sharing the
     one card in a gloo group, deterministic algorithms on, against one
-    process: the mixed-precision flagship's losses and dev scores within
-    TP_BF16_RTOL; the pipelined flagship's losses, dev scores and weights
-    within DP_RTOL; the other runs (SP_CONTROLLED, whose rounding-level
-    gradients Adam amplifies) by their losses and weights within
-    DP_DRIFT_FACTOR times the largest of their permuted-row controls plus
-    DP_RTOL, and each of them by its float64 step within DP_RTOL too
-    (``dp_step_check``), as phase 15b holds the U-Net.
-    Both kernels launch on every rank
-    in the flagship's float32 evaluation and on the pipeline's stages, none
-    on the other models; each rank's peak memory of a step, against one
-    process's. Returns each rank's launches by path and the memory records."""
-    import torch.multiprocessing as mp
-
-    from cfdbench_tpu_torch.cli import parse_args, run_dir
-
+    process (:func:`check_rest_ranks`). Returns each rank's launches by
+    path, the memory records, and what phase 15d compares with: the trees,
+    the one-process results and the controls."""
     mesh, world = SP_MESHES[0], SP_RANKS[SP_MESHES[0]]
-    rest_root, tube_root = sp_rest_trees(WORK / "sp_rest_trees")
-    out = WORK / "sp_rest"
+    trees = sp_rest_trees(WORK / "sp_rest_trees")
+    rest_root, tube_root, _ = trees
     one_jobs = sp_rest_jobs(data_root, rest_root, tube_root, WORK / "sp_rest_single", "1")
     want = dp_run(one_jobs, device) | {"fno_pp": single["fno"]}
-    controls = {}  # (name, seed) -> the control's run directory's root and result
+    controls = rest_controls(one_jobs, SP_CONTROLLED, device)
+    out = WORK / "sp_rest"
+    jobs = sp_rest_jobs(data_root, rest_root, tube_root, out, mesh)
+    ranks = sp_spawn("sp_rest_ranks", world, jobs, device,
+                     f"--mesh_shape {mesh} --shard_spatial 1, the rest of main_auto")
+    counts, memory = check_rest_ranks(mesh, jobs, ranks, want, controls, out, card, device)
+    return counts, memory, dict(trees=trees, want=want, controls=controls)
+
+
+def rest_controls(one_jobs, names, device) -> dict:
+    """The controls of the one-process runs ``one_jobs`` (written under
+    ``WORK/sp_rest_single``) of ``names``: each run again with the rows of
+    its train batches permuted, one run a seed of SP_CONTROL_SEEDS, and a
+    latent model's in float64 too (SP_LATENT_CONTROL). Returns (name, seed)
+    -> the control's result directory root and its result."""
+    controls = {}
     for seed in SP_CONTROL_SEEDS + (SP_LATENT_CONTROL,):
-        names = SP_CONTROLLED if seed != SP_LATENT_CONTROL else tuple(SP_LATENT)
+        chosen = [n for n in names if seed != SP_LATENT_CONTROL or n in SP_LATENT]
         with permuted_train_rows(seed) if seed != SP_LATENT_CONTROL else float64_run():
-            for name in names:
+            for name in chosen:
                 argv = next(a for n, _, a in one_jobs if n == name)
                 root = WORK / f"sp_rest_control{seed}"
                 controls[name, seed] = root, dp_run([(name, "main_auto", [
                     a.replace(str(WORK / "sp_rest_single"), str(root)) for a in argv])],
                     device)[name]
-    jobs = sp_rest_jobs(data_root, rest_root, tube_root, out, mesh)
-    root = WORK / "sp_rest_ranks"
-    shutil.rmtree(root, ignore_errors=True)
-    root.mkdir(parents=True)
-    t0 = time.perf_counter()
-    mp.spawn(dp_rank, args=(world, str(root), jobs, str(device)), nprocs=world, join=True)
-    print(f"[sp] {world} ranks on one card (gloo), --mesh_shape {mesh} --shard_spatial 1, "
-          f"the rest of main_auto: {time.perf_counter() - t0:.2f} s, spawn included")
-    ranks = [torch.load(root / f"rank{r}.pt", weights_only=True) for r in range(world)]
+    return controls
+
+
+def check_rest_ranks(mesh: str, jobs, ranks, want: dict, controls: dict, out: Path, card,
+                     device):
+    """Phase 15c's checks of ``jobs`` (written under ``out``) on ``mesh``'s
+    ranks against one process (``want``, written under
+    ``WORK/sp_rest_single``): the mixed-precision flagship's losses and dev
+    scores within TP_BF16_RTOL; the pipelined flagship's losses, dev scores
+    and weights within DP_RTOL; the other runs (SP_CONTROLLED, whose
+    rounding-level gradients Adam amplifies) by their losses and weights
+    within DP_DRIFT_FACTOR times the largest of their permuted-row controls
+    plus DP_RTOL, and each of them by its float64 step within DP_RTOL too
+    (``dp_step_check``), as phase 15b holds the U-Net. Both kernels launch on
+    every rank in the flagship's float32 evaluation and on the pipeline's
+    stages, none on the other models; each rank's peak memory of a step,
+    against one process's. Returns each rank's launches by path and the
+    memory records."""
+    from cfdbench_tpu_torch.cli import parse_args, run_dir
+
     counts, memory, failures = {}, {}, []
     for name, entry, argv in jobs:
         what = f"{name}, {mesh} --shard_spatial 1 against one process"
@@ -4040,7 +4143,7 @@ def spatial_rest(device, card, data_root: Path, single: dict) -> dict:
                       + ", ".join(f"{k} {got[k]} B ({got[k] / one[k]:.3f})" for k in (
                           "param_bytes", "grad_bytes", "adam_bytes", "step2_bytes")))
             continue
-        if entry in ("step", "step_tube"):
+        if entry in ("step", "step_tube", "step_empty"):
             try:
                 dp_step_check(name, ranks[0][name], want[name], what)
             except RuntimeError as e:
@@ -4074,12 +4177,12 @@ def spatial_rest(device, card, data_root: Path, single: dict) -> dict:
             loss_rel, dev = losses_rel(mesh_run, one_run), dev_rel(mesh_run, one_run)
             params_rel = dp_params(ranks[0][name]["state"], want[name]["state"],
                                    want[name]["names"], what)
-            if name in SP_CONTROLLED:  # dev scores printed, as phase 15b prints the U-Net's
+            if name in SP_CONTROLLED + SP_EMPTY_CONTROLLED:  # dev scores printed, as 15b's U-Net's
                 ctl_loss = ctl_params = 0.0
                 for seed in SP_CONTROL_SEEDS + ((SP_LATENT_CONTROL,) if name in SP_LATENT
                                                 else ()):
                     root, ctl = controls[name, seed]
-                    control_run = root / mesh_run.relative_to(out)
+                    control_run = root / one_run.relative_to(WORK / "sp_rest_single")
                     loss_c = losses_rel(control_run, one_run)
                     params_c = dp_params(ctl["state"], want[name]["state"], want[name]["names"],
                                          f"{name} control, seed {seed}")
@@ -4109,6 +4212,96 @@ def spatial_rest(device, card, data_root: Path, single: dict) -> dict:
     return counts, memory
 
 
+def empty_jobs(rest_root: Path, empty_root: Path, out: Path, mesh: str):
+    """Phase 15d's runs where a level leaves a rank without a row, on
+    ``mesh`` (``--shard_spatial 1`` unless ``mesh`` is "1"): phase 15c's
+    latent_diffusion2 epoch and float64 step on its 64x64 tree
+    (``rest_root``) and its memory record at SP_PIXEL_BATCH; an epoch of the
+    U-Net on the SP_EMPTY_GRID tree ``empty_root`` at DP_UNET_BATCH and its
+    float64 step there (entry ``step_empty``)."""
+    sp = ["--shard_spatial", "1"] if mesh != "1" else []
+    latent = [(n, e, a) for n, e, a in sp_rest_jobs(WORK / "unused", rest_root, rest_root, out,
+                                                    mesh)
+              if n in ("latent_diffusion2", "latent_diffusion2_step", "memory_latent")]
+    data = ["--data_name", "cavity_prop_bc_geo", "--data_dir", str(empty_root),
+            "--output_dir", str(out / "empty"), "--mesh_shape", mesh, "--log_interval", "100",
+            "--mode", "train", "--num_epochs", "1", "--eval_interval", "1",
+            "--batch_size", str(DP_UNET_BATCH), "--eval_batch_size", str(DP_UNET_BATCH)]
+    return latent + [(n, e, a + sp) for n, e, a in (
+        ("unet_empty", "main_auto", ["--model", "unet"] + data),
+        ("unet_empty_step", "step_empty", ["--model", "unet", "--mesh_shape", mesh]))]
+
+
+def spatial_empty(device, card, data_root: Path, sp_want: dict, dp_controls: dict, rest: dict):
+    """Phase 15d(b-c), on one spawn of four gloo ranks sharing the one card:
+    phase 15b's runs on SP_MESHES[1] (the flagship, the flagship padded by
+    PAD, the memory record; :func:`check_sp_ranks`) and, on SP_EMPTY_MESH,
+    :func:`empty_jobs` (:func:`check_rest_ranks`, against phase 15c's
+    one-process latent_diffusion2 and its controls, and the U-Net's on the
+    SP_EMPTY_GRID tree, run here with its permuted-row controls). Returns
+    each rank's launches by path and the memory records."""
+    empty_root = rest["trees"][2]
+    mesh2 = SP_MESHES[1]
+    jobs2 = [j for j in sp_jobs(data_root, WORK / f"sp_{mesh2}", mesh2)
+             if j[0] in ("fno", "fno_padded", "memory")]
+    one_jobs = empty_jobs(rest["trees"][0], empty_root, WORK / "sp_rest_single", "1")
+    unet = [j for j in one_jobs if j[0].startswith("unet")]
+    want = rest["want"] | dp_run(unet, device)
+    controls = rest["controls"] | rest_controls(one_jobs, ("unet_empty",), device)
+    out = WORK / f"sp_{SP_EMPTY_MESH}"
+    jobs = empty_jobs(rest["trees"][0], empty_root, out, SP_EMPTY_MESH)
+    world = SP_RANKS[mesh2]
+    ranks = sp_spawn("sp_empty_ranks", world, jobs2 + jobs, device,
+                     f"--mesh_shape {mesh2} and {SP_EMPTY_MESH} --shard_spatial 1")
+    counts, memory = check_sp_ranks(mesh2, jobs2, ranks, sp_want, dp_controls, card, device)
+    empty_counts, empty_memory = check_rest_ranks(SP_EMPTY_MESH, jobs, ranks, want, controls,
+                                                  out, card, device)
+    return counts | empty_counts, memory | {f"{SP_EMPTY_MESH}_{k}": v
+                                            for k, v in empty_memory.items()}
+
+
+def padded_split_kernels(device, card) -> dict:
+    """Phase 15d(a): :func:`split_block` on the rows of the flagship padded
+    by PAD at SP_MESHES[0] (the last rank holds the pad rows, ``Rows(0, 32,
+    73)``), B=TIMING_BATCH, W = GRID + PAD, each rank's halves timed beside
+    their bounds; the head on each rank's cropped rows (a contiguous copy,
+    as the model's crop) against its plain version, the last rank's timed.
+    Returns per kernel a record."""
+    from cfdbench_tpu_torch.models.fno import crop, padded_rows
+    from cfdbench_tpu_torch.ops import _build, fno_kernels as fk
+    from cfdbench_tpu_torch.parallel.mesh import ModelAxis
+
+    lib, stream = _build.load_library(), torch.cuda.current_stream().cuda_stream
+    B, C, M = TIMING_BATCH, WIDTH, SP_RANKS[SP_MESHES[0]]
+    h = GRID // M
+    bounds = padded_rows(h, PAD, ModelAxis(M)).bounds
+    record, outs, gen = split_block(lib, stream, device, card, B, GRID + PAD, GRID + PAD, M,
+                                    bounds, PAD)
+    w1 = (torch.randn((128, C), generator=gen) * C ** -0.5).to(device)
+    b1 = (torch.randn((128,), generator=gen) * 0.1).to(device)
+    w2 = (torch.randn((2, 128), generator=gen) * 128 ** -0.5).to(device)
+    b2 = (torch.randn((2,), generator=gen) * 0.1).to(device)
+    mask = torch.ones((B, h, GRID, 1))
+    mask[:, : h // 3] = 0
+    errs = []
+    with torch.inference_mode():
+        for out in outs:
+            head = (crop(out, PAD, h), w1, b1, w2, b2, mask.to(device))
+            errs.append((fk.fno_head(*head) - fk.fno_head_reference(*head)).abs().max().item())
+        if not max(errs) <= HEAD_ATOL:
+            raise RuntimeError(f"fno_head on the ranks' cropped padded rows: max abs err {errs}")
+        p, k = interleaved_ms(lambda: fk.fno_head_reference(*head), lambda: fk.fno_head(*head),
+                              reps=20)
+    hb, hby = bound(*head_work(B, h, GRID, C, 128, 2))
+    shape = f"{h} of {GRID} rows, the last rank's crop of the rows {bounds}"
+    print(f"[sp] [{card}] fno_head B={B} {shape}: max abs err by rank "
+          + ", ".join(f"{e:.3e}" for e in errs)
+          + f" (bound {HEAD_ATOL:.0e}); kernel {k:.4f} ms, plain {p:.4f} ms; bound {hb:.4f} ms "
+          f"by {hby}")
+    return {"fno_block": record, "fno_head": dict(shape=shape, max_abs_err=max(errs), ms=k,
+                                                  plain_ms=p, bound_ms=hb, bound_by=hby)}
+
+
 def padded_kernels(device, card):
     """Phase 16a, the kernels: the block at B=128 on the padded grid against
     its plain version and timed beside its bound; the head on the cropped
@@ -4136,7 +4329,7 @@ def padded_kernels(device, card):
         print(f"[time] [{card}] fno_block B={B} {H}x{W} C={WIDTH} (the flagship padded by "
               f"{PAD}): kernel {k:.4f} ms, plain {p:.4f} ms ({p / k:.2f}x); bound "
               f"{bound_ms:.4f} ms by {bound_by}, kernel at {bound_ms / k:.1%} of it")
-        cropped = crop(got, PAD)
+        cropped = crop(got, PAD, GRID)
         mask = t["mask"][:, :GRID, :GRID].contiguous()
         head_args = (cropped, t["w1"], t["b1"], t["w2"], t["b2"], mask)
         head_err = (fk.fno_head(*head_args) - fk.fno_head_reference(*head_args)).abs().max().item()
@@ -4144,7 +4337,7 @@ def padded_kernels(device, card):
               f"{head_err:.3e} (bound {HEAD_ATOL:.0e})")
         if not head_err <= HEAD_ATOL:
             raise RuntimeError(f"fno_head on the cropped field disagrees: {head_err:.3e}")
-        crop_ms = warm_ms(lambda: crop(got, PAD), reps=20)
+        crop_ms = warm_ms(lambda: crop(got, PAD, GRID), reps=20)
         crop_bytes = 2 * 4 * B * GRID * GRID * WIDTH
         print(f"[time] [{card}] the crop's contiguous copy B={B} {H}x{W} -> {GRID}x{GRID} "
               f"C={WIDTH}: {crop_ms:.4f} ms, bound {crop_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms "
@@ -4447,18 +4640,31 @@ def main() -> int:
     t15 = time.perf_counter()
     sp_times = sp_kernels(device, card)
     phase.done("15a (kernels at a rank's rows)")
-    sp_counts, sp_mem = spatial_ranks(device, card, dp_data, dp_single, controls)
+    sp_counts, sp_mem, sp_want = spatial_ranks(device, card, dp_data, dp_single, controls)
     dp_counts.update(sp_counts)
     print(f"[phase15] [{card}] " + json.dumps({"kernels_at_rank_rows": sp_times,
                                                "memory": sp_mem, "launches": sp_counts,
                                                "seconds": time.perf_counter() - t15}))
     phase.done("15b (spatial sharding)")
     t15c = time.perf_counter()
-    rest_counts, rest_memory = spatial_rest(device, card, dp_data, dp_single)
+    rest_counts, rest_memory, rest = spatial_rest(device, card, dp_data, dp_single)
     dp_counts.update(rest_counts)
     print(f"[phase15c] [{card}] " + json.dumps({"launches": rest_counts, "memory": rest_memory,
                                                 "seconds": time.perf_counter() - t15c}))
     phase.done("15c (the rest of spatial sharding)")
+    t15d = time.perf_counter()
+    padded_split = padded_split_kernels(device, card)
+    for name, record in padded_split.items():
+        sp_times[name].append(record)
+    phase.done("15d(a) (kernels at the padded flagship's rows)")
+    empty_counts, empty_memory = spatial_empty(device, card, dp_data, sp_want, controls, rest)
+    dp_counts.update(empty_counts)
+    print(f"[phase15d] [{card}] " + json.dumps({"kernels_at_padded_rows": padded_split,
+                                                "launches": empty_counts,
+                                                "memory": empty_memory,
+                                                "seconds": time.perf_counter() - t15d}))
+    phase.done(f"15d(b-c) ({SP_MESHES[1]}, the padded flagship, {SP_EMPTY_MESH} with empty "
+               "ranks)")
     t16 = time.perf_counter()
     padded, padded_head_err = padded_kernels(device, card)
     padded_counts, padded_times = padded_paths(device, card)

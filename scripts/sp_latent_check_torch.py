@@ -76,7 +76,7 @@ def main() -> int:
 
     cs.sp_rest_jobs = latent_jobs
     t1 = time.perf_counter()
-    counts, memory = cs.spatial_rest(device, card, data_root, {"fno": None})
+    counts, memory, _ = cs.spatial_rest(device, card, data_root, {"fno": None})
     print("[latent] " + json.dumps({"launches": counts, "memory": memory,
                                     "seconds_15c": time.perf_counter() - t1,
                                     "seconds": time.perf_counter() - t0}))

@@ -6,7 +6,8 @@ route in interpret mode (``fno2d_apply_pallas``), 2e-5; the gradients,
 1e-5 of their largest; three Adam steps through ``trainer_auto.train_step``
 and a 5-step rollout; the served predict against the in-process one; a
 ``1x2`` tensor-parallel step on gloo ranks against JAX and one process; the
-pipeline and spatial-sharding refusals. The kernels' path on the CPU: the
+pipeline's refusal, and spatial sharding's taking it (its steps:
+``tests/test_torch_sp_padded.py``). The kernels' path on the CPU: the
 model's own forward with every block and the head launched through the
 kernels' CPU emulation (``FnoBlockFn``, ``FnoHeadFn``), and the block at an
 odd padded grid wider than 64 (73x73, the flagship's 64x64 padded by 9)."""
@@ -31,6 +32,7 @@ from cfdbench_tpu_torch import metrics
 from cfdbench_tpu_torch.models import fno
 from cfdbench_tpu_torch.models.fno import Fno2d, fno2d_reference
 from cfdbench_tpu_torch.ops import fno_kernels as fk
+from cfdbench_tpu_torch.parallel.mesh import DataMesh, ModelAxis
 from cfdbench_tpu_torch.parallel.pipeline import PipelineStage
 from cfdbench_tpu_torch.training.optim import make_adam
 from cfdbench_tpu_torch.training.rollout import make_rollout_fn
@@ -263,11 +265,17 @@ def test_pipeline_refuses_a_padded_model():
 
 
 def test_spatial_sharding_refuses_a_padded_model():
+    """``split_model`` with ``spatial`` takes a padded model, as XLA splits
+    its padded rows: its blocks and task run on the rank's rows
+    (``tests/test_torch_sp_padded.py`` holds the step to JAX's)."""
     _, _, model = both_models(2, 4)
-    task = SimpleNamespace(model=model, mesh=SimpleNamespace(model=model_axis()))
-    with pytest.raises(NotImplementedError, match="shard_spatial 1 with an Fno2d of padding 2"):
-        split_model(task, spatial=True)
-    assert model.sp is None
+    whole = sum(p.numel() for p in model.parameters())
+    task = AutoTask(model, metrics.loss_name_to_fn("nmse"))
+    task.mesh = DataMesh(model=ModelAxis(2))  # only its sizes are read
+    split_model(task, spatial=True)
+    axis = task.mesh.model
+    assert task.rows is axis and model.sp is axis and all(b.sp is axis for b in model.blocks)
+    assert task.split is not None and sum(p.numel() for p in model.parameters()) < whole
 
 
 def test_padding_below_one_is_refused():

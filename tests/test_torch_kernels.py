@@ -13,7 +13,7 @@ split and in ``mma.sync`` fragment order — and it runs both kernels
 through their CPU emulation (``ops/_build.py::load_emulation``, built
 with the host's C++ compiler) against the plain versions, the block also
 split around the sum of its spectrum over the rows that spatial sharding's
-ranks hold.
+ranks hold (a padded FNO's uneven rows too).
 """
 
 import numpy as np
@@ -192,29 +192,36 @@ def emulation():
         pytest.skip(str(e))
 
 
-def split_block(lib, stream, x, w, w0, b0, modes, M):
-    """The block kernel split over M ranks' rows of x, as spatial sharding
-    runs it (``fno_kernels._block_call`` with ``rows``): pass 1 on each
-    rank's rows, the partial spectra summed, passes 2-4 on each rank's
-    rows."""
+def split_block(lib, stream, x, w, w0, b0, modes, bounds):
+    """The block kernel split at the rows ``bounds`` of x (the ranks' rows),
+    as spatial sharding runs it (``fno_kernels._block_call`` with ``rows``):
+    pass 1 on each rank's rows, the partial spectra summed, passes 2-4 on
+    each rank's rows."""
     H = x.shape[1]
-    h = H // M
-    rows = [x[:, j * h:(j + 1) * h].contiguous() for j in range(M)]
-    xm = sum(fk._block_spectrum(lib, r, modes, modes, stream, (j * h, H))
-             for j, r in enumerate(rows))
-    outs = [fk._block_finish(lib, r, xm, w, w0, b0, modes, modes, stream, True, (j * h, H))
-            for j, r in enumerate(rows)]
+    spans = list(zip(bounds, bounds[1:]))
+    rows = [x[:, a:b].contiguous() for a, b in spans]
+    xm = sum(fk._block_spectrum(lib, r, modes, modes, stream, (a, H))
+             for r, (a, _) in zip(rows, spans))
+    outs = [fk._block_finish(lib, r, xm, w, w0, b0, modes, modes, stream, True, (a, H))
+            for r, (a, _) in zip(rows, spans)]
     return torch.cat([o for o, _ in outs], 1), xm, torch.cat([p for _, p in outs], 1)
 
 
-def check_split_block(lib, stream, B, H, W, C, M, device, modes=12):
+def check_split_block(lib, stream, B, H, W, C, M, device, modes=12, bounds=None, pad=0):
+    """The block split over M ranks' rows (the even split, or ``bounds``; a
+    field whose last ``pad`` rows and columns are zero, as a padded FNO's)
+    against the plain whole block."""
     gen = torch.Generator().manual_seed(0)
-    x = torch.randn((B, H, W, C), generator=gen).to(device)
+    x = torch.randn((B, H, W, C), generator=gen)
+    if pad:
+        x[:, H - pad:], x[:, :, W - pad:] = 0, 0
+    x = x.to(device)
     w = (init_spectral_weights(gen, C, C, modes, modes) * C).to(device)
     w0 = (torch.randn((C, C), generator=gen) / C ** 0.5).to(device)
     b0 = (torch.randn((C,), generator=gen) * 0.1).to(device)
     block = (x, w, w0, b0, modes, modes)
-    out, xm, pre = split_block(lib, stream, x, w, w0, b0, modes, M)
+    bounds = [j * H // M for j in range(M + 1)] if bounds is None else bounds
+    out, xm, pre = split_block(lib, stream, x, w, w0, b0, modes, bounds)
     want_xm, want_pre = fk.fno_block_saved_reference(*block)
     assert torch.isfinite(out).all()
     assert (out - fk.fno_block_reference(*block)).abs().max().item() <= 1e-4
@@ -232,6 +239,22 @@ def check_split_block(lib, stream, B, H, W, C, M, device, modes=12):
                          [(64, 20, 2, 4), (64, 20, 4, 4), (66, 20, 2, 12), (8, 512, 2, 4)])
 def test_split_block_kernel_matches_the_whole_in_emulation(H, W, M, modes):
     check_split_block(emulation(), 0, 1, H, W, 32, M, "cpu", modes)
+
+
+def test_split_block_kernel_on_padded_rows_matches_the_whole_in_emulation():
+    """A padded FNO's split under spatial sharding: 16 rows padded by 3 at
+    two ranks, the last holding the pad (8 and 11 of 19 rows, W = 19)."""
+    check_split_block(emulation(), 0, 1, 19, 19, 32, 2, "cpu", 4, bounds=(0, 8, 19), pad=3)
+
+
+@pytest.mark.cuda
+def test_split_block_kernel_on_padded_rows_matches_the_whole_on_card(cuda_device):
+    """The flagship padded by 9 at two ranks: the rows (0, 32, 73), W = 73."""
+    from cfdbench_tpu_torch.utils.device import set_f32_numerics
+
+    set_f32_numerics()
+    check_split_block(_build.load_library(), torch.cuda.current_stream().cuda_stream, 4, 73, 73,
+                      32, 2, cuda_device, bounds=(0, 32, 73), pad=9)
 
 
 @pytest.mark.cuda

@@ -15,9 +15,9 @@
   the test scores (whole rows, rel 1e-4), the dev scores (rel 1e-4), the
   losses (rel 1e-5) and the weights (1e-5 of the largest); ``--resume``
   across the layouts both ways; ``--shard_spatial 1`` on one process.
-- The refusals: rows that do not split (next to JAX's own), the U-Net's
-  levels that would leave a rank without a row, a pooling across ranks,
-  and the flags left for ROADMAP.md A15e and C.
+- The refusals: rows that do not split (next to JAX's own), a pooling
+  across ranks, and the flags left for ROADMAP.md A15e and C; the U-Net's
+  levels that leave a rank without a row, accepted.
 """
 
 import json
@@ -30,6 +30,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from cfdbench_tpu.models.resnet import ResNet as JaxResNet
 from cfdbench_tpu.parallel.mesh import batch_sharding_spatial
 from cfdbench_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from cfdbench_tpu_torch import cli
@@ -37,6 +38,7 @@ from cfdbench_tpu_torch.models.common import MaxPool2
 from cfdbench_tpu_torch.ops import fno_kernels as fk
 from cfdbench_tpu_torch.ops.spectral import init_spectral_weights
 from cfdbench_tpu_torch.parallel.mesh import DataMesh, ModelAxis
+from cfdbench_tpu_torch.parallel.spatial import Rows
 from cfdbench_tpu_torch.training import checkpoints as ckpt
 from cfdbench_tpu_torch.training.trainer_auto import check_spatial
 from tests import _torch_dp_worker as worker
@@ -291,19 +293,42 @@ def test_rows_that_do_not_split_are_refused_as_jax_refuses_them():
     check_spatial(model, axis_mesh(2), (66, 65))
 
 
-@pytest.mark.parametrize("H,M,ok", [(16, 2, False), (32, 4, False), (32, 2, True), (64, 4, True)])
-def test_unet_rows_that_do_not_pool_are_refused(H, M, ok):
-    """The U-Net's levels keep a row on every rank: its four poolings, each
-    on rows resharded to whole pairs, leave a rank none of the bottleneck's
-    rows at 16 rows over 2 ranks or 32 over 4 (a level of 1 row a rank); any
-    other row count that divides runs (``tests/test_torch_sp_unet.py``). Its
-    MaxPool2 refuses a split whose ranks do not hold whole row pairs."""
+@pytest.mark.parametrize("H,M,every_level_on_every_rank",
+                         [(16, 2, False), (32, 4, False), (32, 2, True), (64, 4, True)])
+def test_unet_rows_that_do_not_pool_are_refused(H, M, every_level_on_every_rank):
+    """Every row count that divides runs, as XLA computes it: the U-Net's
+    four poolings, each on rows resharded to whole pairs, leave a rank none
+    of the bottleneck's rows at 16 rows over 2 ranks or 32 over 4 (a level
+    of 1 row a rank), which ``check_spatial`` accepts all the same
+    (``tests/test_torch_sp_empty.py`` runs them). Its MaxPool2 refuses a
+    split whose ranks do not hold whole row pairs."""
     model = worker.make_task("unet", dict(dim=4)).model
-    if ok:
-        check_spatial(model, axis_mesh(M), (H, H))
-    else:
-        with pytest.raises(ValueError, match=r"leave a rank of .* without a row"):
-            check_spatial(model, axis_mesh(M), (H, H))
+    check_spatial(model, axis_mesh(M), (H, H))
+    levels = Rows.even(H, ModelAxis(M)).halvings(4, ceil=False)
+    assert all(b1 > b0 for r in levels for b0, b1 in zip(r.bounds, r.bounds[1:])) == (
+        every_level_on_every_rank)
+
+
+@pytest.mark.parametrize("kernel_size,padding", [(5, 1), (3, 2)])
+def test_resnet_conv_that_resizes_the_grid_fails_in_jax_and_is_refused(kernel_size, padding):
+    """A ``--resnet_kernel_size``/``--resnet_padding`` pair whose 2 padding
+    is not k - 1 resizes the grid at each convolution: JAX's ResNet adds its
+    block's output to the input's 1x1 projection
+    (``cfdbench_tpu/models/resnet.py:38-56``) and fails on the shapes, and
+    so does the port's on whole rows; under sp its ``Conv`` refuses such a
+    convolution by name (ROADMAP.md C)."""
+    widths = dict(hidden_chan=8, num_blocks=1, kernel_size=kernel_size, padding=padding)
+    x, cp, mask = jnp.zeros((1, 8, 8, 2)), jnp.zeros((1, 5)), jnp.ones((1, 8, 8, 1))
+    with pytest.raises(TypeError, match="broadcast"):
+        JaxResNet(in_chan=2, out_chan=2, n_case_params=5, **widths).init(
+            jax.random.PRNGKey(0), x, cp, mask)
+    model = worker.make_task("resnet", widths).model.eval()
+    with pytest.raises(RuntimeError, match="size of tensor"):
+        model(torch.zeros((1, 8, 8, 2)), torch.zeros((1, 5)), torch.ones((1, 8, 8, 1)))
+    conv = model.blocks[0].conv1
+    conv.sp = ModelAxis(2)
+    with pytest.raises(ValueError, match=f"padding {padding} on a rank's rows.*ROADMAP.md C"):
+        conv(torch.zeros((1, 4, 8, conv.weight.shape[1])))
 
 
 def test_maxpool_refuses_an_odd_row_count_under_sp():
