@@ -97,7 +97,7 @@ from .training.rollout import make_rollout_fn, multistep_metrics
 from .training.trainer_auto import AutoTask, use_mesh
 from .training.trainer_nonauto import NonAutoTask
 from .utils.artifacts import get_output_dir, plot_multistep_metrics
-from .utils.device import entry_device, set_f32_numerics
+from .utils.device import F32_PRECISIONS, TF32_PRECISIONS, entry_device, set_numerics
 from .utils.profiling import profile_trace
 
 INFER_STEPS = 20
@@ -132,7 +132,11 @@ def check_runtime_flags(args: Args) -> None:
     """Raise on the flags that every JAX entry point reads
     (``_apply_runtime_flags``, ``_mesh``) set to a behaviour the port lacks.
     ``--profile_dir`` is taken: each entry point runs inside
-    :func:`~.utils.profiling.profile_trace`."""
+    :func:`~.utils.profiling.profile_trace`. ``--matmul_precision`` is
+    taken for the values that JAX runs on an NVIDIA card as TF32 (cuBLAS,
+    cuDNN and the FNO's kernels in TF32 on the card) or as float32
+    (``default`` among them: PyTorch's own default, ROADMAP.md C); the
+    entry point sets them (``utils/device.py::set_numerics``)."""
     if args.spectral_backend != "auto":
         raise NotImplementedError(
             f"--spectral_backend {args.spectral_backend}: the DFT-matmul "
@@ -145,10 +149,12 @@ def check_runtime_flags(args: Args) -> None:
             "--compilation_cache_dir: the port has no XLA cache; its kernels "
             "are built once into build/cfdbench_tpu_torch (ROADMAP.md A17)"
         )
-    if args.matmul_precision not in ("default", "highest"):
+    if args.matmul_precision not in TF32_PRECISIONS + F32_PRECISIONS:
         raise NotImplementedError(
-            f"--matmul_precision {args.matmul_precision}: the port always "
-            "multiplies in full float32 (ROADMAP.md A17)"
+            f"--matmul_precision {args.matmul_precision}: the port runs the values that "
+            f"JAX runs on an NVIDIA card as TF32 ({', '.join(TF32_PRECISIONS)}) or as "
+            f"float32 ({', '.join(F32_PRECISIONS)}); the others are not ported "
+            "(ROADMAP.md A17)"
         )
 
 
@@ -369,7 +375,7 @@ def main_multistep(argv=None, device=None) -> torch.Tensor:
     args = parse_args(argv)
     check_rollout_flags(args)
     device = entry_device(device)
-    set_f32_numerics()
+    set_numerics(args.matmul_precision)
     with open_mesh(args.mesh_shape, device) as mesh, profile_trace(args.profile_dir, device):
         return _run_multistep(args, device, mesh)
 
@@ -500,7 +506,7 @@ def main_auto(argv=None, device=None):
     args = parse_args(argv)
     check_training_flags(args, "auto")
     device = entry_device(device)
-    set_f32_numerics()
+    set_numerics(args.matmul_precision)
     with open_mesh(args.mesh_shape, device) as mesh, profile_trace(args.profile_dir, device):
         return _run_auto(args, device, mesh)
 
@@ -588,7 +594,7 @@ def main_train(argv=None, device=None) -> NonAutoTask:
     args = parse_args(argv)
     check_training_flags(args, "nonauto")
     device = entry_device(device)
-    set_f32_numerics()
+    set_numerics(args.matmul_precision)
     with open_mesh(args.mesh_shape, device) as mesh, profile_trace(args.profile_dir, device):
         return _run_train(args, device, mesh)
 
@@ -662,7 +668,7 @@ def main_gencast(argv=None, device=None):
     args = dataclasses.replace(parse_args(argv), model="gencast")
     check_training_flags(args, "gencast")
     device = entry_device(device)
-    set_f32_numerics()
+    set_numerics(args.matmul_precision)
     with open_mesh(args.mesh_shape, device) as mesh, profile_trace(args.profile_dir, device):
         return _run_gencast(args, device, mesh)
 
@@ -736,7 +742,7 @@ def main_vae(argv=None, device=None):
     args = parse_args(argv)
     check_vae_flags(args)
     device = entry_device(device)
-    set_f32_numerics()
+    set_numerics(args.matmul_precision)
     with open_mesh(args.mesh_shape, device) as mesh, profile_trace(args.profile_dir, device):
         return _run_vae(args, device, mesh)
 
@@ -785,7 +791,7 @@ def main_uncond(argv=None, device=None):
     args = parse_args(argv)
     check_uncond_flags(args)
     device = entry_device(device)
-    set_f32_numerics()
+    set_numerics(args.matmul_precision)
     with open_mesh(args.mesh_shape, device) as mesh, profile_trace(args.profile_dir, device):
         return _run_uncond(args, device, mesh)
 

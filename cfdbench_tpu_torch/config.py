@@ -216,9 +216,11 @@ class Args:
     stochastic diffusion rollouts and the --use_pallas_head path keep
     f32 (the CLI warns and falls back)."""
     matmul_precision: str = "default"
-    """XLA matmul precision: 'default' (bf16 multiplies, f32 accumulate
-    — fastest on TPU), 'high', or 'highest' (full f32, for numerical
-    parity runs against the fp32 reference)."""
+    """Float32 product precision on the card: 'high' (also 'tensorfloat32',
+    'TF32_TF32_F32') multiplies in TF32, as JAX does on an NVIDIA card, in
+    cuBLAS, cuDNN and the FNO's kernels; 'default', 'highest' (also
+    'float32', 'F32_F32_F32', 'TF32_TF32_F32_X3') in full float32, for
+    parity with the float32 reference. No effect on the CPU."""
     profile_dir: str = ""
     """If set, write a jax.profiler trace of the training loop here."""
     compilation_cache_dir: str = ""

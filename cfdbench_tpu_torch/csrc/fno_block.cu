@@ -20,7 +20,10 @@
 // mma.sync.m16n8k8 products per tile hold float32 accuracy. The DFT tables
 // are split and laid out in fragment order once on the host
 // (ops/fno_kernels.py::_block_tables); x and the intermediates are split
-// in registers. An image (512 KB at the flagship shape) does not fit one
+// in registers. Every tensor-core pass also builds with one TF32 product
+// per tile (template argument P = 1: --matmul_precision high), which reads
+// only the high halves; the mixing stays float32 FMA in both modes.
+// An image (512 KB at the flagship shape) does not fit one
 // block's shared memory, so the retained modes (74 KB per image) and the
 // inverse's row spectra go through device memory between four passes:
 //   1. dft_forward_kernel: one block of 16 warps per (image, 32-channel
@@ -150,7 +153,7 @@ static_assert(kOutRows * kOutMT == kWarps, "a warp an item's (row, 16-column til
 // with its columns of x and sums the chunks' T in shared memory.
 __device__ __forceinline__ int x_swizzle(int w, int c) { return c ^ ((w & 3) << 3); }
 
-template <bool STREAM>
+template <bool STREAM, int P>
 __global__ void __launch_bounds__(kFwdThreads, 1) dft_forward_kernel(
     const float* __restrict__ x, const float4* __restrict__ e1f, const float4* __restrict__ e2f,
     float* __restrict__ xm, int H, int W, int Ci, int K, int m2, int n_mc) {
@@ -270,8 +273,10 @@ __global__ void __launch_bounds__(kFwdThreads, 1) dft_forward_kernel(
         if (nw < nw_n) {
           uint32_t bhi[2], blo[2];
           load_b_frag(e2u + (ks * kFwdNW + nw) * 32 + lane, bhi, blo);
-          mma_tf32(accl[nw], alo, bhi);
-          mma_tf32(accl[nw], ahi, blo);
+          if (P == 3) {
+            mma_tf32(accl[nw], alo, bhi);
+            mma_tf32(accl[nw], ahi, blo);
+          }
           mma_tf32(accw[nw], ahi, bhi);
         }
       }
@@ -319,7 +324,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) dft_forward_kernel(
           load_a_frag(e1g + ((mt * 2 + ks) * 32 + lane) * 2, ehi, elo);
 #pragma unroll
           for (int j = 0; j < kFwdNTW; ++j) {
-            if (warp + kFwdWarps * j < nh_n) mma_3xtf32(acc[mt][j], ehi, elo, bhi[j], blo[j]);
+            if (warp + kFwdWarps * j < nh_n) mma_tf32x<P>(acc[mt][j], ehi, elo, bhi[j], blo[j]);
           }
         }
       }
@@ -423,6 +428,7 @@ __global__ void __launch_bounds__(kThreads) mode_mix_kernel(
 // a1f: (ceil(H/8), ceil(2K/8), 32 lanes, 8) split A fragments of the
 //      tile's rows of [[Ar, -Ai], [Ai, Ar]]: A rows g are the real part of
 //      tile row g, rows g + 8 its imaginary part.
+template <int P>
 __global__ void __launch_bounds__(kThreads) inverse_rows_kernel(
     const float* __restrict__ ym, const float4* __restrict__ a1f, float* __restrict__ z, int H,
     int Co, int K, int m2) {
@@ -455,7 +461,7 @@ __global__ void __launch_bounds__(kThreads) inverse_rows_kernel(
           uint32_t bhi[2], blo[2];
           split_tf32(v[j][0], bhi[0], blo[0]);
           split_tf32(v[j][1], bhi[1], blo[1]);
-          mma_3xtf32(acc[j], ahi, alo, bhi, blo);
+          mma_tf32x<P>(acc[j], ahi, alo, bhi, blo);
         }
       }
     }
@@ -515,6 +521,7 @@ __device__ __forceinline__ void cols_epilogue(const float (&acc)[kOutNT][4], con
 // tables and two rows do not fit a block, inverse_cols_tiled_kernel runs.
 // bwf: (ceil(W/16), KZ/8, 32 lanes, 8) split A fragments of [Br | -Bi],
 //      KZ = 2 m2 rounded up to 8: a 16-column tile's are contiguous.
+template <int P>
 __global__ void __launch_bounds__(kThreads, 3) inverse_cols_kernel(
     const float* __restrict__ x, const float* __restrict__ z, const float4* __restrict__ bwf,
     const float* __restrict__ w0, const float* __restrict__ b0, float* __restrict__ out,
@@ -640,7 +647,7 @@ __global__ void __launch_bounds__(kThreads, 3) inverse_cols_kernel(
             uint32_t bhi[2], blo[2];
             split_tf32(zk[j * 8], bhi[0], blo[0]);
             split_tf32(zk[j * 8 + 4 * kOutSz], bhi[1], blo[1]);
-            mma_3xtf32(acc[j], ahi, alo, bhi, blo);
+            mma_tf32x<P>(acc[j], ahi, alo, bhi, blo);
           }
         }
       }
@@ -652,7 +659,7 @@ __global__ void __launch_bounds__(kThreads, 3) inverse_cols_kernel(
           if (j < nto) {
             uint32_t bhi[2], blo[2];
             load_b_frag(w0s + (ks * kOutNT + j) * 32 + lane, bhi, blo);
-            mma_3xtf32(acc[j], ahi, alo, bhi, blo);
+            mma_tf32x<P>(acc[j], ahi, alo, bhi, blo);
           }
         }
       }
@@ -674,6 +681,7 @@ __global__ void __launch_bounds__(kThreads, 3) inverse_cols_kernel(
 // of w0 raw, split as they are read. Warp w owns row w % kOutRows and
 // 16-column tile w / kOutRows of the item; its accumulators stay in
 // registers across the item's chunks.
+template <int P>
 __global__ void __launch_bounds__(kThreads, 2) inverse_cols_tiled_kernel(
     const float* __restrict__ x, const float* __restrict__ z, const float4* __restrict__ bwf,
     const float* __restrict__ w0, const float* __restrict__ b0, float* __restrict__ out,
@@ -828,7 +836,7 @@ __global__ void __launch_bounds__(kThreads, 2) inverse_cols_tiled_kernel(
               uint32_t bhi[2], blo[2];
               split_tf32(zk[j * 8], bhi[0], blo[0]);
               split_tf32(zk[j * 8 + 4 * kOutSz], bhi[1], blo[1]);
-              mma_3xtf32(acc[j], ahi, alo, bhi, blo);
+              mma_tf32x<P>(acc[j], ahi, alo, bhi, blo);
             }
           }
         }
@@ -847,7 +855,7 @@ __global__ void __launch_bounds__(kThreads, 2) inverse_cols_tiled_kernel(
               uint32_t bhi[2], blo[2];
               split_tf32(wv[0], bhi[0], blo[0]);
               split_tf32(wv[4], bhi[1], blo[1]);
-              mma_3xtf32(acc[j], ahi, alo, bhi, blo);
+              mma_tf32x<P>(acc[j], ahi, alo, bhi, blo);
             }
           }
         }
@@ -893,6 +901,33 @@ BlockPlan plan_block(int W, int Ci, int m2) {
   return p;
 }
 
+// Passes 2-4 in P TF32 products (fno_block_finish).
+template <int P>
+int block_finish(const float* x, const float* xm, const float* weights, const float* w0,
+                 const float* b0, const float* a1f, const float* bwf, float* ym, float* z,
+                 float* out, float* pre, int B, int H, int W, int Ci, int Co, int M1, int M2,
+                 int m1, int m2, const BlockPlan& plan, cudaStream_t stream) {
+  const int K = 2 * m1;
+  const int nh = ceil_div(H, kOutRows), n_ot = ceil_div(Co, kOutCo);
+  const long long n_items = (long long)B * nh * (plan.tiled ? ceil_div(W, kOutCols) : 1);
+  const auto cols = plan.tiled ? inverse_cols_tiled_kernel<P> : inverse_cols_kernel<P>;
+  cudaError_t err;
+  if ((err = allow_dynamic_smem((const void*)mode_mix_kernel, plan.s2))) return err;
+  if ((err = allow_dynamic_smem((const void*)cols, plan.s4))) return err;
+  int cols_blocks = 0;  // all output-channel tiles together
+  if ((err = persistent_blocks(cols, kThreads, plan.s4, n_items * n_ot, &cols_blocks))) return err;
+  FNO_LAUNCH(mode_mix_kernel, dim3(K * m2, ceil_div(B, kBatchTile), ceil_div(Co, kMixCo)),
+             kThreads, plan.s2, stream)(xm, weights, ym, B, K, m1, m2, Ci, Co, M1, M2);
+  if ((err = cudaGetLastError())) return err;
+  FNO_LAUNCH(inverse_rows_kernel<P>, dim3(B, ceil_div(H, kInvRows)), kThreads, 0, stream)(
+      ym, reinterpret_cast<const float4*>(a1f), z, H, Co, K, m2);
+  if ((err = cudaGetLastError())) return err;
+  const dim3 cols_grid(cols_blocks > n_ot ? cols_blocks / n_ot : 1, n_ot);
+  FNO_LAUNCH(cols, cols_grid, kThreads, plan.s4, stream)(
+      x, z, reinterpret_cast<const float4*>(bwf), w0, b0, out, pre, B, H, W, Ci, Co, m2);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -923,29 +958,26 @@ const char* fno_block_unsupported(int W, int Ci, int m2) { return plan_block(W, 
 // rows 0..m1-1 and H-m1..H-1 of rfft2 (of the global grid's rows), real
 // then imaginary parts, summed over the H rows of x (B, H, W, Ci) that
 // this call holds. e1f, e2f: ops/fno_kernels.py::_block_tables for those
-// rows.
+// rows. products: 3 for split TF32, 1 for TF32 (tf32.cuh), else refused.
 int fno_block_spectrum(const float* x, const float* e1f, const float* e2f, float* xm, int B,
-                       int H, int W, int Ci, int m1, int m2, void* stream_ptr) {
+                       int H, int W, int Ci, int m1, int m2, int products, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const BlockPlan plan = plan_block(W, Ci, m2);
   if (plan.why) return cudaErrorInvalidValue;
   const int K = 2 * m1, n_kc = ceil_div(K, kFwdK), n_mc = ceil_div(m2, kFwdModes);
-  cudaError_t err;
   const bool stream_w = ceil_div(W, 8) > kFwdWK;
-  const void* forward = stream_w ? (const void*)dft_forward_kernel<true>
-                                 : (const void*)dft_forward_kernel<false>;
-  if ((err = allow_dynamic_smem(forward, plan.s1))) return err;
   const dim3 forward_grid(B, ceil_div(Ci, kFwdChan), n_kc * n_mc);
   const float4* e1q = reinterpret_cast<const float4*>(e1f);
   const float4* e2q = reinterpret_cast<const float4*>(e2f);
-  if (stream_w) {
-    FNO_LAUNCH(dft_forward_kernel<true>, forward_grid, kFwdThreads, plan.s1, stream)(
-        x, e1q, e2q, xm, H, W, Ci, K, m2, n_mc);
-  } else {
-    FNO_LAUNCH(dft_forward_kernel<false>, forward_grid, kFwdThreads, plan.s1, stream)(
-        x, e1q, e2q, xm, H, W, Ci, K, m2, n_mc);
-  }
-  return cudaGetLastError();
+  return with_products(products, [&](auto p) -> int {
+    constexpr int P = decltype(p)::value;
+    const auto forward = stream_w ? dft_forward_kernel<true, P> : dft_forward_kernel<false, P>;
+    cudaError_t err;
+    if ((err = allow_dynamic_smem((const void*)forward, plan.s1))) return err;
+    FNO_LAUNCH(forward, forward_grid, kFwdThreads, plan.s1, stream)(x, e1q, e2q, xm, H, W, Ci, K,
+                                                                     m2, n_mc);
+    return cudaGetLastError();
+  });
 }
 
 // fno_block_finish, passes 2-4 on the whole retained spectrum xm, for the H
@@ -953,34 +985,20 @@ int fno_block_spectrum(const float* x, const float* e1f, const float* e2f, float
 // M2); w0 (Co, Ci); b0 (Co,); a1f, bwf: ops/fno_kernels.py::_block_tables
 // for those rows; scratch ym (B, 2, 2*m1, m2, Co) and z (B, H, 2, m2, Co);
 // out and, unless null, pre (the pre-activation): (B, H, W, Co). All
-// float32, contiguous, on the current device. Launches on `stream`, does
-// not sync.
+// float32, contiguous, on the current device; products as for
+// fno_block_spectrum. Launches on `stream`, does not sync.
 int fno_block_finish(const float* x, const float* xm, const float* weights, const float* w0,
                      const float* b0, const float* a1f, const float* bwf, float* ym, float* z,
                      float* out, float* pre, int B, int H, int W, int Ci, int Co, int M1, int M2,
-                     int m1, int m2, void* stream_ptr) {
+                     int m1, int m2, int products, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const BlockPlan plan = plan_block(W, Ci, m2);
   if (plan.why) return cudaErrorInvalidValue;
-  const int K = 2 * m1;
-  const int nh = ceil_div(H, kOutRows), n_ot = ceil_div(Co, kOutCo);
-  const long long n_items = (long long)B * nh * (plan.tiled ? ceil_div(W, kOutCols) : 1);
-  const auto cols = plan.tiled ? inverse_cols_tiled_kernel : inverse_cols_kernel;
-  cudaError_t err;
-  if ((err = allow_dynamic_smem((const void*)mode_mix_kernel, plan.s2))) return err;
-  if ((err = allow_dynamic_smem((const void*)cols, plan.s4))) return err;
-  int cols_blocks = 0;  // all output-channel tiles together
-  if ((err = persistent_blocks(cols, kThreads, plan.s4, n_items * n_ot, &cols_blocks))) return err;
-  FNO_LAUNCH(mode_mix_kernel, dim3(K * m2, ceil_div(B, kBatchTile), ceil_div(Co, kMixCo)),
-             kThreads, plan.s2, stream)(xm, weights, ym, B, K, m1, m2, Ci, Co, M1, M2);
-  if ((err = cudaGetLastError())) return err;
-  FNO_LAUNCH(inverse_rows_kernel, dim3(B, ceil_div(H, kInvRows)), kThreads, 0, stream)(
-      ym, reinterpret_cast<const float4*>(a1f), z, H, Co, K, m2);
-  if ((err = cudaGetLastError())) return err;
-  const dim3 cols_grid(cols_blocks > n_ot ? cols_blocks / n_ot : 1, n_ot);
-  FNO_LAUNCH(cols, cols_grid, kThreads, plan.s4, stream)(
-      x, z, reinterpret_cast<const float4*>(bwf), w0, b0, out, pre, B, H, W, Ci, Co, m2);
-  return cudaGetLastError();
+  return with_products(products, [&](auto p) -> int {
+    constexpr int P = decltype(p)::value;
+    return block_finish<P>(x, xm, weights, w0, b0, a1f, bwf, ym, z, out, pre, B, H, W, Ci, Co,
+                           M1, M2, m1, m2, plan, stream);
+  });
 }
 
 }  // extern "C"

@@ -18,7 +18,9 @@
 // persistent block walks tiles of 128 pixels (16 KB of x at C = 32,
 // contiguous), staged by cp.async one tile ahead of the products; each
 // warp owns 16 pixels and computes their hidden units 64 at a time in
-// registers. Where w1 and two tiles of x fit shared memory (C up to 104 at
+// registers. With one TF32 product per tile (template argument P = 1:
+// --matmul_precision high) fc1 reads only the high halves; fc2 stays
+// float32 FMA. Where w1 and two tiles of x fit shared memory (C up to 104 at
 // 128 hidden units: the flagship), w1 is split once per block into
 // fragment order there (fno_head_kernel). Wider, fc1 streams over the
 // channels (fno_head_streamed_kernel): a unit of work is (tile, 64 hidden
@@ -105,7 +107,7 @@ __device__ __forceinline__ void head_store(float (&s)[OUTS][2], const float* b2,
 
 // NOUT: the output count when it is fixed at compile time (the FNO's 2),
 // or 0 for any count up to kMaxOut, checked at run time. w1 resident.
-template <int NOUT>
+template <int NOUT, int P>
 __global__ void __launch_bounds__(kHeadThreads) fno_head_kernel(
     const float* __restrict__ x, const float* __restrict__ w1,
     const float* __restrict__ b1, const float* __restrict__ w2,
@@ -203,7 +205,7 @@ __global__ void __launch_bounds__(kHeadThreads) fno_head_kernel(
           if (nc + j < nth) {
             uint32_t bhi[2], blo[2];
             load_b_frag(w1s + (ks * nth + nc + j) * 32 + lane, bhi, blo);
-            mma_3xtf32(acc[j], ahi, alo, bhi, blo);
+            mma_tf32x<P>(acc[j], ahi, alo, bhi, blo);
           }
         }
       }
@@ -220,7 +222,7 @@ __global__ void __launch_bounds__(kHeadThreads) fno_head_kernel(
 // of w1 come raw into a ring slot two units ahead of the products, w1 split
 // as its fragments are read; b1 and w2 are read from device memory (L1) in
 // the epilogue.
-template <int NOUT>
+template <int NOUT, int P>
 __global__ void __launch_bounds__(kHeadThreads) fno_head_streamed_kernel(
     const float* __restrict__ x, const float* __restrict__ w1,
     const float* __restrict__ b1, const float* __restrict__ w2,
@@ -309,7 +311,7 @@ __global__ void __launch_bounds__(kHeadThreads) fno_head_streamed_kernel(
           uint32_t bhi[2], blo[2];
           split_tf32(wv[0], bhi[0], blo[0]);
           split_tf32(wv[4], bhi[1], blo[1]);
-          mma_3xtf32(acc[j], ahi, alo, bhi, blo);
+          mma_tf32x<P>(acc[j], ahi, alo, bhi, blo);
         }
       }
     }
@@ -337,15 +339,16 @@ size_t head_smem(int C, int hidden, int n_out) {
          sizeof(float) * (hp + n_out * hp + kMaxOut + 2 * kTile * (kc * 8 + 4));
 }
 
-// One launch for outputs o0 .. o0 + n_out - 1 (n_out <= kMaxOut) of ldo.
-template <int NOUT>
+// One launch for outputs o0 .. o0 + n_out - 1 (n_out <= kMaxOut) of ldo,
+// fc1 in P TF32 products.
+template <int NOUT, int P>
 int launch_head(const float* x, const float* w1, const float* b1,
                 const float* w2, const float* b2, const float* mask,
                 float* out, long long n, int C, int hidden, int n_out, int ldo,
                 cudaStream_t stream) {
   const bool resident = head_smem(C, hidden, n_out) <= kMaxDynamicSmem;
   const size_t smem = resident ? head_smem(C, hidden, n_out) : sizeof(float) * 2 * kHeadSlot;
-  const auto kernel = resident ? fno_head_kernel<NOUT> : fno_head_streamed_kernel<NOUT>;
+  const auto kernel = resident ? fno_head_kernel<NOUT, P> : fno_head_streamed_kernel<NOUT, P>;
   cudaError_t err = allow_dynamic_smem((const void*)kernel, smem);
   if (err) return err;
   int blocks = 0;
@@ -372,23 +375,27 @@ const char* fno_head_unsupported(int C, int hidden, int n_out) {
 // x: (n, C) pixels; w1: (hidden, C); b1: (hidden,); w2: (n_out, hidden);
 // b2: (n_out,); mask: (n,); out: (n, n_out). All float32, contiguous, on
 // the current device; any positive widths. One launch per 8 outputs.
+// products: 3 for split TF32, 1 for TF32 (tf32.cuh), else refused.
 // Launches on `stream`, does not sync.
 int fno_head_forward(const float* x, const float* w1, const float* b1,
                      const float* w2, const float* b2, const float* mask,
                      float* out, long long n, int C, int hidden, int n_out,
-                     void* stream_ptr) {
+                     int products, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (n < 1 || fno_head_unsupported(C, hidden, n_out)) return cudaErrorInvalidValue;
-  for (int o0 = 0; o0 < n_out; o0 += kMaxOut) {
-    const int no = n_out - o0 < kMaxOut ? n_out - o0 : kMaxOut;
-    const float* w2g = w2 + (size_t)o0 * hidden;
-    const int err = no == 2 ? launch_head<2>(x, w1, b1, w2g, b2 + o0, mask, out + o0, n, C, hidden,
-                                             no, n_out, stream)
-                            : launch_head<0>(x, w1, b1, w2g, b2 + o0, mask, out + o0, n, C, hidden,
-                                             no, n_out, stream);
-    if (err) return err;
-  }
-  return cudaSuccess;
+  return with_products(products, [&](auto p) -> int {
+    constexpr int P = decltype(p)::value;
+    for (int o0 = 0; o0 < n_out; o0 += kMaxOut) {
+      const int no = n_out - o0 < kMaxOut ? n_out - o0 : kMaxOut;
+      const float* w2g = w2 + (size_t)o0 * hidden;
+      const int err = no == 2 ? launch_head<2, P>(x, w1, b1, w2g, b2 + o0, mask, out + o0, n, C,
+                                                  hidden, no, n_out, stream)
+                              : launch_head<0, P>(x, w1, b1, w2g, b2 + o0, mask, out + o0, n, C,
+                                                  hidden, no, n_out, stream);
+      if (err) return err;
+    }
+    return cudaSuccess;
+  });
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-// Split-TF32 products on Hopper's tensor cores, and cp.async staging.
+// Split-TF32 and TF32 products on Hopper's tensor cores, and cp.async
+// staging.
 //
 // A float32 a is split into a_hi = tf32(a) (10 mantissa bits, rounded to
 // nearest with ties away from zero, the low 13 bits zero) and a_lo = a -
@@ -14,6 +15,12 @@
 // for mma.sync on an H100 80GB HBM3 at 700 W, scripts/bench_torch_kernels.py),
 // above the 67 TFLOP/s of float32 FMA.
 //
+// With P = 1 product (mma_tf32x<1>: --matmul_precision high, which JAX runs
+// as TF32 on an NVIDIA card) a*b is a_hi*b_hi alone: each operand rounded
+// to TF32, about 2^-11 |a*b|, at the full TF32 rate. Every kernel takes P
+// as a template argument; its low parts are then never used, and the
+// compiler drops them.
+//
 // Fragment layout of mma.m16n8k8 with .tf32 operands (lane = 4 g + t):
 //   A (16 x 8, row): a0 (g, t)  a1 (g + 8, t)  a2 (g, t + 4)  a3 (g + 8, t + 4)
 //   B (8 x 8, col):  b0 (t, g)  b1 (t + 4, g)
@@ -22,6 +29,8 @@
 // (cfdbench_tpu_torch/ops/fno_kernels.py), so a lane reads its fragment
 // with one 16-byte load.
 #pragma once
+
+#include <type_traits>
 
 #include "launch.cuh"
 
@@ -68,13 +77,27 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 #endif
 
-// d += a * b in split TF32, the small terms first.
-__device__ __forceinline__ void mma_3xtf32(float d[4], const uint32_t a_hi[4],
-                                           const uint32_t a_lo[4], const uint32_t b_hi[2],
-                                           const uint32_t b_lo[2]) {
-  mma_tf32(d, a_lo, b_hi);
-  mma_tf32(d, a_hi, b_lo);
+// d += a * b in P TF32 products: P = 3 is split TF32, the small terms
+// first; P = 1 the high parts' product alone (TF32).
+template <int P>
+__device__ __forceinline__ void mma_tf32x(float d[4], const uint32_t a_hi[4],
+                                          const uint32_t a_lo[4], const uint32_t b_hi[2],
+                                          const uint32_t b_lo[2]) {
+  static_assert(P == 1 || P == 3, "one TF32 product, or three (split TF32)");
+  if (P == 3) {
+    mma_tf32(d, a_lo, b_hi);
+    mma_tf32(d, a_hi, b_lo);
+  }
   mma_tf32(d, a_hi, b_hi);
+}
+
+// Calls f(std::integral_constant<int, P>{}) for products = P, 1 or 3; any
+// other count is refused.
+template <class F>
+int with_products(int products, F f) {
+  if (products == 1) return f(std::integral_constant<int, 1>{});
+  if (products == 3) return f(std::integral_constant<int, 3>{});
+  return cudaErrorInvalidValue;
 }
 
 // A fragment from a row-major float32 tile in shared memory whose element

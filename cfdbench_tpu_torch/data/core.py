@@ -1,5 +1,6 @@
 """Case loading for the four CFDBench problems (the port's own copy of
-``cfdbench_tpu/data/core.py``, reading files with ``np.load``).
+``cfdbench_tpu/data/core.py``, reading files through ``data/fast_io.py``:
+the native reader's prefetched arrays, else ``np.load``).
 
 Data contract (identical to the reference): a *case* is a directory with
 ``u.npy`` / ``v.npy`` of shape ``(T, H, W)`` plus ``case.json`` of scalar
@@ -32,6 +33,8 @@ from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from .fast_io import load_npy
 
 # Hardcoded normalization stats (``src/dataset/utils.py:8-28``).
 DENSITY_MEAN, DENSITY_STD = 5.0, 4.0
@@ -81,10 +84,6 @@ def dump_json(data, path) -> None:
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     with open(path, "w", encoding="utf8") as f:
         json.dump(data, f, indent=2, ensure_ascii=False)
-
-
-def load_npy(path) -> np.ndarray:
-    return np.load(path).astype(np.float32, copy=False)
 
 
 def normalize_physics_props(case_params: Dict[str, float]) -> None:

@@ -6,12 +6,15 @@ models (``AutoDataset``), frames for the non-autoregressive ones
 Dense host arrays instead of the reference's per-pair tensor lists, with
 the reference's semantics: pair slicing, convergence truncation, NaN
 checks and case-param vectorization (``src/dataset/cavity.py:274-331``).
-Cases are read one after another with ``np.load``; the JAX package's
-chunk prefetcher, an I/O optimisation, is not copied.
+Each split's ``u.npy``/``v.npy`` are read in chunks of
+:data:`PREFETCH_CHUNK` cases by the native reader (``data/fast_io.py``),
+chunk k+1 while chunk k packs (:class:`_ChunkPrefetcher`), as the JAX
+package reads them.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import os
 import zipfile
@@ -22,6 +25,53 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from .core import DATA_DELTA_TIME, load_case, normalize_case_params
+from .fast_io import clear_cache, prefetch_case_uv
+
+# Cases read ahead in one native batch: peak residency stays at about two
+# chunks of raw case arrays while the reader's thread pool has work.
+PREFETCH_CHUNK = 64
+
+
+class _ChunkPrefetcher:
+    """Chunks of ``case_dirs`` read ahead on a worker thread: while chunk k
+    packs, chunk k+1's ``u.npy``/``v.npy`` are read through the native
+    pool (the ctypes call and numpy's packing release the GIL, so the two
+    overlap). At most two chunks of raw arrays are held at a time."""
+
+    def __init__(self, case_dirs: Sequence, chunk: Optional[int] = None):
+        self._dirs = list(case_dirs)
+        self._chunk = PREFETCH_CHUNK if chunk is None else chunk
+        self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        self._pending = {}  # chunk index -> Future
+        if self._dirs:
+            self._submit(0)
+
+    def _submit(self, k: int) -> None:
+        lo = k * self._chunk
+        if lo < len(self._dirs):
+            self._pending[k] = self._pool.submit(prefetch_case_uv,
+                                                 self._dirs[lo:lo + self._chunk])
+
+    def ensure(self, case_id: int) -> None:
+        """Call once a case, before loading it: at a chunk's first case, wait
+        for that chunk's read (raising what it raised) and start the next
+        chunk's."""
+        if case_id % self._chunk:
+            return
+        k = case_id // self._chunk
+        self._submit(k + 1)
+        fut = self._pending.pop(k, None)
+        if fut is not None:
+            fut.result()
+
+    def close(self) -> None:
+        """Cancel the reads not started, wait for the one in flight, and drop
+        what was read and not consumed: a build that fails mid-pack leaves
+        no raw case arrays in the process's cache."""
+        for fut in self._pending.values():
+            fut.cancel()
+        self._pool.shutdown(wait=True)
+        clear_cache()
 
 
 @dataclass
@@ -238,17 +288,22 @@ def build_auto_dataset(
     time_step_size = int(delta_time / data_dt)
     if time_step_size < 1:
         raise ValueError(f"delta_time {delta_time} < data delta {data_dt}")
-    return _build_auto_arrays(problem, case_dirs, time_step_size,
-                              stable_state_diff, norm_props, norm_bc)
+    prefetcher = _ChunkPrefetcher(case_dirs)
+    try:
+        return _build_auto_arrays(problem, case_dirs, prefetcher, time_step_size,
+                                  stable_state_diff, norm_props, norm_bc)
+    finally:
+        prefetcher.close()
 
 
-def _build_auto_arrays(problem, case_dirs, time_step_size,
+def _build_auto_arrays(problem, case_dirs, prefetcher, time_step_size,
                        stable_state_diff, norm_props, norm_bc):
     all_inputs, all_labels, all_masks = [], [], []
     all_params, all_case_ids = [], []
     all_features = []
     params_list = []
     for case_id, case_dir in enumerate(case_dirs):
+        prefetcher.ensure(case_id)
         case = load_case(problem, Path(case_dir))
         features = case.features  # (T, H, W, 3)
         all_features.append(features)
@@ -316,16 +371,21 @@ def build_frame_dataset(
     keys = FRAME_PARAM_KEYS[problem]
     frames, frame_t, params_rows, case_ids = [], [], [], []
     params_list: List[Dict[str, float]] = []
-    for case_id, case_dir in enumerate(case_dirs):
-        case = load_case(problem, Path(case_dir))
-        normalize_case_params(problem, case.params, norm_props, norm_bc)
-        params_list.append(case.params)
-        pvec = np.asarray([case.params[k] for k in keys], dtype=np.float32)
-        T = case.num_frames
-        frames.append(case.features)
-        frame_t.append(np.arange(T, dtype=np.float32))
-        params_rows.append(np.broadcast_to(pvec, (T, pvec.size)))
-        case_ids.append(np.full((T,), case_id, dtype=np.int32))
+    prefetcher = _ChunkPrefetcher(case_dirs)
+    try:
+        for case_id, case_dir in enumerate(case_dirs):
+            prefetcher.ensure(case_id)
+            case = load_case(problem, Path(case_dir))
+            normalize_case_params(problem, case.params, norm_props, norm_bc)
+            params_list.append(case.params)
+            pvec = np.asarray([case.params[k] for k in keys], dtype=np.float32)
+            T = case.num_frames
+            frames.append(case.features)
+            frame_t.append(np.arange(T, dtype=np.float32))
+            params_rows.append(np.broadcast_to(pvec, (T, pvec.size)))
+            case_ids.append(np.full((T,), case_id, dtype=np.int32))
+    finally:
+        prefetcher.close()
     return FrameDataset(
         frames=np.concatenate(frames).astype(np.float32),
         frame_t=np.concatenate(frame_t),

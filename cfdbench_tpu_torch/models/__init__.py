@@ -21,6 +21,7 @@ import torch
 
 from ..config import Args
 from ..metrics import LossFn
+from ..utils.device import uses_tf32
 
 from .diffusion import (
     GenCastCfdModel,
@@ -100,8 +101,10 @@ def init_auto_model(args: Args, n_case_params: int = None, field_shape=None, *,
     ``field_shape`` (H, W) may come from the dataset; they default to
     ``get_input_shapes``. The point models' sizes follow the field's.
     Initial weights come from ``generator`` (seeded with ``args.seed``
-    when omitted), drawn on the CPU, then moved to ``device``. Pixel
-    diffusion is a task, built by :func:`init_pixel_diffusion`."""
+    when omitted), drawn on the CPU, then moved to ``device``. The FNO's
+    kernels run in their TF32 mode where ``--matmul_precision`` asks for
+    TF32 (``utils/device.py::uses_tf32``). Pixel diffusion is a task,
+    built by :func:`init_pixel_diffusion`."""
     check_model_ported(args.model, "auto")
     if args.model == "pixel_diffusion" or args.model in LATENT_MODELS:
         raise ValueError(f"--model {args.model} is a task with its own sampler: build it "
@@ -116,7 +119,8 @@ def init_auto_model(args: Args, n_case_params: int = None, field_shape=None, *,
     if args.model == "fno":
         return Fno2d(in_chan=args.in_chan, out_chan=args.out_chan, n_case_params=p,
                      num_layers=args.fno_depth, hidden_dim=args.fno_hidden_dim,
-                     modes1=args.fno_modes_x, modes2=args.fno_modes_y, **init)
+                     modes1=args.fno_modes_x, modes2=args.fno_modes_y,
+                     tf32=uses_tf32(args.matmul_precision), **init)
     if args.model == "ffno":
         return Ffno2d(in_chan=args.in_chan, out_chan=args.out_chan, n_case_params=p,
                       num_layers=args.fno_depth, hidden_dim=args.fno_hidden_dim,

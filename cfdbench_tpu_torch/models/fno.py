@@ -53,6 +53,11 @@ contiguous copy of it. Tensor parallelism and spatial sharding hold a
 padded model as they hold the unpadded one; pipeline parallelism refuses
 it, as the JAX pipeline asserts (``cfdbench_tpu/parallel/pipeline.py:192``).
 
+With ``tf32`` (:func:`use_tf32`; ``--matmul_precision high`` and its
+aliases, ``init_auto_model``) both kernels run in their TF32 mode on
+the card: each block, whole, column-parallel, split over rows or on a
+pipeline stage, and the head. On CPU tensors the mode changes nothing.
+
 In bfloat16 (``--use_mixed_precision``'s train forward, the bfloat16
 rollout) the model runs the plain versions on either device, in the JAX
 package's bfloat16 numerics: its Pallas kernels are float32 only and its
@@ -146,22 +151,34 @@ def crop(x, padding: Optional[int], h: int):
     return x if padding is None else x[:, :h, :-padding].contiguous()
 
 
-def block_call(x, weights, w0, b0, modes1: int, modes2: int, rows=None):
+def block_call(x, weights, w0, b0, modes1: int, modes2: int, rows=None, tf32: bool = False):
     """One FnoBlock: the block kernel, or its plain version on a bfloat16
-    input (the kernels take float32 only); ``rows``: ``fno_block``'s."""
-    fn = fno_block_reference if x.dtype == torch.bfloat16 else fno_block
-    return fn(x, weights, w0, b0, modes1, modes2, rows)
+    input (the kernels take float32 only); ``rows``, ``tf32``:
+    ``fno_block``'s."""
+    if x.dtype == torch.bfloat16:
+        return fno_block_reference(x, weights, w0, b0, modes1, modes2, rows)
+    return fno_block(x, weights, w0, b0, modes1, modes2, rows, tf32)
 
 
-def head_call(x, w1, b1, w2, b2, mask):
-    """The head: the head kernel, or its plain version on a bfloat16 input."""
-    fn = fno_head_reference if x.dtype == torch.bfloat16 else fno_head
-    return fn(x, w1, b1, w2, b2, mask)
+def head_call(x, w1, b1, w2, b2, mask, tf32: bool = False):
+    """The head: the head kernel (in TF32 mode with ``tf32``), or its plain
+    version on a bfloat16 input."""
+    if x.dtype == torch.bfloat16:
+        return fno_head_reference(x, w1, b1, w2, b2, mask)
+    return fno_head(x, w1, b1, w2, b2, mask, tf32)
 
 
-def head(fc1: Dense, fc2: Dense, x, mask):
+def head(fc1: Dense, fc2: Dense, x, mask, tf32: bool = False):
     """The head, fc1 → GELU → fc2 → ×mask: one call of the head kernel."""
-    return head_call(x, fc1.weight, fc1.bias, fc2.weight, fc2.bias, mask)
+    return head_call(x, fc1.weight, fc1.bias, fc2.weight, fc2.bias, mask, tf32)
+
+
+def use_tf32(model: nn.Module, on: bool) -> None:
+    """Run ``model``'s kernels in their TF32 mode (``on``) or in split TF32:
+    the ``tf32`` of the model and of each of its blocks."""
+    for module in model.modules():
+        if isinstance(module, (Fno2d, FnoBlock)):
+            module.tf32 = on
 
 
 class FnoBlock(nn.Module):
@@ -181,12 +198,14 @@ class FnoBlock(nn.Module):
         self.w0 = Dense(channels, channels, generator=generator)
 
     sp = None  # the model axis the grid rows split over
+    tf32 = False  # the kernel's TF32 mode (use_tf32)
 
     def forward(self, x, rows=None):
         """``rows``: x's split under spatial sharding where it is not the
         even one (a padded grid's, :func:`padded_rows`)."""
         return block_call(x, self.weights, self.w0.weight, self.w0.bias,
-                          self.modes1, self.modes2, self.sp if rows is None else rows)
+                          self.modes1, self.modes2, self.sp if rows is None else rows,
+                          self.tf32)
 
 
 class Fno2d(nn.Module):
@@ -197,6 +216,7 @@ class Fno2d(nn.Module):
     input runs the plain versions of both kernels (:func:`block_call`,
     :func:`head_call`), whole or split: no kernel. ``padding``: the blocks
     run on the grid padded by that many rows and columns (:func:`pad`).
+    ``tf32``: both kernels in their TF32 mode (:func:`use_tf32`).
     Parameters are drawn from ``generator`` on the CPU, then moved to
     ``device``.
     """
@@ -204,7 +224,7 @@ class Fno2d(nn.Module):
     def __init__(self, in_chan: int = 2, out_chan: int = 2,
                  n_case_params: int = 5, num_layers: int = 4,
                  modes1: int = 12, modes2: int = 12, hidden_dim: int = 32,
-                 padding: Optional[int] = None, *,
+                 padding: Optional[int] = None, tf32: bool = False, *,
                  generator: torch.Generator, device=None):
         super().__init__()
         if padding is not None and padding < 1:
@@ -219,10 +239,12 @@ class Fno2d(nn.Module):
         )
         self.fc1 = Dense(hidden_dim, HEAD_WIDTH, generator=generator)
         self.fc2 = Dense(HEAD_WIDTH, out_chan, generator=generator)
+        use_tf32(self, tf32)
         self.to(device)
 
     tp = None  # the model axis under tensor parallelism
     sp = None  # the model axis the grid rows split over under spatial sharding
+    tf32 = False  # the head kernel's TF32 mode (use_tf32)
 
     def forward(self, inputs, case_params, mask=None):
         B, H, W, _ = inputs.shape
@@ -235,7 +257,9 @@ class Fno2d(nn.Module):
             x = self._tp_block(block, x) if split_blocks else block(x, rows)
         x = crop(x, self.padding, H)
         fc2 = self._tp_whole(self.fc2, used_in_part=split_head)
-        return self._tp_head(x, fc2, mask) if split_head else head(self.fc1, fc2, x, mask)
+        if split_head:
+            return self._tp_head(x, fc2, mask)
+        return head(self.fc1, fc2, x, mask, self.tf32)
 
     def _tp_whole(self, dense, used_in_part: bool = False):
         """``dense`` itself, or with its output rows gathered where the
@@ -283,7 +307,7 @@ class Fno2d(nn.Module):
         rows = slice(self.tp.rank * n, (self.tp.rank + 1) * n)
         w0 = block.w0.weight if self._w0_split(block) else block.w0.weight[rows]
         y = block_call(copy_to_model(x, self.tp), block.weights, w0, block.w0.bias[rows],
-                       block.modes1, block.modes2)
+                       block.modes1, block.modes2, tf32=block.tf32)
         return gather_channels(y, self.tp)
 
     def _tp_head(self, x, fc2, mask):
@@ -291,7 +315,7 @@ class Fno2d(nn.Module):
         cols = slice(self.tp.rank * n, (self.tp.rank + 1) * n)
         b2 = fc2.bias * float(self.tp.rank == 0)
         part = head_call(copy_to_model(x, self.tp), self.fc1.weight, self.fc1.bias[cols],
-                         fc2.weight[:, cols].contiguous(), b2, mask)
+                         fc2.weight[:, cols].contiguous(), b2, mask, self.tf32)
         return reduce_model(part, self.tp)
 
 

@@ -15,6 +15,9 @@ Nothing here runs at import: the first kernel launch builds and loads.
 compiler and ``-DFNO_EMULATE`` (``csrc/emulate/emu.h``) into a library
 with the same entry points that runs the kernels on the CPU, thread by
 thread: slow, for checking their indexing at tiny shapes without a card.
+
+:func:`build` compiles any other sources the same way (the data layer's
+C++ ``.npy`` reader, ``native/__init__.py``).
 """
 
 from __future__ import annotations
@@ -58,19 +61,25 @@ def _sources():
 
 
 def _build(target: Path, compiler: str, flags, log_name: str) -> Path:
-    """Compile ``csrc/*.cu`` into ``target`` unless it is newer than
-    every source and than this file, which holds the flags. Raises with
-    the compiler's output on failure."""
+    """Compile ``csrc/*.cu`` into ``target`` (:func:`build`)."""
     cu, headers = _sources()
+    return build(target, compiler, flags, log_name, cu, headers)
+
+
+def build(target: Path, compiler: str, flags, log_name: str, sources, headers=()) -> Path:
+    """Compile ``sources`` into ``target`` unless it is newer than every
+    source and header and than this file, which holds the flags; the
+    compiler's output goes to ``log_name`` beside ``target``. Raises with
+    that output on failure."""
     if target.exists() and target.stat().st_mtime >= max(
-        p.stat().st_mtime for p in [*cu, *headers, Path(__file__)]
+        p.stat().st_mtime for p in [*sources, *headers, Path(__file__)]
     ):
         return target
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
-    cmd = [compiler, *flags, "-o", str(tmp), *map(str, cu)]
+    cmd = [compiler, *flags, "-o", str(tmp), *map(str, sources)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / log_name).write_text(
+    (target.parent / log_name).write_text(
         " ".join(cmd) + "\n" + proc.stdout + proc.stderr
     )
     if proc.returncode != 0:
@@ -114,11 +123,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Every entry point's argument types (pointers and the stream as
     ``c_void_p``)."""
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fno_block_spectrum.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+    lib.fno_block_spectrum.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.fno_block_spectrum.restype = i32
-    lib.fno_block_finish.argtypes = [ptr] * 11 + [i32] * 9 + [ptr]
+    lib.fno_block_finish.argtypes = [ptr] * 11 + [i32] * 10 + [ptr]
     lib.fno_block_finish.restype = i32
-    lib.fno_head_forward.argtypes = [ptr] * 7 + [i64, i32, i32, i32, ptr]
+    lib.fno_head_forward.argtypes = [ptr] * 7 + [i64, i32, i32, i32, i32, ptr]
     lib.fno_head_forward.restype = i32
     lib.fno_error_string.argtypes = [i32]
     lib.fno_error_string.restype = ctypes.c_char_p

@@ -12,7 +12,8 @@ A wrapper given CPU tensors computes its plain version
 it launches its kernel or raises — there is no fallback. Weights are in
 ``nn.Linear`` layout (``(out, in)``). Each launch from a wrapper's path —
 its operator's CUDA kernel or its autograd Function — adds one to
-``<wrapper>.launches``, so a run can show that it went through the
+``<wrapper>.launches`` (and, in TF32 mode, to
+``<wrapper>.tf32_launches``), so a run can show that it went through the
 kernels (:func:`launch_counts`); ``_block_call``/``_head_call``, which
 the comparisons call directly, count nothing.
 
@@ -38,10 +39,21 @@ which the kernel writes under grad; the head's recomputes fc1 and GELU
 from the saved x, as the JAX package's ``remat_head`` does, and
 differentiates them.
 
-Both kernels multiply on the tensor cores in split TF32 (``csrc/tf32.cuh``).
+Both kernels multiply on the tensor cores in split TF32 (``csrc/tf32.cuh``),
+or, with ``tf32`` (``--matmul_precision high``, which JAX runs as TF32
+on an NVIDIA card), in one TF32 product a tile: each operand rounded to
+TF32. The mode is an argument of every wrapper, Function and registered
+operator, so an exported program carries it; on the CPU it changes
+nothing (the plain float32 version runs), as JAX's precision changes
+nothing on its CPU backend. Each plain version takes the mode too: in
+TF32 mode it rounds every product's operands as the kernel does
+(:func:`round_tf32`) and multiplies in float32, so it differs from the
+kernel only in the order of its sums. The backwards are PyTorch ops in
+either mode, and follow cuBLAS's setting (``utils/device.py::set_numerics``).
 The block kernel's constant operands — the truncated DFT tables — are
 split into TF32 high and low halves and laid out in ``mma.sync``
-fragment order here, once per grid and mode count (:func:`_block_tables`).
+fragment order here, once per grid and mode count (:func:`_block_tables`);
+in TF32 mode the kernels read only the high halves.
 ``_block_call`` and ``_head_call`` take the library to launch, so the
 tests can run them through the kernels' CPU emulation
 (``ops/_build.py::load_emulation``).
@@ -76,6 +88,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.spatial import active, row_span, row_sum_
+from ..utils.device import float32_products
 from . import promote
 from ._build import check_launch, load_library
 from .spectral import (
@@ -104,6 +117,21 @@ def tf32_split(a: np.ndarray):
     bits = a.view(np.uint32)
     hi = ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
     return hi, a - hi
+
+
+def products(tf32: bool) -> int:
+    """The TF32 products a tile of the kernels runs: 1 in TF32 mode, 3
+    (split TF32) otherwise; ``csrc/tf32.cuh::mma_tf32x``."""
+    return 1 if tf32 else 3
+
+
+def round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` rounded to TF32 as ``csrc/tf32.cuh::tf32_bits`` rounds
+    an operand (10 mantissa bits, nearest, ties away from zero, the low 13
+    bits zero), in float32: :func:`tf32_split`'s high part."""
+    _check(t.dtype == torch.float32, f"round_tf32 takes float32, got {t.dtype}")
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
 def _a_fragments(A: np.ndarray) -> np.ndarray:
@@ -237,30 +265,77 @@ def kernel_library(device: torch.device):
     return load_library() if device.type == "cuda" else None
 
 
-def fno_block_reference(x, weights, w0, b0, modes1: int, modes2: int, rows=None):
+def fno_block_reference(x, weights, w0, b0, modes1: int, modes2: int, rows=None,
+                        tf32: bool = False):
     """Plain FnoBlock: ``GELU(spectral_conv(x) + x @ w0ᵀ + b0)``, in the
     common dtype of x and the weights (bfloat16 in the JAX package's
     bfloat16 numerics; the kernels take float32 only); with ``rows``, on a
-    rank's rows of the grid (``spectral_conv2d_fft``)."""
+    rank's rows of the grid (``spectral_conv2d_fft``). With ``tf32``
+    (float32 only) the kernel's TF32 mode: :func:`_block_tf32`."""
+    if tf32:
+        return F.gelu(_block_tf32(x, weights, w0, b0, modes1, modes2, rows)[1])
     return F.gelu(
         spectral_conv2d_fft(x, weights, modes1, modes2, rows)
         + F.linear(*promote(x, w0, b0))
     )
 
 
-def fno_block_saved_reference(x, weights, w0, b0, modes1: int, modes2: int):
+def _block_tf32(x, weights, w0, b0, modes1: int, modes2: int, rows=None):
+    """The block kernel's TF32 mode in plain ops: ``(xm, pre)``, x's
+    retained modes (summed over the model ranks with ``rows``) and the
+    pre-activation. The kernel's products on the same tables
+    (``_dft_factors``), each operand rounded to TF32 (:func:`round_tf32`)
+    and multiplied in float32: the truncated DFT along W, then along H
+    (its input rounded again), the per-mode mixing in float32, the inverse
+    along H, then along W with the 1x1 bypass and the bias."""
+    _check(x.dtype == torch.float32, f"the TF32 block takes float32, got {x.dtype}")
+    B, h, W, Ci = x.shape
+    r0, H = row_span(h, rows) if active(rows) else (0, h)
+    m1, m2 = clamp_modes(H, W, modes1, modes2)
+    e1r, e1i, e2r, e2i, ar, ai, br, bi = (
+        round_tf32(torch.from_numpy(f).to(x.device)) for f in _dft_factors(H, W, m1, m2))
+    e1r, e1i, ar, ai = e1r[:, r0:r0 + h], e1i[:, r0:r0 + h], ar[r0:r0 + h], ai[r0:r0 + h]
+    wk = torch.cat([weights[0, ..., :m1, :m2], weights[1, ..., :m1, :m2]], -2)
+    with float32_products():
+        xt = round_tf32(x)
+        tr, ti = (round_tf32(torch.einsum("bhwc,mw->bhmc", xt, e)) for e in (e2r, e2i))
+        xr = torch.einsum("kh,bhmc->bkmc", e1r, tr) - torch.einsum("kh,bhmc->bkmc", e1i, ti)
+        xi = torch.einsum("kh,bhmc->bkmc", e1i, tr) + torch.einsum("kh,bhmc->bkmc", e1r, ti)
+        xm = row_sum_(torch.stack([xr, xi], 1), rows)
+        xr, xi = xm[:, 0], xm[:, 1]
+        mix, rows_inv, cols_inv = "bkmi,iokm->bkmo", "hk,bkmo->bhmo", "wm,bhmo->bhwo"
+        yr = round_tf32(torch.einsum(mix, xr, wk[0]) - torch.einsum(mix, xi, wk[1]))
+        yi = round_tf32(torch.einsum(mix, xr, wk[1]) + torch.einsum(mix, xi, wk[0]))
+        zr = round_tf32(torch.einsum(rows_inv, ar, yr) - torch.einsum(rows_inv, ai, yi))
+        zi = round_tf32(torch.einsum(rows_inv, ai, yr) + torch.einsum(rows_inv, ar, yi))
+        pre = (torch.einsum(cols_inv, br, zr) - torch.einsum(cols_inv, bi, zi)
+               + F.linear(xt, round_tf32(w0)) + b0)
+    return xm, pre
+
+
+def fno_block_saved_reference(x, weights, w0, b0, modes1: int, modes2: int,
+                              tf32: bool = False):
     """Plain versions of what the block kernel leaves for the backward:
     ``(xm, pre)``, x's retained modes (B, 2, 2 m1, m2, Ci; real,
-    imaginary) and the pre-activation (B, H, W, Co)."""
+    imaginary) and the pre-activation (B, H, W, Co); with ``tf32``, its
+    TF32 mode's (:func:`_block_tf32`)."""
+    if tf32:
+        return _block_tf32(x, weights, w0, b0, modes1, modes2)
     m1, m2 = clamp_modes(x.shape[1], x.shape[2], modes1, modes2)
     xm = retained_modes(x, m1, m2)
     pre = spectral_conv2d_fft(x, weights, modes1, modes2) + F.linear(x, w0, b0)
     return torch.stack([xm.real, xm.imag], 1), pre
 
 
-def fno_head_reference(x, w1, b1, w2, b2, mask):
+def fno_head_reference(x, w1, b1, w2, b2, mask, tf32: bool = False):
     """Plain head: ``(GELU(x @ w1ᵀ + b1) @ w2ᵀ + b2) * mask``, in the
-    common dtype of its operands."""
+    common dtype of its operands. With ``tf32`` (float32 only) the
+    kernel's TF32 mode: fc1's operands rounded to TF32 (:func:`round_tf32`),
+    every product in float32."""
+    if tf32:
+        with float32_products():
+            h = F.gelu(F.linear(round_tf32(x), round_tf32(w1), b1))
+            return F.linear(h, w2, b2) * mask
     h = F.gelu(F.linear(*promote(x, w1, b1)))
     return F.linear(*promote(h, w2, b2)) * mask
 
@@ -300,24 +375,24 @@ def _block_plan(lib, x, modes1, modes2, span):
     return m1, m2, _table_tensors(H, W, m1, m2, r0, h, x.device)
 
 
-def _block_spectrum(lib, x, modes1, modes2, stream: int, span=None):
+def _block_spectrum(lib, x, modes1, modes2, stream: int, span=None, tf32: bool = False):
     """The block kernel's first pass on x's rows (``span``:
     :func:`_block_plan`): their share of the retained modes, (B, 2, 2 m1,
-    m2, Ci), real then imaginary parts."""
+    m2, Ci), real then imaginary parts; in TF32 mode with ``tf32``."""
     B, h, W, Ci = x.shape
     m1, m2, tables = _block_plan(lib, x, modes1, modes2, span)
     xm = torch.empty((B, 2, 2 * m1, m2, Ci), device=x.device)
     err = lib.fno_block_spectrum(x.data_ptr(), tables[0].data_ptr(), tables[1].data_ptr(),
-                                 xm.data_ptr(), B, h, W, Ci, m1, m2, stream)
+                                 xm.data_ptr(), B, h, W, Ci, m1, m2, products(tf32), stream)
     check_launch(lib, err, "fno_block (spectrum)")
     return xm
 
 
 def _block_finish(lib, x, xm, weights, w0, b0, modes1, modes2, stream: int,
-                  keep: bool = False, span=None):
+                  keep: bool = False, span=None, tf32: bool = False):
     """The block kernel's passes 2-4 for x's rows from the whole retained
     spectrum ``xm``: ``(out, pre)``, the output and, with ``keep``, the
-    pre-activation (B, h, W, Co), else None."""
+    pre-activation (B, h, W, Co), else None; in TF32 mode with ``tf32``."""
     B, h, W, Ci = x.shape
     Co = weights.shape[3]
     m1, m2, tables = _block_plan(lib, x, modes1, modes2, span)
@@ -329,14 +404,14 @@ def _block_finish(lib, x, xm, weights, w0, b0, modes1, modes2, stream: int,
         x.data_ptr(), xm.data_ptr(), weights.data_ptr(), w0.data_ptr(), b0.data_ptr(),
         tables[2].data_ptr(), tables[3].data_ptr(), ym.data_ptr(), z.data_ptr(), out.data_ptr(),
         None if pre is None else pre.data_ptr(),
-        B, h, W, Ci, Co, modes1, modes2, m1, m2, stream,
+        B, h, W, Ci, Co, modes1, modes2, m1, m2, products(tf32), stream,
     )
     check_launch(lib, err, "fno_block")
     return out, pre
 
 
 def _block_call(lib, x, weights, w0, b0, modes1, modes2, stream: int, keep: bool = False,
-                rows=None):
+                rows=None, tf32: bool = False):
     """Allocate the block kernel's scratch and output and launch it
     through ``lib`` on ``stream``; the arguments are checked. Returns
     ``(out, xm, pre)``: the output, x's retained modes (B, 2, 2 m1, m2,
@@ -344,15 +419,17 @@ def _block_call(lib, x, weights, w0, b0, modes1, modes2, stream: int, keep: bool
     the pre-activation (B, H, W, Co), else None. With ``rows`` (spatial
     sharding) x is this rank's rows: the first pass's partial modes are
     summed over the model ranks before the other passes run for its rows,
-    and ``xm`` is the sum."""
+    and ``xm`` is the sum. ``tf32``: the kernel's TF32 mode."""
     span = row_span(x.shape[1], rows) if active(rows) else None
-    xm = row_sum_(_block_spectrum(lib, x, modes1, modes2, stream, span), rows)
-    out, pre = _block_finish(lib, x, xm, weights, w0, b0, modes1, modes2, stream, keep, span)
+    xm = row_sum_(_block_spectrum(lib, x, modes1, modes2, stream, span, tf32), rows)
+    out, pre = _block_finish(lib, x, xm, weights, w0, b0, modes1, modes2, stream, keep, span,
+                             tf32)
     return out, xm, pre
 
 
-def _head_call(lib, x, w1, b1, w2, b2, mask, stream: int):
-    """Allocate the head kernel's output and launch it through ``lib``."""
+def _head_call(lib, x, w1, b1, w2, b2, mask, stream: int, tf32: bool = False):
+    """Allocate the head kernel's output and launch it through ``lib``, in
+    TF32 mode with ``tf32``."""
     B, H, W, C = x.shape
     n_out = w2.shape[0]
     _refuse(lib.fno_head_unsupported(C, w1.shape[0], n_out),
@@ -361,7 +438,7 @@ def _head_call(lib, x, w1, b1, w2, b2, mask, stream: int):
     err = lib.fno_head_forward(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        B * H * W, C, w1.shape[0], n_out, stream,
+        B * H * W, C, w1.shape[0], n_out, products(tf32), stream,
     )
     check_launch(lib, err, "fno_head")
     return out
@@ -387,15 +464,18 @@ def fno_block_vjp(grad, x, xm, pre, weights, w0, modes1: int, modes2: int, rows=
 class FnoBlockFn(torch.autograd.Function):
     """The block kernel launched through ``lib`` on ``stream``, with its
     gradient: ``apply(lib, stream, keep, x, weights, w0, b0, modes1,
-    modes2, rows)``. With ``keep`` (a forward under grad) the kernel also
-    writes the pre-activation, and the Function saves it with x and x's
-    retained modes (under spatial sharding, ``rows``, the summed ones) for
-    :func:`fno_block_vjp`; nothing is recomputed."""
+    modes2, rows, tf32)``, in TF32 mode with ``tf32``. With ``keep`` (a
+    forward under grad) the kernel also writes the pre-activation, and the
+    Function saves it with x and x's retained modes (under spatial
+    sharding, ``rows``, the summed ones) for :func:`fno_block_vjp`;
+    nothing is recomputed."""
 
     @staticmethod
-    def forward(ctx, lib, stream, keep, x, weights, w0, b0, modes1, modes2, rows=None):
-        out, xm, pre = _block_call(lib, x, weights, w0, b0, modes1, modes2, stream, keep, rows)
-        fno_block.launches += 1
+    def forward(ctx, lib, stream, keep, x, weights, w0, b0, modes1, modes2, rows=None,
+                tf32=False):
+        out, xm, pre = _block_call(lib, x, weights, w0, b0, modes1, modes2, stream, keep, rows,
+                                   tf32)
+        _count(fno_block, tf32)
         if keep:
             ctx.save_for_backward(x, xm, pre, weights, w0)
             ctx.modes, ctx.rows = (modes1, modes2), rows
@@ -409,22 +489,22 @@ class FnoBlockFn(torch.autograd.Function):
                               rows=ctx.rows)
         needs = ctx.needs_input_grad[3:7]
         return (None, None, None, *(g if n else None for g, n in zip(grads, needs)),
-                None, None, None)
+                None, None, None, None)
 
 
 class FnoHeadFn(torch.autograd.Function):
     """The head kernel launched through ``lib`` on ``stream``, with the
     plain version's gradient: ``apply(lib, stream, x, w1, b1, w2, b2,
-    mask)``. Saves x and the weights; the backward recomputes fc1 and
-    GELU (the JAX package's ``remat_head``: the two (B, H, W, 128)
-    intermediates are the model's largest) and backpropagates through
-    fc2 and the mask."""
+    mask, tf32)``, in TF32 mode with ``tf32``. Saves x and the weights;
+    the backward recomputes fc1 and GELU (the JAX package's
+    ``remat_head``: the two (B, H, W, 128) intermediates are the model's
+    largest) and backpropagates through fc2 and the mask."""
 
     @staticmethod
-    def forward(ctx, lib, stream, x, w1, b1, w2, b2, mask):
+    def forward(ctx, lib, stream, x, w1, b1, w2, b2, mask, tf32=False):
         ctx.save_for_backward(x, w1, b1, w2, b2, mask)
-        out = _head_call(lib, x, w1, b1, w2, b2, mask, stream)
-        fno_head.launches += 1
+        out = _head_call(lib, x, w1, b1, w2, b2, mask, stream, tf32)
+        _count(fno_head, tf32)
         return out
 
     @staticmethod
@@ -436,7 +516,7 @@ class FnoHeadFn(torch.autograd.Function):
             out = fno_head_reference(*inputs)
         wanted = [t for t, n in zip(inputs, needs) if n]
         grads = iter(torch.autograd.grad(out, wanted, grad.contiguous()))
-        return (None, None, *(next(grads) if n else None for n in needs))
+        return (None, None, *(next(grads) if n else None for n in needs), None)
 
 
 def _check_block_args(x, weights, w0, b0, modes1: int, modes2: int) -> None:
@@ -472,26 +552,28 @@ def _check_head_args(x, w1, b1, w2, b2, mask) -> None:
 
 @torch.library.custom_op("cfdbench_tpu_torch::fno_block", mutates_args=(), device_types="cuda")
 def fno_block_op(x: torch.Tensor, weights: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor,
-                 modes1: int, modes2: int) -> torch.Tensor:
-    """The block kernel on the current stream of x's card."""
+                 modes1: int, modes2: int, tf32: bool = False) -> torch.Tensor:
+    """The block kernel on the current stream of x's card, in TF32 mode
+    with ``tf32``."""
     _check_cuda_f32(x.device, x=x, weights=weights, w0=w0, b0=b0)
     _check_block_args(x, weights, w0, b0, modes1, modes2)
     with torch.cuda.device(x.device):
         out = _block_call(load_library(), x, weights, w0, b0, modes1, modes2,
-                          _stream(x.device))[0]
-    fno_block.launches += 1
+                          _stream(x.device), tf32=tf32)[0]
+    _count(fno_block, tf32)
     return out
 
 
 @fno_block_op.register_kernel("cpu")
-def _(x, weights, w0, b0, modes1, modes2):
+def _(x, weights, w0, b0, modes1, modes2, tf32=False):
+    # The float32 plain version in either mode (the mode is the card's).
     # Contiguous, as the kernel writes it (the inverse FFT leaves its
     # channels outermost).
     return fno_block_reference(x, weights, w0, b0, modes1, modes2).contiguous()
 
 
 @fno_block_op.register_fake
-def _(x, weights, w0, b0, modes1, modes2):
+def _(x, weights, w0, b0, modes1, modes2, tf32=False):
     _check_block_args(x, weights, w0, b0, modes1, modes2)
     if x.device.type == "cuda":
         _check_cuda_f32(x.device, x=x, weights=weights, w0=w0, b0=b0)
@@ -504,23 +586,24 @@ def _(x, weights, w0, b0, modes1, modes2):
 
 @torch.library.custom_op("cfdbench_tpu_torch::fno_head", mutates_args=(), device_types="cuda")
 def fno_head_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
-                b2: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """The head kernel on the current stream of x's card."""
+                b2: torch.Tensor, mask: torch.Tensor, tf32: bool = False) -> torch.Tensor:
+    """The head kernel on the current stream of x's card, in TF32 mode
+    with ``tf32``."""
     _check_cuda_f32(x.device, x=x, w1=w1, b1=b1, w2=w2, b2=b2, mask=mask)
     _check_head_args(x, w1, b1, w2, b2, mask)
     with torch.cuda.device(x.device):
-        out = _head_call(load_library(), x, w1, b1, w2, b2, mask, _stream(x.device))
-    fno_head.launches += 1
+        out = _head_call(load_library(), x, w1, b1, w2, b2, mask, _stream(x.device), tf32)
+    _count(fno_head, tf32)
     return out
 
 
 @fno_head_op.register_kernel("cpu")
-def _(x, w1, b1, w2, b2, mask):
-    return fno_head_reference(x, w1, b1, w2, b2, mask)
+def _(x, w1, b1, w2, b2, mask, tf32=False):
+    return fno_head_reference(x, w1, b1, w2, b2, mask)  # float32 in either mode
 
 
 @fno_head_op.register_fake
-def _(x, w1, b1, w2, b2, mask):
+def _(x, w1, b1, w2, b2, mask, tf32=False):
     _check_head_args(x, w1, b1, w2, b2, mask)
     if x.device.type == "cuda":
         _check_cuda_f32(x.device, x=x, w1=w1, b1=b1, w2=w2, b2=b2, mask=mask)
@@ -538,51 +621,62 @@ def _wants_grad(x, *tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in (x, *tensors))
 
 
-def fno_block(x, weights, w0, b0, modes1: int, modes2: int, rows=None):
+def fno_block(x, weights, w0, b0, modes1: int, modes2: int, rows=None, tf32: bool = False):
     """x (B, H, W, Cin); weights (2, 2, Cin, Cout, modes1, modes2);
     w0 (Cout, Cin); b0 (Cout,) → (B, H, W, Cout). Under grad the result is
     differentiable (:class:`FnoBlockFn`), else it comes from the
     registered operator (:func:`fno_block_op`). With ``rows``, a model
     axis of more than one rank (spatial sharding), x is this rank's rows
     of the grid and the block runs split around the sum of its spectrum
-    over the ranks (:func:`_block_call`), on the CPU its plain version."""
+    over the ranks (:func:`_block_call`), on the CPU its plain version.
+    ``tf32``: on the card the kernel's TF32 mode; on the CPU nothing."""
     rows = rows if active(rows) else None
     wants_grad = _wants_grad(x, weights, w0, b0)
     if not wants_grad and rows is None:
-        return fno_block_op(x, weights, w0, b0, modes1, modes2)
+        return fno_block_op(x, weights, w0, b0, modes1, modes2, tf32)
     if x.device.type == "cpu":
         return fno_block_reference(x, weights, w0, b0, modes1, modes2, rows)
     _check_cuda_f32(x.device, x=x, weights=weights, w0=w0, b0=b0)
     _check_block_args(x, weights, w0, b0, modes1, modes2)
     with torch.cuda.device(x.device):
         return FnoBlockFn.apply(load_library(), _stream(x.device), wants_grad, x, weights, w0,
-                                b0, modes1, modes2, rows)
+                                b0, modes1, modes2, rows, tf32)
 
 
-def fno_head(x, w1, b1, w2, b2, mask):
+def fno_head(x, w1, b1, w2, b2, mask, tf32: bool = False):
     """x (B, H, W, C); w1 (hidden, C); b1 (hidden,); w2 (out, hidden);
     b2 (out,); mask (B, H, W, 1) → (B, H, W, out), masked; under grad
     on the card differentiable (:class:`FnoHeadFn`), else from the
-    registered operator (:func:`fno_head_op`)."""
+    registered operator (:func:`fno_head_op`). ``tf32``: on the card the
+    kernel's TF32 mode; on the CPU nothing."""
     if not _wants_grad(x, w1, b1, w2, b2, mask):
-        return fno_head_op(x, w1, b1, w2, b2, mask)
+        return fno_head_op(x, w1, b1, w2, b2, mask, tf32)
     if x.device.type == "cpu":
         return fno_head_reference(x, w1, b1, w2, b2, mask)
     _check_cuda_f32(x.device, x=x, w1=w1, b1=b1, w2=w2, b2=b2, mask=mask)
     _check_head_args(x, w1, b1, w2, b2, mask)
     with torch.cuda.device(x.device):
-        return FnoHeadFn.apply(load_library(), _stream(x.device), x, w1, b1, w2, b2, mask)
+        return FnoHeadFn.apply(load_library(), _stream(x.device), x, w1, b1, w2, b2, mask, tf32)
 
 
-fno_block.launches = 0
-fno_head.launches = 0
 KERNELS = {"fno_block": fno_block, "fno_head": fno_head}
 
 
-def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+def _count(fn, tf32: bool) -> None:
+    """One launch of ``fn``'s kernel, and of its TF32 mode with ``tf32``."""
+    fn.launches += 1
+    fn.tf32_launches += bool(tf32)
+
+
+def launch_counts(tf32: bool = False) -> dict:
+    """Each kernel's launches since the last reset; with ``tf32``, those
+    in its TF32 mode alone."""
+    return {name: fn.tf32_launches if tf32 else fn.launches for name, fn in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
-        fn.launches = 0
+        fn.launches = fn.tf32_launches = 0
+
+
+reset_launch_counts()

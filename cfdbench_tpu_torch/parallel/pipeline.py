@@ -115,7 +115,8 @@ class PipelineStage(nn.Module):
     """Stage ``axis.rank`` of ``axis.size`` of an FNO ``model``: its lift
     (``fc0``), its ``L/S`` blocks and its head (``fc1``, ``fc2``), the
     model's own modules. ``lift(fc0, inputs, case_params, mask)`` and
-    ``head(fc1, fc2, x, mask)`` are the FNO's (``models/fno.py``).
+    ``head(fc1, fc2, x, mask, tf32)`` are the FNO's (``models/fno.py``);
+    the head runs in the model's TF32 mode, the blocks in their own.
 
     The model's other blocks give up their storage (:meth:`release`) and
     get it back from their stages for an evaluation or a checkpoint
@@ -135,7 +136,7 @@ class PipelineStage(nn.Module):
         self.blocks = nn.ModuleList(model.blocks[self.s * self.per:(self.s + 1) * self.per])
         self.fc1, self.fc2 = model.fc1, model.fc2
         self.num_layers, self.width = L, model.fc1.weight.shape[1]
-        self._lift, self._head = lift, head
+        self._lift, self._head, self.tf32 = lift, head, model.tf32
         self.local_names: List[str] = [n for n, _ in self.named_parameters()]
         self.std_names: List[str] = [n for n, _ in model.named_parameters()]
         # Replicated, computed on one stage: their gradients are summed over the model ranks.
@@ -203,7 +204,7 @@ class PipelineStage(nn.Module):
         for block in self.blocks:
             x = block(x)
         if self.s == self.S - 1:
-            x = self._head(self.fc1, self.fc2, x, mask[rows])
+            x = self._head(self.fc1, self.fc2, x, mask[rows], self.tf32)
         return x
 
     def forward_backward(self, inputs, case_params, mask,

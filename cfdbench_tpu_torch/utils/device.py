@@ -9,6 +9,7 @@ of its result (``--measure_time``'s per-step losses).
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -49,11 +50,50 @@ def entry_device(device=None) -> torch.device:
     return device
 
 
-def set_f32_numerics() -> None:
-    """Full-precision float32 products everywhere. Parity with the
-    float32 reference (2e-5 on a forward) needs this: TF32 keeps about
-    three decimal digits, and cuDNN uses it for float32 convolutions by
-    default."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+# --matmul_precision's values that JAX accepts (jax/_src/config.py) and how
+# an NVIDIA card runs them there: TF32 products, or float32. "default" is
+# float32 here, PyTorch's own default (ROADMAP.md C); every other value
+# (bfloat16 and the other presets) is refused by the entry points.
+TF32_PRECISIONS = ("high", "tensorfloat32", "TF32_TF32_F32")
+F32_PRECISIONS = ("default", "highest", "float32", "F32_F32_F32", "TF32_TF32_F32_X3")
+
+
+def uses_tf32(precision: str) -> bool:
+    """Whether ``--matmul_precision precision`` multiplies in TF32 on the
+    card: in cuBLAS and cuDNN (:func:`set_numerics`) and in the FNO's
+    kernels (their TF32 mode). Raises ValueError on a value of neither
+    table."""
+    if precision in TF32_PRECISIONS:
+        return True
+    if precision in F32_PRECISIONS:
+        return False
+    raise ValueError(f"--matmul_precision {precision}: the port takes "
+                     f"{TF32_PRECISIONS + F32_PRECISIONS}")
+
+
+def set_numerics(precision: str = "highest") -> None:
+    """cuBLAS's and cuDNN's float32 products for ``--matmul_precision
+    precision``: TF32 for the values that JAX runs as TF32 on an NVIDIA
+    card (:data:`TF32_PRECISIONS`), full float32 for the others. Parity with
+    the float32 reference (2e-5 on a forward) needs float32: TF32 keeps
+    about three decimal digits, and cuDNN uses it for float32 convolutions
+    by default. On the CPU neither setting changes anything."""
+    tf32 = uses_tf32(precision)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.set_float32_matmul_precision("high" if tf32 else "highest")
+
+
+@contextlib.contextmanager
+def float32_products():
+    """cuBLAS and cuDNN in full float32 for the length of the block (the
+    plain versions of the kernels' TF32 mode, which round their operands
+    themselves), the caller's settings restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.get_float32_matmul_precision())
+    set_numerics("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved[:2]
+        torch.set_float32_matmul_precision(saved[2])

@@ -147,6 +147,18 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    precision train step (split, peak memory) of the FNO and the U-Net at
    b128 and of pixel diffusion's PUNetG at b32; Adam's and Adafactor's
    update of the FNO at width 128.
+   12f. ``--matmul_precision high`` (TF32 in cuBLAS and cuDNN, both kernels
+   in their one-product TF32 mode), at the gates TF32_*: (a) each kernel in
+   TF32 at the flagship's shapes (B=128) against its TF32 plain version and
+   the float32 one (the block's saved outputs too), timed against that plain
+   version and beside its split mode, with its bound at one TF32 product;
+   the block's TF32 halves at 15a's first split. (b) Phase 6b's
+   ``main_auto`` under ``high`` (every launch in TF32 mode) against phase
+   6b's float32 run, and ``main_multistep`` under ``high`` on phase 6b's
+   checkpoint (80 and 20 TF32 launches) against its float32 rollout. (c) The
+   b128 train step of the flagship, the U-Net and the ResNet under ``high``
+   beside float32, peak memory, and the flagship's b128 rollout in each
+   mode, by CUDA events.
 
 13. Data parallelism (``parallel/mesh.py``). (a) Phase 6b's
    ``main_auto`` and its ``main_multistep`` again through the real launcher,
@@ -352,7 +364,10 @@ each read from counters set
 to 0 just before the run and read just after it; ``at_rank_shapes`` the
 kernel's phase 14a records, ``at_rank_rows`` its phase 15a and 15d(i) records,
 ``at_padded_grid`` its phase 16a record, ``at_wide_shapes`` its phase 17a
-records. The
+records; ``fno_block_tf32`` and ``fno_head_tf32``, the kernels' TF32 mode
+(phase 12f): ``launches`` main_multistep's under ``--matmul_precision high``,
+``launches_by_path`` that and main_auto's (TF32 launches alone), its
+errors, times and bounds phase 12f(a)'s. The
 line before the last is the kernels' JSON
 record; the last line is ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
 It needs a CUDA device and fails without one.
@@ -475,6 +490,27 @@ MP_GRAD_RTOL = 2e-2
 MP_UNET_ALL_GRAD_RTOL = 8e-2
 # Phase 12's generative runs sample with fewer denoising steps.
 MP_INFERENCE_STEPS = "10"
+# Phase 12f: --matmul_precision high, which JAX runs as TF32 on an NVIDIA
+# card (cuBLAS and cuDNN in TF32, both kernels in their one-product TF32
+# mode). Gates, stated in PERF.md before the first run: each TF32 kernel
+# against its TF32 plain version (operands rounded as the kernel rounds
+# them, float32 products): the block's output and pre-activation within
+# TF32_BLOCK_RTOL of the largest output, its retained modes of their largest
+# (the two sum in other orders, so an intermediate both round to TF32 may
+# land on neighbouring TF32 values), the head within HEAD_ATOL; against the
+# float32 plain version within TF32_F32_RTOL of the largest output and
+# further than TF32_RAN_RTOL (that it ran in TF32; split TF32 reads 3e-7).
+# The flagship's main_auto under high against phase 6b's float32 run (train
+# losses, dev and test scores, relative) and main_multistep under high on
+# phase 6b's checkpoint (each per-step metric of its largest), within
+# TF32_RUN_RTOL: a third of the bfloat16 rollout's PHASE12_METRIC_RTOL.
+TF32_PRECISION = "high"
+TF32_PRODUCTS = 1
+TF32_BLOCK_RTOL = 1e-4
+TF32_F32_RTOL = 1e-2
+TF32_RAN_RTOL = 5e-5
+TF32_RUN_RTOL = 1e-2
+TF32_STEP_MODELS = ("fno", "unet", "resnet")  # 12f(c): b128 steps under high and float32
 # Phase 13: data parallelism. (a) torchrun at world size 1 against the same
 # run without it (the same arithmetic: one rank runs no collective); (b) two
 # ranks on the one card against one process: the losses and per-step
@@ -566,9 +602,9 @@ SP_RANKS = {"1x2": 2, "2x2": 4}
 # of latent_diffusion2 (model flags, grid, global batch).
 TUBE_GRID = (66, 65)  # the tube and dam problems' grid
 # The frames of a case in the trees of phase 15c's runs other than the
-# flagship's: a quarter of phase 13b's steps an epoch (50 train pairs; a
+# flagship's: a fifth of phase 13b's steps an epoch (40 train pairs; still a
 # full and a padded batch of the U-Net's and the point models').
-SP_REST_FRAMES = STEPS // 4 + 1
+SP_REST_FRAMES = STEPS // 5 + 1
 SP_POINT_MODELS = ("auto_ffn", "auto_deeponet_cnn")
 SP_LATENT = {name: name for name in LATENT} | {"latent_diffusion_lite66": "latent_diffusion_lite"}
 # Phase 15c's runs whose epoch is held against permuted-row controls, one a
@@ -753,12 +789,13 @@ def head_work(B, H, W, C, hidden, n_out):
     return nbytes, n * C * hidden, n * hidden * n_out
 
 
-def bound(nbytes: int, tensor_fma: int, core_fma: int):
+def bound(nbytes: int, tensor_fma: int, core_fma: int, products: int = SPLIT_TF32_PRODUCTS):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the operations at their units' rates, split-TF32 products as three
-    TF32 products on the tensor cores plus float32 FMA on the CUDA cores."""
+    and the operations at their units' rates, each tensor-core product as
+    ``products`` TF32 products (three in split TF32, one in the TF32 mode)
+    plus float32 FMA on the CUDA cores."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = (SPLIT_TF32_PRODUCTS * 2 * tensor_fma / TF32_FLOP_PER_S
+    by_ops = (products * 2 * tensor_fma / TF32_FLOP_PER_S
               + 2 * core_fma / F32_FLOP_PER_S) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
@@ -854,8 +891,9 @@ def main_path():
     counts = launch_counts()
     print(f"[main] main_multistep: {time.perf_counter() - t0:.2f} s, launches {counts}")
     want = {"fno_block": FLAGSHIP["num_layers"] * STEPS, "fno_head": STEPS}
-    if counts != want:
-        raise RuntimeError(f"main path launches {counts}, expected {want}")
+    if counts != want or any(launch_counts(tf32=True).values()):
+        raise RuntimeError(f"main path launches {counts}, expected {want}, "
+                           f"{launch_counts(tf32=True)} in TF32 mode, expected none")
     metrics = json.loads((run_dir(args) / "multistep_metrics.json").read_text())
     if len(metrics) != STEPS or not all(
         set(m) == {"mse", "nmse", "mae"} and all(math.isfinite(v) for v in m.values())
@@ -1811,7 +1849,7 @@ def vae_forward_check(device) -> None:
     VAE_FORWARD_RTOL, and the TF32 reading outside it."""
     import copy
 
-    from cfdbench_tpu_torch.utils.device import set_f32_numerics
+    from cfdbench_tpu_torch.utils.device import set_numerics
 
     worst = 0.0
     for seed in VAE_FORWARD_SEEDS:
@@ -1825,7 +1863,7 @@ def vae_forward_check(device) -> None:
             try:
                 tf32 = card_vae(x.to(device))[0].cpu()
             finally:
-                set_f32_numerics()
+                set_numerics()
         top = exact.abs().max()
         rel, rel_cpu, rel_f32, rel_tf32 = (
             ((a - b).abs().max() / top).item()
@@ -2492,6 +2530,199 @@ def phase12_timing(device, card) -> dict:
     result["update_width128"] = dict(adam_ms=adam_ms, adafactor_ms=ada_ms, params=n)
     print(f"[time] [{card}] fno width {FACTORED_WIDTH} ({n} parameters) update: Adam "
           f"{adam_ms:.3f} ms, Adafactor {ada_ms:.3f} ms")
+    return result
+
+
+def tf32_kernels(device, card) -> dict:
+    """Phase 12f(a): each kernel in its TF32 mode at the flagship's shapes
+    (B=128) against its TF32 plain version and the float32 one, at the
+    gates above (the block's saved pre-activation and retained modes too),
+    timed in turns with its TF32 plain version and its split mode, beside
+    its bound at one TF32 product; the block's halves in TF32 at 15a's
+    first split. Returns a record per kernel."""
+    from cfdbench_tpu_torch.ops import _build, fno_kernels as fk
+
+    lib, stream = _build.load_library(), torch.cuda.current_stream().cuda_stream
+    B, H, W = TIMING_BATCH, GRID, GRID
+    t = kernel_inputs(B, H, W, WIDTH, torch.Generator().manual_seed(SEED + 21), device)
+    block = (t["x"], t["weights"], t["w0"], t["b0"], MODES, MODES)
+    head = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"], t["mask"])
+    work = {"fno_block": block_work(B, H, W, WIDTH, WIDTH, MODES),
+            "fno_head": head_work(B, H, W, WIDTH, t["w1"].shape[0], t["w2"].shape[0])}
+    out = {}
+    with torch.inference_mode():
+        for name, kern, ref, args in (("fno_block", fk.fno_block, fk.fno_block_reference, block),
+                                      ("fno_head", fk.fno_head, fk.fno_head_reference, head)):
+            got = kern(*args, tf32=True)
+            want, want32 = ref(*args, tf32=True), ref(*args)
+            torch.cuda.synchronize()
+            top = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            f32_err = (got - want32).abs().max().item()
+            atol = TF32_BLOCK_RTOL * top if name == "fno_block" else HEAD_ATOL
+            print(f"[tf32] fno {name} B={B} {H}x{W} C={WIDTH} in TF32: max abs err {err:.3e} "
+                  f"against its TF32 plain version (bound {atol:.1e}), {f32_err:.3e} against "
+                  f"the float32 one ({f32_err / top:.3e} of the largest |out| {top:.3f}; "
+                  f"bounds {TF32_RAN_RTOL:.0e} to {TF32_F32_RTOL:.0e})")
+            if not (torch.isfinite(got).all() and err <= atol
+                    and TF32_RAN_RTOL * top < f32_err <= TF32_F32_RTOL * top):
+                raise RuntimeError(f"{name} in TF32: {err:.3e} from its TF32 plain version, "
+                                   f"{f32_err:.3e} from the float32 one")
+            if name == "fno_block":
+                _, xm, pre = fk._block_call(lib, *block, stream, keep=True, tf32=True)
+                want_xm, want_pre = fk.fno_block_saved_reference(*block, tf32=True)
+                pre_err = (pre - want_pre).abs().max().item()
+                xm_rel = ((xm - want_xm).abs().max() / want_xm.abs().max()).item()
+                print(f"[tf32] fno_block saved for the backward: pre-activation {pre_err:.3e} "
+                      f"(bound {atol:.1e}), retained modes {xm_rel:.3e} of their largest "
+                      f"(bound {TF32_BLOCK_RTOL:.0e})")
+                if not (pre_err <= atol and xm_rel <= TF32_BLOCK_RTOL):
+                    raise RuntimeError("fno_block's saved outputs in TF32 disagree")
+            plain_ms, ms = interleaved_ms(lambda: ref(*args, tf32=True),
+                                          lambda: kern(*args, tf32=True), reps=20)
+            split_ms, ms2 = interleaved_ms(lambda: kern(*args), lambda: kern(*args, tf32=True),
+                                           reps=20)
+            bound_ms, bound_by = bound(*work[name], TF32_PRODUCTS)
+            out[name] = dict(max_abs_err=err, max_abs_err_f32=f32_err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, split_ms=split_ms,
+                             tf32_ms_beside_split=ms2)
+            print(f"[time] [{card}] {name} B={B} {H}x{W} C={WIDTH} TF32: kernel {ms:.4f} ms, "
+                  f"its plain version {plain_ms:.4f} ms; beside split TF32 {split_ms:.4f} ms, "
+                  f"TF32 {ms2:.4f} ms ({ms2 / split_ms:.3f}); bound {bound_ms:.4f} ms by "
+                  f"{bound_by} at one TF32 product, kernel at {bound_ms / ms:.1%} of it")
+    record, _, _ = split_block(lib, stream, device, card, B, *SP_KERNEL_CASES[0], tf32=True)
+    out["fno_block"]["at_rank_rows"] = [record]
+    out["fno_block"]["max_abs_err"] = max(out["fno_block"]["max_abs_err"], record["max_abs_err"])
+    return out
+
+
+def tf32_paths(train_counts: dict, train_metrics) -> dict:
+    """Phase 12f(b): phase 6b's main_auto under ``--matmul_precision high``
+    (every launch in TF32 mode, phase 6b's counts), its losses and scores
+    against phase 6b's float32 run; then main_multistep under high on a
+    copy of phase 6b's result tree (80 and 20 TF32 launches), its per-step
+    metrics against phase 6b's float32 rollout of that checkpoint. Returns
+    each path's launches."""
+    from cfdbench_tpu_torch.cli import main_auto, main_multistep, parse_args, run_dir
+    from cfdbench_tpu_torch.models.fno import FLAGSHIP
+    from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
+    from cfdbench_tpu_torch.utils.device import set_numerics
+
+    high = ["--matmul_precision", TF32_PRECISION]
+    f32_argv = fno_argv(WORK / "train_data", WORK / "train_result")
+    argv = fno_argv(WORK / "train_data", WORK / "train_result_high") + high
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        main_auto(argv + list(PHASE6_FLAGS))
+    finally:
+        set_numerics()  # the entry point set TF32 for the process
+    counts, tf32_counts = launch_counts(), launch_counts(tf32=True)
+    run, f32_run = run_dir(parse_args(argv)), run_dir(parse_args(f32_argv))
+    test, test32 = (json.loads((r / "test" / "scores.json").read_text())["mean"]
+                    for r in (run, f32_run))
+    rels = dict(train_losses=losses_rel(run, f32_run), dev_scores=dev_rel(run, f32_run),
+                test_scores=max(abs(test[k] - v) / abs(v) for k, v in test32.items() if v))
+    print(f"[tf32] main_auto --matmul_precision {TF32_PRECISION}: {time.perf_counter() - t0:.2f} "
+          f"s, launches {counts}, in TF32 mode {tf32_counts} (phase 6b {train_counts}); against "
+          f"phase 6b's float32 run, max rel diff: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in rels.items()) + f" (bound {TF32_RUN_RTOL:.0e})")
+    if counts != train_counts or tf32_counts != train_counts or not all(
+            v <= TF32_RUN_RTOL for v in rels.values()):
+        raise RuntimeError(f"main_auto under {TF32_PRECISION}: launches {counts}, TF32 "
+                           f"{tf32_counts}, against float32 {rels}")
+
+    rollout_root = WORK / "train_result_high_rollout"
+    shutil.rmtree(rollout_root, ignore_errors=True)
+    shutil.copytree(WORK / "train_result", rollout_root)
+    roll_argv = fno_argv(WORK / "train_data", rollout_root) + high
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        main_multistep(roll_argv)
+    finally:
+        set_numerics()
+    roll_counts, roll_tf32 = launch_counts(), launch_counts(tf32=True)
+    got = json.loads((run_dir(parse_args(roll_argv)) / "multistep_metrics.json").read_text())
+    worst = 0.0
+    for key in train_metrics[0]:
+        top = max(abs(w[key]) for w in train_metrics)
+        worst = max(worst, max(abs(g[key] - w[key]) for g, w in zip(got, train_metrics)) / top)
+    want = {"fno_block": FLAGSHIP["num_layers"] * STEPS, "fno_head": STEPS}
+    print(f"[tf32] main_multistep --matmul_precision {TF32_PRECISION} on phase 6b's checkpoint: "
+          f"{time.perf_counter() - t0:.2f} s, launches {roll_counts}, in TF32 mode {roll_tf32}; "
+          f"step-20 nmse {got[-1]['nmse']:.6g} (float32 {train_metrics[-1]['nmse']:.6g}); "
+          f"per-step metrics {worst:.3e} of each one's largest (bound {TF32_RUN_RTOL:.0e})")
+    if (roll_counts != want or roll_tf32 != want or len(got) != STEPS
+            or not all(math.isfinite(v) for m in got for v in m.values())
+            or not worst <= TF32_RUN_RTOL):
+        raise RuntimeError(f"main_multistep under {TF32_PRECISION}: launches {roll_counts}, "
+                           f"TF32 {roll_tf32}, metrics {worst:.3e} from float32")
+    return {"main_auto_high": tf32_counts, "main_multistep_high": roll_tf32}
+
+
+def tf32_step_timing(device, card) -> dict:
+    """Phase 12f(c): the b128 train step (Adam) of TF32_STEP_MODELS at their
+    default widths with cuBLAS and cuDNN (and the FNO's kernels) in TF32
+    against float32, by CUDA events in turns on one model each, with each
+    setting's peak memory; and the flagship's 20-step b128 rollout through
+    the kernels in each mode."""
+    from cfdbench_tpu_torch.models.fno import use_tf32
+    from cfdbench_tpu_torch.training.optim import make_adam
+    from cfdbench_tpu_torch.training.rollout import make_rollout_fn
+    from cfdbench_tpu_torch.training.trainer_auto import step_generator, train_step
+    from cfdbench_tpu_torch.utils.device import set_numerics
+
+    result = {}
+    batch = train_inputs(TIMING_BATCH, torch.Generator().manual_seed(SEED + 22), device)
+    try:
+        for name in TF32_STEP_MODELS:
+            model = (flagship_model(device) if name == "fno" else family_model(name, device))
+            task = nmse_task(model.train())
+            opt, sched = make_adam(model.parameters(), 1e-4)
+            gen = step_generator(SEED, 0, device) if name == "resnet" else None
+
+            def step(precision):
+                set_numerics(precision)
+                if name == "fno":
+                    use_tf32(model, precision == TF32_PRECISION)
+                train_step(task, opt, sched, batch, gen)
+
+            peaks = {}
+            for precision in ("highest", TF32_PRECISION):  # warm-up: cuDNN's choices
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(device)
+                step(precision)
+                step(precision)
+                torch.cuda.synchronize()
+                peaks[precision] = torch.cuda.max_memory_allocated(device) / 2**20
+            f32_ms, tf32_ms = interleaved_ms(lambda: step("highest"),
+                                             lambda: step(TF32_PRECISION), reps=TRAIN_REPS)
+            result[f"{name}_train_b{TIMING_BATCH}"] = dict(
+                f32_ms=f32_ms, tf32_ms=tf32_ms, f32_peak_mib=peaks["highest"],
+                tf32_peak_mib=peaks[TF32_PRECISION])
+            print(f"[time] [{card}] {name} train step b{TIMING_BATCH} {GRID}x{GRID}: float32 "
+                  f"{f32_ms:.3f} ms, --matmul_precision {TF32_PRECISION} {tf32_ms:.3f} ms "
+                  f"(TF32/float32 {tf32_ms / f32_ms:.3f}); peak memory {peaks['highest']:.1f} "
+                  f"and {peaks[TF32_PRECISION]:.1f} MiB")
+            del model, task, opt, sched
+            torch.cuda.empty_cache()
+        model = flagship_model(device).eval()
+        tf32_model = flagship_model(device, tf32=True).eval()
+        args = (batch["inputs"], batch["case_params"], batch["mask"])
+        roll, roll_tf32 = make_rollout_fn(model, STEPS), make_rollout_fn(tf32_model, STEPS)
+        f32_ms, tf32_ms = interleaved_ms(lambda: (set_numerics(), roll(*args)),
+                                         lambda: (set_numerics(TF32_PRECISION),
+                                                  roll_tf32(*args)), reps=3)
+    finally:
+        set_numerics()
+    frames = TIMING_BATCH * STEPS
+    result["fno_rollout"] = dict(f32_ms=f32_ms, tf32_ms=tf32_ms,
+                                 f32_frames_per_s=frames / f32_ms * 1e3,
+                                 tf32_frames_per_s=frames / tf32_ms * 1e3)
+    print(f"[time] [{card}] fno rollout b{TIMING_BATCH} x {STEPS} steps: split TF32 "
+          f"{f32_ms:.3f} ms = {frames / f32_ms * 1e3:.1f} frames/s; TF32 {tf32_ms:.3f} ms = "
+          f"{frames / tf32_ms * 1e3:.1f} frames/s")
     return result
 
 
@@ -3715,7 +3946,7 @@ def split_block_work(B, h, W, Ci, Co, m1, m2):
     return first, rest
 
 
-def split_block(lib, stream, device, card, B, H, W, M, bounds=None, pad=0):
+def split_block(lib, stream, device, card, B, H, W, M, bounds=None, pad=0, tf32=False):
     """The block kernel split around its spectrum's row sum at M ranks'
     rows of an H x W grid (B images, the flagship's width and modes; the
     even split, or the rows ``bounds``; with ``pad`` the field's last
@@ -3725,8 +3956,9 @@ def split_block(lib, stream, device, card, B, H, W, M, bounds=None, pad=0):
     spectrum and the pre-activation too); each half timed on the first
     rank's rows (with ``bounds``, on each rank's) beside its bound, the
     plain whole block timed, and the bytes of the spectrum that the ranks
-    sum. Returns the record, each rank's rows of the output and the
-    generator that drew the inputs."""
+    sum. With ``tf32`` the halves run in the kernel's TF32 mode, held to
+    the plain TF32 block at phase 12f's gates. Returns the record, each
+    rank's rows of the output and the generator that drew the inputs."""
     from cfdbench_tpu_torch.ops import fno_kernels as fk
     from cfdbench_tpu_torch.ops.spectral import clamp_modes, init_spectral_weights
 
@@ -3745,45 +3977,49 @@ def split_block(lib, stream, device, card, B, H, W, M, bounds=None, pad=0):
     spans = list(zip(bounds, bounds[1:]))
     rows = [x[:, a:b].contiguous() for a, b in spans]
     with torch.inference_mode():
-        xm = sum(fk._block_spectrum(lib, r, MODES, MODES, stream, (a, H))
+        xm = sum(fk._block_spectrum(lib, r, MODES, MODES, stream, (a, H), tf32)
                  for r, (a, _) in zip(rows, spans))
         halves = [fk._block_finish(lib, r, xm, weights, w0, b0, MODES, MODES, stream, True,
-                                   (a, H)) for r, (a, _) in zip(rows, spans)]
+                                   (a, H), tf32) for r, (a, _) in zip(rows, spans)]
         got = torch.cat([o for o, _ in halves], 1)
         pre = torch.cat([p for _, p in halves], 1)
-        want = fk.fno_block_reference(*block)
-        want_xm, want_pre = fk.fno_block_saved_reference(*block)
+        want = fk.fno_block_reference(*block, tf32=tf32)
+        want_xm, want_pre = fk.fno_block_saved_reference(*block, tf32=tf32)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         pre_err = (pre - want_pre).abs().max().item()
         xm_rel = ((xm - want_xm).abs().max() / want_xm.abs().max()).item()
+        atol = TF32_BLOCK_RTOL * want.abs().max().item() if tf32 else BLOCK_ATOL
+        xm_rtol = TF32_BLOCK_RTOL if tf32 else XM_RTOL
         shape = (f"{bounds[1]} of {H} rows ({M} ranks), W={W}" if even
                  else f"the rows {tuple(bounds)} ({M} ranks), W={W}")
-        if not (torch.isfinite(got).all() and err <= BLOCK_ATOL and pre_err <= BLOCK_ATOL
-                and xm_rel <= XM_RTOL):
-            raise RuntimeError(f"fno_block split at {shape}: max abs err {err:.3e}, "
-                               f"pre-activation {pre_err:.3e}, spectrum {xm_rel:.3e}")
-        plain_ms = warm_ms(lambda: fk.fno_block_reference(*block), 10)
+        if not (torch.isfinite(got).all() and err <= atol and pre_err <= atol
+                and xm_rel <= xm_rtol):
+            raise RuntimeError(f"fno_block split at {shape}{' in TF32' * tf32}: max abs err "
+                               f"{err:.3e}, pre-activation {pre_err:.3e}, spectrum "
+                               f"{xm_rel:.3e}")
+        plain_ms = warm_ms(lambda: fk.fno_block_reference(*block, tf32=tf32), 10)
         timed = []
         for r, (a, b) in list(zip(rows, spans))[:1 if even else M]:
-            first_ms = warm_ms(lambda: fk._block_spectrum(lib, r, MODES, MODES, stream, (a, H)),
-                               20)
+            first_ms = warm_ms(lambda: fk._block_spectrum(lib, r, MODES, MODES, stream, (a, H),
+                                                          tf32), 20)
             rest_ms = warm_ms(lambda: fk._block_finish(lib, r, xm, weights, w0, b0, MODES,
-                                                       MODES, stream, False, (a, H)), 20)
+                                                       MODES, stream, False, (a, H), tf32), 20)
             timed.append((b - a, first_ms, rest_ms))
-        whole_ms = warm_ms(lambda: fk.fno_block(*block), 20)
+        whole_ms = warm_ms(lambda: fk.fno_block(*block, tf32=tf32), 20)
     m1, m2 = clamp_modes(H, W, MODES, MODES)
+    products = TF32_PRODUCTS if tf32 else SPLIT_TF32_PRODUCTS
     ranks = []
     for h, first_ms, rest_ms in timed:
         first, rest = split_block_work(B, h, W, C, C, m1, m2)
-        (b1, by1), (b2, by2) = bound(*first), bound(*rest)
+        (b1, by1), (b2, by2) = bound(*first, products), bound(*rest, products)
         ranks.append(dict(rows=h, ms=first_ms + rest_ms, pass1_ms=first_ms,
                           passes2_4_ms=rest_ms, bound_ms=b1 + b2, pass1_bound_ms=b1,
                           pass1_bound_by=by1, passes2_4_bound_ms=b2, passes2_4_bound_by=by2))
     sum_bytes = 4 * B * 2 * 2 * m1 * m2 * C
-    print(f"[sp] [{card}] fno_block B={B} {shape}: max abs err {err:.3e}, pre-activation "
-          f"{pre_err:.3e} (bound {BLOCK_ATOL:.0e}), summed spectrum {xm_rel:.3e} of its max "
-          f"(bound {XM_RTOL:.0e}); " + "; ".join(
+    print(f"[sp] [{card}] fno_block{' TF32' * tf32} B={B} {shape}: max abs err {err:.3e}, "
+          f"pre-activation {pre_err:.3e} (bound {atol:.1e}), summed spectrum {xm_rel:.3e} of its "
+          f"max (bound {xm_rtol:.0e}); " + "; ".join(
               f"a rank's {t['rows']} rows: pass 1 {t['pass1_ms']:.4f} ms (bound "
               f"{t['pass1_bound_ms']:.4f} ms by {t['pass1_bound_by']}), passes 2-4 "
               f"{t['passes2_4_ms']:.4f} ms (bound {t['passes2_4_bound_ms']:.4f} ms by "
@@ -4572,11 +4808,11 @@ def main() -> int:
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
-    from cfdbench_tpu_torch.utils.device import require_cuda, set_f32_numerics
+    from cfdbench_tpu_torch.utils.device import require_cuda, set_numerics
 
     phase = PhaseClock()
     device = require_cuda()
-    set_f32_numerics()
+    set_numerics()
     card = phase.card = host_facts()
     errors = check_kernels(device)
     phase.done("1-2 (card, kernels built and checked)")
@@ -4617,6 +4853,12 @@ def main() -> int:
     phase12_times = phase12_timing(device, card)
     print(f"[phase12] [{card}] " + json.dumps({"timing": phase12_times}))
     phase.done("12 (bfloat16, Adafactor)")
+    tf32_times = tf32_kernels(device, card)
+    tf32_counts = tf32_paths(train_counts, train_metrics)
+    tf32_steps = tf32_step_timing(device, card)
+    print(f"[phase12f] [{card}] " + json.dumps({"kernels": tf32_times, "launches": tf32_counts,
+                                                "timing": tf32_steps}))
+    phase.done(f"12f (--matmul_precision {TF32_PRECISION})")
     t13 = time.perf_counter()
     dp_counts = {f"dp_torchrun_{k}": v
                  for k, v in dp_torchrun(train_counts, train_metrics).items()}
@@ -4713,6 +4955,12 @@ def main() -> int:
          "at_rank_rows": sp_times[name],
          "at_wide_shapes": [t for t in wide if t["name"] == name],
          **({"at_padded_grid": padded} if name == "fno_block" else {})}
+        for name in ("fno_block", "fno_head")
+    ] + [
+        {"name": f"{name}_tf32", "route": "cuda", "source": f"cfdbench_tpu_torch/csrc/{name}.cu",
+         "replaces": replaces[name], "launches": tf32_counts["main_multistep_high"][name],
+         "launches_by_path": {path: c[name] for path, c in tf32_counts.items()},
+         **tf32_times[name], "library_ms": None}
         for name in ("fno_block", "fno_head")
     ]}))
     print(json.dumps({"ok": True, "device": {

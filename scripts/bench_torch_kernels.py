@@ -5,10 +5,14 @@ Builds ``cfdbench_tpu_torch/csrc`` and times each kernel of the FnoBlock
 (its four passes) and the head at the flagship shape (B=128, 64x64, 32
 channels, 12 modes, 128 hidden units, 2 outputs) with ``torch.profiler``
 over 20 calls, on inputs drawn from N(0, 1), after checking both against
-their plain PyTorch versions. Then it measures the card's
-``mma.sync.m16n8k8`` TF32 rate with a kernel that issues nothing else.
+their plain PyTorch versions, in each mode that ``--matmul_precision``
+names (default: both): split TF32 (``highest``, ``default``, ...) and the
+one-product TF32 mode (``high``, ``tensorfloat32``, ``TF32_TF32_F32``),
+the latter against the plain version of its mode and beside its distance
+from the float32 one. Then it measures the card's ``mma.sync.m16n8k8``
+TF32 rate with a kernel that issues nothing else.
 
-    python3 scripts/bench_torch_kernels.py
+    python3 scripts/bench_torch_kernels.py [--matmul_precision highest high]
 
 Needs a CUDA card and ``nvcc``; writes the rate probe under
 ``build/bench_torch_kernels/``.
@@ -16,6 +20,7 @@ Needs a CUDA card and ``nvcc``; writes the rate probe under
 
 from __future__ import annotations
 
+import argparse
 import re
 import subprocess
 import sys
@@ -29,7 +34,7 @@ sys.path.insert(0, str(REPO_ROOT))
 
 from cfdbench_tpu_torch.ops import _build  # noqa: E402
 from cfdbench_tpu_torch.ops import fno_kernels as fk  # noqa: E402
-from cfdbench_tpu_torch.utils.device import require_cuda, set_f32_numerics  # noqa: E402
+from cfdbench_tpu_torch.utils.device import require_cuda, set_numerics, uses_tf32  # noqa: E402
 
 OUT = REPO_ROOT / "build" / "bench_torch_kernels"
 B, H, W, C, MODES, HIDDEN, N_OUT = 128, 64, 64, 32, 12, 128, 2
@@ -92,9 +97,13 @@ def kernel_ms(fn) -> dict:
     return times
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--matmul_precision", nargs="+", default=["highest", "high"],
+                        help="the modes to time, by --matmul_precision value")
+    modes = [uses_tf32(v) for v in parser.parse_args(argv).matmul_precision]
     device = require_cuda()
-    set_f32_numerics()
+    set_numerics()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card)
@@ -113,18 +122,29 @@ def main() -> int:
     mask = torch.ones((B, H, W, 1), device=device)
     block = (x, w, w0, b0, MODES, MODES)
     head = (x, w1, b1, w2, b2, mask)
-    want_block, want_head = fk.fno_block_reference(*block), fk.fno_head_reference(*head)
+    f32_block, f32_head = fk.fno_block_reference(*block), fk.fno_head_reference(*head)
     stream = torch.cuda.current_stream().cuda_stream
     print(f"[{card}] B={B} {H}x{W} C={C} modes={MODES}, inputs N(0, 1); ms per call")
-    with torch.inference_mode():
-        err_block = (fk._block_call(lib, *block, stream)[0] - want_block).abs().max().item()
-        err_head = (fk._head_call(lib, *head, stream) - want_head).abs().max().item()
-        times = kernel_ms(lambda: fk._block_call(lib, *block, stream))
-        times.update(kernel_ms(lambda: fk._head_call(lib, *head, stream)))
-    block_ms = sum(v for k, v in times.items() if not k.startswith("fno_head"))
-    print(f"err block {err_block:.3e} head {err_head:.3e}; block {block_ms:.4f} = "
-          + " + ".join(f"{k} {v:.4f}" for k, v in times.items() if not k.startswith("fno_head"))
-          + f"; head {times['fno_head_kernel']:.4f}")
+    for tf32 in modes:
+        want_block = fk.fno_block_reference(*block, tf32=tf32)
+        want_head = fk.fno_head_reference(*head, tf32=tf32)
+        with torch.inference_mode():
+            got_block = fk._block_call(lib, *block, stream, tf32=tf32)[0]
+            got_head = fk._head_call(lib, *head, stream, tf32)
+            err_block = (got_block - want_block).abs().max().item()
+            err_head = (got_head - want_head).abs().max().item()
+            f32_err = ((got_block - f32_block).abs().max().item(),
+                       (got_head - f32_head).abs().max().item())
+            times = kernel_ms(lambda: fk._block_call(lib, *block, stream, tf32=tf32))
+            times.update(kernel_ms(lambda: fk._head_call(lib, *head, stream, tf32)))
+        block_ms = sum(v for k, v in times.items() if not k.startswith("fno_head"))
+        print(f"[{card}] {'TF32' if tf32 else 'split TF32'}: err against the plain version of "
+              f"the mode: block {err_block:.3e} (of max {want_block.abs().max().item():.3f}), "
+              f"head {err_head:.3e}; against the float32 plain version: block {f32_err[0]:.3e}, "
+              f"head {f32_err[1]:.3e}; block {block_ms:.4f} = "
+              + " + ".join(f"{k} {v:.4f}" for k, v in times.items()
+                           if not k.startswith("fno_head"))
+              + f"; head {times['fno_head_kernel']:.4f}")
 
     src = OUT / "mma_rate.cu"
     src.write_text(MMA_RATE)

@@ -19,12 +19,13 @@ trainer spends minutes loading it, and reports what a run will see:
 - per-problem/subset case counts and the 80/10/10 split sizes, computed
   by the port's own splitter (``data/core.py::split_cases``)
 - an estimated cache-build (full tree read) time, measured from the
-  sampled files with ``np.load``, the port's only reader
+  sampled files with ``np.load`` and with the port's native C++ reader
+  (``cfdbench_tpu_torch/native``, which the loaders read through), as the
+  JAX script measures its own: ``read_mb_s_native`` and
+  ``est_full_read_s_native``, or ``note_native`` where the reader does not
+  build here
 
-The report has every key of the JAX script's but those of its native C++
-reader (``read_mb_s_native``, ``est_full_read_s_native``,
-``note_native``): the port reads with ``np.load`` alone and has no native
-reader (ROADMAP.md A17).
+The report has every key of the JAX script's.
 
 Exit code 0 = usable (warnings allowed), 1 = at least one error.
 ``--json`` prints a machine-readable report instead of text.
@@ -47,6 +48,8 @@ import numpy as np
 REPO_ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO_ROOT))
 
+from cfdbench_tpu_torch import native  # noqa: E402
+from cfdbench_tpu_torch.data import fast_io  # noqa: E402
 from cfdbench_tpu_torch.data.core import (  # noqa: E402
     PROBLEMS,
     REQUIRED_CASE_KEYS,
@@ -135,8 +138,9 @@ def _check_case(problem: str, case_dir: Path, report: dict) -> int:
 
 
 def _estimate_cache_build(sample_files, total_bytes, report):
-    """Measure ``np.load``'s read throughput on the sampled files and
-    project it to the whole tree."""
+    """Measure the read throughput of ``np.load`` and then of the native
+    reader (one parallel batch) on the sampled files, and project each to
+    the whole tree."""
     sample_bytes = sum(p.stat().st_size for p in sample_files)
     if not sample_bytes:
         return
@@ -147,6 +151,21 @@ def _estimate_cache_build(sample_files, total_bytes, report):
     py_bps = sample_bytes / dt
     report["read_mb_s_numpy"] = round(py_bps / 1e6, 1)
     report["est_full_read_s_numpy"] = round(total_bytes / py_bps, 1)
+    if native.available():
+        fast_io.clear_cache()
+        t0 = time.perf_counter()
+        fast_io.prefetch_npy(sample_files)
+        dt = max(time.perf_counter() - t0, 1e-9)
+        fast_io.clear_cache()
+        nat_bps = sample_bytes / dt
+        report["read_mb_s_native"] = round(nat_bps / 1e6, 1)
+        report["est_full_read_s_native"] = round(total_bytes / nat_bps, 1)
+    else:
+        report["read_mb_s_native"] = None
+        report["note_native"] = (
+            "native reader did not build (cfdbench_tpu_torch/native); the port's "
+            "loaders raise until it does"
+        )
 
 
 def check_problem(root: Path, problem: str, sample: int) -> dict:
@@ -285,6 +304,9 @@ def main(argv=None):
             if r.get("est_full_read_s_numpy") is not None:
                 print(f"; est full read {r['est_full_read_s_numpy']}s "
                       f"(np.load @ {r['read_mb_s_numpy']} MB/s)", end="")
+                if r.get("read_mb_s_native"):
+                    print(f", {r['est_full_read_s_native']}s "
+                          f"(native @ {r['read_mb_s_native']} MB/s)", end="")
             print()
             for w in r["warnings"]:
                 print(f"  WARN  {w}")

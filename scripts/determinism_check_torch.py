@@ -24,7 +24,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from cfdbench_tpu_torch.data.synthetic import generate_problem  # noqa: E402
-from cfdbench_tpu_torch.utils.device import require_cuda, set_f32_numerics  # noqa: E402
+from cfdbench_tpu_torch.utils.device import require_cuda, set_numerics  # noqa: E402
 
 
 def unet_epoch(data_root: Path, tag: str, device, every_algorithm: bool):
@@ -69,7 +69,7 @@ def step_twice(device, setting: str):
 
 def main() -> int:
     device = require_cuda()
-    set_f32_numerics()
+    set_numerics()
     print(cs.sh("nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"))
     data_root = cs.WORK / "dp_data"
     generate_problem(data_root, "cavity", cases_per_subset=4, num_frames=cs.STEPS + 1,

@@ -52,7 +52,7 @@ def main(argv=None) -> Path:
     from cfdbench_tpu_torch.data import get_auto_dataset
     from cfdbench_tpu_torch.models.point import NO_ROLLOUT
     from cfdbench_tpu_torch.training.checkpoints import load_best_params
-    from cfdbench_tpu_torch.utils.device import require_cuda, set_f32_numerics
+    from cfdbench_tpu_torch.utils.device import require_cuda, set_numerics
     from cfdbench_tpu_torch.utils.export import export_predict, export_rollout
 
     pre = argparse.ArgumentParser(add_help=False)
@@ -66,7 +66,7 @@ def main(argv=None) -> Path:
                          "predict_frame, so it has no export, in the JAX package either "
                          "(ROADMAP.md C)")
     device = require_cuda() if ns.device is None else torch.device(ns.device)
-    set_f32_numerics()
+    set_numerics(args.matmul_precision)
     _, _, test_data = get_auto_dataset(
         data_dir=Path(args.data_dir),
         data_name=args.data_name,

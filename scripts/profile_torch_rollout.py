@@ -65,7 +65,7 @@ from cfdbench_tpu_torch.training.trainer_auto import (  # noqa: E402
     use_mesh,
 )
 from cfdbench_tpu_torch.utils.rng import train_key  # noqa: E402
-from cfdbench_tpu_torch.utils.device import require_cuda, set_f32_numerics  # noqa: E402
+from cfdbench_tpu_torch.utils.device import require_cuda, set_numerics  # noqa: E402
 
 STEPS = 20
 TRAIN_STEPS = 5
@@ -175,7 +175,7 @@ def main() -> int:
     ap.add_argument("--collectives", action="store_true")
     opts = ap.parse_args()
     device = require_cuda()
-    set_f32_numerics()
+    set_numerics()
     if opts.model in ("pixel_diffusion", "gencast", *LATENT_MODELS):
         return profile_diffusion(opts, device)
     gen = torch.Generator().manual_seed(1)

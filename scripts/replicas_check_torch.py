@@ -33,10 +33,10 @@ if __name__ == "__main__":
 
     import chip_smoke as cs
     from cfdbench_tpu_torch.data.synthetic import generate_problem
-    from cfdbench_tpu_torch.utils.device import require_cuda, set_f32_numerics
+    from cfdbench_tpu_torch.utils.device import require_cuda, set_numerics
 
     device = require_cuda()
-    set_f32_numerics()
+    set_numerics()
     print(cs.sh("nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"))
     data_root = cs.WORK / "dp_data"
     generate_problem(data_root, "cavity", cases_per_subset=4, num_frames=cs.STEPS + 1,

@@ -239,9 +239,9 @@ def main(argv=None) -> dict:
     if ns.artifact is None and not ns.selftest:
         ap.error("pass --artifact PATH and/or --selftest")
 
-    from cfdbench_tpu_torch.utils.device import require_cuda, set_f32_numerics
+    from cfdbench_tpu_torch.utils.device import require_cuda, set_numerics
 
-    set_f32_numerics()
+    set_numerics()
     result = {}
     if ns.artifact is not None:
         result["artifact_bench"] = bench_artifact(ns.artifact, ns.iters)

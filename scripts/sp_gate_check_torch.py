@@ -51,13 +51,13 @@ def main() -> None:
     import chip_smoke as cs
     from cfdbench_tpu_torch.cli import parse_args, run_dir
     from cfdbench_tpu_torch.data.synthetic import generate_problem
-    from cfdbench_tpu_torch.utils.device import require_cuda, set_f32_numerics
+    from cfdbench_tpu_torch.utils.device import require_cuda, set_numerics
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--fault", nargs="+", choices=FAULTS, default=list(FAULTS))
     opts = parser.parse_args()
     device = require_cuda()
-    set_f32_numerics()
+    set_numerics()
     print(cs.sh("nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"))
     data_root = cs.WORK / "dp_data"
     generate_problem(data_root, "cavity", cases_per_subset=4, num_frames=cs.STEPS + 1,

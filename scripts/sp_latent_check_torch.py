@@ -48,10 +48,10 @@ def main() -> int:
         cs.SP_CONTROL_SEEDS = cs.SP_CONTROL_SEEDS[:1]
         cs.SP_MEMORY = {}
     else:
-        from cfdbench_tpu_torch.utils.device import require_cuda, set_f32_numerics
+        from cfdbench_tpu_torch.utils.device import require_cuda, set_numerics
 
         device = require_cuda()
-        set_f32_numerics()
+        set_numerics()
         card = cs.host_facts()
         train_root = cs.WORK / "train_data"
         generate_problem(train_root, "cavity", cases_per_subset=4, num_frames=6, grid=cs.GRID,

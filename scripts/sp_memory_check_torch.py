@@ -25,7 +25,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from cfdbench_tpu_torch.utils.device import set_f32_numerics  # noqa: E402
+from cfdbench_tpu_torch.utils.device import set_numerics  # noqa: E402
 
 BACKWARD = "<no Python frame: autograd's backward>"
 
@@ -78,7 +78,7 @@ def traced_memory(argv, device, *args, **kwargs) -> dict:
 
 _sp_memory = cs.sp_memory
 cs.sp_memory = traced_memory
-set_f32_numerics()  # as the entry points set it; the spawned ranks too
+set_numerics()  # as the entry points set it; the spawned ranks too
 
 
 def main() -> None:

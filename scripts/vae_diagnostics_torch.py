@@ -35,7 +35,7 @@ from cfdbench_tpu_torch.data import get_auto_dataset  # noqa: E402
 from cfdbench_tpu_torch.data.vae_data import build_vae_dataset  # noqa: E402
 from cfdbench_tpu_torch.models.vae import make_cfd_vae  # noqa: E402
 from cfdbench_tpu_torch.training.checkpoints import load_params  # noqa: E402
-from cfdbench_tpu_torch.utils.device import entry_device, set_f32_numerics  # noqa: E402
+from cfdbench_tpu_torch.utils.device import entry_device, set_numerics  # noqa: E402
 
 
 def per_dim_kl(mean, logvar):
@@ -230,7 +230,7 @@ def main(argv=None):
     known, rest = ap.parse_known_args(argv)
     args = Args.parse_args(rest)
     device = entry_device(known.device)
-    set_f32_numerics()
+    set_numerics()
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
 

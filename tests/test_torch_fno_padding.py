@@ -178,13 +178,13 @@ def test_padded_forward_through_the_kernels_in_emulation(rng, monkeypatch):
             blk.weights.mul_(8)
     shapes = []
 
-    def block(x, weights, w0, b0, m1, m2, rows=None):
+    def block(x, weights, w0, b0, m1, m2, rows=None, tf32=False):
         shapes.append(("block", tuple(x.shape)))
-        return fk.FnoBlockFn.apply(lib, 0, True, x, weights, w0, b0, m1, m2)
+        return fk.FnoBlockFn.apply(lib, 0, True, x, weights, w0, b0, m1, m2, None, tf32)
 
-    def head(x, w1, b1, w2, b2, mask):
+    def head(x, w1, b1, w2, b2, mask, tf32=False):
         shapes.append(("head", tuple(x.shape), x.is_contiguous()))
-        return fk.FnoHeadFn.apply(lib, 0, x, w1, b1, w2, b2, mask)
+        return fk.FnoHeadFn.apply(lib, 0, x, w1, b1, w2, b2, mask, tf32)
 
     x, cp, mask, label = (t(a) for a in batch(rng))
 

@@ -74,13 +74,13 @@ def run(request):
     model.load_state_dict(params_from_flax(params))
     lib, shapes = emulation(), []
 
-    def block(x, weights, w0, b0, m1, m2, rows=None):
+    def block(x, weights, w0, b0, m1, m2, rows=None, tf32=False):
         shapes.append(("block", tuple(x.shape)))
-        return fk.FnoBlockFn.apply(lib, 0, True, x, weights, w0, b0, m1, m2)
+        return fk.FnoBlockFn.apply(lib, 0, True, x, weights, w0, b0, m1, m2, None, tf32)
 
-    def head(x, w1, b1, w2, b2, mask):
+    def head(x, w1, b1, w2, b2, mask, tf32=False):
         shapes.append(("head", tuple(x.shape)))
-        return fk.FnoHeadFn.apply(lib, 0, x, w1, b1, w2, b2, mask)
+        return fk.FnoHeadFn.apply(lib, 0, x, w1, b1, w2, b2, mask, tf32)
 
     with pytest.MonkeyPatch.context() as m:
         m.setattr(fno, "block_call", block)

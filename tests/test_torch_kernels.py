@@ -250,9 +250,9 @@ def test_split_block_kernel_on_padded_rows_matches_the_whole_in_emulation():
 @pytest.mark.cuda
 def test_split_block_kernel_on_padded_rows_matches_the_whole_on_card(cuda_device):
     """The flagship padded by 9 at two ranks: the rows (0, 32, 73), W = 73."""
-    from cfdbench_tpu_torch.utils.device import set_f32_numerics
+    from cfdbench_tpu_torch.utils.device import set_numerics
 
-    set_f32_numerics()
+    set_numerics()
     check_split_block(_build.load_library(), torch.cuda.current_stream().cuda_stream, 4, 73, 73,
                       32, 2, cuda_device, bounds=(0, 32, 73), pad=9)
 
@@ -260,9 +260,9 @@ def test_split_block_kernel_on_padded_rows_matches_the_whole_on_card(cuda_device
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,W,M", [(64, 64, 2), (64, 64, 4), (66, 65, 2)])
 def test_split_block_kernel_matches_the_whole_on_card(cuda_device, H, W, M):
-    from cfdbench_tpu_torch.utils.device import set_f32_numerics
+    from cfdbench_tpu_torch.utils.device import set_numerics
 
-    set_f32_numerics()
+    set_numerics()
     check_split_block(_build.load_library(), torch.cuda.current_stream().cuda_stream, 4, H, W,
                       32, M, cuda_device)
 
@@ -338,9 +338,9 @@ def cuda_device():
     ],
 )
 def test_kernels_match_plain_on_card(cuda_device, rng, B, H, W, C, modes):
-    from cfdbench_tpu_torch.utils.device import set_f32_numerics
+    from cfdbench_tpu_torch.utils.device import set_numerics
 
-    set_f32_numerics()
+    set_numerics()
     n_out = 2 if C == 32 else 3  # the FNO's 2 outputs, and a run-time count
     block, head = kernel_case(rng, B, H, W, C, modes, n_out, cuda_device)
     before = fk.launch_counts()
@@ -363,9 +363,9 @@ def test_kernel_forward_carries_gradients_on_card(cuda_device, rng):
     # A forward under grad through both kernels reaches every parameter
     # with the plain path's gradient (flagship widths, 64x64).
     from cfdbench_tpu_torch.models.fno import FLAGSHIP, Fno2d, fno2d_reference
-    from cfdbench_tpu_torch.utils.device import set_f32_numerics
+    from cfdbench_tpu_torch.utils.device import set_numerics
 
-    set_f32_numerics()
+    set_numerics()
     model = Fno2d(n_case_params=5, **FLAGSHIP, generator=torch.Generator().manual_seed(0),
                   device=cuda_device)
     inputs = t(rng.standard_normal((2, 64, 64, 2))).to(cuda_device)
@@ -402,10 +402,10 @@ def test_served_fno_launches_both_kernels_on_card(tmp_path, rng, cuda_device):
     in-process forward's output."""
     from cfdbench_tpu_torch.models.fno import Fno2d
     from cfdbench_tpu_torch.training.trainer_auto import AutoTask
-    from cfdbench_tpu_torch.utils.device import set_f32_numerics
+    from cfdbench_tpu_torch.utils.device import set_numerics
     from cfdbench_tpu_torch.utils.export import export_predict, export_rollout, load_exported
 
-    set_f32_numerics()
+    set_numerics()
     B, H, W, steps = 4, 16, 16, 3
     task = AutoTask(Fno2d(in_chan=2, out_chan=2, n_case_params=5, num_layers=2, modes1=4,
                           modes2=4, hidden_dim=8, generator=torch.Generator().manual_seed(0),
@@ -442,12 +442,12 @@ def test_served_pixel_diffusion_on_card(tmp_path, rng, cuda_device):
     from cfdbench_tpu_torch.config import Args
     from cfdbench_tpu_torch.models import init_pixel_diffusion
     from cfdbench_tpu_torch.training.rollout import make_rollout_fn
-    from cfdbench_tpu_torch.utils.device import set_f32_numerics
+    from cfdbench_tpu_torch.utils.device import set_numerics
     from cfdbench_tpu_torch.utils.export import (
         export_predict, export_rollout, graph_stats, load_exported,
     )
 
-    set_f32_numerics()
+    set_numerics()
     B, H, W, steps = 2, 16, 16, 2
     args = Args.parse_args(["--model", "pixel_diffusion", "--pixel_diffusion_base_channels", "8",
                             "--pixel_diffusion_channel_mults", "1", "2",

@@ -220,7 +220,9 @@ def test_save_checkpoint_best_is_lowest_dev_loss(tmp_path):
         pytest.param(["--model", "ffn", "--mesh_shape", "2x4"], "ROADMAP.md C",
                      id="flags2-A15"),
         (["--compilation_cache_dir", "cache"], "A17"),
-        (["--matmul_precision", "high"], "A17"),
+        # --matmul_precision high runs TF32 on the card
+        # (tests/test_torch_precision.py); bfloat16 products are refused.
+        (["--matmul_precision", "bfloat16"], "A17"),
         # --profile_dir is ported (tests/test_torch_profile.py): beside it a
         # flag the port lacks is refused before any trace starts. The case
         # keeps its id.
@@ -229,7 +231,7 @@ def test_save_checkpoint_best_is_lowest_dev_loss(tmp_path):
         # The latent models are ported: they meet the same refusals (the
         # case keeps its id).
         pytest.param(["--model", "latent_diffusion", "--profile_dir", "trace",
-                      "--matmul_precision", "high"], "A17", id="flags6-A13"),
+                      "--matmul_precision", "bfloat16"], "A17", id="flags6-A13"),
     ],
 )
 def test_cli_refuses_unported_flags(tmp_path, flags, error):

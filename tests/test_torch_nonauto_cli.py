@@ -181,8 +181,10 @@ def test_main_train_needs_a_card_unless_told_cpu(port_tree, tmp_path, monkeypatc
     # the port lacks is refused before any trace starts. The case keeps its id.
     pytest.param(["--profile_dir", "trace", "--spectral_backend", "fft"], "A17",
                  id="flags9-A7"),
-    # The latent models are ported (main_auto trains them); the case keeps its id.
-    pytest.param(["--matmul_precision", "high"], "A17", id="flags10-A13"),
+    # The latent models are ported (main_auto trains them); --matmul_precision
+    # high runs TF32 (tests/test_torch_precision.py), BF16_BF16_F32 is refused.
+    # The case keeps its id.
+    pytest.param(["--matmul_precision", "BF16_BF16_F32"], "A17", id="flags10-A13"),
 ])
 def test_main_train_refuses_unported_flags(tmp_path, flags, error):
     argv = train_argv("deeponet", tmp_path / "data", 1) + [
