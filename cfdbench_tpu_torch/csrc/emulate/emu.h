@@ -11,6 +11,20 @@
 // NaN bytes, so a read of a slot the kernel never wrote shows in the
 // result. Speed is nothing like the card's; tiny shapes only.
 //
+// Hopper's asynchronous machinery (hopper.cuh) has counterparts too:
+// wgmma's fence and wait are barriers over the warpgroup (four warps),
+// commit is nothing (products run at once), and a product gathers the
+// warp's A fragments through its scratch area, reads B from shared
+// memory through the descriptor's
+// layout (the canonical K-major layout without swizzle; any other layout
+// aborts) and takes both operands as the tensor cores take TF32 (the low
+// 13 bits cleared). A TMA box is a copy done at once by the issuing
+// thread, with the card's 128- or 64-byte swizzle applied to the
+// destination's shared-memory offset and zeros outside the tensor; cp.async.bulk a
+// memcpy. An mbarrier is a counter of arrivals and bytes with a phase,
+// under one lock; a waiter sleeps on the phase until the phase of its
+// parity has completed. Named barrier 1 is the first warpgroup's barrier.
+//
 // Built by ops/_build.py::load_emulation with a host C++20 compiler and
 // -DFNO_EMULATE; launch.cuh includes this file in place of the CUDA
 // runtime.
@@ -18,11 +32,14 @@
 
 #include <algorithm>
 #include <array>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -44,7 +61,11 @@ using cudaStream_t = void*;
 constexpr int cudaSuccess = 0;
 constexpr int cudaErrorInvalidValue = 1;
 constexpr int cudaErrorInvalidConfiguration = 9;
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaFuncAttributePreferredSharedMemoryCarveout
+};
+constexpr int cudaSharedmemCarveoutMaxShared = 100;
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 inline int cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) { return 0; }
 inline int cudaGetLastError() { return 0; }
@@ -69,6 +90,7 @@ inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* v, K, int, size_t)
 #define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+#define __grid_constant__
 
 using std::max;
 using std::min;
@@ -90,12 +112,19 @@ inline T __ldg(const T* p) {
 
 namespace emu {
 
-constexpr int kScratch = 8;  // floats per lane: a0-a3, b0-b1, one shuffle value
+constexpr int kScratch = 16;  // floats per lane: a0-a3, b0-b1, one shuffle value; wgmma's A at 8-15
+
+// A warpgroup's barrier and the A fragments of its current wgmma.
+// A warpgroup's barrier.
+struct WarpGroup {
+  std::unique_ptr<std::barrier<>> bar;
+};
 
 struct Block {
   std::unique_ptr<std::barrier<>> bar;
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
   std::vector<std::array<float, 32 * kScratch>> scratch;
+  std::vector<WarpGroup> warpgroups;
   std::vector<float4> smem;
 };
 
@@ -124,6 +153,8 @@ struct Launch {
       blk.warp_bar.push_back(std::make_unique<std::barrier<>>(32));
     }
     blk.scratch.resize(n / 32);
+    blk.warpgroups.resize(n / 128);
+    for (auto& wg : blk.warpgroups) wg.bar = std::make_unique<std::barrier<>>(128);
     blk.smem.resize((smem + 15) / 16);
     // One host thread per CUDA thread for the whole launch, which walks the
     // blocks in order; shared memory is refilled with NaN bytes between them.
@@ -161,7 +192,18 @@ Launch<Kernel> launch(Kernel k, dim3 grid, dim3 threads, size_t smem, cudaStream
 #define FNO_LAUNCH(kernel, grid, block, smem, stream) emu::launch(kernel, grid, block, smem, stream)
 #define FNO_DYNAMIC_SMEM(type, name) type* name = reinterpret_cast<type*>(emu::block->smem.data())
 
+
 inline void __syncthreads() { emu::block->bar->arrive_and_wait(); }
+
+inline int __shfl_sync(unsigned, int v, int src) {
+  float* s = emu::block->scratch[emu::warp()].data();
+  std::memcpy(s + emu::lane() * emu::kScratch + 6, &v, 4);
+  emu::warp_sync();
+  int r;
+  std::memcpy(&r, s + src * emu::kScratch + 6, 4);
+  emu::warp_sync();
+  return r;
+}
 
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
   float* s = emu::block->scratch[emu::warp()].data();
@@ -204,3 +246,181 @@ inline void cp_async4(void* dst, const void* src) { std::memcpy(dst, src, 4); }
 inline void cp_async_commit() {}
 template <int N>
 inline void cp_async_wait() {}
+
+inline void __syncwarp(unsigned = 0xffffffffu) { emu::warp_sync(); }
+
+// ---- hopper.cuh ----
+
+inline uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(reinterpret_cast<const char*>(p) -
+                               reinterpret_cast<const char*>(emu::block->smem.data()));
+}
+
+// The phase is an atomic that waiters sleep on (C++20 atomic wait); the
+// counts change under one lock.
+struct Mbar {
+  std::atomic<int> phase;
+  int count, pending;
+  long long tx;
+};
+
+namespace emu {
+inline std::mutex mbar_lock;
+inline void mbar_settle(Mbar* b) {  // under mbar_lock
+  if (b->pending == 0 && b->tx == 0) {
+    b->pending = b->count;
+    b->phase.fetch_add(1);
+    b->phase.notify_all();
+  }
+}
+inline thread_local int wgmma_turn = 0;
+inline WarpGroup& warpgroup() { return block->warpgroups[thread_idx.x / 128]; }
+inline void wg_sync() { warpgroup().bar->arrive_and_wait(); }
+}  // namespace emu
+
+inline void mbar_init(Mbar* b, int count) {
+  std::lock_guard<std::mutex> l(emu::mbar_lock);
+  new (b) Mbar;
+  b->phase.store(0);
+  b->count = b->pending = count;
+  b->tx = 0;
+}
+inline void fence_mbar_init() {}
+inline void mbar_arrive(Mbar* b) {
+  std::lock_guard<std::mutex> l(emu::mbar_lock);
+  --b->pending;
+  emu::mbar_settle(b);
+}
+inline void mbar_arrive_expect_tx(Mbar* b, uint32_t bytes) {
+  std::lock_guard<std::mutex> l(emu::mbar_lock);
+  b->tx += bytes;
+  --b->pending;
+  emu::mbar_settle(b);
+}
+inline void mbar_complete_tx(Mbar* b, uint32_t bytes) {
+  std::lock_guard<std::mutex> l(emu::mbar_lock);
+  b->tx -= bytes;
+  emu::mbar_settle(b);
+}
+inline void mbar_wait(Mbar* b, int parity) {
+  for (;;) {
+    const int phase = b->phase.load();
+    if ((phase & 1) != parity) return;
+    b->phase.wait(phase);
+  }
+}
+inline void bulk_load(void* dst, const void* src, uint32_t bytes, Mbar* b) {
+  if (bytes % 16 || smem_addr(dst) % 16 || reinterpret_cast<uintptr_t>(src) % 16) std::abort();
+  std::memcpy(dst, src, bytes);
+  mbar_complete_tx(b, bytes);
+}
+
+// A tensor map as the kernels use it: float32, 4 dimensions, 128-byte
+// swizzle, zeros outside.
+struct CUtensorMap {
+  const char* base;
+  uint64_t dims[4], strides[4];
+  uint32_t box[4];
+  int swizzle;
+};
+
+inline int encode_tensor_map_4d(CUtensorMap* map, const void* base, const uint64_t dims[4],
+                                const uint64_t strides[3], const uint32_t box[4], int swizzle) {
+  // The card's rules: a 16-byte aligned base and strides, box sides of 1 to
+  // 256, and boxes at most as wide as the swizzle's span.
+  if (reinterpret_cast<uintptr_t>(base) % 16 || (swizzle != 128 && swizzle != 64) ||
+      box[0] * 4 > (uint32_t)swizzle) {
+    return cudaErrorInvalidValue;
+  }
+  map->base = static_cast<const char*>(base);
+  map->swizzle = swizzle;
+  map->strides[0] = 4;
+  for (int i = 0; i < 4; ++i) {
+    if (box[i] < 1 || box[i] > 256 || dims[i] < 1) return cudaErrorInvalidValue;
+    if (i > 0 && strides[i - 1] % 16) return cudaErrorInvalidValue;
+    map->dims[i] = dims[i];
+    map->box[i] = box[i];
+    if (i > 0) map->strides[i] = strides[i - 1];
+  }
+  return cudaSuccess;
+}
+
+inline void tma_load_4d(void* dst, const CUtensorMap* map, Mbar* b, int c0, int c1, int c2,
+                        int c3) {
+  char* smem = reinterpret_cast<char*>(emu::block->smem.data());
+  const uint32_t d0 = smem_addr(dst);
+  if (d0 % 1024) std::abort();  // the 128-byte swizzle's alignment
+  const long long c[4] = {c0, c1, c2, c3};
+  uint32_t n = 0;
+  for (uint32_t i3 = 0; i3 < map->box[3]; ++i3)
+    for (uint32_t i2 = 0; i2 < map->box[2]; ++i2)
+      for (uint32_t i1 = 0; i1 < map->box[1]; ++i1)
+        for (uint32_t i0 = 0; i0 < map->box[0]; ++i0, ++n) {
+          const long long at[4] = {c[0] + i0, c[1] + i1, c[2] + i2, c[3] + i3};
+          float v = 0.f;
+          bool inside = true;
+          long long off = 0;
+          for (int i = 0; i < 4; ++i) {
+            inside = inside && at[i] >= 0 && at[i] < (long long)map->dims[i];
+            off += at[i] * (long long)map->strides[i];
+          }
+          if (inside) std::memcpy(&v, map->base + off, 4);
+          uint32_t o = d0 + 4 * n;
+          o ^= ((o >> 7) & (map->swizzle == 128 ? 7 : 3)) << 4;
+          std::memcpy(smem + o, &v, 4);
+        }
+  mbar_complete_tx(b, 4 * n);
+}
+
+inline void fence_proxy_async() {}
+inline void consumer_sync(int threads) {
+  if (threads != 128) std::abort();
+  emu::block->warpgroups[0].bar->arrive_and_wait();
+}
+
+inline void wgmma_fence() { emu::wg_sync(); }
+inline void wgmma_commit() {}
+template <int N>
+inline void wgmma_wait() {
+  emu::wg_sync();
+}
+template <class T>
+inline void fence_operand(T&) {}
+
+// d += A . B, one m64nNk8 TF32 product of the calling thread's warpgroup
+// (hopper.cuh's layouts). A warp's rows of D need only its own rows of A,
+// so the product gathers A over the warp (its scratch area's two halves in
+// turns: one barrier a product).
+template <int N>
+inline void wgmma_tf32(float* d, const uint32_t a[4], uint64_t desc) {
+  float* scratch = emu::block->scratch[emu::warp()].data() + 8 + 4 * emu::wgmma_turn;
+  emu::wgmma_turn ^= 1;
+  const int l = emu::lane();
+  for (int i = 0; i < 4; ++i) scratch[l * emu::kScratch + i] = __uint_as_float(a[i] & 0xffffe000u);
+  emu::warp_sync();
+  if (desc >> 62) std::abort();  // only the layout without swizzle
+  const char* smem = reinterpret_cast<const char*>(emu::block->smem.data());
+  const uint32_t start = (desc & 0x3FFF) << 4, lbo = ((desc >> 16) & 0x3FFF) << 4,
+                 sbo = ((desc >> 32) & 0x3FFF) << 4;
+  const int g = l >> 2, t = l & 3;
+  float A[2][8];  // this thread's rows g and g + 8 of the warp's 16
+  for (int half = 0; half < 2; ++half)
+    for (int k = 0; k < 8; ++k)
+      A[half][k] = scratch[(4 * g + k % 4) * emu::kScratch + half + 2 * (k / 4)];
+  for (int j = 0; j < N / 8; ++j)
+    for (int e = 0; e < 2; ++e) {
+      const int n = 8 * j + 2 * t + e;
+      float Bk[8];
+      for (int k = 0; k < 8; ++k) {
+        uint32_t u;
+        std::memcpy(&u, smem + start + (k / 4) * lbo + (n / 8) * sbo + (n % 8) * 16 + (k % 4) * 4,
+                    4);
+        Bk[k] = __uint_as_float(u & 0xffffe000u);
+      }
+      for (int half = 0; half < 2; ++half) {
+        float sum = 0.f;
+        for (int k = 0; k < 8; ++k) sum += A[half][k] * Bk[k];
+        d[4 * j + 2 * half + e] += sum;
+      }
+    }
+}

@@ -24,12 +24,33 @@ constexpr size_t kMaxDynamicSmem = 232448;
 
 // Above 48 KB a kernel only gets dynamic shared memory after it opts in.
 // Returns an error instead of launching a kernel the card would refuse.
+// Above 48 KB the kernel also asks for the largest shared-memory carveout,
+// so that the blocks its shared memory allows share an SM. What was set is
+// kept per (device, kernel), since the runtime calls cost host time on
+// every launch.
 inline cudaError_t allow_dynamic_smem(const void* kernel, size_t bytes) {
   if (bytes > kMaxDynamicSmem) return cudaErrorInvalidConfiguration;
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+  struct Entry {
+    int dev;
+    const void* kernel;
+    size_t bytes;
+  };
+  static Entry set[32];
+  static int used = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err) return err;
+  for (int i = 0; i < used; ++i) {
+    if (set[i].dev == dev && set[i].kernel == kernel && set[i].bytes >= bytes) return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (!err && used < 32) set[used++] = Entry{dev, kernel, bytes};
+  return err;
 }
 
 // Blocks of a persistent kernel: as many as fit on the current device at

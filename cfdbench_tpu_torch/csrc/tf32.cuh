@@ -1,5 +1,5 @@
-// Split-TF32 and TF32 products on Hopper's tensor cores, and cp.async
-// staging.
+// Split-TF32 and TF32 operands for Hopper's tensor cores, mma.sync
+// products, and cp.async staging.
 //
 // A float32 a is split into a_hi = tf32(a) (10 mantissa bits, rounded to
 // nearest with ties away from zero, the low 13 bits zero) and a_lo = a -
@@ -9,19 +9,28 @@
 // forward DFT pass's time on an H100 80GB HBM3, for no change in the
 // block's error).
 // a*b is then a_hi*b_hi + a_hi*b_lo + a_lo*b_hi accumulated in float32;
-// the dropped a_lo*b_lo is about 2^-22 |a*b|. Three mma.sync.m16n8k8 TF32
-// products thus hold float32 accuracy at a third of the tensor cores' TF32
-// rate (495 TFLOP/s dense on an H100 SXM's data sheet; about 320 TFLOP/s
-// for mma.sync on an H100 80GB HBM3 at 700 W, scripts/bench_torch_kernels.py),
-// above the 67 TFLOP/s of float32 FMA.
+// the dropped a_lo*b_lo is about 2^-22 |a*b|. Three TF32 products thus
+// hold float32 accuracy at a third of the tensor cores' TF32 rate, above
+// the 67 TFLOP/s of float32 FMA.
 //
-// With P = 1 product (mma_tf32x<1>: --matmul_precision high, which JAX runs
-// as TF32 on an NVIDIA card) a*b is a_hi*b_hi alone: each operand rounded
-// to TF32, about 2^-11 |a*b|, at the full TF32 rate. Every kernel takes P
-// as a template argument; its low parts are then never used, and the
-// compiler drops them.
+// The products come in two forms:
+// - mma.sync.m16n8k8 (here, mma_tf32x): one warp, operands in registers,
+//   the sm_80 route's kernels. About 320 TFLOP/s of TF32 on an H100 80GB
+//   HBM3 at 700 W (scripts/bench_torch_kernels.py) against the data
+//   sheet's 495.
+// - wgmma.mma_async m64nNk8 (hopper.cuh, wgmma_tf32x): a warpgroup, A in
+//   registers split here (split_tf32), B in shared memory split by the
+//   host or a block into hi and lo planes; the same three products, the
+//   Hopper route's kernels.
 //
-// Fragment layout of mma.m16n8k8 with .tf32 operands (lane = 4 g + t):
+// With P = 1 product (mma_tf32x<1>, wgmma_tf32x<1, N>: --matmul_precision
+// high, which JAX runs as TF32 on an NVIDIA card) a*b is a_hi*b_hi alone:
+// each operand rounded to TF32, about 2^-11 |a*b|, at the full TF32 rate.
+// Every kernel takes P as a template argument; its low parts are then
+// never used, and the compiler drops them.
+//
+// Fragment layout of mma.m16n8k8 with .tf32 operands (lane = 4 g + t), as
+// also one warp's 16 rows of a wgmma A fragment:
 //   A (16 x 8, row): a0 (g, t)  a1 (g + 8, t)  a2 (g, t + 4)  a3 (g + 8, t + 4)
 //   B (8 x 8, col):  b0 (t, g)  b1 (t + 4, g)
 //   C, D (16 x 8):   c0 (g, 2t) c1 (g, 2t + 1) c2 (g + 8, 2t) c3 (g + 8, 2t + 1)

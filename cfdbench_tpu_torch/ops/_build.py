@@ -38,7 +38,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 EMULATION_FLAGS = (
-    "-x", "c++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
+    "-x", "c++", "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread",
     "-DFNO_EMULATE", "-Wno-unknown-pragmas",
 )
 
@@ -70,23 +70,42 @@ def build(target: Path, compiler: str, flags, log_name: str, sources, headers=()
     """Compile ``sources`` into ``target`` unless it is newer than every
     source and header and than this file, which holds the flags; the
     compiler's output goes to ``log_name`` beside ``target``. Raises with
-    that output on failure."""
+    that output on failure.
+
+    Each source compiles to an object of its own (``flags`` without
+    ``-shared``, with ``-c``), all of them at once, one compiler process
+    each; then the objects link into ``target`` (``-shared``, and
+    ``-pthread`` where ``flags`` hold it)."""
     if target.exists() and target.stat().st_mtime >= max(
         p.stat().st_mtime for p in [*sources, *headers, Path(__file__)]
     ):
         return target
     target.parent.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
-    cmd = [compiler, *flags, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (target.parent / log_name).write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
+    stem = f"{target.stem}.{os.getpid()}"
+    tmp = target.with_name(f"{stem}.tmp.so")
+    objects = [target.with_name(f"{stem}.{Path(s).stem}.o") for s in sources]
+    compile_flags = [f for f in flags if f != "-shared"]
+    commands = [[compiler, *compile_flags, "-c", "-o", str(o), str(s)]
+                for s, o in zip(sources, objects)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in commands]
+    outputs = [proc.communicate() for proc in procs]
+    runs = [(cmd, proc.returncode, out, err)
+            for cmd, proc, (out, err) in zip(commands, procs, outputs)]
+    if all(rc == 0 for _, rc, _, _ in runs):
+        link = [compiler, "-shared", *(["-pthread"] if "-pthread" in flags else []),
+                "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        runs.append((link, proc.returncode, proc.stdout, proc.stderr))
+    (target.parent / log_name).write_text("".join(
+        " ".join(cmd) + "\n" + out + err for cmd, _, out, err in runs))
+    for o in objects:
+        o.unlink(missing_ok=True)
+    failed = [(cmd, rc, err) for cmd, rc, _, err in runs if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"{compiler} failed with exit code {proc.returncode}:\n{proc.stderr}"
-        )
+        cmd, rc, err = failed[0]
+        raise RuntimeError(f"{compiler} failed with exit code {rc} ({cmd[-1]}):\n{err}")
     os.replace(tmp, target)
     return target
 
@@ -125,8 +144,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fno_block_spectrum.argtypes = [ptr] * 4 + [i32] * 7 + [ptr]
     lib.fno_block_spectrum.restype = i32
-    lib.fno_block_finish.argtypes = [ptr] * 11 + [i32] * 10 + [ptr]
+    lib.fno_block_spectrum_on.argtypes = [ptr] * 4 + [i32] * 8 + [ptr]
+    lib.fno_block_spectrum_on.restype = i32
+    lib.fno_block_finish.argtypes = [ptr] * 12 + [i32] * 11 + [ptr]
     lib.fno_block_finish.restype = i32
+    lib.fno_block_route.argtypes = [i32] * 5
+    lib.fno_block_route.restype = i32
     lib.fno_head_forward.argtypes = [ptr] * 7 + [i64, i32, i32, i32, i32, ptr]
     lib.fno_head_forward.restype = i32
     lib.fno_error_string.argtypes = [i32]

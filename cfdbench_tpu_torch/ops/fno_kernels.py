@@ -51,9 +51,16 @@ TF32 mode it rounds every product's operands as the kernel does
 kernel only in the order of its sums. The backwards are PyTorch ops in
 either mode, and follow cuBLAS's setting (``utils/device.py::set_numerics``).
 The block kernel's constant operands — the truncated DFT tables — are
-split into TF32 high and low halves and laid out in ``mma.sync``
-fragment order here, once per grid and mode count (:func:`_block_tables`);
-in TF32 mode the kernels read only the high halves.
+split into TF32 high and low halves here, once per grid and mode count
+(:func:`_block_tables`): in ``mma.sync`` fragment order for the sm_80
+route's passes, and as ``wgmma``'s K-major B planes (:func:`_b_planes`)
+for the Hopper route's; in TF32 mode the kernels read only the high halves.
+The library picks the route by shape before a launch
+(``fno_block_route``, :func:`block_route`, :func:`route_name`): the
+Hopper route (``wgmma`` fed by TMA through ``mbarrier`` rings, the
+inverse's row spectra kept on chip) where the channel counts are
+multiples of 4 and its tables fit, the sm_80 route elsewhere; a failure
+raises, it never gives way to the other route.
 ``_block_call`` and ``_head_call`` take the library to launch, so the
 tests can run them through the kernels' CPU emulation
 (``ops/_build.py::load_emulation``).
@@ -61,18 +68,19 @@ tests can run them through the kernels' CPU emulation
 Under spatial sharding (``rows``: the model axis over which x's grid rows
 are split, ``parallel/spatial.py``) the block runs on a rank's rows. Its
 first pass, the projection onto the retained modes, is a sum over rows:
-the host launches it (``fno_block_spectrum``), sums the ranks' partial
-spectra over the model group, and launches the other three passes
+the host launches it (``fno_block_spectrum_on``), sums the ranks' partial
+spectra over the model group, and launches the other passes
 (``fno_block_finish``) for the rank's rows, whose tables hold the DFT's
 columns and rows for them (:func:`_block_matrices`). The two halves count
 as one ``fno_block`` launch. The backward keeps the same split
 (:func:`fno_block_vjp`). The head is per pixel and runs on the rank's
 rows unchanged.
 
-The kernels take every positive size: where their tables and whole rows
-do not fit a block's shared memory, the block's inverse-columns pass runs
-tiled over the columns and its K, and the head streams fc1 over the
-channels (``csrc/*.cu``). The library says what it refuses and why
+The kernels take every positive size: where the Hopper route's tables do
+not fit, the sm_80 route runs; where its tables and whole rows do not fit
+a block's shared memory, its inverse-columns pass runs tiled over the
+columns and its K, and the head streams fc1 over the channels
+(``csrc/*.cu``). The library says what it refuses and why
 (``fno_block_unsupported``, ``fno_head_unsupported``: a size that is not
 positive), and :func:`check_kernel_shapes` raises on that before
 anything launches.
@@ -103,6 +111,31 @@ FWD_K = 24      # kFwdK: spectrum rows per forward block
 FWD_MT = 3      # kFwdMT: 16-row tiles of the forward H-stage (2 * FWD_K rows)
 FWD_NW = 3      # kFwdNW: 8-column tiles of the forward W-stage (2 * FWD_MODES columns)
 INV_ROWS = 8    # kInvRows: rows per inverse block
+HOP_ROWS = 8    # kHopRows: output rows per item of the Hopper route's inverse
+HOP_W = 64      # kHopW: columns per tile of the Hopper route's inverse
+SPEC_ROWS = 8   # kSpecRows: rows per group of the Hopper route's pass 1
+SPEC_MODES = 12  # kSpecModes: modes each way the Hopper route's pass 1 takes at most
+
+# fno_block_route's bits: which passes run on the Hopper route at a shape.
+ROUTE_FINISH, ROUTE_SPECTRUM = 1, 2
+
+
+def route_kernels(route: int) -> tuple:
+    """The CUDA kernels (by name) that one block call launches on ``route``."""
+    spectrum = ("dft_forward_hopper_kernel" if route & ROUTE_SPECTRUM
+                else "dft_forward_kernel",)
+    finish = (("mode_mix_hopper_kernel", "inverse_hopper_kernel") if route & ROUTE_FINISH
+              else ("mode_mix_kernel", "inverse_rows_kernel", "inverse_cols_kernel"))
+    return spectrum + finish
+
+
+def route_name(route: int) -> str:
+    """``fno_block_route``'s answer in words."""
+    spectrum = ("pass 1 on wgmma and TMA" if route & ROUTE_SPECTRUM
+                else "pass 1 on mma.sync and cp.async")
+    finish = ("pass 2 and the fused inverse on wgmma and TMA" if route & ROUTE_FINISH
+              else "passes 2-4 on mma.sync and cp.async")
+    return f"route {route}: {spectrum}; {finish}"
 
 _LANE = np.arange(32)
 _G, _T = _LANE // 4, _LANE % 4
@@ -174,10 +207,11 @@ def _block_matrices(H: int, W: int, m1: int, m2: int, r0: int = 0, h: int = None
     - ``a1`` (ceil(h/8), 16, 8 ceil(2K/8)): per tile of 8 output rows the
       inverse H-stage's ``[[Ar, -Ai], [Ai, Ar]]`` rows (A's rows r0 ..
       r0 + h - 1), real parts in rows 0-7 and imaginary parts in rows 8-15;
-    - ``bw`` (16 ceil(W/16), KZ): ``[Br | -Bi]``, KZ = 2 m2 rounded up to 8;
+    - ``bw`` (64 ceil(W/64), KZ): ``[Br | -Bi]``, KZ = 2 m2 rounded up to 8;
       in fragment order its 16-row tiles lead, so the inverse-columns
       pass finds a 64-column tile's fragments, and a chunk of its K in
-      each, at fixed strides, resident or tiled.
+      each, at fixed strides, resident or tiled (the Hopper route's
+      inverse reads a tile's four as one warpgroup's A).
     """
     h = H - r0 if h is None else h
     E1r, E1i, E2r, E2i, Ar, Ai, Br, Bi = (
@@ -207,31 +241,96 @@ def _block_matrices(H: int, W: int, m1: int, m2: int, r0: int = 0, h: int = None
         hs = r0 + np.arange(ht * INV_ROWS, min(h, ht * INV_ROWS + INV_ROWS))
         a1[ht, :len(hs), :2 * K] = Ac[hs]
         a1[ht, 8:8 + len(hs), :2 * K] = Ac[H + hs]
-    bw = np.zeros((16 * _ceil(W, 16), 8 * _ceil(2 * m2, 8)))
+    bw = np.zeros((HOP_W * _ceil(W, HOP_W), 8 * _ceil(2 * m2, 8)))
     bw[:W, :m2], bw[:W, m2:2 * m2] = Br, -Bi
     return e1, e2, a1, bw
 
 
 @functools.lru_cache(maxsize=None)
+def _hopper_matrix(H: int, W: int, m1: int, m2: int, r0: int = 0, h: int = None):
+    """``a1h`` (ceil(h/8), 16, KY), the Hopper route's inverse H-stage per
+    item of ``HOP_ROWS`` output rows (float64): row ``8 ri + r`` is row
+    ``ri H + r0 + 8 rt + r`` of ``[[Ar, -Ai], [Ai, Ar]]`` (ri 0 the real
+    part, 1 the imaginary), zero past the ``h`` rows; KY = 2 K rounded up
+    to 16 (pairs of k-steps), zero past 2 K."""
+    h = H - r0 if h is None else h
+    _, _, _, _, Ar, Ai, _, _ = (f.astype(np.float64) for f in _dft_factors(H, W, m1, m2))
+    K = 2 * m1
+    Ac = np.block([[Ar, -Ai], [Ai, Ar]])
+    a1h = np.zeros((_ceil(h, HOP_ROWS), 2 * HOP_ROWS, 16 * _ceil(2 * K, 16)))
+    for rt in range(a1h.shape[0]):
+        hs = r0 + np.arange(rt * HOP_ROWS, min(h, rt * HOP_ROWS + HOP_ROWS))
+        a1h[rt, :len(hs), :2 * K] = Ac[hs]
+        a1h[rt, HOP_ROWS:HOP_ROWS + len(hs), :2 * K] = Ac[H + hs]
+    return a1h
+
+
+def _b_planes(Bm: np.ndarray) -> np.ndarray:
+    """(..., N, Kd) → (..., 2, Kd/4, N, 4): a K-major B operand of
+    ``wgmma`` in the layout ``csrc/hopper.cuh`` describes (core matrices of
+    8 rows by 4 floats; element (n, k) at (k/4, n, k%4)), its high half
+    then its low half (:func:`tf32_split`)."""
+    *lead, N, Kd = Bm.shape
+    planes = np.stack(tf32_split(Bm), -3)
+    return planes.reshape(*lead, 2, N, Kd // 4, 4).swapaxes(-3, -2)
+
+
+@functools.lru_cache(maxsize=None)
+def _spectrum_matrices(H: int, W: int, m1: int, m2: int, r0: int = 0, h: int = None):
+    """The Hopper route's pass-1 matrices for the rows ``[r0, r0 + h)``
+    (float64), at most ``SPEC_MODES`` modes each way:
+
+    - ``e1h`` (ceil(h/8), 48, 16): per group of ``SPEC_ROWS`` rows, the
+      H-stage's ``[[E1r, -E1i], [E1i, E1r]]``: row ``24 ri + k`` (ri 0 the
+      real part; zero past 2 m1), column ``8 ri' + r`` (T's real then
+      imaginary parts of the group's row r; zero past the h rows);
+    - ``e2h`` (24, 64 ceil(W/64)): the W-stage's ``[E2r; E2i]``: row ``12
+      ri' + m`` (zero past m2), column w (zero past W).
+    """
+    h = H - r0 if h is None else h
+    E1r, E1i, E2r, E2i = (f.astype(np.float64) for f in _dft_factors(H, W, m1, m2)[:4])
+    K, n_k = 2 * m1, 2 * SPEC_MODES
+    e1h = np.zeros((_ceil(h, SPEC_ROWS), 2 * n_k, 2 * SPEC_ROWS))
+    for gi in range(e1h.shape[0]):
+        hs = r0 + np.arange(gi * SPEC_ROWS, min(h, gi * SPEC_ROWS + SPEC_ROWS))
+        n = len(hs)
+        e1h[gi, :K, :n], e1h[gi, :K, SPEC_ROWS:SPEC_ROWS + n] = E1r[:, hs], -E1i[:, hs]
+        e1h[gi, n_k:n_k + K, :n] = E1i[:, hs]
+        e1h[gi, n_k:n_k + K, SPEC_ROWS:SPEC_ROWS + n] = E1r[:, hs]
+    e2h = np.zeros((2 * SPEC_MODES, HOP_W * _ceil(W, HOP_W)))
+    e2h[:m2, :W], e2h[SPEC_MODES:SPEC_MODES + m2, :W] = E2r, E2i
+    return e1h, e2h
+
+
+@functools.lru_cache(maxsize=None)
 def _block_tables(H: int, W: int, m1: int, m2: int, r0: int = 0, h: int = None):
     """:func:`_block_matrices` in float32, split and in fragment order,
-    as ``csrc/fno_block.cu`` reads them: e1f (A), e2f (B), a1f (A), bwf (A)."""
+    as ``csrc/fno_block.cu`` reads them: e1f (A), e2f (B), a1f (A), bwf (A);
+    then the Hopper route's a1h (:func:`_hopper_matrix`) and, at most
+    ``SPEC_MODES`` modes each way, e1h and e2h (:func:`_spectrum_matrices`),
+    else empty, as ``wgmma``'s B planes (:func:`_b_planes`)."""
     e1, e2, a1, bw = (m.astype(np.float32) for m in _block_matrices(H, W, m1, m2, r0, h))
+    a1h = _hopper_matrix(H, W, m1, m2, r0, h).astype(np.float32)
+    spec = (_spectrum_matrices(H, W, m1, m2, r0, h) if max(m1, m2) <= SPEC_MODES
+            else (np.zeros((0, 8)), np.zeros((0, 8))))
+    e1h, e2h = (_b_planes(m.astype(np.float32)) for m in spec)
     return tuple(np.ascontiguousarray(f) for f in (
-        _a_fragments(e1), _b_fragments(e2), _a_fragments(a1), _a_fragments(bw)))
+        _a_fragments(e1), _b_fragments(e2), _a_fragments(a1), _a_fragments(bw), _b_planes(a1h),
+        e1h, e2h))
 
 
 @functools.lru_cache(maxsize=None)
 def _check_tiles(lib) -> None:
     """Raise unless the library's kernel was built for the tiles that
     :func:`_block_matrices` lays the tables out for."""
-    got = (ctypes.c_int * 6)()
+    got = (ctypes.c_int * 10)()
     lib.fno_block_tiles(got)
-    want = (FWD_ROWS, FWD_MODES, FWD_K, FWD_MT, FWD_NW, INV_ROWS)
+    want = (FWD_ROWS, FWD_MODES, FWD_K, FWD_MT, FWD_NW, INV_ROWS, HOP_ROWS, HOP_W, SPEC_ROWS,
+            SPEC_MODES)
     if tuple(got) != want:
         raise RuntimeError(f"csrc/fno_block.cu has tiles {tuple(got)} (kFwdRows, kFwdModes, "
-                           f"kFwdK, kFwdMT, kFwdNW, kInvRows); ops/fno_kernels.py lays its "
-                           f"tables out for {want}")
+                           f"kFwdK, kFwdMT, kFwdNW, kInvRows, kHopRows, kHopW, kSpecRows, "
+                           f"kSpecModes); ops/fno_kernels.py lays its tables out for {want}")
 
 
 def _refuse(why, what: str) -> None:
@@ -247,6 +346,20 @@ def _check_block_shape(lib, W: int, width: int, m2: int) -> None:
 def _check_head_shape(lib, width: int, hidden: int, n_out: int) -> None:
     _refuse(lib.fno_head_unsupported(width, hidden, n_out),
             f"fno_head at width {width}, {hidden} hidden units, {n_out} outputs")
+
+
+@functools.lru_cache(maxsize=64)
+def block_route(lib, H: int, W: int, Ci: int, Co: int, modes1: int, modes2: int) -> int:
+    """The routes the block kernel takes for a grid of H x W (the whole
+    grid's H) with Ci input and Co output channels and these modes, from
+    the library, by the shape alone: ``ROUTE_FINISH`` set, passes 2-4 on
+    the Hopper route; ``ROUTE_SPECTRUM`` set, pass 1 (:func:`route_name`).
+    Raises on a shape no route takes."""
+    m1, m2 = clamp_modes(H, W, modes1, modes2)
+    route = lib.fno_block_route(W, Ci, Co, m1, m2)
+    _check(route >= 0, f"fno_block takes no route at W={W}, {Ci} -> {Co} channels, "
+                       f"{m1}x{m2} modes")
+    return route
 
 
 def check_kernel_shapes(H: int, W: int, width: int, modes1: int, modes2: int,
@@ -345,13 +458,19 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+# The argument checks below build their messages only on a failure: they
+# run on every launch, and formatting them took tens of microseconds of a
+# call's host time.
 def _check_cuda_f32(device: torch.device, **tensors) -> None:
-    _check(device.type == "cuda",
-           f"kernel wrappers take CPU or CUDA tensors, got {device}")
+    if device.type != "cuda":
+        raise ValueError(f"kernel wrappers take CPU or CUDA tensors, got {device}")
     for name, t in tensors.items():
-        _check(t.device == device, f"{name} is on {t.device}, x on {device}")
-        _check(t.dtype == torch.float32, f"{name} is {t.dtype}, not float32")
-        _check(t.is_contiguous(), f"{name} is not contiguous")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, x on {device}")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} is {t.dtype}, not float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
 
 
 def _stream(device: torch.device) -> int:
@@ -369,49 +488,84 @@ def _block_plan(lib, x, modes1, modes2, span):
     whole grid when None); the library's tiles and shape limits checked."""
     B, h, W, Ci = x.shape
     r0, H = (0, h) if span is None else span
+    return _shape_plan(lib, H, W, Ci, modes1, modes2, r0, h, x.device)
+
+
+@functools.lru_cache(maxsize=64)
+def _shape_plan(lib, H: int, W: int, Ci: int, modes1: int, modes2: int, r0: int, h: int,
+                device: torch.device):
+    """:func:`_block_plan` for one shape, kept: a launch's host time is part
+    of every rollout step's (a refusal raises and is not kept)."""
     m1, m2 = clamp_modes(H, W, modes1, modes2)
     _check_tiles(lib)
-    _refuse(lib.fno_block_unsupported(W, Ci, m2), f"fno_block at x {tuple(x.shape)}")
-    return m1, m2, _table_tensors(H, W, m1, m2, r0, h, x.device)
+    _refuse(lib.fno_block_unsupported(W, Ci, m2), f"fno_block at x (B, {h}, {W}, {Ci})")
+    return m1, m2, _table_tensors(H, W, m1, m2, r0, h, device)
 
 
-def _block_spectrum(lib, x, modes1, modes2, stream: int, span=None, tf32: bool = False):
+def _block_spectrum(lib, x, modes1, modes2, stream: int, span=None, tf32: bool = False,
+                    route=None):
     """The block kernel's first pass on x's rows (``span``:
     :func:`_block_plan`): their share of the retained modes, (B, 2, 2 m1,
-    m2, Ci), real then imaginary parts; in TF32 mode with ``tf32``."""
+    m2, Ci), real then imaginary parts; in TF32 mode with ``tf32``.
+    ``route``: the shape's (:func:`block_route`) unless given (without
+    ``ROUTE_SPECTRUM`` the old pass at any shape, to time both routes)."""
     B, h, W, Ci = x.shape
     m1, m2, tables = _block_plan(lib, x, modes1, modes2, span)
+    H = h if span is None else span[1]
+    route = block_route(lib, H, W, Ci, Ci, modes1, modes2) if route is None else route
+    hopper = bool(route & ROUTE_SPECTRUM)
+    if hopper:
+        _check_aligned(x)
+    e1, e2 = (tables[5], tables[6]) if hopper else (tables[0], tables[1])
     xm = torch.empty((B, 2, 2 * m1, m2, Ci), device=x.device)
-    err = lib.fno_block_spectrum(x.data_ptr(), tables[0].data_ptr(), tables[1].data_ptr(),
-                                 xm.data_ptr(), B, h, W, Ci, m1, m2, products(tf32), stream)
+    err = lib.fno_block_spectrum_on(x.data_ptr(), e1.data_ptr(), e2.data_ptr(), xm.data_ptr(),
+                                    B, h, W, Ci, m1, m2, products(tf32), int(hopper), stream)
     check_launch(lib, err, "fno_block (spectrum)")
     return xm
 
 
+def _check_aligned(x) -> None:
+    if x.data_ptr() % 16:
+        raise ValueError("the block kernel's TMA reads x from a 16-byte aligned address, got "
+                         f"{x.data_ptr():#x}")
+
+
 def _block_finish(lib, x, xm, weights, w0, b0, modes1, modes2, stream: int,
-                  keep: bool = False, span=None, tf32: bool = False):
+                  keep: bool = False, span=None, tf32: bool = False, route=None):
     """The block kernel's passes 2-4 for x's rows from the whole retained
     spectrum ``xm``: ``(out, pre)``, the output and, with ``keep``, the
-    pre-activation (B, h, W, Co), else None; in TF32 mode with ``tf32``."""
+    pre-activation (B, h, W, Co), else None; in TF32 mode with ``tf32``.
+    ``route``: the shape's (:func:`block_route`) unless given (without
+    ``ROUTE_FINISH`` the old passes at any shape, to time both routes)."""
     B, h, W, Ci = x.shape
     Co = weights.shape[3]
     m1, m2, tables = _block_plan(lib, x, modes1, modes2, span)
-    ym = torch.empty((B, 2, 2 * m1, m2, Co), device=x.device)
-    z = torch.empty((B, h, 2, m2, Co), device=x.device)
+    H = h if span is None else span[1]
+    route = block_route(lib, H, W, Ci, Co, modes1, modes2) if route is None else route
+    hopper = bool(route & ROUTE_FINISH)
+    if hopper:
+        _check_aligned(x)
+        ym = torch.empty((B, _ceil(Co, 32), _ceil(m2, 2), 16 * _ceil(4 * m1, 16), 64),
+                         device=x.device)
+        z = None
+    else:
+        ym = torch.empty((B, 2, 2 * m1, m2, Co), device=x.device)
+        z = torch.empty((B, h, 2, m2, Co), device=x.device)
     out = torch.empty((B, h, W, Co), device=x.device)
     pre = torch.empty((B, h, W, Co), device=x.device) if keep else None
     err = lib.fno_block_finish(
         x.data_ptr(), xm.data_ptr(), weights.data_ptr(), w0.data_ptr(), b0.data_ptr(),
-        tables[2].data_ptr(), tables[3].data_ptr(), ym.data_ptr(), z.data_ptr(), out.data_ptr(),
+        tables[2].data_ptr(), tables[3].data_ptr(), tables[4].data_ptr(), ym.data_ptr(),
+        None if z is None else z.data_ptr(), out.data_ptr(),
         None if pre is None else pre.data_ptr(),
-        B, h, W, Ci, Co, modes1, modes2, m1, m2, products(tf32), stream,
+        B, h, W, Ci, Co, modes1, modes2, m1, m2, products(tf32), int(hopper), stream,
     )
     check_launch(lib, err, "fno_block")
     return out, pre
 
 
 def _block_call(lib, x, weights, w0, b0, modes1, modes2, stream: int, keep: bool = False,
-                rows=None, tf32: bool = False):
+                rows=None, tf32: bool = False, route=None):
     """Allocate the block kernel's scratch and output and launch it
     through ``lib`` on ``stream``; the arguments are checked. Returns
     ``(out, xm, pre)``: the output, x's retained modes (B, 2, 2 m1, m2,
@@ -419,11 +573,12 @@ def _block_call(lib, x, weights, w0, b0, modes1, modes2, stream: int, keep: bool
     the pre-activation (B, H, W, Co), else None. With ``rows`` (spatial
     sharding) x is this rank's rows: the first pass's partial modes are
     summed over the model ranks before the other passes run for its rows,
-    and ``xm`` is the sum. ``tf32``: the kernel's TF32 mode."""
+    and ``xm`` is the sum. ``tf32``: the kernel's TF32 mode; ``route``: as
+    for :func:`_block_finish`."""
     span = row_span(x.shape[1], rows) if active(rows) else None
-    xm = row_sum_(_block_spectrum(lib, x, modes1, modes2, stream, span, tf32), rows)
+    xm = row_sum_(_block_spectrum(lib, x, modes1, modes2, stream, span, tf32, route), rows)
     out, pre = _block_finish(lib, x, xm, weights, w0, b0, modes1, modes2, stream, keep, span,
-                             tf32)
+                             tf32, route)
     return out, xm, pre
 
 
@@ -520,34 +675,33 @@ class FnoHeadFn(torch.autograd.Function):
 
 
 def _check_block_args(x, weights, w0, b0, modes1: int, modes2: int) -> None:
-    _check(x.dim() == 4 and x.numel() > 0, f"x must be (B, H, W, C), got {tuple(x.shape)}")
+    if not (x.dim() == 4 and x.numel() > 0):
+        raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
     B, H, W, Ci = x.shape
-    _check(
-        weights.dim() == 6 and weights.shape[:3] == (2, 2, Ci)
-        and weights.shape[4:] == (modes1, modes2),
-        f"weights {tuple(weights.shape)} is not (2, 2, {Ci}, Cout, "
-        f"{modes1}, {modes2})",
-    )
+    if not (weights.dim() == 6 and weights.shape[:3] == (2, 2, Ci)
+            and weights.shape[4:] == (modes1, modes2)):
+        raise ValueError(f"weights {tuple(weights.shape)} is not (2, 2, {Ci}, Cout, "
+                         f"{modes1}, {modes2})")
     Co = weights.shape[3]
-    _check(tuple(w0.shape) == (Co, Ci) and tuple(b0.shape) == (Co,),
-           f"w0 {tuple(w0.shape)} / b0 {tuple(b0.shape)} do not match "
-           f"({Co}, {Ci}) / ({Co},)")
-    _check(H >= 2 and W >= 2, f"grid {H}x{W} is too small for a spectral conv")
+    if not (w0.shape == (Co, Ci) and b0.shape == (Co,)):
+        raise ValueError(f"w0 {tuple(w0.shape)} / b0 {tuple(b0.shape)} do not match "
+                         f"({Co}, {Ci}) / ({Co},)")
+    if not (H >= 2 and W >= 2):
+        raise ValueError(f"grid {H}x{W} is too small for a spectral conv")
 
 
 def _check_head_args(x, w1, b1, w2, b2, mask) -> None:
-    _check(x.dim() == 4 and x.numel() > 0, f"x must be (B, H, W, C), got {tuple(x.shape)}")
+    if not (x.dim() == 4 and x.numel() > 0):
+        raise ValueError(f"x must be (B, H, W, C), got {tuple(x.shape)}")
     B, H, W, C = x.shape
     hidden, n_out = w1.shape[0], w2.shape[0]
-    _check(
-        tuple(w1.shape) == (hidden, C) and tuple(b1.shape) == (hidden,)
-        and tuple(w2.shape) == (n_out, hidden) and tuple(b2.shape) == (n_out,),
-        "head weights do not chain: "
-        f"w1 {tuple(w1.shape)}, b1 {tuple(b1.shape)}, "
-        f"w2 {tuple(w2.shape)}, b2 {tuple(b2.shape)} for C={C}",
-    )
-    _check(tuple(mask.shape) == (B, H, W, 1),
-           f"mask {tuple(mask.shape)} is not ({B}, {H}, {W}, 1)")
+    if not (w1.shape == (hidden, C) and b1.shape == (hidden,)
+            and w2.shape == (n_out, hidden) and b2.shape == (n_out,)):
+        raise ValueError("head weights do not chain: "
+                         f"w1 {tuple(w1.shape)}, b1 {tuple(b1.shape)}, "
+                         f"w2 {tuple(w2.shape)}, b2 {tuple(b2.shape)} for C={C}")
+    if mask.shape != (B, H, W, 1):
+        raise ValueError(f"mask {tuple(mask.shape)} is not ({B}, {H}, {W}, 1)")
 
 
 @torch.library.custom_op("cfdbench_tpu_torch::fno_block", mutates_args=(), device_types="cuda")
@@ -616,8 +770,8 @@ def _(x, w1, b1, w2, b2, mask, tf32=False):
 def _wants_grad(x, *tensors) -> bool:
     """Whether a call must carry a gradient; raises unless x lies on the
     CPU or a card."""
-    _check(x.device.type in ("cpu", "cuda"),
-           f"kernel wrappers take CPU or CUDA tensors, got {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"kernel wrappers take CPU or CUDA tensors, got {x.device}")
     return torch.is_grad_enabled() and any(t.requires_grad for t in (x, *tensors))
 
 

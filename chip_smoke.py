@@ -66,7 +66,8 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    20-step whole-lattice generation over 128 cases.
 9. Pixel diffusion and GenCast (PUNetG, base 64, mults 1-2-4, 2 res
    blocks, 1000 train timesteps, 50 denoising steps). (a) ``main_auto
-   --model pixel_diffusion --mode train_test`` then ``main_multistep``;
+   --model pixel_diffusion --mode train_test`` then ``main_multistep``
+   (CHECK_INFERENCE_STEPS denoising steps a frame);
    ``main_gencast --mode train_test --gradient_accumulation_steps 2
    --use_gradient_checkpointing 1`` then ``main_multistep --model
    gencast``, on the phase-6 tree: finite checkpoints on the host, dev
@@ -74,7 +75,8 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    ``gen_frame_nmse``), finite test scores, 20 finite frames, no FNO
    kernel launch. (b) With dropout 0 and the same draws (made on the CPU)
    on both devices: the PUNetG eval forward, each task's loss and every
-   gradient, and one 50-step DDPM frame, card against CPU, at phase 7b's
+   gradient, and one CHECK_INFERENCE_STEPS-step DDPM frame, card against
+   CPU, at phase 7b's
    and 6a's bounds. (c) At batch 8 and 32: each model's float32 train
    step (split, peak memory, device operations a step), one denoise call,
    one 50-step DDPM frame and a GEN_ROLLOUT_STEPS-step rollout in frames/s.
@@ -87,12 +89,14 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    ``main_auto --mode train_test`` for ``latent_diffusion``,
    ``latent_diffusion2`` and ``latent_diffusion_lite`` (finite dev and
    test scores of generated frames) and ``main_multistep`` for
-   ``latent_diffusion2`` (20 finite frames); ``main_uncond`` for 2 epochs
+   ``latent_diffusion2`` (20 finite frames, CHECK_INFERENCE_STEPS denoising
+   steps each); ``main_uncond`` for 2 epochs
    (``ema_model/``); no FNO kernel launch. (b) Every draw made on the CPU
    for both devices: the VAE's forward (its mode) against a float64 run
    on the CPU, within 1e-5 of max |out|; its train step's loss (rel 1e-5)
    and gradients (1e-4 of their max), card against CPU; each latent
-   model's loss and gradients at the same bounds and its 50-step decoded
+   model's loss and gradients at the same bounds and its
+   CHECK_INFERENCE_STEPS-step decoded
    frame at B=2 within 1e-4 of max |frame|. A gradient that a float64
    run on the CPU finds 0 in exact arithmetic is held below 1e-5 of the
    largest. (c) At batch 8 and 32: the VAE's train step, each latent
@@ -108,7 +112,8 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    its time limit: ``scripts/export_model_torch.py`` on a trained FNO
    checkpoint runs in the CPU tests (``tests/test_torch_serving.py``). (c)
    ``serve_bench_torch.py --selftest`` for the flagship FNO and the U-Net
-   at its default width, batch 128, 64x64, 20 steps: served and in-process
+   at its default width, batch 128, 64x64, rollouts of 20 steps (the
+   U-Net's of SERVE_UNET_ROLLOUT_STEPS): served and in-process
    ms a call (host wall time to a synchronize, and CUDA-event time),
    frames/s, the served overhead; the served outputs within 1e-6 (FNO) and
    1e-5 (U-Net: cuDNN may choose another algorithm for a traced
@@ -116,7 +121,8 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    predict call must launch 4 block and 1 head kernels, one served rollout
    80 and 20, the U-Net none. (d) ``serve_bench_torch.py
    --selftest`` for pixel diffusion and latent_diffusion2 at their default
-   widths (50 denoising steps; the latent model on a seeded lite VAE),
+   widths (SERVE_INFERENCE_STEPS denoising steps; the latent model on a
+   seeded lite VAE),
    64x64: predict at b8 and b32, a rollout of SERVE_DIFFUSION_ROLLOUT_STEPS
    frames at b8. Each served
    call without noise (it draws what the in-process call draws) within
@@ -164,12 +170,14 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    ``main_auto`` and its ``main_multistep`` again through the real launcher,
    ``python -m torch.distributed.run --standalone --nproc_per_node 1
    train_auto_torch.py ... --mesh_shape 1`` (then
-   ``test_multistep_torch.py``), in subprocesses: an NCCL group of one rank,
+   ``test_multistep_torch.py``), in subprocesses started in a thread
+   before (b), which runs meanwhile: an NCCL group of one rank,
    which runs no collective, whose checkpoints, test scores and per-step
    metrics must equal phase 6b's within DP_TORCHRUN_RTOL, and whose
    launches (each rank prints its own) phase 6b's and phase 3's. (b) Two
    ranks spawned on the one card in a gloo group that they initialise (a
-   file rendezvous), against one process on the card: the flagship FNO's
+   file rendezvous), against one process on the card (its runs made while
+   the ranks run): the flagship FNO's
    ``main_auto`` at global batch 128 (64 a rank; a full and a padded batch
    an epoch), its test and its ``main_multistep`` on the one test case
    (padded to two), losses, scores, per-step metrics and parameters within
@@ -267,7 +275,10 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    ``2x2``, four ranks, runs in (d)'s spawn); each rank's peak memory of a
    DP_BATCH flagship step against one process's. (c) The rest of ``main_auto --shard_spatial
    1`` at ``1x2`` (:func:`spatial_rest`), each run against one process
-   within (b)'s gates: the flagship with ``--use_mixed_precision`` (losses
+   within (b)'s gates (its ranks start once (d)(i), 14a and 15a have timed
+   their kernels, and run on through 14b-c and (b); its one-process runs
+   are made while 14b's ranks run; its generative runs sample their dev
+   batch in SP_INFERENCE_STEPS denoising steps): the flagship with ``--use_mixed_precision`` (losses
    and dev scores within TP_BF16_RTOL; both kernels on every rank in its
    float32 evaluation) and with ``--pp_microbatches`` (every stage on whole
    rows, as JAX's pipeline takes its batch: the step is pp's; its kernels
@@ -336,7 +347,11 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    phase's seconds on its ``[phase17]`` line.
 
 Every phase's seconds are printed on a line of their own (``[seconds]``),
-and the whole script's.
+and the whole script's. They run in this order: 1-12f, 13a-b, 13c, 14a,
+15a, 15d(i), 14b-c, 15b, 15c, 15d(ii-iii), 16, 17; a phase's seconds
+include the work of another made meanwhile (13a beside 13b; 15c's ranks
+beside 14b-c and 15b, its one-process runs beside 14b's ranks), and no
+kernel is timed while any of it runs.
 
 ``launches`` in the kernels' record is phase 3's count (main_multistep),
 ``launches_by_path`` each main path's own: main_multistep's and
@@ -432,6 +447,11 @@ GEN_BATCHES = (8, 32)  # the trainers' default batch, and a larger one
 # the script's time on an H100, 5 about 20 s).
 GEN_ROLLOUT_STEPS = 2
 GEN_CHECK_BATCH = 2
+# The sampling that phases 9 and 10 check rather than time (9a's and 10a's
+# main_multistep, 9b's and 10b's frames card against CPU) runs
+# CHECK_INFERENCE_STEPS denoising steps: the models' sampler at a fifth of
+# its 50 steps.
+CHECK_INFERENCE_STEPS = 10
 # Residual statistics for the GenCast task outside main_gencast.
 GEN_STATS = dict(residual_mean=[0.01, -0.02], residual_std=[0.1, 0.2])
 # Phase 10: the lite VAE and the latent diffusion models at their default
@@ -461,6 +481,9 @@ SERVE_IMPORT_RTOL = 1e-6
 SERVE_FNO_RTOL = 1e-6  # max abs diff over max |out|
 SERVE_UNET_RTOL = 1e-5
 SERVE_ITERS = 12
+# The served U-Net's rollout: its export unrolls every step (35 s of the
+# script's time on an H100 at 20 steps), so it runs a quarter of them.
+SERVE_UNET_ROLLOUT_STEPS = STEPS // 4
 # Phase 11d: the served diffusion models at their default widths, predict at
 # GEN_BATCHES (SERVE_DIFFUSION_ITERS timed calls after a warm-up) and the
 # 20-step rollout at the first (one call each way, timed, no warm-up: the
@@ -468,7 +491,11 @@ SERVE_ITERS = 12
 # SERVE_UNET_RTOL.
 SERVE_DIFFUSION = ("pixel_diffusion", "latent_diffusion2")
 SERVE_DIFFUSION_ITERS = 2
-SERVE_DIFFUSION_ROLLOUT_STEPS = 2  # the served rollout's frames (each 50 denoising steps)
+SERVE_DIFFUSION_ROLLOUT_STEPS = 2  # the served rollout's frames
+# Each served frame samples with this many denoising steps, a fifth of the
+# models' 50: a served call's time grows with them, its graph (one loop
+# operator) does not.
+SERVE_INFERENCE_STEPS = "10"
 # Phase 12: mixed precision, Adafactor, the bfloat16 rollout.
 MP_MODELS = ("fno", "unet", "ffno", "pixel_diffusion")
 BF16_ROLLOUT = ("fno", "unet", "ffno")
@@ -623,6 +650,10 @@ SP_CONTROL_SEEDS = (SEED, SEED + 1000, SEED + 2000)
 # short of sp's drift, which the float64 run's matches (PERF.md §6).
 SP_LATENT_CONTROL = "float64"
 SP_PIXEL_BATCH = 8
+# Their dev batch samples with this many denoising steps: each step runs the
+# network with its exchanges between the ranks, and the runs are held by
+# their losses, weights and float64 steps, which sampling does not touch.
+SP_INFERENCE_STEPS = "2"
 SP_MEMORY = {"memory_unet66": (["--model", "unet"], TUBE_GRID, 128),
              "memory_pixel": (["--model", "pixel_diffusion"], (GRID, GRID), SP_PIXEL_BATCH),
              "memory_latent": (["--model", "latent_diffusion2", "--ldm_vae_weights_path",
@@ -642,12 +673,11 @@ SP_EMPTY_CONTROLLED = ("unet_empty",)
 # An H100 SXM's published peaks (NVIDIA's data sheet, dense rates): device
 # memory bytes/s, TF32 FLOP/s on the tensor cores and float32 FLOP/s outside
 # them. A split-TF32 product (csrc/tf32.cuh) is three TF32 products.
-# Phase 16: the flagship's domain padding, and the CUDA kernels a block
-# call launches (csrc/fno_block.cu, one each) and a head call's.
+# Phase 16: the flagship's domain padding, and the CUDA kernel a head call
+# launches (a block call's, one each, depend on its route:
+# ops/fno_kernels.py::route_kernels).
 PAD = 9
 PROFILE_DIR = WORK / "profile"  # phase 16b's main_multistep traces
-BLOCK_CUDA_KERNELS = ("dft_forward_kernel", "mode_mix_kernel", "inverse_rows_kernel",
-                      "inverse_cols_kernel")
 HEAD_CUDA_KERNELS = ("fno_head_kernel",)
 # Phase 17: the FNO past the kernels' old shared-memory limits. WIDE is the
 # widest width of the JAX package's own sweep (bench.py) and the one
@@ -742,6 +772,10 @@ def host_facts():
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("  ptxas:", line.strip())
+    # The Hopper route's instructions in the library: wgmma, TMA boxes, bulk copies.
+    sass = sh(str(Path(_build.find_nvcc()).with_name("cuobjdump")), "-sass", str(_build.LIBRARY))
+    ops = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
+    print("kernel library SASS: " + ", ".join(f"{op} {n}" for op, n in ops.items()))
     return card
 
 
@@ -977,6 +1011,13 @@ def timing(device, card):
             p, k = interleaved_ms(lambda: ref(*args), lambda: kern(*args), reps=20)
             bound_ms, bound_by = bound(*work[name])
             times[name] = dict(ms=k, plain_ms=p, bound_ms=bound_ms, bound_by=bound_by)
+            if name == "fno_block":
+                route = fk.block_route(fk.load_library(), H, W, WIDTH, WIDTH, MODES, MODES)
+                passes = pass_ms(lambda: kern(*args))
+                times[name].update(block_route=fk.route_name(route), passes_ms=passes)
+                print(f"[time] [{card}] fno_block {fk.route_name(route)}; per pass (ms, "
+                      f"torch.profiler over 10 calls): " + ", ".join(
+                          f"{k_} {v:.4f}" for k_, v in passes.items()))
             nbytes, tensor_fma, core_fma = work[name]
             print(f"[time] [{card}] {name} B={B} {H}x{W} C={WIDTH}: kernel {k:.4f} ms, "
                   f"plain {p:.4f} ms ({p / k:.2f}x); bound {bound_ms:.4f} ms by {bound_by} "
@@ -984,6 +1025,21 @@ def timing(device, card):
                   f"TF32, {core_fma / 1e9:.3f} G in float32 FMA), kernel at "
                   f"{bound_ms / k:.1%} of it; library call: none")
     return times
+
+
+def pass_ms(fn, calls: int = 10) -> dict:
+    """Device ms a call of each CUDA kernel that ``fn`` launches, by
+    torch.profiler over ``calls`` calls after one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {m.group(1): e.device_time_total / calls / 1e3 for e in prof.key_averages()
+            if (m := re.search(r"(\w+_kernel)", e.key)) and e.device_time_total > 0}
 
 
 def train_inputs(B, gen, device, grid=(GRID, GRID)):
@@ -1611,7 +1667,7 @@ def phase9_paths():
         test = json.loads((run / "test" / "scores.json").read_text())["mean"]
         if not all(math.isfinite(v) for v in test.values()):
             raise RuntimeError(f"{name}: test/scores.json is not finite: {test}")
-        frames = main_multistep(argv)
+        frames = main_multistep(argv + ["--ldm_num_inference_steps", str(CHECK_INFERENCE_STEPS)])
         metrics = json.loads((run / "multistep_metrics.json").read_text())
         step20 = check_frames(frames, metrics, name)
         counts = launch_counts()
@@ -1650,7 +1706,7 @@ def generative_batch(B, gen, device):
 def phase9_card_vs_cpu(device):
     """Phase 9b: dropout 0 and the noise, timesteps and sampler noise drawn
     on the CPU for both devices: the PUNetG eval forward, each task's loss
-    and every gradient, and each task's 50-step DDPM frame (pixel
+    and every gradient, and each task's CHECK_INFERENCE_STEPS-step DDPM frame (pixel
     diffusion's ``predict_frame``, GenCast's ``generate``), card against
     CPU."""
     from cfdbench_tpu_torch.models import diffusion
@@ -1667,6 +1723,9 @@ def phase9_card_vs_cpu(device):
         steps = torch.randint(0, 1000, (FAMILY_BATCH,), generator=torch.Generator().manual_seed(9))
         tasks = {name: {"cpu": generative_task(name, "cpu", 0.0),
                         "card": generative_task(name, device, 0.0)} for name in GENERATIVE}
+        for pair in tasks.values():
+            for task in pair.values():
+                task.num_inference_steps = CHECK_INFERENCE_STEPS
         for name in GENERATIVE:
             x = batch_cpu["labels"] if name == "pixel_diffusion" else torch.cat(
                 [batch_cpu["labels"], batch_cpu["inputs"], batch_cpu["inputs_prev"]], -1)
@@ -1710,7 +1769,8 @@ def phase9_card_vs_cpu(device):
             got = getattr(tasks[name]["card"], method)(
                 *(batch[k][:GEN_CHECK_BATCH] for k in keys)).cpu()
             rel = ((got - want).abs().max() / want.abs().max()).item()
-            print(f"[phase9] {name} 50-step DDPM frame ({method}) B={GEN_CHECK_BATCH}, card vs "
+            print(f"[phase9] {name} {CHECK_INFERENCE_STEPS}-step DDPM frame ({method}) "
+                  f"B={GEN_CHECK_BATCH}, card vs "
                   f"CPU: max abs diff / max |frame| {rel:.3e} (bound {FAMILY_RTOL:.0e})")
             if not rel <= FAMILY_RTOL:
                 raise RuntimeError(f"{name}: card and CPU frames disagree ({rel:.3e})")
@@ -1772,7 +1832,8 @@ def phase10_paths():
               f"{test['input_nmse']:.6g})")
         if name == "latent_diffusion2":
             t0 = time.perf_counter()
-            frames = main_multistep(argv)
+            frames = main_multistep(argv + ["--ldm_num_inference_steps",
+                                            str(CHECK_INFERENCE_STEPS)])
             metrics = json.loads((run / "multistep_metrics.json").read_text())
             result[name]["step20_nmse"] = check_frames(frames, metrics, name)
             print(f"[phase10] {name}: main_multistep {time.perf_counter() - t0:.2f} s, step-20 "
@@ -1885,7 +1946,7 @@ def phase10_card_vs_cpu(device):
     noise and timesteps, the sampler's noise) made on the CPU for both
     devices: the lite VAE's forward (``vae_forward_check``) and its train
     step's loss and gradients; each latent model's loss and gradients and
-    its 50-step frame at B=2, card against CPU. Which gradients are 0 in
+    its CHECK_INFERENCE_STEPS-step frame at B=2, card against CPU. Which gradients are 0 in
     exact arithmetic is read from a float64 run on the CPU."""
     import copy
 
@@ -1921,6 +1982,8 @@ def phase10_card_vs_cpu(device):
         for name in LATENT:
             tasks = {"cpu": latent_task(name, "cpu", vae_state),
                      "card": latent_task(name, device, vae_state)}
+            for task in tasks.values():
+                task.num_inference_steps = CHECK_INFERENCE_STEPS
 
             def task_grads(task, b):
                 task.model.zero_grad(set_to_none=True)
@@ -1940,7 +2003,8 @@ def phase10_card_vs_cpu(device):
             want = tasks["cpu"].predict_frame(*(batch_cpu[k][:GEN_CHECK_BATCH] for k in args))
             got = tasks["card"].predict_frame(*(batch[k][:GEN_CHECK_BATCH] for k in args)).cpu()
             rel = ((got - want).abs().max() / want.abs().max()).item()
-            print(f"[phase10] {name} 50-step frame (decoded) B={GEN_CHECK_BATCH}, card vs CPU: "
+            print(f"[phase10] {name} {CHECK_INFERENCE_STEPS}-step frame (decoded) "
+                  f"B={GEN_CHECK_BATCH}, card vs CPU: "
                   f"max abs diff / max |frame| {rel:.3e} (bound {FAMILY_RTOL:.0e})")
             if not rel <= FAMILY_RTOL:
                 raise RuntimeError(f"{name}: card and CPU frames disagree ({rel:.3e})")
@@ -2205,15 +2269,16 @@ def serving(device, card):
     depth = FLAGSHIP["num_layers"]
     bench = load_script("serve_bench_torch")
     timing = {}
-    for model, width in (("fno", FLAGSHIP["hidden_dim"]), ("unet", Args().unet_dim)):
+    for model, width, steps in (("fno", FLAGSHIP["hidden_dim"], STEPS),
+                                ("unet", Args().unet_dim, SERVE_UNET_ROLLOUT_STEPS)):
         out = bench.main(["--selftest", "--model", model, "--batch", str(TIMING_BATCH),
                           "--grid", str(GRID), "--hidden", str(width), "--depth", str(depth),
-                          "--modes", str(FLAGSHIP["modes1"]), "--steps", str(STEPS),
+                          "--modes", str(FLAGSHIP["modes1"]), "--steps", str(steps),
                           "--iters", str(SERVE_ITERS)])["selftest"]
         timing[model] = out
         for kind in ("predict", "rollout"):
             r = out[kind]
-            calls = 1 if kind == "predict" else STEPS
+            calls = 1 if kind == "predict" else steps
             counts = ({"fno_block": depth * calls, "fno_head": calls} if model == "fno"
                       else {"fno_block": 0, "fno_head": 0})
             rtol = SERVE_FNO_RTOL if model == "fno" else SERVE_UNET_RTOL
@@ -2223,7 +2288,7 @@ def serving(device, card):
                                    f"launches {r['launches_per_call']} (expected {counts}), "
                                    f"served vs in process {r['max_abs_diff_vs_in_process']:.3e}")
             print(f"[time] [{card}] served {model} {kind} b{TIMING_BATCH} {GRID}x{GRID}"
-                  f"{f' x {STEPS} steps' if kind == 'rollout' else ''}: served "
+                  f"{f' x {steps} steps' if kind == 'rollout' else ''}: served "
                   f"{r['latency_ms_per_call']:.3f} ms a call (device {r['device_ms_per_call']:.3f}"
                   f" ms), in process {r['in_process_ms_per_call']:.3f} ms (device "
                   f"{r['in_process_device_ms_per_call']:.3f} ms); {r['frames_per_sec']:.1f} "
@@ -2251,6 +2316,7 @@ def serving_diffusion(card):
         for B, kind, iters, warmup in runs:
             r = bench.main(["--selftest", "--model", model, "--batch", str(B), "--grid", str(GRID),
                             "--steps", str(SERVE_DIFFUSION_ROLLOUT_STEPS), "--only", kind,
+                            "--inference_steps", SERVE_INFERENCE_STEPS,
                             "--iters", str(iters), "--warmup", str(warmup)])["selftest"][kind]
             path = f"serve_{model}_{kind}_b{B}"
             launches[path], timing[path] = r["launches_per_call"], r
@@ -2266,7 +2332,7 @@ def serving_diffusion(card):
                                    f"{r['max_abs_out']:.3e}, bound {SERVE_UNET_RTOL:.0e})")
             print(f"[time] [{card}] served {model} {kind} b{B} {GRID}x{GRID}"
                   f"{f' x {SERVE_DIFFUSION_ROLLOUT_STEPS} steps' if kind == 'rollout' else ''}, "
-                  "50 denoising steps: "
+                  f"{SERVE_INFERENCE_STEPS} denoising steps: "
                   f"export {r['export_s']:.2f} s, artifact {r['bytes']} bytes (weights "
                   f"{r['weights_bytes']} bytes), graph {r['nodes']} nodes, loops by depth "
                   f"{r['loops']}; served {r['latency_ms_per_call']:.3f} ms a call (device "
@@ -2777,24 +2843,52 @@ def metrics_rel(got, want, what: str, rtol: float) -> float:
     return worst
 
 
-def dp_torchrun(train_counts: dict, train_metrics) -> dict:
+def torchrun_argv() -> list:
+    return fno_argv(WORK / "train_data", WORK / "dp_torchrun") + ["--mesh_shape", "1"]
+
+
+def start_torchruns():
+    """Phase 13a's two subprocesses, started in a thread of their own while
+    phase 13b runs: phase 6b's main_auto, then its main_multistep on the
+    checkpoint that run writes, each under ``torch.distributed.run
+    --nproc_per_node 1`` (:func:`torchrun`). The thread prints nothing
+    (phase 13b captures the entry points' standard output): the future's
+    result is each run's standard output and seconds, which
+    :func:`dp_torchrun` checks; a failed run raises there."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def runs():
+        timed = []
+        for script, flags in (("train_auto_torch.py", list(PHASE6_FLAGS)),
+                              ("test_multistep_torch.py", [])):
+            t0 = time.perf_counter()
+            timed.append((torchrun(script, torchrun_argv() + flags), time.perf_counter() - t0))
+        return timed
+
+    pool = ThreadPoolExecutor(max_workers=1)
+    future = pool.submit(runs)
+    pool.shutdown(wait=False)
+    return future
+
+
+def dp_torchrun(train_counts: dict, train_metrics, runs) -> dict:
     """Phase 13a: phase 6b's main_auto and its main_multistep again under
-    ``torch.distributed.run --nproc_per_node 1`` with ``--mesh_shape 1``:
-    an NCCL group of one rank, the loss's reductions and the gradient
-    all-reduce run. The checkpoints, test scores and per-step metrics must
-    equal phase 6b's within DP_TORCHRUN_RTOL, the launches phase 6b's and
-    phase 3's. Returns each entry point's launches."""
+    ``torch.distributed.run --nproc_per_node 1`` with ``--mesh_shape 1``
+    (``runs``, :func:`start_torchruns`'s future): an NCCL group of one rank,
+    the loss's reductions and the gradient all-reduce run. The checkpoints,
+    test scores and per-step metrics must equal phase 6b's within
+    DP_TORCHRUN_RTOL, the launches phase 6b's and phase 3's. Returns each
+    entry point's launches."""
     from cfdbench_tpu_torch.cli import parse_args, run_dir
     from cfdbench_tpu_torch.models.fno import FLAGSHIP
 
-    argv = fno_argv(WORK / "train_data", WORK / "dp_torchrun") + ["--mesh_shape", "1"]
-    t0 = time.perf_counter()
-    out = torchrun("train_auto_torch.py", argv + list(PHASE6_FLAGS))
+    argv = torchrun_argv()
+    (out, seconds), (multistep_out, multistep_seconds) = runs.result()
     if "backend=nccl" not in out:
         raise RuntimeError("main_auto under torchrun did not run in an NCCL group")
     counts = launches_in(out, ("train", "test"))
     print(f"[dp] torchrun main_auto --mesh_shape 1 (NCCL, one rank): "
-          f"{time.perf_counter() - t0:.2f} s, launches {counts}")
+          f"{seconds:.2f} s, launches {counts}")
     if counts != train_counts:
         raise RuntimeError(f"main_auto under torchrun launches {counts}, phase 6b {train_counts}")
     got, want = run_dir(parse_args(argv)), WORK / "train_result" / run_dir(
@@ -2808,10 +2902,8 @@ def dp_torchrun(train_counts: dict, train_metrics) -> dict:
     metrics_rel([json.loads((got / "test/scores.json").read_text())["mean"]],
                 [json.loads((want / "test/scores.json").read_text())["mean"]],
                 "torchrun test scores against phase 6b's", DP_TORCHRUN_RTOL)
-    t0 = time.perf_counter()
-    out = torchrun("test_multistep_torch.py", argv)
-    rollout = launches_in(out, ("multistep",))
-    print(f"[dp] torchrun main_multistep --mesh_shape 1: {time.perf_counter() - t0:.2f} s, "
+    rollout = launches_in(multistep_out, ("multistep",))
+    print(f"[dp] torchrun main_multistep --mesh_shape 1: {multistep_seconds:.2f} s, "
           f"launches {rollout}")
     if rollout != {"fno_block": FLAGSHIP["num_layers"] * STEPS, "fno_head": STEPS}:
         raise RuntimeError(f"main_multistep under torchrun launches {rollout}")
@@ -3138,6 +3230,45 @@ def dp_rank(rank: int, world: int, root: str, jobs, device: str, default_jobs=()
         dist.destroy_process_group()
 
 
+class Ranks:
+    """:func:`dp_rank` on ``world`` gloo ranks sharing the one card, their
+    group meeting under ``WORK/tag``: ``jobs`` on the deterministic
+    algorithms, then ``default_jobs`` on the default ones. The ranks start
+    at once and run while the caller works on (one process's references,
+    other phases that time nothing); :meth:`results` waits for them, prints
+    ``what`` with the seconds since the start, and loads each rank's
+    results. :func:`stop_ranks` ends those still running when the script
+    fails."""
+
+    running: list = []
+
+    def __init__(self, tag: str, world: int, jobs, device, what: str, default_jobs=()):
+        import torch.multiprocessing as mp
+
+        self.root, self.world, self.what = WORK / tag, world, what
+        shutil.rmtree(self.root, ignore_errors=True)
+        self.root.mkdir(parents=True)
+        self.t0 = time.perf_counter()
+        self.context = mp.spawn(dp_rank, args=(world, str(self.root), jobs, str(device),
+                                                default_jobs), nprocs=world, join=False)
+        Ranks.running.append(self)
+
+    def results(self) -> list:
+        while not self.context.join():
+            pass
+        Ranks.running.remove(self)
+        print(f"{self.what}: {time.perf_counter() - self.t0:.2f} s, spawn included")
+        return [torch.load(self.root / f"rank{r}.pt", weights_only=True)
+                for r in range(self.world)]
+
+
+def stop_ranks() -> None:
+    for ranks in Ranks.running:
+        for process in ranks.context.processes:
+            if process.is_alive():
+                process.terminate()
+
+
 class permuted_train_rows:
     """Within it, the trainers train on every shuffled batch with its rows
     permuted (a seeded permutation a batch), and the draws of that batch
@@ -3420,11 +3551,9 @@ def dp_trainer_check(name: str, entry: str, argv, ranks, want, control=None,
 
 
 def dp_two_ranks(device) -> dict:
-    """Phase 13b: DP_RANKS ranks on the one card in a gloo group the
-    caller initialises, against one process; returns each rank's launches
-    per path."""
-    import torch.multiprocessing as mp
-
+    """Phase 13b: DP_RANKS ranks on the one card in a gloo group, against
+    one process (its runs made while the ranks run); returns each rank's
+    launches per path."""
     from cfdbench_tpu_torch.cli import parse_args, run_dir
     from cfdbench_tpu_torch.data.synthetic import generate_problem
 
@@ -3434,6 +3563,9 @@ def dp_two_ranks(device) -> dict:
     # test case, which DP_RANKS ranks pad.
     generate_problem(data_root, "cavity", cases_per_subset=4, num_frames=STEPS + 1, grid=GRID,
                      seed=SEED)
+    spawned = Ranks("dp_ranks", DP_RANKS, dp_jobs(data_root, WORK / "dp_mesh", "2"), device,
+                    f"[dp] {DP_RANKS} ranks on one card (gloo; they share it, so this measures "
+                    "correctness, not scaling)")
     single_jobs = dp_jobs(data_root, WORK / "dp_single", "1")
     single = dp_run(single_jobs, device)
     argvs = {n: [a.replace(str(WORK / "dp_single"), str(WORK / "dp_control")) for a in argv]
@@ -3443,15 +3575,7 @@ def dp_two_ranks(device) -> dict:
                      device)
     controls = {name: ran[f"{name}_control"] for name, _ in CONTROLS}
     control = controls["unet"]
-    root = WORK / "dp_ranks"
-    shutil.rmtree(root, ignore_errors=True)
-    root.mkdir(parents=True)
-    t0 = time.perf_counter()
-    mp.spawn(dp_rank, args=(DP_RANKS, str(root), dp_jobs(data_root, WORK / "dp_mesh", "2"),
-                            str(device)), nprocs=DP_RANKS, join=True)
-    print(f"[dp] {DP_RANKS} ranks on one card (gloo): {time.perf_counter() - t0:.2f} s, spawn "
-          "included; the ranks share the card, so this measures correctness, not scaling")
-    ranks = [torch.load(root / f"rank{r}.pt", weights_only=True) for r in range(DP_RANKS)]
+    ranks = spawned.results()
     for name, entry, argv in dp_jobs(data_root, WORK / "dp_mesh", "2"):
         want = single[name]
         what = f"{name}, {DP_RANKS} ranks against one process"
@@ -3779,30 +3903,30 @@ def tp_bf16_check(name: str, mesh_run: Path, one_run: Path, what: str) -> None:
         raise RuntimeError(f"{what}: losses or dev scores disagree, {worst:.3e}")
 
 
-def model_axis_ranks(device, data_root: Path, single: dict, controls: dict):
-    """Phase 14b-c: TP_RANKS ranks on the one card in a gloo group, the
-    jobs of :func:`tp_jobs`, against phase 13b's runs in one process (and
-    its permuted-row controls) and :func:`tp_references`; returns each
-    rank's launches per path and the bytes of each layout against one
-    process's."""
-    import torch.multiprocessing as mp
+def start_model_axis(device, data_root: Path) -> dict:
+    """Phase 14b's one-process references (:func:`tp_references`, made
+    before the ranks write over any file they read), then its TP_RANKS
+    ranks, started to run while phase 15c's one-process runs go on."""
+    out = WORK / "tp_mesh"
+    jobs, default_jobs = tp_jobs(data_root, out), tp_default_jobs(data_root)
+    refs = tp_references(device, jobs, out)
+    ranks = Ranks("tp_ranks", TP_RANKS, jobs, device,
+                  f"[tp] {TP_RANKS} ranks on one card (gloo), --mesh_shape {TP_MESH}",
+                  default_jobs)
+    return dict(out=out, jobs=jobs, default_jobs=default_jobs, refs=refs, ranks=ranks)
 
+
+def model_axis_ranks(device, single: dict, controls: dict, started: dict):
+    """Phase 14b-c: TP_RANKS ranks on the one card in a gloo group
+    (``started``: :func:`start_model_axis`), the jobs of :func:`tp_jobs`,
+    against phase 13b's runs in one process (and its permuted-row controls)
+    and :func:`tp_references`; returns each rank's launches per path and the
+    bytes of each layout against one process's."""
     from cfdbench_tpu_torch.cli import parse_args, run_dir
     from cfdbench_tpu_torch.models.fno import FLAGSHIP
 
-    out = WORK / "tp_mesh"
-    jobs = tp_jobs(data_root, out)
-    default_jobs = tp_default_jobs(data_root)
-    refs = tp_references(device, jobs, out)
-    root = WORK / "tp_ranks"
-    shutil.rmtree(root, ignore_errors=True)
-    root.mkdir(parents=True)
-    t0 = time.perf_counter()
-    mp.spawn(dp_rank, args=(TP_RANKS, str(root), jobs, str(device), default_jobs),
-             nprocs=TP_RANKS, join=True)
-    print(f"[tp] {TP_RANKS} ranks on one card (gloo), --mesh_shape {TP_MESH}: "
-          f"{time.perf_counter() - t0:.2f} s, spawn included")
-    ranks = [torch.load(root / f"rank{r}.pt", weights_only=True) for r in range(TP_RANKS)]
+    out, jobs, default_jobs, refs = (started[k] for k in ("out", "jobs", "default_jobs", "refs"))
+    ranks = started["ranks"].results()
     argv = {n: a for n, _, a in jobs}
     entries = {n: e for n, e, _ in jobs}
 
@@ -4138,34 +4262,26 @@ def sp_memory(argv, device, grid=(GRID, GRID), global_batch: int = DP_BATCH) -> 
     return dict(peak_bytes=peak, step_bytes=peak - before, step2_bytes=step2, **parts)
 
 
-def sp_spawn(tag: str, world: int, jobs, device, what: str):
-    """``jobs`` on ``world`` gloo ranks sharing the one card (:func:`dp_rank`,
-    deterministic algorithms on), their group meeting under ``WORK/tag``;
-    each rank's results."""
-    import torch.multiprocessing as mp
-
-    root = WORK / tag
-    shutil.rmtree(root, ignore_errors=True)
-    root.mkdir(parents=True)
-    t0 = time.perf_counter()
-    mp.spawn(dp_rank, args=(world, str(root), jobs, str(device)), nprocs=world, join=True)
-    print(f"[sp] {world} ranks on one card (gloo), {what}: {time.perf_counter() - t0:.2f} s, "
-          "spawn included")
-    return [torch.load(root / f"rank{r}.pt", weights_only=True) for r in range(world)]
+def sp_spawn(tag: str, world: int, jobs, device, what: str) -> Ranks:
+    """``jobs`` started on ``world`` gloo ranks sharing the one card
+    (:class:`Ranks`, deterministic algorithms on), their group meeting under
+    ``WORK/tag``."""
+    return Ranks(tag, world, jobs, device, f"[sp] {world} ranks on one card (gloo), {what}")
 
 
 def spatial_ranks(device, card, data_root: Path, single: dict, controls: dict):
     """Phase 15b: ``main_auto --shard_spatial 1`` on SP_MESHES[0]
     (:func:`check_sp_ranks`; SP_MESHES[1] runs in phase 15d's spawn). Returns
     each rank's launches on the FNO's paths, the memory records and the
-    one-process references."""
+    one-process references (made while the ranks run)."""
+    mesh = SP_MESHES[0]
+    jobs = sp_jobs(data_root, WORK / f"sp_{mesh}", mesh)
+    spawned = sp_spawn(f"sp_ranks_{mesh}", SP_RANKS[mesh], jobs, device,
+                       f"--mesh_shape {mesh} --shard_spatial 1")
     refs = dp_run([j for j in sp_jobs(data_root, WORK / "sp_single", "1")
                    if j[0] in ("ffno", "resnet", "memory", "fno_padded")], device)
     want = {n: single[n] for n in ("fno", "unet", "unet_step")} | refs
-    mesh = SP_MESHES[0]
-    jobs = sp_jobs(data_root, WORK / f"sp_{mesh}", mesh)
-    ranks = sp_spawn(f"sp_ranks_{mesh}", SP_RANKS[mesh], jobs, device,
-                     f"--mesh_shape {mesh} --shard_spatial 1")
+    ranks = spawned.results()
     counts, memory = check_sp_ranks(mesh, jobs, ranks, want, controls, card, device)
     return counts, {"one_process": refs["memory"]} | memory, want
 
@@ -4286,7 +4402,7 @@ def sp_rest_jobs(data_root: Path, rest_root: Path, tube_root: Path, out: Path, m
             ("unet66", "main_auto", ["--model", "unet"] + batch + tube)]
     jobs += [(name, "main_auto", ["--model", name] + batch + data) for name in SP_POINT_MODELS]
     generative = ["--batch_size", str(SP_PIXEL_BATCH), "--max_eval_batches", "1",
-                  "--ldm_num_inference_steps", MP_INFERENCE_STEPS]
+                  "--ldm_num_inference_steps", SP_INFERENCE_STEPS]
     vae = ["--ldm_vae_weights_path", str(WORK / "vae_weights")]
     jobs.append(("pixel_diffusion", "main_auto", ["--model", "pixel_diffusion"] + generative
                  + data))
@@ -4306,23 +4422,42 @@ def sp_rest_jobs(data_root: Path, rest_root: Path, tube_root: Path, out: Path, m
     return jobs
 
 
-def spatial_rest(device, card, data_root: Path, single: dict):
-    """Phase 15c: :func:`sp_rest_jobs` on SP_MESHES[0], its ranks sharing the
-    one card in a gloo group, deterministic algorithms on, against one
-    process (:func:`check_rest_ranks`). Returns each rank's launches by
-    path, the memory records, and what phase 15d compares with: the trees,
-    the one-process results and the controls."""
-    mesh, world = SP_MESHES[0], SP_RANKS[SP_MESHES[0]]
+def start_spatial_rest(device, data_root: Path) -> dict:
+    """Phase 15c's trees (:func:`sp_rest_trees`) and its ranks: the jobs of
+    :func:`sp_rest_jobs` on SP_MESHES[0], started to run on while phases
+    14b-c and 15b and 15c's one-process runs go on, which share no file with
+    them and time nothing (the kernels of 14a, 15a and 15d(a) are timed
+    before they start)."""
+    mesh = SP_MESHES[0]
     trees = sp_rest_trees(WORK / "sp_rest_trees")
-    rest_root, tube_root, _ = trees
+    jobs = sp_rest_jobs(data_root, trees[0], trees[1], WORK / "sp_rest", mesh)
+    ranks = sp_spawn("sp_rest_ranks", SP_RANKS[mesh], jobs, device,
+                     f"--mesh_shape {mesh} --shard_spatial 1, the rest of main_auto")
+    return dict(trees=trees, jobs=jobs, ranks=ranks)
+
+
+def spatial_rest_references(device, data_root: Path, single: dict, started: dict) -> dict:
+    """Phase 15c's one-process runs of :func:`sp_rest_jobs` and their
+    controls (:func:`rest_controls`), made while :func:`start_spatial_rest`'s
+    ranks (``started``) run."""
+    rest_root, tube_root, _ = started["trees"]
     one_jobs = sp_rest_jobs(data_root, rest_root, tube_root, WORK / "sp_rest_single", "1")
     want = dp_run(one_jobs, device) | {"fno_pp": single["fno"]}
-    controls = rest_controls(one_jobs, SP_CONTROLLED, device)
-    out = WORK / "sp_rest"
-    jobs = sp_rest_jobs(data_root, rest_root, tube_root, out, mesh)
-    ranks = sp_spawn("sp_rest_ranks", world, jobs, device,
-                     f"--mesh_shape {mesh} --shard_spatial 1, the rest of main_auto")
-    counts, memory = check_rest_ranks(mesh, jobs, ranks, want, controls, out, card, device)
+    return dict(want=want, controls=rest_controls(one_jobs, SP_CONTROLLED, device))
+
+
+def spatial_rest(device, card, started: dict, refs: dict):
+    """Phase 15c: :func:`start_spatial_rest`'s ranks (``started``), sharing
+    the one card in a gloo group, deterministic algorithms on, against one
+    process (:func:`check_rest_ranks`; ``refs``:
+    :func:`spatial_rest_references`). Returns each rank's launches by path,
+    the memory records, and what phase 15d compares with: the trees, the
+    one-process results and the controls."""
+    mesh, trees, jobs = SP_MESHES[0], started["trees"], started["jobs"]
+    want, controls = refs["want"], refs["controls"]
+    ranks = started["ranks"].results()
+    counts, memory = check_rest_ranks(mesh, jobs, ranks, want, controls, WORK / "sp_rest", card,
+                                      device)
     return counts, memory, dict(trees=trees, want=want, controls=controls)
 
 
@@ -4474,21 +4609,22 @@ def spatial_empty(device, card, data_root: Path, sp_want: dict, dp_controls: dic
     PAD, the memory record; :func:`check_sp_ranks`) and, on SP_EMPTY_MESH,
     :func:`empty_jobs` (:func:`check_rest_ranks`, against phase 15c's
     one-process latent_diffusion2 and its controls, and the U-Net's on the
-    SP_EMPTY_GRID tree, run here with its permuted-row controls). Returns
-    each rank's launches by path and the memory records."""
+    SP_EMPTY_GRID tree, run here with its permuted-row controls while the
+    ranks run). Returns each rank's launches by path and the memory
+    records."""
     empty_root = rest["trees"][2]
     mesh2 = SP_MESHES[1]
     jobs2 = [j for j in sp_jobs(data_root, WORK / f"sp_{mesh2}", mesh2)
              if j[0] in ("fno", "fno_padded", "memory")]
+    out = WORK / f"sp_{SP_EMPTY_MESH}"
+    jobs = empty_jobs(rest["trees"][0], empty_root, out, SP_EMPTY_MESH)
+    spawned = sp_spawn("sp_empty_ranks", SP_RANKS[mesh2], jobs2 + jobs, device,
+                       f"--mesh_shape {mesh2} and {SP_EMPTY_MESH} --shard_spatial 1")
     one_jobs = empty_jobs(rest["trees"][0], empty_root, WORK / "sp_rest_single", "1")
     unet = [j for j in one_jobs if j[0].startswith("unet")]
     want = rest["want"] | dp_run(unet, device)
     controls = rest["controls"] | rest_controls(one_jobs, ("unet_empty",), device)
-    out = WORK / f"sp_{SP_EMPTY_MESH}"
-    jobs = empty_jobs(rest["trees"][0], empty_root, out, SP_EMPTY_MESH)
-    world = SP_RANKS[mesh2]
-    ranks = sp_spawn("sp_empty_ranks", world, jobs2 + jobs, device,
-                     f"--mesh_shape {mesh2} and {SP_EMPTY_MESH} --shard_spatial 1")
+    ranks = spawned.results()
     counts, memory = check_sp_ranks(mesh2, jobs2, ranks, sp_want, dp_controls, card, device)
     empty_counts, empty_memory = check_rest_ranks(SP_EMPTY_MESH, jobs, ranks, want, controls,
                                                   out, card, device)
@@ -4661,23 +4797,31 @@ def padded_paths(device, card):
     return rollout_timing(model, "padded flagship", card, SEED + 18)
 
 
+def flagship_block_kernels() -> tuple:
+    """The CUDA kernels a flagship block call launches (its route's)."""
+    from cfdbench_tpu_torch.ops import _build, fno_kernels as fk
+
+    return fk.route_kernels(fk.block_route(_build.load_library(), GRID, GRID, WIDTH, WIDTH,
+                                           MODES, MODES))
+
+
 def trace_kernel_counts(path: Path) -> dict:
     """Each of the FNO's CUDA kernels: how many launches a Chrome trace holds."""
     names = [e.get("name", "") for e in json.loads(path.read_text())["traceEvents"]
              if e.get("cat") == "kernel"]
-    return {k: sum(k in n for n in names) for k in BLOCK_CUDA_KERNELS + HEAD_CUDA_KERNELS}
+    return {k: sum(k in n for n in names) for k in flagship_block_kernels() + HEAD_CUDA_KERNELS}
 
 
 def profiled_multistep(want_counts: dict) -> dict:
     """Phase 16b: ``main_multistep --profile_dir`` on phase 3's checkpoint,
     twice in this process. Each run launches phase 3's ``want_counts`` and
-    writes a trace of its own, which holds each of the block's four CUDA
-    kernels and the head's as often as they launched. Returns the first
-    run's launches."""
+    writes a trace of its own, which holds each of the block's CUDA kernels
+    (its route's) and the head's as often as they launched. Returns the
+    first run's launches."""
     from cfdbench_tpu_torch.cli import main_multistep
     from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
 
-    want = {**{k: want_counts["fno_block"] for k in BLOCK_CUDA_KERNELS},
+    want = {**{k: want_counts["fno_block"] for k in flagship_block_kernels()},
             **{k: want_counts["fno_head"] for k in HEAD_CUDA_KERNELS}}
     shutil.rmtree(PROFILE_DIR, ignore_errors=True)
     counts = []
@@ -4808,6 +4952,13 @@ def main() -> int:
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    try:
+        return phases()
+    finally:
+        stop_ranks()
+
+
+def phases() -> int:
     from cfdbench_tpu_torch.utils.device import require_cuda, set_numerics
 
     phase = PhaseClock()
@@ -4859,46 +5010,53 @@ def main() -> int:
     print(f"[phase12f] [{card}] " + json.dumps({"kernels": tf32_times, "launches": tf32_counts,
                                                 "timing": tf32_steps}))
     phase.done(f"12f (--matmul_precision {TF32_PRECISION})")
+    # Phase 13a's torchruns and 13b's ranks run beside 13b's one-process
+    # runs; the kernels of 14a, 15a and 15d(a) are timed before 15c's ranks
+    # start, which run on through 14b-c and 15b; 15c's one-process runs are
+    # made while 14b's ranks run.
     t13 = time.perf_counter()
-    dp_counts = {f"dp_torchrun_{k}": v
-                 for k, v in dp_torchrun(train_counts, train_metrics).items()}
-    phase.done("13a (torchrun)")
+    torchruns = start_torchruns()
     two_ranks, dp_data, dp_single, controls = dp_two_ranks(device)
+    dp_counts = {f"dp_torchrun_{k}": v
+                 for k, v in dp_torchrun(train_counts, train_metrics, torchruns).items()}
     dp_counts.update(two_ranks)
-    phase.done("13b (two ranks)")
+    phase.done("13a-b (torchrun; two ranks, meanwhile)")
     dp_times = dp_step_timing(device, card)
     print(f"[phase13] [{card}] " + json.dumps({"timing": dp_times, "launches": dp_counts,
                                                "seconds": time.perf_counter() - t13}))
     phase.done("13c (collectives timed)")
-    t14 = time.perf_counter()
     rank_times = rank_kernels(device, card)
     phase.done("14a (kernels at a rank's shapes)")
-    mp_counts_14, mp_bytes = model_axis_ranks(device, dp_data, dp_single, controls)
+    sp_times = sp_kernels(device, card)
+    phase.done("15a (kernels at a rank's rows)")
+    padded_split = padded_split_kernels(device, card)
+    for name, record in padded_split.items():
+        sp_times[name].append(record)
+    phase.done("15d(a) (kernels at the padded flagship's rows)")
+    t15c = time.perf_counter()
+    rest_started = start_spatial_rest(device, dp_data)
+    t14 = time.perf_counter()
+    tp_started = start_model_axis(device, dp_data)
+    rest_refs = spatial_rest_references(device, dp_data, dp_single, rest_started)
+    mp_counts_14, mp_bytes = model_axis_ranks(device, dp_single, controls, tp_started)
     dp_counts.update(mp_counts_14)
     print(f"[phase14] [{card}] " + json.dumps({"kernels_at_rank_shapes": rank_times,
                                                "bytes": mp_bytes, "launches": mp_counts_14,
                                                "seconds": time.perf_counter() - t14}))
-    phase.done("14b-c (model axis)")
+    phase.done("14b-c (model axis; 15c's ranks and one-process runs meanwhile)")
     t15 = time.perf_counter()
-    sp_times = sp_kernels(device, card)
-    phase.done("15a (kernels at a rank's rows)")
     sp_counts, sp_mem, sp_want = spatial_ranks(device, card, dp_data, dp_single, controls)
     dp_counts.update(sp_counts)
     print(f"[phase15] [{card}] " + json.dumps({"kernels_at_rank_rows": sp_times,
                                                "memory": sp_mem, "launches": sp_counts,
                                                "seconds": time.perf_counter() - t15}))
-    phase.done("15b (spatial sharding)")
-    t15c = time.perf_counter()
-    rest_counts, rest_memory, rest = spatial_rest(device, card, dp_data, dp_single)
+    phase.done("15b (spatial sharding; 15c's ranks meanwhile)")
+    rest_counts, rest_memory, rest = spatial_rest(device, card, rest_started, rest_refs)
     dp_counts.update(rest_counts)
     print(f"[phase15c] [{card}] " + json.dumps({"launches": rest_counts, "memory": rest_memory,
                                                 "seconds": time.perf_counter() - t15c}))
-    phase.done("15c (the rest of spatial sharding)")
+    phase.done("15c (the rest of spatial sharding, after its ranks' start)")
     t15d = time.perf_counter()
-    padded_split = padded_split_kernels(device, card)
-    for name, record in padded_split.items():
-        sp_times[name].append(record)
-    phase.done("15d(a) (kernels at the padded flagship's rows)")
     empty_counts, empty_memory = spatial_empty(device, card, dp_data, sp_want, controls, rest)
     dp_counts.update(empty_counts)
     print(f"[phase15d] [{card}] " + json.dumps({"kernels_at_padded_rows": padded_split,

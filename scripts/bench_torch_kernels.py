@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Time the port's CUDA kernels on a card, pass by pass.
 
-Builds ``cfdbench_tpu_torch/csrc`` and times each kernel of the FnoBlock
-(its four passes) and the head at the flagship shape (B=128, 64x64, 32
-channels, 12 modes, 128 hidden units, 2 outputs) with ``torch.profiler``
-over 20 calls, on inputs drawn from N(0, 1), after checking both against
-their plain PyTorch versions, in each mode that ``--matmul_precision``
-names (default: both): split TF32 (``highest``, ``default``, ...) and the
-one-product TF32 mode (``high``, ``tensorfloat32``, ``TF32_TF32_F32``),
-the latter against the plain version of its mode and beside its distance
-from the float32 one. Then it measures the card's ``mma.sync.m16n8k8``
-TF32 rate with a kernel that issues nothing else.
+Builds ``cfdbench_tpu_torch/csrc``, counts the Hopper instructions in the
+library's SASS (``HGMMA``, ``UTMALDG``, ``UBLKCP``: ``cuobjdump -sass``),
+and times each kernel of the FnoBlock (its passes, on the route its shape
+takes: ``fno_block_route``) and the head at the flagship shape (B=128,
+64x64, 32 channels, 12 modes, 128 hidden units, 2 outputs) with
+``torch.profiler`` over 20 calls, on inputs drawn from N(0, 1), after
+checking both against their plain PyTorch versions, in each mode that
+``--matmul_precision`` names (default: both): split TF32 (``highest``,
+``default``, ...) and the one-product TF32 mode (``high``,
+``tensorfloat32``, ``TF32_TF32_F32``), the latter against the plain version
+of its mode and beside its distance from the float32 one. The block's old
+passes (route 0: ``mma.sync`` and ``cp.async``) run beside the new route at
+the same shape: their passes by the profiler, and both whole calls by CUDA
+events in the same turns (old, new, new, old). Then it measures the card's
+``mma.sync.m16n8k8`` TF32 rate with a kernel that issues nothing else.
 
     python3 scripts/bench_torch_kernels.py [--matmul_precision highest high]
 
@@ -97,6 +102,19 @@ def kernel_ms(fn) -> dict:
     return times
 
 
+def call_ms(fn, calls: int = 20) -> float:
+    """Mean ms a call of ``fn`` by CUDA events over ``calls`` calls after one."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--matmul_precision", nargs="+", default=["highest", "high"],
@@ -109,6 +127,12 @@ def main(argv=None) -> int:
     print(card)
     OUT.mkdir(parents=True, exist_ok=True)
     lib = _build.load_library()
+    sass = subprocess.run([str(Path(_build.find_nvcc()).with_name("cuobjdump")), "-sass",
+                           str(_build.LIBRARY)], capture_output=True, text=True, check=True).stdout
+    ops = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
+    print(f"[{card}] kernel library SASS: " + ", ".join(f"{op} {n}" for op, n in ops.items()))
+    route = fk.block_route(lib, H, W, C, C, MODES, MODES)
+    print(f"[{card}] fno_block at the flagship: {fk.route_name(route)}")
 
     gen = torch.Generator().manual_seed(0)
     x = torch.randn((B, H, W, C), generator=gen).to(device)
@@ -137,14 +161,22 @@ def main(argv=None) -> int:
                        (got_head - f32_head).abs().max().item())
             times = kernel_ms(lambda: fk._block_call(lib, *block, stream, tf32=tf32))
             times.update(kernel_ms(lambda: fk._head_call(lib, *head, stream, tf32)))
+            old = kernel_ms(lambda: fk._block_call(lib, *block, stream, tf32=tf32, route=0))
+            turns = [call_ms(lambda r=r: fk._block_call(lib, *block, stream, tf32=tf32, route=r))
+                     for r in (0, route, route, 0)]
         block_ms = sum(v for k, v in times.items() if not k.startswith("fno_head"))
-        print(f"[{card}] {'TF32' if tf32 else 'split TF32'}: err against the plain version of "
+        mode = 'TF32' if tf32 else 'split TF32'
+        print(f"[{card}] {mode}: err against the plain version of "
               f"the mode: block {err_block:.3e} (of max {want_block.abs().max().item():.3f}), "
               f"head {err_head:.3e}; against the float32 plain version: block {f32_err[0]:.3e}, "
               f"head {f32_err[1]:.3e}; block {block_ms:.4f} = "
               + " + ".join(f"{k} {v:.4f}" for k, v in times.items()
                            if not k.startswith("fno_head"))
               + f"; head {times['fno_head_kernel']:.4f}")
+        print(f"[{card}] {mode}: block on route 0, {sum(old.values()):.4f} = "
+              + " + ".join(f"{k} {v:.4f}" for k, v in old.items())
+              + f"; whole calls by CUDA events, routes (0, {route}, {route}, 0): "
+              + ", ".join(f"{v:.4f}" for v in turns) + " ms")
 
     src = OUT / "mma_rate.cu"
     src.write_text(MMA_RATE)
