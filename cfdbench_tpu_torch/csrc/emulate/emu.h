@@ -23,7 +23,12 @@
 // destination's shared-memory offset and zeros outside the tensor; cp.async.bulk a
 // memcpy. An mbarrier is a counter of arrivals and bytes with a phase,
 // under one lock; a waiter sleeps on the phase until the phase of its
-// parity has completed. Named barrier 1 is the first warpgroup's barrier.
+// parity has completed. A named barrier (bar.sync, bar.arrive) is a
+// std::barrier per id over the thread count its first user names, made
+// anew for each block (an arrival that no waiter matched, as a ping-pong
+// leaves at its end, does not carry over); bar.arrive arrives and goes on.
+// setmaxnreg does nothing; rcp.approx and ex2.approx are the exact 1 / x
+// and 2^x.
 //
 // Built by ops/_build.py::load_emulation with a host C++20 compiler and
 // -DFNO_EMULATE; launch.cuh includes this file in place of the CUDA
@@ -109,12 +114,13 @@ template <class T>
 inline T __ldg(const T* p) {
   return *p;
 }
+inline float rcp_approx(float x) { return 1.f / x; }
+inline float ex2_approx(float x) { return std::exp2(x); }
 
 namespace emu {
 
 constexpr int kScratch = 16;  // floats per lane: a0-a3, b0-b1, one shuffle value; wgmma's A at 8-15
 
-// A warpgroup's barrier and the A fragments of its current wgmma.
 // A warpgroup's barrier.
 struct WarpGroup {
   std::unique_ptr<std::barrier<>> bar;
@@ -122,6 +128,9 @@ struct WarpGroup {
 
 struct Block {
   std::unique_ptr<std::barrier<>> bar;
+  std::mutex named_lock;
+  std::unique_ptr<std::barrier<>> named[16];  // named barriers by id, made at first use
+  int named_threads[16];
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
   std::vector<std::array<float, 32 * kScratch>> scratch;
   std::vector<WarpGroup> warpgroups;
@@ -166,7 +175,10 @@ struct Launch {
         for (unsigned bz = 0; bz < grid.z; ++bz)
           for (unsigned by = 0; by < grid.y; ++by)
             for (unsigned bx = 0; bx < grid.x; ++bx) {
-              if (i == 0) std::memset(blk.smem.data(), 0xff, blk.smem.size() * sizeof(float4));
+              if (i == 0) {
+                std::memset(blk.smem.data(), 0xff, blk.smem.size() * sizeof(float4));
+                for (auto& b : blk.named) b.reset();
+              }
               blk.bar->arrive_and_wait();
               block_idx = dim3(bx, by, bz);
               kernel(args...);
@@ -373,10 +385,28 @@ inline void tma_load_4d(void* dst, const CUtensorMap* map, Mbar* b, int c0, int 
 }
 
 inline void fence_proxy_async() {}
-inline void consumer_sync(int threads) {
-  if (threads != 128) std::abort();
-  emu::block->warpgroups[0].bar->arrive_and_wait();
+template <int N>
+inline void setmaxnreg_dec() {}  // registers are the host's
+template <int N>
+inline void setmaxnreg_inc() {}
+
+namespace emu {
+inline std::barrier<>& named_barrier(int id, int threads) {
+  std::lock_guard<std::mutex> l(block->named_lock);
+  if (id < 1 || id > 15 || threads < 32 || threads % 32) std::abort();
+  auto& b = block->named[id];
+  if (!b) {
+    b = std::make_unique<std::barrier<>>(threads);
+    block->named_threads[id] = threads;
+  } else if (block->named_threads[id] != threads) {
+    std::abort();  // one barrier named with two thread counts
+  }
+  return *b;
 }
+}  // namespace emu
+
+inline void named_sync(int id, int threads) { emu::named_barrier(id, threads).arrive_and_wait(); }
+inline void named_arrive(int id, int threads) { (void)emu::named_barrier(id, threads).arrive(); }
 
 inline void wgmma_fence() { emu::wg_sync(); }
 inline void wgmma_commit() {}

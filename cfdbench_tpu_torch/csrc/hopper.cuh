@@ -1,5 +1,6 @@
-// Hopper's asynchronous machinery for the FNO block's inverse pass
-// (sm_90a): wgmma, TMA, mbarrier, and the host's tensor maps.
+// Hopper's asynchronous machinery for the FNO kernels' Hopper routes
+// (sm_90a): wgmma, TMA, mbarrier, named barriers, and the host's tensor
+// maps.
 //
 // wgmma.mma_async (warpgroup matrix multiply) is the only instruction that
 // reaches the tensor cores' full rate on this card; mma.sync (tf32.cuh)
@@ -116,10 +117,33 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, M
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
-// Named barrier 1 over the `threads` consumer threads (the producer warp
-// never joins it).
-__device__ __forceinline__ void consumer_sync(int threads) {
-  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+// Named barrier `id` (1-15; 0 is __syncthreads') over `threads` threads:
+// named_sync waits for them all, named_arrive counts this thread's warp in
+// and goes on. A kernel's producer never joins its consumers' barriers.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+#endif  // FNO_EMULATE
+
+// Named barrier 1 over the `threads` consumer threads.
+__device__ __forceinline__ void consumer_sync(int threads) { named_sync(1, threads); }
+
+#ifndef FNO_EMULATE
+
+// This warpgroup's registers a thread, down (dec) or up (inc) to N (24 to
+// 256, a multiple of 8), every warp of it together; what one gives up, the
+// others' inc takes. Compiled in only where the kernel's roles split in one
+// branch that never rejoins.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -205,6 +229,20 @@ __device__ __forceinline__ void wgmma_tf32<64>(float* d, const uint32_t a[4], ui
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
       : FNO_WG_D32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float* d, const uint32_t a[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : FNO_WG_D32(0), FNO_WG_D32(32)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 

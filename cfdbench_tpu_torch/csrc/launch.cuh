@@ -88,6 +88,21 @@ cudaError_t persistent_blocks(Kernel kernel, int threads, size_t smem, long long
   return cudaSuccess;
 }
 
+#ifndef FNO_EMULATE
+// 1 / x and 2^x as one special-function instruction each (about 1 ulp and
+// 2^-22 relative; denormal results flushed to zero).
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ float ex2_approx(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+#endif
+
 __device__ __forceinline__ float gelu_erf(float y) {
   return 0.5f * y * (1.f + erff(y * 0.70710678118654752f));
 }

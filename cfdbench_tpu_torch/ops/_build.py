@@ -152,6 +152,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fno_block_route.restype = i32
     lib.fno_head_forward.argtypes = [ptr] * 7 + [i64, i32, i32, i32, i32, ptr]
     lib.fno_head_forward.restype = i32
+    lib.fno_head_forward_on.argtypes = [ptr] * 8 + [i64] + [i32] * 5 + [ptr]
+    lib.fno_head_forward_on.restype = i32
+    lib.fno_head_route.argtypes = [i32] * 3
+    lib.fno_head_route.restype = i32
+    lib.fno_head_scratch.argtypes = [i32] * 3
+    lib.fno_head_scratch.restype = i64
     lib.fno_error_string.argtypes = [i32]
     lib.fno_error_string.restype = ctypes.c_char_p
     lib.fno_block_tiles.argtypes = [ctypes.POINTER(i32)]

@@ -48,19 +48,28 @@ nothing (the plain float32 version runs), as JAX's precision changes
 nothing on its CPU backend. Each plain version takes the mode too: in
 TF32 mode it rounds every product's operands as the kernel does
 (:func:`round_tf32`) and multiplies in float32, so it differs from the
-kernel only in the order of its sums. The backwards are PyTorch ops in
+kernel only in the order of its sums (and, for the head, in its GELU's
+erf: the kernel computes the TPU kernel's rational erf, within 1.5e-7 of
+the exact one). The backwards are PyTorch ops in
 either mode, and follow cuBLAS's setting (``utils/device.py::set_numerics``).
 The block kernel's constant operands — the truncated DFT tables — are
 split into TF32 high and low halves here, once per grid and mode count
 (:func:`_block_tables`): in ``mma.sync`` fragment order for the sm_80
 route's passes, and as ``wgmma``'s K-major B planes (:func:`_b_planes`)
 for the Hopper route's; in TF32 mode the kernels read only the high halves.
-The library picks the route by shape before a launch
-(``fno_block_route``, :func:`block_route`, :func:`route_name`): the
-Hopper route (``wgmma`` fed by TMA through ``mbarrier`` rings, the
-inverse's row spectra kept on chip) where the channel counts are
-multiples of 4 and its tables fit, the sm_80 route elsewhere; a failure
-raises, it never gives way to the other route.
+The library picks each kernel's route by shape before a launch
+(``fno_block_route``, :func:`block_route`, :func:`route_name`;
+``fno_head_route``, :func:`head_route`, :func:`head_route_name`, the
+CUDA kernels of each in :func:`route_kernels` and
+:func:`head_route_kernels`): the Hopper route where the channel counts
+are multiples of 4 and its tables fit — the block on ``wgmma`` fed by TMA
+through ``mbarrier`` rings, the inverse's row spectra kept on chip; the
+head's fc1 on ``wgmma`` fed by TMA, three consumer warpgroups taking
+turns on the tensor cores while the others run the GELU and fc2
+epilogue, w1 split once a block or, where it does not fit, once a call
+into scratch (:func:`_head_plan`) and streamed — and the sm_80 route
+(``mma.sync``, ``cp.async``) elsewhere; a failure raises, it never gives
+way to the other route.
 ``_block_call`` and ``_head_call`` take the library to launch, so the
 tests can run them through the kernels' CPU emulation
 (``ops/_build.py::load_emulation``).
@@ -118,6 +127,8 @@ SPEC_MODES = 12  # kSpecModes: modes each way the Hopper route's pass 1 takes at
 
 # fno_block_route's bits: which passes run on the Hopper route at a shape.
 ROUTE_FINISH, ROUTE_SPECTRUM = 1, 2
+# fno_head_route's bits: the Hopper route; w1 streamed rather than resident.
+HEAD_HOPPER, HEAD_STREAMED = 1, 2
 
 
 def route_kernels(route: int) -> tuple:
@@ -136,6 +147,25 @@ def route_name(route: int) -> str:
     finish = ("pass 2 and the fused inverse on wgmma and TMA" if route & ROUTE_FINISH
               else "passes 2-4 on mma.sync and cp.async")
     return f"route {route}: {spectrum}; {finish}"
+
+def head_route_kernels(route: int) -> tuple:
+    """The CUDA kernels (by name) that one head launch group runs on
+    ``route`` (:func:`head_route`)."""
+    if route & HEAD_HOPPER:
+        return (("fno_head_split_kernel", "fno_head_hopper_kernel") if route & HEAD_STREAMED
+                else ("fno_head_hopper_kernel",))
+    return ("fno_head_streamed_kernel",) if route & HEAD_STREAMED else ("fno_head_kernel",)
+
+
+def head_route_name(route: int) -> str:
+    """``fno_head_route``'s answer in words."""
+    if route & HEAD_HOPPER:
+        w1 = ("w1 split once a call and streamed beside x" if route & HEAD_STREAMED
+              else "w1 split once a block")
+        return f"route {route}: fc1 on wgmma fed by TMA, ping-pong epilogue; {w1}"
+    w1 = "w1 streamed over the channels" if route & HEAD_STREAMED else "w1 resident"
+    return f"route {route}: fc1 on mma.sync and cp.async; {w1}"
+
 
 _LANE = np.arange(32)
 _G, _T = _LANE // 4, _LANE % 4
@@ -362,6 +392,18 @@ def block_route(lib, H: int, W: int, Ci: int, Co: int, modes1: int, modes2: int)
     return route
 
 
+@functools.lru_cache(maxsize=64)
+def head_route(lib, C: int, hidden: int, n_out: int) -> int:
+    """The route the head kernel takes at C channels, ``hidden`` hidden
+    units and ``n_out`` outputs, from the library, by the shape alone:
+    ``HEAD_HOPPER`` set, the Hopper route; ``HEAD_STREAMED`` set, w1
+    streamed (:func:`head_route_name`). Raises on widths no route takes."""
+    route = lib.fno_head_route(C, hidden, n_out)
+    _check(route >= 0, f"fno_head takes no route at C={C}, {hidden} hidden units, "
+                       f"{n_out} outputs")
+    return route
+
+
 def check_kernel_shapes(H: int, W: int, width: int, modes1: int, modes2: int,
                         hidden: int, n_out: int, lib=None) -> None:
     """Raise ValueError, naming the size, if the kernels (``lib``, the
@@ -526,8 +568,8 @@ def _block_spectrum(lib, x, modes1, modes2, stream: int, span=None, tf32: bool =
 
 def _check_aligned(x) -> None:
     if x.data_ptr() % 16:
-        raise ValueError("the block kernel's TMA reads x from a 16-byte aligned address, got "
-                         f"{x.data_ptr():#x}")
+        raise ValueError("the kernels' Hopper routes read x by TMA from a 16-byte aligned "
+                         f"address, got {x.data_ptr():#x}")
 
 
 def _block_finish(lib, x, xm, weights, w0, b0, modes1, modes2, stream: int,
@@ -582,18 +624,36 @@ def _block_call(lib, x, weights, w0, b0, modes1, modes2, stream: int, keep: bool
     return out, xm, pre
 
 
-def _head_call(lib, x, w1, b1, w2, b2, mask, stream: int, tf32: bool = False):
-    """Allocate the head kernel's output and launch it through ``lib``, in
-    TF32 mode with ``tf32``."""
+@functools.lru_cache(maxsize=64)
+def _head_plan(lib, C: int, hidden: int, n_out: int, route=None):
+    """``(route, scratch)`` of a head launch at these widths, kept: the
+    route (:func:`head_route` unless given; 0 runs the ``mma.sync`` route
+    at any shape, to time both) and the floats of scratch it needs (the
+    streamed Hopper route's split w1 planes). A launch's host time is part
+    of every rollout step's (a refusal raises and is not kept)."""
+    _refuse(lib.fno_head_unsupported(C, hidden, n_out),
+            f"fno_head at C={C}, {hidden} hidden units, {n_out} outputs")
+    route = head_route(lib, C, hidden, n_out) if route is None else route
+    return route, lib.fno_head_scratch(C, hidden, route & HEAD_HOPPER)
+
+
+def _head_call(lib, x, w1, b1, w2, b2, mask, stream: int, tf32: bool = False, route=None):
+    """Allocate the head kernel's output (and scratch) and launch it
+    through ``lib``, in TF32 mode with ``tf32``; ``route``: as for
+    :func:`_head_plan`."""
     B, H, W, C = x.shape
     n_out = w2.shape[0]
-    _refuse(lib.fno_head_unsupported(C, w1.shape[0], n_out),
-            f"fno_head at x {tuple(x.shape)}, w1 {tuple(w1.shape)}")
+    route, scratch = _head_plan(lib, C, w1.shape[0], n_out, route)
+    hopper = route & HEAD_HOPPER
+    if hopper:
+        _check_aligned(x)
+    planes = torch.empty(scratch, device=x.device) if scratch else None
     out = torch.empty((B, H, W, n_out), device=x.device)
-    err = lib.fno_head_forward(
+    err = lib.fno_head_forward_on(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        B * H * W, C, w1.shape[0], n_out, products(tf32), stream,
+        None if planes is None else planes.data_ptr(),
+        B * H * W, C, w1.shape[0], n_out, products(tf32), hopper, stream,
     )
     check_launch(lib, err, "fno_head")
     return out

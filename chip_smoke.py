@@ -7,16 +7,20 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
 
 1. Prints the card (name, power limit), the PyTorch, CUDA and nvcc
    versions, whether Triton imports, and builds both kernels from
-   ``cfdbench_tpu_torch/csrc`` (build time and ptxas report).
+   ``cfdbench_tpu_torch/csrc`` (build time, ptxas report, and the Hopper
+   routes' wgmma, TMA and bulk-copy instructions in the library's SASS, in
+   all and in each kernel's functions).
 2. Holds each kernel to its plain PyTorch version on the card, in float32
    with TF32 off (the block's output, and what it keeps for the backward:
    the pre-activation and x's retained modes), at the flagship widths
    (B=8, 64x64, 32 channels, 12 modes), at 66x65 (odd W), at the ragged
    18x17 with 10 channels (4 modes, 3 head outputs) and 16x16 with 8
    channels (modes clamped), and at the kernels' wider tilings: 64x136
-   (the forward pass in three column chunks) and 66x80 with 128 channels
+   (the forward pass in three column chunks), 66x80 with 128 channels
    (channel tiles, one row per item of the inverse-columns pass, the
-   head's x single-buffered).
+   Hopper head's widest resident w1) and 8x64 with 198 channels (4 modes,
+   3 head outputs: a width not a multiple of 4, so the head's ``mma.sync``
+   route with w1 streamed).
 3. Drives the main path through its entry point: a synthetic 64x64
    cavity tree, a seeded flagship FNO (depth 4, width 32, 12 modes)
    saved as ``ckpt-0/model.pt``, then
@@ -35,6 +39,7 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    mode mixing, the head's fc2) as float32 multiply-adds at 67 TFLOP/s
    (an H100 SXM's published dense rates). No single PyTorch call
    computes either kernel's function, so neither has a library time.
+   Each kernel's route is printed (``route_name``, ``head_route_name``).
 6. Trains on the card. (a) The flagship's nmse and every parameter's
    gradient at B=8 through the kernels' autograd Functions, against
    autograd through the plain versions. (b) ``cli.main_auto --mode
@@ -158,7 +163,8 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    TF32 at the flagship's shapes (B=128) against its TF32 plain version and
    the float32 one (the block's saved outputs too), timed against that plain
    version and beside its split mode, with its bound at one TF32 product;
-   the block's TF32 halves at 15a's first split. (b) Phase 6b's
+   the head's ``mma.sync`` route (route 0) in TF32 at the same gates; the
+   block's TF32 halves at 15a's first split. (b) Phase 6b's
    ``main_auto`` under ``high`` (every launch in TF32 mode) against phase
    6b's float32 run, and ``main_multistep`` under ``high`` on phase 6b's
    checkpoint (80 and 20 TF32 launches) against its float32 rollout. (c) The
@@ -324,8 +330,9 @@ Usage, from the root of a checkout, on a machine with one CUDA card:
    its frames/s beside the plain path's. (b) ``main_multistep
    --profile_dir`` on phase 3's checkpoint, twice in this process: each
    run phase 3's launches and a ``torch.profiler`` trace of its own that
-   holds each of the block's four CUDA kernels 80 times and the head's 20
-   times by name. (c)
+   holds each of the block's CUDA kernels 80 times and the head's 20
+   times by name (each kernel's route's: ``route_kernels``,
+   ``head_route_kernels``). (c)
    ``scripts/vae_diagnostics_torch.py`` on phase 10's VAE and the phase-6
    tree: its summary and arrays written (``diagnostics.json``,
    ``diagnostics.npz``; the machine has no matplotlib for its plots), all
@@ -472,7 +479,8 @@ EXACT_ZERO = 1e-9
 # (B, H, W, channels, modes, head outputs) of phase 2.
 CHECK_SHAPES = ((8, GRID, GRID, WIDTH, MODES, 2), (8, GRID + 2, GRID + 1, WIDTH, MODES, 2),
                 (3, 18, 17, 10, 4, 3), (17, 16, 16, 8, MODES, 2),
-                (4, GRID, 136, WIDTH, MODES, 2), (4, GRID + 2, 80, 128, MODES, 2))
+                (4, GRID, 136, WIDTH, MODES, 2), (4, GRID + 2, 80, 128, MODES, 2),
+                (2, 8, 64, 198, 4, 3))
 # Phase 11: serving. The imported reference checkpoint's metrics against
 # the original's (a relayout: equal up to rounding); the served FNO against
 # the in-process forward (the same kernels on the same inputs); the served
@@ -673,12 +681,11 @@ SP_EMPTY_CONTROLLED = ("unet_empty",)
 # An H100 SXM's published peaks (NVIDIA's data sheet, dense rates): device
 # memory bytes/s, TF32 FLOP/s on the tensor cores and float32 FLOP/s outside
 # them. A split-TF32 product (csrc/tf32.cuh) is three TF32 products.
-# Phase 16: the flagship's domain padding, and the CUDA kernel a head call
-# launches (a block call's, one each, depend on its route:
-# ops/fno_kernels.py::route_kernels).
+# Phase 16: the flagship's domain padding (the CUDA kernels a block or head
+# call launches, one each, depend on its route: ops/fno_kernels.py::
+# route_kernels, head_route_kernels).
 PAD = 9
 PROFILE_DIR = WORK / "profile"  # phase 16b's main_multistep traces
-HEAD_CUDA_KERNELS = ("fno_head_kernel",)
 # Phase 17: the FNO past the kernels' old shared-memory limits. WIDE is the
 # widest width of the JAX package's own sweep (bench.py) and the one
 # --opt_state_dtype exists for; WIDE_GRID a grid 512 wide.
@@ -772,10 +779,19 @@ def host_facts():
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("  ptxas:", line.strip())
-    # The Hopper route's instructions in the library: wgmma, TMA boxes, bulk copies.
+    # The Hopper routes' instructions in the library: wgmma, TMA boxes, bulk
+    # copies, in all and in each kernel's functions.
     sass = sh(str(Path(_build.find_nvcc()).with_name("cuobjdump")), "-sass", str(_build.LIBRARY))
-    ops = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HGMMA", "UTMALDG", "UBLKCP")}
-    print("kernel library SASS: " + ", ".join(f"{op} {n}" for op, n in ops.items()))
+
+    def counts(text: str) -> str:
+        return ", ".join(f"{op} {len(re.findall(rf'\b{op}\b', text))}"
+                         for op in ("HGMMA", "UTMALDG", "UBLKCP"))
+
+    print(f"kernel library SASS: {counts(sass)}")
+    functions = re.split(r"\n\s*Function : ", sass)[1:]
+    for kernel in ("fno_block", "fno_head"):
+        mine = [f for f in functions if f"_{kernel}_cu_" in f.split("\n", 1)[0]]
+        print(f"  {kernel}.cu, {len(mine)} functions: {counts(''.join(mine))}")
     return card
 
 
@@ -1018,6 +1034,11 @@ def timing(device, card):
                 print(f"[time] [{card}] fno_block {fk.route_name(route)}; per pass (ms, "
                       f"torch.profiler over 10 calls): " + ", ".join(
                           f"{k_} {v:.4f}" for k_, v in passes.items()))
+            else:
+                route = fk.head_route(fk.load_library(), WIDTH, t["w1"].shape[0],
+                                      t["w2"].shape[0])
+                times[name].update(head_route=fk.head_route_name(route))
+                print(f"[time] [{card}] fno_head {fk.head_route_name(route)}")
             nbytes, tensor_fma, core_fma = work[name]
             print(f"[time] [{card}] {name} B={B} {H}x{W} C={WIDTH}: kernel {k:.4f} ms, "
                   f"plain {p:.4f} ms ({p / k:.2f}x); bound {bound_ms:.4f} ms by {bound_by} "
@@ -2644,6 +2665,17 @@ def tf32_kernels(device, card) -> dict:
                       f"(bound {TF32_BLOCK_RTOL:.0e})")
                 if not (pre_err <= atol and xm_rel <= TF32_BLOCK_RTOL):
                     raise RuntimeError("fno_block's saved outputs in TF32 disagree")
+            else:  # the mma.sync route, which widths not a multiple of 4 take
+                old = fk._head_call(lib, *head, stream, True, route=0)
+                old_err = (old - want).abs().max().item()
+                old_f32 = (old - want32).abs().max().item()
+                print(f"[tf32] fno_head on route 0 (mma.sync) in TF32: max abs err {old_err:.3e} "
+                      f"against its TF32 plain version (bound {atol:.1e}), {old_f32:.3e} against "
+                      f"the float32 one")
+                if not (torch.isfinite(old).all() and old_err <= atol
+                        and TF32_RAN_RTOL * top < old_f32 <= TF32_F32_RTOL * top):
+                    raise RuntimeError(f"fno_head's route 0 in TF32: {old_err:.3e} from its TF32 "
+                                       f"plain version, {old_f32:.3e} from the float32 one")
             plain_ms, ms = interleaved_ms(lambda: ref(*args, tf32=True),
                                           lambda: kern(*args, tf32=True), reps=20)
             split_ms, ms2 = interleaved_ms(lambda: kern(*args), lambda: kern(*args, tf32=True),
@@ -2652,6 +2684,8 @@ def tf32_kernels(device, card) -> dict:
             out[name] = dict(max_abs_err=err, max_abs_err_f32=f32_err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by, split_ms=split_ms,
                              tf32_ms_beside_split=ms2)
+            if name == "fno_head":
+                out[name].update(route0_max_abs_err=old_err, route0_max_abs_err_f32=old_f32)
             print(f"[time] [{card}] {name} B={B} {H}x{W} C={WIDTH} TF32: kernel {ms:.4f} ms, "
                   f"its plain version {plain_ms:.4f} ms; beside split TF32 {split_ms:.4f} ms, "
                   f"TF32 {ms2:.4f} ms ({ms2 / split_ms:.3f}); bound {bound_ms:.4f} ms by "
@@ -4805,11 +4839,19 @@ def flagship_block_kernels() -> tuple:
                                            MODES, MODES))
 
 
+def flagship_head_kernels() -> tuple:
+    """The CUDA kernels a flagship head call launches (its route's)."""
+    from cfdbench_tpu_torch.ops import _build, fno_kernels as fk
+
+    return fk.head_route_kernels(fk.head_route(_build.load_library(), WIDTH, 128, 2))
+
+
 def trace_kernel_counts(path: Path) -> dict:
     """Each of the FNO's CUDA kernels: how many launches a Chrome trace holds."""
     names = [e.get("name", "") for e in json.loads(path.read_text())["traceEvents"]
              if e.get("cat") == "kernel"]
-    return {k: sum(k in n for n in names) for k in flagship_block_kernels() + HEAD_CUDA_KERNELS}
+    return {k: sum(k in n for n in names)
+            for k in flagship_block_kernels() + flagship_head_kernels()}
 
 
 def profiled_multistep(want_counts: dict) -> dict:
@@ -4822,7 +4864,7 @@ def profiled_multistep(want_counts: dict) -> dict:
     from cfdbench_tpu_torch.ops.fno_kernels import launch_counts, reset_launch_counts
 
     want = {**{k: want_counts["fno_block"] for k in flagship_block_kernels()},
-            **{k: want_counts["fno_head"] for k in HEAD_CUDA_KERNELS}}
+            **{k: want_counts["fno_head"] for k in flagship_head_kernels()}}
     shutil.rmtree(PROFILE_DIR, ignore_errors=True)
     counts = []
     for _ in range(2):

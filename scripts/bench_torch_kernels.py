@@ -4,17 +4,27 @@
 Builds ``cfdbench_tpu_torch/csrc``, counts the Hopper instructions in the
 library's SASS (``HGMMA``, ``UTMALDG``, ``UBLKCP``: ``cuobjdump -sass``),
 and times each kernel of the FnoBlock (its passes, on the route its shape
-takes: ``fno_block_route``) and the head at the flagship shape (B=128,
-64x64, 32 channels, 12 modes, 128 hidden units, 2 outputs) with
-``torch.profiler`` over 20 calls, on inputs drawn from N(0, 1), after
-checking both against their plain PyTorch versions, in each mode that
-``--matmul_precision`` names (default: both): split TF32 (``highest``,
-``default``, ...) and the one-product TF32 mode (``high``,
-``tensorfloat32``, ``TF32_TF32_F32``), the latter against the plain version
-of its mode and beside its distance from the float32 one. The block's old
-passes (route 0: ``mma.sync`` and ``cp.async``) run beside the new route at
-the same shape: their passes by the profiler, and both whole calls by CUDA
-events in the same turns (old, new, new, old). Then it measures the card's
+takes: ``fno_block_route``) and of the head (on its route:
+``fno_head_route``) at the flagship shape (B=128, 64x64, 32 channels, 12
+modes, 128 hidden units, 2 outputs) with ``torch.profiler`` over 20 calls,
+on inputs drawn from N(0, 1), after checking both against their plain
+PyTorch versions, in each mode that ``--matmul_precision`` names (default:
+both): split TF32 (``highest``, ``default``, ...) and the one-product TF32
+mode (``high``, ``tensorfloat32``, ``TF32_TF32_F32``), the latter against
+the plain version of its mode and beside its distance from the float32
+one. Each kernel's old route (route 0: ``mma.sync`` and ``cp.async``) runs
+beside its new one at the same shape: its kernels by the profiler, and
+both whole calls by CUDA events in the same turns (old, new, new, old).
+
+The head's epilogue's SASS instructions per hidden unit come from a probe
+that compiles the kernel's epilogue alone (``hopper_epilogue`` on 64
+accumulators a thread, less a probe that only adds them up, whose one add a
+unit is counted back), and give the epilogue's floor on the CUDA cores:
+instructions x n x hidden / (132 SMs x 128 lanes x the SM clock
+``nvidia-smi`` reports as its maximum). At the flagship and at a rank's 16 of 64 rows it also sets the
+head's device time on each route beside the host's time to enqueue one
+call, through the registered operator (``fno_head``, as the models call
+it) and through ``_head_call`` alone. Then it measures the card's
 ``mma.sync.m16n8k8`` TF32 rate with a kernel that issues nothing else.
 
     python3 scripts/bench_torch_kernels.py [--matmul_precision highest high]
@@ -29,6 +39,7 @@ import argparse
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -86,6 +97,56 @@ int main() {
 '''
 
 
+# The head's epilogue alone: 64 accumulators a thread through hopper_epilogue
+# (b1 and w2 in shared memory, as in the kernel), or only summed (the
+# probe's own loads and stores, subtracted).
+EPILOGUE_PROBE = r'''
+#include "fno_head.cu"
+template <bool EPILOGUE>
+__device__ void probe(const float* acc_in, const float* b1, const float* w2, float* out) {
+  __shared__ float b1s[kHopN], w2s[2 * kHopN];
+  for (int i = threadIdx.x; i < kHopN; i += blockDim.x) b1s[i] = b1[i];
+  for (int i = threadIdx.x; i < 2 * kHopN; i += blockDim.x) w2s[i] = w2[i];
+  __syncthreads();
+  float acc[kHopN / 2], s[2][2] = {};
+  for (int i = 0; i < kHopN / 2; ++i) acc[i] = acc_in[threadIdx.x * (kHopN / 2) + i];
+  if (EPILOGUE) {
+    hopper_epilogue<2, true>(acc, s, b1s, w2s, kHopN, kHopN / 32, threadIdx.x & 3);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kHopN / 2; ++i) s[i & 1][(i >> 1) & 1] += acc[i];
+  }
+  for (int i = 0; i < 4; ++i) out[threadIdx.x * 4 + i] = s[i >> 1][i & 1];
+}
+extern "C" __global__ void probe_epilogue(const float* a, const float* b, const float* w, float* o) {
+  probe<true>(a, b, w, o);
+}
+extern "C" __global__ void probe_sum(const float* a, const float* b, const float* w, float* o) {
+  probe<false>(a, b, w, o);
+}
+'''
+
+
+def sass_functions(binary: Path) -> dict:
+    """Each function's SASS instructions in a cubin or library."""
+    sass = subprocess.run([str(Path(_build.find_nvcc()).with_name("cuobjdump")), "-sass",
+                           str(binary)], capture_output=True, text=True, check=True).stdout
+    return {f.split("\n", 1)[0].strip(): re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", f)
+            for f in re.split(r"\n\s*Function : ", sass)[1:]}
+
+
+def epilogue_instructions() -> float:
+    """SASS instructions a hidden unit of the head's epilogue (EPILOGUE_PROBE)."""
+    src = OUT / "epilogue_probe.cu"
+    src.write_text(EPILOGUE_PROBE)
+    cubin = OUT / "epilogue_probe.cubin"
+    subprocess.run([_build.find_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                    "-O3", "-cubin", "-I", str(_build.CSRC), "-o", str(cubin), str(src)],
+                   check=True)
+    fns = sass_functions(cubin)
+    return (len(fns["probe_epilogue"]) - len(fns["probe_sum"])) / 64 + 1
+
+
 def kernel_ms(fn) -> dict:
     """Device time per call of every kernel ``fn`` launches, over 20 calls."""
     fn()
@@ -115,6 +176,40 @@ def call_ms(fn, calls: int = 20) -> float:
     return start.elapsed_time(end) / calls
 
 
+def enqueue_ms(fn, calls: int = 200) -> float:
+    """Host ms to enqueue a call of ``fn``, over ``calls`` calls after one."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e3
+
+
+def head_host(lib, card: str, device) -> None:
+    """The head at the flagship and at 16 of 64 rows (B=128): device ms a
+    call on each route, and the host's ms to enqueue one through the
+    registered operator and through ``_head_call``."""
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator().manual_seed(1)
+    for rows in (H, 16):
+        head = tuple(t.to(device) for t in (
+            torch.randn((B, rows, W, C), generator=gen), torch.randn((HIDDEN, C), generator=gen),
+            torch.randn(HIDDEN, generator=gen), torch.randn((N_OUT, HIDDEN), generator=gen),
+            torch.randn(N_OUT, generator=gen), torch.ones((B, rows, W, 1))))
+        with torch.inference_mode():
+            dev_ms = {r: sum(kernel_ms(lambda r=r: fk._head_call(lib, *head, stream,
+                                                                 route=r)).values())
+                      for r in (0, None)}
+            host = (enqueue_ms(lambda: fk.fno_head(*head)),
+                    enqueue_ms(lambda: fk._head_call(lib, *head, stream)))
+        print(f"[{card}] fno_head B={B} {rows}x{W}: device {dev_ms[None]:.4f} ms a call "
+              f"(route 0: {dev_ms[0]:.4f}); the host enqueues a call in {host[0]:.4f} ms "
+              f"through the registered operator, {host[1]:.4f} ms through _head_call")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--matmul_precision", nargs="+", default=["highest", "high"],
@@ -133,6 +228,16 @@ def main(argv=None) -> int:
     print(f"[{card}] kernel library SASS: " + ", ".join(f"{op} {n}" for op, n in ops.items()))
     route = fk.block_route(lib, H, W, C, C, MODES, MODES)
     print(f"[{card}] fno_block at the flagship: {fk.route_name(route)}")
+    head_route = fk.head_route(lib, C, HIDDEN, N_OUT)
+    head_kernels = fk.head_route_kernels(head_route)
+    print(f"[{card}] fno_head at the flagship: {fk.head_route_name(head_route)}")
+    count = epilogue_instructions()
+    clock = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                  "--format=csv,noheader,nounits"], capture_output=True,
+                                 text=True, check=True).stdout.split()[0])
+    floor = count * B * H * W * HIDDEN / (132 * 128 * clock * 1e6) * 1e3
+    print(f"[{card}] fno_head epilogue: {count:.2f} SASS instructions a hidden unit, floor "
+          f"{floor:.4f} ms at {clock:.0f} MHz (132 SMs x 128 lanes)")
 
     gen = torch.Generator().manual_seed(0)
     x = torch.randn((B, H, W, C), generator=gen).to(device)
@@ -164,6 +269,9 @@ def main(argv=None) -> int:
             old = kernel_ms(lambda: fk._block_call(lib, *block, stream, tf32=tf32, route=0))
             turns = [call_ms(lambda r=r: fk._block_call(lib, *block, stream, tf32=tf32, route=r))
                      for r in (0, route, route, 0)]
+            head_old = kernel_ms(lambda: fk._head_call(lib, *head, stream, tf32, route=0))
+            head_turns = [call_ms(lambda r=r: fk._head_call(lib, *head, stream, tf32, route=r))
+                          for r in (0, head_route, head_route, 0)]
         block_ms = sum(v for k, v in times.items() if not k.startswith("fno_head"))
         mode = 'TF32' if tf32 else 'split TF32'
         print(f"[{card}] {mode}: err against the plain version of "
@@ -172,12 +280,17 @@ def main(argv=None) -> int:
               f"head {f32_err[1]:.3e}; block {block_ms:.4f} = "
               + " + ".join(f"{k} {v:.4f}" for k, v in times.items()
                            if not k.startswith("fno_head"))
-              + f"; head {times['fno_head_kernel']:.4f}")
+              + "; head " + " + ".join(f"{k} {times[k]:.4f}" for k in head_kernels))
         print(f"[{card}] {mode}: block on route 0, {sum(old.values()):.4f} = "
               + " + ".join(f"{k} {v:.4f}" for k, v in old.items())
               + f"; whole calls by CUDA events, routes (0, {route}, {route}, 0): "
               + ", ".join(f"{v:.4f}" for v in turns) + " ms")
+        print(f"[{card}] {mode}: head on route 0, " + " + ".join(
+                  f"{k} {v:.4f}" for k, v in head_old.items())
+              + f"; whole calls by CUDA events, routes (0, {head_route}, {head_route}, 0): "
+              + ", ".join(f"{v:.4f}" for v in head_turns) + " ms")
 
+    head_host(lib, card, device)
     src = OUT / "mma_rate.cu"
     src.write_text(MMA_RATE)
     exe = OUT / "mma_rate"
